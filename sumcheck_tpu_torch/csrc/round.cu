@@ -1,11 +1,16 @@
 // MLSumcheck round kernels for Hopper (sm_90a): fold by the challenge,
 // evaluate the round polynomial at t = 0..d, and reduce per block.
 //
-// Replaces the Pallas kernels `_kernel_chain_nofold` and
-// `_kernel_chain_fold` of sumcheck_tpu/ops/round_pallas.py (and the jnp
-// `first_block` / `fold_block` bodies of protocol/generic_prover.py).
-// Built by ops/round_cuda.py with nvcc into a shared library with a plain C
-// interface, loaded with ctypes; the Python wrappers there hold the plain
+// Replaces the Pallas kernels of sumcheck_tpu/ops/round_pallas.py:
+//   - `_kernel_chain_nofold` / `_kernel_chain_fold` (the generic chain):
+//     round_kernel<false, false, false> and round_kernel<true, false, false>,
+//     which fold in place over a run-time extent;
+//   - `_kernel_nofold` / `_kernel_fold` (the per-size chain, `_build` and
+//     `round_pallas`): round_kernel<false, false, C> and
+//     round_kernel<true, true, C>, which fold out of place into fresh
+//     quarter-width tables, C = with per-product coefficients.
+// Built by ops/cuda_build.py with nvcc into a shared library with a plain C
+// interface, loaded with ctypes by ops/round_cuda.py, which holds the plain
 // PyTorch versions these kernels are checked against.
 //
 // Data layout (the JAX package's, kept at the tensor boundary): the table
@@ -16,46 +21,48 @@
 // Round with active pair count A (the extent):
 //   no fold:  E_u = lo[u][k], O_u = hi[u][k]                     (k < A)
 //   fold:     E_u = fold(lo[u][k], hi[u][k]),
-//             O_u = fold(lo[u][k + A], hi[u][k + A]),
-//             written back to lo[u][k], hi[u][k]                 (k < A)
-//             where fold(x, y) = x + r * (y - x).
-// Lane k is read and written only by its own thread, and the upper stripe
-// [A, 2A) is read-only in the round, so the in-place fold is race-free.
-// Then for t = 0..d: total(t) = sum_p prod_{s in p} (E_s + t * (O_s - E_s)),
-// fully reduced mod p. Each block writes the per-digit sums of total(t) over
-// its lanes, as 64-bit integers: part[block][t][digit]. Lanes k >= A add
-// nothing. The caller sums the blocks and carries the digits on the host.
+//             O_u = fold(lo[u][k + A], hi[u][k + A]),            (k < A)
+//             where fold(x, y) = x + r * (y - x);
+//     in place (generic chain): written back to lo[u][k], hi[u][k]. Lane k
+//       is read and written only by its own thread, and the upper stripe
+//       [A, 2A) is read-only in the round, so this is race-free;
+//     out of place (per-size chain, A = H / 2): written to lane k of the
+//       fresh (U, 16, A) tables lo_out, hi_out.
+// Then for t = 0..d: total(t) = sum_p [c_p *] prod_{s in p} (E_s + t * (O_s
+// - E_s)), fully reduced mod p, with the optional coefficient c_p
+// multiplied onto the first factor, in the Pallas kernel's order. Each block
+// writes the per-digit sums of total(t) over its lanes, as 64-bit integers:
+// part[block][t][digit]. Lanes k >= A add nothing. The caller sums the
+// blocks; the carry chain runs in the transcript step (transcript.cu) or on
+// the host.
 //
-// Field arithmetic: Montgomery form with R = 2^256, 8 x 32-bit limbs, CIOS
-// multiplication with 64-bit intermediates. p and -p^-1 mod 2^32 arrive as
-// launch parameters (struct Field), so another field changes no code here.
-// Every result is fully reduced into [0, p), as the JAX limb code does, so
-// the integers (and the digit sums) are bit-identical to it.
+// What bounds them on the H100: per lane, a fold round of the 2x3 workload
+// (6 slots) moves 2.3 KB and runs 12 Montgomery multiplies for the fold and
+// 16 for the evaluation, each 64 32x32->64-bit multiply-adds plus carries:
+// several integer instructions per byte moved, above the card's ratio of
+// integer throughput to memory bandwidth, so 32-bit integer multiply
+// throughput is the bound to expect. The design keeps to that: one lane per
+// thread, 8 x 32-bit limbs with 64-bit products (CIOS), coalesced digit
+// loads, each lane's values read from device memory once per round.
 //
 // Structure: product shape (slots, products, factors, degree) and the
 // product index matrix arrive at run time (struct Plan) with compile-time
 // maxima; the wrapper raises above them. The ladder values of all slots
 // live in dynamic shared memory, [slot][cur|step][limb][thread], so runtime
 // slot indices cost no local memory and consecutive threads hit
-// consecutive banks.
+// consecutive banks. Coefficients, when given, sit in static shared memory.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "field.cuh"
 
 namespace {
 
-constexpr int kLimbs = 8;     // 32-bit limbs per field element
-constexpr int kDigits = 16;   // 16-bit digits per field element (storage)
-constexpr int kThreads = 128; // threads per block
+using namespace sc;
+
+constexpr int kThreads = 128;  // threads per block
 constexpr int kMaxSlots = 16;
 constexpr int kMaxProducts = 16;
 constexpr int kMaxFactors = 8;
 constexpr int kMaxDegree = 8;
-
-struct Field {
-  uint32_t p[kLimbs];
-  uint32_t ninv;  // -p^-1 mod 2^32
-};
 
 struct Plan {
   int slots;
@@ -65,142 +72,35 @@ struct Plan {
   int idx[kMaxProducts * kMaxFactors];  // idx[p * kMaxFactors + l]
 };
 
-__device__ __forceinline__ void load_lane(uint32_t x[kLimbs],
-                                          const uint32_t* base,
-                                          long long stride) {
-#pragma unroll
-  for (int j = 0; j < kLimbs; ++j) {
-    const uint32_t d0 = base[(2 * j) * stride];
-    const uint32_t d1 = base[(2 * j + 1) * stride];
-    x[j] = d0 | (d1 << 16);
-  }
-}
-
-__device__ __forceinline__ void store_lane(uint32_t* base, long long stride,
-                                           const uint32_t x[kLimbs]) {
-#pragma unroll
-  for (int j = 0; j < kLimbs; ++j) {
-    base[(2 * j) * stride] = x[j] & 0xFFFFu;
-    base[(2 * j + 1) * stride] = x[j] >> 16;
-  }
-}
-
-// x in [0, 2p) -> [0, p).
-__device__ __forceinline__ void cond_sub_p(uint32_t x[kLimbs], const Field& f) {
-  uint32_t d[kLimbs];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int j = 0; j < kLimbs; ++j) {
-    const uint64_t t = (uint64_t)x[j] - f.p[j] - borrow;
-    d[j] = (uint32_t)t;
-    borrow = (uint32_t)(t >> 63);
-  }
-#pragma unroll
-  for (int j = 0; j < kLimbs; ++j) x[j] = borrow ? x[j] : d[j];
-}
-
-// r = a + b mod p. a, b < p < 2^255, so a + b < 2^256 carries out nothing.
-__device__ __forceinline__ void add_mod(uint32_t r[kLimbs],
-                                        const uint32_t a[kLimbs],
-                                        const uint32_t b[kLimbs],
-                                        const Field& f) {
-  uint32_t c = 0;
-#pragma unroll
-  for (int j = 0; j < kLimbs; ++j) {
-    const uint64_t t = (uint64_t)a[j] + b[j] + c;
-    r[j] = (uint32_t)t;
-    c = (uint32_t)(t >> 32);
-  }
-  cond_sub_p(r, f);
-}
-
-// r = a - b mod p.
-__device__ __forceinline__ void sub_mod(uint32_t r[kLimbs],
-                                        const uint32_t a[kLimbs],
-                                        const uint32_t b[kLimbs],
-                                        const Field& f) {
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int j = 0; j < kLimbs; ++j) {
-    const uint64_t t = (uint64_t)a[j] - b[j] - borrow;
-    r[j] = (uint32_t)t;
-    borrow = (uint32_t)(t >> 63);
-  }
-  const uint32_t mask = 0u - borrow;  // add p back on a borrow
-  uint32_t c = 0;
-#pragma unroll
-  for (int j = 0; j < kLimbs; ++j) {
-    const uint64_t t = (uint64_t)r[j] + (f.p[j] & mask) + c;
-    r[j] = (uint32_t)t;
-    c = (uint32_t)(t >> 32);
-  }
-}
-
-// r = a * b * 2^-256 mod p (CIOS). r may alias a or b.
-__device__ __forceinline__ void mont_mul(uint32_t r[kLimbs],
-                                         const uint32_t a[kLimbs],
-                                         const uint32_t b[kLimbs],
-                                         const Field& f) {
-  uint32_t t[kLimbs + 2];
-#pragma unroll
-  for (int j = 0; j < kLimbs + 2; ++j) t[j] = 0;
-#pragma unroll
-  for (int i = 0; i < kLimbs; ++i) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < kLimbs; ++j) {
-      const uint64_t s = (uint64_t)a[j] * b[i] + t[j] + c;  // < 2^64
-      t[j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    uint64_t s = (uint64_t)t[kLimbs] + c;
-    t[kLimbs] = (uint32_t)s;
-    t[kLimbs + 1] = (uint32_t)(s >> 32);
-    const uint32_t m = t[0] * f.ninv;
-    s = (uint64_t)m * f.p[0] + t[0];  // low word becomes 0
-    c = s >> 32;
-#pragma unroll
-    for (int j = 1; j < kLimbs; ++j) {
-      s = (uint64_t)m * f.p[j] + t[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    s = (uint64_t)t[kLimbs] + c;
-    t[kLimbs - 1] = (uint32_t)s;
-    t[kLimbs] = t[kLimbs + 1] + (uint32_t)(s >> 32);
-  }
-  // t < 2p < 2^256, so t[kLimbs] == 0 here
-#pragma unroll
-  for (int j = 0; j < kLimbs; ++j) r[j] = t[j];
-  cond_sub_p(r, f);
-}
-
-// r = x + c * (y - x) mod p
-__device__ __forceinline__ void fold(uint32_t r[kLimbs],
-                                     const uint32_t x[kLimbs],
-                                     const uint32_t y[kLimbs],
-                                     const uint32_t c[kLimbs],
-                                     const Field& f) {
-  uint32_t d[kLimbs];
-  sub_mod(d, y, x, f);
-  mont_mul(d, d, c, f);
-  add_mod(r, x, d, f);
-}
-
-template <bool kFold>
+template <bool kFold, bool kOutOfPlace, bool kCoeffs>
 __global__ void __launch_bounds__(kThreads)
     round_kernel(uint32_t* __restrict__ lo, uint32_t* __restrict__ hi,
-                 const uint32_t* __restrict__ r_digits, long long H,
-                 long long extent, Field f, Plan pl,
+                 uint32_t* __restrict__ lo_out, uint32_t* __restrict__ hi_out,
+                 const uint32_t* __restrict__ r_digits,
+                 const uint32_t* __restrict__ coeff_digits, long long H,
+                 long long H_out, long long extent, Field f, Plan pl,
                  long long* __restrict__ part) {
+  static_assert(kFold || !kOutOfPlace, "only a fold writes tables");
   extern __shared__ uint32_t ladder[];  // [slot][cur|step][limb][thread]
   __shared__ uint32_t warp_sums[kThreads / 32][kMaxDegree + 1][kDigits];
+  __shared__ uint32_t coeff[kCoeffs ? kMaxProducts : 1][kLimbs];
 
   const int tid = threadIdx.x;
   const long long k = (long long)blockIdx.x * kThreads + tid;
   const bool active = k < extent;
   const long long slot_stride = (long long)kDigits * H;
+  const long long out_stride = (long long)kDigits * H_out;
 #define LADDER(u, which, j) ladder[(((u) * 2 + (which)) * kLimbs + (j)) * kThreads + tid]
+
+  if constexpr (kCoeffs) {
+    for (int p = tid; p < pl.products; p += kThreads) {
+      uint32_t c[kLimbs];
+      load_lane(c, coeff_digits + p * kDigits, 1);
+#pragma unroll
+      for (int j = 0; j < kLimbs; ++j) coeff[p][j] = c[j];
+    }
+    __syncthreads();
+  }
 
   if (active) {
     uint32_t rr[kLimbs];
@@ -217,8 +117,13 @@ __global__ void __launch_bounds__(kThreads)
         load_lane(x, lo_u + extent, H);
         load_lane(y, hi_u + extent, H);
         fold(o, x, y, rr, f);
-        store_lane(lo_u, H, e);
-        store_lane(hi_u, H, o);
+        if constexpr (kOutOfPlace) {
+          store_lane(lo_out + u * out_stride + k, H_out, e);
+          store_lane(hi_out + u * out_stride + k, H_out, o);
+        } else {
+          store_lane(lo_u, H, e);
+          store_lane(hi_u, H, o);
+        }
       } else {
         load_lane(e, lo_u, H);
         load_lane(o, hi_u, H);
@@ -257,6 +162,7 @@ __global__ void __launch_bounds__(kThreads)
         const int s0 = pl.idx[p * kMaxFactors];
 #pragma unroll
         for (int j = 0; j < kLimbs; ++j) term[j] = LADDER(s0, 0, j);
+        if constexpr (kCoeffs) mont_mul(term, coeff[p], term, f);
         for (int l = 1; l < pl.factors; ++l) {
           const int sl = pl.idx[p * kMaxFactors + l];
           uint32_t x[kLimbs];
@@ -289,18 +195,22 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kFold>
-cudaError_t launch(void* lo, void* hi, const void* r, long long H,
-                   long long extent, const Field& f, const Plan& pl,
-                   void* part, long long nblk, cudaStream_t stream) {
+template <bool kFold, bool kOutOfPlace, bool kCoeffs>
+cudaError_t launch(void* lo, void* hi, void* lo_out, void* hi_out,
+                   const void* r, const void* coeff, long long H,
+                   long long H_out, long long extent, const Field& f,
+                   const Plan& pl, void* part, long long nblk,
+                   cudaStream_t stream) {
+  auto kernel = round_kernel<kFold, kOutOfPlace, kCoeffs>;
   const size_t smem = (size_t)pl.slots * 2 * kLimbs * kThreads * sizeof(uint32_t);
   cudaError_t e = cudaFuncSetAttribute(
-      round_kernel<kFold>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  round_kernel<kFold><<<(unsigned)nblk, kThreads, smem, stream>>>(
+  kernel<<<(unsigned)nblk, kThreads, smem, stream>>>(
       static_cast<uint32_t*>(lo), static_cast<uint32_t*>(hi),
-      static_cast<const uint32_t*>(r), H, extent, f, pl,
-      static_cast<long long*>(part));
+      static_cast<uint32_t*>(lo_out), static_cast<uint32_t*>(hi_out),
+      static_cast<const uint32_t*>(r), static_cast<const uint32_t*>(coeff),
+      H, H_out, extent, f, pl, static_cast<long long*>(part));
   return cudaGetLastError();
 }
 
@@ -310,11 +220,15 @@ extern "C" {
 
 int sc_round_threads() { return kThreads; }
 
+// mode: 0 = no fold; 1 = fold in place; 2 = fold out of place into lo_out,
+// hi_out of width H_out (which must equal extent). coeff: products x 16
+// Montgomery digits, or null for none (modes 0 and 2 only).
 // plan: slots, products, factors, degree, then products x kMaxFactors indices.
 // field: p as 8 x 32-bit limbs (least significant first), then -p^-1 mod 2^32.
 // Returns the cudaError_t of the launch (0 on success).
-int sc_round_launch(int do_fold, void* lo, void* hi, const void* r,
-                    long long H, long long extent, const int* plan,
+int sc_round_launch(int mode, void* lo, void* hi, void* lo_out, void* hi_out,
+                    const void* r, const void* coeff, long long H,
+                    long long H_out, long long extent, const int* plan,
                     const uint32_t* field, void* part, long long nblk,
                     void* stream) {
   Plan pl;
@@ -326,15 +240,32 @@ int sc_round_launch(int do_fold, void* lo, void* hi, const void* r,
       pl.products > kMaxProducts || pl.factors < 1 ||
       pl.factors > kMaxFactors || pl.degree < 1 || pl.degree > kMaxDegree)
     return (int)cudaErrorInvalidValue;
+  if (mode == 2 && H_out != extent) return (int)cudaErrorInvalidValue;
   for (int q = 0; q < kMaxProducts * kMaxFactors; ++q) pl.idx[q] = plan[4 + q];
   Field f;
   for (int j = 0; j < kLimbs; ++j) f.p[j] = field[j];
   f.ninv = field[kLimbs];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e =
-      do_fold ? launch<true>(lo, hi, r, H, extent, f, pl, part, nblk, s)
-              : launch<false>(lo, hi, r, H, extent, f, pl, part, nblk, s);
-  return (int)e;
+  const bool c = coeff != nullptr;
+  switch (mode * 2 + (c ? 1 : 0)) {
+    case 0:
+      return (int)launch<false, false, false>(lo, hi, nullptr, nullptr, r, coeff, H, H,
+                                              extent, f, pl, part, nblk, s);
+    case 1:
+      return (int)launch<false, false, true>(lo, hi, nullptr, nullptr, r, coeff, H, H,
+                                             extent, f, pl, part, nblk, s);
+    case 2:
+      return (int)launch<true, false, false>(lo, hi, nullptr, nullptr, r, coeff, H, H,
+                                             extent, f, pl, part, nblk, s);
+    case 4:
+      return (int)launch<true, true, false>(lo, hi, lo_out, hi_out, r, coeff, H, H_out,
+                                            extent, f, pl, part, nblk, s);
+    case 5:
+      return (int)launch<true, true, true>(lo, hi, lo_out, hi_out, r, coeff, H, H_out,
+                                           extent, f, pl, part, nblk, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* sc_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }

@@ -10,7 +10,13 @@ Vec<ProverMsg<F>>`, `mod.rs:22`).
 
 Port of `sumcheck_tpu/ml_sumcheck.py`. The prover's device is explicit:
 `device="cuda"` runs the rounds through the CUDA kernels, `device="cpu"`
-through their plain PyTorch versions (`protocol/generic_prover.py`).
+through their plain PyTorch versions. For a `Blake2b512Rng` transcript the
+rounds and the transcript run chained on the device, with one sync per
+prove: the generic chain (`protocol/generic_prover.py`) by default, the
+per-size chain (`protocol/device_prover.py`) when
+`SUMCHECK_TPU_CHAIN_IMPL` is anything else (`utils/config.py`). Any other
+transcript runs on the host between the rounds, as the JAX package's host
+loop does.
 """
 
 from __future__ import annotations
@@ -93,11 +99,18 @@ class MLSumcheck:
     ) -> tuple[list[ProverMsg], ProverState]:
         """Prove over a caller-supplied transcript; returns the prover state
         too, for composition into larger protocols (reference `mod.rs:50-70`).
-        The rounds run on `device` (`protocol/generic_prover.py`)."""
-        from .protocol.generic_prover import prove_generic
+        The rounds run on `device`; the proof bytes and the transcript's
+        final state are the same whichever chain runs."""
+        from .protocol.device_prover import prove_chained
+        from .protocol.generic_prover import prove_generic, prove_host_transcript
+        from .utils.config import get_config
 
         fs_rng.feed(polynomial.info())
-        return prove_generic(fs_rng, polynomial, device)
+        if not isinstance(fs_rng, Blake2b512Rng):
+            return prove_host_transcript(fs_rng, polynomial, device)
+        if get_config().chain_impl == "generic":
+            return prove_generic(fs_rng, polynomial, device)
+        return prove_chained(fs_rng, polynomial, device)
 
     @staticmethod
     def verify(

@@ -1,29 +1,46 @@
 """The MLSumcheck round kernels: CUDA launch wrappers and their plain
 PyTorch versions.
 
-Replaces `sumcheck_tpu/ops/round_pallas.py`'s `_kernel_chain_nofold`
-(round 0) and `_kernel_chain_fold` (every later round), and with them the
-jnp `first_block` / `fold_block` bodies of
-`sumcheck_tpu/protocol/generic_prover.py` that the TPU ran for wide rounds.
+Replaces the Pallas kernels of `sumcheck_tpu/ops/round_pallas.py`:
+
+- `_kernel_chain_nofold` (round 0) and `_kernel_chain_fold` (every later
+  round) of the generic chain, and with them the jnp `first_block` /
+  `fold_block` bodies of `sumcheck_tpu/protocol/generic_prover.py`:
+  `round_nofold` and `round_fold`;
+- `_kernel_nofold` (round 0) and `_kernel_fold` (every later round) of the
+  per-size chain (`_build`, `round_pallas`): `round_step_nofold` and
+  `round_step_fold`.
+
 The kernels are in `csrc/round.cu` (CUDA C++ for sm_90a). Each wrapper
-launches its kernel for a CUDA tensor and runs the plain version
-(`round_nofold_ref`, `round_fold_ref`) only for a CPU tensor; it raises for
+launches its kernel for a CUDA tensor and runs the plain version (the
+`_ref` function of the same name) only for a CPU tensor; it raises for
 anything else. The library is built with `nvcc` at first launch, never at
-import, into `sumcheck_tpu_torch/build/` keyed by a hash of the source; a
-failed build or launch raises.
+import (`ops/cuda_build.py`); a failed build or launch raises.
 
 Contract, for the table pair `lo`, `hi` of shape (U, 16, H) int32 (16-bit
-Montgomery digits, slot axis leading) and the active pair count `extent`:
+Montgomery digits, slot axis leading); each function returns the round
+polynomial's per-digit lane sums, `(degree+1, 16)` int64:
 
-- `round_nofold(lo, hi, products, degree, extent)`: the round polynomial's
-  per-digit lane sums over lanes [0, extent), `(degree+1, 16)` int64;
+- `round_nofold(lo, hi, products, degree, extent)`: over lanes [0, extent);
 - `round_fold(lo, hi, r, products, degree, extent)`: first folds every
   slot by the challenge `r` ((16,) int32 Montgomery digits) in place,
   lo[k] <- fold(lo[k], hi[k]) and hi[k] <- fold(lo[k+extent], hi[k+extent])
-  for k < extent; then the same sums over the folded pair.
+  for k < extent; then the same sums over the folded pair;
+- `round_step_nofold(lo, hi, products, degree, coeffs=None)`: over all H
+  lanes;
+- `round_step_fold(lo, hi, r, products, degree, coeffs=None)`: folds out of
+  place into fresh (U, 16, H/2) tables, new_lo[k] = fold(lo[k], hi[k]) and
+  new_hi[k] = fold(lo[k+H/2], hi[k+H/2]), then the sums over them; returns
+  ((new_lo, new_hi), sums).
+
+`coeffs`, where taken, is a (products, 16) int32 tensor of Montgomery digits:
+product p's value is multiplied by coeffs[p] (the Pallas kernels'
+`has_coeffs`). The per-size prover folds the coefficients into the tables
+instead and passes none.
 
 `finish_sums` turns the digit sums into the exact `(WIDE, degree+1)` strict
-digits that the JAX package's rounds produce (one device-to-host copy).
+digits on the host; on the chained provers' path the transcript step does
+that on the device (`ops/transcript_cuda.py`).
 
 What bounds the kernels on the H100: per lane, a fold round of the 2x3
 workload (6 slots) reads 4 stripes x 64 B and writes 2 x 64 B per slot
@@ -36,29 +53,23 @@ the bound to expect. The simple design keeps to that: one lane per thread,
 8 x 32-bit limbs with 64-bit products (CIOS, a quarter of the digit
 products of the 16 x 16-bit schedule), coalesced digit loads, each lane's
 values read from device memory once per round, and the evaluation ladder
-kept in shared memory. Faster kernels (integer tiling, TMA loads, the
-transcript on the device) are later work.
+kept in shared memory. Faster kernels (integer tiling, TMA loads) are later
+work.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import torch
 
 from ..fields.fr import DIGIT_BITS, DIGIT_MASK, NINV32, NUM_DIGITS, P, WIDE_DIGITS
 from ..protocol import engine
+from . import cuda_build
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "round.cu"
-BUILD_DIR = _PKG / "build"
+SOURCE = cuda_build.source("round")
 
 # Compile-time maxima of the kernels' run-time product structure
 # (`csrc/round.cu`: kMaxSlots, kMaxProducts, kMaxFactors, kMaxDegree).
@@ -70,44 +81,19 @@ MAX_DEGREE = 8
 # p as 8 x 32-bit limbs (least significant first), then -p^-1 mod 2^32
 _FIELD = (ctypes.c_uint32 * 9)(*[(P >> (32 * j)) & 0xFFFFFFFF for j in range(8)], NINV32)
 
+# launch modes of `sc_round_launch`
+_NOFOLD, _FOLD_IN_PLACE, _FOLD_OUT = 0, 1, 2
+
 
 # ---------------------------------------------------------------------------
 # build and load
 # ---------------------------------------------------------------------------
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"
-    )
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the CUDA round kernels cannot be built")
-    return nvcc
-
-
-def build() -> Path:
-    """Compile `csrc/round.cu` for sm_90a unless this source is built
-    already; returns the shared library's path. The compiler's resource
-    report (`-Xptxas -v`) is kept beside it as `<library>.log`."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"round_{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(tmp), str(SOURCE),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr}"
-        )
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return lib
+def build():
+    """Compile `csrc/round.cu` unless built already; returns the library's
+    path."""
+    return cuda_build.build("round")["round"]
 
 
 @functools.cache
@@ -116,9 +102,11 @@ def _library() -> ctypes.CDLL:
     lib.sc_round_threads.argtypes = []
     lib.sc_round_threads.restype = ctypes.c_int
     lib.sc_round_launch.argtypes = [
-        ctypes.c_int,  # do_fold
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # lo, hi, r
-        ctypes.c_longlong, ctypes.c_longlong,  # H, extent
+        ctypes.c_int,  # mode
+        ctypes.c_void_p, ctypes.c_void_p,  # lo, hi
+        ctypes.c_void_p, ctypes.c_void_p,  # lo_out, hi_out
+        ctypes.c_void_p, ctypes.c_void_p,  # r, coeff
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # H, H_out, extent
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_uint32),  # plan, field
         ctypes.c_void_p, ctypes.c_longlong,  # part, nblk
         ctypes.c_void_p,  # stream
@@ -158,11 +146,35 @@ def _check(lo, hi, products, degree: int, extent: int, fold: bool, r=None) -> No
             raise ValueError("challenge must be a (16,) int32 digit tensor")
         if r.device != lo.device:
             raise ValueError("challenge and tables lie on different devices")
+        if not r.is_contiguous():
+            raise ValueError("challenge must be contiguous")
+
+
+def _check_step(lo, hi, products, degree: int, fold: bool, r=None, coeffs=None) -> int:
+    """Checks of the per-size round step; returns its extent (H, or H/2 for
+    a fold)."""
+    width = lo.shape[2] if lo.dim() == 3 else 0
+    if fold and width % 2:
+        raise ValueError(f"a per-size fold needs an even pair width, got {width}")
+    extent = width // 2 if fold else width
+    _check(lo, hi, products, degree, max(extent, 1), fold, r)
+    if coeffs is not None:
+        if coeffs.dtype != torch.int32 or coeffs.shape != (len(products), NUM_DIGITS):
+            raise ValueError(
+                f"coefficients must be a ({len(products)}, 16) int32 digit tensor")
+        if coeffs.device != lo.device or not coeffs.is_contiguous():
+            raise ValueError("coefficients must be contiguous, on the tables' device")
+    return extent
 
 
 def _digit_sums(total: torch.Tensor) -> torch.Tensor:
     """(16, d+1, lanes) per-lane values -> (d+1, 16) int64 per-digit sums."""
     return total.sum(dim=-1).T.contiguous()
+
+
+def _coeff_cols(coeffs):
+    """(P, 16) coefficient digits -> (16, P, 1, 1) for `engine.round_totals`."""
+    return None if coeffs is None else coeffs.long().T.reshape(NUM_DIGITS, -1, 1, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -192,12 +204,33 @@ def round_fold_ref(lo, hi, r, products, degree: int, extent: int) -> torch.Tenso
     return _digit_sums(total)
 
 
+def round_step_nofold_ref(lo, hi, products, degree: int, coeffs=None) -> torch.Tensor:
+    """Plain version of the per-size no-fold kernel (any device)."""
+    _check_step(lo, hi, products, degree, False, coeffs=coeffs)
+    stacked = torch.cat([lo, hi], dim=2).long().permute(1, 0, 2)  # (16, U, 2H)
+    total = engine.round_totals(engine.TORCH, stacked, _coeff_cols(coeffs), products, degree)
+    return _digit_sums(total)
+
+
+def round_step_fold_ref(lo, hi, r, products, degree: int, coeffs=None):
+    """Plain version of the per-size fold kernel (any device): fresh
+    (U, 16, H/2) tables and the sums over them."""
+    quarter = _check_step(lo, hi, products, degree, True, r=r, coeffs=coeffs)
+    stacked = torch.cat([lo, hi], dim=2).long().permute(1, 0, 2)  # (16, U, 2H)
+    folded = engine.fold_tables(engine.TORCH, stacked, r.long().reshape(NUM_DIGITS, 1, 1))
+    new_lo = folded[:, :, :quarter].permute(1, 0, 2).to(torch.int32).contiguous()
+    new_hi = folded[:, :, quarter:].permute(1, 0, 2).to(torch.int32).contiguous()
+    total = engine.round_totals(engine.TORCH, folded, _coeff_cols(coeffs), products, degree)
+    return (new_lo, new_hi), _digit_sums(total)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
 
-def _launch(do_fold: bool, lo, hi, r, products, degree: int, extent: int) -> torch.Tensor:
+def _launch(mode: int, lo, hi, r, products, degree: int, extent: int,
+            out=None, coeffs=None) -> torch.Tensor:
     slots = lo.shape[0]
     factors = len(products[0])
     if (slots > MAX_SLOTS or len(products) > MAX_PRODUCTS
@@ -214,12 +247,17 @@ def _launch(do_fold: bool, lo, hi, r, products, degree: int, extent: int) -> tor
     for p, ix in enumerate(products):
         idx[p * MAX_FACTORS : p * MAX_FACTORS + factors] = ix
     plan = (ctypes.c_int * (4 + len(idx)))(slots, len(products), factors, degree, *idx)
+    lo_out, hi_out = out if out is not None else (None, None)
     with torch.cuda.device(lo.device):
         stream = torch.cuda.current_stream(lo.device).cuda_stream
         rc = lib.sc_round_launch(
-            int(do_fold), lo.data_ptr(), hi.data_ptr(),
-            r.data_ptr() if do_fold else None,
-            lo.shape[2], extent, plan, _FIELD, part.data_ptr(), nblk, stream,
+            int(mode), lo.data_ptr(), hi.data_ptr(),
+            lo_out.data_ptr() if lo_out is not None else None,
+            hi_out.data_ptr() if hi_out is not None else None,
+            r.data_ptr() if r is not None else None,
+            coeffs.data_ptr() if coeffs is not None else None,
+            lo.shape[2], lo_out.shape[2] if lo_out is not None else lo.shape[2],
+            extent, plan, _FIELD, part.data_ptr(), nblk, stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -228,34 +266,70 @@ def _launch(do_fold: bool, lo, hi, r, products, degree: int, extent: int) -> tor
     return part.sum(dim=0)  # (d+1, 16): the second, plain pass over blocks
 
 
-def round_nofold(lo, hi, products, degree: int, extent: int) -> torch.Tensor:
-    """Round 0: evaluate without a fold. Launches the CUDA kernel for a CUDA
-    pair, runs `round_nofold_ref` for a CPU pair."""
-    if lo.device.type == "cpu":
-        return round_nofold_ref(lo, hi, products, degree, extent)
+def _kernel_device(lo) -> None:
     if lo.device.type != "cuda":
         raise ValueError(f"no round kernel for device {lo.device}")
+
+
+def round_nofold(lo, hi, products, degree: int, extent: int) -> torch.Tensor:
+    """Round 0 of the generic chain: evaluate without a fold. Launches the
+    CUDA kernel for a CUDA pair, runs `round_nofold_ref` for a CPU pair."""
+    if lo.device.type == "cpu":
+        return round_nofold_ref(lo, hi, products, degree, extent)
+    _kernel_device(lo)
     _check(lo, hi, products, degree, extent, fold=False)
-    out = _launch(False, lo, hi, None, products, degree, extent)
+    out = _launch(_NOFOLD, lo, hi, None, products, degree, extent)
     round_nofold.launches += 1
     return out
 
 
 def round_fold(lo, hi, r, products, degree: int, extent: int) -> torch.Tensor:
-    """Rounds 1..nv-1: fold in place by `r`, then evaluate. Launches the CUDA
-    kernel for a CUDA pair, runs `round_fold_ref` for a CPU pair."""
+    """Rounds 1..nv-1 of the generic chain: fold in place by `r`, then
+    evaluate. Launches the CUDA kernel for a CUDA pair, runs
+    `round_fold_ref` for a CPU pair."""
     if lo.device.type == "cpu":
         return round_fold_ref(lo, hi, r, products, degree, extent)
-    if lo.device.type != "cuda":
-        raise ValueError(f"no round kernel for device {lo.device}")
+    _kernel_device(lo)
     _check(lo, hi, products, degree, extent, fold=True, r=r)
-    out = _launch(True, lo, hi, r, products, degree, extent)
+    out = _launch(_FOLD_IN_PLACE, lo, hi, r, products, degree, extent)
     round_fold.launches += 1
     return out
 
 
+def round_step_nofold(lo, hi, products, degree: int, coeffs=None) -> torch.Tensor:
+    """Round 0 of the per-size chain: evaluate over the whole pair. Launches
+    the CUDA kernel for a CUDA pair, runs `round_step_nofold_ref` for a CPU
+    pair."""
+    if lo.device.type == "cpu":
+        return round_step_nofold_ref(lo, hi, products, degree, coeffs)
+    _kernel_device(lo)
+    extent = _check_step(lo, hi, products, degree, False, coeffs=coeffs)
+    out = _launch(_NOFOLD, lo, hi, None, products, degree, extent, coeffs=coeffs)
+    round_step_nofold.launches += 1
+    return out
+
+
+def round_step_fold(lo, hi, r, products, degree: int, coeffs=None):
+    """Rounds 1..nv-1 of the per-size chain: fold by `r` into fresh
+    half-width tables, then evaluate; returns ((new_lo, new_hi), sums).
+    Launches the CUDA kernel for a CUDA pair, runs `round_step_fold_ref`
+    for a CPU pair."""
+    if lo.device.type == "cpu":
+        return round_step_fold_ref(lo, hi, r, products, degree, coeffs)
+    _kernel_device(lo)
+    quarter = _check_step(lo, hi, products, degree, True, r=r, coeffs=coeffs)
+    new_lo = torch.empty((lo.shape[0], NUM_DIGITS, quarter), dtype=torch.int32, device=lo.device)
+    new_hi = torch.empty_like(new_lo)
+    out = _launch(_FOLD_OUT, lo, hi, r, products, degree, quarter,
+                  out=(new_lo, new_hi), coeffs=coeffs)
+    round_step_fold.launches += 1
+    return (new_lo, new_hi), out
+
+
 round_nofold.launches = 0
 round_fold.launches = 0
+round_step_nofold.launches = 0
+round_step_fold.launches = 0
 
 
 def finish_sums(digit_sums: torch.Tensor) -> np.ndarray:

@@ -1,20 +1,43 @@
-"""The round kernels' table pair: coefficient plan and initialisation.
+"""The per-size chained prover, the round kernels' table pair, and the
+plumbing of the on-device transcript.
 
-Port of the parts of `sumcheck_tpu/protocol/device_prover.py` that the
-Fiat-Shamir prover (`generic_prover.py`) runs: `_fold_plan` (`:141-177`),
-`init_pair` (`:298-334`, with the scaling of `_stacker` as torch ops on the
-pair's device). `col_int` and `msgs_from_host` convert canonical digits
-fetched from a device transcript; with the transcript on the host they have
-no caller yet and come with the device transcript.
+Port of `sumcheck_tpu/protocol/device_prover.py`:
+
+- `_fold_plan` (`:141-177`) and `init_pair` (`:298-334`, with the scaling of
+  `_stacker` as torch ops on the pair's device): the table pair both chains
+  start from;
+- `_kernel_step` (`:40-115`), `chain_rounds` (`:337-371`) and
+  `prove_chained` (`:460-491`): the per-size chain
+  (`SUMCHECK_TPU_CHAIN_IMPL=persize`). Each round launches one round kernel
+  (`round_cuda.round_step_nofold` in round 0, `round_step_fold` after it,
+  which folds into fresh half-width tables) and one transcript step
+  (`transcript_cuda.transcript_step`), output feeding input, with no host
+  sync; the kernels cover every extent down to one lane, so there is no
+  small-table branch;
+- `lift_transcript`, `fetch_chain_outputs` (`_packer`), `col_int`,
+  `msgs_from_host` and `restore_transcript` (`:374-457`), shared with the
+  generic chain (`generic_prover.py`): one upload of the host transcript
+  before the chain, one device-to-host copy after it.
+
+Left out, because they work around the TPU: `_init_pair_incremental`,
+`_slot_writer`, `_ones_writer` and `_BIG_PAIR_BYTES` (`:206-295`, for the
+TPU's enqueue-time allocation and a 16 GB chip; an 80 GB H100 holds the
+nv=24 pair several times over), the jit donation logic (`:111-115`; here
+the folded-away pair is released once no reference holds it), and the
+`_dev_pair` cache (`:313-316`), which nothing writes.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..fields import limbs_np as L
 from ..fields import limbs_torch as LT
-from ..fields.fr import NUM_DIGITS
+from ..fields.fr import NUM_DIGITS, Fr, P, R_INV
+from ..ops import round_cuda, transcript_cuda
+from ..transcript.device import DevTranscript
+from ..utils.errors import SumcheckError
 
 
 def _fold_plan(polynomial):
@@ -84,3 +107,143 @@ def init_pair(polynomial, device):
         lo[u] = t[:, : n // 2]
         hi[u] = t[:, n // 2 :]
     return lo, hi, products, polynomial.max_multiplicands
+
+
+def resolve_device(device) -> torch.device:
+    """`device` as a `torch.device`; "cuda" without a card raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device is cuda, but no CUDA device is available")
+    return device
+
+
+def _kernel_step(lo, hi, r, products, degree: int, do_fold: bool, step_fns=None):
+    """The per-round table work: [fold by r] -> evaluate at t=0..d ->
+    lane-reduce. Returns (pair, sums): the fresh half-width (lo, hi) after a
+    fold, None for round 0, and the (d+1, 16) int64 per-digit sums.
+    Coefficients do not appear: `init_pair` folds them into the tables.
+    `step_fns` replaces (round_step_nofold, round_step_fold), a test hook."""
+    nofold, fold = step_fns or (round_cuda.round_step_nofold, round_cuda.round_step_fold)
+    if do_fold:
+        return fold(lo, hi, r, products, degree)
+    return None, nofold(lo, hi, products, degree)
+
+
+def chain_rounds(pair: list, state, products, degree: int, num_rounds: int,
+                 step_fns=None, transcript_fn=None):
+    """Enqueue `num_rounds` rounds with no host sync: per round one round
+    kernel and one transcript step, output feeding input. `pair` is the
+    list [lo, hi]; this function empties it, so that no reference outside
+    keeps a folded-away pair alive, and each pair is released once the
+    next round's launch is enqueued. `state` is the packed transcript
+    (advanced in place). Returns (msgs (k, 16, d+1), rs (k, 16), state,
+    (lo, hi)), all on the pair's device; rs holds each round's challenge in
+    Montgomery digits. `step_fns` and `transcript_fn` are test hooks."""
+    transcript = transcript_fn or transcript_cuda.transcript_step
+    lo, hi = pair
+    pair.clear()
+    device = lo.device
+    msgs = torch.empty((num_rounds, NUM_DIGITS, degree + 1), dtype=torch.int32, device=device)
+    rs = torch.empty((num_rounds, NUM_DIGITS), dtype=torch.int32, device=device)
+    r = None
+    for i in range(num_rounds):
+        new_pair, sums = _kernel_step(lo, hi, r, products, degree, i > 0, step_fns)
+        if new_pair is not None:
+            lo, hi = new_pair
+        transcript(state, sums, msgs, rs, i)
+        r = rs[i]
+    return msgs, rs, state, (lo, hi)
+
+
+def fetch_chain_outputs(msgs, rs, state):
+    """One device-to-host copy of everything a chain produced; returns
+    (msgs (k, 16, d+1), rs (k, 16), state (26, 2)) as CPU int32 tensors."""
+    flat = torch.cat([msgs.reshape(-1), rs.reshape(-1), state.reshape(-1)]).cpu()
+    o1 = msgs.numel()
+    o2 = o1 + rs.numel()
+    return (flat[:o1].reshape(msgs.shape), flat[o1:o2].reshape(rs.shape),
+            flat[o2:].reshape(state.shape))
+
+
+def lift_transcript(fs_rng, device) -> torch.Tensor:
+    """The packed device transcript of a host `Blake2b512Rng`, one upload
+    (from pinned memory without a host wait, on a card)."""
+    state = DevTranscript.lift(fs_rng.state_tuple()).to_state()
+    if device.type == "cuda":
+        return state.pin_memory().to(device, non_blocking=True)
+    return state.to(device)
+
+
+def col_int(d) -> int:
+    """(16,) strict digit column (host) -> Python int."""
+    v = 0
+    for k in range(NUM_DIGITS):
+        v |= int(d[k]) << (16 * k)
+    return v
+
+
+def msgs_from_host(msgs_h, degree: int):
+    """Fetched canonical digit mats [(16, d+1)] -> list[ProverMsg]."""
+    from .prover import ProverMsg
+
+    msgs_h = np.asarray(msgs_h)
+    return [
+        ProverMsg([Fr(col_int(m[:, t])) for t in range(degree + 1)])
+        for m in msgs_h
+    ]
+
+
+def restore_transcript(fs_rng, state_h) -> None:
+    """Write the fetched device transcript state back into the host rng."""
+    fs_rng.set_state(*DevTranscript.from_state(state_h).lower())
+
+
+def finish_chain(fs_rng, msgs, rs, state, degree: int):
+    """After a chain: the one fetch, then the proof messages, the challenges
+    as `Fr`, and the host transcript set to the device's final state."""
+    msgs_h, rs_h, state_h = fetch_chain_outputs(msgs, rs, state)
+    prover_msgs = msgs_from_host(msgs_h, degree)
+    randomness = [Fr(col_int(rd) * R_INV % P) for rd in rs_h.numpy()]
+    restore_transcript(fs_rng, state_h)
+    return prover_msgs, randomness
+
+
+def prover_state(polynomial, lo, hi, randomness, degree: int):
+    """The `ProverState` after all rounds of a chained prove."""
+    from .prover import ProverState
+
+    state = ProverState(
+        randomness=randomness,
+        list_of_products=[(c, list(ix)) for c, ix in polynomial.products],
+        stacked=(lo, hi),
+        num_vars=polynomial.num_variables,
+        max_multiplicands=degree,
+    )
+    state.round = polynomial.num_variables
+    return state
+
+
+def prove_chained(fs_rng, polynomial, device, step_fns=None, transcript_fn=None):
+    """Full Fiat-Shamir prove through the per-size chain with the transcript
+    on `device`; returns (prover_msgs, ProverState) like the host path.
+    `fs_rng` is a `Blake2b512Rng` that has been fed the polynomial info; its
+    state is lifted, advanced on the device, and written back.
+
+    `device="cuda"` launches the CUDA kernels and raises without a card;
+    `device="cpu"` runs their plain versions. `step_fns` and
+    `transcript_fn` replace the round and transcript functions, a test hook
+    by which a check on the card runs the plain versions there."""
+    device = resolve_device(device)
+    nv = polynomial.num_variables
+    if nv == 0:
+        raise SumcheckError("Attempt to prove a constant.")
+
+    lo, hi, products, degree = init_pair(polynomial, device)
+    pair = [lo, hi]
+    del lo, hi
+    state = lift_transcript(fs_rng, device)
+    msgs, rs, state, (lo, hi) = chain_rounds(
+        pair, state, products, degree, nv, step_fns, transcript_fn
+    )
+    prover_msgs, randomness = finish_chain(fs_rng, msgs, rs, state, degree)
+    return prover_msgs, prover_state(polynomial, lo, hi, randomness, degree)

@@ -15,6 +15,11 @@ import torch
 
 import sumcheck_tpu_torch as T
 from sumcheck_tpu_torch.ops import round_cuda as RC
+from sumcheck_tpu_torch.ops import transcript_cuda as TC
+from sumcheck_tpu_torch.utils.config import get_config
+
+COUNTERS = (RC.round_nofold, RC.round_fold, RC.round_step_nofold, RC.round_step_fold,
+            TC.transcript_step)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -31,7 +36,8 @@ def test_import_leaves_jax_out():
         import sys
         import sumcheck_tpu_torch
         import sumcheck_tpu_torch.convert, sumcheck_tpu_torch.ops.round_cuda
-        import sumcheck_tpu_torch.protocol.generic_prover
+        import sumcheck_tpu_torch.ops.transcript_cuda, sumcheck_tpu_torch.transcript.device
+        import sumcheck_tpu_torch.protocol.generic_prover, sumcheck_tpu_torch.protocol.device_prover
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "sumcheck_tpu" or m.startswith("sumcheck_tpu.")]
         assert not bad, bad
@@ -54,6 +60,9 @@ def test_import_and_cpu_rounds_run_no_nvcc(tmp_path):
         t = np.random.default_rng(0).integers(0, 1 << 14, size=(2, 16, 8), dtype=np.uint32)
         poly = polynomial_from_numpy(3, list(t), [(1, [0, 1])])
         T.MLSumcheck.prove(poly, device="cpu")
+        from sumcheck_tpu_torch.utils.config import get_config
+        get_config().chain_impl = "persize"
+        T.MLSumcheck.prove(poly, device="cpu")
     """, env=env)
     assert proc.returncode == 0, proc.stderr
     assert not mark.exists()
@@ -68,11 +77,22 @@ def _small_poly():
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
+    _cuda_without_a_card_raises(monkeypatch, "generic")
+
+
+def test_cuda_without_a_card_raises_persize(monkeypatch):
+    _cuda_without_a_card_raises(monkeypatch, "persize")
+
+
+def _cuda_without_a_card_raises(monkeypatch, chain):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: this checks the no-card path")
+    monkeypatch.setattr(get_config(), "chain_impl", chain)
     calls = []
-    monkeypatch.setattr(RC, "round_nofold_ref", lambda *a: calls.append(a))
-    monkeypatch.setattr(RC, "round_fold_ref", lambda *a: calls.append(a))
+    for name in ("round_nofold_ref", "round_fold_ref", "round_step_nofold_ref",
+                 "round_step_fold_ref"):
+        monkeypatch.setattr(RC, name, lambda *a: calls.append(a))
+    monkeypatch.setattr(TC, "transcript_step_ref", lambda *a: calls.append(a))
     with pytest.raises(RuntimeError):
         T.MLSumcheck.prove(_small_poly(), device="cuda")
     assert not calls  # nothing ran on the CPU instead
@@ -86,22 +106,60 @@ def test_wrappers_refuse_other_devices():
         RC.round_nofold(lo, hi, ((0, 1),), 2, 4)
     with pytest.raises(ValueError):
         RC.round_fold(lo, hi, r, ((0, 1),), 2, 4)
-    assert RC.round_nofold.launches == 0 and RC.round_fold.launches == 0
+    with pytest.raises(ValueError):
+        RC.round_step_nofold(lo, hi, ((0, 1),), 2)
+    with pytest.raises(ValueError):
+        RC.round_step_fold(lo, hi, r, ((0, 1),), 2)
+    state = torch.zeros((26, 2), dtype=torch.int32, device="meta")
+    sums = torch.zeros((3, 16), dtype=torch.int64, device="meta")
+    msgs = torch.zeros((2, 16, 3), dtype=torch.int32, device="meta")
+    rs = torch.zeros((2, 16), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        TC.transcript_step(state, sums, msgs, rs, 0)
+    assert all(f.launches == 0 for f in COUNTERS)
 
 
 def test_kernel_maxima_are_checked_before_a_build():
     """A structure beyond the kernel's compile-time maxima raises before
-    any build is attempted (the maxima mirror `csrc/round.cu`)."""
+    any build is attempted (the maxima mirror `csrc/round.cu` and
+    `csrc/transcript.cu`)."""
     src = RC.SOURCE.read_text()
     for name, value in (("kMaxSlots", RC.MAX_SLOTS), ("kMaxProducts", RC.MAX_PRODUCTS),
                         ("kMaxFactors", RC.MAX_FACTORS), ("kMaxDegree", RC.MAX_DEGREE)):
         assert f"constexpr int {name} = {value};" in src
+    tsrc = TC.SOURCE.read_text()
+    assert f"constexpr int kMaxDegree = {TC.MAX_DEGREE};" in tsrc
+    assert f"constexpr int kStateWords = {TC.STATE_WORDS};" in tsrc
     lo = torch.zeros((RC.MAX_SLOTS + 1, 16, 4), dtype=torch.int32)
     with pytest.raises(ValueError):
         RC._launch(False, lo, lo, None, ((0, 1),), 2, 4)
 
 
-def test_cpu_prove_launches_no_kernel():
-    before = (RC.round_nofold.launches, RC.round_fold.launches)
+def test_cpu_prove_launches_no_kernel(monkeypatch):
+    _cpu_prove_launches_no_kernel(monkeypatch, "generic")
+
+
+def test_cpu_prove_launches_no_kernel_persize(monkeypatch):
+    _cpu_prove_launches_no_kernel(monkeypatch, "persize")
+
+
+def _cpu_prove_launches_no_kernel(monkeypatch, chain):
+    monkeypatch.setattr(get_config(), "chain_impl", chain)
+    before = [f.launches for f in COUNTERS]
     T.MLSumcheck.prove(_small_poly(), device="cpu")
-    assert (RC.round_nofold.launches, RC.round_fold.launches) == before
+    assert [f.launches for f in COUNTERS] == before
+
+
+def test_build_names_each_source_and_shared_header(tmp_path, monkeypatch):
+    """Each library is keyed by its own source and the shared header, and a
+    missing `nvcc` raises before anything is built."""
+    from sumcheck_tpu_torch.ops import cuda_build
+
+    assert cuda_build.library_path("round") != cuda_build.library_path("transcript")
+    assert cuda_build.library_path("round").name.startswith("round_")
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError):
+        cuda_build.build("round", "transcript")
+    assert not any(tmp_path.iterdir())
