@@ -8,29 +8,45 @@ Run from the root of a checkout. Phases, each printed on its own lines; any
 failure raises and exits non-zero without the final line:
 
 1. the card's name and power limit (`nvidia-smi`); no CUDA device -> exit 1;
-2. build both kernel sources, `sumcheck_tpu_torch/csrc/round.cu` and
-   `csrc/transcript.cu`, one `nvcc` each, started together;
+2. build the three kernel sources, `sumcheck_tpu_torch/csrc/round.cu`,
+   `csrc/transcript.cu` and `csrc/round_mxu.cu`, one `nvcc` each, started
+   together;
 3. the generic chain's round kernels against their plain PyTorch versions
    on the card, array-equal, at the round shapes of the nv=20 2x3 prove and
    at ragged extents, with kernel and plain times;
 4. the per-size chain's round kernels against their plain versions at the
    nv=20 shapes (round 0 over 2^19 lanes; folds into 2^18, 2^10, 3 and 1
    lanes; one case with coefficients), with kernel and plain times;
-5. the transcript kernel against the plain transcript and the host rng
+5. the MXU fold kernel `round_fold_mxu` (tensor-core banded multiply)
+   against its plain version and against the CIOS fold kernel `round_fold`,
+   array-equal, at the nv=20 fold shapes (extents 2^18, 2^10, 37, 3, 1 and
+   a ragged 2^9 + 5) and the GKR dim-18 shape (U=2, d=2, extent 2^16), with
+   kernel, plain and CIOS-kernel times; then `ops/mxu_mul.py`'s banded
+   multiply (float32 matmuls) against the CIOS multiply at 2^17 lanes;
+6. the transcript kernel against the plain transcript and the host rng
    over 60 rounds that reject draws, with kernel and plain times;
-6. the golden fixtures `tests/fixtures/ml_nv6_rich.json` and
-   `ml_nv14_config1.json` through `device="cuda"` on both chains;
-7. the headlines: `MLSumcheck.prove` on 2 products x 3 multiplicands at
-   nv=20 (tables from `numpy.random.default_rng(seed)`), first on the
-   generic chain, then with `SUMCHECK_TPU_CHAIN_IMPL=persize` semantics on
-   the per-size chain: one first prove and the median of `--reps` warm
+7. the golden fixtures `tests/fixtures/ml_nv6_rich.json` and
+   `ml_nv14_config1.json` through `device="cuda"` on both chains, and
+   `gkr_dim5.json` on both chains and in the MXU fold mode;
+8. the ML headlines: `MLSumcheck.prove` on 2 products x 3 multiplicands at
+   nv=20 (tables from `numpy.random.default_rng(seed)`) on the generic
+   chain, the per-size chain (`SUMCHECK_TPU_CHAIN_IMPL=persize`) and the
+   generic chain in the MXU fold mode (`SUMCHECK_TPU_MXU_FOLD=kernel`,
+   `SUMCHECK_TPU_AB=1`): one first prove and the median of `--reps` warm
    proves each, launch counts per prove (1 + 19 round kernels and 20
    transcript steps), the chain enqueued under
    `torch.cuda.set_sync_debug_mode("error")` so that a host sync inside it
    fails the run, verify, the subclaim against the polynomial, and proof
-   bytes equal across both chains, the plain path on the card and the
+   bytes equal across the three, the plain path on the card and the
    host-transcript loop (timed beside them);
-8. one JSON line of the kernels, then the last line
+9. the GKR headlines: `GKRRoundSumcheck.prove` at dim 18 on the bench's
+   instance (`bench.py:187-194`) on the same three paths: first prove and
+   warm median, launch counts per prove (2 + 34 round kernels and 36
+   transcript steps), everything between the uploads and the one fetch
+   under the sync debug mode "error", the phase inits and the round kernels
+   timed alone, verify and `verify_subclaim`, and proof bytes equal across
+   the three and the plain path on the card;
+10. one JSON line of the kernels, then the last line
    `{"ok": true, "device": {...}}`.
 
 Tolerance everywhere is 0: the field arithmetic is exact, so every check is
@@ -43,6 +59,7 @@ import argparse
 import contextlib
 import hashlib
 import json
+import random
 import statistics
 import subprocess
 import sys
@@ -56,6 +73,7 @@ ROOT = Path(__file__).resolve().parent
 FIXTURES = ROOT / "tests" / "fixtures"
 NV = 20
 SLOTS = 6  # 2 products x 3 multiplicands, coefficients folded in place
+GKR_DIM = 18  # the bench's GKR size (`bench.py:560`)
 KERNEL_REPS = 20
 PLAIN_REPS = 3
 
@@ -272,6 +290,97 @@ def step_kernel_phase(device, seed: int, nv: int = NV) -> dict:
     return stats
 
 
+def compare_mxu(rc, name, lo, hi, r, products, degree, extent, device):
+    """`round_fold_mxu` against its plain version and against `round_fold`,
+    each from the same pair: sums and folded pair array-equal, lanes past
+    the extent untouched. Returns (max_abs_err, kernel ms, plain ms, CIOS
+    kernel ms); the timed runs fold the kernel's output again in place."""
+    runs = []
+    for fn in (rc.round_fold_mxu, rc.round_fold_mxu_ref, rc.round_fold):
+        lo_c, hi_c = lo.clone(), hi.clone()
+        runs.append((fn(lo_c, hi_c, r, products, degree, extent), lo_c, hi_c))
+    sync(device)
+    (got, lo_k, hi_k) = runs[0]
+    err = 0
+    for sums, lo_c, hi_c in runs[1:]:
+        err = max(err, int((got - sums).abs().max()), int((lo_k - lo_c).abs().max()),
+                  int((hi_k - hi_c).abs().max()))
+    check(err == 0, f"{name}: MXU fold kernel differs from its plain version or round_fold "
+                    f"by {err}")
+    check(torch.equal(lo_k[:, :, extent:], lo[:, :, extent:])
+          and torch.equal(hi_k[:, :, extent:], hi[:, :, extent:]),
+          f"{name}: MXU fold kernel wrote past the extent")
+    ms = time_ms(lambda: rc.round_fold_mxu(lo_k, hi_k, r, products, degree, extent),
+                 KERNEL_REPS, device)
+    plain_ms = time_ms(lambda: rc.round_fold_mxu_ref(lo_k, hi_k, r, products, degree, extent),
+                       PLAIN_REPS, device)
+    cios_ms = time_ms(lambda: rc.round_fold(lo_k, hi_k, r, products, degree, extent),
+                      KERNEL_REPS, device)
+    print(f"kernel-vs-plain-vs-CIOS {name}: equal, MXU kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, CIOS kernel {cios_ms:.4f} ms")
+    return err, ms, plain_ms, cios_ms
+
+
+def mxu_kernel_phase(device, seed: int, nv: int = NV, gkr_dim: int = GKR_DIM) -> dict:
+    """Phase 5: the MXU fold kernel at the GKR dim-18 fold shape and the
+    nv=20 fold shapes, against its plain version and the CIOS kernel."""
+    from sumcheck_tpu_torch.fields import limbs_np as L
+    from sumcheck_tpu_torch.fields.fr import P
+    from sumcheck_tpu_torch.ops import round_cuda as rc
+
+    rng = np.random.default_rng(seed + 3)
+    r = torch.from_numpy(
+        L.mont_scalar(int(rng.integers(1, 1 << 62)) % P)[:, 0].astype(np.int32)
+    ).to(device)
+    timings, err = [], 0
+
+    def record(shape, lo, hi, products, degree, extent):
+        nonlocal err
+        e, ms, plain_ms, cios_ms = compare_mxu(rc, shape, lo, hi, r, products, degree, extent,
+                                               device)
+        err = max(err, e)
+        timings.append({"shape": shape, "ms": ms, "plain_ms": plain_ms, "cios_ms": cios_ms})
+
+    half = 1 << (gkr_dim - 1)
+    lo, hi = random_pair(rng, 2, half, device)
+    record(f"GKR dim={gkr_dim} fold U=2 d=2 A2=2^{gkr_dim - 2}", lo, hi, ((0, 1),), 2, half // 2)
+    half = 1 << (nv - 1)
+    lo, hi = random_pair(rng, SLOTS, half, device)
+    products = ((0, 1, 2), (3, 4, 5))
+    for a2 in (half // 2, 1 << 10, 37, 3, 1, (1 << 9) + 5):
+        name = f"2^{a2.bit_length() - 1}" if a2 in (half // 2, 1 << 10) else str(a2)
+        record(f"ML nv={nv} fold U=6 d=3 A2={name}", lo, hi, products, 3, a2)
+    return {"round_fold_mxu": [err, timings]}
+
+
+def mxu_mul_phase(device, seed: int, lanes: int = 1 << 17) -> dict:
+    """Phase 5b: `ops/mxu_mul.py`'s banded multiply (the GKR inits' shared-
+    scalar multiply in the MXU fold mode, float32 matmuls on the card)
+    against the CIOS multiply of `limbs_torch`, edge values included."""
+    from sumcheck_tpu_torch.fields import limbs_np as L
+    from sumcheck_tpu_torch.fields import limbs_torch as LT
+    from sumcheck_tpu_torch.fields.fr import P
+    from sumcheck_tpu_torch.ops import mxu_mul
+
+    rng = np.random.default_rng(seed + 4)
+    a = torch.from_numpy(random_tables(rng, lanes.bit_length() - 1, 1)[0].astype(np.int64))
+    edges = [0, 1, 2, P - 1, P - 2, (1 << 255) % P]
+    a[:, :len(edges)] = torch.from_numpy(L.from_ints(edges, mont=False).astype(np.int64))
+    a = a.to(device)
+    scalars = [int(rng.integers(1, 1 << 62)) ** 4 % P, 0, 1, P - 1]
+    for v in scalars:
+        c = torch.from_numpy(L.from_ints([v], mont=False)[:, 0].astype(np.int64)).to(device)
+        got, want = mxu_mul.mont_mul_scalar_mxu(a, c), LT.mont_mul(a, c[:, None])
+        sync(device)
+        check(torch.equal(got, want), f"banded multiply differs from CIOS for scalar {v:#x}")
+    ms = time_ms(lambda: mxu_mul.mont_mul_scalar_mxu(a, c), PLAIN_REPS, device)
+    cios_ms = time_ms(lambda: LT.mont_mul(a, c[:, None]), PLAIN_REPS, device)
+    print(f"mxu_mul.mont_mul_scalar_mxu at {lanes} lanes: equal to limbs_torch.mont_mul for "
+          f"{len(scalars)} scalars and edge operands; banded {ms:.4f} ms, CIOS {cios_ms:.4f} ms "
+          f"(torch ops)")
+    return {"lanes": lanes, "ms": ms, "cios_ms": cios_ms}
+
+
 def transcript_phase(device, seed: int, rounds: int = 60, degree: int = 3) -> dict:
     """Phase 5: the transcript kernel against the plain transcript on the
     card and against the host rng, over `rounds` rounds."""
@@ -360,7 +469,6 @@ def golden_phase(device) -> None:
     )
     from sumcheck_tpu_torch.fields.fr import P
     from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
-    from sumcheck_tpu_torch.utils.config import get_config
 
     for name in ("ml_nv6_rich.json", "ml_nv14_config1.json"):
         fx = json.loads((FIXTURES / name).read_text())
@@ -377,9 +485,8 @@ def golden_phase(device) -> None:
             poly.add_product(mles, Fr(int(prod["coeff"], 16)))
         check(poly.info().serialize_uncompressed().hex() == fx["info_bytes"], f"{name}: info")
         for chain in ("generic", "persize"):
-            get_config().chain_impl = chain
             fs_rng = Blake2b512Rng.setup()
-            with syncs_forbidden_in_chains():
+            with fold_mode(chain), syncs_forbidden_in_chains():
                 proof, state = MLSumcheck.prove_as_subprotocol(fs_rng, poly, device=device)
             check(serialize_proof(proof).hex() == fx["proof_bytes"], f"{name} {chain}: proof bytes")
             check([format(r.v, "064x") for r in state.randomness] == fx["challenges"],
@@ -389,7 +496,66 @@ def golden_phase(device) -> None:
                   f"{name} {chain}: final evaluation")
             print(f"golden {name}, {chain} chain: proof bytes, challenges and final "
                   f"evaluation equal")
-    get_config().chain_impl = "generic"
+
+
+# the paths each headline drives: (chain, MXU fold mode)
+PATHS = {"generic": ("generic", False), "per-size": ("persize", False),
+         "generic mxu": ("generic", True)}
+
+
+@contextlib.contextmanager
+def fold_mode(chain: str, mxu: bool = False, mxu_min_lanes: int | None = None):
+    """Run under one chain (`SUMCHECK_TPU_CHAIN_IMPL`) and, with `mxu`, the
+    MXU fold mode (`SUMCHECK_TPU_MXU_FOLD=kernel`, `SUMCHECK_TPU_AB=1`);
+    `mxu_min_lanes` lowers the GKR inits' banded-product threshold."""
+    from sumcheck_tpu_torch.ops import gkr_init as GI
+    from sumcheck_tpu_torch.utils.config import get_config
+
+    cfg = get_config()
+    saved = (cfg.chain_impl, cfg.mxu_fold, cfg.ab, GI.MXU_MIN_LANES)
+    cfg.chain_impl = chain
+    if mxu:
+        cfg.mxu_fold, cfg.ab = "kernel", True
+    if mxu_min_lanes is not None:
+        GI.MXU_MIN_LANES = mxu_min_lanes
+    try:
+        yield
+    finally:
+        cfg.chain_impl, cfg.mxu_fold, cfg.ab, GI.MXU_MIN_LANES = saved
+
+
+def gkr_golden_phase(device) -> None:
+    """Phase 7b: `tests/fixtures/gkr_dim5.json` through `device` on both
+    chains and in the MXU fold mode (banded-product threshold at 1 lane, so
+    the inits' banded multiplies run too): messages, claimed sum, the
+    verifier's challenges and expected evaluation, the subclaim."""
+    from sumcheck_tpu_torch import Blake2b512Rng, DenseMLE, Fr, GKRRoundSumcheck, SparseMLE
+    from sumcheck_tpu_torch.fields.fr import P
+
+    fx = json.loads((FIXTURES / "gkr_dim5.json").read_text())
+    dim = fx["dim"]
+    f1 = SparseMLE.from_pairs(3 * dim, [(int(k), Fr(int(v, 16)))
+                                        for k, v in fx["f1_nonzeros"].items()])
+    f2, f3 = (DenseMLE.from_evaluations(dim, golden_table(f"gkr{dim}", tag, dim, P))
+              for tag in ("f2", "f3"))
+    g = [Fr(int(x, 16)) for x in fx["g"]]
+
+    def hexes(msgs):
+        return [[format(e.v, "064x") for e in m.evaluations] for m in msgs]
+
+    for path, (chain, mxu) in PATHS.items():
+        with fold_mode(chain, mxu, 1 if mxu else None), syncs_forbidden_in_chains():
+            proof = GKRRoundSumcheck.prove(Blake2b512Rng.setup(), f1, f2, f3, g, device=device)
+        check(hexes(proof.phase1_sumcheck_msgs) == fx["phase1_msgs"]
+              and hexes(proof.phase2_sumcheck_msgs) == fx["phase2_msgs"],
+              f"gkr_dim5.json {path}: proof messages")
+        sub = GKRRoundSumcheck.verify(Blake2b512Rng.setup(), dim, proof,
+                                      Fr(int(fx["claimed_sum"], 16)))
+        check([format(x.v, "064x") for x in sub.u + sub.v] == fx["u"] + fx["v"]
+              and sub.expected_evaluation.v == int(fx["expected_evaluation"], 16)
+              and sub.verify_subclaim(f1, f2, f3, g), f"gkr_dim5.json {path}: verifier")
+        print(f"golden gkr_dim5.json, {path}: proof bytes, challenges, expected evaluation "
+              f"and subclaim equal")
 
 
 def headline_poly(seed: int, nv: int = NV):
@@ -414,33 +580,39 @@ def counters() -> dict:
 
     return {"round_nofold": rc.round_nofold, "round_fold": rc.round_fold,
             "round_step_nofold": rc.round_step_nofold, "round_step_fold": rc.round_step_fold,
-            "transcript_step": tc.transcript_step}
+            "round_fold_mxu": rc.round_fold_mxu, "transcript_step": tc.transcript_step}
 
 
 @contextlib.contextmanager
 def syncs_forbidden_in_chains():
-    """Run both chains' enqueue loops under the sync debug mode "error": a
-    host sync inside a chain raises, so the prove's one fetch after the
-    chain is its only sync. (The plain versions sync by design, so the
-    plain path runs outside this.)"""
+    """Run both chains' enqueue loops, and a GKR prove's whole enqueue
+    (both phase inits and both chains, `gkr_round_sumcheck._enqueue`),
+    under the sync debug mode "error": a host sync inside raises, so the
+    prove's one fetch after them is its only sync. (The plain versions sync
+    by design, so the plain path runs outside this.)"""
+    from sumcheck_tpu_torch import gkr_round_sumcheck
     from sumcheck_tpu_torch.protocol import device_prover, generic_prover
 
     def guarded(fn):
         def run(*args, **kwargs):
+            before = torch.cuda.get_sync_debug_mode()
             torch.cuda.set_sync_debug_mode("error")
             try:
                 return fn(*args, **kwargs)
             finally:
-                torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.set_sync_debug_mode(before)
         return run
 
-    saved = device_prover.chain_rounds, generic_prover.chain_rounds_generic
-    device_prover.chain_rounds = guarded(saved[0])
-    generic_prover.chain_rounds_generic = guarded(saved[1])
+    owners = ((device_prover, "chain_rounds"), (generic_prover, "chain_rounds_generic"),
+              (gkr_round_sumcheck, "_enqueue"))
+    saved = [getattr(mod, name) for mod, name in owners]
+    for (mod, name), fn in zip(owners, saved):
+        setattr(mod, name, guarded(fn))
     try:
         yield
     finally:
-        device_prover.chain_rounds, generic_prover.chain_rounds_generic = saved
+        for (mod, name), fn in zip(owners, saved):
+            setattr(mod, name, fn)
 
 
 def wall(fn, device, reps: int = 3) -> float:
@@ -455,9 +627,62 @@ def wall(fn, device, reps: int = 3) -> float:
     return statistics.median(out)
 
 
-def headline_phase(device, seed: int, reps: int, chain: str, nv: int = NV) -> dict:
-    """Phase 7: the nv=20 2x3 prove through the public entry points on one
-    chain; returns its numbers and proof bytes."""
+def device_busy(fn, top: int = 5) -> dict:
+    """One run of `fn` under `torch.profiler`: host-clock seconds between
+    two syncs, the seconds in which the card ran a kernel or a copy (the
+    union of their intervals), the idle share, and the `top` device
+    operations by summed device time. The profiler adds host time to every
+    torch op, so the idle share it reads is an upper bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            by_name[e.name] = by_name.get(e.name, 0) + e.time_range.end - e.time_range.start
+    busy_us, reach = 0, None
+    for start, end in sorted(spans):
+        if reach is None or start > reach:
+            busy_us += end - start
+            reach = end
+        elif end > reach:
+            busy_us += end - reach
+            reach = end
+    busy_s = busy_us / 1e6
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {"wall_s": wall_s, "busy_s": busy_s, "idle_share": 1 - busy_s / wall_s,
+            "top": [(name[:70], us / 1e3) for name, us in ranked]}
+
+
+def print_busy(label: str, busy: dict) -> None:
+    print(f"{label}: one warm prove under torch.profiler {busy['wall_s']:.4f} s, the card busy "
+          f"{busy['busy_s']:.4f} s, idle share {busy['idle_share']:.4f}; most device time: "
+          + "; ".join(f"{name} {ms:.3f} ms" for name, ms in busy["top"]))
+
+
+def path_kernels(chain: str, mxu: bool) -> tuple[str, str]:
+    """The (round 0, fold) kernels a path launches."""
+    if chain != "generic":
+        return "round_step_nofold", "round_step_fold"
+    return "round_nofold", "round_fold_mxu" if mxu else "round_fold"
+
+
+def headline_phase(device, seed: int, reps: int, path: str, nv: int = NV) -> dict:
+    """Phase 8: the nv=20 2x3 prove through the public entry points on one
+    path (`PATHS`); returns its numbers and proof bytes."""
+    chain, mxu = PATHS[path]
+    with fold_mode(chain, mxu):
+        return _headline(device, seed, reps, path, chain, mxu, nv)
+
+
+def _headline(device, seed: int, reps: int, path: str, chain: str, mxu: bool, nv: int) -> dict:
     from sumcheck_tpu_torch import Blake2b512Rng, MLSumcheck
     from sumcheck_tpu_torch.fields import limbs_np as L
     from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
@@ -465,13 +690,11 @@ def headline_phase(device, seed: int, reps: int, chain: str, nv: int = NV) -> di
     from sumcheck_tpu_torch.ops import transcript_cuda as tc
     from sumcheck_tpu_torch.protocol.device_prover import init_pair, prove_chained
     from sumcheck_tpu_torch.protocol.generic_prover import prove_generic
-    from sumcheck_tpu_torch.utils.config import get_config
 
-    get_config().chain_impl = chain
     poly = headline_poly(seed, nv)
     info = poly.info()
-    kernels = (("round_nofold", "round_fold") if chain == "generic"
-               else ("round_step_nofold", "round_step_fold"))
+    kernels = path_kernels(chain, mxu)
+    fold_fn = getattr(rc, kernels[1])
 
     with syncs_forbidden_in_chains():
         for f in counters().values():
@@ -488,13 +711,13 @@ def headline_phase(device, seed: int, reps: int, chain: str, nv: int = NV) -> di
     proves = reps + 1
     want = {k: 0 for k in launches}
     want.update({kernels[0]: proves, kernels[1]: proves * (nv - 1), "transcript_step": proves * nv})
-    check(launches == want, f"{chain}: launch counts {launches} over {proves} proves, "
-                            f"expected {want}")
-    check(serialize_proof(again) == serialize_proof(proof), f"{chain}: warm proves differ")
+    check(launches == want, f"ML {path}: launch counts {launches} over {proves} proves, "
+                           f"expected {want}")
+    check(serialize_proof(again) == serialize_proof(proof), f"ML {path}: warm proves differ")
     prove_s = statistics.median(walls)
-    print(f"headline {chain} chain, prove nv={nv} 2x3: first {first_s:.4f} s (with table "
+    print(f"headline ML {path}, prove nv={nv} 2x3: first {first_s:.4f} s (with table "
           f"upload), median of {reps} warm {prove_s:.4f} s, walls {[round(w, 4) for w in walls]}")
-    print(f"{chain} launches over {proves} proves: "
+    print(f"ML {path} launches over {proves} proves: "
           f"{ {k: v for k, v in launches.items() if v} }, no sync inside the chain")
 
     # where the prove's time goes: the pair init alone, and init plus every
@@ -507,7 +730,7 @@ def headline_phase(device, seed: int, reps: int, chain: str, nv: int = NV) -> di
         if chain == "generic":
             rc.round_nofold(lo, hi, products, degree, half)
             for j in range(1, nv):
-                rc.round_fold(lo, hi, r, products, degree, half >> j)
+                fold_fn(lo, hi, r, products, degree, half >> j)
         else:
             rc.round_step_nofold(lo, hi, products, degree)
             for _ in range(1, nv):
@@ -517,9 +740,11 @@ def headline_phase(device, seed: int, reps: int, chain: str, nv: int = NV) -> di
     kernels_s = wall(rounds_only, device)
     for f in counters().values():
         f.launches = 0
-    print(f"{chain}: pair init {init_s:.4f} s; init + {nv} round kernels without transcript "
+    print(f"ML {path}: pair init {init_s:.4f} s; init + {nv} round kernels without transcript "
           f"{kernels_s:.4f} s; so transcript steps and the fetch {prove_s - kernels_s:.4f} s "
           f"of the {prove_s:.4f} s prove")
+    busy = device_busy(lambda: MLSumcheck.prove(poly, device=device))
+    print_busy(f"ML {path}", busy)
 
     s = MLSumcheck.extract_sum(proof)
     sub = MLSumcheck.verify(info, s, proof)
@@ -530,11 +755,11 @@ def headline_phase(device, seed: int, reps: int, chain: str, nv: int = NV) -> di
         vwalls.append(time.perf_counter() - t0)
     verify_s = statistics.median(vwalls)
     check(poly.evaluate(sub.point) == sub.expected_evaluation,
-          f"{chain}: subclaim does not match the polynomial")
+          f"ML {path}: subclaim does not match the polynomial")
     fs_rng = Blake2b512Rng.setup()
     _, state = MLSumcheck.prove_as_subprotocol(fs_rng, poly, device=device)
-    check(state.randomness == sub.point, f"{chain}: prover randomness is not the subclaim point")
-    print(f"{chain}: verify accepts; subclaim equals poly.evaluate(point) and the prover's "
+    check(state.randomness == sub.point, f"ML {path}: prover randomness is not the subclaim point")
+    print(f"ML {path}: verify accepts; subclaim equals poly.evaluate(point) and the prover's "
           f"randomness; verify median {verify_s:.6f} s")
 
     # the plain path on the same card: plain round versions and plain transcript
@@ -543,7 +768,8 @@ def headline_phase(device, seed: int, reps: int, chain: str, nv: int = NV) -> di
     t0 = time.perf_counter()
     if chain == "generic":
         plain, _ = prove_generic(fs_rng, poly, device,
-                                 round_fns=(rc.round_nofold_ref, rc.round_fold_ref),
+                                 round_fns=(rc.round_nofold_ref, rc.round_fold_mxu_ref if mxu
+                                            else rc.round_fold_ref),
                                  transcript_fn=tc.transcript_step_ref)
     else:
         plain, _ = prove_chained(fs_rng, poly, device,
@@ -551,10 +777,10 @@ def headline_phase(device, seed: int, reps: int, chain: str, nv: int = NV) -> di
                                  transcript_fn=tc.transcript_step_ref)
     plain_s = time.perf_counter() - t0
     check(serialize_proof(plain) == serialize_proof(proof),
-          f"{chain}: kernel proof differs from the plain path's")
-    print(f"{chain}: plain-path proof on the same device: bytes equal ({plain_s:.4f} s)")
+          f"ML {path}: kernel proof differs from the plain path's")
+    print(f"ML {path}: plain-path proof on the same device: bytes equal ({plain_s:.4f} s)")
     return {"launches": launches, "prove_s": prove_s, "first_s": first_s, "init_s": init_s,
-            "kernels_s": kernels_s, "verify_s": verify_s, "plain_s": plain_s,
+            "kernels_s": kernels_s, "verify_s": verify_s, "plain_s": plain_s, "busy": busy,
             "proof": serialize_proof(proof)}
 
 
@@ -593,6 +819,142 @@ def host_transcript_phase(device, seed: int, reps: int, nv: int = NV) -> dict:
     return {"prove_s": prove_s, "proof": serialize_proof(proof)}
 
 
+def gkr_instance(seed: int, dim: int = GKR_DIM):
+    """The bench's GKR instance (`bench.py:187-194`): f1 with 2^dim nonzeros
+    over 3 dim variables and g from `random.Random(7)`, f2 and f3 by the
+    `bench.py:89-93` rule from `numpy.random.default_rng(seed)`."""
+    from sumcheck_tpu_torch import DenseMLE, Fr, SparseMLE
+    from sumcheck_tpu_torch.fields.fr import P
+
+    prnd = random.Random(7)
+    f1 = SparseMLE.rand_with_config(3 * dim, 1 << dim, prnd)
+    f2, f3 = (DenseMLE(dim, t) for t in random_tables(np.random.default_rng(seed), dim, 2))
+    g = [Fr(prnd.randrange(P)) for _ in range(dim)]
+    return f1, f2, f3, g
+
+
+def gkr_headline_phase(device, inst, reps: int, path: str) -> dict:
+    """Phase 9: `GKRRoundSumcheck.prove` at the instance's dim on one path
+    (`PATHS`); returns its numbers and proof bytes."""
+    chain, mxu = PATHS[path]
+    with fold_mode(chain, mxu):
+        return _gkr_headline(device, inst, reps, path, chain, mxu)
+
+
+def _gkr_headline(device, inst, reps: int, path: str, chain: str, mxu: bool) -> dict:
+    from sumcheck_tpu_torch import Blake2b512Rng, GKRRoundSumcheck
+    from sumcheck_tpu_torch import gkr_round_sumcheck as G
+    from sumcheck_tpu_torch.fields import limbs_np as L
+    from sumcheck_tpu_torch.fields.fr import P
+    from sumcheck_tpu_torch.ops import gkr_init as GI
+    from sumcheck_tpu_torch.ops import round_cuda as rc
+    from sumcheck_tpu_torch.ops import transcript_cuda as tc
+
+    f1, f2, f3, g = inst
+    dim = f2.num_vars
+    kernels = path_kernels(chain, mxu)
+
+    def prove():
+        return GKRRoundSumcheck.prove(Blake2b512Rng.setup(), f1, f2, f3, g, device=device)
+
+    with syncs_forbidden_in_chains():
+        for f in counters().values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        proof = prove()
+        first_s = time.perf_counter() - t0
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            again = prove()
+            walls.append(time.perf_counter() - t0)
+        launches = {k: f.launches for k, f in counters().items()}
+    proves = reps + 1
+    want = {k: 0 for k in launches}
+    want.update({kernels[0]: 2 * proves, kernels[1]: 2 * (dim - 1) * proves,
+                 "transcript_step": 2 * dim * proves})
+    check(launches == want, f"GKR {path}: launch counts {launches} over {proves} proves, "
+                           f"expected {want}")
+    blob = proof.serialize_uncompressed()
+    check(again.serialize_uncompressed() == blob, f"GKR {path}: warm proves differ")
+    prove_s = statistics.median(walls)
+    print(f"headline GKR {path}, prove dim={dim} (nnz 2^{dim}): first {first_s:.4f} s (with "
+          f"f1 split and table upload), median of {reps} warm {prove_s:.4f} s, walls "
+          f"{[round(w, 4) for w in walls]}")
+    print(f"GKR {path} launches over {proves} proves: "
+          f"{ {k: v for k, v in launches.items() if v} }, no sync between the uploads and the "
+          f"fetch")
+
+    # where the prove's time goes: both phase inits alone (fixed challenges),
+    # and the 2 dim round kernels alone on a pair of the phases' shape
+    (gbits, x, y_rev, vals, last_x, perm_y, last_y), (nx, ny), f2_d, f3_d, g_r, g_omr = \
+        G._upload(f1, f2, f3, g, dim, device)
+    gen = np.random.default_rng(dim)
+    us = torch.from_numpy(np.stack([L.mont_scalar(int(gen.integers(1, 1 << 62)) % P)[:, 0]
+                                    for _ in range(dim)]).astype(np.int32)).to(device)
+
+    def inits():
+        lo, hi, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, g_omr, f3_d, f2_d, dim,
+                                   not nx)
+        return GI.phase2_pair(lo[:, :, :1], hi[:, :, :1], us[dim - 1], x, perm_y, last_y, w,
+                              us, f3_d, dim, not ny)
+
+    lo0, hi0 = inits()
+    products, half = ((0, 1),), lo0.shape[2]
+
+    def rounds_only():
+        for _ in range(2):
+            lo, hi = lo0.clone(), hi0.clone()
+            if chain == "generic":
+                rc.round_nofold(lo, hi, products, 2, half)
+                for j in range(1, dim):
+                    getattr(rc, kernels[1])(lo, hi, us[j], products, 2, half >> j)
+            else:
+                rc.round_step_nofold(lo, hi, products, 2)
+                for j in range(1, dim):
+                    (lo, hi), _s = rc.round_step_fold(lo, hi, us[j], products, 2)
+
+    inits_s = wall(inits, device, reps=5)
+    rounds_s = wall(rounds_only, device, reps=5)
+    for f in counters().values():
+        f.launches = 0
+    print(f"GKR {path}: both phase inits {inits_s:.4f} s; {2 * dim} round kernels without "
+          f"transcript {rounds_s:.4f} s; so transcript steps and the fetch "
+          f"{prove_s - inits_s - rounds_s:.4f} s of the {prove_s:.4f} s prove")
+    busy = device_busy(prove)
+    print_busy(f"GKR {path}", busy)
+
+    s = proof.extract_sum()
+    vwalls = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        sub = GKRRoundSumcheck.verify(Blake2b512Rng.setup(), dim, proof, s)
+        vwalls.append(time.perf_counter() - t0)
+    verify_s = statistics.median(vwalls)
+    out = {"launches": launches, "prove_s": prove_s, "first_s": first_s, "inits_s": inits_s,
+           "rounds_s": rounds_s, "verify_s": verify_s, "busy": busy, "proof": blob}
+    print(f"GKR {path}: verify accepts, median {verify_s:.6f} s")
+    if path != "generic":
+        return out
+
+    # once, on the default path: the subclaim against f1, f2, f3 on the host,
+    # and the plain path on the card (plain round versions and transcript)
+    t0 = time.perf_counter()
+    check(sub.verify_subclaim(f1, f2, f3, g), f"GKR {path}: subclaim does not hold")
+    subclaim_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = G._prove_chained(Blake2b512Rng.setup(), f1, f2, f3, g, dim, device,
+                             round_fns=(rc.round_nofold_ref, rc.round_fold_ref),
+                             transcript_fn=tc.transcript_step_ref)
+    plain_s = time.perf_counter() - t0
+    check(plain.serialize_uncompressed() == blob, f"GKR {path}: kernel proof differs from "
+                                                  f"the plain path's")
+    print(f"GKR {path}: verify_subclaim holds ({subclaim_s:.4f} s on the host); plain-path "
+          f"proof on the same device: bytes equal ({plain_s:.4f} s)")
+    out.update(subclaim_s=subclaim_s, plain_s=plain_s)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -611,7 +973,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    libs = cuda_build.build("round", "transcript")
+    libs = cuda_build.build("round", "transcript", "round_mxu")
     build_s = time.perf_counter() - t0
     print(f"build: {', '.join(lib.name for lib in libs.values())} in {build_s:.2f} s (in parallel)")
     for lib in libs.values():
@@ -622,43 +984,59 @@ def main() -> int:
 
     stats = kernel_phase(device, args.seed)
     stats.update(step_kernel_phase(device, args.seed))
+    stats.update(mxu_kernel_phase(device, args.seed))
+    mxu_mul = mxu_mul_phase(device, args.seed)
     stats.update(transcript_phase(device, args.seed))
     golden_phase(device)
-    heads = {chain: headline_phase(device, args.seed, args.reps, chain)
-             for chain in ("generic", "persize")}
+    gkr_golden_phase(device)
+
+    # the main paths: each driven with every launch count set to 0 just
+    # before it and read just after
+    heads = {f"ml {path}": headline_phase(device, args.seed, args.reps, path) for path in PATHS}
     host = host_transcript_phase(device, args.seed, args.reps)
-    check(heads["generic"]["proof"] == heads["persize"]["proof"] == host["proof"],
-          "the two chains and the host-transcript loop prove different bytes")
-    print(f"proof bytes equal: generic chain, per-size chain, plain paths, host-transcript loop; "
-          f"prove medians generic {heads['generic']['prove_s']:.4f} s, per-size "
-          f"{heads['persize']['prove_s']:.4f} s, host transcript {host['prove_s']:.4f} s")
+    check(len({h["proof"] for h in heads.values()} | {host["proof"]}) == 1,
+          "the ML paths and the host-transcript loop prove different bytes")
+    print("ML proof bytes equal: generic chain, per-size chain, generic chain in the MXU fold "
+          "mode, their plain paths, host-transcript loop; prove medians "
+          + ", ".join(f"{k} {h['prove_s']:.4f} s" for k, h in heads.items())
+          + f", host transcript {host['prove_s']:.4f} s")
+    inst = gkr_instance(args.seed)
+    gkr = {f"gkr {path}": gkr_headline_phase(device, inst, args.reps, path) for path in PATHS}
+    check(len({h["proof"] for h in gkr.values()}) == 1, "the GKR paths prove different bytes")
+    print("GKR proof bytes equal: generic chain, per-size chain, generic chain in the MXU fold "
+          "mode, the plain path; prove medians "
+          + ", ".join(f"{k} {h['prove_s']:.4f} s" for k, h in gkr.items()))
+    heads.update(gkr)
 
     kernels = []
-    for name, replaces, chain in (
-        ("round_nofold", "sumcheck_tpu/ops/round_pallas.py:246", "generic"),
-        ("round_fold", "sumcheck_tpu/ops/round_pallas.py:192", "generic"),
-        ("round_step_nofold", "sumcheck_tpu/ops/round_pallas.py:103", "persize"),
-        ("round_step_fold", "sumcheck_tpu/ops/round_pallas.py:85", "persize"),
-        ("transcript_step", "sumcheck_tpu/protocol/device_prover.py:118", "persize"),
+    for name, replaces, path in (
+        ("round_nofold", "sumcheck_tpu/ops/round_pallas.py:246", "ml generic"),
+        ("round_fold", "sumcheck_tpu/ops/round_pallas.py:192", "ml generic"),
+        ("round_step_nofold", "sumcheck_tpu/ops/round_pallas.py:103", "ml per-size"),
+        ("round_step_fold", "sumcheck_tpu/ops/round_pallas.py:85", "ml per-size"),
+        ("round_fold_mxu", "sumcheck_tpu/ops/round_pallas.py:215", "gkr generic mxu"),
+        ("transcript_step", "sumcheck_tpu/protocol/device_prover.py:118", "ml per-size"),
     ):
         err, timings = stats[name]
         main_shape = timings[0]
+        source = {"transcript_step": "transcript.cu", "round_fold_mxu": "round_mxu.cu"}
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": ("sumcheck_tpu_torch/csrc/transcript.cu" if name == "transcript_step"
-                       else "sumcheck_tpu_torch/csrc/round.cu"),
+            "source": f"sumcheck_tpu_torch/csrc/{source.get(name, 'round.cu')}",
             "replaces": replaces,
-            "launches": heads[chain]["launches"][name],
-            "launches_by_path": {c: heads[c]["launches"][name] for c in heads},
+            "launches": heads[path]["launches"][name],
+            "launches_by_path": {p: h["launches"][name] for p, h in heads.items()},
             "max_abs_err": err,
             "ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"],
             "shape": main_shape["shape"],
             "timings": timings,
         })
-    print(f"card: {card}; prove median generic {heads['generic']['prove_s']:.4f} s, "
-          f"per-size {heads['persize']['prove_s']:.4f} s; build {build_s:.2f} s")
+    print(f"card: {card}; prove medians "
+          + ", ".join(f"{k} {h['prove_s']:.4f} s" for k, h in heads.items())
+          + f"; banded multiply at {mxu_mul['lanes']} lanes {mxu_mul['ms']:.4f} ms, CIOS "
+          f"{mxu_mul['cios_ms']:.4f} ms; build {build_s:.2f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -47,30 +47,15 @@
 //
 // Structure: product shape (slots, products, factors, degree) and the
 // product index matrix arrive at run time (struct Plan) with compile-time
-// maxima; the wrapper raises above them. The ladder values of all slots
-// live in dynamic shared memory, [slot][cur|step][limb][thread], so runtime
-// slot indices cost no local memory and consecutive threads hit
-// consecutive banks. Coefficients, when given, sit in static shared memory.
+// maxima; the wrapper raises above them. The ladder and the block-sum tail
+// are shared with the MXU fold kernel (round_common.cuh). Coefficients, when
+// given, sit in static shared memory.
 
-#include "field.cuh"
+#include "round_common.cuh"
 
 namespace {
 
 using namespace sc;
-
-constexpr int kThreads = 128;  // threads per block
-constexpr int kMaxSlots = 16;
-constexpr int kMaxProducts = 16;
-constexpr int kMaxFactors = 8;
-constexpr int kMaxDegree = 8;
-
-struct Plan {
-  int slots;
-  int products;
-  int factors;
-  int degree;
-  int idx[kMaxProducts * kMaxFactors];  // idx[p * kMaxFactors + l]
-};
 
 template <bool kFold, bool kOutOfPlace, bool kCoeffs>
 __global__ void __launch_bounds__(kThreads)
@@ -90,7 +75,6 @@ __global__ void __launch_bounds__(kThreads)
   const bool active = k < extent;
   const long long slot_stride = (long long)kDigits * H;
   const long long out_stride = (long long)kDigits * H_out;
-#define LADDER(u, which, j) ladder[(((u) * 2 + (which)) * kLimbs + (j)) * kThreads + tid]
 
   if constexpr (kCoeffs) {
     for (int p = tid; p < pl.products; p += kThreads) {
@@ -128,71 +112,10 @@ __global__ void __launch_bounds__(kThreads)
         load_lane(e, lo_u, H);
         load_lane(o, hi_u, H);
       }
-      sub_mod(o, o, e, f);  // step
-#pragma unroll
-      for (int j = 0; j < kLimbs; ++j) {
-        LADDER(u, 0, j) = e[j];
-        LADDER(u, 1, j) = o[j];
-      }
+      ladder_put(ladder, u, e, o, f, tid);
     }
   }
-
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  for (int t = 0; t <= pl.degree; ++t) {
-    uint32_t total[kLimbs];
-#pragma unroll
-    for (int j = 0; j < kLimbs; ++j) total[j] = 0;
-    if (active) {
-      if (t > 0) {
-        for (int u = 0; u < pl.slots; ++u) {
-          uint32_t c[kLimbs], s[kLimbs];
-#pragma unroll
-          for (int j = 0; j < kLimbs; ++j) {
-            c[j] = LADDER(u, 0, j);
-            s[j] = LADDER(u, 1, j);
-          }
-          add_mod(c, c, s, f);
-#pragma unroll
-          for (int j = 0; j < kLimbs; ++j) LADDER(u, 0, j) = c[j];
-        }
-      }
-      for (int p = 0; p < pl.products; ++p) {
-        uint32_t term[kLimbs];
-        const int s0 = pl.idx[p * kMaxFactors];
-#pragma unroll
-        for (int j = 0; j < kLimbs; ++j) term[j] = LADDER(s0, 0, j);
-        if constexpr (kCoeffs) mont_mul(term, coeff[p], term, f);
-        for (int l = 1; l < pl.factors; ++l) {
-          const int sl = pl.idx[p * kMaxFactors + l];
-          uint32_t x[kLimbs];
-#pragma unroll
-          for (int j = 0; j < kLimbs; ++j) x[j] = LADDER(sl, 0, j);
-          mont_mul(term, term, x, f);
-        }
-        add_mod(total, total, term, f);
-      }
-    }
-    // per-digit block sum: a warp's 32 digits < 2^21 fit 32 bits
-#pragma unroll
-    for (int i = 0; i < kDigits; ++i) {
-      uint32_t v = (i & 1) ? (total[i >> 1] >> 16) : (total[i >> 1] & 0xFFFFu);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-      if (lane == 0) warp_sums[warp][t][i] = v;
-    }
-  }
-#undef LADDER
-  __syncthreads();
-  const int nout = (pl.degree + 1) * kDigits;
-  for (int q = tid; q < nout; q += kThreads) {
-    const int t = q / kDigits;
-    const int i = q % kDigits;
-    unsigned long long s = 0;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) s += warp_sums[w][t][i];
-    part[(long long)blockIdx.x * nout + q] = (long long)s;
-  }
+  ladder_block_sums<kCoeffs>(ladder, warp_sums, coeff, active, f, pl, part);
 }
 
 template <bool kFold, bool kOutOfPlace, bool kCoeffs>
@@ -202,7 +125,7 @@ cudaError_t launch(void* lo, void* hi, void* lo_out, void* hi_out,
                    const Plan& pl, void* part, long long nblk,
                    cudaStream_t stream) {
   auto kernel = round_kernel<kFold, kOutOfPlace, kCoeffs>;
-  const size_t smem = (size_t)pl.slots * 2 * kLimbs * kThreads * sizeof(uint32_t);
+  const size_t smem = ladder_bytes(pl.slots);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -232,19 +155,10 @@ int sc_round_launch(int mode, void* lo, void* hi, void* lo_out, void* hi_out,
                     const uint32_t* field, void* part, long long nblk,
                     void* stream) {
   Plan pl;
-  pl.slots = plan[0];
-  pl.products = plan[1];
-  pl.factors = plan[2];
-  pl.degree = plan[3];
-  if (pl.slots < 1 || pl.slots > kMaxSlots || pl.products < 1 ||
-      pl.products > kMaxProducts || pl.factors < 1 ||
-      pl.factors > kMaxFactors || pl.degree < 1 || pl.degree > kMaxDegree)
-    return (int)cudaErrorInvalidValue;
+  const cudaError_t bad = read_plan(plan, &pl);
+  if (bad != cudaSuccess) return (int)bad;
   if (mode == 2 && H_out != extent) return (int)cudaErrorInvalidValue;
-  for (int q = 0; q < kMaxProducts * kMaxFactors; ++q) pl.idx[q] = plan[4 + q];
-  Field f;
-  for (int j = 0; j < kLimbs; ++j) f.p[j] = field[j];
-  f.ninv = field[kLimbs];
+  const Field f = read_field(field);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool c = coeff != nullptr;
   switch (mode * 2 + (c ? 1 : 0)) {

@@ -37,6 +37,9 @@ R_INV = pow(R, -1, P)
 # host model, 32-bit limbs in the CUDA kernels)
 NINV16 = (-pow(P, -1, 1 << 16)) % (1 << 16)
 NINV32 = (-pow(P, -1, 1 << 32)) % (1 << 32)
+# full-width inverse for single-shot Montgomery reduction (the banded
+# 8-bit-digit multiply of `ops/mxu_mul.py` and `csrc/round_mxu.cu`)
+NINV_FULL = (-pow(P, -1, 1 << R_BITS)) % (1 << R_BITS)
 
 # Device digit layout: 16 digits x 16 bits = 256 bits.
 DIGIT_BITS = 16

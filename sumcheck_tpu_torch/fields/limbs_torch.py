@@ -18,6 +18,8 @@ torch device.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -35,11 +37,18 @@ _D = NUM_DIGITS
 R2_DIGITS = tuple((R2 >> (DIGIT_BITS * i)) & DIGIT_MASK for i in range(_D))
 
 
+@functools.cache
+def const(digits: tuple, device: torch.device) -> torch.Tensor:
+    """A constant digit tuple as an int64 tensor on `device`, made once per
+    device. Later uses upload nothing: a copy from pageable host memory
+    would wait for the device, so a chain of these ops stays free of host
+    syncs once its constants exist."""
+    return torch.tensor(digits, dtype=torch.int64, device=device)
+
+
 def _pcol(ndim_lanes: int, device) -> torch.Tensor:
     """p digits shaped (16, 1, ..., 1) for broadcasting over lanes."""
-    return torch.tensor(P_DIGITS, dtype=torch.int64, device=device).reshape(
-        (_D,) + (1,) * ndim_lanes
-    )
+    return const(P_DIGITS, device).reshape((_D,) + (1,) * ndim_lanes)
 
 
 def _chain(rows, carry_in=None):
@@ -101,7 +110,7 @@ def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def mont_mul_const(a: torch.Tensor, digits: tuple) -> torch.Tensor:
     """Montgomery multiply by a constant digit tuple."""
-    col = torch.tensor(tuple(digits), dtype=torch.int64, device=a.device)
+    col = const(tuple(digits), a.device)
     return mont_mul(a, col.reshape((_D,) + (1,) * (a.ndim - 1)))
 
 

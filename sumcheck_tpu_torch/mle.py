@@ -1,8 +1,8 @@
-"""Dense multilinear extensions in evaluation form over the boolean hypercube.
+"""Multilinear extensions in evaluation form over the boolean hypercube.
 
-Port of `sumcheck_tpu/mle.py` (`DenseMLE` only; the sparse form comes with
-GKR): the equivalent of `ark-poly`'s `DenseMultilinearExtension` as consumed
-by the reference (SURVEY.md L0), with `fix_variables` (fold the *first*
+Port of `sumcheck_tpu/mle.py`: the equivalents of `ark-poly`'s
+`DenseMultilinearExtension` / `SparseMultilinearExtension` as consumed by
+the reference (SURVEY.md L0), with `fix_variables` (fold the *first*
 variables — the low index bits — to challenge points), `evaluate`, scaled
 addition, and random sampling.
 
@@ -128,3 +128,103 @@ class DenseMLE:
             nv = self.num_vars
         c = L.mont_scalar(_as_fr(coeff).v)
         return DenseMLE(nv, L.add(base, L.mont_mul_scalar(other.evals, c)))
+
+
+class SparseMLE:
+    """Sparse multilinear extension: (index, value) pairs, zero elsewhere.
+
+    Equivalent of `ark_poly::SparseMultilinearExtension` as used by the GKR
+    round sumcheck (`src/gkr_round_sumcheck/mod.rs:22-42`). Indices are unique.
+    """
+
+    __slots__ = ("num_vars", "indices", "values", "_dev_split", "_seg_narrow")
+
+    def __init__(self, num_vars: int, indices: np.ndarray, values_mont: np.ndarray):
+        assert indices.ndim == 1 and values_mont.shape == (NUM_DIGITS, len(indices))
+        order = np.argsort(indices, kind="stable")
+        self.num_vars = num_vars
+        self.indices = indices[order].astype(np.int64)
+        self.values = np.ascontiguousarray(values_mont[:, order])
+        self._dev_split: dict = {}  # (dim, device) -> split (ops/gkr_init.py)
+        self._seg_narrow = (False, False)
+
+    # -- constructors ------------------------------------------------------
+    @staticmethod
+    def from_pairs(num_vars: int, pairs) -> "SparseMLE":
+        pairs = [(int(i), _as_fr(v).v) for i, v in pairs]
+        idx = np.array([i for i, _ in pairs], dtype=np.int64)
+        assert len(np.unique(idx)) == len(idx), "duplicate indices"
+        vals = L.from_ints([v for _, v in pairs]) if pairs else L.zeros(0)
+        return SparseMLE(num_vars, idx, vals)
+
+    @staticmethod
+    def rand_with_config(num_vars: int, num_nonzero: int, rng) -> "SparseMLE":
+        """Random sparse MLE with `num_nonzero` distinct nonzero entries
+        (mirrors `SparseMultilinearExtension::rand_with_config`); draws the
+        same entries as the JAX package from the same `random.Random`."""
+        seen = {}
+        while len(seen) < num_nonzero:
+            seen[rng.randrange(1 << num_vars)] = rng.randrange(P)
+        return SparseMLE.from_pairs(num_vars, seen.items())
+
+    # -- accessors ---------------------------------------------------------
+    @property
+    def num_nonzero(self) -> int:
+        return len(self.indices)
+
+    def iter_pairs(self):
+        vals = L.to_ints(self.values)
+        for i, v in zip(self.indices, vals):
+            yield int(i), Fr(v)
+
+    def to_dense(self) -> DenseMLE:
+        arr = L.zeros(1 << self.num_vars)
+        arr[:, self.indices] = self.values
+        return DenseMLE(self.num_vars, arr)
+
+    # -- algebra -----------------------------------------------------------
+    def fix_variables(self, partial_point: Sequence) -> "SparseMLE":
+        """Fix the first k variables (low index bits). Each entry (idx, v)
+        contributes v * prod_i(bit_i ? r_i : 1-r_i) to new index idx >> k."""
+        k = len(partial_point)
+        assert k <= self.num_vars
+        if self.num_nonzero == 0:
+            return SparseMLE(self.num_vars - k, self.indices, self.values)
+        vals = self.values
+        for i, r in enumerate(_as_fr(r) for r in partial_point):
+            r_col = L.mont_scalar(r.v)
+            omr_col = L.mont_scalar((Fr.one() - r).v)
+            bit = ((self.indices >> i) & 1).astype(bool)
+            factor = np.where(bit[None, :], r_col, omr_col).astype(np.uint32)
+            vals = L.mont_mul(vals, factor)
+        new_idx = self.indices >> k
+        # merge duplicate indices: sorted order -> segment sums
+        uniq, inverse = np.unique(new_idx, return_inverse=True)
+        if len(uniq) == len(new_idx):
+            return SparseMLE(self.num_vars - k, new_idx, vals)
+        merged = _segment_sum_mod_p(vals, inverse, len(uniq))
+        return SparseMLE(self.num_vars - k, uniq, merged)
+
+    def evaluate(self, point: Sequence) -> Fr:
+        assert len(point) == self.num_vars
+        fixed = self.fix_variables(point)
+        if fixed.num_nonzero == 0:
+            return Fr.zero()
+        return Fr(L.to_ints(fixed.values[:, :1])[0])
+
+
+def _segment_sum_mod_p(vals: np.ndarray, seg_ids: np.ndarray, num_segments: int) -> np.ndarray:
+    """Sum digit columns by segment id, then reduce mod p.
+
+    uint64 accumulation: safe for < 2^42 entries per segment."""
+    acc = np.zeros((2 * NUM_DIGITS, num_segments), dtype=np.uint64)
+    for d in range(NUM_DIGITS):
+        np.add.at(acc[d], seg_ids, vals[d].astype(np.uint64))
+    # carry-normalize uint64 digits into strict wide digits
+    out = np.zeros((2 * NUM_DIGITS, num_segments), dtype=np.uint32)
+    carry = np.zeros(num_segments, dtype=np.uint64)
+    for d in range(2 * NUM_DIGITS):
+        t = acc[d] + carry
+        out[d] = (t & 0xFFFF).astype(np.uint32)
+        carry = t >> 16
+    return L.reduce_wide(out[: NUM_DIGITS + 4])

@@ -2,7 +2,8 @@
 interface, for `ctypes`.
 
 Each source `csrc/<name>.cu` becomes `build/<name>_<hash>.so`, keyed by a
-hash of the source and the headers it shares (`csrc/field.cuh`), built with
+hash of the source and the headers the sources share (`csrc/field.cuh`,
+`csrc/round_common.cuh`), built with
 `nvcc` for sm_90a at first launch, never at import. `build(*names)` starts
 one `nvcc` per source not built yet, all at once, and waits for all of them.
 A failed build raises. The compiler's resource report (`-Xptxas -v`) is
@@ -20,7 +21,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-HEADERS = (CSRC / "field.cuh",)
+HEADERS = (CSRC / "field.cuh", CSRC / "round_common.cuh")
 
 
 def source(name: str) -> Path:

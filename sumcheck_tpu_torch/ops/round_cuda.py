@@ -9,9 +9,14 @@ Replaces the Pallas kernels of `sumcheck_tpu/ops/round_pallas.py`:
   `round_nofold` and `round_fold`;
 - `_kernel_nofold` (round 0) and `_kernel_fold` (every later round) of the
   per-size chain (`_build`, `round_pallas`): `round_step_nofold` and
-  `round_step_fold`.
+  `round_step_fold`;
+- `_kernel_chain_fold_mxu`, the generic chain's fold under the MXU fold
+  mode (`utils/config.py`): `round_fold_mxu`, whose fold multiply runs as
+  banded 8-bit-digit products on the tensor cores (`csrc/round_mxu.cu`;
+  plain version over `ops/mxu_mul.py`).
 
-The kernels are in `csrc/round.cu` (CUDA C++ for sm_90a). Each wrapper
+The kernels are in `csrc/round.cu` and `csrc/round_mxu.cu` (CUDA C++ for
+sm_90a). Each wrapper
 launches its kernel for a CUDA tensor and runs the plain version (the
 `_ref` function of the same name) only for a CPU tensor; it raises for
 anything else. The library is built with `nvcc` at first launch, never at
@@ -26,6 +31,8 @@ polynomial's per-digit lane sums, `(degree+1, 16)` int64:
   slot by the challenge `r` ((16,) int32 Montgomery digits) in place,
   lo[k] <- fold(lo[k], hi[k]) and hi[k] <- fold(lo[k+extent], hi[k+extent])
   for k < extent; then the same sums over the folded pair;
+- `round_fold_mxu(lo, hi, r, products, degree, extent)`: the same, with
+  the same results bit for bit;
 - `round_step_nofold(lo, hi, products, degree, coeffs=None)`: over all H
   lanes;
 - `round_step_fold(lo, hi, r, products, degree, coeffs=None)`: folds out of
@@ -65,11 +72,13 @@ import functools
 import numpy as np
 import torch
 
-from ..fields.fr import DIGIT_BITS, DIGIT_MASK, NINV32, NUM_DIGITS, P, WIDE_DIGITS
+from ..fields import limbs_torch as LT
+from ..fields.fr import DIGIT_BITS, DIGIT_MASK, NINV32, NINV_FULL, NUM_DIGITS, P, WIDE_DIGITS
 from ..protocol import engine
-from . import cuda_build
+from . import cuda_build, mxu_mul
 
 SOURCE = cuda_build.source("round")
+SOURCE_MXU = cuda_build.source("round_mxu")
 
 # Compile-time maxima of the kernels' run-time product structure
 # (`csrc/round.cu`: kMaxSlots, kMaxProducts, kMaxFactors, kMaxDegree).
@@ -80,6 +89,9 @@ MAX_DEGREE = 8
 
 # p as 8 x 32-bit limbs (least significant first), then -p^-1 mod 2^32
 _FIELD = (ctypes.c_uint32 * 9)(*[(P >> (32 * j)) & 0xFFFFFFFF for j in range(8)], NINV32)
+# the same, then -p^-1 mod 2^256 as 8 limbs (the MXU fold kernel's mu band)
+_FIELD_MXU = (ctypes.c_uint32 * 17)(
+    *_FIELD, *[(NINV_FULL >> (32 * j)) & 0xFFFFFFFF for j in range(8)])
 
 # launch modes of `sc_round_launch`
 _NOFOLD, _FOLD_IN_PLACE, _FOLD_OUT = 0, 1, 2
@@ -114,6 +126,26 @@ def _library() -> ctypes.CDLL:
     lib.sc_round_launch.restype = ctypes.c_int
     lib.sc_error_string.argtypes = [ctypes.c_int]
     lib.sc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def _mxu_library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(cuda_build.build("round_mxu")["round_mxu"]))
+    lib.sc_mxu_threads.argtypes = []
+    lib.sc_mxu_threads.restype = ctypes.c_int
+    lib.sc_fold_mxu_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # lo, hi, r
+        ctypes.c_longlong, ctypes.c_longlong,  # H, extent
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_uint32),  # plan, field
+        ctypes.c_void_p, ctypes.c_longlong,  # part, nblk
+        ctypes.c_void_p,  # stream
+    ]
+    lib.sc_mma_tile_launch.argtypes = [ctypes.c_void_p] * 5
+    for fn in (lib.sc_fold_mxu_launch, lib.sc_mma_tile_launch):
+        fn.restype = ctypes.c_int
+    lib.sc_mxu_error_string.argtypes = [ctypes.c_int]
+    lib.sc_mxu_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -191,17 +223,37 @@ def round_nofold_ref(lo, hi, products, degree: int, extent: int) -> torch.Tensor
     return _digit_sums(total)
 
 
-def round_fold_ref(lo, hi, r, products, degree: int, extent: int) -> torch.Tensor:
-    """Plain version of the fold kernel (any device); folds in place."""
-    _check(lo, hi, products, degree, extent, fold=True, r=r)
+def _fold_in_place_ref(lo, hi, products, degree: int, extent: int, fold_fn) -> torch.Tensor:
+    """The in-place fold round over `fold_fn`, which takes the (16, U, 4A)
+    stacked stripes [lo[:2A] | hi[:2A]] to the (16, U, 2A) folded values."""
     a2 = 2 * extent
     pair = torch.cat([lo[:, :, :a2], hi[:, :, :a2]], dim=2)
-    stacked = pair.long().permute(1, 0, 2)  # (16, U, 4*extent)
-    folded = engine.fold_tables(engine.TORCH, stacked, r.long().reshape(NUM_DIGITS, 1, 1))
+    folded = fold_fn(pair.long().permute(1, 0, 2))
     lo[:, :, :extent] = folded[:, :, :extent].permute(1, 0, 2).to(torch.int32)
     hi[:, :, :extent] = folded[:, :, extent:].permute(1, 0, 2).to(torch.int32)
     total = engine.round_totals(engine.TORCH, folded, None, products, degree)
     return _digit_sums(total)
+
+
+def round_fold_ref(lo, hi, r, products, degree: int, extent: int) -> torch.Tensor:
+    """Plain version of the fold kernel (any device); folds in place."""
+    _check(lo, hi, products, degree, extent, fold=True, r=r)
+    r_col = r.long().reshape(NUM_DIGITS, 1, 1)
+    return _fold_in_place_ref(lo, hi, products, degree, extent,
+                              lambda s: engine.fold_tables(engine.TORCH, s, r_col))
+
+
+def round_fold_mxu_ref(lo, hi, r, products, degree: int, extent: int) -> torch.Tensor:
+    """Plain version of the MXU fold kernel (any device); folds in place,
+    each fold multiply as banded products (`mxu_mul.mont_mul_scalar_mxu`)."""
+    _check(lo, hi, products, degree, extent, fold=True, r=r)
+
+    def fold(stacked):
+        half = stacked.shape[-1] // 2
+        even, odd = stacked[..., :half], stacked[..., half:]
+        return LT.add(even, mxu_mul.mont_mul_scalar_mxu(LT.sub(odd, even), r))
+
+    return _fold_in_place_ref(lo, hi, products, degree, extent, fold)
 
 
 def round_step_nofold_ref(lo, hi, products, degree: int, coeffs=None) -> torch.Tensor:
@@ -229,9 +281,9 @@ def round_step_fold_ref(lo, hi, r, products, degree: int, coeffs=None):
 # ---------------------------------------------------------------------------
 
 
-def _launch(mode: int, lo, hi, r, products, degree: int, extent: int,
-            out=None, coeffs=None) -> torch.Tensor:
-    slots = lo.shape[0]
+def _plan(slots: int, products, degree: int):
+    """The kernels' run-time product plan (`Plan` in `csrc/round_common.cuh`);
+    raises above its compile-time maxima, before any build."""
     factors = len(products[0])
     if (slots > MAX_SLOTS or len(products) > MAX_PRODUCTS
             or factors > MAX_FACTORS or degree > MAX_DEGREE):
@@ -239,14 +291,19 @@ def _launch(mode: int, lo, hi, r, products, degree: int, extent: int,
             f"product structure (slots={slots}, products={len(products)}, "
             f"factors={factors}, degree={degree}) exceeds the kernel's maxima"
         )
+    idx = [0] * (MAX_PRODUCTS * MAX_FACTORS)
+    for p, ix in enumerate(products):
+        idx[p * MAX_FACTORS : p * MAX_FACTORS + factors] = ix
+    return (ctypes.c_int * (4 + len(idx)))(slots, len(products), factors, degree, *idx)
+
+
+def _launch(mode: int, lo, hi, r, products, degree: int, extent: int,
+            out=None, coeffs=None) -> torch.Tensor:
+    plan = _plan(lo.shape[0], products, degree)
     lib = _library()
     threads = lib.sc_round_threads()
     nblk = -(-extent // threads)
     part = torch.empty((nblk, degree + 1, NUM_DIGITS), dtype=torch.int64, device=lo.device)
-    idx = [0] * (MAX_PRODUCTS * MAX_FACTORS)
-    for p, ix in enumerate(products):
-        idx[p * MAX_FACTORS : p * MAX_FACTORS + factors] = ix
-    plan = (ctypes.c_int * (4 + len(idx)))(slots, len(products), factors, degree, *idx)
     lo_out, hi_out = out if out is not None else (None, None)
     with torch.cuda.device(lo.device):
         stream = torch.cuda.current_stream(lo.device).cuda_stream
@@ -326,10 +383,57 @@ def round_step_fold(lo, hi, r, products, degree: int, coeffs=None):
     return (new_lo, new_hi), out
 
 
+def round_fold_mxu(lo, hi, r, products, degree: int, extent: int) -> torch.Tensor:
+    """Rounds 1..nv-1 of the generic chain in the MXU fold mode: what
+    `round_fold` computes, with each fold multiply as banded products on the
+    tensor cores. Launches the CUDA kernel for a CUDA pair, runs
+    `round_fold_mxu_ref` for a CPU pair."""
+    if lo.device.type == "cpu":
+        return round_fold_mxu_ref(lo, hi, r, products, degree, extent)
+    _kernel_device(lo)
+    _check(lo, hi, products, degree, extent, fold=True, r=r)
+    plan = _plan(lo.shape[0], products, degree)
+    lib = _mxu_library()
+    nblk = -(-extent // lib.sc_mxu_threads())
+    part = torch.empty((nblk, degree + 1, NUM_DIGITS), dtype=torch.int64, device=lo.device)
+    with torch.cuda.device(lo.device):
+        stream = torch.cuda.current_stream(lo.device).cuda_stream
+        rc = lib.sc_fold_mxu_launch(lo.data_ptr(), hi.data_ptr(), r.data_ptr(), lo.shape[2],
+                                    extent, plan, _FIELD_MXU, part.data_ptr(), nblk, stream)
+    _raise_mxu(rc, "MXU fold kernel")
+    round_fold_mxu.launches += 1
+    return part.sum(dim=0)
+
+
 round_nofold.launches = 0
 round_fold.launches = 0
 round_step_nofold.launches = 0
 round_step_fold.launches = 0
+round_fold_mxu.launches = 0
+
+
+def _raise_mxu(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = _mxu_library().sc_mxu_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
+
+
+def _mma_tile(a, b, c) -> torch.Tensor:
+    """Test hook of `csrc/round_mxu.cu`'s fragment layouts: one tensor-core
+    tile D = A B + C on the card. a (16, 32) uint8, b (8, 32) uint8 (the
+    columns of B), c (16, 8) int32; returns D (16, 8) int32."""
+    _kernel_device(a)
+    if (a.shape, b.shape, c.shape) != ((16, 32), (8, 32), (16, 8)) or (
+            a.dtype, b.dtype, c.dtype) != (torch.uint8, torch.uint8, torch.int32):
+        raise ValueError("a (16, 32) uint8, b (8, 32) uint8, c (16, 8) int32")
+    a, b, c = a.contiguous(), b.contiguous(), c.contiguous()
+    d = torch.empty_like(c)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = _mxu_library().sc_mma_tile_launch(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                               d.data_ptr(), stream)
+    _raise_mxu(rc, "mma tile")
+    return d
 
 
 def finish_sums(digit_sums: torch.Tensor) -> np.ndarray:

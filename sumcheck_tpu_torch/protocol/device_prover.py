@@ -110,10 +110,14 @@ def init_pair(polynomial, device):
 
 
 def resolve_device(device) -> torch.device:
-    """`device` as a `torch.device`; "cuda" without a card raises."""
+    """`device` as a `torch.device` with its index, as a tensor's `.device`
+    names it (so device-keyed caches agree); "cuda" without a card raises."""
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device is cuda, but no CUDA device is available")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device is cuda, but no CUDA device is available")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
@@ -165,13 +169,17 @@ def fetch_chain_outputs(msgs, rs, state):
             flat[o2:].reshape(state.shape))
 
 
-def lift_transcript(fs_rng, device) -> torch.Tensor:
-    """The packed device transcript of a host `Blake2b512Rng`, one upload
-    (from pinned memory without a host wait, on a card)."""
-    state = DevTranscript.lift(fs_rng.state_tuple()).to_state()
+def upload(t: torch.Tensor, device) -> torch.Tensor:
+    """A host tensor on `device`; on a card from pinned memory, without a
+    host wait, so that a prove's uploads do not sync."""
     if device.type == "cuda":
-        return state.pin_memory().to(device, non_blocking=True)
-    return state.to(device)
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def lift_transcript(fs_rng, device) -> torch.Tensor:
+    """The packed device transcript of a host `Blake2b512Rng`, one upload."""
+    return upload(DevTranscript.lift(fs_rng.state_tuple()).to_state(), device)
 
 
 def col_int(d) -> int:

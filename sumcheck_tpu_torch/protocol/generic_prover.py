@@ -10,6 +10,11 @@ once (`device_prover.init_pair`); round j works on the first
 - round j >= 1 launches the fold kernel over exactly `A` lanes; the kernel
   grid covers that extent, so nothing needs the JAX lane mask.
 
+In the MXU fold mode (`SUMCHECK_TPU_MXU_FOLD`, `utils/config.py`) the fold
+rounds launch `round_cuda.round_fold_mxu` in place of `round_fold`, as the
+JAX chain's `mxu_kernel` branch (`:216-264`) swaps in
+`_kernel_chain_fold_mxu`; round 0 is the same either way.
+
 The transcript runs on the device (`transcript_cuda.transcript_step`, the
 round step's `feed_fr_vec_dyn` / `fr_rand_dyn` tail at `:276-296`): the host
 lifts its `Blake2b512Rng` state once, enqueues every round with no sync,
@@ -36,6 +41,7 @@ from ..fields import limbs_np as L
 from ..fields.fr import NUM_DIGITS, Fr, P, R_INV
 from ..fields.limbs_torch import wide_to_int
 from ..ops import round_cuda, transcript_cuda
+from ..utils.config import get_config
 from ..utils.errors import SumcheckError
 from .device_prover import (
     finish_chain,
@@ -53,8 +59,11 @@ def chain_rounds_generic(lo, hi, state, products, degree: int, num_rounds: int,
     kernel over the active extent (folding `lo`, `hi` in place) and one
     transcript step. `state` is the packed transcript (advanced in place).
     Returns (msgs (k, 16, d+1), rs (k, 16), state) on the pair's device.
+    The fold rounds launch `round_fold_mxu` in the MXU fold mode.
     `round_fns` and `transcript_fn` are test hooks."""
-    nofold, fold = round_fns or (round_cuda.round_nofold, round_cuda.round_fold)
+    mxu = get_config().use_mxu_fold()
+    nofold, fold = round_fns or (
+        round_cuda.round_nofold, round_cuda.round_fold_mxu if mxu else round_cuda.round_fold)
     transcript = transcript_fn or transcript_cuda.transcript_step
     device = lo.device
     half = lo.shape[2]

@@ -203,3 +203,163 @@ def test_chained_prove_on_cuda_equals_cpu(cuda, impl, monkeypatch):
     sub = T.MLSumcheck.verify(poly.info(), T.MLSumcheck.extract_sum(proof), proof)
     assert state.randomness == sub.point
     assert poly.evaluate(sub.point) == sub.expected_evaluation
+
+
+def test_mma_tile(cuda):
+    """One `mma.sync` m16n8k32 u8 x u8 -> s32 tile of `csrc/round_mxu.cu`,
+    fragment layouts as the kernel uses them, against an int64 product."""
+    gen = np.random.default_rng(11)
+    a = gen.integers(0, 256, size=(16, 32), dtype=np.uint8)
+    b = gen.integers(0, 256, size=(8, 32), dtype=np.uint8)  # B's columns
+    c = gen.integers(-(1 << 20), 1 << 20, size=(16, 8), dtype=np.int32)
+    got = RC._mma_tile(*(torch.from_numpy(x).to(cuda) for x in (a, b, c)))
+    want = a.astype(np.int64) @ b.astype(np.int64).T + c
+    assert np.array_equal(got.cpu().numpy().astype(np.int64), want)
+
+
+def _strict(gen, n):
+    d = gen.integers(0, 1 << 16, size=(16, n), dtype=np.uint32)
+    d[15] >>= 2  # < 2^254 < p
+    return d
+
+
+@pytest.mark.parametrize("r_int", [None, 0, 1, P - 1], ids=["random", "0", "1", "p-1"])
+@pytest.mark.parametrize("extent", [1, 3, 129, (1 << 9) + 5, 1 << 10])
+def test_fold_mxu_kernel_matches_plain_and_cios(cuda, extent, r_int):
+    """`round_fold_mxu` against its plain version and against `round_fold`
+    on the card: the folded pair and the block sums, array-equal; lanes
+    past the extent untouched. The first lanes of slot 0 fold 0 towards
+    edge values (0, 1, 2, p-1, p-2, 2^255 mod p), so the banded multiply
+    meets them as operands, by edge challenges too."""
+    products = ((0, 1, 2), (3, 4, 5))
+    lo, hi = _pair(extent + 1, 6, 12, cuda)
+    edges = L.from_ints([0, 1, 2, P - 1, P - 2, (1 << 255) % P], mont=False)
+    n = min(extent, edges.shape[1])
+    lo[0, :, :n] = 0
+    hi[0, :, :n] = torch.from_numpy(edges[:, :n].astype(np.int32)).to(cuda)
+    r_digits = (L.mont_scalar(987654321) if r_int is None else L.from_ints([r_int], mont=False))
+    r = torch.from_numpy(r_digits[:, 0].astype(np.int32)).to(cuda)
+    runs = []
+    for fn in (RC.round_fold_mxu, RC.round_fold_mxu_ref, RC.round_fold):
+        l, h = lo.clone(), hi.clone()
+        runs.append((fn(l, h, r, products, 3, extent), l, h))
+    torch.cuda.synchronize()
+    for sums, l, h in runs[1:]:
+        assert torch.equal(runs[0][0], sums)
+        assert torch.equal(runs[0][1], l) and torch.equal(runs[0][2], h)
+    assert torch.equal(runs[0][1][:, :, extent:], lo[:, :, extent:])
+
+
+@pytest.mark.parametrize("slots", [1, 2, 16])
+def test_fold_mxu_kernel_slot_counts(cuda, slots):
+    """From one slot to the maximum, whose ladder and exchange tiles take
+    more than 48 KB of dynamic shared memory; the GKR shape is two slots."""
+    products = ((0, 1),) if slots == 2 else (((0, 0),) if slots == 1 else (tuple(range(4)),))
+    degree = len(products[0])
+    lo, hi = _pair(slots + 40, slots, 10, cuda)
+    r = torch.from_numpy(L.mont_scalar(77)[:, 0].astype(np.int32)).to(cuda)
+    l1, h1, l2, h2 = lo.clone(), hi.clone(), lo.clone(), hi.clone()
+    got = RC.round_fold_mxu(l1, h1, r, products, degree, 200)
+    want = RC.round_fold(l2, h2, r, products, degree, 200)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(l1, l2) and torch.equal(h1, h2)
+
+
+def test_mont_mul_scalar_mxu_on_the_card(cuda):
+    """`ops/mxu_mul.py`'s float32 matmuls are exact on the card: equal to
+    the CIOS multiply at 2^17 lanes."""
+    from sumcheck_tpu_torch.fields import limbs_torch as LT
+    from sumcheck_tpu_torch.ops import mxu_mul
+
+    gen = np.random.default_rng(3)
+    a = torch.from_numpy(_strict(gen, 1 << 17).astype(np.int64)).to(cuda)
+    c = torch.from_numpy(L.mont_scalar(int(gen.integers(1, 1 << 62)))[:, 0].astype(np.int64)).to(cuda)
+    assert torch.equal(mxu_mul.mont_mul_scalar_mxu(a, c), LT.mont_mul(a, c[:, None]))
+
+
+def test_prove_in_mxu_mode_on_cuda(cuda, monkeypatch):
+    """The generic chain in the MXU fold mode: nv - 1 `round_fold_mxu`
+    launches, no `round_fold`, and the default mode's bytes."""
+    nv = 11
+    poly = polynomial_from_numpy(nv, _tables(9, nv, 5),
+                                 [(5, [0, 1, 2]), (1, [0, 3]), (9, [4, 0, 4, 1])])
+    want = serialize_proof(T.MLSumcheck.prove(poly, device=cuda))
+    monkeypatch.setattr(get_config(), "mxu_fold", "kernel")
+    monkeypatch.setattr(get_config(), "ab", True)
+    before = (RC.round_fold_mxu.launches, RC.round_fold.launches)
+    proof = T.MLSumcheck.prove(poly, device=cuda)
+    after = (RC.round_fold_mxu.launches, RC.round_fold.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (nv - 1, 0)
+    assert serialize_proof(proof) == want
+
+
+def _gkr_mode(mode, monkeypatch):
+    """Chain and fold mode; "mxu" is the generic chain in the MXU fold mode
+    with the banded-product threshold at 1 lane, so the eq tables and the
+    phase-2 scaling take the banded product on the card too."""
+    from sumcheck_tpu_torch.ops import gkr_init as GI
+
+    cfg = get_config()
+    monkeypatch.setattr(cfg, "chain_impl", "persize" if mode == "persize" else "generic")
+    if mode == "mxu":
+        monkeypatch.setattr(cfg, "mxu_fold", "kernel")
+        monkeypatch.setattr(cfg, "ab", True)
+        monkeypatch.setattr(GI, "MXU_MIN_LANES", 1)
+    if mode == "persize":
+        return (RC.round_step_nofold, RC.round_step_fold)
+    return (RC.round_nofold, RC.round_fold_mxu if mode == "mxu" else RC.round_fold)
+
+
+@pytest.mark.parametrize("mode", ["generic", "persize", "mxu"])
+def test_gkr_golden_on_cuda(cuda, mode, monkeypatch):
+    """`tests/fixtures/gkr_dim5.json` byte for byte through `device="cuda"`."""
+    import hashlib
+    import json
+    from pathlib import Path
+
+    _gkr_mode(mode, monkeypatch)
+    fx = json.loads((Path(__file__).parent / "fixtures" / "gkr_dim5.json").read_text())
+    dim = fx["dim"]
+
+    def table(tag):
+        return [int.from_bytes(hashlib.blake2b(f"sumcheck-golden/gkr{dim}/{tag}/{i}".encode(),
+                                               digest_size=32).digest(), "little") % P
+                for i in range(1 << dim)]
+
+    f1 = T.SparseMLE.from_pairs(3 * dim, [(int(k), T.Fr(int(v, 16)))
+                                          for k, v in fx["f1_nonzeros"].items()])
+    f2, f3 = T.DenseMLE.from_evaluations(dim, table("f2")), T.DenseMLE.from_evaluations(dim, table("f3"))
+    g = [T.Fr(int(x, 16)) for x in fx["g"]]
+    proof = T.GKRRoundSumcheck.prove(T.Blake2b512Rng.setup(), f1, f2, f3, g, device=cuda)
+    hexes = lambda msgs: [[format(e.v, "064x") for e in m.evaluations] for m in msgs]  # noqa: E731
+    assert hexes(proof.phase1_sumcheck_msgs) == fx["phase1_msgs"]
+    assert hexes(proof.phase2_sumcheck_msgs) == fx["phase2_msgs"]
+    sub = T.GKRRoundSumcheck.verify(T.Blake2b512Rng.setup(), dim, proof,
+                                    T.Fr(int(fx["claimed_sum"], 16)))
+    assert sub.expected_evaluation.v == int(fx["expected_evaluation"], 16)
+    assert sub.verify_subclaim(f1, f2, f3, g)
+
+
+@pytest.mark.parametrize("mode", ["generic", "persize", "mxu"])
+def test_gkr_prove_on_cuda_equals_cpu(cuda, mode, monkeypatch):
+    """A dim-9 GKR prove with colliding f1 entries: 2 round-0 launches,
+    2 (dim - 1) folds and 2 dim transcript steps per prove, and proof bytes
+    and the final transcript state equal to the CPU's."""
+    import random
+
+    counters = _gkr_mode(mode, monkeypatch) + (TC.transcript_step,)
+    dim = 9
+    rnd = random.Random(dim)
+    f1 = T.SparseMLE.rand_with_config(3 * dim, 3 << dim, rnd)
+    f2, f3 = T.DenseMLE.rand(dim, rnd), T.DenseMLE.rand(dim, rnd)
+    g = [T.Fr(rnd.randrange(P)) for _ in range(dim)]
+    before = [f.launches for f in counters]
+    rng = T.Blake2b512Rng.setup()
+    proof = T.GKRRoundSumcheck.prove(rng, f1, f2, f3, g, device=cuda)
+    assert [f.launches - b for f, b in zip(counters, before)] == [2, 2 * (dim - 1), 2 * dim]
+    rng_cpu = T.Blake2b512Rng.setup()
+    want = T.GKRRoundSumcheck.prove(rng_cpu, f1, f2, f3, g, device="cpu")
+    assert proof.serialize_uncompressed() == want.serialize_uncompressed()
+    assert rng.state_tuple() == rng_cpu.state_tuple()
+    sub = T.GKRRoundSumcheck.verify(T.Blake2b512Rng.setup(), dim, proof, proof.extract_sum())
+    assert sub.verify_subclaim(f1, f2, f3, g)

@@ -19,7 +19,7 @@ from sumcheck_tpu_torch.ops import transcript_cuda as TC
 from sumcheck_tpu_torch.utils.config import get_config
 
 COUNTERS = (RC.round_nofold, RC.round_fold, RC.round_step_nofold, RC.round_step_fold,
-            TC.transcript_step)
+            RC.round_fold_mxu, TC.transcript_step)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -38,6 +38,8 @@ def test_import_leaves_jax_out():
         import sumcheck_tpu_torch.convert, sumcheck_tpu_torch.ops.round_cuda
         import sumcheck_tpu_torch.ops.transcript_cuda, sumcheck_tpu_torch.transcript.device
         import sumcheck_tpu_torch.protocol.generic_prover, sumcheck_tpu_torch.protocol.device_prover
+        import sumcheck_tpu_torch.gkr_round_sumcheck, sumcheck_tpu_torch.ops.gkr_init
+        import sumcheck_tpu_torch.ops.mxu_mul
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "sumcheck_tpu" or m.startswith("sumcheck_tpu.")]
         assert not bad, bad
@@ -63,6 +65,14 @@ def test_import_and_cpu_rounds_run_no_nvcc(tmp_path):
         from sumcheck_tpu_torch.utils.config import get_config
         get_config().chain_impl = "persize"
         T.MLSumcheck.prove(poly, device="cpu")
+        import random
+        rnd = random.Random(0)
+        f1 = T.SparseMLE.rand_with_config(9, 8, rnd)
+        f2, f3 = T.DenseMLE.rand(3, rnd), T.DenseMLE.rand(3, rnd)
+        T.GKRRoundSumcheck.prove(T.Blake2b512Rng.setup(), f1, f2, f3, [T.Fr(5)] * 3, device="cpu")
+        get_config().chain_impl, get_config().mxu_fold, get_config().ab = "generic", "kernel", True
+        T.MLSumcheck.prove(poly, device="cpu")
+        T.GKRRoundSumcheck.prove(T.Blake2b512Rng.setup(), f1, f2, f3, [T.Fr(5)] * 3, device="cpu")
     """, env=env)
     assert proc.returncode == 0, proc.stderr
     assert not mark.exists()
@@ -110,6 +120,8 @@ def test_wrappers_refuse_other_devices():
         RC.round_step_nofold(lo, hi, ((0, 1),), 2)
     with pytest.raises(ValueError):
         RC.round_step_fold(lo, hi, r, ((0, 1),), 2)
+    with pytest.raises(ValueError):
+        RC.round_fold_mxu(lo, hi, r, ((0, 1),), 2, 4)
     state = torch.zeros((26, 2), dtype=torch.int32, device="meta")
     sums = torch.zeros((3, 16), dtype=torch.int64, device="meta")
     msgs = torch.zeros((2, 16, 3), dtype=torch.int32, device="meta")
@@ -121,9 +133,13 @@ def test_wrappers_refuse_other_devices():
 
 def test_kernel_maxima_are_checked_before_a_build():
     """A structure beyond the kernel's compile-time maxima raises before
-    any build is attempted (the maxima mirror `csrc/round.cu` and
-    `csrc/transcript.cu`)."""
-    src = RC.SOURCE.read_text()
+    any build is attempted (the maxima mirror `csrc/round_common.cuh`,
+    which both round kernel sources include, and `csrc/transcript.cu`)."""
+    from sumcheck_tpu_torch.ops import cuda_build
+
+    src = (cuda_build.CSRC / "round_common.cuh").read_text()
+    for source in (RC.SOURCE, RC.SOURCE_MXU):
+        assert '#include "round_common.cuh"' in source.read_text()
     for name, value in (("kMaxSlots", RC.MAX_SLOTS), ("kMaxProducts", RC.MAX_PRODUCTS),
                         ("kMaxFactors", RC.MAX_FACTORS), ("kMaxDegree", RC.MAX_DEGREE)):
         assert f"constexpr int {name} = {value};" in src
@@ -155,11 +171,52 @@ def test_build_names_each_source_and_shared_header(tmp_path, monkeypatch):
     missing `nvcc` raises before anything is built."""
     from sumcheck_tpu_torch.ops import cuda_build
 
-    assert cuda_build.library_path("round") != cuda_build.library_path("transcript")
+    names = ("round", "transcript", "round_mxu")
+    assert len({cuda_build.library_path(n) for n in names}) == 3
     assert cuda_build.library_path("round").name.startswith("round_")
+    assert cuda_build.CSRC / "round_common.cuh" in cuda_build.HEADERS
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError):
         cuda_build.build("round", "transcript")
     assert not any(tmp_path.iterdir())
+
+
+def _small_gkr():
+    import random
+
+    rnd = random.Random(2)
+    f1 = T.SparseMLE.rand_with_config(12, 20, rnd)
+    return f1, T.DenseMLE.rand(4, rnd), T.DenseMLE.rand(4, rnd), [T.Fr(rnd.randrange(97)) for _ in range(4)]
+
+
+@pytest.mark.parametrize("mode", ["generic", "persize", "mxu"])
+def test_gkr_cuda_without_a_card_raises(monkeypatch, mode):
+    """A GKR prove on `device="cuda"` without a card raises, on every path,
+    and runs nothing on the CPU instead."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: this checks the no-card path")
+    monkeypatch.setattr(get_config(), "chain_impl", "persize" if mode == "persize" else "generic")
+    if mode == "mxu":
+        monkeypatch.setattr(get_config(), "mxu_fold", "kernel")
+        monkeypatch.setattr(get_config(), "ab", True)
+    calls = []
+    for name in ("round_nofold_ref", "round_fold_ref", "round_step_nofold_ref",
+                 "round_step_fold_ref", "round_fold_mxu_ref"):
+        monkeypatch.setattr(RC, name, lambda *a: calls.append(a))
+    monkeypatch.setattr(TC, "transcript_step_ref", lambda *a: calls.append(a))
+    with pytest.raises(RuntimeError):
+        T.GKRRoundSumcheck.prove(T.Blake2b512Rng.setup(), *_small_gkr(), device="cuda")
+    assert not calls
+
+
+@pytest.mark.parametrize("mode", ["generic", "persize", "mxu"])
+def test_cpu_gkr_prove_launches_no_kernel(monkeypatch, mode):
+    monkeypatch.setattr(get_config(), "chain_impl", "persize" if mode == "persize" else "generic")
+    if mode == "mxu":
+        monkeypatch.setattr(get_config(), "mxu_fold", "kernel")
+        monkeypatch.setattr(get_config(), "ab", True)
+    before = [f.launches for f in COUNTERS]
+    T.GKRRoundSumcheck.prove(T.Blake2b512Rng.setup(), *_small_gkr(), device="cpu")
+    assert [f.launches for f in COUNTERS] == before
