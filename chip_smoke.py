@@ -10,10 +10,13 @@ failure raises and exits non-zero without the final line:
 1. the card's name and power limit (`nvidia-smi`); no CUDA device -> exit 1;
 2. build the three kernel sources, `sumcheck_tpu_torch/csrc/round.cu`,
    `csrc/transcript.cu` and `csrc/round_mxu.cu`, one `nvcc` each, started
-   together;
+   together; print each kernel's registers, shared memory, stack frame and
+   spills from the ptxas logs, and the SASS size of the transcript and fold
+   kernels (`cuobjdump`, where the toolkit has it);
 3. the generic chain's round kernels against their plain PyTorch versions
    on the card, array-equal, at the round shapes of the nv=20 2x3 prove and
-   at ragged extents, with kernel and plain times;
+   at ragged extents, with kernel and plain times; the fold at A2=2^18
+   beside its bytes per second, its bound and the previous version's time;
 4. the per-size chain's round kernels against their plain versions at the
    nv=20 shapes (round 0 over 2^19 lanes; folds into 2^18, 2^10, 3 and 1
    lanes; one case with coefficients), with kernel and plain times;
@@ -24,7 +27,12 @@ failure raises and exits non-zero without the final line:
    kernel, plain and CIOS-kernel times; then `ops/mxu_mul.py`'s banded
    multiply (float32 matmuls) against the CIOS multiply at 2^17 lanes;
 6. the transcript kernel against the plain transcript and the host rng
-   over 60 rounds that reject draws, with kernel and plain times;
+   over 60 rounds that reject draws, with kernel and plain times, and the
+   step's latency bound: the compressions this run's rounds needed, times
+   the depth of one compression, times the card's dependent-issue latency
+   (measured by a chain of dependent instructions), plus the launch floor
+   (an empty kernel back to back); and one compression's clocks on the
+   kernel's four hash lanes, checked against the host's Blake2b core;
 7. the golden fixtures `tests/fixtures/ml_nv6_rich.json` and
    `ml_nv14_config1.json` through `device="cuda"` on both chains, and
    `gkr_dim5.json` on both chains and in the MXU fold mode;
@@ -34,7 +42,9 @@ failure raises and exits non-zero without the final line:
    generic chain in the MXU fold mode (`SUMCHECK_TPU_MXU_FOLD=kernel`,
    `SUMCHECK_TPU_AB=1`): one first prove and the median of `--reps` warm
    proves each, launch counts per prove (1 + 19 round kernels and 20
-   transcript steps), the chain enqueued under
+   transcript steps), the kernels of one chain counted by `torch.profiler`
+   (two per round, plus the zero fill of its sums buffer), the chain
+   enqueued under
    `torch.cuda.set_sync_debug_mode("error")` so that a host sync inside it
    fails the run, verify, the subclaim against the polynomial, and proof
    bytes equal across the three, the plain path on the card and the
@@ -42,15 +52,21 @@ failure raises and exits non-zero without the final line:
 9. the GKR headlines: `GKRRoundSumcheck.prove` at dim 18 on the bench's
    instance (`bench.py:187-194`) on the same three paths: first prove and
    warm median, launch counts per prove (2 + 34 round kernels and 36
-   transcript steps), everything between the uploads and the one fetch
+   transcript steps; the profiler's count of round kernels and transcript
+   steps in one prove), everything between the uploads and the one fetch
    under the sync debug mode "error", the phase inits and the round kernels
    timed alone, verify and `verify_subclaim`, and proof bytes equal across
    the three and the plain path on the card;
-10. one JSON line of the kernels, then the last line
-   `{"ok": true, "device": {...}}`.
+10. one JSON line of the kernels (each with its time at the main path's
+   shape, its bound there and what sets it, its launches on the main path,
+   and `library_ms` null: no PyTorch call computes these functions), then
+   the last line `{"ok": true, "device":
+   {...}}`.
 
-Tolerance everywhere is 0: the field arithmetic is exact, so every check is
-array- or byte-equality.
+Kernel times are device times: `torch.cuda._sleep` holds the stream while
+the launches are enqueued, so the events time the kernels back to back and
+not the host's enqueue. Tolerance everywhere is 0: the field arithmetic is
+exact, so every check is array- or byte-equality.
 """
 
 from __future__ import annotations
@@ -76,6 +92,64 @@ SLOTS = 6  # 2 products x 3 multiplicands, coefficients folded in place
 GKR_DIM = 18  # the bench's GKR size (`bench.py:560`)
 KERNEL_REPS = 20
 PLAIN_REPS = 3
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak
+INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor-core peak
+IMAD_PER_SM_CLOCK = 64  # 32-bit IMAD results per SM per clock, compute capability 9.0
+# 32-bit multiplies in one 8-limb CIOS Montgomery multiply: 64 + 64
+# 32x32->64-bit products (a*b and m*p), two 32-bit multiplies each (low
+# and high word), and 8 for m = t0 * ninv
+IMADS_PER_MONT_MUL = 2 * 2 * 64 + 8
+# the dependent depth of one Blake2b compression: 12 rounds of two G levels
+# (four G in parallel each), one G a chain of 15 dependent 32-bit
+# instructions (four 64-bit adds of two each, carry then high word; the
+# xor of the rotate by 32, one; three xor-and-rotates of two each)
+G_LEVELS = 24
+G_DEPTH = 15
+# each kernel's time at its main shape before its current version (PERF.md,
+# section 6, in parentheses), quoted in the printed lines beside this run's;
+# not part of the kernels line
+PREVIOUS_MS = {"round_nofold": 0.3752, "round_fold": 0.3788, "round_step_nofold": 0.3707,
+               "round_step_fold": 0.3668, "round_fold_mxu": 0.1064, "transcript_step": 0.0680}
+
+
+RATES: dict = {}  # the card's SM count, clock and IMAD rate (`card_rates`)
+
+
+def card_rates(device) -> dict:
+    """The card's SM count, its maximum SM clock (`nvidia-smi`) and from
+    them its 32-bit IMAD rate."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits",
+         "-i", str(device.index or 0)], capture_output=True, text=True, check=True,
+    ).stdout.split()[0])
+    return {"sms": sms, "clock_hz": mhz * 1e6,
+            "imad_per_s": sms * IMAD_PER_SM_CLOCK * mhz * 1e6}
+
+
+def round_work(lanes, slots, products, degree, fold, coeffs=False, mma=False) -> dict:
+    """What a round kernel must do at one shape: bytes (each input stripe
+    read once, each output stripe written once: 16 digits x 4 bytes per
+    lane and slot), 32-bit multiplies of its Montgomery multiplies (2 per
+    slot for a fold, (factors - 1) x products x (d+1) for the evaluation,
+    products x (d+1) more with coefficients), and, for the MXU fold, the
+    int8 tensor-core operations of its fold multiplies (40 mma.m16n8k32 per
+    32 lanes each) in place of their IMADs."""
+    stripe = 64 * lanes * slots
+    evals = len(products) * (len(products[0]) - 1) * (degree + 1)
+    evals += len(products) * (degree + 1) if coeffs else 0
+    folds = 2 * slots if fold else 0
+    return {"bytes": stripe * (6 if fold else 2),
+            "imads": (evals + (0 if mma else folds)) * IMADS_PER_MONT_MUL * lanes,
+            "int8_ops": folds * 40 * 16 * 8 * 32 * 2 // 32 * lanes if mma else 0}
+
+
+def bound_of(work: dict) -> tuple[float, str, str]:
+    """(bound ms, bound_by, what sets it): the larger of the bytes at the
+    card's memory rate and the operations at its peak rate for their type."""
+    mem_ms = work["bytes"] / HBM_BYTES_PER_S * 1e3
+    op_ms = (work["imads"] / RATES["imad_per_s"] + work["int8_ops"] / INT8_OPS_PER_S) * 1e3
+    return (mem_ms, "bytes", "memory") if mem_ms >= op_ms else (op_ms, "operations", "int")
 
 
 def check(ok: bool, what: str) -> None:
@@ -114,9 +188,14 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def time_ms(fn, reps: int, device) -> float:
-    """Mean device time of `fn()` over `reps` runs, after one warm-up."""
-    fn()
+def time_ms(fn, reps: int, device, device_only: bool = False, warm: bool = True) -> float:
+    """Mean time of `fn()` over `reps` runs, after one warm-up. On the card
+    CUDA events time it; with `device_only` the stream first sleeps long
+    enough for all `reps` launches to be enqueued, so the events see the
+    kernels back to back and not the host's enqueue (for functions that do
+    not sync)."""
+    if warm:
+        fn()
     if device.type != "cuda":
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -124,6 +203,8 @@ def time_ms(fn, reps: int, device) -> float:
         return (time.perf_counter() - t0) * 1e3 / reps
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if device_only:
+        torch.cuda._sleep(int(2e9 * (0.005 + 0.0002 * reps)))  # about 5 ms + 0.2 ms a launch
     start.record()
     for _ in range(reps):
         fn()
@@ -133,8 +214,10 @@ def time_ms(fn, reps: int, device) -> float:
 
 
 def compare_round(rc, name, lo, hi, r, products, degree, extent, device, timed):
-    """One kernel-vs-plain case; returns (max_abs_err, kernel ms, plain ms)."""
+    """One kernel-vs-plain case; returns (max_abs_err, kernel ms, plain ms).
+    The kernel's time is device time, into a preallocated sums row."""
     fold = r is not None
+    row = torch.zeros((degree + 1, 16), dtype=torch.int64, device=device)
     lo_k, hi_k, lo_p, hi_p = lo.clone(), hi.clone(), lo.clone(), hi.clone()
     if fold:
         got = rc.round_fold(lo_k, hi_k, r, products, degree, extent)
@@ -154,13 +237,13 @@ def compare_round(rc, name, lo, hi, r, products, degree, extent, device, timed):
     ms = plain_ms = None
     if timed:
         if fold:
-            ms = time_ms(lambda: rc.round_fold(lo_k, hi_k, r, products, degree, extent),
-                         KERNEL_REPS, device)
+            ms = time_ms(lambda: rc.round_fold(lo_k, hi_k, r, products, degree, extent, row),
+                         KERNEL_REPS, device, device_only=True)
             plain_ms = time_ms(lambda: rc.round_fold_ref(lo_p, hi_p, r, products, degree, extent),
                                PLAIN_REPS, device)
         else:
-            ms = time_ms(lambda: rc.round_nofold(lo_k, hi_k, products, degree, extent),
-                         KERNEL_REPS, device)
+            ms = time_ms(lambda: rc.round_nofold(lo_k, hi_k, products, degree, extent, row),
+                         KERNEL_REPS, device, device_only=True)
             plain_ms = time_ms(lambda: rc.round_nofold_ref(lo_p, hi_p, products, degree, extent),
                                PLAIN_REPS, device)
     print(f"kernel-vs-plain {name}: equal"
@@ -185,22 +268,33 @@ def kernel_phase(device, seed: int, nv: int = NV) -> dict:
     ).to(device)
     stats = {"round_nofold": [0, []], "round_fold": [0, []]}
 
-    def record(kernel, name, res):
+    def record(kernel, name, res, work=None):
         err, ms, plain_ms = res
         stats[kernel][0] = max(stats[kernel][0], err)
         if ms is not None:
-            stats[kernel][1].append({"shape": name, "ms": ms, "plain_ms": plain_ms})
+            stats[kernel][1].append({"shape": name, "ms": ms, "plain_ms": plain_ms,
+                                     "work": work})
 
     record("round_nofold", f"round 0 nv={nv} U=6 H=2^{nv - 1} d=3",
            compare_round(rc, f"round 0 (H=2^{nv - 1})", lo, hi, None, products, 3,
-                         half, device, True))
+                         half, device, True),
+           round_work(half, SLOTS, products, 3, False))
+    work = round_work(half // 2, SLOTS, products, 3, True)
     record("round_fold", f"fold A2=2^{nv - 2}",
            compare_round(rc, f"fold A2=2^{nv - 2}", lo, hi, r, products, 3,
-                         half // 2, device, True))
+                         half // 2, device, True), work)
+    if RATES:
+        ms = stats["round_fold"][1][-1]["ms"]
+        bound_ms, bound_by, _ = bound_of(work)
+        print(f"round_fold A2=2^{nv - 2} (U=6, d=3): {ms:.4f} ms, {work['bytes'] / ms / 1e9:.3f} "
+              f"TB/s of {HBM_BYTES_PER_S / 1e12} TB/s; bound {bound_ms:.4f} ms by {bound_by} "
+              f"({work['bytes'] / 1e6:.1f} MB; {work['imads'] / 1e9:.3f}e9 32-bit multiplies at "
+              f"{RATES['imad_per_s'] / 1e12:.2f}e12/s), {bound_ms / ms:.1%} of it; "
+              f"previous version (PERF.md): {PREVIOUS_MS['round_fold']} ms")
     for a2 in (1, 3, 37, (1 << 9) + 5):
         record("round_fold", f"fold A2={a2}",
                compare_round(rc, f"fold A2={a2}", lo, hi, r, products, 3, a2,
-                             device, True))
+                             device, True), round_work(a2, SLOTS, products, 3, True))
 
     # ragged: products of lengths 3 and 2 sharing a table -> a ones slot and
     # a scaled copy of the shared table, built by init_pair on the device
@@ -220,8 +314,10 @@ def kernel_phase(device, seed: int, nv: int = NV) -> dict:
 
 
 def compare_step(rc, name, lo, hi, r, products, degree, coeffs, device):
-    """One per-size kernel-vs-plain case, timed; returns (err, ms, plain_ms)."""
+    """One per-size kernel-vs-plain case, timed (the kernel's device time,
+    into a preallocated row); returns (err, ms, plain_ms)."""
     fold = r is not None
+    row = torch.zeros((degree + 1, 16), dtype=torch.int64, device=device)
     if fold:
         (glo, ghi), got = rc.round_step_fold(lo, hi, r, products, degree, coeffs)
         (wlo, whi), want = rc.round_step_fold_ref(lo, hi, r, products, degree, coeffs)
@@ -235,13 +331,13 @@ def compare_step(rc, name, lo, hi, r, products, degree, coeffs, device):
         err = max(err, int((glo - wlo).abs().max()), int((ghi - whi).abs().max()))
     check(err == 0, f"{name}: kernel differs from plain by {err}")
     if fold:
-        ms = time_ms(lambda: rc.round_step_fold(lo, hi, r, products, degree, coeffs),
-                     KERNEL_REPS, device)
+        ms = time_ms(lambda: rc.round_step_fold(lo, hi, r, products, degree, coeffs, row),
+                     KERNEL_REPS, device, device_only=True)
         plain_ms = time_ms(lambda: rc.round_step_fold_ref(lo, hi, r, products, degree, coeffs),
                            PLAIN_REPS, device)
     else:
-        ms = time_ms(lambda: rc.round_step_nofold(lo, hi, products, degree, coeffs),
-                     KERNEL_REPS, device)
+        ms = time_ms(lambda: rc.round_step_nofold(lo, hi, products, degree, coeffs, row),
+                     KERNEL_REPS, device, device_only=True)
         plain_ms = time_ms(lambda: rc.round_step_nofold_ref(lo, hi, products, degree, coeffs),
                            PLAIN_REPS, device)
     print(f"kernel-vs-plain {name}: equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
@@ -266,27 +362,31 @@ def step_kernel_phase(device, seed: int, nv: int = NV) -> dict:
     ).astype(np.int32)).to(device)
     stats = {"round_step_nofold": [0, []], "round_step_fold": [0, []]}
 
-    def record(kernel, name, res):
+    def record(kernel, name, res, work):
         err, ms, plain_ms = res
         stats[kernel][0] = max(stats[kernel][0], err)
-        stats[kernel][1].append({"shape": name, "ms": ms, "plain_ms": plain_ms})
+        stats[kernel][1].append({"shape": name, "ms": ms, "plain_ms": plain_ms, "work": work})
 
     name = f"round 0 nv={nv} U=6 H=2^{nv - 1} d=3"
     record("round_step_nofold", name,
-           compare_step(rc, f"per-size {name}", lo, hi, None, products, 3, None, device))
+           compare_step(rc, f"per-size {name}", lo, hi, None, products, 3, None, device),
+           round_work(half, SLOTS, products, 3, False))
     for quarter in (half // 2, 1 << 10, 3, 1):
         qname = f"2^{quarter.bit_length() - 1}" if quarter > 3 else str(quarter)
         name = f"fold H={2 * quarter} -> {qname}"
         w = 2 * quarter
         slo, shi = lo[:, :, :w].contiguous(), hi[:, :, :w].contiguous()
         record("round_step_fold", name,
-               compare_step(rc, f"per-size {name}", slo, shi, r, products, 3, None, device))
+               compare_step(rc, f"per-size {name}", slo, shi, r, products, 3, None, device),
+               round_work(quarter, SLOTS, products, 3, True))
     record("round_step_fold", f"fold H=2^{nv - 1} with coefficients",
            compare_step(rc, f"per-size fold H=2^{nv - 1} with coefficients", lo, hi, r,
-                        products, 3, coeffs, device))
+                        products, 3, coeffs, device),
+           round_work(half // 2, SLOTS, products, 3, True, coeffs=True))
     record("round_step_nofold", "round 0 with coefficients",
            compare_step(rc, "per-size round 0 with coefficients", lo[:, :, :1 << 10].contiguous(),
-                        hi[:, :, :1 << 10].contiguous(), None, products, 3, coeffs, device))
+                        hi[:, :, :1 << 10].contiguous(), None, products, 3, coeffs, device),
+           round_work(1 << 10, SLOTS, products, 3, False, coeffs=True))
     return stats
 
 
@@ -310,12 +410,13 @@ def compare_mxu(rc, name, lo, hi, r, products, degree, extent, device):
     check(torch.equal(lo_k[:, :, extent:], lo[:, :, extent:])
           and torch.equal(hi_k[:, :, extent:], hi[:, :, extent:]),
           f"{name}: MXU fold kernel wrote past the extent")
-    ms = time_ms(lambda: rc.round_fold_mxu(lo_k, hi_k, r, products, degree, extent),
-                 KERNEL_REPS, device)
+    row = torch.zeros((degree + 1, 16), dtype=torch.int64, device=device)
+    ms = time_ms(lambda: rc.round_fold_mxu(lo_k, hi_k, r, products, degree, extent, row),
+                 KERNEL_REPS, device, device_only=True)
     plain_ms = time_ms(lambda: rc.round_fold_mxu_ref(lo_k, hi_k, r, products, degree, extent),
                        PLAIN_REPS, device)
-    cios_ms = time_ms(lambda: rc.round_fold(lo_k, hi_k, r, products, degree, extent),
-                      KERNEL_REPS, device)
+    cios_ms = time_ms(lambda: rc.round_fold(lo_k, hi_k, r, products, degree, extent, row),
+                      KERNEL_REPS, device, device_only=True)
     print(f"kernel-vs-plain-vs-CIOS {name}: equal, MXU kernel {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms, CIOS kernel {cios_ms:.4f} ms")
     return err, ms, plain_ms, cios_ms
@@ -339,7 +440,9 @@ def mxu_kernel_phase(device, seed: int, nv: int = NV, gkr_dim: int = GKR_DIM) ->
         e, ms, plain_ms, cios_ms = compare_mxu(rc, shape, lo, hi, r, products, degree, extent,
                                                device)
         err = max(err, e)
-        timings.append({"shape": shape, "ms": ms, "plain_ms": plain_ms, "cios_ms": cios_ms})
+        timings.append({"shape": shape, "ms": ms, "plain_ms": plain_ms, "cios_ms": cios_ms,
+                        "work": round_work(extent, lo.shape[0], products, degree, True,
+                                           mma=True)})
 
     half = 1 << (gkr_dim - 1)
     lo, hi = random_pair(rng, 2, half, device)
@@ -381,13 +484,117 @@ def mxu_mul_phase(device, seed: int, lanes: int = 1 << 17) -> dict:
     return {"lanes": lanes, "ms": ms, "cios_ms": cios_ms}
 
 
+def mont_mul_phase(device, seed: int, lanes: int = 1 << 20, reps: int = 64) -> dict:
+    """Phase 5c: `csrc/field.cuh`'s Montgomery multiply (CIOS, the round
+    kernels' multiply) against Python integers at edge operands and at
+    random ones, then timed on `lanes` threads that each chain `reps`
+    multiplies, as multiplies per second."""
+    from sumcheck_tpu_torch.fields.fr import P, R2
+    from sumcheck_tpu_torch.ops import round_cuda as rc
+
+    def limbs(values):
+        rows = [[(v >> (32 * j)) & 0xFFFFFFFF for j in range(8)] for v in values]
+        return torch.from_numpy(np.array(rows, dtype=np.uint32).view(np.int32)).to(device)
+
+    edges = [0, 1, 2, P - 1, P - 2, (1 << 256) % P, R2 % P, (1 << 255) % P]
+    pairs = [(x, y) for x in edges for y in edges]
+    r_inv = pow(1 << 256, -1, P)
+    a, b = limbs([x for x, _ in pairs]), limbs([y for _, y in pairs])
+    want = limbs([x * y * r_inv % P for x, y in pairs])
+    check(torch.equal(rc._mont_mul_probe(a, b, 1), want),
+          "CIOS multiply differs from Python at edge operands")
+    gen = np.random.default_rng(seed + 5)
+    d = gen.integers(0, 1 << 32, size=(2, lanes, 8), dtype=np.uint64).astype(np.uint32)
+    d[:, :, 7] >>= 3  # < 2^253 < p
+    a, b = (torch.from_numpy(x.view(np.int32)).to(device) for x in d)
+    xs, ys = ([int.from_bytes(row.tobytes(), "little") for row in x[:256]] for x in d)
+    check(torch.equal(rc._mont_mul_probe(a[:256], b[:256]),
+                      limbs([x * y * r_inv % P for x, y in zip(xs, ys)])),
+          "CIOS multiply differs from Python at random operands")
+    ms = time_ms(lambda: rc._mont_mul_probe(a, b, reps), 3, device)
+    rate = lanes * reps / (ms / 1e3)
+    print(f"Montgomery multiply (CIOS): equal to Python at {len(pairs)} edge pairs and 256 random "
+          f"ones; {rate / 1e9:.2f}e9 per second ({lanes} threads x {reps} chained); "
+          f"{RATES['imad_per_s'] / IMADS_PER_MONT_MUL / 1e9:.2f}e9 at the IMAD rate (32-bit CIOS "
+          f"count)")
+    return {"cios": rate}
+
+
+def compressions(blen: int, d1: int, attempts: int) -> tuple[int, int]:
+    """(compressions, pending bytes after) of one transcript step from
+    `blen` pending bytes, for d+1 = `d1` elements and `attempts` draws of
+    4 x next_u64: absorbing compresses a full pending block only when more
+    bytes arrive; each next_u64 finalizes a clone (one compression) and
+    re-absorbs its 64 bytes."""
+    count = 0
+
+    def absorb(words):
+        nonlocal blen, count
+        for _ in range(words):
+            if blen == 128:
+                count += 1
+                blen = 0
+            blen += 8
+
+    absorb(1 + 4 * d1)
+    for _ in range(4 * attempts):
+        count += 1
+        absorb(8)
+    return count, blen
+
+
+def transcript_bound(device, compressions_per_round: float) -> dict:
+    """The transcript step's latency bound on this card: compressions x
+    (G_LEVELS x G_DEPTH) dependent instructions x the dependent-issue
+    latency, measured as a chain of 2^19 dependent xor/add instructions on
+    one thread, plus the launch floor, an empty kernel's back-to-back
+    device time."""
+    from sumcheck_tpu_torch.ops import transcript_cuda as tc
+
+    out = torch.zeros(1, dtype=torch.int32, device=device)
+    iters = 1 << 15
+    chain_ms = time_ms(lambda: tc._latency_chain(out, iters), 3, device)
+    ns_per_op = chain_ms * 1e6 / (16 * iters)
+    floor_ms = time_ms(lambda: tc._empty_launch(device), 200, device, device_only=True)
+    compress_us = G_LEVELS * G_DEPTH * ns_per_op / 1e3
+    bound_ms = compressions_per_round * compress_us / 1e3 + floor_ms
+    return {"ns_per_op": ns_per_op, "floor_ms": floor_ms, "compress_us": compress_us,
+            "compressions": compressions_per_round, "bound_ms": bound_ms,
+            "compress_clocks": compress_clocks(device)}
+
+
+def probe_reference(iters: int) -> list[int]:
+    """`transcript_cuda._compress_probe`'s chain by the host's Blake2b core."""
+    from sumcheck_tpu_torch.transcript.blake2b_core import compress
+
+    blk = b"".join((0x0123456789ABCDEF * (i + 1) % (1 << 64)).to_bytes(8, "little")
+                   for i in range(16))
+    h = list(range(1, 9))
+    for k in range(iters):
+        h = compress(h, blk, 128 * k, k % 8 == 7)
+    return h
+
+
+def compress_clocks(device, iters: int = 1024) -> float:
+    """Clocks per Blake2b compression on the transcript kernel's four hash
+    lanes, the chain checked against the host's Blake2b core."""
+    from sumcheck_tpu_torch.ops import transcript_cuda as tc
+
+    buf = torch.zeros(9, dtype=torch.int64, device=device)
+    tc._compress_probe(buf, iters)
+    got = [int(x) % (1 << 64) for x in buf.cpu().tolist()]
+    check(got[:8] == probe_reference(iters), "compression probe differs from blake2b_core")
+    return got[8] / iters
+
+
 def transcript_phase(device, seed: int, rounds: int = 60, degree: int = 3) -> dict:
-    """Phase 5: the transcript kernel against the plain transcript on the
-    card and against the host rng, over `rounds` rounds."""
+    """Phase 6: the transcript kernel against the plain transcript on the
+    card and against the host rng, over `rounds` rounds; its device time
+    per round beside its latency bound."""
     from sumcheck_tpu_torch import Blake2b512Rng, Fr
     from sumcheck_tpu_torch.fields.fr import P
     from sumcheck_tpu_torch.ops import transcript_cuda as tc
-    from sumcheck_tpu_torch.protocol.device_prover import lift_transcript
+    from sumcheck_tpu_torch.protocol.device_prover import lift_transcript, restore_transcript
     from sumcheck_tpu_torch.protocol.prover import ProverMsg
     from sumcheck_tpu_torch.transcript.blake2b_rng import _DRAW_MASK
 
@@ -397,8 +604,8 @@ def transcript_phase(device, seed: int, rounds: int = 60, degree: int = 3) -> di
     prefix = gen.bytes(48)
     host = Blake2b512Rng.setup()
     host.feed_bytes(prefix)
-    state_k = lift_transcript(host, device)
-    state_p = state_k.clone()
+    state0 = lift_transcript(host, device)
+    state_k, state_p = state0.clone(), state0.clone()
 
     def buffers():
         return (torch.empty((rounds, 16, degree + 1), dtype=torch.int32, device=device),
@@ -413,44 +620,65 @@ def transcript_phase(device, seed: int, rounds: int = 60, degree: int = 3) -> di
               for a, b in ((state_k, state_p), (msgs_k, msgs_p), (rs_k, rs_p)))
     check(err == 0, f"transcript kernel differs from plain by {err}")
 
-    # the host rng over the same messages: same challenges, same final state
+    # the host rng over the same messages: same challenges, same final
+    # state; its rejections and pending bytes give each round's compressions
     msgs_h = msgs_k.cpu().numpy().astype(np.int64)
     rs_h = rs_k.cpu().numpy().astype(np.int64)
-    rejected = 0
+    blen = int(state0[25, 0])
+    rejected, total = 0, 0
     for j in range(rounds):
         host.feed(ProverMsg([Fr(sum(int(msgs_h[j, i, t]) << (16 * i) for i in range(16)))
                              for t in range(degree + 1)]))
+        attempts = 1
         while True:
             draw = int.from_bytes(host.next_u64s_bytes(4), "little") & _DRAW_MASK
             if draw < P:
                 break
             rejected += 1
+            attempts += 1
+        n, blen = compressions(blen, degree + 1, attempts)
+        total += n
         check(sum(int(rs_h[j, i]) << (16 * i) for i in range(16)) == draw,
               f"transcript round {j}: challenge differs from the host rng's")
-    from sumcheck_tpu_torch.protocol.device_prover import restore_transcript
-
     probe = Blake2b512Rng.setup()
     restore_transcript(probe, state_k.cpu())
     check(probe.state_tuple() == host.state_tuple(), "transcript state differs from the host rng's")
+    check(blen == int(state_k[25, 0]), "the compression count's pending bytes differ from the card's")
     check(rejected >= 1, "the transcript schedule rejected no draw")
 
-    state_t = state_k.clone()
-    j_next = [0]
+    # device time: the same 60 rounds from the same state, back to back
+    def rounds_from(st):
+        it = iter(range(rounds))
 
-    def kernel_step():
-        tc.transcript_step(state_t, sums[j_next[0]], msgs_k, rs_k, j_next[0])
-        j_next[0] = (j_next[0] + 1) % rounds
+        def step():
+            j = next(it)
+            tc.transcript_step(st, sums[j], msgs_k, rs_k, j)
+        return step
 
-    def plain_step():
-        tc.transcript_step_ref(state_t, sums[j_next[0]], msgs_p, rs_p, j_next[0])
-        j_next[0] = (j_next[0] + 1) % rounds
-
-    ms = time_ms(kernel_step, rounds, device)
-    plain_ms = time_ms(plain_step, PLAIN_REPS, device)
+    per_pass = [time_ms(rounds_from(st), rounds, device, device_only=True, warm=False)
+                for st in [state0.clone() for _ in range(3)]]
+    ms = statistics.median(per_pass)
+    state_t = state_p.clone()
+    plain_ms = time_ms(lambda: tc.transcript_step_ref(state_t, sums[0], msgs_p, rs_p, 0),
+                       PLAIN_REPS, device)
     print(f"transcript kernel-vs-plain, {rounds} rounds d={degree}: equal, equal to the host "
-          f"rng ({rejected} draws rejected); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per round")
+          f"rng ({rejected} draws rejected); kernel {ms:.4f} ms per round (device time, passes "
+          f"{[round(x, 5) for x in per_pass]}), plain {plain_ms:.4f} ms per round")
+    if device.type != "cuda":
+        return {"transcript_step": [err, [{"shape": f"one round, d={degree}", "ms": ms,
+                                           "plain_ms": plain_ms}]]}
+    bound = transcript_bound(device, total / rounds)
+    print(f"transcript bound: {bound['compressions']:.2f} compressions a round x "
+          f"{G_LEVELS} x {G_DEPTH} dependent instructions x {bound['ns_per_op']:.4f} ns = "
+          f"{bound['compress_us']:.4f} us each, + launch floor {bound['floor_ms']:.4f} ms = "
+          f"{bound['bound_ms']:.4f} ms a round; kernel at {bound['bound_ms'] / ms:.1%} of it; "
+          f"previous version (PERF.md): {PREVIOUS_MS['transcript_step']} ms")
+    clocks = bound["compress_clocks"]
+    print(f"one compression, 1024 chained, equal to blake2b_core: {clocks:.1f} clocks on the "
+          f"kernel's four hash lanes ({clocks / RATES['clock_hz'] * 1e6:.4f} us at the max SM "
+          f"clock)")
     return {"transcript_step": [err, [{"shape": f"one round, d={degree}", "ms": ms,
-                                       "plain_ms": plain_ms}]]}
+                                       "plain_ms": plain_ms, "bound": bound}]]}
 
 
 def golden_table(prefix: str, tag: str, nv: int, P: int) -> list[int]:
@@ -638,15 +866,18 @@ def device_busy(fn, top: int = 5) -> dict:
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)  # let the tracer settle: launches right at its start can be missed
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
-    spans, by_name = [], {}
+    spans, by_name, launches = [], {}, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             spans.append((e.time_range.start, e.time_range.end))
             by_name[e.name] = by_name.get(e.name, 0) + e.time_range.end - e.time_range.start
+            if not e.name.startswith(("Memcpy", "Memset")):
+                launches[e.name] = launches.get(e.name, 0) + 1
     busy_us, reach = 0, None
     for start, end in sorted(spans):
         if reach is None or start > reach:
@@ -658,7 +889,54 @@ def device_busy(fn, top: int = 5) -> dict:
     busy_s = busy_us / 1e6
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {"wall_s": wall_s, "busy_s": busy_s, "idle_share": 1 - busy_s / wall_s,
-            "top": [(name[:70], us / 1e3) for name, us in ranked]}
+            "top": [(name[:70], us / 1e3) for name, us in ranked],
+            "kernels": classify(launches), "device_ms": classify(by_name, scale=1e-3)}
+
+
+# substrings of the port's kernels' names as the profiler shows them
+ROUND_KERNELS = ("round_kernel", "fold_mxu_kernel")
+
+
+def classify(by_name: dict, scale: float | None = None) -> dict:
+    """Profiler counts (or, scaled, device times) by kernel name -> the
+    round kernels', the transcript steps', and everything else's."""
+    out = {"round": 0, "transcript": 0, "other": 0}
+    for name, v in by_name.items():
+        key = ("transcript" if "transcript_kernel" in name
+               else "round" if any(k in name for k in ROUND_KERNELS) else "other")
+        out[key] += v if scale is None else v * scale
+    return out
+
+
+MARKER = "spin_kernel"  # the kernel `torch.cuda._sleep` launches
+
+
+def profiled_kernels(warm, fn) -> dict:
+    """Kernel launches (no copies) of one run of `fn`, by `classify`. The
+    profiler misses the first launches of a module in some profiles, so
+    `warm()`, which launches the same kernels, and a marker kernel run
+    first in the profile; after a sync the marker runs again, then `fn()`,
+    and only the launches after that last marker are counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        warm()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1000)
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e.time_range.start, e.name) for e in prof.events()
+                    if e.device_type == DeviceType.CUDA
+                    and not e.name.startswith(("Memcpy", "Memset")))
+    marks = [i for i, (_, name) in enumerate(events) if MARKER in name]
+    check(bool(marks), f"no marker kernel in the profile: {[n for _, n in events[:8]]}")
+    counts = {}
+    for _, name in events[marks[-1] + 1:]:
+        counts[name] = counts.get(name, 0) + 1
+    return classify(counts)
 
 
 def print_busy(label: str, busy: dict) -> None:
@@ -688,8 +966,9 @@ def _headline(device, seed: int, reps: int, path: str, chain: str, mxu: bool, nv
     from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
     from sumcheck_tpu_torch.ops import round_cuda as rc
     from sumcheck_tpu_torch.ops import transcript_cuda as tc
-    from sumcheck_tpu_torch.protocol.device_prover import init_pair, prove_chained
-    from sumcheck_tpu_torch.protocol.generic_prover import prove_generic
+    from sumcheck_tpu_torch.protocol.device_prover import (
+        chain_rounds, init_pair, lift_transcript, prove_chained, sum_rows)
+    from sumcheck_tpu_torch.protocol.generic_prover import chain_rounds_generic, prove_generic
 
     poly = headline_poly(seed, nv)
     info = poly.info()
@@ -727,24 +1006,49 @@ def _headline(device, seed: int, reps: int, path: str, chain: str, mxu: bool, nv
     def rounds_only():
         lo, hi, products, degree = init_pair(poly, device)
         half = lo.shape[2]
+        rows = sum_rows(nv, degree, device)
         if chain == "generic":
-            rc.round_nofold(lo, hi, products, degree, half)
+            rc.round_nofold(lo, hi, products, degree, half, rows[0])
             for j in range(1, nv):
-                fold_fn(lo, hi, r, products, degree, half >> j)
+                fold_fn(lo, hi, r, products, degree, half >> j, rows[j])
         else:
-            rc.round_step_nofold(lo, hi, products, degree)
-            for _ in range(1, nv):
-                (lo, hi), _s = rc.round_step_fold(lo, hi, r, products, degree)
+            rc.round_step_nofold(lo, hi, products, degree, None, rows[0])
+            for j in range(1, nv):
+                (lo, hi), _s = rc.round_step_fold(lo, hi, r, products, degree, None, rows[j])
 
     init_s = wall(lambda: init_pair(poly, device), device)
     kernels_s = wall(rounds_only, device)
+    # the kernels of one chain alone, as the profiler counts them, after a
+    # chain at nv=6 (the same kernels) in the same profile
+    def chain_on(p, n):
+        lo, hi, products, degree = init_pair(p, device)
+        state = lift_transcript(Blake2b512Rng.setup(), device)
+        sync(device)
+        if chain == "generic":
+            return lambda: chain_rounds_generic(lo, hi, state, products, degree, n)
+        return lambda: chain_rounds([lo, hi], state, products, degree, n)
+
+    k = profiled_kernels(chain_on(headline_poly(seed, 6), 6), chain_on(poly, nv))
     for f in counters().values():
         f.launches = 0
+    check(k["round"] == nv and k["transcript"] == nv and k["other"] <= 1,
+          f"ML {path}: one chain launched {k}, expected {nv} round kernels, {nv} transcript "
+          f"steps and at most the zero fill of its sums buffer")
+    print(f"ML {path}: one chain of {nv} rounds launched {sum(k.values())} kernels (profiler): "
+          f"{k['round']} round kernels, {k['transcript']} transcript steps, {k['other']} other "
+          f"(the zero fill of its sums buffer): two per round")
     print(f"ML {path}: pair init {init_s:.4f} s; init + {nv} round kernels without transcript "
           f"{kernels_s:.4f} s; so transcript steps and the fetch {prove_s - kernels_s:.4f} s "
           f"of the {prove_s:.4f} s prove")
     busy = device_busy(lambda: MLSumcheck.prove(poly, device=device))
     print_busy(f"ML {path}", busy)
+    k, dms = busy["kernels"], busy["device_ms"]
+    if not (k["round"] == nv and k["transcript"] == nv):
+        print(f"ML {path}: the profiler saw {k} in one prove, not {nv} of each")
+    print(f"ML {path}: the profiled prove launched {sum(k.values())} kernels: {k['round']} round "
+          f"kernels ({dms['round']:.4f} ms of device time), {k['transcript']} transcript steps "
+          f"({dms['transcript']:.4f} ms, {dms['transcript'] / nv:.4f} ms each), {k['other']} "
+          f"other (pair init, sums buffer fill)")
 
     s = MLSumcheck.extract_sum(proof)
     sub = MLSumcheck.verify(info, s, proof)
@@ -849,6 +1153,7 @@ def _gkr_headline(device, inst, reps: int, path: str, chain: str, mxu: bool) -> 
     from sumcheck_tpu_torch.ops import gkr_init as GI
     from sumcheck_tpu_torch.ops import round_cuda as rc
     from sumcheck_tpu_torch.ops import transcript_cuda as tc
+    from sumcheck_tpu_torch.protocol.device_prover import sum_rows
 
     f1, f2, f3, g = inst
     dim = f2.num_vars
@@ -905,14 +1210,15 @@ def _gkr_headline(device, inst, reps: int, path: str, chain: str, mxu: bool) -> 
     def rounds_only():
         for _ in range(2):
             lo, hi = lo0.clone(), hi0.clone()
+            rows = sum_rows(dim, 2, device)
             if chain == "generic":
-                rc.round_nofold(lo, hi, products, 2, half)
+                rc.round_nofold(lo, hi, products, 2, half, rows[0])
                 for j in range(1, dim):
-                    getattr(rc, kernels[1])(lo, hi, us[j], products, 2, half >> j)
+                    getattr(rc, kernels[1])(lo, hi, us[j], products, 2, half >> j, rows[j])
             else:
-                rc.round_step_nofold(lo, hi, products, 2)
+                rc.round_step_nofold(lo, hi, products, 2, None, rows[0])
                 for j in range(1, dim):
-                    (lo, hi), _s = rc.round_step_fold(lo, hi, us[j], products, 2)
+                    (lo, hi), _s = rc.round_step_fold(lo, hi, us[j], products, 2, None, rows[j])
 
     inits_s = wall(inits, device, reps=5)
     rounds_s = wall(rounds_only, device, reps=5)
@@ -923,6 +1229,13 @@ def _gkr_headline(device, inst, reps: int, path: str, chain: str, mxu: bool) -> 
           f"{prove_s - inits_s - rounds_s:.4f} s of the {prove_s:.4f} s prove")
     busy = device_busy(prove)
     print_busy(f"GKR {path}", busy)
+    k, dms = busy["kernels"], busy["device_ms"]
+    if not (k["round"] == 2 * dim and k["transcript"] == 2 * dim):
+        print(f"GKR {path}: the profiler saw {k} in one prove, not {2 * dim} of each")
+    print(f"GKR {path}: the profiled prove launched {sum(k.values())} kernels: {k['round']} round "
+          f"kernels ({dms['round']:.4f} ms of device time), {k['transcript']} transcript steps "
+          f"({dms['transcript']:.4f} ms, {dms['transcript'] / (2 * dim):.4f} ms each), two per "
+          f"chained round; {k['other']} other (the phase inits and two sums buffer fills)")
 
     s = proof.extract_sum()
     vwalls = []
@@ -955,6 +1268,43 @@ def _gkr_headline(device, inst, reps: int, path: str, chain: str, mxu: bool) -> 
     return out
 
 
+def short_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled name."""
+    import re
+
+    m = re.search(r"\d+([a-z][a-z_]*_kernel)(I\w*?E)?E", mangled)
+    return (m.group(1) + (m.group(2) or "")) if m else mangled[:60]
+
+
+def sass_sizes(lib: Path, kernel: str) -> dict:
+    """{function: (instructions, IMAD, IMAD.WIDE)} of each function of
+    `lib` whose name holds `kernel`, from `cuobjdump -sass`; empty where
+    the toolkit has no cuobjdump. IMAD.MOV, a move, is not counted as a
+    multiply."""
+    import os
+    import re
+    import shutil
+
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return {}
+    out = subprocess.run([exe, "-sass", str(lib)], capture_output=True, text=True).stdout
+    res, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if kernel in m.group(1) else None
+            if cur:
+                res[cur] = [0, 0, 0]
+            continue
+        if cur and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            res[cur][0] += 1
+            if re.search(r"\bIMAD\b|IMAD\.(?!MOV)", line):
+                res[cur][1] += 1
+                res[cur][2] += "IMAD.WIDE" in line
+    return {k: tuple(v) for k, v in res.items()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -972,20 +1322,34 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
+    RATES.update(card_rates(device))
+    print(f"card rates: {RATES['sms']} SMs at {RATES['clock_hz'] / 1e6:.0f} MHz (max SM clock), "
+          f"{RATES['imad_per_s'] / 1e12:.3f}e12 32-bit IMAD/s, {HBM_BYTES_PER_S / 1e12} TB/s")
+
     t0 = time.perf_counter()
     libs = cuda_build.build("round", "transcript", "round_mxu")
     build_s = time.perf_counter() - t0
     print(f"build: {', '.join(lib.name for lib in libs.values())} in {build_s:.2f} s (in parallel)")
-    for lib in libs.values():
-        log = lib.with_suffix(".log")
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
-                print(f"  ptxas: {line.strip()}")
+    ptxas = {}
+    for name, lib in libs.items():
+        for fn, res in cuda_build.resources(name).items():
+            ptxas[fn] = res
+            print(f"  ptxas {name}.cu {short_name(fn)}: {res.get('registers')} registers, "
+                  f"{res.get('smem')} B static smem, {res.get('stack')} B stack frame, "
+                  f"spills {res.get('spill_stores')}/{res.get('spill_loads')} B")
+    for name, kernel in (("transcript", "transcript_kernel"), ("round", "round_kernel")):
+        for fn, (n, imad, wide) in sass_sizes(libs[name], kernel).items():
+            print(f"  SASS {short_name(fn)}: {n} instructions ({n * 16} B), {imad} IMAD "
+                  f"({wide} IMAD.WIDE)")
+    tk = next(v for k, v in ptxas.items() if "transcript_kernel" in k)
+    print(f"transcript_kernel: {tk.get('stack')} B stack frame, spills "
+          f"{tk.get('spill_stores')}/{tk.get('spill_loads')} B (208 B before the redesign)")
 
     stats = kernel_phase(device, args.seed)
     stats.update(step_kernel_phase(device, args.seed))
     stats.update(mxu_kernel_phase(device, args.seed))
     mxu_mul = mxu_mul_phase(device, args.seed)
+    mul_rates = mont_mul_phase(device, args.seed)
     stats.update(transcript_phase(device, args.seed))
     golden_phase(device)
     gkr_golden_phase(device)
@@ -1009,30 +1373,46 @@ def main() -> int:
     heads.update(gkr)
 
     kernels = []
+    sources = {"transcript_step": "transcript.cu", "round_fold_mxu": "round_mxu.cu"}
+    symbols = {"transcript_step": "transcript_kernel", "round_fold_mxu": "fold_mxu_kernel"}
     for name, replaces, path in (
         ("round_nofold", "sumcheck_tpu/ops/round_pallas.py:246", "ml generic"),
         ("round_fold", "sumcheck_tpu/ops/round_pallas.py:192", "ml generic"),
         ("round_step_nofold", "sumcheck_tpu/ops/round_pallas.py:103", "ml per-size"),
         ("round_step_fold", "sumcheck_tpu/ops/round_pallas.py:85", "ml per-size"),
         ("round_fold_mxu", "sumcheck_tpu/ops/round_pallas.py:215", "gkr generic mxu"),
-        ("transcript_step", "sumcheck_tpu/protocol/device_prover.py:118", "ml per-size"),
+        ("transcript_step", "sumcheck_tpu/protocol/device_prover.py:118", "ml generic"),
     ):
         err, timings = stats[name]
         main_shape = timings[0]
-        source = {"transcript_step": "transcript.cu", "round_fold_mxu": "round_mxu.cu"}
+        if name == "transcript_step":
+            bound_ms, bound_by, detail = main_shape["bound"]["bound_ms"], "operations", "latency"
+        else:
+            bound_ms, bound_by, detail = bound_of(main_shape["work"])
+        symbol = symbols.get(name, "round_kernel")
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": f"sumcheck_tpu_torch/csrc/{source.get(name, 'round.cu')}",
+            "source": f"sumcheck_tpu_torch/csrc/{sources.get(name, 'round.cu')}",
             "replaces": replaces,
             "launches": heads[path]["launches"][name],
             "launches_by_path": {p: h["launches"][name] for p, h in heads.items()},
             "max_abs_err": err,
             "ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "bound_detail": detail,
+            "library_ms": None,
             "shape": main_shape["shape"],
-            "timings": timings,
+            "ptxas": {short_name(k): v for k, v in ptxas.items() if symbol in k},
+            "timings": [{k: v for k, v in t.items() if k not in ("work", "bound")}
+                        for t in timings],
         })
+        print(f"kernel {name}: {main_shape['ms']:.4f} ms at {main_shape['shape']}, bound "
+              f"{bound_ms:.4f} ms ({detail}), {bound_ms / main_shape['ms']:.1%} of it; "
+              f"previous version (PERF.md): {PREVIOUS_MS[name]} ms")
+    print(f"Montgomery multiplies per second (CIOS): {mul_rates['cios']:.4e}")
     print(f"card: {card}; prove medians "
           + ", ".join(f"{k} {h['prove_s']:.4f} s" for k, h in heads.items())
           + f"; banded multiply at {mxu_mul['lanes']} lanes {mxu_mul['ms']:.4f} ms, CIOS "

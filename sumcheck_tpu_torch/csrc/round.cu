@@ -31,10 +31,10 @@
 // Then for t = 0..d: total(t) = sum_p [c_p *] prod_{s in p} (E_s + t * (O_s
 // - E_s)), fully reduced mod p, with the optional coefficient c_p
 // multiplied onto the first factor, in the Pallas kernel's order. Each block
-// writes the per-digit sums of total(t) over its lanes, as 64-bit integers:
-// part[block][t][digit]. Lanes k >= A add nothing. The caller sums the
-// blocks; the carry chain runs in the transcript step (transcript.cu) or on
-// the host.
+// adds the per-digit sums of total(t) over its lanes into the round's row
+// sums[t][digit] (64-bit atomic adds, round_common.cuh). Lanes k >= A add
+// nothing. The carry chain runs in the transcript step (transcript.cu) or
+// on the host.
 //
 // What bounds them on the H100: per lane, a fold round of the 2x3 workload
 // (6 slots) moves 2.3 KB and runs 12 Montgomery multiplies for the fold and
@@ -64,7 +64,7 @@ __global__ void __launch_bounds__(kThreads)
                  const uint32_t* __restrict__ r_digits,
                  const uint32_t* __restrict__ coeff_digits, long long H,
                  long long H_out, long long extent, Field f, Plan pl,
-                 long long* __restrict__ part) {
+                 long long* __restrict__ sums) {
   static_assert(kFold || !kOutOfPlace, "only a fold writes tables");
   extern __shared__ uint32_t ladder[];  // [slot][cur|step][limb][thread]
   __shared__ uint32_t warp_sums[kThreads / 32][kMaxDegree + 1][kDigits];
@@ -115,14 +115,14 @@ __global__ void __launch_bounds__(kThreads)
       ladder_put(ladder, u, e, o, f, tid);
     }
   }
-  ladder_block_sums<kCoeffs>(ladder, warp_sums, coeff, active, f, pl, part);
+  ladder_block_sums<kCoeffs>(ladder, warp_sums, coeff, active, f, pl, sums);
 }
 
 template <bool kFold, bool kOutOfPlace, bool kCoeffs>
 cudaError_t launch(void* lo, void* hi, void* lo_out, void* hi_out,
                    const void* r, const void* coeff, long long H,
                    long long H_out, long long extent, const Field& f,
-                   const Plan& pl, void* part, long long nblk,
+                   const Plan& pl, void* sums, long long nblk,
                    cudaStream_t stream) {
   auto kernel = round_kernel<kFold, kOutOfPlace, kCoeffs>;
   const size_t smem = ladder_bytes(pl.slots);
@@ -133,8 +133,27 @@ cudaError_t launch(void* lo, void* hi, void* lo_out, void* hi_out,
       static_cast<uint32_t*>(lo), static_cast<uint32_t*>(hi),
       static_cast<uint32_t*>(lo_out), static_cast<uint32_t*>(hi_out),
       static_cast<const uint32_t*>(r), static_cast<const uint32_t*>(coeff),
-      H, H_out, extent, f, pl, static_cast<long long*>(part));
+      H, H_out, extent, f, pl, static_cast<long long*>(sums));
   return cudaGetLastError();
+}
+
+// Test hook of field.cuh's multiply: per thread i, x = a[i] and then
+// `reps` times x <- x * b[i] * 2^-256 mod p; a, b, out are (n, 8) limbs.
+__global__ void mont_mul_probe_kernel(const uint32_t* __restrict__ a,
+                                      const uint32_t* __restrict__ b,
+                                      uint32_t* __restrict__ out, long long n, int reps,
+                                      Field f) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  uint32_t x[kLimbs], y[kLimbs];
+#pragma unroll
+  for (int j = 0; j < kLimbs; ++j) {
+    x[j] = a[i * kLimbs + j];
+    y[j] = b[i * kLimbs + j];
+  }
+  for (int k = 0; k < reps; ++k) mont_mul(x, x, y, f);
+#pragma unroll
+  for (int j = 0; j < kLimbs; ++j) out[i * kLimbs + j] = x[j];
 }
 
 }  // namespace
@@ -145,14 +164,15 @@ int sc_round_threads() { return kThreads; }
 
 // mode: 0 = no fold; 1 = fold in place; 2 = fold out of place into lo_out,
 // hi_out of width H_out (which must equal extent). coeff: products x 16
-// Montgomery digits, or null for none (modes 0 and 2 only).
+// Montgomery digits, or null for none (modes 0 and 2 only). sums: the
+// round's (degree+1, 16) int64 row, which the launch adds into.
 // plan: slots, products, factors, degree, then products x kMaxFactors indices.
 // field: p as 8 x 32-bit limbs (least significant first), then -p^-1 mod 2^32.
 // Returns the cudaError_t of the launch (0 on success).
 int sc_round_launch(int mode, void* lo, void* hi, void* lo_out, void* hi_out,
                     const void* r, const void* coeff, long long H,
                     long long H_out, long long extent, const int* plan,
-                    const uint32_t* field, void* part, long long nblk,
+                    const uint32_t* field, void* sums, long long nblk,
                     void* stream) {
   Plan pl;
   const cudaError_t bad = read_plan(plan, &pl);
@@ -164,22 +184,32 @@ int sc_round_launch(int mode, void* lo, void* hi, void* lo_out, void* hi_out,
   switch (mode * 2 + (c ? 1 : 0)) {
     case 0:
       return (int)launch<false, false, false>(lo, hi, nullptr, nullptr, r, coeff, H, H,
-                                              extent, f, pl, part, nblk, s);
+                                              extent, f, pl, sums, nblk, s);
     case 1:
       return (int)launch<false, false, true>(lo, hi, nullptr, nullptr, r, coeff, H, H,
-                                             extent, f, pl, part, nblk, s);
+                                             extent, f, pl, sums, nblk, s);
     case 2:
       return (int)launch<true, false, false>(lo, hi, nullptr, nullptr, r, coeff, H, H,
-                                             extent, f, pl, part, nblk, s);
+                                             extent, f, pl, sums, nblk, s);
     case 4:
       return (int)launch<true, true, false>(lo, hi, lo_out, hi_out, r, coeff, H, H_out,
-                                            extent, f, pl, part, nblk, s);
+                                            extent, f, pl, sums, nblk, s);
     case 5:
       return (int)launch<true, true, true>(lo, hi, lo_out, hi_out, r, coeff, H, H_out,
-                                           extent, f, pl, part, nblk, s);
+                                           extent, f, pl, sums, nblk, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+int sc_mont_mul_probe(const void* a, const void* b, void* out, long long n, int reps,
+                      const uint32_t* field, void* stream) {
+  const int threads = 256;
+  mont_mul_probe_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
+      static_cast<uint32_t*>(out), n, reps, read_field(field));
+  return (int)cudaGetLastError();
 }
 
 const char* sc_error_string(int e) { return cudaGetErrorString((cudaError_t)e); }

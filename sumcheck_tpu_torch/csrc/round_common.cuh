@@ -1,6 +1,6 @@
 // What every round kernel shares (round.cu, round_mxu.cu): the run-time
 // product plan with its compile-time maxima, and the tail each kernel ends
-// with, the evaluation ladder at t = 0..d and the per-block sums.
+// with, the evaluation ladder at t = 0..d and the round's sums.
 //
 // Ladder: each slot's start E and step O - E live in dynamic shared memory,
 // [slot][cur|step][limb][thread], so run-time slot indices cost no local
@@ -8,9 +8,11 @@
 // tail forms total(t) = sum_p [c_p *] prod_{s in p} (E_s + t * (O_s - E_s)),
 // fully reduced mod p, with the optional coefficient c_p multiplied onto the
 // first factor, in the Pallas kernel's order (`_block_sums`,
-// sumcheck_tpu/ops/round_pallas.py:54-82). Each block writes the per-digit
-// sums of total(t) over its lanes as 64-bit integers, part[block][t][digit];
-// inactive lanes add nothing.
+// sumcheck_tpu/ops/round_pallas.py:54-82). Each block adds the per-digit
+// sums of total(t) over its lanes into the round's (d+1, 16) int64 row
+// `sums` with 64-bit atomic adds: integer addition is exact and order-free,
+// so the row holds the same bits whatever order the blocks finish in, and
+// no second pass over blocks is needed. Inactive lanes add nothing.
 
 #pragma once
 
@@ -79,13 +81,13 @@ __device__ __forceinline__ void ladder_put(uint32_t* ladder, int u,
   }
 }
 
-// The tail: ladder, products, per-digit block sums into part[blockIdx.x].
+// The tail: ladder, products, per-digit block sums added into the row sums.
 // Every thread of the block calls it (it ends in a block barrier).
 template <bool kCoeffs>
 __device__ __forceinline__ void ladder_block_sums(
     uint32_t* ladder, uint32_t (*warp_sums)[kMaxDegree + 1][kDigits],
     const uint32_t (*coeff)[kLimbs], bool active, const Field& f,
-    const Plan& pl, long long* __restrict__ part) {
+    const Plan& pl, long long* __restrict__ sums) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -140,7 +142,7 @@ __device__ __forceinline__ void ladder_block_sums(
     unsigned long long s = 0;
 #pragma unroll
     for (int w = 0; w < kThreads / 32; ++w) s += warp_sums[w][t][i];
-    part[(long long)blockIdx.x * nout + q] = (long long)s;
+    atomicAdd(reinterpret_cast<unsigned long long*>(sums) + q, s);
   }
 }
 

@@ -11,8 +11,9 @@
 // the first `extent` lanes of every slot in place by the challenge r,
 //   lo[k] <- x + r (y - x) for (x, y) = (lo[k], hi[k]),
 //   hi[k] <- the same for (lo[k + extent], hi[k + extent]),
-// then the evaluation ladder and the per-block per-digit sums (the tail of
-// round_common.cuh, shared with round.cu). Only the fold multiply differs:
+// then the evaluation ladder and the per-digit sums added into the round's
+// row (the tail of round_common.cuh, shared with round.cu). Only the fold
+// multiply differs:
 // with a = y - x, a * r * 2^-256 mod p runs as
 //   T  = band(r) . a8            (64 x 32) . (32 x lanes), T[m] = sum_j r8[m-j] a8[j]
 //   m  = band(mu) . (T mod 2^256) mod 2^256, mu = -p^-1 mod 2^256
@@ -240,7 +241,7 @@ __global__ void __launch_bounds__(kThreads)
     fold_mxu_kernel(uint32_t* __restrict__ lo, uint32_t* __restrict__ hi,
                     const uint32_t* __restrict__ r_digits, long long H,
                     long long extent, Field f, Mu mu, Plan pl,
-                    long long* __restrict__ part) {
+                    long long* __restrict__ sums) {
   extern __shared__ uint32_t smem[];  // ladder, then the warps' exchange tiles
   __shared__ uint32_t band_c[kBandRows][kLimbs];
   __shared__ uint32_t band_mu[kBytes][kLimbs];
@@ -272,7 +273,7 @@ __global__ void __launch_bounds__(kThreads)
       ladder_put(ladder, u, e, o, f, tid);
     }
   }
-  ladder_block_sums<false>(ladder, warp_sums, nullptr, active, f, pl, part);
+  ladder_block_sums<false>(ladder, warp_sums, nullptr, active, f, pl, sums);
 }
 
 // Test hook: one tile, D = A B + C, A (16 x 32) u8 row-major, B given as its
@@ -312,10 +313,11 @@ int sc_mxu_threads() { return kThreads; }
 
 // The fold round in place over lanes [0, extent) of the (U, 16, H) pair.
 // plan: as sc_round_launch. field: p as 8 x 32-bit limbs, -p^-1 mod 2^32,
-// then -p^-1 mod 2^256 as 8 limbs. Returns the cudaError_t of the launch.
+// then -p^-1 mod 2^256 as 8 limbs. sums: the round's (degree+1, 16) int64
+// row, which the launch adds into. Returns the cudaError_t of the launch.
 int sc_fold_mxu_launch(void* lo, void* hi, const void* r, long long H,
                        long long extent, const int* plan, const uint32_t* field,
-                       void* part, long long nblk, void* stream) {
+                       void* sums, long long nblk, void* stream) {
   Plan pl;
   const cudaError_t bad = read_plan(plan, &pl);
   if (bad != cudaSuccess) return (int)bad;
@@ -326,7 +328,7 @@ int sc_fold_mxu_launch(void* lo, void* hi, const void* r, long long H,
   fold_mxu_kernel<<<(unsigned)nblk, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint32_t*>(lo), static_cast<uint32_t*>(hi),
       static_cast<const uint32_t*>(r), H, extent, read_field(field), read_mu(field), pl,
-      static_cast<long long*>(part));
+      static_cast<long long*>(sums));
   return (int)cudaGetLastError();
 }
 

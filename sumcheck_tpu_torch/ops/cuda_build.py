@@ -7,7 +7,8 @@ hash of the source and the headers the sources share (`csrc/field.cuh`,
 `nvcc` for sm_90a at first launch, never at import. `build(*names)` starts
 one `nvcc` per source not built yet, all at once, and waits for all of them.
 A failed build raises. The compiler's resource report (`-Xptxas -v`) is
-kept beside each library as `<library>.log`.
+kept beside each library as `<library>.log`; `resources(name)` reads each
+kernel's registers, shared memory, stack frame and spills from it.
 """
 
 from __future__ import annotations
@@ -74,3 +75,31 @@ def build(*names: str) -> dict[str, Path]:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return libs
+
+
+def resources(name: str) -> dict[str, dict]:
+    """Per kernel of the built `csrc/<name>.cu`, from its ptxas log: {mangled
+    kernel name: {"registers", "smem", "stack", "spill_stores",
+    "spill_loads"}} (bytes, except registers). Device functions that ptxas
+    reports on their own are included under their names."""
+    import re
+
+    out, cur = {}, None
+    for line in library_path(name).with_suffix(".log").read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)'?", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(m.group(1)) if m else 0
+    return out

@@ -24,7 +24,13 @@ import (`ops/cuda_build.py`); a failed build or launch raises.
 
 Contract, for the table pair `lo`, `hi` of shape (U, 16, H) int32 (16-bit
 Montgomery digits, slot axis leading); each function returns the round
-polynomial's per-digit lane sums, `(degree+1, 16)` int64:
+polynomial's per-digit lane sums, `(degree+1, 16)` int64. Each also takes
+`out`, a contiguous `(degree+1, 16)` int64 row on the pair's device: the
+round's sums are added into it and it is returned. The chains pass row j of
+one zeroed `(nv, degree+1, 16)` buffer, which the transcript step then
+reads, so a chained round is two launches; without `out` the wrapper
+allocates a zeroed row. The kernels add their blocks' sums into the row
+with 64-bit atomics, exact and independent of order.
 
 - `round_nofold(lo, hi, products, degree, extent)`: over lanes [0, extent);
 - `round_fold(lo, hi, r, products, degree, extent)`: first folds every
@@ -53,15 +59,14 @@ What bounds the kernels on the H100: per lane, a fold round of the 2x3
 workload (6 slots) reads 4 stripes x 64 B and writes 2 x 64 B per slot
 (2.3 KB), and runs 12 Montgomery multiplies for the fold (2 per slot) and 16
 for the evaluation ((factors-1) x products x (degree+1)), each 64
-32x32->64-bit multiply-adds plus their carries. That is several integer
-instructions per byte moved, above the card's ratio of 32-bit integer
-throughput to memory bandwidth, so 32-bit integer multiply throughput is
-the bound to expect. The simple design keeps to that: one lane per thread,
-8 x 32-bit limbs with 64-bit products (CIOS, a quarter of the digit
-products of the 16 x 16-bit schedule), coalesced digit loads, each lane's
-values read from device memory once per round, and the evaluation ladder
-kept in shared memory. Faster kernels (integer tiling, TMA loads) are later
-work.
+32x32->64-bit multiply-adds plus their carries. By the card's peaks the
+fold at 2^18 lanes is bound by its 604 MB (0.18 ms at 3.35 TB/s) before its
+2e9 32-bit multiplies (0.12 ms at the IMAD rate), but the CIOS multiply as
+ptxas compiles it runs at about half the IMAD rate, so the multiplies bind
+every round kernel on the H100 (PERF.md). The design keeps to one lane per
+thread, 8 x 32-bit limbs with 64-bit products (CIOS), coalesced digit
+loads, each lane's values read from device memory once per round, and the
+evaluation ladder in shared memory.
 """
 
 from __future__ import annotations
@@ -120,10 +125,16 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p,  # r, coeff
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # H, H_out, extent
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_uint32),  # plan, field
-        ctypes.c_void_p, ctypes.c_longlong,  # part, nblk
+        ctypes.c_void_p, ctypes.c_longlong,  # sums, nblk
         ctypes.c_void_p,  # stream
     ]
     lib.sc_round_launch.restype = ctypes.c_int
+    lib.sc_mont_mul_probe.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # a, b, out
+        ctypes.c_longlong, ctypes.c_int,  # n, reps
+        ctypes.POINTER(ctypes.c_uint32), ctypes.c_void_p,  # field, stream
+    ]
+    lib.sc_mont_mul_probe.restype = ctypes.c_int
     lib.sc_error_string.argtypes = [ctypes.c_int]
     lib.sc_error_string.restype = ctypes.c_char_p
     return lib
@@ -138,7 +149,7 @@ def _mxu_library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # lo, hi, r
         ctypes.c_longlong, ctypes.c_longlong,  # H, extent
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_uint32),  # plan, field
-        ctypes.c_void_p, ctypes.c_longlong,  # part, nblk
+        ctypes.c_void_p, ctypes.c_longlong,  # sums, nblk
         ctypes.c_void_p,  # stream
     ]
     lib.sc_mma_tile_launch.argtypes = [ctypes.c_void_p] * 5
@@ -199,9 +210,21 @@ def _check_step(lo, hi, products, degree: int, fold: bool, r=None, coeffs=None) 
     return extent
 
 
-def _digit_sums(total: torch.Tensor) -> torch.Tensor:
-    """(16, d+1, lanes) per-lane values -> (d+1, 16) int64 per-digit sums."""
-    return total.sum(dim=-1).T.contiguous()
+def _digit_sums(total: torch.Tensor, out=None) -> torch.Tensor:
+    """(16, d+1, lanes) per-lane values -> (d+1, 16) int64 per-digit sums,
+    added into `out` if given."""
+    sums = total.sum(dim=-1).T.contiguous()
+    return sums if out is None else out.add_(sums)
+
+
+def _check_out(out, lo, degree: int) -> None:
+    if out is None:
+        return
+    if out.shape != (degree + 1, NUM_DIGITS) or out.dtype != torch.int64:
+        raise ValueError(f"out must be a ({degree + 1}, 16) int64 row, got "
+                         f"{tuple(out.shape)} {out.dtype}")
+    if out.device != lo.device or not out.is_contiguous():
+        raise ValueError("out must be contiguous, on the tables' device")
 
 
 def _coeff_cols(coeffs):
@@ -214,16 +237,18 @@ def _coeff_cols(coeffs):
 # ---------------------------------------------------------------------------
 
 
-def round_nofold_ref(lo, hi, products, degree: int, extent: int) -> torch.Tensor:
+def round_nofold_ref(lo, hi, products, degree: int, extent: int, out=None) -> torch.Tensor:
     """Plain version of the no-fold kernel (any device)."""
     _check(lo, hi, products, degree, extent, fold=False)
+    _check_out(out, lo, degree)
     pair = torch.cat([lo[:, :, :extent], hi[:, :, :extent]], dim=2)
     stacked = pair.long().permute(1, 0, 2)  # (16, U, 2*extent)
     total = engine.round_totals(engine.TORCH, stacked, None, products, degree)
-    return _digit_sums(total)
+    return _digit_sums(total, out)
 
 
-def _fold_in_place_ref(lo, hi, products, degree: int, extent: int, fold_fn) -> torch.Tensor:
+def _fold_in_place_ref(lo, hi, products, degree: int, extent: int, fold_fn,
+                      out=None) -> torch.Tensor:
     """The in-place fold round over `fold_fn`, which takes the (16, U, 4A)
     stacked stripes [lo[:2A] | hi[:2A]] to the (16, U, 2A) folded values."""
     a2 = 2 * extent
@@ -232,48 +257,54 @@ def _fold_in_place_ref(lo, hi, products, degree: int, extent: int, fold_fn) -> t
     lo[:, :, :extent] = folded[:, :, :extent].permute(1, 0, 2).to(torch.int32)
     hi[:, :, :extent] = folded[:, :, extent:].permute(1, 0, 2).to(torch.int32)
     total = engine.round_totals(engine.TORCH, folded, None, products, degree)
-    return _digit_sums(total)
+    return _digit_sums(total, out)
 
 
-def round_fold_ref(lo, hi, r, products, degree: int, extent: int) -> torch.Tensor:
+def round_fold_ref(lo, hi, r, products, degree: int, extent: int, out=None) -> torch.Tensor:
     """Plain version of the fold kernel (any device); folds in place."""
     _check(lo, hi, products, degree, extent, fold=True, r=r)
+    _check_out(out, lo, degree)
     r_col = r.long().reshape(NUM_DIGITS, 1, 1)
     return _fold_in_place_ref(lo, hi, products, degree, extent,
-                              lambda s: engine.fold_tables(engine.TORCH, s, r_col))
+                              lambda s: engine.fold_tables(engine.TORCH, s, r_col), out)
 
 
-def round_fold_mxu_ref(lo, hi, r, products, degree: int, extent: int) -> torch.Tensor:
+def round_fold_mxu_ref(lo, hi, r, products, degree: int, extent: int,
+                       out=None) -> torch.Tensor:
     """Plain version of the MXU fold kernel (any device); folds in place,
     each fold multiply as banded products (`mxu_mul.mont_mul_scalar_mxu`)."""
     _check(lo, hi, products, degree, extent, fold=True, r=r)
+    _check_out(out, lo, degree)
 
     def fold(stacked):
         half = stacked.shape[-1] // 2
         even, odd = stacked[..., :half], stacked[..., half:]
         return LT.add(even, mxu_mul.mont_mul_scalar_mxu(LT.sub(odd, even), r))
 
-    return _fold_in_place_ref(lo, hi, products, degree, extent, fold)
+    return _fold_in_place_ref(lo, hi, products, degree, extent, fold, out)
 
 
-def round_step_nofold_ref(lo, hi, products, degree: int, coeffs=None) -> torch.Tensor:
+def round_step_nofold_ref(lo, hi, products, degree: int, coeffs=None,
+                          out=None) -> torch.Tensor:
     """Plain version of the per-size no-fold kernel (any device)."""
     _check_step(lo, hi, products, degree, False, coeffs=coeffs)
+    _check_out(out, lo, degree)
     stacked = torch.cat([lo, hi], dim=2).long().permute(1, 0, 2)  # (16, U, 2H)
     total = engine.round_totals(engine.TORCH, stacked, _coeff_cols(coeffs), products, degree)
-    return _digit_sums(total)
+    return _digit_sums(total, out)
 
 
-def round_step_fold_ref(lo, hi, r, products, degree: int, coeffs=None):
+def round_step_fold_ref(lo, hi, r, products, degree: int, coeffs=None, out=None):
     """Plain version of the per-size fold kernel (any device): fresh
     (U, 16, H/2) tables and the sums over them."""
     quarter = _check_step(lo, hi, products, degree, True, r=r, coeffs=coeffs)
+    _check_out(out, lo, degree)
     stacked = torch.cat([lo, hi], dim=2).long().permute(1, 0, 2)  # (16, U, 2H)
     folded = engine.fold_tables(engine.TORCH, stacked, r.long().reshape(NUM_DIGITS, 1, 1))
     new_lo = folded[:, :, :quarter].permute(1, 0, 2).to(torch.int32).contiguous()
     new_hi = folded[:, :, quarter:].permute(1, 0, 2).to(torch.int32).contiguous()
     total = engine.round_totals(engine.TORCH, folded, _coeff_cols(coeffs), products, degree)
-    return (new_lo, new_hi), _digit_sums(total)
+    return (new_lo, new_hi), _digit_sums(total, out)
 
 
 # ---------------------------------------------------------------------------
@@ -297,14 +328,22 @@ def _plan(slots: int, products, degree: int):
     return (ctypes.c_int * (4 + len(idx)))(slots, len(products), factors, degree, *idx)
 
 
+def _sums_row(out, lo, degree: int) -> torch.Tensor:
+    """The row a kernel adds the round's sums into: `out`, or a fresh zeroed
+    one."""
+    if out is None:
+        return torch.zeros((degree + 1, NUM_DIGITS), dtype=torch.int64, device=lo.device)
+    _check_out(out, lo, degree)
+    return out
+
+
 def _launch(mode: int, lo, hi, r, products, degree: int, extent: int,
-            out=None, coeffs=None) -> torch.Tensor:
+            out=None, tables=None, coeffs=None) -> torch.Tensor:
     plan = _plan(lo.shape[0], products, degree)
     lib = _library()
-    threads = lib.sc_round_threads()
-    nblk = -(-extent // threads)
-    part = torch.empty((nblk, degree + 1, NUM_DIGITS), dtype=torch.int64, device=lo.device)
-    lo_out, hi_out = out if out is not None else (None, None)
+    sums = _sums_row(out, lo, degree)
+    nblk = -(-extent // lib.sc_round_threads())
+    lo_out, hi_out = tables if tables is not None else (None, None)
     with torch.cuda.device(lo.device):
         stream = torch.cuda.current_stream(lo.device).cuda_stream
         rc = lib.sc_round_launch(
@@ -314,13 +353,13 @@ def _launch(mode: int, lo, hi, r, products, degree: int, extent: int,
             r.data_ptr() if r is not None else None,
             coeffs.data_ptr() if coeffs is not None else None,
             lo.shape[2], lo_out.shape[2] if lo_out is not None else lo.shape[2],
-            extent, plan, _FIELD, part.data_ptr(), nblk, stream,
+            extent, plan, _FIELD, sums.data_ptr(), nblk, stream,
         )
     if rc != 0:
         raise RuntimeError(
             f"round kernel launch failed: {lib.sc_error_string(rc).decode()} ({rc})"
         )
-    return part.sum(dim=0)  # (d+1, 16): the second, plain pass over blocks
+    return sums
 
 
 def _kernel_device(lo) -> None:
@@ -328,81 +367,81 @@ def _kernel_device(lo) -> None:
         raise ValueError(f"no round kernel for device {lo.device}")
 
 
-def round_nofold(lo, hi, products, degree: int, extent: int) -> torch.Tensor:
+def round_nofold(lo, hi, products, degree: int, extent: int, out=None) -> torch.Tensor:
     """Round 0 of the generic chain: evaluate without a fold. Launches the
     CUDA kernel for a CUDA pair, runs `round_nofold_ref` for a CPU pair."""
     if lo.device.type == "cpu":
-        return round_nofold_ref(lo, hi, products, degree, extent)
+        return round_nofold_ref(lo, hi, products, degree, extent, out)
     _kernel_device(lo)
     _check(lo, hi, products, degree, extent, fold=False)
-    out = _launch(_NOFOLD, lo, hi, None, products, degree, extent)
+    sums = _launch(_NOFOLD, lo, hi, None, products, degree, extent, out)
     round_nofold.launches += 1
-    return out
+    return sums
 
 
-def round_fold(lo, hi, r, products, degree: int, extent: int) -> torch.Tensor:
+def round_fold(lo, hi, r, products, degree: int, extent: int, out=None) -> torch.Tensor:
     """Rounds 1..nv-1 of the generic chain: fold in place by `r`, then
     evaluate. Launches the CUDA kernel for a CUDA pair, runs
     `round_fold_ref` for a CPU pair."""
     if lo.device.type == "cpu":
-        return round_fold_ref(lo, hi, r, products, degree, extent)
+        return round_fold_ref(lo, hi, r, products, degree, extent, out)
     _kernel_device(lo)
     _check(lo, hi, products, degree, extent, fold=True, r=r)
-    out = _launch(_FOLD_IN_PLACE, lo, hi, r, products, degree, extent)
+    sums = _launch(_FOLD_IN_PLACE, lo, hi, r, products, degree, extent, out)
     round_fold.launches += 1
-    return out
+    return sums
 
 
-def round_step_nofold(lo, hi, products, degree: int, coeffs=None) -> torch.Tensor:
+def round_step_nofold(lo, hi, products, degree: int, coeffs=None, out=None) -> torch.Tensor:
     """Round 0 of the per-size chain: evaluate over the whole pair. Launches
     the CUDA kernel for a CUDA pair, runs `round_step_nofold_ref` for a CPU
     pair."""
     if lo.device.type == "cpu":
-        return round_step_nofold_ref(lo, hi, products, degree, coeffs)
+        return round_step_nofold_ref(lo, hi, products, degree, coeffs, out)
     _kernel_device(lo)
     extent = _check_step(lo, hi, products, degree, False, coeffs=coeffs)
-    out = _launch(_NOFOLD, lo, hi, None, products, degree, extent, coeffs=coeffs)
+    sums = _launch(_NOFOLD, lo, hi, None, products, degree, extent, out, coeffs=coeffs)
     round_step_nofold.launches += 1
-    return out
+    return sums
 
 
-def round_step_fold(lo, hi, r, products, degree: int, coeffs=None):
+def round_step_fold(lo, hi, r, products, degree: int, coeffs=None, out=None):
     """Rounds 1..nv-1 of the per-size chain: fold by `r` into fresh
     half-width tables, then evaluate; returns ((new_lo, new_hi), sums).
     Launches the CUDA kernel for a CUDA pair, runs `round_step_fold_ref`
     for a CPU pair."""
     if lo.device.type == "cpu":
-        return round_step_fold_ref(lo, hi, r, products, degree, coeffs)
+        return round_step_fold_ref(lo, hi, r, products, degree, coeffs, out)
     _kernel_device(lo)
     quarter = _check_step(lo, hi, products, degree, True, r=r, coeffs=coeffs)
     new_lo = torch.empty((lo.shape[0], NUM_DIGITS, quarter), dtype=torch.int32, device=lo.device)
     new_hi = torch.empty_like(new_lo)
-    out = _launch(_FOLD_OUT, lo, hi, r, products, degree, quarter,
-                  out=(new_lo, new_hi), coeffs=coeffs)
+    sums = _launch(_FOLD_OUT, lo, hi, r, products, degree, quarter, out,
+                   tables=(new_lo, new_hi), coeffs=coeffs)
     round_step_fold.launches += 1
-    return (new_lo, new_hi), out
+    return (new_lo, new_hi), sums
 
 
-def round_fold_mxu(lo, hi, r, products, degree: int, extent: int) -> torch.Tensor:
+def round_fold_mxu(lo, hi, r, products, degree: int, extent: int, out=None) -> torch.Tensor:
     """Rounds 1..nv-1 of the generic chain in the MXU fold mode: what
     `round_fold` computes, with each fold multiply as banded products on the
     tensor cores. Launches the CUDA kernel for a CUDA pair, runs
     `round_fold_mxu_ref` for a CPU pair."""
     if lo.device.type == "cpu":
-        return round_fold_mxu_ref(lo, hi, r, products, degree, extent)
+        return round_fold_mxu_ref(lo, hi, r, products, degree, extent, out)
     _kernel_device(lo)
     _check(lo, hi, products, degree, extent, fold=True, r=r)
     plan = _plan(lo.shape[0], products, degree)
     lib = _mxu_library()
+    sums = _sums_row(out, lo, degree)
     nblk = -(-extent // lib.sc_mxu_threads())
-    part = torch.empty((nblk, degree + 1, NUM_DIGITS), dtype=torch.int64, device=lo.device)
     with torch.cuda.device(lo.device):
         stream = torch.cuda.current_stream(lo.device).cuda_stream
         rc = lib.sc_fold_mxu_launch(lo.data_ptr(), hi.data_ptr(), r.data_ptr(), lo.shape[2],
-                                    extent, plan, _FIELD_MXU, part.data_ptr(), nblk, stream)
+                                    extent, plan, _FIELD_MXU, sums.data_ptr(), nblk, stream)
     _raise_mxu(rc, "MXU fold kernel")
     round_fold_mxu.launches += 1
-    return part.sum(dim=0)
+    return sums
 
 
 round_nofold.launches = 0
@@ -434,6 +473,27 @@ def _mma_tile(a, b, c) -> torch.Tensor:
                                                d.data_ptr(), stream)
     _raise_mxu(rc, "mma tile")
     return d
+
+
+def _mont_mul_probe(a, b, reps: int = 1) -> torch.Tensor:
+    """Test hook of `csrc/field.cuh`'s multiply on the card: (n, 8) int32
+    limbs a, b (Montgomery form, below p) -> a * b^reps * 2^(-256 reps) mod
+    p."""
+    _kernel_device(a)
+    if a.shape != b.shape or a.dim() != 2 or a.shape[1] != 8 or a.dtype != torch.int32 \
+            or b.dtype != torch.int32:
+        raise ValueError("a and b must be (n, 8) int32 limb tensors")
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty_like(a)
+    lib = _library()
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        rc = lib.sc_mont_mul_probe(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0],
+                                   reps, _FIELD, stream)
+    if rc != 0:
+        raise RuntimeError(f"multiply probe launch failed: "
+                           f"{lib.sc_error_string(rc).decode()} ({rc})")
+    return out
 
 
 def finish_sums(digit_sums: torch.Tensor) -> np.ndarray:

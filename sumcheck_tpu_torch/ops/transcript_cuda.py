@@ -5,14 +5,16 @@ Replaces the JAX package's on-device transcript step, `_transcript_step`
 (`sumcheck_tpu/protocol/device_prover.py:118-138`) and the
 `feed_fr_vec_dyn` / `fr_rand_dyn` tail of the generic round step
 (`protocol/generic_prover.py:276-296`). The kernel is `csrc/transcript.cu`
-(one thread of one block, native 64-bit words); see its header for what
-bounds it. The plain version runs `transcript/device.py` over
-`fields/limbs_torch.py`.
+(one warp: the round's elements one per thread, then the hash chain on
+four lanes, one Blake2b column each, with native 64-bit words and one copy
+of the compression); see its header for what bounds it. The plain version runs `transcript/device.py`
+over `fields/limbs_torch.py`.
 
 `transcript_step(state, sums, msgs, rs, j)`, for round `j`:
 
-1. finishes the exact wide sums from `sums`, the round kernel's (d+1, 16)
-   int64 per-digit sums (the carry chain of `round_cuda.finish_sums`);
+1. finishes the exact wide sums from `sums`, the round's (d+1, 16) int64
+   per-digit sums, summed over the round kernel's blocks (the row the
+   kernel added into; the carry chain of `round_cuda.finish_sums`);
 2. reduces them mod p (`reduce_wide`) and converts to canonical form
    (`mont_mul_const(., 1)`);
 3. feeds them to the transcript as a `Vec<Fr>`;
@@ -35,7 +37,7 @@ import functools
 import torch
 
 from ..fields import limbs_torch as LT
-from ..fields.fr import NINV32, NUM_DIGITS, P, R2, SHAVE_BITS, WIDE_DIGITS
+from ..fields.fr import NINV32, NUM_DIGITS, P, SHAVE_BITS, WIDE_DIGITS
 from ..transcript.device import STATE_WORDS, DevTranscript, feed_fr_vec, fr_rand
 from . import cuda_build
 
@@ -43,11 +45,10 @@ SOURCE = cuda_build.source("transcript")
 MAX_DEGREE = 8  # `csrc/transcript.cu`: kMaxDegree
 
 _ONE_DIGITS = (1,) + (0,) * (NUM_DIGITS - 1)
-# p and R^2 as 8 x 32-bit limbs each (least significant first), with
-# -p^-1 mod 2^32 between them, then the bits a draw shaves
-_FIELD = (ctypes.c_uint32 * 18)(
-    *[(P >> (32 * j)) & 0xFFFFFFFF for j in range(8)], NINV32,
-    *[(R2 >> (32 * j)) & 0xFFFFFFFF for j in range(8)], SHAVE_BITS,
+# p as 8 x 32-bit limbs (least significant first), -p^-1 mod 2^32, then
+# the bits a draw shaves
+_FIELD = (ctypes.c_uint32 * 10)(
+    *[(P >> (32 * j)) & 0xFFFFFFFF for j in range(8)], NINV32, SHAVE_BITS,
 )
 
 
@@ -70,6 +71,11 @@ def _library() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_uint32), ctypes.c_void_p,  # field, stream
     ]
     lib.sc_transcript_launch.restype = ctypes.c_int
+    lib.sc_empty_launch.argtypes = [ctypes.c_void_p]
+    lib.sc_latency_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.sc_compress_probe.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    for fn in (lib.sc_empty_launch, lib.sc_latency_launch, lib.sc_compress_probe):
+        fn.restype = ctypes.c_int
     lib.sc_transcript_error_string.argtypes = [ctypes.c_int]
     lib.sc_transcript_error_string.restype = ctypes.c_char_p
     return lib
@@ -137,3 +143,39 @@ def transcript_step(state, sums, msgs, rs, j: int) -> None:
 
 
 transcript_step.launches = 0
+
+
+def _raise(rc: int, what: str) -> None:
+    if rc != 0:
+        msg = _library().sc_transcript_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({rc})")
+
+
+def _empty_launch(device) -> None:
+    """Test hook of the step's bound: one empty kernel on `device`, whose
+    back-to-back time is the launch floor."""
+    with torch.cuda.device(device):
+        _raise(_library().sc_empty_launch(torch.cuda.current_stream(device).cuda_stream),
+               "empty kernel")
+
+
+def _latency_chain(out, iters: int) -> None:
+    """Test hook of the step's bound: `iters` x 16 dependent integer
+    instructions (xor, add) on one thread; `out` is a (1,) int32 CUDA
+    tensor that receives the chain's end."""
+    with torch.cuda.device(out.device):
+        _raise(_library().sc_latency_launch(
+            out.data_ptr(), iters, torch.cuda.current_stream(out.device).cuda_stream),
+            "latency chain")
+
+
+def _compress_probe(out, iters: int) -> None:
+    """Test hook of the kernel's compression: `iters` chained compressions
+    of the block of words 0x0123456789ABCDEF * (i + 1), i < 16, from h =
+    (1, ..., 8), every eighth with the last flag, at t = 128 k for the k-th,
+    by the kernel's four hash lanes. `out` is a (9,) int64 CUDA tensor: the
+    final h, then the clocks the chain took."""
+    with torch.cuda.device(out.device):
+        _raise(_library().sc_compress_probe(
+            out.data_ptr(), iters, torch.cuda.current_stream(out.device).cuda_stream),
+            "compression probe")

@@ -8,12 +8,13 @@ Port of `sumcheck_tpu/protocol/device_prover.py`:
   start from;
 - `_kernel_step` (`:40-115`), `chain_rounds` (`:337-371`) and
   `prove_chained` (`:460-491`): the per-size chain
-  (`SUMCHECK_TPU_CHAIN_IMPL=persize`). Each round launches one round kernel
-  (`round_cuda.round_step_nofold` in round 0, `round_step_fold` after it,
-  which folds into fresh half-width tables) and one transcript step
-  (`transcript_cuda.transcript_step`), output feeding input, with no host
-  sync; the kernels cover every extent down to one lane, so there is no
-  small-table branch;
+  (`SUMCHECK_TPU_CHAIN_IMPL=persize`). Each round launches two kernels, one
+  round kernel (`round_cuda.round_step_nofold` in round 0,
+  `round_step_fold` after it, which folds into fresh half-width tables)
+  adding its sums into the round's row of one zeroed `sum_rows` buffer, and
+  one transcript step (`transcript_cuda.transcript_step`) reading that row,
+  output feeding input, with no host sync; the kernels cover every extent
+  down to one lane, so there is no small-table branch;
 - `lift_transcript`, `fetch_chain_outputs` (`_packer`), `col_int`,
   `msgs_from_host` and `restore_transcript` (`:374-457`), shared with the
   generic chain (`generic_prover.py`): one upload of the host transcript
@@ -121,22 +122,30 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def _kernel_step(lo, hi, r, products, degree: int, do_fold: bool, step_fns=None):
+def sum_rows(num_rounds: int, degree: int, device) -> torch.Tensor:
+    """The chain's zeroed (rounds, d+1, 16) int64 buffer: round j's kernel
+    adds its per-digit sums into row j, and the transcript step reads it."""
+    return torch.zeros((num_rounds, degree + 1, NUM_DIGITS), dtype=torch.int64, device=device)
+
+
+def _kernel_step(lo, hi, r, products, degree: int, do_fold: bool, step_fns=None, out=None):
     """The per-round table work: [fold by r] -> evaluate at t=0..d ->
-    lane-reduce. Returns (pair, sums): the fresh half-width (lo, hi) after a
-    fold, None for round 0, and the (d+1, 16) int64 per-digit sums.
-    Coefficients do not appear: `init_pair` folds them into the tables.
-    `step_fns` replaces (round_step_nofold, round_step_fold), a test hook."""
+    lane-reduce into the row `out`. Returns (pair, sums): the fresh
+    half-width (lo, hi) after a fold, None for round 0, and the (d+1, 16)
+    int64 per-digit sums. Coefficients do not appear: `init_pair` folds them
+    into the tables. `step_fns` replaces (round_step_nofold,
+    round_step_fold), a test hook."""
     nofold, fold = step_fns or (round_cuda.round_step_nofold, round_cuda.round_step_fold)
     if do_fold:
-        return fold(lo, hi, r, products, degree)
-    return None, nofold(lo, hi, products, degree)
+        return fold(lo, hi, r, products, degree, None, out)
+    return None, nofold(lo, hi, products, degree, None, out)
 
 
 def chain_rounds(pair: list, state, products, degree: int, num_rounds: int,
                  step_fns=None, transcript_fn=None):
     """Enqueue `num_rounds` rounds with no host sync: per round one round
-    kernel and one transcript step, output feeding input. `pair` is the
+    kernel, adding its sums into row i of a zeroed `sum_rows` buffer, and
+    one transcript step reading that row, output feeding input. `pair` is the
     list [lo, hi]; this function empties it, so that no reference outside
     keeps a folded-away pair alive, and each pair is released once the
     next round's launch is enqueued. `state` is the packed transcript
@@ -149,9 +158,10 @@ def chain_rounds(pair: list, state, products, degree: int, num_rounds: int,
     device = lo.device
     msgs = torch.empty((num_rounds, NUM_DIGITS, degree + 1), dtype=torch.int32, device=device)
     rs = torch.empty((num_rounds, NUM_DIGITS), dtype=torch.int32, device=device)
+    rows = sum_rows(num_rounds, degree, device)
     r = None
     for i in range(num_rounds):
-        new_pair, sums = _kernel_step(lo, hi, r, products, degree, i > 0, step_fns)
+        new_pair, sums = _kernel_step(lo, hi, r, products, degree, i > 0, step_fns, rows[i])
         if new_pair is not None:
             lo, hi = new_pair
         transcript(state, sums, msgs, rs, i)

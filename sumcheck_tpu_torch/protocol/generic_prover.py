@@ -19,7 +19,9 @@ The transcript runs on the device (`transcript_cuda.transcript_step`, the
 round step's `feed_fr_vec_dyn` / `fr_rand_dyn` tail at `:276-296`): the host
 lifts its `Blake2b512Rng` state once, enqueues every round with no sync,
 and fetches the proof, the challenges and the final transcript state in
-one copy (`device_prover.finish_chain`).
+one copy (`device_prover.finish_chain`). A round is two launches: the round
+kernel adds its sums into the round's row of one zeroed buffer
+(`device_prover.sum_rows`), and the transcript step reads that row.
 
 `prove_host_transcript` is the loop for any other transcript: each round
 copies its exact sums to the host (one sync), reduces them mod p, feeds the
@@ -49,6 +51,7 @@ from .device_prover import (
     lift_transcript,
     prover_state,
     resolve_device,
+    sum_rows,
 )
 from .prover import ProverMsg
 
@@ -56,8 +59,9 @@ from .prover import ProverMsg
 def chain_rounds_generic(lo, hi, state, products, degree: int, num_rounds: int,
                          round_fns=None, transcript_fn=None):
     """Enqueue `num_rounds` rounds with no host sync: per round one round
-    kernel over the active extent (folding `lo`, `hi` in place) and one
-    transcript step. `state` is the packed transcript (advanced in place).
+    kernel over the active extent (folding `lo`, `hi` in place), adding its
+    sums into row j of a zeroed `sum_rows` buffer, and one transcript step
+    reading that row. `state` is the packed transcript (advanced in place).
     Returns (msgs (k, 16, d+1), rs (k, 16), state) on the pair's device.
     The fold rounds launch `round_fold_mxu` in the MXU fold mode.
     `round_fns` and `transcript_fn` are test hooks."""
@@ -69,12 +73,13 @@ def chain_rounds_generic(lo, hi, state, products, degree: int, num_rounds: int,
     half = lo.shape[2]
     msgs = torch.empty((num_rounds, NUM_DIGITS, degree + 1), dtype=torch.int32, device=device)
     rs = torch.empty((num_rounds, NUM_DIGITS), dtype=torch.int32, device=device)
+    rows = sum_rows(num_rounds, degree, device)
     for j in range(num_rounds):
         extent = half >> j
         if j == 0:
-            sums = nofold(lo, hi, products, degree, extent)
+            sums = nofold(lo, hi, products, degree, extent, rows[j])
         else:
-            sums = fold(lo, hi, rs[j - 1], products, degree, extent)
+            sums = fold(lo, hi, rs[j - 1], products, degree, extent, rows[j])
         transcript(state, sums, msgs, rs, j)
     return msgs, rs, state
 

@@ -22,12 +22,14 @@ import textwrap
 import weakref
 
 import pytest
+import torch
 
 import sumcheck_tpu as J
 import sumcheck_tpu_torch as T
 from sumcheck_tpu.ml_sumcheck import serialize_proof as j_serialize
 from sumcheck_tpu.utils.config import get_config as j_get_config
 from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
+from sumcheck_tpu_torch.ops import round_cuda as RC
 from sumcheck_tpu_torch.ops import transcript_cuda as TC
 from sumcheck_tpu_torch.protocol import device_prover as TD
 from sumcheck_tpu_torch.protocol import generic_prover as TG
@@ -155,6 +157,83 @@ def test_dispatch(impl, monkeypatch):
     host_proof, _ = T.MLSumcheck.prove_as_subprotocol(other, tp, device="cpu")
     assert ran == ["prove_host_transcript"]
     assert serialize_proof(host_proof) == serialize_proof(proof)
+
+
+@pytest.mark.parametrize("shape", ["2x3", "shared_ragged"])
+@pytest.mark.parametrize("chain", IMPLS, indirect=True)
+def test_chain_schedule_is_two_steps_a_round(chain, shape):
+    """Through the `round_fns` / `step_fns` and `transcript_fn` hooks: each
+    round calls one round function, which adds into row j of one zeroed
+    (nv, d+1, 16) buffer, then one transcript step, which reads that same
+    row; nothing else runs per round. The proof bytes and the transcript
+    are the JAX host engine's."""
+    jp, tp = both(shape, seed=9)
+    jproof, _jstate, jrng = jax_host_prove(jp)
+    calls = []
+
+    def round_hook(fn):
+        def run(*args):
+            out = args[-1]  # the chains pass the row positionally, last
+            calls.append(("round", out.data_ptr(), out.numel(), bool(out.any())))
+            return fn(*args)
+        return run
+
+    def transcript(state, sums, msgs, rs, j):
+        calls.append(("transcript", sums.data_ptr(), j))
+        return TC.transcript_step(state, sums, msgs, rs, j)
+
+    rng = T.Blake2b512Rng.setup()
+    rng.feed(tp.info())
+    if chain == "generic":
+        fns = tuple(round_hook(f) for f in (RC.round_nofold, RC.round_fold))
+        proof, _state = TG.prove_generic(rng, tp, "cpu", round_fns=fns, transcript_fn=transcript)
+    else:
+        fns = tuple(round_hook(f) for f in (RC.round_step_nofold, RC.round_step_fold))
+        proof, _state = TD.prove_chained(rng, tp, "cpu", step_fns=fns, transcript_fn=transcript)
+    nv = tp.num_variables
+    assert [c[0] for c in calls] == ["round", "transcript"] * nv
+    rounds, steps = calls[0::2], calls[1::2]
+    assert not any(r[3] for r in rounds)  # every row was zero when its round began
+    assert [r[1] for r in rounds] == [s[1] for s in steps]  # the step reads that row
+    row_bytes = rounds[0][2] * 8
+    assert [r[1] - rounds[0][1] for r in rounds] == [j * row_bytes for j in range(nv)]
+    assert [s[2] for s in steps] == list(range(nv))
+    assert serialize_proof(proof) == j_serialize(jproof)
+    assert rng.state_tuple() == jrng.state_tuple()
+
+
+@pytest.mark.parametrize("kernel", ["nofold", "fold", "fold_mxu", "step_nofold", "step_fold"])
+def test_round_functions_add_into_the_row(kernel):
+    """Every round function, on CPU tensors (its plain version), adds the
+    round's sums into the row it is given and returns that row: the same
+    sums as without one, the buffer's other rows untouched, twice the sums
+    after a second call."""
+    _, tp = both("2x3", seed=10)
+    lo, hi, products, degree = TD.init_pair(tp, "cpu")
+    extent = lo.shape[2] // 2
+    r = torch.tensor([(12345 >> (16 * i)) & 0xFFFF for i in range(16)], dtype=torch.int32)
+
+    def run(out=None):
+        l, h = lo.clone(), hi.clone()
+        if kernel == "nofold":
+            return RC.round_nofold(l, h, products, degree, extent, out)
+        if kernel == "fold":
+            return RC.round_fold(l, h, r, products, degree, extent, out)
+        if kernel == "fold_mxu":
+            return RC.round_fold_mxu(l, h, r, products, degree, extent, out)
+        if kernel == "step_nofold":
+            return RC.round_step_nofold(l, h, products, degree, None, out)
+        return RC.round_step_fold(l, h, r, products, degree, None, out)[1]
+
+    want = run()
+    rows = torch.zeros((3, degree + 1, 16), dtype=torch.int64)
+    got = run(rows[1])
+    assert got.data_ptr() == rows[1].data_ptr()
+    assert torch.equal(rows[1], want) and not rows[[0, 2]].any()
+    run(rows[1])
+    assert torch.equal(rows[1], 2 * want)
+    with pytest.raises(ValueError):
+        run(torch.zeros((degree, 16), dtype=torch.int64))
 
 
 def test_persize_chain_releases_folded_pairs():

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card: the round kernels of both chains and the
-transcript step, each against its plain PyTorch version, and proves through
-both chains on `device="cuda"` against `device="cpu"`.
+transcript step, each against its plain PyTorch version, the sums rows the
+round kernels add into, and proves through both chains on `device="cuda"`
+against `device="cpu"`.
 
 Marked `cuda`; every test skips without a CUDA device. This file imports
 no JAX, so it runs on a machine with the card and without JAX:
@@ -55,7 +56,7 @@ def _pair(seed, slots, nv, device):
     return lo, hi
 
 
-@pytest.mark.parametrize("extent", [1, 2, 3, 127, 128, 129, 1 << 10])
+@pytest.mark.parametrize("extent", [1, 2, 3, 127, 128, 129, (1 << 9) + 5, 1 << 10])
 @pytest.mark.parametrize("fold", [False, True], ids=["nofold", "fold"])
 def test_kernel_matches_plain(cuda, fold, extent):
     products = ((0, 1, 2), (3, 4, 5))
@@ -89,6 +90,103 @@ def test_kernel_slot_counts(cuda, slots):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.equal(lo, lo_p) and torch.equal(hi, hi_p)
+
+
+@pytest.mark.parametrize("width", [6, 10, 36])
+def test_fold_kernel_unaligned_rows(cuda, width):
+    """Pair widths that are not a multiple of 4 lanes, and one that is, at
+    extents whose upper half starts off a 16-byte boundary."""
+    products = ((0, 1, 2), (3, 4, 5))
+    rng = np.random.default_rng(width)
+    d = rng.integers(0, 1 << 16, size=(2, 6, 16, width), dtype=np.uint32)
+    d[:, :, 15] >>= 2
+    lo = torch.from_numpy(d[0].astype(np.int32)).to(cuda)
+    hi = torch.from_numpy(d[1].astype(np.int32)).to(cuda)
+    r = torch.from_numpy(L.mont_scalar(31337)[:, 0].astype(np.int32)).to(cuda)
+    for extent in sorted({1, width // 2 - 1, width // 2} - {0}):
+        l1, h1, l2, h2 = lo.clone(), hi.clone(), lo.clone(), hi.clone()
+        got = RC.round_fold(l1, h1, r, products, 3, extent)
+        want = RC.round_fold_ref(l2, h2, r, products, 3, extent)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(l1, l2) and torch.equal(h1, h2)
+
+
+@pytest.mark.parametrize("kernel", ["nofold", "fold", "step_nofold", "step_fold", "fold_mxu"])
+def test_kernels_add_into_the_sums_row(cuda, kernel):
+    """Every round kernel adds its blocks' sums into the row it is given,
+    with 64-bit atomics: into row j of a zeroed (rounds, d+1, 16) buffer it
+    writes exactly the plain version's sums and leaves the other rows at 0;
+    a second launch into the same row doubles it. Equal to the sum over
+    128-lane blocks of the plain per-block sums (the former second pass)."""
+    products = ((0, 1, 2), (3, 4, 5))
+    lo, hi = _pair(21, 6, 12, cuda)
+    r = torch.from_numpy(L.mont_scalar(4242)[:, 0].astype(np.int32)).to(cuda)
+    extent = 1000
+    fold = kernel in ("fold", "fold_mxu")
+
+    def run(out, l, h):
+        if kernel == "nofold":
+            return RC.round_nofold(l, h, products, 3, extent, out)
+        if kernel == "fold":
+            return RC.round_fold(l, h, r, products, 3, extent, out)
+        if kernel == "fold_mxu":
+            return RC.round_fold_mxu(l, h, r, products, 3, extent, out)
+        if kernel == "step_nofold":
+            return RC.round_step_nofold(l, h, products, 3, None, out)
+        return RC.round_step_fold(l, h, r, products, 3, None, out)[1]
+
+    rows = torch.zeros((4, 4, 16), dtype=torch.int64, device=cuda)
+    got = run(rows[2], lo.clone(), hi.clone())
+    assert got.data_ptr() == rows[2].data_ptr()
+    l, h = lo.clone(), hi.clone()
+    if kernel.startswith("step"):
+        want = (RC.round_step_nofold_ref(l, h, products, 3) if kernel == "step_nofold"
+                else RC.round_step_fold_ref(l, h, r, products, 3)[1])
+    elif fold:
+        want = RC.round_fold_ref(l, h, r, products, 3, extent)
+    else:
+        want = RC.round_nofold_ref(l, h, products, 3, extent)
+    torch.cuda.synchronize()
+    assert torch.equal(rows[2], want)
+    assert not rows[[0, 1, 3]].any()
+    run(rows[2], lo.clone(), hi.clone())
+    torch.cuda.synchronize()
+    assert torch.equal(rows[2], 2 * want)
+    if kernel == "nofold":  # the blocks' partial sums, summed on the host
+        blocks = [RC.round_nofold_ref(lo[:, :, k:].contiguous(), hi[:, :, k:].contiguous(),
+                                      products, 3, min(128, extent - k))
+                  for k in range(0, extent, 128)]
+        assert torch.equal(torch.stack(blocks).sum(0), want)
+
+
+def _limbs(values) -> torch.Tensor:
+    """Python ints -> (n, 8) int32 tensor of 32-bit limbs."""
+    rows = [[(v >> (32 * j)) & 0xFFFFFFFF for j in range(8)] for v in values]
+    return torch.from_numpy(np.array(rows, dtype=np.uint32).view(np.int32))
+
+
+@pytest.mark.parametrize("reps", [1, 5])
+def test_mont_mul_edge_operands(cuda, reps):
+    """`csrc/field.cuh`'s Montgomery multiply (CIOS) against Python
+    integers, at edge operands (0, 1, 2, p-1, p-2, R mod p, R^2 mod p, 2^255 mod p) in
+    every pairing and at random ones; `reps` chains the product into
+    itself."""
+    from sumcheck_tpu_torch.fields.fr import R2
+
+    edges = [0, 1, 2, P - 1, P - 2, (1 << 256) % P, R2 % P, (1 << 255) % P]
+    gen = np.random.default_rng(17)
+    rand = [int.from_bytes(gen.bytes(32), "little") % P for _ in range(64)]
+    pairs = [(x, y) for x in edges + rand[:8] for y in edges + rand[:8]]
+    pairs += list(zip(rand, rand[::-1]))
+    a, b = (_limbs([pr[k] for pr in pairs]).to(cuda) for k in (0, 1))
+    got = RC._mont_mul_probe(a, b, reps)
+    r_inv = pow(1 << 256, -1, P)
+    want = []
+    for x, y in pairs:
+        for _ in range(reps):
+            x = x * y * r_inv % P
+        want.append(x)
+    assert torch.equal(got.cpu(), _limbs(want))
 
 
 def test_prove_on_cuda_equals_cpu(cuda):
@@ -179,6 +277,88 @@ def test_transcript_kernel_matches_plain(cuda):
         rs = outs[0][1][j].cpu().numpy().astype(np.int64)
         assert sum(int(rs[i]) << (16 * i) for i in range(16)) == draw
     assert rejected >= 1
+
+
+def _host_rounds(prefix: bytes, sums: np.ndarray, degree: int, max_rounds: int = 200):
+    """The host schedule of transcript steps from a transcript fed `prefix`:
+    rounds up to and including the first that rejects a draw. Returns (the
+    rounds' canonical values, their challenges, the final host rng)."""
+    rng = T.Blake2b512Rng.setup()
+    rng.feed_bytes(prefix)
+    values, draws = [], []
+    for j in range(max_rounds):
+        wide = RC.finish_sums(torch.from_numpy(sums[j]))
+        vals = [sum(int(wide[i, t]) << (16 * i) for i in range(wide.shape[0])) % P
+                * pow(2, -256, P) % P for t in range(degree + 1)]
+        rng.feed(T.protocol.ProverMsg([T.Fr(v) for v in vals]))
+        rejected = False
+        while True:
+            draw = int.from_bytes(rng.next_u64s_bytes(4), "little") & _DRAW_MASK
+            if draw < P:
+                break
+            rejected = True
+        values.append(vals)
+        draws.append(draw)
+        if rejected:
+            return values, draws, rng
+    raise AssertionError("no draw rejected")
+
+
+@pytest.mark.parametrize("degree", range(1, 9))
+def test_transcript_kernel_every_degree_and_pending_fill(cuda, degree):
+    """The transcript kernel at every degree 1..8, from every pending-block
+    fill (blen 0, 8, ..., 128 bytes), each over rounds up to the first that
+    rejects a draw: messages, challenges and final state equal to the host
+    rng's, and the first round equal to the plain version's."""
+    from sumcheck_tpu_torch.protocol.device_prover import restore_transcript
+
+    for blen in range(0, 129, 8):
+        prefix = bytes(range(128 + blen)) if blen else b""
+        gen = np.random.default_rng(1000 * degree + blen)
+        sums = gen.integers(0, 1 << 40, size=(200, degree + 1, 16), dtype=np.int64)
+        values, draws, host = _host_rounds(prefix, sums, degree)
+        rounds = len(values)
+        rng = T.Blake2b512Rng.setup()
+        rng.feed_bytes(prefix)
+        state = lift_transcript(rng, cuda)
+        assert int(state[25, 0]) == blen
+        msgs = torch.empty((rounds, 16, degree + 1), dtype=torch.int32, device=cuda)
+        rs = torch.empty((rounds, 16), dtype=torch.int32, device=cuda)
+        state_p = state.cpu()
+        msgs_p, rs_p = torch.empty_like(msgs[:1]).cpu(), torch.empty_like(rs[:1]).cpu()
+        sums_d = torch.from_numpy(sums[:rounds]).to(cuda)
+        for j in range(rounds):
+            TC.transcript_step(state, sums_d[j], msgs, rs, j)
+        TC.transcript_step_ref(state_p, torch.from_numpy(sums[0]), msgs_p, rs_p, 0)
+        torch.cuda.synchronize()
+        assert torch.equal(msgs[0].cpu(), msgs_p[0]) and torch.equal(rs[0].cpu(), rs_p[0])
+        m = msgs.cpu().numpy().astype(np.int64)
+        r = rs.cpu().numpy().astype(np.int64)
+        for j in range(rounds):
+            assert [sum(int(m[j, i, t]) << (16 * i) for i in range(16))
+                    for t in range(degree + 1)] == values[j], (blen, j)
+            assert sum(int(r[j, i]) << (16 * i) for i in range(16)) == draws[j], (blen, j)
+        probe = T.Blake2b512Rng.setup()
+        restore_transcript(probe, state.cpu())
+        assert probe.state_tuple() == host.state_tuple(), blen
+
+
+def test_compress_probe_matches_host_core(cuda):
+    """The transcript kernel's compression on its four hash lanes against
+    the host's Blake2b core, over a chain that sets the last flag on every
+    eighth block."""
+    from sumcheck_tpu_torch.transcript.blake2b_core import compress
+
+    iters = 24
+    blk = b"".join((0x0123456789ABCDEF * (i + 1) % (1 << 64)).to_bytes(8, "little")
+                   for i in range(16))
+    h = list(range(1, 9))
+    for k in range(iters):
+        h = compress(h, blk, 128 * k, k % 8 == 7)
+    out = torch.zeros(9, dtype=torch.int64, device=cuda)
+    TC._compress_probe(out, iters)
+    assert [int(x) % (1 << 64) for x in out.cpu().tolist()[:8]] == h
+    assert int(out[8]) > 0
 
 
 @pytest.mark.parametrize("impl", ["generic", "persize"])

@@ -226,6 +226,43 @@ def test_transcript_step_matches_jax_transcript_step():
     assert D.DevTranscript.from_state(state).lower() == jlowered
 
 
+@pytest.mark.parametrize("blocks", [1, 5, 2048])
+def test_transcript_step_reads_the_rounds_sums_row(blocks):
+    """The chains' schedule: the round kernel adds each block's (d+1, 16)
+    per-digit sums into row j of one zeroed (nv, d+1, 16) buffer, and the
+    step reads that row. Equal to the step on the reduced sums
+    `part.sum(0)` and to JAX `_transcript_step` on their exact wide sums."""
+    degree, j, nv = 3, 2, 4
+    prefix = b"\x05" * 24
+    gen = np.random.default_rng(blocks)
+    part = torch.from_numpy(
+        gen.integers(0, 1 << 28, size=(blocks, degree + 1, 16), dtype=np.int64))
+    rows = torch.zeros((nv, degree + 1, 16), dtype=torch.int64)
+    for b in range(blocks):  # the kernels' atomic adds, in any order
+        rows[j].add_(part[(7 * b) % blocks])
+    host = Blake2b512Rng.setup()
+    host.feed_bytes(prefix)
+    state = D.DevTranscript.lift(host.state_tuple()).to_state()
+    state_ref = state.clone()
+    msgs, rs = _buffers(nv, degree)
+    msgs_ref, rs_ref = _buffers(nv, degree)
+    TC.transcript_step(state, rows[j], msgs, rs, j)
+    TC.transcript_step_ref(state_ref, part.sum(0), msgs_ref, rs_ref, j)
+    assert torch.equal(state, state_ref)
+    assert torch.equal(msgs, msgs_ref) and torch.equal(rs, rs_ref)
+    assert not msgs[[0, 1, 3]].any() and not rs[[0, 1, 3]].any()
+
+    jhost = JRng.setup()
+    jhost.feed_bytes(prefix)
+    jts = JDev.DevTranscript.lift(jhost.state_tuple())
+    tfn, blen_out = JD._transcript_step(jts.blen, degree)
+    jcarry, jcanon, jr = tfn(jts.carry(), jnp.asarray(RC.finish_sums(part.sum(0))))
+    np.testing.assert_array_equal(msgs[j].numpy(), np.asarray(jcanon).astype(np.int32))
+    np.testing.assert_array_equal(rs[j].numpy(), np.asarray(jr).astype(np.int32))
+    jlowered = JDev.DevTranscript.from_carry(jax.device_get(jcarry), blen_out).lower()
+    assert D.DevTranscript.from_state(state).lower() == jlowered
+
+
 @pytest.mark.parametrize("bad", ["state", "sums", "msgs", "round"])
 def test_transcript_step_rejects_bad_input(bad):
     state = D.DevTranscript.lift(Blake2b512Rng.setup().state_tuple()).to_state()
