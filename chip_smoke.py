@@ -11,8 +11,8 @@ failure raises and exits non-zero without the final line:
 2. build the three kernel sources, `sumcheck_tpu_torch/csrc/round.cu`,
    `csrc/transcript.cu` and `csrc/round_mxu.cu`, one `nvcc` each, started
    together; print each kernel's registers, shared memory, stack frame and
-   spills from the ptxas logs, and the SASS size of the transcript and fold
-   kernels (`cuobjdump`, where the toolkit has it);
+   spills from the ptxas logs, and the SASS instruction mix of the
+   transcript and round kernels (`cuobjdump`, where the toolkit has it);
 3. the generic chain's round kernels against their plain PyTorch versions
    on the card, array-equal, at the round shapes of the nv=20 2x3 prove and
    at ragged extents, with kernel and plain times; the fold at A2=2^18
@@ -24,8 +24,11 @@ failure raises and exits non-zero without the final line:
    against its plain version and against the CIOS fold kernel `round_fold`,
    array-equal, at the nv=20 fold shapes (extents 2^18, 2^10, 37, 3, 1 and
    a ragged 2^9 + 5) and the GKR dim-18 shape (U=2, d=2, extent 2^16), with
-   kernel, plain and CIOS-kernel times; then `ops/mxu_mul.py`'s banded
-   multiply (float32 matmuls) against the CIOS multiply at 2^17 lanes;
+   kernel, plain and CIOS-kernel times and the bound at each shape beside
+   both kernels' shares of it; then `ops/mxu_mul.py`'s banded multiply
+   (float32 matmuls) against the CIOS multiply at 2^17 lanes, and (5c) the
+   field's two multiplies, even/odd and CIOS, against Python integers, their
+   rates and the SASS instructions of one multiply each;
 6. the transcript kernel against the plain transcript and the host rng
    over 60 rounds that reject draws, with kernel and plain times, and the
    step's latency bound: the compressions this run's rounds needed, times
@@ -105,11 +108,14 @@ IMADS_PER_MONT_MUL = 2 * 2 * 64 + 8
 # xor of the rotate by 32, one; three xor-and-rotates of two each)
 G_LEVELS = 24
 G_DEPTH = 15
+# round 0 evaluates in registers up to this degree (`csrc/round.cu`,
+# kMaxRegisterDegree), with the ladder above it
+REGISTER_MAX_DEGREE = 4
 # each kernel's time at its main shape before its current version (PERF.md,
-# section 6, in parentheses), quoted in the printed lines beside this run's;
-# not part of the kernels line
-PREVIOUS_MS = {"round_nofold": 0.3752, "round_fold": 0.3788, "round_step_nofold": 0.3707,
-               "round_step_fold": 0.3668, "round_fold_mxu": 0.1064, "transcript_step": 0.0680}
+# section 6, in parentheses; an H100 80GB HBM3 at 700 W), quoted in the
+# printed lines beside this run's; not part of the kernels line
+PREVIOUS_MS = {"round_nofold": 0.3551, "round_fold": 0.3630, "round_step_nofold": 0.3547,
+               "round_step_fold": 0.3496, "round_fold_mxu": 0.0954, "transcript_step": 0.0151}
 
 
 RATES: dict = {}  # the card's SM count, clock and IMAD rate (`card_rates`)
@@ -127,21 +133,38 @@ def card_rates(device) -> dict:
             "imad_per_s": sms * IMAD_PER_SM_CLOCK * mhz * 1e6}
 
 
+def eval_multiplies(products, degree: int, coeffs: bool, registers: bool) -> int:
+    """Montgomery multiplies of one lane's evaluation at t = 0..d. The
+    ladder (fold kernels; round 0 above degree `REGISTER_MAX_DEGREE`):
+    (factors - 1) x (d+1) a product, (d+1) more with coefficients. Round 0
+    in registers (`csrc/round.cu` `nofold_kernel`): factor l of a product
+    multiplies at t = 0..min(l+1, d), the last at all d+1 points (the rest
+    by differences), and a coefficient 2."""
+    f = len(products[0])
+    if registers:
+        per = sum((degree if l == f - 1 else min(l + 1, degree)) + 1 for l in range(1, f))
+        per += 2 if coeffs else 0
+    else:
+        per = (f - 1) * (degree + 1) + ((degree + 1) if coeffs else 0)
+    return len(products) * per
+
+
 def round_work(lanes, slots, products, degree, fold, coeffs=False, mma=False) -> dict:
     """What a round kernel must do at one shape: bytes (each input stripe
     read once, each output stripe written once: 16 digits x 4 bytes per
     lane and slot), 32-bit multiplies of its Montgomery multiplies (2 per
-    slot for a fold, (factors - 1) x products x (d+1) for the evaluation,
-    products x (d+1) more with coefficients), and, for the MXU fold, the
-    int8 tensor-core operations of its fold multiplies (40 mma.m16n8k32 per
-    32 lanes each) in place of their IMADs."""
+    slot for a fold, the evaluation's `eval_multiplies`), and, for the MXU fold, the
+    int8 tensor-core operations of its fold multiplies (4 mma.m16n8k32 per
+    16 lanes each) in place of their IMADs, plus the 32 Montgomery
+    multiplies of each 128-lane block's byte matrix."""
     stripe = 64 * lanes * slots
-    evals = len(products) * (len(products[0]) - 1) * (degree + 1)
-    evals += len(products) * (degree + 1) if coeffs else 0
+    evals = eval_multiplies(products, degree, coeffs,
+                            not fold and degree <= REGISTER_MAX_DEGREE)
     folds = 2 * slots if fold else 0
+    matrix = 32 * -(-lanes // 128) if mma else 0
     return {"bytes": stripe * (6 if fold else 2),
-            "imads": (evals + (0 if mma else folds)) * IMADS_PER_MONT_MUL * lanes,
-            "int8_ops": folds * 40 * 16 * 8 * 32 * 2 // 32 * lanes if mma else 0}
+            "imads": ((evals + (0 if mma else folds)) * lanes + matrix) * IMADS_PER_MONT_MUL,
+            "int8_ops": folds * 4 * 16 * 8 * 32 * 2 // 16 * lanes if mma else 0}
 
 
 def bound_of(work: dict) -> tuple[float, str, str]:
@@ -417,8 +440,14 @@ def compare_mxu(rc, name, lo, hi, r, products, degree, extent, device):
                        PLAIN_REPS, device)
     cios_ms = time_ms(lambda: rc.round_fold(lo_k, hi_k, r, products, degree, extent, row),
                       KERNEL_REPS, device, device_only=True)
+    bound = ""
+    if RATES:
+        bound_ms, bound_by, _ = bound_of(round_work(extent, lo.shape[0], products, degree, True,
+                                                    mma=True))
+        bound = (f"; bound {bound_ms:.4f} ms by {bound_by}, MXU kernel at {bound_ms / ms:.1%} "
+                 f"of it, round_fold at {bound_ms / cios_ms:.1%}")
     print(f"kernel-vs-plain-vs-CIOS {name}: equal, MXU kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, CIOS kernel {cios_ms:.4f} ms")
+          f"{plain_ms:.4f} ms, CIOS kernel round_fold {cios_ms:.4f} ms{bound}")
     return err, ms, plain_ms, cios_ms
 
 
@@ -484,11 +513,14 @@ def mxu_mul_phase(device, seed: int, lanes: int = 1 << 17) -> dict:
     return {"lanes": lanes, "ms": ms, "cios_ms": cios_ms}
 
 
-def mont_mul_phase(device, seed: int, lanes: int = 1 << 20, reps: int = 64) -> dict:
-    """Phase 5c: `csrc/field.cuh`'s Montgomery multiply (CIOS, the round
-    kernels' multiply) against Python integers at edge operands and at
+def mont_mul_phase(device, seed: int, lib: Path | None = None, lanes: int = 1 << 20,
+                   reps: int = 64) -> dict:
+    """Phase 5c: `csrc/field.cuh`'s two Montgomery multiplies, `mont_mul`
+    (even/odd accumulators, the kernels' multiply) and `mont_mul_cios`
+    (CIOS, its yardstick), against Python integers at edge operands and at
     random ones, then timed on `lanes` threads that each chain `reps`
-    multiplies, as multiplies per second."""
+    multiplies, as multiplies per second; beside them the SASS instruction
+    counts of one multiply of each in `lib` (`multiply_sass`)."""
     from sumcheck_tpu_torch.fields.fr import P, R2
     from sumcheck_tpu_torch.ops import round_cuda as rc
 
@@ -499,25 +531,31 @@ def mont_mul_phase(device, seed: int, lanes: int = 1 << 20, reps: int = 64) -> d
     edges = [0, 1, 2, P - 1, P - 2, (1 << 256) % P, R2 % P, (1 << 255) % P]
     pairs = [(x, y) for x in edges for y in edges]
     r_inv = pow(1 << 256, -1, P)
-    a, b = limbs([x for x, _ in pairs]), limbs([y for _, y in pairs])
+    ea, eb = limbs([x for x, _ in pairs]), limbs([y for _, y in pairs])
     want = limbs([x * y * r_inv % P for x, y in pairs])
-    check(torch.equal(rc._mont_mul_probe(a, b, 1), want),
-          "CIOS multiply differs from Python at edge operands")
     gen = np.random.default_rng(seed + 5)
     d = gen.integers(0, 1 << 32, size=(2, lanes, 8), dtype=np.uint64).astype(np.uint32)
     d[:, :, 7] >>= 3  # < 2^253 < p
     a, b = (torch.from_numpy(x.view(np.int32)).to(device) for x in d)
     xs, ys = ([int.from_bytes(row.tobytes(), "little") for row in x[:256]] for x in d)
-    check(torch.equal(rc._mont_mul_probe(a[:256], b[:256]),
-                      limbs([x * y * r_inv % P for x, y in zip(xs, ys)])),
-          "CIOS multiply differs from Python at random operands")
-    ms = time_ms(lambda: rc._mont_mul_probe(a, b, reps), 3, device)
-    rate = lanes * reps / (ms / 1e3)
-    print(f"Montgomery multiply (CIOS): equal to Python at {len(pairs)} edge pairs and 256 random "
-          f"ones; {rate / 1e9:.2f}e9 per second ({lanes} threads x {reps} chained); "
-          f"{RATES['imad_per_s'] / IMADS_PER_MONT_MUL / 1e9:.2f}e9 at the IMAD rate (32-bit CIOS "
-          f"count)")
-    return {"cios": rate}
+    want_rand = limbs([x * y * r_inv % P for x, y in zip(xs, ys)])
+    rates = {}
+    for impl in rc.MULTIPLIES:
+        check(torch.equal(rc._mont_mul_probe(ea, eb, 1, impl), want),
+              f"{impl} multiply differs from Python at edge operands")
+        check(torch.equal(rc._mont_mul_probe(a[:256], b[:256], 1, impl), want_rand),
+              f"{impl} multiply differs from Python at random operands")
+        ms = time_ms(lambda: rc._mont_mul_probe(a, b, reps, impl), 3, device)
+        rates[impl] = lanes * reps / (ms / 1e3)
+    print(f"Montgomery multiplies, equal to Python at {len(pairs)} edge pairs and 256 random "
+          f"ones; per second ({lanes} threads x {reps} chained): "
+          + ", ".join(f"{k} {v / 1e9:.2f}e9" for k, v in rates.items())
+          + f"; {RATES['imad_per_s'] / IMADS_PER_MONT_MUL / 1e9:.2f}e9 at the IMAD rate (264 "
+          f"32-bit multiplies each)")
+    for impl, c in (multiply_sass(lib) if lib is not None else {}).items():
+        print(f"  SASS of one {impl} multiply: {c['total']} instructions; "
+              + ", ".join(f"{k} {v}" for k, v in c.items() if k != "total"))
+    return rates
 
 
 def compressions(blen: int, d1: int, attempts: int) -> tuple[int, int]:
@@ -894,7 +932,7 @@ def device_busy(fn, top: int = 5) -> dict:
 
 
 # substrings of the port's kernels' names as the profiler shows them
-ROUND_KERNELS = ("round_kernel", "fold_mxu_kernel")
+ROUND_KERNELS = ("round_kernel", "nofold_kernel", "fold_mxu_kernel")
 
 
 def classify(by_name: dict, scale: float | None = None) -> dict:
@@ -1276,11 +1314,11 @@ def short_name(mangled: str) -> str:
     return (m.group(1) + (m.group(2) or "")) if m else mangled[:60]
 
 
-def sass_sizes(lib: Path, kernel: str) -> dict:
-    """{function: (instructions, IMAD, IMAD.WIDE)} of each function of
-    `lib` whose name holds `kernel`, from `cuobjdump -sass`; empty where
-    the toolkit has no cuobjdump. IMAD.MOV, a move, is not counted as a
-    multiply."""
+def sass_ops(lib: Path, kernel: str) -> dict:
+    """{function: Counter of opcodes with their modifiers} of each function
+    of `lib` whose name holds `kernel`, from `cuobjdump -sass`; empty where
+    the toolkit has no cuobjdump."""
+    import collections
     import os
     import re
     import shutil
@@ -1295,14 +1333,54 @@ def sass_sizes(lib: Path, kernel: str) -> dict:
         if m:
             cur = m.group(1) if kernel in m.group(1) else None
             if cur:
-                res[cur] = [0, 0, 0]
+                res[cur] = collections.Counter()
             continue
-        if cur and re.search(r"/\*[0-9a-f]{4,}\*/", line):
-            res[cur][0] += 1
-            if re.search(r"\bIMAD\b|IMAD\.(?!MOV)", line):
-                res[cur][1] += 1
-                res[cur][2] += "IMAD.WIDE" in line
-    return {k: tuple(v) for k, v in res.items()}
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T\d]\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if cur and m:
+            res[cur][m.group(1)] += 1
+    return res
+
+
+# opcode classes of a Montgomery multiply's SASS: (label, test on the opcode)
+SASS_CLASSES = (
+    ("IMAD.WIDE", lambda op: op.startswith("IMAD.WIDE")),
+    ("IMAD.HI", lambda op: op.startswith("IMAD.HI")),
+    ("IMAD.X", lambda op: op.startswith("IMAD") and ".X" in op and "HI" not in op
+     and "WIDE" not in op),
+    ("IMAD", lambda op: op in ("IMAD", "IMAD.U32")),
+    ("IMAD.MOV/SHL/IADD", lambda op: op.startswith(("IMAD.MOV", "IMAD.SHL", "IMAD.IADD"))),
+    ("IADD3", lambda op: op.startswith("IADD3") and ".X" not in op),
+    ("IADD3.X", lambda op: op.startswith("IADD3") and ".X" in op),
+    ("SEL", lambda op: op.startswith("SEL")),
+    ("ISETP", lambda op: op.startswith("ISETP")),
+    ("LOP3", lambda op: op.startswith("LOP3")),
+)
+
+
+def sass_classes(ops) -> dict:
+    """A Counter of opcodes -> counts per `SASS_CLASSES` label, the rest as
+    "other", and "total"."""
+    out = {label: 0 for label, _ in SASS_CLASSES}
+    out["other"] = 0
+    for op, n in ops.items():
+        label = next((lb for lb, test in SASS_CLASSES if test(op)), "other")
+        out[label] += n
+    out["total"] = sum(ops.values())
+    return out
+
+
+def multiply_sass(lib: Path) -> dict:
+    """{impl: SASS instruction counts of one multiply} for `csrc/round.cu`'s
+    two multiplies, as the counts of `mont_mul_count_kernel<impl, 2>` less
+    those of `<impl, 1>`; empty without cuobjdump."""
+    funcs = sass_ops(lib, "mont_mul_count_kernel")
+    out = {}
+    for impl, code in (("cios", 0), ("eo", 1)):
+        one = [c for f, c in funcs.items() if f"ILi{code}ELi1E" in f]
+        two = [c for f, c in funcs.items() if f"ILi{code}ELi2E" in f]
+        if one and two:
+            out[impl] = sass_classes(two[0] - one[0])
+    return out
 
 
 def main() -> int:
@@ -1337,10 +1415,12 @@ def main() -> int:
             print(f"  ptxas {name}.cu {short_name(fn)}: {res.get('registers')} registers, "
                   f"{res.get('smem')} B static smem, {res.get('stack')} B stack frame, "
                   f"spills {res.get('spill_stores')}/{res.get('spill_loads')} B")
-    for name, kernel in (("transcript", "transcript_kernel"), ("round", "round_kernel")):
-        for fn, (n, imad, wide) in sass_sizes(libs[name], kernel).items():
-            print(f"  SASS {short_name(fn)}: {n} instructions ({n * 16} B), {imad} IMAD "
-                  f"({wide} IMAD.WIDE)")
+    for name, kernel in (("transcript", "transcript_kernel"), ("round", "round_kernel"),
+                         ("round", "nofold_kernel"), ("round_mxu", "fold_mxu_kernel")):
+        for fn, ops in sass_ops(libs[name], kernel).items():
+            c = sass_classes(ops)
+            print(f"  SASS {short_name(fn)}: {c['total']} instructions ({c['total'] * 16} B); "
+                  + ", ".join(f"{k} {v}" for k, v in c.items() if k != "total" and v))
     tk = next(v for k, v in ptxas.items() if "transcript_kernel" in k)
     print(f"transcript_kernel: {tk.get('stack')} B stack frame, spills "
           f"{tk.get('spill_stores')}/{tk.get('spill_loads')} B (208 B before the redesign)")
@@ -1349,7 +1429,7 @@ def main() -> int:
     stats.update(step_kernel_phase(device, args.seed))
     stats.update(mxu_kernel_phase(device, args.seed))
     mxu_mul = mxu_mul_phase(device, args.seed)
-    mul_rates = mont_mul_phase(device, args.seed)
+    mul_rates = mont_mul_phase(device, args.seed, libs["round"])
     stats.update(transcript_phase(device, args.seed))
     golden_phase(device)
     gkr_golden_phase(device)
@@ -1412,7 +1492,8 @@ def main() -> int:
         print(f"kernel {name}: {main_shape['ms']:.4f} ms at {main_shape['shape']}, bound "
               f"{bound_ms:.4f} ms ({detail}), {bound_ms / main_shape['ms']:.1%} of it; "
               f"previous version (PERF.md): {PREVIOUS_MS[name]} ms")
-    print(f"Montgomery multiplies per second (CIOS): {mul_rates['cios']:.4e}")
+    print("Montgomery multiplies per second: "
+          + ", ".join(f"{k} {v:.4e}" for k, v in mul_rates.items()))
     print(f"card: {card}; prove medians "
           + ", ".join(f"{k} {h['prove_s']:.4f} s" for k, h in heads.items())
           + f"; banded multiply at {mxu_mul['lanes']} lanes {mxu_mul['ms']:.4f} ms, CIOS "

@@ -42,14 +42,17 @@
 // several integer instructions per byte moved, above the card's ratio of
 // integer throughput to memory bandwidth, so 32-bit integer multiply
 // throughput is the bound to expect. The design keeps to that: one lane per
-// thread, 8 x 32-bit limbs with 64-bit products (CIOS), coalesced digit
-// loads, each lane's values read from device memory once per round.
+// thread, 8 x 32-bit limbs, the multiply on the multiply-add's own carry
+// chain (field.cuh), coalesced digit loads, each lane's values read from
+// device memory once per round.
 //
 // Structure: product shape (slots, products, factors, degree) and the
 // product index matrix arrive at run time (struct Plan) with compile-time
 // maxima; the wrapper raises above them. The ladder and the block-sum tail
 // are shared with the MXU fold kernel (round_common.cuh). Coefficients, when
-// given, sit in static shared memory.
+// given, sit in static shared memory. Round 0 up to degree
+// kMaxRegisterDegree runs nofold_kernel, which evaluates in registers and
+// needs no ladder; above it, round_kernel<false, false, C>.
 
 #include "round_common.cuh"
 
@@ -118,6 +121,158 @@ __global__ void __launch_bounds__(kThreads)
   ladder_block_sums<kCoeffs>(ladder, warp_sums, coeff, active, f, pl, sums);
 }
 
+// Degrees up to which round 0 evaluates in registers (nofold_kernel); above
+// it round_kernel<false, false, C> and its ladder in shared memory.
+constexpr int kMaxRegisterDegree = 4;
+
+// acc[0..K] hold a polynomial of degree K at t = 0..K: extend it to
+// t = K+1..D by its backward differences. The K-th difference is constant,
+// so each new point costs K additions; exact in the field, so the values
+// are the ones a multiply at those points would give.
+template <int K, int D>
+__device__ __forceinline__ void extend(uint32_t (*acc)[kLimbs], const Field& f) {
+  uint32_t dt[K + 1][kLimbs];
+#pragma unroll
+  for (int i = 0; i <= K; ++i)
+#pragma unroll
+    for (int j = 0; j < kLimbs; ++j) dt[i][j] = acc[K - i][j];
+  // pass j leaves dt[i] = j-th difference at K - i + j (i >= j), so at the
+  // end dt[j] is the j-th backward difference at K
+#pragma unroll
+  for (int j = 1; j <= K; ++j)
+#pragma unroll
+    for (int i = K; i >= j; --i) sub_mod(dt[i], dt[i - 1], dt[i], f);
+#pragma unroll
+  for (int t = K + 1; t <= D; ++t) {
+#pragma unroll
+    for (int j = K - 1; j >= 0; --j) add_mod(dt[j], dt[j], dt[j + 1], f);
+#pragma unroll
+    for (int j = 0; j < kLimbs; ++j) acc[t][j] = dt[0][j];
+  }
+}
+
+// extend<K, D> for the run-time degree K, 2 <= K < D
+template <int K, int D>
+__device__ __forceinline__ void extend_from(int degree, uint32_t (*acc)[kLimbs],
+                                            const Field& f) {
+  if constexpr (K < D) {
+    if (degree == K) {
+      extend<K, D>(acc, f);
+    } else {
+      extend_from<K + 1, D>(degree, acc, f);
+    }
+  }
+}
+
+// Round 0 (no fold) at compile-time degree D <= kMaxRegisterDegree, with the
+// evaluation in registers: product by product, factor by factor, each
+// factor's E and O read from the tables and its values E + t (O - E) formed
+// by additions and multiplied into the product's running values at t =
+// 0..D. A product of l factors has degree l, so it is multiplied at t = 0..l
+// only and extended to the next point by differences when the next factor
+// needs it: 7 multiplies for a 3-factor product at D = 3, not 8. A
+// coefficient multiplies the first factor's E and step (2 multiplies). The
+// next factor's E and O load while this one multiplies. No shared ladder,
+// so registers, not shared memory, set the blocks per SM.
+template <int D, bool kCoeffs>
+__global__ void __launch_bounds__(kThreads)
+    nofold_kernel(const uint32_t* __restrict__ lo, const uint32_t* __restrict__ hi,
+                  const uint32_t* __restrict__ coeff_digits, long long H, long long extent,
+                  Field f, Plan pl, long long* __restrict__ sums) {
+  __shared__ uint32_t warp_sums[kThreads / 32][kMaxDegree + 1][kDigits];
+  __shared__ uint32_t coeff[kCoeffs ? kMaxProducts : 1][kLimbs];
+
+  const int tid = threadIdx.x;
+  const long long k = (long long)blockIdx.x * kThreads + tid;
+  const long long slot_stride = (long long)kDigits * H;
+
+  if constexpr (kCoeffs) {
+    for (int p = tid; p < pl.products; p += kThreads) {
+      uint32_t c[kLimbs];
+      load_lane(c, coeff_digits + p * kDigits, 1);
+#pragma unroll
+      for (int j = 0; j < kLimbs; ++j) coeff[p][j] = c[j];
+    }
+    __syncthreads();
+  }
+
+  uint32_t total[D + 1][kLimbs];
+#pragma unroll
+  for (int t = 0; t <= D; ++t)
+#pragma unroll
+    for (int j = 0; j < kLimbs; ++j) total[t][j] = 0;
+
+  if (k < extent) {
+    // the next factor's E and O are loaded while this one multiplies
+    uint32_t next_e[kLimbs], next_o[kLimbs];
+    load_lane(next_e, lo + pl.idx[0] * slot_stride + k, H);
+    load_lane(next_o, hi + pl.idx[0] * slot_stride + k, H);
+    for (int p = 0; p < pl.products; ++p) {
+      uint32_t acc[D + 1][kLimbs];
+      int known = D;  // acc holds the product so far at t = 0..known
+      for (int l = 0; l < pl.factors; ++l) {
+        uint32_t v[kLimbs], step[kLimbs];
+#pragma unroll
+        for (int j = 0; j < kLimbs; ++j) {
+          v[j] = next_e[j];
+          step[j] = next_o[j];
+        }
+        const int q = l + 1 < pl.factors ? p * kMaxFactors + l + 1 : (p + 1) * kMaxFactors;
+        if (q < pl.products * kMaxFactors) {
+          load_lane(next_e, lo + pl.idx[q] * slot_stride + k, H);
+          load_lane(next_o, hi + pl.idx[q] * slot_stride + k, H);
+        }
+        sub_mod(step, step, v, f);
+        if (l == 0) {
+          if constexpr (kCoeffs) {
+            mont_mul(v, coeff[p], v, f);
+            mont_mul(step, coeff[p], step, f);
+          }
+#pragma unroll
+          for (int t = 0; t <= D; ++t) {
+            if (t > 0) add_mod(v, v, step, f);
+#pragma unroll
+            for (int j = 0; j < kLimbs; ++j) acc[t][j] = v[j];
+          }
+          continue;
+        }
+        // the points this factor's product is needed at: all for the last
+        // factor, else as many as its degree l + 1 takes
+        const int need = l + 1 == pl.factors ? D : min(l + 1, D);
+        if (need > known) extend_from<2, D>(known, acc, f);  // known == l here
+#pragma unroll
+        for (int t = 0; t <= D; ++t) {
+          if (t <= need) {
+            if (t > 0) add_mod(v, v, step, f);
+            mont_mul(acc[t], acc[t], v, f);
+          }
+        }
+        known = need;
+      }
+#pragma unroll
+      for (int t = 0; t <= D; ++t) add_mod(total[t], total[t], acc[t], f);
+    }
+  }
+#pragma unroll
+  for (int t = 0; t <= D; ++t) warp_digit_sums(total[t], warp_sums[tid >> 5][t]);
+  add_block_sums(warp_sums, D, sums);
+}
+
+template <int D, bool kCoeffs>
+cudaError_t launch_nofold(const void* lo, const void* hi, const void* coeff, long long H,
+                          long long extent, const Field& f, const Plan& pl, void* sums,
+                          long long nblk, cudaStream_t stream) {
+  if constexpr (D < kMaxRegisterDegree) {
+    if (pl.degree > D)
+      return launch_nofold<D + 1, kCoeffs>(lo, hi, coeff, H, extent, f, pl, sums, nblk,
+                                           stream);
+  }
+  nofold_kernel<D, kCoeffs><<<(unsigned)nblk, kThreads, 0, stream>>>(
+      static_cast<const uint32_t*>(lo), static_cast<const uint32_t*>(hi),
+      static_cast<const uint32_t*>(coeff), H, extent, f, pl, static_cast<long long*>(sums));
+  return cudaGetLastError();
+}
+
 template <bool kFold, bool kOutOfPlace, bool kCoeffs>
 cudaError_t launch(void* lo, void* hi, void* lo_out, void* hi_out,
                    const void* r, const void* coeff, long long H,
@@ -137,8 +292,20 @@ cudaError_t launch(void* lo, void* hi, void* lo_out, void* hi_out,
   return cudaGetLastError();
 }
 
-// Test hook of field.cuh's multiply: per thread i, x = a[i] and then
+// field.cuh's two multiplies: 0 = CIOS (mont_mul_cios), 1 = even/odd (mont_mul)
+template <int kImpl>
+__device__ __forceinline__ void probe_mul(uint32_t x[kLimbs], const uint32_t y[kLimbs],
+                                          const Field& f) {
+  if constexpr (kImpl == 0) {
+    mont_mul_cios(x, x, y, f);
+  } else {
+    mont_mul(x, x, y, f);
+  }
+}
+
+// Test hook of field.cuh's multiplies: per thread i, x = a[i] and then
 // `reps` times x <- x * b[i] * 2^-256 mod p; a, b, out are (n, 8) limbs.
+template <int kImpl>
 __global__ void mont_mul_probe_kernel(const uint32_t* __restrict__ a,
                                       const uint32_t* __restrict__ b,
                                       uint32_t* __restrict__ out, long long n, int reps,
@@ -151,10 +318,34 @@ __global__ void mont_mul_probe_kernel(const uint32_t* __restrict__ a,
     x[j] = a[i * kLimbs + j];
     y[j] = b[i * kLimbs + j];
   }
-  for (int k = 0; k < reps; ++k) mont_mul(x, x, y, f);
+#pragma unroll 1
+  for (int k = 0; k < reps; ++k) probe_mul<kImpl>(x, y, f);
 #pragma unroll
   for (int j = 0; j < kLimbs; ++j) out[i * kLimbs + j] = x[j];
 }
+
+// Never launched: the SASS of kCount chained multiplies in straight-line
+// code, so that the instruction counts of <impl, 2> minus those of
+// <impl, 1> are exactly one multiply's (chip_smoke.py, phase 2).
+template <int kImpl, int kCount>
+__global__ void mont_mul_count_kernel(const uint32_t* __restrict__ a,
+                                      uint32_t* __restrict__ out, Field f) {
+  uint32_t x[kLimbs], y[kLimbs];
+#pragma unroll
+  for (int j = 0; j < kLimbs; ++j) {
+    x[j] = a[j];
+    y[j] = a[kLimbs + j];
+  }
+#pragma unroll
+  for (int k = 0; k < kCount; ++k) probe_mul<kImpl>(x, y, f);
+#pragma unroll
+  for (int j = 0; j < kLimbs; ++j) out[j] = x[j];
+}
+
+template __global__ void mont_mul_count_kernel<0, 1>(const uint32_t*, uint32_t*, Field);
+template __global__ void mont_mul_count_kernel<0, 2>(const uint32_t*, uint32_t*, Field);
+template __global__ void mont_mul_count_kernel<1, 1>(const uint32_t*, uint32_t*, Field);
+template __global__ void mont_mul_count_kernel<1, 2>(const uint32_t*, uint32_t*, Field);
 
 }  // namespace
 
@@ -181,6 +372,10 @@ int sc_round_launch(int mode, void* lo, void* hi, void* lo_out, void* hi_out,
   const Field f = read_field(field);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool c = coeff != nullptr;
+  if (mode == 0 && pl.degree <= kMaxRegisterDegree) {
+    return (int)(c ? launch_nofold<1, true>(lo, hi, coeff, H, extent, f, pl, sums, nblk, s)
+                   : launch_nofold<1, false>(lo, hi, coeff, H, extent, f, pl, sums, nblk, s));
+  }
   switch (mode * 2 + (c ? 1 : 0)) {
     case 0:
       return (int)launch<false, false, false>(lo, hi, nullptr, nullptr, r, coeff, H, H,
@@ -202,11 +397,14 @@ int sc_round_launch(int mode, void* lo, void* hi, void* lo_out, void* hi_out,
   }
 }
 
-int sc_mont_mul_probe(const void* a, const void* b, void* out, long long n, int reps,
-                      const uint32_t* field, void* stream) {
+// impl: 0 = CIOS, 1 = even/odd accumulators.
+int sc_mont_mul_probe(int impl, const void* a, const void* b, void* out, long long n,
+                      int reps, const uint32_t* field, void* stream) {
   const int threads = 256;
-  mont_mul_probe_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = impl == 0 ? mont_mul_probe_kernel<0> : mont_mul_probe_kernel<1>;
+  if (impl != 0 && impl != 1) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
       static_cast<uint32_t*>(out), n, reps, read_field(field));
   return (int)cudaGetLastError();

@@ -81,6 +81,38 @@ __device__ __forceinline__ void ladder_put(uint32_t* ladder, int u,
   }
 }
 
+// One warp's per-digit sums of total(t) over its 32 lanes into its row of
+// the block's scratch: a warp's 32 digits < 2^21 fit 32 bits.
+__device__ __forceinline__ void warp_digit_sums(const uint32_t total[kLimbs],
+                                                uint32_t row[kDigits]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < kDigits; ++i) {
+    uint32_t v = (i & 1) ? (total[i >> 1] >> 16) : (total[i >> 1] & 0xFFFFu);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+    if (lane == 0) row[i] = v;
+  }
+}
+
+// The block's per-digit sums, points 0..degree, added into the row sums with
+// 64-bit atomics. Every thread of the block calls it (it starts with a block
+// barrier, after every warp's warp_digit_sums).
+__device__ __forceinline__ void add_block_sums(
+    const uint32_t (*warp_sums)[kMaxDegree + 1][kDigits], int degree,
+    long long* __restrict__ sums) {
+  __syncthreads();
+  const int nout = (degree + 1) * kDigits;
+  for (int q = threadIdx.x; q < nout; q += kThreads) {
+    const int t = q / kDigits;
+    const int i = q % kDigits;
+    unsigned long long s = 0;
+#pragma unroll
+    for (int w = 0; w < kThreads / 32; ++w) s += warp_sums[w][t][i];
+    atomicAdd(reinterpret_cast<unsigned long long*>(sums) + q, s);
+  }
+}
+
 // The tail: ladder, products, per-digit block sums added into the row sums.
 // Every thread of the block calls it (it ends in a block barrier).
 template <bool kCoeffs>
@@ -89,7 +121,6 @@ __device__ __forceinline__ void ladder_block_sums(
     const uint32_t (*coeff)[kLimbs], bool active, const Field& f,
     const Plan& pl, long long* __restrict__ sums) {
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
   const int warp = tid >> 5;
   for (int t = 0; t <= pl.degree; ++t) {
     uint32_t total[kLimbs];
@@ -125,25 +156,9 @@ __device__ __forceinline__ void ladder_block_sums(
         add_mod(total, total, term, f);
       }
     }
-    // per-digit block sum: a warp's 32 digits < 2^21 fit 32 bits
-#pragma unroll
-    for (int i = 0; i < kDigits; ++i) {
-      uint32_t v = (i & 1) ? (total[i >> 1] >> 16) : (total[i >> 1] & 0xFFFFu);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-      if (lane == 0) warp_sums[warp][t][i] = v;
-    }
+    warp_digit_sums(total, warp_sums[warp][t]);
   }
-  __syncthreads();
-  const int nout = (pl.degree + 1) * kDigits;
-  for (int q = tid; q < nout; q += kThreads) {
-    const int t = q / kDigits;
-    const int i = q % kDigits;
-    unsigned long long s = 0;
-#pragma unroll
-    for (int w = 0; w < kThreads / 32; ++w) s += warp_sums[w][t][i];
-    atomicAdd(reinterpret_cast<unsigned long long*>(sums) + q, s);
-  }
+  add_block_sums(warp_sums, pl.degree, sums);
 }
 
 }  // namespace sc

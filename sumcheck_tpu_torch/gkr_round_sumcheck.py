@@ -232,10 +232,12 @@ class GKRRoundSumcheck:
 
     @staticmethod
     def prove(
-        rng, f1: SparseMLE, f2: DenseMLE, f3: DenseMLE, g: Sequence[Fr], *, device
+        rng, f1: SparseMLE, f2: DenseMLE, f3: DenseMLE, g: Sequence[Fr], *,
+        device="cuda"
     ) -> GKRProof:
-        """Caller supplies the transcript RNG (unlike `MLSumcheck.prove`) and
-        the prover's device (a `torch.device` or its name)."""
+        """Caller supplies the transcript RNG (unlike `MLSumcheck.prove`);
+        the prover's device is a `torch.device` or its name, the card unless
+        the caller asks for the CPU."""
         from .protocol.device_prover import resolve_device
 
         assert f1.num_vars == 3 * f2.num_vars

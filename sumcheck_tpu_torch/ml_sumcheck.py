@@ -8,9 +8,9 @@ sample challenge`; the final challenge is appended to the prover's randomness
 point. A proof is the list of round messages (`type Proof<F> =
 Vec<ProverMsg<F>>`, `mod.rs:22`).
 
-Port of `sumcheck_tpu/ml_sumcheck.py`. The prover's device is explicit:
-`device="cuda"` runs the rounds through the CUDA kernels, `device="cpu"`
-through their plain PyTorch versions. For a `Blake2b512Rng` transcript the
+Port of `sumcheck_tpu/ml_sumcheck.py`. The prover's device is a keyword:
+`device="cuda"` (the default) runs the rounds through the CUDA kernels,
+`device="cpu"` through their plain PyTorch versions. For a `Blake2b512Rng` transcript the
 rounds and the transcript run chained on the device, with one sync per
 prove: the generic chain (`protocol/generic_prover.py`) by default, the
 per-size chain (`protocol/device_prover.py`) when
@@ -85,17 +85,18 @@ class MLSumcheck:
         return proof[0].evaluations[0] + proof[0].evaluations[1]
 
     @staticmethod
-    def prove(polynomial: ListOfProductsOfPolynomials, *, device) -> list[ProverMsg]:
+    def prove(polynomial: ListOfProductsOfPolynomials, *,
+              device="cuda") -> list[ProverMsg]:
         """One-shot Fiat-Shamir prove with a fresh transcript
         (reference `mod.rs:42-45`) on `device` (a `torch.device` or its
-        name)."""
+        name; the card unless the caller asks for the CPU)."""
         fs_rng = Blake2b512Rng.setup()
         proof, _state = MLSumcheck.prove_as_subprotocol(fs_rng, polynomial, device=device)
         return proof
 
     @staticmethod
     def prove_as_subprotocol(
-        fs_rng, polynomial: ListOfProductsOfPolynomials, *, device
+        fs_rng, polynomial: ListOfProductsOfPolynomials, *, device="cuda"
     ) -> tuple[list[ProverMsg], ProverState]:
         """Prove over a caller-supplied transcript; returns the prover state
         too, for composition into larger protocols (reference `mod.rs:50-70`).

@@ -12,8 +12,8 @@ Replaces the Pallas kernels of `sumcheck_tpu/ops/round_pallas.py`:
   `round_step_fold`;
 - `_kernel_chain_fold_mxu`, the generic chain's fold under the MXU fold
   mode (`utils/config.py`): `round_fold_mxu`, whose fold multiply runs as
-  banded 8-bit-digit products on the tensor cores (`csrc/round_mxu.cu`;
-  plain version over `ops/mxu_mul.py`).
+  8-bit-digit matrix products on the tensor cores (`csrc/round_mxu.cu`;
+  plain version over `ops/mxu_mul.py`'s banded products).
 
 The kernels are in `csrc/round.cu` and `csrc/round_mxu.cu` (CUDA C++ for
 sm_90a). Each wrapper
@@ -61,12 +61,13 @@ workload (6 slots) reads 4 stripes x 64 B and writes 2 x 64 B per slot
 for the evaluation ((factors-1) x products x (degree+1)), each 64
 32x32->64-bit multiply-adds plus their carries. By the card's peaks the
 fold at 2^18 lanes is bound by its 604 MB (0.18 ms at 3.35 TB/s) before its
-2e9 32-bit multiplies (0.12 ms at the IMAD rate), but the CIOS multiply as
-ptxas compiles it runs at about half the IMAD rate, so the multiplies bind
-every round kernel on the H100 (PERF.md). The design keeps to one lane per
-thread, 8 x 32-bit limbs with 64-bit products (CIOS), coalesced digit
-loads, each lane's values read from device memory once per round, and the
-evaluation ladder in shared memory.
+2e9 32-bit multiplies (0.12 ms at the IMAD rate), but a Montgomery multiply
+runs below the IMAD rate (PERF.md), so the multiplies and the loads share
+the time of every round kernel on the H100. The design keeps to one lane per
+thread, 8 x 32-bit limbs with the multiply on the multiply-add's carry
+chain (`csrc/field.cuh`), coalesced digit loads, each lane's values read
+from device memory once per round, and the evaluation ladder in shared
+memory for the folds (round 0 evaluates in registers).
 """
 
 from __future__ import annotations
@@ -78,7 +79,7 @@ import numpy as np
 import torch
 
 from ..fields import limbs_torch as LT
-from ..fields.fr import DIGIT_BITS, DIGIT_MASK, NINV32, NINV_FULL, NUM_DIGITS, P, WIDE_DIGITS
+from ..fields.fr import DIGIT_BITS, DIGIT_MASK, NINV32, NUM_DIGITS, P, WIDE_DIGITS
 from ..protocol import engine
 from . import cuda_build, mxu_mul
 
@@ -94,9 +95,11 @@ MAX_DEGREE = 8
 
 # p as 8 x 32-bit limbs (least significant first), then -p^-1 mod 2^32
 _FIELD = (ctypes.c_uint32 * 9)(*[(P >> (32 * j)) & 0xFFFFFFFF for j in range(8)], NINV32)
-# the same, then -p^-1 mod 2^256 as 8 limbs (the MXU fold kernel's mu band)
-_FIELD_MXU = (ctypes.c_uint32 * 17)(
-    *_FIELD, *[(NINV_FULL >> (32 * j)) & 0xFFFFFFFF for j in range(8)])
+# the same, then 2^(8 j + 16) mod p for j = 0..31 as 8 limbs each (the MXU
+# fold kernel's matrix rows, times the challenge)
+_FIELD_MXU = (ctypes.c_uint32 * (9 + 32 * 8))(
+    *_FIELD, *[((1 << (8 * j + 16)) % P >> (32 * i)) & 0xFFFFFFFF
+               for j in range(32) for i in range(8)])
 
 # launch modes of `sc_round_launch`
 _NOFOLD, _FOLD_IN_PLACE, _FOLD_OUT = 0, 1, 2
@@ -130,6 +133,7 @@ def _library() -> ctypes.CDLL:
     ]
     lib.sc_round_launch.restype = ctypes.c_int
     lib.sc_mont_mul_probe.argtypes = [
+        ctypes.c_int,  # impl
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # a, b, out
         ctypes.c_longlong, ctypes.c_int,  # n, reps
         ctypes.POINTER(ctypes.c_uint32), ctypes.c_void_p,  # field, stream
@@ -424,8 +428,8 @@ def round_step_fold(lo, hi, r, products, degree: int, coeffs=None, out=None):
 
 def round_fold_mxu(lo, hi, r, products, degree: int, extent: int, out=None) -> torch.Tensor:
     """Rounds 1..nv-1 of the generic chain in the MXU fold mode: what
-    `round_fold` computes, with each fold multiply as banded products on the
-    tensor cores. Launches the CUDA kernel for a CUDA pair, runs
+    `round_fold` computes, with each fold multiply as a byte-matrix product
+    on the tensor cores. Launches the CUDA kernel for a CUDA pair, runs
     `round_fold_mxu_ref` for a CPU pair."""
     if lo.device.type == "cpu":
         return round_fold_mxu_ref(lo, hi, r, products, degree, extent, out)
@@ -475,10 +479,14 @@ def _mma_tile(a, b, c) -> torch.Tensor:
     return d
 
 
-def _mont_mul_probe(a, b, reps: int = 1) -> torch.Tensor:
-    """Test hook of `csrc/field.cuh`'s multiply on the card: (n, 8) int32
-    limbs a, b (Montgomery form, below p) -> a * b^reps * 2^(-256 reps) mod
-    p."""
+# the multiplies of `csrc/field.cuh`, by the probe's `impl` argument
+MULTIPLIES = {"cios": 0, "eo": 1}
+
+
+def _mont_mul_probe(a, b, reps: int = 1, impl: str = "cios") -> torch.Tensor:
+    """Test hook of `csrc/field.cuh`'s multiplies on the card (`impl`: "cios"
+    or "eo", the even/odd accumulators): (n, 8) int32 limbs a, b (Montgomery
+    form, below p) -> a * b^reps * 2^(-256 reps) mod p."""
     _kernel_device(a)
     if a.shape != b.shape or a.dim() != 2 or a.shape[1] != 8 or a.dtype != torch.int32 \
             or b.dtype != torch.int32:
@@ -488,7 +496,8 @@ def _mont_mul_probe(a, b, reps: int = 1) -> torch.Tensor:
     lib = _library()
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = lib.sc_mont_mul_probe(a.data_ptr(), b.data_ptr(), out.data_ptr(), a.shape[0],
+        rc = lib.sc_mont_mul_probe(MULTIPLIES[impl], a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                   a.shape[0],
                                    reps, _FIELD, stream)
     if rc != 0:
         raise RuntimeError(f"multiply probe launch failed: "

@@ -165,12 +165,13 @@ def _limbs(values) -> torch.Tensor:
     return torch.from_numpy(np.array(rows, dtype=np.uint32).view(np.int32))
 
 
+@pytest.mark.parametrize("impl", sorted(RC.MULTIPLIES))
 @pytest.mark.parametrize("reps", [1, 5])
-def test_mont_mul_edge_operands(cuda, reps):
-    """`csrc/field.cuh`'s Montgomery multiply (CIOS) against Python
-    integers, at edge operands (0, 1, 2, p-1, p-2, R mod p, R^2 mod p, 2^255 mod p) in
-    every pairing and at random ones; `reps` chains the product into
-    itself."""
+def test_mont_mul_edge_operands(cuda, reps, impl):
+    """`csrc/field.cuh`'s Montgomery multiplies (`mont_mul`, the even/odd
+    accumulators, and `mont_mul_cios`) against Python integers, at edge
+    operands (0, 1, 2, p-1, p-2, R mod p, R^2 mod p, 2^255 mod p) in every
+    pairing and at random ones; `reps` chains the product into itself."""
     from sumcheck_tpu_torch.fields.fr import R2
 
     edges = [0, 1, 2, P - 1, P - 2, (1 << 256) % P, R2 % P, (1 << 255) % P]
@@ -179,7 +180,7 @@ def test_mont_mul_edge_operands(cuda, reps):
     pairs = [(x, y) for x in edges + rand[:8] for y in edges + rand[:8]]
     pairs += list(zip(rand, rand[::-1]))
     a, b = (_limbs([pr[k] for pr in pairs]).to(cuda) for k in (0, 1))
-    got = RC._mont_mul_probe(a, b, reps)
+    got = RC._mont_mul_probe(a, b, reps, impl)
     r_inv = pow(1 << 256, -1, P)
     want = []
     for x, y in pairs:
@@ -187,6 +188,80 @@ def test_mont_mul_edge_operands(cuda, reps):
             x = x * y * r_inv % P
         want.append(x)
     assert torch.equal(got.cpu(), _limbs(want))
+
+
+def _edge_pair(seed, slots, nv, device):
+    """A random pair whose slot 0 starts with edge values (0, 1, p-1,
+    2^255 mod p) in both halves."""
+    lo, hi = _pair(seed, slots, nv, device)
+    edges = torch.from_numpy(
+        L.from_ints([0, 1, P - 1, (1 << 255) % P], mont=False).astype(np.int32)).to(device)
+    lo[0, :, :4] = edges
+    hi[0, :, :4] = edges.flip(1)
+    return lo, hi
+
+
+def _round0(cuda, lo, hi, products, degree, extent, coeffs):
+    """Round 0 on the card and by its plain version: `round_nofold` over the
+    extent, or with coefficients `round_step_nofold` over a pair of that
+    width. Returns (kernel sums, plain sums); the inputs stay untouched."""
+    lo0, hi0 = lo.clone(), hi.clone()
+    if coeffs:
+        lo, hi = lo[:, :, :extent].contiguous(), hi[:, :, :extent].contiguous()
+        c = _coeffs(products, cuda)
+        got = RC.round_step_nofold(lo, hi, products, degree, c)
+        want = RC.round_step_nofold_ref(lo, hi, products, degree, c)
+    else:
+        got = RC.round_nofold(lo, hi, products, degree, extent)
+        want = RC.round_nofold_ref(lo, hi, products, degree, extent)
+        torch.cuda.synchronize()
+        assert torch.equal(lo, lo0) and torch.equal(hi, hi0)
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("coeffs", [False, True], ids=["plain", "coeffs"])
+@pytest.mark.parametrize("degree", range(1, 9))
+def test_nofold_kernel_every_degree(cuda, degree, coeffs):
+    """Round 0 at every degree 1-8 (the register body up to degree 4, the
+    ladder body above it), with products of fewer factors than the degree,
+    as many and more, 9 slots, a ragged extent, edge values, with and
+    without coefficients."""
+    rng = np.random.default_rng(degree)
+    factors = min(8, max(1, degree + (degree % 3) - 1))
+    products = tuple(tuple(int(s) for s in rng.integers(0, 9, factors)) for _ in range(3))
+    lo, hi = _edge_pair(degree + 50, 9, 10, cuda)
+    got, want = _round0(cuda, lo, hi, products, degree, 300, coeffs)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("coeffs", [False, True], ids=["plain", "coeffs"])
+@pytest.mark.parametrize("factors", range(1, 9))
+def test_nofold_kernel_factor_counts(cuda, factors, coeffs):
+    """Products of 1 to 8 factors at their own degree, as a prove plans
+    them: every extension of the register body by differences, and the
+    ladder body from degree 5; extents 1 and 129."""
+    slots = max(factors, 2)
+    products = (tuple(range(factors)), tuple(reversed(range(factors))),
+                tuple([slots - 1] * factors))
+    lo, hi = _edge_pair(factors + 70, slots, 9, cuda)
+    for extent in (1, 129):
+        got, want = _round0(cuda, lo, hi, products, factors, extent, coeffs)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("slots", [1, 9, 16])
+def test_nofold_kernel_slot_counts(cuda, slots):
+    """Round 0 from one slot up to the maximum, at degrees 2-4 (the
+    register body) and 8 (the ladder body, whose ladder passes 48 KB of
+    shared memory at 16 slots), with 16 products."""
+    rng = np.random.default_rng(slots)
+    lo, hi = _edge_pair(slots + 90, slots, 10, cuda)
+    for degree in (2, 3, 4, 8):
+        products = tuple(tuple(int(s) for s in rng.integers(0, slots, degree))
+                         for _ in range(16))
+        got, want = _round0(cuda, lo, hi, products, degree, 333, False)
+        assert torch.equal(got, want)
 
 
 def test_prove_on_cuda_equals_cpu(cuda):
@@ -430,7 +505,7 @@ def test_fold_mxu_kernel_matches_plain_and_cios(cuda, extent, r_int):
     assert torch.equal(runs[0][1][:, :, extent:], lo[:, :, extent:])
 
 
-@pytest.mark.parametrize("slots", [1, 2, 16])
+@pytest.mark.parametrize("slots", [1, 2, 9, 16])
 def test_fold_mxu_kernel_slot_counts(cuda, slots):
     """From one slot to the maximum, whose ladder and exchange tiles take
     more than 48 KB of dynamic shared memory; the GKR shape is two slots."""
@@ -443,6 +518,26 @@ def test_fold_mxu_kernel_slot_counts(cuda, slots):
     want = RC.round_fold(l2, h2, r, products, degree, 200)
     torch.cuda.synchronize()
     assert torch.equal(got, want) and torch.equal(l1, l2) and torch.equal(h1, h2)
+
+
+@pytest.mark.parametrize("degree", range(1, 9))
+def test_fold_mxu_kernel_every_degree(cuda, degree):
+    """`round_fold_mxu` at every degree 1-8 with up to 8 factors over 9
+    slots, edge values among the operands, at a ragged extent: the folded
+    pair and the sums equal the plain version's and `round_fold`'s."""
+    rng = np.random.default_rng(degree + 20)
+    factors = min(8, max(1, degree + (degree % 3) - 1))
+    products = tuple(tuple(int(s) for s in rng.integers(0, 9, factors)) for _ in range(2))
+    lo, hi = _edge_pair(degree + 30, 9, 10, cuda)
+    r = torch.from_numpy(L.mont_scalar(1 + degree)[:, 0].astype(np.int32)).to(cuda)
+    runs = []
+    for fn in (RC.round_fold_mxu, RC.round_fold_mxu_ref, RC.round_fold):
+        l, h = lo.clone(), hi.clone()
+        runs.append((fn(l, h, r, products, degree, 211), l, h))
+    torch.cuda.synchronize()
+    for sums, l, h in runs[1:]:
+        assert torch.equal(runs[0][0], sums)
+        assert torch.equal(runs[0][1], l) and torch.equal(runs[0][2], h)
 
 
 def test_mont_mul_scalar_mxu_on_the_card(cuda):

@@ -211,6 +211,35 @@ def test_gkr_cuda_without_a_card_raises(monkeypatch, mode):
     assert not calls
 
 
+@pytest.mark.parametrize("entry", ["prove", "prove_as_subprotocol", "gkr_prove"])
+def test_entry_points_default_to_the_card(monkeypatch, entry):
+    """The public prove entry points run on the card unless the caller asks
+    for the CPU: `device` defaults to "cuda", so a call that names no device
+    raises the no-card error where there is no card, and runs nothing on
+    the CPU instead."""
+    import inspect
+
+    fn = {"prove": T.MLSumcheck.prove, "prove_as_subprotocol": T.MLSumcheck.prove_as_subprotocol,
+          "gkr_prove": T.GKRRoundSumcheck.prove}[entry]
+    param = inspect.signature(fn).parameters["device"]
+    assert param.kind is inspect.Parameter.KEYWORD_ONLY and param.default == "cuda"
+    if torch.cuda.is_available():
+        return
+    calls = []
+    for name in ("round_nofold_ref", "round_fold_ref", "round_step_nofold_ref",
+                 "round_step_fold_ref", "round_fold_mxu_ref"):
+        monkeypatch.setattr(RC, name, lambda *a: calls.append(a))
+    monkeypatch.setattr(TC, "transcript_step_ref", lambda *a: calls.append(a))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "prove":
+            T.MLSumcheck.prove(_small_poly())
+        elif entry == "prove_as_subprotocol":
+            T.MLSumcheck.prove_as_subprotocol(T.Blake2b512Rng.setup(), _small_poly())
+        else:
+            T.GKRRoundSumcheck.prove(T.Blake2b512Rng.setup(), *_small_gkr())
+    assert not calls
+
+
 @pytest.mark.parametrize("mode", ["generic", "persize", "mxu"])
 def test_cpu_gkr_prove_launches_no_kernel(monkeypatch, mode):
     monkeypatch.setattr(get_config(), "chain_impl", "persize" if mode == "persize" else "generic")
