@@ -8,9 +8,9 @@ Run from the root of a checkout. Phases, each printed on its own lines; any
 failure raises and exits non-zero without the final line:
 
 1. the card's name and power limit (`nvidia-smi`); no CUDA device -> exit 1;
-2. build the three kernel sources, `sumcheck_tpu_torch/csrc/round.cu`,
-   `csrc/transcript.cu` and `csrc/round_mxu.cu`, one `nvcc` each, started
-   together; print each kernel's registers, shared memory, stack frame and
+2. build the four kernel sources, `sumcheck_tpu_torch/csrc/round.cu`,
+   `csrc/transcript.cu`, `csrc/round_mxu.cu` and `csrc/pair_init.cu`, one
+   `nvcc` each, started together; print each kernel's registers, shared memory, stack frame and
    spills from the ptxas logs, and the SASS instruction mix of the
    transcript and round kernels (`cuobjdump`, where the toolkit has it);
 3. the generic chain's round kernels against their plain PyTorch versions
@@ -36,6 +36,13 @@ failure raises and exits non-zero without the final line:
    (measured by a chain of dependent instructions), plus the launch floor
    (an empty kernel back to back); and one compression's clocks on the
    kernel's four hash lanes, checked against the host's Blake2b core;
+6b. the pair-init kernel against its plain version at the ML nv=20 2x3
+   shape, the cached tables untouched, with its bound;
+6c. the batched round kernels (instance axis) against their plain versions
+   at the 8 x nv=16 2x3 shapes, each beside 8 single launches of the same
+   work; 6d. the batched transcript step over 8 transcripts of unequal
+   pending bytes against its plain version and the host rngs, beside 8
+   single steps, with its latency bound;
 7. the golden fixtures `tests/fixtures/ml_nv6_rich.json` and
    `ml_nv14_config1.json` through `device="cuda"` on both chains, and
    `gkr_dim5.json` on both chains and in the MXU fold mode;
@@ -44,8 +51,8 @@ failure raises and exits non-zero without the final line:
    chain, the per-size chain (`SUMCHECK_TPU_CHAIN_IMPL=persize`) and the
    generic chain in the MXU fold mode (`SUMCHECK_TPU_MXU_FOLD=kernel`,
    `SUMCHECK_TPU_AB=1`): one first prove and the median of `--reps` warm
-   proves each, launch counts per prove (1 + 19 round kernels and 20
-   transcript steps), the kernels of one chain counted by `torch.profiler`
+   proves each, launch counts per prove (one pair init, 1 + 19 round
+   kernels and 20 transcript steps), the kernels of one chain counted by `torch.profiler`
    (two per round, plus the zero fill of its sums buffer), the chain
    enqueued under
    `torch.cuda.set_sync_debug_mode("error")` so that a host sync inside it
@@ -60,7 +67,14 @@ failure raises and exits non-zero without the final line:
    under the sync debug mode "error", the phase inits and the round kernels
    timed alone, verify and `verify_subclaim`, and proof bytes equal across
    the three and the plain path on the card;
-10. one JSON line of the kernels (each with its time at the main path's
+10. the batch headlines: `batch.BatchedMLSumcheck.prove` on 8 x nv=16 2x3
+   (`bench.py:302-310`) on both chains and `BatchedGKRRoundSumcheck.prove`
+   on 8 x dim 14 (`bench.py:313-338`): first prove, warm median per batch
+   and per proof, launches per batch (the pair inits, then two a round for
+   all 8), the batched chains under the sync debug mode "error", proofs
+   byte-equal to per-instance card proves (timed beside them), all
+   verified, two subclaims, the ML batches' idle share;
+11. one JSON line of the kernels (each with its time at the main path's
    shape, its bound there and what sets it, its launches on the main path,
    and `library_ms` null: no PyTorch call computes these functions), then
    the last line `{"ok": true, "device":
@@ -625,16 +639,43 @@ def compress_clocks(device, iters: int = 1024) -> float:
     return got[8] / iters
 
 
+def host_replay(host, msgs, rs, blen: int, degree: int, what: str):
+    """Feed the host rng each round's message from a kernel's (rounds, 16,
+    d+1) `msgs` and draw its challenge, checked against the kernel's (rounds,
+    16) `rs`; returns (draws rejected, compressions per round, pending bytes
+    after), the compressions from the rejections and the pending bytes."""
+    from sumcheck_tpu_torch import Fr
+    from sumcheck_tpu_torch.fields.fr import P
+    from sumcheck_tpu_torch.protocol.prover import ProverMsg
+    from sumcheck_tpu_torch.transcript.blake2b_rng import _DRAW_MASK
+
+    msgs_h = msgs.numpy().astype(np.int64)
+    rs_h = rs.numpy().astype(np.int64)
+    rejected, per_round = 0, []
+    for j in range(msgs_h.shape[0]):
+        host.feed(ProverMsg([Fr(sum(int(msgs_h[j, i, t]) << (16 * i) for i in range(16)))
+                             for t in range(degree + 1)]))
+        attempts = 1
+        while True:
+            draw = int.from_bytes(host.next_u64s_bytes(4), "little") & _DRAW_MASK
+            if draw < P:
+                break
+            rejected += 1
+            attempts += 1
+        n, blen = compressions(blen, degree + 1, attempts)
+        per_round.append(n)
+        check(sum(int(rs_h[j, i]) << (16 * i) for i in range(16)) == draw,
+              f"{what} round {j}: challenge differs from the host rng's")
+    return rejected, per_round, blen
+
+
 def transcript_phase(device, seed: int, rounds: int = 60, degree: int = 3) -> dict:
     """Phase 6: the transcript kernel against the plain transcript on the
     card and against the host rng, over `rounds` rounds; its device time
     per round beside its latency bound."""
-    from sumcheck_tpu_torch import Blake2b512Rng, Fr
-    from sumcheck_tpu_torch.fields.fr import P
+    from sumcheck_tpu_torch import Blake2b512Rng
     from sumcheck_tpu_torch.ops import transcript_cuda as tc
     from sumcheck_tpu_torch.protocol.device_prover import lift_transcript, restore_transcript
-    from sumcheck_tpu_torch.protocol.prover import ProverMsg
-    from sumcheck_tpu_torch.transcript.blake2b_rng import _DRAW_MASK
 
     gen = np.random.default_rng(seed + 2)
     sums = torch.from_numpy(
@@ -660,24 +701,9 @@ def transcript_phase(device, seed: int, rounds: int = 60, degree: int = 3) -> di
 
     # the host rng over the same messages: same challenges, same final
     # state; its rejections and pending bytes give each round's compressions
-    msgs_h = msgs_k.cpu().numpy().astype(np.int64)
-    rs_h = rs_k.cpu().numpy().astype(np.int64)
-    blen = int(state0[25, 0])
-    rejected, total = 0, 0
-    for j in range(rounds):
-        host.feed(ProverMsg([Fr(sum(int(msgs_h[j, i, t]) << (16 * i) for i in range(16)))
-                             for t in range(degree + 1)]))
-        attempts = 1
-        while True:
-            draw = int.from_bytes(host.next_u64s_bytes(4), "little") & _DRAW_MASK
-            if draw < P:
-                break
-            rejected += 1
-            attempts += 1
-        n, blen = compressions(blen, degree + 1, attempts)
-        total += n
-        check(sum(int(rs_h[j, i]) << (16 * i) for i in range(16)) == draw,
-              f"transcript round {j}: challenge differs from the host rng's")
+    rejected, per_round, blen = host_replay(host, msgs_k.cpu(), rs_k.cpu(), int(state0[25, 0]),
+                                            degree, "transcript")
+    total = sum(per_round)
     probe = Blake2b512Rng.setup()
     restore_transcript(probe, state_k.cpu())
     check(probe.state_tuple() == host.state_tuple(), "transcript state differs from the host rng's")
@@ -827,9 +853,20 @@ def gkr_golden_phase(device) -> None:
 def headline_poly(seed: int, nv: int = NV):
     """2 products x 3 multiplicands at `nv`, tables and coefficients from
     `numpy.random.default_rng(seed)` in the order of `bench.py:179-184`."""
+    return ml_poly(np.random.default_rng(seed), nv)
+
+
+def headline_polys(seed: int, nv: int, count: int) -> list:
+    """`count` such instances from one `numpy.random.default_rng(seed)`,
+    one after the other, as `bench.py:302-305` builds its batch."""
+    rng = np.random.default_rng(seed)
+    return [ml_poly(rng, nv) for _ in range(count)]
+
+
+def ml_poly(rng, nv: int):
+    """One 2 x 3 instance from `rng` by the `bench.py:179-184` rule."""
     from sumcheck_tpu_torch.convert import polynomial_from_numpy
 
-    rng = np.random.default_rng(seed)
     tables, products = [], []
     for _ in range(2):
         idx = []
@@ -841,22 +878,28 @@ def headline_poly(seed: int, nv: int = NV):
 
 
 def counters() -> dict:
+    from sumcheck_tpu_torch.ops import init_cuda as ic
     from sumcheck_tpu_torch.ops import round_cuda as rc
     from sumcheck_tpu_torch.ops import transcript_cuda as tc
 
     return {"round_nofold": rc.round_nofold, "round_fold": rc.round_fold,
             "round_step_nofold": rc.round_step_nofold, "round_step_fold": rc.round_step_fold,
-            "round_fold_mxu": rc.round_fold_mxu, "transcript_step": tc.transcript_step}
+            "round_fold_mxu": rc.round_fold_mxu, "transcript_step": tc.transcript_step,
+            "pair_init": ic.pair_init, "round_nofold_batched": rc.round_nofold_batched,
+            "round_fold_batched": rc.round_fold_batched,
+            "round_step_fold_batched": rc.round_step_fold_batched,
+            "transcript_step_batched": tc.transcript_step_batched}
 
 
 @contextlib.contextmanager
 def syncs_forbidden_in_chains():
-    """Run both chains' enqueue loops, and a GKR prove's whole enqueue
-    (both phase inits and both chains, `gkr_round_sumcheck._enqueue`),
-    under the sync debug mode "error": a host sync inside raises, so the
-    prove's one fetch after them is its only sync. (The plain versions sync
-    by design, so the plain path runs outside this.)"""
-    from sumcheck_tpu_torch import gkr_round_sumcheck
+    """Run both chains' enqueue loops, single and batched, and a GKR
+    prove's whole enqueue (both phase inits and both chains,
+    `gkr_round_sumcheck._enqueue`, and `batch._enqueue_gkr` for B
+    instances), under the sync debug mode "error": a host sync inside
+    raises, so the prove's one fetch after them is its only sync. (The
+    plain versions sync by design, so the plain path runs outside this.)"""
+    from sumcheck_tpu_torch import batch, gkr_round_sumcheck
     from sumcheck_tpu_torch.protocol import device_prover, generic_prover
 
     def guarded(fn):
@@ -870,7 +913,8 @@ def syncs_forbidden_in_chains():
         return run
 
     owners = ((device_prover, "chain_rounds"), (generic_prover, "chain_rounds_generic"),
-              (gkr_round_sumcheck, "_enqueue"))
+              (gkr_round_sumcheck, "_enqueue"), (device_prover, "chain_rounds_batched"),
+              (generic_prover, "chain_rounds_generic_batched"), (batch, "_enqueue_gkr"))
     saved = [getattr(mod, name) for mod, name in owners]
     for (mod, name), fn in zip(owners, saved):
         setattr(mod, name, guarded(fn))
@@ -1027,7 +1071,8 @@ def _headline(device, seed: int, reps: int, path: str, chain: str, mxu: bool, nv
         launches = {k: f.launches for k, f in counters().items()}
     proves = reps + 1
     want = {k: 0 for k in launches}
-    want.update({kernels[0]: proves, kernels[1]: proves * (nv - 1), "transcript_step": proves * nv})
+    want.update({kernels[0]: proves, kernels[1]: proves * (nv - 1), "transcript_step": proves * nv,
+                 "pair_init": proves})
     check(launches == want, f"ML {path}: launch counts {launches} over {proves} proves, "
                            f"expected {want}")
     check(serialize_proof(again) == serialize_proof(proof), f"ML {path}: warm proves differ")
@@ -1306,6 +1351,425 @@ def _gkr_headline(device, inst, reps: int, path: str, chain: str, mxu: bool) -> 
     return out
 
 
+# --- the batched provers (BASELINE config 4; bench.py's batch and gkr_batch)
+
+BATCH = 8  # instances per batch (`bench.py:565`, `:570`)
+BATCH_NV = 16  # `bench.py:564`
+GKR_BATCH_DIM = 14  # `bench.py:569`
+
+
+def pair_init_phase(device, seed: int, nv: int = NV) -> dict:
+    """Phase 6b: the pair-init kernel at the ML nv=20 2x3 shape (6 slots,
+    the two coefficients scaled in place) against its plain version on the
+    card, array-equal, the cached tables untouched; kernel and plain times
+    and the bound (each source lane read once, each slot lane written
+    once)."""
+    from sumcheck_tpu_torch.ops import init_cuda as ic
+    from sumcheck_tpu_torch.protocol.device_prover import _fold_plan
+
+    poly = headline_poly(seed, nv)
+    _products, scale_plan, num_slots, need_ones = _fold_plan(poly)
+    tabs = [m.to_device(device) for m in poly.flattened_ml_extensions]
+    before = [t.clone() for t in tabs]
+    specs = ic.slot_specs(len(tabs), scale_plan, need_ones)
+    lo = torch.empty((num_slots, 16, 1 << (nv - 1)), dtype=torch.int32, device=device)
+    hi, lo_p, hi_p = (torch.empty_like(lo) for _ in range(3))
+    ic.pair_init(lo, hi, tabs, specs)
+    ic.pair_init_ref(lo_p, hi_p, tabs, specs)
+    sync(device)
+    err = max(int((lo - lo_p).abs().max()), int((hi - hi_p).abs().max()))
+    check(err == 0, f"pair_init differs from its plain version by {err}")
+    check(all(torch.equal(a, b) for a, b in zip(tabs, before)),
+          "pair_init wrote into a cached table")
+    ms = time_ms(lambda: ic.pair_init(lo, hi, tabs, specs), KERNEL_REPS, device, device_only=True)
+    plain_ms = time_ms(lambda: ic.pair_init_ref(lo_p, hi_p, tabs, specs), PLAIN_REPS, device)
+    scaled = sum(1 for src, c in specs if src is not None and c is not None)
+    reads = sum(1 for src, _c in specs if src is not None)
+    work = {"bytes": (reads + num_slots) * 64 * (1 << nv),
+            "imads": scaled * (1 << nv) * IMADS_PER_MONT_MUL, "int8_ops": 0}
+    shape = f"ML nv={nv} 2x3: {num_slots} slots, {scaled} scaled"
+    bound = ""
+    if RATES:
+        bound_ms, bound_by, _ = bound_of(work)
+        bound = (f"; bound {bound_ms:.4f} ms by {bound_by} ({work['bytes'] / 1e6:.1f} MB), "
+                 f"{bound_ms / ms:.1%} of it")
+    print(f"kernel-vs-plain pair_init {shape}: equal, cached tables untouched; kernel "
+          f"{ms:.4f} ms, plain (torch ops) {plain_ms:.4f} ms{bound}")
+    return {"pair_init": [err, [{"shape": shape, "ms": ms, "plain_ms": plain_ms, "work": work}]]}
+
+
+def _batch_case(name, compare, batched, singles, plain, batch, device, work):
+    """One batched-vs-plain case: `compare()` returns pairs (kernel, plain)
+    of tensors computed from the same inputs, which must be array-equal;
+    then the device time of `batched()` beside that of `singles()`, the
+    same work as `batch` single launches, and the plain version's time.
+    Returns (err, timing entry)."""
+    pairs = compare()
+    sync(device)
+    err = max(int((a.long() - b.long()).abs().max()) for a, b in pairs)
+    check(err == 0, f"{name}: batched kernel differs from its plain version by {err}")
+    ms = time_ms(batched, KERNEL_REPS, device, device_only=True)
+    singles_ms = time_ms(singles, KERNEL_REPS, device, device_only=True)
+    plain_ms = time_ms(plain, 1, device, warm=False)
+    bound = ""
+    if RATES:
+        bound_ms, bound_by, _ = bound_of(work)
+        bound = f"; bound {bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of it"
+    print(f"kernel-vs-plain {name}: equal; batched kernel {ms:.4f} ms, {batch} single launches "
+          f"{singles_ms:.4f} ms, plain {plain_ms:.4f} ms{bound}")
+    return err, {"shape": name, "ms": ms, "singles_ms": singles_ms, "plain_ms": plain_ms,
+                 "work": work}
+
+
+def batch_kernel_phase(device, seed: int, batch: int = BATCH, nv: int = BATCH_NV) -> dict:
+    """Phase 6c: the batched round kernels at the 8 x nv=16 2x3 shapes (round
+    0 over 2^15 lanes an instance, with and without coefficients; the
+    in-place fold at A2=2^14 and tail extents; the out-of-place fold 2^15 ->
+    2^14, with coefficients, and a tail), each instance with its own
+    challenge, against their plain versions, array-equal, each beside the
+    time of 8 single launches of the same work."""
+    from sumcheck_tpu_torch.fields import limbs_np as L
+    from sumcheck_tpu_torch.fields.fr import P
+    from sumcheck_tpu_torch.ops import round_cuda as rc
+
+    rng = np.random.default_rng(seed + 6)
+    half = 1 << (nv - 1)
+    pairs = [random_pair(rng, SLOTS, half, device) for _ in range(batch)]
+    lo, hi = torch.stack([p[0] for p in pairs]), torch.stack([p[1] for p in pairs])
+    del pairs
+    products = ((0, 1, 2), (3, 4, 5))
+    r = torch.from_numpy(np.stack([L.mont_scalar(int(rng.integers(1, 1 << 62)) % P)[:, 0]
+                                   for _ in range(batch)]).astype(np.int32)).to(device)
+    coeffs = torch.from_numpy(np.stack([
+        np.stack([L.mont_scalar(int(rng.integers(1, 1 << 62)))[:, 0] for _ in products])
+        for _ in range(batch)]).astype(np.int32)).to(device)
+    rows = torch.zeros((batch, 4, 16), dtype=torch.int64, device=device)
+    stats = {k: [0, []] for k in ("round_nofold_batched", "round_fold_batched",
+                                  "round_step_fold_batched")}
+
+    def record(kernel, res):
+        stats[kernel][0] = max(stats[kernel][0], res[0])
+        stats[kernel][1].append(res[1])
+
+    for c in (None, coeffs):
+        tag = " with coefficients" if c is not None else ""
+
+        def nofold(c=c):
+            return rc.round_nofold_batched(lo, hi, products, 3, half, rows.zero_(), c)
+
+        def nofold_ref(c=c):
+            return rc.round_nofold_batched_ref(lo, hi, products, 3, half, None, c)
+
+        record("round_nofold_batched", _batch_case(
+            f"round_nofold_batched {batch} x round 0 nv={nv} U=6 H=2^{nv - 1} d=3{tag}",
+            lambda nofold=nofold, nofold_ref=nofold_ref: [(nofold(), nofold_ref())], nofold,
+            lambda c=c: [rc.round_step_nofold(lo[b], hi[b], products, 3,
+                                              None if c is None else c[b], rows[b])
+                         for b in range(batch)],
+            nofold_ref, batch, device,
+            round_work(batch * half, SLOTS, products, 3, False, c is not None)))
+    for a2 in (half // 2, 64, 3, 1):
+        lo_k, hi_k = lo.clone(), hi.clone()
+
+        def compare(a2=a2):
+            pair_k, pair_p = (lo.clone(), hi.clone()), (lo.clone(), hi.clone())
+            got = rc.round_fold_batched(*pair_k, r, products, 3, a2)
+            want = rc.round_fold_batched_ref(*pair_p, r, products, 3, a2)
+            return [(got, want), (pair_k[0], pair_p[0]), (pair_k[1], pair_p[1])]
+
+        # the timed runs fold lo_k, hi_k again in place, round after round
+        name = f"2^{a2.bit_length() - 1}" if a2 > 3 else str(a2)
+        record("round_fold_batched", _batch_case(
+            f"round_fold_batched {batch} x fold A2={name}", compare,
+            lambda a2=a2, lo_k=lo_k, hi_k=hi_k: rc.round_fold_batched(
+                lo_k, hi_k, r, products, 3, a2, rows.zero_()),
+            lambda a2=a2, lo_k=lo_k, hi_k=hi_k: [
+                rc.round_fold(lo_k[b], hi_k[b], r[b], products, 3, a2, rows[b])
+                for b in range(batch)],
+            lambda a2=a2, lo_k=lo_k, hi_k=hi_k: rc.round_fold_batched_ref(
+                lo_k, hi_k, r, products, 3, a2),
+            batch, device, round_work(batch * a2, SLOTS, products, 3, True)))
+    for quarter, c in ((half // 2, None), (half // 2, coeffs), (64, None), (1, None)):
+        w = 2 * quarter
+        lo_w, hi_w = lo[..., :w].contiguous(), hi[..., :w].contiguous()
+        name = f"2^{w.bit_length() - 1} -> " + (f"2^{quarter.bit_length() - 1}" if quarter > 1
+                                                else "1")
+        tag = " with coefficients" if c is not None else ""
+
+        def step(c=c, lo_w=lo_w, hi_w=hi_w):
+            return _flat(rc.round_step_fold_batched(lo_w, hi_w, r, products, 3, c, rows.zero_()))
+
+        def step_ref(c=c, lo_w=lo_w, hi_w=hi_w):
+            return _flat(rc.round_step_fold_batched_ref(lo_w, hi_w, r, products, 3, c))
+
+        record("round_step_fold_batched", _batch_case(
+            f"round_step_fold_batched {batch} x fold {name}{tag}",
+            lambda step=step, step_ref=step_ref: list(zip(step(), step_ref())), step,
+            lambda c=c, lo_w=lo_w, hi_w=hi_w: [
+                rc.round_step_fold(lo_w[b], hi_w[b], r[b], products, 3,
+                                   None if c is None else c[b], rows[b])
+                for b in range(batch)],
+            step_ref, batch, device,
+            round_work(batch * quarter, SLOTS, products, 3, True, c is not None)))
+    return stats
+
+
+def _flat(res):
+    """((new_lo, new_hi), sums) -> (sums, new_lo, new_hi)."""
+    (new_lo, new_hi), sums = res
+    return sums, new_lo, new_hi
+
+
+def batch_transcript_phase(device, seed: int, batch: int = BATCH, rounds: int = 16,
+                           degree: int = 3) -> dict:
+    """Phase 6d: the batched transcript step over `rounds` rounds of 8
+    transcripts that hold unequal pending byte counts, against its plain
+    version (the first round: a plain step takes a fifth of a second) and
+    against the host rng (every round, every instance: challenges and final
+    states); its device time per round beside 8 single steps' and its
+    latency bound: the most compressions any instance needed in a round,
+    averaged over the rounds, at the single step's rate, plus one launch."""
+    from sumcheck_tpu_torch import Blake2b512Rng
+    from sumcheck_tpu_torch.ops import transcript_cuda as tc
+    from sumcheck_tpu_torch.protocol.device_prover import lift_transcripts, restore_transcript
+
+    gen = np.random.default_rng(seed + 7)
+    hosts = []
+    for b in range(batch):
+        host = Blake2b512Rng.setup()
+        host.feed_bytes(gen.bytes(8 * ((5 * b + 3) % 17)))
+        hosts.append(host)
+    state0 = lift_transcripts(hosts, device)
+    blens = [int(state0[b, 25, 0]) for b in range(batch)]
+    check(len(set(blens)) > 1, "the batch's transcripts hold equal pending byte counts")
+    sums = torch.from_numpy(gen.integers(0, 1 << 40, size=(rounds, batch, degree + 1, 16),
+                                         dtype=np.int64)).to(device)
+
+    def buffers(n):
+        return (torch.empty((n, batch, 16, degree + 1), dtype=torch.int32, device=device),
+                torch.empty((n, batch, 16), dtype=torch.int32, device=device))
+
+    state_k, state_p = state0.clone(), state0.clone()
+    (msgs, rs), (msgs_p, rs_p) = buffers(rounds), buffers(1)
+    for j in range(rounds):
+        tc.transcript_step_batched(state_k, sums[j], msgs, rs, j)
+    plain_ms = time_ms(lambda: tc.transcript_step_batched_ref(state_p, sums[0], msgs_p, rs_p, 0),
+                       1, device, warm=False)
+    err = max(int((a.long() - b.long()).abs().max())
+              for a, b in ((msgs[:1], msgs_p), (rs[:1], rs_p)))
+    check(err == 0, f"batched transcript kernel differs from plain by {err}")
+    worst = [0] * rounds
+    rejected = 0
+    for b, host in enumerate(hosts):
+        rej, per_round, blen = host_replay(host, msgs[:, b].cpu(), rs[:, b].cpu(), blens[b],
+                                           degree, f"batched transcript instance {b}")
+        rejected += rej
+        worst = [max(w, n) for w, n in zip(worst, per_round)]
+        probe = Blake2b512Rng.setup()
+        restore_transcript(probe, state_k[b].cpu())
+        check(probe.state_tuple() == host.state_tuple(),
+              f"batched transcript instance {b}: state differs from the host rng's")
+        check(blen == int(state_k[b, 25, 0]), f"instance {b}: pending bytes differ")
+
+    def rounds_from(step):
+        it = iter(range(rounds))
+        return lambda: step(next(it))
+
+    def batched_pass():
+        st = state0.clone()
+        return rounds_from(lambda j: tc.transcript_step_batched(st, sums[j], msgs, rs, j))
+
+    def singles_pass():
+        sts = [state0[b].clone() for b in range(batch)]
+        outs = [(torch.empty((rounds, 16, degree + 1), dtype=torch.int32, device=device),
+                 torch.empty((rounds, 16), dtype=torch.int32, device=device))
+                for _ in range(batch)]
+        sums_b = [[sums[j, b].contiguous() for b in range(batch)] for j in range(rounds)]
+
+        def step(j):
+            for b in range(batch):
+                tc.transcript_step(sts[b], sums_b[j][b], *outs[b], j)
+        return rounds_from(step)
+
+    ms = statistics.median(time_ms(batched_pass(), rounds, device, device_only=True, warm=False)
+                           for _ in range(3))
+    singles_ms = statistics.median(time_ms(singles_pass(), rounds, device, device_only=True,
+                                           warm=False) for _ in range(3))
+    bound = transcript_bound(device, sum(worst) / rounds)
+    print(f"batched transcript kernel-vs-plain, {batch} transcripts (pending bytes {blens}), "
+          f"{rounds} rounds d={degree}: equal, equal to the host rngs ({rejected} draws "
+          f"rejected); kernel {ms:.4f} ms per round for all {batch}, {batch} single steps "
+          f"{singles_ms:.4f} ms, plain {plain_ms:.4f} ms; bound {bound['bound_ms']:.4f} ms "
+          f"({bound['compressions']:.2f} compressions a round at most), "
+          f"{bound['bound_ms'] / ms:.1%} of it")
+    return {"transcript_step_batched": [err, [{
+        "shape": f"one round of {batch} transcripts, d={degree}", "ms": ms,
+        "singles_ms": singles_ms, "plain_ms": plain_ms, "bound": bound}]]}
+
+
+BATCH_PATHS = {"batch ml generic": "generic", "batch ml per-size": "persize"}
+
+
+def batch_ml_phase(device, seed: int, reps: int, path: str, batch: int = BATCH,
+                   nv: int = BATCH_NV) -> dict:
+    """Phase 10: `BatchedMLSumcheck.prove` on 8 instances of 2 x 3 at nv=16
+    (`bench.py:302-310`) on one chain (`BATCH_PATHS`): the first prove and
+    the warm median per batch and per proof, launches per batch (one pair
+    init an instance, then two a round), the batched chain under the sync
+    debug mode "error", the kernels of one profiled batch, proofs
+    byte-equal to per-instance card proves (timed beside it), all verified,
+    two subclaims against their polynomials, the idle share."""
+    chain = BATCH_PATHS[path]
+    with fold_mode(chain):
+        return _batch_ml(device, seed, reps, path, chain, batch, nv)
+
+
+def _batch_ml(device, seed, reps, path, chain, batch, nv) -> dict:
+    from sumcheck_tpu_torch import MLSumcheck
+    from sumcheck_tpu_torch.batch import BatchedMLSumcheck
+    from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
+
+    polys = headline_polys(seed, nv, batch)
+    with syncs_forbidden_in_chains():
+        for f in counters().values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        proofs = BatchedMLSumcheck.prove(polys, device=device)
+        first_s = time.perf_counter() - t0
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            again = BatchedMLSumcheck.prove(polys, device=device)
+            walls.append(time.perf_counter() - t0)
+        launches = {k: f.launches for k, f in counters().items()}
+    proves = reps + 1
+    fold = "round_fold_batched" if chain == "generic" else "round_step_fold_batched"
+    want = {k: 0 for k in launches}
+    want.update({"pair_init": batch * proves, "round_nofold_batched": proves,
+                 fold: (nv - 1) * proves, "transcript_step_batched": nv * proves})
+    check(launches == want, f"{path}: launch counts {launches} over {proves} batches, "
+                           f"expected {want}")
+    blobs = [serialize_proof(p) for p in proofs]
+    check([serialize_proof(p) for p in again] == blobs, f"{path}: warm batches differ")
+    prove_s = statistics.median(walls)
+
+    t0 = time.perf_counter()
+    alone = [serialize_proof(MLSumcheck.prove(p, device=device)) for p in polys]
+    alone_s = time.perf_counter() - t0
+    check(blobs == alone, f"{path}: batched proofs differ from per-instance card proves")
+    subs = BatchedMLSumcheck.verify([p.info() for p in polys],
+                                    [MLSumcheck.extract_sum(pf) for pf in proofs], proofs)
+    for b in (0, batch - 1):
+        check(polys[b].evaluate(subs[b].point) == subs[b].expected_evaluation,
+              f"{path}: instance {b}'s subclaim does not match its polynomial")
+
+    busy = device_busy(lambda: BatchedMLSumcheck.prove(polys, device=device))
+    k = busy["kernels"]
+    for f in counters().values():
+        f.launches = 0
+    print(f"headline {path}, {batch} x nv={nv} 2x3: first {first_s:.4f} s, median of {reps} warm "
+          f"{prove_s:.4f} s a batch = {prove_s / batch:.5f} s a proof, walls "
+          f"{[round(w, 4) for w in walls]}; {batch} per-instance card proves {alone_s:.4f} s")
+    print(f"{path} launches over {proves} batches: { {k: v for k, v in launches.items() if v} }, "
+          f"no sync inside the batched chain; the profiled batch launched {sum(k.values())} "
+          f"kernels: {k['round']} round kernels ({busy['device_ms']['round']:.4f} ms of device "
+          f"time), {k['transcript']} transcript steps ({busy['device_ms']['transcript']:.4f} ms), "
+          f"{k['other']} other (the {batch} pair inits, the sums buffer fill)")
+    print(f"{path}: proofs byte-equal to per-instance card proves, all {batch} verified, "
+          f"subclaims of instances 0 and {batch - 1} equal poly.evaluate(point)")
+    print_busy(path, busy)
+    return {"launches": launches, "prove_s": prove_s, "per_proof_s": prove_s / batch,
+            "first_s": first_s, "alone_s": alone_s, "busy": busy, "proofs": blobs}
+
+
+def gkr_batch_instances(seed: int, dim: int = GKR_BATCH_DIM, batch: int = BATCH) -> list:
+    """`bench.py:313-328`'s batch: f1 with 2^dim nonzeros over 3 dim
+    variables and g from one `random.Random(11)`, f2 and f3 by the table rule
+    from `numpy.random.default_rng(seed)`, instance after instance."""
+    from sumcheck_tpu_torch import DenseMLE, Fr, SparseMLE
+    from sumcheck_tpu_torch.fields.fr import P
+
+    prnd = random.Random(11)
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(batch):
+        f1 = SparseMLE.rand_with_config(3 * dim, 1 << dim, prnd)
+        f2, f3 = (DenseMLE(dim, t) for t in random_tables(rng, dim, 2))
+        out.append((f1, f2, f3, [Fr(prnd.randrange(P)) for _ in range(dim)]))
+    return out
+
+
+def gkr_batch_phase(device, seed: int, reps: int, batch: int = BATCH,
+                    dim: int = GKR_BATCH_DIM) -> dict:
+    """Phase 11: `BatchedGKRRoundSumcheck.prove` on 8 instances at dim 14
+    with 2^14 nonzeros each (`bench.py:313-338`) on the generic chain: the
+    first prove and the warm median per batch and per proof, launches per
+    batch (two batched chains of dim rounds, two launches a round), the
+    whole enqueue under the sync debug mode "error", proofs byte-equal to
+    per-instance card proves (timed beside it), all verified, two subclaims.
+    (No profile: its 8 x 26,000 launches of torch-op inits take the
+    profiler about a minute to collect.)"""
+    with fold_mode("generic"):
+        return _gkr_batch(device, seed, reps, batch, dim)
+
+
+def _gkr_batch(device, seed, reps, batch, dim) -> dict:
+    from sumcheck_tpu_torch import Blake2b512Rng, GKRRoundSumcheck
+    from sumcheck_tpu_torch.batch import BatchedGKRRoundSumcheck
+
+    path = "batch gkr generic"
+    insts = gkr_batch_instances(seed, dim, batch)
+    args = [list(t) for t in zip(*insts)]
+
+    def prove():
+        return BatchedGKRRoundSumcheck.prove([Blake2b512Rng.setup() for _ in range(batch)], *args,
+                                             device=device)
+
+    with syncs_forbidden_in_chains():
+        for f in counters().values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        proofs = prove()
+        first_s = time.perf_counter() - t0
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            again = prove()
+            walls.append(time.perf_counter() - t0)
+        launches = {k: f.launches for k, f in counters().items()}
+    proves = reps + 1
+    want = {k: 0 for k in launches}
+    want.update({"round_nofold_batched": 2 * proves, "round_fold_batched": 2 * (dim - 1) * proves,
+                 "transcript_step_batched": 2 * dim * proves})
+    check(launches == want, f"{path}: launch counts {launches} over {proves} batches, "
+                           f"expected {want}")
+    blobs = [p.serialize_uncompressed() for p in proofs]
+    check([p.serialize_uncompressed() for p in again] == blobs, f"{path}: warm batches differ")
+    prove_s = statistics.median(walls)
+    t0 = time.perf_counter()
+    alone = [GKRRoundSumcheck.prove(Blake2b512Rng.setup(), *inst, device=device)
+             .serialize_uncompressed() for inst in insts]
+    alone_s = time.perf_counter() - t0
+    check(blobs == alone, f"{path}: batched proofs differ from per-instance card proves")
+    subs = [GKRRoundSumcheck.verify(Blake2b512Rng.setup(), dim, p, p.extract_sum())
+            for p in proofs]
+    t0 = time.perf_counter()
+    for b in (0, batch - 1):
+        check(subs[b].verify_subclaim(*insts[b]), f"{path}: instance {b}'s subclaim fails")
+    subclaim_s = time.perf_counter() - t0
+    for f in counters().values():
+        f.launches = 0
+    print(f"headline {path}, {batch} x dim={dim} (nnz 2^{dim}): first {first_s:.4f} s, median of "
+          f"{reps} warm {prove_s:.4f} s a batch = {prove_s / batch:.4f} s a proof, walls "
+          f"{[round(w, 4) for w in walls]}; {batch} per-instance card proves {alone_s:.4f} s")
+    print(f"{path} launches over {proves} batches: { {k: v for k, v in launches.items() if v} }, "
+          f"no sync between the uploads and the fetch; proofs byte-equal to per-instance card "
+          f"proves, all {batch} verified, subclaims of instances 0 and {batch - 1} hold "
+          f"({subclaim_s:.2f} s on the host)")
+    return {"launches": launches, "prove_s": prove_s, "per_proof_s": prove_s / batch,
+            "first_s": first_s, "alone_s": alone_s, "proofs": blobs}
+
+
 def short_name(mangled: str) -> str:
     """A kernel's name and template arguments from its mangled name."""
     import re
@@ -1405,7 +1869,7 @@ def main() -> int:
           f"{RATES['imad_per_s'] / 1e12:.3f}e12 32-bit IMAD/s, {HBM_BYTES_PER_S / 1e12} TB/s")
 
     t0 = time.perf_counter()
-    libs = cuda_build.build("round", "transcript", "round_mxu")
+    libs = cuda_build.build("round", "transcript", "round_mxu", "pair_init")
     build_s = time.perf_counter() - t0
     print(f"build: {', '.join(lib.name for lib in libs.values())} in {build_s:.2f} s (in parallel)")
     ptxas = {}
@@ -1416,7 +1880,8 @@ def main() -> int:
                   f"{res.get('smem')} B static smem, {res.get('stack')} B stack frame, "
                   f"spills {res.get('spill_stores')}/{res.get('spill_loads')} B")
     for name, kernel in (("transcript", "transcript_kernel"), ("round", "round_kernel"),
-                         ("round", "nofold_kernel"), ("round_mxu", "fold_mxu_kernel")):
+                         ("round", "nofold_kernel"), ("round_mxu", "fold_mxu_kernel"),
+                         ("pair_init", "pair_init_kernel")):
         for fn, ops in sass_ops(libs[name], kernel).items():
             c = sass_classes(ops)
             print(f"  SASS {short_name(fn)}: {c['total']} instructions ({c['total'] * 16} B); "
@@ -1425,14 +1890,27 @@ def main() -> int:
     print(f"transcript_kernel: {tk.get('stack')} B stack frame, spills "
           f"{tk.get('spill_stores')}/{tk.get('spill_loads')} B (208 B before the redesign)")
 
+    marks = [("", t0)]
+
+    def mark(label):  # the host seconds each group of phases took
+        marks.append((label, time.perf_counter()))
+
+    mark("build")
     stats = kernel_phase(device, args.seed)
     stats.update(step_kernel_phase(device, args.seed))
     stats.update(mxu_kernel_phase(device, args.seed))
+    mark("round kernels")
     mxu_mul = mxu_mul_phase(device, args.seed)
     mul_rates = mont_mul_phase(device, args.seed, libs["round"])
     stats.update(transcript_phase(device, args.seed))
+    mark("multiplies and transcript")
+    stats.update(pair_init_phase(device, args.seed))
+    stats.update(batch_kernel_phase(device, args.seed))
+    stats.update(batch_transcript_phase(device, args.seed))
+    mark("pair init and batched kernels")
     golden_phase(device)
     gkr_golden_phase(device)
+    mark("golden fixtures")
 
     # the main paths: each driven with every launch count set to 0 just
     # before it and read just after
@@ -1444,6 +1922,7 @@ def main() -> int:
           "mode, their plain paths, host-transcript loop; prove medians "
           + ", ".join(f"{k} {h['prove_s']:.4f} s" for k, h in heads.items())
           + f", host transcript {host['prove_s']:.4f} s")
+    mark("ML headlines")
     inst = gkr_instance(args.seed)
     gkr = {f"gkr {path}": gkr_headline_phase(device, inst, args.reps, path) for path in PATHS}
     check(len({h["proof"] for h in gkr.values()}) == 1, "the GKR paths prove different bytes")
@@ -1451,10 +1930,28 @@ def main() -> int:
           "mode, the plain path; prove medians "
           + ", ".join(f"{k} {h['prove_s']:.4f} s" for k, h in gkr.items()))
     heads.update(gkr)
+    mark("GKR headlines")
+    batches = {path: batch_ml_phase(device, args.seed, args.reps, path) for path in BATCH_PATHS}
+    check(len({tuple(h["proofs"]) for h in batches.values()}) == 1,
+          "the two batched chains prove different bytes")
+    mark("ML batch")
+    batches["batch gkr generic"] = gkr_batch_phase(device, args.seed, args.reps)
+    mark("GKR batch")
+    print("batch proof bytes equal: generic and per-size batched chains, per-instance card "
+          "proves; per batch / per proof "
+          + ", ".join(f"{k} {h['prove_s']:.4f} / {h['per_proof_s']:.5f} s"
+                      for k, h in batches.items()))
+    heads.update(batches)
+    print("host seconds by phase: " + ", ".join(
+        f"{label} {t - prev:.1f}" for (_, prev), (label, t) in zip(marks, marks[1:])))
 
     kernels = []
-    sources = {"transcript_step": "transcript.cu", "round_fold_mxu": "round_mxu.cu"}
-    symbols = {"transcript_step": "transcript_kernel", "round_fold_mxu": "fold_mxu_kernel"}
+    sources = {"transcript_step": "transcript.cu", "round_fold_mxu": "round_mxu.cu",
+               "transcript_step_batched": "transcript.cu", "pair_init": "pair_init.cu"}
+    symbols = {"transcript_step": "transcript_kernel", "round_fold_mxu": "fold_mxu_kernel",
+               "transcript_step_batched": "transcript_kernel", "pair_init": "pair_init_kernel",
+               "round_nofold": "nofold_kernel", "round_step_nofold": "nofold_kernel",
+               "round_nofold_batched": "nofold_kernel"}
     for name, replaces, path in (
         ("round_nofold", "sumcheck_tpu/ops/round_pallas.py:246", "ml generic"),
         ("round_fold", "sumcheck_tpu/ops/round_pallas.py:192", "ml generic"),
@@ -1462,10 +1959,15 @@ def main() -> int:
         ("round_step_fold", "sumcheck_tpu/ops/round_pallas.py:85", "ml per-size"),
         ("round_fold_mxu", "sumcheck_tpu/ops/round_pallas.py:215", "gkr generic mxu"),
         ("transcript_step", "sumcheck_tpu/protocol/device_prover.py:118", "ml generic"),
+        ("pair_init", "sumcheck_tpu/protocol/device_prover.py:181", "ml generic"),
+        ("round_nofold_batched", "sumcheck_tpu/batch.py:61", "batch ml generic"),
+        ("round_fold_batched", "sumcheck_tpu/batch.py:75", "batch ml generic"),
+        ("round_step_fold_batched", "sumcheck_tpu/batch.py:261", "batch ml per-size"),
+        ("transcript_step_batched", "sumcheck_tpu/batch.py:304", "batch ml generic"),
     ):
         err, timings = stats[name]
         main_shape = timings[0]
-        if name == "transcript_step":
+        if name.startswith("transcript_step"):
             bound_ms, bound_by, detail = main_shape["bound"]["bound_ms"], "operations", "latency"
         else:
             bound_ms, bound_by, detail = bound_of(main_shape["work"])
@@ -1489,9 +1991,10 @@ def main() -> int:
             "timings": [{k: v for k, v in t.items() if k not in ("work", "bound")}
                         for t in timings],
         })
+        prev = PREVIOUS_MS.get(name)
         print(f"kernel {name}: {main_shape['ms']:.4f} ms at {main_shape['shape']}, bound "
               f"{bound_ms:.4f} ms ({detail}), {bound_ms / main_shape['ms']:.1%} of it; "
-              f"previous version (PERF.md): {PREVIOUS_MS[name]} ms")
+              + (f"previous version (PERF.md): {prev} ms" if prev else "new in this version"))
     print("Montgomery multiplies per second: "
           + ", ".join(f"{k} {v:.4e}" for k, v in mul_rates.items()))
     print(f"card: {card}; prove medians "

@@ -9,6 +9,9 @@ rounds run through hand-written CUDA kernels for Hopper (`ops/round_cuda.py`,
 on `device="cuda"`, and through their plain PyTorch versions on
 `device="cpu"`. Proofs are byte-identical to the JAX package's.
 
+The batched provers (`BatchedMLSumcheck`, `BatchedGKRRoundSumcheck`) are in
+`sumcheck_tpu_torch.batch`, not exported here, as in the JAX package.
+
 This package imports torch and numpy, never JAX and never `sumcheck_tpu`.
 """
 

@@ -46,6 +46,14 @@
 // chain (field.cuh), coalesced digit loads, each lane's values read from
 // device memory once per round.
 //
+// Instance axis (the batched provers, sumcheck_tpu_torch/batch.py): a
+// launch over B instances runs grid y = B; block (x, b) offsets its pair,
+// output tables, challenge, coefficients and sums row to instance b's
+// (sc_round_launch_batched), so every body above serves B instances in one
+// launch, each folded by its own challenge. A single launch is B = 1; the
+// ladder bodies then run an instantiation without the offsets
+// (round_kernel<..., kBatched = false>).
+//
 // Structure: product shape (slots, products, factors, degree) and the
 // product index matrix arrive at run time (struct Plan) with compile-time
 // maxima; the wrapper raises above them. The ladder and the block-sum tail
@@ -60,15 +68,32 @@ namespace {
 
 using namespace sc;
 
-template <bool kFold, bool kOutOfPlace, bool kCoeffs>
+template <bool kFold, bool kOutOfPlace, bool kCoeffs, bool kBatched>
 __global__ void __launch_bounds__(kThreads)
     round_kernel(uint32_t* __restrict__ lo, uint32_t* __restrict__ hi,
                  uint32_t* __restrict__ lo_out, uint32_t* __restrict__ hi_out,
                  const uint32_t* __restrict__ r_digits,
                  const uint32_t* __restrict__ coeff_digits, long long H,
-                 long long H_out, long long extent, Field f, Plan pl,
+                 long long H_out, long long extent, long long inst_stride,
+                 long long out_inst_stride, Field f, Plan pl,
                  long long* __restrict__ sums) {
   static_assert(kFold || !kOutOfPlace, "only a fold writes tables");
+  // instance blockIdx.y of a batched launch: its tables, challenge,
+  // coefficients and sums row. A single launch compiles without them: the
+  // in-place fold lost 3.6% at 2^18 lanes to these few instructions on an
+  // H100 (PERF.md).
+  if constexpr (kBatched) {
+    const long long b = blockIdx.y;
+    lo += b * inst_stride;
+    hi += b * inst_stride;
+    if constexpr (kOutOfPlace) {
+      lo_out += b * out_inst_stride;
+      hi_out += b * out_inst_stride;
+    }
+    if constexpr (kFold) r_digits += b * kDigits;
+    if constexpr (kCoeffs) coeff_digits += b * pl.products * kDigits;
+    sums += b * (pl.degree + 1) * kDigits;
+  }
   extern __shared__ uint32_t ladder[];  // [slot][cur|step][limb][thread]
   __shared__ uint32_t warp_sums[kThreads / 32][kMaxDegree + 1][kDigits];
   __shared__ uint32_t coeff[kCoeffs ? kMaxProducts : 1][kLimbs];
@@ -120,6 +145,15 @@ __global__ void __launch_bounds__(kThreads)
   }
   ladder_block_sums<kCoeffs>(ladder, warp_sums, coeff, active, f, pl, sums);
 }
+
+// The instance axis of a batched launch: `count` instances (grid y), each
+// `stride` words of the input pair apart and `out_stride` words of the
+// output tables apart; count 1 is a single launch.
+struct Batch {
+  long long count;
+  long long stride;
+  long long out_stride;
+};
 
 // Degrees up to which round 0 evaluates in registers (nofold_kernel); above
 // it round_kernel<false, false, C> and its ladder in shared memory.
@@ -178,9 +212,16 @@ template <int D, bool kCoeffs>
 __global__ void __launch_bounds__(kThreads)
     nofold_kernel(const uint32_t* __restrict__ lo, const uint32_t* __restrict__ hi,
                   const uint32_t* __restrict__ coeff_digits, long long H, long long extent,
-                  Field f, Plan pl, long long* __restrict__ sums) {
+                  long long inst_stride, Field f, Plan pl, long long* __restrict__ sums) {
   __shared__ uint32_t warp_sums[kThreads / 32][kMaxDegree + 1][kDigits];
   __shared__ uint32_t coeff[kCoeffs ? kMaxProducts : 1][kLimbs];
+  {  // instance blockIdx.y of a batched launch (0 offsets for a single one)
+    const long long b = blockIdx.y;
+    lo += b * inst_stride;
+    hi += b * inst_stride;
+    if constexpr (kCoeffs) coeff_digits += b * pl.products * kDigits;
+    sums += b * (D + 1) * kDigits;
+  }
 
   const int tid = threadIdx.x;
   const long long k = (long long)blockIdx.x * kThreads + tid;
@@ -260,35 +301,37 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int D, bool kCoeffs>
 cudaError_t launch_nofold(const void* lo, const void* hi, const void* coeff, long long H,
-                          long long extent, const Field& f, const Plan& pl, void* sums,
-                          long long nblk, cudaStream_t stream) {
+                          long long extent, const Batch& bt, const Field& f, const Plan& pl,
+                          void* sums, long long nblk, cudaStream_t stream) {
   if constexpr (D < kMaxRegisterDegree) {
     if (pl.degree > D)
-      return launch_nofold<D + 1, kCoeffs>(lo, hi, coeff, H, extent, f, pl, sums, nblk,
+      return launch_nofold<D + 1, kCoeffs>(lo, hi, coeff, H, extent, bt, f, pl, sums, nblk,
                                            stream);
   }
-  nofold_kernel<D, kCoeffs><<<(unsigned)nblk, kThreads, 0, stream>>>(
+  nofold_kernel<D, kCoeffs><<<dim3((unsigned)nblk, (unsigned)bt.count), kThreads, 0, stream>>>(
       static_cast<const uint32_t*>(lo), static_cast<const uint32_t*>(hi),
-      static_cast<const uint32_t*>(coeff), H, extent, f, pl, static_cast<long long*>(sums));
+      static_cast<const uint32_t*>(coeff), H, extent, bt.stride, f, pl,
+      static_cast<long long*>(sums));
   return cudaGetLastError();
 }
 
 template <bool kFold, bool kOutOfPlace, bool kCoeffs>
 cudaError_t launch(void* lo, void* hi, void* lo_out, void* hi_out,
                    const void* r, const void* coeff, long long H,
-                   long long H_out, long long extent, const Field& f,
+                   long long H_out, long long extent, const Batch& bt, const Field& f,
                    const Plan& pl, void* sums, long long nblk,
                    cudaStream_t stream) {
-  auto kernel = round_kernel<kFold, kOutOfPlace, kCoeffs>;
+  auto kernel = bt.count > 1 ? round_kernel<kFold, kOutOfPlace, kCoeffs, true>
+                              : round_kernel<kFold, kOutOfPlace, kCoeffs, false>;
   const size_t smem = ladder_bytes(pl.slots);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  kernel<<<(unsigned)nblk, kThreads, smem, stream>>>(
+  kernel<<<dim3((unsigned)nblk, (unsigned)bt.count), kThreads, smem, stream>>>(
       static_cast<uint32_t*>(lo), static_cast<uint32_t*>(hi),
       static_cast<uint32_t*>(lo_out), static_cast<uint32_t*>(hi_out),
       static_cast<const uint32_t*>(r), static_cast<const uint32_t*>(coeff),
-      H, H_out, extent, f, pl, static_cast<long long*>(sums));
+      H, H_out, extent, bt.stride, bt.out_stride, f, pl, static_cast<long long*>(sums));
   return cudaGetLastError();
 }
 
@@ -359,39 +402,47 @@ int sc_round_threads() { return kThreads; }
 // round's (degree+1, 16) int64 row, which the launch adds into.
 // plan: slots, products, factors, degree, then products x kMaxFactors indices.
 // field: p as 8 x 32-bit limbs (least significant first), then -p^-1 mod 2^32.
+// batch: instances in the launch (grid y; 1 for a single pair): their pairs
+// lie `inst_stride` words apart (U x 16 x H), their output tables
+// `out_inst_stride` words apart (U x 16 x H_out), and r, coeff and sums hold
+// one challenge (16 digits), one coefficient row (products x 16) and one
+// sums row ((degree+1) x 16) per instance, back to back.
 // Returns the cudaError_t of the launch (0 on success).
-int sc_round_launch(int mode, void* lo, void* hi, void* lo_out, void* hi_out,
-                    const void* r, const void* coeff, long long H,
-                    long long H_out, long long extent, const int* plan,
-                    const uint32_t* field, void* sums, long long nblk,
-                    void* stream) {
+int sc_round_launch_batched(int mode, void* lo, void* hi, void* lo_out, void* hi_out,
+                            const void* r, const void* coeff, long long H, long long H_out,
+                            long long extent, long long batch, long long inst_stride,
+                            long long out_inst_stride, const int* plan,
+                            const uint32_t* field, void* sums, long long nblk, void* stream) {
   Plan pl;
   const cudaError_t bad = read_plan(plan, &pl);
   if (bad != cudaSuccess) return (int)bad;
   if (mode == 2 && H_out != extent) return (int)cudaErrorInvalidValue;
+  if (batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
+  const Batch bt{batch, inst_stride, out_inst_stride};
   const Field f = read_field(field);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool c = coeff != nullptr;
   if (mode == 0 && pl.degree <= kMaxRegisterDegree) {
-    return (int)(c ? launch_nofold<1, true>(lo, hi, coeff, H, extent, f, pl, sums, nblk, s)
-                   : launch_nofold<1, false>(lo, hi, coeff, H, extent, f, pl, sums, nblk, s));
+    return (int)(c ? launch_nofold<1, true>(lo, hi, coeff, H, extent, bt, f, pl, sums, nblk, s)
+                   : launch_nofold<1, false>(lo, hi, coeff, H, extent, bt, f, pl, sums, nblk,
+                                             s));
   }
   switch (mode * 2 + (c ? 1 : 0)) {
     case 0:
       return (int)launch<false, false, false>(lo, hi, nullptr, nullptr, r, coeff, H, H,
-                                              extent, f, pl, sums, nblk, s);
+                                              extent, bt, f, pl, sums, nblk, s);
     case 1:
       return (int)launch<false, false, true>(lo, hi, nullptr, nullptr, r, coeff, H, H,
-                                             extent, f, pl, sums, nblk, s);
+                                             extent, bt, f, pl, sums, nblk, s);
     case 2:
       return (int)launch<true, false, false>(lo, hi, nullptr, nullptr, r, coeff, H, H,
-                                             extent, f, pl, sums, nblk, s);
+                                             extent, bt, f, pl, sums, nblk, s);
     case 4:
       return (int)launch<true, true, false>(lo, hi, lo_out, hi_out, r, coeff, H, H_out,
-                                            extent, f, pl, sums, nblk, s);
+                                            extent, bt, f, pl, sums, nblk, s);
     case 5:
       return (int)launch<true, true, true>(lo, hi, lo_out, hi_out, r, coeff, H, H_out,
-                                           extent, f, pl, sums, nblk, s);
+                                           extent, bt, f, pl, sums, nblk, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

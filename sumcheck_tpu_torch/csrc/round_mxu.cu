@@ -333,7 +333,7 @@ extern "C" {
 int sc_mxu_threads() { return kThreads; }
 
 // The fold round in place over lanes [0, extent) of the (U, 16, H) pair.
-// plan: as sc_round_launch. field: p as 8 x 32-bit limbs, -p^-1 mod 2^32,
+// plan: as sc_round_launch_batched. field: p as 8 x 32-bit limbs, -p^-1 mod 2^32,
 // then 2^(8 j + 16) mod p for j = 0..31, 8 limbs each. sums: the round's
 // (degree+1, 16) int64 row, which the launch adds into. Returns the
 // cudaError_t of the launch.

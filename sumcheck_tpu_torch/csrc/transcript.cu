@@ -55,6 +55,10 @@
 // sums:
 //   msgs[j] (16, d+1) <- canonical digits of the round's evaluations,
 //   rs[j] (16)        <- Montgomery digits of the sampled challenge.
+// A batched launch (sc_transcript_launch_batched, the batched provers)
+// runs one block per transcript, B blocks: block b advances state b from
+// sums row b, each reading its own pending-byte count, and writes row
+// j * B + b of msgs and rs, so round j of all B is one (B, ...) block.
 
 #include "field.cuh"
 
@@ -185,6 +189,9 @@ __device__ __forceinline__ void element(const long long* __restrict__ sums, int 
     words[w] = (uint64_t)lo[2 * w] | ((uint64_t)lo[2 * w + 1] << 32);
 }
 
+// One block per transcript: block b of a batched launch advances transcript
+// b (state b, sums row b) and writes row j * gridDim.x + b of msgs and rs,
+// so round j's outputs of all instances are one contiguous (B, ...) block.
 __global__ void __launch_bounds__(32, 1)
     transcript_kernel(unsigned long long* __restrict__ state,
                       const long long* __restrict__ sums, int degree,
@@ -197,6 +204,9 @@ __global__ void __launch_bounds__(32, 1)
   __shared__ unsigned char sig[12 * 16];
   const int tid = threadIdx.x;
   const int d1 = degree + 1;
+  state += (long long)blockIdx.x * kStateWords;
+  sums += (long long)blockIdx.x * d1 * kDigits;
+  j = j * gridDim.x + blockIdx.x;
 
   // the chaining value and counter load first, under the elements' work:
   // hash lane i holds h[i] and h[4 + i]
@@ -338,17 +348,21 @@ int sc_transcript_state_words() { return kStateWords; }
 // field: p as 8 x 32-bit limbs (least significant first), -p^-1 mod 2^32,
 // then the number of top bits a draw shaves.
 // Returns the cudaError_t of the launch (0 on success).
-int sc_transcript_launch(void* state, const void* sums, int degree,
-                         void* msgs, void* rs, long long j,
-                         const uint32_t* field, void* stream) {
+// batch: transcripts advanced by one launch (one block each; 1 for a single
+// one); state, sums, msgs and rs then hold `batch` of each back to back,
+// msgs and rs per round.
+int sc_transcript_launch_batched(void* state, const void* sums, int degree, void* msgs,
+                                 void* rs, long long j, int batch, const uint32_t* field,
+                                 void* stream) {
   if (degree < 1 || degree > kMaxDegree) return (int)cudaErrorInvalidValue;
+  if (batch < 1) return (int)cudaErrorInvalidValue;
   Params prm;
   for (int i = 0; i < kLimbs; ++i) prm.f.p[i] = field[i];
   prm.f.ninv = field[kLimbs];
   const uint32_t shave = field[kLimbs + 1];
   if (shave >= 32) return (int)cudaErrorInvalidValue;
   prm.top_mask = (shave == 0) ? ~0ull : ((1ull << (64 - shave)) - 1);
-  transcript_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  transcript_kernel<<<batch, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<unsigned long long*>(state), static_cast<const long long*>(sums),
       degree, static_cast<uint32_t*>(msgs), static_cast<uint32_t*>(rs), j, prm);
   return (int)cudaGetLastError();

@@ -19,6 +19,18 @@ representation.
 
 from __future__ import annotations
 
+import os
+
+# The JAX package picks its prime from SUMCHECK_TPU_FIELD at import; the port
+# has BLS12-381 Fr only, so any other choice raises rather than proving over
+# a field the caller did not ask for.
+FIELD_NAME = os.environ.get("SUMCHECK_TPU_FIELD", "bls12_381_fr")
+if FIELD_NAME != "bls12_381_fr":
+    raise ImportError(
+        f"SUMCHECK_TPU_FIELD={FIELD_NAME!r}: sumcheck_tpu_torch supports only "
+        "bls12_381_fr; unset the variable or set it to bls12_381_fr"
+    )
+
 P = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
 assert P == 52435875175126190479447740508185965837690552500527637822603658699938581184513
 MODULUS_BITS = P.bit_length()

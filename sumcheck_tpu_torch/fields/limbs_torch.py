@@ -11,9 +11,8 @@ reduced values in [0, p), exactly as `limbs_jnp` does, so results are
 bit-identical to it and to `limbs_np`.
 
 These are the plain versions the CUDA round kernels are checked against
-(`ops/round_cuda.py`), the CPU path of the prover, and the device-side
-coefficient scaling of `protocol/device_prover.init_pair`. They run on any
-torch device.
+(`ops/round_cuda.py`, `ops/init_cuda.py`) and the CPU path of the prover.
+They run on any torch device.
 """
 
 from __future__ import annotations

@@ -92,7 +92,9 @@ class DenseMLE:
         if t is None:
             from .protocol.prover import to_bitrev
 
-            host = to_bitrev(self.evals, self.num_vars).astype(np.int32)
+            # row-major, as the pair-init kernel reads it (the permuted
+            # gather alone would leave it column-major)
+            host = np.ascontiguousarray(to_bitrev(self.evals, self.num_vars).astype(np.int32))
             t = torch.from_numpy(host).to(device)
             self._dev[device] = t
         return t

@@ -211,11 +211,17 @@ def _seg_narrow(f1) -> tuple[bool, bool]:
     return f1._seg_narrow
 
 
-def _halves(a: torch.Tensor, b: torch.Tensor):
-    """Two (16, n) tables -> the round kernels' (2, 16, n/2) int32 pair."""
+def _halves(a: torch.Tensor, b: torch.Tensor, out=None):
+    """Two (16, n) tables -> the round kernels' (2, 16, n/2) int32 pair,
+    fresh or written into `out` = (lo, hi) (one instance's slice of a
+    batched pair)."""
     s = torch.stack([a, b]).to(torch.int32)
     n = s.shape[2]
-    return s[:, :, : n // 2].contiguous(), s[:, :, n // 2 :].contiguous()
+    if out is None:
+        return s[:, :, : n // 2].contiguous(), s[:, :, n // 2 :].contiguous()
+    out[0].copy_(s[:, :, : n // 2])
+    out[1].copy_(s[:, :, n // 2 :])
+    return out
 
 
 def phase1(gbits, last_x, y_rev, values, g_r, g_omr, f3_bitrev, dim: int,
@@ -228,16 +234,17 @@ def phase1(gbits, last_x, y_rev, values, g_r, g_omr, f3_bitrev, dim: int,
     return _segment_reduce_sorted(wv, None, last_x, split8x), w
 
 
-def prep1(hg_brev, f2_bitrev):
+def prep1(hg_brev, f2_bitrev, out=None):
     """[h_g, f2] -> the phase-1 (lo, hi) pair, (2, 16, 2^dim / 2) int32."""
-    return _halves(hg_brev, f2_bitrev.long())
+    return _halves(hg_brev, f2_bitrev.long(), out)
 
 
 def phase1_pair(gbits, last_x, y_rev, values, g_r, g_omr, f3_bitrev, f2_bitrev,
-                dim: int, split8x: bool = True):
-    """`_phase1_pair_body` (`:472-491`): the phase-1 pair and `w`."""
+                dim: int, split8x: bool = True, out=None):
+    """`_phase1_pair_body` (`:472-491`): the phase-1 pair (written into
+    `out` = (lo, hi) if given) and `w`."""
     hg, w = phase1(gbits, last_x, y_rev, values, g_r, g_omr, f3_bitrev, dim, split8x)
-    lo, hi = prep1(hg, f2_bitrev)
+    lo, hi = prep1(hg, f2_bitrev, out)
     return lo, hi, w
 
 
@@ -258,7 +265,7 @@ def phase2_digits(x, perm_y, last_y, w, u_digits, dim: int, split8y: bool = True
     return _segment_reduce_sorted(w2, perm_y, last_y, split8y)
 
 
-def prep2(f1gu_brev, f3_bitrev, f2u):
+def prep2(f1gu_brev, f3_bitrev, f2u, out=None):
     """[f1_gu, f3, f2(u)] -> the phase-2 pair for `f1_gu * (f2(u) * f3)`
     (reference `mod.rs:66-82`); the scaling is a banded product in the MXU
     fold mode."""
@@ -267,13 +274,14 @@ def prep2(f1gu_brev, f3_bitrev, f2u):
         f3f2u = mxu_mul.mont_mul_scalar_mxu(f3, f2u)
     else:
         f3f2u = LT.mont_mul(f3, f2u[:, None])
-    return _halves(f1gu_brev, f3f2u)
+    return _halves(f1gu_brev, f3f2u, out)
 
 
 def phase2_pair(pair_lo, pair_hi, r_last, x, perm_y, last_y, w, u_digits, f3_bitrev,
-                dim: int, split8y: bool = True):
+                dim: int, split8y: bool = True, out=None):
     """`_phase2_pair_body` (`:494-522`): f2(u) from the phase-1 final pair,
-    the phase-2 init, and the phase-2 pair."""
+    the phase-2 init, and the phase-2 pair (written into `out` = (lo, hi)
+    if given)."""
     f2u = final_fold(pair_lo, pair_hi, r_last, 1)
     f1gu = phase2_digits(x, perm_y, last_y, w, u_digits, dim, split8y)
-    return prep2(f1gu, f3_bitrev, f2u)
+    return prep2(f1gu, f3_bitrev, f2u, out)

@@ -46,6 +46,22 @@ with 64-bit atomics, exact and independent of order.
   new_hi[k] = fold(lo[k+H/2], hi[k+H/2]), then the sums over them; returns
   ((new_lo, new_hi), sums).
 
+The batched provers (`batch.py`) run B instances of one shape through one
+launch each round, instance b at grid y = b: a (B, U, 16, H) pair, one
+challenge per instance as a (B, 16) tensor, (B, P, 16) coefficients and a
+(B, d+1, 16) sums buffer, instance b adding into row b. Counterparts of the
+JAX package's vmapped bodies (`sumcheck_tpu/batch.py:32-84, 260-300`):
+
+- `round_nofold_batched(lo, hi, products, degree, extent, out=None,
+  coeffs=None)`: round 0 of each instance over lanes [0, extent);
+- `round_fold_batched(lo, hi, r, products, degree, extent, out=None)`: the
+  in-place fold of `round_fold`, instance b by r[b];
+- `round_step_fold_batched(lo, hi, r, products, degree, coeffs=None,
+  out=None)`: the out-of-place fold of `round_step_fold` into fresh (B, U,
+  16, H/2) tables.
+
+Each `_ref` applies the single plain version per instance.
+
 `coeffs`, where taken, is a (products, 16) int32 tensor of Montgomery digits:
 product p's value is multiplied by coeffs[p] (the Pallas kernels'
 `has_coeffs`). The per-size prover folds the coefficients into the tables
@@ -101,7 +117,7 @@ _FIELD_MXU = (ctypes.c_uint32 * (9 + 32 * 8))(
     *_FIELD, *[((1 << (8 * j + 16)) % P >> (32 * i)) & 0xFFFFFFFF
                for j in range(32) for i in range(8)])
 
-# launch modes of `sc_round_launch`
+# launch modes of `sc_round_launch_batched`
 _NOFOLD, _FOLD_IN_PLACE, _FOLD_OUT = 0, 1, 2
 
 
@@ -121,17 +137,18 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     lib.sc_round_threads.argtypes = []
     lib.sc_round_threads.restype = ctypes.c_int
-    lib.sc_round_launch.argtypes = [
+    lib.sc_round_launch_batched.argtypes = [
         ctypes.c_int,  # mode
         ctypes.c_void_p, ctypes.c_void_p,  # lo, hi
         ctypes.c_void_p, ctypes.c_void_p,  # lo_out, hi_out
         ctypes.c_void_p, ctypes.c_void_p,  # r, coeff
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # H, H_out, extent
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,  # batch, strides
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_uint32),  # plan, field
         ctypes.c_void_p, ctypes.c_longlong,  # sums, nblk
         ctypes.c_void_p,  # stream
     ]
-    lib.sc_round_launch.restype = ctypes.c_int
+    lib.sc_round_launch_batched.restype = ctypes.c_int
     lib.sc_mont_mul_probe.argtypes = [
         ctypes.c_int,  # impl
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # a, b, out
@@ -241,14 +258,20 @@ def _coeff_cols(coeffs):
 # ---------------------------------------------------------------------------
 
 
+def _nofold_sums(lo, hi, products, degree: int, extent: int, coeffs, out) -> torch.Tensor:
+    """Round 0's sums over lanes [0, extent), [times each product's
+    coefficient], added into `out` if given."""
+    pair = torch.cat([lo[:, :, :extent], hi[:, :, :extent]], dim=2)
+    stacked = pair.long().permute(1, 0, 2)  # (16, U, 2*extent)
+    total = engine.round_totals(engine.TORCH, stacked, _coeff_cols(coeffs), products, degree)
+    return _digit_sums(total, out)
+
+
 def round_nofold_ref(lo, hi, products, degree: int, extent: int, out=None) -> torch.Tensor:
     """Plain version of the no-fold kernel (any device)."""
     _check(lo, hi, products, degree, extent, fold=False)
     _check_out(out, lo, degree)
-    pair = torch.cat([lo[:, :, :extent], hi[:, :, :extent]], dim=2)
-    stacked = pair.long().permute(1, 0, 2)  # (16, U, 2*extent)
-    total = engine.round_totals(engine.TORCH, stacked, None, products, degree)
-    return _digit_sums(total, out)
+    return _nofold_sums(lo, hi, products, degree, extent, None, out)
 
 
 def _fold_in_place_ref(lo, hi, products, degree: int, extent: int, fold_fn,
@@ -291,11 +314,9 @@ def round_fold_mxu_ref(lo, hi, r, products, degree: int, extent: int,
 def round_step_nofold_ref(lo, hi, products, degree: int, coeffs=None,
                           out=None) -> torch.Tensor:
     """Plain version of the per-size no-fold kernel (any device)."""
-    _check_step(lo, hi, products, degree, False, coeffs=coeffs)
+    extent = _check_step(lo, hi, products, degree, False, coeffs=coeffs)
     _check_out(out, lo, degree)
-    stacked = torch.cat([lo, hi], dim=2).long().permute(1, 0, 2)  # (16, U, 2H)
-    total = engine.round_totals(engine.TORCH, stacked, _coeff_cols(coeffs), products, degree)
-    return _digit_sums(total, out)
+    return _nofold_sums(lo, hi, products, degree, extent, coeffs, out)
 
 
 def round_step_fold_ref(lo, hi, r, products, degree: int, coeffs=None, out=None):
@@ -309,6 +330,86 @@ def round_step_fold_ref(lo, hi, r, products, degree: int, coeffs=None, out=None)
     new_hi = folded[:, :, quarter:].permute(1, 0, 2).to(torch.int32).contiguous()
     total = engine.round_totals(engine.TORCH, folded, _coeff_cols(coeffs), products, degree)
     return (new_lo, new_hi), _digit_sums(total, out)
+
+
+def _check_batched(lo, hi, products, degree: int, extent: int, fold: bool, r=None,
+                   coeffs=None, out=None) -> int:
+    """Checks of a batched round: (B, U, 16, H) pair, one (16,) challenge
+    per instance as a (B, 16) tensor, (B, P, 16) coefficients, a (B, d+1,
+    16) sums buffer. Returns B."""
+    if lo.dim() != 4 or lo.shape[0] < 1 or lo.shape[0] > 65535:
+        raise ValueError(f"a batched pair must be (B, U, 16, H) with 1 <= B <= 65535, "
+                         f"got {tuple(lo.shape)}")
+    if not (lo.is_contiguous() and hi.is_contiguous()):
+        raise ValueError("table pair must be contiguous")
+    batch = lo.shape[0]
+    _check(lo[0], hi[0], products, degree, extent, fold, r[0] if fold and r is not None
+           and r.dim() == 2 else r)
+    if lo.shape != hi.shape:
+        raise ValueError(f"lo and hi differ in shape: {lo.shape} and {hi.shape}")
+    if fold and (r.shape != (batch, NUM_DIGITS) or not r.is_contiguous()):
+        raise ValueError(f"challenges must be one contiguous (B, 16) int32 row per instance, "
+                         f"got {tuple(r.shape)}")
+    if coeffs is not None:
+        if coeffs.dtype != torch.int32 or coeffs.shape != (batch, len(products), NUM_DIGITS):
+            raise ValueError(f"coefficients must be a (B, {len(products)}, 16) int32 tensor")
+        if coeffs.device != lo.device or not coeffs.is_contiguous():
+            raise ValueError("coefficients must be contiguous, on the tables' device")
+    if out is not None:
+        if out.shape != (batch, degree + 1, NUM_DIGITS) or out.dtype != torch.int64:
+            raise ValueError(f"out must be a (B, {degree + 1}, 16) int64 buffer, got "
+                             f"{tuple(out.shape)} {out.dtype}")
+        if out.device != lo.device or not out.is_contiguous():
+            raise ValueError("out must be contiguous, on the tables' device")
+    return batch
+
+
+def _batched_rows(out, lo, degree: int) -> torch.Tensor:
+    """The (B, d+1, 16) rows a batched round adds into: `out`, or fresh
+    zeroed ones."""
+    if out is not None:
+        return out
+    return torch.zeros((lo.shape[0], degree + 1, NUM_DIGITS), dtype=torch.int64,
+                       device=lo.device)
+
+
+def round_nofold_batched_ref(lo, hi, products, degree: int, extent: int, out=None,
+                             coeffs=None) -> torch.Tensor:
+    """Plain version of the batched no-fold kernel (any device): the single
+    plain version per instance, instance b into row b."""
+    batch = _check_batched(lo, hi, products, degree, extent, False, coeffs=coeffs, out=out)
+    rows = _batched_rows(out, lo, degree)
+    for b in range(batch):
+        _nofold_sums(lo[b], hi[b], products, degree, extent,
+                     None if coeffs is None else coeffs[b], rows[b])
+    return rows
+
+
+def round_fold_batched_ref(lo, hi, r, products, degree: int, extent: int,
+                           out=None) -> torch.Tensor:
+    """Plain version of the batched in-place fold kernel (any device):
+    `round_fold_ref` per instance, by its own challenge r[b]."""
+    batch = _check_batched(lo, hi, products, degree, extent, True, r=r, out=out)
+    rows = _batched_rows(out, lo, degree)
+    for b in range(batch):
+        round_fold_ref(lo[b], hi[b], r[b], products, degree, extent, rows[b])
+    return rows
+
+
+def round_step_fold_batched_ref(lo, hi, r, products, degree: int, coeffs=None, out=None):
+    """Plain version of the batched out-of-place fold kernel (any device):
+    `round_step_fold_ref` per instance; returns ((new_lo, new_hi), sums)
+    with fresh (B, U, 16, H/2) tables."""
+    width = lo.shape[-1]
+    if width % 2:
+        raise ValueError(f"a per-size fold needs an even pair width, got {width}")
+    batch = _check_batched(lo, hi, products, degree, max(width // 2, 1), True, r=r,
+                           coeffs=coeffs, out=out)
+    rows = _batched_rows(out, lo, degree)
+    halves = [round_step_fold_ref(lo[b], hi[b], r[b], products, degree,
+                                  None if coeffs is None else coeffs[b], rows[b])[0]
+              for b in range(batch)]
+    return (torch.stack([h[0] for h in halves]), torch.stack([h[1] for h in halves])), rows
 
 
 # ---------------------------------------------------------------------------
@@ -343,21 +444,26 @@ def _sums_row(out, lo, degree: int) -> torch.Tensor:
 
 def _launch(mode: int, lo, hi, r, products, degree: int, extent: int,
             out=None, tables=None, coeffs=None) -> torch.Tensor:
-    plan = _plan(lo.shape[0], products, degree)
+    """One launch of `sc_round_launch_batched` for a (U, 16, H) pair (one
+    instance) or a (B, U, 16, H) pair (B instances, grid y)."""
+    batched = lo.dim() == 4
+    plan = _plan(lo.shape[-3], products, degree)
     lib = _library()
-    sums = _sums_row(out, lo, degree)
+    sums = _batched_rows(out, lo, degree) if batched else _sums_row(out, lo, degree)
     nblk = -(-extent // lib.sc_round_threads())
     lo_out, hi_out = tables if tables is not None else (None, None)
     with torch.cuda.device(lo.device):
         stream = torch.cuda.current_stream(lo.device).cuda_stream
-        rc = lib.sc_round_launch(
+        rc = lib.sc_round_launch_batched(
             int(mode), lo.data_ptr(), hi.data_ptr(),
             lo_out.data_ptr() if lo_out is not None else None,
             hi_out.data_ptr() if hi_out is not None else None,
             r.data_ptr() if r is not None else None,
             coeffs.data_ptr() if coeffs is not None else None,
-            lo.shape[2], lo_out.shape[2] if lo_out is not None else lo.shape[2],
-            extent, plan, _FIELD, sums.data_ptr(), nblk, stream,
+            lo.shape[-1], lo_out.shape[-1] if lo_out is not None else lo.shape[-1], extent,
+            lo.shape[0] if batched else 1, lo[0].numel() if batched else 0,
+            lo_out[0].numel() if batched and lo_out is not None else 0,
+            plan, _FIELD, sums.data_ptr(), nblk, stream,
         )
     if rc != 0:
         raise RuntimeError(
@@ -426,6 +532,57 @@ def round_step_fold(lo, hi, r, products, degree: int, coeffs=None, out=None):
     return (new_lo, new_hi), sums
 
 
+def round_nofold_batched(lo, hi, products, degree: int, extent: int, out=None,
+                         coeffs=None) -> torch.Tensor:
+    """Round 0 of B instances in one launch: each evaluated over lanes [0,
+    extent) without a fold, [times its own coefficients], into its row of
+    the (B, d+1, 16) sums. Launches the CUDA kernel for a CUDA pair, runs
+    `round_nofold_batched_ref` for a CPU pair."""
+    if lo.device.type == "cpu":
+        return round_nofold_batched_ref(lo, hi, products, degree, extent, out, coeffs)
+    _kernel_device(lo)
+    _check_batched(lo, hi, products, degree, extent, False, coeffs=coeffs, out=out)
+    sums = _launch(_NOFOLD, lo, hi, None, products, degree, extent, out, coeffs=coeffs)
+    round_nofold_batched.launches += 1
+    return sums
+
+
+def round_fold_batched(lo, hi, r, products, degree: int, extent: int,
+                       out=None) -> torch.Tensor:
+    """A generic-chain fold round of B instances in one launch: instance b
+    folded in place by its challenge r[b], then evaluated. Launches the CUDA
+    kernel for a CUDA pair, runs `round_fold_batched_ref` for a CPU pair."""
+    if lo.device.type == "cpu":
+        return round_fold_batched_ref(lo, hi, r, products, degree, extent, out)
+    _kernel_device(lo)
+    _check_batched(lo, hi, products, degree, extent, True, r=r, out=out)
+    sums = _launch(_FOLD_IN_PLACE, lo, hi, r, products, degree, extent, out)
+    round_fold_batched.launches += 1
+    return sums
+
+
+def round_step_fold_batched(lo, hi, r, products, degree: int, coeffs=None, out=None):
+    """A per-size fold round of B instances in one launch: instance b folded
+    by r[b] into fresh (B, U, 16, H/2) tables, [times its own coefficients],
+    then evaluated; returns ((new_lo, new_hi), sums). Launches the CUDA
+    kernel for a CUDA pair, runs `round_step_fold_batched_ref` for a CPU
+    pair."""
+    if lo.device.type == "cpu":
+        return round_step_fold_batched_ref(lo, hi, r, products, degree, coeffs, out)
+    _kernel_device(lo)
+    width = lo.shape[-1]
+    if width % 2:
+        raise ValueError(f"a per-size fold needs an even pair width, got {width}")
+    quarter = width // 2
+    _check_batched(lo, hi, products, degree, max(quarter, 1), True, r=r, coeffs=coeffs, out=out)
+    new_lo = torch.empty(lo.shape[:3] + (quarter,), dtype=torch.int32, device=lo.device)
+    new_hi = torch.empty_like(new_lo)
+    sums = _launch(_FOLD_OUT, lo, hi, r, products, degree, quarter, out,
+                           tables=(new_lo, new_hi), coeffs=coeffs)
+    round_step_fold_batched.launches += 1
+    return (new_lo, new_hi), sums
+
+
 def round_fold_mxu(lo, hi, r, products, degree: int, extent: int, out=None) -> torch.Tensor:
     """Rounds 1..nv-1 of the generic chain in the MXU fold mode: what
     `round_fold` computes, with each fold multiply as a byte-matrix product
@@ -453,6 +610,9 @@ round_fold.launches = 0
 round_step_nofold.launches = 0
 round_step_fold.launches = 0
 round_fold_mxu.launches = 0
+round_nofold_batched.launches = 0
+round_fold_batched.launches = 0
+round_step_fold_batched.launches = 0
 
 
 def _raise_mxu(rc: int, what: str) -> None:

@@ -24,8 +24,14 @@ over `fields/limbs_torch.py`.
    next fold reads it, and the advanced transcript into `state` ((26, 2)
    int32, the packed state of `transcript/device.py`), all in place.
 
-It launches the kernel for CUDA tensors and runs `transcript_step_ref` for
-CPU tensors; it raises for anything else. Nothing waits for the device, so
+`transcript_step_batched(state, sums, msgs, rs, j)` does the same for B
+transcripts in one launch, one warp each (`_btranscript`,
+`sumcheck_tpu/batch.py:303-323`): (B, 26, 2) states, the round's (B, d+1,
+16) sums, (nv, B, 16, d+1) msgs and (nv, B, 16) rs. Each transcript keeps
+its own pending-byte count.
+
+Each launches the kernel for CUDA tensors and runs its `_ref` for CPU
+tensors; it raises for anything else. Nothing waits for the device, so
 a whole chain of rounds enqueues without a host sync.
 """
 
@@ -65,12 +71,12 @@ def _library() -> ctypes.CDLL:
     lib.sc_transcript_state_words.restype = ctypes.c_int
     if lib.sc_transcript_state_words() != STATE_WORDS:
         raise RuntimeError("transcript kernel and plain version disagree on the state layout")
-    lib.sc_transcript_launch.argtypes = [
+    lib.sc_transcript_launch_batched.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # state, sums, degree
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,  # msgs, rs, j
-        ctypes.POINTER(ctypes.c_uint32), ctypes.c_void_p,  # field, stream
+        ctypes.c_int, ctypes.POINTER(ctypes.c_uint32), ctypes.c_void_p,  # batch, field, stream
     ]
-    lib.sc_transcript_launch.restype = ctypes.c_int
+    lib.sc_transcript_launch_batched.restype = ctypes.c_int
     lib.sc_empty_launch.argtypes = [ctypes.c_void_p]
     lib.sc_latency_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.sc_compress_probe.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
@@ -82,17 +88,29 @@ def _library() -> ctypes.CDLL:
 
 
 def _check(state, sums, msgs, rs, j: int) -> None:
-    if state.shape != (STATE_WORDS, 2) or state.dtype != torch.int32:
-        raise ValueError(f"state must be a ({STATE_WORDS}, 2) int32 tensor")
-    if sums.dim() != 2 or sums.shape[1] != NUM_DIGITS or sums.dtype != torch.int64:
-        raise ValueError(f"sums must be a (d+1, 16) int64 tensor, got {tuple(sums.shape)}")
-    d1 = sums.shape[0]
+    """Checks of the single step: (26, 2) state, (d+1, 16) sums, (nv, 16,
+    d+1) msgs, (nv, 16) rs."""
+    _check_shapes(state, sums, msgs, rs, j, ())
+
+
+def _check_shapes(state, sums, msgs, rs, j: int, batch: tuple) -> None:
+    """`_check` with `batch` = () or (B,): the states and sums lead with it,
+    msgs and rs carry it after the round axis."""
+    if state.shape != batch + (STATE_WORDS, 2) or state.dtype != torch.int32:
+        raise ValueError(f"state must be a {batch + (STATE_WORDS, 2)} int32 tensor")
+    if (sums.dim() != len(batch) + 2 or sums.shape[:len(batch)] != batch
+            or sums.shape[-1] != NUM_DIGITS or sums.dtype != torch.int64):
+        raise ValueError(f"sums must be a {batch + ('d+1', 16)} int64 tensor, got "
+                         f"{tuple(sums.shape)}")
+    d1 = sums.shape[-2]
     if not 2 <= d1 <= MAX_DEGREE + 1:
         raise ValueError(f"degree {d1 - 1} is outside [1, {MAX_DEGREE}]")
-    if msgs.dim() != 3 or msgs.shape[1:] != (NUM_DIGITS, d1) or msgs.dtype != torch.int32:
-        raise ValueError(f"msgs must be an (nv, 16, {d1}) int32 tensor")
-    if rs.dim() != 2 or rs.shape[1] != NUM_DIGITS or rs.dtype != torch.int32:
-        raise ValueError("rs must be an (nv, 16) int32 tensor")
+    if (msgs.dim() != len(batch) + 3 or msgs.shape[1:] != batch + (NUM_DIGITS, d1)
+            or msgs.dtype != torch.int32):
+        raise ValueError(f"msgs must be an {('nv',) + batch + (NUM_DIGITS, d1)} int32 tensor")
+    if rs.dim() != len(batch) + 2 or rs.shape[1:] != batch + (NUM_DIGITS,) \
+            or rs.dtype != torch.int32:
+        raise ValueError(f"rs must be an {('nv',) + batch + (NUM_DIGITS,)} int32 tensor")
     if not (0 <= j < msgs.shape[0] and j < rs.shape[0]):
         raise ValueError(f"round {j} is outside the output buffers")
     for x in (sums, msgs, rs):
@@ -102,9 +120,10 @@ def _check(state, sums, msgs, rs, j: int) -> None:
         raise ValueError("transcript step operands must be contiguous")
 
 
-def transcript_step_ref(state, sums, msgs, rs, j: int) -> None:
-    """Plain version of the transcript kernel (any device)."""
-    _check(state, sums, msgs, rs, j)
+def _step(state, sums):
+    """One transcript's round on plain ops: `state` ((26, 2) int32) advanced
+    in place; returns the canonical (16, d+1) digits and the challenge's
+    (16,) Montgomery digits, int32."""
     rows = list(sums.T)  # 16 rows of (d+1,) per-digit sums
     zero = torch.zeros_like(rows[0])
     strict, _ = LT._chain(rows + [zero] * (WIDE_DIGITS - NUM_DIGITS))
@@ -113,8 +132,31 @@ def transcript_step_ref(state, sums, msgs, rs, j: int) -> None:
     ts = feed_fr_vec(DevTranscript.from_state(state), canon)
     r, ts = fr_rand(ts)
     state.copy_(ts.to_state())
-    msgs[j] = canon.to(torch.int32)
-    rs[j] = r.to(torch.int32)
+    return canon.to(torch.int32), r.to(torch.int32)
+
+
+def transcript_step_ref(state, sums, msgs, rs, j: int) -> None:
+    """Plain version of the transcript kernel (any device)."""
+    _check(state, sums, msgs, rs, j)
+    msgs[j], rs[j] = _step(state, sums)
+
+
+def _check_batched(state, sums, msgs, rs, j: int) -> int:
+    """Checks of the batched step: (B, 26, 2) states, (B, d+1, 16) sums,
+    (nv, B, 16, d+1) msgs, (nv, B, 16) rs. Returns B."""
+    if state.dim() != 3 or not 1 <= state.shape[0] <= 65535:
+        raise ValueError(f"states must be (B, {STATE_WORDS}, 2) with 1 <= B <= 65535, got "
+                         f"{tuple(state.shape)}")
+    _check_shapes(state, sums, msgs, rs, j, (state.shape[0],))
+    return state.shape[0]
+
+
+def transcript_step_batched_ref(state, sums, msgs, rs, j: int) -> None:
+    """Plain version of the batched transcript kernel (any device): the
+    single plain step per transcript."""
+    batch = _check_batched(state, sums, msgs, rs, j)
+    for b in range(batch):
+        msgs[j, b], rs[j, b] = _step(state[b], sums[b])
 
 
 def transcript_step(state, sums, msgs, rs, j: int) -> None:
@@ -130,19 +172,45 @@ def transcript_step(state, sums, msgs, rs, j: int) -> None:
     lib = _library()
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
-        rc = lib.sc_transcript_launch(
+        rc = lib.sc_transcript_launch_batched(
             state.data_ptr(), sums.data_ptr(), sums.shape[0] - 1,
-            msgs.data_ptr(), rs.data_ptr(), j, _FIELD, stream,
+            msgs.data_ptr(), rs.data_ptr(), j, 1, _FIELD, stream,
         )
-    if rc != 0:
-        raise RuntimeError(
-            f"transcript kernel launch failed: "
-            f"{lib.sc_transcript_error_string(rc).decode()} ({rc})"
-        )
+    _raise(rc, "transcript kernel")
     transcript_step.launches += 1
 
 
 transcript_step.launches = 0
+
+
+def transcript_step_batched(state, sums, msgs, rs, j: int) -> None:
+    """Round j's transcript step of B transcripts in one launch, one warp
+    each: `state` (B, 26, 2), `sums` the round's (B, d+1, 16) rows, `msgs`
+    (nv, B, 16, d+1), `rs` (nv, B, 16); instance b's outputs go to
+    msgs[j, b] and rs[j, b], so the next batched fold reads rs[j] as one
+    (B, 16) block. Each transcript keeps its own pending-byte count.
+    Launches the CUDA kernel for CUDA tensors, runs
+    `transcript_step_batched_ref` for CPU tensors."""
+    if state.device.type == "cpu":
+        return transcript_step_batched_ref(state, sums, msgs, rs, j)
+    if state.device.type != "cuda":
+        raise ValueError(f"no transcript kernel for device {state.device}")
+    batch = _check_batched(state, sums, msgs, rs, j)
+    if state.data_ptr() % 8:
+        raise ValueError("the kernel reads the states as 64-bit words: they must be 8-byte "
+                         "aligned")
+    lib = _library()
+    with torch.cuda.device(state.device):
+        stream = torch.cuda.current_stream(state.device).cuda_stream
+        rc = lib.sc_transcript_launch_batched(
+            state.data_ptr(), sums.data_ptr(), sums.shape[1] - 1,
+            msgs.data_ptr(), rs.data_ptr(), j, batch, _FIELD, stream,
+        )
+    _raise(rc, "batched transcript kernel")
+    transcript_step_batched.launches += 1
+
+
+transcript_step_batched.launches = 0
 
 
 def _raise(rc: int, what: str) -> None:

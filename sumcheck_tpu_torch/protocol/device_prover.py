@@ -3,9 +3,9 @@ plumbing of the on-device transcript.
 
 Port of `sumcheck_tpu/protocol/device_prover.py`:
 
-- `_fold_plan` (`:141-177`) and `init_pair` (`:298-334`, with the scaling of
-  `_stacker` as torch ops on the pair's device): the table pair both chains
-  start from;
+- `_fold_plan` (`:141-177`) and `init_pair` (`:298-334`, `_stacker` as one
+  `ops/init_cuda.pair_init` kernel launch): the table pair both chains
+  start from; `init_pairs` writes B instances' pairs into one batched pair;
 - `_kernel_step` (`:40-115`), `chain_rounds` (`:337-371`) and
   `prove_chained` (`:460-491`): the per-size chain
   (`SUMCHECK_TPU_CHAIN_IMPL=persize`). Each round launches two kernels, one
@@ -18,7 +18,10 @@ Port of `sumcheck_tpu/protocol/device_prover.py`:
 - `lift_transcript`, `fetch_chain_outputs` (`_packer`), `col_int`,
   `msgs_from_host` and `restore_transcript` (`:374-457`), shared with the
   generic chain (`generic_prover.py`): one upload of the host transcript
-  before the chain, one device-to-host copy after it.
+  before the chain, one device-to-host copy after it;
+- the batched counterparts for `batch.py`: `chain_rounds_batched` (the
+  per-size chain over B instances, `sumcheck_tpu/batch.py:349-416`),
+  `lift_transcripts` and `finish_chain_batched`.
 
 Left out, because they work around the TPU: `_init_pair_incremental`,
 `_slot_writer`, `_ones_writer` and `_BIG_PAIR_BYTES` (`:206-295`, for the
@@ -33,10 +36,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..fields import limbs_np as L
-from ..fields import limbs_torch as LT
 from ..fields.fr import NUM_DIGITS, Fr, P, R_INV
-from ..ops import round_cuda, transcript_cuda
+from ..ops import init_cuda, round_cuda, transcript_cuda
 from ..transcript.device import DevTranscript
 from ..utils.errors import SumcheckError
 
@@ -80,34 +81,54 @@ def _fold_plan(polynomial):
     return products, tuple(scale_plan), num_slots, need_ones
 
 
+def _fill_pair(lo, hi, polynomial, plan, device) -> None:
+    """One `init_cuda.pair_init` launch: every slot of `lo`, `hi` ((U, 16,
+    n/2), possibly one instance's slice of a batched pair) from the
+    polynomial's device-cached tables (`DenseMLE.to_device`) by its
+    `_fold_plan`. The cached tables are only read."""
+    _products, scale_plan, _num_slots, need_ones = plan
+    tabs = [m.to_device(device) for m in polynomial.flattened_ml_extensions]
+    init_cuda.pair_init(lo, hi, tabs, init_cuda.slot_specs(len(tabs), scale_plan, need_ones))
+
+
 def init_pair(polynomial, device):
     """Build the (lo, hi) table pair the round kernels consume on `device`:
     unique tables (device-cached, bit-reversed — `DenseMLE.to_device`),
     product coefficients pre-multiplied into one exclusive slot each, a
-    constant-one slot only if some product needs ragged padding.
+    constant-one slot only if some product needs ragged padding; one
+    `pair_init` kernel launch on a card.
 
     Returns (lo, hi, products, degree): lo and hi are fresh (U, 16, 2^nv/2)
     int32 tensors that the rounds fold in place."""
+    device = resolve_device(device)
     n = 1 << polynomial.num_variables
-    products, scale_plan, num_slots, need_ones = _fold_plan(polynomial)
-    tabs = [m.to_device(device) for m in polynomial.flattened_ml_extensions]
-    for dst, src, coeff in scale_plan:
-        col = LT.from_numpy(L.mont_scalar(coeff), tabs[src].device)
-        scaled = LT.mont_mul(tabs[src], col).to(torch.int32)
-        if dst == src:
-            tabs[src] = scaled
-        else:
-            tabs.append(scaled)
-    if need_ones:
-        one = torch.from_numpy(L.mont_scalar(1).astype("int32"))
-        tabs.append(one.to(tabs[0].device).expand(NUM_DIGITS, n))
-    # slot axis leading: (U, 16, n/2) halves, filled slot by slot
-    lo = torch.empty((num_slots, NUM_DIGITS, n // 2), dtype=torch.int32, device=tabs[0].device)
+    plan = _fold_plan(polynomial)
+    lo = torch.empty((plan[2], NUM_DIGITS, n // 2), dtype=torch.int32, device=device)
     hi = torch.empty_like(lo)
-    for u, t in enumerate(tabs):
-        lo[u] = t[:, : n // 2]
-        hi[u] = t[:, n // 2 :]
-    return lo, hi, products, polynomial.max_multiplicands
+    _fill_pair(lo, hi, polynomial, plan, device)
+    return lo, hi, plan[0], polynomial.max_multiplicands
+
+
+def init_pairs(polynomials, device):
+    """The batched pair of B polynomials of one shape on `device`: instance
+    b's `init_pair` written straight into slice b of (B, U, 16, 2^nv/2)
+    `lo`, `hi` (one `pair_init` launch each, no stacking copy).
+
+    Returns (lo, hi, products, degree), or None when the instances' fold
+    plans differ (their coefficients put different slots in the products):
+    one product index structure cannot then serve them all."""
+    device = resolve_device(device)
+    plans = [_fold_plan(p) for p in polynomials]
+    products, _scale, num_slots, _ones = plans[0]
+    if any(p[0] != products for p in plans):  # equal products: equal slot counts
+        return None
+    n = 1 << polynomials[0].num_variables
+    shape = (len(polynomials), num_slots, NUM_DIGITS, n // 2)
+    lo = torch.empty(shape, dtype=torch.int32, device=device)
+    hi = torch.empty_like(lo)
+    for b, (poly, plan) in enumerate(zip(polynomials, plans)):
+        _fill_pair(lo[b], hi[b], poly, plan, device)
+    return lo, hi, products, polynomials[0].max_multiplicands
 
 
 def resolve_device(device) -> torch.device:
@@ -169,9 +190,49 @@ def chain_rounds(pair: list, state, products, degree: int, num_rounds: int,
     return msgs, rs, state, (lo, hi)
 
 
+def chain_rounds_batched(pair: list, state, products, degree: int, num_rounds: int,
+                         step_fns=None, transcript_fn=None):
+    """`chain_rounds` over B instances at once, the counterpart of the JAX
+    package's `_prove_batched_chained` (`sumcheck_tpu/batch.py:349-416`):
+    `pair` is the list [lo, hi] of (B, U, 16, H) tables (emptied here, as
+    `chain_rounds` does), `state` the (B, 26, 2) transcripts. Per round one
+    batched round kernel (`round_nofold_batched` over all H lanes in round
+    0, then `round_step_fold_batched` into fresh half-width tables, each
+    instance folded by its own challenge) adding into row j of a zeroed (k,
+    B, d+1, 16) buffer, and one batched transcript step reading it: two
+    launches a round for all B instances, no host sync. Returns (msgs (k, B,
+    16, d+1), rs (k, B, 16), state, (lo, hi)). `step_fns` and
+    `transcript_fn` are test hooks."""
+    nofold, fold = step_fns or (round_cuda.round_nofold_batched,
+                                round_cuda.round_step_fold_batched)
+    transcript = transcript_fn or transcript_cuda.transcript_step_batched
+    lo, hi = pair
+    pair.clear()
+    msgs, rs, rows = _batched_buffers(num_rounds, lo.shape[0], degree, lo.device)
+    for j in range(num_rounds):
+        if j == 0:
+            sums = nofold(lo, hi, products, degree, lo.shape[3], rows[0])
+        else:
+            (lo, hi), sums = fold(lo, hi, rs[j - 1], products, degree, None, rows[j])
+        transcript(state, sums, msgs, rs, j)
+    return msgs, rs, state, (lo, hi)
+
+
+def _batched_buffers(num_rounds: int, batch: int, degree: int, device):
+    """A batched chain's outputs, (k, B, 16, d+1) msgs and (k, B, 16) rs,
+    and its zeroed (k, B, d+1, 16) int64 sums buffer."""
+    msgs = torch.empty((num_rounds, batch, NUM_DIGITS, degree + 1), dtype=torch.int32,
+                       device=device)
+    rs = torch.empty((num_rounds, batch, NUM_DIGITS), dtype=torch.int32, device=device)
+    rows = torch.zeros((num_rounds, batch, degree + 1, NUM_DIGITS), dtype=torch.int64,
+                       device=device)
+    return msgs, rs, rows
+
+
 def fetch_chain_outputs(msgs, rs, state):
     """One device-to-host copy of everything a chain produced; returns
-    (msgs (k, 16, d+1), rs (k, 16), state (26, 2)) as CPU int32 tensors."""
+    (msgs (k, [B,] 16, d+1), rs (k, [B,] 16), state ([B,] 26, 2)) as CPU
+    int32 tensors."""
     flat = torch.cat([msgs.reshape(-1), rs.reshape(-1), state.reshape(-1)]).cpu()
     o1 = msgs.numel()
     o2 = o1 + rs.numel()
@@ -190,6 +251,17 @@ def upload(t: torch.Tensor, device) -> torch.Tensor:
 def lift_transcript(fs_rng, device) -> torch.Tensor:
     """The packed device transcript of a host `Blake2b512Rng`, one upload."""
     return upload(DevTranscript.lift(fs_rng.state_tuple()).to_state(), device)
+
+
+def lift_transcripts(fs_rngs, device):
+    """The (B, 26, 2) packed device transcripts of B host `Blake2b512Rng`s,
+    one upload; each keeps its own pending-byte count. None if a transcript
+    holds a pending byte count that is not a multiple of 8, which the
+    device transcript cannot hold."""
+    states = [r.state_tuple() for r in fs_rngs]
+    if any(len(buf) % 8 for _h, _t, buf in states):
+        return None
+    return upload(torch.stack([DevTranscript.lift(s).to_state() for s in states]), device)
 
 
 def col_int(d) -> int:
@@ -224,6 +296,19 @@ def finish_chain(fs_rng, msgs, rs, state, degree: int):
     randomness = [Fr(col_int(rd) * R_INV % P) for rd in rs_h.numpy()]
     restore_transcript(fs_rng, state_h)
     return prover_msgs, randomness
+
+
+def finish_chain_batched(fs_rngs, msgs, rs, state, degree: int):
+    """After a batched chain: one fetch for all B instances, then each
+    instance's proof messages and challenges, and each host transcript set
+    to its device state. Returns (proofs, challenges), lists of B."""
+    msgs_h, rs_h, state_h = fetch_chain_outputs(msgs, rs, state)
+    proofs, challenges = [], []
+    for b, rng in enumerate(fs_rngs):
+        proofs.append(msgs_from_host(msgs_h[:, b], degree))
+        challenges.append([Fr(col_int(rd) * R_INV % P) for rd in rs_h[:, b].numpy()])
+        restore_transcript(rng, state_h[b])
+    return proofs, challenges
 
 
 def prover_state(polynomial, lo, hi, randomness, degree: int):

@@ -23,6 +23,9 @@ one copy (`device_prover.finish_chain`). A round is two launches: the round
 kernel adds its sums into the round's row of one zeroed buffer
 (`device_prover.sum_rows`), and the transcript step reads that row.
 
+`chain_rounds_generic_batched` runs the same chain over B instances at once
+for `batch.py`, two launches a round for all of them.
+
 `prove_host_transcript` is the loop for any other transcript: each round
 copies its exact sums to the host (one sync), reduces them mod p, feeds the
 `ProverMsg` and samples the challenge on `fs_rng`, then uploads the
@@ -46,6 +49,7 @@ from ..ops import round_cuda, transcript_cuda
 from ..utils.config import get_config
 from ..utils.errors import SumcheckError
 from .device_prover import (
+    _batched_buffers,
     finish_chain,
     init_pair,
     lift_transcript,
@@ -74,6 +78,34 @@ def chain_rounds_generic(lo, hi, state, products, degree: int, num_rounds: int,
     msgs = torch.empty((num_rounds, NUM_DIGITS, degree + 1), dtype=torch.int32, device=device)
     rs = torch.empty((num_rounds, NUM_DIGITS), dtype=torch.int32, device=device)
     rows = sum_rows(num_rounds, degree, device)
+    for j in range(num_rounds):
+        extent = half >> j
+        if j == 0:
+            sums = nofold(lo, hi, products, degree, extent, rows[j])
+        else:
+            sums = fold(lo, hi, rs[j - 1], products, degree, extent, rows[j])
+        transcript(state, sums, msgs, rs, j)
+    return msgs, rs, state
+
+
+def chain_rounds_generic_batched(lo, hi, state, products, degree: int, num_rounds: int,
+                                 round_fns=None, transcript_fn=None):
+    """`chain_rounds_generic` over B instances at once, the counterpart of
+    the JAX package's vmapped step and chain (`_bstep_generic`,
+    `_bchain_generic`, `_prove_batched_generic`, `sumcheck_tpu/batch.py:
+    60-84, 157-257`): `lo`, `hi` are (B, U, 16, H) tables folded in place,
+    `state` the (B, 26, 2) transcripts. Per round one batched round kernel
+    (`round_nofold_batched`, then `round_fold_batched`, instance b folded by
+    its own challenge rs[j-1, b]) adding into row j of a zeroed (k, B, d+1,
+    16) buffer, and one batched transcript step reading it: two launches a
+    round for all B instances, no host sync. The fold is `round_fold_batched`
+    in every MXU mode, as the JAX batch never takes the MXU kernel. Returns
+    (msgs (k, B, 16, d+1), rs (k, B, 16), state). `round_fns` and
+    `transcript_fn` are test hooks."""
+    nofold, fold = round_fns or (round_cuda.round_nofold_batched, round_cuda.round_fold_batched)
+    transcript = transcript_fn or transcript_cuda.transcript_step_batched
+    half = lo.shape[3]
+    msgs, rs, rows = _batched_buffers(num_rounds, lo.shape[0], degree, lo.device)
     for j in range(num_rounds):
         extent = half >> j
         if j == 0:

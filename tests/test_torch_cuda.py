@@ -638,3 +638,265 @@ def test_gkr_prove_on_cuda_equals_cpu(cuda, mode, monkeypatch):
     assert rng.state_tuple() == rng_cpu.state_tuple()
     sub = T.GKRRoundSumcheck.verify(T.Blake2b512Rng.setup(), dim, proof, proof.extract_sum())
     assert sub.verify_subclaim(f1, f2, f3, g)
+
+
+# ---------------------------------------------------------------------------
+# the batched provers' kernels: the instance axis and the pair init
+# ---------------------------------------------------------------------------
+
+
+def _batched_pair(seed, batch, slots, nv, device):
+    pairs = [_pair(seed + b, slots, nv, device) for b in range(batch)]
+    return torch.stack([p[0] for p in pairs]), torch.stack([p[1] for p in pairs])
+
+
+def _challenges(batch, seed, device):
+    gen = np.random.default_rng(seed)
+    r = np.stack([L.mont_scalar(int(gen.integers(1, 1 << 62)) % P)[:, 0] for _ in range(batch)])
+    return torch.from_numpy(r.astype(np.int32)).to(device)
+
+
+def _batch_coeffs(batch, products, seed, device):
+    gen = np.random.default_rng(seed)
+    c = np.stack([np.stack([L.mont_scalar(int(gen.integers(1, 1 << 62)))[:, 0]
+                            for _ in products]) for _ in range(batch)])
+    return torch.from_numpy(c.astype(np.int32)).to(device)
+
+
+# every extent of an nv=8 prove's rounds, then ragged ones
+BATCH_EXTENTS = [128 >> j for j in range(8)] + [3, 37, 100]
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8])
+@pytest.mark.parametrize("mode", ["nofold", "nofold_coeffs", "fold", "step_fold",
+                                  "step_fold_coeffs"])
+def test_batched_round_kernels_match_plain(cuda, mode, batch):
+    """Each batched round kernel against its plain version (the single plain
+    version per instance) at every extent of an nv=8 prove and at ragged
+    ones, instance b with its own challenge and coefficients: sums rows and
+    tables array-equal, lanes past the extent untouched, and every instance
+    equal to its own single-kernel launch."""
+    products = ((0, 1, 2), (3, 4, 5))
+    lo, hi = _batched_pair(batch * 10, batch, 6, 9, cuda)  # H = 256
+    r = _challenges(batch, batch, cuda)
+    coeffs = _batch_coeffs(batch, products, batch + 1, cuda) if mode.endswith("coeffs") else None
+    for extent in BATCH_EXTENTS:
+        if mode.startswith("step_fold"):
+            w = 2 * extent
+            l, h = lo[..., :w].contiguous(), hi[..., :w].contiguous()
+            (gl, gh), got = RC.round_step_fold_batched(l, h, r, products, 3, coeffs)
+            (wl, wh), want = RC.round_step_fold_batched_ref(l.cpu(), h.cpu(), r.cpu(), products,
+                                                            3, None if coeffs is None
+                                                            else coeffs.cpu())
+            torch.cuda.synchronize()
+            assert torch.equal(gl.cpu(), wl) and torch.equal(gh.cpu(), wh), extent
+            assert torch.equal(got.cpu(), want), extent
+            for b in range(batch):
+                (sl, sh), single = RC.round_step_fold(l[b].contiguous(), h[b].contiguous(), r[b],
+                                                      products, 3,
+                                                      None if coeffs is None else coeffs[b])
+                assert torch.equal(single, got[b]) and torch.equal(sl, gl[b]), (extent, b)
+            continue
+        fold = mode == "fold"
+        l1, h1 = lo.clone(), hi.clone()
+        l2, h2 = lo.cpu(), hi.cpu()
+        if fold:
+            got = RC.round_fold_batched(l1, h1, r, products, 3, extent)
+            want = RC.round_fold_batched_ref(l2, h2, r.cpu(), products, 3, extent)
+        else:
+            got = RC.round_nofold_batched(l1, h1, products, 3, extent, coeffs=coeffs)
+            want = RC.round_nofold_batched_ref(l2, h2, products, 3, extent,
+                                               coeffs=None if coeffs is None else coeffs.cpu())
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), extent
+        assert torch.equal(l1.cpu(), l2) and torch.equal(h1.cpu(), h2), extent
+        if fold:
+            assert torch.equal(l1[..., extent:], lo[..., extent:]), extent
+        for b in range(batch):
+            ls, hs = lo[b].clone(), hi[b].clone()
+            if fold:
+                single = RC.round_fold(ls, hs, r[b], products, 3, extent)
+            elif coeffs is None:
+                single = RC.round_nofold(ls, hs, products, 3, extent)
+            else:
+                single = RC.round_step_nofold(ls[..., :extent].contiguous(),
+                                              hs[..., :extent].contiguous(), products, 3,
+                                              coeffs[b])
+            assert torch.equal(single, got[b]), (extent, b)
+
+
+@pytest.mark.parametrize("degree", [1, 3, 5])
+def test_batched_round_kernels_other_degrees(cuda, degree):
+    """The register body (degree <= 4) and the ladder body (above) of round
+    0 and the fold, batched, with coefficients, against the plain versions."""
+    products = ((0, 1), (2, 1)) if degree <= 2 else (tuple(range(degree)),
+                                                     tuple(range(degree - 1, -1, -1)))
+    slots = max(max(p) for p in products) + 1
+    lo, hi = _batched_pair(degree, 3, slots, 8, cuda)
+    r = _challenges(3, degree, cuda)
+    coeffs = _batch_coeffs(3, products, degree, cuda)
+    got = RC.round_nofold_batched(lo, hi, products, degree, 77, coeffs=coeffs)
+    want = RC.round_nofold_batched_ref(lo.cpu(), hi.cpu(), products, degree, 77,
+                                       coeffs=coeffs.cpu())
+    assert torch.equal(got.cpu(), want)
+    (gl, _gh), got = RC.round_step_fold_batched(lo, hi, r, products, degree, coeffs)
+    (wl, _wh), want = RC.round_step_fold_batched_ref(lo.cpu(), hi.cpu(), r.cpu(), products,
+                                                     degree, coeffs.cpu())
+    assert torch.equal(got.cpu(), want) and torch.equal(gl.cpu(), wl)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8])
+def test_batched_transcript_matches_plain(cuda, batch):
+    """The batched transcript step against the plain step per transcript,
+    over 30 rounds from unequal pending-byte counts (each block reads its
+    own): messages, challenges and final states array-equal, and each
+    instance equal to the single kernel's run."""
+    degree = 3
+    gen = np.random.default_rng(batch)
+    rngs = []
+    for b in range(batch):
+        rng = T.Blake2b512Rng.setup()
+        rng.feed_bytes(bytes(range(8 * ((5 * b) % 17))))
+        rngs.append(rng)
+    from sumcheck_tpu_torch.protocol.device_prover import lift_transcripts
+
+    state = lift_transcripts(rngs, cuda)
+    state_p, state_s = state.cpu(), state.clone()
+    rounds = 30
+    sums = torch.from_numpy(gen.integers(0, 1 << 40, size=(rounds, batch, degree + 1, 16),
+                                         dtype=np.int64)).to(cuda)
+    msgs = torch.empty((rounds, batch, 16, degree + 1), dtype=torch.int32, device=cuda)
+    rs = torch.empty((rounds, batch, 16), dtype=torch.int32, device=cuda)
+    msgs_p, rs_p = torch.empty_like(msgs).cpu(), torch.empty_like(rs).cpu()
+    for j in range(rounds):
+        TC.transcript_step_batched(state, sums[j], msgs, rs, j)
+        TC.transcript_step_batched_ref(state_p, sums[j].cpu(), msgs_p, rs_p, j)
+    torch.cuda.synchronize()
+    assert torch.equal(state.cpu(), state_p)
+    assert torch.equal(msgs.cpu(), msgs_p) and torch.equal(rs.cpu(), rs_p)
+    for b in range(batch):
+        st = state_s[b].clone()
+        m = torch.empty((rounds, 16, degree + 1), dtype=torch.int32, device=cuda)
+        rr = torch.empty((rounds, 16), dtype=torch.int32, device=cuda)
+        for j in range(rounds):
+            TC.transcript_step(st, sums[j, b].contiguous(), m, rr, j)
+        assert torch.equal(st, state[b])
+        assert torch.equal(m, msgs[:, b]) and torch.equal(rr, rs[:, b])
+
+
+@pytest.mark.parametrize("case", ["inplace", "copy", "ones", "unit", "batched_slice"])
+def test_pair_init_matches_plain(cuda, case):
+    """The pair-init kernel against its plain version: an in-place scaling,
+    an appended scaled copy, a ones slot, a unit coefficient, and writes
+    into one instance's slice of a batched pair; the source tables stay as
+    they were."""
+    from sumcheck_tpu_torch.ops import init_cuda as IC
+
+    nv = 9
+    tables = [torch.from_numpy(t.astype(np.int32)).to(cuda) for t in _tables(40, nv, 4)]
+    before = [t.clone() for t in tables]
+    specs = {
+        "inplace": ((0, 12345), (1, None), (2, 7), (3, None)),
+        "copy": ((0, None), (1, None), (2, None), (3, None), (0, P - 2), (1, 99)),
+        "ones": ((0, None), (1, 5), (2, None), (3, None), (None, 1)),
+        "unit": ((0, 1), (1, None), (2, 1), (3, 3)),
+        "batched_slice": ((0, 11), (1, None), (2, None), (3, 13), (None, 1)),
+    }[case]
+    half = 1 << (nv - 1)
+    if case == "batched_slice":
+        lo = torch.zeros((3, len(specs), 16, half), dtype=torch.int32, device=cuda)
+        hi = torch.zeros_like(lo)
+        IC.pair_init(lo[1], hi[1], tables, specs)
+        assert not lo[0].any() and not lo[2].any() and not hi[0].any() and not hi[2].any()
+        got = (lo[1], hi[1])
+    else:
+        lo = torch.empty((len(specs), 16, half), dtype=torch.int32, device=cuda)
+        got = (lo, torch.empty_like(lo))
+        IC.pair_init(got[0], got[1], tables, specs)
+    lo_p = torch.empty((len(specs), 16, half), dtype=torch.int32)
+    want = (lo_p, torch.empty_like(lo_p))
+    IC.pair_init_ref(want[0], want[1], [t.cpu() for t in tables], specs)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
+    assert all(torch.equal(a, b) for a, b in zip(tables, before))
+
+
+def _batch_polys(seed, batch, nv, coeff_sets=None):
+    gen = np.random.default_rng(seed)
+    polys = []
+    for b in range(batch):
+        tabs = _tables(seed * 10 + b, nv, 5)
+        cs = coeff_sets[b] if coeff_sets else [int(gen.integers(1, 1 << 62)) for _ in range(3)]
+        polys.append(polynomial_from_numpy(nv, tabs, [(cs[0], [0, 1, 2]), (cs[1], [0, 3]),
+                                                      (cs[2], [4, 0, 4, 1])]))
+    return polys
+
+
+class _OtherRng:
+    def __init__(self):
+        self._rng = T.Blake2b512Rng.setup()
+
+    def feed(self, msg):
+        self._rng.feed(msg)
+
+    def next_u64(self):
+        return self._rng.next_u64()
+
+
+@pytest.mark.parametrize("path", ["generic", "persize", "host", "diverging"])
+def test_batched_ml_on_cuda_equals_per_instance(cuda, path, monkeypatch):
+    """`BatchedMLSumcheck` on the card against per-instance card proves, on
+    both chains (two launches a round for all instances, plus one pair init
+    each), the host loop (another transcript) and diverging fold plans
+    (coefficient 1 in one instance only): proof bytes, challenges and the
+    final transcripts."""
+    from sumcheck_tpu_torch.batch import BatchedMLSumcheck
+    from sumcheck_tpu_torch.ops import init_cuda as IC
+
+    monkeypatch.setattr(get_config(), "chain_impl", "persize" if path == "persize" else "generic")
+    nv, batch = 9, 3
+    coeff_sets = [[5, 1, 9], [1, 5, 9], [7, 7, 7]] if path == "diverging" else None
+    polys = _batch_polys(nv, batch, nv, coeff_sets)
+    make = _OtherRng if path == "host" else T.Blake2b512Rng.setup
+    alone = []
+    for p in polys:
+        rng = make()
+        proof, state = T.MLSumcheck.prove_as_subprotocol(rng, p, device=cuda)
+        alone.append((serialize_proof(proof), state.randomness, rng))
+    fold = RC.round_step_fold_batched if path in ("persize", "host", "diverging") \
+        else RC.round_fold_batched
+    counters = (RC.round_nofold_batched, fold, TC.transcript_step_batched, IC.pair_init)
+    before = [f.launches for f in counters]
+    rngs = [make() for _ in polys]
+    proofs, challenges = BatchedMLSumcheck.prove_as_subprotocol(rngs, polys, device=cuda)
+    want = [1, nv - 1, nv, batch] if path in ("generic", "persize") else [1, nv - 1, 0, batch]
+    assert [f.launches - b for f, b in zip(counters, before)] == want
+    for (blob, randomness, rng_a), pf, ch, rng in zip(alone, proofs, challenges, rngs):
+        assert serialize_proof(pf) == blob and ch == randomness
+        if path != "host":
+            assert rng.state_tuple() == rng_a.state_tuple()
+        assert T.Fr.rand(rng) == T.Fr.rand(rng_a)
+
+
+def test_batched_gkr_on_cuda_equals_per_instance(cuda):
+    """`BatchedGKRRoundSumcheck` on the card against per-instance card
+    proves at dim 7: proof bytes and the next draw of every transcript;
+    2 dim batched transcript steps for all instances."""
+    import random
+
+    from sumcheck_tpu_torch.batch import BatchedGKRRoundSumcheck
+
+    dim, batch = 7, 3
+    rnd = random.Random(dim)
+    insts = [(T.SparseMLE.rand_with_config(3 * dim, 1 << dim, rnd), T.DenseMLE.rand(dim, rnd),
+              T.DenseMLE.rand(dim, rnd), [T.Fr(rnd.randrange(P)) for _ in range(dim)])
+             for _ in range(batch)]
+    alone_rngs = [T.Blake2b512Rng.setup() for _ in insts]
+    alone = [T.GKRRoundSumcheck.prove(r, *i, device=cuda).serialize_uncompressed()
+             for r, i in zip(alone_rngs, insts)]
+    before = TC.transcript_step_batched.launches
+    rngs = [T.Blake2b512Rng.setup() for _ in insts]
+    proofs = BatchedGKRRoundSumcheck.prove(rngs, *(list(t) for t in zip(*insts)), device=cuda)
+    assert TC.transcript_step_batched.launches - before == 2 * dim
+    assert [p.serialize_uncompressed() for p in proofs] == alone
+    assert [T.Fr.rand(r) for r in rngs] == [T.Fr.rand(r) for r in alone_rngs]

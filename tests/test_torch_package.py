@@ -14,12 +14,15 @@ import pytest
 import torch
 
 import sumcheck_tpu_torch as T
+from sumcheck_tpu_torch.batch import BatchedGKRRoundSumcheck, BatchedMLSumcheck
+from sumcheck_tpu_torch.ops import init_cuda as IC
 from sumcheck_tpu_torch.ops import round_cuda as RC
 from sumcheck_tpu_torch.ops import transcript_cuda as TC
 from sumcheck_tpu_torch.utils.config import get_config
 
 COUNTERS = (RC.round_nofold, RC.round_fold, RC.round_step_nofold, RC.round_step_fold,
-            RC.round_fold_mxu, TC.transcript_step)
+            RC.round_fold_mxu, TC.transcript_step, IC.pair_init, RC.round_nofold_batched,
+            RC.round_fold_batched, RC.round_step_fold_batched, TC.transcript_step_batched)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -39,7 +42,8 @@ def test_import_leaves_jax_out():
         import sumcheck_tpu_torch.ops.transcript_cuda, sumcheck_tpu_torch.transcript.device
         import sumcheck_tpu_torch.protocol.generic_prover, sumcheck_tpu_torch.protocol.device_prover
         import sumcheck_tpu_torch.gkr_round_sumcheck, sumcheck_tpu_torch.ops.gkr_init
-        import sumcheck_tpu_torch.ops.mxu_mul
+        import sumcheck_tpu_torch.ops.mxu_mul, sumcheck_tpu_torch.ops.init_cuda
+        import sumcheck_tpu_torch.batch
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "sumcheck_tpu" or m.startswith("sumcheck_tpu.")]
         assert not bad, bad
@@ -128,6 +132,19 @@ def test_wrappers_refuse_other_devices():
     rs = torch.zeros((2, 16), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         TC.transcript_step(state, sums, msgs, rs, 0)
+    blo, bhi = lo[None], hi[None]
+    br = r[None]
+    with pytest.raises(ValueError):
+        RC.round_nofold_batched(blo, bhi, ((0, 1),), 2, 4)
+    with pytest.raises(ValueError):
+        RC.round_fold_batched(blo, bhi, br, ((0, 1),), 2, 4)
+    with pytest.raises(ValueError):
+        RC.round_step_fold_batched(blo, bhi, br, ((0, 1),), 2)
+    with pytest.raises(ValueError):
+        TC.transcript_step_batched(state[None], sums[None], msgs[:, None], rs[:, None], 0)
+    tab = torch.zeros((16, 16), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        IC.pair_init(lo, hi, [tab], ((0, None), (None, 1)))
     assert all(f.launches == 0 for f in COUNTERS)
 
 
@@ -171,8 +188,8 @@ def test_build_names_each_source_and_shared_header(tmp_path, monkeypatch):
     missing `nvcc` raises before anything is built."""
     from sumcheck_tpu_torch.ops import cuda_build
 
-    names = ("round", "transcript", "round_mxu")
-    assert len({cuda_build.library_path(n) for n in names}) == 3
+    names = ("round", "transcript", "round_mxu", "pair_init")
+    assert len({cuda_build.library_path(n) for n in names}) == 4
     assert cuda_build.library_path("round").name.startswith("round_")
     assert cuda_build.CSRC / "round_common.cuh" in cuda_build.HEADERS
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
@@ -211,7 +228,8 @@ def test_gkr_cuda_without_a_card_raises(monkeypatch, mode):
     assert not calls
 
 
-@pytest.mark.parametrize("entry", ["prove", "prove_as_subprotocol", "gkr_prove"])
+@pytest.mark.parametrize("entry", ["prove", "prove_as_subprotocol", "gkr_prove", "batch_prove",
+                                   "batch_prove_as_subprotocol", "batch_gkr_prove"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """The public prove entry points run on the card unless the caller asks
     for the CPU: `device` defaults to "cuda", so a call that names no device
@@ -220,24 +238,39 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
     import inspect
 
     fn = {"prove": T.MLSumcheck.prove, "prove_as_subprotocol": T.MLSumcheck.prove_as_subprotocol,
-          "gkr_prove": T.GKRRoundSumcheck.prove}[entry]
+          "gkr_prove": T.GKRRoundSumcheck.prove, "batch_prove": BatchedMLSumcheck.prove,
+          "batch_prove_as_subprotocol": BatchedMLSumcheck.prove_as_subprotocol,
+          "batch_gkr_prove": BatchedGKRRoundSumcheck.prove}[entry]
     param = inspect.signature(fn).parameters["device"]
     assert param.kind is inspect.Parameter.KEYWORD_ONLY and param.default == "cuda"
     if torch.cuda.is_available():
         return
     calls = []
     for name in ("round_nofold_ref", "round_fold_ref", "round_step_nofold_ref",
-                 "round_step_fold_ref", "round_fold_mxu_ref"):
+                 "round_step_fold_ref", "round_fold_mxu_ref", "round_nofold_batched_ref",
+                 "round_fold_batched_ref", "round_step_fold_batched_ref"):
         monkeypatch.setattr(RC, name, lambda *a: calls.append(a))
-    monkeypatch.setattr(TC, "transcript_step_ref", lambda *a: calls.append(a))
+    for name in ("transcript_step_ref", "transcript_step_batched_ref"):
+        monkeypatch.setattr(TC, name, lambda *a: calls.append(a))
+    monkeypatch.setattr(IC, "pair_init_ref", lambda *a: calls.append(a))
+    rng = T.Blake2b512Rng.setup()
+    state = rng.state_tuple()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         if entry == "prove":
             T.MLSumcheck.prove(_small_poly())
         elif entry == "prove_as_subprotocol":
-            T.MLSumcheck.prove_as_subprotocol(T.Blake2b512Rng.setup(), _small_poly())
+            T.MLSumcheck.prove_as_subprotocol(rng, _small_poly())
+        elif entry == "gkr_prove":
+            T.GKRRoundSumcheck.prove(rng, *_small_gkr())
+        elif entry == "batch_prove":
+            BatchedMLSumcheck.prove([_small_poly()] * 2)
+        elif entry == "batch_prove_as_subprotocol":
+            BatchedMLSumcheck.prove_as_subprotocol([rng], [_small_poly()])
         else:
-            T.GKRRoundSumcheck.prove(T.Blake2b512Rng.setup(), *_small_gkr())
+            BatchedGKRRoundSumcheck.prove([rng], *([x] for x in _small_gkr()))
     assert not calls
+    if entry.startswith("batch"):  # the device is resolved before any feed
+        assert rng.state_tuple() == state
 
 
 @pytest.mark.parametrize("mode", ["generic", "persize", "mxu"])
@@ -249,3 +282,26 @@ def test_cpu_gkr_prove_launches_no_kernel(monkeypatch, mode):
     before = [f.launches for f in COUNTERS]
     T.GKRRoundSumcheck.prove(T.Blake2b512Rng.setup(), *_small_gkr(), device="cpu")
     assert [f.launches for f in COUNTERS] == before
+
+
+@pytest.mark.parametrize("value", ["bn254_fr", "", None, "bls12_381_fr"])
+def test_field_variable_other_than_bls12_381_raises(value):
+    """`SUMCHECK_TPU_FIELD` selects the JAX package's prime at import; the
+    port has BLS12-381 Fr only, so any other value raises on import, naming
+    the variable, instead of proving over a field the caller did not ask
+    for. Unset or `bls12_381_fr` imports cleanly."""
+    env = dict(os.environ)
+    env.pop("SUMCHECK_TPU_FIELD", None)
+    if value is not None:
+        env["SUMCHECK_TPU_FIELD"] = value
+    proc = _run("""
+        import sumcheck_tpu_torch
+        from sumcheck_tpu_torch.fields.fr import P
+        print(hex(P))
+    """, env=env)
+    if value in (None, "bls12_381_fr"):
+        assert proc.returncode == 0, proc.stderr
+        assert proc.stdout.strip() == hex(T.fields.fr.P)
+    else:
+        assert proc.returncode != 0
+        assert "SUMCHECK_TPU_FIELD" in proc.stderr and "ImportError" in proc.stderr
