@@ -65,7 +65,7 @@ failure raises and exits non-zero without the final line:
    transcript steps; the profiler's count of round kernels and transcript
    steps in one prove), everything between the uploads and the one fetch
    under the sync debug mode "error", the phase inits and the round kernels
-   timed alone, verify and `verify_subclaim`, and proof bytes equal across
+   timed alone, one verify and `verify_subclaim`, and proof bytes equal across
    the three and the plain path on the card;
 10. the batch headlines: `batch.BatchedMLSumcheck.prove` on 8 x nv=16 2x3
    (`bench.py:302-310`) on both chains and `BatchedGKRRoundSumcheck.prove`
@@ -74,11 +74,25 @@ failure raises and exits non-zero without the final line:
    all 8), the batched chains under the sync debug mode "error", proofs
    byte-equal to per-instance card proves (timed beside them), all
    verified, two subclaims, the ML batches' idle share;
-11. one JSON line of the kernels (each with its time at the main path's
-   shape, its bound there and what sets it, its launches on the main path,
-   and `library_ms` null: no PyTorch call computes these functions), then
-   the last line `{"ok": true, "device":
-   {...}}`.
+11. the multi-device provers (`sumcheck_tpu_torch/parallel/`): for S = 2
+   and 4, one `torch.multiprocessing.spawn` of S ranks in a gloo group, all
+   on the one card (`shard_device`), each running the sharded ML nv=20 2x3
+   prove (`ChainedShardedProver`, the phase-8 instance; proof and final
+   transcript), the sharded GKR dim-18 prove at S = 2 (`ShardedGKRProver`,
+   phase 9's) and the sharded batch 8 x nv=16 (`BatchedMLSumcheck.prove(...,
+   group=)`, phase 10's) through the public entry points, each byte-equal to
+   the single-card proofs of phases 8-10 on every rank, with the median of
+   warm walls, launches a rank, all-reduces and bytes per prove, and the
+   GKR inits split into compute and all-reduce; where the machine has S
+   cards, again in an NCCL group, one rank a card, the chains under the
+   sync debug mode "error" (otherwise one line says why not). The kernels
+   are built before the spawn, so no rank compiles; a rank's failure exits
+   non-zero. S ranks on one card say nothing about speed across cards;
+12. one JSON line of the kernels (each with its time at the main path's
+   shape, its bound there and what sets it, its launches on the main path
+   and on every path in `launches_by_path`, and `library_ms` null: no
+   PyTorch call computes these functions), then the last line `{"ok": true,
+   "device": {...}}`.
 
 Kernel times are device times: `torch.cuda._sleep` holds the stream while
 the launches are enqueued, so the events time the kernels back to back and
@@ -1145,6 +1159,7 @@ def _headline(device, seed: int, reps: int, path: str, chain: str, mxu: bool, nv
           f"ML {path}: subclaim does not match the polynomial")
     fs_rng = Blake2b512Rng.setup()
     _, state = MLSumcheck.prove_as_subprotocol(fs_rng, poly, device=device)
+    transcript = repr(fs_rng.state_tuple())
     check(state.randomness == sub.point, f"ML {path}: prover randomness is not the subclaim point")
     print(f"ML {path}: verify accepts; subclaim equals poly.evaluate(point) and the prover's "
           f"randomness; verify median {verify_s:.6f} s")
@@ -1168,7 +1183,7 @@ def _headline(device, seed: int, reps: int, path: str, chain: str, mxu: bool, nv
     print(f"ML {path}: plain-path proof on the same device: bytes equal ({plain_s:.4f} s)")
     return {"launches": launches, "prove_s": prove_s, "first_s": first_s, "init_s": init_s,
             "kernels_s": kernels_s, "verify_s": verify_s, "plain_s": plain_s, "busy": busy,
-            "proof": serialize_proof(proof)}
+            "proof": serialize_proof(proof), "transcript": transcript}
 
 
 class HostTranscriptRng:
@@ -1320,16 +1335,12 @@ def _gkr_headline(device, inst, reps: int, path: str, chain: str, mxu: bool) -> 
           f"({dms['transcript']:.4f} ms, {dms['transcript'] / (2 * dim):.4f} ms each), two per "
           f"chained round; {k['other']} other (the phase inits and two sums buffer fills)")
 
-    s = proof.extract_sum()
-    vwalls = []
-    for _ in range(21):
-        t0 = time.perf_counter()
-        sub = GKRRoundSumcheck.verify(Blake2b512Rng.setup(), dim, proof, s)
-        vwalls.append(time.perf_counter() - t0)
-    verify_s = statistics.median(vwalls)
+    t0 = time.perf_counter()  # one host verify a path, to keep the script's time down
+    sub = GKRRoundSumcheck.verify(Blake2b512Rng.setup(), dim, proof, proof.extract_sum())
+    verify_s = time.perf_counter() - t0
     out = {"launches": launches, "prove_s": prove_s, "first_s": first_s, "inits_s": inits_s,
            "rounds_s": rounds_s, "verify_s": verify_s, "busy": busy, "proof": blob}
-    print(f"GKR {path}: verify accepts, median {verify_s:.6f} s")
+    print(f"GKR {path}: verify accepts, {verify_s:.6f} s")
     if path != "generic":
         return out
 
@@ -1770,6 +1781,225 @@ def _gkr_batch(device, seed, reps, batch, dim) -> dict:
             "first_s": first_s, "alone_s": alone_s, "proofs": blobs}
 
 
+# --- the multi-device provers (`sumcheck_tpu_torch/parallel/`, the sharded batch)
+
+SHARD_SIZES = (2, 4)
+GKR_SHARD_SIZES = (2,)  # the GKR dim-18 prove is host-bound: one sharded size
+ONE_CARD_NOTE = ("S ranks on one card share its SMs and pass every collective through the "
+                 "host (gloo): these walls say nothing about speed across cards")
+
+
+def sharded_phase(device, seed: int, reps: int, refs: dict) -> dict:
+    """Phase 11: the sharded provers, S ranks of one `mp.spawn` for each S
+    in `SHARD_SIZES`, in a gloo group on the card(s) (`sharded_rank`), and,
+    where the machine has S cards, again in an NCCL group with one rank a
+    card and the chains under the sync debug mode "error". `refs` are the
+    single-card proofs of phases 8-10. A rank's failure makes the spawn
+    raise, and the script exits non-zero. Returns {path: numbers}."""
+    heads = {}
+    torch.cuda.empty_cache()  # the ranks allocate on the same card
+    for size in SHARD_SIZES:
+        heads.update(run_ranks(size, "gloo", seed, reps, refs))
+    for size in SHARD_SIZES:
+        if torch.cuda.device_count() >= size:
+            heads.update(run_ranks(size, "nccl", seed, reps, refs))
+        else:
+            print(f"sharded S={size} NCCL: not run, {torch.cuda.device_count()} card(s) here and "
+                  f"NCCL takes one card a rank")
+    print(f"sharded: {ONE_CARD_NOTE}")
+    return heads
+
+
+def run_ranks(size: int, backend: str, seed: int, reps: int, refs: dict) -> dict:
+    """One spawn of `size` ranks in a `backend` group; prints each case's
+    numbers and returns them by path, with rank 0's launch counts."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(sharded_rank, args=(size, backend, "cuda", f"{tmp}/init", tmp, seed, reps, refs),
+                 nprocs=size)
+        spawn_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(size):
+            with open(f"{tmp}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+    tag = f"S={size} {backend}"
+    print(f"sharded {tag}: {size} ranks on {', '.join(r['device'] for r in ranks)}, "
+          f"{spawn_s:.1f} s of host time for the spawn")
+    out = {}
+    for case, res in ranks[0]["cases"].items():
+        path = f"sharded {case} {tag}"
+        walls = [r["cases"][case]["walls"] for r in ranks]
+        print(f"{path}: {res['what']}; warm walls by rank {walls}, median (rank 0) "
+              f"{res['prove_s']:.4f} s; per prove {res['collectives']} all-reduces of "
+              f"{res['bytes']} bytes a rank; launches a rank "
+              f"{ {k: v for k, v in res['launches'].items() if v} }; bytes equal to the single "
+              f"card's on every rank")
+        if "inits" in res:
+            i = res["inits"]
+            print(f"{path}: both phase inits {i['total_s']:.4f} s, of it compute "
+                  f"{i['total_s'] - i['all_reduce_s']:.4f} s and the two all-reduces of the raw "
+                  f"segment sums {i['all_reduce_s']:.4f} s ({i['bytes']} bytes each rank)")
+        out[path] = dict(res, walls=walls)
+    return out
+
+
+def sharded_rank(rank: int, size: int, backend: str, device: str, init_file: str, out_dir: str,
+                 seed: int, reps: int, refs: dict) -> None:
+    """One rank of `run_ranks`: the sharded ML nv=20 2x3 prove (the phase-8
+    instance), the sharded GKR dim-18 prove (phase 9's, at the sizes of
+    `GKR_SHARD_SIZES`) and the sharded batch 8 x nv=16 (phase 10's), each
+    through its public entry point on the rank's card, checked byte for
+    byte against `refs`, launches counted from 0 around it; writes the
+    numbers to `out_dir`/rank<r>.json. Raises on any mismatch. `device` is
+    "cuda" (each rank on `shard_device`'s card); "cpu" rehearses the phase
+    on the plain versions."""
+    import torch.distributed as dist
+
+    from sumcheck_tpu_torch.parallel import ChainedShardedProver, ShardedGKRProver, comm
+
+    dist.init_process_group(backend, init_method=f"file://{init_file}", rank=rank,
+                            world_size=size)
+    try:
+        ml = ChainedShardedProver(device=device)
+        if backend == "nccl":
+            torch.cuda.set_device(ml.device)
+        # NCCL syncs nothing inside a chain; gloo passes each collective
+        # through the host by design, so its chains are not held to that
+        guard = syncs_forbidden_in_chains if backend == "nccl" else contextlib.nullcontext
+        cases = {"ml": sharded_ml(ml, seed, reps, refs, guard)}
+        if size in GKR_SHARD_SIZES:
+            cases["gkr"] = sharded_gkr(ShardedGKRProver(ml.group, device=device), seed, refs,
+                                       guard)
+        cases["batch"] = sharded_batch(ml, seed, reps, refs, guard)
+        with open(f"{out_dir}/rank{rank}.json", "w") as f:
+            json.dump({"device": str(ml.device), "cases": cases}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _counted(fn, proves: int, guard):
+    """Run `fn` `proves` times under `guard` with every launch count and the
+    all-reduce count at 0 before; returns (results, warm walls, launches,
+    all-reduces per prove, bytes per prove)."""
+    from sumcheck_tpu_torch.parallel import comm
+
+    with guard():
+        for f in counters().values():
+            f.launches = 0
+        comm.all_reduce_sum_.calls = comm.all_reduce_sum_.bytes = 0
+        results, walls = [], []
+        for _ in range(proves):
+            t0 = time.perf_counter()
+            results.append(fn())
+            walls.append(time.perf_counter() - t0)
+        launches = {k: f.launches for k, f in counters().items()}
+    return (results, walls[1:], launches, comm.all_reduce_sum_.calls // proves,
+            comm.all_reduce_sum_.bytes // proves)
+
+
+def sharded_ml(prover, seed: int, reps: int, refs: dict, guard) -> dict:
+    from sumcheck_tpu_torch import Blake2b512Rng
+    from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
+
+    poly = headline_poly(seed, NV)
+
+    def prove():
+        rng = Blake2b512Rng.setup()
+        proof, _state = prover.prove_as_subprotocol(rng, poly)
+        return serialize_proof(proof), repr(rng.state_tuple())
+
+    proves = reps + 1
+    results, walls, launches, calls, nbytes = _counted(prove, proves, guard)
+    check(all(r == (refs["ml"], refs["ml_state"]) for r in results),
+          "sharded ML: proof or final transcript differs from the single card's")
+    want = {k: 0 for k in launches}
+    want.update({"round_nofold": proves, "round_fold": (NV - 1) * proves,
+                 "transcript_step": NV * proves, "pair_init": proves})
+    check(launches == want, f"sharded ML: launches {launches}, expected {want}")
+    return {"what": f"ML nv={NV} 2x3, proof and final transcript", "walls": walls,
+            "prove_s": statistics.median(walls), "launches": launches, "collectives": calls,
+            "bytes": nbytes}
+
+
+def sharded_gkr(prover, seed: int, refs: dict, guard) -> dict:
+    from sumcheck_tpu_torch import Blake2b512Rng
+    from sumcheck_tpu_torch import gkr_round_sumcheck as G
+    from sumcheck_tpu_torch.fields import limbs_np as L
+    from sumcheck_tpu_torch.fields.fr import P
+    from sumcheck_tpu_torch.ops import gkr_init as GI
+    from sumcheck_tpu_torch.parallel import comm
+
+    f1, f2, f3, g = inst = gkr_instance(seed, GKR_DIM)
+    dim = f2.num_vars
+
+    def prove():
+        return prover.prove(Blake2b512Rng.setup(), *inst).serialize_uncompressed()
+
+    results, walls, launches, calls, nbytes = _counted(prove, 2, guard)
+    check(all(r == refs["gkr"] for r in results),
+          "sharded GKR: proof differs from the single card's")
+    want = {k: 0 for k in launches}
+    want.update({"round_nofold": 4, "round_fold": 4 * (dim - 1), "transcript_step": 4 * dim})
+    check(launches == want, f"sharded GKR: launches {launches}, expected {want}")
+
+    # the inits alone at fixed challenges: the all-reduces timed between syncs
+    (gbits, x, y_rev, vals, last_x, perm_y, last_y), (nx, ny), _f2_d, f3_d, g_r, g_omr = \
+        G._upload(f1, f2, f3, g, dim, prover.device, (prover.rank, prover.num_shards))
+    gen = np.random.default_rng(dim)
+    us = torch.from_numpy(np.stack([L.mont_scalar(int(gen.integers(1, 1 << 62)) % P)[:, 0]
+                                    for _ in range(dim)]).astype(np.int32)).to(prover.device)
+    reduced = []
+
+    def timed(t):
+        sync(prover.device)
+        t0 = time.perf_counter()
+        comm.all_reduce_sum_(t, prover.group)
+        sync(prover.device)
+        reduced.append((time.perf_counter() - t0, t.numel() * 8))
+
+    for _ in range(2):  # the first warms
+        reduced.clear()
+        sync(prover.device)
+        t0 = time.perf_counter()
+        _hg, w = GI.phase1(gbits, last_x, y_rev, vals, g_r, g_omr, f3_d, dim, not nx, timed)
+        GI.phase2_digits(x, perm_y, last_y, w, us, dim, not ny, timed)
+        sync(prover.device)
+        total_s = time.perf_counter() - t0
+    return {"what": f"GKR dim {dim} (nnz 2^{dim}), proof", "walls": walls,
+            "prove_s": statistics.median(walls), "launches": launches, "collectives": calls,
+            "bytes": nbytes, "inits": {"total_s": total_s,
+                                       "all_reduce_s": sum(t for t, _ in reduced),
+                                       "bytes": [b for _, b in reduced]}}
+
+
+def sharded_batch(ml, seed: int, reps: int, refs: dict, guard) -> dict:
+    from sumcheck_tpu_torch.batch import BatchedMLSumcheck
+    from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
+
+    polys = headline_polys(seed, BATCH_NV, BATCH)
+
+    def prove():
+        return [serialize_proof(p) for p in BatchedMLSumcheck.prove(polys, device=ml.device,
+                                                                     group=ml.group)]
+
+    proves = reps + 1
+    results, walls, launches, calls, nbytes = _counted(prove, proves, guard)
+    check(all(r == refs["batch"] for r in results),
+          "sharded batch: proofs differ from the single card's")
+    want = {k: 0 for k in launches}
+    want.update({"pair_init": BATCH // ml.num_shards * proves, "round_nofold_batched": proves,
+                 "round_fold_batched": (BATCH_NV - 1) * proves,
+                 "transcript_step_batched": BATCH_NV * proves})
+    check(launches == want, f"sharded batch: launches {launches}, expected {want}")
+    return {"what": f"batch {BATCH} x nv={BATCH_NV} 2x3, {BATCH // ml.num_shards} instances a "
+                    f"rank, every proof", "walls": walls, "prove_s": statistics.median(walls),
+            "launches": launches, "collectives": calls, "bytes": nbytes}
+
+
 def short_name(mangled: str) -> str:
     """A kernel's name and template arguments from its mangled name."""
     import re
@@ -1942,6 +2172,10 @@ def main() -> int:
           + ", ".join(f"{k} {h['prove_s']:.4f} / {h['per_proof_s']:.5f} s"
                       for k, h in batches.items()))
     heads.update(batches)
+    refs = {"ml": heads["ml generic"]["proof"], "ml_state": heads["ml generic"]["transcript"],
+            "gkr": heads["gkr generic"]["proof"], "batch": heads["batch ml generic"]["proofs"]}
+    heads.update(sharded_phase(device, args.seed, args.reps, refs))
+    mark("sharded")
     print("host seconds by phase: " + ", ".join(
         f"{label} {t - prev:.1f}" for (_, prev), (label, t) in zip(marks, marks[1:])))
 

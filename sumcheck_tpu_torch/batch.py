@@ -35,8 +35,14 @@ rounds on the batched generic chain, with one sync for all B proofs; unequal
 nnz, the per-size chain or another transcript fall back to per-instance
 proves, as in the JAX package.
 
-Left out: the sharded batch (`mesh=`, `batch.py:87-133`), which comes with
-the multi-device provers.
+The sharded batch (`BatchedMLSumcheck.prove(..., group=)`, the JAX
+package's `mesh=`, `batch.py:87-133, 157-257, 431-471`) splits the
+instance axis over the ranks of a `torch.distributed` group: rank s proves
+instances [s·B/S, (s+1)·B/S) as above, with no collective inside (the
+instances are independent), then one `parallel/comm.gather_lanes` of every
+instance's proof, challenges and final transcript state gives every rank
+all B proofs and every caller's transcript. Unlike the JAX package, the
+host loop serves a rank whose instances need it, as above.
 """
 
 from __future__ import annotations
@@ -70,6 +76,88 @@ def _validate(fs_rngs, polynomials) -> None:
     for poly in polynomials[1:]:
         if poly.num_variables != nv or [ix for _, ix in poly.products] != structure:
             raise SumcheckError("batched instances must share shape/structure")
+
+
+def _validate_group(fs_rngs, polynomials, group):
+    """The sharded batch's checks (`batch.py:449-464`), before any feed:
+    returns (rank, ranks)."""
+    from .parallel.mesh import group_shape
+
+    rank, size = group_shape(group)
+    if len(polynomials) % size:
+        raise SumcheckError(f"batch of {len(polynomials)} instances cannot be sharded over "
+                            f"{size} ranks")
+    if get_config().chain_impl != "generic" or not all(isinstance(r, Blake2b512Rng)
+                                                       for r in fs_rngs):
+        raise SumcheckError("sharded batching requires the chained generic engine and "
+                            "Blake2b512Rng transcripts")
+    return rank, size
+
+
+def _prove_local(fs_rngs, polynomials, degree: int, nv: int, device):
+    """The batch on one device: the batched chain where it can take the
+    instances, else the batched host loop."""
+    if all(isinstance(r, Blake2b512Rng) for r in fs_rngs):
+        res = _prove_batched_chained(fs_rngs, polynomials, degree, nv, device)
+        if res is not None:
+            return res
+    return _prove_batched_host(fs_rngs, polynomials, degree, nv, device)
+
+
+_MODULUS_BYTES = 32
+
+
+def _pack(proofs, challenges, rngs) -> np.ndarray:
+    """Each instance's proof bytes, challenges and transcript state (h, t
+    in 16 bytes, the pending count and the pending block padded to 128
+    bytes) as one column of little-endian 32-bit words, (words, instances)
+    int64."""
+    from .ml_sumcheck import serialize_proof
+
+    cols = []
+    for proof, rs, rng in zip(proofs, challenges, rngs):
+        h, t, buf = rng.state_tuple()
+        blob = (serialize_proof(proof)
+                + b"".join(r.v.to_bytes(_MODULUS_BYTES, "little") for r in rs)
+                + b"".join(w.to_bytes(8, "little") for w in h) + t.to_bytes(16, "little")
+                + bytes([len(buf)]) + buf.ljust(128, b"\0"))
+        blob += b"\0" * (-len(blob) % 4)
+        cols.append(np.frombuffer(blob, dtype="<u4"))
+    return np.stack(cols, axis=1).astype(np.int64)
+
+
+def _unpack(words: np.ndarray, rngs, nv: int):
+    """`_pack`'s columns -> (proofs, challenges), each transcript set to its
+    instance's state."""
+    from .ml_sumcheck import _deserialize_proof_prefix
+
+    proofs, challenges = [], []
+    for col, rng in zip(words.T, rngs):
+        blob = col.astype("<u4").tobytes()
+        proof, off = _deserialize_proof_prefix(blob)
+        rs = [Fr(int.from_bytes(blob[off + _MODULUS_BYTES * i:off + _MODULUS_BYTES * (i + 1)],
+                                "little")) for i in range(nv)]
+        off += _MODULUS_BYTES * nv
+        h = [int.from_bytes(blob[off + 8 * i:off + 8 * i + 8], "little") for i in range(8)]
+        t = int.from_bytes(blob[off + 64:off + 80], "little")
+        blen = blob[off + 80]
+        rng.set_state(h, t, blob[off + 81:off + 81 + blen])
+        proofs.append(proof)
+        challenges.append(rs)
+    return proofs, challenges
+
+
+def _prove_sharded(fs_rngs, polynomials, degree: int, nv: int, device, group, shard):
+    """Rank s proves its B/S instances alone, then one gather of every
+    instance's proof, challenges and transcript state over the group."""
+    from .parallel import comm
+
+    rank, size = shard
+    width = len(polynomials) // size
+    mine = slice(rank * width, (rank + 1) * width)
+    proofs, challenges = _prove_local(fs_rngs[mine], polynomials[mine], degree, nv, device)
+    words = torch.from_numpy(_pack(proofs, challenges, fs_rngs[mine])).to(device)
+    return _unpack(comm.gather_lanes(words, group).cpu().numpy(), fs_rngs, nv)
 
 
 def _prove_batched_chained(fs_rngs, polynomials, degree: int, nv: int, device):
@@ -158,29 +246,43 @@ class BatchedMLSumcheck:
     transcripts; one proof per instance)."""
 
     @staticmethod
-    def prove(polynomials, *, device="cuda") -> list[list[ProverMsg]]:
+    def prove(polynomials, *, device="cuda", group=None) -> list[list[ProverMsg]]:
         """One proof per polynomial, each with a fresh transcript, on
-        `device` (the card unless the caller asks for the CPU)."""
+        `device` (the card unless the caller asks for the CPU); sharded
+        over the ranks of `group` if given."""
         rngs = [Blake2b512Rng.setup() for _ in polynomials]
-        return BatchedMLSumcheck.prove_as_subprotocol(rngs, polynomials, device=device)[0]
+        return BatchedMLSumcheck.prove_as_subprotocol(rngs, polynomials, device=device,
+                                                      group=group)[0]
 
     @staticmethod
-    def prove_as_subprotocol(fs_rngs, polynomials, *, device="cuda"):
+    def prove_as_subprotocol(fs_rngs, polynomials, *, device="cuda", group=None):
         """Prove instance b over the caller's transcript `fs_rngs[b]`;
         returns (proofs, challenges), one list each per instance, as B calls
         of `MLSumcheck.prove_as_subprotocol` would give them (the
-        challenges are the prover states' randomness)."""
-        device = device_prover.resolve_device(device)
+        challenges are the prover states' randomness).
+
+        With a `torch.distributed` `group` of S ranks, every rank calls this
+        with the same B instances and transcripts, proves B/S of them on its
+        device (`parallel/mesh.shard_device`), and returns all B, each
+        transcript in its final state. It raises `SumcheckError`, before any
+        transcript is fed, unless S divides B, the chain is the generic one
+        and every transcript is a `Blake2b512Rng`."""
+        fs_rngs, polynomials = list(fs_rngs), list(polynomials)
         _validate(fs_rngs, polynomials)
+        if group is None:
+            device = device_prover.resolve_device(device)
+        else:
+            from .parallel.mesh import shard_device
+
+            shard = _validate_group(fs_rngs, polynomials, group)
+            device = shard_device(group, device)
         for rng, poly in zip(fs_rngs, polynomials):
             rng.feed(poly.info())
         nv = polynomials[0].num_variables
         degree = polynomials[0].max_multiplicands
-        if all(isinstance(r, Blake2b512Rng) for r in fs_rngs):
-            res = _prove_batched_chained(fs_rngs, polynomials, degree, nv, device)
-            if res is not None:
-                return res
-        return _prove_batched_host(fs_rngs, polynomials, degree, nv, device)
+        if group is None:
+            return _prove_local(fs_rngs, polynomials, degree, nv, device)
+        return _prove_sharded(fs_rngs, polynomials, degree, nv, device, group, shard)
 
     @staticmethod
     def verify(polynomial_infos, claimed_sums, proofs):

@@ -18,7 +18,8 @@ the inits as torch ops; `device="cpu"`: their plain versions): the phase-1
 init, both phases' rounds on the generic chain (or the per-size chain,
 `SUMCHECK_TPU_CHAIN_IMPL`), the phase-2 init from phase 1's challenges on
 the device, and one fetch at the end, the prove's only host sync. Any
-other transcript takes the host loop over the host engine.
+other transcript, and a `Blake2b512Rng` holding a pending byte count that
+is not a multiple of 8, takes the host loop over the host engine.
 
 Transcript parity note: the reference feeds ONLY prover messages — `g`, the
 dimensions, and the claimed sum are NOT absorbed (`mod.rs:114,128`; no domain
@@ -38,7 +39,6 @@ from .fields.fr import Fr
 from .mle import DenseMLE, SparseMLE, _segment_sum_mod_p
 from .protocol import IPForMLSumcheck
 from .protocol.prover import ProverMsg, ProverState
-from .transcript.blake2b_rng import Blake2b512Rng
 
 
 def initialize_phase_one(
@@ -89,13 +89,14 @@ def start_phase2_sumcheck(f1_gu: DenseMLE, f3: DenseMLE, f2_u: Fr) -> ProverStat
 
 
 def _upload(f1: SparseMLE, f2: DenseMLE, f3: DenseMLE, g: Sequence[Fr], dim: int,
-            device: torch.device) -> tuple:
+            device: torch.device, shard=None) -> tuple:
     """Everything a chained prove reads, on `device`: f1's split (cached on
     f1) with its segment-reduce widths, f2 and f3 in bit-reversed order
-    (cached on the MLEs), g's coordinates, and the inits' constants."""
+    (cached on the MLEs), g's coordinates, and the inits' constants. With
+    `shard` = (s, S), f1's split is rank s's chunk (`_split_f1_device`)."""
     from .ops import gkr_init as GI
 
-    split = GI._split_f1_device(f1, dim, device)
+    split = GI._split_f1_device(f1, dim, device, shard)
     f2_d, f3_d = f2.to_device(device), f3.to_device(device)
     GI.prepare(device)
     g_r, g_omr = (GI.upload(a, device) for a in GI._points_arrays(list(g)))
@@ -238,14 +239,14 @@ class GKRRoundSumcheck:
         """Caller supplies the transcript RNG (unlike `MLSumcheck.prove`);
         the prover's device is a `torch.device` or its name, the card unless
         the caller asks for the CPU."""
-        from .protocol.device_prover import resolve_device
+        from .protocol.device_prover import liftable, resolve_device
 
         assert f1.num_vars == 3 * f2.num_vars
         assert f1.num_vars == 3 * f3.num_vars
         dim = f2.num_vars
         g = list(g)
         device = resolve_device(device)
-        if isinstance(rng, Blake2b512Rng) and dim >= 1:
+        if dim >= 1 and liftable(rng):
             return _prove_chained(rng, f1, f2, f3, g, dim, device)
 
         h_g, f1_g = initialize_phase_one(f1, f3, g)

@@ -15,8 +15,9 @@ rounds and the transcript run chained on the device, with one sync per
 prove: the generic chain (`protocol/generic_prover.py`) by default, the
 per-size chain (`protocol/device_prover.py`) when
 `SUMCHECK_TPU_CHAIN_IMPL` is anything else (`utils/config.py`). Any other
-transcript runs on the host between the rounds, as the JAX package's host
-loop does.
+transcript, and a `Blake2b512Rng` holding a pending byte count that is not
+a multiple of 8 (which the device transcript cannot hold), runs on the host
+between the rounds, as the JAX package's host loop does.
 """
 
 from __future__ import annotations
@@ -102,12 +103,12 @@ class MLSumcheck:
         too, for composition into larger protocols (reference `mod.rs:50-70`).
         The rounds run on `device`; the proof bytes and the transcript's
         final state are the same whichever chain runs."""
-        from .protocol.device_prover import prove_chained
+        from .protocol.device_prover import liftable, prove_chained
         from .protocol.generic_prover import prove_generic, prove_host_transcript
         from .utils.config import get_config
 
         fs_rng.feed(polynomial.info())
-        if not isinstance(fs_rng, Blake2b512Rng):
+        if not liftable(fs_rng):
             return prove_host_transcript(fs_rng, polynomial, device)
         if get_config().chain_impl == "generic":
             return prove_generic(fs_rng, polynomial, device)

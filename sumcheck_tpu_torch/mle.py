@@ -46,7 +46,7 @@ class DenseMLE:
         assert evals_mont.dtype == np.uint32
         self.num_vars = num_vars
         self.evals = evals_mont  # Montgomery digits, natural index order
-        self._dev: dict = {}  # torch.device -> bit-reversed copy
+        self._dev: dict = {}  # torch.device [, s, S] -> bit-reversed copy
 
     # -- constructors ------------------------------------------------------
     @staticmethod
@@ -77,26 +77,33 @@ class DenseMLE:
     def to_fr_list(self) -> list[Fr]:
         return [Fr(v) for v in L.to_ints(self.evals)]
 
-    def to_device(self, device) -> torch.Tensor:
+    def to_device(self, device, shard=None) -> torch.Tensor:
         """`(NUM_DIGITS, 2^nv) int32` copy on `device` in bit-reversed index
-        order (the prover's table layout — `protocol/prover.py`).
+        order (the prover's table layout — `protocol/prover.py`); with
+        `shard` = (s, S), only rank s's `(NUM_DIGITS, 2^nv / S)` lanes of it
+        (`parallel/mesh.deal`), the only part a sharded prove reads there.
 
-        Uploaded once per MLE and device (cached: DenseMLE is immutable).
-        The upload is part of table construction, matching the reference
-        where tables already sit in prover memory before `prove`
+        Uploaded once per MLE, device and shard (cached: DenseMLE is
+        immutable). The upload is part of table construction, matching the
+        reference where tables already sit in prover memory before `prove`
         (`prover.rs:49-69`). Replaces `sumcheck_tpu`'s `device_bitrev`."""
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        t = self._dev.get(device)
+        key = device if shard is None else (device, *shard)
+        t = self._dev.get(key)
         if t is None:
             from .protocol.prover import to_bitrev
 
+            host = to_bitrev(self.evals, self.num_vars)
+            if shard is not None:
+                from .parallel.mesh import deal
+
+                host = deal(host, *shard)
             # row-major, as the pair-init kernel reads it (the permuted
             # gather alone would leave it column-major)
-            host = np.ascontiguousarray(to_bitrev(self.evals, self.num_vars).astype(np.int32))
-            t = torch.from_numpy(host).to(device)
-            self._dev[device] = t
+            t = torch.from_numpy(np.ascontiguousarray(host.astype(np.int32))).to(device)
+            self._dev[key] = t
         return t
 
     # -- algebra -----------------------------------------------------------

@@ -31,8 +31,9 @@ package's choice of width (`_seg_narrow`) all the same.
 Left out: `_take_small_mxu` and the kron-split modes (they work around XLA's
 small-table gather lowering), `bitrev_cols` (the entries are sorted so the
 tables come out in bit-reversed order), `warm_pair_programs_async` (compile
-warm-up), `_eq_table_sharded` (with the multi-device provers), and the
-host-facing wrappers `phase1_init_device` / `phase2_init_device`.
+warm-up), `_eq_table_sharded` (the multi-device inits build the whole eq
+table on every rank: `parallel/gkr.py`), and the host-facing wrappers
+`phase1_init_device` / `phase2_init_device`.
 """
 
 from __future__ import annotations
@@ -135,28 +136,45 @@ def _finish_segment_sums16(s) -> torch.Tensor:
     return LT.reduce_wide(torch.stack(strict))
 
 
-def _segment_reduce_sorted(vals, perm, last_pos, split8: bool = True) -> torch.Tensor:
-    """Exact segment sums without a scatter: gather the entries into segment
-    order (`perm`; None when `vals` is already in it), take the cumulative
-    sum along the entries, and difference it at each segment's last
-    position (`last_pos`, -1 for an empty segment). `split8` splits the
-    16-bit digits into bytes first (32 rows), as the JAX package does for
-    segments that may hold more than 2^16 entries; either way the int64
-    cumulative sum is exact (no wraparound to cancel), so both widths give
-    the same result."""
+def segment_sums(vals, perm, last_pos, split8: bool = True) -> torch.Tensor:
+    """The raw int64 segment sums, (32 | 16, segments), without a scatter:
+    gather the entries into segment order (`perm`; None when `vals` is
+    already in it), take the cumulative sum along the entries, and
+    difference it at each segment's last position (`last_pos`, -1 for an
+    empty segment). `split8` splits the 16-bit digits into bytes first (32
+    rows), as the JAX package does for segments that may hold more than
+    2^16 entries; either way the int64 cumulative sum is exact (no
+    wraparound to cancel), so both widths give the same result. Sums over
+    disjoint sets of entries add exactly: the multi-device inits sum them
+    over the ranks before `finish_segment_sums`."""
     v = vals if perm is None else vals.index_select(1, perm)
     rows = torch.cat([v & 0xFF, v >> 8], dim=0) if split8 else v  # (32 | 16, nnz)
     csum = torch.cumsum(rows, dim=1)
     at_last = csum.index_select(1, last_pos.clamp(min=0))
     at_last = torch.where(last_pos[None, :] >= 0, at_last, 0)
     prev = torch.cat([torch.zeros_like(at_last[:, :1]), at_last[:, :-1]], dim=1)
-    sums = at_last - prev
+    return at_last - prev
+
+
+def finish_segment_sums(sums, split8: bool = True) -> torch.Tensor:
+    """`segment_sums` -> strict (16, segments) digits, reduced mod p."""
     if split8:
         return _finish_segment_sums(sums[:NUM_DIGITS], sums[NUM_DIGITS:])
     return _finish_segment_sums16(sums)
 
 
-def _split_f1_device(f1, dim: int, device: torch.device):
+def _segment_reduce_sorted(vals, perm, last_pos, split8: bool = True,
+                           reduce_fn=None) -> torch.Tensor:
+    """Exact segment sums, strict and reduced mod p: `segment_sums`, then
+    `reduce_fn` on them in place if given (the sum over the ranks of the
+    multi-device inits), then `finish_segment_sums`."""
+    sums = segment_sums(vals, perm, last_pos, split8)
+    if reduce_fn is not None:
+        reduce_fn(sums)
+    return finish_segment_sums(sums, split8)
+
+
+def _split_f1_device(f1, dim: int, device: torch.device, shard=None):
     """f1's index components and values on `device`, with the segment
     metadata, cached on the (immutable) SparseMLE per (dim, device).
 
@@ -169,39 +187,46 @@ def _split_f1_device(f1, dim: int, device: torch.device):
     bit-reversed y. Also records in `f1._seg_narrow` whether the no-split
     segment reduce is the JAX package's choice per axis (at most 2^16
     entries per segment). (The JAX package also keeps perm_x, the
-    identity, for its batch prover; the port drops it.)"""
+    identity, for its batch prover; the port drops it.)
+
+    With `shard` = (s, S), only rank s's chunk of the multi-device inits
+    (`parallel/gkr.py`, cached per (dim, device, s, S)): the sorted
+    entries cut into S contiguous chunks, the last padded with zero
+    entries at x = all ones (the last bit-reversed x segment, so every
+    chunk stays sorted and the padding adds nothing), each chunk with its
+    own metadata. The widths are the whole f1's either way, so every rank
+    chooses alike."""
     from ..protocol.prover import bitrev_perm
 
-    key = (dim, device)
+    key = (dim, device) if shard is None else (dim, device, *shard)
     cached = f1._dev_split.get(key)
     if cached is not None:
         return cached
     idx = np.asarray(f1.indices).astype(np.int64)
     mask = (1 << dim) - 1
     revp = bitrev_perm(dim)
-    x_rev_vals = revp[(idx >> dim) & mask]
-    order = np.argsort(x_rev_vals, kind="stable")
-    idx = idx[order]
-    vals = np.asarray(f1.values)[:, order]
-    gbits = idx & mask
+    x_rev = revp[(idx >> dim) & mask]
+    f1._seg_narrow = tuple(bool(np.bincount(seg, minlength=1).max() <= (1 << 16))
+                           for seg in (x_rev, revp[idx >> (2 * dim)]))
+    order = np.argsort(x_rev, kind="stable")
+    idx, vals = idx[order], np.asarray(f1.values)[:, order]
+    if shard is not None:
+        s, size = shard
+        chunk = max(1, -(-len(idx) // size))
+        pad = size * chunk - len(idx)
+        mine = slice(s * chunk, (s + 1) * chunk)
+        idx = np.concatenate([idx, np.full(pad, mask << dim, np.int64)])[mine]
+        vals = np.concatenate([vals, np.zeros((NUM_DIGITS, pad), vals.dtype)], axis=1)[:, mine]
+    assert len(idx) <= 1 << 24, "cumsum exactness bound"
     x = (idx >> dim) & mask  # natural values, sorted by their bit reversal
     y_rev = revp[idx >> (2 * dim)]
-    assert len(idx) <= 1 << 24, "cumsum exactness bound"
-
-    narrow = {}
-
-    def sort_meta(seg, axis):
-        perm = np.argsort(seg, kind="stable")
-        last = np.searchsorted(seg[perm], np.arange(1 << dim), side="right") - 1
-        narrow[axis] = bool(np.bincount(seg, minlength=1).max() <= (1 << 16))
-        return perm, last
-
-    _perm_x, last_x = sort_meta(x_rev_vals[order], "x")
-    perm_y, last_y = sort_meta(y_rev, "y")
+    segments = np.arange(1 << dim)
+    last_x = np.searchsorted(revp[x], segments, side="right") - 1
+    perm_y = np.argsort(y_rev, kind="stable")
+    last_y = np.searchsorted(y_rev[perm_y], segments, side="right") - 1
     out = tuple(torch.from_numpy(np.ascontiguousarray(a).astype(np.int64)).to(device)
-                for a in (gbits, x, y_rev, vals, last_x, perm_y, last_y))
+                for a in (idx & mask, x, y_rev, vals, last_x, perm_y, last_y))
     f1._dev_split[key] = out
-    f1._seg_narrow = (narrow["x"], narrow["y"])
     return out
 
 
@@ -225,13 +250,14 @@ def _halves(a: torch.Tensor, b: torch.Tensor, out=None):
 
 
 def phase1(gbits, last_x, y_rev, values, g_r, g_omr, f3_bitrev, dim: int,
-           split8x: bool = True):
+           split8x: bool = True, reduce_fn=None):
     """h_g (16, 2^dim) in bit-reversed lane order, and the entries' weights
-    `w` (kept for phase 2): `_compiled_phase1` (`:284-301`)."""
+    `w` (kept for phase 2): `_compiled_phase1` (`:284-301`). `reduce_fn`
+    sums the raw segment sums over the ranks (`_segment_reduce_sorted`)."""
     w = _weight_fold(gbits, values, g_r, g_omr, dim)
     f3y = f3_bitrev.long().index_select(1, y_rev)  # f3[y]
     wv = LT.mont_mul(w, f3y)
-    return _segment_reduce_sorted(wv, None, last_x, split8x), w
+    return _segment_reduce_sorted(wv, None, last_x, split8x, reduce_fn), w
 
 
 def prep1(hg_brev, f2_bitrev, out=None):
@@ -255,14 +281,16 @@ def final_fold(lo, hi, r, slot: int) -> torch.Tensor:
     return LT.add(l, LT.mont_mul(LT.sub(h, l), r.long()))
 
 
-def phase2_digits(x, perm_y, last_y, w, u_digits, dim: int, split8y: bool = True):
+def phase2_digits(x, perm_y, last_y, w, u_digits, dim: int, split8y: bool = True,
+                  reduce_fn=None):
     """f1(g, u, .) densified, (16, 2^dim) in bit-reversed lane order, from
-    the challenges u as (dim, 16) Montgomery digits on the device."""
+    the challenges u as (dim, 16) Montgomery digits on the device.
+    `reduce_fn` as in `phase1`."""
     one = LT.const(_ONE, w.device).reshape(NUM_DIGITS, 1)
     r_pts = [u_digits[i].long()[:, None] for i in range(dim)]
     omr_pts = [LT.sub(one, r) for r in r_pts]
     w2 = _weight_fold(x, w, r_pts, omr_pts, dim)
-    return _segment_reduce_sorted(w2, perm_y, last_y, split8y)
+    return _segment_reduce_sorted(w2, perm_y, last_y, split8y, reduce_fn)
 
 
 def prep2(f1gu_brev, f3_bitrev, f2u, out=None):

@@ -1,0 +1,102 @@
+"""The chained sharded GKR round sumcheck: the port of
+`sumcheck_tpu/parallel/gkr.py` (`ShardedGKRProver`, `:277-389`) over
+`torch.distributed`, byte-identical to `GKRRoundSumcheck.prove`.
+
+- **Split** (`:206-274`): f1's nonzeros, sorted by their bit-reversed x as
+  the single-device split sorts them, fall into S contiguous chunks, the
+  last padded with zero entries; rank s uploads only chunk s, with its own
+  segment metadata for x (phase 1) and y (phase 2), cached on the
+  `SparseMLE` (`ops/gkr_init._split_f1_device(..., shard=)`). The
+  segment-sum widths (`_seg_narrow`) are the whole f1's, so every rank
+  chooses alike.
+- **Phase inits** (`:77-143`): each rank runs the single-device init
+  (`ops/gkr_init.phase1`, `phase2_digits`) over its chunk up to the raw
+  int64 segment sums; one `comm.all_reduce_sum_` adds them over the ranks,
+  and every rank finishes the sum (carries, reduction mod p) into the
+  replicated h_g or f1(g, u, .), whose bytes equal the single device's.
+  The weights `w` of phase 1 stay on the rank for phase 2. The JAX package
+  sums strict partials instead and splits the mod-p work with a
+  reduce-scatter and an all-gather (`_psum_reduce_mod_p`, `:50-74`); that
+  split is later performance work.
+- **Deal and rounds** (`:146-203`, `:351-389`): each rank takes its lanes
+  of the bit-reversed pairs on its device ([h_g, f2] for phase 1,
+  [f1(g,u,.), f2(u)·f3] for phase 2; `mesh.deal`, `ops/gkr_init.prep1`,
+  `prep2`) and runs each phase through `chained.sharded_rounds`; f2(u) is
+  the final fold of phase 1's replicated one-lane final pair. One fetch at
+  the end.
+
+A `Blake2b512Rng` holding a pending byte count that is not a multiple of 8
+is proved by every rank alone on the single-device host loop.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from ..ops import gkr_init as GI
+from ..protocol import device_prover
+from ..utils.errors import SumcheckError
+from . import comm
+from .chained import check_transcript, sharded_rounds
+from .mesh import deal, default_group, group_shape, shard_device
+
+_PRODUCTS = ((0, 1),)  # h_g * f2 and f1_gu * (f2(u) * f3): one 2-slot unit product
+_DEGREE = 2
+
+
+class ShardedGKRProver:
+    """Sharded GKR round sumcheck prove over a process group, the
+    transcript on each rank's device and one fetch. `group` and `device` as
+    `ChainedShardedProver`'s."""
+
+    def __init__(self, group=None, *, device="cuda"):
+        self.group = default_group() if group is None else group
+        self.rank, self.num_shards = group_shape(self.group)
+        self.device = shard_device(self.group, device)
+
+    def prove(self, rng, f1, f2, f3, g):
+        """Caller supplies the transcript (reference `mod.rs:93-139`); every
+        rank returns the same `GKRProof` and leaves `rng` in the same state.
+        Raises `SumcheckError` before `rng` is touched for a dim whose pair
+        has fewer lanes than ranks, or a transcript other than
+        `Blake2b512Rng`."""
+        from ..gkr_round_sumcheck import GKRProof, GKRRoundSumcheck, _upload
+
+        assert f1.num_vars == 3 * f2.num_vars
+        assert f1.num_vars == 3 * f3.num_vars
+        dim = f2.num_vars
+        if dim < 1 or (1 << (dim - 1)) < self.num_shards:
+            raise SumcheckError(f"GKR dim {dim} cannot be sharded over {self.num_shards} ranks")
+        check_transcript(rng)
+        if not device_prover.liftable(rng):
+            return GKRRoundSumcheck.prove(rng, f1, f2, f3, g, device=self.device)
+
+        inputs = _upload(f1, f2, f3, list(g), dim, self.device, (self.rank, self.num_shards))
+        state = device_prover.lift_transcript(rng, self.device)
+        msgs, rs, state = self._enqueue(inputs, state, dim)
+        msgs_h, _rs_h, state_h = device_prover.fetch_chain_outputs(msgs, rs, state)
+        device_prover.restore_transcript(rng, state_h)
+        return GKRProof(device_prover.msgs_from_host(msgs_h[:dim], _DEGREE),
+                        device_prover.msgs_from_host(msgs_h[dim:], _DEGREE))
+
+    def _enqueue(self, inputs: tuple, state, dim: int):
+        """Both phases on the rank (the single device's `_enqueue`,
+        sharded) from `gkr_round_sumcheck._upload(..., shard=)`: returns
+        (msgs (2 dim, 16, 3), rs (2 dim, 16), state)."""
+        (gbits, x, y_rev, vals, last_x, perm_y, last_y), (narrow_x, narrow_y), f2_d, f3_d, \
+            g_r, g_omr = inputs
+        s, size = self.rank, self.num_shards
+        reduce = functools.partial(comm.all_reduce_sum_, group=self.group)
+        hg, w = GI.phase1(gbits, last_x, y_rev, vals, g_r, g_omr, f3_d, dim, not narrow_x,
+                          reduce)
+        lo, hi = GI.prep1(deal(hg, s, size), deal(f2_d, s, size))
+        msgs1, rs1, state, pair = sharded_rounds(lo, hi, state, _PRODUCTS, _DEGREE, dim,
+                                                 self.group)
+        f2_u = GI.final_fold(*pair, rs1[dim - 1], 1)
+        f1_gu = GI.phase2_digits(x, perm_y, last_y, w, rs1, dim, not narrow_y, reduce)
+        lo, hi = GI.prep2(deal(f1_gu, s, size), deal(f3_d, s, size), f2_u)
+        msgs2, rs2, state, _pair = sharded_rounds(lo, hi, state, _PRODUCTS, _DEGREE, dim,
+                                                  self.group)
+        return torch.cat([msgs1, msgs2]), torch.cat([rs1, rs2]), state

@@ -81,17 +81,18 @@ def _fold_plan(polynomial):
     return products, tuple(scale_plan), num_slots, need_ones
 
 
-def _fill_pair(lo, hi, polynomial, plan, device) -> None:
+def _fill_pair(lo, hi, polynomial, plan, device, shard=None) -> None:
     """One `init_cuda.pair_init` launch: every slot of `lo`, `hi` ((U, 16,
-    n/2), possibly one instance's slice of a batched pair) from the
-    polynomial's device-cached tables (`DenseMLE.to_device`) by its
-    `_fold_plan`. The cached tables are only read."""
+    n/2), possibly one instance's slice of a batched pair, or (U, 16, n/2S)
+    for a `shard` (s, S)) from the polynomial's device-cached tables
+    (`DenseMLE.to_device`) by its `_fold_plan`. The cached tables are only
+    read."""
     _products, scale_plan, _num_slots, need_ones = plan
-    tabs = [m.to_device(device) for m in polynomial.flattened_ml_extensions]
+    tabs = [m.to_device(device, shard) for m in polynomial.flattened_ml_extensions]
     init_cuda.pair_init(lo, hi, tabs, init_cuda.slot_specs(len(tabs), scale_plan, need_ones))
 
 
-def init_pair(polynomial, device):
+def init_pair(polynomial, device, shard=None):
     """Build the (lo, hi) table pair the round kernels consume on `device`:
     unique tables (device-cached, bit-reversed — `DenseMLE.to_device`),
     product coefficients pre-multiplied into one exclusive slot each, a
@@ -99,13 +100,16 @@ def init_pair(polynomial, device):
     `pair_init` kernel launch on a card.
 
     Returns (lo, hi, products, degree): lo and hi are fresh (U, 16, 2^nv/2)
-    int32 tensors that the rounds fold in place."""
+    int32 tensors that the rounds fold in place. With `shard` = (s, S) they
+    are rank s's (U, 16, 2^nv/2S) lanes of that pair, global pair lanes
+    l·S + s as local lanes l (`parallel/mesh.deal`), built from rank s's
+    lanes of each table alone: a valid pair of 2^nv/2S lanes."""
     device = resolve_device(device)
-    n = 1 << polynomial.num_variables
+    lanes = (1 << polynomial.num_variables) // 2 // (shard[1] if shard else 1)
     plan = _fold_plan(polynomial)
-    lo = torch.empty((plan[2], NUM_DIGITS, n // 2), dtype=torch.int32, device=device)
+    lo = torch.empty((plan[2], NUM_DIGITS, lanes), dtype=torch.int32, device=device)
     hi = torch.empty_like(lo)
-    _fill_pair(lo, hi, polynomial, plan, device)
+    _fill_pair(lo, hi, polynomial, plan, device, shard)
     return lo, hi, plan[0], polynomial.max_multiplicands
 
 
@@ -246,6 +250,15 @@ def upload(t: torch.Tensor, device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def liftable(fs_rng) -> bool:
+    """Whether the device transcript can take `fs_rng` over: a
+    `Blake2b512Rng` whose pending byte count is a multiple of 8. Any other
+    transcript is proved on the host loop."""
+    from ..transcript.blake2b_rng import Blake2b512Rng
+
+    return isinstance(fs_rng, Blake2b512Rng) and len(fs_rng.state_tuple()[2]) % 8 == 0
 
 
 def lift_transcript(fs_rng, device) -> torch.Tensor:

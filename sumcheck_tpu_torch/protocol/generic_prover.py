@@ -61,29 +61,36 @@ from .prover import ProverMsg
 
 
 def chain_rounds_generic(lo, hi, state, products, degree: int, num_rounds: int,
-                         round_fns=None, transcript_fn=None):
+                         round_fns=None, transcript_fn=None, reduce_fn=None, r0=None):
     """Enqueue `num_rounds` rounds with no host sync: per round one round
     kernel over the active extent (folding `lo`, `hi` in place), adding its
     sums into row j of a zeroed `sum_rows` buffer, and one transcript step
     reading that row. `state` is the packed transcript (advanced in place).
     Returns (msgs (k, 16, d+1), rs (k, 16), state) on the pair's device.
     The fold rounds launch `round_fold_mxu` in the MXU fold mode.
-    `round_fns` and `transcript_fn` are test hooks."""
+
+    The multi-device provers (`parallel/chained.py`) give `reduce_fn`,
+    called on each round's sums row between the kernel and the transcript
+    step (the exact sum over the ranks, in place), and `r0`, a challenge
+    to fold by first: every round then folds, round 0 by `r0` over half the
+    pair. `round_fns` and `transcript_fn` are test hooks."""
     mxu = get_config().use_mxu_fold()
     nofold, fold = round_fns or (
         round_cuda.round_nofold, round_cuda.round_fold_mxu if mxu else round_cuda.round_fold)
     transcript = transcript_fn or transcript_cuda.transcript_step
     device = lo.device
-    half = lo.shape[2]
+    half = lo.shape[2] if r0 is None else lo.shape[2] // 2
     msgs = torch.empty((num_rounds, NUM_DIGITS, degree + 1), dtype=torch.int32, device=device)
     rs = torch.empty((num_rounds, NUM_DIGITS), dtype=torch.int32, device=device)
     rows = sum_rows(num_rounds, degree, device)
     for j in range(num_rounds):
         extent = half >> j
-        if j == 0:
+        if j == 0 and r0 is None:
             sums = nofold(lo, hi, products, degree, extent, rows[j])
         else:
-            sums = fold(lo, hi, rs[j - 1], products, degree, extent, rows[j])
+            sums = fold(lo, hi, rs[j - 1] if j else r0, products, degree, extent, rows[j])
+        if reduce_fn is not None:
+            reduce_fn(sums)
         transcript(state, sums, msgs, rs, j)
     return msgs, rs, state
 

@@ -900,3 +900,91 @@ def test_batched_gkr_on_cuda_equals_per_instance(cuda):
     assert TC.transcript_step_batched.launches - before == 2 * dim
     assert [p.serialize_uncompressed() for p in proofs] == alone
     assert [T.Fr.rand(r) for r in rngs] == [T.Fr.rand(r) for r in alone_rngs]
+
+
+# --- the multi-device provers on the card: S = 2 ranks
+
+
+def _sharded_instances():
+    """The ML (nv=10), batch (4 x nv=10) and GKR (dim 6) instances of the
+    sharded card tests, rebuilt the same in every process."""
+    import random
+
+    nv = 10
+    poly = polynomial_from_numpy(nv, _tables(21, nv, 5),
+                                 [(5, [0, 1, 2]), (1, [0, 3]), (9, [4, 0, 4, 1])])
+    rnd = random.Random(6)
+    gkr = (T.SparseMLE.rand_with_config(18, 40, rnd), T.DenseMLE.rand(6, rnd),
+           T.DenseMLE.rand(6, rnd), [T.Fr(rnd.randrange(P)) for _ in range(6)])
+    return poly, _batch_polys(22, 4, nv), gkr
+
+
+def _sharded_rank(rank, size, init_file, backend, out_file):
+    """One rank of `test_sharded_on_cuda_equals_single_card`: proves the
+    three instances in a `backend` group and writes what it got."""
+    import json
+
+    import torch.distributed as dist
+
+    from sumcheck_tpu_torch.batch import BatchedMLSumcheck
+    from sumcheck_tpu_torch.parallel import ChainedShardedProver, ShardedGKRProver, comm
+
+    dist.init_process_group(backend, init_method=f"file://{init_file}", rank=rank,
+                            world_size=size)
+    try:
+        poly, polys, gkr = _sharded_instances()
+        ml = ChainedShardedProver(device="cuda")
+        if backend == "nccl":
+            torch.cuda.set_device(ml.device)
+        launches = (RC.round_nofold.launches, RC.round_fold.launches)
+        rng = T.Blake2b512Rng.setup()
+        proof, _state = ml.prove_as_subprotocol(rng, poly)
+        launches = [f.launches - b for f, b in zip((RC.round_nofold, RC.round_fold), launches)]
+        grng = T.Blake2b512Rng.setup()
+        gproof = ShardedGKRProver(device="cuda").prove(grng, *gkr)
+        proofs = BatchedMLSumcheck.prove(polys, device="cuda", group=ml.group)
+        torch.cuda.synchronize()
+        with open(out_file.format(rank), "w") as f:
+            json.dump({"device": str(ml.device), "launches": launches,
+                       "collectives": comm.all_reduce_sum_.calls,
+                       "ml": [serialize_proof(proof).hex(), repr(rng.state_tuple())],
+                       "gkr": [gproof.serialize_uncompressed().hex(), repr(grng.state_tuple())],
+                       "batch": [serialize_proof(p).hex() for p in proofs]}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_sharded_on_cuda_equals_single_card(cuda, backend, tmp_path):
+    """Two ranks (gloo: both on card 0; NCCL: one card each, so it skips
+    with fewer than two cards) prove the sharded ML nv=10, GKR dim 6 and
+    batch 4 x nv=10 on the card: proof bytes and final transcripts equal
+    to the single-card proves, on both ranks; each rank ran round 0 once
+    and nv - 1 folds (the sharded ones and the tail)."""
+    import json
+
+    import torch.multiprocessing as mp
+
+    from sumcheck_tpu_torch.batch import BatchedMLSumcheck
+
+    if backend == "nccl" and torch.cuda.device_count() < 2:
+        pytest.skip(f"NCCL takes one card a rank: {torch.cuda.device_count()} card(s) here")
+    poly, polys, gkr = _sharded_instances()
+    rng, grng = T.Blake2b512Rng.setup(), T.Blake2b512Rng.setup()
+    want = {"ml": [serialize_proof(T.MLSumcheck.prove_as_subprotocol(rng, poly,
+                                                                     device=cuda)[0]).hex(),
+                   repr(rng.state_tuple())],
+            "gkr": [T.GKRRoundSumcheck.prove(grng, *gkr, device=cuda).serialize_uncompressed()
+                    .hex(), repr(grng.state_tuple())],
+            "batch": [serialize_proof(p).hex() for p in BatchedMLSumcheck.prove(polys, device=cuda)]}
+    out_file = str(tmp_path / "rank{}.json")
+    mp.spawn(_sharded_rank, args=(2, str(tmp_path / "init"), backend, out_file), nprocs=2)
+    for rank in range(2):
+        with open(out_file.format(rank)) as f:
+            got = json.load(f)
+        assert got["device"] == ("cuda:0" if backend == "gloo" else f"cuda:{rank}")
+        assert got["launches"] == [1, poly.num_variables - 1]
+        # ML: 9 sharded rounds and the gather; GKR: per phase its init, 5
+        # sharded rounds and the gather; the batch: one gather
+        assert got["collectives"] == 10 + 2 * 7 + 1
+        assert {k: got[k] for k in want} == want

@@ -158,6 +158,29 @@ def test_prove_fetches_once(monkeypatch):
     assert msgs.shape == (8, 16, 3) and rs.shape == (8, 16)
 
 
+@pytest.mark.parametrize("mode", MODES, indirect=True)
+def test_unaligned_pending_bytes_prove_on_the_host_loop(mode):
+    """A `Blake2b512Rng` pre-fed 3 bytes holds a pending byte count that is
+    not a multiple of 8, which the device transcript cannot hold: the prove
+    takes the host loop (it raised `ValueError` in the lift before), on
+    every path, byte-equal to the JAX package's prove of the same pre-fed
+    transcript, and the transcript ends in the same state."""
+    ref, port = instances(4, seed=9)
+    cfg = j_get_config()
+    saved, cfg.engine = cfg.engine, "host"
+    try:
+        jrng = J.Blake2b512Rng.setup()
+        jrng.feed_bytes(b"abc")
+        jproof = J.GKRRoundSumcheck.prove(jrng, *ref)
+    finally:
+        cfg.engine = saved
+    rng = T.Blake2b512Rng.setup()
+    rng.feed_bytes(b"abc")
+    proof = T.GKRRoundSumcheck.prove(rng, *port, device="cpu")
+    assert proof.serialize_uncompressed() == jproof.serialize_uncompressed()
+    assert rng.state_tuple() == jrng.state_tuple()
+
+
 def test_host_loop_for_other_rng():
     """Any other transcript takes the host loop, with the chained bytes."""
     _, port = instances(4, seed=2)

@@ -43,7 +43,8 @@ def test_import_leaves_jax_out():
         import sumcheck_tpu_torch.protocol.generic_prover, sumcheck_tpu_torch.protocol.device_prover
         import sumcheck_tpu_torch.gkr_round_sumcheck, sumcheck_tpu_torch.ops.gkr_init
         import sumcheck_tpu_torch.ops.mxu_mul, sumcheck_tpu_torch.ops.init_cuda
-        import sumcheck_tpu_torch.batch
+        import sumcheck_tpu_torch.batch, sumcheck_tpu_torch.parallel
+        import sumcheck_tpu_torch.parallel.comm, sumcheck_tpu_torch.parallel.mesh
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "sumcheck_tpu" or m.startswith("sumcheck_tpu.")]
         assert not bad, bad

@@ -1,0 +1,498 @@
+"""The port's multi-device provers (`sumcheck_tpu_torch/parallel/`, the
+sharded batch of `batch.py`) on the CPU against the JAX package.
+
+One spawn per world size S in (1, 2, 4), the three at once, runs every
+sharded case in a gloo group (`init_method=file://`, no TCP port), each
+rank on `device="cpu"` (the kernels' plain versions). The ranks import
+this module, which imports no JAX, and only the port: the parent builds
+every instance and every JAX-package reference. Each rank writes what it
+got to a file, and the tests compare every rank's results with the JAX
+package's single-device proofs (the JAX suite shows that its own sharded
+provers give those bytes), tolerance 0:
+
+- ML nv=6, two products of 2-3 multiplicands (the `tests/test_sharded.py`
+  chained instance), and the boundary nv with 2^(nv-1) == S: proof bytes,
+  the prover state's randomness and the final transcript state;
+- GKR dim 4 with 11 nonzeros (the padding of an odd count) at S = 1, 2,
+  and dim 5 with 32 nonzeros at S = 4;
+- the sharded batch, nv=5, B=8 (B=2 at S = 1): each proof, challenges and
+  transcript equal to the instance's own prove;
+- transcripts holding a pending byte count that is not a multiple of 8:
+  every rank proves alone, byte-equal to the JAX package (in the batch, B =
+  S with the last rank's instance pre-fed);
+- the rejections (nv or dim too small for S, B not a multiple of S, a
+  transcript other than `Blake2b512Rng`) raise `SumcheckError` and leave
+  every transcript untouched.
+
+Host-only cases check the layouts of `parallel/mesh.py` against the JAX
+package's.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import random
+import sys
+
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+from sumcheck_tpu_torch.parallel import mesh
+
+SIZES = (1, 2, 4)
+BATCH = {1: 2, 2: 8, 4: 8}
+BATCH_NV = 5
+ML_STRUCTURE = ((0, 1), (2, 0))  # the batch instances' (the `tests/test_batch.py` shape)
+
+
+def _log2(size: int) -> int:
+    return size.bit_length() - 1
+
+
+def _gkr_shape(size: int) -> tuple[int, int]:
+    """(dim, nnz) of the GKR case at world size `size`."""
+    return (5, 32) if size == 4 else (4, 11)
+
+
+# --- instances as plain arrays (both packages build theirs from them)
+
+
+def _tables(gen, nv: int, count: int) -> list[np.ndarray]:
+    out = []
+    for _ in range(count):
+        d = gen.integers(0, 1 << 16, size=(16, 1 << nv), dtype=np.uint32)
+        d[15] >>= 2  # < 2^254 < p
+        out.append(d)
+    return out
+
+
+def _ml_arrays(poly) -> dict:
+    """A polynomial as (nv, tables, products) of plain arrays and ints."""
+    return {"nv": poly.num_variables, "tables": [m.evals for m in poly.flattened_ml_extensions],
+            "products": [(c.v, list(ix)) for c, ix in poly.products]}
+
+
+def _boundary_arrays(size: int) -> dict:
+    nv = _log2(size) + 1  # 2^(nv-1) == size: one pair lane a rank
+    return {"nv": nv, "tables": _tables(np.random.default_rng(nv), nv, 2),
+            "products": [(3, [0, 1])]}
+
+
+def _batch_arrays(batch: int) -> list[dict]:
+    gen = np.random.default_rng(11)
+    out = []
+    for _ in range(batch):
+        coeffs = [int(gen.integers(1, 1 << 62)) for _ in ML_STRUCTURE]
+        out.append({"nv": BATCH_NV, "tables": _tables(gen, BATCH_NV, 3),
+                    "products": [(c, list(ix)) for c, ix in zip(coeffs, ML_STRUCTURE)]})
+    return out
+
+
+def _gkr_arrays(dim: int, nnz: int, seed: int) -> dict:
+    """A GKR instance drawn by the JAX package, as plain arrays."""
+    import sumcheck_tpu as J
+    from sumcheck_tpu.fields.fr import P
+
+    rnd = random.Random(seed)
+    f1 = J.SparseMLE.rand_with_config(3 * dim, nnz, rnd)
+    f2, f3 = J.DenseMLE.rand(dim, rnd), J.DenseMLE.rand(dim, rnd)
+    return {"dim": dim, "indices": f1.indices, "values": f1.values, "f2": f2.evals,
+            "f3": f3.evals, "g": [rnd.randrange(P) for _ in range(dim)]}
+
+
+def _port_poly(a: dict):
+    from sumcheck_tpu_torch.convert import polynomial_from_numpy
+
+    return polynomial_from_numpy(a["nv"], a["tables"], a["products"])
+
+
+def _port_gkr(a: dict):
+    from sumcheck_tpu_torch.convert import gkr_instance_from_numpy
+
+    return gkr_instance_from_numpy(a["dim"], a["indices"], a["values"], a["f2"], a["f3"],
+                                   a["g"])
+
+
+def _state(rng) -> list:
+    h, t, buf = rng.state_tuple()
+    return [list(h), t, buf.hex()]
+
+
+# --- the ranks (this part runs in the spawned processes: no JAX)
+
+
+class _OtherRng:
+    """A transcript other than `Blake2b512Rng`, with the same bytes."""
+
+    def __init__(self):
+        from sumcheck_tpu_torch import Blake2b512Rng
+
+        self.inner = Blake2b512Rng.setup()
+
+    def feed(self, msg):
+        self.inner.feed(msg)
+
+    def next_u64(self):
+        return self.inner.next_u64()
+
+
+def _rejected(fn, rngs) -> list:
+    """[raised SumcheckError, every transcript untouched]."""
+    from sumcheck_tpu_torch.utils.errors import SumcheckError
+
+    before = [_state(getattr(r, "inner", r)) for r in rngs]
+    try:
+        fn()
+    except SumcheckError:
+        raised = True
+    else:
+        raised = False
+    return [raised, [_state(getattr(r, "inner", r)) for r in rngs] == before]
+
+
+def _rank(rank: int, size: int, init_file: str, out_dir: str, cases: dict) -> None:
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=size)
+    try:
+        out = _rank_cases(size, cases)
+        out["jax_imported"] = sorted(m for m in sys.modules if m == "jax" or m == "sumcheck_tpu"
+                                     or m.startswith(("jax.", "sumcheck_tpu.")))
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank_cases(size: int, cases: dict) -> dict:
+    from sumcheck_tpu_torch import Blake2b512Rng
+    from sumcheck_tpu_torch.batch import BatchedMLSumcheck
+    from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
+    from sumcheck_tpu_torch.parallel import ChainedShardedProver, ShardedGKRProver, comm
+
+    ml = ChainedShardedProver(device="cpu")
+    gkr = ShardedGKRProver(device="cpu")
+    out = {}
+
+    def ml_prove(name, a, prefix=b""):
+        rng = Blake2b512Rng.setup()
+        rng.feed_bytes(prefix)
+        comm.all_reduce_sum_.calls = comm.all_reduce_sum_.bytes = 0
+        proof, state = ml.prove_as_subprotocol(rng, _port_poly(a))
+        out[name] = {"proof": serialize_proof(proof).hex(), "state": _state(rng),
+                     "randomness": [r.v for r in state.randomness],
+                     "collectives": comm.all_reduce_sum_.calls}
+
+    def gkr_prove(name, a, prefix=b""):
+        rng = Blake2b512Rng.setup()
+        rng.feed_bytes(prefix)
+        comm.all_reduce_sum_.calls = comm.all_reduce_sum_.bytes = 0
+        proof = gkr.prove(rng, *_port_gkr(a))
+        out[name] = {"proof": proof.serialize_uncompressed().hex(), "state": _state(rng),
+                     "collectives": comm.all_reduce_sum_.calls}
+
+    def batch_prove(name, arrays, prefixes):
+        rngs = [Blake2b512Rng.setup() for _ in arrays]
+        for rng, prefix in zip(rngs, prefixes):
+            rng.feed_bytes(prefix)
+        proofs, challenges = BatchedMLSumcheck.prove_as_subprotocol(
+            rngs, [_port_poly(a) for a in arrays], device="cpu", group=ml.group)
+        out[name] = {"proofs": [serialize_proof(p).hex() for p in proofs],
+                     "challenges": [[r.v for r in rs] for rs in challenges],
+                     "states": [_state(r) for r in rngs]}
+
+    ml_prove("ml", cases["ml"])
+    ml_prove("boundary", cases["boundary"])
+    ml_prove("ml_unaligned", cases["ml"], b"abc")
+    gkr_prove("gkr", cases["gkr"])
+    gkr_prove("gkr_unaligned", cases["gkr"], b"abc")
+    batch_prove("batch", cases["batch"], [b""] * len(cases["batch"]))
+    batch_prove("batch_unaligned", cases["batch"][:size],
+                [b"abc" if b == size - 1 else b"" for b in range(size)])
+
+    small = dict(cases["boundary"], nv=cases["boundary"]["nv"] - 1)
+    small["tables"] = [t[:, : 1 << small["nv"]] for t in small["tables"]]
+    gkr_small = cases["gkr_small"]
+    rng, other = Blake2b512Rng.setup(), _OtherRng()
+    rngs = [Blake2b512Rng.setup() for _ in range(3)]
+    mixed = [Blake2b512Rng.setup() for _ in range(size - 1)] + [other]  # B = S
+    out["reject"] = {
+        "nv": _rejected(lambda: ml.prove_as_subprotocol(rng, _port_poly(small)), [rng]),
+        "dim": _rejected(lambda: gkr.prove(rng, *_port_gkr(gkr_small)), [rng]),
+        "ml_rng": _rejected(lambda: ml.prove_as_subprotocol(other, _port_poly(cases["ml"])),
+                            [other]),
+        "gkr_rng": _rejected(lambda: gkr.prove(other, *_port_gkr(cases["gkr"])), [other]),
+        "batch_rng": _rejected(lambda: BatchedMLSumcheck.prove_as_subprotocol(
+            mixed, [_port_poly(a) for a in cases["batch"][:size]], device="cpu",
+            group=ml.group), mixed),
+    }
+    if size > 1:  # 3 instances over 2 or 4 ranks
+        out["reject"]["batch_size"] = _rejected(lambda: BatchedMLSumcheck.prove_as_subprotocol(
+            rngs, [_port_poly(a) for a in cases["batch"][:3]], device="cpu", group=ml.group),
+            rngs)
+    if not torch.cuda.is_available():
+        try:
+            ChainedShardedProver(ml.group, device="cuda")
+        except RuntimeError as e:
+            out["cuda_without_a_card"] = str(e)
+    return out
+
+
+# --- the parent: instances, JAX references, one spawn per world size
+
+
+def _cases(size: int) -> dict:
+    from conftest import random_list_of_products
+
+    poly, _total = random_list_of_products(6, (2, 4), 2, random.Random(0x5A5A))
+    dim = _log2(size)  # 2^(dim-1) < size: too small to shard
+    return {"ml": _ml_arrays(poly), "boundary": _boundary_arrays(size),
+            "gkr": _gkr_arrays(*_gkr_shape(size), seed=size),
+            "gkr_small": _gkr_arrays(dim, 1, seed=99), "batch": _batch_arrays(BATCH[size])}
+
+
+def _jax_reference(cases: dict, size: int) -> dict:
+    """Every case's single-device proof by the JAX package's host engine."""
+    import sumcheck_tpu as J
+    from sumcheck_tpu.ml_sumcheck import serialize_proof
+    from sumcheck_tpu.utils.config import get_config
+
+    def jpoly(a):
+        mles = [J.DenseMLE(a["nv"], t.copy()) for t in a["tables"]]
+        poly = J.ListOfProductsOfPolynomials(a["nv"])
+        for c, idx in a["products"]:
+            poly.add_product([mles[i] for i in idx], J.Fr(c))
+        return poly
+
+    def jgkr(a):
+        return (J.SparseMLE(3 * a["dim"], np.asarray(a["indices"]), a["values"]),
+                J.DenseMLE(a["dim"], a["f2"]), J.DenseMLE(a["dim"], a["f3"]),
+                [J.Fr(v) for v in a["g"]])
+
+    def ml(a, prefix=b""):
+        rng = J.Blake2b512Rng.setup()
+        rng.feed_bytes(prefix)
+        proof, state = J.MLSumcheck.prove_as_subprotocol(rng, jpoly(a))
+        return {"proof": serialize_proof(proof).hex(), "state": _state(rng),
+                "randomness": [r.v for r in state.randomness]}
+
+    def gkr(a, prefix=b""):
+        rng = J.Blake2b512Rng.setup()
+        rng.feed_bytes(prefix)
+        proof = J.GKRRoundSumcheck.prove(rng, *jgkr(a))
+        return {"proof": proof.serialize_uncompressed().hex(), "state": _state(rng)}
+
+    def batch(arrays, prefixes):
+        each = [ml(a, p) for a, p in zip(arrays, prefixes)]
+        return {"proofs": [e["proof"] for e in each], "challenges": [e["randomness"] for e in each],
+                "states": [e["state"] for e in each]}
+
+    cfg = get_config()
+    saved, cfg.engine = cfg.engine, "host"
+    try:
+        n = len(cases["batch"])
+        return {"ml": ml(cases["ml"]), "boundary": ml(cases["boundary"]),
+                "ml_unaligned": ml(cases["ml"], b"abc"), "gkr": gkr(cases["gkr"]),
+                "gkr_unaligned": gkr(cases["gkr"], b"abc"),
+                "batch": batch(cases["batch"], [b""] * n),
+                "batch_unaligned": batch(cases["batch"][:size],
+                                         [b"abc" if b == size - 1 else b"" for b in range(size)])}
+    finally:
+        cfg.engine = saved
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """{S: (S, every rank's results, the JAX references)}: the three spawns
+    run at once, while the parent computes the references."""
+    started = {}
+    for size in SIZES:
+        cases = _cases(size)
+        tmp = tmp_path_factory.mktemp(f"ranks{size}")
+        ctx = mp.start_processes(_rank, args=(size, str(tmp / "init"), str(tmp), cases),
+                                 nprocs=size, join=False, start_method="spawn")
+        started[size] = (ctx, tmp, _jax_reference(cases, size))
+    out = {}
+    for size, (ctx, tmp, ref) in started.items():
+        while not ctx.join():  # raises if a rank failed
+            pass
+        ranks = []
+        for r in range(size):
+            with open(tmp / f"rank{r}.json") as f:
+                ranks.append(json.load(f))
+        out[size] = (size, ranks, ref)
+    return out
+
+
+@pytest.fixture(params=SIZES, ids=lambda s: f"S{s}")
+def run(request, runs):
+    return runs[request.param]
+
+
+def _each_rank(run, name):
+    _size, ranks, ref = run
+    for got in ranks:
+        yield got[name], ref[name]
+
+
+def test_ml_matches_jax(run):
+    """Proof bytes, the prover state's randomness and the final transcript
+    on every rank equal the JAX package's single-device prove; one
+    all-reduce a sharded round and one gather."""
+    size = run[0]
+    for got, want in _each_rank(run, "ml"):
+        assert {k: got[k] for k in want} == want
+        assert got["collectives"] == 6 - _log2(size) + (size > 1)
+
+
+def test_boundary_nv_matches_jax(run):
+    """nv with 2^(nv-1) == S: one sharded round, then the gathered tail."""
+    for got, want in _each_rank(run, "boundary"):
+        assert {k: got[k] for k in want} == want
+
+
+def test_gkr_matches_jax(run):
+    """`GKRProof.serialize_uncompressed()` and the final transcript; odd
+    nnz pads the last chunk. Two inits, two sharded rounds' worth of
+    all-reduces, two gathers."""
+    size = run[0]
+    dim = _gkr_shape(size)[0]
+    for got, want in _each_rank(run, "gkr"):
+        assert {k: got[k] for k in want} == want
+        assert got["collectives"] == 2 * (1 + dim - _log2(size) + (size > 1))
+
+
+def test_batch_matches_each_instance(run):
+    """Every rank returns all B proofs, challenges and transcripts, each
+    equal to the instance's own JAX prove."""
+    for got, want in _each_rank(run, "batch"):
+        assert got == want
+
+
+def test_unaligned_transcripts_prove_alone(run):
+    """Transcripts pre-fed 3 bytes: each rank proves alone on the host
+    loop (ML, GKR; in the batch, the rank that holds that instance), byte-
+    equal to the JAX package."""
+    for name in ("ml_unaligned", "gkr_unaligned", "batch_unaligned"):
+        for got, want in _each_rank(run, name):
+            assert {k: got[k] for k in want} == want, name
+
+
+def test_rejections_leave_transcripts_untouched(run):
+    size, ranks, _ref = run
+    expected = {"nv", "dim", "ml_rng", "gkr_rng", "batch_rng"} | ({"batch_size"} if size > 1
+                                                                  else set())
+    for got in ranks:
+        assert set(got["reject"]) == expected
+        assert all(raised and untouched for raised, untouched in got["reject"].values()), \
+            got["reject"]
+
+
+def test_ranks_import_no_jax(run):
+    for got in run[1]:
+        assert got["jax_imported"] == []
+
+
+def test_cuda_without_a_card_raises(run):
+    """`device="cuda"` on a machine without a card raises the no-card
+    error, and nothing moves to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: this checks the no-card path")
+    for got in run[1]:
+        assert "no CUDA device" in got["cuda_without_a_card"]
+
+
+# --- host-only: the layouts against the JAX package's
+
+
+@pytest.mark.parametrize("nv,k", [(3, 0), (4, 2), (6, 3)])
+def test_sharded_layouts_match_jax(nv, k):
+    from sumcheck_tpu.parallel import mesh as jmesh
+
+    np.testing.assert_array_equal(mesh.sharded_perm(nv, k), jmesh.sharded_perm(nv, k))
+    np.testing.assert_array_equal(mesh.inverse_sharded_perm(nv, k),
+                                  jmesh.inverse_sharded_perm(nv, k))
+    arr = np.random.default_rng(nv).integers(0, 1 << 16, size=(16, 1 << nv), dtype=np.uint32)
+    np.testing.assert_array_equal(mesh.to_sharded_layout(arr, nv, k),
+                                  jmesh.to_sharded_layout(arr, nv, k))
+    np.testing.assert_array_equal(mesh.from_sharded_layout(arr, nv, k),
+                                  jmesh.from_sharded_layout(arr, nv, k))
+    np.testing.assert_array_equal(
+        mesh.from_sharded_layout(mesh.to_sharded_layout(arr, nv, k), nv, k), arr)
+
+
+def test_sharded_pairing_is_local():
+    """Fold pairs (2b, 2b+1) live in one shard block, half a block apart."""
+    nv, k = 5, 2
+    block = (1 << nv) >> k
+    perm = mesh.sharded_perm(nv, k)
+    for b in range((1 << nv) // 2):
+        p0, p1 = perm[2 * b], perm[2 * b + 1]
+        assert p0 // block == p1 // block
+        assert p1 - p0 == block // 2
+
+
+@pytest.mark.parametrize("size", [1, 2, 4])
+def test_deal_is_the_reference_deal(size):
+    """`mesh.deal` gives rank s the lanes the JAX package's cyclic deal
+    puts on shard s (`sumcheck_tpu/parallel/chained.py:177-187`), for
+    NumPy and torch tables alike."""
+    n = 32
+    table = np.random.default_rng(size).integers(0, 1 << 16, size=(16, n), dtype=np.uint32)
+    half = n // 2
+
+    def ref(part):  # the reference: (16, H) -> (16, H/S, S) -> moveaxis -> shard blocks
+        return np.moveaxis(part.reshape(16, half // size, size), 2, 1).reshape(16, half)
+
+    lo, hi = ref(table[:, :half]), ref(table[:, half:])
+    width = half // size
+    for s in range(size):
+        want = np.concatenate([lo[:, s * width:(s + 1) * width], hi[:, s * width:(s + 1) * width]],
+                              axis=1)
+        np.testing.assert_array_equal(mesh.deal(table, s, size), want)
+        np.testing.assert_array_equal(mesh.deal(torch.from_numpy(table.astype(np.int64)), s, size)
+                                      .numpy(), want)
+
+
+def test_default_group_needs_a_group():
+    from sumcheck_tpu_torch.parallel import ChainedShardedProver
+    from sumcheck_tpu_torch.utils.errors import SumcheckError
+
+    with pytest.raises(SumcheckError, match="process group"):
+        mesh.default_group()
+    with pytest.raises(SumcheckError, match="process group"):
+        ChainedShardedProver(device="cpu")
+
+
+def test_group_size_must_be_a_power_of_two(monkeypatch):
+    from sumcheck_tpu_torch.parallel import comm
+    from sumcheck_tpu_torch.utils.errors import SumcheckError
+
+    monkeypatch.setattr(comm, "rank_and_size", lambda group: (0, 3))
+    with pytest.raises(SumcheckError, match="power of two"):
+        mesh.group_shape(object())
+    monkeypatch.setattr(comm, "world", lambda: object())
+    with pytest.raises(SumcheckError, match="power of two"):
+        mesh.default_group()
+
+
+def test_shard_device(monkeypatch):
+    """Rank r takes card r % device_count for "cuda"; "cuda" without a card
+    raises the no-card error; an NCCL group refuses the CPU at
+    construction."""
+    from sumcheck_tpu_torch.parallel import comm
+    from sumcheck_tpu_torch.utils.errors import SumcheckError
+
+    monkeypatch.setattr(comm, "rank_and_size", lambda group: (3, 4))
+    monkeypatch.setattr(comm, "backend", lambda group: "gloo")
+    assert mesh.shard_device(object(), "cpu") == torch.device("cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mesh.shard_device(object(), "cuda")
+    monkeypatch.setattr(comm, "backend", lambda group: "nccl")
+    with pytest.raises(SumcheckError, match="NCCL"):
+        mesh.shard_device(object(), "cpu")

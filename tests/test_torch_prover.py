@@ -118,6 +118,35 @@ def test_prove_matches_jax_host_engine(shape):
     assert rng.fill_bytes(40) == jrng.fill_bytes(40)
 
 
+@pytest.mark.parametrize("chain", ["generic", "persize"])
+def test_unaligned_pending_bytes_prove_on_the_host_loop(chain, monkeypatch):
+    """A `Blake2b512Rng` pre-fed 3 bytes holds a pending byte count that is
+    not a multiple of 8, which the device transcript cannot hold: the prove
+    takes the host-transcript loop (it raised `ValueError` in the lift
+    before), on either chain, byte-equal to the JAX package's prove of the
+    same pre-fed transcript, and the transcript ends in the same state."""
+    from sumcheck_tpu_torch.utils.config import get_config as t_get_config
+
+    monkeypatch.setattr(t_get_config(), "chain_impl", chain)
+    products = [(0x1234567, [0, 1, 2]), (0x7654321, [3, 4, 5])]
+    tables = _tables(7, 5, 6)
+    jp, tp = jax_poly(5, tables, products), polynomial_from_numpy(5, tables, products)
+    cfg = get_config()
+    saved, cfg.engine = cfg.engine, "host"
+    try:
+        jrng = J.Blake2b512Rng.setup()
+        jrng.feed_bytes(b"abc")
+        jproof, jstate = J.MLSumcheck.prove_as_subprotocol(jrng, jp)
+    finally:
+        cfg.engine = saved
+    rng = T.Blake2b512Rng.setup()
+    rng.feed_bytes(b"abc")
+    proof, state = T.MLSumcheck.prove_as_subprotocol(rng, tp, device="cpu")
+    assert serialize_proof(proof) == j_serialize(jproof)
+    assert [r.v for r in state.randomness] == [r.v for r in jstate.randomness]
+    assert rng.state_tuple() == jrng.state_tuple()
+
+
 def test_one_shot_prove_verifies_and_subclaim_holds():
     jp, tp = both("2x3", seed=4)
     proof = T.MLSumcheck.prove(tp, device=torch.device("cpu"))
