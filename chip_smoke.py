@@ -30,7 +30,8 @@ failure raises and exits non-zero without the final line:
    field's two multiplies, even/odd and CIOS, against Python integers, their
    rates and the SASS instructions of one multiply each;
 6. the transcript kernel against the plain transcript and the host rng
-   over 60 rounds that reject draws, with kernel and plain times, and the
+   over 60 rounds that reject draws (the attempts a draw took and the
+   kernel's stream compactions counted), with kernel and plain times, and the
    step's latency bound: the compressions this run's rounds needed, times
    the depth of one compression, times the card's dependent-issue latency
    (measured by a chain of dependent instructions), plus the launch floor
@@ -43,9 +44,9 @@ failure raises and exits non-zero without the final line:
    work; 6d. the batched transcript step over 8 transcripts of unequal
    pending bytes against its plain version and the host rngs, beside 8
    single steps, with its latency bound;
-7. the golden fixtures `tests/fixtures/ml_nv6_rich.json` and
-   `ml_nv14_config1.json` through `device="cuda"` on both chains, and
-   `gkr_dim5.json` on both chains and in the MXU fold mode;
+7. the golden fixtures `tests/fixtures/ml_nv6_rich.json`,
+   `ml_nv14_config1.json` and `gkr_dim5.json` through `device="cuda"` on
+   both chains and in the MXU fold mode;
 8. the ML headlines: `MLSumcheck.prove` on 2 products x 3 multiplicands at
    nv=20 (tables from `numpy.random.default_rng(seed)`) on the generic
    chain, the per-size chain (`SUMCHECK_TPU_CHAIN_IMPL=persize`) and the
@@ -88,11 +89,26 @@ failure raises and exits non-zero without the final line:
    sync debug mode "error" (otherwise one line says why not). The kernels
    are built before the spawn, so no rank compiles; a rank's failure exits
    non-zero. S ranks on one card say nothing about speed across cards;
-12. one JSON line of the kernels (each with its time at the main path's
+12. the verify walls of the ML and GKR headline proofs with the C core
+   (`sumcheck_tpu_torch/native/`) and with the Python loop
+   (`SUMCHECK_TPU_NATIVE=off`), same subclaims;
+13. the second field: a child process, `SUMCHECK_TPU_FIELD=bn254_fr
+   python3 chip_smoke.py --field-phase` (its lines marked `[bn254_fr]`; a
+   failure there fails the run), which reruns under BN254 Fr, at the same
+   sizes and with the libraries already built: phases 3-5c and 6b-6d, the
+   fixture `tests/fixtures/bn254_torch.json` on every path, the ML, GKR
+   and batch proves (byte-equal across paths and to per-instance proves;
+   the GKR subclaim at dim 14, in the batch, not 18), the sharded ML prove
+   with 2 gloo ranks against its single-card proof, and phase 6 over 320
+   rounds with the attempts a draw took and the stream compactions counted
+   (it fails if none fired), the plain transcript running meanwhile on the
+   host's CPU (`--plain-transcript`); then each kernel's time and each
+   wall beside BLS12-381's;
+14. one JSON line of the kernels (each with its time at the main path's
    shape, its bound there and what sets it, its launches on the main path
-   and on every path in `launches_by_path`, and `library_ms` null: no
-   PyTorch call computes these functions), then the last line `{"ok": true,
-   "device": {...}}`.
+   and on every path in `launches_by_path`, `library_ms` null: no PyTorch
+   call computes these functions, and its BN254 time, bound and error),
+   then the last line `{"ok": true, "device": {...}}`.
 
 Kernel times are device times: `torch.cuda._sleep` holds the stream while
 the launches are enqueued, so the events time the kernels back to back and
@@ -217,11 +233,15 @@ def card_line() -> str:
 
 
 def random_tables(rng, nv: int, count: int) -> list[np.ndarray]:
-    """Strict Montgomery digit tables below p (the `bench.py` rule)."""
+    """Strict Montgomery digit tables below p (the `bench.py` rule: the top
+    digit shifted right by 2, so below 2^254 under BLS12-381 Fr; by 3, so
+    below 2^253, under BN254 Fr)."""
+    from sumcheck_tpu_torch.fields.fr import SHAVE_BITS
+
     out = []
     for _ in range(count):
         d = rng.integers(0, 1 << 16, size=(16, 1 << nv), dtype=np.uint32)
-        d[15] >>= 2  # < 2^254 < p
+        d[15] >>= 1 + SHAVE_BITS  # < 2^(255 - SHAVE_BITS) < p
         out.append(d)
     return out
 
@@ -657,7 +677,8 @@ def host_replay(host, msgs, rs, blen: int, degree: int, what: str):
     """Feed the host rng each round's message from a kernel's (rounds, 16,
     d+1) `msgs` and draw its challenge, checked against the kernel's (rounds,
     16) `rs`; returns (draws rejected, compressions per round, pending bytes
-    after), the compressions from the rejections and the pending bytes."""
+    after, attempts per round), the compressions from the rejections and the
+    pending bytes."""
     from sumcheck_tpu_torch import Fr
     from sumcheck_tpu_torch.fields.fr import P
     from sumcheck_tpu_torch.protocol.prover import ProverMsg
@@ -665,7 +686,7 @@ def host_replay(host, msgs, rs, blen: int, degree: int, what: str):
 
     msgs_h = msgs.numpy().astype(np.int64)
     rs_h = rs.numpy().astype(np.int64)
-    rejected, per_round = 0, []
+    rejected, per_round, tries = 0, [], []
     for j in range(msgs_h.shape[0]):
         host.feed(ProverMsg([Fr(sum(int(msgs_h[j, i, t]) << (16 * i) for i in range(16)))
                              for t in range(degree + 1)]))
@@ -678,53 +699,120 @@ def host_replay(host, msgs, rs, blen: int, degree: int, what: str):
             attempts += 1
         n, blen = compressions(blen, degree + 1, attempts)
         per_round.append(n)
+        tries.append(attempts)
         check(sum(int(rs_h[j, i]) << (16 * i) for i in range(16)) == draw,
               f"{what} round {j}: challenge differs from the host rng's")
-    return rejected, per_round, blen
+    return rejected, per_round, blen, tries
 
 
-def transcript_phase(device, seed: int, rounds: int = 60, degree: int = 3) -> dict:
-    """Phase 6: the transcript kernel against the plain transcript on the
-    card and against the host rng, over `rounds` rounds; its device time
-    per round beside its latency bound."""
+STREAM_WORDS = 128  # `csrc/transcript.cu` kStreamWords
+
+
+def stream_compactions(blen: int, d1: int, attempts: int) -> tuple[int, int]:
+    """(compactions, pending bytes after) of one transcript step, by the
+    transcript kernel's own bookkeeping (`csrc/transcript.cu`, the loop of
+    `transcript_kernel`): the round's stream of 64-bit words starts with the
+    pending block and the feed, a compression of a full block moves `pos` 16
+    words on, each next_u64 appends its 8 re-absorbed words, and when they
+    would pass `STREAM_WORDS - 16` the words from `pos` move to the front (a
+    compaction: the branch that runs of rejected draws reach)."""
+    pos, length = 0, blen // 8 + 1 + 4 * d1
+    drawn, tried, count = 0, 0, 0
+    while True:
+        absorb = length - pos > 16
+        if not absorb and drawn == 4:
+            tried += 1
+            if tried == attempts:
+                return count, 8 * (length - pos)
+            drawn = 0
+        if absorb:
+            pos += 16
+        else:
+            drawn += 1
+            if length + 8 > STREAM_WORDS - 16:
+                count += 1
+                length -= pos
+                pos = 0
+            length += 8
+
+
+def transcript_inputs(seed: int, rounds: int, degree: int):
+    """Phase 6's inputs: (rounds, d+1, 16) per-digit sums and a 48-byte
+    prefix the transcript is fed first, from `default_rng(seed + 2)`."""
+    gen = np.random.default_rng(seed + 2)
+    sums = gen.integers(0, 1 << 40, size=(rounds, degree + 1, 16), dtype=np.int64)
+    return sums, gen.bytes(48)
+
+
+def plain_transcript(seed: int, rounds: int, degree: int, device):
+    """The plain transcript step over `transcript_inputs`, round by round
+    on `device`: (final state, msgs, rs) on the CPU."""
+    from sumcheck_tpu_torch import Blake2b512Rng
+    from sumcheck_tpu_torch.ops import transcript_cuda as tc
+    from sumcheck_tpu_torch.protocol.device_prover import lift_transcript
+
+    sums, prefix = transcript_inputs(seed, rounds, degree)
+    host = Blake2b512Rng.setup()
+    host.feed_bytes(prefix)
+    state = lift_transcript(host, device)
+    sums = torch.from_numpy(sums).to(device)
+    msgs = torch.empty((rounds, 16, degree + 1), dtype=torch.int32, device=device)
+    rs = torch.empty((rounds, 16), dtype=torch.int32, device=device)
+    for j in range(rounds):
+        tc.transcript_step_ref(state, sums[j], msgs, rs, j)
+    return state.cpu(), msgs.cpu(), rs.cpu()
+
+
+def transcript_phase(device, seed: int, rounds: int = 60, degree: int = 3,
+                     plain=None) -> dict:
+    """Phase 6: the transcript kernel against the plain transcript and
+    against the host rng, over `rounds` rounds; its device time per round
+    beside its latency bound, and how many rounds drew 1, 2, 3 and 4 or
+    more attempts and how many stream compactions the kernel ran
+    (`stream_compactions`). `plain` returns the plain version's (state,
+    msgs, rs) over the same inputs; by default it runs here on the card."""
     from sumcheck_tpu_torch import Blake2b512Rng
     from sumcheck_tpu_torch.ops import transcript_cuda as tc
     from sumcheck_tpu_torch.protocol.device_prover import lift_transcript, restore_transcript
 
-    gen = np.random.default_rng(seed + 2)
-    sums = torch.from_numpy(
-        gen.integers(0, 1 << 40, size=(rounds, degree + 1, 16), dtype=np.int64)).to(device)
-    prefix = gen.bytes(48)
+    sums_h, prefix = transcript_inputs(seed, rounds, degree)
+    sums = torch.from_numpy(sums_h).to(device)
     host = Blake2b512Rng.setup()
     host.feed_bytes(prefix)
     state0 = lift_transcript(host, device)
-    state_k, state_p = state0.clone(), state0.clone()
-
-    def buffers():
-        return (torch.empty((rounds, 16, degree + 1), dtype=torch.int32, device=device),
-                torch.empty((rounds, 16), dtype=torch.int32, device=device))
-
-    (msgs_k, rs_k), (msgs_p, rs_p) = buffers(), buffers()
+    state_k = state0.clone()
+    msgs_k = torch.empty((rounds, 16, degree + 1), dtype=torch.int32, device=device)
+    rs_k = torch.empty((rounds, 16), dtype=torch.int32, device=device)
     for j in range(rounds):
         tc.transcript_step(state_k, sums[j], msgs_k, rs_k, j)
-        tc.transcript_step_ref(state_p, sums[j], msgs_p, rs_p, j)
+    state_p, msgs_p, rs_p = (plain or (lambda: plain_transcript(seed, rounds, degree, device)))()
     sync(device)
-    err = max(int((a.long() - b.long()).abs().max())
+    err = max(int((a.cpu().long() - b.long()).abs().max())
               for a, b in ((state_k, state_p), (msgs_k, msgs_p), (rs_k, rs_p)))
     check(err == 0, f"transcript kernel differs from plain by {err}")
 
     # the host rng over the same messages: same challenges, same final
     # state; its rejections and pending bytes give each round's compressions
-    rejected, per_round, blen = host_replay(host, msgs_k.cpu(), rs_k.cpu(), int(state0[25, 0]),
-                                            degree, "transcript")
+    blen0 = int(state0[25, 0])
+    rejected, per_round, blen, tries = host_replay(host, msgs_k.cpu(), rs_k.cpu(), blen0,
+                                                   degree, "transcript")
     total = sum(per_round)
     probe = Blake2b512Rng.setup()
     restore_transcript(probe, state_k.cpu())
     check(probe.state_tuple() == host.state_tuple(), "transcript state differs from the host rng's")
     check(blen == int(state_k[25, 0]), "the compression count's pending bytes differ from the card's")
     check(rejected >= 1, "the transcript schedule rejected no draw")
+    compactions, pending = 0, blen0
+    for attempts in tries:
+        n, pending = stream_compactions(pending, degree + 1, attempts)
+        compactions += n
+    check(pending == blen, "the stream model's pending bytes differ from the card's")
+    hist = {str(k): sum(1 for a in tries if min(a, 4) == k) for k in (1, 2, 3)}
+    hist["4+"] = sum(1 for a in tries if a >= 4)
+    print(f"transcript attempts a round over {rounds} rounds: {hist}; stream compactions in "
+          f"the kernel: {compactions}")
 
-    # device time: the same 60 rounds from the same state, back to back
+    # device time: the same rounds from the same state, back to back
     def rounds_from(st):
         it = iter(range(rounds))
 
@@ -736,15 +824,16 @@ def transcript_phase(device, seed: int, rounds: int = 60, degree: int = 3) -> di
     per_pass = [time_ms(rounds_from(st), rounds, device, device_only=True, warm=False)
                 for st in [state0.clone() for _ in range(3)]]
     ms = statistics.median(per_pass)
-    state_t = state_p.clone()
-    plain_ms = time_ms(lambda: tc.transcript_step_ref(state_t, sums[0], msgs_p, rs_p, 0),
+    state_t, msgs_t, rs_t = state0.clone(), msgs_k.clone(), rs_k.clone()
+    plain_ms = time_ms(lambda: tc.transcript_step_ref(state_t, sums[0], msgs_t, rs_t, 0),
                        PLAIN_REPS, device)
     print(f"transcript kernel-vs-plain, {rounds} rounds d={degree}: equal, equal to the host "
           f"rng ({rejected} draws rejected); kernel {ms:.4f} ms per round (device time, passes "
           f"{[round(x, 5) for x in per_pass]}), plain {plain_ms:.4f} ms per round")
+    out = {"shape": f"one round, d={degree}", "ms": ms, "plain_ms": plain_ms,
+           "attempts": hist, "compactions": compactions}
     if device.type != "cuda":
-        return {"transcript_step": [err, [{"shape": f"one round, d={degree}", "ms": ms,
-                                           "plain_ms": plain_ms}]]}
+        return {"transcript_step": [err, [out]]}
     bound = transcript_bound(device, total / rounds)
     print(f"transcript bound: {bound['compressions']:.2f} compressions a round x "
           f"{G_LEVELS} x {G_DEPTH} dependent instructions x {bound['ns_per_op']:.4f} ns = "
@@ -755,8 +844,8 @@ def transcript_phase(device, seed: int, rounds: int = 60, degree: int = 3) -> di
     print(f"one compression, 1024 chained, equal to blake2b_core: {clocks:.1f} clocks on the "
           f"kernel's four hash lanes ({clocks / RATES['clock_hz'] * 1e6:.4f} us at the max SM "
           f"clock)")
-    return {"transcript_step": [err, [{"shape": f"one round, d={degree}", "ms": ms,
-                                       "plain_ms": plain_ms, "bound": bound}]]}
+    out["bound"] = bound
+    return {"transcript_step": [err, [out]]}
 
 
 def golden_table(prefix: str, tag: str, nv: int, P: int) -> list[int]:
@@ -768,16 +857,20 @@ def golden_table(prefix: str, tag: str, nv: int, P: int) -> list[int]:
     return out
 
 
-def golden_phase(device) -> None:
-    """Phase 6: the ML golden fixtures through `device`, on both chains."""
+def golden_phase(device, fixtures=None) -> None:
+    """Phase 7: ML golden fixtures through `device`, on both chains and in
+    the MXU fold mode: `fixtures` is a list of (label, fixture), by default
+    `ml_nv6_rich.json` and `ml_nv14_config1.json`."""
     from sumcheck_tpu_torch import (
         Blake2b512Rng, DenseMLE, Fr, ListOfProductsOfPolynomials, MLSumcheck,
     )
     from sumcheck_tpu_torch.fields.fr import P
     from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
 
-    for name in ("ml_nv6_rich.json", "ml_nv14_config1.json"):
-        fx = json.loads((FIXTURES / name).read_text())
+    if fixtures is None:
+        fixtures = [(name, json.loads((FIXTURES / name).read_text()))
+                    for name in ("ml_nv6_rich.json", "ml_nv14_config1.json")]
+    for name, fx in fixtures:
         nv = fx["nv"]
         prefix = "nv14" if nv == 14 else "nv6"
         shared = {}
@@ -790,18 +883,17 @@ def golden_phase(device) -> None:
                 mles.append(shared[tag])
             poly.add_product(mles, Fr(int(prod["coeff"], 16)))
         check(poly.info().serialize_uncompressed().hex() == fx["info_bytes"], f"{name}: info")
-        for chain in ("generic", "persize"):
+        for path, (chain, mxu) in PATHS.items():
             fs_rng = Blake2b512Rng.setup()
-            with fold_mode(chain), syncs_forbidden_in_chains():
+            with fold_mode(chain, mxu), syncs_forbidden_in_chains():
                 proof, state = MLSumcheck.prove_as_subprotocol(fs_rng, poly, device=device)
-            check(serialize_proof(proof).hex() == fx["proof_bytes"], f"{name} {chain}: proof bytes")
+            check(serialize_proof(proof).hex() == fx["proof_bytes"], f"{name} {path}: proof bytes")
             check([format(r.v, "064x") for r in state.randomness] == fx["challenges"],
-                  f"{name} {chain}: challenges")
+                  f"{name} {path}: challenges")
             sub = MLSumcheck.verify(poly.info(), Fr(int(fx["asserted_sum"], 16)), proof)
             check(sub.expected_evaluation.v == int(fx["final_evaluation"], 16),
-                  f"{name} {chain}: final evaluation")
-            print(f"golden {name}, {chain} chain: proof bytes, challenges and final "
-                  f"evaluation equal")
+                  f"{name} {path}: final evaluation")
+            print(f"golden {name}, {path}: proof bytes, challenges and final evaluation equal")
 
 
 # the paths each headline drives: (chain, MXU fold mode)
@@ -830,15 +922,17 @@ def fold_mode(chain: str, mxu: bool = False, mxu_min_lanes: int | None = None):
         cfg.chain_impl, cfg.mxu_fold, cfg.ab, GI.MXU_MIN_LANES = saved
 
 
-def gkr_golden_phase(device) -> None:
-    """Phase 7b: `tests/fixtures/gkr_dim5.json` through `device` on both
-    chains and in the MXU fold mode (banded-product threshold at 1 lane, so
-    the inits' banded multiplies run too): messages, claimed sum, the
-    verifier's challenges and expected evaluation, the subclaim."""
+def gkr_golden_phase(device, fx=None, name: str = "gkr_dim5.json") -> None:
+    """Phase 7b: a GKR golden fixture (by default `tests/fixtures/gkr_dim5.json`)
+    through `device` on both chains and in the MXU fold mode (banded-product
+    threshold at 1 lane, so the inits' banded multiplies run too): messages,
+    claimed sum, the verifier's challenges and expected evaluation, the
+    subclaim."""
     from sumcheck_tpu_torch import Blake2b512Rng, DenseMLE, Fr, GKRRoundSumcheck, SparseMLE
     from sumcheck_tpu_torch.fields.fr import P
 
-    fx = json.loads((FIXTURES / "gkr_dim5.json").read_text())
+    if fx is None:
+        fx = json.loads((FIXTURES / name).read_text())
     dim = fx["dim"]
     f1 = SparseMLE.from_pairs(3 * dim, [(int(k), Fr(int(v, 16)))
                                         for k, v in fx["f1_nonzeros"].items()])
@@ -854,13 +948,13 @@ def gkr_golden_phase(device) -> None:
             proof = GKRRoundSumcheck.prove(Blake2b512Rng.setup(), f1, f2, f3, g, device=device)
         check(hexes(proof.phase1_sumcheck_msgs) == fx["phase1_msgs"]
               and hexes(proof.phase2_sumcheck_msgs) == fx["phase2_msgs"],
-              f"gkr_dim5.json {path}: proof messages")
+              f"{name} {path}: proof messages")
         sub = GKRRoundSumcheck.verify(Blake2b512Rng.setup(), dim, proof,
                                       Fr(int(fx["claimed_sum"], 16)))
         check([format(x.v, "064x") for x in sub.u + sub.v] == fx["u"] + fx["v"]
               and sub.expected_evaluation.v == int(fx["expected_evaluation"], 16)
-              and sub.verify_subclaim(f1, f2, f3, g), f"gkr_dim5.json {path}: verifier")
-        print(f"golden gkr_dim5.json, {path}: proof bytes, challenges, expected evaluation "
+              and sub.verify_subclaim(f1, f2, f3, g), f"{name} {path}: verifier")
+        print(f"golden {name}, {path}: proof bytes, challenges, expected evaluation "
               f"and subclaim equal")
 
 
@@ -1005,6 +1099,7 @@ def classify(by_name: dict, scale: float | None = None) -> dict:
 
 
 MARKER = "spin_kernel"  # the kernel `torch.cuda._sleep` launches
+PROFILE_TRIES = 3  # profiles taken before `profiled_kernels` gives up on the marker
 
 
 def profiled_kernels(warm, fn) -> dict:
@@ -1012,23 +1107,31 @@ def profiled_kernels(warm, fn) -> dict:
     profiler misses the first launches of a module in some profiles, so
     `warm()`, which launches the same kernels, and a marker kernel run
     first in the profile; after a sync the marker runs again, then `fn()`,
-    and only the launches after that last marker are counted."""
+    and only the launches after that last marker are counted. A profile
+    that holds no marker at all (it happens, rarely) is taken again, up to
+    `PROFILE_TRIES` profiles."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1000)
-        warm()
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-        torch.cuda._sleep(1000)
-        fn()
-        torch.cuda.synchronize()
-    events = sorted((e.time_range.start, e.name) for e in prof.events()
-                    if e.device_type == DeviceType.CUDA
-                    and not e.name.startswith(("Memcpy", "Memset")))
-    marks = [i for i, (_, name) in enumerate(events) if MARKER in name]
-    check(bool(marks), f"no marker kernel in the profile: {[n for _, n in events[:8]]}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            warm()
+            torch.cuda.synchronize()
+            torch.cuda._sleep(1000)
+            fn()
+            torch.cuda.synchronize()
+        events = sorted((e.time_range.start, e.name) for e in prof.events()
+                        if e.device_type == DeviceType.CUDA
+                        and not e.name.startswith(("Memcpy", "Memset")))
+        marks = [i for i, (_, name) in enumerate(events) if MARKER in name]
+        if marks:
+            break
+        print(f"profiled_kernels: no marker kernel in the profile, taken again: "
+              f"{[n[:60] for _, n in events[:4]]}")
+    check(bool(marks),
+          f"no marker kernel in {PROFILE_TRIES} profiles: {[n for _, n in events[:8]]}")
     counts = {}
     for _, name in events[marks[-1] + 1:]:
         counts[name] = counts.get(name, 0) + 1
@@ -1572,8 +1675,9 @@ def batch_transcript_phase(device, seed: int, batch: int = BATCH, rounds: int = 
     worst = [0] * rounds
     rejected = 0
     for b, host in enumerate(hosts):
-        rej, per_round, blen = host_replay(host, msgs[:, b].cpu(), rs[:, b].cpu(), blens[b],
-                                           degree, f"batched transcript instance {b}")
+        rej, per_round, blen, _tries = host_replay(host, msgs[:, b].cpu(), rs[:, b].cpu(),
+                                                   blens[b], degree,
+                                                   f"batched transcript instance {b}")
         rejected += rej
         worst = [max(w, n) for w, n in zip(worst, per_round)]
         probe = Blake2b512Rng.setup()
@@ -1810,17 +1914,19 @@ def sharded_phase(device, seed: int, reps: int, refs: dict) -> dict:
     return heads
 
 
-def run_ranks(size: int, backend: str, seed: int, reps: int, refs: dict) -> dict:
-    """One spawn of `size` ranks in a `backend` group; prints each case's
-    numbers and returns them by path, with rank 0's launch counts."""
+def run_ranks(size: int, backend: str, seed: int, reps: int, refs: dict,
+              cases: tuple = ("ml", "gkr", "batch")) -> dict:
+    """One spawn of `size` ranks in a `backend` group running `cases` (the
+    GKR case only at `GKR_SHARD_SIZES`); prints each case's numbers and
+    returns them by path, with rank 0's launch counts."""
     import tempfile
 
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        mp.spawn(sharded_rank, args=(size, backend, "cuda", f"{tmp}/init", tmp, seed, reps, refs),
-                 nprocs=size)
+        mp.spawn(sharded_rank, args=(size, backend, "cuda", f"{tmp}/init", tmp, seed, reps, refs,
+                                     cases), nprocs=size)
         spawn_s = time.perf_counter() - t0
         ranks = []
         for r in range(size):
@@ -1848,8 +1954,8 @@ def run_ranks(size: int, backend: str, seed: int, reps: int, refs: dict) -> dict
 
 
 def sharded_rank(rank: int, size: int, backend: str, device: str, init_file: str, out_dir: str,
-                 seed: int, reps: int, refs: dict) -> None:
-    """One rank of `run_ranks`: the sharded ML nv=20 2x3 prove (the phase-8
+                 seed: int, reps: int, refs: dict, cases: tuple = ("ml", "gkr", "batch")) -> None:
+    """One rank of `run_ranks`, the `cases` of: the sharded ML nv=20 2x3 prove (the phase-8
     instance), the sharded GKR dim-18 prove (phase 9's, at the sizes of
     `GKR_SHARD_SIZES`) and the sharded batch 8 x nv=16 (phase 10's), each
     through its public entry point on the rank's card, checked byte for
@@ -1870,13 +1976,15 @@ def sharded_rank(rank: int, size: int, backend: str, device: str, init_file: str
         # NCCL syncs nothing inside a chain; gloo passes each collective
         # through the host by design, so its chains are not held to that
         guard = syncs_forbidden_in_chains if backend == "nccl" else contextlib.nullcontext
-        cases = {"ml": sharded_ml(ml, seed, reps, refs, guard)}
-        if size in GKR_SHARD_SIZES:
-            cases["gkr"] = sharded_gkr(ShardedGKRProver(ml.group, device=device), seed, refs,
-                                       guard)
-        cases["batch"] = sharded_batch(ml, seed, reps, refs, guard)
+        out = {}
+        if "ml" in cases:
+            out["ml"] = sharded_ml(ml, seed, reps, refs, guard)
+        if "gkr" in cases and size in GKR_SHARD_SIZES:
+            out["gkr"] = sharded_gkr(ShardedGKRProver(ml.group, device=device), seed, refs, guard)
+        if "batch" in cases:
+            out["batch"] = sharded_batch(ml, seed, reps, refs, guard)
         with open(f"{out_dir}/rank{rank}.json", "w") as f:
-            json.dump({"device": str(ml.device), "cases": cases}, f)
+            json.dump({"device": str(ml.device), "cases": out}, f)
     finally:
         dist.destroy_process_group()
 
@@ -2000,6 +2108,335 @@ def sharded_batch(ml, seed: int, reps: int, refs: dict, guard) -> dict:
             "launches": launches, "collectives": calls, "bytes": nbytes}
 
 
+# --- the verifier's cores: the C core against the Python loop
+
+
+def verify_core_phase(ml_proof: bytes, gkr_proof: bytes) -> dict:
+    """The ML nv=20 2x3 and GKR dim-18 verify walls on the card's host with
+    the C core (`native/`, the default) and with ``SUMCHECK_TPU_NATIVE=off``
+    (hashlib and the per-round Python loop: the verifier before the C core),
+    from the headline proofs; the same subclaims both ways. Medians of 21
+    (GKR: 5) verifies."""
+    import os
+
+    from sumcheck_tpu_torch import (
+        Blake2b512Rng, GKRProof, GKRRoundSumcheck, MLSumcheck, PolynomialInfo,
+    )
+    from sumcheck_tpu_torch.ml_sumcheck import deserialize_proof
+
+    info = PolynomialInfo(3, NV)
+    proof = deserialize_proof(ml_proof)
+    gproof = GKRProof.deserialize_uncompressed(gkr_proof)
+    s, gs = MLSumcheck.extract_sum(proof), gproof.extract_sum()
+
+    def ml():
+        sub = MLSumcheck.verify(info, s, proof)
+        return [x.v for x in sub.point] + [sub.expected_evaluation.v]
+
+    def gkr():
+        sub = GKRRoundSumcheck.verify(Blake2b512Rng.setup(), GKR_DIM, gproof, gs)
+        return [x.v for x in sub.u + sub.v] + [sub.expected_evaluation.v]
+
+    out, subs = {}, {}
+    saved = os.environ.get("SUMCHECK_TPU_NATIVE")
+    try:
+        for core in ("c", "python"):
+            os.environ["SUMCHECK_TPU_NATIVE"] = "off" if core == "python" else "on"
+            for what, reps, fn in (("ml", 21, ml), ("gkr", 5, gkr)):
+                walls = []
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    subs[what, core] = fn()
+                    walls.append(time.perf_counter() - t0)
+                out[f"{what} {core}"] = statistics.median(walls)
+    finally:
+        if saved is None:
+            os.environ.pop("SUMCHECK_TPU_NATIVE", None)
+        else:
+            os.environ["SUMCHECK_TPU_NATIVE"] = saved
+    check(subs["ml", "c"] == subs["ml", "python"] and subs["gkr", "c"] == subs["gkr", "python"],
+          "the C core and the Python loop verify to different subclaims")
+    print(f"verify walls on the host, C core / Python loop (SUMCHECK_TPU_NATIVE=off), same "
+          f"subclaims: ML nv={NV} {out['ml c']:.6f} / {out['ml python']:.6f} s (median of 21), "
+          f"GKR dim {GKR_DIM} {out['gkr c']:.6f} / {out['gkr python']:.6f} s (median of 5)")
+    return out
+
+
+# --- the second field: BN254 Fr, in a child process (`--field-phase`)
+
+FIELD = "bn254_fr"
+FIELD_TRANSCRIPT_ROUNDS = 320
+# the kernels of the kernels line, each with its phase-3..6d main shape
+KERNEL_NAMES = ("round_nofold", "round_fold", "round_step_nofold", "round_step_fold",
+                "round_fold_mxu", "transcript_step", "pair_init", "round_nofold_batched",
+                "round_fold_batched", "round_step_fold_batched", "transcript_step_batched")
+
+
+def main_shape_bound(name: str, main_shape: dict) -> tuple[float, str, str]:
+    """(bound ms, "bytes" or "operations", what sets it) at a kernel's main
+    shape: the transcript steps' latency bound, else `bound_of`."""
+    if name.startswith("transcript_step"):
+        return main_shape["bound"]["bound_ms"], "operations", "latency"
+    return bound_of(main_shape["work"])
+
+
+def field_child(seed: int, reps: int) -> dict:
+    """Run `chip_smoke.py --field-phase` under ``SUMCHECK_TPU_FIELD=bn254_fr``
+    (the libraries are built already, so it builds nothing): its lines pass
+    through, marked with the field; a failure there raises here. Returns the
+    JSON object of its last line."""
+    import os
+
+    env = dict(os.environ, SUMCHECK_TPU_FIELD=FIELD)
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--field-phase", "--seed", str(seed),
+           "--reps", str(reps)]
+    lines = []
+    with subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True, env=env) as proc:
+        for line in proc.stdout:
+            print(f"[{FIELD}] {line}", end="", flush=True)
+            lines.append(line)
+    check(proc.returncode == 0, f"the {FIELD} phase exited with code {proc.returncode}")
+    return json.loads(lines[-1])["field_phase"]
+
+
+def field_golden_phase(device) -> None:
+    """The BN254 golden fixture `tests/fixtures/bn254_torch.json` (made by
+    the JAX package under BN254, `tests/test_torch_field.py`): the ML nv=6
+    instance and the GKR dim-5 instance on both chains and in the MXU fold
+    mode, and the `Fr.rand` draws."""
+    from sumcheck_tpu_torch import Blake2b512Rng, Fr
+    from sumcheck_tpu_torch.fields.fr import P
+
+    fx = json.loads((FIXTURES / "bn254_torch.json").read_text())
+    check(fx["field"] == FIELD and int(fx["p"], 16) == P, "bn254_torch.json is not over this p")
+    golden_phase(device, [("bn254_torch.json ml", fx["ml"])])
+    gkr_golden_phase(device, fx["gkr"], "bn254_torch.json gkr")
+    rng = Blake2b512Rng.setup()
+    rng.feed_bytes(bytes.fromhex(fx["fr_rand"]["seed_feed"]))
+    draws = [format(Fr.rand(rng).v, "064x") for _ in fx["fr_rand"]["draws_canonical"]]
+    check(draws == fx["fr_rand"]["draws_canonical"], "bn254_torch.json: Fr.rand draws")
+    print(f"golden bn254_torch.json fr_rand: {len(draws)} draws equal")
+
+
+def field_ml_proves(device, seed: int, reps: int, nv: int = NV) -> dict:
+    """`MLSumcheck.prove` on the nv=20 2x3 instance on the three paths and
+    the host-transcript loop: launch counts, first and warm walls, proof
+    bytes equal across all four, one verify (C core) and the subclaim."""
+    from sumcheck_tpu_torch import Blake2b512Rng, MLSumcheck
+    from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
+
+    poly = headline_poly(seed, nv)
+    out = {}
+    for path, (chain, mxu) in PATHS.items():
+        kernels = path_kernels(chain, mxu)
+        with fold_mode(chain, mxu), syncs_forbidden_in_chains():
+            for f in counters().values():
+                f.launches = 0
+            t0 = time.perf_counter()
+            proof = MLSumcheck.prove(poly, device=device)
+            first_s = time.perf_counter() - t0
+            walls = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                MLSumcheck.prove(poly, device=device)
+                walls.append(time.perf_counter() - t0)
+            launches = {k: f.launches for k, f in counters().items()}
+        proves = reps + 1
+        want = {k: 0 for k in launches}
+        want.update({kernels[0]: proves, kernels[1]: proves * (nv - 1),
+                     "transcript_step": proves * nv, "pair_init": proves})
+        check(launches == want, f"{FIELD} ML {path}: launches {launches}, expected {want}")
+        out[f"ml {path}"] = {"prove_s": statistics.median(walls), "first_s": first_s,
+                             "launches": launches, "proof": serialize_proof(proof)}
+        print(f"{FIELD} ML nv={nv} 2x3 {path}: first {first_s:.4f} s, median of {reps} warm "
+              f"{out[f'ml {path}']['prove_s']:.4f} s; launches "
+              f"{ {k: v for k, v in launches.items() if v} }")
+    t0 = time.perf_counter()
+    host, _ = MLSumcheck.prove_as_subprotocol(HostTranscriptRng(), poly, device=device)
+    host_s = time.perf_counter() - t0
+    proofs = {p: h["proof"] for p, h in out.items()}
+    proofs["host-transcript loop"] = serialize_proof(host)
+    check(len(set(proofs.values())) == 1, f"{FIELD} ML: the paths prove different bytes")
+    fs_rng = Blake2b512Rng.setup()
+    proof, state = MLSumcheck.prove_as_subprotocol(fs_rng, poly, device=device)
+    sub = MLSumcheck.verify(poly.info(), MLSumcheck.extract_sum(proof), proof)
+    check(state.randomness == sub.point and poly.evaluate(sub.point) == sub.expected_evaluation,
+          f"{FIELD} ML: subclaim")
+    out["ml generic"]["transcript"] = repr(fs_rng.state_tuple())
+    print(f"{FIELD} ML: proof bytes equal on {', '.join(proofs)} ({host_s:.4f} s); verify "
+          f"accepts, subclaim equals poly.evaluate(point) and the prover's randomness")
+    return out
+
+
+def subclaim_in_integers(inst, sub) -> bool:
+    """`verify_subclaim` in Python integers: f1(g, u, v) f2(u) f3(v) from the
+    eq tables of g, u and v (low variable first) and the tables' canonical
+    values, with none of the limb arithmetic that the prover's inits and
+    `verify_subclaim` share; seconds at dim 18, where `verify_subclaim`
+    takes 40-75 s."""
+    from sumcheck_tpu_torch.fields.fr import P
+    from sumcheck_tpu_torch.fields.limbs_np import to_ints
+
+    f1, f2, f3, g = inst
+    dim = f2.num_vars
+
+    def eq_table(point):
+        tab = [1]
+        for r in point:
+            tab = [t * (1 - r.v) % P for t in tab] + [t * r.v % P for t in tab]
+        return tab
+
+    eg, eu, ev = (eq_table(pt) for pt in (g, sub.u, sub.v))
+    mask = (1 << dim) - 1
+    f1_guv = sum(w * eg[i & mask] % P * eu[(i >> dim) & mask] % P * ev[i >> 2 * dim]
+                 for i, w in zip(f1.indices.tolist(), to_ints(f1.values)))
+    f2_u = sum(a * b for a, b in zip(to_ints(f2.evals), eu))
+    f3_v = sum(a * b for a, b in zip(to_ints(f3.evals), ev))
+    return f1_guv % P * (f2_u % P) % P * (f3_v % P) % P == sub.expected_evaluation.v
+
+
+def field_gkr_proves(device, seed: int, reps: int) -> dict:
+    """`GKRRoundSumcheck.prove` at dim 18 on the three paths: launch counts,
+    walls, bytes equal, `verify` (C core) on each, and the subclaim checked
+    in Python integers (`subclaim_in_integers`), which holds the inits at
+    dim 18; `verify_subclaim` itself (40-75 s of limb arithmetic on the
+    host) runs in the GKR batch, on two instances at dim 14."""
+    from sumcheck_tpu_torch import Blake2b512Rng, GKRRoundSumcheck
+
+    f1, f2, f3, g = inst = gkr_instance(seed, GKR_DIM)
+    dim = f2.num_vars
+    out = {}
+    for path, (chain, mxu) in PATHS.items():
+        kernels = path_kernels(chain, mxu)
+        with fold_mode(chain, mxu), syncs_forbidden_in_chains():
+            for f in counters().values():
+                f.launches = 0
+            walls = []
+            for _ in range(reps + 1):
+                t0 = time.perf_counter()
+                proof = GKRRoundSumcheck.prove(Blake2b512Rng.setup(), *inst, device=device)
+                walls.append(time.perf_counter() - t0)
+            launches = {k: f.launches for k, f in counters().items()}
+        proves = reps + 1
+        want = {k: 0 for k in launches}
+        want.update({kernels[0]: 2 * proves, kernels[1]: 2 * (dim - 1) * proves,
+                     "transcript_step": 2 * dim * proves})
+        check(launches == want, f"{FIELD} GKR {path}: launches {launches}, expected {want}")
+        t0 = time.perf_counter()
+        sub = GKRRoundSumcheck.verify(Blake2b512Rng.setup(), dim, proof, proof.extract_sum())
+        verify_s = time.perf_counter() - t0
+        out[f"gkr {path}"] = {"prove_s": statistics.median(walls[1:]), "first_s": walls[0],
+                              "verify_s": verify_s, "launches": launches,
+                              "proof": proof.serialize_uncompressed()}
+        print(f"{FIELD} GKR dim={dim} {path}: first {walls[0]:.4f} s, median of {reps} warm "
+              f"{out[f'gkr {path}']['prove_s']:.4f} s; verify accepts ({verify_s:.6f} s)")
+    check(len({h["proof"] for h in out.values()}) == 1, f"{FIELD} GKR: paths differ")
+    t0 = time.perf_counter()
+    check(subclaim_in_integers(inst, sub), f"{FIELD} GKR dim={dim}: the subclaim fails")
+    print(f"{FIELD} GKR: proof bytes equal on {', '.join(PATHS)}; the subclaim holds in Python "
+          f"integers ({time.perf_counter() - t0:.2f} s; verify_subclaim runs at dim "
+          f"{GKR_BATCH_DIM}, in the GKR batch)")
+    return out
+
+
+def field_phase_main(args) -> int:
+    """`--field-phase`: every kernel of the main paths against its plain
+    version, the golden fixture and the proves, under BN254 Fr (the parent
+    sets ``SUMCHECK_TPU_FIELD``), at the sizes of the BLS12-381 phases; the
+    last line is one JSON object of the numbers."""
+    import os
+    import tempfile
+
+    from sumcheck_tpu_torch.fields.fr import FIELD_NAME, NINV16, NINV32, P, SHAVE_BITS
+    from sumcheck_tpu_torch.ops import cuda_build
+
+    check(FIELD_NAME == FIELD, f"--field-phase runs under SUMCHECK_TPU_FIELD={FIELD}")
+    device = torch.device("cuda", 0)
+    print(f"field {FIELD_NAME}: p = {P:#x}, -p^-1 mod 2^32 = {NINV32:#010x}, -p^-1 mod 2^16 = "
+          f"{NINV16:#06x}, {SHAVE_BITS} shaved bits")
+    RATES.update(card_rates(device))
+    t0 = time.perf_counter()
+    libs = cuda_build.build("round", "transcript", "round_mxu", "pair_init")
+    print(f"libraries: {', '.join(lib.name for lib in libs.values())} ({time.perf_counter() - t0:.2f}"
+          f" s: built by the parent, the field is a launch parameter)")
+    # the plain transcript over the transcript phase's rounds, on the host's
+    # CPU in a process of its own while the card runs the phases below
+    with tempfile.TemporaryDirectory() as tmp:
+        plain_file = os.path.join(tmp, "plain.pt")
+        plain_proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--plain-transcript", plain_file,
+             "--seed", str(args.seed)])
+        try:
+            return _field_phases(args, device, libs, plain_proc, plain_file)
+        finally:
+            if plain_proc.poll() is None:  # a phase failed before it was waited for
+                plain_proc.kill()
+            plain_proc.wait()
+
+
+def _field_phases(args, device, libs, plain_proc, plain_file: str) -> int:
+    """The phases of `field_phase_main`; `plain_proc` is writing the plain
+    transcript to `plain_file`."""
+    marks = [("", time.perf_counter())]
+
+    def mark(label):
+        marks.append((label, time.perf_counter()))
+
+    stats = kernel_phase(device, args.seed)
+    stats.update(step_kernel_phase(device, args.seed))
+    stats.update(mxu_kernel_phase(device, args.seed))
+    mark("round kernels")
+    mxu_mul_phase(device, args.seed)
+    mont_mul_phase(device, args.seed, libs["round"])
+    stats.update(pair_init_phase(device, args.seed))
+    stats.update(batch_kernel_phase(device, args.seed))
+    stats.update(batch_transcript_phase(device, args.seed))
+    mark("multiplies, pair init and batched kernels")
+    field_golden_phase(device)
+    mark("golden fixture")
+    heads = field_ml_proves(device, args.seed, args.reps)
+    heads.update(field_gkr_proves(device, args.seed, args.reps))
+    mark("ML and GKR proves")
+    for path in BATCH_PATHS:
+        heads[path] = batch_ml_phase(device, args.seed, args.reps, path)
+    check(heads["batch ml generic"]["proofs"] == heads["batch ml per-size"]["proofs"],
+          "the two batched chains prove different bytes")
+    heads["batch gkr generic"] = gkr_batch_phase(device, args.seed, 1)
+    mark("batches")
+    refs = {"ml": heads["ml generic"]["proof"], "ml_state": heads["ml generic"]["transcript"]}
+    torch.cuda.empty_cache()
+    heads.update(run_ranks(2, "gloo", args.seed, args.reps, refs, cases=("ml",)))
+    mark("sharded ML")
+
+    def wait_plain():
+        check(plain_proc.wait() == 0, "the plain transcript process failed")
+        return torch.load(plain_file)
+
+    stats.update(transcript_phase(device, args.seed, FIELD_TRANSCRIPT_ROUNDS, plain=wait_plain))
+    tr = stats["transcript_step"][1][0]
+    check(tr["compactions"] >= 1, f"{FIELD}: no stream compaction in "
+                                  f"{FIELD_TRANSCRIPT_ROUNDS} transcript rounds")
+    mark("transcript")
+    print(f"{FIELD} host seconds by phase: " + ", ".join(
+        f"{label} {t - prev:.1f}" for (_, prev), (label, t) in zip(marks, marks[1:])))
+    kernels = {}
+    for name in KERNEL_NAMES:
+        err, timings = stats[name]
+        bound_ms, bound_by, _ = main_shape_bound(name, timings[0])
+        kernels[name] = {"max_abs_err": err, "ms": timings[0]["ms"],
+                         "plain_ms": timings[0]["plain_ms"], "bound_ms": bound_ms,
+                         "bound_by": bound_by, "shape": timings[0]["shape"]}
+    walls = {path: {k: h[k] for k in ("prove_s", "per_proof_s", "launches") if k in h}
+             for path, h in heads.items()}
+    print(json.dumps({"field_phase": {
+        "field": FIELD, "kernels": kernels, "walls": walls,
+        "transcript": {"rounds": FIELD_TRANSCRIPT_ROUNDS, "attempts": tr["attempts"],
+                       "compactions": tr["compactions"],
+                       "compressions": tr["bound"]["compressions"]},
+        "seconds": marks[-1][1] - marks[0][1]}}))
+    return 0
+
+
 def short_name(mangled: str) -> str:
     """A kernel's name and template arguments from its mangled name."""
     import re
@@ -2081,11 +2518,23 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--field-phase", action="store_true",
+                    help=f"run the {FIELD} phase (the parent starts it under "
+                         f"SUMCHECK_TPU_FIELD={FIELD})")
+    ap.add_argument("--plain-transcript", metavar="PATH",
+                    help="save the plain transcript over the transcript phase's inputs, on "
+                         "the CPU, to PATH (the field phase starts it)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.plain_transcript:
+        torch.save(plain_transcript(args.seed, FIELD_TRANSCRIPT_ROUNDS, 3, torch.device("cpu")),
+                   args.plain_transcript)
+        return 0
+    if args.field_phase:
+        return field_phase_main(args)
     from sumcheck_tpu_torch.ops import cuda_build
 
     device = torch.device("cuda", 0)
@@ -2176,8 +2625,22 @@ def main() -> int:
             "gkr": heads["gkr generic"]["proof"], "batch": heads["batch ml generic"]["proofs"]}
     heads.update(sharded_phase(device, args.seed, args.reps, refs))
     mark("sharded")
+    verify_core_phase(heads["ml generic"]["proof"], heads["gkr generic"]["proof"])
+    mark("verify cores")
+    torch.cuda.empty_cache()  # the child allocates on the same card
+    field = field_child(args.seed, args.reps)
+    mark(f"{FIELD} child")
     print("host seconds by phase: " + ", ".join(
         f"{label} {t - prev:.1f}" for (_, prev), (label, t) in zip(marks, marks[1:])))
+    tr = stats["transcript_step"][1][0]
+    print(f"transcript attempts a round, BLS12-381 over 60 rounds {tr['attempts']}, "
+          f"{tr['compactions']} compactions; {FIELD} over "
+          f"{field['transcript']['rounds']} rounds {field['transcript']['attempts']}, "
+          f"{field['transcript']['compactions']} compactions")
+    for path, w in field["walls"].items():
+        if path in heads:
+            print(f"wall {path}: BLS12-381 {heads[path]['prove_s']:.4f} s, {FIELD} "
+                  f"{w['prove_s']:.4f} s (medians of {args.reps} warm, this call)")
 
     kernels = []
     sources = {"transcript_step": "transcript.cu", "round_fold_mxu": "round_mxu.cu",
@@ -2201,11 +2664,9 @@ def main() -> int:
     ):
         err, timings = stats[name]
         main_shape = timings[0]
-        if name.startswith("transcript_step"):
-            bound_ms, bound_by, detail = main_shape["bound"]["bound_ms"], "operations", "latency"
-        else:
-            bound_ms, bound_by, detail = bound_of(main_shape["work"])
+        bound_ms, bound_by, detail = main_shape_bound(name, main_shape)
         symbol = symbols.get(name, "round_kernel")
+        bn = field["kernels"][name]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -2221,6 +2682,9 @@ def main() -> int:
             "bound_detail": detail,
             "library_ms": None,
             "shape": main_shape["shape"],
+            f"{FIELD}_ms": bn["ms"],
+            f"{FIELD}_bound_ms": bn["bound_ms"],
+            f"{FIELD}_max_abs_err": bn["max_abs_err"],
             "ptxas": {short_name(k): v for k, v in ptxas.items() if symbol in k},
             "timings": [{k: v for k, v in t.items() if k not in ("work", "bound")}
                         for t in timings],
@@ -2228,6 +2692,8 @@ def main() -> int:
         prev = PREVIOUS_MS.get(name)
         print(f"kernel {name}: {main_shape['ms']:.4f} ms at {main_shape['shape']}, bound "
               f"{bound_ms:.4f} ms ({detail}), {bound_ms / main_shape['ms']:.1%} of it; "
+              f"{FIELD} {bn['ms']:.4f} ms, bound {bn['bound_ms']:.4f} ms, "
+              f"{bn['bound_ms'] / bn['ms']:.1%} of it; "
               + (f"previous version (PERF.md): {prev} ms" if prev else "new in this version"))
     print("Montgomery multiplies per second: "
           + ", ".join(f"{k} {v:.4e}" for k, v in mul_rates.items()))

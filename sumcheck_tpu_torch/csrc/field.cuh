@@ -5,8 +5,11 @@
 // carry chain (mont_mul; CIOS, mont_mul_cios, beside it as the probe's
 // yardstick), additions and subtractions as PTX carry chains. p and -p^-1
 // mod 2^32 arrive as launch parameters (struct Field), so another field
-// changes no code here. Every result is fully reduced into [0, p), as the
-// JAX limb code does, so the integers are bit-identical to it.
+// changes no code here: BLS12-381 Fr (p < 2^255, -p^-1 = 0xFFFFFFFF mod
+// 2^32) and BN254 Fr (p < 2^254, 0xEFFFFFFF) run the same code, and every
+// bound below that cites p < 2^255 holds for both. Every result is fully
+// reduced into [0, p), as the JAX limb code does, so the integers are
+// bit-identical to it.
 //
 // Storage layout at the tensor boundary is the JAX package's: 16 x 16-bit
 // digits per element in 32-bit words; load_lane / store_lane join and split

@@ -6,8 +6,7 @@ Equivalents of `ListOfProductsOfPolynomials` (prover key) and
 object-identity dedup of shared multiplicand tables
 (`data_structures.rs:83-96`): the same `DenseMLE` *object* appearing in many
 multiplicand slots is stored once in `flattened_ml_extensions` and folded once
-per round by the prover. Copied from `sumcheck_tpu/data_structures.py`
-without the `field=` promotion (one field in this port so far).
+per round by the prover. Copied from `sumcheck_tpu/data_structures.py`.
 """
 
 from __future__ import annotations
@@ -52,9 +51,25 @@ class ListOfProductsOfPolynomials:
     `products` holds `(coefficient: Fr, [indices into
     flattened_ml_extensions])`; identical `DenseMLE` objects (by `id()`, the
     analog of the reference's `Rc` pointer identity) are deduplicated.
+
+    `field` promotes the field choice to the constructor (the reference is
+    generic over `F: Field`, `ml_sumcheck/mod.rs:19`): `None` or the process
+    default -> this class (the kernels); any other `fields.generic.Field` ->
+    a `portable.PortableListOfProducts` over that field is returned instead,
+    served by the portable host engine.
     """
 
-    def __init__(self, num_variables: int):
+    def __new__(cls, num_variables: int, field=None):
+        if field is not None and not field.is_default:
+            from .portable import PortableListOfProducts
+
+            return PortableListOfProducts(num_variables, field)
+        return super().__new__(cls)
+
+    def __init__(self, num_variables: int, field=None):
+        from .fields.generic import default_field
+
+        self.field = default_field()
         self.max_multiplicands = 0
         self.num_variables = num_variables
         self.products: list[tuple[Fr, list[int]]] = []

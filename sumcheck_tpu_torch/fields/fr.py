@@ -1,19 +1,22 @@
 """The scalar field: constants and host-side (Python int) arithmetic.
 
-BLS12-381 Fr, the scalar field used by the reference library's tests and
-benches (reference: `Cargo.toml:28`, `src/ml_sumcheck/test.rs:13`) and the one
-pinned by the golden fixtures. Copied from `sumcheck_tpu/fields/fr.py` with
-the default field only: other primes come with a later slice of the port.
+Default field is BLS12-381 Fr, the scalar field used by the reference
+library's tests and benches (reference: `Cargo.toml:28`,
+`src/ml_sumcheck/test.rs:13`) and the one pinned by the golden fixtures.
+``SUMCHECK_TPU_FIELD`` selects another registered prime per process (see
+`_FIELDS`: any prime of at most 255 bits with arkworks' 4x64-limb /
+R = 2^256 shape drops in); copied from `sumcheck_tpu/fields/fr.py`.
 
 Host-side representation: Python ints holding the *canonical* residue in
 [0, P). The device representation (Montgomery form, 16x16-bit digits) lives
-in `limbs_np.py` / `limbs_torch.py`; the CUDA round kernels take `P` and
-`NINV32` from here as launch parameters.
+in `limbs_np.py` / `limbs_torch.py`; the CUDA kernels take `P`, `NINV32`
+and `SHAVE_BITS` from here as launch parameters, so one built library
+serves every prime.
 
 Montgomery parameters match arkworks' (R = 2^256 mod p), so a device-resident
 Montgomery value is numerically identical to arkworks' internal `Fp` backing
 store — which is what `Fr::rand` samples directly (ark-ff 0.4
-`Distribution<Fp> for Standard`): the accepted 255-bit draw IS the Montgomery
+`Distribution<Fp> for Standard`): the accepted masked draw IS the Montgomery
 representation.
 """
 
@@ -21,18 +24,27 @@ from __future__ import annotations
 
 import os
 
-# The JAX package picks its prime from SUMCHECK_TPU_FIELD at import; the port
-# has BLS12-381 Fr only, so any other choice raises rather than proving over
-# a field the caller did not ask for.
+# Field registry: any prime that fits the 16x16-bit / R=2^256 limb shape
+# arkworks uses for 4x64-limb fields. The process-wide field is chosen at
+# import time via SUMCHECK_TPU_FIELD (a config knob, not a runtime switch:
+# the constants below are read into every kernel wrapper at import).
+_FIELDS = {
+    # BLS12-381 scalar field (255 bits) — the reference's test/bench field
+    # (`Cargo.toml:28`), and the one pinned by the golden fixtures.
+    "bls12_381_fr": 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001,
+    # BN254 scalar field (254 bits)
+    "bn254_fr": 0x30644E72E131A029B85045B68181585D2833E84879B97091_43E1F593F0000001,
+}
 FIELD_NAME = os.environ.get("SUMCHECK_TPU_FIELD", "bls12_381_fr")
-if FIELD_NAME != "bls12_381_fr":
+if FIELD_NAME not in _FIELDS:
     raise ImportError(
-        f"SUMCHECK_TPU_FIELD={FIELD_NAME!r}: sumcheck_tpu_torch supports only "
-        "bls12_381_fr; unset the variable or set it to bls12_381_fr"
+        f"SUMCHECK_TPU_FIELD={FIELD_NAME!r} names no registered field; "
+        f"unset it or set it to one of {', '.join(sorted(_FIELDS))}"
     )
-
-P = 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001
-assert P == 52435875175126190479447740508185965837690552500527637822603658699938581184513
+P = _FIELDS[FIELD_NAME]
+assert P % 2 == 1 and P.bit_length() <= 255
+if FIELD_NAME == "bls12_381_fr":
+    assert P == 52435875175126190479447740508185965837690552500527637822603658699938581184513
 MODULUS_BITS = P.bit_length()
 MODULUS_BYTES = 32  # serialized size: arkworks uses limb bytes (4 x u64)
 # ark-ff UniformRand masks the top draw limb down to MODULUS_BITS
@@ -44,9 +56,14 @@ R_BITS = 256
 R = (1 << R_BITS) % P
 R2 = (R * R) % P
 R_INV = pow(R, -1, P)
+# conditional subtractions of p that take any value below 2^256 into
+# [0, p): 2^256 < (REDUCE_SUBS + 1) p. 2 for BLS12-381 Fr (2^256 < 2.3 p),
+# 5 for BN254 Fr (2^256 < 5.3 p).
+REDUCE_SUBS = -(-(1 << R_BITS) // P) - 1
 
 # -p^{-1} mod 2^w for digit-serial Montgomery reduction (16-bit digits on the
-# host model, 32-bit limbs in the CUDA kernels)
+# host model, 32-bit limbs in the CUDA kernels). They depend on the field:
+# BLS12-381's are all-ones (0xFFFF, 0xFFFFFFFF), BN254's 0xFFFF and 0xEFFFFFFF.
 NINV16 = (-pow(P, -1, 1 << 16)) % (1 << 16)
 NINV32 = (-pow(P, -1, 1 << 32)) % (1 << 32)
 # full-width inverse for single-shot Montgomery reduction (the banded
@@ -91,7 +108,8 @@ def fr_from_bytes(b: bytes) -> int:
 
 
 class Fr:
-    """A scalar field element of BLS12-381 Fr (canonical residue, host-side).
+    """A scalar field element of the configured field (canonical residue,
+    host-side; BLS12-381 Fr by default).
 
     Mirrors the `ark_ff::Field` surface the reference consumes
     (SURVEY.md L0): + - * / neg, zero/one, `Fr.rand(rng)`, `Fr(int)`.

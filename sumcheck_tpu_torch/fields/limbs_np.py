@@ -23,6 +23,7 @@ from .fr import (
     P_DIGITS,
     R2,
     R_INV,
+    REDUCE_SUBS,
     WIDE_DIGITS,
 )
 
@@ -129,7 +130,7 @@ def _sub_p(a: np.ndarray) -> np.ndarray:
 
 
 def cond_sub_p(a: np.ndarray) -> np.ndarray:
-    """Reduce a in [0, 2p) to [0, p)."""
+    """a - p where a >= p, else a (any a < 2^256): [0, 2p) -> [0, p)."""
     ge = _geq_p(a)
     return np.where(ge[None], _sub_p(a), a)
 
@@ -193,15 +194,17 @@ def reduce_wide(wide: np.ndarray) -> np.ndarray:
     """Strict wide digits (W, N), W in (16, 32] -> (16, N) reduced mod p.
 
     Splits value = hi*2^256 + lo and folds the high part back with
-    hi*2^256 == hi*R == montmul(hi, R^2) (mod p); lo < 2^256 < 4p needs at
-    most two conditional subtractions.
+    hi*2^256 == hi*R == montmul(hi, R^2) (mod p); lo < 2^256 needs
+    `REDUCE_SUBS` conditional subtractions (two for BLS12-381 Fr, five for
+    BN254 Fr).
     """
     w = wide.shape[0]
     assert NUM_DIGITS < w <= 2 * NUM_DIGITS
     lo = wide[:NUM_DIGITS].astype(np.uint32)
     hi = np.zeros((NUM_DIGITS,) + wide.shape[1:], dtype=np.uint32)
     hi[: w - NUM_DIGITS] = wide[NUM_DIGITS:]
-    lo = cond_sub_p(cond_sub_p(lo))
+    for _ in range(REDUCE_SUBS):
+        lo = cond_sub_p(lo)
     r2 = np.broadcast_to(from_int_scalar(R2), hi.shape)
     return add(lo, mont_mul(hi, r2))
 

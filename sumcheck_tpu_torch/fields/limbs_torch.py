@@ -29,6 +29,7 @@ from .fr import (
     NUM_DIGITS,
     P_DIGITS,
     R2,
+    REDUCE_SUBS,
     WIDE_DIGITS,
 )
 
@@ -63,7 +64,8 @@ def _chain(rows, carry_in=None):
 
 
 def cond_sub_p(a: torch.Tensor) -> torch.Tensor:
-    """Strict (16, ...) in [0, 2p) -> [0, p): borrow chain, then select."""
+    """Strict (16, ...) a - p where a >= p, else a (any a < 2^256), so
+    [0, 2p) -> [0, p): borrow chain, then select."""
     a = a.long()
     rows, borrow = _chain(list(a - _pcol(a.ndim - 1, a.device)))
     return torch.where(borrow == 0, torch.stack(rows), a)
@@ -117,11 +119,15 @@ def reduce_wide(wide: torch.Tensor) -> torch.Tensor:
     """Strict wide digits (W, ...), 16 < W <= 32 -> (16, ...) reduced mod p.
 
     value = hi*2^256 + lo with hi*2^256 == montmul(hi, R^2) (mod p);
-    lo < 2^256 < 3p needs at most two conditional subtractions."""
+    lo < 2^256 needs `REDUCE_SUBS` conditional subtractions: two for
+    BLS12-381 Fr, five for BN254 Fr (the round kernels take only values
+    below p)."""
     wide = wide.long()
     w = wide.shape[0]
     assert _D < w <= 2 * _D
-    lo = cond_sub_p(cond_sub_p(wide[:_D]))
+    lo = wide[:_D]
+    for _ in range(REDUCE_SUBS):
+        lo = cond_sub_p(lo)
     hi = torch.zeros((_D,) + tuple(wide.shape[1:]), dtype=torch.int64, device=wide.device)
     hi[: w - _D] = wide[_D:]
     return add(lo, mont_mul_const(hi, R2_DIGITS))

@@ -19,7 +19,10 @@ init, both phases' rounds on the generic chain (or the per-size chain,
 `SUMCHECK_TPU_CHAIN_IMPL`), the phase-2 init from phase 1's challenges on
 the device, and one fetch at the end, the prove's only host sync. Any
 other transcript, and a `Blake2b512Rng` holding a pending byte count that
-is not a multiple of 8, takes the host loop over the host engine.
+is not a multiple of 8, takes the host loop over the host engine. Tables
+over a field other than the process default (`PortableDenseMLE`,
+`PortableSparseMLE`) prove and verify on the portable host engine
+(`portable.py`), whatever `device` says.
 
 Transcript parity note: the reference feeds ONLY prover messages — `g`, the
 dimensions, and the claimed sum are NOT absorbed (`mod.rs:114,128`; no domain
@@ -239,8 +242,11 @@ class GKRRoundSumcheck:
         """Caller supplies the transcript RNG (unlike `MLSumcheck.prove`);
         the prover's device is a `torch.device` or its name, the card unless
         the caller asks for the CPU."""
+        from .portable import PortableDenseMLE, gkr_prove
         from .protocol.device_prover import liftable, resolve_device
 
+        if isinstance(f2, PortableDenseMLE):  # per-instance generic field
+            return gkr_prove(rng, f1, f2, f3, g)
         assert f1.num_vars == 3 * f2.num_vars
         assert f1.num_vars == 3 * f3.num_vars
         dim = f2.num_vars
@@ -264,9 +270,24 @@ class GKRRoundSumcheck:
         """Two chained degree-2 verification passes; phase 2's claimed sum is
         phase 1's expected evaluation (reference `mod.rs:147-192`).
         Raises `Reject` on inconsistency."""
+        from .protocol.verifier import native_verify_phase
+
+        f = getattr(claimed_sum, "f", None)  # FieldEl -> its generic field
+        if f is not None and not f.is_default:
+            from .portable import gkr_verify
+
+            return gkr_verify(rng, f, f2_num_vars, proof, claimed_sum)
         dim = f2_num_vars
 
         def run_phase(msgs, asserted: Fr):
+            """One dim-round degree-2 verification pass over `rng`: the
+            whole loop in one call of the C core where it applies, else the
+            per-round loop, with the same bytes, results and rejections."""
+            if len(msgs) >= dim > 0:
+                fast = native_verify_phase(rng, msgs[:dim], 3, asserted.v)
+                if fast is not None:
+                    point, final = fast
+                    return [Fr(x) for x in point], Fr(final)
             vs = IPForMLSumcheck.verifier_init(
                 PolynomialInfo(max_multiplicands=2, num_variables=dim)
             )

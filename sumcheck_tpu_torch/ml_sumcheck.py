@@ -17,7 +17,10 @@ per-size chain (`protocol/device_prover.py`) when
 `SUMCHECK_TPU_CHAIN_IMPL` is anything else (`utils/config.py`). Any other
 transcript, and a `Blake2b512Rng` holding a pending byte count that is not
 a multiple of 8 (which the device transcript cannot hold), runs on the host
-between the rounds, as the JAX package's host loop does.
+between the rounds, as the JAX package's host loop does. A polynomial over
+a field other than the process default (`ListOfProductsOfPolynomials(nv,
+field=...)`) proves and verifies on the portable host engine
+(`portable.py`), whatever `device` says.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from .data_structures import ListOfProductsOfPolynomials, PolynomialInfo
 from .fields.fr import MODULUS_BYTES, Fr
 from .protocol import IPForMLSumcheck
 from .protocol.prover import ProverMsg, ProverState
-from .protocol.verifier import SubClaim
+from .protocol.verifier import SubClaim, native_verify_phase
 from .transcript.blake2b_rng import Blake2b512Rng
 from .transcript.serialize import serialize_u64
 from .utils.errors import SerializationError
@@ -107,6 +110,11 @@ class MLSumcheck:
         from .protocol.generic_prover import prove_generic, prove_host_transcript
         from .utils.config import get_config
 
+        field = getattr(polynomial, "field", None)
+        if field is not None and not field.is_default:
+            from .portable import prove_as_subprotocol as portable_prove
+
+            return portable_prove(fs_rng, polynomial)
         fs_rng.feed(polynomial.info())
         if not liftable(fs_rng):
             return prove_host_transcript(fs_rng, polynomial, device)
@@ -127,10 +135,25 @@ class MLSumcheck:
     def verify_as_subprotocol(
         fs_rng, polynomial_info: PolynomialInfo, claimed_sum: Fr, proof: list[ProverMsg]
     ) -> SubClaim:
-        """Verify over a caller-supplied transcript (reference `mod.rs:84-100`)."""
+        """Verify over a caller-supplied transcript (reference `mod.rs:84-100`):
+        the whole pass in one call of the C core where it applies
+        (`protocol/verifier.native_verify_phase`), else the per-round loop,
+        with the same bytes, results and rejections."""
+        f = getattr(claimed_sum, "f", None)  # FieldEl -> its generic field
+        if f is not None and not f.is_default:
+            from .portable import verify_as_subprotocol as portable_verify
+
+            return portable_verify(fs_rng, f, polynomial_info, claimed_sum, proof)
         fs_rng.feed(polynomial_info)
+        nv = polynomial_info.num_variables
+        if len(proof) >= nv > 0:
+            fast = native_verify_phase(
+                fs_rng, proof[:nv], polynomial_info.max_multiplicands + 1, claimed_sum.v)
+            if fast is not None:
+                point, final = fast
+                return SubClaim([Fr(x) for x in point], Fr(final))
         verifier_state = IPForMLSumcheck.verifier_init(polynomial_info)
-        for i in range(polynomial_info.num_variables):
+        for i in range(nv):
             if i >= len(proof):
                 raise IndexError("proof is incomplete")
             prover_msg = proof[i]

@@ -13,8 +13,12 @@ integer-width branches for the factorial ratios (i64/i128/BigInt) purely as a
 CPU optimization; the field *results* are branch-independent, so we keep one
 field-arithmetic path (plus the same early return at integer points).
 
-Copied from `sumcheck_tpu/protocol/verifier.py`: the Python round loop only.
-The C verifier core comes with the C transcript core in a later slice.
+Copied from `sumcheck_tpu/protocol/verifier.py`, with its C core
+(`native/fastrng.c`) in `native_verify_phase`: a whole verification pass
+(feed, sample, checks) in one C call, which the ML and GKR verifies take
+whenever their rng hashes in the C core. Any other rng, and
+``SUMCHECK_TPU_NATIVE=off``, run the Python loop below, with the same
+results and rejections.
 """
 
 from __future__ import annotations
@@ -153,6 +157,98 @@ def interpolate_uni_poly(p_i: list[Fr], eval_at: Fr) -> Fr:
     value at x = j is p_i[j] (reference `verifier.rs:139-251`), in the
     inversion-free Lagrange form of `check_and_generate_subclaim`."""
     return Fr(_interp_eval_int([e.v for e in p_i], eval_at.v))
+
+
+# the C core's largest interpolation (`fastrng.c`, INTERP_MAX)
+_INTERP_MAX = 36
+
+_native_state: dict = {}  # the C core's constants, made at its first use
+
+
+def _native_ctx():
+    """(lib, field constant arrays, cached Montgomery Lagrange constants)
+    for `native_verify_phase`, or None when the C core is off. The
+    library builds at the first use; a failed build raises."""
+    import ctypes
+
+    from ..fields.fr import R, R2
+    from ..native import lib
+
+    L = lib()
+    if L is None:
+        return None
+    st = _native_state.get("ctx")
+    if st is not None:
+        return st
+
+    def limbs4(x: int):
+        return (ctypes.c_uint64 * 4).from_buffer_copy(x.to_bytes(32, "little"))
+
+    consts_cache: dict = {}
+
+    def consts_mont(n: int):
+        cm = consts_cache.get(n)
+        if cm is None:
+            cm = (ctypes.c_uint64 * (4 * n)).from_buffer_copy(
+                b"".join((c * R % P).to_bytes(32, "little") for c in _lagrange_consts(n))
+            )
+            consts_cache[n] = cm
+        return cm
+
+    st = {
+        "lib": L,
+        "limbs4": limbs4,
+        "consts_mont": consts_mont,
+        "p": limbs4(P),
+        "r2": limbs4(R2),
+        "ninv0": ctypes.c_uint64((-pow(P, -1, 1 << 64)) % (1 << 64)),
+        "out": ctypes.create_string_buffer(32),
+        "ctypes": ctypes,
+    }
+    _native_state["ctx"] = st
+    return st
+
+
+def native_verify_phase(rng, msgs, d1: int, asserted_v: int):
+    """One WHOLE verification pass — per-round transcript feed + challenge
+    sample + deferred checks — in a single C call (`fr_verify_rounds`).
+
+    Fuses what `verify_round` x nv + `check_and_generate_subclaim` compute
+    (reference `verifier.rs:54-121`), byte- and result-identical: the C loop
+    absorbs exactly the bytes `feed(prover_msg)` would, draws exactly the
+    ark-ff challenge stream, and runs the same check order. Returns
+    (point_ints, final_expected_int) on success, None when the pass does
+    not apply (the rng does not hash in the C core, uneven evaluation
+    counts, a degree out of the C range) — the caller then runs the Python
+    loop, whose observable behavior is identical. Raises `Reject` on a
+    failed consistency check, after the transcript has advanced through
+    every round, as the lazy verifier does."""
+    from ..fields.fr import SHAVE_BITS
+    from ..transcript.blake2b_rng import _NativeCore
+
+    core = getattr(rng, "_h", None)
+    if not isinstance(core, _NativeCore):
+        return None
+    st = _native_ctx()
+    if st is None or d1 > _INTERP_MAX or d1 < 2:
+        return None
+    if any(len(m.evaluations) != d1 for m in msgs):
+        return None
+    ct = st["ctypes"]
+    blob = b"".join(m.serialize_uncompressed() for m in msgs)
+    nv = len(msgs)
+    rands = ct.create_string_buffer(32 * max(nv, 1))
+    out = st["out"]
+    rc = st["lib"].fr_verify_rounds(
+        core._ctx, blob, nv, d1, st["limbs4"](asserted_v), st["consts_mont"](d1), st["p"],
+        ct.c_uint64((1 << (64 - SHAVE_BITS)) - 1), st["ninv0"], st["r2"], rands, out,
+    )
+    if rc <= -1000:
+        raise ValueError(f"fr_verify_rounds rejected d + 1 = {d1}")
+    if rc < 0:
+        raise Reject("Prover message is not consistent with the claim.")
+    point = [int.from_bytes(rands.raw[32 * i: 32 * i + 32], "little") for i in range(nv)]
+    return point, int.from_bytes(out.raw, "little")
 
 
 def _lagrange_consts(n: int, _cache: dict = {}) -> list[int]:

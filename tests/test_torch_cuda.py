@@ -21,7 +21,7 @@ import sumcheck_tpu_torch as T
 from sumcheck_tpu_torch.convert import polynomial_from_numpy
 from sumcheck_tpu_torch.fields import limbs_np as L
 from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
-from sumcheck_tpu_torch.fields.fr import P
+from sumcheck_tpu_torch.fields.fr import FIELD_NAME, P, SHAVE_BITS
 from sumcheck_tpu_torch.ops import round_cuda as RC
 from sumcheck_tpu_torch.ops import transcript_cuda as TC
 from sumcheck_tpu_torch.protocol.device_prover import lift_transcript
@@ -29,6 +29,11 @@ from sumcheck_tpu_torch.transcript.blake2b_rng import _DRAW_MASK
 from sumcheck_tpu_torch.utils.config import get_config
 
 pytestmark = pytest.mark.cuda
+
+# random tables keep their top 16-bit digit below 2^(16 - TOP_SHIFT), so
+# every value below 2^(256 - TOP_SHIFT) < p: 2^254 under BLS12-381 Fr, 2^253
+# under BN254 Fr
+TOP_SHIFT = 1 + SHAVE_BITS
 
 
 @pytest.fixture
@@ -43,7 +48,7 @@ def _tables(seed: int, nv: int, count: int) -> list[np.ndarray]:
     out = []
     for _ in range(count):
         d = rng.integers(0, 1 << 16, size=(16, 1 << nv), dtype=np.uint32)
-        d[15] >>= 2  # < 2^254 < p
+        d[15] >>= TOP_SHIFT  # < p
         out.append(d)
     return out
 
@@ -99,7 +104,7 @@ def test_fold_kernel_unaligned_rows(cuda, width):
     products = ((0, 1, 2), (3, 4, 5))
     rng = np.random.default_rng(width)
     d = rng.integers(0, 1 << 16, size=(2, 6, 16, width), dtype=np.uint32)
-    d[:, :, 15] >>= 2
+    d[:, :, 15] >>= TOP_SHIFT
     lo = torch.from_numpy(d[0].astype(np.int32)).to(cuda)
     hi = torch.from_numpy(d[1].astype(np.int32)).to(cuda)
     r = torch.from_numpy(L.mont_scalar(31337)[:, 0].astype(np.int32)).to(cuda)
@@ -292,7 +297,7 @@ def test_step_kernel_matches_plain(cuda, fold, coeffs, extent):
     width = 2 * extent if fold else extent
     rng = np.random.default_rng(extent)
     d = rng.integers(0, 1 << 16, size=(2, 6, 16, width), dtype=np.uint32)
-    d[:, :, 15] >>= 2
+    d[:, :, 15] >>= TOP_SHIFT
     lo = torch.from_numpy(d[0].astype(np.int32)).to(cuda)
     hi = torch.from_numpy(d[1].astype(np.int32)).to(cuda)
     c = _coeffs(products, cuda) if coeffs else None
@@ -474,7 +479,7 @@ def test_mma_tile(cuda):
 
 def _strict(gen, n):
     d = gen.integers(0, 1 << 16, size=(16, n), dtype=np.uint32)
-    d[15] >>= 2  # < 2^254 < p
+    d[15] >>= TOP_SHIFT  # < p
     return d
 
 
@@ -587,13 +592,18 @@ def _gkr_mode(mode, monkeypatch):
 
 @pytest.mark.parametrize("mode", ["generic", "persize", "mxu"])
 def test_gkr_golden_on_cuda(cuda, mode, monkeypatch):
-    """`tests/fixtures/gkr_dim5.json` byte for byte through `device="cuda"`."""
+    """`tests/fixtures/gkr_dim5.json` byte for byte through `device="cuda"`;
+    under BN254 Fr, the GKR vectors of `bn254_torch.json`."""
     import hashlib
     import json
     from pathlib import Path
 
     _gkr_mode(mode, monkeypatch)
-    fx = json.loads((Path(__file__).parent / "fixtures" / "gkr_dim5.json").read_text())
+    fixtures = Path(__file__).parent / "fixtures"
+    if FIELD_NAME == "bn254_fr":
+        fx = json.loads((fixtures / "bn254_torch.json").read_text())["gkr"]
+    else:
+        fx = json.loads((fixtures / "gkr_dim5.json").read_text())
     dim = fx["dim"]
 
     def table(tag):
@@ -988,3 +998,36 @@ def test_sharded_on_cuda_equals_single_card(cuda, backend, tmp_path):
         # sharded rounds and the gather; the batch: one gather
         assert got["collectives"] == 10 + 2 * 7 + 1
         assert {k: got[k] for k in want} == want
+
+
+# ---------------------------------------------------------------------------
+# every test above under the second prime
+# ---------------------------------------------------------------------------
+
+CUDA_TESTS = sorted(n for n in list(globals()) if n.startswith("test_"))
+
+
+@pytest.fixture(scope="module")
+def bn254_outcomes(tmp_path_factory):
+    """This file's cuda tests in one child pytest under
+    SUMCHECK_TPU_FIELD=bn254_fr: every kernel launched with BN254's p,
+    -p^-1 mod 2^32 and shave, against its plain version under the same
+    field."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from test_torch_field import child_outcomes
+
+    return child_outcomes(__file__, tmp_path_factory.mktemp("bn254"), "not under_bn254",
+                          "-m", "cuda")
+
+
+@pytest.mark.parametrize("name", CUDA_TESTS)
+def test_cuda_under_bn254(cuda, bn254_outcomes, name):
+    """Every case of test `name` passed (or skipped as it does under the
+    default field: NCCL with one card) in the child under BN254 Fr."""
+    from test_torch_field import outcomes_of
+
+    cases = outcomes_of(bn254_outcomes, name)
+    assert cases and "passed" in cases.values(), cases
+    assert all(v == "passed" or (v.startswith("skipped") and "card" in v)
+               for v in cases.values()), cases

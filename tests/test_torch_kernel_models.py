@@ -514,3 +514,33 @@ def test_register_eval_multiplies_fewer(factors):
             v = v * ((e[s] + t * (o[s] - e[s])) % P) * R_INV % P
         want.append(v)
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# every model above under the second prime
+# ---------------------------------------------------------------------------
+
+# BLS12-381's -p^-1 mod 2^32 is 0xFFFFFFFF, p's low limb 1 and the next
+# 0xFFFFFFFF, so under it every Montgomery step has m = -t[0]; BN254's are
+# 0xEFFFFFFF, 0xF0000001 and 0x43E1F593, so the even/odd carry chains and
+# the MXU quad carries follow a multiply by ninv there. Both primes share
+# -p^-1 mod 2^16 = 0xFFFF (the MXU fold's 16-bit step). The module reads
+# its constants from `fields/fr.py` at import, so the models run under
+# BN254 in one child pytest of this file with SUMCHECK_TPU_FIELD=bn254_fr.
+MODEL_TESTS = sorted(n for n in list(globals()) if n.startswith("test_"))
+
+
+@pytest.fixture(scope="module")
+def bn254_outcomes(tmp_path_factory):
+    from test_torch_field import child_outcomes
+
+    return child_outcomes(__file__, tmp_path_factory.mktemp("bn254"), "not under_bn254")
+
+
+@pytest.mark.parametrize("name", MODEL_TESTS)
+def test_model_under_bn254(bn254_outcomes, name):
+    """Every case of test `name` passed in the child under BN254 Fr."""
+    from test_torch_field import outcomes_of
+
+    cases = outcomes_of(bn254_outcomes, name)
+    assert cases and set(cases.values()) == {"passed"}, cases

@@ -285,12 +285,20 @@ def test_cpu_gkr_prove_launches_no_kernel(monkeypatch, mode):
     assert [f.launches for f in COUNTERS] == before
 
 
-@pytest.mark.parametrize("value", ["bn254_fr", "", None, "bls12_381_fr"])
+_FIELD_PRIMES = {
+    None: 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001,
+    "bls12_381_fr": 0x73EDA753299D7D483339D80809A1D80553BDA402FFFE5BFEFFFFFFFF00000001,
+    "bn254_fr": 0x30644E72E131A029B85045B68181585D2833E84879B9709143E1F593F0000001,
+}
+
+
+@pytest.mark.parametrize("value", ["bn254_fr", "", None, "bls12_381_fr", "goldilocks"])
 def test_field_variable_other_than_bls12_381_raises(value):
-    """`SUMCHECK_TPU_FIELD` selects the JAX package's prime at import; the
-    port has BLS12-381 Fr only, so any other value raises on import, naming
-    the variable, instead of proving over a field the caller did not ask
-    for. Unset or `bls12_381_fr` imports cleanly."""
+    """`SUMCHECK_TPU_FIELD` selects the prime at import, as in the JAX
+    package: unset or `bls12_381_fr` gives BLS12-381 Fr and `bn254_fr`
+    BN254 Fr; a name that is not registered (`""`, `"goldilocks"`) raises
+    on import, naming the variable, instead of proving over a field the
+    caller did not ask for."""
     env = dict(os.environ)
     env.pop("SUMCHECK_TPU_FIELD", None)
     if value is not None:
@@ -300,9 +308,9 @@ def test_field_variable_other_than_bls12_381_raises(value):
         from sumcheck_tpu_torch.fields.fr import P
         print(hex(P))
     """, env=env)
-    if value in (None, "bls12_381_fr"):
+    if value in _FIELD_PRIMES:
         assert proc.returncode == 0, proc.stderr
-        assert proc.stdout.strip() == hex(T.fields.fr.P)
+        assert proc.stdout.strip() == hex(_FIELD_PRIMES[value])
     else:
         assert proc.returncode != 0
         assert "SUMCHECK_TPU_FIELD" in proc.stderr and "ImportError" in proc.stderr
