@@ -66,8 +66,10 @@ failure raises and exits non-zero without the final line:
    transcript steps; the profiler's count of round kernels and transcript
    steps in one prove), everything between the uploads and the one fetch
    under the sync debug mode "error", the phase inits and the round kernels
-   timed alone, one verify and `verify_subclaim`, and proof bytes equal across
-   the three and the plain path on the card;
+   timed alone, one verify and the subclaim in Python integers
+   (`subclaim_in_integers`; `verify_subclaim` runs at dim 14, in the GKR
+   batch), and proof bytes equal across the three and the plain path on the
+   card;
 10. the batch headlines: `batch.BatchedMLSumcheck.prove` on 8 x nv=16 2x3
    (`bench.py:302-310`) on both chains and `BatchedGKRRoundSumcheck.prove`
    on 8 x dim 14 (`bench.py:313-338`): first prove, warm median per batch
@@ -75,14 +77,28 @@ failure raises and exits non-zero without the final line:
    all 8), the batched chains under the sync debug mode "error", proofs
    byte-equal to per-instance card proves (timed beside them), all
    verified, two subclaims, the ML batches' idle share;
+10b. the interactive tier on the phase-8 instance: `IPForMLSumcheck.
+   prover_init(device="cuda")` and 20 `prove_round` / `sample_round` over a
+   live `Blake2b512Rng`: launches, syncs per prove (its `finish_sums`
+   calls, one a round; each round's enqueue under the sync debug mode
+   "error"), first and warm walls, proof, final transcript and final tables
+   equal to the generic chain's;
+10c. the GKR host-transcript branch: the phase-9 prove over a transcript
+   pre-fed `b"abc"` (3 pending bytes, which the device chain cannot lift):
+   launches (no transcript step), one sync a round, walls beside the
+   aligned transcript's chained prove, verify and the subclaim in Python
+   integers, and at dim 14 bytes equal to the plain round versions' on the
+   card;
 11. the multi-device provers (`sumcheck_tpu_torch/parallel/`): for S = 2
    and 4, one `torch.multiprocessing.spawn` of S ranks in a gloo group, all
    on the one card (`shard_device`), each running the sharded ML nv=20 2x3
    prove (`ChainedShardedProver`, the phase-8 instance; proof and final
    transcript), the sharded GKR dim-18 prove at S = 2 (`ShardedGKRProver`,
-   phase 9's) and the sharded batch 8 x nv=16 (`BatchedMLSumcheck.prove(...,
-   group=)`, phase 10's) through the public entry points, each byte-equal to
-   the single-card proofs of phases 8-10 on every rank, with the median of
+   phase 9's), the sharded batch 8 x nv=16 (`BatchedMLSumcheck.prove(...,
+   group=)`, phase 10's) and `ShardedProver` (the transcript on the host)
+   on the ML instance over a fresh and over the `b"abc"` transcript, through
+   the public entry points, each byte-equal to the single-card proofs of
+   phases 8-10b on every rank, with the median of
    warm walls, launches a rank, all-reduces and bytes per prove, and the
    GKR inits split into compute and all-reduce; where the machine has S
    cards, again in an NCCL group, one rank a card, the chains under the
@@ -91,15 +107,21 @@ failure raises and exits non-zero without the final line:
    non-zero. S ranks on one card say nothing about speed across cards;
 12. the verify walls of the ML and GKR headline proofs with the C core
    (`sumcheck_tpu_torch/native/`) and with the Python loop
-   (`SUMCHECK_TPU_NATIVE=off`), same subclaims;
+   (`SUMCHECK_TPU_NATIVE=off`), same subclaims; then `utils/sol.
+   measure_roofline` on this card (even/odd Montgomery multiplies a second,
+   HBM bytes a second from a 1 GiB copy) and the speed-of-light share
+   `pct_sol` of the ML nv=20 and GKR dim-18 generic proves, as `bench.py`
+   reports it;
 13. the second field: a child process, `SUMCHECK_TPU_FIELD=bn254_fr
    python3 chip_smoke.py --field-phase` (its lines marked `[bn254_fr]`; a
    failure there fails the run), which reruns under BN254 Fr, at the same
    sizes and with the libraries already built: phases 3-5c and 6b-6d, the
    fixture `tests/fixtures/bn254_torch.json` on every path, the ML, GKR
    and batch proves (byte-equal across paths and to per-instance proves;
-   the GKR subclaim at dim 14, in the batch, not 18), the sharded ML prove
-   with 2 gloo ranks against its single-card proof, and phase 6 over 320
+   the GKR subclaim at dim 14, in the batch, not 18), phases 10b and 10c
+   (without the dim-14 plain check), the sharded ML prove and `ShardedProver`
+   with 2 gloo ranks against their single-card proofs, the roofline and
+   `pct_sol`, and phase 6 over 320
    rounds with the attempts a draw took and the stream compactions counted
    (it fails if none fired), the plain transcript running meanwhile on the
    host's CPU (`--plain-transcript`); then each kernel's time and each
@@ -1447,10 +1469,12 @@ def _gkr_headline(device, inst, reps: int, path: str, chain: str, mxu: bool) -> 
     if path != "generic":
         return out
 
-    # once, on the default path: the subclaim against f1, f2, f3 on the host,
-    # and the plain path on the card (plain round versions and transcript)
+    # once, on the default path: the subclaim against f1, f2, f3 in Python
+    # integers (`verify_subclaim` takes about a minute of host limb
+    # arithmetic at dim 18: it runs at dim 14, in the GKR batch), and the
+    # plain path on the card (plain round versions and transcript)
     t0 = time.perf_counter()
-    check(sub.verify_subclaim(f1, f2, f3, g), f"GKR {path}: subclaim does not hold")
+    check(subclaim_in_integers(inst, sub), f"GKR {path}: subclaim does not hold")
     subclaim_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     plain = G._prove_chained(Blake2b512Rng.setup(), f1, f2, f3, g, dim, device,
@@ -1459,7 +1483,8 @@ def _gkr_headline(device, inst, reps: int, path: str, chain: str, mxu: bool) -> 
     plain_s = time.perf_counter() - t0
     check(plain.serialize_uncompressed() == blob, f"GKR {path}: kernel proof differs from "
                                                   f"the plain path's")
-    print(f"GKR {path}: verify_subclaim holds ({subclaim_s:.4f} s on the host); plain-path "
+    print(f"GKR {path}: the subclaim holds in Python integers ({subclaim_s:.4f} s on the host); "
+          f"plain-path "
           f"proof on the same device: bytes equal ({plain_s:.4f} s)")
     out.update(subclaim_s=subclaim_s, plain_s=plain_s)
     return out
@@ -1885,6 +1910,258 @@ def _gkr_batch(device, seed, reps, batch, dim) -> dict:
             "first_s": first_s, "alone_s": alone_s, "proofs": blobs}
 
 
+# --- the round-by-round prover: the interactive tier, the GKR host-transcript
+# branch and `ShardedProver` (in phase 11's spawns), and the speed-of-light model
+
+ABC = b"abc"  # a pre-fed transcript whose pending bytes the device chain cannot lift
+GKR_PLAIN_DIM = 14  # the host-transcript GKR prove against its plain versions
+
+
+@contextlib.contextmanager
+def counted_syncs(guard: bool = True):
+    """Count the calls of `round_cuda.finish_sums`, a host-transcript
+    round's one sync (the list yielded grows by one a call); with `guard`,
+    run each round's enqueue (`protocol.prover._round_sums`: the challenge
+    upload and the round kernel) under the sync debug mode "error", so
+    that any other sync in a round fails the run. (A gloo all-reduce syncs
+    by design: the sharded rounds run unguarded.)"""
+    from sumcheck_tpu_torch.ops import round_cuda as rc
+    from sumcheck_tpu_torch.protocol import prover
+
+    calls = []
+    real_finish, real_round = rc.finish_sums, prover._round_sums
+
+    def finish(sums):
+        calls.append(1)
+        return real_finish(sums)
+
+    def round_sums(*args):
+        before = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_round(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(before)
+
+    rc.finish_sums = finish
+    if guard:
+        prover._round_sums = round_sums
+    try:
+        yield calls
+    finally:
+        rc.finish_sums, prover._round_sums = real_finish, real_round
+
+
+def abc_rng():
+    """A `Blake2b512Rng` pre-fed `ABC`: 3 pending bytes."""
+    from sumcheck_tpu_torch import Blake2b512Rng
+
+    rng = Blake2b512Rng.setup()
+    rng.feed_bytes(ABC)
+    return rng
+
+
+def interactive_phase(device, seed: int, reps: int, ref: dict, nv: int = NV) -> dict:
+    """Phase 10b: the interactive tier on the nv=20 2x3 instance (phase
+    8's): `IPForMLSumcheck.prover_init(device=)`, then nv `prove_round` /
+    `sample_round` over a live `Blake2b512Rng`, as a caller composing
+    sumcheck into a larger protocol drives it. Launches and syncs (one
+    `finish_sums` a round, each round's enqueue under the sync debug mode
+    "error") counted from 0, first and warm walls; proof bytes and the
+    final transcript equal to `MLSumcheck.prove`'s on the generic chain
+    (`ref`), the final tables to that prove's state's. Also proves the
+    instance over the `ABC` transcript (`MLSumcheck.prove_as_subprotocol`,
+    which takes this tier for it), the single-card proof the sharded
+    `ShardedProver` case is held to."""
+    from sumcheck_tpu_torch import Blake2b512Rng, IPForMLSumcheck, MLSumcheck
+    from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
+
+    poly = headline_poly(seed, nv)
+
+    def prove():
+        state = IPForMLSumcheck.prover_init(poly, device=device)
+        rng = Blake2b512Rng.setup()
+        rng.feed(poly.info())
+        msgs, v_msg = [], None
+        for _ in range(nv):
+            msg = IPForMLSumcheck.prove_round(state, v_msg)
+            rng.feed(msg)
+            msgs.append(msg)
+            v_msg = IPForMLSumcheck.sample_round(rng)
+        state.randomness.append(v_msg.randomness)
+        return serialize_proof(msgs), repr(rng.state_tuple()), state
+
+    proves = reps + 2  # the first, `reps` warm and timed, one under the sync guard
+    with counted_syncs(guard=False) as syncs:
+        for f in counters().values():
+            f.launches = 0
+        walls, results = [], []
+        for _ in range(proves - 1):
+            t0 = time.perf_counter()
+            results.append(prove())
+            walls.append(time.perf_counter() - t0)
+        with counted_syncs():
+            results.append(prove())
+        launches = {k: f.launches for k, f in counters().items()}
+    want = {k: 0 for k in launches}
+    want.update({"pair_init": proves, "round_nofold": proves, "round_fold": (nv - 1) * proves})
+    check(launches == want, f"interactive ML: launches {launches}, expected {want}")
+    check(len(syncs) == nv * proves, f"interactive ML: {len(syncs)} syncs in {proves} proves, "
+                                     f"expected {nv} a prove")
+    check(all(r[:2] == (ref["proof"], ref["transcript"]) for r in results),
+          "interactive ML: proof or final transcript differs from MLSumcheck.prove's")
+    _, chain_state = MLSumcheck.prove_as_subprotocol(Blake2b512Rng.setup(), poly, device=device)
+    check(all(np.array_equal(a, b) for a, b in zip(results[-1][2].flattened_ml_extensions,
+                                                   chain_state.flattened_ml_extensions)),
+          "interactive ML: final tables differ from the chained prove's")
+    rng = abc_rng()
+    abc, _ = MLSumcheck.prove_as_subprotocol(rng, poly, device=device)
+    prove_s = statistics.median(walls[1:])
+    print(f"interactive ML nv={nv} 2x3 (prover_init + {nv} prove_round / sample_round, live "
+          f"Blake2b512Rng): first {walls[0]:.4f} s, median of {reps} warm {prove_s:.4f} s, walls "
+          f"{[round(w, 4) for w in walls[1:]]}; syncs per prove {len(syncs) // proves} (finish_sums), "
+          f"none other in a round (one more prove under the sync guard), launches a prove "
+          f"{ {k: v // proves for k, v in launches.items() if v} }; proof, final transcript and "
+          f"final tables equal to MLSumcheck.prove's (generic chain)")
+    return {"launches": launches, "prove_s": prove_s, "first_s": walls[0],
+            "syncs_per_prove": len(syncs) // proves, "abc_proof": serialize_proof(abc),
+            "abc_transcript": repr(rng.state_tuple())}
+
+
+def gkr_host_phase(device, seed: int, inst, reps: int, check_plain: bool = True) -> dict:
+    """Phase 10c: `GKRRoundSumcheck.prove` over the `ABC` transcript, which
+    the device chain cannot lift, at the instance's dim (phase 9's): the
+    chained prove's inits and round kernels with the transcript on the host
+    between the rounds. Launches (no transcript step) and syncs (one
+    `finish_sums` a round) counted from 0, warm walls beside the aligned
+    transcript's chained prove in this call; verify over the same transcript
+    and the subclaim in Python integers (`subclaim_in_integers`); with
+    `check_plain`, at dim `GKR_PLAIN_DIM` byte-equal to the same prove with
+    the round kernels' plain versions on the card."""
+    from sumcheck_tpu_torch import Blake2b512Rng, GKRRoundSumcheck
+    from sumcheck_tpu_torch import gkr_round_sumcheck as G
+    from sumcheck_tpu_torch.ops import round_cuda as rc
+
+    f1, f2, f3, g = inst
+    dim = f2.num_vars
+    proves = reps + 2  # the first, `reps` warm and timed, one under the sync guard
+    with counted_syncs(guard=False) as syncs:
+        for f in counters().values():
+            f.launches = 0
+        walls = []
+        for _ in range(proves - 1):
+            t0 = time.perf_counter()
+            proof = GKRRoundSumcheck.prove(abc_rng(), *inst, device=device)
+            walls.append(time.perf_counter() - t0)
+        with counted_syncs():
+            check(GKRRoundSumcheck.prove(abc_rng(), *inst, device=device).serialize_uncompressed()
+                  == proof.serialize_uncompressed(), "GKR host transcript: proves differ")
+        launches = {k: f.launches for k, f in counters().items()}
+    want = {k: 0 for k in launches}
+    want.update({"round_nofold": 2 * proves, "round_fold": 2 * (dim - 1) * proves})
+    check(launches == want, f"GKR host transcript: launches {launches}, expected {want}")
+    check(len(syncs) == 2 * dim * proves, f"GKR host transcript: {len(syncs)} syncs in "
+                                          f"{proves} proves, expected {2 * dim} a prove")
+    chained = []
+    for _ in range(reps + 1):
+        t0 = time.perf_counter()
+        GKRRoundSumcheck.prove(Blake2b512Rng.setup(), *inst, device=device)
+        chained.append(time.perf_counter() - t0)
+    sub = GKRRoundSumcheck.verify(abc_rng(), dim, proof, proof.extract_sum())
+    t0 = time.perf_counter()
+    check(subclaim_in_integers(inst, sub), f"GKR host transcript dim={dim}: the subclaim fails")
+    subclaim_s = time.perf_counter() - t0
+    prove_s, chained_s = statistics.median(walls[1:]), statistics.median(chained[1:])
+    print(f"GKR dim={dim} over a transcript pre-fed {ABC!r} (host transcript, round kernels on "
+          f"the card): first {walls[0]:.4f} s, median of {reps} warm {prove_s:.4f} s, walls "
+          f"{[round(w, 4) for w in walls[1:]]}; the aligned transcript's chained prove "
+          f"{chained_s:.4f} s in this call; syncs per prove {len(syncs) // proves} (none other "
+          f"in a round, one more prove under the sync guard), launches a prove "
+          f"{ {k: v // proves for k, v in launches.items() if v} }; verify accepts, the "
+          f"subclaim holds in Python integers ({subclaim_s:.2f} s)")
+    out = {"launches": launches, "prove_s": prove_s, "first_s": walls[0], "chained_s": chained_s,
+           "syncs_per_prove": len(syncs) // proves}
+    if check_plain:
+        small = gkr_instance(seed, GKR_PLAIN_DIM)
+        kernel = GKRRoundSumcheck.prove(abc_rng(), *small, device=device)
+        t0 = time.perf_counter()
+        plain = G._prove_host_transcript(abc_rng(), *small, GKR_PLAIN_DIM, device,
+                                         round_fns=(rc.round_nofold_ref, rc.round_fold_ref))
+        check(plain.serialize_uncompressed() == kernel.serialize_uncompressed(),
+              f"GKR host transcript dim={GKR_PLAIN_DIM}: kernel proof differs from the plain "
+              f"versions'")
+        print(f"GKR dim={GKR_PLAIN_DIM} over the {ABC!r} transcript: bytes equal to the plain "
+              f"round versions' on the card ({time.perf_counter() - t0:.4f} s)")
+    return out
+
+
+def sharded_sp(device: str, group, seed: int, reps: int, refs: dict) -> dict:
+    """One rank's `ShardedProver` cases (phase 11): the nv=20 2x3 instance
+    over a fresh `Blake2b512Rng` and over the `ABC` transcript, each held
+    to the single card's proof and final transcript (`refs`), with launches,
+    all-reduces, bytes and syncs (`finish_sums`) a prove."""
+    from sumcheck_tpu_torch import Blake2b512Rng
+    from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
+    from sumcheck_tpu_torch.parallel import ShardedProver
+
+    prover = ShardedProver(group, device=device)
+    poly = headline_poly(seed, NV)
+    out = {}
+    for case, make, ref, which in (
+            ("sp", Blake2b512Rng.setup, (refs["ml"], refs["ml_state"]), "a fresh"),
+            ("sp abc", abc_rng, (refs["ml_abc"], refs["ml_abc_state"]), f"a {ABC!r}")):
+        def prove():
+            rng = make()
+            proof, _state = prover.prove_as_subprotocol(rng, poly)
+            return serialize_proof(proof), repr(rng.state_tuple())
+
+        proves = reps + 1
+        with counted_syncs(guard=False) as syncs:
+            results, walls, launches, calls, nbytes = _counted(prove, proves,
+                                                               contextlib.nullcontext)
+        check(all(r == ref for r in results),
+              f"ShardedProver {case}: proof or final transcript differs from the single card's")
+        want = {k: 0 for k in launches}
+        want.update({"pair_init": proves, "round_nofold": proves,
+                     "round_fold": (NV - 1) * proves})
+        check(launches == want, f"ShardedProver {case}: launches {launches}, expected {want}")
+        check(len(syncs) == NV * proves, f"ShardedProver {case}: {len(syncs)} syncs")
+        out[case] = {"what": f"ShardedProver ML nv={NV} 2x3 over {which} transcript on the "
+                             f"host, proof and final transcript, {NV} syncs a prove",
+                     "walls": walls,
+                     "prove_s": statistics.median(walls), "launches": launches,
+                     "collectives": calls, "bytes": nbytes}
+    return out
+
+
+def roofline_phase(device, ml_prove_s: float, gkr_prove_s: float, dim: int = GKR_DIM) -> dict:
+    """Phase 12b: `utils/sol.measure_roofline` on this card (measured
+    afresh), and the speed-of-light share of the ML nv=20 generic prove
+    (`sol_seconds(count_prove_ops(20, 6, 2, 3, 3))`, the arguments of
+    `bench.py:341-346`) and of the GKR dim-18 generic prove over their
+    medians, as `bench.py` reports `pct_sol`."""
+    from sumcheck_tpu_torch.utils import sol
+
+    t0 = time.perf_counter()
+    roof = sol.measure_roofline(device, force=True)
+    measure_s = time.perf_counter() - t0
+    ml = sol.sol_seconds(sol.count_prove_ops(NV, 6, 2, 3, 3), roof)
+    gkr = sol.sol_seconds(sol.count_gkr_prove_ops(dim, 1 << dim), roof)
+    out = {"mont_muls_per_s": roof["mont_muls_per_s"], "hbm_bytes_per_s": roof["hbm_bytes_per_s"],
+           "card": roof["card"], "ml_sol_s": ml["sol_s"], "ml_bound": ml["bound"],
+           "ml_pct_sol": round(100 * ml["sol_s"] / ml_prove_s, 2), "gkr_sol_s": gkr["sol_s"],
+           "gkr_bound": gkr["bound"], "gkr_pct_sol": round(100 * gkr["sol_s"] / gkr_prove_s, 2)}
+    print(f"roofline ({roof['card']}, measured in {measure_s:.2f} s): "
+          f"{roof['mont_muls_per_s']:.4e} Montgomery multiplies/s (even/odd mont_mul, "
+          f"{roof['mont_lanes']} lanes x {roof['mont_chain']} chained), "
+          f"{roof['hbm_bytes_per_s'] / 1e12:.4f} TB/s HBM (a {roof['copy_bytes']} B "
+          f"device-to-device copy); ML nv={NV} generic: sol_s {ml['sol_s']:.6f} ({ml['bound']}), "
+          f"pct_sol {out['ml_pct_sol']} of the {ml_prove_s:.4f} s prove; GKR dim={dim} generic: "
+          f"sol_s {gkr['sol_s']:.6f} ({gkr['bound']}), pct_sol {out['gkr_pct_sol']} of the "
+          f"{gkr_prove_s:.4f} s prove")
+    return out
+
+
 # --- the multi-device provers (`sumcheck_tpu_torch/parallel/`, the sharded batch)
 
 SHARD_SIZES = (2, 4)
@@ -1915,7 +2192,7 @@ def sharded_phase(device, seed: int, reps: int, refs: dict) -> dict:
 
 
 def run_ranks(size: int, backend: str, seed: int, reps: int, refs: dict,
-              cases: tuple = ("ml", "gkr", "batch")) -> dict:
+              cases: tuple = ("ml", "gkr", "batch", "sp")) -> dict:
     """One spawn of `size` ranks in a `backend` group running `cases` (the
     GKR case only at `GKR_SHARD_SIZES`); prints each case's numbers and
     returns them by path, with rank 0's launch counts."""
@@ -1954,10 +2231,12 @@ def run_ranks(size: int, backend: str, seed: int, reps: int, refs: dict,
 
 
 def sharded_rank(rank: int, size: int, backend: str, device: str, init_file: str, out_dir: str,
-                 seed: int, reps: int, refs: dict, cases: tuple = ("ml", "gkr", "batch")) -> None:
+                 seed: int, reps: int, refs: dict,
+                 cases: tuple = ("ml", "gkr", "batch", "sp")) -> None:
     """One rank of `run_ranks`, the `cases` of: the sharded ML nv=20 2x3 prove (the phase-8
     instance), the sharded GKR dim-18 prove (phase 9's, at the sizes of
-    `GKR_SHARD_SIZES`) and the sharded batch 8 x nv=16 (phase 10's), each
+    `GKR_SHARD_SIZES`), the sharded batch 8 x nv=16 (phase 10's) and
+    `ShardedProver` on the ML instance (`sharded_sp`), each
     through its public entry point on the rank's card, checked byte for
     byte against `refs`, launches counted from 0 around it; writes the
     numbers to `out_dir`/rank<r>.json. Raises on any mismatch. `device` is
@@ -1983,6 +2262,8 @@ def sharded_rank(rank: int, size: int, backend: str, device: str, init_file: str
             out["gkr"] = sharded_gkr(ShardedGKRProver(ml.group, device=device), seed, refs, guard)
         if "batch" in cases:
             out["batch"] = sharded_batch(ml, seed, reps, refs, guard)
+        if "sp" in cases:
+            out.update(sharded_sp(device, ml.group, seed, reps, refs))
         with open(f"{out_dir}/rank{rank}.json", "w") as f:
             json.dump({"device": str(ml.device), "cases": out}, f)
     finally:
@@ -2403,10 +2684,18 @@ def _field_phases(args, device, libs, plain_proc, plain_file: str) -> int:
           "the two batched chains prove different bytes")
     heads["batch gkr generic"] = gkr_batch_phase(device, args.seed, 1)
     mark("batches")
-    refs = {"ml": heads["ml generic"]["proof"], "ml_state": heads["ml generic"]["transcript"]}
+    heads["interactive ml"] = interactive_phase(device, args.seed, args.reps, heads["ml generic"])
+    heads["gkr host-transcript"] = gkr_host_phase(device, args.seed, gkr_instance(args.seed),
+                                                  args.reps, check_plain=False)
+    mark("round-by-round prover")
+    refs = {"ml": heads["ml generic"]["proof"], "ml_state": heads["ml generic"]["transcript"],
+            "ml_abc": heads["interactive ml"]["abc_proof"],
+            "ml_abc_state": heads["interactive ml"]["abc_transcript"]}
     torch.cuda.empty_cache()
-    heads.update(run_ranks(2, "gloo", args.seed, args.reps, refs, cases=("ml",)))
+    heads.update(run_ranks(2, "gloo", args.seed, args.reps, refs, cases=("ml", "sp")))
     mark("sharded ML")
+    roofline = roofline_phase(device, heads["ml generic"]["prove_s"],
+                              heads["gkr generic"]["prove_s"])
 
     def wait_plain():
         check(plain_proc.wait() == 0, "the plain transcript process failed")
@@ -2433,6 +2722,7 @@ def _field_phases(args, device, libs, plain_proc, plain_file: str) -> int:
         "transcript": {"rounds": FIELD_TRANSCRIPT_ROUNDS, "attempts": tr["attempts"],
                        "compactions": tr["compactions"],
                        "compressions": tr["bound"]["compressions"]},
+        "roofline": roofline,
         "seconds": marks[-1][1] - marks[0][1]}}))
     return 0
 
@@ -2621,12 +2911,20 @@ def main() -> int:
           + ", ".join(f"{k} {h['prove_s']:.4f} / {h['per_proof_s']:.5f} s"
                       for k, h in batches.items()))
     heads.update(batches)
+    heads["interactive ml"] = interactive_phase(device, args.seed, args.reps,
+                                                heads["ml generic"])
+    heads["gkr host-transcript"] = gkr_host_phase(device, args.seed, inst, args.reps)
+    mark("round-by-round prover")
     refs = {"ml": heads["ml generic"]["proof"], "ml_state": heads["ml generic"]["transcript"],
-            "gkr": heads["gkr generic"]["proof"], "batch": heads["batch ml generic"]["proofs"]}
+            "gkr": heads["gkr generic"]["proof"], "batch": heads["batch ml generic"]["proofs"],
+            "ml_abc": heads["interactive ml"]["abc_proof"],
+            "ml_abc_state": heads["interactive ml"]["abc_transcript"]}
     heads.update(sharded_phase(device, args.seed, args.reps, refs))
     mark("sharded")
     verify_core_phase(heads["ml generic"]["proof"], heads["gkr generic"]["proof"])
-    mark("verify cores")
+    roofline = roofline_phase(device, heads["ml generic"]["prove_s"],
+                              heads["gkr generic"]["prove_s"])
+    mark("verify cores and roofline")
     torch.cuda.empty_cache()  # the child allocates on the same card
     field = field_child(args.seed, args.reps)
     mark(f"{FIELD} child")
@@ -2701,6 +2999,18 @@ def main() -> int:
           + ", ".join(f"{k} {h['prove_s']:.4f} s" for k, h in heads.items())
           + f"; banded multiply at {mxu_mul['lanes']} lanes {mxu_mul['ms']:.4f} ms, CIOS "
           f"{mxu_mul['cios_ms']:.4f} ms; build {build_s:.2f} s")
+    print(f"round-by-round prover: interactive ML {heads['interactive ml']['prove_s']:.4f} s "
+          f"({heads['interactive ml']['syncs_per_prove']} syncs) against the generic chain's "
+          f"{heads['ml generic']['prove_s']:.4f} s; GKR over {ABC!r} "
+          f"{heads['gkr host-transcript']['prove_s']:.4f} s against the chained "
+          f"{heads['gkr host-transcript']['chained_s']:.4f} s; ShardedProver "
+          + ", ".join(f"{k[len('sharded '):]} {h['prove_s']:.4f} s ({h['collectives']} all-reduces"
+                      f", {h['bytes']} B a rank)" for k, h in heads.items()
+                      if k.startswith("sharded sp"))
+          + f"; pct_sol ML {roofline['ml_pct_sol']}, GKR {roofline['gkr_pct_sol']}; {FIELD}: "
+          + ", ".join(f"{k} {field['walls'][k]['prove_s']:.4f} s" for k in
+                      ("interactive ml", "gkr host-transcript") if k in field["walls"])
+          + f", pct_sol ML {field['roofline']['ml_pct_sol']}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

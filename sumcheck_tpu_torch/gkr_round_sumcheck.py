@@ -19,7 +19,9 @@ init, both phases' rounds on the generic chain (or the per-size chain,
 `SUMCHECK_TPU_CHAIN_IMPL`), the phase-2 init from phase 1's challenges on
 the device, and one fetch at the end, the prove's only host sync. Any
 other transcript, and a `Blake2b512Rng` holding a pending byte count that
-is not a multiple of 8, takes the host loop over the host engine. Tables
+is not a multiple of 8, runs the same inits and round kernels on the same
+device with the transcript on the host between the rounds, one sync a
+round (`_prove_host_transcript`). Tables
 over a field other than the process default (`PortableDenseMLE`,
 `PortableSparseMLE`) prove and verify on the portable host engine
 (`portable.py`), whatever `device` says.
@@ -42,6 +44,7 @@ from .fields.fr import Fr
 from .mle import DenseMLE, SparseMLE, _segment_sum_mod_p
 from .protocol import IPForMLSumcheck
 from .protocol.prover import ProverMsg, ProverState
+from .utils.errors import SumcheckError
 
 
 def initialize_phase_one(
@@ -64,14 +67,14 @@ def initialize_phase_one(
     return DenseMLE(dim, a_hg), f1_g
 
 
-def start_phase1_sumcheck(h_g: DenseMLE, f2: DenseMLE) -> ProverState:
+def start_phase1_sumcheck(h_g: DenseMLE, f2: DenseMLE, *, device="cuda") -> ProverState:
     """Wrap `h_g * f2` as a 1-product polynomial and init the round prover
-    (reference `mod.rs:45-54`)."""
+    on `device` (reference `mod.rs:45-54`)."""
     dim = h_g.num_vars
     assert f2.num_vars == dim
     poly = ListOfProductsOfPolynomials(dim)
     poly.add_product([h_g, f2], Fr.one())
-    return IPForMLSumcheck.prover_init(poly)
+    return IPForMLSumcheck.prover_init(poly, device=device)
 
 
 def initialize_phase_two(f1_g: SparseMLE, u: Sequence[Fr]) -> DenseMLE:
@@ -80,15 +83,16 @@ def initialize_phase_two(f1_g: SparseMLE, u: Sequence[Fr]) -> DenseMLE:
     return f1_g.fix_variables(list(u)).to_dense()
 
 
-def start_phase2_sumcheck(f1_gu: DenseMLE, f3: DenseMLE, f2_u: Fr) -> ProverState:
+def start_phase2_sumcheck(f1_gu: DenseMLE, f3: DenseMLE, f2_u: Fr, *,
+                          device="cuda") -> ProverState:
     """Prove `sum_y f1(g,u,y) * f2(u) * f3(y)` as `f1_gu * (f2_u * f3)`
-    (reference `mod.rs:66-82`)."""
+    on `device` (reference `mod.rs:66-82`)."""
     f3_f2u = DenseMLE.zero().scaled_add(f2_u, f3)
     dim = f1_gu.num_vars
     assert f3.num_vars == dim
     poly = ListOfProductsOfPolynomials(dim)
     poly.add_product([f1_gu, f3_f2u], Fr.one())
-    return IPForMLSumcheck.prover_init(poly)
+    return IPForMLSumcheck.prover_init(poly, device=device)
 
 
 def _upload(f1: SparseMLE, f2: DenseMLE, f3: DenseMLE, g: Sequence[Fr], dim: int,
@@ -165,6 +169,43 @@ def _prove_chained(rng, f1: SparseMLE, f2: DenseMLE, f3: DenseMLE,
     device_prover.restore_transcript(rng, state_h)
     return GKRProof(device_prover.msgs_from_host(msgs_h[:dim], 2),
                     device_prover.msgs_from_host(msgs_h[dim:], 2))
+
+
+def _prove_host_transcript(rng, f1: SparseMLE, f2: DenseMLE, f3: DenseMLE,
+                           g: Sequence[Fr], dim: int, device: torch.device,
+                           round_fns=None) -> "GKRProof":
+    """The GKR prove over a transcript the device chain cannot lift (any
+    rng other than a `Blake2b512Rng`, or one whose pending byte count is
+    not a multiple of 8), on `device` (`sumcheck_tpu` `:285-327`): the
+    chained prove's inits and round kernels, with the transcript on the
+    host between the rounds, each phase the interactive tier's rounds over
+    its pair (`generic_prover.host_rounds`, one sync a round). Phase 1's
+    challenges go back up once, as digits, for the phase-2 init.
+    `round_fns` replaces (round_nofold, round_fold), a test hook."""
+    from .ops import gkr_init as GI
+    from .protocol.device_prover import upload
+    from .protocol.generic_prover import host_rounds
+
+    (gbits, x, y_rev, vals, last_x, perm_y, last_y), (narrow_x, narrow_y), f2_d, f3_d, \
+        g_r, g_omr = _upload(f1, f2, f3, g, dim, device)
+    lo1, hi1, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, g_omr, f3_d, f2_d, dim,
+                                 not narrow_x)
+    phase1_msgs, u = host_rounds(rng, _pair_state(lo1, hi1, dim, round_fns), dim)
+    u_digits = upload(torch.from_numpy(
+        np.stack([L.mont_scalar(p.v)[:, 0] for p in u]).astype(np.int32)), device)
+    # the rounds left phase 1's 1-lane final pair in lane 0; u[dim-1] folds it
+    lo2, hi2 = GI.phase2_pair(lo1[:, :, :1], hi1[:, :, :1], u_digits[dim - 1], x, perm_y,
+                              last_y, w, u_digits, f3_d, dim, not narrow_y)
+    phase2_msgs, _v = host_rounds(rng, _pair_state(lo2, hi2, dim, round_fns), dim)
+    return GKRProof(phase1_msgs, phase2_msgs)
+
+
+def _pair_state(lo, hi, dim: int, round_fns) -> ProverState:
+    """The interactive tier's state over one phase's pair: one unit product
+    of its two slots, `h_g * f2` or `f1_gu * (f2(u) * f3)`."""
+    state = ProverState([], [(Fr.one(), [0, 1])], (lo, hi), dim, 2, ((0, 1),), 2)
+    state.round_fns = round_fns
+    return state
 
 
 class GKRProof:
@@ -252,16 +293,11 @@ class GKRRoundSumcheck:
         dim = f2.num_vars
         g = list(g)
         device = resolve_device(device)
-        if dim >= 1 and liftable(rng):
+        if dim == 0:
+            raise SumcheckError("Attempt to prove a constant.")
+        if liftable(rng):
             return _prove_chained(rng, f1, f2, f3, g, dim, device)
-
-        h_g, f1_g = initialize_phase_one(f1, f3, g)
-        phase1_ps = start_phase1_sumcheck(h_g, f2)
-        phase1_msgs, u = _host_phase(rng, phase1_ps, dim)
-        f1_gu = initialize_phase_two(f1_g, u)
-        phase2_ps = start_phase2_sumcheck(f1_gu, f3, f2.evaluate(u))
-        phase2_msgs, _v = _host_phase(rng, phase2_ps, dim)
-        return GKRProof(phase1_msgs, phase2_msgs)
+        return _prove_host_transcript(rng, f1, f2, f3, g, dim, device)
 
     @staticmethod
     def verify(
@@ -301,17 +337,3 @@ class GKRRoundSumcheck:
         u, expected1 = run_phase(proof.phase1_sumcheck_msgs, claimed_sum)
         v, expected2 = run_phase(proof.phase2_sumcheck_msgs, expected1)
         return GKRRoundSumcheckSubClaim(u=u, v=v, expected_evaluation=expected2)
-
-
-def _host_phase(rng, prover_state: ProverState, dim: int):
-    """One phase's dim rounds on the host engine over `rng` (the schedule of
-    `sumcheck_tpu` `:299-325`); returns (messages, challenges)."""
-    msgs, point = [], []
-    vm = None
-    for _ in range(dim):
-        pm = IPForMLSumcheck.prove_round(prover_state, vm)
-        rng.feed(pm)
-        msgs.append(pm)
-        vm = IPForMLSumcheck.sample_round(rng)
-        point.append(vm.randomness)
-    return msgs, point

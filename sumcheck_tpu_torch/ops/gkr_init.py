@@ -31,9 +31,13 @@ package's choice of width (`_seg_narrow`) all the same.
 Left out: `_take_small_mxu` and the kron-split modes (they work around XLA's
 small-table gather lowering), `bitrev_cols` (the entries are sorted so the
 tables come out in bit-reversed order), `warm_pair_programs_async` (compile
-warm-up), `_eq_table_sharded` (the multi-device inits build the whole eq
-table on every rank: `parallel/gkr.py`), and the host-facing wrappers
-`phase1_init_device` / `phase2_init_device`.
+warm-up) and `_eq_table_sharded` (the multi-device inits build the whole eq
+table on every rank: `parallel/gkr.py`).
+
+The host-facing wrappers `phase1_init_device` / `phase2_init_device`
+(`:416-449`) take NumPy arrays and return NumPy tables in natural lane
+order, for callers outside a prove; `phase1_init_device_arrays`
+(`:315-342`) is their variant that leaves everything on the device.
 """
 
 from __future__ import annotations
@@ -313,3 +317,59 @@ def phase2_pair(pair_lo, pair_hi, r_last, x, perm_y, last_y, w, u_digits, f3_bit
     f2u = final_fold(pair_lo, pair_hi, r_last, 1)
     f1gu = phase2_digits(x, perm_y, last_y, w, u_digits, dim, split8y)
     return prep2(f1gu, f3_bitrev, f2u, out)
+
+
+# ---------------------------------------------------------------------------
+# host-facing wrappers (`sumcheck_tpu/ops/gkr_init.py:315-342, 416-449`)
+# ---------------------------------------------------------------------------
+
+
+class _HostF1:
+    """f1's nonzeros as `_split_f1_device` reads them, with its caches."""
+
+    def __init__(self, indices, values):
+        self.indices, self.values = np.asarray(indices), np.asarray(values)
+        self._dev_split: dict = {}
+        self._seg_narrow = (False, False)
+
+
+def phase1_init_device_arrays(f1, f3, g: list[Fr], dim: int, device="cuda"):
+    """h_g and phase 2's carry on `device`, with no host sync: h_g as a
+    (16, 2^dim) int64 tensor in bit-reversed lane order, and the carry
+    (x, perm_y, last_y, w, narrow_y) that `phase2_init_device` takes. `f1`
+    has `indices` and `values` (a `SparseMLE`: its split is cached on it),
+    `f3` a `to_device` (a `DenseMLE`)."""
+    device = device_prover.resolve_device(device)
+    gbits, x, y_rev, vals, last_x, perm_y, last_y = _split_f1_device(f1, dim, device)
+    narrow_x, narrow_y = _seg_narrow(f1)
+    prepare(device)
+    g_r, g_omr = (upload(a, device) for a in _points_arrays(list(g)))
+    hg, w = phase1(gbits, last_x, y_rev, vals, g_r, g_omr, f3.to_device(device), dim,
+                   not narrow_x)
+    return hg, (x, perm_y, last_y, w, narrow_y)
+
+
+def phase1_init_device(f1_indices, f1_values, f3_evals, g: list[Fr], dim: int,
+                       device="cuda"):
+    """h_g(x) = sum_y f1(g, x, y) f3(y) by the device init on `device` from
+    f1's nonzeros (indices, (16, nnz) Montgomery digits) and f3's (16,
+    2^dim) natural-order digits: returns (h_g as a (16, 2^dim) uint32 NumPy
+    array in natural lane order, the carry for `phase2_init_device`)."""
+    from ..mle import DenseMLE
+    from ..protocol.prover import bitrev_perm
+
+    hg, carry = phase1_init_device_arrays(_HostF1(f1_indices, f1_values),
+                                          DenseMLE(dim, np.asarray(f3_evals, np.uint32)), g, dim,
+                                          device)
+    return hg.cpu().numpy().astype(np.uint32)[:, bitrev_perm(dim)], carry
+
+
+def phase2_init_device(carry, u: list[Fr], dim: int) -> np.ndarray:
+    """f1(g, u, .) densified on the carry's device: a (16, 2^dim) uint32
+    NumPy array in natural lane order."""
+    from ..protocol.prover import bitrev_perm
+
+    x, perm_y, last_y, w, narrow_y = carry
+    u_digits = upload(np.stack([L.mont_scalar(p.v)[:, 0] for p in u]), w.device)
+    f1gu = phase2_digits(x, perm_y, last_y, w, u_digits, dim, not narrow_y)
+    return f1gu.cpu().numpy().astype(np.uint32)[:, bitrev_perm(dim)]

@@ -7,6 +7,8 @@ prover with the same inputs, a process group in place of the JAX mesh.
 - `comm.py`: the one module that calls `torch.distributed`; every exchange
   is one exact int64 all-reduce;
 - `chained.py`: `ChainedShardedProver`, the sharded MLSumcheck prove;
+- `prover.py`: `ShardedProver`, the sharded MLSumcheck prove with the
+  transcript on the host, for any transcript;
 - `gkr.py`: `ShardedGKRProver`, the sharded GKR round sumcheck prove.
 
 The sharded batch is `batch.BatchedMLSumcheck.prove(..., group=)`.
@@ -16,5 +18,7 @@ Not exported from the package, as in the JAX package.
 from .chained import ChainedShardedProver
 from .gkr import ShardedGKRProver
 from .mesh import default_group, shard_device
+from .prover import ShardedProver, ShardedProverState
 
-__all__ = ["ChainedShardedProver", "ShardedGKRProver", "default_group", "shard_device"]
+__all__ = ["ChainedShardedProver", "ShardedGKRProver", "ShardedProver", "ShardedProverState",
+           "default_group", "shard_device"]

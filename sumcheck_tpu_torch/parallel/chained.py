@@ -30,8 +30,9 @@ body), this path runs the generic chain with `round_fold` whatever
 `Blake2b512Rng` transcripts, as the JAX package's does; a `Blake2b512Rng`
 holding a pending byte count that is not a multiple of 8 is proved by every
 rank alone on the host-transcript loop, with no collective, so all ranks
-still agree. The per-round host-transcript mesh prover
-(`sumcheck_tpu/parallel/prover.py`) is not ported: this one supersedes it.
+still agree. The sharded path for any other transcript is
+`parallel/prover.ShardedProver`, which keeps the transcript on the host
+between the rounds and shares this module's deal and tail.
 
 With a gloo group on CUDA tensors each all-reduce goes through the host;
 with NCCL (one rank per card) nothing inside the chain syncs the host.
@@ -71,11 +72,18 @@ def sharded_rounds(lo, hi, state, products, degree: int, num_rounds: int, group)
         lo, hi, state, products, degree, num_rounds - sigma, fns, reduce_fn=reduce)
     if not sigma:
         return msgs, rs, state, (lo, hi)
-    pair = comm.gather_lanes(torch.stack([lo[:, :, :1], hi[:, :, :1]]), group)  # (2, U, 16, S)
-    lo, hi = pair[0].contiguous(), pair[1].contiguous()
+    lo, hi = gather_tail(lo, hi, group)
     tmsgs, trs, state = generic_prover.chain_rounds_generic(
         lo, hi, state, products, degree, sigma, fns, r0=rs[-1])
     return torch.cat([msgs, tmsgs]), torch.cat([rs, trs]), state, (lo, hi)
+
+
+def gather_tail(lo, hi, group):
+    """Once each rank holds one active pair lane (lane 0): every rank's,
+    gathered in rank order by one `comm.gather_lanes`, as the replicated
+    (U, 16, S) pair of the remaining rounds on the rank's device."""
+    pair = comm.gather_lanes(torch.stack([lo[:, :, :1], hi[:, :, :1]]), group)  # (2, U, 16, S)
+    return pair[0].contiguous(), pair[1].contiguous()
 
 
 class ChainedShardedProver:
@@ -116,4 +124,4 @@ class ChainedShardedProver:
         msgs, rs, state, (lo, hi) = sharded_rounds(lo, hi, state, products, degree, nv,
                                                    self.group)
         prover_msgs, randomness = device_prover.finish_chain(fs_rng, msgs, rs, state, degree)
-        return prover_msgs, device_prover.prover_state(polynomial, lo, hi, randomness, degree)
+        return prover_msgs, device_prover.prover_state(polynomial, lo, hi, randomness)

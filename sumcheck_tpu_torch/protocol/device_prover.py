@@ -324,17 +324,12 @@ def finish_chain_batched(fs_rngs, msgs, rs, state, degree: int):
     return proofs, challenges
 
 
-def prover_state(polynomial, lo, hi, randomness, degree: int):
+def prover_state(polynomial, lo, hi, randomness):
     """The `ProverState` after all rounds of a chained prove."""
-    from .prover import ProverState
+    from .prover import pair_state
 
-    state = ProverState(
-        randomness=randomness,
-        list_of_products=[(c, list(ix)) for c, ix in polynomial.products],
-        stacked=(lo, hi),
-        num_vars=polynomial.num_variables,
-        max_multiplicands=degree,
-    )
+    state = pair_state(polynomial, lo, hi)
+    state.randomness = randomness
     state.round = polynomial.num_variables
     return state
 
@@ -362,4 +357,4 @@ def prove_chained(fs_rng, polynomial, device, step_fns=None, transcript_fn=None)
         pair, state, products, degree, nv, step_fns, transcript_fn
     )
     prover_msgs, randomness = finish_chain(fs_rng, msgs, rs, state, degree)
-    return prover_msgs, prover_state(polynomial, lo, hi, randomness, degree)
+    return prover_msgs, prover_state(polynomial, lo, hi, randomness)

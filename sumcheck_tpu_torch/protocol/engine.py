@@ -1,9 +1,11 @@
 """The round engine algorithm, written once over a pluggable limb backend.
 
-Port of `sumcheck_tpu/protocol/engine.py`. `HOST` (NumPy, uint64 headroom)
-is copied; `TORCH` runs the same algorithm over `fields.limbs_torch` on any
-torch device. Both expose `add`, `sub`, `mont_mul`, `sum_lanes_wide`,
-`stack` and `take` on `(16, ...)` digit arrays.
+Port of `sumcheck_tpu/protocol/engine.py`: `TORCH` runs its algorithm over
+`fields.limbs_torch` on any torch device (`add`, `sub`, `mont_mul`,
+`sum_lanes_wide`, `stack` and `take` on `(16, ...)` digit arrays); the
+round kernels' plain versions (`ops/round_cuda.py`) are built on it. The
+JAX package's NumPy `HOST` backend and `round_sums` served its host round
+engine, which the port's interactive tier replaces with the round kernels.
 
 Round semantics mirror the reference hot loop (`prover.rs:110-132`): with the
 bit-reversed device layout, `start = first_half`, `step = second_half -
@@ -16,22 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..fields import limbs_np, limbs_torch
-
-
-class _HostBackend:
-    add = staticmethod(limbs_np.add)
-    sub = staticmethod(limbs_np.sub)
-    mont_mul = staticmethod(limbs_np.mont_mul)
-    sum_lanes_wide = staticmethod(limbs_np.sum_lanes_wide)
-
-    @staticmethod
-    def stack(rows, axis):
-        return np.stack(rows, axis=axis)
-
-    @staticmethod
-    def take(arr, idx, axis):
-        return np.take(arr, idx, axis=axis)
+from ..fields import limbs_torch
 
 
 class _TorchBackend:
@@ -53,7 +40,6 @@ class _TorchBackend:
         return out.reshape(arr.shape[:axis] + idx.shape + arr.shape[axis + 1 :])
 
 
-HOST = _HostBackend
 TORCH = _TorchBackend
 
 
@@ -96,11 +82,3 @@ def round_totals(ops, stacked, coeffs, idx_mat, degree: int):
     for pi in range(1, acc.shape[-3]):
         total = ops.add(total, acc[..., pi, :, :])
     return total
-
-
-def round_sums(ops, stacked, coeffs, idx_mat, degree: int):
-    """Evaluate the round polynomial at t = 0..degree and lane-reduce.
-    Returns (WIDE_DIGITS, [B,] degree+1) — exact integer sums of Montgomery
-    residues (the caller reduces mod p). Arguments as `round_totals`."""
-    total = round_totals(ops, stacked, coeffs, idx_mat, degree)
-    return ops.sum_lanes_wide(total, axis=-1)  # (WIDE, [B,] d+1)

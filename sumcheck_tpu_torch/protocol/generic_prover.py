@@ -26,10 +26,11 @@ kernel adds its sums into the round's row of one zeroed buffer
 `chain_rounds_generic_batched` runs the same chain over B instances at once
 for `batch.py`, two launches a round for all of them.
 
-`prove_host_transcript` is the loop for any other transcript: each round
-copies its exact sums to the host (one sync), reduces them mod p, feeds the
-`ProverMsg` and samples the challenge on `fs_rng`, then uploads the
-challenge for the next fold, the schedule of the host loop at
+`prove_host_transcript` is the loop for any other transcript, the
+interactive tier's rounds (`protocol/prover.py`) under `host_rounds`: each
+round copies its exact sums to the host (one sync), reduces them mod p,
+feeds the `ProverMsg` and samples the challenge on `fs_rng`, which the next
+round uploads for its fold, the schedule of the host loop at
 `sumcheck_tpu/ml_sumcheck.py:122-131`. Proofs are byte-identical either way.
 
 Left out, because they serve XLA compile counts or TPU enqueue memory: the
@@ -39,12 +40,9 @@ per-stage syncs for huge pairs and the incremental pair init.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from ..fields import limbs_np as L
-from ..fields.fr import NUM_DIGITS, Fr, P, R_INV
-from ..fields.limbs_torch import wide_to_int
+from ..fields.fr import NUM_DIGITS
 from ..ops import round_cuda, transcript_cuda
 from ..utils.config import get_config
 from ..utils.errors import SumcheckError
@@ -57,7 +55,8 @@ from .device_prover import (
     resolve_device,
     sum_rows,
 )
-from .prover import ProverMsg
+from .prover import prove_round, prover_init
+from .verifier import sample_round
 
 
 def chain_rounds_generic(lo, hi, state, products, degree: int, num_rounds: int,
@@ -144,38 +143,31 @@ def prove_generic(fs_rng, polynomial, device, round_fns=None, transcript_fn=None
         lo, hi, state, products, degree, nv, round_fns, transcript_fn
     )
     prover_msgs, randomness = finish_chain(fs_rng, msgs, rs, state, degree)
-    return prover_msgs, prover_state(polynomial, lo, hi, randomness, degree)
+    return prover_msgs, prover_state(polynomial, lo, hi, randomness)
 
 
-def prove_host_transcript(fs_rng, polynomial, device, round_fns=None):
+def prove_host_transcript(fs_rng, polynomial, device):
     """Full Fiat-Shamir prove with the round kernels on `device` and the
     transcript `fs_rng` on the host (any rng with `feed` and the draws
-    `Fr.rand` uses), one sync per round. Arguments as `prove_generic`."""
-    device = resolve_device(device)
-    nofold, fold = round_fns or (round_cuda.round_nofold, round_cuda.round_fold)
-    nv = polynomial.num_variables
-    if nv == 0:
-        raise SumcheckError("Attempt to prove a constant.")
+    `Fr.rand` uses): the interactive tier's rounds (`prover.prove_round`,
+    one sync each) under `host_rounds`. Arguments as `prove_generic`."""
+    state = prover_init(polynomial, device=device)
+    msgs, point = host_rounds(fs_rng, state, polynomial.num_variables)
+    state.randomness.append(point[-1])
+    return msgs, state
 
-    lo, hi, products, degree = init_pair(polynomial, device)
-    half = lo.shape[2]
-    msgs, randomness = [], []
-    r_dev = None
-    for j in range(nv):
-        extent = half >> j
-        if j == 0:
-            sums = nofold(lo, hi, products, degree, extent)
-        else:
-            sums = fold(lo, hi, r_dev, products, degree, extent)
-        wide = round_cuda.finish_sums(sums)  # the round's one sync
-        msg = ProverMsg(
-            [Fr(wide_to_int(wide[:, t]) % P * R_INV % P) for t in range(degree + 1)]
-        )
+
+def host_rounds(fs_rng, state, num_rounds: int):
+    """`num_rounds` rounds of the interactive tier over the host transcript
+    `fs_rng`: prove a round, feed its message, draw the challenge, as
+    `sumcheck_tpu/ml_sumcheck.py:122-131` does. Returns (messages, every
+    challenge drawn); the last one is not yet given to the prover."""
+    msgs, point = [], []
+    v_msg = None
+    for _ in range(num_rounds):
+        msg = prove_round(state, v_msg)
         fs_rng.feed(msg)
         msgs.append(msg)
-        r = Fr.rand(fs_rng)
-        randomness.append(r)
-        if j + 1 < nv:
-            r_host = L.mont_scalar(r.v)[:, 0].astype(np.int32)
-            r_dev = torch.from_numpy(r_host).to(device)
-    return msgs, prover_state(polynomial, lo, hi, randomness, degree)
+        v_msg = sample_round(fs_rng)
+        point.append(v_msg.randomness)
+    return msgs, point

@@ -7,15 +7,18 @@ round polynomial's evaluations at t = 0..d, computed as
 `step_j = T_j[2b+1] - T_j[2b]` (reference `prover.rs:110-132`), after folding
 every unique table by the previous challenge (`prover.rs:87-89`).
 
-Tables are one stacked `(NUM_DIGITS, U+1, n)` Montgomery digit array in
-**bit-reversed index order**: the reference's low-bit pair `(T[2b], T[2b+1])`
-becomes `(first_half[k], second_half[k])`, and the layout is closed under
-folding. Slot U is a constant-one table used to pad ragged products to a
-rectangular `(num_products, max_len)` index matrix.
-
-Port of `sumcheck_tpu/protocol/prover.py`: the interactive rounds run on the
-NumPy host engine (`engine.HOST`). The Fiat-Shamir fast path, with the round
-kernels on a torch device, is `protocol/generic_prover.py`.
+Port of `sumcheck_tpu/protocol/prover.py`, on the round kernels. The state
+holds the table pair the chains fold (`device_prover.init_pair`: the
+unique tables in **bit-reversed index order**, so the reference's low-bit
+pair `(T[2b], T[2b+1])` is `(lo[k], hi[k])`, each product's coefficient
+folded into one slot, a constant-one slot for ragged products) on the
+prover's device. `prove_round` runs round 0 through `round_cuda.round_nofold`
+and every later round through `round_cuda.round_fold` (in place, by the
+verifier's challenge uploaded as Montgomery digits) over the extent
+`2^(nv-1) >> round`, and copies the round's exact sums to the host in
+`round_cuda.finish_sums`, its one sync. `device="cpu"` runs the kernels'
+plain versions. A sharded state (`parallel/prover.ShardedProverState`)
+takes `parallel.prover.run_sharded_round` instead, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,14 +26,15 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 from ..data_structures import ListOfProductsOfPolynomials
 from ..fields import limbs_np as L
-from ..fields.fr import Fr, NUM_DIGITS, P, R_INV
+from ..fields.fr import Fr, P, R_INV
 from ..fields.limbs_torch import wide_to_int
+from ..ops import round_cuda
 from ..transcript.serialize import serialize_fr_vec
 from ..utils.errors import SumcheckError
-from . import engine
 
 
 class ProverMsg:
@@ -54,32 +58,61 @@ class ProverMsg:
 
 class ProverState:
     """Mutable prover state across rounds (reference `ProverState`,
-    `prover.rs:19-33`). `stacked` holds the unique tables (plus the constant
-    ones-table in the last slot), bit-reversed."""
+    `prover.rs:19-33`). `stacked` is the round kernels' (lo, hi) pair of
+    (U, 16, 2^nv / 2) int32 tensors, folded in place; `products` its padded
+    slot tuples; slots 0..num_tables-1 hold the polynomial's tables, slot u
+    times `scales[u]` where `init_pair` folded a coefficient into it.
+    `round_fns` replaces (round_nofold, round_fold), a test hook."""
 
-    def __init__(self, randomness, list_of_products, stacked, num_vars, max_multiplicands):
+    def __init__(self, randomness, list_of_products, stacked, num_vars, max_multiplicands,
+                 products, num_tables: int, scales=None):
         self.randomness: list[Fr] = randomness
         self.list_of_products: list[tuple[Fr, list[int]]] = list_of_products
-        # host engine: (16, U+1, n) digit-leading NumPy array;
-        # Fiat-Shamir fast path: (lo, hi) torch pair, slot axis leading (U, 16, half)
         self.stacked = stacked
         self.num_vars = num_vars
         self.max_multiplicands = max_multiplicands
         self.round = 0
+        self.products = products
+        self.num_tables = num_tables
+        self.scales = scales or {}
+        self.round_fns = None
 
     @property
-    def num_tables(self) -> int:
-        if isinstance(self.stacked, tuple):
-            return self.stacked[0].shape[0]
-        return self.stacked.shape[1] - 1
+    def extent(self) -> int:
+        """The active pair lanes: 2^(nv-1) >> (folds so far)."""
+        return (1 << (self.num_vars - 1)) >> max(self.round - 1, 0)
 
     @property
-    def flattened_ml_extensions(self) -> list:
-        """Per-table views (excluding any internal ones slot); mirrors the
-        reference field of the same name."""
-        if isinstance(self.stacked, tuple):
-            return [self.stacked[0][i] for i in range(self.num_tables)]
-        return [self.stacked[:, i] for i in range(self.num_tables)]
+    def flattened_ml_extensions(self) -> list[np.ndarray]:
+        """The polynomial's tables as the rounds so far left them, each a
+        (16, 2 * extent) NumPy digit array in bit-reversed order (the JAX
+        package's host-engine state), with the coefficients folded into
+        them divided back out; one copy from the device."""
+        lo, hi = self.stacked
+        k, a = self.num_tables, self.extent
+        both = torch.cat([lo[:k, :, :a], hi[:k, :, :a]], dim=2).cpu().numpy().astype(np.uint32)
+        out = []
+        for i in range(k):
+            c = self.scales.get(i)
+            if c is None:
+                out.append(both[i])
+            elif c % P == 0:
+                raise SumcheckError(f"table {i} took the coefficient 0: its values are gone")
+            else:
+                out.append(L.mont_mul_scalar(both[i], L.mont_scalar(pow(c, -1, P))))
+        return out
+
+
+def pair_state(polynomial, lo, hi, cls=ProverState, **kwargs) -> ProverState:
+    """A `cls` state over the pair `init_pair(polynomial, ...)` built (the
+    fold plan read again), before round 0."""
+    from .device_prover import _fold_plan
+
+    products, scale_plan, _slots, _ones = _fold_plan(polynomial)
+    return cls([], [(c, list(ix)) for c, ix in polynomial.products], (lo, hi),
+               polynomial.num_variables, polynomial.max_multiplicands, products,
+               len(polynomial.flattened_ml_extensions),
+               {dst: c for dst, src, c in scale_plan if dst == src}, **kwargs)
 
 
 @functools.lru_cache(maxsize=None)
@@ -98,39 +131,35 @@ def to_bitrev(evals_mont: np.ndarray, nv: int) -> np.ndarray:
     return evals_mont[..., bitrev_perm(nv)]
 
 
-def prover_init(polynomial: ListOfProductsOfPolynomials) -> ProverState:
-    """Deep-copy unique tables (reference `prover_init`, `prover.rs:49-69`)
-    into the stacked bit-reversed layout, appending the ones-table."""
+def prover_init(polynomial: ListOfProductsOfPolynomials, *, device="cuda") -> ProverState:
+    """Deep-copy the unique tables (reference `prover_init`,
+    `prover.rs:49-69`) into the round kernels' table pair on `device` (a
+    `torch.device` or its name; the card unless the caller asks for the
+    CPU): one pair-init launch on a card."""
+    from .device_prover import init_pair
+
     if polynomial.num_variables == 0:
         raise SumcheckError("Attempt to prove a constant.")
-    nv = polynomial.num_variables
-    n = 1 << nv
-    tables = [to_bitrev(m.evals, nv) for m in polynomial.flattened_ml_extensions]
-    tables.append(np.broadcast_to(L.mont_scalar(1), (NUM_DIGITS, n)))
-    return ProverState(
-        randomness=[],
-        list_of_products=[(c, list(ix)) for c, ix in polynomial.products],
-        stacked=np.stack(tables, axis=1),  # (16, U+1, n)
-        num_vars=nv,
-        max_multiplicands=polynomial.max_multiplicands,
-    )
+    lo, hi, _products, _degree = init_pair(polynomial, device)
+    return pair_state(polynomial, lo, hi)
 
 
-def _run_round(state: ProverState, r_col, do_fold: bool):
-    """One round on the host engine; returns wide sums (WIDE, d+1)."""
-    degree = state.max_multiplicands
-    ones_slot = state.num_tables
-    max_len = max(len(ix) for _, ix in state.list_of_products)
-    idx_mat = np.array(
-        [ix + [ones_slot] * (max_len - len(ix)) for _, ix in state.list_of_products],
-        dtype=np.int32,
-    )
-    coeffs = np.stack(
-        [L.mont_scalar(c.v) for c, _ in state.list_of_products], axis=1
-    )[:, :, :, None]  # (16, P, 1, 1)
+def _round_sums(state: ProverState, r_col, do_fold: bool) -> torch.Tensor:
+    """One round's (d+1, 16) int64 per-digit sums on the state's device,
+    with no host sync: the challenge uploaded, then one round kernel over
+    the round's extent. A sharded state takes `run_sharded_round`."""
+    if getattr(state, "group", None) is not None:
+        from ..parallel.prover import run_sharded_round
+
+        return run_sharded_round(state, r_col, do_fold)
+    from .device_prover import upload
+
+    nofold, fold = state.round_fns or (round_cuda.round_nofold, round_cuda.round_fold)
+    lo, hi = state.stacked
     if do_fold:
-        state.stacked = engine.fold_tables(engine.HOST, state.stacked, r_col[:, None, :])
-    return engine.round_sums(engine.HOST, state.stacked, coeffs, idx_mat, degree)
+        r = upload(torch.from_numpy(r_col[:, 0].astype(np.int32)), lo.device)
+        return fold(lo, hi, r, state.products, state.max_multiplicands, state.extent)
+    return nofold(lo, hi, state.products, state.max_multiplicands, state.extent)
 
 
 def prove_round(prover_state: ProverState, v_msg) -> ProverMsg:
@@ -145,14 +174,14 @@ def prove_round(prover_state: ProverState, v_msg) -> ProverMsg:
     elif state.round > 0:
         raise SumcheckError("verifier message is empty")
     else:
-        r_col = np.zeros((NUM_DIGITS, 1), np.uint32)  # unused placeholder
+        r_col = None  # round 0 folds nothing
 
     do_fold = state.round > 0
     state.round += 1
     if state.round > state.num_vars:
         raise SumcheckError("Prover is not active")
 
-    sums = _run_round(state, r_col, do_fold)  # (WIDE, degree+1)
+    sums = round_cuda.finish_sums(_round_sums(state, r_col, do_fold))  # the round's one sync
     evaluations = [
         Fr((wide_to_int(sums[:, t]) % P) * R_INV % P)
         for t in range(state.max_multiplicands + 1)

@@ -1001,6 +1001,183 @@ def test_sharded_on_cuda_equals_single_card(cuda, backend, tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# the round-by-round prover: the interactive tier, the GKR host-transcript
+# branch, the GKR init wrappers, ShardedProver and the rooflines
+# ---------------------------------------------------------------------------
+
+
+class _ForeignRng:
+    """A transcript other than `Blake2b512Rng`, with the same bytes."""
+
+    def __init__(self, prefix=b""):
+        self.inner = T.Blake2b512Rng.setup()
+        self.inner.feed_bytes(prefix)
+
+    def feed(self, msg):
+        self.inner.feed(msg)
+
+    def next_u64(self):
+        return self.inner.next_u64()
+
+
+def _interactive(poly, device):
+    """Every round of the interactive tier over a host transcript; returns
+    (messages, the final tables)."""
+    st = T.IPForMLSumcheck.prover_init(poly, device=device)
+    rng, v, msgs = T.Blake2b512Rng.setup(), None, []
+    for _ in range(poly.num_variables):
+        msgs.append(T.IPForMLSumcheck.prove_round(st, v).serialize_uncompressed())
+        rng.feed_bytes(msgs[-1])
+        v = T.IPForMLSumcheck.sample_round(rng)
+    return msgs, st.flattened_ml_extensions
+
+
+def test_interactive_tier_on_cuda_equals_cpu(cuda, monkeypatch):
+    """`prover_init(device=cuda)` launches the pair init, round 0 the
+    no-fold kernel and every later round the fold kernel, with one
+    `finish_sums` a round; messages and final tables equal the CPU's."""
+    from sumcheck_tpu_torch.ops import init_cuda as IC
+
+    nv = 12
+    poly = polynomial_from_numpy(nv, _tables(31, nv, 5),
+                                 [(5, [0, 1, 2]), (1, [0, 3]), (9, [4, 0, 4, 1])])
+    syncs = []
+    real = RC.finish_sums
+    monkeypatch.setattr(RC, "finish_sums", lambda s: syncs.append(s.device) or real(s))
+    counters = (IC.pair_init, RC.round_nofold, RC.round_fold)
+    before = [f.launches for f in counters]
+    msgs, tables = _interactive(poly, cuda)
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 1, nv - 1]
+    assert syncs == [cuda] * nv
+    want_msgs, want_tables = _interactive(poly, "cpu")
+    assert msgs == want_msgs
+    assert all(np.array_equal(a, b) for a, b in zip(tables, want_tables))
+
+
+@pytest.mark.parametrize("transcript", ["unaligned", "foreign"])
+def test_gkr_host_transcript_on_cuda_equals_cpu(cuda, transcript):
+    """The GKR prove over a transcript the chain cannot lift runs the round
+    kernels on the card (2 round-0 launches and 2 (dim - 1) folds, no
+    transcript step), byte-equal to the CPU's, the transcript too."""
+    import random
+
+    dim = 8
+    rnd = random.Random(dim)
+    inst = (T.SparseMLE.rand_with_config(3 * dim, 3 << dim, rnd), T.DenseMLE.rand(dim, rnd),
+            T.DenseMLE.rand(dim, rnd), [T.Fr(rnd.randrange(P)) for _ in range(dim)])
+
+    def rng():
+        if transcript == "foreign":
+            return _ForeignRng()
+        r = T.Blake2b512Rng.setup()
+        r.feed_bytes(b"abc")
+        return r
+
+    counters = (RC.round_nofold, RC.round_fold, TC.transcript_step)
+    before = [f.launches for f in counters]
+    a = rng()
+    proof = T.GKRRoundSumcheck.prove(a, *inst, device=cuda)
+    assert [f.launches - b for f, b in zip(counters, before)] == [2, 2 * (dim - 1), 0]
+    b = rng()
+    want = T.GKRRoundSumcheck.prove(b, *inst, device="cpu")
+    assert proof.serialize_uncompressed() == want.serialize_uncompressed()
+    assert getattr(a, "inner", a).state_tuple() == getattr(b, "inner", b).state_tuple()
+
+
+def test_phase_init_wrappers_on_cuda_equal_cpu(cuda):
+    import random
+
+    from sumcheck_tpu_torch.ops import gkr_init as GI
+
+    dim = 7
+    rnd = random.Random(dim)
+    f1 = T.SparseMLE.rand_with_config(3 * dim, 3 << dim, rnd)
+    f3 = T.DenseMLE.rand(dim, rnd)
+    g, u = ([T.Fr(rnd.randrange(P)) for _ in range(dim)] for _ in range(2))
+    h, carry = GI.phase1_init_device(f1.indices, f1.values, f3.evals, g, dim, device=cuda)
+    assert carry[3].device == cuda
+    h_cpu, carry_cpu = GI.phase1_init_device(f1.indices, f1.values, f3.evals, g, dim,
+                                             device="cpu")
+    assert np.array_equal(h, h_cpu)
+    assert np.array_equal(GI.phase2_init_device(carry, u, dim),
+                          GI.phase2_init_device(carry_cpu, u, dim))
+
+
+def _sharded_prover_rank(rank, size, init_file, out_file):
+    """One rank of `test_sharded_prover_on_cuda_equals_single_card`."""
+    import json
+
+    import torch.distributed as dist
+
+    from sumcheck_tpu_torch.parallel import ShardedProver, comm
+
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=size)
+    try:
+        poly = _sharded_instances()[0]
+        prover = ShardedProver(device="cuda")
+        launches = [RC.round_nofold.launches, RC.round_fold.launches]
+        out = {}
+        for transcript in ("aligned", "foreign"):
+            rng = _ForeignRng() if transcript == "foreign" else T.Blake2b512Rng.setup()
+            proof, _state = prover.prove_as_subprotocol(rng, poly)
+            out[transcript] = [serialize_proof(proof).hex(),
+                               repr(getattr(rng, "inner", rng).state_tuple())]
+        out["launches"] = [RC.round_nofold.launches - launches[0],
+                           RC.round_fold.launches - launches[1]]
+        out["collectives"] = comm.all_reduce_sum_.calls
+        out["device"] = str(prover.device)
+        with open(out_file.format(rank), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_prover_on_cuda_equals_single_card(cuda, tmp_path):
+    """`ShardedProver` with two gloo ranks on card 0, over a `Blake2b512Rng`
+    and a transcript of another class: proofs and final transcripts equal
+    to the single card's, on both ranks; per prove round 0 once and nv - 1
+    folds, nv - 1 all-reduces and one gather a rank."""
+    import json
+
+    import torch.multiprocessing as mp
+
+    poly = _sharded_instances()[0]
+    rng = T.Blake2b512Rng.setup()
+    proof, _ = T.MLSumcheck.prove_as_subprotocol(rng, poly, device=cuda)
+    want = [serialize_proof(proof).hex(), repr(rng.state_tuple())]
+    out_file = str(tmp_path / "rank{}.json")
+    mp.spawn(_sharded_prover_rank, args=(2, str(tmp_path / "init"), out_file), nprocs=2)
+    nv = poly.num_variables
+    for rank in range(2):
+        with open(out_file.format(rank)) as f:
+            got = json.load(f)
+        assert got["device"] == "cuda:0"
+        assert got["aligned"] == got["foreign"] == want
+        assert got["launches"] == [2, 2 * (nv - 1)]
+        assert got["collectives"] == 2 * nv
+
+
+def test_measure_roofline_on_cuda(cuda, tmp_path, monkeypatch):
+    """Both rates measured on the card, finite and positive, with its name
+    and power limit; kept in the build directory and read back."""
+    import math
+
+    from sumcheck_tpu_torch.ops import cuda_build
+    from sumcheck_tpu_torch.utils import sol
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    roof = sol.measure_roofline(cuda)
+    for key in ("mont_muls_per_s", "hbm_bytes_per_s"):
+        assert math.isfinite(roof[key]) and roof[key] > 0
+    assert torch.cuda.get_device_name(cuda) in roof["card"]
+    assert (tmp_path / "sol_roofline.json").exists()
+    assert sol.measure_roofline(cuda) == roof
+    share = sol.sol_seconds(sol.count_prove_ops(10, 6, 2, 3, 3), roof)
+    assert share["sol_s"] > 0
+
+
+# ---------------------------------------------------------------------------
 # every test above under the second prime
 # ---------------------------------------------------------------------------
 

@@ -21,7 +21,10 @@ tolerance 0 (proof bytes, challenges and final transcript states):
   the limb reductions against integers;
 - the verifier (the C core) on the ML and GKR proofs;
 - the sharded provers at S = 2 and 4 (a gloo spawn each of this module's
-  `_rank`, which imports no JAX): ML, GKR and the sharded batch;
+  `_rank`, which imports no JAX): ML, GKR, the sharded batch and
+  `ShardedProver` over a transcript of another class;
+- the interactive tier message by message with its folded tables, and the
+  GKR device-init wrappers (`phase1_init_device`, `phase2_init_device`);
 - the BN254 golden fixture `tests/fixtures/bn254_torch.json`, re-derived
   through the JAX package, equal to the committed file, and proved by the
   port on every path.
@@ -233,7 +236,7 @@ def _rank(rank: int, size: int, init_file: str, out_dir: str, cases: dict) -> No
     from sumcheck_tpu_torch.batch import BatchedMLSumcheck
     from sumcheck_tpu_torch.fields.fr import FIELD_NAME
     from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
-    from sumcheck_tpu_torch.parallel import ChainedShardedProver, ShardedGKRProver
+    from sumcheck_tpu_torch.parallel import ChainedShardedProver, ShardedGKRProver, ShardedProver
 
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
                             world_size=size)
@@ -247,6 +250,11 @@ def _rank(rank: int, size: int, init_file: str, out_dir: str, cases: dict) -> No
         rng = Blake2b512Rng.setup()
         gproof = ShardedGKRProver(device="cpu").prove(rng, *_port_gkr(cases["gkr"]))
         out["gkr"] = {"proof": gproof.serialize_uncompressed().hex(), "state": _state(rng)}
+        rng = _Recorder(Blake2b512Rng.setup())
+        proof, state = ShardedProver(ml.group, device="cpu").prove_as_subprotocol(
+            rng, _port_poly(cases["ml"]))
+        out["sp"] = {"proof": serialize_proof(proof).hex(), "state": _state(rng.inner),
+                     "randomness": [r.v for r in state.randomness]}
         rngs = [Blake2b512Rng.setup() for _ in cases["batch"]]
         proofs, challenges = BatchedMLSumcheck.prove_as_subprotocol(
             rngs, [_port_poly(a) for a in cases["batch"]], device="cpu", group=ml.group)
@@ -394,6 +402,41 @@ def child(out_path: str) -> None:
                      sub.verify_subclaim(*inst)],
             "jax": [[x.v for x in jsub.u + jsub.v], jsub.expected_evaluation.v, True]}
 
+    # the interactive tier, message by message, with its folded tables
+    a = _ml_arrays(16, 6)
+    jst, st = J.IPForMLSumcheck.prover_init(jpoly(a)), T.IPForMLSumcheck.prover_init(
+        _port_poly(a), device="cpu")
+    jrng, rng = J.Blake2b512Rng.setup(), T.Blake2b512Rng.setup()
+    jv = v = None
+    got, want = [], []
+    for _ in range(a["nv"]):
+        jm, m = J.IPForMLSumcheck.prove_round(jst, jv), T.IPForMLSumcheck.prove_round(st, v)
+        got.append([m.serialize_uncompressed().hex(),
+                    [t.tolist() for t in st.flattened_ml_extensions]])
+        want.append([jm.serialize_uncompressed().hex(),
+                     [np.asarray(t).tolist() for t in jst.flattened_ml_extensions]])
+        jrng.feed(jm)
+        rng.feed(m)
+        jv, v = J.IPForMLSumcheck.sample_round(jrng), T.IPForMLSumcheck.sample_round(rng)
+    out["interactive_ml_nv6"] = {"port": got, "jax": want}
+
+    # the GKR device-init wrappers, colliding entries, against the JAX
+    # package's wrappers' values mod p: their `reduce_wide` leaves a segment
+    # sum that passes 3p at or above p (ROADMAP section 3.6; here f1(g, u, .)
+    # at lane 3), where the port's tables hold the strict residue
+    from sumcheck_tpu.ops import gkr_init as JGI
+
+    a = _gkr_arrays(3, 24, 50)
+    u = [random.Random(51).randrange(BN254_P) for _ in range(3)]
+    jh, jcarry = JGI.phase1_init_device(a["indices"], a["values"], a["f3"],
+                                        [J.Fr(x) for x in a["g"]], 3)
+    h, carry = GI.phase1_init_device(a["indices"], a["values"], a["f3"],
+                                     [T.Fr(x) for x in a["g"]], 3, device="cpu")
+    out["phase_inits_dim3"] = {
+        "port": [_mont_ints(h), _mont_ints(GI.phase2_init_device(carry, [T.Fr(x) for x in u], 3))],
+        "jax": [[x % BN254_P for x in _mont_ints(np.asarray(t))] for t in (
+            jh, JGI.phase2_init_device(jcarry, [J.Fr(x) for x in u], 3))]}
+
     # GKR dim 9 with 3 x 2^9 colliding f1 entries: segment sums whose low
     # 256 bits pass 3p, which two conditional subtractions (the JAX
     # package's limb `reduce_wide`) leave non-strict under BN254. The port
@@ -489,10 +532,11 @@ def child(out_path: str) -> None:
                 ranks.append(json.load(f))
         ref_batch = [j_ml(jpoly(a)) for a in cases["batch"]]
         ref = {"ml": j_ml(jpoly(cases["ml"])), "gkr": j_gkr(jgkr(cases["gkr"])),
+               "sp": j_ml(jpoly(cases["ml"])),
                "batch": {"proofs": [e["proof"] for e in ref_batch],
                          "challenges": [e["randomness"] for e in ref_batch],
                          "states": [e["state"] for e in ref_batch]}}
-        for name in ("ml", "gkr", "batch"):
+        for name in ("ml", "gkr", "batch", "sp"):
             out[f"sharded_{name}_s{size}"] = {"port": [rk[name] for rk in ranks],
                                               "jax": [ref[name]] * size}
         out[f"sharded_ranks_s{size}"] = {
@@ -524,7 +568,9 @@ CASES = (
     + ["batch_ml_generic", "batch_ml_persize", "batch_gkr_generic"]
     + ["fixture_rederived"] + [f"fixture_ml_{p}" for p in ML_PATHS]
     + [f"fixture_gkr_{p}" for p in GKR_PATHS] + ["fixture_fr_rand"]
-    + [f"sharded_{name}_s{size}" for size in SHARDS for name in ("ml", "gkr", "batch", "ranks")]
+    + [f"sharded_{name}_s{size}" for size in SHARDS
+       for name in ("ml", "gkr", "batch", "sp", "ranks")]
+    + ["interactive_ml_nv6", "phase_inits_dim3"]
 )
 
 

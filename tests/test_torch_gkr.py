@@ -35,6 +35,7 @@ from sumcheck_tpu_torch.fields import limbs_np as L
 from sumcheck_tpu_torch.fields.fr import P
 from sumcheck_tpu_torch.mle import _segment_sum_mod_p
 from sumcheck_tpu_torch.ops import gkr_init as GI
+from sumcheck_tpu_torch.ops import round_cuda as RC
 from sumcheck_tpu_torch.protocol import device_prover as TD
 from sumcheck_tpu_torch.protocol.prover import bitrev_perm
 from sumcheck_tpu_torch.utils.config import get_config
@@ -187,6 +188,55 @@ def test_host_loop_for_other_rng():
     chained = T.GKRRoundSumcheck.prove(T.Blake2b512Rng.setup(), *port, device="cpu")
     host = T.GKRRoundSumcheck.prove(_OtherRng(), *port, device="cpu")
     assert host.serialize_uncompressed() == chained.serialize_uncompressed()
+
+
+class _JaxOtherRng:
+    """The JAX package's counterpart of `_OtherRng`."""
+
+    def __init__(self):
+        self._rng = J.Blake2b512Rng.setup()
+
+    def feed(self, msg):
+        self._rng.feed(msg)
+
+    def next_u64(self):
+        return self._rng.next_u64()
+
+
+@pytest.mark.parametrize("transcript", ["unaligned", "foreign"])
+def test_host_transcript_branch_runs_on_the_device(transcript, monkeypatch):
+    """A transcript the device chain cannot lift (pre-fed 3 bytes, or not
+    a `Blake2b512Rng`) proves through the chained prove's phase inits and
+    round kernels on the device asked for, one `finish_sums` a round,
+    byte-equal to the JAX package's prove over the same transcript."""
+    ref, port = instances(5, seed=21, nnz=3 << 5)
+    cfg = j_get_config()
+    saved, cfg.engine = cfg.engine, "host"
+    try:
+        jrng = _JaxOtherRng() if transcript == "foreign" else J.Blake2b512Rng.setup()
+        if transcript == "unaligned":
+            jrng.feed_bytes(b"abc")
+        jproof = J.GKRRoundSumcheck.prove(jrng, *ref)
+    finally:
+        cfg.engine = saved
+    calls = []
+    for mod, name in ((RC, "round_nofold"), (RC, "round_fold"), (RC, "finish_sums"),
+                      (GI, "phase1_pair"), (GI, "phase2_pair")):
+        real = getattr(mod, name)
+        monkeypatch.setattr(mod, name, lambda *a, _n=name, _f=real: calls.append(
+            (_n, a[0].device.type)) or _f(*a))
+    rng = _OtherRng() if transcript == "foreign" else T.Blake2b512Rng.setup()
+    if transcript == "unaligned":
+        rng.feed_bytes(b"abc")
+    proof = T.GKRRoundSumcheck.prove(rng, *port, device="cpu")
+    assert proof.serialize_uncompressed() == jproof.serialize_uncompressed()
+    inner = rng._rng if transcript == "foreign" else rng
+    assert inner.state_tuple() == (jrng._rng if transcript == "foreign" else jrng).state_tuple()
+    assert {d for _n, d in calls} == {"cpu"}
+    names = [n for n, _d in calls]
+    assert names.count("phase1_pair") == names.count("phase2_pair") == 1
+    assert names.count("round_nofold") == 2 and names.count("round_fold") == 2 * (5 - 1)
+    assert names.count("finish_sums") == 2 * 5
 
 
 @pytest.mark.parametrize("dim,nnz,seed", [(4, 16, 3), (9, 40, 4)])

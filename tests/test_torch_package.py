@@ -45,6 +45,8 @@ def test_import_leaves_jax_out():
         import sumcheck_tpu_torch.ops.mxu_mul, sumcheck_tpu_torch.ops.init_cuda
         import sumcheck_tpu_torch.batch, sumcheck_tpu_torch.parallel
         import sumcheck_tpu_torch.parallel.comm, sumcheck_tpu_torch.parallel.mesh
+        import sumcheck_tpu_torch.parallel.prover, sumcheck_tpu_torch.utils.sol
+        from sumcheck_tpu_torch.protocol import IPForMLSumcheck
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "sumcheck_tpu" or m.startswith("sumcheck_tpu.")]
         assert not bad, bad
@@ -230,18 +232,23 @@ def test_gkr_cuda_without_a_card_raises(monkeypatch, mode):
 
 
 @pytest.mark.parametrize("entry", ["prove", "prove_as_subprotocol", "gkr_prove", "batch_prove",
-                                   "batch_prove_as_subprotocol", "batch_gkr_prove"])
+                                   "batch_prove_as_subprotocol", "batch_gkr_prove",
+                                   "prover_init", "sharded_prove"])
 def test_entry_points_default_to_the_card(monkeypatch, entry):
     """The public prove entry points run on the card unless the caller asks
     for the CPU: `device` defaults to "cuda", so a call that names no device
     raises the no-card error where there is no card, and runs nothing on
-    the CPU instead."""
+    the CPU instead. (`ShardedProver` takes its device when it is made.)"""
     import inspect
+
+    from sumcheck_tpu_torch.parallel import ShardedProver, comm
 
     fn = {"prove": T.MLSumcheck.prove, "prove_as_subprotocol": T.MLSumcheck.prove_as_subprotocol,
           "gkr_prove": T.GKRRoundSumcheck.prove, "batch_prove": BatchedMLSumcheck.prove,
           "batch_prove_as_subprotocol": BatchedMLSumcheck.prove_as_subprotocol,
-          "batch_gkr_prove": BatchedGKRRoundSumcheck.prove}[entry]
+          "batch_gkr_prove": BatchedGKRRoundSumcheck.prove,
+          "prover_init": T.IPForMLSumcheck.prover_init,
+          "sharded_prove": ShardedProver.__init__}[entry]
     param = inspect.signature(fn).parameters["device"]
     assert param.kind is inspect.Parameter.KEYWORD_ONLY and param.default == "cuda"
     if torch.cuda.is_available():
@@ -267,6 +274,12 @@ def test_entry_points_default_to_the_card(monkeypatch, entry):
             BatchedMLSumcheck.prove([_small_poly()] * 2)
         elif entry == "batch_prove_as_subprotocol":
             BatchedMLSumcheck.prove_as_subprotocol([rng], [_small_poly()])
+        elif entry == "prover_init":
+            T.IPForMLSumcheck.prover_init(_small_poly())
+        elif entry == "sharded_prove":  # a one-rank gloo group stands in for a real one
+            monkeypatch.setattr(comm, "rank_and_size", lambda group: (0, 1))
+            monkeypatch.setattr(comm, "backend", lambda group: "gloo")
+            ShardedProver(object()).prove(_small_poly())
         else:
             BatchedGKRRoundSumcheck.prove([rng], *([x] for x in _small_gkr()))
     assert not calls

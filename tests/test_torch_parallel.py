@@ -22,7 +22,12 @@ provers give those bytes), tolerance 0:
   S with the last rank's instance pre-fed);
 - the rejections (nv or dim too small for S, B not a multiple of S, a
   transcript other than `Blake2b512Rng`) raise `SumcheckError` and leave
-  every transcript untouched.
+  every transcript untouched;
+- `ShardedProver` (`parallel/prover.py`, the transcript on the host) over a
+  `Blake2b512Rng`, an unaligned one and a transcript of another class,
+  against the JAX package's `ShardedProver(default_mesh(S))` on the
+  conftest's 8 CPU devices: proof, randomness, final transcript and final
+  tables, and at the boundary nv.
 
 Host-only cases check the layouts of `parallel/mesh.py` against the JAX
 package's.
@@ -43,6 +48,7 @@ import torch.multiprocessing as mp
 from sumcheck_tpu_torch.parallel import mesh
 
 SIZES = (1, 2, 4)
+SP_TRANSCRIPTS = ("aligned", "unaligned", "foreign")  # the `ShardedProver` cases' transcripts
 BATCH = {1: 2, 2: 8, 4: 8}
 BATCH_NV = 5
 ML_STRUCTURE = ((0, 1), (2, 0))  # the batch instances' (the `tests/test_batch.py` shape)
@@ -139,6 +145,21 @@ class _OtherRng:
         return self.inner.next_u64()
 
 
+class _JaxOtherRng:
+    """The JAX package's counterpart of `_OtherRng` (the parent's only)."""
+
+    def __init__(self):
+        import sumcheck_tpu as J
+
+        self.inner = J.Blake2b512Rng.setup()
+
+    def feed(self, msg):
+        self.inner.feed(msg)
+
+    def next_u64(self):
+        return self.inner.next_u64()
+
+
 def _rejected(fn, rngs) -> list:
     """[raised SumcheckError, every transcript untouched]."""
     from sumcheck_tpu_torch.utils.errors import SumcheckError
@@ -172,7 +193,8 @@ def _rank_cases(size: int, cases: dict) -> dict:
     from sumcheck_tpu_torch import Blake2b512Rng
     from sumcheck_tpu_torch.batch import BatchedMLSumcheck
     from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
-    from sumcheck_tpu_torch.parallel import ChainedShardedProver, ShardedGKRProver, comm
+    from sumcheck_tpu_torch.parallel import (ChainedShardedProver, ShardedGKRProver,
+                                             ShardedProver, comm)
 
     ml = ChainedShardedProver(device="cpu")
     gkr = ShardedGKRProver(device="cpu")
@@ -185,6 +207,7 @@ def _rank_cases(size: int, cases: dict) -> dict:
         proof, state = ml.prove_as_subprotocol(rng, _port_poly(a))
         out[name] = {"proof": serialize_proof(proof).hex(), "state": _state(rng),
                      "randomness": [r.v for r in state.randomness],
+                     "tables": [t.tolist() for t in state.flattened_ml_extensions],
                      "collectives": comm.all_reduce_sum_.calls}
 
     def gkr_prove(name, a, prefix=b""):
@@ -205,6 +228,23 @@ def _rank_cases(size: int, cases: dict) -> dict:
                      "challenges": [[r.v for r in rs] for rs in challenges],
                      "states": [_state(r) for r in rngs]}
 
+    sp = ShardedProver(device="cpu")
+
+    def sp_prove(name, a, transcript):
+        rng = _OtherRng() if transcript == "foreign" else Blake2b512Rng.setup()
+        if transcript == "unaligned":
+            rng.feed_bytes(b"abc")
+        comm.all_reduce_sum_.calls = comm.all_reduce_sum_.bytes = 0
+        proof, state = sp.prove_as_subprotocol(rng, _port_poly(a))
+        out[name] = {"proof": serialize_proof(proof).hex(), "state": _state(getattr(rng, "inner",
+                                                                                    rng)),
+                     "randomness": [r.v for r in state.randomness],
+                     "tables": [t.tolist() for t in state.flattened_ml_extensions],
+                     "collectives": comm.all_reduce_sum_.calls}
+
+    for transcript in SP_TRANSCRIPTS:
+        sp_prove(f"sp_{transcript}", cases["ml"], transcript)
+    sp_prove("sp_boundary", cases["boundary"], "aligned")
     ml_prove("ml", cases["ml"])
     ml_prove("boundary", cases["boundary"])
     ml_prove("ml_unaligned", cases["ml"], b"abc")
@@ -234,7 +274,14 @@ def _rank_cases(size: int, cases: dict) -> dict:
         out["reject"]["batch_size"] = _rejected(lambda: BatchedMLSumcheck.prove_as_subprotocol(
             rngs, [_port_poly(a) for a in cases["batch"][:3]], device="cpu", group=ml.group),
             rngs)
+    other = _OtherRng()
+    out["sp_reject"] = _rejected(lambda: sp.prove_as_subprotocol(other, _port_poly(small)),
+                                 [other])
     if not torch.cuda.is_available():
+        try:
+            ShardedProver(ml.group, device="cuda")
+        except RuntimeError as e:
+            out["sp_cuda_without_a_card"] = str(e)
         try:
             ChainedShardedProver(ml.group, device="cuda")
         except RuntimeError as e:
@@ -278,7 +325,8 @@ def _jax_reference(cases: dict, size: int) -> dict:
         rng.feed_bytes(prefix)
         proof, state = J.MLSumcheck.prove_as_subprotocol(rng, jpoly(a))
         return {"proof": serialize_proof(proof).hex(), "state": _state(rng),
-                "randomness": [r.v for r in state.randomness]}
+                "randomness": [r.v for r in state.randomness],
+                "tables": [np.asarray(t).tolist() for t in state.flattened_ml_extensions]}
 
     def gkr(a, prefix=b""):
         rng = J.Blake2b512Rng.setup()
@@ -291,16 +339,32 @@ def _jax_reference(cases: dict, size: int) -> dict:
         return {"proofs": [e["proof"] for e in each], "challenges": [e["randomness"] for e in each],
                 "states": [e["state"] for e in each]}
 
+    def sp(a, transcript):
+        """The JAX package's `ShardedProver` over `default_mesh(size)`."""
+        from sumcheck_tpu.parallel.mesh import default_mesh
+        from sumcheck_tpu.parallel.prover import ShardedProver
+
+        rng = _JaxOtherRng() if transcript == "foreign" else J.Blake2b512Rng.setup()
+        if transcript == "unaligned":
+            rng.feed_bytes(b"abc")
+        proof, state = ShardedProver(default_mesh(size)).prove_as_subprotocol(rng, jpoly(a))
+        return {"proof": serialize_proof(proof).hex(), "state": _state(getattr(rng, "inner", rng)),
+                "randomness": [r.v for r in state.randomness],
+                "tables": [np.asarray(t).tolist() for t in state.flattened_ml_extensions]}
+
     cfg = get_config()
     saved, cfg.engine = cfg.engine, "host"
     try:
         n = len(cases["batch"])
+        sps = {f"sp_{t}": sp(cases["ml"], t) for t in SP_TRANSCRIPTS}
+        sps["sp_boundary"] = sp(cases["boundary"], "aligned")
         return {"ml": ml(cases["ml"]), "boundary": ml(cases["boundary"]),
                 "ml_unaligned": ml(cases["ml"], b"abc"), "gkr": gkr(cases["gkr"]),
                 "gkr_unaligned": gkr(cases["gkr"], b"abc"),
                 "batch": batch(cases["batch"], [b""] * n),
                 "batch_unaligned": batch(cases["batch"][:size],
-                                         [b"abc" if b == size - 1 else b"" for b in range(size)])}
+                                         [b"abc" if b == size - 1 else b"" for b in range(size)]),
+                **sps}
     finally:
         cfg.engine = saved
 
@@ -380,6 +444,30 @@ def test_unaligned_transcripts_prove_alone(run):
     for name in ("ml_unaligned", "gkr_unaligned", "batch_unaligned"):
         for got, want in _each_rank(run, name):
             assert {k: got[k] for k in want} == want, name
+
+
+@pytest.mark.parametrize("transcript", SP_TRANSCRIPTS)
+def test_sharded_prover_matches_jax(run, transcript):
+    """`ShardedProver` over any transcript (a `Blake2b512Rng`, one pre-fed 3
+    bytes, one of another class): proof bytes, randomness, the final
+    transcript and the final folded tables on every rank equal the JAX
+    package's `ShardedProver(default_mesh(S))`; one all-reduce a sharded
+    round and one gather."""
+    size = run[0]
+    for got, want in _each_rank(run, f"sp_{transcript}"):
+        assert {k: got[k] for k in want} == want
+        assert got["collectives"] == 6 - _log2(size) + (size > 1)
+
+
+def test_sharded_prover_boundary_and_rejection(run):
+    """nv with 2^(nv-1) == S: one sharded round, then the gathered tail;
+    one variable fewer is refused before the transcript is fed."""
+    for got, want in _each_rank(run, "sp_boundary"):
+        assert {k: got[k] for k in want} == want
+    for got in run[1]:
+        assert got["sp_reject"] == [True, True]
+        if not torch.cuda.is_available():
+            assert "no CUDA device" in got["sp_cuda_without_a_card"]
 
 
 def test_rejections_leave_transcripts_untouched(run):

@@ -163,7 +163,7 @@ def test_one_shot_prove_verifies_and_subclaim_holds():
 def test_interactive_tier_matches():
     jp, tp = both("shared_ragged", seed=5)
     jst = J.IPForMLSumcheck.prover_init(jp)
-    st = T.IPForMLSumcheck.prover_init(tp)
+    st = T.IPForMLSumcheck.prover_init(tp, device="cpu")
     jrng, rng = J.Blake2b512Rng.setup(), T.Blake2b512Rng.setup()
     jv = v = None
     for _ in range(tp.num_variables):
