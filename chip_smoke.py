@@ -105,6 +105,20 @@ failure raises and exits non-zero without the final line:
    sync debug mode "error" (otherwise one line says why not). The kernels
    are built before the spawn, so no rank compiles; a rank's failure exits
    non-zero. S ranks on one card say nothing about speed across cards;
+11b. the entry points (`sumcheck_tpu_torch/entry.py`): `entry()` on the
+   card against `entry(device="cpu")` on the same inputs, folded tables and
+   sums equal, one `round_fold` launch; 11c. `dryrun_multichip(2)` on the
+   card (gloo, both ranks on card 0; NCCL where the machine has two cards):
+   on every rank `ShardedProver` = `ChainedShardedProver` = the single
+   card's host-transcript prove, the sharded GKR prove at an odd nonzero
+   count = the single card's, the sharded batch = each instance's prove,
+   and the proofs equal to the same dry run's on the CPU; 11d. the
+   microbench (`python -m sumcheck_tpu_torch.microbench 18`, in a process
+   of its own) at the GKR dim-18 shape,
+   each probe checked against its plain or NumPy value, and the stage
+   profile of phase 9's chained GKR prove: device ms, host wall, launches
+   and bound of each probe and stage, one line each, and the report as a
+   JSON line before the kernels line;
 12. the verify walls of the ML and GKR headline proofs with the C core
    (`sumcheck_tpu_torch/native/`) and with the Python loop
    (`SUMCHECK_TPU_NATIVE=off`), same subclaims; then `utils/sol.
@@ -126,11 +140,13 @@ failure raises and exits non-zero without the final line:
    (it fails if none fired), the plain transcript running meanwhile on the
    host's CPU (`--plain-transcript`); then each kernel's time and each
    wall beside BLS12-381's;
-14. one JSON line of the kernels (each with its time at the main path's
-   shape, its bound there and what sets it, its launches on the main path
-   and on every path in `launches_by_path`, `library_ms` null: no PyTorch
-   call computes these functions, and its BN254 time, bound and error),
-   then the last line `{"ok": true, "device": {...}}`.
+14. the microbench's JSON line, then one JSON line of the kernels (each
+   with its time at the main path's shape, its bound there and what sets
+   it, its launches on the main path and on every path in
+   `launches_by_path`, phase 11b and each sharded prove of phase 11c among
+   them (the microbench reports its launches a call itself), `library_ms`
+   null: no PyTorch call computes these functions, and its BN254 time,
+   bound and error), then the last line `{"ok": true, "device": {...}}`.
 
 Kernel times are device times: `torch.cuda._sleep` holds the stream while
 the launches are enqueued, so the events time the kernels back to back and
@@ -161,9 +177,7 @@ SLOTS = 6  # 2 products x 3 multiplicands, coefficients folded in place
 GKR_DIM = 18  # the bench's GKR size (`bench.py:560`)
 KERNEL_REPS = 20
 PLAIN_REPS = 3
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak
 INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor-core peak
-IMAD_PER_SM_CLOCK = 64  # 32-bit IMAD results per SM per clock, compute capability 9.0
 # 32-bit multiplies in one 8-limb CIOS Montgomery multiply: 64 + 64
 # 32x32->64-bit products (a*b and m*p), two 32-bit multiplies each (low
 # and high word), and 8 for m = t0 * ninv
@@ -184,19 +198,7 @@ PREVIOUS_MS = {"round_nofold": 0.3551, "round_fold": 0.3630, "round_step_nofold"
                "round_step_fold": 0.3496, "round_fold_mxu": 0.0954, "transcript_step": 0.0151}
 
 
-RATES: dict = {}  # the card's SM count, clock and IMAD rate (`card_rates`)
-
-
-def card_rates(device) -> dict:
-    """The card's SM count, its maximum SM clock (`nvidia-smi`) and from
-    them its 32-bit IMAD rate."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits",
-         "-i", str(device.index or 0)], capture_output=True, text=True, check=True,
-    ).stdout.split()[0])
-    return {"sms": sms, "clock_hz": mhz * 1e6,
-            "imad_per_s": sms * IMAD_PER_SM_CLOCK * mhz * 1e6}
+RATES: dict = {}  # the card's SM count, clock and IMAD rate (`microbench.card_rates`)
 
 
 def eval_multiplies(products, degree: int, coeffs: bool, registers: bool) -> int:
@@ -236,6 +238,8 @@ def round_work(lanes, slots, products, degree, fold, coeffs=False, mma=False) ->
 def bound_of(work: dict) -> tuple[float, str, str]:
     """(bound ms, bound_by, what sets it): the larger of the bytes at the
     card's memory rate and the operations at its peak rate for their type."""
+    from sumcheck_tpu_torch.microbench import HBM_BYTES_PER_S
+
     mem_ms = work["bytes"] / HBM_BYTES_PER_S * 1e3
     op_ms = (work["imads"] / RATES["imad_per_s"] + work["int8_ops"] / INT8_OPS_PER_S) * 1e3
     return (mem_ms, "bytes", "memory") if mem_ms >= op_ms else (op_ms, "operations", "int")
@@ -254,22 +258,10 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
-def random_tables(rng, nv: int, count: int) -> list[np.ndarray]:
-    """Strict Montgomery digit tables below p (the `bench.py` rule: the top
-    digit shifted right by 2, so below 2^254 under BLS12-381 Fr; by 3, so
-    below 2^253, under BN254 Fr)."""
-    from sumcheck_tpu_torch.fields.fr import SHAVE_BITS
-
-    out = []
-    for _ in range(count):
-        d = rng.integers(0, 1 << 16, size=(16, 1 << nv), dtype=np.uint32)
-        d[15] >>= 1 + SHAVE_BITS  # < 2^(255 - SHAVE_BITS) < p
-        out.append(d)
-    return out
-
-
 def random_pair(rng, slots: int, half: int, device):
     """A random (lo, hi) pair of `slots` tables of 2 * half lanes."""
+    from sumcheck_tpu_torch.fields.limbs_np import random_tables
+
     stacked = np.stack(random_tables(rng, half.bit_length(), slots)).astype(np.int32)
     lo = torch.from_numpy(np.ascontiguousarray(stacked[:, :, :half])).to(device)
     hi = torch.from_numpy(np.ascontiguousarray(stacked[:, :, half:])).to(device)
@@ -286,7 +278,9 @@ def time_ms(fn, reps: int, device, device_only: bool = False, warm: bool = True)
     CUDA events time it; with `device_only` the stream first sleeps long
     enough for all `reps` launches to be enqueued, so the events see the
     kernels back to back and not the host's enqueue (for functions that do
-    not sync)."""
+    not sync; `microbench.held_ms`)."""
+    from sumcheck_tpu_torch.microbench import held_ms
+
     if warm:
         fn()
     if device.type != "cuda":
@@ -294,10 +288,10 @@ def time_ms(fn, reps: int, device, device_only: bool = False, warm: bool = True)
         for _ in range(reps):
             fn()
         return (time.perf_counter() - t0) * 1e3 / reps
+    if device_only:
+        return held_ms(fn, reps, 0.005 + 0.0002 * reps)[0]  # about 5 ms + 0.2 ms a launch
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    if device_only:
-        torch.cuda._sleep(int(2e9 * (0.005 + 0.0002 * reps)))  # about 5 ms + 0.2 ms a launch
     start.record()
     for _ in range(reps):
         fn()
@@ -349,6 +343,7 @@ def kernel_phase(device, seed: int, nv: int = NV) -> dict:
     from sumcheck_tpu_torch.convert import polynomial_from_numpy
     from sumcheck_tpu_torch.fields import limbs_np as L
     from sumcheck_tpu_torch.fields.fr import P
+    from sumcheck_tpu_torch.microbench import HBM_BYTES_PER_S
     from sumcheck_tpu_torch.ops import round_cuda as rc
     from sumcheck_tpu_torch.protocol.device_prover import init_pair
 
@@ -392,7 +387,7 @@ def kernel_phase(device, seed: int, nv: int = NV) -> dict:
     # ragged: products of lengths 3 and 2 sharing a table -> a ones slot and
     # a scaled copy of the shared table, built by init_pair on the device
     nv_r = 10
-    tabs = random_tables(rng, nv_r, 4)
+    tabs = L.random_tables(rng, nv_r, 4)
     poly = polynomial_from_numpy(nv_r, tabs, [(11, [0, 1, 2]), (13, [0, 3])])
     lo_r, hi_r, prods_r, deg_r = init_pair(poly, device)
     check(lo_r.shape[0] == 6, f"ragged instance has {lo_r.shape[0]} slots, expected 6")
@@ -565,7 +560,7 @@ def mxu_mul_phase(device, seed: int, lanes: int = 1 << 17) -> dict:
     from sumcheck_tpu_torch.ops import mxu_mul
 
     rng = np.random.default_rng(seed + 4)
-    a = torch.from_numpy(random_tables(rng, lanes.bit_length() - 1, 1)[0].astype(np.int64))
+    a = torch.from_numpy(L.random_tables(rng, lanes.bit_length() - 1, 1)[0].astype(np.int64))
     edges = [0, 1, 2, P - 1, P - 2, (1 << 255) % P]
     a[:, :len(edges)] = torch.from_numpy(L.from_ints(edges, mont=False).astype(np.int64))
     a = a.to(device)
@@ -628,29 +623,6 @@ def mont_mul_phase(device, seed: int, lib: Path | None = None, lanes: int = 1 <<
     return rates
 
 
-def compressions(blen: int, d1: int, attempts: int) -> tuple[int, int]:
-    """(compressions, pending bytes after) of one transcript step from
-    `blen` pending bytes, for d+1 = `d1` elements and `attempts` draws of
-    4 x next_u64: absorbing compresses a full pending block only when more
-    bytes arrive; each next_u64 finalizes a clone (one compression) and
-    re-absorbs its 64 bytes."""
-    count = 0
-
-    def absorb(words):
-        nonlocal blen, count
-        for _ in range(words):
-            if blen == 128:
-                count += 1
-                blen = 0
-            blen += 8
-
-    absorb(1 + 4 * d1)
-    for _ in range(4 * attempts):
-        count += 1
-        absorb(8)
-    return count, blen
-
-
 def transcript_bound(device, compressions_per_round: float) -> dict:
     """The transcript step's latency bound on this card: compressions x
     (G_LEVELS x G_DEPTH) dependent instructions x the dependent-issue
@@ -671,27 +643,16 @@ def transcript_bound(device, compressions_per_round: float) -> dict:
             "compress_clocks": compress_clocks(device)}
 
 
-def probe_reference(iters: int) -> list[int]:
-    """`transcript_cuda._compress_probe`'s chain by the host's Blake2b core."""
-    from sumcheck_tpu_torch.transcript.blake2b_core import compress
-
-    blk = b"".join((0x0123456789ABCDEF * (i + 1) % (1 << 64)).to_bytes(8, "little")
-                   for i in range(16))
-    h = list(range(1, 9))
-    for k in range(iters):
-        h = compress(h, blk, 128 * k, k % 8 == 7)
-    return h
-
-
 def compress_clocks(device, iters: int = 1024) -> float:
     """Clocks per Blake2b compression on the transcript kernel's four hash
     lanes, the chain checked against the host's Blake2b core."""
+    from sumcheck_tpu_torch.microbench import host_compress_chain
     from sumcheck_tpu_torch.ops import transcript_cuda as tc
 
     buf = torch.zeros(9, dtype=torch.int64, device=device)
     tc._compress_probe(buf, iters)
     got = [int(x) % (1 << 64) for x in buf.cpu().tolist()]
-    check(got[:8] == probe_reference(iters), "compression probe differs from blake2b_core")
+    check(got[:8] == host_compress_chain(iters), "compression probe differs from blake2b_core")
     return got[8] / iters
 
 
@@ -703,6 +664,7 @@ def host_replay(host, msgs, rs, blen: int, degree: int, what: str):
     pending bytes."""
     from sumcheck_tpu_torch import Fr
     from sumcheck_tpu_torch.fields.fr import P
+    from sumcheck_tpu_torch.microbench import compressions
     from sumcheck_tpu_torch.protocol.prover import ProverMsg
     from sumcheck_tpu_torch.transcript.blake2b_rng import _DRAW_MASK
 
@@ -996,6 +958,7 @@ def headline_polys(seed: int, nv: int, count: int) -> list:
 def ml_poly(rng, nv: int):
     """One 2 x 3 instance from `rng` by the `bench.py:179-184` rule."""
     from sumcheck_tpu_torch.convert import polynomial_from_numpy
+    from sumcheck_tpu_torch.fields.limbs_np import random_tables
 
     tables, products = [], []
     for _ in range(2):
@@ -1008,17 +971,9 @@ def ml_poly(rng, nv: int):
 
 
 def counters() -> dict:
-    from sumcheck_tpu_torch.ops import init_cuda as ic
-    from sumcheck_tpu_torch.ops import round_cuda as rc
-    from sumcheck_tpu_torch.ops import transcript_cuda as tc
+    from sumcheck_tpu_torch.ops import launch_counters
 
-    return {"round_nofold": rc.round_nofold, "round_fold": rc.round_fold,
-            "round_step_nofold": rc.round_step_nofold, "round_step_fold": rc.round_step_fold,
-            "round_fold_mxu": rc.round_fold_mxu, "transcript_step": tc.transcript_step,
-            "pair_init": ic.pair_init, "round_nofold_batched": rc.round_nofold_batched,
-            "round_fold_batched": rc.round_fold_batched,
-            "round_step_fold_batched": rc.round_step_fold_batched,
-            "transcript_step_batched": tc.transcript_step_batched}
+    return launch_counters()
 
 
 @contextlib.contextmanager
@@ -1068,37 +1023,21 @@ def wall(fn, device, reps: int = 3) -> float:
 
 
 def device_busy(fn, top: int = 5) -> dict:
-    """One run of `fn` under `torch.profiler`: host-clock seconds between
-    two syncs, the seconds in which the card ran a kernel or a copy (the
-    union of their intervals), the idle share, and the `top` device
-    operations by summed device time. The profiler adds host time to every
-    torch op, so the idle share it reads is an upper bound."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """One run of `fn` under `torch.profiler` (`microbench.profile_events`):
+    host-clock seconds between two syncs, the seconds in which the card ran
+    a kernel or a copy (the union of their intervals), the idle share, and
+    the `top` device operations by summed device time. The profiler adds
+    host time to every torch op, so the idle share it reads is an upper
+    bound."""
+    from sumcheck_tpu_torch import microbench as MB
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        time.sleep(0.05)  # let the tracer settle: launches right at its start can be missed
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_s = time.perf_counter() - t0
-    spans, by_name, launches = [], {}, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            spans.append((e.time_range.start, e.time_range.end))
-            by_name[e.name] = by_name.get(e.name, 0) + e.time_range.end - e.time_range.start
-            if not e.name.startswith(("Memcpy", "Memset")):
-                launches[e.name] = launches.get(e.name, 0) + 1
-    busy_us, reach = 0, None
-    for start, end in sorted(spans):
-        if reach is None or start > reach:
-            busy_us += end - start
-            reach = end
-        elif end > reach:
-            busy_us += end - reach
-            reach = end
-    busy_s = busy_us / 1e6
+    prof = MB.profile_events(fn)
+    by_name, launches = {}, {}
+    for start, end, name in prof["events"]:
+        by_name[name] = by_name.get(name, 0) + end - start
+        if not MB.is_copy(name):
+            launches[name] = launches.get(name, 0) + 1
+    wall_s, busy_s = prof["wall_s"], MB.busy_ms(prof["events"]) / 1e3
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {"wall_s": wall_s, "busy_s": busy_s, "idle_share": 1 - busy_s / wall_s,
             "top": [(name[:70], us / 1e3) for name, us in ranked],
@@ -1120,43 +1059,15 @@ def classify(by_name: dict, scale: float | None = None) -> dict:
     return out
 
 
-MARKER = "spin_kernel"  # the kernel `torch.cuda._sleep` launches
-PROFILE_TRIES = 3  # profiles taken before `profiled_kernels` gives up on the marker
-
-
 def profiled_kernels(warm, fn) -> dict:
-    """Kernel launches (no copies) of one run of `fn`, by `classify`. The
-    profiler misses the first launches of a module in some profiles, so
-    `warm()`, which launches the same kernels, and a marker kernel run
-    first in the profile; after a sync the marker runs again, then `fn()`,
-    and only the launches after that last marker are counted. A profile
-    that holds no marker at all (it happens, rarely) is taken again, up to
-    `PROFILE_TRIES` profiles."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    """Kernel launches (no copies) of one run of `fn`, by `classify`:
+    `microbench.profile_events`, after `warm()`."""
+    from sumcheck_tpu_torch import microbench as MB
 
-    for _ in range(PROFILE_TRIES):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
-            warm()
-            torch.cuda.synchronize()
-            torch.cuda._sleep(1000)
-            fn()
-            torch.cuda.synchronize()
-        events = sorted((e.time_range.start, e.name) for e in prof.events()
-                        if e.device_type == DeviceType.CUDA
-                        and not e.name.startswith(("Memcpy", "Memset")))
-        marks = [i for i, (_, name) in enumerate(events) if MARKER in name]
-        if marks:
-            break
-        print(f"profiled_kernels: no marker kernel in the profile, taken again: "
-              f"{[n[:60] for _, n in events[:4]]}")
-    check(bool(marks),
-          f"no marker kernel in {PROFILE_TRIES} profiles: {[n for _, n in events[:8]]}")
     counts = {}
-    for _, name in events[marks[-1] + 1:]:
-        counts[name] = counts.get(name, 0) + 1
+    for _s, _e, name in MB.profile_events(fn, warm)["events"]:
+        if not MB.is_copy(name):
+            counts[name] = counts.get(name, 0) + 1
     return classify(counts)
 
 
@@ -1344,20 +1255,6 @@ def host_transcript_phase(device, seed: int, reps: int, nv: int = NV) -> dict:
     print(f"host-transcript loop (generic kernels, one sync per round): median of {reps} "
           f"warm {prove_s:.4f} s, walls {[round(w, 4) for w in walls]}")
     return {"prove_s": prove_s, "proof": serialize_proof(proof)}
-
-
-def gkr_instance(seed: int, dim: int = GKR_DIM):
-    """The bench's GKR instance (`bench.py:187-194`): f1 with 2^dim nonzeros
-    over 3 dim variables and g from `random.Random(7)`, f2 and f3 by the
-    `bench.py:89-93` rule from `numpy.random.default_rng(seed)`."""
-    from sumcheck_tpu_torch import DenseMLE, Fr, SparseMLE
-    from sumcheck_tpu_torch.fields.fr import P
-
-    prnd = random.Random(7)
-    f1 = SparseMLE.rand_with_config(3 * dim, 1 << dim, prnd)
-    f2, f3 = (DenseMLE(dim, t) for t in random_tables(np.random.default_rng(seed), dim, 2))
-    g = [Fr(prnd.randrange(P)) for _ in range(dim)]
-    return f1, f2, f3, g
 
 
 def gkr_headline_phase(device, inst, reps: int, path: str) -> dict:
@@ -1828,6 +1725,7 @@ def gkr_batch_instances(seed: int, dim: int = GKR_BATCH_DIM, batch: int = BATCH)
     from `numpy.random.default_rng(seed)`, instance after instance."""
     from sumcheck_tpu_torch import DenseMLE, Fr, SparseMLE
     from sumcheck_tpu_torch.fields.fr import P
+    from sumcheck_tpu_torch.fields.limbs_np import random_tables
 
     prnd = random.Random(11)
     rng = np.random.default_rng(seed)
@@ -2040,6 +1938,7 @@ def gkr_host_phase(device, seed: int, inst, reps: int, check_plain: bool = True)
     the round kernels' plain versions on the card."""
     from sumcheck_tpu_torch import Blake2b512Rng, GKRRoundSumcheck
     from sumcheck_tpu_torch import gkr_round_sumcheck as G
+    from sumcheck_tpu_torch import microbench as MB
     from sumcheck_tpu_torch.ops import round_cuda as rc
 
     f1, f2, f3, g = inst
@@ -2082,7 +1981,7 @@ def gkr_host_phase(device, seed: int, inst, reps: int, check_plain: bool = True)
     out = {"launches": launches, "prove_s": prove_s, "first_s": walls[0], "chained_s": chained_s,
            "syncs_per_prove": len(syncs) // proves}
     if check_plain:
-        small = gkr_instance(seed, GKR_PLAIN_DIM)
+        small = MB.gkr_instance(GKR_PLAIN_DIM, seed)
         kernel = GKRRoundSumcheck.prove(abc_rng(), *small, device=device)
         t0 = time.perf_counter()
         plain = G._prove_host_transcript(abc_rng(), *small, GKR_PLAIN_DIM, device,
@@ -2317,12 +2216,13 @@ def sharded_ml(prover, seed: int, reps: int, refs: dict, guard) -> dict:
 def sharded_gkr(prover, seed: int, refs: dict, guard) -> dict:
     from sumcheck_tpu_torch import Blake2b512Rng
     from sumcheck_tpu_torch import gkr_round_sumcheck as G
+    from sumcheck_tpu_torch import microbench as MB
     from sumcheck_tpu_torch.fields import limbs_np as L
     from sumcheck_tpu_torch.fields.fr import P
     from sumcheck_tpu_torch.ops import gkr_init as GI
     from sumcheck_tpu_torch.parallel import comm
 
-    f1, f2, f3, g = inst = gkr_instance(seed, GKR_DIM)
+    f1, f2, f3, g = inst = MB.gkr_instance(GKR_DIM, seed)
     dim = f2.num_vars
 
     def prove():
@@ -2387,6 +2287,117 @@ def sharded_batch(ml, seed: int, reps: int, refs: dict, guard) -> dict:
     return {"what": f"batch {BATCH} x nv={BATCH_NV} 2x3, {BATCH // ml.num_shards} instances a "
                     f"rank, every proof", "walls": walls, "prove_s": statistics.median(walls),
             "launches": launches, "collectives": calls, "bytes": nbytes}
+
+
+# --- the entry point, the multi-rank dry run and the microbench
+# (`sumcheck_tpu_torch/entry.py`, `sumcheck_tpu_torch/microbench.py`)
+
+
+def entry_phase(device) -> dict:
+    """Phase 11b: `entry()` on the card against `entry(device="cpu")` on the
+    same inputs: the folded tables and the round's sums equal, one
+    `round_fold` launch a call."""
+    from sumcheck_tpu_torch import entry as E
+
+    fn, args = E.entry(device)
+    cpu_fn, cpu_args = E.entry("cpu")
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(args, cpu_args)),
+          "entry: the card's inputs differ from the CPU's")
+    for f in counters().values():
+        f.launches = 0
+    folded, sums = fn(*args)
+    launches = {k: f.launches for k, f in counters().items()}
+    want_folded, want_sums = cpu_fn(*cpu_args)
+    check(torch.equal(folded.cpu(), want_folded) and np.array_equal(sums, want_sums),
+          "entry: the card's folded tables or sums differ from the CPU's")
+    want = {k: 0 for k in launches}
+    want["round_fold"] = 1
+    check(launches == want, f"entry: launches {launches}, expected {want}")
+    call_s = wall(lambda: fn(*args), device, reps=5)
+    print(f"entry: folded tables {tuple(folded.shape)} and sums {sums.shape} equal to the CPU's; "
+          f"one round_fold launch; {call_s * 1e3:.4f} ms a call (median of 5, with the host "
+          f"finish of the sums)")
+    return {"launches": launches, "call_s": call_s}
+
+
+def dryrun_phase(device) -> dict:
+    """Phase 11c: `dryrun_multichip(2)` on the card (gloo, both ranks on
+    card 0; NCCL where the machine has two cards), whose ranks check every
+    case against their single-card proves, then the proofs against
+    `dryrun_multichip(2, device="cpu")`'s. Returns rank 0's launches in each
+    sharded prove by path (each counted from zero just before that prove,
+    without the reference proves')."""
+    from sumcheck_tpu_torch import entry as E
+
+    torch.cuda.empty_cache()  # the ranks allocate on the same card
+    t0 = time.perf_counter()
+    res = E.dryrun_multichip(2)
+    card_s = time.perf_counter() - t0
+    cpu = E.dryrun_multichip(2, device="cpu")
+    check(all(res[k] == cpu[k] for k in ("ml", "gkr", "batch")),
+          "dry run: the card's proofs differ from the CPU's")
+    # the kernels each sharded prove must launch on every rank
+    want = {"sp": ("round_fold",), "chained": ("round_fold", "transcript_step"),
+            "gkr": ("round_fold", "transcript_step"),
+            "batch": ("round_fold_batched", "transcript_step_batched")}
+    for r in res["ranks"]:
+        check(all(r["launches"][case][name] > 0 for case, names in want.items()
+                  for name in names), f"dry run: rank on {r['device']} launched {r['launches']}")
+    rank0 = res["ranks"][0]
+    print(f"dry run S=2 {res['backend']}: ranks on {', '.join(r['device'] for r in res['ranks'])}; "
+          f"ShardedProver = ChainedShardedProver = the single card's host-transcript prove, the "
+          f"sharded GKR (odd nnz) = the single card's, the sharded batch = each instance's, on "
+          f"every rank, and all equal to the CPU's; {card_s:.1f} s for the spawn; "
+          f"{rank0['collectives']} all-reduces; launches of each sharded prove, rank 0: "
+          + "; ".join(f"{case} { {k: v for k, v in n.items() if v} }"
+                      for case, n in rank0["launches"].items()))
+    return {f"dryrun {case} S=2": {"launches": n} for case, n in rank0["launches"].items()}
+
+
+MICROBENCH_REPS = 5  # the host walls of the GKR stages spread by tens of percent
+
+
+def microbench_phase(seed: int) -> dict:
+    """Phase 11d: `python -m sumcheck_tpu_torch.microbench 18` in a process
+    of its own, as a user runs it, its stages over phase 9's instance (the
+    same seed): every probe checked against its plain or NumPy value, every
+    stage's messages against the full prove's. A fresh process, because
+    this one has by now profiled tens of thousands of launches and spawned
+    ranks on the card, after which the profiler drops the device records of
+    most profiles (`microbench.profile_events`). Prints one line a probe
+    and a stage; returns the report."""
+    import tempfile
+
+    from sumcheck_tpu_torch import microbench as MB
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "microbench.json"
+        proc = subprocess.run(
+            [sys.executable, "-m", "sumcheck_tpu_torch.microbench", str(GKR_DIM), "--reps",
+             str(MICROBENCH_REPS), "--seed", str(seed), "--out", str(out)],
+            cwd=ROOT, capture_output=True, text=True, timeout=900)
+        check(proc.returncode == 0, f"the microbench exited with code {proc.returncode}: "
+                                    f"{proc.stderr[-3000:]}")
+        res = json.loads(out.read_text())
+    check(tuple(res["probes"]) == MB.PROBES and tuple(res["stages"]) == MB.STAGES
+          and all(p["ok"] for p in res["probes"].values()),
+          f"microbench: probes {list(res['probes'])}, stages {list(res['stages'])}")
+    check(all(res[part][k]["host_ms"] > 0 and res[part][k]["launches"] is not None
+              for part in ("probes", "stages") for k in res[part]),
+          "microbench: a probe or stage has no host wall or launch count")
+
+    def num(v, fmt=".4f"):
+        return "null" if v is None else format(v, fmt)
+
+    for part in ("probes", "stages"):
+        for name, m in res[part].items():
+            print(f"microbench {name}: device {num(m['device_ms'])} ms, host {num(m['host_ms'])} "
+                  f"ms, {m['launches']} launches and {m['copies']} copies, busy "
+                  f"{num(m['busy_ms'])} ms, bound {num(m['bound_ms'])} ms ({m['bound_by']})"
+                  + (f", {m['clocks']:.0f} clocks" if "clocks" in m else "")
+                  + ("" if m["held"] is not False else "; no device ms: the call's launches "
+                     "overflow the launch queue, so the sleep cannot hold them"))
+    return res
 
 
 # --- the verifier's cores: the C core against the Python loop
@@ -2583,8 +2594,9 @@ def field_gkr_proves(device, seed: int, reps: int) -> dict:
     dim 18; `verify_subclaim` itself (40-75 s of limb arithmetic on the
     host) runs in the GKR batch, on two instances at dim 14."""
     from sumcheck_tpu_torch import Blake2b512Rng, GKRRoundSumcheck
+    from sumcheck_tpu_torch import microbench as MB
 
-    f1, f2, f3, g = inst = gkr_instance(seed, GKR_DIM)
+    f1, f2, f3, g = inst = MB.gkr_instance(GKR_DIM, seed)
     dim = f2.num_vars
     out = {}
     for path, (chain, mxu) in PATHS.items():
@@ -2628,6 +2640,7 @@ def field_phase_main(args) -> int:
     import os
     import tempfile
 
+    from sumcheck_tpu_torch import microbench as MB
     from sumcheck_tpu_torch.fields.fr import FIELD_NAME, NINV16, NINV32, P, SHAVE_BITS
     from sumcheck_tpu_torch.ops import cuda_build
 
@@ -2635,7 +2648,7 @@ def field_phase_main(args) -> int:
     device = torch.device("cuda", 0)
     print(f"field {FIELD_NAME}: p = {P:#x}, -p^-1 mod 2^32 = {NINV32:#010x}, -p^-1 mod 2^16 = "
           f"{NINV16:#06x}, {SHAVE_BITS} shaved bits")
-    RATES.update(card_rates(device))
+    RATES.update(MB.card_rates(device))
     t0 = time.perf_counter()
     libs = cuda_build.build("round", "transcript", "round_mxu", "pair_init")
     print(f"libraries: {', '.join(lib.name for lib in libs.values())} ({time.perf_counter() - t0:.2f}"
@@ -2658,6 +2671,8 @@ def field_phase_main(args) -> int:
 def _field_phases(args, device, libs, plain_proc, plain_file: str) -> int:
     """The phases of `field_phase_main`; `plain_proc` is writing the plain
     transcript to `plain_file`."""
+    from sumcheck_tpu_torch import microbench as MB
+
     marks = [("", time.perf_counter())]
 
     def mark(label):
@@ -2685,8 +2700,8 @@ def _field_phases(args, device, libs, plain_proc, plain_file: str) -> int:
     heads["batch gkr generic"] = gkr_batch_phase(device, args.seed, 1)
     mark("batches")
     heads["interactive ml"] = interactive_phase(device, args.seed, args.reps, heads["ml generic"])
-    heads["gkr host-transcript"] = gkr_host_phase(device, args.seed, gkr_instance(args.seed),
-                                                  args.reps, check_plain=False)
+    heads["gkr host-transcript"] = gkr_host_phase(
+        device, args.seed, MB.gkr_instance(GKR_DIM, args.seed), args.reps, check_plain=False)
     mark("round-by-round prover")
     refs = {"ml": heads["ml generic"]["proof"], "ml_state": heads["ml generic"]["transcript"],
             "ml_abc": heads["interactive ml"]["abc_proof"],
@@ -2825,6 +2840,7 @@ def main() -> int:
         return 0
     if args.field_phase:
         return field_phase_main(args)
+    from sumcheck_tpu_torch import microbench as MB
     from sumcheck_tpu_torch.ops import cuda_build
 
     device = torch.device("cuda", 0)
@@ -2833,9 +2849,9 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}, count {torch.cuda.device_count()}")
 
-    RATES.update(card_rates(device))
+    RATES.update(MB.card_rates(device))
     print(f"card rates: {RATES['sms']} SMs at {RATES['clock_hz'] / 1e6:.0f} MHz (max SM clock), "
-          f"{RATES['imad_per_s'] / 1e12:.3f}e12 32-bit IMAD/s, {HBM_BYTES_PER_S / 1e12} TB/s")
+          f"{RATES['imad_per_s'] / 1e12:.3f}e12 32-bit IMAD/s, {MB.HBM_BYTES_PER_S / 1e12} TB/s")
 
     t0 = time.perf_counter()
     libs = cuda_build.build("round", "transcript", "round_mxu", "pair_init")
@@ -2892,7 +2908,7 @@ def main() -> int:
           + ", ".join(f"{k} {h['prove_s']:.4f} s" for k, h in heads.items())
           + f", host transcript {host['prove_s']:.4f} s")
     mark("ML headlines")
-    inst = gkr_instance(args.seed)
+    inst = MB.gkr_instance(GKR_DIM, args.seed)
     gkr = {f"gkr {path}": gkr_headline_phase(device, inst, args.reps, path) for path in PATHS}
     check(len({h["proof"] for h in gkr.values()}) == 1, "the GKR paths prove different bytes")
     print("GKR proof bytes equal: generic chain, per-size chain, generic chain in the MXU fold "
@@ -2921,6 +2937,9 @@ def main() -> int:
             "ml_abc_state": heads["interactive ml"]["abc_transcript"]}
     heads.update(sharded_phase(device, args.seed, args.reps, refs))
     mark("sharded")
+    tools = {"entry": entry_phase(device), **dryrun_phase(device)}
+    microbench = microbench_phase(args.seed)
+    mark("entry, dry run and microbench")
     verify_core_phase(heads["ml generic"]["proof"], heads["gkr generic"]["proof"])
     roofline = roofline_phase(device, heads["ml generic"]["prove_s"],
                               heads["gkr generic"]["prove_s"])
@@ -2971,7 +2990,7 @@ def main() -> int:
             "source": f"sumcheck_tpu_torch/csrc/{sources.get(name, 'round.cu')}",
             "replaces": replaces,
             "launches": heads[path]["launches"][name],
-            "launches_by_path": {p: h["launches"][name] for p, h in heads.items()},
+            "launches_by_path": {p: h["launches"][name] for p, h in {**heads, **tools}.items()},
             "max_abs_err": err,
             "ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"],
@@ -3011,6 +3030,7 @@ def main() -> int:
           + ", ".join(f"{k} {field['walls'][k]['prove_s']:.4f} s" for k in
                       ("interactive ml", "gkr host-transcript") if k in field["walls"])
           + f", pct_sol ML {field['roofline']['ml_pct_sol']}")
+    print(json.dumps({"microbench": microbench}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -24,6 +24,7 @@ from .fr import (
     R2,
     R_INV,
     REDUCE_SUBS,
+    SHAVE_BITS,
     WIDE_DIGITS,
 )
 
@@ -68,6 +69,19 @@ def from_int_scalar(v: int) -> np.ndarray:
     out = np.zeros((NUM_DIGITS, 1), dtype=np.uint32)
     for i in range(NUM_DIGITS):
         out[i, 0] = (v >> (DIGIT_BITS * i)) & DIGIT_MASK
+    return out
+
+
+def random_tables(rng: np.random.Generator, nv: int, count: int) -> list[np.ndarray]:
+    """`count` random strict (NUM_DIGITS, 2^nv) tables below p, as the
+    benchmarks draw them: uniform digits, the top one shifted right by
+    1 + SHAVE_BITS (by 2 under BLS12-381 Fr, so below 2^254; by 3 under
+    BN254 Fr), read as Montgomery values."""
+    out = []
+    for _ in range(count):
+        d = rng.integers(0, 1 << DIGIT_BITS, size=(NUM_DIGITS, 1 << nv), dtype=np.uint32)
+        d[NUM_DIGITS - 1] >>= 1 + SHAVE_BITS
+        out.append(d)
     return out
 
 

@@ -1178,6 +1178,82 @@ def test_measure_roofline_on_cuda(cuda, tmp_path, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# the entry point, the multi-rank dry run and the microbench
+# ---------------------------------------------------------------------------
+
+
+def test_entry_on_cuda_equals_cpu(cuda):
+    """`entry()`'s round on the card, one `round_fold` launch, equals
+    `entry(device="cpu")`'s: folded tables and sums."""
+    from sumcheck_tpu_torch import entry as E
+
+    fn, args = E.entry(cuda)
+    before = RC.round_fold.launches
+    folded, sums = fn(*args)
+    assert RC.round_fold.launches - before == 1
+    assert folded.device == cuda
+    cpu_fn, cpu_args = E.entry("cpu")
+    want_folded, want_sums = cpu_fn(*cpu_args)
+    assert torch.equal(folded.cpu(), want_folded)
+    assert np.array_equal(sums, want_sums)
+
+
+def test_dryrun_multichip_on_cuda(cuda):
+    """`dryrun_multichip(2)` on the card: every rank checked its three cases
+    against its single-card proves (a mismatch raises), on a card, through
+    the round and transcript kernels; the proofs equal the CPU dry run's."""
+    from sumcheck_tpu_torch import entry as E
+
+    res = E.dryrun_multichip(2)
+    assert res["backend"] == ("nccl" if torch.cuda.device_count() >= 2 else "gloo")
+    for rank in res["ranks"]:
+        assert rank["device"].startswith("cuda")
+        launches = rank["launches"]  # each sharded prove's own
+        assert launches["sp"]["round_fold"] and not launches["sp"]["transcript_step"]
+        assert launches["chained"]["round_fold"] and launches["chained"]["transcript_step"]
+        assert launches["gkr"]["round_fold"] and launches["gkr"]["transcript_step"]
+        assert launches["batch"]["round_fold_batched"]
+        assert launches["batch"]["transcript_step_batched"]
+    cpu = E.dryrun_multichip(2, device="cpu")
+    assert all(res[k] == cpu[k] for k in ("ml", "gkr", "batch"))
+
+
+def test_microbench_on_cuda(cuda, tmp_path):
+    """The microbench at nv=12 on the card, in a process of its own as a
+    user runs it (`python -m sumcheck_tpu_torch.microbench 12`; in a
+    process that has spawned ranks on the card the profiler drops device
+    records): every probe checked and every stage measured, with launches,
+    busy time and bound, and device time wherever the sleep held the stream
+    (not for the syncing full prove)."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from sumcheck_tpu_torch import microbench as MB
+
+    out = tmp_path / "microbench.json"
+    subprocess.run([sys.executable, "-m", "sumcheck_tpu_torch.microbench", "12", "--reps", "1",
+                    "--out", str(out)], cwd=Path(__file__).resolve().parent.parent, check=True,
+                   timeout=600)
+    res = json.loads(out.read_text())
+    assert tuple(res["probes"]) == MB.PROBES and tuple(res["stages"]) == MB.STAGES
+    assert torch.cuda.get_device_name(cuda) in res["card"]
+    for name, m in {**res["probes"], **res["stages"]}.items():
+        assert m["host_ms"] > 0 and m["busy_ms"] is not None and m["bound_ms"] is not None, name
+        if name == "full_prove":
+            assert m["device_ms"] is None and m["held"] is None
+        else:
+            assert (m["device_ms"] is None) == (m["held"] is False), name
+    for name in ("rtt", "compress", "challenge", "mont_nnz_eo"):
+        assert res["probes"][name]["launches"] == 1, name
+        assert res["probes"][name]["device_ms"] > 0, name
+    assert res["probes"]["compress"]["clocks"] > 0
+    stages = [res["stages"][name]["launches"] for name in MB.STAGES]
+    assert stages[0] > 0 and stages == sorted(stages)  # cumulative prefixes
+
+
+# ---------------------------------------------------------------------------
 # every test above under the second prime
 # ---------------------------------------------------------------------------
 

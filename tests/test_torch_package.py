@@ -46,6 +46,7 @@ def test_import_leaves_jax_out():
         import sumcheck_tpu_torch.batch, sumcheck_tpu_torch.parallel
         import sumcheck_tpu_torch.parallel.comm, sumcheck_tpu_torch.parallel.mesh
         import sumcheck_tpu_torch.parallel.prover, sumcheck_tpu_torch.utils.sol
+        import sumcheck_tpu_torch.entry, sumcheck_tpu_torch.microbench
         from sumcheck_tpu_torch.protocol import IPForMLSumcheck
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "sumcheck_tpu" or m.startswith("sumcheck_tpu.")]
@@ -149,6 +150,16 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         IC.pair_init(lo, hi, [tab], ((0, None), (None, 1)))
     assert all(f.launches == 0 for f in COUNTERS)
+
+
+def test_launch_counters_name_every_wrapper():
+    """`ops.launch_counters()` (the counts `chip_smoke.py` reads around each
+    path) holds every kernel wrapper under its own name."""
+    from sumcheck_tpu_torch.ops import launch_counters
+
+    counters = launch_counters()
+    assert tuple(counters.values()) == COUNTERS
+    assert all(f.__name__ == name for name, f in counters.items())
 
 
 def test_kernel_maxima_are_checked_before_a_build():

@@ -15,8 +15,11 @@ the median of 15 warm `MLSumcheck.prove` walls on the bench's 2 products x
 and, from one profiled prove, the launches and device time of its round
 kernels, its transcript steps and its other kernels (copies and fills).
 Timing and the profiler's classes are this repo's `chip_smoke.py`
-(`time_ms`, `device_busy`), whichever checkout is measured. Compare two
-commits in one call, alternating them: parent, change, change, parent."""
+(`time_ms`, `device_busy`), whichever checkout is measured; they time and
+profile through the measured checkout's `sumcheck_tpu_torch.microbench`
+(`held_ms`, `profile_events`) and draw its tables with `limbs_np.
+random_tables`, so that checkout must have both. Compare two commits in
+one call, alternating them: parent, change, change, parent."""
 
 import importlib.util
 import statistics
@@ -47,7 +50,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     half = 1 << 19
-    stacked = np.stack(smoke.random_tables(rng, 20, 6)).astype(np.int32)
+    stacked = np.stack(L.random_tables(rng, 20, 6)).astype(np.int32)
     lo = torch.from_numpy(np.ascontiguousarray(stacked[:, :, :half])).to(dev)
     hi = torch.from_numpy(np.ascontiguousarray(stacked[:, :, half:])).to(dev)
     products = ((0, 1, 2), (3, 4, 5))
@@ -68,7 +71,7 @@ def main() -> None:
     tabs, prods = [], []
     for _ in range(2):
         idx = []
-        for t in smoke.random_tables(prng, 20, 3):
+        for t in L.random_tables(prng, 20, 3):
             tabs.append(t)
             idx.append(len(tabs) - 1)
         prods.append((int(prng.integers(1, 1 << 62)), idx))
