@@ -89,13 +89,24 @@ failure raises and exits non-zero without the final line:
    aligned transcript's chained prove, verify and the subclaim in Python
    integers, and at dim 14 bytes equal to the plain round versions' on the
    card;
+10d. the engine variables (`sumcheck_tpu_torch/utils/config.py`): a child
+   process that imports the port under ``SUMCHECK_TPU_CHAINED=off`` stops
+   with `SumcheckError` naming the variable, and `check_engine_variables`
+   refuses the other values the port does not honour and takes the rest;
+10e. fault F3: 0 x [t0, t1, t2] + c x [t3, t4, t5] at nv=20 through
+   `IPForMLSumcheck` on the card (the zero product's copy slot): launches,
+   20 syncs, proof and final transcript equal to the chained prove's; the
+   same state on the CPU (the plain versions) in step for rounds 0-5: the
+   pair-init kernel's pair (copy slot zero, tables kept), every message,
+   and `flattened_ml_extensions` after rounds 0, 1 and 5 equal;
 11. the multi-device provers (`sumcheck_tpu_torch/parallel/`): for S = 2
    and 4, one `torch.multiprocessing.spawn` of S ranks in a gloo group, all
    on the one card (`shard_device`), each running the sharded ML nv=20 2x3
-   prove (`ChainedShardedProver`, the phase-8 instance; proof and final
-   transcript), the sharded GKR dim-18 prove at S = 2 (`ShardedGKRProver`,
-   phase 9's), the sharded batch 8 x nv=16 (`BatchedMLSumcheck.prove(...,
-   group=)`, phase 10's) and `ShardedProver` (the transcript on the host)
+   prove (`ChainedShardedProver.auto(S)`, the phase-8 instance; proof and
+   final transcript), the sharded GKR dim-18 prove at S = 2
+   (`ShardedGKRProver.auto(S)`, phase 9's; `.auto(2 S)` of both raises),
+   the sharded batch 8 x nv=16 (`BatchedMLSumcheck.prove(..., group=)`,
+   phase 10's) and `ShardedProver` (the transcript on the host)
    on the ML instance over a fresh and over the `b"abc"` transcript, through
    the public entry points, each byte-equal to the single-card proofs of
    phases 8-10b on every rank, with the median of
@@ -160,6 +171,7 @@ import argparse
 import contextlib
 import hashlib
 import json
+import os
 import random
 import statistics
 import subprocess
@@ -178,6 +190,8 @@ GKR_DIM = 18  # the bench's GKR size (`bench.py:560`)
 KERNEL_REPS = 20
 PLAIN_REPS = 3
 INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor-core peak
+LAYOUT_BYTES = 64  # an element as the kernels hold it: 16 digits in 32-bit words
+ELEMENT_BYTES = 32  # an element as the bound counts it: 255 or 254 bits in 8 32-bit limbs
 # 32-bit multiplies in one 8-limb CIOS Montgomery multiply: 64 + 64
 # 32x32->64-bit products (a*b and m*p), two 32-bit multiplies each (low
 # and high word), and 8 for m = t0 * ninv
@@ -236,11 +250,15 @@ def round_work(lanes, slots, products, degree, fold, coeffs=False, mma=False) ->
 
 
 def bound_of(work: dict) -> tuple[float, str, str]:
-    """(bound ms, bound_by, what sets it): the larger of the bytes at the
-    card's memory rate and the operations at its peak rate for their type."""
+    """(bound ms, bound_by, what sets it): the larger of the bytes the
+    function must move at the card's memory rate and the operations at its
+    peak rate for their type. `work["bytes"]` is what the kernels move, 64 B
+    an element (16 digits in 32-bit words, the TPU's layout); the function
+    needs only the 32 B of a BLS12-381 or BN254 element (`ELEMENT_BYTES`),
+    so the bound counts that."""
     from sumcheck_tpu_torch.microbench import HBM_BYTES_PER_S
 
-    mem_ms = work["bytes"] / HBM_BYTES_PER_S * 1e3
+    mem_ms = work["bytes"] * ELEMENT_BYTES / LAYOUT_BYTES / HBM_BYTES_PER_S * 1e3
     op_ms = (work["imads"] / RATES["imad_per_s"] + work["int8_ops"] / INT8_OPS_PER_S) * 1e3
     return (mem_ms, "bytes", "memory") if mem_ms >= op_ms else (op_ms, "operations", "int")
 
@@ -376,7 +394,8 @@ def kernel_phase(device, seed: int, nv: int = NV) -> dict:
         bound_ms, bound_by, _ = bound_of(work)
         print(f"round_fold A2=2^{nv - 2} (U=6, d=3): {ms:.4f} ms, {work['bytes'] / ms / 1e9:.3f} "
               f"TB/s of {HBM_BYTES_PER_S / 1e12} TB/s; bound {bound_ms:.4f} ms by {bound_by} "
-              f"({work['bytes'] / 1e6:.1f} MB; {work['imads'] / 1e9:.3f}e9 32-bit multiplies at "
+              f"({work['bytes'] * ELEMENT_BYTES / LAYOUT_BYTES / 1e6:.1f} MB at 32 B an element; "
+              f"{work['imads'] / 1e9:.3f}e9 32-bit multiplies at "
               f"{RATES['imad_per_s'] / 1e12:.2f}e12/s), {bound_ms / ms:.1%} of it; "
               f"previous version (PERF.md): {PREVIOUS_MS['round_fold']} ms")
     for a2 in (1, 3, 37, (1 << 9) + 5):
@@ -1427,7 +1446,9 @@ def pair_init_phase(device, seed: int, nv: int = NV) -> dict:
     bound = ""
     if RATES:
         bound_ms, bound_by, _ = bound_of(work)
-        bound = (f"; bound {bound_ms:.4f} ms by {bound_by} ({work['bytes'] / 1e6:.1f} MB), "
+        bound = (f"; bound {bound_ms:.4f} ms by {bound_by} "
+                 f"({work['bytes'] * ELEMENT_BYTES / LAYOUT_BYTES / 1e6:.1f} MB at 32 B an "
+                 f"element), "
                  f"{bound_ms / ms:.1%} of it")
     print(f"kernel-vs-plain pair_init {shape}: equal, cached tables untouched; kernel "
           f"{ms:.4f} ms, plain (torch ops) {plain_ms:.4f} ms{bound}")
@@ -1890,22 +1911,12 @@ def interactive_phase(device, seed: int, reps: int, ref: dict, nv: int = NV) -> 
         return serialize_proof(msgs), repr(rng.state_tuple()), state
 
     proves = reps + 2  # the first, `reps` warm and timed, one under the sync guard
-    with counted_syncs(guard=False) as syncs:
-        for f in counters().values():
-            f.launches = 0
-        walls, results = [], []
-        for _ in range(proves - 1):
-            t0 = time.perf_counter()
-            results.append(prove())
-            walls.append(time.perf_counter() - t0)
-        with counted_syncs():
-            results.append(prove())
-        launches = {k: f.launches for k, f in counters().items()}
+    results, walls, launches, syncs = _loop_proves(prove, proves)
     want = {k: 0 for k in launches}
     want.update({"pair_init": proves, "round_nofold": proves, "round_fold": (nv - 1) * proves})
     check(launches == want, f"interactive ML: launches {launches}, expected {want}")
-    check(len(syncs) == nv * proves, f"interactive ML: {len(syncs)} syncs in {proves} proves, "
-                                     f"expected {nv} a prove")
+    check(syncs == nv * proves, f"interactive ML: {syncs} syncs in {proves} proves, "
+                                f"expected {nv} a prove")
     check(all(r[:2] == (ref["proof"], ref["transcript"]) for r in results),
           "interactive ML: proof or final transcript differs from MLSumcheck.prove's")
     _, chain_state = MLSumcheck.prove_as_subprotocol(Blake2b512Rng.setup(), poly, device=device)
@@ -1917,12 +1928,12 @@ def interactive_phase(device, seed: int, reps: int, ref: dict, nv: int = NV) -> 
     prove_s = statistics.median(walls[1:])
     print(f"interactive ML nv={nv} 2x3 (prover_init + {nv} prove_round / sample_round, live "
           f"Blake2b512Rng): first {walls[0]:.4f} s, median of {reps} warm {prove_s:.4f} s, walls "
-          f"{[round(w, 4) for w in walls[1:]]}; syncs per prove {len(syncs) // proves} (finish_sums), "
+          f"{[round(w, 4) for w in walls[1:]]}; syncs per prove {syncs // proves} (finish_sums), "
           f"none other in a round (one more prove under the sync guard), launches a prove "
           f"{ {k: v // proves for k, v in launches.items() if v} }; proof, final transcript and "
           f"final tables equal to MLSumcheck.prove's (generic chain)")
     return {"launches": launches, "prove_s": prove_s, "first_s": walls[0],
-            "syncs_per_prove": len(syncs) // proves, "abc_proof": serialize_proof(abc),
+            "syncs_per_prove": syncs // proves, "abc_proof": serialize_proof(abc),
             "abc_transcript": repr(rng.state_tuple())}
 
 
@@ -1944,23 +1955,16 @@ def gkr_host_phase(device, seed: int, inst, reps: int, check_plain: bool = True)
     f1, f2, f3, g = inst
     dim = f2.num_vars
     proves = reps + 2  # the first, `reps` warm and timed, one under the sync guard
-    with counted_syncs(guard=False) as syncs:
-        for f in counters().values():
-            f.launches = 0
-        walls = []
-        for _ in range(proves - 1):
-            t0 = time.perf_counter()
-            proof = GKRRoundSumcheck.prove(abc_rng(), *inst, device=device)
-            walls.append(time.perf_counter() - t0)
-        with counted_syncs():
-            check(GKRRoundSumcheck.prove(abc_rng(), *inst, device=device).serialize_uncompressed()
-                  == proof.serialize_uncompressed(), "GKR host transcript: proves differ")
-        launches = {k: f.launches for k, f in counters().items()}
+    results, walls, launches, syncs = _loop_proves(
+        lambda: GKRRoundSumcheck.prove(abc_rng(), *inst, device=device), proves)
+    proof = results[0]
+    check(len({r.serialize_uncompressed() for r in results}) == 1,
+          "GKR host transcript: proves differ")
     want = {k: 0 for k in launches}
     want.update({"round_nofold": 2 * proves, "round_fold": 2 * (dim - 1) * proves})
     check(launches == want, f"GKR host transcript: launches {launches}, expected {want}")
-    check(len(syncs) == 2 * dim * proves, f"GKR host transcript: {len(syncs)} syncs in "
-                                          f"{proves} proves, expected {2 * dim} a prove")
+    check(syncs == 2 * dim * proves, f"GKR host transcript: {syncs} syncs in "
+                                     f"{proves} proves, expected {2 * dim} a prove")
     chained = []
     for _ in range(reps + 1):
         t0 = time.perf_counter()
@@ -1974,12 +1978,12 @@ def gkr_host_phase(device, seed: int, inst, reps: int, check_plain: bool = True)
     print(f"GKR dim={dim} over a transcript pre-fed {ABC!r} (host transcript, round kernels on "
           f"the card): first {walls[0]:.4f} s, median of {reps} warm {prove_s:.4f} s, walls "
           f"{[round(w, 4) for w in walls[1:]]}; the aligned transcript's chained prove "
-          f"{chained_s:.4f} s in this call; syncs per prove {len(syncs) // proves} (none other "
+          f"{chained_s:.4f} s in this call; syncs per prove {syncs // proves} (none other "
           f"in a round, one more prove under the sync guard), launches a prove "
           f"{ {k: v // proves for k, v in launches.items() if v} }; verify accepts, the "
           f"subclaim holds in Python integers ({subclaim_s:.2f} s)")
     out = {"launches": launches, "prove_s": prove_s, "first_s": walls[0], "chained_s": chained_s,
-           "syncs_per_prove": len(syncs) // proves}
+           "syncs_per_prove": syncs // proves}
     if check_plain:
         small = MB.gkr_instance(GKR_PLAIN_DIM, seed)
         kernel = GKRRoundSumcheck.prove(abc_rng(), *small, device=device)
@@ -1992,6 +1996,149 @@ def gkr_host_phase(device, seed: int, inst, reps: int, check_plain: bool = True)
         print(f"GKR dim={GKR_PLAIN_DIM} over the {ABC!r} transcript: bytes equal to the plain "
               f"round versions' on the card ({time.perf_counter() - t0:.4f} s)")
     return out
+
+
+def _loop_proves(prove, proves: int):
+    """`prove()` `proves` times with every launch count at 0 before and the
+    `finish_sums` calls counted, the last prove with each round's enqueue
+    under the sync debug mode "error" (`counted_syncs`); returns (results,
+    the walls of all but the guarded prove, launches, syncs)."""
+    with counted_syncs(guard=False) as syncs:
+        for f in counters().values():
+            f.launches = 0
+        results, walls = [], []
+        for i in range(proves):
+            with counted_syncs() if i == proves - 1 else contextlib.nullcontext():
+                t0 = time.perf_counter()
+                results.append(prove())
+                walls.append(time.perf_counter() - t0)
+        launches = {k: f.launches for k, f in counters().items()}
+    return results, walls[:-1], launches, len(syncs)
+
+
+def engine_variables_phase() -> None:
+    """Phase 10d: the JAX package's engine variables. A child process that
+    imports the port under ``SUMCHECK_TPU_CHAINED=off`` exits non-zero with
+    `SumcheckError` naming the variable and prints nothing;
+    `check_engine_variables` refuses ``off``, a threshold and
+    ``ENGINE=host``, each naming its variable, and takes the values that
+    mean the chain on the prover's device."""
+    from sumcheck_tpu_torch import SumcheckError
+    from sumcheck_tpu_torch.utils.config import check_engine_variables
+
+    env = dict(os.environ, SUMCHECK_TPU_CHAINED="off")
+    child = subprocess.run([sys.executable, "-c", "import sumcheck_tpu_torch; print('imported')"],
+                           capture_output=True, text=True, timeout=300, env=env, cwd=ROOT)
+    check(child.returncode != 0 and child.stdout == ""
+          and "SumcheckError: SUMCHECK_TPU_CHAINED='off'" in child.stderr,
+          f"the port imported under SUMCHECK_TPU_CHAINED=off: rc {child.returncode}, "
+          f"{child.stderr[-500:]!r}")
+    for variable, value in (("SUMCHECK_TPU_CHAINED", "off"),
+                            ("SUMCHECK_TPU_DEVICE_THRESHOLD", "4096"),
+                            ("SUMCHECK_TPU_ENGINE", "host")):
+        try:
+            check_engine_variables({variable: value})
+            raised = ""
+        except SumcheckError as e:
+            raised = str(e)
+        check(raised.startswith(f"{variable}={value!r}"),
+              f"{variable}={value} was not refused by name: {raised!r}")
+    check_engine_variables({"SUMCHECK_TPU_CHAINED": "on", "SUMCHECK_TPU_DEVICE_THRESHOLD": "0",
+                            "SUMCHECK_TPU_ENGINE": "device"})
+    print("engine variables: the port's import stops under SUMCHECK_TPU_CHAINED=off, naming "
+          "it; SUMCHECK_TPU_DEVICE_THRESHOLD=4096 and SUMCHECK_TPU_ENGINE=host are refused by "
+          "name; CHAINED=on, THRESHOLD=0 and ENGINE=device are taken")
+
+
+def zero_coefficient_phase(device, seed: int, nv: int = NV, compared=(0, 1, 5)) -> dict:
+    """Phase 10e: fault F3 on the card. The polynomial 0 x [t0, t1, t2] +
+    c x [t3, t4, t5] at nv=20 (tables and c from
+    `numpy.random.default_rng(seed + 3)`): its fold plan gives the zero
+    product a copy slot (slot 6, table 0 scaled by 0). `IPForMLSumcheck`
+    on the card, driven by a live `Blake2b512Rng` fed the polynomial's
+    info, launches counted from 0 and syncs counted: the proof and final
+    transcript equal to `MLSumcheck.prove_as_subprotocol`'s chained proof.
+    Then the same drive in step with a state on the CPU (the plain
+    versions): after the init the whole pair equal (the pair-init kernel at
+    the copy slot, which is all zero, and tables 0-2, 4, 5 equal to the
+    inputs, bit-reversed), every message equal, and after rounds
+    `compared` `flattened_ml_extensions` equal, after round 0 equal to the
+    input tables."""
+    from sumcheck_tpu_torch import Blake2b512Rng, IPForMLSumcheck, MLSumcheck
+    from sumcheck_tpu_torch.convert import polynomial_from_numpy
+    from sumcheck_tpu_torch.fields.limbs_np import random_tables
+    from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
+    from sumcheck_tpu_torch.protocol.device_prover import _fold_plan
+    from sumcheck_tpu_torch.protocol.prover import to_bitrev
+
+    gen = np.random.default_rng(seed + 3)
+    tables = random_tables(gen, nv, 6)
+    poly = polynomial_from_numpy(nv, tables, [(0, [0, 1, 2]),
+                                              (int(gen.integers(1, 1 << 62)), [3, 4, 5])])
+    products, scale_plan, slots, _ones = _fold_plan(poly)
+    check(slots == 7 and scale_plan[0] == (6, 0, 0) and products[0] == (6, 1, 2),
+          f"F3: fold plan {products}, {scale_plan}, {slots} slots")
+
+    def drive(state, rounds, rng, v_msg=None):
+        msgs = []
+        for _ in range(rounds):
+            msg = IPForMLSumcheck.prove_round(state, v_msg)
+            rng.feed(msg)
+            msgs.append(msg)
+            v_msg = IPForMLSumcheck.sample_round(rng)
+        return msgs, v_msg
+
+    def prove():
+        rng = Blake2b512Rng.setup()
+        rng.feed(poly.info())
+        msgs, _v = drive(IPForMLSumcheck.prover_init(poly, device=device), nv, rng)
+        return serialize_proof(msgs), repr(rng.state_tuple())
+
+    chained_rng = Blake2b512Rng.setup()
+    chained, _state = MLSumcheck.prove_as_subprotocol(chained_rng, poly, device=device)
+    results, walls, launches, syncs = _loop_proves(prove, 3)
+    walls = walls[1:]
+    check(all(r == (serialize_proof(chained), repr(chained_rng.state_tuple())) for r in results),
+          "F3: the interactive proof or final transcript differs from the chained prove's")
+    want = {k: 0 for k in launches}
+    want.update({"pair_init": 3, "round_nofold": 3, "round_fold": 3 * (nv - 1)})
+    check(launches == want and syncs == 3 * nv, f"F3: launches {launches}, {syncs} syncs")
+
+    t0 = time.perf_counter()
+    card = IPForMLSumcheck.prover_init(poly, device=device)
+    plain = IPForMLSumcheck.prover_init(poly, device="cpu")
+    pair = [t.cpu() for t in card.stacked]
+    check(all(torch.equal(a, b) for a, b in zip(pair, plain.stacked)),
+          "F3: the pair-init kernel's pair differs from its plain version's")
+    check(not pair[0][6].any() and not pair[1][6].any(), "F3: the copy slot is not zero")
+    for i in (0, 1, 2, 4, 5):
+        both = torch.cat([pair[0][i], pair[1][i]], dim=1).numpy().astype(np.uint32)
+        check(np.array_equal(both, to_bitrev(tables[i], nv)), f"F3: table {i} was not kept")
+    rng_card, rng_plain = Blake2b512Rng.setup(), Blake2b512Rng.setup()
+    v_card = v_plain = None
+    for j in range(max(compared) + 1):
+        (m_card,), v_card = drive(card, 1, rng_card, v_card)
+        (m_plain,), v_plain = drive(plain, 1, rng_plain, v_plain)
+        check(m_card == m_plain, f"F3 round {j}: the card's message differs from the plain one")
+        if j in compared:
+            got, ref = card.flattened_ml_extensions, plain.flattened_ml_extensions
+            check(len(got) == len(ref) == 6 and all(np.array_equal(a, b)
+                                                    for a, b in zip(got, ref)),
+                  f"F3 round {j}: flattened_ml_extensions differ between the card and the CPU")
+            if j == 0:
+                check(all(np.array_equal(a, to_bitrev(t, nv)) for a, t in zip(got, tables)),
+                      "F3 round 0: flattened_ml_extensions are not the input tables")
+    plain_s = time.perf_counter() - t0
+    prove_s = statistics.median(walls) if walls else float("nan")
+    print(f"F3 (zero coefficient) nv={nv}, 0 x [t0, t1, t2] + c x [t3, t4, t5]: fold plan "
+          f"{slots} slots (the zero product's copy of t0 in slot 6); interactive prove on the "
+          f"card {prove_s:.4f} s, {syncs // 3} syncs, launches a prove "
+          f"{ {k: v // 3 for k, v in launches.items() if v} }, proof and final transcript equal "
+          f"to the chained prove's; the pair-init kernel's pair equal to its plain version's "
+          f"(copy slot zero, tables kept), messages of rounds 0-{max(compared)} equal to the CPU "
+          f"state's and flattened_ml_extensions after rounds {list(compared)} equal "
+          f"({plain_s:.1f} s with the CPU state)")
+    return {"launches": launches, "prove_s": prove_s, "syncs": syncs, "plain_s": plain_s}
 
 
 def sharded_sp(device: str, group, seed: int, reps: int, refs: dict) -> dict:
@@ -2133,8 +2280,9 @@ def sharded_rank(rank: int, size: int, backend: str, device: str, init_file: str
                  seed: int, reps: int, refs: dict,
                  cases: tuple = ("ml", "gkr", "batch", "sp")) -> None:
     """One rank of `run_ranks`, the `cases` of: the sharded ML nv=20 2x3 prove (the phase-8
-    instance), the sharded GKR dim-18 prove (phase 9's, at the sizes of
-    `GKR_SHARD_SIZES`), the sharded batch 8 x nv=16 (phase 10's) and
+    instance, `ChainedShardedProver.auto(size)`), the sharded GKR dim-18 prove (phase
+    9's, `ShardedGKRProver.auto(size)`, at the sizes of `GKR_SHARD_SIZES`), the
+    sharded batch 8 x nv=16 (phase 10's) and
     `ShardedProver` on the ML instance (`sharded_sp`), each
     through its public entry point on the rank's card, checked byte for
     byte against `refs`, launches counted from 0 around it; writes the
@@ -2143,12 +2291,20 @@ def sharded_rank(rank: int, size: int, backend: str, device: str, init_file: str
     on the plain versions."""
     import torch.distributed as dist
 
-    from sumcheck_tpu_torch.parallel import ChainedShardedProver, ShardedGKRProver, comm
+    from sumcheck_tpu_torch import SumcheckError
+    from sumcheck_tpu_torch.parallel import ChainedShardedProver, ShardedGKRProver
 
     dist.init_process_group(backend, init_method=f"file://{init_file}", rank=rank,
                             world_size=size)
     try:
-        ml = ChainedShardedProver(device=device)
+        ml = ChainedShardedProver.auto(size, device=device)
+        for cls in (ChainedShardedProver, ShardedGKRProver):
+            try:
+                cls.auto(2 * size, device=device)
+                raised = False
+            except SumcheckError:
+                raised = True
+            check(raised, f"{cls.__name__}.auto({2 * size}) in a group of {size} did not raise")
         if backend == "nccl":
             torch.cuda.set_device(ml.device)
         # NCCL syncs nothing inside a chain; gloo passes each collective
@@ -2158,7 +2314,8 @@ def sharded_rank(rank: int, size: int, backend: str, device: str, init_file: str
         if "ml" in cases:
             out["ml"] = sharded_ml(ml, seed, reps, refs, guard)
         if "gkr" in cases and size in GKR_SHARD_SIZES:
-            out["gkr"] = sharded_gkr(ShardedGKRProver(ml.group, device=device), seed, refs, guard)
+            out["gkr"] = sharded_gkr(ShardedGKRProver.auto(size, device=device), seed, refs,
+                                     guard)
         if "batch" in cases:
             out["batch"] = sharded_batch(ml, seed, reps, refs, guard)
         if "sp" in cases:
@@ -2931,6 +3088,9 @@ def main() -> int:
                                                 heads["ml generic"])
     heads["gkr host-transcript"] = gkr_host_phase(device, args.seed, inst, args.reps)
     mark("round-by-round prover")
+    engine_variables_phase()
+    heads["f3 interactive"] = zero_coefficient_phase(device, args.seed)
+    mark("engine variables and F3")
     refs = {"ml": heads["ml generic"]["proof"], "ml_state": heads["ml generic"]["transcript"],
             "gkr": heads["gkr generic"]["proof"], "batch": heads["batch ml generic"]["proofs"],
             "ml_abc": heads["interactive ml"]["abc_proof"],

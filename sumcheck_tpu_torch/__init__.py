@@ -17,6 +17,7 @@ The batched provers (`BatchedMLSumcheck`, `BatchedGKRRoundSumcheck`) are in
 `sumcheck_tpu_torch.batch`, not exported here, as in the JAX package.
 
 This package imports torch and numpy, never JAX and never `sumcheck_tpu`.
+Importing it checks the JAX package's engine variables (`utils/config.py`).
 """
 
 from .data_structures import ListOfProductsOfPolynomials, PolynomialInfo
@@ -28,6 +29,7 @@ from .mle import DenseMLE, SparseMLE
 from .portable import PortableDenseMLE, PortableSparseMLE
 from .protocol import IPForMLSumcheck
 from .transcript.blake2b_rng import Blake2b512Rng
+from .utils import config  # noqa: F401  (refuses the engine variables it does not honour)
 from .utils.errors import (
     IOError_,
     OtherError,

@@ -101,11 +101,13 @@ def dryrun_multichip(n_devices: int, *, device="cuda") -> dict:
 
     - ML, nv = k+3 (k = max(1, ceil(log2 n))), three tables from
       `random.Random(0)`, products 123 x (0, 1, 2) and 456 x (2, 0):
-      `ShardedProver` and `ChainedShardedProver`, equal to each other and to
-      the single-device host-transcript prove; verify and the subclaim;
+      `ShardedProver` and `ChainedShardedProver.auto(n)`, equal to each
+      other and to the single-device host-transcript prove; verify and the
+      subclaim;
     - GKR, dim k+1, 2^dim - 1 nonzeros (odd: the padding path) from
-      `random.Random(1)`: `ShardedGKRProver` equal to `GKRRoundSumcheck.
-      prove` on the rank's device; verify and `verify_subclaim`;
+      `random.Random(1)`: `ShardedGKRProver.auto(n)` equal to
+      `GKRRoundSumcheck.prove` on the rank's device; verify and
+      `verify_subclaim`;
     - the sharded batch, n instances of nv=5 from `random.Random(2)`: each
       proof equal to its own `MLSumcheck.prove`.
 
@@ -201,7 +203,7 @@ def _dryrun_cases(device: str, backend: str) -> dict:
     poly = _poly(nv, [DenseMLE.rand(nv, rnd) for _ in range(3)],
                  ((123, (0, 1, 2)), (456, (2, 0))))
     proof = sharded("sp", lambda: sp.prove(poly))
-    chained = sharded("chained", lambda: ChainedShardedProver(group, device=dev).prove(poly))
+    chained = sharded("chained", lambda: ChainedShardedProver.auto(size, device=dev).prove(poly))
     rng = Blake2b512Rng.setup()
     rng.feed(poly.info())
     single, _state = prove_host_transcript(rng, poly, dev)
@@ -217,7 +219,7 @@ def _dryrun_cases(device: str, backend: str) -> dict:
     f1 = SparseMLE.rand_with_config(3 * dim, (1 << dim) - 1, rnd)
     f2, f3 = DenseMLE.rand(dim, rnd), DenseMLE.rand(dim, rnd)
     g = [Fr(rnd.randrange(P)) for _ in range(dim)]
-    gproof = sharded("gkr", lambda: ShardedGKRProver(group, device=dev).prove(
+    gproof = sharded("gkr", lambda: ShardedGKRProver.auto(size, device=dev).prove(
         Blake2b512Rng.setup(), f1, f2, f3, g))
     gkr = gproof.serialize_uncompressed()
     want = GKRRoundSumcheck.prove(Blake2b512Rng.setup(), f1, f2, f3, g, device=dev)

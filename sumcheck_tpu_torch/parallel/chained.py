@@ -49,7 +49,7 @@ from ..protocol import device_prover, generic_prover
 from ..transcript.blake2b_rng import Blake2b512Rng
 from ..utils.errors import SumcheckError
 from . import comm
-from .mesh import default_group, group_shape, shard_device
+from .mesh import auto_group, default_group, group_shape, shard_device
 
 
 def check_transcript(fs_rng) -> None:
@@ -96,6 +96,12 @@ class ChainedShardedProver:
         self.group = default_group() if group is None else group
         self.rank, self.num_shards = group_shape(self.group)
         self.device = shard_device(self.group, device)
+
+    @staticmethod
+    def auto(num_ranks: int | None = None, *, device="cuda") -> "ChainedShardedProver":
+        """Over the default group (`mesh.auto_group`; `sumcheck_tpu/
+        parallel/chained.py:143-145`)."""
+        return ChainedShardedProver(auto_group(num_ranks), device=device)
 
     def prove(self, polynomial):
         """One-shot prove with a fresh transcript; returns the proof."""

@@ -40,7 +40,7 @@ from ..protocol import device_prover
 from ..utils.errors import SumcheckError
 from . import comm
 from .chained import check_transcript, sharded_rounds
-from .mesh import deal, default_group, group_shape, shard_device
+from .mesh import auto_group, deal, default_group, group_shape, shard_device
 
 _PRODUCTS = ((0, 1),)  # h_g * f2 and f1_gu * (f2(u) * f3): one 2-slot unit product
 _DEGREE = 2
@@ -55,6 +55,12 @@ class ShardedGKRProver:
         self.group = default_group() if group is None else group
         self.rank, self.num_shards = group_shape(self.group)
         self.device = shard_device(self.group, device)
+
+    @staticmethod
+    def auto(num_ranks: int | None = None, *, device="cuda") -> "ShardedGKRProver":
+        """Over the default group (`mesh.auto_group`; `sumcheck_tpu/
+        parallel/gkr.py:290-292`)."""
+        return ShardedGKRProver(auto_group(num_ranks), device=device)
 
     def prove(self, rng, f1, f2, f3, g):
         """Caller supplies the transcript (reference `mod.rs:93-139`); every

@@ -89,6 +89,17 @@ def default_group():
     return group
 
 
+def auto_group(num_ranks: int | None = None):
+    """The default group for the provers' `auto` constructors (the JAX
+    package's `default_mesh(num_devices)`); `num_ranks`, if given, must be
+    its size: a process group is made by every rank, not chosen by one."""
+    group = default_group()
+    size = comm.rank_and_size(group)[1]
+    if num_ranks is not None and num_ranks != size:
+        raise SumcheckError(f"the default group has {size} ranks, not {num_ranks}")
+    return group
+
+
 def group_shape(group) -> tuple[int, int]:
     """(rank, size) of `group`, the size checked to be a power of two."""
     rank, size = comm.rank_and_size(group)

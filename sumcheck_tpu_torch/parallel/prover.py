@@ -39,7 +39,7 @@ from ..transcript.blake2b_rng import Blake2b512Rng
 from ..utils.errors import SumcheckError
 from . import comm
 from .chained import gather_tail
-from .mesh import default_group, group_shape, shard_device
+from .mesh import auto_group, default_group, group_shape, shard_device
 
 
 class ShardedProverState(ProverState):
@@ -75,13 +75,8 @@ class ShardedProver:
 
     @staticmethod
     def auto(num_ranks: int | None = None, *, device="cuda") -> "ShardedProver":
-        """Over the default group; `num_ranks`, if given, must be its size
-        (a process group is made by every rank, not chosen by one)."""
-        group = default_group()
-        size = comm.rank_and_size(group)[1]
-        if num_ranks is not None and num_ranks != size:
-            raise SumcheckError(f"the default group has {size} ranks, not {num_ranks}")
-        return ShardedProver(group, device=device)
+        """Over the default group (`mesh.auto_group`)."""
+        return ShardedProver(auto_group(num_ranks), device=device)
 
     def prover_init(self, polynomial) -> ShardedProverState:
         """The rank's dealt pair (one pair-init launch on a card) in a state

@@ -203,6 +203,12 @@ class Blake2b512Rng:
     def next_u64(self) -> int:
         return int.from_bytes(self.fill_bytes(8), "little")
 
+    def next_u64s(self, k: int) -> list[int]:
+        """`k` consecutive `next_u64` draws (`sumcheck_tpu/transcript/
+        blake2b_rng.py:203-217`)."""
+        raw = self.next_u64s_bytes(k)
+        return [int.from_bytes(raw[8 * i:8 * i + 8], "little") for i in range(k)]
+
     def next_u64s_bytes(self, k: int) -> bytes:
         """`k` consecutive `next_u64` draws' little-endian bytes, concatenated
         (each is a separate sub-block `fill_bytes(8)` — they cannot be merged
@@ -239,7 +245,9 @@ _DRAW_MASK = (1 << (256 - SHAVE_BITS)) - 1
 
 def fr_rand(rng) -> int:
     """Sample a uniform Fr exactly as `ark_ff::UniformRand` does; returns the
-    canonical residue as a Python int."""
+    canonical residue as a Python int. Draws through the first the rng has,
+    in the JAX package's order: the native core's whole loop,
+    `next_u64s_bytes`, `next_u64s`, four `next_u64` calls."""
     native = getattr(getattr(rng, "_h", None), "fr_draw_canonical", None)
     if native is not None:  # the whole rejection loop and REDC in C, one call
         return native()
@@ -249,8 +257,12 @@ def fr_rand(rng) -> int:
             mont = int.from_bytes(fast(4), "little") & _DRAW_MASK
             if mont < P:
                 return (mont * R_INV) % P
-    while True:  # duck-typed external FeedableRNG without the fast path
-        limbs = [rng.next_u64() for _ in range(4)]
+    draw = getattr(rng, "next_u64s", None)
+    if draw is None:  # duck-typed external FeedableRNG without the fast path
+        def draw(k, _r=rng):
+            return [_r.next_u64() for _ in range(k)]
+    while True:
+        limbs = draw(4)
         limbs[3] &= (1 << (64 - SHAVE_BITS)) - 1  # num_bits_to_shave()
         mont = limbs[0] | (limbs[1] << 64) | (limbs[2] << 128) | (limbs[3] << 192)
         if mont < P:

@@ -22,12 +22,39 @@ field on `get_config()` to change it afterwards.
 - ``SUMCHECK_TPU_AB``: unlocks the non-off MXU modes, which the JAX package
   quarantines as measured A/B bodies; without it they raise, with the JAX
   package's error text.
+
+Refused: the JAX package's engine variables, checked once at import
+(`check_engine_variables`); a value the port does not honour raises
+`SumcheckError` naming the variable. A prove in the port takes the chain
+on the prover's device for a transcript it can lift, else the
+round-by-round loop on the same device, with the same proof bytes. So
+``SUMCHECK_TPU_CHAINED`` may be ``auto`` or ``on``, ``SUMCHECK_TPU_ENGINE``
+``auto`` or ``device`` (the JAX package's ``device`` chains every table,
+as the port does), and ``SUMCHECK_TPU_DEVICE_THRESHOLD`` only 0; unset or
+empty is the first of each. ``CHAINED=off``, a threshold and
+``ENGINE=host`` sent proves to the JAX package's NumPy host engine or host
+loop to save XLA compiles on small tables; the port has no host round
+engine and compiles nothing per table, and nothing falls back to the CPU.
+
+Read elsewhere: ``SUMCHECK_TPU_FIELD`` (`fields/fr.py`, at import; an
+unknown name raises) and ``SUMCHECK_TPU_NATIVE`` (`native/__init__.py`, at
+every call). Not read, because each tunes the JAX package's TPU blocks,
+padding or XLA compiles and has no counterpart in a hand-written kernel:
+``SUMCHECK_TPU_PALLAS`` and ``SUMCHECK_TPU_PALLAS_BLOCK`` (Pallas bodies or
+XLA-fused ones, and their block), ``SUMCHECK_TPU_GENERIC_BLOCK``,
+``SUMCHECK_TPU_BATCH_BLOCK`` and ``SUMCHECK_TPU_TAIL_BLOCK`` (the chains'
+lane blocks), ``SUMCHECK_TPU_GENERIC_PAD`` (padding to one compiled
+program family), ``SUMCHECK_TPU_KRON_EQ`` (the eq tables' gather form),
+``SUMCHECK_TPU_BIG_PAIR_BYTES`` (the incremental pair init for a 16 GB
+chip) and ``SUMCHECK_TPU_CIOS`` (the unroll of the traced multiply).
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+
+from .errors import SumcheckError
 
 
 @dataclass
@@ -62,6 +89,21 @@ class Config:
         return self.mxu_mode() != "off"
 
 
+def check_engine_variables(environ=os.environ) -> None:
+    """Raise `SumcheckError`, naming the variable, for a value of the JAX
+    package's engine variables that the port does not honour (see above)."""
+    allowed = {"SUMCHECK_TPU_CHAINED": ("auto", "on"), "SUMCHECK_TPU_ENGINE": ("auto", "device"),
+               "SUMCHECK_TPU_DEVICE_THRESHOLD": ("0",)}
+    for name, values in allowed.items():
+        value = environ.get(name) or values[0]
+        if value.strip() not in values:
+            raise SumcheckError(
+                f"{name}={value!r}: the port takes only {' or '.join(values)}; it has no host "
+                f"round engine, and a transcript the chain cannot lift already takes the "
+                f"round-by-round loop on the prover's device")
+
+
+check_engine_variables()
 _config = Config()
 
 

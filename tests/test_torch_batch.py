@@ -182,6 +182,23 @@ def test_diverging_fold_plans_prove_each_instance_right(path, monkeypatch):
     assert len(ran) == 4  # the host loop's folds, nv - 1 of them
 
 
+@pytest.mark.parametrize("path", ["generic", "persize", "host"], indirect=True)
+def test_zero_coefficient_instance_proves_right(path):
+    """Fault F3 in the batch: one instance of three has the coefficient 0
+    on its product [2, 0], whose table 2 (used once) then takes a scaled
+    copy slot where the others scale it in place. That instance's fold plan
+    differs from the others' (one slot more), so the batch takes the host
+    loop, and every proof, challenge list and final transcript equals the
+    instance's own JAX prove."""
+    js, ts = instances(13, 3, 5, coeffs=[(5, 7), (9, 0), (11, 13)])
+    plans = [TD._fold_plan(p) for p in ts]
+    assert [p[2] for p in plans] == [4, 5, 4] and plans[1][1][1] == (4, 2, 0)
+    assert TD.init_pairs(ts, CPU) is None
+    rngs = _rngs(path, 3)
+    proofs, challenges = BatchedMLSumcheck.prove_as_subprotocol(rngs, ts, device="cpu")
+    _check_against(jax_alone(js), proofs, challenges, rngs)
+
+
 @pytest.mark.parametrize("prefixes", [[b"", b"\x07" * 8, b"\x01" * 48],
                                       [b"abc", b"", b"\x02" * 8]],
                          ids=["aligned", "three_bytes"])

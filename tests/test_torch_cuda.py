@@ -943,7 +943,10 @@ def _sharded_rank(rank, size, init_file, backend, out_file):
                             world_size=size)
     try:
         poly, polys, gkr = _sharded_instances()
-        ml = ChainedShardedProver(device="cuda")
+        ml = ChainedShardedProver.auto(size, device="cuda")
+        for cls in (ChainedShardedProver, ShardedGKRProver):
+            with pytest.raises(T.SumcheckError, match="ranks"):
+                cls.auto(2 * size, device="cuda")
         if backend == "nccl":
             torch.cuda.set_device(ml.device)
         launches = (RC.round_nofold.launches, RC.round_fold.launches)
@@ -951,7 +954,7 @@ def _sharded_rank(rank, size, init_file, backend, out_file):
         proof, _state = ml.prove_as_subprotocol(rng, poly)
         launches = [f.launches - b for f, b in zip((RC.round_nofold, RC.round_fold), launches)]
         grng = T.Blake2b512Rng.setup()
-        gproof = ShardedGKRProver(device="cuda").prove(grng, *gkr)
+        gproof = ShardedGKRProver.auto(size, device="cuda").prove(grng, *gkr)
         proofs = BatchedMLSumcheck.prove(polys, device="cuda", group=ml.group)
         torch.cuda.synchronize()
         with open(out_file.format(rank), "w") as f:
@@ -968,7 +971,8 @@ def _sharded_rank(rank, size, init_file, backend, out_file):
 def test_sharded_on_cuda_equals_single_card(cuda, backend, tmp_path):
     """Two ranks (gloo: both on card 0; NCCL: one card each, so it skips
     with fewer than two cards) prove the sharded ML nv=10, GKR dim 6 and
-    batch 4 x nv=10 on the card: proof bytes and final transcripts equal
+    batch 4 x nv=10 on the card, the provers made by `.auto(2)` (`.auto(4)`
+    raises): proof bytes and final transcripts equal
     to the single-card proves, on both ranks; each rank ran round 0 once
     and nv - 1 folds (the sharded ones and the tail)."""
     import json
@@ -1251,6 +1255,39 @@ def test_microbench_on_cuda(cuda, tmp_path):
     assert res["probes"]["compress"]["clocks"] > 0
     stages = [res["stages"][name]["launches"] for name in MB.STAGES]
     assert stages[0] > 0 and stages == sorted(stages)  # cumulative prefixes
+
+
+# ---------------------------------------------------------------------------
+# fault F3 on the card
+# ---------------------------------------------------------------------------
+
+
+def test_zero_coefficient_state_on_cuda_equals_cpu(cuda):
+    """F3: 0 x [t0, t1, t2] + c x [t3, t4, t5] at nv=12. The pair-init
+    kernel writes the zero product's copy slot (table 0 scaled by 0) and
+    leaves the tables; every round's message and `flattened_ml_extensions`
+    equal the CPU state's; the proof equals the chained card prove's."""
+    nv = 12
+    tables = _tables(41, nv, 6)
+    poly = polynomial_from_numpy(nv, tables, [(0, [0, 1, 2]), (7, [3, 4, 5])])
+    card = T.IPForMLSumcheck.prover_init(poly, device=cuda)
+    plain = T.IPForMLSumcheck.prover_init(poly, device="cpu")
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(card.stacked, plain.stacked))
+    assert card.stacked[0].shape[0] == 7 and not card.stacked[0][6].any()
+    rngs = [T.Blake2b512Rng.setup() for _ in range(2)]
+    for rng in rngs:
+        rng.feed(poly.info())
+    msgs, vs = [], [None, None]
+    for _ in range(nv):
+        ms = [T.IPForMLSumcheck.prove_round(st, v) for st, v in zip((card, plain), vs)]
+        assert ms[0] == ms[1]
+        assert all(np.array_equal(a, b) for a, b in zip(card.flattened_ml_extensions,
+                                                        plain.flattened_ml_extensions))
+        msgs.append(ms[0])
+        for rng, m in zip(rngs, ms):
+            rng.feed(m)
+        vs = [T.IPForMLSumcheck.sample_round(rng) for rng in rngs]
+    assert serialize_proof(msgs) == serialize_proof(T.MLSumcheck.prove(poly, device=cuda))
 
 
 # ---------------------------------------------------------------------------

@@ -23,8 +23,10 @@ tolerance 0 (proof bytes, challenges and final transcript states):
 - the sharded provers at S = 2 and 4 (a gloo spawn each of this module's
   `_rank`, which imports no JAX): ML, GKR, the sharded batch and
   `ShardedProver` over a transcript of another class;
-- the interactive tier message by message with its folded tables, and the
-  GKR device-init wrappers (`phase1_init_device`, `phase2_init_device`);
+- the interactive tier message by message with its folded tables, also
+  over fault F3's zero-coefficient polynomials at nv=3 and 10 and a batch
+  with one zero-coefficient instance, and the GKR device-init wrappers
+  (`phase1_init_device`, `phase2_init_device`);
 - the BN254 golden fixture `tests/fixtures/bn254_torch.json`, re-derived
   through the JAX package, equal to the committed file, and proved by the
   port on every path.
@@ -420,6 +422,14 @@ def child(out_path: str) -> None:
         jv, v = J.IPForMLSumcheck.sample_round(jrng), T.IPForMLSumcheck.sample_round(rng)
     out["interactive_ml_nv6"] = {"port": got, "jax": want}
 
+    # fault F3: zero-coefficient tables read back after every round
+    from test_torch_interactive import zero_coefficient_rounds
+
+    for nv in (3, 10):
+        got, want = zero_coefficient_rounds(nv)
+        out[f"interactive_zero_coefficient_nv{nv}"] = {
+            "port": [[m.hex(), t] for m, t in got], "jax": [[m.hex(), t] for m, t in want]}
+
     # the GKR device-init wrappers, colliding entries, against the JAX
     # package's wrappers' values mod p: their `reduce_wide` leaves a segment
     # sum that passes 3p at or above p (ROADMAP section 3.6; here f1(g, u, .)
@@ -487,6 +497,15 @@ def child(out_path: str) -> None:
                      for p, rs, r in zip(proofs, challenges, rngs)],
             "jax": alone}
     set_path("generic")
+    batch = _batch_arrays(8, 3, 5)  # F3: one instance's product [2, 0] has the coefficient 0
+    batch[1]["products"][1] = (0, batch[1]["products"][1][1])
+    rngs = [T.Blake2b512Rng.setup() for _ in batch]
+    proofs, challenges = BatchedMLSumcheck.prove_as_subprotocol(
+        rngs, [_port_poly(a) for a in batch], device="cpu")
+    out["batch_ml_zero_coefficient"] = {
+        "port": [{"proof": serialize_proof(p).hex(), "state": _state(r),
+                  "randomness": [x.v for x in rs]} for p, rs, r in zip(proofs, challenges, rngs)],
+        "jax": [j_ml(jpoly(a)) for a in batch]}
     gkrs = [_gkr_arrays(4, 16, 40 + b) for b in range(2)]
     rngs = [T.Blake2b512Rng.setup() for _ in gkrs]
     insts = [_port_gkr(a) for a in gkrs]
@@ -565,12 +584,13 @@ CASES = (
     + [f"ml_nv{nv}_{p}" for nv in (6, 8) for p in ML_PATHS + ("verify",)]
     + [f"gkr_dim{d}_{p}" for d in (4, 5) for p in GKR_PATHS + ("verify",)]
     + [f"gkr_dim9_colliding_{p}" for p in GKR_PATHS] + ["reduce_wide"]
-    + ["batch_ml_generic", "batch_ml_persize", "batch_gkr_generic"]
+    + ["batch_ml_generic", "batch_ml_persize", "batch_gkr_generic", "batch_ml_zero_coefficient"]
     + ["fixture_rederived"] + [f"fixture_ml_{p}" for p in ML_PATHS]
     + [f"fixture_gkr_{p}" for p in GKR_PATHS] + ["fixture_fr_rand"]
     + [f"sharded_{name}_s{size}" for size in SHARDS
        for name in ("ml", "gkr", "batch", "sp", "ranks")]
     + ["interactive_ml_nv6", "phase_inits_dim3"]
+    + [f"interactive_zero_coefficient_nv{nv}" for nv in (3, 10)]
 )
 
 

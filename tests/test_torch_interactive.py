@@ -35,7 +35,7 @@ from sumcheck_tpu.ops import gkr_init as JGI
 from sumcheck_tpu.utils import sol as JSOL
 from sumcheck_tpu_torch.ops import gkr_init as GI
 from sumcheck_tpu_torch.ops import round_cuda as RC
-from sumcheck_tpu_torch.protocol.prover import bitrev_perm
+from sumcheck_tpu_torch.protocol.prover import bitrev_perm, to_bitrev
 from sumcheck_tpu_torch.utils import sol as SOL
 from test_torch_prover import both
 
@@ -124,18 +124,134 @@ def test_round_bookkeeping_errors_unchanged():
         T.IPForMLSumcheck.prover_init(poly, device="cpu")
 
 
-def test_zero_coefficient_table_refuses_to_read():
-    """A table that took the coefficient 0 in its own slot has lost its
-    values: reading it raises rather than return zeros."""
-    nv = 3
-    t = np.random.default_rng(14).integers(0, 1 << 14, size=(2, 16, 1 << nv), dtype=np.uint32)
+def zero_coefficient_polys(nv: int):
+    """Fault F3's inputs, (JAX polynomial, port polynomial): tables from
+    `random.Random(5)` by the JAX package's `DenseMLE.rand`, carried across
+    as digits. nv=3: one product [a, b] with coefficient 0 (the recorded
+    case); larger nv: `chip_smoke.py`'s F3 polynomial, 0 x [t0, t1, t2] +
+    c x [t3, t4, t5] with c drawn from the same `Random`."""
     from sumcheck_tpu_torch.convert import polynomial_from_numpy
 
-    st = T.IPForMLSumcheck.prover_init(polynomial_from_numpy(nv, list(t), [(0, [0, 1])]),
-                                       device="cpu")
-    with pytest.raises(T.SumcheckError, match="coefficient 0"):
-        st.flattened_ml_extensions
+    rnd = random.Random(5)
+    count = 2 if nv == 3 else 6
+    mles = [J.DenseMLE.rand(nv, rnd) for _ in range(count)]
+    products = [(0, [0, 1])] if nv == 3 else [(0, [0, 1, 2]), (rnd.randrange(P), [3, 4, 5])]
+    jp = J.ListOfProductsOfPolynomials(nv)
+    for c, ix in products:
+        jp.add_product([mles[i] for i in ix], J.Fr(c))
+    return jp, polynomial_from_numpy(nv, [m.evals for m in mles], products)
 
+
+def zero_coefficient_rounds(nv: int) -> tuple[list, list]:
+    """The interactive tier over F3's polynomial in both packages: after
+    every round, (message bytes, folded tables), the port's and the JAX
+    package's. `tests/test_torch_field.py` runs it under BN254."""
+    jp, tp = zero_coefficient_polys(nv)
+    got, want = [], []
+    for jst, st, jm, m in _rounds(jp, tp, seed=nv):
+        got.append((m.serialize_uncompressed(), [t.tolist() for t in st.flattened_ml_extensions]))
+        want.append((jm.serialize_uncompressed(),
+                     [np.asarray(t).tolist() for t in jst.flattened_ml_extensions]))
+    return got, want
+
+
+def test_zero_coefficient_table_refuses_to_read():
+    """Fault F3, nv=3: a product whose coefficient is 0 takes a scaled copy
+    slot, so its tables survive unscaled and `flattened_ml_extensions`
+    returns them, equal to the JAX package's after every round (both
+    tables, no raise), with equal messages."""
+    got, want = zero_coefficient_rounds(3)
+    assert len(got) == 3
+    assert all(len(tables) == 2 for _m, tables in got)
+    assert got == want
+
+
+@pytest.mark.parametrize("nv", [3, 10])
+def test_zero_coefficient_tables_match_jax(nv):
+    """F3 at nv=3 and 10 (a zero and a nonzero product): the fold plan
+    keeps the old slots for the nonzero coefficient and adds one copy slot
+    for the zero one, the pair holds the source tables untouched and the
+    copy zeroed, and every round's message and tables equal the JAX
+    package's."""
+    from sumcheck_tpu_torch.protocol import device_prover as TD
+
+    jp, tp = zero_coefficient_polys(nv)
+    tables = len(tp.flattened_ml_extensions)
+    products, scale_plan, slots, ones = TD._fold_plan(tp)
+    assert [dst for dst, src, c in scale_plan if c == 0] == [tables]
+    assert slots == tables + 1 and not ones and products[0][0] == tables
+    st = T.IPForMLSumcheck.prover_init(tp, device="cpu")
+    lo, hi = st.stacked
+    assert not lo[tables].any() and not hi[tables].any()
+    for i, m in enumerate(tp.flattened_ml_extensions):
+        if all(i != src for dst, src, c in scale_plan if dst == src):
+            both = torch.cat([lo[i], hi[i]], dim=1).numpy().astype(np.uint32)
+            np.testing.assert_array_equal(both, to_bitrev(m.evals, nv))
+    got, want = zero_coefficient_rounds(nv)
+    assert len(got) == nv and got == want
+
+
+
+def _slot_limit_polys(tables: int, nv: int = 3):
+    """(JAX polynomial, port polynomial) of `tables` tables from
+    `random.Random(tables)`, each used by one product (products of three
+    for 15 tables, of two otherwise), the first product's coefficient 0 and
+    the others' random."""
+    from sumcheck_tpu_torch.convert import polynomial_from_numpy
+
+    rnd = random.Random(tables)
+    mles = [J.DenseMLE.rand(nv, rnd) for _ in range(tables)]
+    width = 3 if tables % 3 == 0 else 2
+    products = [(0 if i == 0 else rnd.randrange(2, P), list(range(i, i + width)))
+                for i in range(0, tables - width + 1, width)]
+    jp = J.ListOfProductsOfPolynomials(nv)
+    for c, ix in products:
+        jp.add_product([mles[i] for i in ix], J.Fr(c))
+    return jp, polynomial_from_numpy(nv, [m.evals for m in mles], products)
+
+
+@pytest.mark.parametrize("tables", [15, 16])
+def test_zero_coefficient_at_the_slot_limit(tables):
+    """F3 at the kernels' 16 slots (`init_cuda.MAX_SLOTS`). 15 tables: the
+    zero product's copy slot makes 16, and every round's message and tables
+    equal the JAX package's. 16 tables: a copy would make 17, so the plan
+    scales the table by 0 in place, as the JAX plan does; every message
+    still equals the JAX package's, and only `flattened_ml_extensions`
+    refuses the wiped table."""
+    from sumcheck_tpu_torch.ops import init_cuda
+    from sumcheck_tpu_torch.protocol import device_prover as TD
+
+    jp, tp = _slot_limit_polys(tables)
+    _products, scale_plan, slots, ones = TD._fold_plan(tp)
+    assert slots == init_cuda.MAX_SLOTS == 16 and not ones
+    assert scale_plan[0] == ((15, 0, 0) if tables == 15 else (0, 0, 0))
+    rounds = 0
+    for jst, st, jm, m in _rounds(jp, tp, seed=tables):
+        assert m.serialize_uncompressed() == jm.serialize_uncompressed()
+        want = [np.asarray(t).tolist() for t in jst.flattened_ml_extensions]
+        if tables == 15:
+            assert [t.tolist() for t in st.flattened_ml_extensions] == want
+        else:
+            with pytest.raises(T.SumcheckError, match="coefficient 0 in place"):
+                st.flattened_ml_extensions
+        rounds += 1
+    assert rounds == tp.num_variables
+
+
+def test_plan_past_the_slot_limit_raises_before_any_launch(monkeypatch):
+    """18 tables need 18 slots even in place: `prover_init` and the prove
+    raise `SumcheckError` from the plan, before the pair-init wrapper is
+    called."""
+    from sumcheck_tpu_torch.ops import init_cuda
+
+    calls = []
+    monkeypatch.setattr(init_cuda, "pair_init", lambda *a, **k: calls.append(1))
+    _jp, tp = _slot_limit_polys(18)
+    with pytest.raises(T.SumcheckError, match="18 table slots"):
+        T.IPForMLSumcheck.prover_init(tp, device="cpu")
+    with pytest.raises(T.SumcheckError, match="18 table slots"):
+        T.MLSumcheck.prove(tp, device="cpu")
+    assert calls == []
 
 def _gkr_case(dim: int, seed: int):
     rnd = random.Random(seed)

@@ -23,6 +23,8 @@ provers give those bytes), tolerance 0:
 - the rejections (nv or dim too small for S, B not a multiple of S, a
   transcript other than `Blake2b512Rng`) raise `SumcheckError` and leave
   every transcript untouched;
+- `ChainedShardedProver.auto(S)` and `ShardedGKRProver.auto(S)`: the same
+  proofs, and `auto` with a size other than the group's raises;
 - `ShardedProver` (`parallel/prover.py`, the transcript on the host) over a
   `Blake2b512Rng`, an unaligned one and a transcript of another class,
   against the JAX package's `ShardedProver(default_mesh(S))` on the
@@ -200,21 +202,21 @@ def _rank_cases(size: int, cases: dict) -> dict:
     gkr = ShardedGKRProver(device="cpu")
     out = {}
 
-    def ml_prove(name, a, prefix=b""):
+    def ml_prove(name, a, prefix=b"", prover=ml):
         rng = Blake2b512Rng.setup()
         rng.feed_bytes(prefix)
         comm.all_reduce_sum_.calls = comm.all_reduce_sum_.bytes = 0
-        proof, state = ml.prove_as_subprotocol(rng, _port_poly(a))
+        proof, state = prover.prove_as_subprotocol(rng, _port_poly(a))
         out[name] = {"proof": serialize_proof(proof).hex(), "state": _state(rng),
                      "randomness": [r.v for r in state.randomness],
                      "tables": [t.tolist() for t in state.flattened_ml_extensions],
                      "collectives": comm.all_reduce_sum_.calls}
 
-    def gkr_prove(name, a, prefix=b""):
+    def gkr_prove(name, a, prefix=b"", prover=gkr):
         rng = Blake2b512Rng.setup()
         rng.feed_bytes(prefix)
         comm.all_reduce_sum_.calls = comm.all_reduce_sum_.bytes = 0
-        proof = gkr.prove(rng, *_port_gkr(a))
+        proof = prover.prove(rng, *_port_gkr(a))
         out[name] = {"proof": proof.serialize_uncompressed().hex(), "state": _state(rng),
                      "collectives": comm.all_reduce_sum_.calls}
 
@@ -250,6 +252,11 @@ def _rank_cases(size: int, cases: dict) -> dict:
     ml_prove("ml_unaligned", cases["ml"], b"abc")
     gkr_prove("gkr", cases["gkr"])
     gkr_prove("gkr_unaligned", cases["gkr"], b"abc")
+    ml_prove("ml_auto", cases["ml"], prover=ChainedShardedProver.auto(size, device="cpu"))
+    gkr_prove("gkr_auto", cases["gkr"], prover=ShardedGKRProver.auto(size, device="cpu"))
+    out["auto_reject"] = [
+        _rejected(lambda: cls.auto(2 * size, device="cpu"), [])[0]
+        for cls in (ChainedShardedProver, ShardedGKRProver, ShardedProver)]
     batch_prove("batch", cases["batch"], [b""] * len(cases["batch"]))
     batch_prove("batch_unaligned", cases["batch"][:size],
                 [b"abc" if b == size - 1 else b"" for b in range(size)])
@@ -411,6 +418,21 @@ def test_ml_matches_jax(run):
     for got, want in _each_rank(run, "ml"):
         assert {k: got[k] for k in want} == want
         assert got["collectives"] == 6 - _log2(size) + (size > 1)
+
+
+def test_auto_constructors_match_jax(run):
+    """`ChainedShardedProver.auto(S)` and `ShardedGKRProver.auto(S)` over
+    the default group prove the JAX package's bytes and final transcript
+    on every rank, as the constructors given the group do; `auto` with a
+    size other than the group's raises `SumcheckError`, for all three
+    provers."""
+    _size, ranks, ref = run
+    for got in ranks:
+        for name in ("ml", "gkr"):
+            auto, want = got[f"{name}_auto"], ref[name]
+            assert {k: auto[k] for k in want} == want
+            assert auto == got[name]
+        assert got["auto_reject"] == [True, True, True]
 
 
 def test_boundary_nv_matches_jax(run):

@@ -80,3 +80,21 @@ def test_matches_jax_transcript():
         assert Fr.rand(a).v == J.Fr.rand(j).v
     assert a.next_u32() == j.next_u32()
     assert a.fill_bytes(64) == j.fill_bytes(64)
+
+
+@pytest.mark.parametrize("native", ["on", "off"])
+@pytest.mark.parametrize("k", [1, 4, 9])
+def test_next_u64s_matches_jax(k, native, monkeypatch):
+    """`Blake2b512Rng.next_u64s(k)`: the JAX package's k draws, and the same
+    as k `next_u64` calls, on the C core and on hashlib; the streams stay in
+    step after it."""
+    if native == "off":
+        monkeypatch.setenv("SUMCHECK_TPU_NATIVE", "off")
+    a, b, j = Blake2b512Rng.setup(), Blake2b512Rng.setup(), J.Blake2b512Rng.setup()
+    for rng in (a, b, j):
+        rng.feed_bytes(b"next_u64s")
+    for _ in range(3):
+        draws = a.next_u64s(k)
+        assert draws == j.next_u64s(k) == [b.next_u64() for _ in range(k)]
+        assert all(isinstance(d, int) and 0 <= d < 1 << 64 for d in draws)
+    assert a.state_tuple() == b.state_tuple() == j.state_tuple()
