@@ -8,8 +8,9 @@ Run from the root of a checkout. Phases, each printed on its own lines; any
 failure raises and exits non-zero without the final line:
 
 1. the card's name and power limit (`nvidia-smi`); no CUDA device -> exit 1;
-2. build the four kernel sources, `sumcheck_tpu_torch/csrc/round.cu`,
-   `csrc/transcript.cu`, `csrc/round_mxu.cu` and `csrc/pair_init.cu`, one
+2. build the five kernel sources, `sumcheck_tpu_torch/csrc/round.cu`,
+   `csrc/transcript.cu`, `csrc/round_mxu.cu`, `csrc/pair_init.cu` and
+   `csrc/fold_staged.cu` (the fold body's yardstick, phase 6e), one
    `nvcc` each, started together; print each kernel's registers, shared memory, stack frame and
    spills from the ptxas logs, and the SASS instruction mix of the
    transcript and round kernels (`cuobjdump`, where the toolkit has it);
@@ -43,7 +44,10 @@ failure raises and exits non-zero without the final line:
    at the 8 x nv=16 2x3 shapes, each beside 8 single launches of the same
    work; 6d. the batched transcript step over 8 transcripts of unequal
    pending bytes against its plain version and the host rngs, beside 8
-   single steps, with its latency bound;
+   single steps, with its latency bound; 6e. the two kernels redesigned
+   for Hopper, `round_fold` and `pair_init`, each against the variant it
+   did not take (the stripes staged by cp.async; one lane a thread), in
+   turns, with ptxas registers, stack and blocks per multiprocessor;
 7. the golden fixtures `tests/fixtures/ml_nv6_rich.json`,
    `ml_nv14_config1.json` and `gkr_dim5.json` through `device="cuda"` on
    both chains and in the MXU fold mode;
@@ -190,8 +194,7 @@ GKR_DIM = 18  # the bench's GKR size (`bench.py:560`)
 KERNEL_REPS = 20
 PLAIN_REPS = 3
 INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor-core peak
-LAYOUT_BYTES = 64  # an element as the kernels hold it: 16 digits in 32-bit words
-ELEMENT_BYTES = 32  # an element as the bound counts it: 255 or 254 bits in 8 32-bit limbs
+ELEMENT_BYTES = 32  # an element: 255 or 254 bits in 8 32-bit limbs, as the kernels hold it
 # 32-bit multiplies in one 8-limb CIOS Montgomery multiply: 64 + 64
 # 32x32->64-bit products (a*b and m*p), two 32-bit multiplies each (low
 # and high word), and 8 for m = t0 * ninv
@@ -202,8 +205,8 @@ IMADS_PER_MONT_MUL = 2 * 2 * 64 + 8
 # xor of the rotate by 32, one; three xor-and-rotates of two each)
 G_LEVELS = 24
 G_DEPTH = 15
-# round 0 evaluates in registers up to this degree (`csrc/round.cu`,
-# kMaxRegisterDegree), with the ladder above it
+# the round bodies evaluate in registers up to this degree
+# (`csrc/round_common.cuh`, kMaxRegisterDegree), with the ladder above it
 REGISTER_MAX_DEGREE = 4
 # each kernel's time at its main shape before its current version (PERF.md,
 # section 6, in parentheses; an H100 80GB HBM3 at 700 W), quoted in the
@@ -217,11 +220,12 @@ RATES: dict = {}  # the card's SM count, clock and IMAD rate (`microbench.card_r
 
 def eval_multiplies(products, degree: int, coeffs: bool, registers: bool) -> int:
     """Montgomery multiplies of one lane's evaluation at t = 0..d. The
-    ladder (fold kernels; round 0 above degree `REGISTER_MAX_DEGREE`):
-    (factors - 1) x (d+1) a product, (d+1) more with coefficients. Round 0
-    in registers (`csrc/round.cu` `nofold_kernel`): factor l of a product
-    multiplies at t = 0..min(l+1, d), the last at all d+1 points (the rest
-    by differences), and a coefficient 2."""
+    ladder (above degree `REGISTER_MAX_DEGREE`): (factors - 1) x (d+1) a
+    product, (d+1) more with coefficients. In registers (`register_sums`,
+    `csrc/round_common.cuh`: every round body up to that degree, round 0
+    and the folds alike): factor l of a product multiplies at t =
+    0..min(l+1, d), the last at all d+1 points (the rest by differences),
+    and a coefficient 2."""
     f = len(products[0])
     if registers:
         per = sum((degree if l == f - 1 else min(l + 1, degree)) + 1 for l in range(1, f))
@@ -233,15 +237,16 @@ def eval_multiplies(products, degree: int, coeffs: bool, registers: bool) -> int
 
 def round_work(lanes, slots, products, degree, fold, coeffs=False, mma=False) -> dict:
     """What a round kernel must do at one shape: bytes (each input stripe
-    read once, each output stripe written once: 16 digits x 4 bytes per
-    lane and slot), 32-bit multiplies of its Montgomery multiplies (2 per
-    slot for a fold, the evaluation's `eval_multiplies`), and, for the MXU fold, the
+    read once, each output stripe written once: 8 limbs x 4 bytes per lane
+    and slot), 32-bit multiplies of its Montgomery multiplies (2 per
+    slot for a fold, and the evaluation's `eval_multiplies`: the register
+    count up to `REGISTER_MAX_DEGREE`, the ladder's above it, for every
+    kernel of the function, the MXU fold too), and, for the MXU fold, the
     int8 tensor-core operations of its fold multiplies (4 mma.m16n8k32 per
     16 lanes each) in place of their IMADs, plus the 32 Montgomery
     multiplies of each 128-lane block's byte matrix."""
-    stripe = 64 * lanes * slots
-    evals = eval_multiplies(products, degree, coeffs,
-                            not fold and degree <= REGISTER_MAX_DEGREE)
+    stripe = ELEMENT_BYTES * lanes * slots
+    evals = eval_multiplies(products, degree, coeffs, degree <= REGISTER_MAX_DEGREE)
     folds = 2 * slots if fold else 0
     matrix = 32 * -(-lanes // 128) if mma else 0
     return {"bytes": stripe * (6 if fold else 2),
@@ -252,15 +257,19 @@ def round_work(lanes, slots, products, degree, fold, coeffs=False, mma=False) ->
 def bound_of(work: dict) -> tuple[float, str, str]:
     """(bound ms, bound_by, what sets it): the larger of the bytes the
     function must move at the card's memory rate and the operations at its
-    peak rate for their type. `work["bytes"]` is what the kernels move, 64 B
-    an element (16 digits in 32-bit words, the TPU's layout); the function
-    needs only the 32 B of a BLS12-381 or BN254 element (`ELEMENT_BYTES`),
-    so the bound counts that."""
+    peak rate for their type. `work["bytes"]` counts 32 B an element
+    (`ELEMENT_BYTES`), what the kernels move and the function needs."""
     from sumcheck_tpu_torch.microbench import HBM_BYTES_PER_S
 
-    mem_ms = work["bytes"] * ELEMENT_BYTES / LAYOUT_BYTES / HBM_BYTES_PER_S * 1e3
+    mem_ms = work["bytes"] / HBM_BYTES_PER_S * 1e3
     op_ms = (work["imads"] / RATES["imad_per_s"] + work["int8_ops"] / INT8_OPS_PER_S) * 1e3
     return (mem_ms, "bytes", "memory") if mem_ms >= op_ms else (op_ms, "operations", "int")
+
+
+def max_diff(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest absolute difference of two integer tensors, in int64 (a
+    difference of two int32 limb words can pass 2^31)."""
+    return int((a.long() - b.long()).abs().max())
 
 
 def check(ok: bool, what: str) -> None:
@@ -277,10 +286,11 @@ def card_line() -> str:
 
 
 def random_pair(rng, slots: int, half: int, device):
-    """A random (lo, hi) pair of `slots` tables of 2 * half lanes."""
-    from sumcheck_tpu_torch.fields.limbs_np import random_tables
+    """A random (lo, hi) pair of `slots` tables of 2 * half lanes, (slots,
+    8, half) int32 limbs."""
+    from sumcheck_tpu_torch.fields.limbs_np import pack_limbs, random_tables
 
-    stacked = np.stack(random_tables(rng, half.bit_length(), slots)).astype(np.int32)
+    stacked = pack_limbs(np.stack(random_tables(rng, half.bit_length(), slots)), axis=1)
     lo = torch.from_numpy(np.ascontiguousarray(stacked[:, :, :half])).to(device)
     hi = torch.from_numpy(np.ascontiguousarray(stacked[:, :, half:])).to(device)
     return lo, hi
@@ -331,8 +341,8 @@ def compare_round(rc, name, lo, hi, r, products, degree, extent, device, timed):
         got = rc.round_nofold(lo_k, hi_k, products, degree, extent)
         want = rc.round_nofold_ref(lo_p, hi_p, products, degree, extent)
     sync(device)
-    err = int((got - want).abs().max())
-    err = max(err, int((lo_k - lo_p).abs().max()), int((hi_k - hi_p).abs().max()))
+    err = max_diff(got, want)
+    err = max(err, max_diff(lo_k, lo_p), max_diff(hi_k, hi_p))
     check(err == 0, f"{name}: kernel differs from plain by {err}")
     check((rc.finish_sums(got) == rc.finish_sums(want)).all(), f"{name}: wide sums differ")
     if fold:  # lanes past the extent stay as they were
@@ -394,7 +404,7 @@ def kernel_phase(device, seed: int, nv: int = NV) -> dict:
         bound_ms, bound_by, _ = bound_of(work)
         print(f"round_fold A2=2^{nv - 2} (U=6, d=3): {ms:.4f} ms, {work['bytes'] / ms / 1e9:.3f} "
               f"TB/s of {HBM_BYTES_PER_S / 1e12} TB/s; bound {bound_ms:.4f} ms by {bound_by} "
-              f"({work['bytes'] * ELEMENT_BYTES / LAYOUT_BYTES / 1e6:.1f} MB at 32 B an element; "
+              f"({work['bytes'] / 1e6:.1f} MB at 32 B an element; "
               f"{work['imads'] / 1e9:.3f}e9 32-bit multiplies at "
               f"{RATES['imad_per_s'] / 1e12:.2f}e12/s), {bound_ms / ms:.1%} of it; "
               f"previous version (PERF.md): {PREVIOUS_MS['round_fold']} ms")
@@ -432,10 +442,10 @@ def compare_step(rc, name, lo, hi, r, products, degree, coeffs, device):
         got = rc.round_step_nofold(lo, hi, products, degree, coeffs)
         want = rc.round_step_nofold_ref(lo, hi, products, degree, coeffs)
     sync(device)
-    err = int((got - want).abs().max())
+    err = max_diff(got, want)
     if fold:
-        check(glo.shape == (lo.shape[0], 16, lo.shape[2] // 2), f"{name}: folded shape {glo.shape}")
-        err = max(err, int((glo - wlo).abs().max()), int((ghi - whi).abs().max()))
+        check(glo.shape == (lo.shape[0], 8, lo.shape[2] // 2), f"{name}: folded shape {glo.shape}")
+        err = max(err, max_diff(glo, wlo), max_diff(ghi, whi))
     check(err == 0, f"{name}: kernel differs from plain by {err}")
     if fold:
         ms = time_ms(lambda: rc.round_step_fold(lo, hi, r, products, degree, coeffs, row),
@@ -510,8 +520,8 @@ def compare_mxu(rc, name, lo, hi, r, products, degree, extent, device):
     (got, lo_k, hi_k) = runs[0]
     err = 0
     for sums, lo_c, hi_c in runs[1:]:
-        err = max(err, int((got - sums).abs().max()), int((lo_k - lo_c).abs().max()),
-                  int((hi_k - hi_c).abs().max()))
+        err = max(err, max_diff(got, sums), max_diff(lo_k, lo_c),
+                  max_diff(hi_k, hi_c))
     check(err == 0, f"{name}: MXU fold kernel differs from its plain version or round_fold "
                     f"by {err}")
     check(torch.equal(lo_k[:, :, extent:], lo[:, :, extent:])
@@ -790,7 +800,7 @@ def transcript_phase(device, seed: int, rounds: int = 60, degree: int = 3,
         tc.transcript_step(state_k, sums[j], msgs_k, rs_k, j)
     state_p, msgs_p, rs_p = (plain or (lambda: plain_transcript(seed, rounds, degree, device)))()
     sync(device)
-    err = max(int((a.cpu().long() - b.long()).abs().max())
+    err = max(max_diff(a.cpu().long(), b.long())
               for a, b in ((state_k, state_p), (msgs_k, msgs_p), (rs_k, rs_p)))
     check(err == 0, f"transcript kernel differs from plain by {err}")
 
@@ -1064,7 +1074,7 @@ def device_busy(fn, top: int = 5) -> dict:
 
 
 # substrings of the port's kernels' names as the profiler shows them
-ROUND_KERNELS = ("round_kernel", "nofold_kernel", "fold_mxu_kernel")
+ROUND_KERNELS = ("round_kernel", "fold_kernel", "fold_mxu_kernel")  # "fold_kernel": nofold_kernel too
 
 
 def classify(by_name: dict, scale: float | None = None) -> dict:
@@ -1427,12 +1437,12 @@ def pair_init_phase(device, seed: int, nv: int = NV) -> dict:
     tabs = [m.to_device(device) for m in poly.flattened_ml_extensions]
     before = [t.clone() for t in tabs]
     specs = ic.slot_specs(len(tabs), scale_plan, need_ones)
-    lo = torch.empty((num_slots, 16, 1 << (nv - 1)), dtype=torch.int32, device=device)
+    lo = torch.empty((num_slots, 8, 1 << (nv - 1)), dtype=torch.int32, device=device)
     hi, lo_p, hi_p = (torch.empty_like(lo) for _ in range(3))
     ic.pair_init(lo, hi, tabs, specs)
     ic.pair_init_ref(lo_p, hi_p, tabs, specs)
     sync(device)
-    err = max(int((lo - lo_p).abs().max()), int((hi - hi_p).abs().max()))
+    err = max(max_diff(lo, lo_p), max_diff(hi, hi_p))
     check(err == 0, f"pair_init differs from its plain version by {err}")
     check(all(torch.equal(a, b) for a, b in zip(tabs, before)),
           "pair_init wrote into a cached table")
@@ -1440,19 +1450,113 @@ def pair_init_phase(device, seed: int, nv: int = NV) -> dict:
     plain_ms = time_ms(lambda: ic.pair_init_ref(lo_p, hi_p, tabs, specs), PLAIN_REPS, device)
     scaled = sum(1 for src, c in specs if src is not None and c is not None)
     reads = sum(1 for src, _c in specs if src is not None)
-    work = {"bytes": (reads + num_slots) * 64 * (1 << nv),
+    work = {"bytes": (reads + num_slots) * ELEMENT_BYTES * (1 << nv),
             "imads": scaled * (1 << nv) * IMADS_PER_MONT_MUL, "int8_ops": 0}
     shape = f"ML nv={nv} 2x3: {num_slots} slots, {scaled} scaled"
     bound = ""
     if RATES:
         bound_ms, bound_by, _ = bound_of(work)
         bound = (f"; bound {bound_ms:.4f} ms by {bound_by} "
-                 f"({work['bytes'] * ELEMENT_BYTES / LAYOUT_BYTES / 1e6:.1f} MB at 32 B an "
+                 f"({work['bytes'] / 1e6:.1f} MB at 32 B an "
                  f"element), "
                  f"{bound_ms / ms:.1%} of it")
     print(f"kernel-vs-plain pair_init {shape}: equal, cached tables untouched; kernel "
           f"{ms:.4f} ms, plain (torch ops) {plain_ms:.4f} ms{bound}")
     return {"pair_init": [err, [{"shape": shape, "ms": ms, "plain_ms": plain_ms, "work": work}]]}
+
+
+def alternating_ms(fns: dict, device) -> dict:
+    """{name: device ms} of each function, timed in turns a, b, b, a (the
+    mean of its two runs), so that two versions meet the card alike."""
+    names = list(fns)
+    runs = {n: [] for n in names}
+    for n in names + names[::-1]:
+        runs[n].append(time_ms(fns[n], KERNEL_REPS, device, device_only=True))
+    return {n: sum(v) / len(v) for n, v in runs.items()}
+
+
+def redesign_phase(device, seed: int, ptxas: dict, nv: int = NV) -> dict:
+    """Phase 6e: the two kernels redesigned for Hopper beside the variant
+    each did not take, at the main path's shapes, both checked against the
+    plain version first: `round_fold` (the next slot's stripes prefetched
+    in registers) against `fold_staged.round_fold_staged` (the stripes
+    staged in shared memory by 16-byte cp.async copies of the whole block,
+    `csrc/fold_staged.cu`) at A2=2^(nv-2), and `pair_init` (4 lanes a
+    thread, 16-byte accesses) against its one-lane body (4-byte accesses),
+    which the launch takes for a pair not 16-byte aligned, at the nv=20 2x3
+    pair; timed in turns. Prints each body's ptxas registers and stack frame
+    and its resident blocks a multiprocessor. Returns {kernel: {"registers",
+    "stack", "blocks_per_sm", "ms", "variant": {the same}}}."""
+    from sumcheck_tpu_torch.fields import limbs_np as L
+    from sumcheck_tpu_torch.fields.fr import P
+    from sumcheck_tpu_torch.ops import fold_staged as fs
+    from sumcheck_tpu_torch.ops import init_cuda as ic
+    from sumcheck_tpu_torch.ops import round_cuda as rc
+    from sumcheck_tpu_torch.protocol.device_prover import _fold_plan
+
+    def resources(symbol: str, args: str) -> dict:
+        res = next(v for k, v in ptxas.items() if short_name(k) == symbol + args)
+        return {"registers": res.get("registers"), "stack": res.get("stack")}
+
+    rng = np.random.default_rng(seed + 5)
+    half = 1 << (nv - 1)
+    lo, hi = random_pair(rng, SLOTS, half, device)
+    products = ((0, 1, 2), (3, 4, 5))
+    r = torch.from_numpy(
+        L.mont_scalar(int(rng.integers(1, 1 << 62)) % P)[:, 0].astype(np.int32)).to(device)
+    extent = half // 2
+    runs = []
+    for fn in (rc.round_fold, fs.round_fold_staged, rc.round_fold_ref):
+        lo_c, hi_c = lo.clone(), hi.clone()
+        runs.append((fn(lo_c, hi_c, r, products, 3, extent), lo_c, hi_c))
+    sync(device)
+    err = max(max(max_diff(a, b) for a, b in zip(runs[0], run)) for run in runs[1:])
+    check(err == 0, f"round_fold_staged or round_fold differs from the plain version by {err}")
+    row = torch.zeros((4, 16), dtype=torch.int64, device=device)
+    ms = alternating_ms({"registers": lambda: rc.round_fold(lo, hi, r, products, 3, extent, row),
+                         "staged": lambda: fs.round_fold_staged(lo, hi, r, products, 3, extent,
+                                                                row)}, device)
+    staged = dict(resources("fold_staged_kernel", "ILi3E"),
+                  name="stripes staged in shared memory by the block's 16-byte cp.async",
+                  blocks_per_sm=fs.blocks_per_sm(3, SLOTS), ms=ms["staged"])
+    # fold_kernel<D = 3, in place, no coefficients, one instance>
+    out = {"round_fold": dict(resources("fold_kernel", "ILi3ELb0ELb0ELb0E"),
+                              blocks_per_sm=rc.blocks_per_sm(3, SLOTS), ms=ms["registers"],
+                              shape=f"fold A2=2^{nv - 2} U=6 d=3", variant=staged)}
+    del lo, hi, runs
+
+    poly = headline_poly(seed, nv)
+    _products, scale_plan, num_slots, need_ones = _fold_plan(poly)
+    tabs = [m.to_device(device) for m in poly.flattened_ml_extensions]
+    specs = ic.slot_specs(len(tabs), scale_plan, need_ones)
+    words = num_slots * 8 * half
+    wide = torch.empty((2, words), dtype=torch.int32, device=device)
+    # one word past a 16-byte boundary: the launch takes the one-lane body
+    unaligned = torch.empty((2, words + 1), dtype=torch.int32, device=device)
+    pairs = [[w.view(num_slots, 8, half) for w in wide],
+             [w[1:].view(num_slots, 8, half) for w in unaligned]]
+    check(pairs[1][0].data_ptr() % 16 != 0, "the one-lane pair is 16-byte aligned")
+    for lo_p, hi_p in pairs:
+        ic.pair_init(lo_p, hi_p, tabs, specs)
+    sync(device)
+    err = max(max_diff(a, b) for a, b in zip(pairs[0], pairs[1]))
+    check(err == 0, f"pair_init's one-lane body differs from its four-lane body by {err}")
+    ms = alternating_ms({"wide": lambda: ic.pair_init(pairs[0][0], pairs[0][1], tabs, specs),
+                         "narrow": lambda: ic.pair_init(pairs[1][0], pairs[1][1], tabs, specs)},
+                        device)
+    out["pair_init"] = dict(resources("pair_init_kernel", "ILi4E"),
+                            blocks_per_sm=ic.blocks_per_sm(True), ms=ms["wide"],
+                            shape=f"ML nv={nv} 2x3: {num_slots} slots",
+                            variant=dict(resources("pair_init_kernel", "ILi1E"),
+                                         name="one lane a thread, 4-byte accesses",
+                                         blocks_per_sm=ic.blocks_per_sm(False), ms=ms["narrow"]))
+    for name, o in out.items():
+        v = o["variant"]
+        print(f"redesign {name} at {o['shape']}: {o['registers']} registers, {o['stack']} B "
+              f"stack, {o['blocks_per_sm']} blocks/SM, {o['ms']:.4f} ms; variant not taken "
+              f"({v['name']}): {v['registers']} registers, {v['stack']} B stack, "
+              f"{v['blocks_per_sm']} blocks/SM, {v['ms']:.4f} ms (in turns, this call)")
+    return out
 
 
 def _batch_case(name, compare, batched, singles, plain, batch, device, work):
@@ -1463,7 +1567,7 @@ def _batch_case(name, compare, batched, singles, plain, batch, device, work):
     Returns (err, timing entry)."""
     pairs = compare()
     sync(device)
-    err = max(int((a.long() - b.long()).abs().max()) for a, b in pairs)
+    err = max(max_diff(a.long(), b.long()) for a, b in pairs)
     check(err == 0, f"{name}: batched kernel differs from its plain version by {err}")
     ms = time_ms(batched, KERNEL_REPS, device, device_only=True)
     singles_ms = time_ms(singles, KERNEL_REPS, device, device_only=True)
@@ -1612,7 +1716,7 @@ def batch_transcript_phase(device, seed: int, batch: int = BATCH, rounds: int = 
         tc.transcript_step_batched(state_k, sums[j], msgs, rs, j)
     plain_ms = time_ms(lambda: tc.transcript_step_batched_ref(state_p, sums[0], msgs_p, rs_p, 0),
                        1, device, warm=False)
-    err = max(int((a.long() - b.long()).abs().max())
+    err = max(max_diff(a.long(), b.long())
               for a, b in ((msgs[:1], msgs_p), (rs[:1], rs_p)))
     check(err == 0, f"batched transcript kernel differs from plain by {err}")
     worst = [0] * rounds
@@ -2066,7 +2170,7 @@ def zero_coefficient_phase(device, seed: int, nv: int = NV, compared=(0, 1, 5)) 
     input tables."""
     from sumcheck_tpu_torch import Blake2b512Rng, IPForMLSumcheck, MLSumcheck
     from sumcheck_tpu_torch.convert import polynomial_from_numpy
-    from sumcheck_tpu_torch.fields.limbs_np import random_tables
+    from sumcheck_tpu_torch.fields.limbs_np import random_tables, unpack_limbs
     from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
     from sumcheck_tpu_torch.protocol.device_prover import _fold_plan
     from sumcheck_tpu_torch.protocol.prover import to_bitrev
@@ -2112,7 +2216,7 @@ def zero_coefficient_phase(device, seed: int, nv: int = NV, compared=(0, 1, 5)) 
           "F3: the pair-init kernel's pair differs from its plain version's")
     check(not pair[0][6].any() and not pair[1][6].any(), "F3: the copy slot is not zero")
     for i in (0, 1, 2, 4, 5):
-        both = torch.cat([pair[0][i], pair[1][i]], dim=1).numpy().astype(np.uint32)
+        both = unpack_limbs(torch.cat([pair[0][i], pair[1][i]], dim=1).numpy())
         check(np.array_equal(both, to_bitrev(tables[i], nv)), f"F3: table {i} was not kept")
     rng_card, rng_plain = Blake2b512Rng.setup(), Blake2b512Rng.setup()
     v_card = v_plain = None
@@ -3011,7 +3115,7 @@ def main() -> int:
           f"{RATES['imad_per_s'] / 1e12:.3f}e12 32-bit IMAD/s, {MB.HBM_BYTES_PER_S / 1e12} TB/s")
 
     t0 = time.perf_counter()
-    libs = cuda_build.build("round", "transcript", "round_mxu", "pair_init")
+    libs = cuda_build.build("round", "transcript", "round_mxu", "pair_init", "fold_staged")
     build_s = time.perf_counter() - t0
     print(f"build: {', '.join(lib.name for lib in libs.values())} in {build_s:.2f} s (in parallel)")
     ptxas = {}
@@ -3022,8 +3126,8 @@ def main() -> int:
                   f"{res.get('smem')} B static smem, {res.get('stack')} B stack frame, "
                   f"spills {res.get('spill_stores')}/{res.get('spill_loads')} B")
     for name, kernel in (("transcript", "transcript_kernel"), ("round", "round_kernel"),
-                         ("round", "nofold_kernel"), ("round_mxu", "fold_mxu_kernel"),
-                         ("pair_init", "pair_init_kernel")):
+                         ("round", "11fold_kernel"), ("round", "nofold_kernel"),
+                         ("round_mxu", "fold_mxu_kernel"), ("pair_init", "pair_init_kernel")):
         for fn, ops in sass_ops(libs[name], kernel).items():
             c = sass_classes(ops)
             print(f"  SASS {short_name(fn)}: {c['total']} instructions ({c['total'] * 16} B); "
@@ -3049,7 +3153,8 @@ def main() -> int:
     stats.update(pair_init_phase(device, args.seed))
     stats.update(batch_kernel_phase(device, args.seed))
     stats.update(batch_transcript_phase(device, args.seed))
-    mark("pair init and batched kernels")
+    redesign = redesign_phase(device, args.seed, ptxas)
+    mark("pair init, batched kernels and redesigns")
     golden_phase(device)
     gkr_golden_phase(device)
     mark("golden fixtures")
@@ -3125,7 +3230,9 @@ def main() -> int:
     symbols = {"transcript_step": "transcript_kernel", "round_fold_mxu": "fold_mxu_kernel",
                "transcript_step_batched": "transcript_kernel", "pair_init": "pair_init_kernel",
                "round_nofold": "nofold_kernel", "round_step_nofold": "nofold_kernel",
-               "round_nofold_batched": "nofold_kernel"}
+               "round_nofold_batched": "nofold_kernel", "round_fold": "fold_kernel",
+               "round_step_fold": "fold_kernel", "round_fold_batched": "fold_kernel",
+               "round_step_fold_batched": "fold_kernel"}
     for name, replaces, path in (
         ("round_nofold", "sumcheck_tpu/ops/round_pallas.py:246", "ml generic"),
         ("round_fold", "sumcheck_tpu/ops/round_pallas.py:192", "ml generic"),
@@ -3162,7 +3269,9 @@ def main() -> int:
             f"{FIELD}_ms": bn["ms"],
             f"{FIELD}_bound_ms": bn["bound_ms"],
             f"{FIELD}_max_abs_err": bn["max_abs_err"],
-            "ptxas": {short_name(k): v for k, v in ptxas.items() if symbol in k},
+            "ptxas": {short_name(k): v for k, v in ptxas.items()
+                      if short_name(k).split("I")[0] == symbol},
+            **({"redesign": redesign[name]} if name in redesign else {}),
             "timings": [{k: v for k, v in t.items() if k not in ("work", "bound")}
                         for t in timings],
         })

@@ -51,7 +51,7 @@ import numpy as np
 import torch
 
 from .fields import limbs_np as L
-from .fields.fr import NUM_DIGITS, Fr, P, R_INV
+from .fields.fr import NUM_DIGITS, NUM_LIMBS, Fr, P, R_INV
 from .fields.limbs_torch import wide_to_int
 from .ml_sumcheck import MLSumcheck
 from .ops import init_cuda, round_cuda
@@ -184,14 +184,14 @@ def _prove_batched_chained(fs_rngs, polynomials, degree: int, nv: int, device):
 
 
 def _host_pair(polynomials, device):
-    """The host loop's (B, T+1, 16, 2^nv/2) pair (`batch.py:482-505`): each
+    """The host loop's (B, T+1, 8, 2^nv/2) pair (`batch.py:482-505`): each
     instance's T tables unscaled, then the ones slot (slot T), one
     `pair_init` launch an instance. Instances of one structure have equal
     table counts (`add_product` numbers tables by first use). Returns (lo,
     hi, T)."""
     tables = len(polynomials[0].flattened_ml_extensions)
     n = 1 << polynomials[0].num_variables
-    shape = (len(polynomials), tables + 1, NUM_DIGITS, n // 2)
+    shape = (len(polynomials), tables + 1, NUM_LIMBS, n // 2)
     lo = torch.empty(shape, dtype=torch.int32, device=device)
     hi = torch.empty_like(lo)
     specs = tuple((u, None) for u in range(tables)) + ((None, 1),)
@@ -293,7 +293,7 @@ class BatchedMLSumcheck:
 
 def _enqueue_gkr(inputs: list, state, dim: int, round_fns=None, transcript_fn=None):
     """Both phases of B GKR instances enqueued with no host sync: each
-    instance's phase-1 init into its slice of one (B, 2, 16, 2^dim/2) pair,
+    instance's phase-1 init into its slice of one (B, 2, 8, 2^dim/2) pair,
     phase 1's rounds on the batched generic chain, each instance's phase-2
     init from its lane-0 final pair and its own column of the challenges,
     and phase 2's rounds. `inputs` are the instances' `_upload`s. Returns
@@ -302,7 +302,7 @@ def _enqueue_gkr(inputs: list, state, dim: int, round_fns=None, transcript_fn=No
     from .ops import gkr_init as GI
 
     products = ((0, 1),)
-    shape = (len(inputs), 2, NUM_DIGITS, 1 << (dim - 1))
+    shape = (len(inputs), 2, NUM_LIMBS, 1 << (dim - 1))
     device = state.device
     lo = torch.empty(shape, dtype=torch.int32, device=device)
     hi = torch.empty_like(lo)

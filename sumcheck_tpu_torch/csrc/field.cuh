@@ -11,9 +11,11 @@
 // reduced into [0, p), as the JAX limb code does, so the integers are
 // bit-identical to it.
 //
-// Storage layout at the tensor boundary is the JAX package's: 16 x 16-bit
-// digits per element in 32-bit words; load_lane / store_lane join and split
-// them.
+// Storage layout at the tensor boundary: a table holds each value as its 8
+// limbs, limb j of lane k at [j * stride + k] (load_lane / store_lane), 32 B
+// an element. The challenges, coefficients and sums rows the transcript
+// reads keep the JAX package's 16 x 16-bit digits, one value a row
+// (load_digits).
 
 #pragma once
 
@@ -23,32 +25,31 @@
 namespace sc {
 
 constexpr int kLimbs = 8;    // 32-bit limbs per field element
-constexpr int kDigits = 16;  // 16-bit digits per field element (storage)
+constexpr int kDigits = 16;  // 16-bit digits per field element (rows, sums)
 
 struct Field {
   uint32_t p[kLimbs];
   uint32_t ninv;  // -p^-1 mod 2^32
 };
 
-// Join 16 digits spaced `stride` words apart into 8 limbs.
-__device__ __forceinline__ void load_lane(uint32_t x[kLimbs],
-                                          const uint32_t* base,
+// The 8 limbs of one lane, spaced `stride` words apart.
+__device__ __forceinline__ void load_lane(uint32_t x[kLimbs], const uint32_t* base,
                                           long long stride) {
 #pragma unroll
-  for (int j = 0; j < kLimbs; ++j) {
-    const uint32_t d0 = base[(2 * j) * stride];
-    const uint32_t d1 = base[(2 * j + 1) * stride];
-    x[j] = d0 | (d1 << 16);
-  }
+  for (int j = 0; j < kLimbs; ++j) x[j] = base[j * stride];
 }
 
 __device__ __forceinline__ void store_lane(uint32_t* base, long long stride,
                                            const uint32_t x[kLimbs]) {
 #pragma unroll
-  for (int j = 0; j < kLimbs; ++j) {
-    base[(2 * j) * stride] = x[j] & 0xFFFFu;
-    base[(2 * j + 1) * stride] = x[j] >> 16;
-  }
+  for (int j = 0; j < kLimbs; ++j) base[j * stride] = x[j];
+}
+
+// Join a row of 16 consecutive 16-bit digits (a challenge, a coefficient)
+// into 8 limbs.
+__device__ __forceinline__ void load_digits(uint32_t x[kLimbs], const uint32_t* digits) {
+#pragma unroll
+  for (int j = 0; j < kLimbs; ++j) x[j] = digits[2 * j] | (digits[2 * j + 1] << 16);
 }
 
 // x in [0, 2p) -> [0, p): x - p on one borrow chain, kept unless it

@@ -57,9 +57,9 @@
 // through a 32 x 9 word exchange tile per warp in shared memory. Lanes >=
 // extent feed zeros and discard the results: mma.sync needs the whole warp.
 //
-// What bounds it on the H100: the same bytes as round_kernel<true,...>
-// (0.180 ms at 2^18 lanes and 6 slots), and per lane the evaluation tail's
-// 16 multiplies as in round_fold; each fold multiply becomes 4 mma per 16
+// What bounds it on the H100: the same bytes as round.cu's fold (32 B an
+// element, 1,152 B a lane at 6 slots: 0.090 ms at 2^18 lanes), and per
+// lane the ladder tail's 16 multiplies; each fold multiply becomes 4 mma per 16
 // lanes, two column sums, two quad normalizations and two exchanges, fewer
 // issue slots than one even/odd multiply and none on its IMAD pipe. While a
 // fold multiplies, the next fold's operands load.
@@ -243,7 +243,7 @@ __global__ void __launch_bounds__(kThreads, 4)
   const int tid = threadIdx.x;
   const long long k = (long long)blockIdx.x * kThreads + tid;
   const bool active = k < extent;
-  const long long slot_stride = (long long)kDigits * H;
+  const long long slot_stride = (long long)kLimbs * H;
 
   // fold value i = 2u + half of slot u; the next one's operands load while
   // this one multiplies (zeros for an inactive lane), the first while the
@@ -257,7 +257,7 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
   if (tid < kBytes) {  // M_j = r 2^(8 j + 16) 2^-256 mod p
     uint32_t rr[kLimbs], m[kLimbs];
-    load_lane(rr, r_digits, 1);
+    load_digits(rr, r_digits);
 #pragma unroll
     for (int j = 0; j < kLimbs; ++j) m[j] = pw.w[tid][j];
     mont_mul(m, rr, m, f);
@@ -332,7 +332,7 @@ extern "C" {
 
 int sc_mxu_threads() { return kThreads; }
 
-// The fold round in place over lanes [0, extent) of the (U, 16, H) pair.
+// The fold round in place over lanes [0, extent) of the (U, 8, H) pair.
 // plan: as sc_round_launch_batched. field: p as 8 x 32-bit limbs, -p^-1 mod 2^32,
 // then 2^(8 j + 16) mod p for j = 0..31, 8 limbs each. sums: the round's
 // (degree+1, 16) int64 row, which the launch adds into. Returns the

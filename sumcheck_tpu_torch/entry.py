@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .fields import limbs_np as L
+from .fields import limbs_torch as LT
 
 ENTRY_NV = 8
 ENTRY_DEGREE = 3
@@ -49,13 +50,14 @@ def entry(device="cuda"):
     """(fn, args): one fused fold + evaluate + exact-reduce round.
 
     `args` = (lo, hi, r): the table pair of `_example(nv=8)` as the round
-    kernels take it, (6, 16, 128) int32 halves of the natural lane order
+    kernels take it, (6, 8, 128) int32 limb halves of the natural lane order
     (slots: the 3 tables, the ones table, 123 x table 0, 456 x table 2), and
     the challenge 789 as (16,) Montgomery digits, on `device`. `fn(lo, hi,
     r)` folds a copy of the pair in place and evaluates it (one
     `round_fold` launch over 64 lanes on a card), then finishes the sums on
-    the host; it returns the folded (16, 4, 128) int32 tables of the JAX
-    layout's slots, on `device`, and the (WIDE, 4) uint32 exact sums."""
+    the host; it returns the folded (16, 4, 128) int32 digit tables of the
+    JAX layout's slots (unpacked from the pair's limbs), on `device`, and
+    the (WIDE, 4) uint32 exact sums."""
     from .ops import round_cuda
     from .protocol.device_prover import resolve_device
 
@@ -64,7 +66,7 @@ def entry(device="cuda"):
     tables = L.random_tables(np.random.default_rng(0), ENTRY_NV, ENTRY_TABLES)
     tables = np.stack(tables + [np.broadcast_to(L.mont_scalar(1), tables[0].shape)])
     scaled = [L.mont_mul(tables[src], L.mont_scalar(c)) for src, c in ENTRY_SCALED]
-    pair = np.concatenate([tables, np.stack(scaled)]).astype(np.int32)  # (6, 16, n)
+    pair = L.pack_limbs(np.concatenate([tables, np.stack(scaled)]), axis=1)  # (6, 8, n)
     half = pair.shape[2] // 2
     lo = torch.from_numpy(np.ascontiguousarray(pair[:, :, :half])).to(device)
     hi = torch.from_numpy(np.ascontiguousarray(pair[:, :, half:])).to(device)
@@ -76,7 +78,8 @@ def entry(device="cuda"):
         extent = lo.shape[2] // 2
         sums = round_cuda.round_fold(lo, hi, r, ENTRY_PRODUCTS, ENTRY_DEGREE, extent)
         folded = torch.cat([lo[:slots, :, :extent], hi[:slots, :, :extent]], dim=2)
-        return folded.permute(1, 0, 2), round_cuda.finish_sums(sums)
+        digits = LT.unpack_limbs(folded, dim=1).to(torch.int32)
+        return digits.permute(1, 0, 2), round_cuda.finish_sums(sums)
 
     return round_step, (lo, hi, r)
 

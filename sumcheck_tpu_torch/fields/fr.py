@@ -74,6 +74,9 @@ NINV_FULL = (-pow(P, -1, 1 << R_BITS)) % (1 << R_BITS)
 DIGIT_BITS = 16
 NUM_DIGITS = 16
 DIGIT_MASK = (1 << DIGIT_BITS) - 1
+# The kernels' tables (the round pair, `DenseMLE.to_device`): the same 256
+# bits as 8 x 32-bit limbs, least significant first (`limbs_torch.pack_limbs`).
+NUM_LIMBS = 8
 # An exact lane sum of up to 2^64 strict values fits NUM_DIGITS + 4 digits.
 WIDE_DIGITS = NUM_DIGITS + 4
 

@@ -8,6 +8,11 @@ uint32 ("strict" form: every digit < 2^16).
 
 NumPy may use uint64/int64 intermediates freely (host only). Copied from
 `sumcheck_tpu/fields/limbs_np.py`; only `WIDE_DIGITS` now comes from `fr`.
+
+The port's device tables hold the same values as 8 x 32-bit limbs (least
+significant first) in int32 words (`pack_limbs` / `unpack_limbs`, and
+`limbs_torch`'s pair of the same names): `DenseMLE.to_device` packs here,
+on the host, before its one upload.
 """
 
 from __future__ import annotations
@@ -83,6 +88,23 @@ def random_tables(rng: np.random.Generator, nv: int, count: int) -> list[np.ndar
         d[NUM_DIGITS - 1] >>= 1 + SHAVE_BITS
         out.append(d)
     return out
+
+
+def pack_limbs(digits: np.ndarray, axis: int = 0) -> np.ndarray:
+    """Strict digits, 16 along `axis` -> the same values as 8 x 32-bit limbs
+    along `axis` (limb j = digit 2j + digit 2j+1 * 2^16), int32 words
+    holding the bit pattern; exact."""
+    d = np.moveaxis(np.asarray(digits).astype(np.uint32), axis, 0)
+    limbs = (d[0::2] | (d[1::2] << 16)).view(np.int32)
+    return np.ascontiguousarray(np.moveaxis(limbs, 0, axis))
+
+
+def unpack_limbs(limbs: np.ndarray, axis: int = 0) -> np.ndarray:
+    """8 x 32-bit limbs along `axis` (int32 words) -> strict uint32 digits,
+    16 along `axis`; exact, the inverse of `pack_limbs`."""
+    x = np.moveaxis(np.asarray(limbs).astype(np.int64) & 0xFFFFFFFF, axis, 0)
+    d = np.stack([x & DIGIT_MASK, x >> DIGIT_BITS], axis=1).reshape((NUM_DIGITS,) + x.shape[1:])
+    return np.ascontiguousarray(np.moveaxis(d.astype(np.uint32), 0, axis))
 
 
 def mont_scalar(v: int) -> np.ndarray:

@@ -13,6 +13,12 @@ bit-identical to it and to `limbs_np`.
 These are the plain versions the CUDA round kernels are checked against
 (`ops/round_cuda.py`, `ops/init_cuda.py`) and the CPU path of the prover.
 They run on any torch device.
+
+The kernels' tables (the round pair, the pair init's sources) hold the
+same values as 8 x 32-bit limbs, least significant first, in int32 words
+holding the bit pattern: half the bytes of the digits. `pack_limbs` and
+`unpack_limbs` convert exactly between the two along one axis; the plain
+versions unpack, compute on digits here, and pack.
 """
 
 from __future__ import annotations
@@ -153,6 +159,24 @@ def wide_to_int(w) -> int:
     for i in range(len(w)):
         v += int(w[i]) << (DIGIT_BITS * i)
     return v
+
+
+def pack_limbs(digits: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Strict digits, 16 along `dim` -> 8 x 32-bit limbs along `dim` (limb
+    j = digit 2j + digit 2j+1 * 2^16), contiguous int32 holding the bit
+    pattern; exact."""
+    d = digits.long().movedim(dim, 0)
+    limbs = d[0::2] | (d[1::2] << DIGIT_BITS)  # < 2^32
+    limbs = limbs - ((limbs >> 31) << 32)  # the int32 reading of the same bits
+    return limbs.to(torch.int32).movedim(0, dim).contiguous()
+
+
+def unpack_limbs(limbs: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """8 x 32-bit limbs along `dim` (int32 bit patterns) -> strict int64
+    digits, 16 along `dim`; exact, the inverse of `pack_limbs`."""
+    x = limbs.long().movedim(dim, 0) & 0xFFFFFFFF
+    d = torch.stack([x & DIGIT_MASK, x >> DIGIT_BITS], dim=1)
+    return d.reshape((_D,) + tuple(x.shape[1:])).movedim(0, dim)
 
 
 def from_numpy(arr: np.ndarray, device=None) -> torch.Tensor:

@@ -286,16 +286,12 @@ def probe_inputs(nv: int, seed: int = 0) -> dict:
 
 def _limbs(digits: np.ndarray) -> np.ndarray:
     """(16, n) 16-bit digits -> (n, 8) 32-bit limbs, as int32."""
-    d = digits.astype(np.uint32)
-    return np.ascontiguousarray((d[0::2] | (d[1::2] << 16)).T).view(np.int32)
+    return np.ascontiguousarray(L.pack_limbs(digits).T)
 
 
 def _digits(limbs: np.ndarray) -> np.ndarray:
     """(n, 8) int32 limbs -> (16, n) uint32 16-bit digits."""
-    u = np.ascontiguousarray(limbs).view(np.uint32).T
-    out = np.empty((NUM_DIGITS, u.shape[1]), dtype=np.uint32)
-    out[0::2], out[1::2] = u & 0xFFFF, u >> 16
-    return out
+    return L.unpack_limbs(limbs, axis=1).T
 
 
 def mont_mul_eo(a_limbs: torch.Tensor, b_limbs: torch.Tensor) -> torch.Tensor:
@@ -588,7 +584,8 @@ def stage_tables(inst, device) -> dict:
     natural = bitrev_perm(dim)
 
     def table(lo, hi):
-        return torch.cat([lo[0], hi[0]], dim=1).cpu().numpy().astype(np.uint32)[:, natural]
+        limbs = torch.cat([lo[0], hi[0]], dim=1).cpu().numpy()
+        return L.unpack_limbs(limbs)[:, natural]
 
     return {"h_g": table(lo1, hi1), "f1_gu": table(lo2, hi2),
             "u": [col_int(r) * R_INV % P for r in rs1.cpu().numpy()]}
@@ -596,8 +593,9 @@ def stage_tables(inst, device) -> dict:
 
 def stage_work(dim: int, nnz: int) -> dict:
     """{stage: work} of each cumulative prefix: the bytes each input is read
-    and each output written once (int64 entry arrays and digits, int32
-    table pairs), and the 32-bit multiplies of its Montgomery multiplies
+    and each output written once (int64 entry arrays and digits, the
+    cached f2, f3 and the table pairs in 32 B limbs an element), and the
+    32-bit multiplies of its Montgomery multiplies
     (the inits' eq tables 2 x 2^dim, weight folds and gathered products one
     an entry, f2(u)'s scaling one a lane; the rounds `sol.count_prove_ops`
     for U=2 slots, one product of two, degree 2). The transcript steps'
@@ -607,10 +605,10 @@ def stage_work(dim: int, nnz: int) -> dict:
     n = 1 << dim
     rounds = count_prove_ops(dim, 2, 1, 2, 2)
     # phase 1: gbits, y_rev, values, last_x, f3, f2 in; the pair and w out
-    p1 = {"bytes": 8 * nnz + 8 * nnz + 128 * nnz + 8 * n + 64 * n + 64 * n + 128 * n + 128 * nnz,
+    p1 = {"bytes": 8 * nnz + 8 * nnz + 128 * nnz + 8 * n + 32 * n + 32 * n + 64 * n + 128 * nnz,
           "mont": 2 * n + 2 * nnz}
     # phase 2: x, perm_y, last_y, w, f3 in; the pair out
-    p2 = {"bytes": 8 * nnz + 8 * nnz + 8 * n + 128 * nnz + 64 * n + 128 * n,
+    p2 = {"bytes": 8 * nnz + 8 * nnz + 8 * n + 128 * nnz + 32 * n + 64 * n,
           "mont": 2 * n + nnz + n}
     r = {"bytes": rounds["hbm_bytes"], "mont": rounds["mont_muls"]}
     out, total = {}, {"bytes": 0, "mont": 0}

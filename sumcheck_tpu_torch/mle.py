@@ -9,7 +9,8 @@ addition, and random sampling.
 Host representation: NumPy `(NUM_DIGITS, 2^nv) uint32` digit arrays in
 Montgomery form, natural (reference) index order — index bit i corresponds to
 variable i. Host ops are vectorized NumPy limb arithmetic (`fields.limbs_np`);
-the prover takes a bit-reversed torch copy on its device (`to_device`).
+the prover takes a bit-reversed torch copy on its device in 8 x 32-bit limbs
+(`to_device`).
 """
 
 from __future__ import annotations
@@ -78,10 +79,12 @@ class DenseMLE:
         return [Fr(v) for v in L.to_ints(self.evals)]
 
     def to_device(self, device, shard=None) -> torch.Tensor:
-        """`(NUM_DIGITS, 2^nv) int32` copy on `device` in bit-reversed index
-        order (the prover's table layout — `protocol/prover.py`); with
-        `shard` = (s, S), only rank s's `(NUM_DIGITS, 2^nv / S)` lanes of it
-        (`parallel/mesh.deal`), the only part a sharded prove reads there.
+        """`(8, 2^nv) int32` copy on `device` in bit-reversed index order
+        (the prover's table layout — `protocol/prover.py`), each value as
+        8 x 32-bit limbs (`limbs_np.pack_limbs`), the layout of the round
+        kernels' pair, half the bytes of the 16 digits; with `shard` = (s,
+        S), only rank s's `(8, 2^nv / S)` lanes of it (`parallel/mesh.deal`),
+        the only part a sharded prove reads there.
 
         Uploaded once per MLE, device and shard (cached: DenseMLE is
         immutable). The upload is part of table construction, matching the
@@ -100,9 +103,8 @@ class DenseMLE:
                 from .parallel.mesh import deal
 
                 host = deal(host, *shard)
-            # row-major, as the pair-init kernel reads it (the permuted
-            # gather alone would leave it column-major)
-            t = torch.from_numpy(np.ascontiguousarray(host.astype(np.int32))).to(device)
+            # row-major, as the pair-init kernel reads it
+            t = torch.from_numpy(L.pack_limbs(host)).to(device)
             self._dev[key] = t
         return t
 

@@ -23,7 +23,12 @@ challenge buffer, and nothing between the prove's uploads and its one fetch
 waits for the device (no `.item()`, no boolean masks, no `nonzero`, no
 upload: `prepare` puts every constant on the device first).
 
-Digits are `int64` (`fields/limbs_torch.py`), so the segment sums' cumulative
+The inits compute on `int64` digits (`fields/limbs_torch.py`). They read
+the cached f2 and f3 (`DenseMLE.to_device`, 8 x 32-bit limbs) through
+`limbs_torch.unpack_limbs` and write the phase pairs packed (`_halves`,
+`limbs_torch.pack_limbs`), the round kernels' layout.
+
+Digits are `int64`, so the segment sums' cumulative
 sums are exact for any entry count up to 2^24 (asserted), and both digit
 split widths of the JAX package give exact sums; the port keeps the JAX
 package's choice of width (`_seg_narrow`) all the same.
@@ -241,10 +246,10 @@ def _seg_narrow(f1) -> tuple[bool, bool]:
 
 
 def _halves(a: torch.Tensor, b: torch.Tensor, out=None):
-    """Two (16, n) tables -> the round kernels' (2, 16, n/2) int32 pair,
-    fresh or written into `out` = (lo, hi) (one instance's slice of a
-    batched pair)."""
-    s = torch.stack([a, b]).to(torch.int32)
+    """Two (8, n) int32 limb tables -> the round kernels' (2, 8, n/2)
+    pair, fresh or written into `out` = (lo, hi) (one instance's slice of
+    a batched pair)."""
+    s = torch.stack([a, b])
     n = s.shape[2]
     if out is None:
         return s[:, :, : n // 2].contiguous(), s[:, :, n // 2 :].contiguous()
@@ -255,18 +260,20 @@ def _halves(a: torch.Tensor, b: torch.Tensor, out=None):
 
 def phase1(gbits, last_x, y_rev, values, g_r, g_omr, f3_bitrev, dim: int,
            split8x: bool = True, reduce_fn=None):
-    """h_g (16, 2^dim) in bit-reversed lane order, and the entries' weights
-    `w` (kept for phase 2): `_compiled_phase1` (`:284-301`). `reduce_fn`
-    sums the raw segment sums over the ranks (`_segment_reduce_sorted`)."""
+    """h_g (16, 2^dim) digits in bit-reversed lane order, and the entries'
+    weights `w` (kept for phase 2): `_compiled_phase1` (`:284-301`).
+    `f3_bitrev` is the cached (8, 2^dim) limb table. `reduce_fn` sums the
+    raw segment sums over the ranks (`_segment_reduce_sorted`)."""
     w = _weight_fold(gbits, values, g_r, g_omr, dim)
-    f3y = f3_bitrev.long().index_select(1, y_rev)  # f3[y]
+    f3y = LT.unpack_limbs(f3_bitrev.index_select(1, y_rev))  # f3[y]
     wv = LT.mont_mul(w, f3y)
     return _segment_reduce_sorted(wv, None, last_x, split8x, reduce_fn), w
 
 
 def prep1(hg_brev, f2_bitrev, out=None):
-    """[h_g, f2] -> the phase-1 (lo, hi) pair, (2, 16, 2^dim / 2) int32."""
-    return _halves(hg_brev, f2_bitrev.long(), out)
+    """[h_g (16, 2^dim) digits, f2 (8, 2^dim) limbs] -> the phase-1 (lo, hi)
+    pair, (2, 8, 2^dim / 2) int32."""
+    return _halves(LT.pack_limbs(hg_brev), f2_bitrev, out)
 
 
 def phase1_pair(gbits, last_x, y_rev, values, g_r, g_omr, f3_bitrev, f2_bitrev,
@@ -279,9 +286,9 @@ def phase1_pair(gbits, last_x, y_rev, values, g_r, g_omr, f3_bitrev, f2_bitrev,
 
 
 def final_fold(lo, hi, r, slot: int) -> torch.Tensor:
-    """Fold slot `slot` of the 1-lane final pair by the last challenge:
-    the table at the phase's point, (16,) digits."""
-    l, h = lo[slot, :, 0].long(), hi[slot, :, 0].long()
+    """Fold slot `slot` of the 1-lane final pair by the last challenge (16
+    digits): the table at the phase's point, (16,) digits."""
+    l, h = LT.unpack_limbs(lo[slot, :, 0]), LT.unpack_limbs(hi[slot, :, 0])
     return LT.add(l, LT.mont_mul(LT.sub(h, l), r.long()))
 
 
@@ -298,15 +305,16 @@ def phase2_digits(x, perm_y, last_y, w, u_digits, dim: int, split8y: bool = True
 
 
 def prep2(f1gu_brev, f3_bitrev, f2u, out=None):
-    """[f1_gu, f3, f2(u)] -> the phase-2 pair for `f1_gu * (f2(u) * f3)`
-    (reference `mod.rs:66-82`); the scaling is a banded product in the MXU
-    fold mode."""
-    f3 = f3_bitrev.long()
+    """[f1_gu (16, 2^dim) digits, f3 (8, 2^dim) limbs, f2(u) (16,) digits]
+    -> the phase-2 pair for `f1_gu * (f2(u) * f3)` (reference
+    `mod.rs:66-82`), (2, 8, 2^dim / 2) int32; the scaling is a banded
+    product in the MXU fold mode."""
+    f3 = LT.unpack_limbs(f3_bitrev)
     if get_config().use_mxu_fold() and f3.shape[1] >= MXU_MIN_LANES:
         f3f2u = mxu_mul.mont_mul_scalar_mxu(f3, f2u)
     else:
         f3f2u = LT.mont_mul(f3, f2u[:, None])
-    return _halves(f1gu_brev, f3f2u, out)
+    return _halves(LT.pack_limbs(f1gu_brev), LT.pack_limbs(f3f2u), out)
 
 
 def phase2_pair(pair_lo, pair_hi, r_last, x, perm_y, last_y, w, u_digits, f3_bitrev,

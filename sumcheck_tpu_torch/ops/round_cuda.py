@@ -22,9 +22,12 @@ launches its kernel for a CUDA tensor and runs the plain version (the
 anything else. The library is built with `nvcc` at first launch, never at
 import (`ops/cuda_build.py`); a failed build or launch raises.
 
-Contract, for the table pair `lo`, `hi` of shape (U, 16, H) int32 (16-bit
-Montgomery digits, slot axis leading); each function returns the round
-polynomial's per-digit lane sums, `(degree+1, 16)` int64. Each also takes
+Contract, for the table pair `lo`, `hi` of shape (U, 8, H) int32 (each
+value its 8 x 32-bit Montgomery limbs, least significant first, in int32
+words holding the bit pattern, `limbs_torch.pack_limbs`; slot axis
+leading); each function returns the round polynomial's per-digit lane
+sums, `(degree+1, 16)` int64, in the 16-bit digits the transcript step
+reads. Each also takes
 `out`, a contiguous `(degree+1, 16)` int64 row on the pair's device: the
 round's sums are added into it and it is returned. The chains pass row j of
 one zeroed `(nv, degree+1, 16)` buffer, which the transcript step then
@@ -42,12 +45,12 @@ with 64-bit atomics, exact and independent of order.
 - `round_step_nofold(lo, hi, products, degree, coeffs=None)`: over all H
   lanes;
 - `round_step_fold(lo, hi, r, products, degree, coeffs=None)`: folds out of
-  place into fresh (U, 16, H/2) tables, new_lo[k] = fold(lo[k], hi[k]) and
+  place into fresh (U, 8, H/2) tables, new_lo[k] = fold(lo[k], hi[k]) and
   new_hi[k] = fold(lo[k+H/2], hi[k+H/2]), then the sums over them; returns
   ((new_lo, new_hi), sums).
 
 The batched provers (`batch.py`) run B instances of one shape through one
-launch each round, instance b at grid y = b: a (B, U, 16, H) pair, one
+launch each round, instance b at grid y = b: a (B, U, 8, H) pair, one
 challenge per instance as a (B, 16) tensor, (B, P, 16) coefficients and a
 (B, d+1, 16) sums buffer, instance b adding into row b. Counterparts of the
 JAX package's vmapped bodies (`sumcheck_tpu/batch.py:32-84, 260-300`):
@@ -58,9 +61,14 @@ JAX package's vmapped bodies (`sumcheck_tpu/batch.py:32-84, 260-300`):
   in-place fold of `round_fold`, instance b by r[b];
 - `round_step_fold_batched(lo, hi, r, products, degree, coeffs=None,
   out=None)`: the out-of-place fold of `round_step_fold` into fresh (B, U,
-  16, H/2) tables.
+  8, H/2) tables.
 
-Each `_ref` applies the single plain version per instance.
+Each `_ref` applies the single plain version per instance. Every plain
+version unpacks the pair to 16-bit digits (`limbs_torch.unpack_limbs`),
+computes on them as `limbs_torch` does, and packs what it writes.
+`blocks_per_sm` gives the resident blocks of `round_fold`'s body; its
+yardstick, the body with the stripes staged by cp.async, is
+`ops/fold_staged.py`.
 
 `coeffs`, where taken, is a (products, 16) int32 tensor of Montgomery digits:
 product p's value is multiplied by coeffs[p] (the Pallas kernels'
@@ -72,18 +80,17 @@ digits on the host; on the chained provers' path the transcript step does
 that on the device (`ops/transcript_cuda.py`).
 
 What bounds the kernels on the H100: per lane, a fold round of the 2x3
-workload (6 slots) reads 4 stripes x 64 B and writes 2 x 64 B per slot
-(2.3 KB), and runs 12 Montgomery multiplies for the fold (2 per slot) and 16
-for the evaluation ((factors-1) x products x (degree+1)), each 64
-32x32->64-bit multiply-adds plus their carries. By the card's peaks the
-fold at 2^18 lanes is bound by its 604 MB (0.18 ms at 3.35 TB/s) before its
-2e9 32-bit multiplies (0.12 ms at the IMAD rate), but a Montgomery multiply
-runs below the IMAD rate (PERF.md), so the multiplies and the loads share
-the time of every round kernel on the H100. The design keeps to one lane per
-thread, 8 x 32-bit limbs with the multiply on the multiply-add's carry
-chain (`csrc/field.cuh`), coalesced digit loads, each lane's values read
-from device memory once per round, and the evaluation ladder in shared
-memory for the folds (round 0 evaluates in registers).
+workload (6 slots) reads 4 stripes x 32 B and writes 2 x 32 B per slot
+(1,152 B), and runs 12 Montgomery multiplies for the fold (2 per slot) and
+14 for the evaluation in registers, each 64 32x32->64-bit multiply-adds
+plus their carries. At 2^18 lanes its 302 MB take 0.090 ms at 3.35 TB/s and
+its multiplies 0.11-0.12 ms, so the multiplies bound it and the loads must
+hide under them. The design keeps to one lane per thread, 8 x 32-bit limbs
+in memory as in registers, the multiply on the multiply-add's carry chain
+(`csrc/field.cuh`), coalesced limb loads, each lane's values read from
+device memory once per round, the next slot's stripes loading while a slot
+folds, and the evaluation in registers up to degree 4 (above it, the ladder
+in shared memory; `csrc/round.cu`).
 """
 
 from __future__ import annotations
@@ -95,7 +102,7 @@ import numpy as np
 import torch
 
 from ..fields import limbs_torch as LT
-from ..fields.fr import DIGIT_BITS, DIGIT_MASK, NINV32, NUM_DIGITS, P, WIDE_DIGITS
+from ..fields.fr import DIGIT_BITS, DIGIT_MASK, NINV32, NUM_DIGITS, NUM_LIMBS, P, WIDE_DIGITS
 from ..protocol import engine
 from . import cuda_build, mxu_mul
 
@@ -149,6 +156,8 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p,  # stream
     ]
     lib.sc_round_launch_batched.restype = ctypes.c_int
+    lib.sc_round_blocks_per_sm.argtypes = [ctypes.c_int] * 2
+    lib.sc_round_blocks_per_sm.restype = ctypes.c_int
     lib.sc_mont_mul_probe.argtypes = [
         ctypes.c_int,  # impl
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # a, b, out
@@ -188,9 +197,9 @@ def _mxu_library() -> ctypes.CDLL:
 
 def _check(lo, hi, products, degree: int, extent: int, fold: bool, r=None) -> None:
     if lo.dtype != torch.int32 or hi.dtype != torch.int32:
-        raise TypeError("table pair must be int32 digit tensors")
-    if lo.shape != hi.shape or lo.dim() != 3 or lo.shape[1] != NUM_DIGITS:
-        raise ValueError(f"table pair must be (U, 16, H), got {lo.shape} and {hi.shape}")
+        raise TypeError("table pair must be int32 limb tensors")
+    if lo.shape != hi.shape or lo.dim() != 3 or lo.shape[1] != NUM_LIMBS:
+        raise ValueError(f"table pair must be (U, 8, H), got {lo.shape} and {hi.shape}")
     if lo.device != hi.device:
         raise ValueError("lo and hi lie on different devices")
     if not (lo.is_contiguous() and hi.is_contiguous()):
@@ -258,11 +267,21 @@ def _coeff_cols(coeffs):
 # ---------------------------------------------------------------------------
 
 
+def _digits(pair) -> torch.Tensor:
+    """A (U, 8, n) limb pair block -> (16, U, n) int64 digits, the layout of
+    `engine`."""
+    return LT.unpack_limbs(pair, dim=1).permute(1, 0, 2)
+
+
+def _limbs(digits) -> torch.Tensor:
+    """(16, U, n) digits -> a (U, 8, n) int32 limb block."""
+    return LT.pack_limbs(digits, dim=0).permute(1, 0, 2)
+
+
 def _nofold_sums(lo, hi, products, degree: int, extent: int, coeffs, out) -> torch.Tensor:
     """Round 0's sums over lanes [0, extent), [times each product's
     coefficient], added into `out` if given."""
-    pair = torch.cat([lo[:, :, :extent], hi[:, :, :extent]], dim=2)
-    stacked = pair.long().permute(1, 0, 2)  # (16, U, 2*extent)
+    stacked = _digits(torch.cat([lo[:, :, :extent], hi[:, :, :extent]], dim=2))
     total = engine.round_totals(engine.TORCH, stacked, _coeff_cols(coeffs), products, degree)
     return _digit_sums(total, out)
 
@@ -279,10 +298,10 @@ def _fold_in_place_ref(lo, hi, products, degree: int, extent: int, fold_fn,
     """The in-place fold round over `fold_fn`, which takes the (16, U, 4A)
     stacked stripes [lo[:2A] | hi[:2A]] to the (16, U, 2A) folded values."""
     a2 = 2 * extent
-    pair = torch.cat([lo[:, :, :a2], hi[:, :, :a2]], dim=2)
-    folded = fold_fn(pair.long().permute(1, 0, 2))
-    lo[:, :, :extent] = folded[:, :, :extent].permute(1, 0, 2).to(torch.int32)
-    hi[:, :, :extent] = folded[:, :, extent:].permute(1, 0, 2).to(torch.int32)
+    folded = fold_fn(_digits(torch.cat([lo[:, :, :a2], hi[:, :, :a2]], dim=2)))
+    packed = _limbs(folded)
+    lo[:, :, :extent] = packed[:, :, :extent]
+    hi[:, :, :extent] = packed[:, :, extent:]
     total = engine.round_totals(engine.TORCH, folded, None, products, degree)
     return _digit_sums(total, out)
 
@@ -321,24 +340,25 @@ def round_step_nofold_ref(lo, hi, products, degree: int, coeffs=None,
 
 def round_step_fold_ref(lo, hi, r, products, degree: int, coeffs=None, out=None):
     """Plain version of the per-size fold kernel (any device): fresh
-    (U, 16, H/2) tables and the sums over them."""
+    (U, 8, H/2) tables and the sums over them."""
     quarter = _check_step(lo, hi, products, degree, True, r=r, coeffs=coeffs)
     _check_out(out, lo, degree)
-    stacked = torch.cat([lo, hi], dim=2).long().permute(1, 0, 2)  # (16, U, 2H)
+    stacked = _digits(torch.cat([lo, hi], dim=2))  # (16, U, 2H)
     folded = engine.fold_tables(engine.TORCH, stacked, r.long().reshape(NUM_DIGITS, 1, 1))
-    new_lo = folded[:, :, :quarter].permute(1, 0, 2).to(torch.int32).contiguous()
-    new_hi = folded[:, :, quarter:].permute(1, 0, 2).to(torch.int32).contiguous()
+    packed = _limbs(folded)
+    new_lo = packed[:, :, :quarter].contiguous()
+    new_hi = packed[:, :, quarter:].contiguous()
     total = engine.round_totals(engine.TORCH, folded, _coeff_cols(coeffs), products, degree)
     return (new_lo, new_hi), _digit_sums(total, out)
 
 
 def _check_batched(lo, hi, products, degree: int, extent: int, fold: bool, r=None,
                    coeffs=None, out=None) -> int:
-    """Checks of a batched round: (B, U, 16, H) pair, one (16,) challenge
+    """Checks of a batched round: (B, U, 8, H) pair, one (16,) challenge
     per instance as a (B, 16) tensor, (B, P, 16) coefficients, a (B, d+1,
     16) sums buffer. Returns B."""
     if lo.dim() != 4 or lo.shape[0] < 1 or lo.shape[0] > 65535:
-        raise ValueError(f"a batched pair must be (B, U, 16, H) with 1 <= B <= 65535, "
+        raise ValueError(f"a batched pair must be (B, U, 8, H) with 1 <= B <= 65535, "
                          f"got {tuple(lo.shape)}")
     if not (lo.is_contiguous() and hi.is_contiguous()):
         raise ValueError("table pair must be contiguous")
@@ -399,7 +419,7 @@ def round_fold_batched_ref(lo, hi, r, products, degree: int, extent: int,
 def round_step_fold_batched_ref(lo, hi, r, products, degree: int, coeffs=None, out=None):
     """Plain version of the batched out-of-place fold kernel (any device):
     `round_step_fold_ref` per instance; returns ((new_lo, new_hi), sums)
-    with fresh (B, U, 16, H/2) tables."""
+    with fresh (B, U, 8, H/2) tables."""
     width = lo.shape[-1]
     if width % 2:
         raise ValueError(f"a per-size fold needs an even pair width, got {width}")
@@ -444,8 +464,8 @@ def _sums_row(out, lo, degree: int) -> torch.Tensor:
 
 def _launch(mode: int, lo, hi, r, products, degree: int, extent: int,
             out=None, tables=None, coeffs=None) -> torch.Tensor:
-    """One launch of `sc_round_launch_batched` for a (U, 16, H) pair (one
-    instance) or a (B, U, 16, H) pair (B instances, grid y)."""
+    """One launch of `sc_round_launch_batched` for a (U, 8, H) pair (one
+    instance) or a (B, U, 8, H) pair (B instances, grid y)."""
     batched = lo.dim() == 4
     plan = _plan(lo.shape[-3], products, degree)
     lib = _library()
@@ -524,7 +544,7 @@ def round_step_fold(lo, hi, r, products, degree: int, coeffs=None, out=None):
         return round_step_fold_ref(lo, hi, r, products, degree, coeffs, out)
     _kernel_device(lo)
     quarter = _check_step(lo, hi, products, degree, True, r=r, coeffs=coeffs)
-    new_lo = torch.empty((lo.shape[0], NUM_DIGITS, quarter), dtype=torch.int32, device=lo.device)
+    new_lo = torch.empty((lo.shape[0], NUM_LIMBS, quarter), dtype=torch.int32, device=lo.device)
     new_hi = torch.empty_like(new_lo)
     sums = _launch(_FOLD_OUT, lo, hi, r, products, degree, quarter, out,
                    tables=(new_lo, new_hi), coeffs=coeffs)
@@ -563,7 +583,7 @@ def round_fold_batched(lo, hi, r, products, degree: int, extent: int,
 
 def round_step_fold_batched(lo, hi, r, products, degree: int, coeffs=None, out=None):
     """A per-size fold round of B instances in one launch: instance b folded
-    by r[b] into fresh (B, U, 16, H/2) tables, [times its own coefficients],
+    by r[b] into fresh (B, U, 8, H/2) tables, [times its own coefficients],
     then evaluated; returns ((new_lo, new_hi), sums). Launches the CUDA
     kernel for a CUDA pair, runs `round_step_fold_batched_ref` for a CPU
     pair."""
@@ -603,6 +623,15 @@ def round_fold_mxu(lo, hi, r, products, degree: int, extent: int, out=None) -> t
     _raise_mxu(rc, "MXU fold kernel")
     round_fold_mxu.launches += 1
     return sums
+
+
+def blocks_per_sm(degree: int, slots: int) -> int:
+    """Resident blocks a multiprocessor holds of `round_fold`'s body (degree
+    <= 4) at `slots` slots (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`)."""
+    blocks = _library().sc_round_blocks_per_sm(degree, slots)
+    if blocks < 0:
+        raise ValueError(f"no register fold body for degree {degree} at {slots} slots")
+    return blocks
 
 
 round_nofold.launches = 0

@@ -18,7 +18,7 @@ single-device prove.
   summed over the ranks (`comm.all_reduce_sum_`). The sums are exact, so
   every rank feeds the single device's message and draws its challenge.
 - **Tail** (`:250-259`): once each rank holds one active pair lane, one
-  `comm.gather_lanes` of every rank's lane 0 gives the replicated (U, 16,
+  `comm.gather_lanes` of every rank's lane 0 gives the replicated (U, 8,
   S) pair, and the last log2 S rounds run on every rank through the same
   chain, folding first by the last sharded challenge.
 - **Finish**: one fetch a rank (`device_prover.finish_chain`), which also
@@ -81,8 +81,8 @@ def sharded_rounds(lo, hi, state, products, degree: int, num_rounds: int, group)
 def gather_tail(lo, hi, group):
     """Once each rank holds one active pair lane (lane 0): every rank's,
     gathered in rank order by one `comm.gather_lanes`, as the replicated
-    (U, 16, S) pair of the remaining rounds on the rank's device."""
-    pair = comm.gather_lanes(torch.stack([lo[:, :, :1], hi[:, :, :1]]), group)  # (2, U, 16, S)
+    (U, 8, S) pair of the remaining rounds on the rank's device."""
+    pair = comm.gather_lanes(torch.stack([lo[:, :, :1], hi[:, :, :1]]), group)  # (2, U, 8, S)
     return pair[0].contiguous(), pair[1].contiguous()
 
 

@@ -64,9 +64,9 @@ def from_sharded_layout(arr: np.ndarray, nv: int, k: int) -> np.ndarray:
 
 
 def deal(table, s: int, size: int):
-    """Rank s's lanes of a bit-reversed (16, n) table (NumPy or torch): the
-    lanes s::size of its first half, then those of its second half,
-    (16, n / size). As a pair table, its local lane l is global pair lane
+    """Rank s's lanes of a bit-reversed (rows, n) table (NumPy or torch: 16
+    digits or 8 limbs a lane): the lanes s::size of its first half, then
+    those of its second half, (rows, n / size). As a pair table, its local lane l is global pair lane
     l·size + s."""
     rows, n = table.shape
     return table.reshape(rows, 2, n // (2 * size), size)[..., s].reshape(rows, n // size)

@@ -19,7 +19,7 @@ lift; `ChainedShardedProver` is the faster one for a `Blake2b512Rng`.
   ranks; every rank then finishes the same sums, feeds its own replica of
   the transcript and draws the same challenge.
 - **Tail**: once each rank holds one active pair lane, `chained.gather_tail`
-  gives the replicated (U, 16, S) pair, and the last log2 S rounds run on
+  gives the replicated (U, 8, S) pair, and the last log2 S rounds run on
   every rank's card alone.
 
 The JAX package moves the tail to its NumPy host engine; here it stays on
@@ -44,7 +44,7 @@ from .mesh import auto_group, default_group, group_shape, shard_device
 
 class ShardedProverState(ProverState):
     """A `ProverState` whose pair is the rank's dealt lanes until the shard
-    is exhausted, then the gathered (U, 16, S) pair of the tail, the same
+    is exhausted, then the gathered (U, 8, S) pair of the tail, the same
     on every rank. `flattened_ml_extensions` reads the rank's lanes before
     the gather and the whole tables after it."""
 

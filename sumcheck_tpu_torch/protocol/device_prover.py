@@ -36,7 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..fields.fr import NUM_DIGITS, Fr, P, R_INV
+from ..fields.fr import NUM_DIGITS, NUM_LIMBS, Fr, P, R_INV
 from ..ops import init_cuda, round_cuda, transcript_cuda
 from ..transcript.device import DevTranscript
 from ..utils.errors import SumcheckError
@@ -98,8 +98,8 @@ def _fold_plan(polynomial, zero_copies: bool = True):
 
 
 def _fill_pair(lo, hi, polynomial, plan, device, shard=None) -> None:
-    """One `init_cuda.pair_init` launch: every slot of `lo`, `hi` ((U, 16,
-    n/2), possibly one instance's slice of a batched pair, or (U, 16, n/2S)
+    """One `init_cuda.pair_init` launch: every slot of `lo`, `hi` ((U, 8,
+    n/2), possibly one instance's slice of a batched pair, or (U, 8, n/2S)
     for a `shard` (s, S)) from the polynomial's device-cached tables
     (`DenseMLE.to_device`) by its `_fold_plan`. The cached tables are only
     read."""
@@ -115,15 +115,16 @@ def init_pair(polynomial, device, shard=None):
     constant-one slot only if some product needs ragged padding; one
     `pair_init` kernel launch on a card.
 
-    Returns (lo, hi, products, degree): lo and hi are fresh (U, 16, 2^nv/2)
-    int32 tensors that the rounds fold in place. With `shard` = (s, S) they
-    are rank s's (U, 16, 2^nv/2S) lanes of that pair, global pair lanes
+    Returns (lo, hi, products, degree): lo and hi are fresh (U, 8, 2^nv/2)
+    int32 tensors, each value 8 x 32-bit limbs (`limbs_torch.pack_limbs`),
+    that the rounds fold in place. With `shard` = (s, S) they
+    are rank s's (U, 8, 2^nv/2S) lanes of that pair, global pair lanes
     l·S + s as local lanes l (`parallel/mesh.deal`), built from rank s's
     lanes of each table alone: a valid pair of 2^nv/2S lanes."""
     device = resolve_device(device)
     lanes = (1 << polynomial.num_variables) // 2 // (shard[1] if shard else 1)
     plan = _fold_plan(polynomial)
-    lo = torch.empty((plan[2], NUM_DIGITS, lanes), dtype=torch.int32, device=device)
+    lo = torch.empty((plan[2], NUM_LIMBS, lanes), dtype=torch.int32, device=device)
     hi = torch.empty_like(lo)
     _fill_pair(lo, hi, polynomial, plan, device, shard)
     return lo, hi, plan[0], polynomial.max_multiplicands
@@ -131,7 +132,7 @@ def init_pair(polynomial, device, shard=None):
 
 def init_pairs(polynomials, device):
     """The batched pair of B polynomials of one shape on `device`: instance
-    b's `init_pair` written straight into slice b of (B, U, 16, 2^nv/2)
+    b's `init_pair` written straight into slice b of (B, U, 8, 2^nv/2)
     `lo`, `hi` (one `pair_init` launch each, no stacking copy).
 
     Returns (lo, hi, products, degree), or None when the instances' fold
@@ -143,7 +144,7 @@ def init_pairs(polynomials, device):
     if any(p[0] != products for p in plans):  # equal products: equal slot counts
         return None
     n = 1 << polynomials[0].num_variables
-    shape = (len(polynomials), num_slots, NUM_DIGITS, n // 2)
+    shape = (len(polynomials), num_slots, NUM_LIMBS, n // 2)
     lo = torch.empty(shape, dtype=torch.int32, device=device)
     hi = torch.empty_like(lo)
     for b, (poly, plan) in enumerate(zip(polynomials, plans)):
@@ -214,7 +215,7 @@ def chain_rounds_batched(pair: list, state, products, degree: int, num_rounds: i
                          step_fns=None, transcript_fn=None):
     """`chain_rounds` over B instances at once, the counterpart of the JAX
     package's `_prove_batched_chained` (`sumcheck_tpu/batch.py:349-416`):
-    `pair` is the list [lo, hi] of (B, U, 16, H) tables (emptied here, as
+    `pair` is the list [lo, hi] of (B, U, 8, H) tables (emptied here, as
     `chain_rounds` does), `state` the (B, 26, 2) transcripts. Per round one
     batched round kernel (`round_nofold_batched` over all H lanes in round
     0, then `round_step_fold_batched` into fresh half-width tables, each

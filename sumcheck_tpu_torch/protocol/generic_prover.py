@@ -99,7 +99,7 @@ def chain_rounds_generic_batched(lo, hi, state, products, degree: int, num_round
     """`chain_rounds_generic` over B instances at once, the counterpart of
     the JAX package's vmapped step and chain (`_bstep_generic`,
     `_bchain_generic`, `_prove_batched_generic`, `sumcheck_tpu/batch.py:
-    60-84, 157-257`): `lo`, `hi` are (B, U, 16, H) tables folded in place,
+    60-84, 157-257`): `lo`, `hi` are (B, U, 8, H) tables folded in place,
     `state` the (B, 26, 2) transcripts. Per round one batched round kernel
     (`round_nofold_batched`, then `round_fold_batched`, instance b folded by
     its own challenge rs[j-1, b]) adding into row j of a zeroed (k, B, d+1,

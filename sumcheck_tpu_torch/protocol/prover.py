@@ -59,7 +59,7 @@ class ProverMsg:
 class ProverState:
     """Mutable prover state across rounds (reference `ProverState`,
     `prover.rs:19-33`). `stacked` is the round kernels' (lo, hi) pair of
-    (U, 16, 2^nv / 2) int32 tensors, folded in place; `products` its padded
+    (U, 8, 2^nv / 2) int32 limb tensors, folded in place; `products` its padded
     slot tuples; slots 0..num_tables-1 hold the polynomial's tables, slot u
     times `scales[u]` where `init_pair` folded a coefficient into it.
     `round_fns` replaces (round_nofold, round_fold), a test hook."""
@@ -87,12 +87,14 @@ class ProverState:
         """The polynomial's tables as the rounds so far left them, each a
         (16, 2 * extent) NumPy digit array in bit-reversed order (the JAX
         package's host-engine state), with the coefficients folded into
-        them divided back out; one copy from the device. Raises for a table
+        them divided back out; one copy from the device, unpacked from the
+        pair's limbs (`limbs_np.unpack_limbs`). Raises for a table
         that took the coefficient 0 in place, which the fold plan does only
         where a copy slot would pass the kernels' slot limit."""
         lo, hi = self.stacked
         k, a = self.num_tables, self.extent
-        both = torch.cat([lo[:k, :, :a], hi[:k, :, :a]], dim=2).cpu().numpy().astype(np.uint32)
+        both = L.unpack_limbs(torch.cat([lo[:k, :, :a], hi[:k, :, :a]], dim=2).cpu().numpy(),
+                              axis=1)
         out = []
         for i in range(k):
             c = self.scales.get(i)

@@ -29,6 +29,7 @@ from sumcheck_tpu.protocol import device_prover as JD
 from sumcheck_tpu.utils.config import get_config as j_get_config
 from sumcheck_tpu_torch.batch import BatchedGKRRoundSumcheck, BatchedMLSumcheck
 from sumcheck_tpu_torch.convert import gkr_instance_from_numpy, polynomial_from_numpy
+from sumcheck_tpu_torch.fields import limbs_np as L
 from sumcheck_tpu_torch.fields.fr import P
 from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
 from sumcheck_tpu_torch.ops import init_cuda as IC
@@ -243,14 +244,14 @@ def test_rejections_leave_transcripts_untouched(case):
 
 
 def _pair(gen, batch, slots, width):
+    """A random batched (B, U, 8, width) limb pair (digits below 2^254)."""
     d = gen.integers(0, 1 << 16, size=(2, batch, slots, 16, width), dtype=np.uint32)
     d[:, :, :, 15] >>= 2
-    return torch.from_numpy(d[0].astype(np.int32)), torch.from_numpy(d[1].astype(np.int32))
+    packed = L.pack_limbs(d, axis=3)
+    return torch.from_numpy(packed[0]), torch.from_numpy(packed[1])
 
 
 def _r(gen, batch):
-    from sumcheck_tpu_torch.fields import limbs_np as L
-
     return torch.from_numpy(np.stack([L.mont_scalar(int(gen.integers(1, 1 << 62)) ** 4 % P)[:, 0]
                                       for _ in range(batch)]).astype(np.int32))
 
@@ -288,7 +289,7 @@ def test_batched_plain_round_versions_match_single(batch, extent):
     w = 2 * extent
     ls, hs = lo[..., :w].contiguous(), hi[..., :w].contiguous()
     (nl, nh), sums = RC.round_step_fold_batched(ls, hs, r, PRODUCTS, 3, coeffs)
-    assert nl.shape == (batch, 5, 16, extent)
+    assert nl.shape == (batch, 5, 8, extent)
     for b in range(batch):
         (wl, wh), want = RC.round_step_fold_ref(ls[b], hs[b], r[b], PRODUCTS, 3, coeffs[b])
         assert torch.equal(sums[b], want) and torch.equal(nl[b], wl) and torch.equal(nh[b], wh)
@@ -351,8 +352,9 @@ def test_pair_init_matches_jax_init_pair(nv):
         jlo, jhi, jprod, jdeg, _reuse = JD.init_pair(jp)
         lo, hi, prod, deg = TD.init_pair(tp, CPU)
         assert (prod, deg, lo.shape[0]) == (jprod, jdeg, num_slots)
-        np.testing.assert_array_equal(lo.numpy().astype(np.uint32), np.asarray(jlo))
-        np.testing.assert_array_equal(hi.numpy().astype(np.uint32), np.asarray(jhi))
+        assert lo.shape == (num_slots, 8, 1 << (nv - 1)) and lo.dtype == torch.int32
+        np.testing.assert_array_equal(L.unpack_limbs(lo.numpy(), axis=1), np.asarray(jlo))
+        np.testing.assert_array_equal(L.unpack_limbs(hi.numpy(), axis=1), np.asarray(jhi))
         assert torch.equal(batched[0][b], lo) and torch.equal(batched[1][b], hi)
     assert batched[2:] == (TD._fold_plan(pairs[0][1])[0], 3)
     T.MLSumcheck.prove(pairs[0][1], device="cpu")
@@ -362,8 +364,8 @@ def test_pair_init_matches_jax_init_pair(nv):
 
 def test_pair_init_checks():
     """The pair init refuses a slot plan that does not fit the pair."""
-    lo = torch.empty((2, 16, 4), dtype=torch.int32)
-    tab = torch.zeros((16, 8), dtype=torch.int32)
+    lo = torch.empty((2, 8, 4), dtype=torch.int32)
+    tab = torch.zeros((8, 8), dtype=torch.int32)
     with pytest.raises(ValueError):
         IC.pair_init(lo, torch.empty_like(lo), [tab], ((0, None),))
     with pytest.raises(ValueError):

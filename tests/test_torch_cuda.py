@@ -53,8 +53,14 @@ def _tables(seed: int, nv: int, count: int) -> list[np.ndarray]:
     return out
 
 
+def _packed(d: np.ndarray, axis: int = 0) -> torch.Tensor:
+    """Digit tables, 16 along `axis` -> their int32 limbs, 8 along `axis`."""
+    return torch.from_numpy(L.pack_limbs(d, axis=axis))
+
+
 def _pair(seed, slots, nv, device):
-    t = np.stack(_tables(seed, nv, slots)).astype(np.int32)
+    """A random (slots, 8, 2^(nv-1)) limb pair."""
+    t = L.pack_limbs(np.stack(_tables(seed, nv, slots)), axis=1)
     half = 1 << (nv - 1)
     lo = torch.from_numpy(np.ascontiguousarray(t[:, :, :half])).to(device)
     hi = torch.from_numpy(np.ascontiguousarray(t[:, :, half:])).to(device)
@@ -105,8 +111,8 @@ def test_fold_kernel_unaligned_rows(cuda, width):
     rng = np.random.default_rng(width)
     d = rng.integers(0, 1 << 16, size=(2, 6, 16, width), dtype=np.uint32)
     d[:, :, 15] >>= TOP_SHIFT
-    lo = torch.from_numpy(d[0].astype(np.int32)).to(cuda)
-    hi = torch.from_numpy(d[1].astype(np.int32)).to(cuda)
+    lo = _packed(d[0], 1).to(cuda)
+    hi = _packed(d[1], 1).to(cuda)
     r = torch.from_numpy(L.mont_scalar(31337)[:, 0].astype(np.int32)).to(cuda)
     for extent in sorted({1, width // 2 - 1, width // 2} - {0}):
         l1, h1, l2, h2 = lo.clone(), hi.clone(), lo.clone(), hi.clone()
@@ -199,8 +205,7 @@ def _edge_pair(seed, slots, nv, device):
     """A random pair whose slot 0 starts with edge values (0, 1, p-1,
     2^255 mod p) in both halves."""
     lo, hi = _pair(seed, slots, nv, device)
-    edges = torch.from_numpy(
-        L.from_ints([0, 1, P - 1, (1 << 255) % P], mont=False).astype(np.int32)).to(device)
+    edges = _packed(L.from_ints([0, 1, P - 1, (1 << 255) % P], mont=False)).to(device)
     lo[0, :, :4] = edges
     hi[0, :, :4] = edges.flip(1)
     return lo, hi
@@ -298,8 +303,8 @@ def test_step_kernel_matches_plain(cuda, fold, coeffs, extent):
     rng = np.random.default_rng(extent)
     d = rng.integers(0, 1 << 16, size=(2, 6, 16, width), dtype=np.uint32)
     d[:, :, 15] >>= TOP_SHIFT
-    lo = torch.from_numpy(d[0].astype(np.int32)).to(cuda)
-    hi = torch.from_numpy(d[1].astype(np.int32)).to(cuda)
+    lo = _packed(d[0], 1).to(cuda)
+    hi = _packed(d[1], 1).to(cuda)
     c = _coeffs(products, cuda) if coeffs else None
     r = torch.from_numpy(L.mont_scalar(987654321)[:, 0].astype(np.int32)).to(cuda)
     lo0, hi0 = lo.clone(), hi.clone()
@@ -307,7 +312,7 @@ def test_step_kernel_matches_plain(cuda, fold, coeffs, extent):
         (glo, ghi), got = RC.round_step_fold(lo, hi, r, products, 3, c)
         (wlo, whi), want = RC.round_step_fold_ref(lo, hi, r, products, 3, c)
         torch.cuda.synchronize()
-        assert glo.shape == (6, 16, extent)
+        assert glo.shape == (6, 8, extent)
         assert torch.equal(glo, wlo) and torch.equal(ghi, whi)
     else:
         got = RC.round_step_nofold(lo, hi, products, 3, c)
@@ -496,7 +501,7 @@ def test_fold_mxu_kernel_matches_plain_and_cios(cuda, extent, r_int):
     edges = L.from_ints([0, 1, 2, P - 1, P - 2, (1 << 255) % P], mont=False)
     n = min(extent, edges.shape[1])
     lo[0, :, :n] = 0
-    hi[0, :, :n] = torch.from_numpy(edges[:, :n].astype(np.int32)).to(cuda)
+    hi[0, :, :n] = _packed(edges[:, :n]).to(cuda)
     r_digits = (L.mont_scalar(987654321) if r_int is None else L.from_ints([r_int], mont=False))
     r = torch.from_numpy(r_digits[:, 0].astype(np.int32)).to(cuda)
     runs = []
@@ -794,16 +799,20 @@ def test_batched_transcript_matches_plain(cuda, batch):
         assert torch.equal(m, msgs[:, b]) and torch.equal(rr, rs[:, b])
 
 
-@pytest.mark.parametrize("case", ["inplace", "copy", "ones", "unit", "batched_slice"])
+@pytest.mark.parametrize("case", ["inplace", "copy", "ones", "unit", "batched_slice",
+                                  "zero_copy", "sixteen_slots", "nv1", "nv2", "unaligned"])
 def test_pair_init_matches_plain(cuda, case):
     """The pair-init kernel against its plain version: an in-place scaling,
-    an appended scaled copy, a ones slot, a unit coefficient, and writes
-    into one instance's slice of a batched pair; the source tables stay as
-    they were."""
+    an appended scaled copy, a ones slot, a unit coefficient, writes into
+    one instance's slice of a batched pair, fault F3's copy slot (a scaled
+    copy by 0), the 16-slot maximum, half widths of 1 and 2 lanes (the
+    one-lane body, as the launch takes it below 4 lanes), and halves not
+    16-byte aligned at the four-lane body's shape (the one-lane body too);
+    the source tables stay as they were."""
     from sumcheck_tpu_torch.ops import init_cuda as IC
 
-    nv = 9
-    tables = [torch.from_numpy(t.astype(np.int32)).to(cuda) for t in _tables(40, nv, 4)]
+    nv = {"nv1": 1, "nv2": 2}.get(case, 9)
+    tables = [_packed(t).to(cuda) for t in _tables(40, nv, 4)]
     before = [t.clone() for t in tables]
     specs = {
         "inplace": ((0, 12345), (1, None), (2, 7), (3, None)),
@@ -811,24 +820,115 @@ def test_pair_init_matches_plain(cuda, case):
         "ones": ((0, None), (1, 5), (2, None), (3, None), (None, 1)),
         "unit": ((0, 1), (1, None), (2, 1), (3, 3)),
         "batched_slice": ((0, 11), (1, None), (2, None), (3, 13), (None, 1)),
-    }[case]
+        "zero_copy": ((0, None), (1, None), (2, None), (3, None), (0, 0)),
+        "sixteen_slots": tuple((u % 4, None if u % 3 else u + 1) for u in range(15))
+        + ((None, 1),),
+    }.get(case, ((0, 3), (1, None), (2, None), (3, None), (1, 5), (None, 1)))
     half = 1 << (nv - 1)
     if case == "batched_slice":
-        lo = torch.zeros((3, len(specs), 16, half), dtype=torch.int32, device=cuda)
+        lo = torch.zeros((3, len(specs), 8, half), dtype=torch.int32, device=cuda)
         hi = torch.zeros_like(lo)
         IC.pair_init(lo[1], hi[1], tables, specs)
         assert not lo[0].any() and not lo[2].any() and not hi[0].any() and not hi[2].any()
         got = (lo[1], hi[1])
+    elif case == "unaligned":  # one word past a 16-byte boundary
+        words = len(specs) * 8 * half
+        buf = torch.empty((2, words + 1), dtype=torch.int32, device=cuda)
+        got = tuple(b[1:].view(len(specs), 8, half) for b in buf)
+        assert got[0].data_ptr() % 16 and got[1].data_ptr() % 16
+        IC.pair_init(got[0], got[1], tables, specs)
     else:
-        lo = torch.empty((len(specs), 16, half), dtype=torch.int32, device=cuda)
+        lo = torch.empty((len(specs), 8, half), dtype=torch.int32, device=cuda)
         got = (lo, torch.empty_like(lo))
         IC.pair_init(got[0], got[1], tables, specs)
-    lo_p = torch.empty((len(specs), 16, half), dtype=torch.int32)
+    lo_p = torch.empty((len(specs), 8, half), dtype=torch.int32)
     want = (lo_p, torch.empty_like(lo_p))
     IC.pair_init_ref(want[0], want[1], [t.cpu() for t in tables], specs)
     torch.cuda.synchronize()
     assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1])
     assert all(torch.equal(a, b) for a, b in zip(tables, before))
+    if case == "zero_copy":
+        assert not got[0][4].any() and not got[1][4].any()
+
+
+def test_pair_init_occupancy(cuda):
+    """Both pair-init bodies fit several blocks on a multiprocessor."""
+    from sumcheck_tpu_torch.ops import init_cuda as IC
+
+    assert IC.blocks_per_sm(True) >= 4 and IC.blocks_per_sm(False) >= 4
+
+
+# ---------------------------------------------------------------------------
+# the fold body: every degree, both sides of kMaxRegisterDegree, the staged
+# variant
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("degree", range(1, 9))
+def test_fold_kernels_every_degree(cuda, degree):
+    """The in-place fold (`round_fold`) and the out-of-place fold with
+    coefficients (`round_step_fold`) at every degree 1-8, the register body
+    up to 4 and the ladder body above it, ragged plans of up to 8 factors
+    over 9 slots, edge values among the operands, at a ragged extent:
+    folded tables and sums equal the plain versions'."""
+    rng = np.random.default_rng(degree + 60)
+    factors = min(8, max(1, degree - int(rng.integers(0, 2))))
+    products = tuple(tuple(int(s) for s in rng.integers(0, 9, factors)) for _ in range(3))
+    lo, hi = _edge_pair(degree + 61, 9, 10, cuda)
+    r = torch.from_numpy(L.mont_scalar(3 + degree)[:, 0].astype(np.int32)).to(cuda)
+    l1, h1, l2, h2 = lo.clone(), hi.clone(), lo.clone(), hi.clone()
+    got = RC.round_fold(l1, h1, r, products, degree, 211)
+    want = RC.round_fold_ref(l2, h2, r, products, degree, 211)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(l1, l2) and torch.equal(h1, h2)
+    c = _coeffs(products, cuda)
+    (gl, gh), got = RC.round_step_fold(lo, hi, r, products, degree, c)
+    (wl, wh), want = RC.round_step_fold_ref(lo, hi, r, products, degree, c)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(gl, wl) and torch.equal(gh, wh)
+
+
+@pytest.mark.parametrize("slots", [1, 6, 16])
+@pytest.mark.parametrize("degree", range(1, 5))
+def test_fold_staged_variant_matches_plain(cuda, degree, slots):
+    """The fold body's yardstick (`ops/fold_staged.py`: the stripes staged
+    in shared memory by the block's 16-byte cp.async copies) equals the
+    plain version and `round_fold`, at every register degree, from one slot
+    to the maximum, at the full extent, a partial last block and one chunk
+    of 4 lanes; it refuses extents not a multiple of 4."""
+    from sumcheck_tpu_torch.ops import fold_staged as FS
+
+    rng = np.random.default_rng(10 * degree + slots)
+    products = tuple(tuple(int(s) for s in rng.integers(0, slots, degree)) for _ in range(2))
+    lo, hi = _pair(slots + 80, slots, 10, cuda)
+    r = torch.from_numpy(L.mont_scalar(11 * degree)[:, 0].astype(np.int32)).to(cuda)
+    for extent in (256, 132, 4):
+        runs = []
+        for fn in (FS.round_fold_staged, RC.round_fold_ref, RC.round_fold):
+            l, h = lo.clone(), hi.clone()
+            runs.append((fn(l, h, r, products, degree, extent), l, h))
+        torch.cuda.synchronize()
+        for sums, l, h in runs[1:]:
+            assert torch.equal(runs[0][0], sums), extent
+            assert torch.equal(runs[0][1], l) and torch.equal(runs[0][2], h), extent
+    with pytest.raises(RuntimeError):  # the variant has no ladder body
+        FS.round_fold_staged(lo, hi, r, ((0,) * 5,), 5, 8)
+    with pytest.raises(ValueError):
+        FS.round_fold_staged(lo, hi, r, products, degree, 129)
+
+
+def test_fold_occupancy(cuda):
+    """`round_fold`'s body at the 2x3 prove's 6 slots holds at least as
+    many blocks a multiprocessor as the staged yardstick, whose stage takes
+    32 KB of shared memory more a block; a degree past the register bodies
+    has none to report."""
+    from sumcheck_tpu_torch.ops import fold_staged as FS
+
+    inplace = RC.blocks_per_sm(3, 6)
+    assert inplace >= 2 and inplace >= FS.blocks_per_sm(3, 6) >= 1
+    assert RC.blocks_per_sm(4, 16) >= 1
+    with pytest.raises(ValueError):
+        RC.blocks_per_sm(5, 6)
 
 
 def _batch_polys(seed, batch, nv, coeff_sets=None):

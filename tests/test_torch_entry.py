@@ -51,7 +51,10 @@ def test_entry_pair_is_the_jax_example():
 
     stacked = np.asarray(GE._example(8)[0])  # (16, 4, 256)
     _fn, (lo, hi, r) = E.entry(device="cpu")
-    pair = torch.cat([lo, hi], dim=2).numpy().astype(np.uint32)  # (6, 16, 256)
+    from sumcheck_tpu_torch.fields.limbs_np import unpack_limbs
+
+    assert lo.shape == (6, 8, 128) and lo.dtype == torch.int32
+    pair = unpack_limbs(torch.cat([lo, hi], dim=2).numpy(), axis=1)  # (6, 16, 256)
     np.testing.assert_array_equal(pair[:4], stacked.transpose(1, 0, 2))
     for slot, (src, c) in zip((4, 5), E.ENTRY_SCALED):
         np.testing.assert_array_equal(pair[slot], JL.mont_mul(pair[src], JL.mont_scalar(c)))

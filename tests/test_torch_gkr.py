@@ -293,8 +293,9 @@ def test_phase_inits_match_jax_host(dim, split8):
     lo, hi, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, g_omr, f3_d, f2_d, dim, split8)
     h_host, f1g_host = j_phase_one(f1, f3, g)
     rev = bitrev_perm(dim)
-    hg = torch.cat([lo[0], hi[0]], dim=1).numpy()
-    np.testing.assert_array_equal(hg[:, rev].astype(np.uint32), h_host.evals)
+    assert lo.shape == (2, 8, 1 << (dim - 1)) and lo.dtype == torch.int32
+    hg = L.unpack_limbs(torch.cat([lo[0], hi[0]], dim=1).numpy())
+    np.testing.assert_array_equal(hg[:, rev], h_host.evals)
     np.testing.assert_array_equal(torch.cat([lo[1], hi[1]], dim=1).numpy(), f2_d.numpy())
 
     rnd = random.Random(dim)
@@ -306,8 +307,9 @@ def test_phase_inits_match_jax_host(dim, split8):
 
     f2u = torch.from_numpy(L.mont_scalar(rnd.randrange(P))[:, 0].astype(np.int64))
     lo2, hi2 = GI.prep2(f1gu, f3_d, f2u)
-    scaled = L.mont_mul(f3_d.numpy().astype(np.uint32), f2u.numpy().astype(np.uint32)[:, None])
-    np.testing.assert_array_equal(torch.cat([lo2[1], hi2[1]], dim=1).numpy(), scaled)
+    scaled = L.mont_mul(L.unpack_limbs(f3_d.numpy()), f2u.numpy().astype(np.uint32)[:, None])
+    np.testing.assert_array_equal(L.unpack_limbs(torch.cat([lo2[1], hi2[1]], dim=1).numpy()),
+                                  scaled)
 
 
 def test_final_fold_is_the_table_at_the_point():
@@ -317,7 +319,8 @@ def test_final_fold_is_the_table_at_the_point():
     hi = torch.from_numpy(L.from_ints([rnd.randrange(P) for _ in range(2)]).astype(np.int32))
     r = rnd.randrange(P)
     r_dig = torch.from_numpy(L.mont_scalar(r)[:, 0].astype(np.int32))
-    got = GI.final_fold(lo.T.reshape(2, 16, 1), hi.T.reshape(2, 16, 1), r_dig, 1)
+    got = GI.final_fold(torch.from_numpy(L.pack_limbs(lo.numpy().T[:, :, None], axis=1)),
+                        torch.from_numpy(L.pack_limbs(hi.numpy().T[:, :, None], axis=1)), r_dig, 1)
     l, h = L.to_ints(lo.numpy()[:, 1:].astype(np.uint32))[0], L.to_ints(hi.numpy()[:, 1:].astype(np.uint32))[0]
     assert L.to_ints(got.numpy()[:, None].astype(np.uint32))[0] == (l + r * (h - l)) % P
 
@@ -438,8 +441,9 @@ def test_pair_bodies_match_jax(split8):
     g_r, g_omr = (GI.upload(a, CPU) for a in GI._points_arrays(tg))
     lo, hi, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, g_omr,
                                t3.to_device(CPU), t2.to_device(CPU), dim, split8)
-    for a, b in ((lo, jlo), (hi, jhi), (w, jw)):
-        np.testing.assert_array_equal(a.numpy().astype(np.int64), np.asarray(b).astype(np.int64))
+    for a, b in ((L.unpack_limbs(lo.numpy(), axis=1), jlo), (L.unpack_limbs(hi.numpy(), axis=1),
+                                                            jhi), (w.numpy(), jw)):
+        np.testing.assert_array_equal(a.astype(np.int64), np.asarray(b).astype(np.int64))
 
     rnd = random.Random(14)
     u = np.stack([L.mont_scalar(rnd.randrange(P))[:, 0] for _ in range(dim)])
@@ -451,4 +455,5 @@ def test_pair_bodies_match_jax(split8):
                               x, perm_y, last_y, w, torch.from_numpy(u.astype(np.int32)),
                               t3.to_device(CPU), dim, split8)
     for a, b in ((lo2, jlo2), (hi2, jhi2)):
-        np.testing.assert_array_equal(a.numpy().astype(np.int64), np.asarray(b).astype(np.int64))
+        np.testing.assert_array_equal(L.unpack_limbs(a.numpy(), axis=1).astype(np.int64),
+                                      np.asarray(b).astype(np.int64))

@@ -33,6 +33,7 @@ import sumcheck_tpu_torch as T
 from sumcheck_tpu.fields.fr import P
 from sumcheck_tpu.ops import gkr_init as JGI
 from sumcheck_tpu.utils import sol as JSOL
+from sumcheck_tpu_torch.fields.limbs_np import unpack_limbs
 from sumcheck_tpu_torch.ops import gkr_init as GI
 from sumcheck_tpu_torch.ops import round_cuda as RC
 from sumcheck_tpu_torch.protocol.prover import bitrev_perm, to_bitrev
@@ -185,7 +186,7 @@ def test_zero_coefficient_tables_match_jax(nv):
     assert not lo[tables].any() and not hi[tables].any()
     for i, m in enumerate(tp.flattened_ml_extensions):
         if all(i != src for dst, src, c in scale_plan if dst == src):
-            both = torch.cat([lo[i], hi[i]], dim=1).numpy().astype(np.uint32)
+            both = unpack_limbs(torch.cat([lo[i], hi[i]], dim=1).numpy())
             np.testing.assert_array_equal(both, to_bitrev(m.evals, nv))
     got, want = zero_coefficient_rounds(nv)
     assert len(got) == nv and got == want

@@ -13,7 +13,8 @@ checked against the port's plain versions and Python integers:
   passes (`column_word`, m and m p, `quad_normalize` with its shuffle and
   ballots, the division by 2^16); against `ops/mxu_mul.py` and
   `limbs_torch.mont_mul`;
-- the register evaluation of `csrc/round.cu` (`nofold_kernel`): product by
+- the register evaluation of `csrc/round.cu` (`nofold_kernel`, and
+  `fold_kernel` after its fold, reading the ladder's (E, O - E)): product by
   product, a product of l factors multiplied at t = 0..l and extended by
   backward differences; against the ladder (`round_cuda.round_nofold_ref`)
   at degrees 1-8.
@@ -459,6 +460,16 @@ def register_eval(e, o, products, degree: int, coeffs=None, count=None) -> list[
     return total
 
 
+def _limb_pair(vals, half: int, width: int):
+    """Slot values (Montgomery form, as ints), 2 x half lanes each -> the
+    (U, 8, width) limb pair whose first `half` lanes hold them."""
+    def block(part):
+        d = np.stack([L.from_ints(v[part] + [0] * (width - half), mont=False) for v in vals])
+        return torch.from_numpy(L.pack_limbs(d, axis=1))
+
+    return block(slice(0, half)), block(slice(half, 2 * half))
+
+
 def _digit_sums(totals: list[list[int]], degree: int) -> torch.Tensor:
     out = torch.zeros((degree + 1, 16), dtype=torch.int64)
     for tot in totals:
@@ -480,10 +491,7 @@ def test_register_eval_model_matches_ladder(degree, coeffs):
     products = [tuple(rnd.randrange(slots) for _ in range(factors)) for _ in range(3)]
     vals = [[rnd.randrange(P) for _ in range(2 * lanes)] for _ in range(slots)]
     vals[0][:4] = [0, 1, P - 1, (1 << 255) % P]
-    lo = torch.from_numpy(np.stack([L.from_ints(v[:lanes], mont=False) for v in vals])
-                          .astype(np.int32))
-    hi = torch.from_numpy(np.stack([L.from_ints(v[lanes:], mont=False) for v in vals])
-                          .astype(np.int32))
+    lo, hi = _limb_pair(vals, lanes, lanes)
     cs = [rnd.randrange(P) for _ in products] if coeffs else None
     totals = [register_eval([v[k] for v in vals], [v[lanes + k] for v in vals],
                             products, degree, cs) for k in range(lanes)]
@@ -493,6 +501,38 @@ def test_register_eval_model_matches_ladder(degree, coeffs):
     else:
         want = RC.round_nofold_ref(lo, hi, products, degree, lanes)
     assert torch.equal(_digit_sums(totals, degree), want)
+
+
+@pytest.mark.parametrize("degree", range(1, 5))
+def test_fold_body_model_matches_plain_fold(degree):
+    """`fold_kernel`'s data flow for one round, lane by lane: each slot
+    folded once by r (E from lanes k, O from k + A), the ladder's (E, O - E)
+    then read by the register evaluation, at every degree up to
+    kMaxRegisterDegree; against the in-place fold's plain version
+    (`round_cuda.round_fold_ref`): the folded lanes and the sums."""
+    rnd = random.Random(700 + degree)
+    slots, extent = 7, 5
+    factors = max(1, degree - rnd.choice([0, 1]))
+    products = [tuple(rnd.randrange(slots) for _ in range(factors)) for _ in range(3)]
+    vals = [[rnd.randrange(P) for _ in range(4 * extent)] for _ in range(slots)]
+    vals[1][:3] = [0, P - 1, 1]
+    r = rnd.randrange(P)
+
+    def fold(x, y):
+        return (x + (y - x) * r * R_INV) % P
+
+    es, os_ = [], []
+    for k in range(extent):
+        es.append([fold(v[k], v[2 * extent + k]) for v in vals])
+        os_.append([fold(v[extent + k], v[3 * extent + k]) for v in vals])
+    totals = [register_eval(es[k], os_[k], products, degree) for k in range(extent)]
+    lo, hi = _limb_pair(vals, 2 * extent, 2 * extent)
+    r_digits = torch.from_numpy(L.from_ints([r], mont=False)[:, 0].astype(np.int32))
+    want = RC.round_fold_ref(lo, hi, r_digits, products, degree, extent)
+    assert torch.equal(_digit_sums(totals, degree), want)
+    got_lo = [L.to_ints(L.unpack_limbs(lo[u].numpy())[:, :extent], mont=False)
+              for u in range(slots)]
+    assert got_lo == [[es[k][u] for k in range(extent)] for u in range(slots)]
 
 
 @pytest.mark.parametrize("factors", range(2, 9))

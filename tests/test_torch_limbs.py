@@ -141,3 +141,96 @@ def test_montgomery_roundtrip_matches_host_model():
     one = LN.from_int_scalar(1)
     canon = _np(LT.mont_mul(_t(m), _t(one)))  # * R^-1: canonical digits
     assert LN.to_ints(canon, mont=False) == [v % P for v in vals]
+
+
+# ---------------------------------------------------------------------------
+# the kernels' layout: 8 x 32-bit limbs in int32 words
+# ---------------------------------------------------------------------------
+
+PACK_CASES = ["random", "zero", "p-1", "ffff"]
+
+
+def _pack_case(case: str) -> np.ndarray:
+    """A (16, N) uint32 digit array as the JAX package holds it: random
+    Montgomery values below p with the edges, zeros, p - 1 (canonical and
+    in Montgomery form), and every digit 0xFFFF (all 256 bits set)."""
+    if case == "random":
+        return LN.from_ints([int(v) for v in np.random.default_rng(12).integers(0, 1 << 62, N)]
+                            + EDGES)
+    if case == "zero":
+        return np.zeros((16, N), np.uint32)
+    if case == "p-1":
+        return np.concatenate([_digits([P - 1] * 4), LN.from_ints([P - 1] * 4)], axis=1)
+    return np.full((16, N), 0xFFFF, np.uint32)
+
+
+def _want_limbs(d: np.ndarray) -> np.ndarray:
+    """The 8 limbs of each lane's integer, least significant first, as
+    int32 bit patterns."""
+    vals = [sum(int(d[i, k]) << (16 * i) for i in range(16)) for k in range(d.shape[1])]
+    words = [[(v >> (32 * j)) & 0xFFFFFFFF for v in vals] for j in range(8)]
+    return np.array(words, dtype=np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("case", PACK_CASES)
+def test_pack_limbs_matches_jax_digits(case):
+    """`pack_limbs` (torch and NumPy) of the JAX package's digits: limb j
+    holds bits 32j..32j+31 of the lane's integer."""
+    d = _pack_case(case)
+    want = _want_limbs(d)
+    np.testing.assert_array_equal(PN.pack_limbs(d), want)
+    got = LT.pack_limbs(_t(d))
+    assert got.dtype == torch.int32 and got.shape == (8, d.shape[1]) and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", PACK_CASES)
+def test_unpack_limbs_gives_jax_digits(case):
+    """`unpack_limbs` (torch and NumPy) of those limbs gives the JAX
+    package's digit array back exactly, along any axis of a pair."""
+    d = _pack_case(case)
+    limbs = _want_limbs(d)
+    np.testing.assert_array_equal(PN.unpack_limbs(limbs), d)
+    np.testing.assert_array_equal(_np(LT.unpack_limbs(torch.from_numpy(limbs))), d)
+    pair = np.stack([d, d[:, ::-1]])  # (U, 16, N), the pair's digit axis 1
+    packed = LT.pack_limbs(_t(pair), dim=1)
+    assert packed.shape == (2, 8, d.shape[1])
+    np.testing.assert_array_equal(_np(LT.unpack_limbs(packed, dim=1)), pair)
+    np.testing.assert_array_equal(PN.unpack_limbs(PN.pack_limbs(pair, axis=1), axis=1), pair)
+
+
+def test_limb_round_trip():
+    """Any int32 words round-trip through digits and back (torch and
+    NumPy), negative bit patterns included."""
+    words = np.random.default_rng(13).integers(-(1 << 31), 1 << 31, size=(3, 8, 40),
+                                                dtype=np.int64).astype(np.int32)
+    words[0, :, 0] = [-1, 0, -(1 << 31), (1 << 31) - 1, 1, -2, 65535, -65536]
+    for axis in (1, -2):
+        digits = PN.unpack_limbs(words, axis=axis)
+        assert digits.shape == (3, 16, 40) and digits.max() <= 0xFFFF
+        np.testing.assert_array_equal(PN.pack_limbs(digits, axis=axis), words)
+        t = LT.unpack_limbs(torch.from_numpy(words), dim=axis)
+        np.testing.assert_array_equal(_np(t), digits)
+        np.testing.assert_array_equal(LT.pack_limbs(t, dim=axis).numpy(), words)
+
+
+LIMB_TESTS = ["test_pack_limbs_matches_jax_digits", "test_unpack_limbs_gives_jax_digits",
+              "test_limb_round_trip"]
+
+
+@pytest.fixture(scope="module")
+def bn254_limb_outcomes(tmp_path_factory):
+    """The limb layout's tests in one child pytest under
+    SUMCHECK_TPU_FIELD=bn254_fr (its p - 1 and Montgomery form)."""
+    from test_torch_field import child_outcomes
+
+    return child_outcomes(__file__, tmp_path_factory.mktemp("bn254"),
+                          f"({' or '.join(LIMB_TESTS)}) and not under_bn254")
+
+
+@pytest.mark.parametrize("name", LIMB_TESTS, ids=["pack", "unpack", "round_trip"])
+def test_limb_layout_under_bn254(bn254_limb_outcomes, name):
+    from test_torch_field import outcomes_of
+
+    got = outcomes_of(bn254_limb_outcomes, name)
+    assert got and all(v == "passed" for v in got.values()), got

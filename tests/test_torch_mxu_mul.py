@@ -181,10 +181,11 @@ def test_mxu_env_is_parsed_as_in_jax(env):
 
 
 def _pair(seed: int, slots: int, half: int):
+    """A random (U, 8, half) limb pair, digits below 2^254 < p."""
     gen = np.random.default_rng(seed)
     d = gen.integers(0, 1 << 16, size=(slots, 16, 2 * half), dtype=np.uint32)
     d[:, 15] >>= 2  # < 2^254 < p
-    d = d.astype(np.int32)
+    d = L.pack_limbs(d, axis=1)
     return (torch.from_numpy(np.ascontiguousarray(d[:, :, :half])),
             torch.from_numpy(np.ascontiguousarray(d[:, :, half:])))
 
@@ -216,15 +217,17 @@ def test_fold_mxu_ref_equals_jax_pallas_kernel():
     lo, hi = _pair(21, 2, 32)
     r = torch.from_numpy(L.mont_scalar(424242)[:, 0].astype(np.int32))
     fn = _build_chain(block, 2, products, degree, True, block, True, mxu=True)
-    u32 = lambda t: jnp.asarray(t.numpy().astype(np.uint32))  # noqa: E731
+    u32 = lambda t: jnp.asarray(L.unpack_limbs(t.numpy(), axis=1))  # noqa: E731
     mask = (np.arange(block)[None, :] < a2).astype(np.uint32).repeat(16, axis=0)
     flo, fhi, part = fn(JM.scalar_band(u32(r)), jnp.asarray(mask),
                         u32(lo[:, :, :block]), u32(lo[:, :, a2:a2 + block]),
                         u32(hi[:, :, :block]), u32(hi[:, :, a2:a2 + block]))
     l2, h2 = lo.clone(), hi.clone()
     sums = RC.round_fold_mxu_ref(l2, h2, r, products, degree, a2)
-    np.testing.assert_array_equal(l2[:, :, :a2].numpy(), np.asarray(flo)[:, :, :a2].astype(np.int32))
-    np.testing.assert_array_equal(h2[:, :, :a2].numpy(), np.asarray(fhi)[:, :, :a2].astype(np.int32))
+    np.testing.assert_array_equal(L.unpack_limbs(l2[:, :, :a2].numpy(), axis=1),
+                                  np.asarray(flo)[:, :, :a2])
+    np.testing.assert_array_equal(L.unpack_limbs(h2[:, :, :a2].numpy(), axis=1),
+                                  np.asarray(fhi)[:, :, :a2])
     np.testing.assert_array_equal(sums.numpy(), np.asarray(part).astype(np.int64).sum(axis=0))
 
 

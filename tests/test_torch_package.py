@@ -15,6 +15,7 @@ import torch
 
 import sumcheck_tpu_torch as T
 from sumcheck_tpu_torch.batch import BatchedGKRRoundSumcheck, BatchedMLSumcheck
+from sumcheck_tpu_torch.ops import fold_staged as FS
 from sumcheck_tpu_torch.ops import init_cuda as IC
 from sumcheck_tpu_torch.ops import round_cuda as RC
 from sumcheck_tpu_torch.ops import transcript_cuda as TC
@@ -117,8 +118,8 @@ def _cuda_without_a_card_raises(monkeypatch, chain):
 
 
 def test_wrappers_refuse_other_devices():
-    lo = torch.zeros((2, 16, 8), dtype=torch.int32, device="meta")
-    hi = torch.zeros((2, 16, 8), dtype=torch.int32, device="meta")
+    lo = torch.zeros((2, 8, 8), dtype=torch.int32, device="meta")
+    hi = torch.zeros((2, 8, 8), dtype=torch.int32, device="meta")
     r = torch.zeros(16, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         RC.round_nofold(lo, hi, ((0, 1),), 2, 4)
@@ -130,6 +131,8 @@ def test_wrappers_refuse_other_devices():
         RC.round_step_fold(lo, hi, r, ((0, 1),), 2)
     with pytest.raises(ValueError):
         RC.round_fold_mxu(lo, hi, r, ((0, 1),), 2, 4)
+    with pytest.raises(ValueError):
+        FS.round_fold_staged(lo, hi, r, ((0, 1),), 2, 4)
     state = torch.zeros((26, 2), dtype=torch.int32, device="meta")
     sums = torch.zeros((3, 16), dtype=torch.int64, device="meta")
     msgs = torch.zeros((2, 16, 3), dtype=torch.int32, device="meta")
@@ -146,7 +149,7 @@ def test_wrappers_refuse_other_devices():
         RC.round_step_fold_batched(blo, bhi, br, ((0, 1),), 2)
     with pytest.raises(ValueError):
         TC.transcript_step_batched(state[None], sums[None], msgs[:, None], rs[:, None], 0)
-    tab = torch.zeros((16, 16), dtype=torch.int32, device="meta")
+    tab = torch.zeros((8, 16), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         IC.pair_init(lo, hi, [tab], ((0, None), (None, 1)))
     assert all(f.launches == 0 for f in COUNTERS)
@@ -177,7 +180,7 @@ def test_kernel_maxima_are_checked_before_a_build():
     tsrc = TC.SOURCE.read_text()
     assert f"constexpr int kMaxDegree = {TC.MAX_DEGREE};" in tsrc
     assert f"constexpr int kStateWords = {TC.STATE_WORDS};" in tsrc
-    lo = torch.zeros((RC.MAX_SLOTS + 1, 16, 4), dtype=torch.int32)
+    lo = torch.zeros((RC.MAX_SLOTS + 1, 8, 4), dtype=torch.int32)
     with pytest.raises(ValueError):
         RC._launch(False, lo, lo, None, ((0, 1),), 2, 4)
 

@@ -1,7 +1,8 @@
 """The port's prover (`sumcheck_tpu_torch`, `device="cpu"`, i.e. the round
 kernels' plain versions) against the JAX package.
 
-- `_fold_plan` and `init_pair` equal the JAX ones;
+- `_fold_plan` and `init_pair` equal the JAX ones (the port's (U, 8, H)
+  limb pair unpacked to the JAX (U, 16, H) digits);
 - full `MLSumcheck.prove_as_subprotocol` equals the JAX package's host
   engine (whose bit-identity to its on-device `prove_generic` the JAX suite
   pins): proof bytes, challenges, and the transcript after the prove;
@@ -27,6 +28,8 @@ from sumcheck_tpu.ml_sumcheck import serialize_proof as j_serialize
 from sumcheck_tpu.protocol import device_prover as JD
 from sumcheck_tpu.utils.config import get_config
 from sumcheck_tpu_torch.convert import polynomial_from_numpy
+from sumcheck_tpu_torch.fields import limbs_np as TL
+from sumcheck_tpu_torch.fields.limbs_np import unpack_limbs
 from sumcheck_tpu_torch.ml_sumcheck import deserialize_proof, serialize_proof
 from sumcheck_tpu_torch.protocol import device_prover as TD
 
@@ -101,8 +104,9 @@ def test_init_pair_matches(shape):
     lo, hi, prod, deg = TD.init_pair(tp, "cpu")
     assert (prod, deg) == (jprod, jdeg)
     assert lo.dtype == torch.int32 and lo.is_contiguous() and hi.is_contiguous()
-    np.testing.assert_array_equal(lo.numpy().astype(np.uint32), np.asarray(jlo))
-    np.testing.assert_array_equal(hi.numpy().astype(np.uint32), np.asarray(jhi))
+    assert lo.shape == (len(jlo), 8, jlo.shape[2])  # the JAX pair's digits as limbs
+    np.testing.assert_array_equal(unpack_limbs(lo.numpy(), axis=1), np.asarray(jlo))
+    np.testing.assert_array_equal(unpack_limbs(hi.numpy(), axis=1), np.asarray(jhi))
 
 
 @pytest.mark.parametrize("shape", sorted(SHAPES))
@@ -238,3 +242,44 @@ def test_convert_rejects_wrong_table_shapes():
         polynomial_from_numpy(4, [good], [(1, [0])])
     with pytest.raises(ValueError):
         polynomial_from_numpy(3, [good[:8]], [(1, [0])])
+
+
+@pytest.mark.parametrize("source", ["init_pair", "init_pairs", "sharded", "to_device",
+                                    "gkr_phase1", "gkr_phase2", "entry"])
+def test_every_pair_is_packed_limbs(source):
+    """Every table pair and cached table the port builds holds 8 x 32-bit
+    limbs a value: (..., 8, H) int32, contiguous: the ML pair, the batched
+    pair, a rank's sharded pair, `DenseMLE.to_device`'s cache, the GKR
+    phase pairs and `entry()`'s pair."""
+    from sumcheck_tpu_torch import entry as E
+    from sumcheck_tpu_torch.ops import gkr_init as GI
+    from test_torch_gkr import instances
+
+    _jp, tp = both("2x3", seed=5)
+    half = 1 << (tp.num_variables - 1)
+    if source == "init_pair":
+        pairs, lead = TD.init_pair(tp, "cpu")[:2], (6,)
+    elif source == "init_pairs":
+        pairs, lead = TD.init_pairs([tp, tp], "cpu")[:2], (2, 6)
+    elif source == "sharded":
+        pairs, lead, half = TD.init_pair(tp, "cpu", (1, 4))[:2], (6,), half // 4
+    elif source == "to_device":
+        pairs, lead, half = [m.to_device("cpu") for m in tp.flattened_ml_extensions], (), 2 * half
+    elif source == "entry":
+        pairs, lead, half = E.entry(device="cpu")[1][:2], (6,), 128
+    else:
+        dim = 4
+        _j, (t1, t2, t3, tg) = instances(dim, seed=dim, nnz=3 << dim)
+        gbits, x, y_rev, vals, last_x, perm_y, last_y = GI._split_f1_device(t1, dim, "cpu")
+        g_r, g_omr = (GI.upload(a, torch.device("cpu")) for a in GI._points_arrays(tg))
+        lo, hi, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, g_omr, t3.to_device("cpu"),
+                                   t2.to_device("cpu"), dim)
+        pairs, lead, half = (lo, hi), (2,), 1 << (dim - 1)
+        if source == "gkr_phase2":
+            u = torch.from_numpy(np.stack([TL.mont_scalar(7 + i)[:, 0] for i in range(dim)])
+                                 .astype(np.int32))
+            pairs = GI.phase2_pair(lo[:, :, :1], hi[:, :, :1], u[-1], x, perm_y, last_y, w, u,
+                                   t3.to_device("cpu"), dim)
+    for t in pairs:
+        assert t.dtype == torch.int32 and t.is_contiguous()
+        assert tuple(t.shape) == lead + (8, half), (source, tuple(t.shape))

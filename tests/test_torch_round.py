@@ -3,8 +3,9 @@
 the host engine `engine.HOST`, the jnp engine `engine.DEVICE` (eager), and
 the Pallas chain kernels themselves in interpret mode (slow).
 
-Compared: the folded active lanes and the exact `(WIDE, d+1)` sums.
-Tolerance 0. Inputs from `numpy.random.default_rng`, shaped as
+Compared: the folded active lanes, unpacked from the port's (U, 8, H)
+limb pair (`limbs_torch.unpack_limbs`) to the JAX package's digits, and the
+exact `(WIDE, d+1)` sums. Tolerance 0. Inputs from `numpy.random.default_rng`, shaped as
 `__graft_entry__._example(nv=8)`: three tables, products (0,1,2) and
 (2,0,1) with coefficients 123 and 456 pre-folded into scaled copies of
 their first tables (what `_fold_plan` does for shared tables).
@@ -19,6 +20,7 @@ import torch
 
 from sumcheck_tpu.fields import limbs_np as LN
 from sumcheck_tpu.protocol import engine as JE
+from sumcheck_tpu_torch.fields import limbs_torch as LT
 from sumcheck_tpu_torch.ops import round_cuda as RC
 
 DEGREE = 3
@@ -50,11 +52,16 @@ def ragged_slots(nv: int) -> np.ndarray:
 
 
 def _pair(slots: np.ndarray):
-    """Slot-leading tables (U, 16, n) -> the port's int32 (lo, hi) pair."""
+    """Slot-leading digit tables (U, 16, n) -> the port's (U, 8, n/2) int32
+    limb (lo, hi) pair."""
     half = slots.shape[2] // 2
-    lo = torch.from_numpy(np.ascontiguousarray(slots[:, :, :half]).astype(np.int32))
-    hi = torch.from_numpy(np.ascontiguousarray(slots[:, :, half:]).astype(np.int32))
-    return lo, hi
+    packed = LT.pack_limbs(torch.from_numpy(slots.astype(np.int64)), dim=1)
+    return packed[:, :, :half].contiguous(), packed[:, :, half:].contiguous()
+
+
+def _unpacked(t: torch.Tensor) -> np.ndarray:
+    """A (U, 8, n) limb block -> its (U, 16, n) uint32 digits."""
+    return LT.unpack_limbs(t, dim=1).numpy().astype(np.uint32)
 
 
 def _challenge(v: int = 789):
@@ -92,7 +99,7 @@ def port_round(slots, products, extent, fold, fn_nofold, fn_fold):
         # lanes past the extent stay as they were
         assert torch.equal(lo[:, :, extent:], lo0[:, :, extent:])
         assert torch.equal(hi[:, :, extent:], hi0[:, :, extent:])
-        pair = (lo[:, :, :extent].numpy(), hi[:, :, :extent].numpy())
+        pair = (_unpacked(lo[:, :, :extent]), _unpacked(hi[:, :, :extent]))
     else:
         sums = fn_nofold(lo, hi, products, DEGREE, extent)
         assert torch.equal(lo, lo0) and torch.equal(hi, hi0)
@@ -210,7 +217,7 @@ def test_matches_pallas_chain_kernel(do_fold):
     products = ((0, 1, 2), (2, 0, 1))
     slots = _tables(2, 6, 3)  # (3, 16, 64): a pair of width 32
     lo, hi = _pair(slots)
-    lo_j, hi_j = jnp.asarray(lo.numpy().astype(np.uint32)), jnp.asarray(hi.numpy().astype(np.uint32))
+    lo_j, hi_j = jnp.asarray(_unpacked(lo)), jnp.asarray(_unpacked(hi))
     mask = jnp.asarray((np.arange(B)[None, :] < extent).repeat(16, 0).astype(np.uint32))
     call = _build_chain(B, 3, products, DEGREE, do_fold, bt, True)
     if do_fold:
@@ -218,8 +225,8 @@ def test_matches_pallas_chain_kernel(do_fold):
         flo, fhi, part = call(r_blk, mask, lo_j[:, :, :B], lo_j[:, :, extent:extent + B],
                               hi_j[:, :, :B], hi_j[:, :, extent:extent + B])
         sums = RC.round_fold_ref(lo, hi, _challenge(), products, DEGREE, extent)
-        np.testing.assert_array_equal(np.asarray(flo)[:, :, :extent], lo[:, :, :extent].numpy())
-        np.testing.assert_array_equal(np.asarray(fhi)[:, :, :extent], hi[:, :, :extent].numpy())
+        np.testing.assert_array_equal(np.asarray(flo)[:, :, :extent], _unpacked(lo[:, :, :extent]))
+        np.testing.assert_array_equal(np.asarray(fhi)[:, :, :extent], _unpacked(hi[:, :, :extent]))
     else:
         (part,) = call(mask, lo_j[:, :, :B], hi_j[:, :, :B])
         sums = RC.round_nofold_ref(lo, hi, products, DEGREE, extent)

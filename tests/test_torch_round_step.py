@@ -6,7 +6,8 @@ engine `engine.round_sums` / `fold_tables` with and without per-product
 coefficients, and (slow) the Pallas kernels `_kernel_nofold` /
 `_kernel_fold` through `round_pallas(..., interpret=True)`.
 
-Compared: the fresh folded tables and the exact `(WIDE, d+1)` sums.
+Compared: the fresh folded tables, unpacked from the port's limbs to
+digits, and the exact `(WIDE, d+1)` sums.
 Tolerance 0. Inputs from `numpy.random.default_rng` / `random.Random`:
 
 - "u3": U=3 (two tables and a ones slot), n=256, products (0,1), (1,0),
@@ -30,6 +31,7 @@ from sumcheck_tpu.protocol import engine as JE
 from sumcheck_tpu_torch.convert import polynomial_from_numpy
 from sumcheck_tpu_torch.fields.fr import P
 from sumcheck_tpu_torch.ops import round_cuda as RC
+from sumcheck_tpu_torch.fields import limbs_torch as LT
 from sumcheck_tpu_torch.protocol.device_prover import init_pair
 
 R_VALUE = 0x1234_5678_9ABC_DEF0_1357_9BDF
@@ -53,17 +55,22 @@ def case(name: str):
         poly = polynomial_from_numpy(6, tabs, [(11, [0, 1, 2]), (13, [0, 3])])
         lo, hi, products, degree = init_pair(poly, "cpu")
         assert lo.shape[0] == 6  # 4 tables, a scaled copy, a ones slot
-        slots = torch.cat([lo, hi], dim=2).numpy().astype(np.uint32)
+        slots = _unpacked(torch.cat([lo, hi], dim=2))
         return slots, products, degree
     n = {"half1": 2, "half2": 4}[name]
     return _tables(3, 4, n), ((0, 1), (2, 1)), 2
 
 
 def _pair(slots):
+    """(U, 16, n) digit tables -> the port's (U, 8, n/2) limb pair."""
     half = slots.shape[2] // 2
-    lo = torch.from_numpy(np.ascontiguousarray(slots[:, :, :half]).astype(np.int32))
-    hi = torch.from_numpy(np.ascontiguousarray(slots[:, :, half:]).astype(np.int32))
-    return lo, hi
+    packed = LT.pack_limbs(torch.from_numpy(slots.astype(np.int64)), dim=1)
+    return packed[:, :, :half].contiguous(), packed[:, :, half:].contiguous()
+
+
+def _unpacked(t: torch.Tensor) -> np.ndarray:
+    """A (U, 8, n) limb block -> its (U, 16, n) uint32 digits."""
+    return LT.unpack_limbs(t, dim=1).numpy().astype(np.uint32)
 
 
 def _r_digits():
@@ -84,8 +91,8 @@ def port_step(slots, products, degree, fold, coeffs=None, fns=None):
     if fold:
         r = torch.from_numpy(_r_digits().astype(np.int32))
         (nlo, nhi), sums = fold_fn(lo, hi, r, products, degree, c)
-        assert nlo.shape == (lo.shape[0], 16, lo.shape[2] // 2) and nlo.is_contiguous()
-        pair = (nlo.numpy().astype(np.uint32), nhi.numpy().astype(np.uint32))
+        assert nlo.shape == (lo.shape[0], 8, lo.shape[2] // 2) and nlo.is_contiguous()
+        pair = (_unpacked(nlo), _unpacked(nhi))
     else:
         sums = nofold(lo, hi, products, degree, c)
         pair = None

@@ -18,7 +18,8 @@ Timing and the profiler's classes are this repo's `chip_smoke.py`
 (`time_ms`, `device_busy`), whichever checkout is measured; they time and
 profile through the measured checkout's `sumcheck_tpu_torch.microbench`
 (`held_ms`, `profile_events`) and draw its tables with `limbs_np.
-random_tables`, so that checkout must have both. Compare two commits in
+random_tables` and lay them out by its `device_prover.init_pair`, so that
+checkout must have all three. Compare two commits in
 one call, alternating them: parent, change, change, parent."""
 
 import importlib.util
@@ -42,6 +43,7 @@ from sumcheck_tpu_torch import MLSumcheck  # noqa: E402  (from ROOT)
 from sumcheck_tpu_torch.convert import polynomial_from_numpy  # noqa: E402
 from sumcheck_tpu_torch.fields import limbs_np as L  # noqa: E402
 from sumcheck_tpu_torch.ops import round_cuda as rc  # noqa: E402
+from sumcheck_tpu_torch.protocol.device_prover import init_pair  # noqa: E402
 from sumcheck_tpu_torch.utils.config import get_config  # noqa: E402
 
 
@@ -50,10 +52,12 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     half = 1 << 19
-    stacked = np.stack(L.random_tables(rng, 20, 6)).astype(np.int32)
-    lo = torch.from_numpy(np.ascontiguousarray(stacked[:, :, :half])).to(dev)
-    hi = torch.from_numpy(np.ascontiguousarray(stacked[:, :, half:])).to(dev)
-    products = ((0, 1, 2), (3, 4, 5))
+    # six random tables in the checkout's own pair layout (16-bit digits
+    # before the packed limbs, 8 x 32-bit limbs after): its `init_pair` of
+    # two unit products, which folds in no coefficient
+    six = polynomial_from_numpy(20, L.random_tables(rng, 20, 6), [(1, [0, 1, 2]), (1, [3, 4, 5])])
+    lo, hi, products, _degree = init_pair(six, dev)
+    assert products == ((0, 1, 2), (3, 4, 5)) and lo.shape[2] == half
     r = torch.from_numpy(L.mont_scalar(987654321)[:, 0].astype(np.int32)).to(dev)
 
     def device_ms(fn):
