@@ -8,9 +8,10 @@ Run from the root of a checkout. Phases, each printed on its own lines; any
 failure raises and exits non-zero without the final line:
 
 1. the card's name and power limit (`nvidia-smi`); no CUDA device -> exit 1;
-2. build the five kernel sources, `sumcheck_tpu_torch/csrc/round.cu`,
-   `csrc/transcript.cu`, `csrc/round_mxu.cu`, `csrc/pair_init.cu` and
-   `csrc/fold_staged.cu` (the fold body's yardstick, phase 6e), one
+2. build the six kernel sources, `sumcheck_tpu_torch/csrc/round.cu`,
+   `csrc/transcript.cu`, `csrc/round_mxu.cu`, `csrc/pair_init.cu`,
+   `csrc/fold_staged.cu` (the fold body's yardstick, phase 6e) and
+   `csrc/gkr_init.cu` (the GKR phase inits' four kernels), one
    `nvcc` each, started together; print each kernel's registers, shared memory, stack frame and
    spills from the ptxas logs, and the SASS instruction mix of the
    transcript and round kernels (`cuobjdump`, where the toolkit has it);
@@ -64,13 +65,24 @@ failure raises and exits non-zero without the final line:
    fails the run, verify, the subclaim against the polynomial, and proof
    bytes equal across the three, the plain path on the card and the
    host-transcript loop (timed beside them);
+9a. the GKR phase-init kernels (`ops/gkr_init_cuda.py`: `eq_halves`,
+   `weight_fold`, `segment_reduce`, `pair_slots`) against their plain
+   versions on the card, array-equal, at the dim-18 shapes of phase 9's
+   instance (phase 1's and phase 2's forms) and on the same instance with
+   one x segment of 2^16 + 1 entries, with device ms (each launch after an
+   L2 flush), bound, share and plain ms; both phase inits on the kernels
+   against the torch-op plain versions of the phases
+   (`gkr_init.phase1_pair_ref`, `phase2_pair_ref`) on the card, with their
+   walls; and the weight fold with its half tables in global memory (k =
+   22 and 24), untimed;
 9. the GKR headlines: `GKRRoundSumcheck.prove` at dim 18 on the bench's
    instance (`bench.py:187-194`) on the same three paths: first prove and
-   warm median, launch counts per prove (2 + 34 round kernels and 36
-   transcript steps; the profiler's count of round kernels and transcript
-   steps in one prove), everything between the uploads and the one fetch
-   under the sync debug mode "error", the phase inits and the round kernels
-   timed alone, one verify and the subclaim in Python integers
+   warm median, launch counts per prove (2 + 34 round kernels, 36
+   transcript steps and the phase inits' kernels: 8 on the generic chain,
+   9 on the per-size chain, 8 in the MXU fold mode; the profiler's count
+   of round, transcript and init kernels in one prove and its idle share),
+   everything between the uploads and the one fetch under the sync debug
+   mode "error", the phase inits and the round kernels timed alone, one verify and the subclaim in Python integers
    (`subclaim_in_integers`; `verify_subclaim` runs at dim 14, in the GKR
    batch), and proof bytes equal across the three and the plain path on the
    card;
@@ -130,10 +142,12 @@ failure raises and exits non-zero without the final line:
    and the proofs equal to the same dry run's on the CPU; 11d. the
    microbench (`python -m sumcheck_tpu_torch.microbench 18`, in a process
    of its own) at the GKR dim-18 shape,
-   each probe checked against its plain or NumPy value, and the stage
-   profile of phase 9's chained GKR prove: device ms, host wall, launches
-   and bound of each probe and stage, one line each, and the report as a
-   JSON line before the kernels line;
+   each probe checked against its plain or NumPy value (the GKR init
+   kernels' probes against their plain versions), and the stage profile
+   of phase 9's chained GKR prove: device ms, host wall, launches, the
+   kernels by wrapper and bound of each probe and stage, one line each
+   (the full prove's init kernels checked: 8), and the report as a JSON
+   line before the kernels line;
 12. the verify walls of the ML and GKR headline proofs with the C core
    (`sumcheck_tpu_torch/native/`) and with the Python loop
    (`SUMCHECK_TPU_NATIVE=off`), same subclaims; then `utils/sol.
@@ -144,9 +158,10 @@ failure raises and exits non-zero without the final line:
 13. the second field: a child process, `SUMCHECK_TPU_FIELD=bn254_fr
    python3 chip_smoke.py --field-phase` (its lines marked `[bn254_fr]`; a
    failure there fails the run), which reruns under BN254 Fr, at the same
-   sizes and with the libraries already built: phases 3-5c and 6b-6d, the
-   fixture `tests/fixtures/bn254_torch.json` on every path, the ML, GKR
-   and batch proves (byte-equal across paths and to per-instance proves;
+   sizes and with the libraries already built: phases 3-5c, 6b-6d and 9a,
+   the fixture `tests/fixtures/bn254_torch.json` on every path, the ML, GKR
+   (with the init kernels' launches) and batch proves (byte-equal across
+   paths and to per-instance proves;
    the GKR subclaim at dim 14, in the batch, not 18), phases 10b and 10c
    (without the dim-14 plain check), the sharded ML prove and `ShardedProver`
    with 2 gloo ranks against their single-card proofs, the roofline and
@@ -301,13 +316,15 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def time_ms(fn, reps: int, device, device_only: bool = False, warm: bool = True) -> float:
+def time_ms(fn, reps: int, device, device_only: bool = False, warm: bool = True,
+            cold_l2: bool = False) -> float:
     """Mean time of `fn()` over `reps` runs, after one warm-up. On the card
     CUDA events time it; with `device_only` the stream first sleeps long
     enough for all `reps` launches to be enqueued, so the events see the
     kernels back to back and not the host's enqueue (for functions that do
-    not sync; `microbench.held_ms`)."""
-    from sumcheck_tpu_torch.microbench import held_ms
+    not sync; `microbench.held_ms`), and with `cold_l2` as well each run
+    alone after the L2 is flushed (`microbench.flushed_ms`)."""
+    from sumcheck_tpu_torch.microbench import flushed_ms, held_ms
 
     if warm:
         fn()
@@ -316,6 +333,8 @@ def time_ms(fn, reps: int, device, device_only: bool = False, warm: bool = True)
         for _ in range(reps):
             fn()
         return (time.perf_counter() - t0) * 1e3 / reps
+    if device_only and cold_l2:
+        return flushed_ms(fn, reps, 0.005 + 0.0005 * reps)[0]
     if device_only:
         return held_ms(fn, reps, 0.005 + 0.0002 * reps)[0]  # about 5 ms + 0.2 ms a launch
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -580,8 +599,9 @@ def mxu_kernel_phase(device, seed: int, nv: int = NV, gkr_dim: int = GKR_DIM) ->
 
 
 def mxu_mul_phase(device, seed: int, lanes: int = 1 << 17) -> dict:
-    """Phase 5b: `ops/mxu_mul.py`'s banded multiply (the GKR inits' shared-
-    scalar multiply in the MXU fold mode, float32 matmuls on the card)
+    """Phase 5b: `ops/mxu_mul.py`'s banded multiply (the shared-scalar
+    multiply of the GKR inits' plain versions in the MXU fold mode, float32
+    matmuls on the card)
     against the CIOS multiply of `limbs_torch`, edge values included."""
     from sumcheck_tpu_torch.fields import limbs_np as L
     from sumcheck_tpu_torch.fields import limbs_torch as LT
@@ -915,30 +935,25 @@ PATHS = {"generic": ("generic", False), "per-size": ("persize", False),
 
 
 @contextlib.contextmanager
-def fold_mode(chain: str, mxu: bool = False, mxu_min_lanes: int | None = None):
+def fold_mode(chain: str, mxu: bool = False):
     """Run under one chain (`SUMCHECK_TPU_CHAIN_IMPL`) and, with `mxu`, the
-    MXU fold mode (`SUMCHECK_TPU_MXU_FOLD=kernel`, `SUMCHECK_TPU_AB=1`);
-    `mxu_min_lanes` lowers the GKR inits' banded-product threshold."""
-    from sumcheck_tpu_torch.ops import gkr_init as GI
+    MXU fold mode (`SUMCHECK_TPU_MXU_FOLD=kernel`, `SUMCHECK_TPU_AB=1`)."""
     from sumcheck_tpu_torch.utils.config import get_config
 
     cfg = get_config()
-    saved = (cfg.chain_impl, cfg.mxu_fold, cfg.ab, GI.MXU_MIN_LANES)
+    saved = (cfg.chain_impl, cfg.mxu_fold, cfg.ab)
     cfg.chain_impl = chain
     if mxu:
         cfg.mxu_fold, cfg.ab = "kernel", True
-    if mxu_min_lanes is not None:
-        GI.MXU_MIN_LANES = mxu_min_lanes
     try:
         yield
     finally:
-        cfg.chain_impl, cfg.mxu_fold, cfg.ab, GI.MXU_MIN_LANES = saved
+        cfg.chain_impl, cfg.mxu_fold, cfg.ab = saved
 
 
 def gkr_golden_phase(device, fx=None, name: str = "gkr_dim5.json") -> None:
     """Phase 7b: a GKR golden fixture (by default `tests/fixtures/gkr_dim5.json`)
-    through `device` on both chains and in the MXU fold mode (banded-product
-    threshold at 1 lane, so the inits' banded multiplies run too): messages,
+    through `device` on both chains and in the MXU fold mode: messages,
     claimed sum, the verifier's challenges and expected evaluation, the
     subclaim."""
     from sumcheck_tpu_torch import Blake2b512Rng, DenseMLE, Fr, GKRRoundSumcheck, SparseMLE
@@ -957,7 +972,7 @@ def gkr_golden_phase(device, fx=None, name: str = "gkr_dim5.json") -> None:
         return [[format(e.v, "064x") for e in m.evaluations] for m in msgs]
 
     for path, (chain, mxu) in PATHS.items():
-        with fold_mode(chain, mxu, 1 if mxu else None), syncs_forbidden_in_chains():
+        with fold_mode(chain, mxu), syncs_forbidden_in_chains():
             proof = GKRRoundSumcheck.prove(Blake2b512Rng.setup(), f1, f2, f3, g, device=device)
         check(hexes(proof.phase1_sumcheck_msgs) == fx["phase1_msgs"]
               and hexes(proof.phase2_sumcheck_msgs) == fx["phase2_msgs"],
@@ -1075,14 +1090,18 @@ def device_busy(fn, top: int = 5) -> dict:
 
 # substrings of the port's kernels' names as the profiler shows them
 ROUND_KERNELS = ("round_kernel", "fold_kernel", "fold_mxu_kernel")  # "fold_kernel": nofold_kernel too
+INIT_KERNELS = ("eq_halves_kernel", "weight_fold_kernel", "segment_reduce_kernel",
+                "pair_slots_kernel")
 
 
 def classify(by_name: dict, scale: float | None = None) -> dict:
     """Profiler counts (or, scaled, device times) by kernel name -> the
-    round kernels', the transcript steps', and everything else's."""
-    out = {"round": 0, "transcript": 0, "other": 0}
+    round kernels', the transcript steps', the GKR phase-init kernels', and
+    everything else's."""
+    out = {"round": 0, "transcript": 0, "init": 0, "other": 0}
     for name, v in by_name.items():
         key = ("transcript" if "transcript_kernel" in name
+               else "init" if any(k in name for k in INIT_KERNELS)
                else "round" if any(k in name for k in ROUND_KERNELS) else "other")
         out[key] += v if scale is None else v * scale
     return out
@@ -1286,6 +1305,185 @@ def host_transcript_phase(device, seed: int, reps: int, nv: int = NV) -> dict:
     return {"prove_s": prove_s, "proof": serialize_proof(proof)}
 
 
+# the GKR phase-init kernels (`ops/gkr_init_cuda.py`, `csrc/gkr_init.cu`)
+GKR_INIT_KERNELS = ("eq_halves", "weight_fold", "segment_reduce", "pair_slots")
+GKR_INIT_MAX = 16  # launches of both phase inits a generic dim-18 prove may take
+SKEW = (1 << 16) + 1  # entries of phase 9a's skewed segment
+
+
+def init_launches(chain: str) -> dict:
+    """The phase-init kernels' launches a GKR prove on a chain, in either
+    fold mode: 4 a phase on the generic chain, 3 + 1 and 3 + 1 + 1 (the
+    final fold) on the per-size chain."""
+    return dict(zip(GKR_INIT_KERNELS, (2, 2, 2, 3) if chain != "generic" else (2, 2, 2, 2)))
+
+
+def skewed_instance(inst, seed: int):
+    """Phase 9's f1 with SKEW more entries in x segment 5 (distinct (g, y)
+    parts): one segment past 2^16 entries, which the segment reduce sums
+    with a whole block. (f1, f2, f3, g)."""
+    from sumcheck_tpu_torch import SparseMLE
+    from sumcheck_tpu_torch.fields.limbs_np import random_tables
+
+    f1, f2, f3, g = inst
+    dim = f2.num_vars
+    gen = np.random.default_rng(seed + 1)
+    mask = (1 << dim) - 1
+    gy = gen.choice(1 << (2 * dim), SKEW, replace=False)
+    idx = np.unique(np.concatenate([f1.indices.astype(np.int64),
+                                    (gy & mask) | (5 << dim) | ((gy >> dim) << (2 * dim))]))
+    vals = random_tables(gen, (len(idx) - 1).bit_length(), 1)[0][:, :len(idx)]
+    return SparseMLE(3 * dim, idx, np.ascontiguousarray(vals)), f2, f3, g
+
+
+def gkr_init_phase(device, inst, seed: int) -> dict:
+    """Phase 9a: each GKR phase-init kernel against its plain version on
+    the card, array-equal, at the dim-18 shapes of phase 9's instance
+    (phase 1's and phase 2's forms) and on the skewed instance
+    (`skewed_instance`: one segment of SKEW entries); the whole phase
+    inits on the kernels against the torch-op plain versions of the phases
+    (`gkr_init.phase1_pair_ref`, `phase2_pair_ref`) on both instances.
+    Also the weight fold with its half tables in global memory (k = 22
+    and 24, past what shared memory stages) on a few thousand entries,
+    with and without the f3 gather, untimed. Device ms (CUDA events behind
+    `torch.cuda._sleep`, each launch alone after an L2 flush, since every
+    working set here fits in the H100's 50 MB L2), the bound (each input
+    read once and each output written once, 32 B an element and 4 B an
+    index, against the Montgomery multiplies the function needs) and the
+    share of it, and the plain version's ms (host clock between syncs).
+    Returns the stats of the kernels line: {name: [max_abs_err, [timing of
+    each shape, the main one first]]}: phase 1's form, and for pair_slots
+    phase 2's (f3 times the final fold, the slot that multiplies)."""
+    from sumcheck_tpu_torch import Fr
+    from sumcheck_tpu_torch import gkr_round_sumcheck as G
+    from sumcheck_tpu_torch.fields.fr import P
+    from sumcheck_tpu_torch.fields.limbs_np import pack_limbs, random_tables
+    from sumcheck_tpu_torch.ops import gkr_init as GI
+    from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
+
+    dim = inst[1].num_vars
+    n, half = 1 << dim, 1 << (dim - 1)
+    kl, kh = GK.halves(dim)
+    lanes = (1 << kl) + (1 << kh)
+    rnd = random.Random(seed + dim)
+    u_r = GI.upload(GI._point_rows([Fr(rnd.randrange(P)) for _ in range(dim)]), device)
+    stats = {name: [0, []] for name in GKR_INIT_KERNELS}
+
+    def pair():
+        lo = torch.empty((2, 8, half), dtype=torch.int32, device=device)
+        return lo, torch.empty_like(lo)
+
+    def case(name, shape, kernel, plain, work, timed=True, main=False):
+        got, want = kernel(), plain()
+        sync(device)
+        err = max(max_diff(a, b) for a, b in zip(got, want))
+        check(err == 0, f"9a {name} ({shape}): kernel differs from its plain version by {err}")
+        stats[name][0] = max(stats[name][0], err)
+        line = f"kernel-vs-plain {name} ({shape}): equal"
+        if timed:
+            ms = time_ms(kernel, KERNEL_REPS, device, device_only=True, cold_l2=True)
+            plain_ms = time_ms(plain, PLAIN_REPS, device)
+            stats[name][1].insert(0 if main else len(stats[name][1]),
+                                  {"shape": shape, "ms": ms, "plain_ms": plain_ms, "work": work})
+            line += f", kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            if RATES:
+                bound_ms, bound_by, _ = bound_of(work)
+                line += (f"; bound {bound_ms:.4f} ms by {bound_by} ({work['bytes'] / 1e6:.1f} "
+                         f"MB, {work['imads'] / IMADS_PER_MONT_MUL:.0f} Montgomery multiplies), "
+                         f"{bound_ms / ms:.1%} of it")
+        print(line)
+
+    for label, (f1, f2, f3, g) in ((f"dim {dim}", inst),
+                                   ("skewed", skewed_instance(inst, seed))):
+        (gbits, x, y_rev, vals, last_x, perm_y, last_y), f2_d, f3_d, g_r = \
+            G._upload(f1, f2, f3, g, dim, device)
+        nnz = vals.shape[1]
+        timed = label != "skewed"
+        tag = f"{label}, 2^{dim} lanes, {nnz} entries"
+        eq_g = GK.eq_halves(g_r, dim)
+        case("eq_halves", f"{tag}: g, k={dim}", lambda: (GK.eq_halves(g_r, dim),),
+             lambda: (GK.eq_halves_ref(g_r, dim),),
+             {"bytes": 32 * lanes + 64 * dim, "imads": 2 * lanes * IMADS_PER_MONT_MUL,
+              "int8_ops": 0}, timed)
+        w, wv = GK.weight_fold(gbits, vals, eq_g, dim, y_rev, f3_d)
+        case("weight_fold", f"{tag}: phase 1, with the f3 gather",
+             lambda: GK.weight_fold(gbits, vals, eq_g, dim, y_rev, f3_d),
+             lambda: GK.weight_fold_ref(gbits, vals, eq_g, dim, y_rev, f3_d),
+             {"bytes": (4 + 32 + 4 + 32 + 32 + 32) * nnz + 32 * lanes,
+              "imads": 3 * nnz * IMADS_PER_MONT_MUL, "int8_ops": 0}, timed)
+        eq_u = GK.eq_halves(u_r, dim)
+        w2, _ = GK.weight_fold(x, w, eq_u, dim)
+        case("weight_fold", f"{tag}: phase 2", lambda: GK.weight_fold(x, w, eq_u, dim)[:1],
+             lambda: GK.weight_fold_ref(x, w, eq_u, dim)[:1],
+             {"bytes": (4 + 32 + 32) * nnz + 32 * lanes, "imads": 2 * nnz * IMADS_PER_MONT_MUL,
+              "int8_ops": 0}, timed)
+        k_pair, p_pair = pair(), pair()
+        case("segment_reduce", f"{tag}: phase 1, into slot 0 of the pair",
+             lambda: (GK.segment_reduce(wv, None, last_x, k_pair), k_pair[0][0],
+                      k_pair[1][0])[1:],
+             lambda: (GK.segment_reduce_ref(wv, None, last_x, p_pair), p_pair[0][0],
+                      p_pair[1][0])[1:],
+             {"bytes": 32 * nnz + (4 + 32) * n, "imads": 0, "int8_ops": 0}, True)
+        case("segment_reduce", f"{tag}: phase 2, through perm_y",
+             lambda: (GK.segment_reduce(w2, perm_y, last_y, k_pair), k_pair[0][0],
+                      k_pair[1][0])[1:],
+             lambda: (GK.segment_reduce_ref(w2, perm_y, last_y, p_pair), p_pair[0][0],
+                      p_pair[1][0])[1:],
+             {"bytes": (32 + 4) * nnz + (4 + 32) * n, "imads": 0, "int8_ops": 0}, timed)
+        fold = (k_pair[0][:, :, :1], k_pair[1][:, :, :1], u_r[dim - 1], 1)
+        case("pair_slots", f"{tag}: phase 1, slot 1 = f2",
+             lambda: (GK.pair_slots(*k_pair, ((1, f2_d, None),)), k_pair[0][1], k_pair[1][1])[1:],
+             lambda: (GK.pair_slots_ref(*p_pair, ((1, f2_d, None),)), p_pair[0][1],
+                      p_pair[1][1])[1:],
+             {"bytes": 64 * n, "imads": 0, "int8_ops": 0}, timed)
+        o_k, o_p = pair(), pair()
+        case("pair_slots", f"{tag}: phase 2, slot 1 = f3 times the final fold",
+             lambda: (GK.pair_slots(*o_k, ((1, f3_d, "fold"),), fold=fold), o_k[0][1],
+                      o_k[1][1])[1:],
+             lambda: (GK.pair_slots_ref(*o_p, ((1, f3_d, "fold"),), fold=fold), o_p[0][1],
+                      o_p[1][1])[1:],
+             {"bytes": 64 * n + 2 * 32 + 64, "imads": (n + 1) * IMADS_PER_MONT_MUL,
+              "int8_ops": 0}, timed, main=True)
+        # the whole phase inits: kernels against the torch-op plain versions
+        p1 = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, f3_d, f2_d, dim)
+        r1 = GI.phase1_pair_ref(gbits, last_x, y_rev, vals, g_r, f3_d, f2_d, dim)
+        args2 = (p1[0][:, :, :1], p1[1][:, :, :1], u_r[dim - 1], x, perm_y, last_y, p1[2], u_r,
+                 f3_d, dim)
+        p2, r2 = GI.phase2_pair(*args2), GI.phase2_pair_ref(*args2)
+        sync(device)
+        err = max(max_diff(a, b) for a, b in zip(p1 + p2, r1 + r2))
+        check(err == 0, f"9a {label}: the phase inits differ from their plain versions by {err}")
+        kern_s = wall(lambda: (GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, f3_d, f2_d, dim),
+                               GI.phase2_pair(*args2)), device, reps=5)
+        plain_s = wall(lambda: (GI.phase1_pair_ref(gbits, last_x, y_rev, vals, g_r, f3_d, f2_d,
+                                                   dim), GI.phase2_pair_ref(*args2)), device)
+        print(f"9a {label}: phase1_pair and phase2_pair on the kernels equal the torch-op plain "
+              f"versions on the card; both inits {kern_s * 1e3:.4f} ms against "
+              f"{plain_s * 1e3:.4f} ms (host clock between syncs)")
+
+    # the half tables past shared memory: the global-memory variants
+    gen = np.random.default_rng(seed + 22)
+    m, n3 = 1 << 12, 1 << 10
+    vals = torch.from_numpy(pack_limbs(random_tables(gen, 12, 1)[0])).to(device)
+    f3_s = torch.from_numpy(pack_limbs(random_tables(gen, 10, 1)[0])).to(device)
+    y = torch.from_numpy(gen.integers(0, n3, m).astype(np.int32)).to(device)
+    for k in (22, 24):
+        check((1 << (k - k // 2)) + (1 << (k // 2)) > GK.MAX_SHARED_EQ,
+              f"9a: k={k} stages its half tables in shared memory")
+        idx = torch.from_numpy(gen.integers(0, 1 << k, m).astype(np.int32)).to(device)
+        r = GI.upload(GI._point_rows([Fr(rnd.randrange(P)) for _ in range(k)]), device)
+        eq = GK.eq_halves(r, k)
+        tag = f"k={k}, {m} entries, half tables in global memory"
+        case("eq_halves", f"k={k}", lambda: (GK.eq_halves(r, k),),
+             lambda: (GK.eq_halves_ref(r, k),), None, False)
+        case("weight_fold", f"{tag}, with the f3 gather",
+             lambda: GK.weight_fold(idx, vals, eq, k, y, f3_s),
+             lambda: GK.weight_fold_ref(idx, vals, eq, k, y, f3_s), None, False)
+        case("weight_fold", f"{tag}, without it", lambda: GK.weight_fold(idx, vals, eq, k)[:1],
+             lambda: GK.weight_fold_ref(idx, vals, eq, k)[:1], None, False)
+    return stats
+
+
 def gkr_headline_phase(device, inst, reps: int, path: str) -> dict:
     """Phase 9: `GKRRoundSumcheck.prove` at the instance's dim on one path
     (`PATHS`); returns its numbers and proof bytes."""
@@ -1327,8 +1525,13 @@ def _gkr_headline(device, inst, reps: int, path: str, chain: str, mxu: bool) -> 
     want = {k: 0 for k in launches}
     want.update({kernels[0]: 2 * proves, kernels[1]: 2 * (dim - 1) * proves,
                  "transcript_step": 2 * dim * proves})
+    init_counts = init_launches(chain)
+    want.update({k: v * proves for k, v in init_counts.items()})
     check(launches == want, f"GKR {path}: launch counts {launches} over {proves} proves, "
                            f"expected {want}")
+    check(sum(init_counts.values()) <= GKR_INIT_MAX, f"GKR {path}: {init_counts} init launches")
+    print(f"GKR {path}: the phase inits launch {sum(init_counts.values())} kernels a prove "
+          f"({init_counts})")
     blob = proof.serialize_uncompressed()
     check(again.serialize_uncompressed() == blob, f"GKR {path}: warm proves differ")
     prove_s = statistics.median(walls)
@@ -1341,17 +1544,16 @@ def _gkr_headline(device, inst, reps: int, path: str, chain: str, mxu: bool) -> 
 
     # where the prove's time goes: both phase inits alone (fixed challenges),
     # and the 2 dim round kernels alone on a pair of the phases' shape
-    (gbits, x, y_rev, vals, last_x, perm_y, last_y), (nx, ny), f2_d, f3_d, g_r, g_omr = \
+    (gbits, x, y_rev, vals, last_x, perm_y, last_y), f2_d, f3_d, g_r = \
         G._upload(f1, f2, f3, g, dim, device)
     gen = np.random.default_rng(dim)
     us = torch.from_numpy(np.stack([L.mont_scalar(int(gen.integers(1, 1 << 62)) % P)[:, 0]
                                     for _ in range(dim)]).astype(np.int32)).to(device)
 
     def inits():
-        lo, hi, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, g_omr, f3_d, f2_d, dim,
-                                   not nx)
+        lo, hi, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, f3_d, f2_d, dim)
         return GI.phase2_pair(lo[:, :, :1], hi[:, :, :1], us[dim - 1], x, perm_y, last_y, w,
-                              us, f3_d, dim, not ny)
+                              us, f3_d, dim)
 
     lo0, hi0 = inits()
     products, half = ((0, 1),), lo0.shape[2]
@@ -1379,18 +1581,23 @@ def _gkr_headline(device, inst, reps: int, path: str, chain: str, mxu: bool) -> 
     busy = device_busy(prove)
     print_busy(f"GKR {path}", busy)
     k, dms = busy["kernels"], busy["device_ms"]
-    if not (k["round"] == 2 * dim and k["transcript"] == 2 * dim):
-        print(f"GKR {path}: the profiler saw {k} in one prove, not {2 * dim} of each")
+    if not (k["round"] == 2 * dim and k["transcript"] == 2 * dim
+            and k["init"] == sum(init_counts.values())):
+        print(f"GKR {path}: the profiler saw {k} in one prove, not {2 * dim} round kernels and "
+              f"transcript steps and {sum(init_counts.values())} init kernels")
     print(f"GKR {path}: the profiled prove launched {sum(k.values())} kernels: {k['round']} round "
           f"kernels ({dms['round']:.4f} ms of device time), {k['transcript']} transcript steps "
           f"({dms['transcript']:.4f} ms, {dms['transcript'] / (2 * dim):.4f} ms each), two per "
-          f"chained round; {k['other']} other (the phase inits and two sums buffer fills)")
+          f"chained round; {k['init']} phase-init kernels ({dms['init']:.4f} ms); {k['other']} "
+          f"other ({dms['other']:.4f} ms: the sums buffer fills); "
+          f"idle share {busy['idle_share']:.4f}")
 
     t0 = time.perf_counter()  # one host verify a path, to keep the script's time down
     sub = GKRRoundSumcheck.verify(Blake2b512Rng.setup(), dim, proof, proof.extract_sum())
     verify_s = time.perf_counter() - t0
     out = {"launches": launches, "prove_s": prove_s, "first_s": first_s, "inits_s": inits_s,
-           "rounds_s": rounds_s, "verify_s": verify_s, "busy": busy, "proof": blob}
+           "rounds_s": rounds_s, "verify_s": verify_s, "busy": busy, "proof": blob,
+           "init_launches": sum(init_counts.values())}
     print(f"GKR {path}: verify accepts, {verify_s:.6f} s")
     if path != "generic":
         return out
@@ -1870,8 +2077,7 @@ def gkr_batch_phase(device, seed: int, reps: int, batch: int = BATCH,
     batch (two batched chains of dim rounds, two launches a round), the
     whole enqueue under the sync debug mode "error", proofs byte-equal to
     per-instance card proves (timed beside it), all verified, two subclaims.
-    (No profile: its 8 x 26,000 launches of torch-op inits take the
-    profiler about a minute to collect.)"""
+    (No profile: the GKR headline's profile covers the same kernels.)"""
     with fold_mode("generic"):
         return _gkr_batch(device, seed, reps, batch, dim)
 
@@ -1904,6 +2110,8 @@ def _gkr_batch(device, seed, reps, batch, dim) -> dict:
     want = {k: 0 for k in launches}
     want.update({"round_nofold_batched": 2 * proves, "round_fold_batched": 2 * (dim - 1) * proves,
                  "transcript_step_batched": 2 * dim * proves})
+    # each instance's phase inits into its slice of the batched pair
+    want.update({k: v * batch * proves for k, v in init_launches("generic").items()})
     check(launches == want, f"{path}: launch counts {launches} over {proves} batches, "
                            f"expected {want}")
     blobs = [p.serialize_uncompressed() for p in proofs]
@@ -2066,6 +2274,7 @@ def gkr_host_phase(device, seed: int, inst, reps: int, check_plain: bool = True)
           "GKR host transcript: proves differ")
     want = {k: 0 for k in launches}
     want.update({"round_nofold": 2 * proves, "round_fold": 2 * (dim - 1) * proves})
+    want.update({k: v * proves for k, v in init_launches("generic").items()})
     check(launches == want, f"GKR host transcript: launches {launches}, expected {want}")
     check(syncs == 2 * dim * proves, f"GKR host transcript: {syncs} syncs in "
                                      f"{proves} proves, expected {2 * dim} a prove")
@@ -2375,7 +2584,9 @@ def run_ranks(size: int, backend: str, seed: int, reps: int, refs: dict,
             i = res["inits"]
             print(f"{path}: both phase inits {i['total_s']:.4f} s, of it compute "
                   f"{i['total_s'] - i['all_reduce_s']:.4f} s and the two all-reduces of the raw "
-                  f"segment sums {i['all_reduce_s']:.4f} s ({i['bytes']} bytes each rank)")
+                  f"segment sums {i['all_reduce_s']:.4f} s ({i['bytes']} bytes each rank: "
+                  f"the (8, 2^{GKR_DIM}) int64 limb sums, against the {16 * 8 << GKR_DIM} "
+                  f"bytes a phase of 16-bit digit sums that the torch-op inits all-reduced)")
         out[path] = dict(res, walls=walls)
     return out
 
@@ -2494,10 +2705,13 @@ def sharded_gkr(prover, seed: int, refs: dict, guard) -> dict:
           "sharded GKR: proof differs from the single card's")
     want = {k: 0 for k in launches}
     want.update({"round_nofold": 4, "round_fold": 4 * (dim - 1), "transcript_step": 4 * dim})
+    # a rank's inits (2 proves): the per-size pieces, the segment reduce twice
+    # a phase (the raw limb sums, then the finish of the all-reduced sums)
+    want.update({"eq_halves": 4, "weight_fold": 4, "segment_reduce": 8, "pair_slots": 6})
     check(launches == want, f"sharded GKR: launches {launches}, expected {want}")
 
     # the inits alone at fixed challenges: the all-reduces timed between syncs
-    (gbits, x, y_rev, vals, last_x, perm_y, last_y), (nx, ny), _f2_d, f3_d, g_r, g_omr = \
+    (gbits, x, y_rev, vals, last_x, perm_y, last_y), _f2_d, f3_d, g_r = \
         G._upload(f1, f2, f3, g, dim, prover.device, (prover.rank, prover.num_shards))
     gen = np.random.default_rng(dim)
     us = torch.from_numpy(np.stack([L.mont_scalar(int(gen.integers(1, 1 << 62)) % P)[:, 0]
@@ -2515,8 +2729,8 @@ def sharded_gkr(prover, seed: int, refs: dict, guard) -> dict:
         reduced.clear()
         sync(prover.device)
         t0 = time.perf_counter()
-        _hg, w = GI.phase1(gbits, last_x, y_rev, vals, g_r, g_omr, f3_d, dim, not nx, timed)
-        GI.phase2_digits(x, perm_y, last_y, w, us, dim, not ny, timed)
+        _hg, w = GI.phase1(gbits, last_x, y_rev, vals, g_r, f3_d, dim, timed)
+        GI.phase2_digits(x, perm_y, last_y, w, us, dim, timed)
         sync(prover.device)
         total_s = time.perf_counter() - t0
     return {"what": f"GKR dim {dim} (nnz 2^{dim}), proof", "walls": walls,
@@ -2599,7 +2813,7 @@ def dryrun_phase(device) -> dict:
           "dry run: the card's proofs differ from the CPU's")
     # the kernels each sharded prove must launch on every rank
     want = {"sp": ("round_fold",), "chained": ("round_fold", "transcript_step"),
-            "gkr": ("round_fold", "transcript_step"),
+            "gkr": ("round_fold", "transcript_step") + GKR_INIT_KERNELS,
             "batch": ("round_fold_batched", "transcript_step_batched")}
     for r in res["ranks"]:
         check(all(r["launches"][case][name] > 0 for case, names in want.items()
@@ -2656,8 +2870,14 @@ def microbench_phase(seed: int) -> dict:
                   f"ms, {m['launches']} launches and {m['copies']} copies, busy "
                   f"{num(m['busy_ms'])} ms, bound {num(m['bound_ms'])} ms ({m['bound_by']})"
                   + (f", {m['clocks']:.0f} clocks" if "clocks" in m else "")
+                  + (f"; kernels {m['kernels']}" if m.get("kernels") is not None else "")
                   + ("" if m["held"] is not False else "; no device ms: the call's launches "
                      "overflow the launch queue, so the sleep cannot hold them"))
+    inits = {k: res["stages"]["full_prove"]["kernels"].get(k, 0) for k in GKR_INIT_KERNELS}
+    check(inits == init_launches("generic") and sum(inits.values()) <= GKR_INIT_MAX,
+          f"microbench: the full prove's init kernels {inits}")
+    print(f"microbench: the full prove's phase inits launch {sum(inits.values())} kernels "
+          f"({inits})")
     return res
 
 
@@ -2722,7 +2942,8 @@ FIELD_TRANSCRIPT_ROUNDS = 320
 # the kernels of the kernels line, each with its phase-3..6d main shape
 KERNEL_NAMES = ("round_nofold", "round_fold", "round_step_nofold", "round_step_fold",
                 "round_fold_mxu", "transcript_step", "pair_init", "round_nofold_batched",
-                "round_fold_batched", "round_step_fold_batched", "transcript_step_batched")
+                "round_fold_batched", "round_step_fold_batched",
+                "transcript_step_batched") + GKR_INIT_KERNELS
 
 
 def main_shape_bound(name: str, main_shape: dict) -> tuple[float, str, str]:
@@ -2849,8 +3070,9 @@ def subclaim_in_integers(inst, sub) -> bool:
 
 
 def field_gkr_proves(device, seed: int, reps: int) -> dict:
-    """`GKRRoundSumcheck.prove` at dim 18 on the three paths: launch counts,
-    walls, bytes equal, `verify` (C core) on each, and the subclaim checked
+    """`GKRRoundSumcheck.prove` at dim 18 on the three paths: launch counts
+    (the phase inits' among them), walls, one profiled prove's init kernels
+    and idle share, bytes equal, `verify` (C core) on each, and the subclaim checked
     in Python integers (`subclaim_in_integers`), which holds the inits at
     dim 18; `verify_subclaim` itself (40-75 s of limb arithmetic on the
     host) runs in the GKR batch, on two instances at dim 14."""
@@ -2875,12 +3097,21 @@ def field_gkr_proves(device, seed: int, reps: int) -> dict:
         want = {k: 0 for k in launches}
         want.update({kernels[0]: 2 * proves, kernels[1]: 2 * (dim - 1) * proves,
                      "transcript_step": 2 * dim * proves})
+        inits = init_launches(chain)
+        want.update({k: v * proves for k, v in inits.items()})
         check(launches == want, f"{FIELD} GKR {path}: launches {launches}, expected {want}")
+        with fold_mode(chain, mxu):
+            busy = device_busy(lambda: GKRRoundSumcheck.prove(Blake2b512Rng.setup(), *inst,
+                                                              device=device))
+        print(f"{FIELD} GKR {path}: the phase inits launch {sum(inits.values())} kernels a "
+              f"prove; the profiled prove's {busy['kernels']['init']} init kernels take "
+              f"{busy['device_ms']['init']:.4f} ms, idle share {busy['idle_share']:.4f}")
         t0 = time.perf_counter()
         sub = GKRRoundSumcheck.verify(Blake2b512Rng.setup(), dim, proof, proof.extract_sum())
         verify_s = time.perf_counter() - t0
         out[f"gkr {path}"] = {"prove_s": statistics.median(walls[1:]), "first_s": walls[0],
                               "verify_s": verify_s, "launches": launches,
+                              "idle_share": busy["idle_share"],
                               "proof": proof.serialize_uncompressed()}
         print(f"{FIELD} GKR dim={dim} {path}: first {walls[0]:.4f} s, median of {reps} warm "
               f"{out[f'gkr {path}']['prove_s']:.4f} s; verify accepts ({verify_s:.6f} s)")
@@ -2911,7 +3142,7 @@ def field_phase_main(args) -> int:
           f"{NINV16:#06x}, {SHAVE_BITS} shaved bits")
     RATES.update(MB.card_rates(device))
     t0 = time.perf_counter()
-    libs = cuda_build.build("round", "transcript", "round_mxu", "pair_init")
+    libs = cuda_build.build("round", "transcript", "round_mxu", "pair_init", "gkr_init")
     print(f"libraries: {', '.join(lib.name for lib in libs.values())} ({time.perf_counter() - t0:.2f}"
           f" s: built by the parent, the field is a launch parameter)")
     # the plain transcript over the transcript phase's rounds, on the host's
@@ -2952,8 +3183,10 @@ def _field_phases(args, device, libs, plain_proc, plain_file: str) -> int:
     field_golden_phase(device)
     mark("golden fixture")
     heads = field_ml_proves(device, args.seed, args.reps)
+    stats.update(gkr_init_phase(device, MB.gkr_instance(GKR_DIM, args.seed), args.seed))
+    mark("ML proves and the GKR init kernels")
     heads.update(field_gkr_proves(device, args.seed, args.reps))
-    mark("ML and GKR proves")
+    mark("GKR proves")
     for path in BATCH_PATHS:
         heads[path] = batch_ml_phase(device, args.seed, args.reps, path)
     check(heads["batch ml generic"]["proofs"] == heads["batch ml per-size"]["proofs"],
@@ -3115,7 +3348,8 @@ def main() -> int:
           f"{RATES['imad_per_s'] / 1e12:.3f}e12 32-bit IMAD/s, {MB.HBM_BYTES_PER_S / 1e12} TB/s")
 
     t0 = time.perf_counter()
-    libs = cuda_build.build("round", "transcript", "round_mxu", "pair_init", "fold_staged")
+    libs = cuda_build.build("round", "transcript", "round_mxu", "pair_init", "fold_staged",
+                            "gkr_init")
     build_s = time.perf_counter() - t0
     print(f"build: {', '.join(lib.name for lib in libs.values())} in {build_s:.2f} s (in parallel)")
     ptxas = {}
@@ -3171,6 +3405,8 @@ def main() -> int:
           + f", host transcript {host['prove_s']:.4f} s")
     mark("ML headlines")
     inst = MB.gkr_instance(GKR_DIM, args.seed)
+    stats.update(gkr_init_phase(device, inst, args.seed))
+    mark("GKR init kernels")
     gkr = {f"gkr {path}": gkr_headline_phase(device, inst, args.reps, path) for path in PATHS}
     check(len({h["proof"] for h in gkr.values()}) == 1, "the GKR paths prove different bytes")
     print("GKR proof bytes equal: generic chain, per-size chain, generic chain in the MXU fold "
@@ -3226,8 +3462,10 @@ def main() -> int:
 
     kernels = []
     sources = {"transcript_step": "transcript.cu", "round_fold_mxu": "round_mxu.cu",
-               "transcript_step_batched": "transcript.cu", "pair_init": "pair_init.cu"}
-    symbols = {"transcript_step": "transcript_kernel", "round_fold_mxu": "fold_mxu_kernel",
+               "transcript_step_batched": "transcript.cu", "pair_init": "pair_init.cu",
+               **{name: "gkr_init.cu" for name in GKR_INIT_KERNELS}}
+    symbols = {**{name: f"{name}_kernel" for name in GKR_INIT_KERNELS},
+               "transcript_step": "transcript_kernel", "round_fold_mxu": "fold_mxu_kernel",
                "transcript_step_batched": "transcript_kernel", "pair_init": "pair_init_kernel",
                "round_nofold": "nofold_kernel", "round_step_nofold": "nofold_kernel",
                "round_nofold_batched": "nofold_kernel", "round_fold": "fold_kernel",
@@ -3245,6 +3483,10 @@ def main() -> int:
         ("round_fold_batched", "sumcheck_tpu/batch.py:75", "batch ml generic"),
         ("round_step_fold_batched", "sumcheck_tpu/batch.py:261", "batch ml per-size"),
         ("transcript_step_batched", "sumcheck_tpu/batch.py:304", "batch ml generic"),
+        ("eq_halves", "sumcheck_tpu/ops/gkr_init.py:138", "gkr generic"),
+        ("weight_fold", "sumcheck_tpu/ops/gkr_init.py:98", "gkr generic"),
+        ("segment_reduce", "sumcheck_tpu/ops/gkr_init.py:237", "gkr generic"),
+        ("pair_slots", "sumcheck_tpu/ops/gkr_init.py:494", "gkr generic"),
     ):
         err, timings = stats[name]
         main_shape = timings[0]

@@ -13,8 +13,8 @@ round engine as a subroutine:
   -> randomness `v`.
 
 For a `Blake2b512Rng` transcript the whole prove runs chained on the
-prover's device (`device="cuda"`: the CUDA round and transcript kernels,
-the inits as torch ops; `device="cpu"`: their plain versions): the phase-1
+prover's device (`device="cuda"`: the CUDA round, transcript and phase-init
+kernels; `device="cpu"`: their plain versions): the phase-1
 init, both phases' rounds on the generic chain (or the per-size chain,
 `SUMCHECK_TPU_CHAIN_IMPL`), the phase-2 init from phase 1's challenges on
 the device, and one fetch at the end, the prove's only host sync. Any
@@ -98,16 +98,16 @@ def start_phase2_sumcheck(f1_gu: DenseMLE, f3: DenseMLE, f2_u: Fr, *,
 def _upload(f1: SparseMLE, f2: DenseMLE, f3: DenseMLE, g: Sequence[Fr], dim: int,
             device: torch.device, shard=None) -> tuple:
     """Everything a chained prove reads, on `device`: f1's split (cached on
-    f1) with its segment-reduce widths, f2 and f3 in bit-reversed order
-    (cached on the MLEs), g's coordinates, and the inits' constants. With
-    `shard` = (s, S), f1's split is rank s's chunk (`_split_f1_device`)."""
+    f1), f2 and f3 in bit-reversed order
+    (cached on the MLEs), g's coordinates as (dim, 16) int32 digit rows,
+    and the plain inits' constants. With `shard` = (s, S), f1's split is
+    rank s's chunk (`_split_f1_device`)."""
     from .ops import gkr_init as GI
 
     split = GI._split_f1_device(f1, dim, device, shard)
     f2_d, f3_d = f2.to_device(device), f3.to_device(device)
     GI.prepare(device)
-    g_r, g_omr = (GI.upload(a, device) for a in GI._points_arrays(list(g)))
-    return split, GI._seg_narrow(f1), f2_d, f3_d, g_r, g_omr
+    return split, f2_d, f3_d, GI.upload(GI._point_rows(list(g)), device)
 
 
 def _enqueue(inputs: tuple, state, dim: int, round_fns=None, step_fns=None,
@@ -123,29 +123,27 @@ def _enqueue(inputs: tuple, state, dim: int, round_fns=None, step_fns=None,
     from .protocol import device_prover, generic_prover
     from .utils.config import get_config
 
-    (gbits, x, y_rev, vals, last_x, perm_y, last_y), (narrow_x, narrow_y), f2_d, f3_d, \
-        g_r, g_omr = inputs
+    (gbits, x, y_rev, vals, last_x, perm_y, last_y), f2_d, f3_d, g_r = inputs
     products = ((0, 1),)  # unit coefficient: nothing to fold into the tables
 
     if get_config().chain_impl == "generic":
         # both phases fold one pair each in place over run-time extents
-        lo1, hi1, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, g_omr, f3_d, f2_d,
-                                     dim, not narrow_x)
+        lo1, hi1, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, f3_d, f2_d, dim)
         msgs1, rs1, state = generic_prover.chain_rounds_generic(
             lo1, hi1, state, products, 2, dim, round_fns, transcript_fn)
         # the chain left the 1-lane final pair in lane 0; rs1[dim-1] is u's last
         lo2, hi2 = GI.phase2_pair(lo1[:, :, :1], hi1[:, :, :1], rs1[dim - 1], x, perm_y,
-                                  last_y, w, rs1, f3_d, dim, not narrow_y)
+                                  last_y, w, rs1, f3_d, dim)
         msgs2, rs2, state = generic_prover.chain_rounds_generic(
             lo2, hi2, state, products, 2, dim, round_fns, transcript_fn)
     else:
-        hg, w = GI.phase1(gbits, last_x, y_rev, vals, g_r, g_omr, f3_d, dim, not narrow_x)
+        hg, w = GI.phase1(gbits, last_x, y_rev, vals, g_r, f3_d, dim)
         msgs1, rs1, state, pair1 = device_prover.chain_rounds(
             list(GI.prep1(hg, f2_d)), state, products, 2, dim, step_fns, transcript_fn)
         # f2(u): the chain left every table folded dim-1 times (1 lane); one
         # more fold by the final challenge evaluates slot 1 = f2 at u
         f2_u = GI.final_fold(*pair1, rs1[dim - 1], 1)
-        f1_gu = GI.phase2_digits(x, perm_y, last_y, w, rs1, dim, not narrow_y)
+        f1_gu = GI.phase2_digits(x, perm_y, last_y, w, rs1, dim)
         msgs2, rs2, state, _ = device_prover.chain_rounds(
             list(GI.prep2(f1_gu, f3_d, f2_u)), state, products, 2, dim, step_fns,
             transcript_fn)
@@ -183,19 +181,16 @@ def _prove_host_transcript(rng, f1: SparseMLE, f2: DenseMLE, f3: DenseMLE,
     challenges go back up once, as digits, for the phase-2 init.
     `round_fns` replaces (round_nofold, round_fold), a test hook."""
     from .ops import gkr_init as GI
-    from .protocol.device_prover import upload
     from .protocol.generic_prover import host_rounds
 
-    (gbits, x, y_rev, vals, last_x, perm_y, last_y), (narrow_x, narrow_y), f2_d, f3_d, \
-        g_r, g_omr = _upload(f1, f2, f3, g, dim, device)
-    lo1, hi1, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, g_omr, f3_d, f2_d, dim,
-                                 not narrow_x)
+    (gbits, x, y_rev, vals, last_x, perm_y, last_y), f2_d, f3_d, g_r = \
+        _upload(f1, f2, f3, g, dim, device)
+    lo1, hi1, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, f3_d, f2_d, dim)
     phase1_msgs, u = host_rounds(rng, _pair_state(lo1, hi1, dim, round_fns), dim)
-    u_digits = upload(torch.from_numpy(
-        np.stack([L.mont_scalar(p.v)[:, 0] for p in u]).astype(np.int32)), device)
+    u_digits = GI.upload(GI._point_rows(u), device)
     # the rounds left phase 1's 1-lane final pair in lane 0; u[dim-1] folds it
     lo2, hi2 = GI.phase2_pair(lo1[:, :, :1], hi1[:, :, :1], u_digits[dim - 1], x, perm_y,
-                              last_y, w, u_digits, f3_d, dim, not narrow_y)
+                              last_y, w, u_digits, f3_d, dim)
     phase2_msgs, _v = host_rounds(rng, _pair_state(lo2, hi2, dim, round_fns), dim)
     return GKRProof(phase1_msgs, phase2_msgs)
 

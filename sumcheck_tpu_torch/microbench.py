@@ -15,14 +15,29 @@ as `bench.py:187-194` draws it; nv 18 by default):
                feed 3 Fr, draw with rejection)
   gather16     `index_select` of a (16, 2^nv) int64 table at 2^nv random
                indices, as `gkr_init._weight_fold` and `phase1` run it
-  cumsum32     the `torch.cumsum` of `gkr_init.segment_sums` over its 32
-               split rows
+  cumsum32     a `torch.cumsum` over 32 int64 rows: the cumulative sum of
+               the JAX package's byte-split segment sums
   mont_nnz     one (16, 2^nv) Montgomery multiply as the inits run it
                (`limbs_torch.mont_mul`)
   mont_nnz_eo  the same multiplies by `csrc/field.cuh`'s even/odd multiply
                (`round_cuda._mont_mul_probe(impl="eo")`) on the same lanes
-  eq_build     `gkr_init._eq_table` at k = nv
-  segreduce    `gkr_init._segment_reduce_sorted` at nnz = 2^nv
+  eq_build     `gkr_init._eq_table` at k = nv (the plain inits' eq table,
+               by doublings)
+  segreduce    `gkr_init._segment_reduce_sorted` at nnz = 2^nv (the plain
+               segment sums, `gkr_init_cuda.segment_reduce_ref`, on 16-bit
+               digits)
+  eq_halves    the kernel `gkr_init_cuda.eq_halves` at k = nv: eq's two
+               half tables
+  weight_fold  the kernel `gkr_init_cuda.weight_fold` over 2^nv entries
+               with phase 1's f3 gather (three multiplies an entry)
+  segment_reduce  the kernel `gkr_init_cuda.segment_reduce` at nnz = 2^nv
+               over 2^nv segments, read through a permutation (phase 2's
+               form)
+  pair_slots   the kernel `gkr_init_cuda.pair_slots`: a pair's two slots,
+               a copy and a table times a scalar (`prep2`'s form)
+
+The kernels' probes read the (8, n) limb tables and int32 indices of the
+inits and are checked against their plain versions.
 
 Stages: the chained GKR prove (generic chain) of the bench's dim-nv
 instance cut at cumulative prefixes, through `gkr_round_sumcheck._upload`
@@ -68,7 +83,7 @@ from .fields import limbs_np as L
 from .fields.fr import NUM_DIGITS, P
 
 PROBES = ("rtt", "compress", "challenge", "gather16", "cumsum32", "mont_nnz", "mont_nnz_eo",
-          "eq_build", "segreduce")
+          "eq_build", "segreduce", "eq_halves", "weight_fold", "segment_reduce", "pair_slots")
 STAGES = ("upto_phase1", "upto_rounds_p1", "upto_phase2", "upto_rounds_p2", "full_prove")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak
@@ -137,6 +152,33 @@ def held_ms(fn, reps: int, hold_s: float, clock_hz: float = 2e9) -> tuple[float,
     enqueue_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps, enqueue_s < hold_s
+
+
+L2_FLUSH_BYTES = 256 << 20  # five times an H100's 50 MB L2
+
+
+def flushed_ms(fn, reps: int, hold_s: float, clock_hz: float = 2e9) -> tuple[float, bool]:
+    """Mean device time of `fn()` over `reps` calls, each with a cold L2:
+    a read of L2_FLUSH_BYTES before each call evicts what the last one
+    left there, and a pair of CUDA events around each call times it alone,
+    the stream held as in `held_ms`. So a call whose working set fits in
+    L2 reads it from HBM, as a prove's first touch of it does. Returns (ms,
+    whether the hold outlasted the enqueue)."""
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, dtype=torch.float32, device="cuda")
+    sink = torch.empty((), dtype=torch.float32, device=flush.device)
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(clock_hz * hold_s))
+    t0 = time.perf_counter()
+    for start, stop in events:
+        torch.sum(flush, dim=0, out=sink)
+        start.record()
+        fn()
+        stop.record()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / reps, enqueue_s < hold_s
 
 
 PROFILE_SETTLE_S = (0.05, 0.2, 0.5)  # the waits of the profiles `profile_events` may take
@@ -493,7 +535,68 @@ def probes(nv: int, device, seed: int = 0) -> dict:
         segreduce().cpu().numpy(), _segment_sum_mod_p(x["a"][:, x["perm"]], x["seg"][x["perm"]],
                                                       n)),
         "segment reduce differs from NumPy's"), {"bytes": 2 * 128 * n + 16 * n, "imads": 0})
+    out.update(kernel_probes(x, device))
     return out
+
+
+def kernel_probes(x: dict, device) -> dict:
+    """The GKR init kernels' probes over `probe_inputs`: {name: (fn, check,
+    work)}, each checked against its plain version on the CPU. The work
+    counts 32 B an element and 4 B an index, each read or written once."""
+    from .ops import gkr_init_cuda as GK
+    from .utils.sol import MULS_PER_MONT
+
+    nv, n = x["nv"], 1 << x["nv"]
+
+    def up(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+
+    a_l, b_l = up(L.pack_limbs(x["a"])), up(L.pack_limbs(x["b"]))
+    idx, perm, last = (up(x[k].astype(np.int32)) for k in ("idx", "perm", "last"))
+    rows = up(np.ascontiguousarray(x["r_pts"][:, :, 0]).astype(np.int32))
+    kl, kh = GK.halves(nv)
+    lanes = (1 << kl) + (1 << kh)
+    eq = GK.eq_halves(rows, nv)
+    table = torch.empty((8, n), dtype=torch.int32, device=device)
+    lo = torch.empty((2, 8, n // 2), dtype=torch.int32, device=device)
+    hi = torch.empty_like(lo)
+    cpu = {k: t.cpu() for k, t in (("a", a_l), ("b", b_l), ("idx", idx), ("perm", perm),
+                                   ("last", last), ("rows", rows), ("eq", eq))}
+
+    def same(got, want, what):
+        _check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+               f"{what} differs from its plain version")
+
+    def check_segment():
+        GK.segment_reduce(a_l, perm, last, table)
+        want = torch.empty((8, n), dtype=torch.int32)
+        GK.segment_reduce_ref(cpu["a"], cpu["perm"], cpu["last"], want)
+        same((table,), (want,), "segment_reduce")
+
+    def check_slots():
+        GK.pair_slots(lo, hi, ((0, a_l, None), (1, b_l, rows[0])))
+        want = (torch.empty((2, 8, n // 2), dtype=torch.int32),
+                torch.empty((2, 8, n // 2), dtype=torch.int32))
+        GK.pair_slots_ref(*want, ((0, cpu["a"], None), (1, cpu["b"], cpu["rows"][0])))
+        same((lo, hi), want, "pair_slots")
+
+    mont = MULS_PER_MONT
+    return {
+        "eq_halves": (lambda: GK.eq_halves(rows, nv),
+                      lambda: same((GK.eq_halves(rows, nv),),
+                                   (GK.eq_halves_ref(cpu["rows"], nv),), "eq_halves"),
+                      {"bytes": 32 * lanes + 64 * nv, "imads": 2 * lanes * mont}),
+        "weight_fold": (lambda: GK.weight_fold(idx, a_l, eq, nv, perm, b_l),
+                        lambda: same(GK.weight_fold(idx, a_l, eq, nv, perm, b_l),
+                                     GK.weight_fold_ref(cpu["idx"], cpu["a"], cpu["eq"], nv,
+                                                        cpu["perm"], cpu["b"]), "weight_fold"),
+                        {"bytes": (4 + 32 + 4 + 32 + 32 + 32) * n + 32 * lanes,
+                         "imads": 3 * n * mont}),
+        "segment_reduce": (lambda: GK.segment_reduce(a_l, perm, last, table), check_segment,
+                           {"bytes": (32 + 4) * n + (4 + 32) * n, "imads": n * mont}),
+        "pair_slots": (lambda: GK.pair_slots(lo, hi, ((0, a_l, None), (1, b_l, rows[0]))),
+                       check_slots, {"bytes": 2 * 64 * n + 64, "imads": n * mont}),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -540,14 +643,13 @@ def stage_fns(inst, device) -> dict:
     device = device_prover.resolve_device(device)
     f1, f2, f3, g = inst
     dim = f2.num_vars
-    (gbits, x, y_rev, vals, last_x, perm_y, last_y), (nx, ny), f2_d, f3_d, g_r, g_omr = \
+    (gbits, x, y_rev, vals, last_x, perm_y, last_y), f2_d, f3_d, g_r = \
         G._upload(f1, f2, f3, g, dim, device)
     products = ((0, 1),)
 
     def run(depth: int):
         state = device_prover.lift_transcript(Blake2b512Rng.setup(), device)
-        lo1, hi1, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, g_omr, f3_d, f2_d, dim,
-                                     not nx)
+        lo1, hi1, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, f3_d, f2_d, dim)
         if depth == 1:
             return lo1, hi1
         msgs1, rs1, state = generic_prover.chain_rounds_generic(lo1, hi1, state, products, 2,
@@ -555,7 +657,7 @@ def stage_fns(inst, device) -> dict:
         if depth == 2:
             return lo1, hi1, msgs1, rs1
         lo2, hi2 = GI.phase2_pair(lo1[:, :, :1], hi1[:, :, :1], rs1[dim - 1], x, perm_y, last_y,
-                                  w, rs1, f3_d, dim, not ny)
+                                  w, rs1, f3_d, dim)
         if depth == 3:
             return lo2, hi2, rs1
         msgs2, rs2, state = generic_prover.chain_rounds_generic(lo2, hi2, state, products, 2,
@@ -593,23 +695,25 @@ def stage_tables(inst, device) -> dict:
 
 def stage_work(dim: int, nnz: int) -> dict:
     """{stage: work} of each cumulative prefix: the bytes each input is read
-    and each output written once (int64 entry arrays and digits, the
-    cached f2, f3 and the table pairs in 32 B limbs an element), and the
-    32-bit multiplies of its Montgomery multiplies
-    (the inits' eq tables 2 x 2^dim, weight folds and gathered products one
+    and each output written once (int32 indices, f1's values and weights,
+    the cached f2, f3 and the table pairs in 32 B limbs an element), and
+    the 32-bit multiplies of its Montgomery multiplies (the inits' eq half
+    tables 2 a lane, weight folds two an entry, phase 1's gathered f3 one
     an entry, f2(u)'s scaling one a lane; the rounds `sol.count_prove_ops`
     for U=2 slots, one product of two, degree 2). The transcript steps'
     latency is not in it."""
+    from .ops.gkr_init_cuda import halves
     from .utils.sol import MULS_PER_MONT, count_prove_ops
 
     n = 1 << dim
+    eq_lanes = sum(1 << k for k in halves(dim))
     rounds = count_prove_ops(dim, 2, 1, 2, 2)
     # phase 1: gbits, y_rev, values, last_x, f3, f2 in; the pair and w out
-    p1 = {"bytes": 8 * nnz + 8 * nnz + 128 * nnz + 8 * n + 32 * n + 32 * n + 64 * n + 128 * nnz,
-          "mont": 2 * n + 2 * nnz}
+    p1 = {"bytes": 4 * nnz + 4 * nnz + 32 * nnz + 4 * n + 32 * n + 32 * n + 64 * n + 32 * nnz,
+          "mont": 2 * eq_lanes + 3 * nnz}
     # phase 2: x, perm_y, last_y, w, f3 in; the pair out
-    p2 = {"bytes": 8 * nnz + 8 * nnz + 8 * n + 128 * nnz + 32 * n + 64 * n,
-          "mont": 2 * n + nnz + n}
+    p2 = {"bytes": 4 * nnz + 4 * nnz + 4 * n + 32 * nnz + 32 * n + 64 * n,
+          "mont": 2 * eq_lanes + 2 * nnz + n}
     r = {"bytes": rounds["hbm_bytes"], "mont": rounds["mont_muls"]}
     out, total = {}, {"bytes": 0, "mont": 0}
     for name, part in zip(STAGES, (p1, r, p2, r, None)):
@@ -619,8 +723,20 @@ def stage_work(dim: int, nnz: int) -> dict:
     return out
 
 
+def kernel_launches(fn) -> dict:
+    """{wrapper: launches} of the port's kernels in one call of `fn`, from
+    the wrappers' counters (`ops.launch_counters`); zero counts left out."""
+    from .ops import launch_counters
+
+    before = {k: f.launches for k, f in launch_counters().items()}
+    fn()
+    return {k: f.launches - before[k] for k, f in launch_counters().items()
+            if f.launches != before[k]}
+
+
 def stages(inst, device, reps: int, rates: dict | None) -> dict:
     """The stage profile: `measure` of each prefix and of the full prove,
+    each stage's kernel launches by wrapper (`kernels`, null on the CPU),
     and the check that the last prefix's messages are the full prove's."""
     from .protocol.device_prover import msgs_from_host
 
@@ -632,6 +748,7 @@ def stages(inst, device, reps: int, rates: dict | None) -> dict:
         for name in STAGES:
             res = measure(fns[name], device, reps, rates, syncs=name == "full_prove")
             res["bound_ms"], res["bound_by"] = bound(work[name], rates)
+            res["kernels"] = kernel_launches(fns[name]) if device.type == "cuda" else None
             out[name] = dict(res, work=work[name])
         msgs, _state = fns["upto_rounds_p2"]()
         proof = fns["full_prove"]()

@@ -148,7 +148,7 @@ class SparseMLE:
     round sumcheck (`src/gkr_round_sumcheck/mod.rs:22-42`). Indices are unique.
     """
 
-    __slots__ = ("num_vars", "indices", "values", "_dev_split", "_seg_narrow")
+    __slots__ = ("num_vars", "indices", "values", "_dev_split")
 
     def __init__(self, num_vars: int, indices: np.ndarray, values_mont: np.ndarray):
         assert indices.ndim == 1 and values_mont.shape == (NUM_DIGITS, len(indices))
@@ -157,7 +157,6 @@ class SparseMLE:
         self.indices = indices[order].astype(np.int64)
         self.values = np.ascontiguousarray(values_mont[:, order])
         self._dev_split: dict = {}  # (dim, device) -> split (ops/gkr_init.py)
-        self._seg_narrow = (False, False)
 
     # -- constructors ------------------------------------------------------
     @staticmethod

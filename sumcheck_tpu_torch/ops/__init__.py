@@ -4,7 +4,7 @@
 def launch_counters() -> dict:
     """Every kernel wrapper by name; each adds one to its `.launches` where
     it launches its CUDA kernel, and nowhere else."""
-    from . import init_cuda, round_cuda, transcript_cuda
+    from . import gkr_init_cuda, init_cuda, round_cuda, transcript_cuda
 
     return {"round_nofold": round_cuda.round_nofold, "round_fold": round_cuda.round_fold,
             "round_step_nofold": round_cuda.round_step_nofold,
@@ -15,4 +15,7 @@ def launch_counters() -> dict:
             "round_nofold_batched": round_cuda.round_nofold_batched,
             "round_fold_batched": round_cuda.round_fold_batched,
             "round_step_fold_batched": round_cuda.round_step_fold_batched,
-            "transcript_step_batched": transcript_cuda.transcript_step_batched}
+            "transcript_step_batched": transcript_cuda.transcript_step_batched,
+            "eq_halves": gkr_init_cuda.eq_halves, "weight_fold": gkr_init_cuda.weight_fold,
+            "segment_reduce": gkr_init_cuda.segment_reduce,
+            "pair_slots": gkr_init_cuda.pair_slots}

@@ -1,37 +1,52 @@
 """GKR phase initialization on the prover's device — the port of
-`sumcheck_tpu/ops/gkr_init.py`, as plain torch ops (the JAX package has no
-Pallas kernel here either; it leaves these to XLA).
+`sumcheck_tpu/ops/gkr_init.py`. On a card each phase runs four hand-written
+kernels (`ops/gkr_init_cuda.py`, `csrc/gkr_init.cu`); on the CPU their plain
+versions. The JAX package jits each phase init into one XLA program.
 
 The reference's phase-1 init is a scalar scatter loop over `f1`'s nonzeros
 (`gkr_round_sumcheck/mod.rs:22-42`): fix `f1` at `g` (sparse), then
 `a_hg[x] += v * f3[y]`. Here, as in the JAX package:
 
 1. **weight fold**: each entry's fixing weight `prod_i (bit_i ? r_i : 1-r_i)`
-   as one gather from the eq table (`_eq_table`, built by doublings) and one
-   batched Montgomery multiply;
-2. **gather** f3 at the y-part of each index and multiply;
+   from the eq table and one multiply: the kernels build eq's two half
+   tables (`eq_halves`) and multiply each entry by one lane of each
+   (`weight_fold`);
+2. **gather** f3 at the y-part of each index and multiply (in the same
+   `weight_fold` launch);
 3. **segment sum** over the x-part without a scatter: entries pre-sorted by
-   segment on the host (`_split_f1_device`), a cumulative sum, and the
-   difference at each segment's last position (`_segment_reduce_sorted`),
-   then an exact mod-p reduction of the wide per-segment sums.
+   segment on the host (`_split_f1_device`), each segment's limbs summed
+   exactly in 64-bit accumulators and reduced mod p (`segment_reduce`),
+   written straight into slot 0 of the phase's pair;
+4. **the pair's other slot**: f2 (phase 1), or f3 times f2(u), the final
+   fold of phase 1's one-lane pair (phase 2), by `pair_slots`.
 
 Phase 2 (`mod.rs:57-63`) reuses the weight fold and the segment sum with
 the remaining index bits and the phase-1 challenges, which stay on the
 device: `phase2_pair` (the generic chain) and `final_fold`,
 `phase2_digits`, `prep2` (the per-size chain) read them from the chain's
-challenge buffer, and nothing between the prove's uploads and its one fetch
-waits for the device (no `.item()`, no boolean masks, no `nonzero`, no
-upload: `prepare` puts every constant on the device first).
+challenge rows, and nothing between the prove's uploads and its one fetch
+waits for the host (no `.item()`, no boolean masks, no upload). A phase is
+4 launches on the generic chain (`phase1_pair`, `phase2_pair`); the
+per-size pieces take 3 (`phase1`, `phase2_digits`) and 1 each (`prep1`,
+`final_fold`, `prep2`).
 
-The inits compute on `int64` digits (`fields/limbs_torch.py`). They read
-the cached f2 and f3 (`DenseMLE.to_device`, 8 x 32-bit limbs) through
-`limbs_torch.unpack_limbs` and write the phase pairs packed (`_halves`,
-`limbs_torch.pack_limbs`), the round kernels' layout.
+Layout: f1's values (8, nnz) and the weights `w` (8, nnz) in 8 x 32-bit
+limbs, its index components int32 (`_split_f1_device`, cached per f1 and
+device); f2 and f3 the cached (8, 2^dim) limb tables
+(`DenseMLE.to_device`); h_g and f1(g, u, .) (8, 2^dim) limb tables in
+bit-reversed lane order; the challenges (k, 16) int32 rows of Montgomery
+digits (g's from `_point_rows`, u the chain's); f2(u) a (16,) int32 digit
+row; the pairs (2, 8, 2^dim / 2) int32, the round kernels' layout.
 
-Digits are `int64`, so the segment sums' cumulative
-sums are exact for any entry count up to 2^24 (asserted), and both digit
-split widths of the JAX package give exact sums; the port keeps the JAX
-package's choice of width (`_seg_narrow`) all the same.
+The torch-op bodies that came before the kernels stay as the plain
+versions of the whole phases (`phase1_ref`, `prep1_ref`, `phase1_pair_ref`,
+`final_fold_ref`, `phase2_digits_ref`, `prep2_ref`, `phase2_pair_ref`):
+the eq table by doublings (`_eq_table`) and the segment sums by
+`gkr_init_cuda.segment_reduce_ref`, on any device. No path runs them on a
+card: every fold mode runs the kernels, and the tests and `chip_smoke.py`
+hold the kernels against them. In the MXU fold mode `_eq_table` and
+`prep2_ref` take the banded products (`ops/mxu_mul.py`), the A/B of a
+banded-product init that has no kernel yet.
 
 Left out: `_take_small_mxu` and the kron-split modes (they work around XLA's
 small-table gather lowering), `bitrev_cols` (the entries are sorted so the
@@ -52,9 +67,10 @@ import torch
 
 from ..fields import limbs_np as L
 from ..fields import limbs_torch as LT
-from ..fields.fr import NUM_DIGITS, P_DIGITS, Fr
+from ..fields.fr import NUM_DIGITS, NUM_LIMBS, P_DIGITS, Fr
 from ..protocol import device_prover
 from ..utils.config import get_config
+from . import gkr_init_cuda as K
 from . import mxu_mul
 
 # shared-scalar multiplies at or above this lane count take the banded
@@ -65,18 +81,19 @@ _ONE = tuple(int(d) for d in L.mont_scalar(1)[:, 0])  # Montgomery one
 
 
 def prepare(device: torch.device) -> None:
-    """Put every constant the inits use on `device` (once per device), so
-    that the inits themselves upload nothing. `device` carries its index
-    (`device_prover.resolve_device`), as a tensor's `.device` does."""
+    """Put every constant the plain inits use on `device` (once per
+    device), so that the inits themselves upload nothing. `device` carries
+    its index (`device_prover.resolve_device`), as a tensor's `.device`
+    does."""
     for digits in (P_DIGITS, LT.R2_DIGITS, _ONE):
         LT.const(digits, device)
     mxu_mul._bands(device)
 
 
 def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A host array as an int64 tensor on `device` (`device_prover.upload`:
-    no host wait on a card)."""
-    return device_prover.upload(torch.from_numpy(np.ascontiguousarray(arr).astype(np.int64)),
+    """A host array of digit rows as an int32 tensor on `device`
+    (`device_prover.upload`: no host wait on a card)."""
+    return device_prover.upload(torch.from_numpy(np.ascontiguousarray(arr).astype(np.int32)),
                                 device)
 
 
@@ -87,15 +104,21 @@ def _points_arrays(points: list[Fr]):
     return r, omr
 
 
+def _point_rows(points: list[Fr]) -> np.ndarray:
+    """Challenges -> (k, 16) int32 rows of Montgomery digits, the layout of
+    the chain's challenge rows."""
+    return np.stack([L.mont_scalar(p.v)[:, 0] for p in points]).astype(np.int32)
+
+
 def _eq_table(r_pts, omr_pts, k: int) -> torch.Tensor:
     """(16, 2^k) eq table: eq[j] = prod_i (bit_i(j) ? r_i : 1-r_i), built by
     k doublings (bit i of j = variable i, low bits first). r_pts, omr_pts:
-    indexable (k, 16, 1) Montgomery digit columns on one device.
+    (k, 16, 1) Montgomery digit columns, tensors on one device.
 
     Each doubling multiplies the whole table by two shared scalars; in the
     MXU fold mode the wide ones (>= MXU_MIN_LANES) run as banded products."""
     use_mxu = get_config().use_mxu_fold()
-    eq = LT.const(_ONE, r_pts[0].device).reshape(NUM_DIGITS, 1)
+    eq = LT.const(_ONE, r_pts.device).reshape(NUM_DIGITS, 1)
     for i in range(k):
         if use_mxu and eq.shape[1] >= MXU_MIN_LANES:
             lo = mxu_mul.mont_mul_scalar_mxu(eq, omr_pts[i][:, 0])
@@ -114,73 +137,15 @@ def _weight_fold(indices, values, r_pts, omr_pts, k: int) -> torch.Tensor:
     return LT.mont_mul(values, eq.index_select(1, indices))
 
 
-def _finish_segment_sums(slo, shi) -> torch.Tensor:
-    """(16, S) 8-bit-split sums -> strict, reduced mod p."""
-    zero = torch.zeros_like(slo[0])
-    relaxed = []
-    for d in range(NUM_DIGITS + 2):
-        r = zero
-        if d < NUM_DIGITS:
-            r = r + slo[d] + ((shi[d] & 0xFF) << 8)
-        if 1 <= d <= NUM_DIGITS:
-            r = r + (shi[d - 1] >> 8)
-        relaxed.append(r)
-    strict, _ = LT._chain(relaxed + [zero] * (LT.WIDE_DIGITS - len(relaxed)))
-    return LT.reduce_wide(torch.stack(strict))
-
-
-def _finish_segment_sums16(s) -> torch.Tensor:
-    """(16, S) unsplit digit sums -> strict, reduced mod p. Splits after
-    the reduction: the carries ride into the next digit."""
-    zero = torch.zeros_like(s[0])
-    relaxed = []
-    for d in range(NUM_DIGITS + 1):
-        r = zero
-        if d < NUM_DIGITS:
-            r = r + (s[d] & 0xFFFF)
-        if d >= 1:
-            r = r + (s[d - 1] >> 16)
-        relaxed.append(r)
-    strict, _ = LT._chain(relaxed + [zero] * (LT.WIDE_DIGITS - len(relaxed)))
-    return LT.reduce_wide(torch.stack(strict))
-
-
-def segment_sums(vals, perm, last_pos, split8: bool = True) -> torch.Tensor:
-    """The raw int64 segment sums, (32 | 16, segments), without a scatter:
-    gather the entries into segment order (`perm`; None when `vals` is
-    already in it), take the cumulative sum along the entries, and
-    difference it at each segment's last position (`last_pos`, -1 for an
-    empty segment). `split8` splits the 16-bit digits into bytes first (32
-    rows), as the JAX package does for segments that may hold more than
-    2^16 entries; either way the int64 cumulative sum is exact (no
-    wraparound to cancel), so both widths give the same result. Sums over
-    disjoint sets of entries add exactly: the multi-device inits sum them
-    over the ranks before `finish_segment_sums`."""
-    v = vals if perm is None else vals.index_select(1, perm)
-    rows = torch.cat([v & 0xFF, v >> 8], dim=0) if split8 else v  # (32 | 16, nnz)
-    csum = torch.cumsum(rows, dim=1)
-    at_last = csum.index_select(1, last_pos.clamp(min=0))
-    at_last = torch.where(last_pos[None, :] >= 0, at_last, 0)
-    prev = torch.cat([torch.zeros_like(at_last[:, :1]), at_last[:, :-1]], dim=1)
-    return at_last - prev
-
-
-def finish_segment_sums(sums, split8: bool = True) -> torch.Tensor:
-    """`segment_sums` -> strict (16, segments) digits, reduced mod p."""
-    if split8:
-        return _finish_segment_sums(sums[:NUM_DIGITS], sums[NUM_DIGITS:])
-    return _finish_segment_sums16(sums)
-
-
-def _segment_reduce_sorted(vals, perm, last_pos, split8: bool = True,
-                           reduce_fn=None) -> torch.Tensor:
-    """Exact segment sums, strict and reduced mod p: `segment_sums`, then
-    `reduce_fn` on them in place if given (the sum over the ranks of the
-    multi-device inits), then `finish_segment_sums`."""
-    sums = segment_sums(vals, perm, last_pos, split8)
-    if reduce_fn is not None:
-        reduce_fn(sums)
-    return finish_segment_sums(sums, split8)
+def _segment_reduce_sorted(vals, perm, last_pos) -> torch.Tensor:
+    """`_segment_reduce_sorted` (`:237-274`) on (16, nnz) digits: the exact
+    sum mod p of each segment of the sorted entries, strict (16, segments)
+    digits, by `gkr_init_cuda.segment_reduce_ref` (the JAX package's byte
+    split of wide segments gives the same sums)."""
+    out = torch.empty((NUM_LIMBS, last_pos.shape[0]), dtype=torch.int32, device=vals.device)
+    K.segment_reduce_ref(LT.pack_limbs(vals), None if perm is None else perm.int(),
+                         last_pos.int(), out)
+    return LT.unpack_limbs(out)
 
 
 def _split_f1_device(f1, dim: int, device: torch.device, shard=None):
@@ -193,18 +158,17 @@ def _split_f1_device(f1, dim: int, device: torch.device, shard=None):
     chain; gbits, x, y the low, middle and top dim bits of each index (y
     bit-reversed, to gather from the bit-reversed f3); `last_*` each
     bit-reversed segment's last sorted position; `perm_y` the sort by the
-    bit-reversed y. Also records in `f1._seg_narrow` whether the no-split
-    segment reduce is the JAX package's choice per axis (at most 2^16
-    entries per segment). (The JAX package also keeps perm_x, the
-    identity, for its batch prover; the port drops it.)
+    bit-reversed y. Every component is int32, and `vals` the (8, nnz)
+    int32 limb table of the values (`limbs_np.pack_limbs`, the layout the
+    kernels read). (The JAX package also keeps perm_x, the identity, for
+    its batch prover, and the segment-sum widths; the port drops them.)
 
     With `shard` = (s, S), only rank s's chunk of the multi-device inits
     (`parallel/gkr.py`, cached per (dim, device, s, S)): the sorted
     entries cut into S contiguous chunks, the last padded with zero
     entries at x = all ones (the last bit-reversed x segment, so every
     chunk stays sorted and the padding adds nothing), each chunk with its
-    own metadata. The widths are the whole f1's either way, so every rank
-    chooses alike."""
+    own metadata."""
     from ..protocol.prover import bitrev_perm
 
     key = (dim, device) if shard is None else (dim, device, *shard)
@@ -215,8 +179,6 @@ def _split_f1_device(f1, dim: int, device: torch.device, shard=None):
     mask = (1 << dim) - 1
     revp = bitrev_perm(dim)
     x_rev = revp[(idx >> dim) & mask]
-    f1._seg_narrow = tuple(bool(np.bincount(seg, minlength=1).max() <= (1 << 16))
-                           for seg in (x_rev, revp[idx >> (2 * dim)]))
     order = np.argsort(x_rev, kind="stable")
     idx, vals = idx[order], np.asarray(f1.values)[:, order]
     if shard is not None:
@@ -226,23 +188,19 @@ def _split_f1_device(f1, dim: int, device: torch.device, shard=None):
         mine = slice(s * chunk, (s + 1) * chunk)
         idx = np.concatenate([idx, np.full(pad, mask << dim, np.int64)])[mine]
         vals = np.concatenate([vals, np.zeros((NUM_DIGITS, pad), vals.dtype)], axis=1)[:, mine]
-    assert len(idx) <= 1 << 24, "cumsum exactness bound"
+    assert len(idx) <= 1 << 24, "segment sums are exact up to 2^24 entries"
     x = (idx >> dim) & mask  # natural values, sorted by their bit reversal
     y_rev = revp[idx >> (2 * dim)]
     segments = np.arange(1 << dim)
     last_x = np.searchsorted(revp[x], segments, side="right") - 1
     perm_y = np.argsort(y_rev, kind="stable")
     last_y = np.searchsorted(y_rev[perm_y], segments, side="right") - 1
-    out = tuple(torch.from_numpy(np.ascontiguousarray(a).astype(np.int64)).to(device)
-                for a in (idx & mask, x, y_rev, vals, last_x, perm_y, last_y))
+    ints = [torch.from_numpy(np.ascontiguousarray(a).astype(np.int32)).to(device)
+            for a in (idx & mask, x, y_rev, last_x, perm_y, last_y)]
+    limbs = torch.from_numpy(L.pack_limbs(vals)).to(device)
+    out = (*ints[:3], limbs, *ints[3:])
     f1._dev_split[key] = out
     return out
-
-
-def _seg_narrow(f1) -> tuple[bool, bool]:
-    """(x-axis, y-axis) no-split segment-reduce choice recorded at split
-    time; (False, False), the always-exact byte split, before it."""
-    return f1._seg_narrow
 
 
 def _halves(a: torch.Tensor, b: torch.Tensor, out=None):
@@ -258,73 +216,164 @@ def _halves(a: torch.Tensor, b: torch.Tensor, out=None):
     return out
 
 
-def phase1(gbits, last_x, y_rev, values, g_r, g_omr, f3_bitrev, dim: int,
-           split8x: bool = True, reduce_fn=None):
-    """h_g (16, 2^dim) digits in bit-reversed lane order, and the entries'
-    weights `w` (kept for phase 2): `_compiled_phase1` (`:284-301`).
-    `f3_bitrev` is the cached (8, 2^dim) limb table. `reduce_fn` sums the
-    raw segment sums over the ranks (`_segment_reduce_sorted`)."""
-    w = _weight_fold(gbits, values, g_r, g_omr, dim)
+def _new_pair(n: int, device, out=None):
+    """`out` = (lo, hi), or a fresh (2, 8, n/2) int32 pair."""
+    if out is not None:
+        return out
+    lo = torch.empty((2, NUM_LIMBS, n // 2), dtype=torch.int32, device=device)
+    return lo, torch.empty_like(lo)
+
+
+# ---------------------------------------------------------------------------
+# the plain versions of the whole phases: the torch-op bodies
+# ---------------------------------------------------------------------------
+
+
+def _columns(rows: torch.Tensor, k: int):
+    """(>= k, 16) digit rows -> (k, 16, 1) int64 columns r and 1 - r."""
+    one = LT.const(_ONE, rows.device).reshape(NUM_DIGITS, 1)
+    r_pts = rows[:k].long()[:, :, None]
+    return r_pts, torch.stack([LT.sub(one, r) for r in r_pts])
+
+
+def phase1_ref(gbits, last_x, y_rev, values, g_r, f3_bitrev, dim: int):
+    """Plain version of `phase1`, `_compiled_phase1` (`:284-301`) as torch
+    ops: the eq table by doublings, one gather and multiply, the f3 gather
+    and multiply, and the plain segment reduce."""
+    r_pts, omr_pts = _columns(g_r, dim)
+    w = _weight_fold(gbits, LT.unpack_limbs(values), r_pts, omr_pts, dim)
     f3y = LT.unpack_limbs(f3_bitrev.index_select(1, y_rev))  # f3[y]
-    wv = LT.mont_mul(w, f3y)
-    return _segment_reduce_sorted(wv, None, last_x, split8x, reduce_fn), w
+    hg = torch.empty((NUM_LIMBS, 1 << dim), dtype=torch.int32, device=values.device)
+    K.segment_reduce_ref(LT.pack_limbs(LT.mont_mul(w, f3y)), None, last_x, hg)
+    return hg, LT.pack_limbs(w)
+
+
+def prep1_ref(hg_brev, f2_bitrev, out=None):
+    """Plain version of `prep1`."""
+    return _halves(hg_brev, f2_bitrev, out)
+
+
+def phase1_pair_ref(gbits, last_x, y_rev, values, g_r, f3_bitrev, f2_bitrev, dim: int,
+                    out=None):
+    """Plain version of `phase1_pair`, `_phase1_pair_body` (`:472-491`)."""
+    hg, w = phase1_ref(gbits, last_x, y_rev, values, g_r, f3_bitrev, dim)
+    lo, hi = prep1_ref(hg, f2_bitrev, out)
+    return lo, hi, w
+
+
+def final_fold_ref(lo, hi, r, slot: int) -> torch.Tensor:
+    """Plain version of `final_fold`."""
+    return K.final_fold_ref(lo, hi, r, slot).to(torch.int32)
+
+
+def phase2_digits_ref(x, perm_y, last_y, w, u_digits, dim: int):
+    """Plain version of `phase2_digits`, `_compiled_phase2_digits`
+    (`:621-634`) as torch ops."""
+    r_pts, omr_pts = _columns(u_digits, dim)
+    w2 = _weight_fold(x, LT.unpack_limbs(w), r_pts, omr_pts, dim)
+    f1gu = torch.empty((NUM_LIMBS, 1 << dim), dtype=torch.int32, device=w.device)
+    K.segment_reduce_ref(LT.pack_limbs(w2), perm_y, last_y, f1gu)
+    return f1gu
+
+
+def prep2_ref(f1gu_brev, f3_bitrev, f2u, out=None):
+    """Plain version of `prep2`, `_compiled_prep2` (`:637-654`); the
+    scaling is a banded product in the MXU fold mode."""
+    f3 = LT.unpack_limbs(f3_bitrev)
+    if get_config().use_mxu_fold() and f3.shape[1] >= MXU_MIN_LANES:
+        f3f2u = mxu_mul.mont_mul_scalar_mxu(f3, f2u.long())
+    else:
+        f3f2u = LT.mont_mul(f3, f2u.long()[:, None])
+    return _halves(f1gu_brev, LT.pack_limbs(f3f2u), out)
+
+
+def phase2_pair_ref(pair_lo, pair_hi, r_last, x, perm_y, last_y, w, u_digits, f3_bitrev,
+                    dim: int, out=None):
+    """Plain version of `phase2_pair`, `_phase2_pair_body` (`:494-522`)."""
+    f2u = final_fold_ref(pair_lo, pair_hi, r_last, 1)
+    f1gu = phase2_digits_ref(x, perm_y, last_y, w, u_digits, dim)
+    return prep2_ref(f1gu, f3_bitrev, f2u, out)
+
+
+# ---------------------------------------------------------------------------
+# the phases on the kernels
+# ---------------------------------------------------------------------------
+
+
+def _weights(idx, values, r, dim: int, y=None, f3=None):
+    """(w, wv): the weight fold by eq(r, .) over the entries, 2 launches."""
+    return K.weight_fold(idx, values, K.eq_halves(r, dim), dim, y, f3)
+
+
+def phase1(gbits, last_x, y_rev, values, g_r, f3_bitrev, dim: int, reduce_fn=None):
+    """h_g as an (8, 2^dim) limb table in bit-reversed lane order, and the
+    entries' weights `w` (8, nnz), kept for phase 2 (`_compiled_phase1`,
+    `:284-301`): 3 launches. `g_r` is g's (dim, 16) digit rows,
+    `f3_bitrev` the cached (8, 2^dim) limb table. `reduce_fn` sums the raw
+    segment sums over the ranks (`gkr_init_cuda.segment_reduce`)."""
+    w, wv = _weights(gbits, values, g_r, dim, y_rev, f3_bitrev)
+    hg = torch.empty((NUM_LIMBS, 1 << dim), dtype=torch.int32, device=values.device)
+    K.segment_reduce(wv, None, last_x, hg, reduce_fn)
+    return hg, w
 
 
 def prep1(hg_brev, f2_bitrev, out=None):
-    """[h_g (16, 2^dim) digits, f2 (8, 2^dim) limbs] -> the phase-1 (lo, hi)
-    pair, (2, 8, 2^dim / 2) int32."""
-    return _halves(LT.pack_limbs(hg_brev), f2_bitrev, out)
+    """[h_g, f2] (8, 2^dim) limb tables -> the phase-1 (lo, hi) pair, (2, 8,
+    2^dim / 2) int32, fresh or written into `out`: 1 launch."""
+    lo, hi = _new_pair(hg_brev.shape[1], hg_brev.device, out)
+    K.pair_slots(lo, hi, ((0, hg_brev, None), (1, f2_bitrev, None)))
+    return lo, hi
 
 
-def phase1_pair(gbits, last_x, y_rev, values, g_r, g_omr, f3_bitrev, f2_bitrev,
-                dim: int, split8x: bool = True, out=None):
+def phase1_pair(gbits, last_x, y_rev, values, g_r, f3_bitrev, f2_bitrev, dim: int, out=None):
     """`_phase1_pair_body` (`:472-491`): the phase-1 pair (written into
-    `out` = (lo, hi) if given) and `w`."""
-    hg, w = phase1(gbits, last_x, y_rev, values, g_r, g_omr, f3_bitrev, dim, split8x)
-    lo, hi = prep1(hg, f2_bitrev, out)
+    `out` = (lo, hi) if given) and `w`: 4 launches, h_g summed straight into
+    slot 0."""
+    w, wv = _weights(gbits, values, g_r, dim, y_rev, f3_bitrev)
+    lo, hi = _new_pair(1 << dim, values.device, out)
+    K.segment_reduce(wv, None, last_x, (lo, hi))
+    K.pair_slots(lo, hi, ((1, f2_bitrev, None),))
     return lo, hi, w
 
 
 def final_fold(lo, hi, r, slot: int) -> torch.Tensor:
     """Fold slot `slot` of the 1-lane final pair by the last challenge (16
-    digits): the table at the phase's point, (16,) digits."""
-    l, h = LT.unpack_limbs(lo[slot, :, 0]), LT.unpack_limbs(hi[slot, :, 0])
-    return LT.add(l, LT.mont_mul(LT.sub(h, l), r.long()))
+    digits): the table at the phase's point, (16,) int32 digits; 1 launch."""
+    out = torch.empty(NUM_DIGITS, dtype=torch.int32, device=lo.device)
+    K.pair_slots(None, None, (), fold=(lo, hi, r, slot), fold_out=out)
+    return out
 
 
-def phase2_digits(x, perm_y, last_y, w, u_digits, dim: int, split8y: bool = True,
-                  reduce_fn=None):
-    """f1(g, u, .) densified, (16, 2^dim) in bit-reversed lane order, from
-    the challenges u as (dim, 16) Montgomery digits on the device.
-    `reduce_fn` as in `phase1`."""
-    one = LT.const(_ONE, w.device).reshape(NUM_DIGITS, 1)
-    r_pts = [u_digits[i].long()[:, None] for i in range(dim)]
-    omr_pts = [LT.sub(one, r) for r in r_pts]
-    w2 = _weight_fold(x, w, r_pts, omr_pts, dim)
-    return _segment_reduce_sorted(w2, perm_y, last_y, split8y, reduce_fn)
+def phase2_digits(x, perm_y, last_y, w, u_digits, dim: int, reduce_fn=None):
+    """f1(g, u, .) densified, an (8, 2^dim) limb table in bit-reversed lane
+    order, from the challenges u as (dim, 16) Montgomery digit rows on the
+    device: 3 launches. `reduce_fn` as in `phase1`."""
+    w2, _ = _weights(x, w, u_digits, dim)
+    f1gu = torch.empty((NUM_LIMBS, 1 << dim), dtype=torch.int32, device=w.device)
+    K.segment_reduce(w2, perm_y, last_y, f1gu, reduce_fn)
+    return f1gu
 
 
 def prep2(f1gu_brev, f3_bitrev, f2u, out=None):
-    """[f1_gu (16, 2^dim) digits, f3 (8, 2^dim) limbs, f2(u) (16,) digits]
-    -> the phase-2 pair for `f1_gu * (f2(u) * f3)` (reference
-    `mod.rs:66-82`), (2, 8, 2^dim / 2) int32; the scaling is a banded
-    product in the MXU fold mode."""
-    f3 = LT.unpack_limbs(f3_bitrev)
-    if get_config().use_mxu_fold() and f3.shape[1] >= MXU_MIN_LANES:
-        f3f2u = mxu_mul.mont_mul_scalar_mxu(f3, f2u)
-    else:
-        f3f2u = LT.mont_mul(f3, f2u[:, None])
-    return _halves(LT.pack_limbs(f1gu_brev), LT.pack_limbs(f3f2u), out)
+    """[f1_gu, f3] (8, 2^dim) limb tables and f2(u), (16,) int32 digits ->
+    the phase-2 pair for `f1_gu * (f2(u) * f3)` (reference `mod.rs:66-82`),
+    (2, 8, 2^dim / 2) int32: 1 launch."""
+    lo, hi = _new_pair(f1gu_brev.shape[1], f1gu_brev.device, out)
+    K.pair_slots(lo, hi, ((0, f1gu_brev, None), (1, f3_bitrev, f2u)))
+    return lo, hi
 
 
 def phase2_pair(pair_lo, pair_hi, r_last, x, perm_y, last_y, w, u_digits, f3_bitrev,
-                dim: int, split8y: bool = True, out=None):
+                dim: int, out=None):
     """`_phase2_pair_body` (`:494-522`): f2(u) from the phase-1 final pair,
     the phase-2 init, and the phase-2 pair (written into `out` = (lo, hi)
-    if given)."""
-    f2u = final_fold(pair_lo, pair_hi, r_last, 1)
-    f1gu = phase2_digits(x, perm_y, last_y, w, u_digits, dim, split8y)
-    return prep2(f1gu, f3_bitrev, f2u, out)
+    if given): 4 launches, f1(g, u, .) summed straight into slot 0 and the
+    final fold inside the launch that scales f3."""
+    w2, _ = _weights(x, w, u_digits, dim)
+    lo, hi = _new_pair(1 << dim, w.device, out)
+    K.segment_reduce(w2, perm_y, last_y, (lo, hi))
+    K.pair_slots(lo, hi, ((1, f3_bitrev, "fold"),), fold=(pair_lo, pair_hi, r_last, 1))
+    return lo, hi
 
 
 # ---------------------------------------------------------------------------
@@ -338,23 +387,28 @@ class _HostF1:
     def __init__(self, indices, values):
         self.indices, self.values = np.asarray(indices), np.asarray(values)
         self._dev_split: dict = {}
-        self._seg_narrow = (False, False)
 
 
 def phase1_init_device_arrays(f1, f3, g: list[Fr], dim: int, device="cuda"):
-    """h_g and phase 2's carry on `device`, with no host sync: h_g as a
-    (16, 2^dim) int64 tensor in bit-reversed lane order, and the carry
-    (x, perm_y, last_y, w, narrow_y) that `phase2_init_device` takes. `f1`
+    """h_g and phase 2's carry on `device`, with no host sync: h_g as an
+    (8, 2^dim) int32 limb table in bit-reversed lane order, and the carry
+    (x, perm_y, last_y, w) that `phase2_init_device` takes. `f1`
     has `indices` and `values` (a `SparseMLE`: its split is cached on it),
     `f3` a `to_device` (a `DenseMLE`)."""
     device = device_prover.resolve_device(device)
     gbits, x, y_rev, vals, last_x, perm_y, last_y = _split_f1_device(f1, dim, device)
-    narrow_x, narrow_y = _seg_narrow(f1)
     prepare(device)
-    g_r, g_omr = (upload(a, device) for a in _points_arrays(list(g)))
-    hg, w = phase1(gbits, last_x, y_rev, vals, g_r, g_omr, f3.to_device(device), dim,
-                   not narrow_x)
-    return hg, (x, perm_y, last_y, w, narrow_y)
+    hg, w = phase1(gbits, last_x, y_rev, vals, upload(_point_rows(list(g)), device),
+                   f3.to_device(device), dim)
+    return hg, (x, perm_y, last_y, w)
+
+
+def _natural(table: torch.Tensor, dim: int) -> np.ndarray:
+    """An (8, 2^dim) limb table in bit-reversed lane order -> (16, 2^dim)
+    uint32 NumPy digits in natural lane order."""
+    from ..protocol.prover import bitrev_perm
+
+    return L.unpack_limbs(table.cpu().numpy())[:, bitrev_perm(dim)]
 
 
 def phase1_init_device(f1_indices, f1_values, f3_evals, g: list[Fr], dim: int,
@@ -364,20 +418,16 @@ def phase1_init_device(f1_indices, f1_values, f3_evals, g: list[Fr], dim: int,
     2^dim) natural-order digits: returns (h_g as a (16, 2^dim) uint32 NumPy
     array in natural lane order, the carry for `phase2_init_device`)."""
     from ..mle import DenseMLE
-    from ..protocol.prover import bitrev_perm
 
     hg, carry = phase1_init_device_arrays(_HostF1(f1_indices, f1_values),
                                           DenseMLE(dim, np.asarray(f3_evals, np.uint32)), g, dim,
                                           device)
-    return hg.cpu().numpy().astype(np.uint32)[:, bitrev_perm(dim)], carry
+    return _natural(hg, dim), carry
 
 
 def phase2_init_device(carry, u: list[Fr], dim: int) -> np.ndarray:
     """f1(g, u, .) densified on the carry's device: a (16, 2^dim) uint32
     NumPy array in natural lane order."""
-    from ..protocol.prover import bitrev_perm
-
-    x, perm_y, last_y, w, narrow_y = carry
-    u_digits = upload(np.stack([L.mont_scalar(p.v)[:, 0] for p in u]), w.device)
-    f1gu = phase2_digits(x, perm_y, last_y, w, u_digits, dim, not narrow_y)
-    return f1gu.cpu().numpy().astype(np.uint32)[:, bitrev_perm(dim)]
+    x, perm_y, last_y, w = carry
+    f1gu = phase2_digits(x, perm_y, last_y, w, upload(_point_rows(list(u)), w.device), dim)
+    return _natural(f1gu, dim)

@@ -6,14 +6,15 @@
   the single-device split sorts them, fall into S contiguous chunks, the
   last padded with zero entries; rank s uploads only chunk s, with its own
   segment metadata for x (phase 1) and y (phase 2), cached on the
-  `SparseMLE` (`ops/gkr_init._split_f1_device(..., shard=)`). The
-  segment-sum widths (`_seg_narrow`) are the whole f1's, so every rank
-  chooses alike.
+  `SparseMLE` (`ops/gkr_init._split_f1_device(..., shard=)`).
 - **Phase inits** (`:77-143`): each rank runs the single-device init
   (`ops/gkr_init.phase1`, `phase2_digits`) over its chunk up to the raw
-  int64 segment sums; one `comm.all_reduce_sum_` adds them over the ranks,
-  and every rank finishes the sum (carries, reduction mod p) into the
-  replicated h_g or f1(g, u, .), whose bytes equal the single device's.
+  segment sums, (8, 2^dim) int64 sums of the 32-bit limbs (16 MiB at dim
+  18, in every fold mode and in the plain versions alike); one
+  `comm.all_reduce_sum_` adds them over the ranks, exactly, and every rank
+  finishes the sum (carries, reduction mod p) on its device into the
+  replicated h_g or f1(g, u, .), whose bytes equal the single device's
+  (`ops/gkr_init_cuda.segment_reduce`).
   The weights `w` of phase 1 stay on the rank for phase 2. The JAX package
   sums strict partials instead and splits the mod-p work with a
   reduce-scatter and an all-gather (`_psum_reduce_mod_p`, `:50-74`); that
@@ -91,17 +92,15 @@ class ShardedGKRProver:
         """Both phases on the rank (the single device's `_enqueue`,
         sharded) from `gkr_round_sumcheck._upload(..., shard=)`: returns
         (msgs (2 dim, 16, 3), rs (2 dim, 16), state)."""
-        (gbits, x, y_rev, vals, last_x, perm_y, last_y), (narrow_x, narrow_y), f2_d, f3_d, \
-            g_r, g_omr = inputs
+        (gbits, x, y_rev, vals, last_x, perm_y, last_y), f2_d, f3_d, g_r = inputs
         s, size = self.rank, self.num_shards
         reduce = functools.partial(comm.all_reduce_sum_, group=self.group)
-        hg, w = GI.phase1(gbits, last_x, y_rev, vals, g_r, g_omr, f3_d, dim, not narrow_x,
-                          reduce)
+        hg, w = GI.phase1(gbits, last_x, y_rev, vals, g_r, f3_d, dim, reduce)
         lo, hi = GI.prep1(deal(hg, s, size), deal(f2_d, s, size))
         msgs1, rs1, state, pair = sharded_rounds(lo, hi, state, _PRODUCTS, _DEGREE, dim,
                                                  self.group)
         f2_u = GI.final_fold(*pair, rs1[dim - 1], 1)
-        f1_gu = GI.phase2_digits(x, perm_y, last_y, w, rs1, dim, not narrow_y, reduce)
+        f1_gu = GI.phase2_digits(x, perm_y, last_y, w, rs1, dim, reduce)
         lo, hi = GI.prep2(deal(f1_gu, s, size), deal(f3_d, s, size), f2_u)
         msgs2, rs2, state, _pair = sharded_rounds(lo, hi, state, _PRODUCTS, _DEGREE, dim,
                                                   self.group)

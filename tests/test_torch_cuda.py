@@ -578,10 +578,22 @@ def test_prove_in_mxu_mode_on_cuda(cuda, monkeypatch):
     assert serialize_proof(proof) == want
 
 
+# the phase-init kernels a GKR prove launches on each path: (eq_halves,
+# weight_fold, segment_reduce, pair_slots); the MXU fold mode runs the same
+# kernels as the generic chain
+GKR_INIT_LAUNCHES = {"generic": (2, 2, 2, 2), "persize": (2, 2, 2, 3), "mxu": (2, 2, 2, 2)}
+
+
+def _init_counters():
+    from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
+
+    return (GK.eq_halves, GK.weight_fold, GK.segment_reduce, GK.pair_slots)
+
+
 def _gkr_mode(mode, monkeypatch):
     """Chain and fold mode; "mxu" is the generic chain in the MXU fold mode
-    with the banded-product threshold at 1 lane, so the eq tables and the
-    phase-2 scaling take the banded product on the card too."""
+    (`round_fold_mxu`), with the banded-product threshold at 1 lane, which
+    only the inits' plain versions read: the path runs the init kernels."""
     from sumcheck_tpu_torch.ops import gkr_init as GI
 
     cfg = get_config()
@@ -620,7 +632,10 @@ def test_gkr_golden_on_cuda(cuda, mode, monkeypatch):
                                           for k, v in fx["f1_nonzeros"].items()])
     f2, f3 = T.DenseMLE.from_evaluations(dim, table("f2")), T.DenseMLE.from_evaluations(dim, table("f3"))
     g = [T.Fr(int(x, 16)) for x in fx["g"]]
+    before = [f.launches for f in _init_counters()]
     proof = T.GKRRoundSumcheck.prove(T.Blake2b512Rng.setup(), f1, f2, f3, g, device=cuda)
+    assert tuple(f.launches - b for f, b in zip(_init_counters(), before)) == \
+        GKR_INIT_LAUNCHES[mode]
     hexes = lambda msgs: [[format(e.v, "064x") for e in m.evaluations] for m in msgs]  # noqa: E731
     assert hexes(proof.phase1_sumcheck_msgs) == fx["phase1_msgs"]
     assert hexes(proof.phase2_sumcheck_msgs) == fx["phase2_msgs"]
@@ -633,11 +648,13 @@ def test_gkr_golden_on_cuda(cuda, mode, monkeypatch):
 @pytest.mark.parametrize("mode", ["generic", "persize", "mxu"])
 def test_gkr_prove_on_cuda_equals_cpu(cuda, mode, monkeypatch):
     """A dim-9 GKR prove with colliding f1 entries: 2 round-0 launches,
-    2 (dim - 1) folds and 2 dim transcript steps per prove, and proof bytes
-    and the final transcript state equal to the CPU's."""
+    2 (dim - 1) folds and 2 dim transcript steps per prove, the phase-init
+    kernels' launches of the path (`GKR_INIT_LAUNCHES`: 8 on the generic
+    chain in either fold mode, 9 on the per-size chain), and proof bytes and the final
+    transcript state equal to the CPU's."""
     import random
 
-    counters = _gkr_mode(mode, monkeypatch) + (TC.transcript_step,)
+    counters = _gkr_mode(mode, monkeypatch) + (TC.transcript_step,) + _init_counters()
     dim = 9
     rnd = random.Random(dim)
     f1 = T.SparseMLE.rand_with_config(3 * dim, 3 << dim, rnd)
@@ -646,13 +663,232 @@ def test_gkr_prove_on_cuda_equals_cpu(cuda, mode, monkeypatch):
     before = [f.launches for f in counters]
     rng = T.Blake2b512Rng.setup()
     proof = T.GKRRoundSumcheck.prove(rng, f1, f2, f3, g, device=cuda)
-    assert [f.launches - b for f, b in zip(counters, before)] == [2, 2 * (dim - 1), 2 * dim]
+    assert [f.launches - b for f, b in zip(counters, before)] == \
+        [2, 2 * (dim - 1), 2 * dim, *GKR_INIT_LAUNCHES[mode]]
     rng_cpu = T.Blake2b512Rng.setup()
     want = T.GKRRoundSumcheck.prove(rng_cpu, f1, f2, f3, g, device="cpu")
     assert proof.serialize_uncompressed() == want.serialize_uncompressed()
     assert rng.state_tuple() == rng_cpu.state_tuple()
     sub = T.GKRRoundSumcheck.verify(T.Blake2b512Rng.setup(), dim, proof, proof.extract_sum())
     assert sub.verify_subclaim(f1, f2, f3, g)
+
+
+# ---------------------------------------------------------------------------
+# the GKR phase-init kernels (`ops/gkr_init_cuda.py`, `csrc/gkr_init.cu`)
+# ---------------------------------------------------------------------------
+
+
+def _gkr_split(dim, nnz, seed, device, skew=0):
+    """An f1 over 3 dim variables with `nnz` random entries (and, with
+    `skew`, that many more in x segment 5), split for `device`; f2, f3, g's
+    and u's rows."""
+    import random
+
+    from sumcheck_tpu_torch.ops import gkr_init as GI
+
+    gen = np.random.default_rng(seed)
+    mask = (1 << dim) - 1
+    idx = gen.integers(0, 1 << (3 * dim), nnz)
+    if skew:
+        gy = gen.choice(1 << (2 * dim), skew, replace=False)
+        idx = np.concatenate([idx, (gy & mask) | (5 << dim) | ((gy >> dim) << (2 * dim))])
+    idx = np.unique(idx)
+    rnd = random.Random(seed)
+    f1 = T.SparseMLE(3 * dim, idx, L.from_ints([rnd.randrange(P) for _ in idx]))
+    f2, f3 = T.DenseMLE.rand(dim, rnd), T.DenseMLE.rand(dim, rnd)
+    g, u = ([T.Fr(rnd.randrange(P)) for _ in range(dim)] for _ in range(2))
+    split = GI._split_f1_device(f1, dim, device)
+    return split, f2.to_device(device), f3.to_device(device), \
+        GI.upload(GI._point_rows(g), device), GI.upload(GI._point_rows(u), device)
+
+
+def _to_cpu(x):
+    if isinstance(x, torch.Tensor):
+        return x.cpu()
+    return tuple(_to_cpu(t) for t in x) if isinstance(x, (tuple, list)) else x
+
+
+@pytest.mark.parametrize("dim,skew", [(9, 0), (14, 0), (9, (1 << 16) + 1)],
+                         ids=["dim9", "dim14", "skewed"])
+def test_gkr_init_kernels_match_plain(cuda, dim, skew):
+    """Each GKR phase-init kernel against its plain version on the same
+    inputs, with colliding entries (3 a segment on average) or one segment
+    of 2^16 + 1 entries (summed by a whole block): the eq half tables
+    from challenge rows with a row stride, the weight fold with and
+    without the f3 gather, the segment reduce into a table and into slot 0
+    of a pair, through phase 2's permutation, and as a rank's raw sums
+    finished after a `reduce_fn`; the pair slots (copies, a scale by a
+    digit row, by the final fold of a strided one-lane pair, from a dealt
+    view, into one instance's slice of a batched pair) and the final fold
+    alone; each wrapper counted once a launch (twice with `reduce_fn`)."""
+    from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
+    from sumcheck_tpu_torch.parallel.mesh import deal
+
+    split, f2, f3, g_r, u_r = _gkr_split(dim, 3 << dim, dim, cuda, skew)
+    gbits, x, y_rev, vals, last_x, perm_y, last_y = split
+    cpu = _to_cpu((split, f2, f3, g_r, u_r))
+    (cgb, cx, cy, cvals, clx, cpy, cly), cf2, cf3, cg, cu = cpu
+    counts = [f.launches for f in _init_counters()]
+    wide = torch.stack([torch.zeros_like(g_r), g_r], dim=1)[:, 1]  # row stride 32 words
+    eq = GK.eq_halves(wide, dim)
+    assert torch.equal(eq.cpu(), GK.eq_halves_ref(cg, dim))
+    w, wv = GK.weight_fold(gbits, vals, eq, dim, y_rev, f3)
+    cw, cwv = GK.weight_fold_ref(cgb, cvals, eq.cpu(), dim, cy, cf3)
+    w2, none = GK.weight_fold(x, w, GK.eq_halves(u_r, dim), dim)
+    cw2, _ = GK.weight_fold_ref(cx, cw, GK.eq_halves_ref(cu, dim), dim)
+    assert none is None
+    assert torch.equal(w.cpu(), cw) and torch.equal(wv.cpu(), cwv) and torch.equal(w2.cpu(), cw2)
+    n, half = 1 << dim, 1 << (dim - 1)
+    for v, perm, last, cv, cperm, clast in ((wv, None, last_x, cwv, None, clx),
+                                            (w2, perm_y, last_y, cw2, cpy, cly)):
+        table = torch.empty((8, n), dtype=torch.int32, device=cuda)
+        GK.segment_reduce(v, perm, last, table)
+        want = torch.empty((8, n), dtype=torch.int32)
+        GK.segment_reduce_ref(cv, cperm, clast, want)
+        assert torch.equal(table.cpu(), want)
+        lo = torch.zeros((3, 2, 8, half), dtype=torch.int32, device=cuda)
+        hi = torch.zeros_like(lo)
+        GK.segment_reduce(v, perm, last, (lo[1], hi[1]))
+        assert torch.equal(torch.cat([lo[1, 0], hi[1, 0]], dim=1).cpu(), want)
+        assert not lo[[0, 2]].any() and not lo[1, 1].any() and not hi[[0, 2]].any()
+        seen = []
+        twice = torch.empty_like(table)
+        GK.segment_reduce(v, perm, last, twice, lambda sums: seen.append(sums.clone()))
+        assert torch.equal(twice, table) and seen[0].dtype == torch.int64
+        assert torch.equal(seen[0].cpu(), GK.limb_sums_ref(cv, cperm, clast))
+    # the pair slots
+    r_last = u_r[dim - 1]
+    lo1 = torch.empty((2, 8, half), dtype=torch.int32, device=cuda)
+    hi1 = torch.empty_like(lo1)
+    GK.pair_slots(lo1, hi1, ((0, table, None), (1, f2, r_last)))
+    clo1, chi1 = torch.empty((2, 8, half), dtype=torch.int32), torch.empty((2, 8, half),
+                                                                          dtype=torch.int32)
+    GK.pair_slots_ref(clo1, chi1, ((0, want, None), (1, cf2, cu[dim - 1])))
+    assert torch.equal(lo1.cpu(), clo1) and torch.equal(hi1.cpu(), chi1)
+    fold = (lo1[:, :, :1], hi1[:, :, :1], r_last, 1)
+    cfold = (clo1[:, :, :1], chi1[:, :, :1], cu[dim - 1], 1)
+    blo = torch.zeros((3, 2, 8, half), dtype=torch.int32, device=cuda)
+    bhi = torch.zeros_like(blo)
+    GK.pair_slots(blo[2], bhi[2], ((1, f3, "fold"),), fold=fold)
+    clo2, chi2 = torch.zeros((2, 8, half), dtype=torch.int32), torch.zeros((2, 8, half),
+                                                                          dtype=torch.int32)
+    GK.pair_slots_ref(clo2, chi2, ((1, cf3, "fold"),), fold=cfold)
+    assert torch.equal(blo[2].cpu(), clo2) and torch.equal(bhi[2].cpu(), chi2)
+    assert not blo[:2].any() and not bhi[:2].any()
+    f2u = torch.empty(16, dtype=torch.int32, device=cuda)
+    GK.pair_slots(None, None, (), fold=fold, fold_out=f2u)
+    cf2u = torch.empty(16, dtype=torch.int32)
+    GK.pair_slots_ref(None, None, (), fold=cfold, fold_out=cf2u)
+    assert torch.equal(f2u.cpu(), cf2u)
+    dlo = torch.empty((2, 8, half // 2), dtype=torch.int32, device=cuda)
+    dhi = torch.empty_like(dlo)
+    GK.pair_slots(dlo, dhi, ((0, deal(table, 1, 2), None), (1, deal(f3, 1, 2), f2u)))
+    cdlo, cdhi = torch.empty((2, 8, half // 2), dtype=torch.int32), \
+        torch.empty((2, 8, half // 2), dtype=torch.int32)
+    GK.pair_slots_ref(cdlo, cdhi, ((0, deal(want, 1, 2), None), (1, deal(cf3, 1, 2), cf2u)))
+    assert torch.equal(dlo.cpu(), cdlo) and torch.equal(dhi.cpu(), cdhi)
+    torch.cuda.synchronize()
+    assert [f.launches - c for f, c in zip(_init_counters(), counts)] == [2, 2, 8, 4]
+
+
+@pytest.mark.parametrize("gather", [True, False], ids=["gather", "no_gather"])
+@pytest.mark.parametrize("k", [22, 24])
+def test_gkr_weight_fold_global_tables_match_plain(cuda, k, gather):
+    """The weight fold past what shared memory stages (2^11 + 2^11 half-table
+    lanes and more, dim 22-24): the variants that read the half tables from
+    global memory, on 4,096 entries at random indices below 2^k, with and
+    without the f3 gather, against the plain version."""
+    import random
+
+    from sumcheck_tpu_torch.ops import gkr_init as GI
+    from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
+
+    kl, kh = GK.halves(k)
+    assert (1 << kl) + (1 << kh) > GK.MAX_SHARED_EQ
+    gen = np.random.default_rng(k)
+    m, n3 = 1 << 12, 1 << 10
+    rnd = random.Random(k)
+    vals = torch.from_numpy(L.pack_limbs(L.from_ints([rnd.randrange(P) for _ in range(m)])))
+    idx = torch.from_numpy(gen.integers(0, 1 << k, m).astype(np.int32))
+    r = GI._point_rows([T.Fr(rnd.randrange(P)) for _ in range(k)])
+    r = torch.from_numpy(r)
+    y = f3 = None
+    if gather:
+        f3 = torch.from_numpy(L.pack_limbs(L.from_ints([rnd.randrange(P) for _ in range(n3)])))
+        y = torch.from_numpy(gen.integers(0, n3, m).astype(np.int32))
+    eq = GK.eq_halves(r.to(cuda), k)
+    assert torch.equal(eq.cpu(), GK.eq_halves_ref(r, k))
+    before = GK.weight_fold.launches
+    w, wv = GK.weight_fold(idx.to(cuda), vals.to(cuda), eq, k, *_to_cuda((y, f3), cuda))
+    assert GK.weight_fold.launches == before + 1
+    cw, cwv = GK.weight_fold_ref(idx, vals, eq.cpu(), k, y, f3)
+    assert torch.equal(w.cpu(), cw)
+    assert (wv is None) == (not gather) and (wv is None or torch.equal(wv.cpu(), cwv))
+
+
+def _to_cuda(ts, cuda):
+    return tuple(None if t is None else t.to(cuda) for t in ts)
+
+
+@pytest.mark.parametrize("dim,skew", [(9, 0), (14, 0), (9, (1 << 16) + 1)],
+                         ids=["dim9", "dim14", "skewed"])
+def test_gkr_phase_inits_on_cuda_equal_plain(cuda, dim, skew):
+    """Both phases on the kernels (`phase1_pair`, `phase2_pair`; the
+    per-size `phase1`, `prep1`, `final_fold`, `phase2_digits`, `prep2`)
+    equal the torch-op plain versions on the card and the kernels' plain
+    versions on the CPU, with `out=` into a batched slice."""
+    from sumcheck_tpu_torch.ops import gkr_init as GI
+
+    split, f2, f3, g_r, u_r = _gkr_split(dim, 3 << dim, dim + 1, cuda, skew)
+    gbits, x, y_rev, vals, last_x, perm_y, last_y = split
+    (cgb, cx, cy, cvals, clx, cpy, cly), cf2, cf3, cg, cu = _to_cpu((split, f2, f3, g_r, u_r))
+    half = 1 << (dim - 1)
+    blo = torch.zeros((2, 2, 8, half), dtype=torch.int32, device=cuda)
+    bhi = torch.zeros_like(blo)
+    lo, hi, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, f3, f2, dim,
+                               out=(blo[1], bhi[1]))
+    rlo, rhi, rw = GI.phase1_pair_ref(gbits, last_x, y_rev, vals, g_r, f3, f2, dim)
+    clo, chi, cw = GI.phase1_pair(cgb, clx, cy, cvals, cg, cf3, cf2, dim)
+    for a, b, c in ((lo, rlo, clo), (hi, rhi, chi), (w, rw, cw)):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+    assert not blo[0].any() and not bhi[0].any()
+    args = (x, perm_y, last_y, w, u_r, f3, dim)
+    lo2, hi2 = GI.phase2_pair(lo[:, :, :1], hi[:, :, :1], u_r[dim - 1], *args)
+    rlo2, rhi2 = GI.phase2_pair_ref(lo[:, :, :1], hi[:, :, :1], u_r[dim - 1], *args)
+    clo2, chi2 = GI.phase2_pair(clo[:, :, :1], chi[:, :, :1], cu[dim - 1], cx, cpy, cly, cw, cu,
+                                cf3, dim)
+    assert torch.equal(lo2, rlo2) and torch.equal(hi2, rhi2)
+    assert torch.equal(lo2.cpu(), clo2) and torch.equal(hi2.cpu(), chi2)
+    hg, w1 = GI.phase1(gbits, last_x, y_rev, vals, g_r, f3, dim)
+    assert all(torch.equal(a, b) for a, b in zip(
+        (hg, w1), GI.phase1_ref(gbits, last_x, y_rev, vals, g_r, f3, dim)))
+    assert all(torch.equal(a, b) for a, b in zip(GI.prep1(hg, f2), GI.prep1_ref(hg, f2)))
+    f2u = GI.final_fold(lo[:, :, :1], hi[:, :, :1], u_r[dim - 1], 1)
+    assert torch.equal(f2u, GI.final_fold_ref(lo[:, :, :1], hi[:, :, :1], u_r[dim - 1], 1))
+    f1gu = GI.phase2_digits(x, perm_y, last_y, w, u_r, dim)
+    assert torch.equal(f1gu, GI.phase2_digits_ref(x, perm_y, last_y, w, u_r, dim))
+    assert all(torch.equal(a, b) for a, b in zip(GI.prep2(f1gu, f3, f2u),
+                                                  GI.prep2_ref(f1gu, f3, f2u)))
+
+
+def test_segment_reduce_long_segment_on_cuda(cuda):
+    """One segment of 2^20 + 3 entries between short and empty ones, read
+    through a permutation, on the block path: equal to the plain version."""
+    from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
+
+    gen = np.random.default_rng(20)
+    lengths = np.array([0, 2, (1 << 20) + 3, 0, 70, 1] + [1] * 250)
+    nnz = int(lengths.sum())
+    last = torch.from_numpy((np.cumsum(lengths) - 1).astype(np.int32))
+    vals = torch.from_numpy(gen.integers(-(1 << 31), 1 << 31, (8, nnz), dtype=np.int64)
+                            .astype(np.int32))
+    vals[7] &= (1 << 28) - 1  # below p
+    perm = torch.from_numpy(gen.permutation(nnz).astype(np.int32))
+    out = torch.empty((8, len(lengths)), dtype=torch.int32, device=cuda)
+    GK.segment_reduce(vals.to(cuda), perm.to(cuda), last.to(cuda), out)
+    want = torch.empty((8, len(lengths)), dtype=torch.int32)
+    GK.segment_reduce_ref(vals, perm, last, want)
+    assert torch.equal(out.cpu(), want)
 
 
 # ---------------------------------------------------------------------------
@@ -1005,9 +1241,12 @@ def test_batched_gkr_on_cuda_equals_per_instance(cuda):
     alone = [T.GKRRoundSumcheck.prove(r, *i, device=cuda).serialize_uncompressed()
              for r, i in zip(alone_rngs, insts)]
     before = TC.transcript_step_batched.launches
+    inits = [f.launches for f in _init_counters()]
     rngs = [T.Blake2b512Rng.setup() for _ in insts]
     proofs = BatchedGKRRoundSumcheck.prove(rngs, *(list(t) for t in zip(*insts)), device=cuda)
     assert TC.transcript_step_batched.launches - before == 2 * dim
+    # each instance's phase inits into its slice of the batched pair
+    assert [f.launches - b for f, b in zip(_init_counters(), inits)] == [2 * batch] * 4
     assert [p.serialize_uncompressed() for p in proofs] == alone
     assert [T.Fr.rand(r) for r in rngs] == [T.Fr.rand(r) for r in alone_rngs]
 

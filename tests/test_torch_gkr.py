@@ -49,8 +49,9 @@ MODES = ["generic", "persize", "mxu"]
 @pytest.fixture
 def mode(request, monkeypatch):
     """Chain and fold mode; "mxu" is the generic chain in the MXU fold
-    mode with the banded-product threshold at 1 lane, so the eq tables and
-    the phase-2 scaling take the banded product even at test sizes."""
+    mode with the banded-product threshold at 1 lane, so the eq tables of
+    the init kernels' plain versions take the banded product even at test
+    sizes."""
     cfg = get_config()
     monkeypatch.setattr(cfg, "chain_impl", "persize" if request.param == "persize" else "generic")
     if request.param == "mxu":
@@ -264,14 +265,19 @@ def test_sparse_mle_matches_jax():
 
 
 def test_split_f1_device_matches_jax():
+    """The split in the kernels' layout: int32 index components and the
+    values as an (8, nnz) int32 limb table, unpacked equal to the JAX
+    package's (16, nnz) digits."""
     dim = 5
     (f1, *_), (t1, *_) = instances(dim, seed=7, nnz=3 << dim)
     got = GI._split_f1_device(t1, dim, CPU)
     want = JGI._split_f1_device(f1, dim)
     j_order = (0, 1, 2, 3, 5, 6, 7)  # the JAX tuple keeps perm_x at 4
-    for a, k in zip(got, j_order):
-        np.testing.assert_array_equal(a.numpy(), np.asarray(want[k]).astype(np.int64))
-    assert GI._seg_narrow(t1) == JGI._seg_narrow(f1)
+    assert all(a.dtype == torch.int32 and a.is_contiguous() for a in got)
+    assert got[3].shape == (8, 3 << dim)
+    for i, (a, k) in enumerate(zip(got, j_order)):
+        a = L.unpack_limbs(a.numpy()) if i == 3 else a.numpy()
+        np.testing.assert_array_equal(a.astype(np.int64), np.asarray(want[k]).astype(np.int64))
     assert GI._split_f1_device(t1, dim, CPU) is got  # cached per (dim, device)
 
 
@@ -279,18 +285,16 @@ def _to_port(x):
     return torch.from_numpy(np.asarray(x).astype(np.int64))
 
 
-@pytest.mark.parametrize("split8", [True, False], ids=["split8", "split16"])
 @pytest.mark.parametrize("dim", [6, 8])
-def test_phase_inits_match_jax_host(dim, split8):
+def test_phase_inits_match_jax_host(dim):
     """h_g (bit-reversed lane order) and f1(g, u, .) from the port's device
-    inits equal the JAX package's host inits, at both segment-reduce
-    widths, with colliding entries; the pairs stack them as the round
-    kernels take them."""
+    inits equal the JAX package's host inits, with colliding entries; the
+    pairs stack them as the round kernels take them."""
     (f1, f2, f3, g), (t1, t2, t3, tg) = instances(dim, seed=dim, nnz=3 << dim)
     gbits, x, y_rev, vals, last_x, perm_y, last_y = GI._split_f1_device(t1, dim, CPU)
-    g_r, g_omr = (GI.upload(a, CPU) for a in GI._points_arrays(tg))
+    g_r = GI.upload(GI._point_rows(tg), CPU)
     f2_d, f3_d = t2.to_device(CPU), t3.to_device(CPU)
-    lo, hi, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, g_omr, f3_d, f2_d, dim, split8)
+    lo, hi, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, f3_d, f2_d, dim)
     h_host, f1g_host = j_phase_one(f1, f3, g)
     rev = bitrev_perm(dim)
     assert lo.shape == (2, 8, 1 << (dim - 1)) and lo.dtype == torch.int32
@@ -301,11 +305,11 @@ def test_phase_inits_match_jax_host(dim, split8):
     rnd = random.Random(dim)
     u = [rnd.randrange(P) for _ in range(dim)]
     u_dig = torch.from_numpy(np.stack([L.mont_scalar(v)[:, 0] for v in u]).astype(np.int32))
-    f1gu = GI.phase2_digits(x, perm_y, last_y, w, u_dig, dim, split8)
+    f1gu = GI.phase2_digits(x, perm_y, last_y, w, u_dig, dim)
     want = j_phase_two(f1g_host, [J.Fr(v) for v in u]).evals
-    np.testing.assert_array_equal(f1gu.numpy()[:, rev].astype(np.uint32), want)
+    np.testing.assert_array_equal(L.unpack_limbs(f1gu.numpy())[:, rev], want)
 
-    f2u = torch.from_numpy(L.mont_scalar(rnd.randrange(P))[:, 0].astype(np.int64))
+    f2u = torch.from_numpy(L.mont_scalar(rnd.randrange(P))[:, 0].astype(np.int32))
     lo2, hi2 = GI.prep2(f1gu, f3_d, f2u)
     scaled = L.mont_mul(L.unpack_limbs(f3_d.numpy()), f2u.numpy().astype(np.uint32)[:, None])
     np.testing.assert_array_equal(L.unpack_limbs(torch.cat([lo2[1], hi2[1]], dim=1).numpy()),
@@ -329,8 +333,9 @@ def test_final_fold_is_the_table_at_the_point():
 def test_segment_reduce_sorted_matches_jax(split8):
     """Sorted segment sums with an empty prefix (last position -1), empty
     segments between full ones (the previous segment's last position, as
-    `_split_f1_device` makes them) and one segment of many entries, at both
-    widths: equal to JAX's and to the host scatter sum."""
+    `_split_f1_device` makes them) and one segment of many entries: equal
+    to JAX's at both of its segment-sum widths and to the host scatter
+    sum."""
     gen = np.random.default_rng(4)
     nnz, nseg = 300, 64
     seg = np.sort(np.concatenate([gen.integers(0, nseg, 200), np.full(100, 17)]))
@@ -343,7 +348,7 @@ def test_segment_reduce_sorted_matches_jax(split8):
     shuffled[:, perm] = vals  # shuffled[:, perm[i]] = vals[:, i]
     last = np.searchsorted(seg, np.arange(nseg), side="right") - 1
     assert last[0] == last[1] == -1 and last[5] == last[4]
-    got = GI._segment_reduce_sorted(_to_port(shuffled), _to_port(perm), _to_port(last), split8)
+    got = GI._segment_reduce_sorted(_to_port(shuffled), _to_port(perm), _to_port(last))
     want = JGI._segment_reduce_sorted(jnp.asarray(shuffled), jnp.asarray(perm.astype(np.int32)),
                                       jnp.asarray(last.astype(np.int32)), split8)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.int64))
@@ -427,7 +432,8 @@ def test_convert_checks_shapes():
 def test_pair_bodies_match_jax(split8):
     """The phase-1 pair and `w`, and the phase-2 pair, array-equal to the
     JAX package's fused bodies `_phase1_pair_body` / `_phase2_pair_body`
-    (jitted on the CPU) at dim 6, from the same challenges."""
+    (jitted on the CPU, at both of its segment-sum widths) at dim 6, from
+    the same challenges."""
     import jax
 
     dim = 6
@@ -438,11 +444,11 @@ def test_pair_bodies_match_jax(split8):
         jsp[0], jsp[4], jsp[5], jsp[2], jsp[3], jnp.asarray(gr), jnp.asarray(gomr),
         f3.device_bitrev(), f2.device_bitrev())
     gbits, x, y_rev, vals, last_x, perm_y, last_y = GI._split_f1_device(t1, dim, CPU)
-    g_r, g_omr = (GI.upload(a, CPU) for a in GI._points_arrays(tg))
-    lo, hi, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, g_omr,
-                               t3.to_device(CPU), t2.to_device(CPU), dim, split8)
+    g_r = GI.upload(GI._point_rows(tg), CPU)
+    lo, hi, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r,
+                               t3.to_device(CPU), t2.to_device(CPU), dim)
     for a, b in ((L.unpack_limbs(lo.numpy(), axis=1), jlo), (L.unpack_limbs(hi.numpy(), axis=1),
-                                                            jhi), (w.numpy(), jw)):
+                                                            jhi), (L.unpack_limbs(w.numpy()), jw)):
         np.testing.assert_array_equal(a.astype(np.int64), np.asarray(b).astype(np.int64))
 
     rnd = random.Random(14)
@@ -453,7 +459,7 @@ def test_pair_bodies_match_jax(split8):
         jnp.asarray(u), f3.device_bitrev())
     lo2, hi2 = GI.phase2_pair(lo[:, :, :1], hi[:, :, :1], torch.from_numpy(u[-1].astype(np.int32)),
                               x, perm_y, last_y, w, torch.from_numpy(u.astype(np.int32)),
-                              t3.to_device(CPU), dim, split8)
+                              t3.to_device(CPU), dim)
     for a, b in ((lo2, jlo2), (hi2, jhi2)):
         np.testing.assert_array_equal(L.unpack_limbs(a.numpy(), axis=1).astype(np.int64),
                                       np.asarray(b).astype(np.int64))

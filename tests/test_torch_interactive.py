@@ -279,7 +279,8 @@ def test_phase_init_wrappers_match_jax():
                                   np.asarray(JGI.phase2_init_device(jcarry, u, dim)))
     tf1 = T.SparseMLE(3 * dim, f1.indices, f1.values)
     hg, _carry = GI.phase1_init_device_arrays(tf1, T.DenseMLE(dim, f3.evals), tg, dim, "cpu")
-    np.testing.assert_array_equal(hg.numpy()[:, bitrev_perm(dim)].astype(np.uint32), h)
+    assert hg.dtype == torch.int32 and hg.shape == (8, 1 << dim)  # limbs, bit-reversed
+    np.testing.assert_array_equal(unpack_limbs(hg.numpy())[:, bitrev_perm(dim)], h)
 
 
 def test_phase_init_wrappers_default_to_the_card():

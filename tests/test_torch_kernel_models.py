@@ -33,6 +33,7 @@ import torch
 from sumcheck_tpu_torch.fields import limbs_np as L
 from sumcheck_tpu_torch.fields import limbs_torch as LT
 from sumcheck_tpu_torch.fields.fr import NINV32, NINV_FULL, P
+from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
 from sumcheck_tpu_torch.ops import mxu_mul as TM
 from sumcheck_tpu_torch.ops import round_cuda as RC
 
@@ -554,6 +555,190 @@ def test_register_eval_multiplies_fewer(factors):
             v = v * ((e[s] + t * (o[s] - e[s])) % P) * R_INV % P
         want.append(v)
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# gkr_init.cu: the eq half tables, the weight fold and the segment reduce
+# ---------------------------------------------------------------------------
+
+GKR_THREADS, GKR_LONG = GK.THREADS, GK.LONG_SEGMENT
+ONE_M = (1 << 256) % P  # the Montgomery one
+R2_M = pow(1 << 256, 2, P)
+
+
+def _cond_sub_p(x: list[int]) -> list[int]:
+    """field.cuh's cond_sub_p: x - p on one borrow chain, kept unless it
+    borrowed out (any x < 2^256)."""
+    d, borrow = [], 0
+    for j in range(8):
+        t = x[j] - P_LIMBS[j] - borrow
+        borrow = 1 if t < 0 else 0
+        d.append(t & M32)
+    return x if borrow else d
+
+
+def _add_mod(a: list[int], b: list[int]) -> list[int]:
+    v = _int(a) + _int(b)
+    assert v < 1 << 256  # a, b < p < 2^255: no carry out
+    return _cond_sub_p(_limbs(v))
+
+
+def _sub_mod(a: list[int], b: list[int]) -> list[int]:
+    v = _int(a) - _int(b)
+    return _limbs(v + P if v < 0 else v)
+
+
+def eq_half_lane(points: list[int], t: int) -> list[int]:
+    """eq_halves_kernel's lane over its variables: the first factor copied,
+    each next one multiplied in (1 - r by sub_mod from the one)."""
+    acc = _limbs(ONE_M)
+    for i, r in enumerate(points):
+        ri = _limbs(r * (1 << 256) % P)
+        x = ri if (t >> i) & 1 else _sub_mod(_limbs(ONE_M), ri)
+        acc = x if i == 0 else mont_mul_eo(acc, x)
+    return acc
+
+
+def segment_finish(acc: list[int], subs: int) -> list[int]:
+    """segment_reduce_kernel's `finish`, word by word: the carry pass of
+    the 8 64-bit limb sums, `subs` conditional subtractions of the low 256
+    bits, the word above them times 2^256 as mont_mul(high, R^2), and one
+    add_mod."""
+    lo, carry = [], 0
+    for j in range(8):
+        t = acc[j] + carry
+        assert t < 1 << 64  # a 64-bit add
+        lo.append(t & M32)
+        carry = t >> 32
+    assert carry < 1 << 32  # one 32-bit word above 2^256
+    for _ in range(subs):
+        lo = _cond_sub_p(lo)
+    assert _int(lo) < P
+    hi = mont_mul_eo(_limbs(carry), _limbs(R2_M))
+    return _add_mod(lo, hi)
+
+
+def segment_schedule(entries: list[list[int]], begin: int, end: int) -> list[int]:
+    """The 8 64-bit limb accumulators of one segment as the kernel sums
+    it: one thread in series up to kLongSegment entries, else the block's
+    threads striding (thread t from begin + t), each warp's partials
+    folded by shuffle-down offsets 16..1, and thread 0 adding the warps'."""
+    if end - begin <= GKR_LONG:
+        acc = [0] * 8
+        for q in range(begin, end):
+            acc = [a + x for a, x in zip(acc, entries[q])]
+        return acc
+    part = [[0] * 8 for _ in range(GKR_THREADS)]
+    for t in range(GKR_THREADS):
+        for q in range(begin + t, end, GKR_THREADS):
+            part[t] = [a + x for a, x in zip(part[t], entries[q])]
+    warps = []
+    for w0 in range(0, GKR_THREADS, 32):
+        lanes = [list(part[w0 + ln]) for ln in range(32)]
+        off = 16
+        while off:  # __shfl_down_sync: lane l adds lane l + off (a lane past 31 reads itself)
+            lanes = [[a + (b if ln + off < 32 else 0) for a, b in
+                      zip(lanes[ln], lanes[ln + off] if ln + off < 32 else lanes[ln])]
+                     for ln in range(32)]
+            off >>= 1
+        warps.append(lanes[0])
+    total = [0] * 8
+    for wp in warps:
+        total = [a + b for a, b in zip(total, wp)]
+    return total
+
+
+def test_segment_finish_model_worst_case():
+    """2^24 entries of p - 1 in one segment (the asserted maximum; the
+    64-bit accumulators below 2^56), and edge sums, reduce to their value
+    mod p under the field's subtraction count."""
+    from sumcheck_tpu_torch.fields.fr import REDUCE_SUBS
+
+    worst = [(1 << 24) * x for x in _limbs(P - 1)]
+    assert max(worst) < 1 << 56
+    cases = [worst, [0] * 8, [M32] * 8, [(1 << 24) * M32] * 8,
+             _limbs(P), _limbs(2 * P - 1) if 2 * P - 1 < 1 << 256 else _limbs(P + 1)]
+    rnd = random.Random(24)
+    cases += [[rnd.randrange(1 << 56) for _ in range(8)] for _ in range(40)]
+    for acc in cases:
+        value = sum(a << (32 * j) for j, a in enumerate(acc))
+        assert _int(segment_finish(acc, REDUCE_SUBS)) == value % P
+
+
+@pytest.mark.parametrize("lengths", [[0, 1, 3, 0, 64], [65, 0, 2], [300, 1, 1000, 0]],
+                         ids=["short", "one_long", "two_long"])
+def test_segment_schedule_model_matches_limb_sums(lengths):
+    """The thread and block schedules cover each sorted entry once and
+    give the plain version's limb sums (`gkr_init_cuda.limb_sums_ref`),
+    through a permutation, and the finish gives its strict values."""
+    from sumcheck_tpu_torch.fields.fr import REDUCE_SUBS
+
+    rnd = random.Random(sum(lengths))
+    nnz = sum(lengths)
+    vals = [rnd.randrange(P) for _ in range(nnz)]
+    perm = list(range(nnz))
+    rnd.shuffle(perm)
+    last, pos = [], -1
+    for n in lengths:
+        pos += n
+        last.append(pos)
+    limbs = torch.from_numpy(np.ascontiguousarray(
+        np.array([_limbs(v) for v in vals], dtype=np.uint32).reshape(nnz, 8).T).view(np.int32))
+    sums = GK.limb_sums_ref(limbs, torch.tensor(perm, dtype=torch.int32),
+                            torch.tensor(last, dtype=torch.int32))
+    entries = [_limbs(vals[perm[q]]) for q in range(nnz)]
+    strict = GK.finish_ref(sums)
+    for s, n in enumerate(lengths):
+        begin = 0 if s == 0 else last[s - 1] + 1
+        acc = segment_schedule(entries, begin, last[s] + 1)
+        assert acc == [int(x) for x in sums[:, s]]
+        assert _int(segment_finish(acc, REDUCE_SUBS)) == \
+            _int([int(x) & M32 for x in strict[:, s]])
+
+
+def test_eq_half_tables_model_matches_eq_table():
+    """eq_halves_kernel's lanes, then weight_fold_kernel's product
+    eq_lo[idx & m] * eq_hi[idx >> kl] by the even/odd multiply, equal the
+    plain eq table by doublings (`ops/gkr_init._eq_table`) at every index,
+    for k = 1 to 6; and a weight's two multiplies and the f3 gather's third
+    equal `gkr_init_cuda.weight_fold_ref`."""
+    from sumcheck_tpu_torch.fields.fr import Fr
+    from sumcheck_tpu_torch.ops import gkr_init as GI
+
+    for k in range(1, 7):
+        rnd = random.Random(k)
+        pts = [rnd.randrange(P) for _ in range(k)]
+        kl, kh = GK.halves(k)
+        lo = [eq_half_lane(pts[:kl], t) for t in range(1 << kl)]
+        hi = [eq_half_lane(pts[kl:], t) for t in range(1 << kh)]
+        r_np, omr_np = GI._points_arrays([Fr(v) for v in pts])
+        full = GI._eq_table(torch.from_numpy(r_np.astype(np.int64)),
+                            torch.from_numpy(omr_np.astype(np.int64)), k).numpy()
+        for j in range(1 << k):
+            got = mont_mul_eo(lo[j & ((1 << kl) - 1)], hi[j >> kl])
+            assert _int(got) == sum(int(full[i, j]) << (16 * i) for i in range(16))
+    k, nnz = 5, 40
+    rnd = random.Random(55)
+    pts = [rnd.randrange(P) for _ in range(k)]
+    kl, kh = GK.halves(k)
+    halves = [eq_half_lane(pts[:kl], t) for t in range(1 << kl)] + \
+        [eq_half_lane(pts[kl:], t) for t in range(1 << kh)]
+    idx = [rnd.randrange(1 << k) for _ in range(nnz)]
+    y = [rnd.randrange(1 << k) for _ in range(nnz)]
+    vals = [_limbs(rnd.randrange(P)) for _ in range(nnz)]
+    f3 = [_limbs(rnd.randrange(P)) for _ in range(1 << k)]
+
+    def table(rows):
+        return torch.from_numpy(np.ascontiguousarray(np.array(rows, dtype=np.uint32).T)
+                                .view(np.int32))
+
+    w, wv = GK.weight_fold_ref(torch.tensor(idx, dtype=torch.int32), table(vals), table(halves),
+                               k, torch.tensor(y, dtype=torch.int32), table(f3))
+    for j in range(nnz):
+        a = mont_mul_eo(vals[j], halves[idx[j] & ((1 << kl) - 1)])
+        a = mont_mul_eo(a, halves[(1 << kl) + (idx[j] >> kl)])
+        assert a == [int(x) & M32 for x in w[:, j]]
+        assert mont_mul_eo(a, f3[y[j]]) == [int(x) & M32 for x in wv[:, j]]
 
 
 # ---------------------------------------------------------------------------

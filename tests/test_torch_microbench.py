@@ -6,7 +6,10 @@ microbench.py`) on the CPU, at nv=8.
   number (the CPU measures only host walls).
 - The probes' ops equal their JAX counterparts on the same inputs:
   `gkr_init._eq_table`, `_segment_reduce_sorted` and `limbs_jnp.mont_mul`
-  (and the even/odd multiply's plain version); the prefix stages' tables
+  (and the even/odd multiply's plain version), and the GKR init kernels'
+  probes (their plain versions here) the JAX package's `_weight_fold`,
+  `_segment_reduce_sorted` and `mont_mul` on the same inputs; the prefix
+  stages' tables
   h_g and f1(g, u, .) equal the JAX package's phase inits at phase 1's
   challenges (the eq table and the stages at dim 4: the JAX package
   compiles its inits per dim). Tolerance 0: the field arithmetic is exact.
@@ -69,6 +72,16 @@ def test_random_tables_are_strict_and_below_p():
     assert all(np.array_equal(a, b) for a, b in zip(tables, again))
 
 
+def test_kernel_probes_and_stage_launches_on_the_cpu(report):
+    """The GKR init kernels' probes ran and passed their checks (against
+    their plain versions); the stages' kernel launches are null on the CPU,
+    where no kernel launches."""
+    for name in ("eq_halves", "weight_fold", "segment_reduce", "pair_slots"):
+        assert report["probes"][name]["ok"] and report["probes"][name]["host_ms"] > 0, name
+    assert all(report["stages"][s]["kernels"] is None for s in MB.STAGES)
+    assert MB.kernel_launches(lambda: None) == {}
+
+
 def test_stage_work_is_cumulative(report):
     """Each prefix does at least the work of the one before it; the full
     prove's is the last prefix's (the fetch moves no table)."""
@@ -126,6 +139,55 @@ def test_mont_nnz_matches_jax(inputs):
     eo = MB.mont_mul_eo(torch.from_numpy(MB._limbs(a)), torch.from_numpy(MB._limbs(b)))
     assert eo.dtype == torch.int32 and eo.shape == (1 << NV, 8)
     np.testing.assert_array_equal(MB._digits(eo.numpy()), want)
+
+
+def test_kernel_probes_match_jax():
+    """At dim JAX_NV, on the probes' inputs: the weight fold's probe (eq
+    half tables, phase 1's f3 gather) equals the JAX package's
+    `_weight_fold` and `mont_mul`, the segment reduce's probe its
+    `_segment_reduce_sorted` (mod p: under BN254 its `reduce_wide` may
+    leave a sum past 3p unreduced), and the pair slots' probe its stacking
+    and multiply by the scalar."""
+    import jax
+    import jax.numpy as jnp
+    from sumcheck_tpu.fields import limbs_jnp as LJ
+    from sumcheck_tpu.ops import gkr_init as JGI
+
+    from sumcheck_tpu_torch.fields import limbs_np as L
+    from sumcheck_tpu_torch.fields.fr import P
+    from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
+
+    x = MB.probe_inputs(JAX_NV)
+    probes = MB.kernel_probes(x, torch.device("cpu"))
+    w, wv = probes["weight_fold"][0]()
+    with jax.disable_jit():
+        jw = JGI._weight_fold(jnp.asarray(x["idx"].astype(np.int32)), jnp.asarray(x["a"]),
+                              jnp.asarray(x["r_pts"]), jnp.asarray(x["omr_pts"]), JAX_NV)
+        jwv = LJ.mont_mul(jw, jnp.asarray(x["b"][:, x["perm"]]))
+        jseg = JGI._segment_reduce_sorted(jnp.asarray(x["a"]),
+                                          jnp.asarray(x["perm"].astype(np.int32)),
+                                          jnp.asarray(x["last"].astype(np.int32)))
+        jscaled = LJ.mont_mul(jnp.asarray(x["b"]), jnp.asarray(x["r_pts"][0]))
+    np.testing.assert_array_equal(L.unpack_limbs(w.numpy()), np.asarray(jw))
+    np.testing.assert_array_equal(L.unpack_limbs(wv.numpy()), np.asarray(jwv))
+    for _fn, check, _work in probes.values():
+        check()  # each against its plain version
+    got = torch.empty((8, 1 << JAX_NV), dtype=torch.int32)
+    GK.segment_reduce(torch.from_numpy(L.pack_limbs(x["a"])),
+                      torch.from_numpy(x["perm"].astype(np.int32)),
+                      torch.from_numpy(x["last"].astype(np.int32)), got)
+    digits = L.unpack_limbs(got.numpy())
+    assert int(digits.max()) < 1 << 16 and L.to_ints(digits, mont=False) == \
+        L.to_ints(np.asarray(jseg), mont=False)
+    assert all(int.from_bytes(digits[:, j].astype("<u2").tobytes(), "little") < P
+               for j in range(digits.shape[1]))
+    lo = torch.empty((2, 8, 1 << (JAX_NV - 1)), dtype=torch.int32)
+    hi = torch.empty_like(lo)
+    GK.pair_slots(lo, hi, ((0, torch.from_numpy(L.pack_limbs(x["a"])), None),
+                           (1, torch.from_numpy(L.pack_limbs(x["b"])),
+                            torch.from_numpy(x["r_pts"][:, :, 0].astype(np.int32))[0])))
+    slot1 = L.unpack_limbs(torch.cat([lo[1], hi[1]], dim=1).numpy())
+    np.testing.assert_array_equal(slot1, np.asarray(jscaled))
 
 
 def test_limb_layout_round_trips(inputs):

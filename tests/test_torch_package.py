@@ -16,6 +16,7 @@ import torch
 import sumcheck_tpu_torch as T
 from sumcheck_tpu_torch.batch import BatchedGKRRoundSumcheck, BatchedMLSumcheck
 from sumcheck_tpu_torch.ops import fold_staged as FS
+from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
 from sumcheck_tpu_torch.ops import init_cuda as IC
 from sumcheck_tpu_torch.ops import round_cuda as RC
 from sumcheck_tpu_torch.ops import transcript_cuda as TC
@@ -23,7 +24,8 @@ from sumcheck_tpu_torch.utils.config import get_config
 
 COUNTERS = (RC.round_nofold, RC.round_fold, RC.round_step_nofold, RC.round_step_fold,
             RC.round_fold_mxu, TC.transcript_step, IC.pair_init, RC.round_nofold_batched,
-            RC.round_fold_batched, RC.round_step_fold_batched, TC.transcript_step_batched)
+            RC.round_fold_batched, RC.round_step_fold_batched, TC.transcript_step_batched,
+            GK.eq_halves, GK.weight_fold, GK.segment_reduce, GK.pair_slots)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -152,6 +154,18 @@ def test_wrappers_refuse_other_devices():
     tab = torch.zeros((8, 16), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         IC.pair_init(lo, hi, [tab], ((0, None), (None, 1)))
+    idx = torch.zeros(16, dtype=torch.int32, device="meta")
+    rows = torch.zeros((4, 16), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        GK.eq_halves(rows, 4)
+    with pytest.raises(ValueError):
+        GK.weight_fold(idx, tab, tab[:, :8], 4)
+    with pytest.raises(ValueError):
+        GK.segment_reduce(tab, None, idx, tab)
+    with pytest.raises(ValueError):
+        GK.pair_slots(lo, hi, ((1, tab, None),))
+    with pytest.raises(ValueError):
+        GK.pair_slots(None, None, (), fold=(lo, hi, r, 1), fold_out=r)
     assert all(f.launches == 0 for f in COUNTERS)
 
 
@@ -205,8 +219,8 @@ def test_build_names_each_source_and_shared_header(tmp_path, monkeypatch):
     missing `nvcc` raises before anything is built."""
     from sumcheck_tpu_torch.ops import cuda_build
 
-    names = ("round", "transcript", "round_mxu", "pair_init")
-    assert len({cuda_build.library_path(n) for n in names}) == 4
+    names = ("round", "transcript", "round_mxu", "pair_init", "gkr_init")
+    assert len({cuda_build.library_path(n) for n in names}) == 5
     assert cuda_build.library_path("round").name.startswith("round_")
     assert cuda_build.CSRC / "round_common.cuh" in cuda_build.HEADERS
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)

@@ -271,8 +271,8 @@ def test_every_pair_is_packed_limbs(source):
         dim = 4
         _j, (t1, t2, t3, tg) = instances(dim, seed=dim, nnz=3 << dim)
         gbits, x, y_rev, vals, last_x, perm_y, last_y = GI._split_f1_device(t1, dim, "cpu")
-        g_r, g_omr = (GI.upload(a, torch.device("cpu")) for a in GI._points_arrays(tg))
-        lo, hi, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, g_omr, t3.to_device("cpu"),
+        g_r = GI.upload(GI._point_rows(tg), torch.device("cpu"))
+        lo, hi, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, t3.to_device("cpu"),
                                    t2.to_device("cpu"), dim)
         pairs, lead, half = (lo, hi), (2,), 1 << (dim - 1)
         if source == "gkr_phase2":
