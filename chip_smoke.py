@@ -66,20 +66,21 @@ failure raises and exits non-zero without the final line:
    bytes equal across the three, the plain path on the card and the
    host-transcript loop (timed beside them);
 9a. the GKR phase-init kernels (`ops/gkr_init_cuda.py`: `eq_halves`,
-   `weight_fold`, `segment_reduce`, `pair_slots`) against their plain
-   versions on the card, array-equal, at the dim-18 shapes of phase 9's
-   instance (phase 1's and phase 2's forms) and on the same instance with
-   one x segment of 2^16 + 1 entries, with device ms (each launch after an
-   L2 flush), bound, share and plain ms; both phase inits on the kernels
-   against the torch-op plain versions of the phases
-   (`gkr_init.phase1_pair_ref`, `phase2_pair_ref`) on the card, with their
-   walls; and the weight fold with its half tables in global memory (k =
-   22 and 24), untimed;
+   `weight_reduce` (the fused weight fold and segment sum), `finish_sums`,
+   `pair_slots`) against their plain versions on the card, array-equal, at
+   the dim-18 shapes of phase 9's instance (phase 1's and phase 2's forms,
+   strict and as a rank's raw sums) and on the same instance with one x
+   segment of 2^16 + 1 entries (cut into chunks across blocks), with
+   device ms (each launch after an L2 flush), bound, share and plain ms;
+   both phase inits on the kernels against the torch-op plain versions of
+   the phases (`gkr_init.phase1_pair_ref`, `phase2_pair_ref`) on the card,
+   with their walls; and the weight reduce with its half tables in global
+   memory (k = 22 and 24), untimed;
 9. the GKR headlines: `GKRRoundSumcheck.prove` at dim 18 on the bench's
    instance (`bench.py:187-194`) on the same three paths: first prove and
    warm median, launch counts per prove (2 + 34 round kernels, 36
-   transcript steps and the phase inits' kernels: 8 on the generic chain,
-   9 on the per-size chain, 8 in the MXU fold mode; the profiler's count
+   transcript steps and the phase inits' kernels: 6 on the generic chain,
+   7 on the per-size chain, 6 in the MXU fold mode; the profiler's count
    of round, transcript and init kernels in one prove and its idle share),
    everything between the uploads and the one fetch under the sync debug
    mode "error", the phase inits and the round kernels timed alone, one verify and the subclaim in Python integers
@@ -1090,7 +1091,7 @@ def device_busy(fn, top: int = 5) -> dict:
 
 # substrings of the port's kernels' names as the profiler shows them
 ROUND_KERNELS = ("round_kernel", "fold_kernel", "fold_mxu_kernel")  # "fold_kernel": nofold_kernel too
-INIT_KERNELS = ("eq_halves_kernel", "weight_fold_kernel", "segment_reduce_kernel",
+INIT_KERNELS = ("eq_halves_kernel", "weight_reduce_kernel", "finish_sums_kernel",
                 "pair_slots_kernel")
 
 
@@ -1306,22 +1307,23 @@ def host_transcript_phase(device, seed: int, reps: int, nv: int = NV) -> dict:
 
 
 # the GKR phase-init kernels (`ops/gkr_init_cuda.py`, `csrc/gkr_init.cu`)
-GKR_INIT_KERNELS = ("eq_halves", "weight_fold", "segment_reduce", "pair_slots")
-GKR_INIT_MAX = 16  # launches of both phase inits a generic dim-18 prove may take
+GKR_INIT_KERNELS = ("eq_halves", "weight_reduce", "finish_sums", "pair_slots")
+GKR_INIT_MAX = 7  # launches of both phase inits a dim-18 prove may take (the per-size chain's)
 SKEW = (1 << 16) + 1  # entries of phase 9a's skewed segment
 
 
 def init_launches(chain: str) -> dict:
     """The phase-init kernels' launches a GKR prove on a chain, in either
-    fold mode: 4 a phase on the generic chain, 3 + 1 and 3 + 1 + 1 (the
-    final fold) on the per-size chain."""
-    return dict(zip(GKR_INIT_KERNELS, (2, 2, 2, 3) if chain != "generic" else (2, 2, 2, 2)))
+    fold mode: 3 a phase on the generic chain, 2 + 1 and 2 + 1 + 1 (the
+    final fold) on the per-size chain; no finish of raw sums (only a
+    sharded rank's inits take it)."""
+    return dict(zip(GKR_INIT_KERNELS, (2, 2, 0, 3) if chain != "generic" else (2, 2, 0, 2)))
 
 
 def skewed_instance(inst, seed: int):
     """Phase 9's f1 with SKEW more entries in x segment 5 (distinct (g, y)
-    parts): one segment past 2^16 entries, which the segment reduce sums
-    with a whole block. (f1, f2, f3, g)."""
+    parts): one segment past 2^16 entries, which the weight reduce cuts
+    into chunks across blocks. (f1, f2, f3, g)."""
     from sumcheck_tpu_torch import SparseMLE
     from sumcheck_tpu_torch.fields.limbs_np import random_tables
 
@@ -1336,16 +1338,33 @@ def skewed_instance(inst, seed: int):
     return SparseMLE(3 * dim, idx, np.ascontiguousarray(vals)), f2, f3, g
 
 
+def reduce_work(nnz: int, nseg: int, lanes: int, phase: int, raw: bool = False) -> dict:
+    """What the fused weight reduce must do: each input read once and each
+    output written once, 32 B an element and 4 B an index (phase 1: the g
+    index, the value, y, to_y, the gathered f3 lane and the carry out an
+    entry; phase 2: x and the carry an entry), `last` and the sum a segment
+    (raw: 8 int64 limbs), the half tables once; and the Montgomery
+    multiplies, 3 (phase 1) or 2 (phase 2) an entry and 1 a segment's
+    finish (none for raw sums)."""
+    per_entry = 4 + 32 + 4 + 4 + 32 + 32 if phase == 1 else 4 + 32
+    return {"bytes": per_entry * nnz + (4 + (64 if raw else 32)) * nseg + 32 * lanes,
+            "imads": ((3 if phase == 1 else 2) * nnz + (0 if raw else nseg)) * IMADS_PER_MONT_MUL,
+            "int8_ops": 0}
+
+
 def gkr_init_phase(device, inst, seed: int) -> dict:
     """Phase 9a: each GKR phase-init kernel against its plain version on
     the card, array-equal, at the dim-18 shapes of phase 9's instance
     (phase 1's and phase 2's forms) and on the skewed instance
-    (`skewed_instance`: one segment of SKEW entries); the whole phase
-    inits on the kernels against the torch-op plain versions of the phases
-    (`gkr_init.phase1_pair_ref`, `phase2_pair_ref`) on both instances.
-    Also the weight fold with its half tables in global memory (k = 22
-    and 24, past what shared memory stages) on a few thousand entries,
-    with and without the f3 gather, untimed. Device ms (CUDA events behind
+    (`skewed_instance`: one segment of SKEW entries, cut into chunks across
+    blocks): the fused weight reduce into slot 0 of a pair (phase 1 with
+    its carry) and as a rank's raw sums, the finish of raw sums, the eq
+    halves and the pair slots; the whole phase inits on the kernels against
+    the torch-op plain versions of the phases (`gkr_init.phase1_pair_ref`,
+    `phase2_pair_ref`) on both instances. Also the weight reduce with its
+    half tables in global memory (k = 22 and 24, past what shared memory
+    stages) on a few thousand entries with a long segment, in both phases'
+    forms and both modes, untimed. Device ms (CUDA events behind
     `torch.cuda._sleep`, each launch alone after an L2 flush, since every
     working set here fits in the H100's 50 MB L2), the bound (each input
     read once and each output written once, 32 B an element and 4 B an
@@ -1373,6 +1392,9 @@ def gkr_init_phase(device, inst, seed: int) -> dict:
         lo = torch.empty((2, 8, half), dtype=torch.int32, device=device)
         return lo, torch.empty_like(lo)
 
+    def sums():
+        return torch.empty((8, n), dtype=torch.int64, device=device)
+
     def case(name, shape, kernel, plain, work, timed=True, main=False):
         got, want = kernel(), plain()
         sync(device)
@@ -1395,47 +1417,50 @@ def gkr_init_phase(device, inst, seed: int) -> dict:
 
     for label, (f1, f2, f3, g) in ((f"dim {dim}", inst),
                                    ("skewed", skewed_instance(inst, seed))):
-        (gbits, x, y_rev, vals, last_x, perm_y, last_y), f2_d, f3_d, g_r = \
-            G._upload(f1, f2, f3, g, dim, device)
-        nnz = vals.shape[1]
-        timed = label != "skewed"
+        split, f2_d, f3_d, g_r = G._upload(f1, f2, f3, g, dim, device)
+        nnz = split.vals.shape[0]
+        main = label != "skewed"
         tag = f"{label}, 2^{dim} lanes, {nnz} entries"
-        eq_g = GK.eq_halves(g_r, dim)
+        print(f"9a {tag}: tile plans of {len(split.plan_x.items)} (x) and "
+              f"{len(split.plan_y.items)} (y) items, {split.plan_x.long} and "
+              f"{split.plan_y.long} long segments")
+        eq_g, eq_u = GK.eq_halves(g_r, dim), GK.eq_halves(u_r, dim)
         case("eq_halves", f"{tag}: g, k={dim}", lambda: (GK.eq_halves(g_r, dim),),
              lambda: (GK.eq_halves_ref(g_r, dim),),
              {"bytes": 32 * lanes + 64 * dim, "imads": 2 * lanes * IMADS_PER_MONT_MUL,
-              "int8_ops": 0}, timed)
-        w, wv = GK.weight_fold(gbits, vals, eq_g, dim, y_rev, f3_d)
-        case("weight_fold", f"{tag}: phase 1, with the f3 gather",
-             lambda: GK.weight_fold(gbits, vals, eq_g, dim, y_rev, f3_d),
-             lambda: GK.weight_fold_ref(gbits, vals, eq_g, dim, y_rev, f3_d),
-             {"bytes": (4 + 32 + 4 + 32 + 32 + 32) * nnz + 32 * lanes,
-              "imads": 3 * nnz * IMADS_PER_MONT_MUL, "int8_ops": 0}, timed)
-        eq_u = GK.eq_halves(u_r, dim)
-        w2, _ = GK.weight_fold(x, w, eq_u, dim)
-        case("weight_fold", f"{tag}: phase 2", lambda: GK.weight_fold(x, w, eq_u, dim)[:1],
-             lambda: GK.weight_fold_ref(x, w, eq_u, dim)[:1],
-             {"bytes": (4 + 32 + 32) * nnz + 32 * lanes, "imads": 2 * nnz * IMADS_PER_MONT_MUL,
-              "int8_ops": 0}, timed)
+              "int8_ops": 0}, main)
+        p1 = (split.gbits, split.vals, eq_g, dim, split.last_x, split.plan_x)
+        kw1 = {"f3": f3_d, "y": split.y_rev, "to_y": split.to_y}
         k_pair, p_pair = pair(), pair()
-        case("segment_reduce", f"{tag}: phase 1, into slot 0 of the pair",
-             lambda: (GK.segment_reduce(wv, None, last_x, k_pair), k_pair[0][0],
-                      k_pair[1][0])[1:],
-             lambda: (GK.segment_reduce_ref(wv, None, last_x, p_pair), p_pair[0][0],
-                      p_pair[1][0])[1:],
-             {"bytes": 32 * nnz + (4 + 32) * n, "imads": 0, "int8_ops": 0}, True)
-        case("segment_reduce", f"{tag}: phase 2, through perm_y",
-             lambda: (GK.segment_reduce(w2, perm_y, last_y, k_pair), k_pair[0][0],
-                      k_pair[1][0])[1:],
-             lambda: (GK.segment_reduce_ref(w2, perm_y, last_y, p_pair), p_pair[0][0],
-                      p_pair[1][0])[1:],
-             {"bytes": (32 + 4) * nnz + (4 + 32) * n, "imads": 0, "int8_ops": 0}, timed)
+        case("weight_reduce", f"{tag}: phase 1, the f3 gather and the carry, into slot 0",
+             lambda: (GK.weight_reduce(*p1, k_pair, **kw1), k_pair[0][0], k_pair[1][0]),
+             lambda: (GK.weight_reduce_ref(*p1, p_pair, **kw1), p_pair[0][0], p_pair[1][0]),
+             reduce_work(nnz, n, lanes, 1), True, main)
+        carry = GK.weight_reduce(*p1, k_pair, **kw1)
+        p2 = (split.x_y, carry, eq_u, dim, split.last_y, split.plan_y)
+        case("weight_reduce", f"{tag}: phase 2, over the carry, into slot 0",
+             lambda: (GK.weight_reduce(*p2, k_pair), k_pair[0][0], k_pair[1][0])[1:],
+             lambda: (GK.weight_reduce_ref(*p2, p_pair), p_pair[0][0], p_pair[1][0])[1:],
+             reduce_work(nnz, n, lanes, 2), True)
+        k_sums, p_sums = sums(), sums()
+        for phase, args, kw in ((1, p1, kw1), (2, p2, {})):
+            case("weight_reduce", f"{tag}: phase {phase}, a rank's raw sums",
+                 lambda: (GK.weight_reduce(*args, k_sums, **kw), k_sums)[1:],
+                 lambda: (GK.weight_reduce_ref(*args, p_sums, **kw), p_sums)[1:],
+                 reduce_work(nnz, n, lanes, phase, raw=True), False)
+        table, want = (torch.empty((8, n), dtype=torch.int32, device=device) for _ in range(2))
+        case("finish_sums", f"{tag}: phase 2's raw sums, into a table",
+             lambda: (GK.finish_sums(k_sums, table), table)[1:],
+             lambda: (GK.finish_sums_ref(k_sums, want), want)[1:],
+             {"bytes": (64 + 32) * n, "imads": n * IMADS_PER_MONT_MUL, "int8_ops": 0}, main)
+        scratch, arrived = GK._scratch(device, 1)
+        check(not scratch.any() and not arrived.any(), f"9a {label}: the scratch is not zero")
         fold = (k_pair[0][:, :, :1], k_pair[1][:, :, :1], u_r[dim - 1], 1)
         case("pair_slots", f"{tag}: phase 1, slot 1 = f2",
              lambda: (GK.pair_slots(*k_pair, ((1, f2_d, None),)), k_pair[0][1], k_pair[1][1])[1:],
              lambda: (GK.pair_slots_ref(*p_pair, ((1, f2_d, None),)), p_pair[0][1],
                       p_pair[1][1])[1:],
-             {"bytes": 64 * n, "imads": 0, "int8_ops": 0}, timed)
+             {"bytes": 64 * n, "imads": 0, "int8_ops": 0}, main)
         o_k, o_p = pair(), pair()
         case("pair_slots", f"{tag}: phase 2, slot 1 = f3 times the final fold",
              lambda: (GK.pair_slots(*o_k, ((1, f3_d, "fold"),), fold=fold), o_k[0][1],
@@ -1443,30 +1468,38 @@ def gkr_init_phase(device, inst, seed: int) -> dict:
              lambda: (GK.pair_slots_ref(*o_p, ((1, f3_d, "fold"),), fold=fold), o_p[0][1],
                       o_p[1][1])[1:],
              {"bytes": 64 * n + 2 * 32 + 64, "imads": (n + 1) * IMADS_PER_MONT_MUL,
-              "int8_ops": 0}, timed, main=True)
+              "int8_ops": 0}, main, main=True)
         # the whole phase inits: kernels against the torch-op plain versions
-        p1 = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, f3_d, f2_d, dim)
-        r1 = GI.phase1_pair_ref(gbits, last_x, y_rev, vals, g_r, f3_d, f2_d, dim)
-        args2 = (p1[0][:, :, :1], p1[1][:, :, :1], u_r[dim - 1], x, perm_y, last_y, p1[2], u_r,
-                 f3_d, dim)
-        p2, r2 = GI.phase2_pair(*args2), GI.phase2_pair_ref(*args2)
+        k1 = GI.phase1_pair(split, g_r, f3_d, f2_d, dim)
+        r1 = GI.phase1_pair_ref(split, g_r, f3_d, f2_d, dim)
+        args2 = (k1[0][:, :, :1], k1[1][:, :, :1], u_r[dim - 1], split, k1[2], u_r, f3_d, dim)
+        k2, r2 = GI.phase2_pair(*args2), GI.phase2_pair_ref(*args2)
         sync(device)
-        err = max(max_diff(a, b) for a, b in zip(p1 + p2, r1 + r2))
+        err = max(max_diff(a, b) for a, b in zip(k1 + k2, r1 + r2))
         check(err == 0, f"9a {label}: the phase inits differ from their plain versions by {err}")
-        kern_s = wall(lambda: (GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, f3_d, f2_d, dim),
+        kern_s = wall(lambda: (GI.phase1_pair(split, g_r, f3_d, f2_d, dim),
                                GI.phase2_pair(*args2)), device, reps=5)
-        plain_s = wall(lambda: (GI.phase1_pair_ref(gbits, last_x, y_rev, vals, g_r, f3_d, f2_d,
-                                                   dim), GI.phase2_pair_ref(*args2)), device)
+        plain_s = wall(lambda: (GI.phase1_pair_ref(split, g_r, f3_d, f2_d, dim),
+                                GI.phase2_pair_ref(*args2)), device)
         print(f"9a {label}: phase1_pair and phase2_pair on the kernels equal the torch-op plain "
               f"versions on the card; both inits {kern_s * 1e3:.4f} ms against "
               f"{plain_s * 1e3:.4f} ms (host clock between syncs)")
 
-    # the half tables past shared memory: the global-memory variants
+    # the half tables past shared memory: the global-memory variants, over
+    # 1,024 segments, one of them long (600 entries, two chunks)
     gen = np.random.default_rng(seed + 22)
-    m, n3 = 1 << 12, 1 << 10
-    vals = torch.from_numpy(pack_limbs(random_tables(gen, 12, 1)[0])).to(device)
+    m, n3, nseg = 1 << 12, 1 << 10, 1 << 10
+    vals = torch.from_numpy(pack_limbs(random_tables(gen, 12, 1)[0].T, axis=1)).to(device)
     f3_s = torch.from_numpy(pack_limbs(random_tables(gen, 10, 1)[0])).to(device)
-    y = torch.from_numpy(gen.integers(0, n3, m).astype(np.int32)).to(device)
+    kw1 = {"f3": f3_s, "y": torch.from_numpy(gen.integers(0, n3, m).astype(np.int32)).to(device),
+           "to_y": torch.from_numpy(gen.permutation(m).astype(np.int32)).to(device)}
+    seg = np.sort(np.concatenate([gen.integers(0, nseg, m - 600), np.full(600, 7)]))
+    last_np = np.searchsorted(seg, np.arange(nseg), side="right") - 1
+    last = torch.from_numpy(last_np.astype(np.int32)).to(device)
+    plan = GK.upload_plan(last_np, m, device)
+    check(plan.long == 1, f"9a: {plan.long} long segments in the global-memory cases")
+    k_out, p_out = (torch.empty((8, nseg), dtype=torch.int32, device=device) for _ in range(2))
+    k_raw, p_raw = (torch.empty((8, nseg), dtype=torch.int64, device=device) for _ in range(2))
     for k in (22, 24):
         check((1 << (k - k // 2)) + (1 << (k // 2)) > GK.MAX_SHARED_EQ,
               f"9a: k={k} stages its half tables in shared memory")
@@ -1476,11 +1509,15 @@ def gkr_init_phase(device, inst, seed: int) -> dict:
         tag = f"k={k}, {m} entries, half tables in global memory"
         case("eq_halves", f"k={k}", lambda: (GK.eq_halves(r, k),),
              lambda: (GK.eq_halves_ref(r, k),), None, False)
-        case("weight_fold", f"{tag}, with the f3 gather",
-             lambda: GK.weight_fold(idx, vals, eq, k, y, f3_s),
-             lambda: GK.weight_fold_ref(idx, vals, eq, k, y, f3_s), None, False)
-        case("weight_fold", f"{tag}, without it", lambda: GK.weight_fold(idx, vals, eq, k)[:1],
-             lambda: GK.weight_fold_ref(idx, vals, eq, k)[:1], None, False)
+        args = (idx, vals, eq, k, last, plan)
+        for form, kw in (("phase 1's form", kw1), ("phase 2's form", {})):
+            case("weight_reduce", f"{tag}, {form}",
+                 lambda: (GK.weight_reduce(*args, k_out, **kw), k_out)[int(not kw):],
+                 lambda: (GK.weight_reduce_ref(*args, p_out, **kw), p_out)[int(not kw):],
+                 None, False)
+            case("weight_reduce", f"{tag}, {form}, raw sums",
+                 lambda: (GK.weight_reduce(*args, k_raw, **kw), k_raw)[1:],
+                 lambda: (GK.weight_reduce_ref(*args, p_raw, **kw), p_raw)[1:], None, False)
     return stats
 
 
@@ -1544,15 +1581,14 @@ def _gkr_headline(device, inst, reps: int, path: str, chain: str, mxu: bool) -> 
 
     # where the prove's time goes: both phase inits alone (fixed challenges),
     # and the 2 dim round kernels alone on a pair of the phases' shape
-    (gbits, x, y_rev, vals, last_x, perm_y, last_y), f2_d, f3_d, g_r = \
-        G._upload(f1, f2, f3, g, dim, device)
+    split, f2_d, f3_d, g_r = G._upload(f1, f2, f3, g, dim, device)
     gen = np.random.default_rng(dim)
     us = torch.from_numpy(np.stack([L.mont_scalar(int(gen.integers(1, 1 << 62)) % P)[:, 0]
                                     for _ in range(dim)]).astype(np.int32)).to(device)
 
     def inits():
-        lo, hi, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, f3_d, f2_d, dim)
-        return GI.phase2_pair(lo[:, :, :1], hi[:, :, :1], us[dim - 1], x, perm_y, last_y, w,
+        lo, hi, w = GI.phase1_pair(split, g_r, f3_d, f2_d, dim)
+        return GI.phase2_pair(lo[:, :, :1], hi[:, :, :1], us[dim - 1], split, w,
                               us, f3_d, dim)
 
     lo0, hi0 = inits()
@@ -2705,14 +2741,14 @@ def sharded_gkr(prover, seed: int, refs: dict, guard) -> dict:
           "sharded GKR: proof differs from the single card's")
     want = {k: 0 for k in launches}
     want.update({"round_nofold": 4, "round_fold": 4 * (dim - 1), "transcript_step": 4 * dim})
-    # a rank's inits (2 proves): the per-size pieces, the segment reduce twice
-    # a phase (the raw limb sums, then the finish of the all-reduced sums)
-    want.update({"eq_halves": 4, "weight_fold": 4, "segment_reduce": 8, "pair_slots": 6})
+    # a rank's inits (2 proves): the per-size pieces, the weight reduce into
+    # the raw limb sums and the finish of the all-reduced sums once a phase
+    want.update({"eq_halves": 4, "weight_reduce": 4, "finish_sums": 4, "pair_slots": 6})
     check(launches == want, f"sharded GKR: launches {launches}, expected {want}")
 
     # the inits alone at fixed challenges: the all-reduces timed between syncs
-    (gbits, x, y_rev, vals, last_x, perm_y, last_y), _f2_d, f3_d, g_r = \
-        G._upload(f1, f2, f3, g, dim, prover.device, (prover.rank, prover.num_shards))
+    split, _f2_d, f3_d, g_r = G._upload(f1, f2, f3, g, dim, prover.device,
+                                        (prover.rank, prover.num_shards))
     gen = np.random.default_rng(dim)
     us = torch.from_numpy(np.stack([L.mont_scalar(int(gen.integers(1, 1 << 62)) % P)[:, 0]
                                     for _ in range(dim)]).astype(np.int32)).to(prover.device)
@@ -2729,8 +2765,8 @@ def sharded_gkr(prover, seed: int, refs: dict, guard) -> dict:
         reduced.clear()
         sync(prover.device)
         t0 = time.perf_counter()
-        _hg, w = GI.phase1(gbits, last_x, y_rev, vals, g_r, f3_d, dim, timed)
-        GI.phase2_digits(x, perm_y, last_y, w, us, dim, timed)
+        _hg, w = GI.phase1(split, g_r, f3_d, dim, timed)
+        GI.phase2_digits(split, w, us, dim, timed)
         sync(prover.device)
         total_s = time.perf_counter() - t0
     return {"what": f"GKR dim {dim} (nnz 2^{dim}), proof", "walls": walls,
@@ -3484,8 +3520,8 @@ def main() -> int:
         ("round_step_fold_batched", "sumcheck_tpu/batch.py:261", "batch ml per-size"),
         ("transcript_step_batched", "sumcheck_tpu/batch.py:304", "batch ml generic"),
         ("eq_halves", "sumcheck_tpu/ops/gkr_init.py:138", "gkr generic"),
-        ("weight_fold", "sumcheck_tpu/ops/gkr_init.py:98", "gkr generic"),
-        ("segment_reduce", "sumcheck_tpu/ops/gkr_init.py:237", "gkr generic"),
+        ("weight_reduce", "sumcheck_tpu/ops/gkr_init.py:98 and :237", "gkr generic"),
+        ("finish_sums", "sumcheck_tpu/parallel/gkr.py:50", "sharded gkr S=2 gloo"),
         ("pair_slots", "sumcheck_tpu/ops/gkr_init.py:494", "gkr generic"),
     ):
         err, timings = stats[name]

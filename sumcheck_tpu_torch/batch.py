@@ -29,7 +29,7 @@ table contents vary freely. `BatchedMLSumcheck.prove_as_subprotocol` picks:
   them against the first instance's plan), and unequal pending bytes need
   no assert.
 
-`BatchedGKRRoundSumcheck.prove` runs each instance's phase inits (four
+`BatchedGKRRoundSumcheck.prove` runs each instance's phase inits (three
 kernel launches a phase, `ops/gkr_init.py`) into its slice of one batched
 pair and both phases'
 rounds on the batched generic chain, with one sync for all B proofs; unequal
@@ -308,17 +308,16 @@ def _enqueue_gkr(inputs: list, state, dim: int, round_fns=None, transcript_fn=No
     lo = torch.empty(shape, dtype=torch.int32, device=device)
     hi = torch.empty_like(lo)
     ws = []
-    for b, ((gbits, _x, y_rev, vals, last_x, _py, _ly), f2_d, f3_d, g_r) in enumerate(inputs):
-        _lo, _hi, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, f3_d, f2_d, dim,
-                                     out=(lo[b], hi[b]))
+    for b, (split, f2_d, f3_d, g_r) in enumerate(inputs):
+        _lo, _hi, w = GI.phase1_pair(split, g_r, f3_d, f2_d, dim, out=(lo[b], hi[b]))
         ws.append(w)
     msgs1, rs1, state = generic_prover.chain_rounds_generic_batched(
         lo, hi, state, products, 2, dim, round_fns, transcript_fn)
     lo2 = torch.empty(shape, dtype=torch.int32, device=device)
     hi2 = torch.empty_like(lo2)
-    for b, ((_g, x, _y, _v, _lx, perm_y, last_y), _f2, f3_d, _gr) in enumerate(inputs):
-        GI.phase2_pair(lo[b, :, :, :1], hi[b, :, :, :1], rs1[dim - 1, b], x, perm_y, last_y,
-                       ws[b], rs1[:, b], f3_d, dim, out=(lo2[b], hi2[b]))
+    for b, (split, _f2, f3_d, _gr) in enumerate(inputs):
+        GI.phase2_pair(lo[b, :, :, :1], hi[b, :, :, :1], rs1[dim - 1, b], split, ws[b],
+                       rs1[:, b], f3_d, dim, out=(lo2[b], hi2[b]))
     msgs2, rs2, state = generic_prover.chain_rounds_generic_batched(
         lo2, hi2, state, products, 2, dim, round_fns, transcript_fn)
     return torch.cat([msgs1, msgs2]), torch.cat([rs1, rs2]), state

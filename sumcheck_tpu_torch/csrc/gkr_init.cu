@@ -5,10 +5,12 @@
 // (sumcheck_tpu/ops/gkr_init.py): `_phase1_pair_body` and
 // `_phase2_pair_body` (:472-523) and the per-size pieces `_compiled_phase1`,
 // `_compiled_prep1`, `_compiled_final_fold`, `_compiled_phase2_digits` and
-// `_compiled_prep2` (:284-312, :595-654). XLA fused each into one program; a
-// port of them as torch ops ran about 13,000 launches a phase, 10,674 of
-// them the eq table's doublings. Built by ops/cuda_build.py, loaded by
-// ops/gkr_init_cuda.py, which holds each kernel's plain PyTorch version.
+// `_compiled_prep2` (:284-312, :595-654), their bodies `_weight_fold`
+// (:98-135) and `_segment_reduce_sorted` (:237-274) fused into one kernel.
+// XLA fused each into one program; a port of them as torch ops ran about
+// 13,000 launches a phase, 10,674 of them the eq table's doublings. Built by
+// ops/cuda_build.py, loaded by ops/gkr_init_cuda.py, which holds each
+// kernel's plain PyTorch version.
 //
 // The function. Phase 1 sums f1's nonzeros v_j at index (g_j, x_j, y_j) into
 // h_g[x] = sum_j v_j eq(g, g_j) f3[y_j]; phase 2 sums the weights w_j =
@@ -19,36 +21,49 @@
 //                        over the low kl = ceil(k/2) and high k - kl bits;
 //                        one lane a thread writes both half tables,
 //                        2^kl + 2^(k-kl) lanes (1,024 at k = 18, 32 KB);
-//   weight_fold_kernel   w_j = v_j * eq_lo[idx_j & m] * eq_hi[idx_j >> kl],
-//                        and in phase 1 wv_j = w_j * f3[y_j], the half
-//                        tables staged in shared memory;
-//   segment_reduce_kernel  the exact sum mod p of each segment of the sorted
-//                        entries (read through a permutation in phase 2),
-//                        8 limb sums in 64-bit accumulators, a carry pass and
-//                        a full reduction; or the raw limb sums (a rank's
-//                        partial), or the finish of all-reduced sums;
+//   weight_reduce_kernel the weight fold and the exact segment sum in one
+//                        launch: w_j = v_j * eq_lo[idx_j & m] *
+//                        eq_hi[idx_j >> kl] (phase 1: w_j to the carry in y
+//                        order, then times f3[y_j]), summed over each
+//                        segment of the sorted entries mod p; or the raw
+//                        limb sums (a rank's partial);
+//   finish_sums_kernel   the finish of all-reduced raw sums;
 //   pair_slots_kernel    the pair's other slots: a copy of a table, a table
 //                        times a scalar on the device, or times the final
 //                        fold l + r (h - l) of a one-lane pair (f2(u)).
 //
-// Layout: values are 8 x 32-bit limbs (field.cuh), tables limb-major (limb
-// j of lane k at [j * stride + k]); f1's entries (8, nnz), sorted on the
-// host by the bit-reversed segment of phase 1, with int32 index
-// components; the challenges are the chain's rows of 16 x 16-bit digits.
-// The field product is exact and every stored value canonical, so any
-// association of the products gives the JAX package's bytes.
+// Layout: values are 8 x 32-bit limbs (field.cuh). Tables are limb-major
+// (limb j of lane k at [j * stride + k]); f1's values and the carry w are
+// entry-major (nnz, 8), one 32-byte sector an entry: f1's sorted by the
+// bit-reversed x segment (phase 1), the carry by the bit-reversed y segment
+// (phase 2), so both phases read their entries in sequence; the index
+// components are int32, and the challenges the chain's rows of 16 x 16-bit
+// digits. The field product is exact and every stored value canonical, so
+// any association of the products gives the JAX package's bytes.
 //
-// What bounds it: at the main shape (dim 18, 2^18 entries) the weight fold
-// moves 136 B an entry and does 3 Montgomery multiplies (0.0124 ms of
-// 32-bit multiplies on an H100, against 0.0107 ms of bytes), the segment
-// reduce 68 B an entry and one multiply a segment, a pair slot 64 B a lane;
-// the eq halves are latency. Each phase is 4 launches and none waits for the
-// host. The f3 gather and phase 2's permuted reads are random 4-byte loads
-// of limb-major tables, 8 sectors an entry: the design keeps the half eq
-// tables in shared memory (random reads there cost bank conflicts, not
-// sectors) and lets each thread sum a segment of up to kLongSegment entries
-// alone (the main shape's segments hold about one entry each), the whole
-// block longer ones.
+// What bounds it: at the main shape (dim 18, 2^18 entries) phase 1 does 3
+// Montgomery multiplies an entry and 1 a segment (0.0165 ms of 32-bit
+// multiplies on an H100, against 0.011 ms of bytes), phase 2 two an entry
+// and one a segment; a pair slot moves 64 B a lane; the eq halves are
+// latency. The weight reduce's design: one launch a phase, the weights never
+// in device memory; one thread an entry for the multiplies (a thread a
+// segment would leave a warp waiting on its longest segment); the products
+// staged in shared memory entry-major and summed there one thread a segment
+// in 64-bit limb accumulators; persistent blocks that stage the half eq
+// tables in shared memory once (up to kMaxSharedEq lanes, else they are read
+// from the cache); a host-built plan of tiles of consecutive segments whose
+// entries fit kTile, so the kernel needs no sync and no host round trip;
+// and a segment longer than a tile cut into tile-sized chunks across blocks,
+// summed with 64-bit atomics into a per-device scratch row that the last
+// chunk to arrive finishes and zeroes (integer sums are exact in any order;
+// below 2^56 a limb at 2^24 entries). Each phase is 3 launches (eq halves,
+// weight reduce, pair slots) and none waits for the host. Measured on an
+// H100 80GB HBM3 at 700 W (PERF.md, tools/gkr_init_variants.py), phase 1 at
+// 41% and phase 2 at 46% of the multiply bound: tiles of 512 entries beat
+// 256 (the half tables staged once for twice the entries, half the blocks'
+// passes); staging the half tables limb-major cost nothing more; phase 1's
+// f3 gather, a random 4-byte load of a limb-major table, 8 sectors an entry,
+// is what holds phase 1 most.
 
 #include "field.cuh"
 
@@ -56,10 +71,12 @@ namespace {
 
 using namespace sc;
 
-constexpr int kThreads = 256;
-constexpr int kLongSegment = 64;   // entries one thread sums alone
-constexpr int kMaxSharedEq = 3072; // half-table lanes staged in shared memory (96 KB)
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 256;      // a block of the elementwise kernels
+constexpr int kTile = 512;         // entries, and segments, of one tile of the plan: the
+                                   // weight reduce's block, one thread an entry
+constexpr int kMaxSharedEq = 3072;  // half-table lanes staged in shared memory (96 KB)
+constexpr int kWarps = kTile / 32;
+constexpr size_t kStageBytes = 2 * kTile * sizeof(uint4);  // a tile's products
 
 // The field and the constants the inits need, by value.
 struct Consts {
@@ -120,49 +137,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// the weight fold
-// ---------------------------------------------------------------------------
-
-// w[:, j] = vals[:, j] * eq_lo[idx_j & (2^kl - 1)] * eq_hi[idx_j >> kl], and
-// with kGather wv[:, j] = w[:, j] * f3[:, y_j] (f3 (8, n3)); entries in a
-// grid-stride loop. kShared stages the (8, 2^kl + 2^kh) half tables in
-// shared memory (dynamic, 32 B a lane), else they are read from the cache.
-template <bool kShared, bool kGather>
-__global__ void __launch_bounds__(kThreads)
-    weight_fold_kernel(uint32_t* __restrict__ w, uint32_t* __restrict__ wv,
-                       const uint32_t* __restrict__ vals, const int32_t* __restrict__ idx,
-                       long long nnz, const uint32_t* __restrict__ eq, int kl, int kh,
-                       const int32_t* __restrict__ y, const uint32_t* __restrict__ f3,
-                       long long n3, const __grid_constant__ Consts c) {
-  extern __shared__ uint32_t s_eq[];
-  const int nlo = 1 << kl, lanes = nlo + (1 << kh);
-  const uint32_t* tab = eq;
-  if constexpr (kShared) {
-    for (int i = threadIdx.x; i < kLimbs * lanes; i += kThreads) s_eq[i] = __ldg(eq + i);
-    __syncthreads();
-    tab = s_eq;
-  }
-  const uint32_t mask = (uint32_t)nlo - 1;
-  for (long long j = (long long)blockIdx.x * kThreads + threadIdx.x; j < nnz;
-       j += (long long)gridDim.x * kThreads) {
-    const uint32_t ix = (uint32_t)__ldg(idx + j);
-    uint32_t v[kLimbs], a[kLimbs];
-    load_lane(v, vals + j, nnz);
-    load_lane(a, tab + (ix & mask), lanes);
-    mont_mul(v, v, a, c.f);
-    load_lane(a, tab + nlo + (ix >> kl), lanes);
-    mont_mul(v, v, a, c.f);
-    store_lane(w + j, nnz, v);
-    if constexpr (kGather) {
-      load_lane(a, f3 + __ldg(y + j), n3);
-      mont_mul(v, v, a, c.f);
-      store_lane(wv + j, nnz, v);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// the exact segment reduce
+// the fused weight fold and segment sum
 // ---------------------------------------------------------------------------
 
 // Where segment s's strict value goes: limb j at
@@ -175,13 +150,60 @@ struct SegDest {
   long long split;
 };
 
-// acc += the 8 limbs of sorted entry q (entry perm[q] of vals, or q)
-__device__ __forceinline__ void add_entry(uint64_t acc[kLimbs], const uint32_t* __restrict__ vals,
-                                          long long nnz, const int32_t* __restrict__ perm,
-                                          long long q) {
-  const long long e = perm ? (long long)__ldg(perm + q) : q;
+// One launch of the fused kernel. The plan (built on the host, ops/gkr_init_cuda.tile_plan)
+// is a list of int4 items {s0, count, e0, e1}:
+//   count > 0: a tile, segments s0 .. s0 + count - 1 (count <= kTile), whose entries are
+//              exactly the sorted entries e0 .. e1 - 1 (e1 - e0 <= kTile);
+//   count < 0: a chunk, entries e0 .. e1 - 1 (at most kTile) of the long segment s0 (more
+//              than kTile entries), which owns row -1 - count of the scratch.
+// With y (phase 1) each entry's weight w_j also goes to row to_y[j] of the carry (the
+// entries in y order) before it is multiplied by f3[y_j].
+struct WeightReduce {
+  const int4* plan;
+  int items;
+  const uint32_t* vals;          // (nnz, 8) entry-major, sorted by segment
+  const int32_t* idx;            // (nnz,) the eq index of each entry
+  const uint32_t* eq;            // (8, 2^kl + 2^kh) limb-major half tables
+  int kl, kh;
+  const int32_t* last;           // (nseg,) each segment's last sorted position
+  long long nseg;
+  const int32_t* y;              // phase 1: (nnz,) f3's lane of each entry, else null
+  const uint32_t* f3;            // (8, n3) limb-major
+  long long n3;
+  const int32_t* to_y;           // phase 1: (nnz,) each entry's row of the carry
+  uint32_t* carry;               // phase 1: (nnz, 8) entry-major out
+  unsigned long long* scratch;   // (long, 8) limb partials, zero between launches
+  unsigned int* arrived;         // (long,) chunks arrived, zero between launches
+  unsigned long long* sums_out;  // the raw (8, nseg) limb sums, or null: strict to dst
+  SegDest dst;
+};
+
+// The 8 limbs of row i of an entry-major (n, 8) table: two 16-byte loads.
+__device__ __forceinline__ void load_row(uint32_t x[kLimbs], const uint32_t* rows, long long i) {
+  const uint4* p = reinterpret_cast<const uint4*>(rows) + 2 * i;
+  const uint4 a = __ldg(p), b = __ldg(p + 1);
+  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w, x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+}
+
+__device__ __forceinline__ void store_row(uint32_t* rows, long long i, const uint32_t x[kLimbs]) {
+  uint4* p = reinterpret_cast<uint4*>(rows) + 2 * i;
+  p[0] = make_uint4(x[0], x[1], x[2], x[3]);
+  p[1] = make_uint4(x[4], x[5], x[6], x[7]);
+}
+
+// Lane `lane` of the half tables: entry-major in shared memory (two 16-byte
+// loads), or limb-major from global memory past kMaxSharedEq lanes.
+template <bool kShared>
+__device__ __forceinline__ void eq_lane(uint32_t x[kLimbs], const uint4* s_eq,
+                                        const uint32_t* eq, int lanes, uint32_t lane) {
+  if constexpr (kShared) {
+    const uint4 a = s_eq[2 * lane], b = s_eq[2 * lane + 1];
+    x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w, x[4] = b.x, x[5] = b.y, x[6] = b.z,
+    x[7] = b.w;
+  } else {
 #pragma unroll
-  for (int j = 0; j < kLimbs; ++j) acc[j] += __ldg(vals + j * nnz + e);
+    for (int j = 0; j < kLimbs; ++j) x[j] = __ldg(eq + (long long)j * lanes + lane);
+  }
 }
 
 // 8 limb sums (each below 2^61) -> their value mod p, canonical: one carry
@@ -204,6 +226,7 @@ __device__ __forceinline__ void finish(uint32_t out[kLimbs], const uint64_t acc[
   add_mod(out, lo, hi, c.f);
 }
 
+// Segment s's sums: raw to sums_out where it is given, else strict to dst.
 __device__ __forceinline__ void emit(long long s, const uint64_t acc[kLimbs], long long nseg,
                                      unsigned long long* sums_out, const SegDest& dst,
                                      const Consts& c) {
@@ -218,73 +241,123 @@ __device__ __forceinline__ void emit(long long s, const uint64_t acc[kLimbs], lo
   store_lane(base, dst.ld, v);
 }
 
-// Segment s of nseg: the sorted entries (s == 0 ? 0 : last[s-1] + 1) ..
-// last[s] (last = -1 before the first entry; an empty segment repeats the
-// previous last), summed limb by limb. kFromSums reads the (8, nseg) limb
-// sums instead (all-reduced over the ranks). Writes the raw sums where
-// sums_out is given, else the strict value to dst. One thread a segment;
-// a segment of more than kLongSegment entries is summed by the whole block
-// after the short ones, its threads striding over the entries.
-template <bool kFromSums>
-__global__ void __launch_bounds__(kThreads)
-    segment_reduce_kernel(const uint32_t* __restrict__ vals, long long nnz,
-                          const int32_t* __restrict__ perm, const int32_t* __restrict__ last,
-                          const unsigned long long* __restrict__ sums_in,
-                          unsigned long long* __restrict__ sums_out, long long nseg, SegDest dst,
-                          const __grid_constant__ Consts c) {
-  __shared__ int s_long[kThreads];
-  __shared__ int s_nlong;
+// Each block stages the half tables once (kShared) and walks the plan's
+// items blockIdx.x, + gridDim.x, ...: one thread an entry computes its
+// weight v_j * eq_lo[idx_j & m] * eq_hi[idx_j >> kl] (with kGather: stores
+// it to the carry and multiplies by f3[y_j]); a tile stages the products in
+// shared memory, entry-major, and one thread a segment sums its entries in
+// 64-bit limb accumulators and emits them; a chunk sums its products over
+// the block (warp shuffles), adds them into its scratch row with 64-bit
+// atomics, and the chunk that arrives last (a counter after a fence) reads
+// and zeroes the row and the counter and emits the segment.
+template <bool kShared, bool kGather>
+__global__ void __launch_bounds__(kTile)
+    weight_reduce_kernel(const __grid_constant__ WeightReduce a,
+                         const __grid_constant__ Consts c) {
+  extern __shared__ uint4 smem[];
   __shared__ uint64_t s_part[kWarps][kLimbs];
-  const long long s = (long long)blockIdx.x * kThreads + threadIdx.x;
-  uint64_t acc[kLimbs] = {0, 0, 0, 0, 0, 0, 0, 0};
-  if constexpr (kFromSums) {
-    if (s < nseg) {
+  uint4* s_stage = smem;               // [2][kTile]: an entry's limbs 0-3, then 4-7
+  const uint4* s_eq = smem + 2 * kTile;  // kShared: two a lane
+  const int nlo = 1 << a.kl, lanes = nlo + (1 << a.kh);
+  if constexpr (kShared) {
+    uint4* eq_rows = smem + 2 * kTile;
+    for (int i = threadIdx.x; i < lanes; i += kTile) {
+      uint32_t v[kLimbs];
 #pragma unroll
-      for (int j = 0; j < kLimbs; ++j) acc[j] = sums_in[j * nseg + s];
-      emit(s, acc, nseg, nullptr, dst, c);
-    }
-    return;
-  } else {
-    if (threadIdx.x == 0) s_nlong = 0;
-    __syncthreads();
-    if (s < nseg) {
-      const long long begin = s == 0 ? 0 : (long long)__ldg(last + s - 1) + 1;
-      const long long end = (long long)__ldg(last + s) + 1;
-      if (end - begin > kLongSegment) {
-        s_long[atomicAdd(&s_nlong, 1)] = threadIdx.x;
-      } else {
-        for (long long q = begin; q < end; ++q) add_entry(acc, vals, nnz, perm, q);
-        emit(s, acc, nseg, sums_out, dst, c);
-      }
+      for (int j = 0; j < kLimbs; ++j) v[j] = __ldg(a.eq + (long long)j * lanes + i);
+      eq_rows[2 * i] = make_uint4(v[0], v[1], v[2], v[3]);
+      eq_rows[2 * i + 1] = make_uint4(v[4], v[5], v[6], v[7]);
     }
     __syncthreads();
-    const int nlong = s_nlong;
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    for (int i = 0; i < nlong; ++i) {
-      const long long ls = (long long)blockIdx.x * kThreads + s_long[i];
-      const long long begin = ls == 0 ? 0 : (long long)__ldg(last + ls - 1) + 1;
-      const long long end = (long long)__ldg(last + ls) + 1;
-      uint64_t part[kLimbs] = {0, 0, 0, 0, 0, 0, 0, 0};
-      for (long long q = begin + threadIdx.x; q < end; q += kThreads)
-        add_entry(part, vals, nnz, perm, q);
-#pragma unroll
-      for (int j = 0; j < kLimbs; ++j) {
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          part[j] += __shfl_down_sync(0xFFFFFFFFu, part[j], off);
-        if (lane == 0) s_part[warp][j] = part[j];
-      }
-      __syncthreads();
-      if (threadIdx.x == 0) {
-        uint64_t total[kLimbs] = {0, 0, 0, 0, 0, 0, 0, 0};
-        for (int wi = 0; wi < kWarps; ++wi)
-#pragma unroll
-          for (int j = 0; j < kLimbs; ++j) total[j] += s_part[wi][j];
-        emit(ls, total, nseg, sums_out, dst, c);
-      }
-      __syncthreads();
-    }
   }
+  const uint32_t mask = (uint32_t)nlo - 1;
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  for (int it = blockIdx.x; it < a.items; it += gridDim.x) {
+    const int4 item = __ldg(a.plan + it);
+    const int e = item.z + t;
+    uint32_t v[kLimbs] = {0, 0, 0, 0, 0, 0, 0, 0};
+    if (e < item.w) {
+      const uint32_t ix = (uint32_t)__ldg(a.idx + e);
+      uint32_t q[kLimbs];
+      load_row(v, a.vals, e);
+      eq_lane<kShared>(q, s_eq, a.eq, lanes, ix & mask);
+      mont_mul(v, v, q, c.f);
+      eq_lane<kShared>(q, s_eq, a.eq, lanes, nlo + (ix >> a.kl));
+      mont_mul(v, v, q, c.f);
+      if constexpr (kGather) {
+        store_row(a.carry, __ldg(a.to_y + e), v);
+        const long long yl = __ldg(a.y + e);
+#pragma unroll
+        for (int j = 0; j < kLimbs; ++j) q[j] = __ldg(a.f3 + j * a.n3 + yl);
+        mont_mul(v, v, q, c.f);
+      }
+    }
+    if (item.y > 0) {  // a tile: one thread a segment, out of shared memory
+      s_stage[t] = make_uint4(v[0], v[1], v[2], v[3]);
+      s_stage[kTile + t] = make_uint4(v[4], v[5], v[6], v[7]);
+      __syncthreads();
+      if (t < item.y) {
+        const long long s = (long long)item.x + t;
+        const int begin = (s == 0 ? 0 : __ldg(a.last + s - 1) + 1) - item.z;
+        const int end = __ldg(a.last + s) + 1 - item.z;
+        uint64_t acc[kLimbs] = {0, 0, 0, 0, 0, 0, 0, 0};
+        for (int q = begin; q < end; ++q) {
+          const uint4 l = s_stage[q], h = s_stage[kTile + q];
+          acc[0] += l.x, acc[1] += l.y, acc[2] += l.z, acc[3] += l.w;
+          acc[4] += h.x, acc[5] += h.y, acc[6] += h.z, acc[7] += h.w;
+        }
+        emit(s, acc, a.nseg, a.sums_out, a.dst, c);
+      }
+      __syncthreads();  // the stage is read before the next item writes it
+      continue;
+    }
+    // a chunk of a long segment: the block's sum, then the scratch row
+    uint64_t part[kLimbs];
+#pragma unroll
+    for (int j = 0; j < kLimbs; ++j) {
+      part[j] = v[j];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        part[j] += __shfl_down_sync(0xFFFFFFFFu, part[j], off);
+      if (lane == 0) s_part[warp][j] = part[j];
+    }
+    __syncthreads();
+    if (t == 0) {
+      uint64_t total[kLimbs] = {0, 0, 0, 0, 0, 0, 0, 0};
+      for (int wi = 0; wi < kWarps; ++wi)
+#pragma unroll
+        for (int j = 0; j < kLimbs; ++j) total[j] += s_part[wi][j];
+      const int row = -1 - item.y;
+      unsigned long long* sums = a.scratch + (long long)row * kLimbs;
+#pragma unroll
+      for (int j = 0; j < kLimbs; ++j) atomicAdd(sums + j, (unsigned long long)total[j]);
+      __threadfence();  // the sums land before the count that announces them
+      const long long s = item.x;
+      const int begin = s == 0 ? 0 : __ldg(a.last + s - 1) + 1;
+      const unsigned chunks = (unsigned)((__ldg(a.last + s) + 1 - begin + kTile - 1) / kTile);
+      if (atomicAdd(a.arrived + row, 1u) == chunks - 1) {  // the last chunk to arrive
+        __threadfence();
+#pragma unroll
+        for (int j = 0; j < kLimbs; ++j) total[j] = atomicExch(sums + j, 0ull);
+        atomicExch(a.arrived + row, 0u);
+        emit(s, total, a.nseg, a.sums_out, a.dst, c);
+      }
+    }
+    __syncthreads();  // s_part is read before the next chunk writes it
+  }
+}
+
+// The finish of all-reduced raw sums: segment s's (8, nseg) limb sums ->
+// its strict value in dst, one thread a segment.
+__global__ void __launch_bounds__(kThreads)
+    finish_sums_kernel(const unsigned long long* __restrict__ sums, long long nseg, SegDest dst,
+                       const __grid_constant__ Consts c) {
+  const long long s = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (s >= nseg) return;
+  uint64_t acc[kLimbs];
+#pragma unroll
+  for (int j = 0; j < kLimbs; ++j) acc[j] = sums[j * nseg + s];
+  emit(s, acc, nseg, nullptr, dst, c);
 }
 
 // ---------------------------------------------------------------------------
@@ -380,32 +453,33 @@ Consts make_consts(const uint32_t* words) {
 
 unsigned grid_of(long long n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
-// The weight fold's blocks that fit on a device at once, by device, f3
+// The weight reduce's blocks that fit on a device at once, by device, f3
 // gather and k = kl + kh (which sets the shared memory): 0 until the first
 // launch of that shape on the device works them out, so that later launches
 // make no runtime call before the launch.
 constexpr int kMaxDevices = 64;
 constexpr int kMaxK = 48;
-int g_fold_blocks[kMaxDevices][2][kMaxK + 1];
+int g_blocks[kMaxDevices][2][kMaxK + 1];
 
-// Set the shared-memory limit of the shared variants (once a device, to
-// what the largest staged tables need) and work out the resident blocks.
-cudaError_t fold_blocks(int device, bool gather, int k, const void* fn, size_t smem, bool shared,
-                        int* blocks) {
-  int& cached = g_fold_blocks[device][gather][k];
+// Set the shared-memory limit of the shared variants (to what the largest
+// staged tables need) and work out the resident blocks.
+cudaError_t resident_blocks(int device, bool gather, int k, const void* fn, size_t smem,
+                            bool shared, int* blocks) {
+  int& cached = g_blocks[device][gather][k];
   if (cached > 0) {
     *blocks = cached;
     return cudaSuccess;
   }
   cudaError_t e;
-  if (shared && (e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                          (int)(kMaxSharedEq * kLimbs * sizeof(uint32_t)))) !=
+  if (shared && (e = cudaFuncSetAttribute(
+                     fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                     (int)(kStageBytes + kMaxSharedEq * kLimbs * sizeof(uint32_t)))) !=
                     cudaSuccess)
     return e;
   int sms = 0, per_sm = 0;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
     return e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kThreads, smem)) !=
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kTile, smem)) !=
       cudaSuccess)
     return e;
   cached = sms * (per_sm > 0 ? per_sm : 1);
@@ -418,7 +492,7 @@ cudaError_t fold_blocks(int device, bool gather, int k, const void* fn, size_t s
 extern "C" {
 
 int sc_gkr_threads() { return kThreads; }
-int sc_gkr_long_segment() { return kLongSegment; }
+int sc_gkr_tile() { return kTile; }
 int sc_gkr_max_shared_eq() { return kMaxSharedEq; }
 
 // The constants every launch takes: p (8 limbs), -p^-1 mod 2^32, the
@@ -437,75 +511,80 @@ int sc_gkr_eq_halves(void* eq, int kl, int kh, const void* r, long long r_stride
   return (int)cudaGetLastError();
 }
 
-// w, wv (null without y): (8, nnz) int32 out. vals (8, nnz), idx (nnz,),
-// eq from sc_gkr_eq_halves; y (nnz,) and f3 (8, n3), or null. device: the
-// current device's index.
-int sc_gkr_weight_fold(void* w, void* wv, const void* vals, const void* idx, long long nnz,
-                       const void* eq, int kl, int kh, const void* y, const void* f3,
-                       long long n3, int device, const uint32_t* consts, void* stream) {
-  if (nnz < 1 || kl < 0 || kh < 0 || kl > 24 || kh > 24 || device < 0 || device >= kMaxDevices)
+// The fused weight fold and segment sum over a plan of `items` int4 items
+// (the tiles and chunks of `weight_reduce_kernel`): vals (nnz, 8) and idx
+// (nnz,) sorted by segment, eq from sc_gkr_eq_halves, last (nseg,); phase 1
+// also y (nnz,), f3 (8, n3), to_y (nnz,) and the carry (nnz, 8) out, else all
+// four null. scratch (long, 8) uint64 and arrived (long,) uint32 for a plan
+// with long segments (zero, and left zero), else null. The raw (8, nseg)
+// int64 limb sums to sums_out if given, else the strict values to the
+// destination. device: the current device's index. vals and the carry
+// 16-byte aligned.
+int sc_gkr_weight_reduce(const void* plan, int items, const void* vals, const void* idx,
+                         const void* eq, int kl, int kh, const void* last, long long nseg,
+                         const void* y, const void* f3, long long n3, const void* to_y,
+                         void* carry, void* scratch, void* arrived, void* sums_out, void* dst_lo,
+                         void* dst_hi, long long dst_ld, long long dst_split, int device,
+                         const uint32_t* consts, void* stream) {
+  const bool gather = y != nullptr;
+  if (items < 1 || nseg < 1 || kl < 0 || kh < 0 || kl > 24 || kh > 24 || device < 0 ||
+      device >= kMaxDevices || (gather && (!f3 || !to_y || !carry)) || (!sums_out && !dst_lo))
     return (int)cudaErrorInvalidValue;
   const int lanes = (1 << kl) + (1 << kh);
-  const bool shared = lanes <= kMaxSharedEq, gather = y != nullptr;
-  const size_t smem = shared ? (size_t)lanes * kLimbs * sizeof(uint32_t) : 0;
-  const void* fn = shared ? (gather ? (const void*)weight_fold_kernel<true, true>
-                                    : (const void*)weight_fold_kernel<true, false>)
-                          : (gather ? (const void*)weight_fold_kernel<false, true>
-                                    : (const void*)weight_fold_kernel<false, false>);
+  const bool shared = lanes <= kMaxSharedEq;
+  const size_t smem = kStageBytes + (shared ? (size_t)lanes * kLimbs * sizeof(uint32_t) : 0);
+  const void* fn = shared ? (gather ? (const void*)weight_reduce_kernel<true, true>
+                                    : (const void*)weight_reduce_kernel<true, false>)
+                          : (gather ? (const void*)weight_reduce_kernel<false, true>
+                                    : (const void*)weight_reduce_kernel<false, false>);
   // as many blocks as fit at once, each staging the tables once
   int most = 0;
-  const cudaError_t e = fold_blocks(device, gather, kl + kh, fn, smem, shared, &most);
+  const cudaError_t e = resident_blocks(device, gather, kl + kh, fn, smem, shared, &most);
   if (e != cudaSuccess) return (int)e;
-  const unsigned grid = (unsigned)(grid_of(nnz) < (unsigned)most ? grid_of(nnz) : most);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  uint32_t* wp = static_cast<uint32_t*>(w);
-  uint32_t* wvp = static_cast<uint32_t*>(wv);
-  const uint32_t* vp = static_cast<const uint32_t*>(vals);
-  const int32_t* ip = static_cast<const int32_t*>(idx);
-  const uint32_t* ep = static_cast<const uint32_t*>(eq);
-  const int32_t* yp = static_cast<const int32_t*>(y);
-  const uint32_t* fp = static_cast<const uint32_t*>(f3);
+  const unsigned grid = (unsigned)(items < most ? items : most);
+  WeightReduce a;
+  a.plan = static_cast<const int4*>(plan);
+  a.items = items;
+  a.vals = static_cast<const uint32_t*>(vals);
+  a.idx = static_cast<const int32_t*>(idx);
+  a.eq = static_cast<const uint32_t*>(eq);
+  a.kl = kl;
+  a.kh = kh;
+  a.last = static_cast<const int32_t*>(last);
+  a.nseg = nseg;
+  a.y = static_cast<const int32_t*>(y);
+  a.f3 = static_cast<const uint32_t*>(f3);
+  a.n3 = n3;
+  a.to_y = static_cast<const int32_t*>(to_y);
+  a.carry = static_cast<uint32_t*>(carry);
+  a.scratch = static_cast<unsigned long long*>(scratch);
+  a.arrived = static_cast<unsigned int*>(arrived);
+  a.sums_out = static_cast<unsigned long long*>(sums_out);
+  a.dst = {static_cast<uint32_t*>(dst_lo), static_cast<uint32_t*>(dst_hi), dst_ld, dst_split};
   const Consts c = make_consts(consts);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (shared && gather) {
-    weight_fold_kernel<true, true><<<grid, kThreads, smem, s>>>(wp, wvp, vp, ip, nnz, ep, kl, kh,
-                                                                yp, fp, n3, c);
+    weight_reduce_kernel<true, true><<<grid, kTile, smem, s>>>(a, c);
   } else if (shared) {
-    weight_fold_kernel<true, false><<<grid, kThreads, smem, s>>>(wp, wvp, vp, ip, nnz, ep, kl,
-                                                                 kh, yp, fp, n3, c);
+    weight_reduce_kernel<true, false><<<grid, kTile, smem, s>>>(a, c);
   } else if (gather) {
-    weight_fold_kernel<false, true><<<grid, kThreads, 0, s>>>(wp, wvp, vp, ip, nnz, ep, kl, kh,
-                                                              yp, fp, n3, c);
+    weight_reduce_kernel<false, true><<<grid, kTile, smem, s>>>(a, c);
   } else {
-    weight_fold_kernel<false, false><<<grid, kThreads, 0, s>>>(wp, wvp, vp, ip, nnz, ep, kl, kh,
-                                                               yp, fp, n3, c);
+    weight_reduce_kernel<false, false><<<grid, kTile, smem, s>>>(a, c);
   }
   return (int)cudaGetLastError();
 }
 
-// From entries (sums_in null): vals (8, nnz), perm (nnz,) or null, last
-// (nseg,); the raw (8, nseg) int64 limb sums to sums_out if given, else the
-// strict values to the destination. From sums (sums_in (8, nseg)): the
-// strict values to the destination.
-int sc_gkr_segment_reduce(const void* vals, long long nnz, const void* perm, const void* last,
-                          const void* sums_in, void* sums_out, long long nseg, void* dst_lo,
-                          void* dst_hi, long long dst_ld, long long dst_split,
-                          const uint32_t* consts, void* stream) {
-  if (nseg < 1 || (sums_in && sums_out) || (!sums_out && !dst_lo))
-    return (int)cudaErrorInvalidValue;
+// sums (8, nseg) int64, all-reduced raw limb sums -> their strict values in
+// the destination.
+int sc_gkr_finish_sums(const void* sums, long long nseg, void* dst_lo, void* dst_hi,
+                       long long dst_ld, long long dst_split, const uint32_t* consts,
+                       void* stream) {
+  if (nseg < 1 || !sums || !dst_lo) return (int)cudaErrorInvalidValue;
   const SegDest dst = {static_cast<uint32_t*>(dst_lo), static_cast<uint32_t*>(dst_hi), dst_ld,
                        dst_split};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Consts c = make_consts(consts);
-  const auto* in = static_cast<const unsigned long long*>(sums_in);
-  auto* out = static_cast<unsigned long long*>(sums_out);
-  if (sums_in) {
-    segment_reduce_kernel<true><<<grid_of(nseg), kThreads, 0, s>>>(
-        nullptr, 0, nullptr, nullptr, in, nullptr, nseg, dst, c);
-  } else {
-    segment_reduce_kernel<false><<<grid_of(nseg), kThreads, 0, s>>>(
-        static_cast<const uint32_t*>(vals), nnz, static_cast<const int32_t*>(perm),
-        static_cast<const int32_t*>(last), nullptr, out, nseg, dst, c);
-  }
+  finish_sums_kernel<<<grid_of(nseg), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const unsigned long long*>(sums), nseg, dst, make_consts(consts));
   return (int)cudaGetLastError();
 }
 

@@ -123,27 +123,27 @@ def _enqueue(inputs: tuple, state, dim: int, round_fns=None, step_fns=None,
     from .protocol import device_prover, generic_prover
     from .utils.config import get_config
 
-    (gbits, x, y_rev, vals, last_x, perm_y, last_y), f2_d, f3_d, g_r = inputs
+    split, f2_d, f3_d, g_r = inputs
     products = ((0, 1),)  # unit coefficient: nothing to fold into the tables
 
     if get_config().chain_impl == "generic":
         # both phases fold one pair each in place over run-time extents
-        lo1, hi1, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, f3_d, f2_d, dim)
+        lo1, hi1, w = GI.phase1_pair(split, g_r, f3_d, f2_d, dim)
         msgs1, rs1, state = generic_prover.chain_rounds_generic(
             lo1, hi1, state, products, 2, dim, round_fns, transcript_fn)
         # the chain left the 1-lane final pair in lane 0; rs1[dim-1] is u's last
-        lo2, hi2 = GI.phase2_pair(lo1[:, :, :1], hi1[:, :, :1], rs1[dim - 1], x, perm_y,
-                                  last_y, w, rs1, f3_d, dim)
+        lo2, hi2 = GI.phase2_pair(lo1[:, :, :1], hi1[:, :, :1], rs1[dim - 1], split, w, rs1,
+                                  f3_d, dim)
         msgs2, rs2, state = generic_prover.chain_rounds_generic(
             lo2, hi2, state, products, 2, dim, round_fns, transcript_fn)
     else:
-        hg, w = GI.phase1(gbits, last_x, y_rev, vals, g_r, f3_d, dim)
+        hg, w = GI.phase1(split, g_r, f3_d, dim)
         msgs1, rs1, state, pair1 = device_prover.chain_rounds(
             list(GI.prep1(hg, f2_d)), state, products, 2, dim, step_fns, transcript_fn)
         # f2(u): the chain left every table folded dim-1 times (1 lane); one
         # more fold by the final challenge evaluates slot 1 = f2 at u
         f2_u = GI.final_fold(*pair1, rs1[dim - 1], 1)
-        f1_gu = GI.phase2_digits(x, perm_y, last_y, w, rs1, dim)
+        f1_gu = GI.phase2_digits(split, w, rs1, dim)
         msgs2, rs2, state, _ = device_prover.chain_rounds(
             list(GI.prep2(f1_gu, f3_d, f2_u)), state, products, 2, dim, step_fns,
             transcript_fn)
@@ -183,14 +183,13 @@ def _prove_host_transcript(rng, f1: SparseMLE, f2: DenseMLE, f3: DenseMLE,
     from .ops import gkr_init as GI
     from .protocol.generic_prover import host_rounds
 
-    (gbits, x, y_rev, vals, last_x, perm_y, last_y), f2_d, f3_d, g_r = \
-        _upload(f1, f2, f3, g, dim, device)
-    lo1, hi1, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, f3_d, f2_d, dim)
+    split, f2_d, f3_d, g_r = _upload(f1, f2, f3, g, dim, device)
+    lo1, hi1, w = GI.phase1_pair(split, g_r, f3_d, f2_d, dim)
     phase1_msgs, u = host_rounds(rng, _pair_state(lo1, hi1, dim, round_fns), dim)
     u_digits = GI.upload(GI._point_rows(u), device)
     # the rounds left phase 1's 1-lane final pair in lane 0; u[dim-1] folds it
-    lo2, hi2 = GI.phase2_pair(lo1[:, :, :1], hi1[:, :, :1], u_digits[dim - 1], x, perm_y,
-                              last_y, w, u_digits, f3_d, dim)
+    lo2, hi2 = GI.phase2_pair(lo1[:, :, :1], hi1[:, :, :1], u_digits[dim - 1], split, w,
+                              u_digits, f3_d, dim)
     phase2_msgs, _v = host_rounds(rng, _pair_state(lo2, hi2, dim, round_fns), dim)
     return GKRProof(phase1_msgs, phase2_msgs)
 

@@ -28,11 +28,10 @@ as `bench.py:187-194` draws it; nv 18 by default):
                digits)
   eq_halves    the kernel `gkr_init_cuda.eq_halves` at k = nv: eq's two
                half tables
-  weight_fold  the kernel `gkr_init_cuda.weight_fold` over 2^nv entries
-               with phase 1's f3 gather (three multiplies an entry)
-  segment_reduce  the kernel `gkr_init_cuda.segment_reduce` at nnz = 2^nv
-               over 2^nv segments, read through a permutation (phase 2's
-               form)
+  weight_reduce  the kernel `gkr_init_cuda.weight_reduce` in phase 1's
+               form: the weight fold of 2^nv entries with the f3 gather at
+               random lanes (three multiplies an entry), the carry written
+               through a permutation, and the exact sums of 2^nv segments
   pair_slots   the kernel `gkr_init_cuda.pair_slots`: a pair's two slots,
                a copy and a table times a scalar (`prep2`'s form)
 
@@ -83,7 +82,7 @@ from .fields import limbs_np as L
 from .fields.fr import NUM_DIGITS, P
 
 PROBES = ("rtt", "compress", "challenge", "gather16", "cumsum32", "mont_nnz", "mont_nnz_eo",
-          "eq_build", "segreduce", "eq_halves", "weight_fold", "segment_reduce", "pair_slots")
+          "eq_build", "segreduce", "eq_halves", "weight_reduce", "pair_slots")
 STAGES = ("upto_phase1", "upto_rounds_p1", "upto_phase2", "upto_rounds_p2", "full_prove")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak
@@ -307,7 +306,7 @@ def probe_inputs(nv: int, seed: int = 0) -> dict:
     indices `idx`, the (32, 2^nv) byte rows `rows32`, the eq table's points
     (from `random.Random(3)`, as `tools/microbench.py`), and a sorted
     segment layout (`seg`, `perm`, `last`) of 2^nv entries over 2^nv
-    segments, as there."""
+    segments, as there, and a permutation `to_y` of the entries."""
     from .fields.fr import Fr
     from .ops.gkr_init import _points_arrays
 
@@ -322,8 +321,10 @@ def probe_inputs(nv: int, seed: int = 0) -> dict:
     seg = np.sort(gen.integers(0, n, size=(n,), dtype=np.int64))
     perm = np.argsort(seg, kind="stable")
     last = np.searchsorted(seg[perm], np.arange(n), side="right") - 1
+    to_y = gen.permutation(n)
     return {"nv": nv, "a": a, "b": b, "idx": idx, "rows32": rows32, "points": points,
-            "r_pts": r_pts, "omr_pts": omr_pts, "seg": seg, "perm": perm, "last": last}
+            "r_pts": r_pts, "omr_pts": omr_pts, "seg": seg, "perm": perm, "last": last,
+            "to_y": to_y}
 
 
 def _limbs(digits: np.ndarray) -> np.ndarray:
@@ -551,27 +552,33 @@ def kernel_probes(x: dict, device) -> dict:
     def up(arr):
         return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
-    a_l, b_l = up(L.pack_limbs(x["a"])), up(L.pack_limbs(x["b"]))
-    idx, perm, last = (up(x[k].astype(np.int32)) for k in ("idx", "perm", "last"))
+    a_l, b_l, a_rows = up(L.pack_limbs(x["a"])), up(L.pack_limbs(x["b"])), up(_limbs(x["a"]))
+    idx, last, to_y = (up(x[k].astype(np.int32)) for k in ("idx", "last", "to_y"))
     rows = up(np.ascontiguousarray(x["r_pts"][:, :, 0]).astype(np.int32))
+    plan = GK.upload_plan(x["last"], n, device)
     kl, kh = GK.halves(nv)
     lanes = (1 << kl) + (1 << kh)
     eq = GK.eq_halves(rows, nv)
     table = torch.empty((8, n), dtype=torch.int32, device=device)
     lo = torch.empty((2, 8, n // 2), dtype=torch.int32, device=device)
     hi = torch.empty_like(lo)
-    cpu = {k: t.cpu() for k, t in (("a", a_l), ("b", b_l), ("idx", idx), ("perm", perm),
-                                   ("last", last), ("rows", rows), ("eq", eq))}
+    cpu = {k: t.cpu() for k, t in (("a", a_l), ("b", b_l), ("a_rows", a_rows), ("idx", idx),
+                                   ("last", last), ("to_y", to_y), ("rows", rows), ("eq", eq))}
 
     def same(got, want, what):
         _check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
                f"{what} differs from its plain version")
 
-    def check_segment():
-        GK.segment_reduce(a_l, perm, last, table)
+    def reduce():
+        return GK.weight_reduce(idx, a_rows, eq, nv, last, plan, table, b_l, idx, to_y)
+
+    def check_reduce():
+        carry = reduce()
         want = torch.empty((8, n), dtype=torch.int32)
-        GK.segment_reduce_ref(cpu["a"], cpu["perm"], cpu["last"], want)
-        same((table,), (want,), "segment_reduce")
+        cplan = GK.Plan(plan.items.cpu(), plan.long)
+        want_carry = GK.weight_reduce_ref(cpu["idx"], cpu["a_rows"], cpu["eq"], nv, cpu["last"],
+                                          cplan, want, cpu["b"], cpu["idx"], cpu["to_y"])
+        same((table, carry), (want, want_carry), "weight_reduce")
 
     def check_slots():
         GK.pair_slots(lo, hi, ((0, a_l, None), (1, b_l, rows[0])))
@@ -586,14 +593,11 @@ def kernel_probes(x: dict, device) -> dict:
                       lambda: same((GK.eq_halves(rows, nv),),
                                    (GK.eq_halves_ref(cpu["rows"], nv),), "eq_halves"),
                       {"bytes": 32 * lanes + 64 * nv, "imads": 2 * lanes * mont}),
-        "weight_fold": (lambda: GK.weight_fold(idx, a_l, eq, nv, perm, b_l),
-                        lambda: same(GK.weight_fold(idx, a_l, eq, nv, perm, b_l),
-                                     GK.weight_fold_ref(cpu["idx"], cpu["a"], cpu["eq"], nv,
-                                                        cpu["perm"], cpu["b"]), "weight_fold"),
-                        {"bytes": (4 + 32 + 4 + 32 + 32 + 32) * n + 32 * lanes,
-                         "imads": 3 * n * mont}),
-        "segment_reduce": (lambda: GK.segment_reduce(a_l, perm, last, table), check_segment,
-                           {"bytes": (32 + 4) * n + (4 + 32) * n, "imads": n * mont}),
+        # idx, vals, y, to_y, the f3 gather and the carry an entry; last and
+        # the sum a segment; the half tables
+        "weight_reduce": (reduce, check_reduce,
+                          {"bytes": (4 + 32 + 4 + 4 + 32 + 32) * n + (4 + 32) * n + 32 * lanes,
+                           "imads": 4 * n * mont}),
         "pair_slots": (lambda: GK.pair_slots(lo, hi, ((0, a_l, None), (1, b_l, rows[0]))),
                        check_slots, {"bytes": 2 * 64 * n + 64, "imads": n * mont}),
     }
@@ -643,21 +647,20 @@ def stage_fns(inst, device) -> dict:
     device = device_prover.resolve_device(device)
     f1, f2, f3, g = inst
     dim = f2.num_vars
-    (gbits, x, y_rev, vals, last_x, perm_y, last_y), f2_d, f3_d, g_r = \
-        G._upload(f1, f2, f3, g, dim, device)
+    split, f2_d, f3_d, g_r = G._upload(f1, f2, f3, g, dim, device)
     products = ((0, 1),)
 
     def run(depth: int):
         state = device_prover.lift_transcript(Blake2b512Rng.setup(), device)
-        lo1, hi1, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, f3_d, f2_d, dim)
+        lo1, hi1, w = GI.phase1_pair(split, g_r, f3_d, f2_d, dim)
         if depth == 1:
             return lo1, hi1
         msgs1, rs1, state = generic_prover.chain_rounds_generic(lo1, hi1, state, products, 2,
                                                                 dim)
         if depth == 2:
             return lo1, hi1, msgs1, rs1
-        lo2, hi2 = GI.phase2_pair(lo1[:, :, :1], hi1[:, :, :1], rs1[dim - 1], x, perm_y, last_y,
-                                  w, rs1, f3_d, dim)
+        lo2, hi2 = GI.phase2_pair(lo1[:, :, :1], hi1[:, :, :1], rs1[dim - 1], split, w, rs1,
+                                  f3_d, dim)
         if depth == 3:
             return lo2, hi2, rs1
         msgs2, rs2, state = generic_prover.chain_rounds_generic(lo2, hi2, state, products, 2,
@@ -699,7 +702,8 @@ def stage_work(dim: int, nnz: int) -> dict:
     the cached f2, f3 and the table pairs in 32 B limbs an element), and
     the 32-bit multiplies of its Montgomery multiplies (the inits' eq half
     tables 2 a lane, weight folds two an entry, phase 1's gathered f3 one
-    an entry, f2(u)'s scaling one a lane; the rounds `sol.count_prove_ops`
+    an entry, each segment sum's finish one, f2(u)'s scaling one a lane;
+    the rounds `sol.count_prove_ops`
     for U=2 slots, one product of two, degree 2). The transcript steps'
     latency is not in it."""
     from .ops.gkr_init_cuda import halves
@@ -708,12 +712,12 @@ def stage_work(dim: int, nnz: int) -> dict:
     n = 1 << dim
     eq_lanes = sum(1 << k for k in halves(dim))
     rounds = count_prove_ops(dim, 2, 1, 2, 2)
-    # phase 1: gbits, y_rev, values, last_x, f3, f2 in; the pair and w out
-    p1 = {"bytes": 4 * nnz + 4 * nnz + 32 * nnz + 4 * n + 32 * n + 32 * n + 64 * n + 32 * nnz,
-          "mont": 2 * eq_lanes + 3 * nnz}
-    # phase 2: x, perm_y, last_y, w, f3 in; the pair out
-    p2 = {"bytes": 4 * nnz + 4 * nnz + 4 * n + 32 * nnz + 32 * n + 64 * n,
-          "mont": 2 * eq_lanes + 2 * nnz + n}
+    # phase 1: gbits, y_rev, to_y, values, last_x, f3, f2 in; the pair and the carry out
+    p1 = {"bytes": 3 * 4 * nnz + 32 * nnz + 4 * n + 32 * n + 32 * n + 64 * n + 32 * nnz,
+          "mont": 2 * eq_lanes + 3 * nnz + n}
+    # phase 2: x_y, last_y, the carry, f3 in; the pair out
+    p2 = {"bytes": 4 * nnz + 4 * n + 32 * nnz + 32 * n + 64 * n,
+          "mont": 2 * eq_lanes + 2 * nnz + 2 * n}
     r = {"bytes": rounds["hbm_bytes"], "mont": rounds["mont_muls"]}
     out, total = {}, {"bytes": 0, "mont": 0}
     for name, part in zip(STAGES, (p1, r, p2, r, None)):

@@ -1,5 +1,5 @@
 """GKR phase initialization on the prover's device — the port of
-`sumcheck_tpu/ops/gkr_init.py`. On a card each phase runs four hand-written
+`sumcheck_tpu/ops/gkr_init.py`. On a card each phase runs three hand-written
 kernels (`ops/gkr_init_cuda.py`, `csrc/gkr_init.cu`); on the CPU their plain
 versions. The JAX package jits each phase init into one XLA program.
 
@@ -9,14 +9,14 @@ The reference's phase-1 init is a scalar scatter loop over `f1`'s nonzeros
 
 1. **weight fold**: each entry's fixing weight `prod_i (bit_i ? r_i : 1-r_i)`
    from the eq table and one multiply: the kernels build eq's two half
-   tables (`eq_halves`) and multiply each entry by one lane of each
-   (`weight_fold`);
-2. **gather** f3 at the y-part of each index and multiply (in the same
-   `weight_fold` launch);
+   tables (`eq_halves`) and multiply each entry by one lane of each;
+2. **gather** f3 at the y-part of each index and multiply;
 3. **segment sum** over the x-part without a scatter: entries pre-sorted by
    segment on the host (`_split_f1_device`), each segment's limbs summed
-   exactly in 64-bit accumulators and reduced mod p (`segment_reduce`),
-   written straight into slot 0 of the phase's pair;
+   exactly in 64-bit accumulators and reduced mod p, written straight into
+   slot 0 of the phase's pair. Steps 1-3 are one launch, `weight_reduce`,
+   over a tile plan built with the sort; the weights of step 1 go to
+   phase 2 as the carry `w`, in y order;
 4. **the pair's other slot**: f2 (phase 1), or f3 times f2(u), the final
    fold of phase 1's one-lane pair (phase 2), by `pair_slots`.
 
@@ -26,13 +26,16 @@ device: `phase2_pair` (the generic chain) and `final_fold`,
 `phase2_digits`, `prep2` (the per-size chain) read them from the chain's
 challenge rows, and nothing between the prove's uploads and its one fetch
 waits for the host (no `.item()`, no boolean masks, no upload). A phase is
-4 launches on the generic chain (`phase1_pair`, `phase2_pair`); the
-per-size pieces take 3 (`phase1`, `phase2_digits`) and 1 each (`prep1`,
-`final_fold`, `prep2`).
+3 launches on the generic chain (`phase1_pair`, `phase2_pair`); the
+per-size pieces take 2 (`phase1`, `phase2_digits`) and 1 each (`prep1`,
+`final_fold`, `prep2`); a sharded rank's `phase1` and `phase2_digits`
+take a third, the finish of the all-reduced raw sums.
 
-Layout: f1's values (8, nnz) and the weights `w` (8, nnz) in 8 x 32-bit
-limbs, its index components int32 (`_split_f1_device`, cached per f1 and
-device); f2 and f3 the cached (8, 2^dim) limb tables
+Layout: f1's split (`F1Split`, `_split_f1_device`, cached per f1 and
+device): int32 index components, the values an (nnz, 8) entry-major limb
+table sorted by x, the tile plans, and phase 2's view in y order (x and
+the carry's row of each entry); the carry `w` (nnz, 8) entry-major limbs
+in y order; f2 and f3 the cached (8, 2^dim) limb tables
 (`DenseMLE.to_device`); h_g and f1(g, u, .) (8, 2^dim) limb tables in
 bit-reversed lane order; the challenges (k, 16) int32 rows of Montgomery
 digits (g's from `_point_rows`, u the chain's); f2(u) a (16,) int32 digit
@@ -61,6 +64,8 @@ order, for callers outside a prove; `phase1_init_device_arrays`
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -148,20 +153,39 @@ def _segment_reduce_sorted(vals, perm, last_pos) -> torch.Tensor:
     return LT.unpack_limbs(out)
 
 
-def _split_f1_device(f1, dim: int, device: torch.device, shard=None):
-    """f1's index components and values on `device`, with the segment
-    metadata, cached on the (immutable) SparseMLE per (dim, device).
+class F1Split(NamedTuple):
+    """f1's entries on a device in the kernels' layout (`_split_f1_device`).
+    Phase 1 reads them sorted by the bit-reversed x segment, phase 2 sorted
+    by the bit-reversed y segment (both stable)."""
 
-    Returns (gbits, x, y_rev, vals, last_x, perm_y, last_y): the entries
-    sorted by the bit-reversed x, so the phase-1 segment reduce needs no
-    gather and h_g comes out in the bit-reversed lane order of the round
-    chain; gbits, x, y the low, middle and top dim bits of each index (y
-    bit-reversed, to gather from the bit-reversed f3); `last_*` each
-    bit-reversed segment's last sorted position; `perm_y` the sort by the
-    bit-reversed y. Every component is int32, and `vals` the (8, nnz)
-    int32 limb table of the values (`limbs_np.pack_limbs`, the layout the
-    kernels read). (The JAX package also keeps perm_x, the identity, for
-    its batch prover, and the segment-sum widths; the port drops them.)
+    gbits: torch.Tensor  # (nnz,) the g part of each index, x order
+    y_rev: torch.Tensor  # (nnz,) the y part, bit-reversed (f3's lane), x order
+    vals: torch.Tensor  # (nnz, 8) entry-major limbs of the values, x order
+    last_x: torch.Tensor  # (2^dim,) each x segment's last position
+    plan_x: K.Plan  # the fused kernel's tiles over the x segments
+    to_y: torch.Tensor  # (nnz,) each entry's position in y order: its row of the carry
+    x_y: torch.Tensor  # (nnz,) the x part, y order
+    last_y: torch.Tensor  # (2^dim,) each y segment's last position
+    plan_y: K.Plan  # the tiles over the y segments
+
+
+def _split_f1_device(f1, dim: int, device: torch.device, shard=None) -> F1Split:
+    """f1's index components and values on `device`, with the segment
+    metadata and the tile plans, cached on the (immutable) SparseMLE per
+    (dim, device).
+
+    The entries are sorted by the bit-reversed x, so the phase-1 segment
+    sum needs no gather and h_g comes out in the bit-reversed lane order of
+    the round chain; gbits, x, y the low, middle and top dim bits of each
+    index (y bit-reversed, to gather from the bit-reversed f3); `last_*` each
+    bit-reversed segment's last sorted position. Phase 1 writes the weights
+    `w` (the carry) in y order, each entry at its row `to_y`, so phase 2
+    reads them, and x in y order (`x_y`), in sequence. Every component is
+    int32, the values an (nnz, 8) int32 entry-major limb table
+    (`limbs_np.pack_limbs`), and the plans `gkr_init_cuda.tile_plan`'s. (The
+    JAX package also keeps perm_x, the identity, for its batch prover, and
+    the segment-sum widths; the port drops them, and keeps `perm_y` as its
+    inverse `to_y`.)
 
     With `shard` = (s, S), only rank s's chunk of the multi-device inits
     (`parallel/gkr.py`, cached per (dim, device, s, S)): the sorted
@@ -188,17 +212,23 @@ def _split_f1_device(f1, dim: int, device: torch.device, shard=None):
         mine = slice(s * chunk, (s + 1) * chunk)
         idx = np.concatenate([idx, np.full(pad, mask << dim, np.int64)])[mine]
         vals = np.concatenate([vals, np.zeros((NUM_DIGITS, pad), vals.dtype)], axis=1)[:, mine]
-    assert len(idx) <= 1 << 24, "segment sums are exact up to 2^24 entries"
+    nnz = len(idx)
+    assert nnz <= 1 << 24, "segment sums are exact up to 2^24 entries"
     x = (idx >> dim) & mask  # natural values, sorted by their bit reversal
     y_rev = revp[idx >> (2 * dim)]
     segments = np.arange(1 << dim)
     last_x = np.searchsorted(revp[x], segments, side="right") - 1
     perm_y = np.argsort(y_rev, kind="stable")
     last_y = np.searchsorted(y_rev[perm_y], segments, side="right") - 1
-    ints = [torch.from_numpy(np.ascontiguousarray(a).astype(np.int32)).to(device)
-            for a in (idx & mask, x, y_rev, last_x, perm_y, last_y)]
-    limbs = torch.from_numpy(L.pack_limbs(vals)).to(device)
-    out = (*ints[:3], limbs, *ints[3:])
+    to_y = np.empty(nnz, np.int64)
+    to_y[perm_y] = np.arange(nnz)
+
+    def ints(a):
+        return torch.from_numpy(np.ascontiguousarray(a).astype(np.int32)).to(device)
+
+    out = F1Split(ints(idx & mask), ints(y_rev), torch.from_numpy(L.pack_limbs(vals.T, axis=1))
+                  .to(device), ints(last_x), K.upload_plan(last_x, nnz, device), ints(to_y),
+                  ints(x[perm_y]), ints(last_y), K.upload_plan(last_y, nnz, device))
     f1._dev_split[key] = out
     return out
 
@@ -236,16 +266,24 @@ def _columns(rows: torch.Tensor, k: int):
     return r_pts, torch.stack([LT.sub(one, r) for r in r_pts])
 
 
-def phase1_ref(gbits, last_x, y_rev, values, g_r, f3_bitrev, dim: int):
+def _carry(w: torch.Tensor, to_y: torch.Tensor) -> torch.Tensor:
+    """(8, nnz) weights in x order -> the carry, (nnz, 8) entry-major with
+    entry j at row to_y[j] (y order)."""
+    carry = torch.empty((w.shape[1], NUM_LIMBS), dtype=torch.int32, device=w.device)
+    carry[to_y.long()] = w.T
+    return carry
+
+
+def phase1_ref(split: F1Split, g_r, f3_bitrev, dim: int):
     """Plain version of `phase1`, `_compiled_phase1` (`:284-301`) as torch
     ops: the eq table by doublings, one gather and multiply, the f3 gather
-    and multiply, and the plain segment reduce."""
+    and multiply, and the plain segment reduce; the weights as the carry."""
     r_pts, omr_pts = _columns(g_r, dim)
-    w = _weight_fold(gbits, LT.unpack_limbs(values), r_pts, omr_pts, dim)
-    f3y = LT.unpack_limbs(f3_bitrev.index_select(1, y_rev))  # f3[y]
-    hg = torch.empty((NUM_LIMBS, 1 << dim), dtype=torch.int32, device=values.device)
-    K.segment_reduce_ref(LT.pack_limbs(LT.mont_mul(w, f3y)), None, last_x, hg)
-    return hg, LT.pack_limbs(w)
+    w = _weight_fold(split.gbits, LT.unpack_limbs(split.vals, dim=1).T, r_pts, omr_pts, dim)
+    f3y = LT.unpack_limbs(f3_bitrev.index_select(1, split.y_rev))  # f3[y]
+    hg = torch.empty((NUM_LIMBS, 1 << dim), dtype=torch.int32, device=f3_bitrev.device)
+    K.segment_reduce_ref(LT.pack_limbs(LT.mont_mul(w, f3y)), None, split.last_x, hg)
+    return hg, _carry(LT.pack_limbs(w), split.to_y)
 
 
 def prep1_ref(hg_brev, f2_bitrev, out=None):
@@ -253,10 +291,9 @@ def prep1_ref(hg_brev, f2_bitrev, out=None):
     return _halves(hg_brev, f2_bitrev, out)
 
 
-def phase1_pair_ref(gbits, last_x, y_rev, values, g_r, f3_bitrev, f2_bitrev, dim: int,
-                    out=None):
+def phase1_pair_ref(split: F1Split, g_r, f3_bitrev, f2_bitrev, dim: int, out=None):
     """Plain version of `phase1_pair`, `_phase1_pair_body` (`:472-491`)."""
-    hg, w = phase1_ref(gbits, last_x, y_rev, values, g_r, f3_bitrev, dim)
+    hg, w = phase1_ref(split, g_r, f3_bitrev, dim)
     lo, hi = prep1_ref(hg, f2_bitrev, out)
     return lo, hi, w
 
@@ -266,13 +303,13 @@ def final_fold_ref(lo, hi, r, slot: int) -> torch.Tensor:
     return K.final_fold_ref(lo, hi, r, slot).to(torch.int32)
 
 
-def phase2_digits_ref(x, perm_y, last_y, w, u_digits, dim: int):
+def phase2_digits_ref(split: F1Split, w, u_digits, dim: int):
     """Plain version of `phase2_digits`, `_compiled_phase2_digits`
-    (`:621-634`) as torch ops."""
+    (`:621-634`) as torch ops, over the carry in y order."""
     r_pts, omr_pts = _columns(u_digits, dim)
-    w2 = _weight_fold(x, LT.unpack_limbs(w), r_pts, omr_pts, dim)
+    w2 = _weight_fold(split.x_y, LT.unpack_limbs(w, dim=1).T, r_pts, omr_pts, dim)
     f1gu = torch.empty((NUM_LIMBS, 1 << dim), dtype=torch.int32, device=w.device)
-    K.segment_reduce_ref(LT.pack_limbs(w2), perm_y, last_y, f1gu)
+    K.segment_reduce_ref(LT.pack_limbs(w2), None, split.last_y, f1gu)
     return f1gu
 
 
@@ -287,11 +324,11 @@ def prep2_ref(f1gu_brev, f3_bitrev, f2u, out=None):
     return _halves(f1gu_brev, LT.pack_limbs(f3f2u), out)
 
 
-def phase2_pair_ref(pair_lo, pair_hi, r_last, x, perm_y, last_y, w, u_digits, f3_bitrev,
-                    dim: int, out=None):
+def phase2_pair_ref(pair_lo, pair_hi, r_last, split: F1Split, w, u_digits, f3_bitrev, dim: int,
+                    out=None):
     """Plain version of `phase2_pair`, `_phase2_pair_body` (`:494-522`)."""
     f2u = final_fold_ref(pair_lo, pair_hi, r_last, 1)
-    f1gu = phase2_digits_ref(x, perm_y, last_y, w, u_digits, dim)
+    f1gu = phase2_digits_ref(split, w, u_digits, dim)
     return prep2_ref(f1gu, f3_bitrev, f2u, out)
 
 
@@ -300,21 +337,36 @@ def phase2_pair_ref(pair_lo, pair_hi, r_last, x, perm_y, last_y, w, u_digits, f3
 # ---------------------------------------------------------------------------
 
 
-def _weights(idx, values, r, dim: int, y=None, f3=None):
-    """(w, wv): the weight fold by eq(r, .) over the entries, 2 launches."""
-    return K.weight_fold(idx, values, K.eq_halves(r, dim), dim, y, f3)
+def _reduce(idx, vals, r, dim: int, last, plan, dst, reduce_fn=None, **phase1):
+    """eq's half tables by r and the fused weight fold and segment sum into
+    `dst`: 2 launches. With `reduce_fn` the raw segment sums go to it (it
+    sums them over the ranks in place) and a third launch finishes them.
+    `phase1` (f3, y, to_y) gathers f3 and returns the carry."""
+    eq = K.eq_halves(r, dim)
+    if reduce_fn is None:
+        return K.weight_reduce(idx, vals, eq, dim, last, plan, dst, **phase1)
+    sums = torch.empty((NUM_LIMBS, last.shape[0]), dtype=torch.int64, device=vals.device)
+    carry = K.weight_reduce(idx, vals, eq, dim, last, plan, sums, **phase1)
+    reduce_fn(sums)
+    K.finish_sums(sums, dst)
+    return carry
 
 
-def phase1(gbits, last_x, y_rev, values, g_r, f3_bitrev, dim: int, reduce_fn=None):
+def _reduce1(split: F1Split, g_r, f3_bitrev, dim: int, dst, reduce_fn=None):
+    """Phase 1's `_reduce`: h_g into `dst`; returns the carry."""
+    return _reduce(split.gbits, split.vals, g_r, dim, split.last_x, split.plan_x, dst, reduce_fn,
+                   f3=f3_bitrev, y=split.y_rev, to_y=split.to_y)
+
+
+def phase1(split: F1Split, g_r, f3_bitrev, dim: int, reduce_fn=None):
     """h_g as an (8, 2^dim) limb table in bit-reversed lane order, and the
-    entries' weights `w` (8, nnz), kept for phase 2 (`_compiled_phase1`,
-    `:284-301`): 3 launches. `g_r` is g's (dim, 16) digit rows,
-    `f3_bitrev` the cached (8, 2^dim) limb table. `reduce_fn` sums the raw
-    segment sums over the ranks (`gkr_init_cuda.segment_reduce`)."""
-    w, wv = _weights(gbits, values, g_r, dim, y_rev, f3_bitrev)
-    hg = torch.empty((NUM_LIMBS, 1 << dim), dtype=torch.int32, device=values.device)
-    K.segment_reduce(wv, None, last_x, hg, reduce_fn)
-    return hg, w
+    entries' weights `w` as the carry, (nnz, 8) in y order, kept for phase 2
+    (`_compiled_phase1`, `:284-301`): 2 launches (3 with `reduce_fn`).
+    `g_r` is g's (dim, 16) digit rows, `f3_bitrev` the cached (8, 2^dim)
+    limb table. `reduce_fn` sums the raw segment sums over the ranks
+    (`_reduce`)."""
+    hg = torch.empty((NUM_LIMBS, 1 << dim), dtype=torch.int32, device=f3_bitrev.device)
+    return hg, _reduce1(split, g_r, f3_bitrev, dim, hg, reduce_fn)
 
 
 def prep1(hg_brev, f2_bitrev, out=None):
@@ -325,13 +377,12 @@ def prep1(hg_brev, f2_bitrev, out=None):
     return lo, hi
 
 
-def phase1_pair(gbits, last_x, y_rev, values, g_r, f3_bitrev, f2_bitrev, dim: int, out=None):
+def phase1_pair(split: F1Split, g_r, f3_bitrev, f2_bitrev, dim: int, out=None):
     """`_phase1_pair_body` (`:472-491`): the phase-1 pair (written into
-    `out` = (lo, hi) if given) and `w`: 4 launches, h_g summed straight into
-    slot 0."""
-    w, wv = _weights(gbits, values, g_r, dim, y_rev, f3_bitrev)
-    lo, hi = _new_pair(1 << dim, values.device, out)
-    K.segment_reduce(wv, None, last_x, (lo, hi))
+    `out` = (lo, hi) if given) and the carry `w`: 3 launches, h_g summed
+    straight into slot 0."""
+    lo, hi = _new_pair(1 << dim, f3_bitrev.device, out)
+    w = _reduce1(split, g_r, f3_bitrev, dim, (lo, hi))
     K.pair_slots(lo, hi, ((1, f2_bitrev, None),))
     return lo, hi, w
 
@@ -344,13 +395,13 @@ def final_fold(lo, hi, r, slot: int) -> torch.Tensor:
     return out
 
 
-def phase2_digits(x, perm_y, last_y, w, u_digits, dim: int, reduce_fn=None):
+def phase2_digits(split: F1Split, w, u_digits, dim: int, reduce_fn=None):
     """f1(g, u, .) densified, an (8, 2^dim) limb table in bit-reversed lane
-    order, from the challenges u as (dim, 16) Montgomery digit rows on the
-    device: 3 launches. `reduce_fn` as in `phase1`."""
-    w2, _ = _weights(x, w, u_digits, dim)
+    order, from phase 1's carry `w` and the challenges u as (dim, 16)
+    Montgomery digit rows on the device: 2 launches (3 with `reduce_fn`,
+    as in `phase1`)."""
     f1gu = torch.empty((NUM_LIMBS, 1 << dim), dtype=torch.int32, device=w.device)
-    K.segment_reduce(w2, perm_y, last_y, f1gu, reduce_fn)
+    _reduce(split.x_y, w, u_digits, dim, split.last_y, split.plan_y, f1gu, reduce_fn)
     return f1gu
 
 
@@ -363,15 +414,14 @@ def prep2(f1gu_brev, f3_bitrev, f2u, out=None):
     return lo, hi
 
 
-def phase2_pair(pair_lo, pair_hi, r_last, x, perm_y, last_y, w, u_digits, f3_bitrev,
-                dim: int, out=None):
+def phase2_pair(pair_lo, pair_hi, r_last, split: F1Split, w, u_digits, f3_bitrev, dim: int,
+                out=None):
     """`_phase2_pair_body` (`:494-522`): f2(u) from the phase-1 final pair,
     the phase-2 init, and the phase-2 pair (written into `out` = (lo, hi)
-    if given): 4 launches, f1(g, u, .) summed straight into slot 0 and the
+    if given): 3 launches, f1(g, u, .) summed straight into slot 0 and the
     final fold inside the launch that scales f3."""
-    w2, _ = _weights(x, w, u_digits, dim)
     lo, hi = _new_pair(1 << dim, w.device, out)
-    K.segment_reduce(w2, perm_y, last_y, (lo, hi))
+    _reduce(split.x_y, w, u_digits, dim, split.last_y, split.plan_y, (lo, hi))
     K.pair_slots(lo, hi, ((1, f3_bitrev, "fold"),), fold=(pair_lo, pair_hi, r_last, 1))
     return lo, hi
 
@@ -392,15 +442,14 @@ class _HostF1:
 def phase1_init_device_arrays(f1, f3, g: list[Fr], dim: int, device="cuda"):
     """h_g and phase 2's carry on `device`, with no host sync: h_g as an
     (8, 2^dim) int32 limb table in bit-reversed lane order, and the carry
-    (x, perm_y, last_y, w) that `phase2_init_device` takes. `f1`
-    has `indices` and `values` (a `SparseMLE`: its split is cached on it),
-    `f3` a `to_device` (a `DenseMLE`)."""
+    (f1's split, w) that `phase2_init_device` takes. `f1` has `indices` and
+    `values` (a `SparseMLE`: its split is cached on it), `f3` a `to_device`
+    (a `DenseMLE`)."""
     device = device_prover.resolve_device(device)
-    gbits, x, y_rev, vals, last_x, perm_y, last_y = _split_f1_device(f1, dim, device)
+    split = _split_f1_device(f1, dim, device)
     prepare(device)
-    hg, w = phase1(gbits, last_x, y_rev, vals, upload(_point_rows(list(g)), device),
-                   f3.to_device(device), dim)
-    return hg, (x, perm_y, last_y, w)
+    hg, w = phase1(split, upload(_point_rows(list(g)), device), f3.to_device(device), dim)
+    return hg, (split, w)
 
 
 def _natural(table: torch.Tensor, dim: int) -> np.ndarray:
@@ -428,6 +477,6 @@ def phase1_init_device(f1_indices, f1_values, f3_evals, g: list[Fr], dim: int,
 def phase2_init_device(carry, u: list[Fr], dim: int) -> np.ndarray:
     """f1(g, u, .) densified on the carry's device: a (16, 2^dim) uint32
     NumPy array in natural lane order."""
-    x, perm_y, last_y, w = carry
-    f1gu = phase2_digits(x, perm_y, last_y, w, upload(_point_rows(list(u)), w.device), dim)
+    split, w = carry
+    f1gu = phase2_digits(split, w, upload(_point_rows(list(u)), w.device), dim)
     return _natural(f1gu, dim)

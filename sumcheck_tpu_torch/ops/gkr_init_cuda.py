@@ -6,7 +6,7 @@ Replaces the JAX package's jitted jnp phase-init programs
 `:472-523`, and the per-size `_compiled_phase1`, `_compiled_prep1`,
 `_compiled_final_fold`, `_compiled_phase2_digits`, `_compiled_prep2`,
 `:284-312, 595-654`), as `ops/gkr_init.py` composes them. The kernels are in
-`csrc/gkr_init.cu`; a phase is four launches:
+`csrc/gkr_init.cu`; a phase is three launches (four on a sharded rank):
 
 - `eq_halves(r, k)`: the two half tables of eq(r, .) over k variables,
   (8, 2^kl + 2^kh) int32 limbs with kl = k - k // 2 and kh = k // 2:
@@ -14,19 +14,23 @@ Replaces the JAX package's jitted jnp phase-init programs
   the product over variables kl..k-1. `r` is (>= k, 16) int32 Montgomery
   digit rows (the chain's challenge rows; row stride free, digits
   contiguous).
-- `weight_fold(idx, vals, eq, k, y=None, f3=None)`: w = vals *
-  eq_lo[idx & (2^kl - 1)] * eq_hi[idx >> kl] over f1's entries ((8, nnz)
-  limbs, (nnz,) int32 indices), and with `y`, `f3` also wv = w * f3[:, y];
-  returns (w, wv or None), fresh (8, nnz) int32 tables.
-- `segment_reduce(vals, perm, last, dst, reduce_fn=None)`: the exact sum mod
-  p of each segment of the sorted entries, written as strict limbs into
-  `dst`, a (8, nseg) int32 table or a pair `(lo, hi)` of (U, 8, nseg/2)
-  halves (slot 0). Segment s covers sorted positions (last[s-1] + 1) ..
-  last[s] (`last` int32, -1 before the first entry), entry `perm[q]` of
-  `vals` at sorted position q (`perm` None: q). With `reduce_fn`, the raw
-  (8, nseg) int64 limb sums (a rank's partial) go to `reduce_fn`, which
-  sums them over the ranks in place, and a second launch finishes them
-  into `dst`.
+- `weight_reduce(idx, vals, eq, k, last, plan, out, f3=None, y=None,
+  to_y=None)`: the weight fold (`_weight_fold`, `:98-135`) and the exact
+  segment sum (`_segment_reduce_sorted`, `:237-274`) in one launch. Each
+  entry's weight w = vals * eq_lo[idx & (2^kl - 1)] * eq_hi[idx >> kl]
+  ((nnz, 8) entry-major limbs, (nnz,) int32 indices), in phase 1 (`f3`,
+  `y`, `to_y`) written to row to_y[j] of the returned carry (the weights
+  in y order, (nnz, 8)) and multiplied by f3[:, y]; then summed mod p
+  over each segment of the sorted entries, positions (last[s-1] + 1) ..
+  last[s] (`last` int32, -1 before the first entry), strict into `out`, a
+  (8, nseg) int32 table or a pair `(lo, hi)` of (U, 8, nseg/2) halves
+  (slot 0), or as the raw (8, nseg) int64 limb sums (a rank's partial)
+  where `out` is int64. `plan` is `tile_plan`'s schedule of the segments
+  (built once per f1 on the host, `upload_plan`): tiles of consecutive
+  segments, and chunks of the long ones, which the kernel sums into a
+  per-device scratch that the last chunk to arrive finishes and zeroes.
+- `finish_sums(sums, dst)`: all-reduced raw limb sums -> their strict
+  values in `dst` (the sharded inits: `reduce_fn` in `ops/gkr_init.py`).
 - `pair_slots(lo, hi, slots, fold=None, fold_out=None)`: slot u of the
   (U, 8, H) halves for each `(u, table, scale)` of `slots` (at most 2):
   lo[u] = table[:, :H], hi[u] = table[:, H:], times `scale` where it is a
@@ -41,14 +45,19 @@ uploading nothing and waiting for nothing, and adds one to its `.launches`
 a launch; it runs its plain version (`*_ref`, the same name) for CPU
 tensors and raises for any other device. The plain versions unpack to
 16-bit digits (`limbs_torch.unpack_limbs`), compute as `limbs_torch` does,
-and pack. A failed build or launch raises; there is no fallback.
+and pack; `weight_reduce_ref` composes `weight_fold_ref` and the segment
+sum's plain versions (`limb_sums_ref`, `finish_ref`; `segment_reduce_ref`
+is the plain segment sum of the whole-phase plain versions). A failed
+build or launch raises; there is no fallback.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..fields import limbs_torch as LT
@@ -56,8 +65,9 @@ from ..fields.fr import NINV32, NUM_DIGITS, NUM_LIMBS, P, R, R2, REDUCE_SUBS, WI
 from . import cuda_build
 
 SOURCE = cuda_build.source("gkr_init")
-THREADS = 256  # `csrc/gkr_init.cu`: kThreads
-LONG_SEGMENT = 64  # kLongSegment: longer segments are summed by a whole block
+THREADS = 256  # `csrc/gkr_init.cu`: kThreads, a block of the elementwise kernels
+TILE = 512  # kTile: entries and segments of a tile, the weight reduce's block; longer
+            # segments are cut into chunks
 MAX_SHARED_EQ = 3072  # kMaxSharedEq: half-table lanes staged in shared memory
 MAX_PAIR_SLOTS = 2  # kMaxPairSlots
 
@@ -87,7 +97,7 @@ def build():
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
-    for name, value in (("sc_gkr_threads", THREADS), ("sc_gkr_long_segment", LONG_SEGMENT),
+    for name, value in (("sc_gkr_threads", THREADS), ("sc_gkr_tile", TILE),
                         ("sc_gkr_max_shared_eq", MAX_SHARED_EQ)):
         getattr(lib, name).restype = ctypes.c_int
         if getattr(lib, name)() != value:
@@ -95,16 +105,18 @@ def _library() -> ctypes.CDLL:
     ptr, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     words = ctypes.POINTER(ctypes.c_uint32)
     lib.sc_gkr_eq_halves.argtypes = [ptr, i32, i32, ptr, ll, words, ptr]
-    lib.sc_gkr_weight_fold.argtypes = [ptr, ptr, ptr, ptr, ll, ptr, i32, i32, ptr, ptr, ll, i32,
-                                       words, ptr]
-    lib.sc_gkr_segment_reduce.argtypes = [ptr, ll, ptr, ptr, ptr, ptr, ll, ptr, ptr, ll, ll,
-                                          words, ptr]
+    lib.sc_gkr_weight_reduce.argtypes = [
+        ptr, i32, ptr, ptr, ptr, i32, i32, ptr, ll,  # plan, items, vals, idx, eq, kl, kh, last
+        ptr, ptr, ll, ptr, ptr, ptr, ptr, ptr,  # y, f3, n3, to_y, carry, scratch, arrived, sums
+        ptr, ptr, ll, ll, i32, words, ptr,  # the destination, device, consts, stream
+    ]
+    lib.sc_gkr_finish_sums.argtypes = [ptr, ll, ptr, ptr, ll, ll, words, ptr]
     lib.sc_gkr_pair_slots.argtypes = [
         ptr, ptr, ll, i32, ctypes.POINTER(i32), ctypes.POINTER(i32),  # lo, hi, half, slots
         ctypes.POINTER(ptr), ctypes.POINTER(ll), ctypes.POINTER(ll), ctypes.POINTER(ptr),
         ptr, ptr, ll, ll, i32, ptr, ptr, words, ptr,  # the fold, fold_out, consts, stream
     ]
-    for fn in (lib.sc_gkr_eq_halves, lib.sc_gkr_weight_fold, lib.sc_gkr_segment_reduce,
+    for fn in (lib.sc_gkr_eq_halves, lib.sc_gkr_weight_reduce, lib.sc_gkr_finish_sums,
                lib.sc_gkr_pair_slots):
         fn.restype = ctypes.c_int
     lib.sc_gkr_error_string.argtypes = [ctypes.c_int]
@@ -188,7 +200,56 @@ def eq_halves(r: torch.Tensor, k: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the weight fold
+# the plan of the fused kernel's tiles
+# ---------------------------------------------------------------------------
+
+
+class Plan(NamedTuple):
+    """`tile_plan`'s items on a device, (n, 4) int32, and the count of its
+    long segments (the scratch rows a launch uses)."""
+
+    items: torch.Tensor
+    long: int
+
+
+def tile_plan(last: np.ndarray, nnz: int, tile: int = TILE) -> tuple[np.ndarray, int]:
+    """The fused kernel's work over segments of sorted entries (`last`, each
+    segment's last position, -1 before the first entry): (items, long), items
+    an (n, 4) int32 array of {s0, count, e0, e1}. A tile (count > 0) is the
+    most consecutive segments from s0 whose entries, exactly e0 .. e1 - 1,
+    fit `tile`, and at most `tile` segments; a segment of more than `tile`
+    entries is long, cut into chunks of `tile` entries (the last shorter),
+    each an item {s0, -1 - row, e0, e1} with the segment's scratch row.
+    Built on the host from the sort alone, once for each f1 (one step a
+    tile)."""
+    last = np.asarray(last, dtype=np.int64)
+    nseg = len(last)
+    bounds = np.empty(nseg + 1, np.int64)  # bounds[s]: segment s's first position
+    bounds[0], bounds[1:] = 0, last + 1
+    if bounds[-1] != nnz:
+        raise ValueError(f"the segments end at {bounds[-1]}, not at the {nnz} entries")
+    items, long, s = [], 0, 0
+    while s < nseg:
+        e0 = int(bounds[s])
+        if bounds[s + 1] - e0 > tile:
+            end = int(bounds[s + 1])
+            items += [(s, -1 - long, c, min(c + tile, end)) for c in range(e0, end, tile)]
+            long, s = long + 1, s + 1
+            continue
+        s1 = min(int(np.searchsorted(bounds, e0 + tile, side="right")) - 1, s + tile, nseg)
+        items.append((s, s1 - s, e0, int(bounds[s1])))
+        s = s1
+    return np.array(items, dtype=np.int32).reshape(-1, 4), long
+
+
+def upload_plan(last: np.ndarray, nnz: int, device) -> Plan:
+    """`tile_plan` on `device`."""
+    items, long = tile_plan(last, nnz)
+    return Plan(torch.from_numpy(items).to(device), long)
+
+
+# ---------------------------------------------------------------------------
+# the weight fold and the segment sum: plain versions
 # ---------------------------------------------------------------------------
 
 
@@ -208,8 +269,10 @@ def _check_fold(idx, vals, eq, k, y, f3) -> int:
 
 
 def weight_fold_ref(idx, vals, eq, k: int, y=None, f3=None):
-    """Plain version of `weight_fold`: two gathers of the unpacked half
-    tables and two multiplies, and with `y` the f3 gather and a third."""
+    """The weight fold (`_weight_fold`, `sumcheck_tpu/ops/gkr_init.py:98`)
+    over (8, nnz) limbs: two gathers of the unpacked half tables and two
+    multiplies, and with `y` the f3 gather and a third. Returns (w, wv or
+    None), (8, nnz) int32 tables."""
     _check_fold(idx, vals, eq, k, y, f3)
     kl, _kh = halves(k)
     nlo = 1 << kl
@@ -220,28 +283,6 @@ def weight_fold_ref(idx, vals, eq, k: int, y=None, f3=None):
         return LT.pack_limbs(w), None
     wv = LT.mont_mul(w, LT.unpack_limbs(f3.index_select(1, y)))
     return LT.pack_limbs(w), LT.pack_limbs(wv)
-
-
-def weight_fold(idx, vals, eq, k: int, y=None, f3=None):
-    """(w, wv) over f1's entries in one launch (wv None without `y`)."""
-    if not _on_card(vals):
-        return weight_fold_ref(idx, vals, eq, k, y, f3)
-    nnz = _check_fold(idx, vals, eq, k, y, f3)
-    kl, kh = halves(k)
-    w = torch.empty_like(vals)
-    wv = None if y is None else torch.empty_like(vals)
-    _run("weight_fold", lambda lib, s: lib.sc_gkr_weight_fold(
-        w.data_ptr(), None if wv is None else wv.data_ptr(), vals.data_ptr(), idx.data_ptr(),
-        nnz, eq.data_ptr(), kl, kh, None if y is None else y.data_ptr(),
-        None if f3 is None else f3.data_ptr(), 0 if f3 is None else f3.shape[1],
-        vals.device.index, _CONSTS, s), vals.device)
-    weight_fold.launches += 1
-    return w, wv
-
-
-# ---------------------------------------------------------------------------
-# the exact segment reduce
-# ---------------------------------------------------------------------------
 
 
 def _dest(dst, nseg: int):
@@ -259,22 +300,11 @@ def _dest(dst, nseg: int):
     return lo[0], hi[0], half, half
 
 
-def _check_reduce(vals, perm, last, dst) -> tuple:
-    _limbs(vals, "vals")
-    nnz, nseg = vals.shape[1], last.shape[0] if last.dim() == 1 else -1
-    _ints(last, "last", nseg)
-    if perm is not None:
-        _ints(perm, "perm", nnz)
-    out = _dest(dst, nseg)
-    _same_device(vals, perm, last, out[0], out[1])
-    return nnz, nseg, out
-
-
 def limb_sums_ref(vals, perm, last) -> torch.Tensor:
-    """The raw (8, nseg) int64 limb sums of each segment (plain): a
-    cumulative sum along the sorted entries, differenced at each segment's
-    last position. Exact: each limb is below 2^32 and a segment holds at
-    most 2^24 entries."""
+    """The raw (8, nseg) int64 limb sums of each segment of (8, nnz) limbs
+    (plain): a cumulative sum along the sorted entries, differenced at each
+    segment's last position. Exact: each limb is below 2^32 and a segment
+    holds at most 2^24 entries."""
     v = vals.long() & _M32
     if perm is not None:
         v = v.index_select(1, perm)
@@ -308,37 +338,145 @@ def _write(dst, table: torch.Tensor) -> None:
     dst[1][0].copy_(table[:, half:])
 
 
-def segment_reduce_ref(vals, perm, last, dst, reduce_fn=None) -> None:
-    """Plain version of `segment_reduce`."""
-    _check_reduce(vals, perm, last, dst)
-    sums = limb_sums_ref(vals, perm, last)
-    if reduce_fn is not None:
-        reduce_fn(sums)
+def segment_reduce_ref(vals, perm, last, dst) -> None:
+    """The exact segment sum (`_segment_reduce_sorted`,
+    `sumcheck_tpu/ops/gkr_init.py:237`) of (8, nnz) limbs, entry `perm[q]`
+    at sorted position q (`perm` None: q), written strict into `dst`."""
+    _limbs(vals, "vals")
+    nseg = last.shape[0]
+    _ints(last, "last", nseg)
+    if perm is not None:
+        _ints(perm, "perm", vals.shape[1])
+    _write(dst, finish_ref(limb_sums_ref(vals, perm, last)))
+
+
+# ---------------------------------------------------------------------------
+# the fused weight fold and segment sum
+# ---------------------------------------------------------------------------
+
+
+def _rows_table(t: torch.Tensor, name: str, n: int) -> None:
+    if t.dtype != torch.int32 or t.shape != (n, NUM_LIMBS) or not t.is_contiguous() \
+            or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be a contiguous, 16-byte aligned ({n}, 8) int32 "
+                         f"entry-major table, got {tuple(t.shape)} {t.dtype}")
+
+
+def _check_reduce(idx, vals, eq, k, last, plan, out, f3, y, to_y):
+    """(nnz, nseg, destination or None, raw sums or None)."""
+    nnz = vals.shape[0] if vals.dim() == 2 else -1
+    _rows_table(vals, "vals", nnz)
+    _ints(idx, "idx", nnz)
+    kl, kh = halves(k)
+    _limbs(eq, "eq", (1 << kl) + (1 << kh))
+    nseg = last.shape[0] if last.dim() == 1 else -1
+    _ints(last, "last", nseg)
+    items = plan.items
+    if items.dtype != torch.int32 or items.dim() != 2 or items.shape[1] != 4 \
+            or not items.is_contiguous() or len(items) < 1:
+        raise ValueError("the plan's items must be a contiguous (n >= 1, 4) int32 tensor")
+    if (y is None) != (f3 is None) or (y is None) != (to_y is None):
+        raise ValueError("phase 1's f3 gather and carry need y, f3 and to_y")
+    if y is not None:
+        _ints(y, "y", nnz)
+        _ints(to_y, "to_y", nnz)
+        _limbs(f3, "f3")
+    raw = out if isinstance(out, torch.Tensor) and out.dtype == torch.int64 else None
+    if raw is not None:
+        if raw.shape != (NUM_LIMBS, nseg) or not raw.is_contiguous():
+            raise ValueError(f"the raw sums must be a contiguous (8, {nseg}) int64 tensor")
+        dst = None
+    else:
+        dst = _dest(out, nseg)
+    _same_device(idx, vals, eq, last, items, f3, y, to_y, raw,
+                 *(() if dst is None else dst[:2]))
+    return nnz, nseg, dst, raw
+
+
+def weight_reduce_ref(idx, vals, eq, k: int, last, plan: Plan, out, f3=None, y=None,
+                      to_y=None):
+    """Plain version of `weight_reduce`: the weight fold and the segment
+    sum's plain versions composed on the entry-major layout (the plan
+    unused: it only schedules the kernel)."""
+    nnz, _nseg, _dst, raw = _check_reduce(idx, vals, eq, k, last, plan, out, f3, y, to_y)
+    w, wv = weight_fold_ref(idx, vals.T.contiguous(), eq, k, y, f3)
+    sums = limb_sums_ref(w if wv is None else wv, None, last)
+    if raw is not None:
+        raw.copy_(sums)
+    else:
+        _write(out, finish_ref(sums))
+    if to_y is None:
+        return None
+    carry = torch.empty((nnz, NUM_LIMBS), dtype=torch.int32, device=vals.device)
+    carry[to_y.long()] = w.T
+    return carry
+
+
+_SCRATCH: dict = {}  # device -> the long segments' (rows, 8) sums and (rows,) counters
+
+
+def _scratch(device: torch.device, rows: int):
+    """The long segments' scratch on `device`, zero and kept zero by the
+    kernel: at least `rows` rows, grown (fresh zeros) when a plan needs more.
+    Launches on one device's streams run in order (the port launches on the
+    current stream), so they share it."""
+    have = _SCRATCH.get(device)
+    if have is None or have[0].shape[0] < rows:
+        have = (torch.zeros((max(rows, 1), NUM_LIMBS), dtype=torch.int64, device=device),
+                torch.zeros(max(rows, 1), dtype=torch.int32, device=device))
+        _SCRATCH[device] = have
+    return have
+
+
+def weight_reduce(idx, vals, eq, k: int, last, plan: Plan, out, f3=None, y=None, to_y=None):
+    """The weight fold by eq's half tables and the exact segment sum of the
+    sorted entries, one launch: (nnz, 8) `vals` times eq_lo[idx & m] *
+    eq_hi[idx >> kl], summed over each segment (`last`) mod p into `out`, a
+    (8, nseg) int32 table or a pair (slot 0), or as the raw (8, nseg) int64
+    limb sums where `out` is int64 (a rank's partial; `finish_sums` finishes
+    them). Phase 1 passes `f3`, `y` and `to_y`: each weight is multiplied by
+    f3[:, y] before the sum, and the weights are returned as the carry,
+    (nnz, 8) int32 with entry j at row to_y[j]; else returns None. `plan`
+    is `tile_plan`'s over the same `last` (its bounds are not checked on
+    the card: that would cost a sync)."""
+    if not _on_card(vals):
+        return weight_reduce_ref(idx, vals, eq, k, last, plan, out, f3, y, to_y)
+    nnz, nseg, dst, raw = _check_reduce(idx, vals, eq, k, last, plan, out, f3, y, to_y)
+    kl, kh = halves(k)
+    carry = None if to_y is None else torch.empty_like(vals)
+    scratch, arrived = _scratch(vals.device, plan.long) if plan.long else (None, None)
+    lo, hi, ld, split = dst if dst is not None else (None, None, 0, 0)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    _run("weight_reduce", lambda lib, s: lib.sc_gkr_weight_reduce(
+        plan.items.data_ptr(), len(plan.items), vals.data_ptr(), idx.data_ptr(), eq.data_ptr(),
+        kl, kh, last.data_ptr(), nseg, ptr(y), ptr(f3), 0 if f3 is None else f3.shape[1],
+        ptr(to_y), ptr(carry), ptr(scratch), ptr(arrived), ptr(raw), ptr(lo), ptr(hi), ld,
+        split, vals.device.index, _CONSTS, s), vals.device)
+    weight_reduce.launches += 1
+    return carry
+
+
+def finish_sums_ref(sums, dst) -> None:
+    """Plain version of `finish_sums`."""
     _write(dst, finish_ref(sums))
 
 
-def segment_reduce(vals, perm, last, dst, reduce_fn=None) -> None:
-    """The strict segment sums into `dst`: one launch, or with `reduce_fn`
-    two (the raw limb sums, then the finish of the summed partials)."""
-    if not _on_card(vals):
-        return segment_reduce_ref(vals, perm, last, dst, reduce_fn)
-    nnz, nseg, (lo, hi, ld, split) = _check_reduce(vals, perm, last, dst)
-    perm_p = None if perm is None else perm.data_ptr()
-    if reduce_fn is None:
-        _run("segment_reduce", lambda lib, s: lib.sc_gkr_segment_reduce(
-            vals.data_ptr(), nnz, perm_p, last.data_ptr(), None, None, nseg, lo.data_ptr(),
-            hi.data_ptr(), ld, split, _CONSTS, s), vals.device)
-        segment_reduce.launches += 1
-        return
-    sums = torch.empty((NUM_LIMBS, nseg), dtype=torch.int64, device=vals.device)
-    _run("segment_reduce (sums)", lambda lib, s: lib.sc_gkr_segment_reduce(
-        vals.data_ptr(), nnz, perm_p, last.data_ptr(), None, sums.data_ptr(), nseg, None, None,
-        0, 0, _CONSTS, s), vals.device)
-    reduce_fn(sums)
-    _run("segment_reduce (finish)", lambda lib, s: lib.sc_gkr_segment_reduce(
-        None, 0, None, None, sums.data_ptr(), None, nseg, lo.data_ptr(), hi.data_ptr(), ld,
-        split, _CONSTS, s), vals.device)
-    segment_reduce.launches += 2
+def finish_sums(sums, dst) -> None:
+    """All-reduced raw (8, nseg) int64 limb sums -> their strict values in
+    `dst` (a table or slot 0 of a pair), one launch."""
+    if sums.dtype != torch.int64 or sums.dim() != 2 or sums.shape[0] != NUM_LIMBS \
+            or not sums.is_contiguous():
+        raise ValueError(f"the sums must be a contiguous (8, nseg) int64 tensor, got "
+                         f"{tuple(sums.shape)} {sums.dtype}")
+    nseg = sums.shape[1]
+    lo, hi, ld, split = _dest(dst, nseg)
+    _same_device(sums, lo, hi)
+    if not _on_card(sums):
+        return finish_sums_ref(sums, dst)
+    _run("finish_sums", lambda lib, s: lib.sc_gkr_finish_sums(
+        sums.data_ptr(), nseg, lo.data_ptr(), hi.data_ptr(), ld, split, _CONSTS, s),
+        sums.device)
+    finish_sums.launches += 1
 
 
 # ---------------------------------------------------------------------------
@@ -440,6 +578,6 @@ def pair_slots(lo, hi, slots, fold=None, fold_out=None) -> None:
 
 
 eq_halves.launches = 0
-weight_fold.launches = 0
-segment_reduce.launches = 0
+weight_reduce.launches = 0
+finish_sums.launches = 0
 pair_slots.launches = 0

@@ -14,8 +14,8 @@
   `comm.all_reduce_sum_` adds them over the ranks, exactly, and every rank
   finishes the sum (carries, reduction mod p) on its device into the
   replicated h_g or f1(g, u, .), whose bytes equal the single device's
-  (`ops/gkr_init_cuda.segment_reduce`).
-  The weights `w` of phase 1 stay on the rank for phase 2. The JAX package
+  (`ops/gkr_init_cuda.weight_reduce` into raw sums, then `finish_sums`).
+  The weights `w` of phase 1 (the carry) stay on the rank for phase 2. The JAX package
   sums strict partials instead and splits the mod-p work with a
   reduce-scatter and an all-gather (`_psum_reduce_mod_p`, `:50-74`); that
   split is later performance work.
@@ -92,15 +92,15 @@ class ShardedGKRProver:
         """Both phases on the rank (the single device's `_enqueue`,
         sharded) from `gkr_round_sumcheck._upload(..., shard=)`: returns
         (msgs (2 dim, 16, 3), rs (2 dim, 16), state)."""
-        (gbits, x, y_rev, vals, last_x, perm_y, last_y), f2_d, f3_d, g_r = inputs
+        split, f2_d, f3_d, g_r = inputs
         s, size = self.rank, self.num_shards
         reduce = functools.partial(comm.all_reduce_sum_, group=self.group)
-        hg, w = GI.phase1(gbits, last_x, y_rev, vals, g_r, f3_d, dim, reduce)
+        hg, w = GI.phase1(split, g_r, f3_d, dim, reduce)
         lo, hi = GI.prep1(deal(hg, s, size), deal(f2_d, s, size))
         msgs1, rs1, state, pair = sharded_rounds(lo, hi, state, _PRODUCTS, _DEGREE, dim,
                                                  self.group)
         f2_u = GI.final_fold(*pair, rs1[dim - 1], 1)
-        f1_gu = GI.phase2_digits(x, perm_y, last_y, w, rs1, dim, reduce)
+        f1_gu = GI.phase2_digits(split, w, rs1, dim, reduce)
         lo, hi = GI.prep2(deal(f1_gu, s, size), deal(f3_d, s, size), f2_u)
         msgs2, rs2, state, _pair = sharded_rounds(lo, hi, state, _PRODUCTS, _DEGREE, dim,
                                                   self.group)

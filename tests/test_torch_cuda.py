@@ -579,15 +579,15 @@ def test_prove_in_mxu_mode_on_cuda(cuda, monkeypatch):
 
 
 # the phase-init kernels a GKR prove launches on each path: (eq_halves,
-# weight_fold, segment_reduce, pair_slots); the MXU fold mode runs the same
+# weight_reduce, finish_sums, pair_slots); the MXU fold mode runs the same
 # kernels as the generic chain
-GKR_INIT_LAUNCHES = {"generic": (2, 2, 2, 2), "persize": (2, 2, 2, 3), "mxu": (2, 2, 2, 2)}
+GKR_INIT_LAUNCHES = {"generic": (2, 2, 0, 2), "persize": (2, 2, 0, 3), "mxu": (2, 2, 0, 2)}
 
 
 def _init_counters():
     from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
 
-    return (GK.eq_halves, GK.weight_fold, GK.segment_reduce, GK.pair_slots)
+    return (GK.eq_halves, GK.weight_reduce, GK.finish_sums, GK.pair_slots)
 
 
 def _gkr_mode(mode, monkeypatch):
@@ -649,8 +649,8 @@ def test_gkr_golden_on_cuda(cuda, mode, monkeypatch):
 def test_gkr_prove_on_cuda_equals_cpu(cuda, mode, monkeypatch):
     """A dim-9 GKR prove with colliding f1 entries: 2 round-0 launches,
     2 (dim - 1) folds and 2 dim transcript steps per prove, the phase-init
-    kernels' launches of the path (`GKR_INIT_LAUNCHES`: 8 on the generic
-    chain in either fold mode, 9 on the per-size chain), and proof bytes and the final
+    kernels' launches of the path (`GKR_INIT_LAUNCHES`: 6 on the generic
+    chain in either fold mode, 7 on the per-size chain), and proof bytes and the final
     transcript state equal to the CPU's."""
     import random
 
@@ -705,57 +705,77 @@ def _gkr_split(dim, nnz, seed, device, skew=0):
 def _to_cpu(x):
     if isinstance(x, torch.Tensor):
         return x.cpu()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):  # a split or a plan
+        return type(x)(*(_to_cpu(t) for t in x))
     return tuple(_to_cpu(t) for t in x) if isinstance(x, (tuple, list)) else x
 
 
-@pytest.mark.parametrize("dim,skew", [(9, 0), (14, 0), (9, (1 << 16) + 1)],
-                         ids=["dim9", "dim14", "skewed"])
+@pytest.mark.parametrize("dim,skew", [(9, 0), (14, 0), (18, 0), (9, (1 << 16) + 1)],
+                         ids=["dim9", "dim14", "dim18", "skewed"])
 def test_gkr_init_kernels_match_plain(cuda, dim, skew):
     """Each GKR phase-init kernel against its plain version on the same
-    inputs, with colliding entries (3 a segment on average) or one segment
-    of 2^16 + 1 entries (summed by a whole block): the eq half tables
-    from challenge rows with a row stride, the weight fold with and
-    without the f3 gather, the segment reduce into a table and into slot 0
-    of a pair, through phase 2's permutation, and as a rank's raw sums
-    finished after a `reduce_fn`; the pair slots (copies, a scale by a
+    inputs, with colliding entries (3 a segment on average; one a segment
+    at dim 18, the main shape) or one segment of 2^16 + 1 entries (cut into
+    chunks across blocks): the eq half tables from challenge rows with a
+    row stride; the fused weight reduce in phase 1's form (the f3 gather
+    and the carry) and phase 2's (over the carry), each into a table, into
+    slot 0 of one instance's slice of a batched pair, and as a rank's raw
+    sums, then `finish_sums` of them; the pair slots (copies, a scale by a
     digit row, by the final fold of a strided one-lane pair, from a dealt
     view, into one instance's slice of a batched pair) and the final fold
-    alone; each wrapper counted once a launch (twice with `reduce_fn`)."""
+    alone; each wrapper counted once a launch, and the long segments'
+    scratch left zero."""
     from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
     from sumcheck_tpu_torch.parallel.mesh import deal
 
-    split, f2, f3, g_r, u_r = _gkr_split(dim, 3 << dim, dim, cuda, skew)
-    gbits, x, y_rev, vals, last_x, perm_y, last_y = split
+    nnz = (3 << dim) if dim < 18 else 1 << dim
+    split, f2, f3, g_r, u_r = _gkr_split(dim, nnz, dim, cuda, skew)
     cpu = _to_cpu((split, f2, f3, g_r, u_r))
-    (cgb, cx, cy, cvals, clx, cpy, cly), cf2, cf3, cg, cu = cpu
+    csplit, cf2, cf3, cg, cu = cpu
+    assert (split.plan_x.long > 0) == bool(skew)
     counts = [f.launches for f in _init_counters()]
     wide = torch.stack([torch.zeros_like(g_r), g_r], dim=1)[:, 1]  # row stride 32 words
     eq = GK.eq_halves(wide, dim)
     assert torch.equal(eq.cpu(), GK.eq_halves_ref(cg, dim))
-    w, wv = GK.weight_fold(gbits, vals, eq, dim, y_rev, f3)
-    cw, cwv = GK.weight_fold_ref(cgb, cvals, eq.cpu(), dim, cy, cf3)
-    w2, none = GK.weight_fold(x, w, GK.eq_halves(u_r, dim), dim)
-    cw2, _ = GK.weight_fold_ref(cx, cw, GK.eq_halves_ref(cu, dim), dim)
-    assert none is None
-    assert torch.equal(w.cpu(), cw) and torch.equal(wv.cpu(), cwv) and torch.equal(w2.cpu(), cw2)
+    eq_u = GK.eq_halves(u_r, dim)
     n, half = 1 << dim, 1 << (dim - 1)
-    for v, perm, last, cv, cperm, clast in ((wv, None, last_x, cwv, None, clx),
-                                            (w2, perm_y, last_y, cw2, cpy, cly)):
+    carry = None
+    for phase in (1, 2):
+        if phase == 1:
+            s, c = split, csplit
+            args = (s.gbits, s.vals, eq, dim, s.last_x, s.plan_x)
+            cargs = (c.gbits, c.vals, eq.cpu(), dim, c.last_x, c.plan_x)
+            kw = {"f3": f3, "y": s.y_rev, "to_y": s.to_y}
+            ckw = {"f3": cf3, "y": c.y_rev, "to_y": c.to_y}
+        else:
+            args = (split.x_y, carry, eq_u, dim, split.last_y, split.plan_y)
+            cargs = (csplit.x_y, carry.cpu(), eq_u.cpu(), dim, csplit.last_y, csplit.plan_y)
+            kw = ckw = {}
         table = torch.empty((8, n), dtype=torch.int32, device=cuda)
-        GK.segment_reduce(v, perm, last, table)
+        got = GK.weight_reduce(*args, table, **kw)
         want = torch.empty((8, n), dtype=torch.int32)
-        GK.segment_reduce_ref(cv, cperm, clast, want)
+        cgot = GK.weight_reduce_ref(*cargs, want, **ckw)
         assert torch.equal(table.cpu(), want)
+        assert (got is None) == (phase == 2)
+        if phase == 1:
+            assert got.shape == (len(split.gbits), 8) and torch.equal(got.cpu(), cgot)
+            carry = got
         lo = torch.zeros((3, 2, 8, half), dtype=torch.int32, device=cuda)
         hi = torch.zeros_like(lo)
-        GK.segment_reduce(v, perm, last, (lo[1], hi[1]))
+        GK.weight_reduce(*args, (lo[1], hi[1]), **kw)
         assert torch.equal(torch.cat([lo[1, 0], hi[1, 0]], dim=1).cpu(), want)
         assert not lo[[0, 2]].any() and not lo[1, 1].any() and not hi[[0, 2]].any()
-        seen = []
+        sums = torch.empty((8, n), dtype=torch.int64, device=cuda)
+        GK.weight_reduce(*args, sums, **kw)
+        csums = torch.empty((8, n), dtype=torch.int64)
+        GK.weight_reduce_ref(*cargs, csums, **ckw)
+        assert torch.equal(sums.cpu(), csums)
         twice = torch.empty_like(table)
-        GK.segment_reduce(v, perm, last, twice, lambda sums: seen.append(sums.clone()))
-        assert torch.equal(twice, table) and seen[0].dtype == torch.int64
-        assert torch.equal(seen[0].cpu(), GK.limb_sums_ref(cv, cperm, clast))
+        GK.finish_sums(sums, twice)
+        assert torch.equal(twice, table)
+    if skew:
+        scratch, arrived = GK._scratch(cuda, 1)
+        assert not scratch.any() and not arrived.any()
     # the pair slots
     r_last = u_r[dim - 1]
     lo1 = torch.empty((2, 8, half), dtype=torch.int32, device=cuda)
@@ -788,16 +808,18 @@ def test_gkr_init_kernels_match_plain(cuda, dim, skew):
     GK.pair_slots_ref(cdlo, cdhi, ((0, deal(want, 1, 2), None), (1, deal(cf3, 1, 2), cf2u)))
     assert torch.equal(dlo.cpu(), cdlo) and torch.equal(dhi.cpu(), cdhi)
     torch.cuda.synchronize()
-    assert [f.launches - c for f, c in zip(_init_counters(), counts)] == [2, 2, 8, 4]
+    assert [f.launches - c for f, c in zip(_init_counters(), counts)] == [2, 6, 2, 4]
 
 
 @pytest.mark.parametrize("gather", [True, False], ids=["gather", "no_gather"])
 @pytest.mark.parametrize("k", [22, 24])
 def test_gkr_weight_fold_global_tables_match_plain(cuda, k, gather):
-    """The weight fold past what shared memory stages (2^11 + 2^11 half-table
-    lanes and more, dim 22-24): the variants that read the half tables from
-    global memory, on 4,096 entries at random indices below 2^k, with and
-    without the f3 gather, against the plain version."""
+    """The fused weight reduce past what shared memory stages (2^11 + 2^11
+    half-table lanes and more, dim 22-24): the variants that read the half
+    tables from global memory, on 4,096 entries at random indices below
+    2^k in 1,024 segments (one of 600 entries, cut into chunks), with the
+    f3 gather and the carry (phase 1) and without (phase 2), strict and as
+    raw sums, against the plain version."""
     import random
 
     from sumcheck_tpu_torch.ops import gkr_init as GI
@@ -806,28 +828,41 @@ def test_gkr_weight_fold_global_tables_match_plain(cuda, k, gather):
     kl, kh = GK.halves(k)
     assert (1 << kl) + (1 << kh) > GK.MAX_SHARED_EQ
     gen = np.random.default_rng(k)
-    m, n3 = 1 << 12, 1 << 10
+    m, n3, nseg = 1 << 12, 1 << 10, 1 << 10
     rnd = random.Random(k)
-    vals = torch.from_numpy(L.pack_limbs(L.from_ints([rnd.randrange(P) for _ in range(m)])))
+    vals = torch.from_numpy(L.pack_limbs(L.from_ints([rnd.randrange(P) for _ in range(m)]).T,
+                                         axis=1))
     idx = torch.from_numpy(gen.integers(0, 1 << k, m).astype(np.int32))
-    r = GI._point_rows([T.Fr(rnd.randrange(P)) for _ in range(k)])
-    r = torch.from_numpy(r)
-    y = f3 = None
+    seg = np.sort(np.concatenate([gen.integers(0, nseg, m - 600), np.full(600, 7)]))
+    last_np = np.searchsorted(seg, np.arange(nseg), side="right") - 1
+    last = torch.from_numpy(last_np.astype(np.int32))
+    plan = GK.upload_plan(last_np, m, "cpu")
+    assert plan.long == 1
+    r = torch.from_numpy(GI._point_rows([T.Fr(rnd.randrange(P)) for _ in range(k)]))
+    kw = {}
     if gather:
         f3 = torch.from_numpy(L.pack_limbs(L.from_ints([rnd.randrange(P) for _ in range(n3)])))
-        y = torch.from_numpy(gen.integers(0, n3, m).astype(np.int32))
+        kw = {"f3": f3, "y": torch.from_numpy(gen.integers(0, n3, m).astype(np.int32)),
+              "to_y": torch.from_numpy(gen.permutation(m).astype(np.int32))}
     eq = GK.eq_halves(r.to(cuda), k)
     assert torch.equal(eq.cpu(), GK.eq_halves_ref(r, k))
-    before = GK.weight_fold.launches
-    w, wv = GK.weight_fold(idx.to(cuda), vals.to(cuda), eq, k, *_to_cuda((y, f3), cuda))
-    assert GK.weight_fold.launches == before + 1
-    cw, cwv = GK.weight_fold_ref(idx, vals, eq.cpu(), k, y, f3)
-    assert torch.equal(w.cpu(), cw)
-    assert (wv is None) == (not gather) and (wv is None or torch.equal(wv.cpu(), cwv))
-
-
-def _to_cuda(ts, cuda):
-    return tuple(None if t is None else t.to(cuda) for t in ts)
+    cplan = GK.Plan(plan.items.to(cuda), plan.long)
+    args = (idx.to(cuda), vals.to(cuda), eq, k, last.to(cuda), cplan)
+    ckw = {key: t.to(cuda) for key, t in kw.items()}
+    before = GK.weight_reduce.launches
+    table = torch.empty((8, nseg), dtype=torch.int32, device=cuda)
+    carry = GK.weight_reduce(*args, table, **ckw)
+    sums = torch.empty((8, nseg), dtype=torch.int64, device=cuda)
+    GK.weight_reduce(*args, sums, **ckw)
+    assert GK.weight_reduce.launches == before + 2
+    want, wsums = torch.empty((8, nseg), dtype=torch.int32), torch.empty((8, nseg),
+                                                                         dtype=torch.int64)
+    cargs = (idx, vals, eq.cpu(), k, last, plan)
+    want_carry = GK.weight_reduce_ref(*cargs, want, **kw)
+    GK.weight_reduce_ref(*cargs, wsums, **kw)
+    assert torch.equal(table.cpu(), want) and torch.equal(sums.cpu(), wsums)
+    assert (carry is None) == (not gather)
+    assert carry is None or torch.equal(carry.cpu(), want_carry)
 
 
 @pytest.mark.parametrize("dim,skew", [(9, 0), (14, 0), (9, (1 << 16) + 1)],
@@ -840,55 +875,73 @@ def test_gkr_phase_inits_on_cuda_equal_plain(cuda, dim, skew):
     from sumcheck_tpu_torch.ops import gkr_init as GI
 
     split, f2, f3, g_r, u_r = _gkr_split(dim, 3 << dim, dim + 1, cuda, skew)
-    gbits, x, y_rev, vals, last_x, perm_y, last_y = split
-    (cgb, cx, cy, cvals, clx, cpy, cly), cf2, cf3, cg, cu = _to_cpu((split, f2, f3, g_r, u_r))
+    csplit, cf2, cf3, cg, cu = _to_cpu((split, f2, f3, g_r, u_r))
     half = 1 << (dim - 1)
     blo = torch.zeros((2, 2, 8, half), dtype=torch.int32, device=cuda)
     bhi = torch.zeros_like(blo)
-    lo, hi, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, f3, f2, dim,
-                               out=(blo[1], bhi[1]))
-    rlo, rhi, rw = GI.phase1_pair_ref(gbits, last_x, y_rev, vals, g_r, f3, f2, dim)
-    clo, chi, cw = GI.phase1_pair(cgb, clx, cy, cvals, cg, cf3, cf2, dim)
+    lo, hi, w = GI.phase1_pair(split, g_r, f3, f2, dim, out=(blo[1], bhi[1]))
+    rlo, rhi, rw = GI.phase1_pair_ref(split, g_r, f3, f2, dim)
+    clo, chi, cw = GI.phase1_pair(csplit, cg, cf3, cf2, dim)
     for a, b, c in ((lo, rlo, clo), (hi, rhi, chi), (w, rw, cw)):
         assert torch.equal(a, b) and torch.equal(a.cpu(), c)
     assert not blo[0].any() and not bhi[0].any()
-    args = (x, perm_y, last_y, w, u_r, f3, dim)
+    args = (split, w, u_r, f3, dim)
     lo2, hi2 = GI.phase2_pair(lo[:, :, :1], hi[:, :, :1], u_r[dim - 1], *args)
     rlo2, rhi2 = GI.phase2_pair_ref(lo[:, :, :1], hi[:, :, :1], u_r[dim - 1], *args)
-    clo2, chi2 = GI.phase2_pair(clo[:, :, :1], chi[:, :, :1], cu[dim - 1], cx, cpy, cly, cw, cu,
-                                cf3, dim)
+    clo2, chi2 = GI.phase2_pair(clo[:, :, :1], chi[:, :, :1], cu[dim - 1], csplit, cw, cu, cf3,
+                                dim)
     assert torch.equal(lo2, rlo2) and torch.equal(hi2, rhi2)
     assert torch.equal(lo2.cpu(), clo2) and torch.equal(hi2.cpu(), chi2)
-    hg, w1 = GI.phase1(gbits, last_x, y_rev, vals, g_r, f3, dim)
-    assert all(torch.equal(a, b) for a, b in zip(
-        (hg, w1), GI.phase1_ref(gbits, last_x, y_rev, vals, g_r, f3, dim)))
+    hg, w1 = GI.phase1(split, g_r, f3, dim)
+    assert all(torch.equal(a, b) for a, b in zip((hg, w1), GI.phase1_ref(split, g_r, f3, dim)))
     assert all(torch.equal(a, b) for a, b in zip(GI.prep1(hg, f2), GI.prep1_ref(hg, f2)))
     f2u = GI.final_fold(lo[:, :, :1], hi[:, :, :1], u_r[dim - 1], 1)
     assert torch.equal(f2u, GI.final_fold_ref(lo[:, :, :1], hi[:, :, :1], u_r[dim - 1], 1))
-    f1gu = GI.phase2_digits(x, perm_y, last_y, w, u_r, dim)
-    assert torch.equal(f1gu, GI.phase2_digits_ref(x, perm_y, last_y, w, u_r, dim))
+    f1gu = GI.phase2_digits(split, w, u_r, dim)
+    assert torch.equal(f1gu, GI.phase2_digits_ref(split, w, u_r, dim))
     assert all(torch.equal(a, b) for a, b in zip(GI.prep2(f1gu, f3, f2u),
                                                   GI.prep2_ref(f1gu, f3, f2u)))
 
 
 def test_segment_reduce_long_segment_on_cuda(cuda):
-    """One segment of 2^20 + 3 entries between short and empty ones, read
-    through a permutation, on the block path: equal to the plain version."""
+    """One segment of 2^20 + 3 entries (2,049 chunks across blocks) between
+    short and empty ones, and one of exactly a tile + 1, through the fused
+    kernel in phase 2's form: strict and raw sums equal to the plain
+    version, three launches in a row (the last chunk to arrive zeroes the
+    scratch for the next), and the scratch zero after."""
+    import random
+
+    from sumcheck_tpu_torch.ops import gkr_init as GI
     from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
 
     gen = np.random.default_rng(20)
-    lengths = np.array([0, 2, (1 << 20) + 3, 0, 70, 1] + [1] * 250)
-    nnz = int(lengths.sum())
-    last = torch.from_numpy((np.cumsum(lengths) - 1).astype(np.int32))
-    vals = torch.from_numpy(gen.integers(-(1 << 31), 1 << 31, (8, nnz), dtype=np.int64)
-                            .astype(np.int32))
-    vals[7] &= (1 << 28) - 1  # below p
-    perm = torch.from_numpy(gen.permutation(nnz).astype(np.int32))
-    out = torch.empty((8, len(lengths)), dtype=torch.int32, device=cuda)
-    GK.segment_reduce(vals.to(cuda), perm.to(cuda), last.to(cuda), out)
-    want = torch.empty((8, len(lengths)), dtype=torch.int32)
-    GK.segment_reduce_ref(vals, perm, last, want)
-    assert torch.equal(out.cpu(), want)
+    lengths = np.array([0, 2, (1 << 20) + 3, 0, 70, 1, GK.TILE + 1] + [1] * 250)
+    nnz, nseg = int(lengths.sum()), len(lengths)
+    last_np = np.cumsum(lengths) - 1
+    last = torch.from_numpy(last_np.astype(np.int32))
+    plan = GK.upload_plan(last_np, nnz, "cpu")
+    assert plan.long == 2
+    rows = gen.integers(-(1 << 31), 1 << 31, (nnz, 8), dtype=np.int64).astype(np.int32)
+    rows[:, 7] &= (1 << 28) - 1  # below p
+    vals = torch.from_numpy(rows)
+    idx = torch.from_numpy(gen.integers(0, 1 << 10, nnz).astype(np.int32))
+    rnd = random.Random(20)
+    r = torch.from_numpy(GI._point_rows([T.Fr(rnd.randrange(P)) for _ in range(10)]))
+    eq = GK.eq_halves_ref(r, 10)
+    args = (idx.to(cuda), vals.to(cuda), eq.to(cuda), 10, last.to(cuda),
+            GK.Plan(plan.items.to(cuda), plan.long))
+    want = torch.empty((8, nseg), dtype=torch.int32)
+    GK.weight_reduce_ref(idx, vals, eq, 10, last, plan, want)
+    wsums = torch.empty((8, nseg), dtype=torch.int64)
+    GK.weight_reduce_ref(idx, vals, eq, 10, last, plan, wsums)
+    for _ in range(3):
+        out = torch.empty((8, nseg), dtype=torch.int32, device=cuda)
+        GK.weight_reduce(*args, out)
+        sums = torch.empty((8, nseg), dtype=torch.int64, device=cuda)
+        GK.weight_reduce(*args, sums)
+        assert torch.equal(out.cpu(), want) and torch.equal(sums.cpu(), wsums)
+    scratch, arrived = GK._scratch(cuda, 2)
+    assert not scratch.any() and not arrived.any()
 
 
 # ---------------------------------------------------------------------------
@@ -1246,7 +1299,8 @@ def test_batched_gkr_on_cuda_equals_per_instance(cuda):
     proofs = BatchedGKRRoundSumcheck.prove(rngs, *(list(t) for t in zip(*insts)), device=cuda)
     assert TC.transcript_step_batched.launches - before == 2 * dim
     # each instance's phase inits into its slice of the batched pair
-    assert [f.launches - b for f, b in zip(_init_counters(), inits)] == [2 * batch] * 4
+    assert [f.launches - b for f, b in zip(_init_counters(), inits)] == \
+        [2 * batch, 2 * batch, 0, 2 * batch]
     assert [p.serialize_uncompressed() for p in proofs] == alone
     assert [T.Fr.rand(r) for r in rngs] == [T.Fr.rand(r) for r in alone_rngs]
 
@@ -1438,7 +1492,7 @@ def test_phase_init_wrappers_on_cuda_equal_cpu(cuda):
     f3 = T.DenseMLE.rand(dim, rnd)
     g, u = ([T.Fr(rnd.randrange(P)) for _ in range(dim)] for _ in range(2))
     h, carry = GI.phase1_init_device(f1.indices, f1.values, f3.evals, g, dim, device=cuda)
-    assert carry[3].device == cuda
+    assert carry[1].device == cuda
     h_cpu, carry_cpu = GI.phase1_init_device(f1.indices, f1.values, f3.evals, g, dim,
                                              device="cpu")
     assert np.array_equal(h, h_cpu)

@@ -225,7 +225,7 @@ def test_host_transcript_branch_runs_on_the_device(transcript, monkeypatch):
                       (GI, "phase1_pair"), (GI, "phase2_pair")):
         real = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, _n=name, _f=real: calls.append(
-            (_n, a[0].device.type)) or _f(*a))
+            (_n, next(t for t in a if isinstance(t, torch.Tensor)).device.type)) or _f(*a))
     rng = _OtherRng() if transcript == "foreign" else T.Blake2b512Rng.setup()
     if transcript == "unaligned":
         rng.feed_bytes(b"abc")
@@ -266,18 +266,32 @@ def test_sparse_mle_matches_jax():
 
 def test_split_f1_device_matches_jax():
     """The split in the kernels' layout: int32 index components and the
-    values as an (8, nnz) int32 limb table, unpacked equal to the JAX
-    package's (16, nnz) digits."""
+    values as an (nnz, 8) int32 entry-major limb table, unpacked equal to
+    the JAX package's (16, nnz) digits; phase 2's view in y order (`x_y`
+    is the JAX x through perm_y, `to_y` perm_y's inverse); each tile plan
+    covers its segments once, in order."""
     dim = 5
-    (f1, *_), (t1, *_) = instances(dim, seed=7, nnz=3 << dim)
+    nnz = 3 << dim
+    (f1, *_), (t1, *_) = instances(dim, seed=7, nnz=nnz)
     got = GI._split_f1_device(t1, dim, CPU)
-    want = JGI._split_f1_device(f1, dim)
-    j_order = (0, 1, 2, 3, 5, 6, 7)  # the JAX tuple keeps perm_x at 4
-    assert all(a.dtype == torch.int32 and a.is_contiguous() for a in got)
-    assert got[3].shape == (8, 3 << dim)
-    for i, (a, k) in enumerate(zip(got, j_order)):
-        a = L.unpack_limbs(a.numpy()) if i == 3 else a.numpy()
-        np.testing.assert_array_equal(a.astype(np.int64), np.asarray(want[k]).astype(np.int64))
+    gbits, x, y_rev, vals, _perm_x, last_x, perm_y, last_y = \
+        (np.asarray(a).astype(np.int64) for a in JGI._split_f1_device(f1, dim))
+    tensors = [t for t in got if isinstance(t, torch.Tensor)]
+    assert len(tensors) == 7 and all(t.dtype == torch.int32 and t.is_contiguous()
+                                      for t in tensors)
+    assert got.vals.shape == (nnz, 8)
+    np.testing.assert_array_equal(L.unpack_limbs(got.vals.numpy(), axis=1).T, vals)
+    for a, b in ((got.gbits, gbits), (got.y_rev, y_rev), (got.last_x, last_x),
+                 (got.x_y, x[perm_y]), (got.last_y, last_y)):
+        np.testing.assert_array_equal(a.numpy(), b)
+    np.testing.assert_array_equal(got.to_y.numpy()[perm_y], np.arange(nnz))
+    for plan, last in ((got.plan_x, last_x), (got.plan_y, last_y)):
+        items = plan.items.numpy()
+        assert plan.long == 0 and (items[:, 1] > 0).all()
+        assert items[0, 0] == 0 and (items[1:, 0] == items[:-1, 0] + items[:-1, 1]).all()
+        assert items[-1, 0] + items[-1, 1] == 1 << dim and items[-1, 3] == nnz
+        assert (items[1:, 2] == items[:-1, 3]).all()
+        assert (items[:, 3] == last[items[:, 0] + items[:, 1] - 1] + 1).all()
     assert GI._split_f1_device(t1, dim, CPU) is got  # cached per (dim, device)
 
 
@@ -291,10 +305,10 @@ def test_phase_inits_match_jax_host(dim):
     inits equal the JAX package's host inits, with colliding entries; the
     pairs stack them as the round kernels take them."""
     (f1, f2, f3, g), (t1, t2, t3, tg) = instances(dim, seed=dim, nnz=3 << dim)
-    gbits, x, y_rev, vals, last_x, perm_y, last_y = GI._split_f1_device(t1, dim, CPU)
+    split = GI._split_f1_device(t1, dim, CPU)
     g_r = GI.upload(GI._point_rows(tg), CPU)
     f2_d, f3_d = t2.to_device(CPU), t3.to_device(CPU)
-    lo, hi, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, f3_d, f2_d, dim)
+    lo, hi, w = GI.phase1_pair(split, g_r, f3_d, f2_d, dim)
     h_host, f1g_host = j_phase_one(f1, f3, g)
     rev = bitrev_perm(dim)
     assert lo.shape == (2, 8, 1 << (dim - 1)) and lo.dtype == torch.int32
@@ -305,7 +319,7 @@ def test_phase_inits_match_jax_host(dim):
     rnd = random.Random(dim)
     u = [rnd.randrange(P) for _ in range(dim)]
     u_dig = torch.from_numpy(np.stack([L.mont_scalar(v)[:, 0] for v in u]).astype(np.int32))
-    f1gu = GI.phase2_digits(x, perm_y, last_y, w, u_dig, dim)
+    f1gu = GI.phase2_digits(split, w, u_dig, dim)
     want = j_phase_two(f1g_host, [J.Fr(v) for v in u]).evals
     np.testing.assert_array_equal(L.unpack_limbs(f1gu.numpy())[:, rev], want)
 
@@ -443,12 +457,13 @@ def test_pair_bodies_match_jax(split8):
     jlo, jhi, jw = jax.jit(JGI._phase1_pair_body(dim, split8))(
         jsp[0], jsp[4], jsp[5], jsp[2], jsp[3], jnp.asarray(gr), jnp.asarray(gomr),
         f3.device_bitrev(), f2.device_bitrev())
-    gbits, x, y_rev, vals, last_x, perm_y, last_y = GI._split_f1_device(t1, dim, CPU)
+    split = GI._split_f1_device(t1, dim, CPU)
     g_r = GI.upload(GI._point_rows(tg), CPU)
-    lo, hi, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r,
-                               t3.to_device(CPU), t2.to_device(CPU), dim)
+    lo, hi, w = GI.phase1_pair(split, g_r, t3.to_device(CPU), t2.to_device(CPU), dim)
+    # the carry is entry-major in y order: row to_y[j] holds the JAX w's entry j
+    w_x = L.unpack_limbs(w.numpy(), axis=1)[split.to_y.numpy()].T
     for a, b in ((L.unpack_limbs(lo.numpy(), axis=1), jlo), (L.unpack_limbs(hi.numpy(), axis=1),
-                                                            jhi), (L.unpack_limbs(w.numpy()), jw)):
+                                                            jhi), (w_x, jw)):
         np.testing.assert_array_equal(a.astype(np.int64), np.asarray(b).astype(np.int64))
 
     rnd = random.Random(14)
@@ -458,8 +473,8 @@ def test_pair_bodies_match_jax(split8):
         jlo[:, :, :1], jhi[:, :, :1], r_last, jsp[1], jsp[6], jsp[7], jw,
         jnp.asarray(u), f3.device_bitrev())
     lo2, hi2 = GI.phase2_pair(lo[:, :, :1], hi[:, :, :1], torch.from_numpy(u[-1].astype(np.int32)),
-                              x, perm_y, last_y, w, torch.from_numpy(u.astype(np.int32)),
-                              t3.to_device(CPU), dim)
+                              split, w, torch.from_numpy(u.astype(np.int32)), t3.to_device(CPU),
+                              dim)
     for a, b in ((lo2, jlo2), (hi2, jhi2)):
         np.testing.assert_array_equal(L.unpack_limbs(a.numpy(), axis=1).astype(np.int64),
                                       np.asarray(b).astype(np.int64))

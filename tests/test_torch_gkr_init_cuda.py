@@ -5,9 +5,13 @@ package's phase-init functions (`sumcheck_tpu/ops/gkr_init.py`) on the
 same inputs, made with numpy and `random` from a seed.
 
 The JAX functions run eagerly (`jax.disable_jit`: a jit compile of the pair
-bodies takes longer on the CPU), at dim 4 with three entries a segment on
-average, and the eq half tables at k = 4 and 9. A skewed f1, one segment of
-2^16 + 1 entries, is held to Python integers (the naive sums). The file
+bodies takes longer on the CPU), at dim 4 and 9 with three entries a segment
+on average, and the eq half tables and the fused weight reduce at k = 4 and
+9. Phase 1's weights `w` (the carry) are entry-major (nnz, 8) in y order:
+row to_y[j] holds the JAX package's column j, and the tests compare them
+under that permutation and transpose. The tile plans with long segments
+(2^16 + 1 entries, a tile + 1) are walked and held to the naive sums, and a
+skewed f1, one segment of 2^16 + 1 entries, to Python integers. The file
 reruns itself under BN254 Fr in a child pytest (`test_*_under_bn254`);
 there the JAX package's `reduce_wide` leaves a segment sum past 3p
 unreduced (ROADMAP section 3), so segment sums compare mod p, with the
@@ -77,37 +81,62 @@ def _digits(gen, n: int) -> np.ndarray:
     return L.from_ints([rnd.randrange(P) for _ in range(n)])
 
 
+def _carry_columns(carry: torch.Tensor, to_y: torch.Tensor) -> np.ndarray:
+    """The carry, (nnz, 8) limbs in y order -> (16, nnz) digits in x order
+    (column j from row to_y[j]), the JAX package's layout of `w`."""
+    return L.unpack_limbs(carry.numpy(), axis=1)[to_y.numpy()].T
+
+
+def _entry_rows(digits) -> torch.Tensor:
+    """(16, n) digits -> the (n, 8) int32 entry-major limb rows."""
+    return torch.from_numpy(L.pack_limbs(np.asarray(digits).T, axis=1))
+
+
 # ---------------------------------------------------------------------------
-# the eq half tables and the weight fold
+# the eq half tables and the fused weight reduce
 # ---------------------------------------------------------------------------
 
 
 @pytest.mark.parametrize("k", [4, 9])
 def test_weight_fold_matches_jax(k):
-    """eq_halves + weight_fold = the JAX package's `_weight_fold` (one eq
-    table of 2^k lanes, one gather), and the f3 gather's product equals
-    the JAX multiply of the same lanes."""
+    """eq_halves + the weight fold = the JAX package's `_weight_fold` (one
+    eq table of 2^k lanes, one gather); `weight_reduce` in phase 1's form
+    (the f3 gather, the carry through a permutation) gives the carry equal
+    to it and segment sums equal to `_segment_reduce_sorted` of its product
+    with f3, strict, as raw limb sums too, and in phase 2's form (no
+    gather) the sums of the weights alone."""
     gen = np.random.default_rng(k)
     nnz = 3 << k
     idx = gen.integers(0, 1 << k, nnz)
     vals = _digits(gen, nnz)
     f3 = _digits(gen, 1 << k)
     y = gen.integers(0, 1 << k, nnz)
+    to_y = gen.permutation(nnz)
+    seg = np.sort(gen.integers(0, 1 << k, nnz))
+    last = np.searchsorted(seg, np.arange(1 << k), side="right") - 1
     pts = [random.Random(k).randrange(P) for _ in range(k)]
     r_pts, omr_pts = GI._points_arrays([T.Fr(v) for v in pts])
     want = _eager(JGI._weight_fold, jnp.asarray(idx.astype(np.int32)), jnp.asarray(vals),
                   jnp.asarray(r_pts), jnp.asarray(omr_pts), k)
+    wv_want = _eager(LJ.mont_mul, want, jnp.asarray(f3[:, y]))
     eq = GK.eq_halves(_rows(pts), k)
     assert eq.shape == (8, (1 << (k - k // 2)) + (1 << (k // 2))) and eq.dtype == torch.int32
-    w, wv = GK.weight_fold(torch.from_numpy(idx.astype(np.int32)),
-                           torch.from_numpy(L.pack_limbs(vals)), eq, k,
-                           torch.from_numpy(y.astype(np.int32)), torch.from_numpy(L.pack_limbs(f3)))
-    np.testing.assert_array_equal(L.unpack_limbs(w.numpy()), np.asarray(want))
-    wv_want = _eager(LJ.mont_mul, want, jnp.asarray(f3[:, y]))
-    np.testing.assert_array_equal(L.unpack_limbs(wv.numpy()), np.asarray(wv_want))
-    w2, none = GK.weight_fold(torch.from_numpy(idx.astype(np.int32)),
-                              torch.from_numpy(L.pack_limbs(vals)), eq, k)
-    assert none is None and torch.equal(w2, w)
+    t_idx, t_last = (torch.from_numpy(a.astype(np.int32)) for a in (idx, last))
+    plan = GK.upload_plan(last, nnz, CPU)
+    gather = {"f3": torch.from_numpy(L.pack_limbs(f3)), "y": torch.from_numpy(y.astype(np.int32)),
+              "to_y": torch.from_numpy(to_y.astype(np.int32))}
+    hg = torch.empty((8, 1 << k), dtype=torch.int32)
+    carry = GK.weight_reduce(t_idx, _entry_rows(vals), eq, k, t_last, plan, hg, **gather)
+    np.testing.assert_array_equal(_carry_columns(carry, gather["to_y"]), np.asarray(want))
+    last_j = jnp.asarray(last.astype(np.int32))
+    _same(hg, _eager(JGI._segment_reduce_sorted, wv_want, None, last_j))
+    sums = torch.empty((8, 1 << k), dtype=torch.int64)
+    assert GK.weight_reduce(t_idx, _entry_rows(vals), eq, k, t_last, plan, sums, **gather) \
+        is not None
+    assert torch.equal(GK.finish_ref(sums), hg)
+    h2 = torch.empty((8, 1 << k), dtype=torch.int32)
+    assert GK.weight_reduce(t_idx, _entry_rows(vals), eq, k, t_last, plan, h2) is None
+    _same(h2, _eager(JGI._segment_reduce_sorted, want, None, last_j))
 
 
 def test_eq_halves_factor_the_eq_table():
@@ -140,43 +169,52 @@ def test_eq_halves_factor_the_eq_table():
 # ---------------------------------------------------------------------------
 
 
-@pytest.fixture(scope="module")
-def case():
-    """One dim-4 instance with colliding entries in both packages, phase
+def _case(dim: int, seed: int):
+    """One dim-`dim` instance with colliding entries in both packages, phase
     1's challenges g and phase 2's u, and every JAX phase function's output
     on them (eagerly)."""
-    rnd = random.Random(41)
-    f1 = J.SparseMLE.rand_with_config(3 * DIM, 3 << DIM, rnd)
-    f2, f3 = J.DenseMLE.rand(DIM, rnd), J.DenseMLE.rand(DIM, rnd)
-    g = [J.Fr(rnd.randrange(P)) for _ in range(DIM)]
-    u = [rnd.randrange(P) for _ in range(DIM)]
-    t1, t2, t3, tg = gkr_instance_from_numpy(DIM, f1.indices, f1.values, f2.evals, f3.evals,
+    rnd = random.Random(seed)
+    f1 = J.SparseMLE.rand_with_config(3 * dim, 3 << dim, rnd)
+    f2, f3 = J.DenseMLE.rand(dim, rnd), J.DenseMLE.rand(dim, rnd)
+    g = [J.Fr(rnd.randrange(P)) for _ in range(dim)]
+    u = [rnd.randrange(P) for _ in range(dim)]
+    t1, t2, t3, tg = gkr_instance_from_numpy(dim, f1.indices, f1.values, f2.evals, f3.evals,
                                              [x.v for x in g])
-    jsp = JGI._split_f1_device(f1, DIM)
+    jsp = JGI._split_f1_device(f1, dim)
     nx, ny = JGI._seg_narrow(f1)
     gr, gomr = (jnp.asarray(a) for a in JGI._points_arrays(g))
     u_dig = np.stack([L.mont_scalar(v)[:, 0] for v in u])
     f3b, f2b = f3.device_bitrev(), f2.device_bitrev()
     with jax.disable_jit():
-        hg, w = JGI._compiled_phase1(len(f1.indices), DIM, "off", not nx)(
+        hg, w = JGI._compiled_phase1(len(f1.indices), dim, "off", not nx)(
             jsp[0], jsp[4], jsp[5], jsp[2], jsp[3], gr, gomr, f3b)
-        jlo, jhi, jw = JGI._phase1_pair_body(DIM, not nx)(
+        jlo, jhi, jw = JGI._phase1_pair_body(dim, not nx)(
             jsp[0], jsp[4], jsp[5], jsp[2], jsp[3], gr, gomr, f3b, f2b)
-        p1 = JGI._compiled_prep1(DIM)(hg, f2b)
+        p1 = JGI._compiled_prep1(dim)(hg, f2b)
         f2u = JGI._compiled_final_fold(1)(jlo[:, :, :1], jhi[:, :, :1], jnp.asarray(u_dig[-1]))
-        f1gu = JGI._compiled_phase2_digits(len(f1.indices), DIM, "off", not ny)(
+        f1gu = JGI._compiled_phase2_digits(len(f1.indices), dim, "off", not ny)(
             jsp[1], jsp[6], jsp[7], w, jnp.asarray(u_dig))
-        p2 = JGI._compiled_prep2(DIM)(f1gu, f3b, f2u)
-        jlo2, jhi2 = JGI._phase2_pair_body(DIM, not ny)(
+        p2 = JGI._compiled_prep2(dim)(f1gu, f3b, f2u)
+        jlo2, jhi2 = JGI._phase2_pair_body(dim, not ny)(
             jlo[:, :, :1], jhi[:, :, :1], jnp.asarray(u_dig[-1]), jsp[1], jsp[6], jsp[7], jw,
             jnp.asarray(u_dig), f3b)
     jax_out = {"hg": hg, "w": w, "pair1": (jlo, jhi, jw), "prep1": p1, "f2u": f2u, "f1gu": f1gu,
                "prep2": p2, "pair2": (jlo2, jhi2)}
-    split = GI._split_f1_device(t1, DIM, CPU)
-    port = {"split": split, "g": GI.upload(GI._point_rows(tg), CPU),
+    split = GI._split_f1_device(t1, dim, CPU)
+    port = {"dim": dim, "split": split, "g": GI.upload(GI._point_rows(tg), CPU),
             "u": torch.from_numpy(u_dig.astype(np.int32)), "f2": t2.to_device(CPU),
             "f3": t3.to_device(CPU)}
     return jax_out, port
+
+
+@pytest.fixture(scope="module")
+def case():
+    return _case(DIM, 41)
+
+
+@pytest.fixture(scope="module")
+def case9():
+    return _case(9, 42)
 
 
 def _pair_digits(lo, hi) -> list[np.ndarray]:
@@ -190,48 +228,49 @@ def _jax_pair(lo, hi) -> list[np.ndarray]:
 
 def _phase1(case):
     _j, p = case
-    gbits, _x, y_rev, vals, last_x, *_ = p["split"]
-    return GI.phase1(gbits, last_x, y_rev, vals, p["g"], p["f3"], DIM)
+    return GI.phase1(p["split"], p["g"], p["f3"], p["dim"])
 
 
-def test_phase1_matches_jax(case):
-    j, _p = case
+def _pair1_args(p):
+    return p["split"], p["g"], p["f3"], p["f2"], p["dim"]
+
+
+def check_phase1(case):
+    j, p = case
     hg, w = _phase1(case)
-    assert hg.shape == (8, 1 << DIM) and w.dtype == torch.int32
+    assert hg.shape == (8, 1 << p["dim"]) and w.dtype == torch.int32
     _same(hg, j["hg"])
-    np.testing.assert_array_equal(L.unpack_limbs(w.numpy()), np.asarray(j["w"]))
+    assert w.shape == (3 << p["dim"], 8) and w.is_contiguous()
+    np.testing.assert_array_equal(_carry_columns(w, p["split"].to_y), np.asarray(j["w"]))
 
 
-def test_prep1_matches_jax(case):
+def check_prep1(case):
     j, p = case
     hg, _w = _phase1(case)
     lo, hi = GI.prep1(hg, p["f2"])
-    assert lo.shape == (2, 8, 1 << (DIM - 1)) and lo.is_contiguous()
+    assert lo.shape == (2, 8, 1 << (p["dim"] - 1)) and lo.is_contiguous()
     got, want = _pair_digits(lo, hi), _jax_pair(*j["prep1"])
     assert _ints(got[0]) == _ints(want[0])
     np.testing.assert_array_equal(got[1], want[1])
 
 
-def test_phase1_pair_matches_jax_body(case):
-    """`phase1_pair` unpacked against `_phase1_pair_body`, fresh and written
-    into one instance's slice of a batched pair (`out=`)."""
+def check_phase1_pair(case):
     j, p = case
-    gbits, _x, y_rev, vals, last_x, *_ = p["split"]
-    args = (gbits, last_x, y_rev, vals, p["g"], p["f3"], p["f2"], DIM)
+    args = _pair1_args(p)
     lo, hi, w = GI.phase1_pair(*args)
     jlo, jhi, jw = j["pair1"]
     got, want = _pair_digits(lo, hi), _jax_pair(jlo, jhi)
     assert _ints(got[0]) == _ints(want[0])
     np.testing.assert_array_equal(got[1], want[1])
-    np.testing.assert_array_equal(L.unpack_limbs(w.numpy()), np.asarray(jw))
-    blo = torch.full((3, 2, 8, 1 << (DIM - 1)), 7, dtype=torch.int32)
+    np.testing.assert_array_equal(_carry_columns(w, p["split"].to_y), np.asarray(jw))
+    blo = torch.full((3,) + tuple(lo.shape), 7, dtype=torch.int32)
     bhi = torch.full_like(blo, 7)
     GI.phase1_pair(*args, out=(blo[1], bhi[1]))
     assert torch.equal(blo[1], lo) and torch.equal(bhi[1], hi)
     assert (blo[[0, 2]] == 7).all() and (bhi[[0, 2]] == 7).all()
 
 
-def test_final_fold_matches_jax(case):
+def check_final_fold(case):
     j, p = case
     lo, hi, _w = GI.phase1_pair(*_pair1_args(p))
     got = GI.final_fold(lo[:, :, :1], hi[:, :, :1], p["u"][-1], 1)
@@ -239,23 +278,15 @@ def test_final_fold_matches_jax(case):
     np.testing.assert_array_equal(got.numpy(), np.asarray(j["f2u"]))
 
 
-def _pair1_args(p):
-    gbits, _x, y_rev, vals, last_x, *_ = p["split"]
-    return gbits, last_x, y_rev, vals, p["g"], p["f3"], p["f2"], DIM
-
-
-def test_phase2_digits_matches_jax(case):
+def check_phase2_digits(case):
     j, p = case
     _lo, _hi, w = GI.phase1_pair(*_pair1_args(p))
-    _g, x, _y, _v, _lx, perm_y, last_y = p["split"]
-    f1gu = GI.phase2_digits(x, perm_y, last_y, w, p["u"], DIM)
-    assert f1gu.shape == (8, 1 << DIM) and f1gu.dtype == torch.int32
+    f1gu = GI.phase2_digits(p["split"], w, p["u"], p["dim"])
+    assert f1gu.shape == (8, 1 << p["dim"]) and f1gu.dtype == torch.int32
     _same(f1gu, j["f1gu"])
 
 
-def test_prep2_matches_jax(case):
-    """`prep2` against `_compiled_prep2` on the same f1(g, u, .) and f2(u):
-    slot 1 = f3 * f2(u)."""
+def check_prep2(case):
     j, p = case
     f1gu = torch.from_numpy(L.pack_limbs(L.from_ints(_ints(j["f1gu"]), mont=False)))
     lo, hi = GI.prep2(f1gu, p["f3"], torch.from_numpy(np.asarray(j["f2u"]).astype(np.int32)))
@@ -264,28 +295,70 @@ def test_prep2_matches_jax(case):
     np.testing.assert_array_equal(got[1], want[1])
 
 
-def test_phase2_pair_matches_jax_body(case):
-    """`phase2_pair` unpacked against `_phase2_pair_body`, from phase 1's
-    one-lane pair (a strided view of the pair), fresh and into `out=`."""
+def check_phase2_pair(case):
     j, p = case
     lo, hi, w = GI.phase1_pair(*_pair1_args(p))
-    _g, x, _y, _v, _lx, perm_y, last_y = p["split"]
-    args = (lo[:, :, :1], hi[:, :, :1], p["u"][-1], x, perm_y, last_y, w, p["u"], p["f3"], DIM)
+    args = (lo[:, :, :1], hi[:, :, :1], p["u"][-1], p["split"], w, p["u"], p["f3"], p["dim"])
     lo2, hi2 = GI.phase2_pair(*args)
     got, want = _pair_digits(lo2, hi2), _jax_pair(*j["pair2"])
     assert _ints(got[0]) == _ints(want[0])
     np.testing.assert_array_equal(got[1], want[1])
-    blo = torch.zeros((2, 2, 8, 1 << (DIM - 1)), dtype=torch.int32)
+    blo = torch.zeros((2,) + tuple(lo2.shape), dtype=torch.int32)
     bhi = torch.zeros_like(blo)
     GI.phase2_pair(*args, out=(blo[1], bhi[1]))
     assert torch.equal(blo[1], lo2) and torch.equal(bhi[1], hi2) and not blo[0].any()
+
+
+def test_phase1_matches_jax(case):
+    """`phase1` against `_compiled_phase1`: h_g, and the carry under its
+    permutation and transpose."""
+    check_phase1(case)
+
+
+def test_prep1_matches_jax(case):
+    check_prep1(case)
+
+
+def test_phase1_pair_matches_jax_body(case):
+    """`phase1_pair` unpacked against `_phase1_pair_body`, fresh and written
+    into one instance's slice of a batched pair (`out=`)."""
+    check_phase1_pair(case)
+
+
+def test_final_fold_matches_jax(case):
+    check_final_fold(case)
+
+
+def test_phase2_digits_matches_jax(case):
+    check_phase2_digits(case)
+
+
+def test_prep2_matches_jax(case):
+    """`prep2` against `_compiled_prep2` on the same f1(g, u, .) and f2(u):
+    slot 1 = f3 * f2(u)."""
+    check_prep2(case)
+
+
+def test_phase2_pair_matches_jax_body(case):
+    """`phase2_pair` unpacked against `_phase2_pair_body`, from phase 1's
+    one-lane pair (a strided view of the pair), fresh and into `out=`."""
+    check_phase2_pair(case)
+
+
+@pytest.mark.parametrize("check", [check_phase1, check_phase1_pair, check_phase2_digits,
+                                   check_phase2_pair], ids=lambda f: f.__name__[6:])
+def test_phases_match_jax_at_dim9(case9, check):
+    """The phase functions on the fused kernel's plain version against
+    `_compiled_phase1`, `_phase1_pair_body`, `_compiled_phase2_digits` and
+    `_phase2_pair_body` at dim 9 (eq over k = 9 variables, 1,536 entries)."""
+    check(case9)
 
 
 @pytest.mark.parametrize("fold", ["generic", "mxu"])
 def test_whole_phase_refs_equal_the_kernels_plain_versions(case, fold, monkeypatch):
     """The torch-op bodies kept as the plain versions of the whole phases
     (`*_ref`; in the MXU fold mode with the banded products at every width,
-    their A/B) give the same pairs, weights and tables as the kernels'
+    their A/B) give the same pairs, carries and tables as the kernels'
     plain versions, bit for bit."""
     if fold == "mxu":
         cfg = get_config()
@@ -297,63 +370,143 @@ def test_whole_phase_refs_equal_the_kernels_plain_versions(case, fold, monkeypat
     lo, hi, w = GI.phase1_pair(*args)
     rlo, rhi, rw = GI.phase1_pair_ref(*args)
     assert torch.equal(lo, rlo) and torch.equal(hi, rhi) and torch.equal(w, rw)
-    gbits, x, y_rev, vals, last_x, perm_y, last_y = p["split"]
-    hg, w1 = GI.phase1(gbits, last_x, y_rev, vals, p["g"], p["f3"], DIM)
+    split = p["split"]
+    hg, w1 = GI.phase1(split, p["g"], p["f3"], DIM)
     assert [torch.equal(a, b) for a, b in zip(
-        (hg, w1), GI.phase1_ref(gbits, last_x, y_rev, vals, p["g"], p["f3"], DIM))] == \
-        [True, True]
+        (hg, w1), GI.phase1_ref(split, p["g"], p["f3"], DIM))] == [True, True]
     assert all(torch.equal(a, b) for a, b in zip(GI.prep1(hg, p["f2"]),
                                                   GI.prep1_ref(hg, p["f2"])))
     f2u = GI.final_fold(lo[:, :, :1], hi[:, :, :1], p["u"][-1], 1)
     assert torch.equal(f2u, GI.final_fold_ref(lo[:, :, :1], hi[:, :, :1], p["u"][-1], 1))
-    f1gu = GI.phase2_digits(x, perm_y, last_y, w, p["u"], DIM)
-    assert torch.equal(f1gu, GI.phase2_digits_ref(x, perm_y, last_y, w, p["u"], DIM))
+    f1gu = GI.phase2_digits(split, w, p["u"], DIM)
+    assert torch.equal(f1gu, GI.phase2_digits_ref(split, w, p["u"], DIM))
     assert all(torch.equal(a, b) for a, b in zip(GI.prep2(f1gu, p["f3"], f2u),
                                                   GI.prep2_ref(f1gu, p["f3"], f2u)))
-    pair_args = (lo[:, :, :1], hi[:, :, :1], p["u"][-1], x, perm_y, last_y, w, p["u"], p["f3"],
-                 DIM)
+    pair_args = (lo[:, :, :1], hi[:, :, :1], p["u"][-1], split, w, p["u"], p["f3"], DIM)
     assert all(torch.equal(a, b) for a, b in zip(GI.phase2_pair(*pair_args),
                                                   GI.phase2_pair_ref(*pair_args)))
 
 
 # ---------------------------------------------------------------------------
-# the segment reduce: a rank's raw sums, and a skewed f1
+# the segment sums: a rank's raw sums, the tile plans, and a skewed f1
 # ---------------------------------------------------------------------------
 
 
+def _segments(lengths) -> np.ndarray:
+    """Each segment's last sorted position, for segments of these lengths."""
+    return np.cumsum(lengths) - 1
+
+
 def test_segment_reduce_partials_add_to_the_whole():
-    """`segment_reduce` with a `reduce_fn`: the raw (8, nseg) int64 limb
-    sums of two halves of the entries, added (as the ranks' all-reduce
-    adds them), finish to the whole's strict sums; the sums are exact
-    integers (each below 2^56)."""
+    """The fused kernel's raw-sums mode (a rank's partial) at S = 2 and 4:
+    the entries cut into S contiguous chunks, each chunk's raw (8, nseg)
+    int64 limb sums (an empty segment among them) added as the ranks'
+    all-reduce adds them equal the whole's, and `finish_sums` of the total
+    equals the whole's strict sums, which are the Python-integer sums of
+    the weights; the sums are exact integers (each below 2^56)."""
     gen = np.random.default_rng(5)
-    nnz, nseg = 400, 64
+    nnz, nseg, k = 400, 64, 6
     seg = np.sort(gen.integers(0, nseg, nnz))
     seg[seg == 3] = 4  # an empty segment
-    vals = torch.from_numpy(L.pack_limbs(_digits(gen, nnz)))
-    last = torch.from_numpy((np.searchsorted(seg, np.arange(nseg), side="right") - 1)
-                            .astype(np.int32))
+    vals = _entry_rows(_digits(gen, nnz))
+    idx = torch.from_numpy(gen.integers(0, 1 << k, nnz).astype(np.int32))
+    eq = GK.eq_halves(_rows([random.Random(5).randrange(P) for _ in range(k)]), k)
+
+    def raw(lo, hi):
+        last = np.searchsorted(seg[lo:hi], np.arange(nseg), side="right") - 1
+        sums = torch.empty((8, nseg), dtype=torch.int64)
+        GK.weight_reduce(idx[lo:hi], vals[lo:hi].contiguous(), eq, k,
+                         torch.from_numpy(last.astype(np.int32)),
+                         GK.upload_plan(last, hi - lo, CPU), sums)
+        return sums
+
+    whole_sums = raw(0, nnz)
     whole = torch.empty((8, nseg), dtype=torch.int32)
-    GK.segment_reduce(vals, None, last, whole)
-    cut = nnz // 2
-    parts = []
-    for lo, hi in ((0, cut), (cut, nnz)):
-        part_last = torch.from_numpy((np.searchsorted(seg[lo:hi], np.arange(nseg), side="right")
-                                      - 1).astype(np.int32))
-        parts.append(GK.limb_sums_ref(vals[:, lo:hi].contiguous(), None, part_last))
-    assert all(p.dtype == torch.int64 and p.shape == (8, nseg) for p in parts)
-
-    def add_other(sums):
-        sums += parts[1]
-
-    got = torch.empty_like(whole)
-    half_last = torch.from_numpy((np.searchsorted(seg[:cut], np.arange(nseg), side="right") - 1)
-                                 .astype(np.int32))
-    GK.segment_reduce(vals[:, :cut].contiguous(), None, half_last, got, add_other)
-    assert torch.equal(got, whole)
-    ints = _raw(L.unpack_limbs(vals.numpy()))
-    assert _limb_ints(whole) == [sum(ints[i] for i in range(nnz) if seg[i] == s) % P
+    last = np.searchsorted(seg, np.arange(nseg), side="right") - 1
+    GK.weight_reduce(idx, vals, eq, k, torch.from_numpy(last.astype(np.int32)),
+                     GK.upload_plan(last, nnz, CPU), whole)
+    for size in (2, 4):
+        cuts = [nnz * r // size for r in range(size + 1)]
+        parts = [raw(lo, hi) for lo, hi in zip(cuts, cuts[1:])]
+        assert all(p.dtype == torch.int64 and p.shape == (8, nseg) for p in parts)
+        total = sum(parts)
+        assert torch.equal(total, whole_sums) and int(total.max()) < 1 << 56
+        got = torch.empty_like(whole)
+        GK.finish_sums(total, got)
+        assert torch.equal(got, whole)
+    halves = [x for x in _limb_ints(eq)]
+    kl = k - k // 2
+    w = [_raw(L.unpack_limbs(vals.numpy(), axis=1).T)[i] * halves[int(j) & ((1 << kl) - 1)]
+         * halves[(1 << kl) + (int(j) >> kl)] * R_INV * R_INV % P for i, j in enumerate(idx)]
+    assert _limb_ints(whole) == [sum(w[i] for i in range(nnz) if seg[i] == s) % P
                                  for s in range(nseg)]
+
+
+def walk_plan(items: np.ndarray, last: np.ndarray, products: np.ndarray, tile: int):
+    """The fused kernel's schedule over a plan, on (nnz, 8) int64 product
+    limbs: each tile's segments summed out of its entries (which must be
+    exactly the segments' entries, at most `tile` of each), each chunk's
+    entries (at most `tile`) added into its scratch row, and the row
+    emitted when its segment's last chunk arrives (chunks counted against
+    the segment's length). Returns the (8, nseg) sums and each segment's
+    emit count."""
+    nseg = len(last)
+    begin = np.concatenate([[0], last[:-1] + 1])
+    sums = np.zeros((8, nseg), np.int64)
+    emitted = np.zeros(nseg, np.int64)
+    scratch, arrived = {}, {}
+    for s0, count, e0, e1 in items.tolist():
+        assert 0 < e1 - e0 <= tile or (count > 0 and e1 == e0)
+        if count > 0:
+            assert count <= tile and begin[s0] == e0 and last[s0 + count - 1] + 1 == e1
+            for s in range(s0, s0 + count):
+                sums[:, s] = products[begin[s]:last[s] + 1].sum(axis=0)
+                emitted[s] += 1
+            continue
+        row = -1 - count
+        assert begin[s0] <= e0 and e1 <= last[s0] + 1
+        scratch[row] = scratch.get(row, 0) + products[e0:e1].sum(axis=0)
+        arrived[row] = arrived.get(row, 0) + 1
+        if arrived[row] == -(-(last[s0] + 1 - begin[s0]) // tile):
+            sums[:, s0] = scratch.pop(row)
+            arrived.pop(row)
+            emitted[s0] += 1
+    assert not scratch and not arrived  # every row finished, and so left zero
+    return sums, emitted
+
+
+def test_tile_plan_long_segments_match_naive():
+    """`tile_plan` over segments of 2^16 + 1 entries, exactly a tile + 1,
+    exactly a tile, runs of empty and one-entry segments: walked as the
+    kernel walks it (`walk_plan`), every segment emitted once with the
+    naive sums of its entries, the long ones cut into ceil(n / tile)
+    chunks with their own scratch rows; the fused kernel's plain version
+    and the phase functions give the same strict sums."""
+    tile = GK.TILE
+    gen = np.random.default_rng(16)
+    lengths = np.concatenate([[0, 3, (1 << 16) + 1, 0, 1], [1] * 600, [tile + 1, tile, 0],
+                              gen.poisson(1.0, 3000), [tile + 1], [0] * 700])
+    last = _segments(lengths)
+    nnz = int(lengths.sum())
+    items, long = GK.tile_plan(last, nnz)
+    assert long == 3 and items.dtype == np.int32 and items.shape[1] == 4
+    assert (items[:, 1] < 0).sum() == -(-((1 << 16) + 1) // tile) + 2 + 2
+    products = gen.integers(0, 1 << 32, (nnz, 8), dtype=np.int64)
+    sums, emitted = walk_plan(items, last, products, tile)
+    assert (emitted == 1).all()
+    naive = np.stack([products[b:e].sum(axis=0) for b, e in
+                      zip(np.concatenate([[0], last[:-1] + 1]), last + 1)], axis=1)
+    np.testing.assert_array_equal(sums, naive)
+    k = 5
+    vals = _entry_rows(_digits(gen, nnz))
+    idx = torch.from_numpy(gen.integers(0, 1 << k, nnz).astype(np.int32))
+    eq = GK.eq_halves(_rows([random.Random(6).randrange(P) for _ in range(k)]), k)
+    plan = GK.Plan(torch.from_numpy(items), long)
+    got = torch.empty((8, len(lengths)), dtype=torch.int64)
+    GK.weight_reduce(idx, vals, eq, k, torch.from_numpy(last.astype(np.int32)), plan, got)
+    w, _ = GK.weight_fold_ref(idx, vals.T.contiguous(), eq, k)
+    walked, _ = walk_plan(items, last, w.T.long().numpy() & 0xFFFFFFFF, tile)
+    np.testing.assert_array_equal(got.numpy(), walked)
 
 
 def skewed_f1(dim: int, seed: int):
@@ -380,7 +533,9 @@ def test_skewed_segment_matches_naive():
     u = [rnd.randrange(P) for _ in range(dim)]
     f3_vals = [rnd.randrange(P) for _ in range(1 << dim)]
     f1 = GI._HostF1(idx, vals)
-    last_x = GI._split_f1_device(f1, dim, CPU)[4].numpy()
+    split = GI._split_f1_device(f1, dim, CPU)
+    last_x = split.last_x.numpy()
+    assert split.plan_x.long == 1 and split.plan_y.long == 0
     assert np.diff(np.concatenate([[-1], last_x])).max() > 1 << 16  # one x segment's length
     f3 = T.DenseMLE.from_evaluations(dim, f3_vals)
     h, carry = GI.phase1_init_device(idx, vals, f3.evals, [T.Fr(v) for v in g], dim,

@@ -558,10 +558,10 @@ def test_register_eval_multiplies_fewer(factors):
 
 
 # ---------------------------------------------------------------------------
-# gkr_init.cu: the eq half tables, the weight fold and the segment reduce
+# gkr_init.cu: the eq half tables and the fused weight reduce
 # ---------------------------------------------------------------------------
 
-GKR_THREADS, GKR_LONG = GK.THREADS, GK.LONG_SEGMENT
+GKR_TILE = GK.TILE  # the weight reduce's block: one thread an entry of a tile
 ONE_M = (1 << 256) % P  # the Montgomery one
 R2_M = pow(1 << 256, 2, P)
 
@@ -600,7 +600,7 @@ def eq_half_lane(points: list[int], t: int) -> list[int]:
 
 
 def segment_finish(acc: list[int], subs: int) -> list[int]:
-    """segment_reduce_kernel's `finish`, word by word: the carry pass of
+    """weight_reduce_kernel's `finish`, word by word: the carry pass of
     the 8 64-bit limb sums, `subs` conditional subtractions of the low 256
     bits, the word above them times 2^256 as mont_mul(high, R^2), and one
     add_mod."""
@@ -618,22 +618,13 @@ def segment_finish(acc: list[int], subs: int) -> list[int]:
     return _add_mod(lo, hi)
 
 
-def segment_schedule(entries: list[list[int]], begin: int, end: int) -> list[int]:
-    """The 8 64-bit limb accumulators of one segment as the kernel sums
-    it: one thread in series up to kLongSegment entries, else the block's
-    threads striding (thread t from begin + t), each warp's partials
-    folded by shuffle-down offsets 16..1, and thread 0 adding the warps'."""
-    if end - begin <= GKR_LONG:
-        acc = [0] * 8
-        for q in range(begin, end):
-            acc = [a + x for a, x in zip(acc, entries[q])]
-        return acc
-    part = [[0] * 8 for _ in range(GKR_THREADS)]
-    for t in range(GKR_THREADS):
-        for q in range(begin + t, end, GKR_THREADS):
-            part[t] = [a + x for a, x in zip(part[t], entries[q])]
+def block_sum(entries: list[list[int]], e0: int, e1: int) -> list[int]:
+    """A chunk's 8 64-bit limb sums as the block forms them: thread t holds
+    entry e0 + t (zeros past e1), each warp's partials folded by
+    shuffle-down offsets 16..1, and thread 0 adding the warps'."""
+    part = [list(entries[e0 + t]) if e0 + t < e1 else [0] * 8 for t in range(GKR_TILE)]
     warps = []
-    for w0 in range(0, GKR_THREADS, 32):
+    for w0 in range(0, GKR_TILE, 32):
         lanes = [list(part[w0 + ln]) for ln in range(32)]
         off = 16
         while off:  # __shfl_down_sync: lane l adds lane l + off (a lane past 31 reads itself)
@@ -646,6 +637,64 @@ def segment_schedule(entries: list[list[int]], begin: int, end: int) -> list[int
     for wp in warps:
         total = [a + b for a, b in zip(total, wp)]
     return total
+
+
+class Scratch:
+    """The long segments' device scratch: 64-bit rows of 8 limb sums and
+    32-bit arrival counters, zero between launches."""
+
+    def __init__(self, rows: int):
+        self.sums = [[0] * 8 for _ in range(rows)]
+        self.arrived = [0] * rows
+
+    def arrive(self, row: int, part: list[int], chunks: int):
+        """One chunk's atomicAdds, the fence, its atomicAdd on the counter;
+        the last to arrive (old count chunks - 1) reads and zeroes the row
+        (atomicExch) and the counter: returns the row's sums then, else
+        None."""
+        for j in range(8):
+            self.sums[row][j] += part[j]
+            assert self.sums[row][j] < 1 << 64  # a 64-bit atomicAdd, no wrap
+        old = self.arrived[row]
+        self.arrived[row] += 1
+        if old != chunks - 1:
+            return None
+        total, self.sums[row], self.arrived[row] = self.sums[row], [0] * 8, 0
+        return total
+
+
+def kernel_schedule(entries: list[list[int]], last: list[int], order_seed: int) -> list:
+    """The 8 64-bit limb accumulators of every segment as weight_reduce_kernel
+    forms them over `tile_plan`'s items, the items taken in a shuffled
+    order (blocks run in no order): a tile's segments one thread each in
+    series over the staged entries, a chunk's by `block_sum` and the
+    scratch's last arrival. Every segment is emitted once; the scratch
+    ends zero."""
+    items, long = GK.tile_plan(np.array(last), len(entries))
+    scratch = Scratch(long)
+    out = [None] * len(last)
+    order = list(range(len(items)))
+    random.Random(order_seed).shuffle(order)
+    for i in order:
+        s0, count, e0, e1 = (int(v) for v in items[i])
+        if count > 0:
+            for s in range(s0, s0 + count):
+                acc = [0] * 8
+                for q in range(0 if s == 0 else last[s - 1] + 1, last[s] + 1):
+                    assert e0 <= q < e1  # staged by this tile
+                    acc = [a + x for a, x in zip(acc, entries[q])]
+                assert out[s] is None
+                out[s] = acc
+            continue
+        begin = 0 if s0 == 0 else last[s0 - 1] + 1
+        chunks = -(-(last[s0] + 1 - begin) // GKR_TILE)
+        done = scratch.arrive(-1 - count, block_sum(entries, e0, e1), chunks)
+        if done is not None:
+            assert out[s0] is None
+            out[s0] = done
+    assert all(o is not None for o in out)
+    assert all(a == 0 for row in scratch.sums for a in row) and not any(scratch.arrived)
+    return out
 
 
 def test_segment_finish_model_worst_case():
@@ -665,39 +714,61 @@ def test_segment_finish_model_worst_case():
         assert _int(segment_finish(acc, REDUCE_SUBS)) == value % P
 
 
-@pytest.mark.parametrize("lengths", [[0, 1, 3, 0, 64], [65, 0, 2], [300, 1, 1000, 0]],
+def test_long_segment_model_worst_case():
+    """The chunked long-segment sum at the asserted maximum: one segment of
+    2^24 entries of p - 1 (32,768 chunks of a tile), each chunk's block sum
+    added into the 64-bit scratch row in a shuffled order of arrival, never
+    past 2^64 (each limb below 2^56); the last arrival reads the whole sum
+    and leaves the row and the counter zero, and the finish gives its value
+    mod p."""
+    from sumcheck_tpu_torch.fields.fr import REDUCE_SUBS
+
+    n = 1 << 24
+    chunks = n // GKR_TILE
+    limbs = _limbs(P - 1)
+    part = block_sum([limbs] * GKR_TILE, 0, GKR_TILE)
+    assert part == [GKR_TILE * x for x in limbs]
+    scratch = Scratch(2)
+    done = None
+    for i in range(chunks):
+        got = scratch.arrive(1, part, chunks)
+        assert (got is None) == (i < chunks - 1)
+        done = got if got is not None else done
+    assert done == [n * x for x in limbs] and max(done) < 1 << 56
+    assert scratch.sums[1] == [0] * 8 and scratch.arrived == [0, 0]
+    assert _int(segment_finish(done, REDUCE_SUBS)) == n * (P - 1) % P
+
+
+@pytest.mark.parametrize("lengths", [[0, 1, 3, 0, 64], [513, 0, 2], [600, 1, 1100, 0, 512]],
                          ids=["short", "one_long", "two_long"])
 def test_segment_schedule_model_matches_limb_sums(lengths):
-    """The thread and block schedules cover each sorted entry once and
-    give the plain version's limb sums (`gkr_init_cuda.limb_sums_ref`),
-    through a permutation, and the finish gives its strict values."""
+    """The kernel's schedule over the tile plan (tiles one thread a
+    segment, chunks of the long segments by block sums and the scratch's
+    last arrival, items in a shuffled order) covers each sorted entry once
+    and gives the plain version's limb sums (`gkr_init_cuda.limb_sums_ref`),
+    and the finish gives its strict values."""
     from sumcheck_tpu_torch.fields.fr import REDUCE_SUBS
 
     rnd = random.Random(sum(lengths))
     nnz = sum(lengths)
     vals = [rnd.randrange(P) for _ in range(nnz)]
-    perm = list(range(nnz))
-    rnd.shuffle(perm)
     last, pos = [], -1
     for n in lengths:
         pos += n
         last.append(pos)
     limbs = torch.from_numpy(np.ascontiguousarray(
         np.array([_limbs(v) for v in vals], dtype=np.uint32).reshape(nnz, 8).T).view(np.int32))
-    sums = GK.limb_sums_ref(limbs, torch.tensor(perm, dtype=torch.int32),
-                            torch.tensor(last, dtype=torch.int32))
-    entries = [_limbs(vals[perm[q]]) for q in range(nnz)]
+    sums = GK.limb_sums_ref(limbs, None, torch.tensor(last, dtype=torch.int32))
     strict = GK.finish_ref(sums)
-    for s, n in enumerate(lengths):
-        begin = 0 if s == 0 else last[s - 1] + 1
-        acc = segment_schedule(entries, begin, last[s] + 1)
+    accs = kernel_schedule([_limbs(v) for v in vals], last, sum(lengths))
+    for s, acc in enumerate(accs):
         assert acc == [int(x) for x in sums[:, s]]
         assert _int(segment_finish(acc, REDUCE_SUBS)) == \
             _int([int(x) & M32 for x in strict[:, s]])
 
 
 def test_eq_half_tables_model_matches_eq_table():
-    """eq_halves_kernel's lanes, then weight_fold_kernel's product
+    """eq_halves_kernel's lanes, then weight_reduce_kernel's product
     eq_lo[idx & m] * eq_hi[idx >> kl] by the even/odd multiply, equal the
     plain eq table by doublings (`ops/gkr_init._eq_table`) at every index,
     for k = 1 to 6; and a weight's two multiplies and the f3 gather's third

@@ -76,7 +76,7 @@ def test_kernel_probes_and_stage_launches_on_the_cpu(report):
     """The GKR init kernels' probes ran and passed their checks (against
     their plain versions); the stages' kernel launches are null on the CPU,
     where no kernel launches."""
-    for name in ("eq_halves", "weight_fold", "segment_reduce", "pair_slots"):
+    for name in ("eq_halves", "weight_reduce", "pair_slots"):
         assert report["probes"][name]["ok"] and report["probes"][name]["host_ms"] > 0, name
     assert all(report["stages"][s]["kernels"] is None for s in MB.STAGES)
     assert MB.kernel_launches(lambda: None) == {}
@@ -142,12 +142,13 @@ def test_mont_nnz_matches_jax(inputs):
 
 
 def test_kernel_probes_match_jax():
-    """At dim JAX_NV, on the probes' inputs: the weight fold's probe (eq
-    half tables, phase 1's f3 gather) equals the JAX package's
-    `_weight_fold` and `mont_mul`, the segment reduce's probe its
-    `_segment_reduce_sorted` (mod p: under BN254 its `reduce_wide` may
-    leave a sum past 3p unreduced), and the pair slots' probe its stacking
-    and multiply by the scalar."""
+    """At dim JAX_NV, on the probes' inputs: the weight reduce's probe (eq
+    half tables, phase 1's f3 gather at random lanes, the carry through a
+    permutation) gives the carry equal to the JAX package's `_weight_fold`
+    and sums equal to its `_segment_reduce_sorted` of the weights times
+    the gathered f3 (mod p: under BN254 its `reduce_wide` may leave a sum
+    past 3p unreduced), and the pair slots' probe its stacking and multiply
+    by the scalar."""
     import jax
     import jax.numpy as jnp
     from sumcheck_tpu.fields import limbs_jnp as LJ
@@ -159,23 +160,26 @@ def test_kernel_probes_match_jax():
 
     x = MB.probe_inputs(JAX_NV)
     probes = MB.kernel_probes(x, torch.device("cpu"))
-    w, wv = probes["weight_fold"][0]()
+    carry = probes["weight_reduce"][0]()
     with jax.disable_jit():
         jw = JGI._weight_fold(jnp.asarray(x["idx"].astype(np.int32)), jnp.asarray(x["a"]),
                               jnp.asarray(x["r_pts"]), jnp.asarray(x["omr_pts"]), JAX_NV)
-        jwv = LJ.mont_mul(jw, jnp.asarray(x["b"][:, x["perm"]]))
-        jseg = JGI._segment_reduce_sorted(jnp.asarray(x["a"]),
-                                          jnp.asarray(x["perm"].astype(np.int32)),
-                                          jnp.asarray(x["last"].astype(np.int32)))
+        jwv = LJ.mont_mul(jw, jnp.asarray(x["b"][:, x["idx"]]))
+        jseg = JGI._segment_reduce_sorted(jwv, None, jnp.asarray(x["last"].astype(np.int32)))
         jscaled = LJ.mont_mul(jnp.asarray(x["b"]), jnp.asarray(x["r_pts"][0]))
-    np.testing.assert_array_equal(L.unpack_limbs(w.numpy()), np.asarray(jw))
-    np.testing.assert_array_equal(L.unpack_limbs(wv.numpy()), np.asarray(jwv))
+    np.testing.assert_array_equal(L.unpack_limbs(carry.numpy(), axis=1)[x["to_y"]].T,
+                                  np.asarray(jw))
     for _fn, check, _work in probes.values():
         check()  # each against its plain version
     got = torch.empty((8, 1 << JAX_NV), dtype=torch.int32)
-    GK.segment_reduce(torch.from_numpy(L.pack_limbs(x["a"])),
-                      torch.from_numpy(x["perm"].astype(np.int32)),
-                      torch.from_numpy(x["last"].astype(np.int32)), got)
+    GK.weight_reduce(torch.from_numpy(x["idx"].astype(np.int32)),
+                     torch.from_numpy(MB._limbs(x["a"])),
+                     GK.eq_halves(torch.from_numpy(x["r_pts"][:, :, 0].astype(np.int32)), JAX_NV),
+                     JAX_NV, torch.from_numpy(x["last"].astype(np.int32)),
+                     GK.upload_plan(x["last"], 1 << JAX_NV, "cpu"), got,
+                     torch.from_numpy(L.pack_limbs(x["b"])),
+                     torch.from_numpy(x["idx"].astype(np.int32)),
+                     torch.from_numpy(x["to_y"].astype(np.int32)))
     digits = L.unpack_limbs(got.numpy())
     assert int(digits.max()) < 1 << 16 and L.to_ints(digits, mont=False) == \
         L.to_ints(np.asarray(jseg), mont=False)

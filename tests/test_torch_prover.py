@@ -270,15 +270,14 @@ def test_every_pair_is_packed_limbs(source):
     else:
         dim = 4
         _j, (t1, t2, t3, tg) = instances(dim, seed=dim, nnz=3 << dim)
-        gbits, x, y_rev, vals, last_x, perm_y, last_y = GI._split_f1_device(t1, dim, "cpu")
+        split = GI._split_f1_device(t1, dim, "cpu")
         g_r = GI.upload(GI._point_rows(tg), torch.device("cpu"))
-        lo, hi, w = GI.phase1_pair(gbits, last_x, y_rev, vals, g_r, t3.to_device("cpu"),
-                                   t2.to_device("cpu"), dim)
+        lo, hi, w = GI.phase1_pair(split, g_r, t3.to_device("cpu"), t2.to_device("cpu"), dim)
         pairs, lead, half = (lo, hi), (2,), 1 << (dim - 1)
         if source == "gkr_phase2":
             u = torch.from_numpy(np.stack([TL.mont_scalar(7 + i)[:, 0] for i in range(dim)])
                                  .astype(np.int32))
-            pairs = GI.phase2_pair(lo[:, :, :1], hi[:, :, :1], u[-1], x, perm_y, last_y, w, u,
+            pairs = GI.phase2_pair(lo[:, :, :1], hi[:, :, :1], u[-1], split, w, u,
                                    t3.to_device("cpu"), dim)
     for t in pairs:
         assert t.dtype == torch.int32 and t.is_contiguous()
