@@ -65,22 +65,24 @@ failure raises and exits non-zero without the final line:
    fails the run, verify, the subclaim against the polynomial, and proof
    bytes equal across the three, the plain path on the card and the
    host-transcript loop (timed beside them);
-9a. the GKR phase-init kernels (`ops/gkr_init_cuda.py`: `eq_halves`,
-   `weight_reduce` (the fused weight fold and segment sum), `finish_sums`,
-   `pair_slots`) against their plain versions on the card, array-equal, at
-   the dim-18 shapes of phase 9's instance (phase 1's and phase 2's forms,
-   strict and as a rank's raw sums) and on the same instance with one x
-   segment of 2^16 + 1 entries (cut into chunks across blocks), with
-   device ms (each launch after an L2 flush), bound, share and plain ms;
-   both phase inits on the kernels against the torch-op plain versions of
-   the phases (`gkr_init.phase1_pair_ref`, `phase2_pair_ref`) on the card,
-   with their walls; and the weight reduce with its half tables in global
-   memory (k = 22 and 24), untimed;
+9a. the GKR phase-init kernels (`ops/gkr_init_cuda.py`: `weight_reduce`,
+   one launch a phase: eq's half tables built in its blocks, the weight
+   fold, the segment sums into slot 0 and the pair's slot 1;
+   `finish_sums`, `pair_slots`) against their plain versions on the card,
+   array-equal, at the dim-18 shapes of phase 9's instance (phase 1's and
+   phase 2's inits, strict and as a rank's raw sums) and on the same
+   instance with one x segment of 2^16 + 1 entries (cut into chunks across
+   blocks), with device ms (each launch after an L2 flush), bound, share
+   and plain ms; both phase inits on the kernels against the torch-op
+   plain versions of the phases (`gkr_init.phase1_pair_ref`,
+   `phase2_pair_ref`) on the card, strict and as raw sums, on both
+   instances and at dim 21 (the largest build in the blocks, and the
+   largest dim whose f1 indices fit int64), with their walls;
 9. the GKR headlines: `GKRRoundSumcheck.prove` at dim 18 on the bench's
    instance (`bench.py:187-194`) on the same three paths: first prove and
    warm median, launch counts per prove (2 + 34 round kernels, 36
-   transcript steps and the phase inits' kernels: 6 on the generic chain,
-   7 on the per-size chain, 6 in the MXU fold mode; the profiler's count
+   transcript steps and the phase inits' kernels: 2 on the generic chain,
+   5 on the per-size chain, 2 in the MXU fold mode; the profiler's count
    of round, transcript and init kernels in one prove and its idle share),
    everything between the uploads and the one fetch under the sync debug
    mode "error", the phase inits and the round kernels timed alone, one verify and the subclaim in Python integers
@@ -147,7 +149,7 @@ failure raises and exits non-zero without the final line:
    kernels' probes against their plain versions), and the stage profile
    of phase 9's chained GKR prove: device ms, host wall, launches, the
    kernels by wrapper and bound of each probe and stage, one line each
-   (the full prove's init kernels checked: 8), and the report as a JSON
+   (the full prove's init kernels checked: 2), and the report as a JSON
    line before the kernels line;
 12. the verify walls of the ML and GKR headline proofs with the C core
    (`sumcheck_tpu_torch/native/`) and with the Python loop
@@ -228,7 +230,9 @@ REGISTER_MAX_DEGREE = 4
 # section 6, in parentheses; an H100 80GB HBM3 at 700 W), quoted in the
 # printed lines beside this run's; not part of the kernels line
 PREVIOUS_MS = {"round_nofold": 0.3551, "round_fold": 0.3630, "round_step_nofold": 0.3547,
-               "round_step_fold": 0.3496, "round_fold_mxu": 0.0954, "transcript_step": 0.0151}
+               "round_step_fold": 0.3496, "round_fold_mxu": 0.0954, "transcript_step": 0.0151,
+               # phase 1's init as three launches (eq_halves, weight_reduce, pair_slots)
+               "weight_reduce": 0.0640}
 
 
 RATES: dict = {}  # the card's SM count, clock and IMAD rate (`microbench.card_rates`)
@@ -1091,8 +1095,7 @@ def device_busy(fn, top: int = 5) -> dict:
 
 # substrings of the port's kernels' names as the profiler shows them
 ROUND_KERNELS = ("round_kernel", "fold_kernel", "fold_mxu_kernel")  # "fold_kernel": nofold_kernel too
-INIT_KERNELS = ("eq_halves_kernel", "weight_reduce_kernel", "finish_sums_kernel",
-                "pair_slots_kernel")
+INIT_KERNELS = ("weight_reduce_kernel", "finish_sums_kernel", "pair_slots_kernel")
 
 
 def classify(by_name: dict, scale: float | None = None) -> dict:
@@ -1307,17 +1310,17 @@ def host_transcript_phase(device, seed: int, reps: int, nv: int = NV) -> dict:
 
 
 # the GKR phase-init kernels (`ops/gkr_init_cuda.py`, `csrc/gkr_init.cu`)
-GKR_INIT_KERNELS = ("eq_halves", "weight_reduce", "finish_sums", "pair_slots")
-GKR_INIT_MAX = 7  # launches of both phase inits a dim-18 prove may take (the per-size chain's)
+GKR_INIT_KERNELS = ("weight_reduce", "finish_sums", "pair_slots")
+GKR_INIT_MAX = 5  # launches of both phase inits a dim-18 prove may take (the per-size chain's)
 SKEW = (1 << 16) + 1  # entries of phase 9a's skewed segment
 
 
 def init_launches(chain: str) -> dict:
     """The phase-init kernels' launches a GKR prove on a chain, in either
-    fold mode: 3 a phase on the generic chain, 2 + 1 and 2 + 1 + 1 (the
-    final fold) on the per-size chain; no finish of raw sums (only a
-    sharded rank's inits take it)."""
-    return dict(zip(GKR_INIT_KERNELS, (2, 2, 0, 3) if chain != "generic" else (2, 2, 0, 2)))
+    fold mode: 1 a phase on the generic chain (the fused weight reduce),
+    1 + 1 and 1 + 1 + 1 (prep1; the final fold and prep2) on the per-size
+    chain; no finish of raw sums (only a sharded rank's inits take it)."""
+    return dict(zip(GKR_INIT_KERNELS, (2, 0, 3) if chain != "generic" else (2, 0, 0)))
 
 
 def skewed_instance(inst, seed: int):
@@ -1338,52 +1341,83 @@ def skewed_instance(inst, seed: int):
     return SparseMLE(3 * dim, idx, np.ascontiguousarray(vals)), f2, f3, g
 
 
-def reduce_work(nnz: int, nseg: int, lanes: int, phase: int, raw: bool = False) -> dict:
+def reduce_work(nnz: int, nseg: int, k: int, phase: int, raw: bool = False,
+                slot: bool = False) -> dict:
     """What the fused weight reduce must do: each input read once and each
     output written once, 32 B an element and 4 B an index (phase 1: the g
     index, the value, y, to_y, the gathered f3 lane and the carry out an
     entry; phase 2: x and the carry an entry), `last` and the sum a segment
-    (raw: 8 int64 limbs), the half tables once; and the Montgomery
-    multiplies, 3 (phase 1) or 2 (phase 2) an entry and 1 a segment's
-    finish (none for raw sums)."""
+    (raw: 8 int64 limbs), the k challenge rows (16 int32 digits each), and
+    with the slot its table read and written (32 B a lane each way) and,
+    in phase 2, the final fold's one-lane pair and row; the Montgomery
+    multiplies, 3 (phase 1) or 2 (phase 2) an entry, 1 a segment's finish
+    (none for raw sums), the half tables' 2^kl + 2^kh - 2 once (the work of
+    the function, not each block's copy of it), and phase 2's slot 1 a lane
+    and 1 for the final fold."""
+    from sumcheck_tpu_torch.ops.gkr_init_cuda import halves
+
+    lanes = sum(1 << h for h in halves(k))
     per_entry = 4 + 32 + 4 + 4 + 32 + 32 if phase == 1 else 4 + 32
-    return {"bytes": per_entry * nnz + (4 + (64 if raw else 32)) * nseg + 32 * lanes,
-            "imads": ((3 if phase == 1 else 2) * nnz + (0 if raw else nseg)) * IMADS_PER_MONT_MUL,
-            "int8_ops": 0}
+    nbytes = per_entry * nnz + (4 + (64 if raw else 32)) * nseg + 64 * k
+    mults = (3 if phase == 1 else 2) * nnz + (0 if raw else nseg) + lanes - 2
+    if slot:
+        nbytes += 2 * ELEMENT_BYTES * nseg + (2 * ELEMENT_BYTES + 64 if phase == 2 else 0)
+        mults += nseg + 1 if phase == 2 else 0
+    return {"bytes": nbytes, "imads": mults * IMADS_PER_MONT_MUL, "int8_ops": 0}
+
+
+def gkr_k21_instance(seed: int, dim: int = 21, nnz: int = 1 << 16):
+    """A GKR instance at dim 21, the largest whose eq half tables (2^11 +
+    2^10 lanes) the weight reduce builds in its blocks' shared memory (and
+    the largest whose 3 dim index bits fit f1's int64 indices): f1 with
+    `nnz` random entries, f2 and f3 from `numpy.random.default_rng`, and g.
+    (f1, f2, f3, g)."""
+    from sumcheck_tpu_torch import DenseMLE, Fr, SparseMLE
+    from sumcheck_tpu_torch.fields.fr import P
+    from sumcheck_tpu_torch.fields.limbs_np import random_tables
+
+    gen = np.random.default_rng(seed + dim)
+    idx = np.unique(gen.integers(0, 1 << (3 * dim), nnz, dtype=np.int64))
+    vals = random_tables(gen, (len(idx) - 1).bit_length(), 1)[0][:, :len(idx)]
+    f2, f3 = (DenseMLE(dim, t) for t in random_tables(gen, dim, 2))
+    rnd = random.Random(seed + dim)
+    g = [Fr(rnd.randrange(P)) for _ in range(dim)]
+    return SparseMLE(3 * dim, idx, np.ascontiguousarray(vals)), f2, f3, g
 
 
 def gkr_init_phase(device, inst, seed: int) -> dict:
-    """Phase 9a: each GKR phase-init kernel against its plain version on
-    the card, array-equal, at the dim-18 shapes of phase 9's instance
-    (phase 1's and phase 2's forms) and on the skewed instance
+    """Phase 9a: the GKR phase-init kernels against their plain versions on
+    the card, array-equal. The fused weight reduce, one launch a phase (the
+    eq half tables built in its blocks, the weight fold, the segment sums
+    into slot 0 of the pair and its slot 1: f2 copied in phase 1, f3 times
+    the final fold of phase 1's one-lane pair in phase 2), at the dim-18
+    shapes of phase 9's instance and on the skewed instance
     (`skewed_instance`: one segment of SKEW entries, cut into chunks across
-    blocks): the fused weight reduce into slot 0 of a pair (phase 1 with
-    its carry) and as a rank's raw sums, the finish of raw sums, the eq
-    halves and the pair slots; the whole phase inits on the kernels against
-    the torch-op plain versions of the phases (`gkr_init.phase1_pair_ref`,
-    `phase2_pair_ref`) on both instances. Also the weight reduce with its
-    half tables in global memory (k = 22 and 24, past what shared memory
-    stages) on a few thousand entries with a long segment, in both phases'
-    forms and both modes, untimed. Device ms (CUDA events behind
+    blocks), strict and as a rank's raw sums (no slot); the finish of raw
+    sums; the pair slots in the forms of the pieces that keep them (the
+    per-size chain's prep2, a copy and a scale by a digit row, and the
+    final fold's scale); the whole phase inits (`gkr_init.phase1_pair`,
+    `phase2_pair`) against the torch-op plain versions of the phases
+    (`phase1_pair_ref`, `phase2_pair_ref`) on both instances and at dim 21
+    (`gkr_k21_instance`: the largest build in the blocks), with a rank's
+    raw sums there too. Device ms (CUDA events behind
     `torch.cuda._sleep`, each launch alone after an L2 flush, since every
     working set here fits in the H100's 50 MB L2), the bound (each input
     read once and each output written once, 32 B an element and 4 B an
-    index, against the Montgomery multiplies the function needs) and the
-    share of it, and the plain version's ms (host clock between syncs).
-    Returns the stats of the kernels line: {name: [max_abs_err, [timing of
-    each shape, the main one first]]}: phase 1's form, and for pair_slots
-    phase 2's (f3 times the final fold, the slot that multiplies)."""
+    index, against the Montgomery multiplies the function needs,
+    `reduce_work`) and the share of it, and the plain version's ms (host
+    clock between syncs). Returns the stats of the kernels line, {name:
+    [max_abs_err, [timing of each shape, the main one first]]} (the weight
+    reduce's main shape the fused phase 1 at dim 18, pair_slots'
+    prep2)."""
     from sumcheck_tpu_torch import Fr
     from sumcheck_tpu_torch import gkr_round_sumcheck as G
     from sumcheck_tpu_torch.fields.fr import P
-    from sumcheck_tpu_torch.fields.limbs_np import pack_limbs, random_tables
     from sumcheck_tpu_torch.ops import gkr_init as GI
     from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
 
     dim = inst[1].num_vars
     n, half = 1 << dim, 1 << (dim - 1)
-    kl, kh = GK.halves(dim)
-    lanes = (1 << kl) + (1 << kh)
     rnd = random.Random(seed + dim)
     u_r = GI.upload(GI._point_rows([Fr(rnd.randrange(P)) for _ in range(dim)]), device)
     stats = {name: [0, []] for name in GKR_INIT_KERNELS}
@@ -1391,9 +1425,6 @@ def gkr_init_phase(device, inst, seed: int) -> dict:
     def pair():
         lo = torch.empty((2, 8, half), dtype=torch.int32, device=device)
         return lo, torch.empty_like(lo)
-
-    def sums():
-        return torch.empty((8, n), dtype=torch.int64, device=device)
 
     def case(name, shape, kernel, plain, work, timed=True, main=False):
         got, want = kernel(), plain()
@@ -1415,6 +1446,25 @@ def gkr_init_phase(device, inst, seed: int) -> dict:
                          f"{bound_ms / ms:.1%} of it")
         print(line)
 
+    def phases_equal(label, split, g_r, f3_d, f2_d, d, u):
+        """phase1_pair and phase2_pair on the kernels against the torch-op
+        plain versions of the phases, and a rank's raw sums of both."""
+        k1 = GI.phase1_pair(split, g_r, f3_d, f2_d, d)
+        r1 = GI.phase1_pair_ref(split, g_r, f3_d, f2_d, d)
+        args2 = (k1[0][:, :, :1], k1[1][:, :, :1], u[d - 1], split, k1[2], u, f3_d, d)
+        k2, r2 = GI.phase2_pair(*args2), GI.phase2_pair_ref(*args2)
+        sums = [torch.empty((8, 1 << d), dtype=torch.int64, device=device) for _ in range(2)]
+        GI.phase1(split, g_r, f3_d, d, reduce_fn=sums[0].copy_)
+        GI.phase2_digits(split, k1[2], u, d, reduce_fn=sums[1].copy_)
+        want = [torch.empty_like(t) for t in sums]
+        GK.weight_reduce_ref(split.gbits, split.vals, g_r, d, split.last_x, split.plan_x,
+                             want[0], f3_d, split.y_rev, split.to_y)
+        GK.weight_reduce_ref(split.x_y, k1[2], u, d, split.last_y, split.plan_y, want[1])
+        sync(device)
+        err = max(max_diff(a, b) for a, b in zip(k1 + k2 + tuple(sums), r1 + r2 + tuple(want)))
+        check(err == 0, f"9a {label}: the phase inits differ from their plain versions by {err}")
+        return args2
+
     for label, (f1, f2, f3, g) in ((f"dim {dim}", inst),
                                    ("skewed", skewed_instance(inst, seed))):
         split, f2_d, f3_d, g_r = G._upload(f1, f2, f3, g, dim, device)
@@ -1423,101 +1473,74 @@ def gkr_init_phase(device, inst, seed: int) -> dict:
         tag = f"{label}, 2^{dim} lanes, {nnz} entries"
         print(f"9a {tag}: tile plans of {len(split.plan_x.items)} (x) and "
               f"{len(split.plan_y.items)} (y) items, {split.plan_x.long} and "
-              f"{split.plan_y.long} long segments")
-        eq_g, eq_u = GK.eq_halves(g_r, dim), GK.eq_halves(u_r, dim)
-        case("eq_halves", f"{tag}: g, k={dim}", lambda: (GK.eq_halves(g_r, dim),),
-             lambda: (GK.eq_halves_ref(g_r, dim),),
-             {"bytes": 32 * lanes + 64 * dim, "imads": 2 * lanes * IMADS_PER_MONT_MUL,
-              "int8_ops": 0}, main)
-        p1 = (split.gbits, split.vals, eq_g, dim, split.last_x, split.plan_x)
+              f"{split.plan_y.long} long segments, {-(-half // GK.TILE)} slot items")
+        p1 = (split.gbits, split.vals, g_r, dim, split.last_x, split.plan_x)
         kw1 = {"f3": f3_d, "y": split.y_rev, "to_y": split.to_y}
         k_pair, p_pair = pair(), pair()
-        case("weight_reduce", f"{tag}: phase 1, the f3 gather and the carry, into slot 0",
-             lambda: (GK.weight_reduce(*p1, k_pair, **kw1), k_pair[0][0], k_pair[1][0]),
-             lambda: (GK.weight_reduce_ref(*p1, p_pair, **kw1), p_pair[0][0], p_pair[1][0]),
-             reduce_work(nnz, n, lanes, 1), True, main)
-        carry = GK.weight_reduce(*p1, k_pair, **kw1)
-        p2 = (split.x_y, carry, eq_u, dim, split.last_y, split.plan_y)
-        case("weight_reduce", f"{tag}: phase 2, over the carry, into slot 0",
-             lambda: (GK.weight_reduce(*p2, k_pair), k_pair[0][0], k_pair[1][0])[1:],
-             lambda: (GK.weight_reduce_ref(*p2, p_pair), p_pair[0][0], p_pair[1][0])[1:],
-             reduce_work(nnz, n, lanes, 2), True)
-        k_sums, p_sums = sums(), sums()
+        case("weight_reduce", f"{tag}: phase 1 init, one launch (eq halves in the blocks, f3 "
+             f"gather, carry, slot 0 sums, slot 1 = f2)",
+             lambda: (GK.weight_reduce(*p1, k_pair, slot=(f2_d, None), **kw1), *k_pair),
+             lambda: (GK.weight_reduce_ref(*p1, p_pair, slot=(f2_d, None), **kw1), *p_pair),
+             reduce_work(nnz, n, dim, 1, slot=True), True, main)
+        carry = GK.weight_reduce(*p1, k_pair, slot=(f2_d, None), **kw1)
+        p2 = (split.x_y, carry, u_r, dim, split.last_y, split.plan_y)
+        fold = (k_pair[0][:, :, :1], k_pair[1][:, :, :1], u_r[dim - 1], 1)
+        o_k, o_p = pair(), pair()
+        case("weight_reduce", f"{tag}: phase 2 init, one launch (slot 0 sums over the carry, "
+             f"slot 1 = f3 times the final fold)",
+             lambda: (GK.weight_reduce(*p2, o_k, slot=(f3_d, fold)), *o_k)[1:],
+             lambda: (GK.weight_reduce_ref(*p2, o_p, slot=(f3_d, fold)), *o_p)[1:],
+             reduce_work(nnz, n, dim, 2, slot=True), True)
+        table, want = (torch.empty((8, n), dtype=torch.int32, device=device) for _ in range(2))
+        for phase, args, kw in ((1, p1, kw1), (2, p2, {})):
+            case("weight_reduce", f"{tag}: phase {phase}, no slot, into a table",
+                 lambda: (GK.weight_reduce(*args, table, **kw), table)[1:],
+                 lambda: (GK.weight_reduce_ref(*args, want, **kw), want)[1:],
+                 reduce_work(nnz, n, dim, phase), False)
+        k_sums, p_sums = (torch.empty((8, n), dtype=torch.int64, device=device) for _ in range(2))
         for phase, args, kw in ((1, p1, kw1), (2, p2, {})):
             case("weight_reduce", f"{tag}: phase {phase}, a rank's raw sums",
                  lambda: (GK.weight_reduce(*args, k_sums, **kw), k_sums)[1:],
                  lambda: (GK.weight_reduce_ref(*args, p_sums, **kw), p_sums)[1:],
-                 reduce_work(nnz, n, lanes, phase, raw=True), False)
-        table, want = (torch.empty((8, n), dtype=torch.int32, device=device) for _ in range(2))
+                 reduce_work(nnz, n, dim, phase, raw=True), False)
         case("finish_sums", f"{tag}: phase 2's raw sums, into a table",
              lambda: (GK.finish_sums(k_sums, table), table)[1:],
              lambda: (GK.finish_sums_ref(k_sums, want), want)[1:],
              {"bytes": (64 + 32) * n, "imads": n * IMADS_PER_MONT_MUL, "int8_ops": 0}, main)
         scratch, arrived = GK._scratch(device, 1)
         check(not scratch.any() and not arrived.any(), f"9a {label}: the scratch is not zero")
-        fold = (k_pair[0][:, :, :1], k_pair[1][:, :, :1], u_r[dim - 1], 1)
-        case("pair_slots", f"{tag}: phase 1, slot 1 = f2",
-             lambda: (GK.pair_slots(*k_pair, ((1, f2_d, None),)), k_pair[0][1], k_pair[1][1])[1:],
-             lambda: (GK.pair_slots_ref(*p_pair, ((1, f2_d, None),)), p_pair[0][1],
-                      p_pair[1][1])[1:],
-             {"bytes": 64 * n, "imads": 0, "int8_ops": 0}, main)
-        o_k, o_p = pair(), pair()
-        case("pair_slots", f"{tag}: phase 2, slot 1 = f3 times the final fold",
-             lambda: (GK.pair_slots(*o_k, ((1, f3_d, "fold"),), fold=fold), o_k[0][1],
-                      o_k[1][1])[1:],
-             lambda: (GK.pair_slots_ref(*o_p, ((1, f3_d, "fold"),), fold=fold), o_p[0][1],
-                      o_p[1][1])[1:],
+        f2u = GI.final_fold(*fold)
+        s_k, s_p = pair(), pair()
+        case("pair_slots", f"{tag}: prep2's form, slot 0 = a table, slot 1 = f3 times f2(u)",
+             lambda: (GK.pair_slots(*s_k, ((0, table, None), (1, f3_d, f2u))), *s_k)[1:],
+             lambda: (GK.pair_slots_ref(*s_p, ((0, table, None), (1, f3_d, f2u))), *s_p)[1:],
+             {"bytes": 2 * 64 * n + 64, "imads": n * IMADS_PER_MONT_MUL, "int8_ops": 0}, main,
+             main=True)
+        case("pair_slots", f"{tag}: slot 1 = f3 times the final fold",
+             lambda: (GK.pair_slots(*s_k, ((1, f3_d, "fold"),), fold=fold), *s_k)[1:],
+             lambda: (GK.pair_slots_ref(*s_p, ((1, f3_d, "fold"),), fold=fold), *s_p)[1:],
              {"bytes": 64 * n + 2 * 32 + 64, "imads": (n + 1) * IMADS_PER_MONT_MUL,
-              "int8_ops": 0}, main, main=True)
-        # the whole phase inits: kernels against the torch-op plain versions
-        k1 = GI.phase1_pair(split, g_r, f3_d, f2_d, dim)
-        r1 = GI.phase1_pair_ref(split, g_r, f3_d, f2_d, dim)
-        args2 = (k1[0][:, :, :1], k1[1][:, :, :1], u_r[dim - 1], split, k1[2], u_r, f3_d, dim)
-        k2, r2 = GI.phase2_pair(*args2), GI.phase2_pair_ref(*args2)
-        sync(device)
-        err = max(max_diff(a, b) for a, b in zip(k1 + k2, r1 + r2))
-        check(err == 0, f"9a {label}: the phase inits differ from their plain versions by {err}")
+              "int8_ops": 0}, main)
+        args2 = phases_equal(label, split, g_r, f3_d, f2_d, dim, u_r)
         kern_s = wall(lambda: (GI.phase1_pair(split, g_r, f3_d, f2_d, dim),
                                GI.phase2_pair(*args2)), device, reps=5)
         plain_s = wall(lambda: (GI.phase1_pair_ref(split, g_r, f3_d, f2_d, dim),
                                 GI.phase2_pair_ref(*args2)), device)
-        print(f"9a {label}: phase1_pair and phase2_pair on the kernels equal the torch-op plain "
-              f"versions on the card; both inits {kern_s * 1e3:.4f} ms against "
-              f"{plain_s * 1e3:.4f} ms (host clock between syncs)")
+        print(f"9a {label}: phase1_pair and phase2_pair on the kernels (a launch each) equal "
+              f"the torch-op plain versions on the card, strict and as raw sums; both inits "
+              f"{kern_s * 1e3:.4f} ms against {plain_s * 1e3:.4f} ms (host clock between syncs)")
 
-    # the half tables past shared memory: the global-memory variants, over
-    # 1,024 segments, one of them long (600 entries, two chunks)
-    gen = np.random.default_rng(seed + 22)
-    m, n3, nseg = 1 << 12, 1 << 10, 1 << 10
-    vals = torch.from_numpy(pack_limbs(random_tables(gen, 12, 1)[0].T, axis=1)).to(device)
-    f3_s = torch.from_numpy(pack_limbs(random_tables(gen, 10, 1)[0])).to(device)
-    kw1 = {"f3": f3_s, "y": torch.from_numpy(gen.integers(0, n3, m).astype(np.int32)).to(device),
-           "to_y": torch.from_numpy(gen.permutation(m).astype(np.int32)).to(device)}
-    seg = np.sort(np.concatenate([gen.integers(0, nseg, m - 600), np.full(600, 7)]))
-    last_np = np.searchsorted(seg, np.arange(nseg), side="right") - 1
-    last = torch.from_numpy(last_np.astype(np.int32)).to(device)
-    plan = GK.upload_plan(last_np, m, device)
-    check(plan.long == 1, f"9a: {plan.long} long segments in the global-memory cases")
-    k_out, p_out = (torch.empty((8, nseg), dtype=torch.int32, device=device) for _ in range(2))
-    k_raw, p_raw = (torch.empty((8, nseg), dtype=torch.int64, device=device) for _ in range(2))
-    for k in (22, 24):
-        check((1 << (k - k // 2)) + (1 << (k // 2)) > GK.MAX_SHARED_EQ,
-              f"9a: k={k} stages its half tables in shared memory")
-        idx = torch.from_numpy(gen.integers(0, 1 << k, m).astype(np.int32)).to(device)
-        r = GI.upload(GI._point_rows([Fr(rnd.randrange(P)) for _ in range(k)]), device)
-        eq = GK.eq_halves(r, k)
-        tag = f"k={k}, {m} entries, half tables in global memory"
-        case("eq_halves", f"k={k}", lambda: (GK.eq_halves(r, k),),
-             lambda: (GK.eq_halves_ref(r, k),), None, False)
-        args = (idx, vals, eq, k, last, plan)
-        for form, kw in (("phase 1's form", kw1), ("phase 2's form", {})):
-            case("weight_reduce", f"{tag}, {form}",
-                 lambda: (GK.weight_reduce(*args, k_out, **kw), k_out)[int(not kw):],
-                 lambda: (GK.weight_reduce_ref(*args, p_out, **kw), p_out)[int(not kw):],
-                 None, False)
-            case("weight_reduce", f"{tag}, {form}, raw sums",
-                 lambda: (GK.weight_reduce(*args, k_raw, **kw), k_raw)[1:],
-                 lambda: (GK.weight_reduce_ref(*args, p_raw, **kw), p_raw)[1:], None, False)
+    # the largest build in the blocks: dim 21, 2^11 + 2^10 half-table lanes
+    f1, f2, f3, g = gkr_k21_instance(seed)
+    k21 = f2.num_vars
+    check(GK.in_block(k21) and not GK.in_block(k21 + 1), f"9a: dim {k21} is not the largest "
+                                                         f"build in the blocks")
+    split, f2_d, f3_d, g_r = G._upload(f1, f2, f3, g, k21, device)
+    u21 = GI.upload(GI._point_rows([Fr(rnd.randrange(P)) for _ in range(k21)]), device)
+    phases_equal(f"dim {k21}", split, g_r, f3_d, f2_d, k21, u21)
+    print(f"9a dim {k21}, {split.vals.shape[0]} entries: phase1_pair and phase2_pair equal the "
+          f"torch-op plain versions on the card, strict and as raw sums (the half tables "
+          f"built in the blocks)")
     return stats
 
 
@@ -2742,8 +2765,9 @@ def sharded_gkr(prover, seed: int, refs: dict, guard) -> dict:
     want = {k: 0 for k in launches}
     want.update({"round_nofold": 4, "round_fold": 4 * (dim - 1), "transcript_step": 4 * dim})
     # a rank's inits (2 proves): the per-size pieces, the weight reduce into
-    # the raw limb sums and the finish of the all-reduced sums once a phase
-    want.update({"eq_halves": 4, "weight_reduce": 4, "finish_sums": 4, "pair_slots": 6})
+    # the raw limb sums (its blocks building the half tables) and the finish
+    # of the all-reduced sums once a phase
+    want.update({"weight_reduce": 4, "finish_sums": 4, "pair_slots": 6})
     check(launches == want, f"sharded GKR: launches {launches}, expected {want}")
 
     # the inits alone at fixed challenges: the all-reduces timed between syncs
@@ -2849,7 +2873,7 @@ def dryrun_phase(device) -> dict:
           "dry run: the card's proofs differ from the CPU's")
     # the kernels each sharded prove must launch on every rank
     want = {"sp": ("round_fold",), "chained": ("round_fold", "transcript_step"),
-            "gkr": ("round_fold", "transcript_step") + GKR_INIT_KERNELS,
+            "gkr": ("round_fold", "transcript_step", "weight_reduce", "finish_sums", "pair_slots"),
             "batch": ("round_fold_batched", "transcript_step_batched")}
     for r in res["ranks"]:
         check(all(r["launches"][case][name] > 0 for case, names in want.items()
@@ -3519,10 +3543,10 @@ def main() -> int:
         ("round_fold_batched", "sumcheck_tpu/batch.py:75", "batch ml generic"),
         ("round_step_fold_batched", "sumcheck_tpu/batch.py:261", "batch ml per-size"),
         ("transcript_step_batched", "sumcheck_tpu/batch.py:304", "batch ml generic"),
-        ("eq_halves", "sumcheck_tpu/ops/gkr_init.py:138", "gkr generic"),
-        ("weight_reduce", "sumcheck_tpu/ops/gkr_init.py:98 and :237", "gkr generic"),
+        ("weight_reduce", "sumcheck_tpu/ops/gkr_init.py:98, :138, :237 and :472-523",
+         "gkr generic"),
         ("finish_sums", "sumcheck_tpu/parallel/gkr.py:50", "sharded gkr S=2 gloo"),
-        ("pair_slots", "sumcheck_tpu/ops/gkr_init.py:494", "gkr generic"),
+        ("pair_slots", "sumcheck_tpu/ops/gkr_init.py:494", "gkr per-size"),
     ):
         err, timings = stats[name]
         main_shape = timings[0]
@@ -3534,7 +3558,7 @@ def main() -> int:
             "route": "cuda",
             "source": f"sumcheck_tpu_torch/csrc/{sources.get(name, 'round.cu')}",
             "replaces": replaces,
-            "launches": heads[path]["launches"][name],
+            "launches": {**heads, **tools}[path]["launches"][name],
             "launches_by_path": {p: h["launches"][name] for p, h in {**heads, **tools}.items()},
             "max_abs_err": err,
             "ms": main_shape["ms"],

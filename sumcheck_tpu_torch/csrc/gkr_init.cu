@@ -1,4 +1,4 @@
-// The GKR phase inits for Hopper (sm_90a): four kernels that together build
+// The GKR phase inits for Hopper (sm_90a): three kernels that together build
 // each phase's (lo, hi) table pair of the GKR round sumcheck.
 //
 // Replaces the JAX package's jitted jnp device programs of the phase inits
@@ -17,20 +17,23 @@
 // v_j eq(g, g_j) into f1(g, u, y) = sum_j w_j eq(u, x_j) at y_j. Each is a
 // weight fold, an exact segment sum, and the pair's second slot:
 //
-//   eq_halves_kernel     eq(r, j) factors as eq_lo[j & m] * eq_hi[j >> kl]
-//                        over the low kl = ceil(k/2) and high k - kl bits;
-//                        one lane a thread writes both half tables,
-//                        2^kl + 2^(k-kl) lanes (1,024 at k = 18, 32 KB);
-//   weight_reduce_kernel the weight fold and the exact segment sum in one
-//                        launch: w_j = v_j * eq_lo[idx_j & m] *
+//   weight_reduce_kernel one launch a phase: eq's two half tables, eq(r, j) =
+//                        eq_lo[j & m] * eq_hi[j >> kl] over the low kl =
+//                        ceil(k/2) and high k - kl bits, built by each block
+//                        in its shared memory from the challenge rows; the
+//                        weight fold w_j = v_j * eq_lo[idx_j & m] *
 //                        eq_hi[idx_j >> kl] (phase 1: w_j to the carry in y
 //                        order, then times f3[y_j]), summed over each
-//                        segment of the sorted entries mod p; or the raw
-//                        limb sums (a rank's partial);
+//                        segment of the sorted entries mod p into slot 0 of
+//                        the pair, or the raw limb sums (a rank's partial);
+//                        and the pair's slot 1 from the same blocks: a copy
+//                        of f2 (phase 1) or f3 times the final fold l + r (h
+//                        - l) of a one-lane pair (f2(u), phase 2);
 //   finish_sums_kernel   the finish of all-reduced raw sums;
-//   pair_slots_kernel    the pair's other slots: a copy of a table, a table
-//                        times a scalar on the device, or times the final
-//                        fold l + r (h - l) of a one-lane pair (f2(u)).
+//   pair_slots_kernel    a pair's slots for the pieces that stay separate
+//                        (the per-size chain, the sharded ranks): a copy, a
+//                        table times a scalar on the device, or times the
+//                        final fold of a one-lane pair, or that fold alone.
 //
 // Layout: values are 8 x 32-bit limbs (field.cuh). Tables are limb-major
 // (limb j of lane k at [j * stride + k]); f1's values and the carry w are
@@ -44,26 +47,31 @@
 // What bounds it: at the main shape (dim 18, 2^18 entries) phase 1 does 3
 // Montgomery multiplies an entry and 1 a segment (0.0165 ms of 32-bit
 // multiplies on an H100, against 0.011 ms of bytes), phase 2 two an entry
-// and one a segment; a pair slot moves 64 B a lane; the eq halves are
-// latency. The weight reduce's design: one launch a phase, the weights never
-// in device memory; one thread an entry for the multiplies (a thread a
-// segment would leave a warp waiting on its longest segment); the products
-// staged in shared memory entry-major and summed there one thread a segment
-// in 64-bit limb accumulators; persistent blocks that stage the half eq
-// tables in shared memory once (up to kMaxSharedEq lanes, else they are read
-// from the cache); a host-built plan of tiles of consecutive segments whose
-// entries fit kTile, so the kernel needs no sync and no host round trip;
-// and a segment longer than a tile cut into tile-sized chunks across blocks,
-// summed with 64-bit atomics into a per-device scratch row that the last
-// chunk to arrive finishes and zeroes (integer sums are exact in any order;
-// below 2^56 a limb at 2^24 entries). Each phase is 3 launches (eq halves,
-// weight reduce, pair slots) and none waits for the host. Measured on an
-// H100 80GB HBM3 at 700 W (PERF.md, tools/gkr_init_variants.py), phase 1 at
-// 41% and phase 2 at 46% of the multiply bound: tiles of 512 entries beat
-// 256 (the half tables staged once for twice the entries, half the blocks'
-// passes); staging the half tables limb-major cost nothing more; phase 1's
-// f3 gather, a random 4-byte load of a limb-major table, 8 sectors an entry,
-// is what holds phase 1 most.
+// and one a segment; the pair's slot 1 moves 64 B a lane. The weight
+// reduce's design: one launch a phase, the weights never in device memory;
+// one thread an entry for the multiplies (a thread a segment would leave a
+// warp waiting on its longest segment); the products staged in shared
+// memory entry-major and summed there one thread a segment in 64-bit limb
+// accumulators; persistent blocks that each build the half eq tables in
+// shared memory once, by doubling (one multiply a new lane pair, 2^kl +
+// 2^kh - 2 a block, depth kl; up to kMaxSharedEq lanes, k <= 21, as far
+// as any f1 reaches: its 3 k index bits fit int64); a host-built plan of
+// tiles of consecutive segments whose entries fit kTile, so the kernel needs no
+// sync and no host round trip; a segment longer than a tile cut into
+// tile-sized chunks across blocks, summed with 64-bit atomics into a
+// per-device scratch row that the last chunk to arrive finishes and zeroes
+// (integer sums are exact in any order; below 2^56 a limb at 2^24
+// entries); and slot 1's lanes moved by half of each block's warps while
+// the other half build the half tables. None waits for the host. Measured
+// on an H100 80GB HBM3 at 700 W (PERF.md, tools/gkr_init_variants.py):
+// tiles of 512 entries beat 256; staging the half tables limb-major cost
+// nothing more; phase 1's f3 gather, a random 4-byte load of a limb-major
+// table, 8 sectors an entry, is what holds phase 1 most. Of the fused
+// phase's 0.048 / 0.040 ms the build in every block takes 0.007-0.008 ms
+// (its kl dependent levels and its multiplies, repeated in each of the 264
+// blocks); it beat a cooperative build, the half tables in a launch of
+// their own, the slot's items in the work list, a split of each half as a
+// tensor product of two smaller tables and tiles of 1,024.
 
 #include "field.cuh"
 
@@ -74,7 +82,8 @@ using namespace sc;
 constexpr int kThreads = 256;      // a block of the elementwise kernels
 constexpr int kTile = 512;         // entries, and segments, of one tile of the plan: the
                                    // weight reduce's block, one thread an entry
-constexpr int kMaxSharedEq = 3072;  // half-table lanes staged in shared memory (96 KB)
+constexpr int kMaxSharedEq = 3072;  // half-table lanes built in shared memory (96 KB)
+constexpr int kMaxRows = 24;        // challenge rows a block stages (k <= 21 builds in it)
 constexpr int kWarps = kTile / 32;
 constexpr size_t kStageBytes = 2 * kTile * sizeof(uint4);  // a tile's products
 
@@ -100,40 +109,18 @@ __device__ __forceinline__ void store_digits(int32_t* digits, const uint32_t x[k
   }
 }
 
-// ---------------------------------------------------------------------------
-// the eq half tables
-// ---------------------------------------------------------------------------
-
-// eq[t] = prod_{i < kl} (bit_i(t) ? r_i : 1 - r_i) for t < 2^kl, and
-// eq[2^kl + t] = prod_{i < kh} (bit_i(t) ? r_{kl+i} : 1 - r_{kl+i}) for
-// t < 2^kh (the empty product is the Montgomery one). eq is (8, 2^kl + 2^kh).
-__global__ void __launch_bounds__(kThreads)
-    eq_halves_kernel(uint32_t* __restrict__ eq, int kl, int kh,
-                     const int32_t* __restrict__ r, long long r_stride,
-                     const __grid_constant__ Consts c) {
-  const long long nlo = 1LL << kl, lanes = nlo + (1LL << kh);
-  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (t >= lanes) return;
-  const bool low = t < nlo;
-  const long long j = low ? t : t - nlo;
-  const int first = low ? 0 : kl, count = low ? kl : kh;
-  uint32_t acc[kLimbs];
-  copy8(acc, c.one);
-  for (int i = 0; i < count; ++i) {
-    uint32_t ri[kLimbs], x[kLimbs];
-    load_digits(ri, reinterpret_cast<const uint32_t*>(r + (first + i) * r_stride));
-    if ((j >> i) & 1) {
-      copy8(x, ri);
-    } else {
-      sub_mod(x, c.one, ri, c.f);  // 1 - r_i
-    }
-    if (i == 0) {
-      copy8(acc, x);
-    } else {
-      mont_mul(acc, acc, x, c.f);
-    }
-  }
-  store_lane(eq + t, lanes, acc);
+// l + r (h - l) of one lane: limb j of l and h at lo[j * stride] and
+// hi[j * stride], r a row of digits.
+__device__ __forceinline__ void final_fold(uint32_t out[kLimbs], const uint32_t* lo,
+                                           const uint32_t* hi, long long stride,
+                                           const int32_t* r, const Consts& c) {
+  uint32_t l[kLimbs], h[kLimbs], rr[kLimbs], d[kLimbs];
+  load_lane(l, lo, stride);
+  load_lane(h, hi, stride);
+  load_digits(rr, reinterpret_cast<const uint32_t*>(r));
+  sub_mod(d, h, l, c.f);
+  mont_mul(d, d, rr, c.f);
+  add_mod(out, l, d, c.f);
 }
 
 // ---------------------------------------------------------------------------
@@ -150,6 +137,23 @@ struct SegDest {
   long long split;
 };
 
+// The pair's slot 1 from the weight reduce's launch, `items` items of kTile lanes:
+// lane k < half gets lo[:, k] = src[:, k] and hi[:, k] = src[:, half + k] (src a
+// contiguous (8, 2 half) table, lo and hi (8, half) with limb stride half), each times
+// the final fold of the one-lane pair (flo, fhi; limb stride fstride) by the row fr where
+// flo is given.
+struct Slot {
+  const uint32_t* src;
+  uint32_t* lo;
+  uint32_t* hi;
+  long long half;
+  int items;
+  const uint32_t* flo;
+  const uint32_t* fhi;
+  long long fstride;
+  const int32_t* fr;
+};
+
 // One launch of the fused kernel. The plan (built on the host, ops/gkr_init_cuda.tile_plan)
 // is a list of int4 items {s0, count, e0, e1}:
 //   count > 0: a tile, segments s0 .. s0 + count - 1 (count <= kTile), whose entries are
@@ -157,13 +161,15 @@ struct SegDest {
 //   count < 0: a chunk, entries e0 .. e1 - 1 (at most kTile) of the long segment s0 (more
 //              than kTile entries), which owns row -1 - count of the scratch.
 // With y (phase 1) each entry's weight w_j also goes to row to_y[j] of the carry (the
-// entries in y order) before it is multiplied by f3[y_j].
+// entries in y order) before it is multiplied by f3[y_j]. The slot's items are not in the
+// plan: they go beside the build (slot_item).
 struct WeightReduce {
   const int4* plan;
   int items;
   const uint32_t* vals;          // (nnz, 8) entry-major, sorted by segment
   const int32_t* idx;            // (nnz,) the eq index of each entry
-  const uint32_t* eq;            // (8, 2^kl + 2^kh) limb-major half tables
+  const int32_t* r;              // the k challenge rows, 16 digits each, row i at
+  long long r_stride;            //   r + i * r_stride, from which each block builds eq
   int kl, kh;
   const int32_t* last;           // (nseg,) each segment's last sorted position
   long long nseg;
@@ -176,6 +182,7 @@ struct WeightReduce {
   unsigned int* arrived;         // (long,) chunks arrived, zero between launches
   unsigned long long* sums_out;  // the raw (8, nseg) limb sums, or null: strict to dst
   SegDest dst;
+  Slot slot;                     // slot.items = 0: no slot
 };
 
 // The 8 limbs of row i of an entry-major (n, 8) table: two 16-byte loads.
@@ -191,19 +198,11 @@ __device__ __forceinline__ void store_row(uint32_t* rows, long long i, const uin
   p[1] = make_uint4(x[4], x[5], x[6], x[7]);
 }
 
-// Lane `lane` of the half tables: entry-major in shared memory (two 16-byte
-// loads), or limb-major from global memory past kMaxSharedEq lanes.
-template <bool kShared>
-__device__ __forceinline__ void eq_lane(uint32_t x[kLimbs], const uint4* s_eq,
-                                        const uint32_t* eq, int lanes, uint32_t lane) {
-  if constexpr (kShared) {
-    const uint4 a = s_eq[2 * lane], b = s_eq[2 * lane + 1];
-    x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w, x[4] = b.x, x[5] = b.y, x[6] = b.z,
-    x[7] = b.w;
-  } else {
-#pragma unroll
-    for (int j = 0; j < kLimbs; ++j) x[j] = __ldg(eq + (long long)j * lanes + lane);
-  }
+// Lane `lane` of the half tables, entry-major in shared memory: two 16-byte
+// loads.
+__device__ __forceinline__ void eq_lane(uint32_t x[kLimbs], const uint4* s_eq, uint32_t lane) {
+  const uint4 a = s_eq[2 * lane], b = s_eq[2 * lane + 1];
+  x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w, x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
 }
 
 // 8 limb sums (each below 2^61) -> their value mod p, canonical: one carry
@@ -241,7 +240,79 @@ __device__ __forceinline__ void emit(long long s, const uint64_t acc[kLimbs], lo
   store_lane(base, dst.ld, v);
 }
 
-// Each block stages the half tables once (kShared) and walks the plan's
+// A barrier of the block's first `threads` threads (a multiple of 32):
+// barrier 1, so that the other warps may go on with other work.
+__device__ __forceinline__ void sync_first(int threads) {
+  asm volatile("bar.sync 1, %0;" ::"r"(threads) : "memory");
+}
+
+// The k challenge rows (16 digits each, row i at r + i * r_stride) into the
+// block's shared memory, one digit a thread of `threads` (thread `tid`):
+// one round of global loads in place of one a doubling level. The caller
+// syncs before they are read.
+__device__ __forceinline__ void stage_rows(uint32_t (*rows)[kDigits], const int32_t* r,
+                                           long long r_stride, int k, int tid, int threads) {
+  for (int i = tid; i < k * kDigits; i += threads)
+    rows[i / kDigits][i % kDigits] = (uint32_t)__ldg(r + (i / kDigits) * r_stride + i % kDigits);
+}
+
+// Both half tables of eq(r, .) in the block's shared memory, entry-major (two
+// uint4 a lane), from the staged rows: the low one over rows 0 .. kl - 1 at
+// lanes [0, 2^kl), the high one over rows kl .. kl + kh - 1 at [2^kl, 2^kl +
+// 2^kh), lane 0 of each the Montgomery one. Level i takes each half's table over its first i variables
+// (its lanes [0, 2^i)) to the table over i + 1: for x = lane j, lane j + 2^i
+// = x r_i and lane j = x - x r_i, so lane j ends as prod_i (bit_i(j) ? r_i : 1
+// - r_i), low bit first. One multiply a new lane pair, both halves' levels
+// side by side (2^i + 2^i work items over the first `threads` threads of the
+// block, thread `tid`), kl levels and a barrier of those threads after each
+// (and before the first, for the rows).
+__device__ __forceinline__ void build_eq_halves(uint4* s_eq, uint32_t (*rows)[kDigits], int kl,
+                                                int kh, const Consts& c, int tid, int threads) {
+  const int nlo = 1 << kl;
+  if (tid < 2) {
+    uint4* lane = s_eq + 2 * (tid ? nlo : 0);
+    lane[0] = make_uint4(c.one[0], c.one[1], c.one[2], c.one[3]);
+    lane[1] = make_uint4(c.one[4], c.one[5], c.one[6], c.one[7]);
+  }
+  sync_first(threads);
+  for (int i = 0; i < kl; ++i) {  // kl >= kh
+    const int n = 1 << i, work = i < kh ? 2 * n : n;
+    for (int w = tid; w < work; w += threads) {
+      const bool low = w < n;
+      uint4* x_at = s_eq + 2 * (low ? w : nlo + w - n);
+      const uint4 a = x_at[0], b = x_at[1];
+      const uint32_t x[kLimbs] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+      uint32_t ri[kLimbs], hi[kLimbs], lo[kLimbs];
+      load_digits(ri, rows[low ? i : kl + i]);
+      mont_mul(hi, x, ri, c.f);
+      sub_mod(lo, x, hi, c.f);
+      x_at[0] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      x_at[1] = make_uint4(lo[4], lo[5], lo[6], lo[7]);
+      x_at[2 * n] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+      x_at[2 * n + 1] = make_uint4(hi[4], hi[5], hi[6], hi[7]);
+    }
+    sync_first(threads);
+  }
+}
+
+// Slot item s, lanes s * kTile .. (s + 1) * kTile - 1 below the half, over
+// `threads` threads (thread `tid`): both halves of each lane, times the
+// final fold (in shared memory) where the slot has one.
+__device__ __forceinline__ void slot_item(const Slot& sl, int s, const uint32_t* scale,
+                                          const Consts& c, int tid, int threads) {
+  const long long end = min((long long)(s + 1) * kTile, sl.half);
+  for (long long k = (long long)s * kTile + tid; k < end; k += threads) {
+#pragma unroll
+    for (int side = 0; side < 2; ++side) {
+      uint32_t v[kLimbs];
+      load_lane(v, sl.src + side * sl.half + k, 2 * sl.half);
+      if (sl.flo) mont_mul(v, v, scale, c.f);
+      store_lane((side ? sl.hi : sl.lo) + k, sl.half, v);
+    }
+  }
+}
+
+// Each block builds the half tables once and walks the plan's
 // items blockIdx.x, + gridDim.x, ...: one thread an entry computes its
 // weight v_j * eq_lo[idx_j & m] * eq_hi[idx_j >> kl] (with kGather: stores
 // it to the carry and multiplies by f3[y_j]); a tile stages the products in
@@ -249,29 +320,43 @@ __device__ __forceinline__ void emit(long long s, const uint64_t acc[kLimbs], lo
 // 64-bit limb accumulators and emits them; a chunk sums its products over
 // the block (warp shuffles), adds them into its scratch row with 64-bit
 // atomics, and the chunk that arrives last (a counter after a fence) reads
-// and zeroes the row and the counter and emits the segment.
-template <bool kShared, bool kGather>
-__global__ void __launch_bounds__(kTile)
+// and zeroes the row and the counter and emits the segment. Before the
+// tiles, while the first half of the block's warps build the half tables,
+// the other half move the block's slot items (blockIdx.x, + gridDim.x,
+// ...; after the final fold they scale by, which the block's last thread
+// computes once), so that the slot's memory traffic overlaps the build's
+// dependent multiplies (tools/gkr_init_variants.py times the slot's items
+// in the work list instead, after the plan's items, before them and
+// spread between them).
+template <bool kGather>
+__global__ void __launch_bounds__(kTile, 1024 / kTile)  // 64 registers a thread
     weight_reduce_kernel(const __grid_constant__ WeightReduce a,
                          const __grid_constant__ Consts c) {
   extern __shared__ uint4 smem[];
   __shared__ uint64_t s_part[kWarps][kLimbs];
+  __shared__ uint32_t s_scale[kLimbs];
+  __shared__ uint32_t s_rows[kMaxRows][kDigits];
   uint4* s_stage = smem;               // [2][kTile]: an entry's limbs 0-3, then 4-7
-  const uint4* s_eq = smem + 2 * kTile;  // kShared: two a lane
-  const int nlo = 1 << a.kl, lanes = nlo + (1 << a.kh);
-  if constexpr (kShared) {
-    uint4* eq_rows = smem + 2 * kTile;
-    for (int i = threadIdx.x; i < lanes; i += kTile) {
-      uint32_t v[kLimbs];
-#pragma unroll
-      for (int j = 0; j < kLimbs; ++j) v[j] = __ldg(a.eq + (long long)j * lanes + i);
-      eq_rows[2 * i] = make_uint4(v[0], v[1], v[2], v[3]);
-      eq_rows[2 * i + 1] = make_uint4(v[4], v[5], v[6], v[7]);
-    }
-    __syncthreads();
-  }
-  const uint32_t mask = (uint32_t)nlo - 1;
+  uint4* s_eq = smem + 2 * kTile;      // the half tables, two a lane
+  const int nlo = 1 << a.kl;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  if (a.slot.flo && t == kTile - 1) {
+    uint32_t v[kLimbs];
+    final_fold(v, a.slot.flo, a.slot.fhi, a.slot.fstride, a.slot.fr, c);
+    copy8(s_scale, v);
+  }
+  // the table threads: the whole block, or its first half beside the slot's movers
+  const int table_threads = a.slot.items ? kTile / 2 : kTile;
+  if (t < table_threads) {
+    stage_rows(s_rows, a.r, a.r_stride, a.kl + a.kh, t, table_threads);
+    build_eq_halves(s_eq, s_rows, a.kl, a.kh, c, t, table_threads);
+  } else {
+    if (a.slot.flo) asm volatile("bar.sync 2, %0;" ::"r"(kTile - table_threads) : "memory");
+    for (int sl = blockIdx.x; sl < a.slot.items; sl += gridDim.x)
+      slot_item(a.slot, sl, s_scale, c, t - table_threads, kTile - table_threads);
+  }
+  __syncthreads();
+  const uint32_t mask = (uint32_t)nlo - 1;
   for (int it = blockIdx.x; it < a.items; it += gridDim.x) {
     const int4 item = __ldg(a.plan + it);
     const int e = item.z + t;
@@ -280,9 +365,9 @@ __global__ void __launch_bounds__(kTile)
       const uint32_t ix = (uint32_t)__ldg(a.idx + e);
       uint32_t q[kLimbs];
       load_row(v, a.vals, e);
-      eq_lane<kShared>(q, s_eq, a.eq, lanes, ix & mask);
+      eq_lane(q, s_eq, ix & mask);
       mont_mul(v, v, q, c.f);
-      eq_lane<kShared>(q, s_eq, a.eq, lanes, nlo + (ix >> a.kl));
+      eq_lane(q, s_eq, nlo + (ix >> a.kl));
       mont_mul(v, v, q, c.f);
       if constexpr (kGather) {
         store_row(a.carry, __ldg(a.to_y + e), v);
@@ -384,15 +469,10 @@ struct PairPlan {
   const int32_t* fr;
 };
 
-__device__ __forceinline__ void final_fold(uint32_t out[kLimbs], const PairPlan& p,
-                                           const Consts& c) {
-  uint32_t l[kLimbs], h[kLimbs], r[kLimbs], d[kLimbs];
-  load_lane(l, p.flo + p.fslot * p.fslot_stride, p.flimb_stride);
-  load_lane(h, p.fhi + p.fslot * p.fslot_stride, p.flimb_stride);
-  load_digits(r, reinterpret_cast<const uint32_t*>(p.fr));
-  sub_mod(d, h, l, c.f);
-  mont_mul(d, d, r, c.f);
-  add_mod(out, l, d, c.f);
+__device__ __forceinline__ void plan_fold(uint32_t out[kLimbs], const PairPlan& p,
+                                          const Consts& c) {
+  final_fold(out, p.flo + p.fslot * p.fslot_stride, p.fhi + p.fslot * p.fslot_stride,
+             p.flimb_stride, p.fr, c);
 }
 
 // Slot p.slot[y] of the (U, 8, H) halves lo, hi at lane k < H, for y =
@@ -408,7 +488,7 @@ __global__ void __launch_bounds__(kThreads)
   if (fold_out) {
     if (blockIdx.x == 0 && threadIdx.x == 0) {
       uint32_t v[kLimbs];
-      final_fold(v, p, c);
+      plan_fold(v, p, c);
       store_digits(fold_out, v);
     }
     return;
@@ -420,7 +500,7 @@ __global__ void __launch_bounds__(kThreads)
       if (mode == kScale) {
         load_digits(v, reinterpret_cast<const uint32_t*>(p.scale[y]));
       } else {
-        final_fold(v, p, c);
+        plan_fold(v, p, c);
       }
       copy8(s_scale, v);
     }
@@ -461,20 +541,19 @@ constexpr int kMaxDevices = 64;
 constexpr int kMaxK = 48;
 int g_blocks[kMaxDevices][2][kMaxK + 1];
 
-// Set the shared-memory limit of the shared variants (to what the largest
-// staged tables need) and work out the resident blocks.
+// Set the kernel's shared-memory limit (to what the largest half tables
+// need) and work out the resident blocks.
 cudaError_t resident_blocks(int device, bool gather, int k, const void* fn, size_t smem,
-                            bool shared, int* blocks) {
+                            int* blocks) {
   int& cached = g_blocks[device][gather][k];
   if (cached > 0) {
     *blocks = cached;
     return cudaSuccess;
   }
   cudaError_t e;
-  if (shared && (e = cudaFuncSetAttribute(
-                     fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                     (int)(kStageBytes + kMaxSharedEq * kLimbs * sizeof(uint32_t)))) !=
-                    cudaSuccess)
+  if ((e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                (int)(kStageBytes + kMaxSharedEq * kLimbs * sizeof(uint32_t)))) !=
+      cudaSuccess)
     return e;
   int sms = 0, per_sm = 0;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
@@ -499,47 +578,44 @@ int sc_gkr_max_shared_eq() { return kMaxSharedEq; }
 // Montgomery one (8), R^2 mod p (8), the reduction's subtraction count; 26
 // words.
 
-// eq: (8, 2^kl + 2^kh) int32 out. r: the challenge rows, 16 int32 digits
-// each, row i at r + i * r_stride.
-int sc_gkr_eq_halves(void* eq, int kl, int kh, const void* r, long long r_stride,
-                     const uint32_t* consts, void* stream) {
-  if (kl < 0 || kh < 0 || kl > 24 || kh > 24) return (int)cudaErrorInvalidValue;
-  const long long lanes = (1LL << kl) + (1LL << kh);
-  eq_halves_kernel<<<grid_of(lanes), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(eq), kl, kh, static_cast<const int32_t*>(r), r_stride,
-      make_consts(consts));
-  return (int)cudaGetLastError();
-}
-
 // The fused weight fold and segment sum over a plan of `items` int4 items
 // (the tiles and chunks of `weight_reduce_kernel`): vals (nnz, 8) and idx
-// (nnz,) sorted by segment, eq from sc_gkr_eq_halves, last (nseg,); phase 1
-// also y (nnz,), f3 (8, n3), to_y (nnz,) and the carry (nnz, 8) out, else all
-// four null. scratch (long, 8) uint64 and arrived (long,) uint32 for a plan
-// with long segments (zero, and left zero), else null. The raw (8, nseg)
-// int64 limb sums to sums_out if given, else the strict values to the
-// destination. device: the current device's index. vals and the carry
-// 16-byte aligned.
+// (nnz,) sorted by segment; the k = kl + kh challenge rows r (row stride
+// r_stride), from which each block builds the half tables (2^kl + 2^kh <=
+// kMaxSharedEq lanes, else the launch is refused); last (nseg,);
+// phase 1 also y (nnz,), f3 (8, n3), to_y (nnz,) and the carry (nnz, 8) out,
+// else all four null. scratch (long, 8) uint64 and arrived (long,) uint32 for
+// a plan with long segments (zero, and left zero), else null. The raw (8,
+// nseg) int64 limb sums to sums_out if given, else the strict values to the
+// destination. With slot_src: the pair's slot 1 too, slot_lo and slot_hi (8,
+// half) each, from the (8, 2 half) table slot_src, times the final fold of
+// (flo, fhi, fstride, fr) where flo is given. device: the current device's
+// index. vals and the carry 16-byte aligned.
 int sc_gkr_weight_reduce(const void* plan, int items, const void* vals, const void* idx,
-                         const void* eq, int kl, int kh, const void* last, long long nseg,
-                         const void* y, const void* f3, long long n3, const void* to_y,
-                         void* carry, void* scratch, void* arrived, void* sums_out, void* dst_lo,
-                         void* dst_hi, long long dst_ld, long long dst_split, int device,
+                         const void* r, long long r_stride, int kl, int kh,
+                         const void* last, long long nseg, const void* y, const void* f3,
+                         long long n3, const void* to_y, void* carry, void* scratch,
+                         void* arrived, void* sums_out, void* dst_lo, void* dst_hi,
+                         long long dst_ld, long long dst_split, const void* slot_src,
+                         void* slot_lo, void* slot_hi, long long half, const void* flo,
+                         const void* fhi, long long fstride, const void* fr, int device,
                          const uint32_t* consts, void* stream) {
   const bool gather = y != nullptr;
-  if (items < 1 || nseg < 1 || kl < 0 || kh < 0 || kl > 24 || kh > 24 || device < 0 ||
-      device >= kMaxDevices || (gather && (!f3 || !to_y || !carry)) || (!sums_out && !dst_lo))
+  if (items < 1 || nseg < 1 || kl < 0 || kh < 0 || kl > 24 || kh > 24 || kh > kl ||
+      device < 0 || device >= kMaxDevices || (gather && (!f3 || !to_y || !carry)) ||
+      (!sums_out && !dst_lo))
     return (int)cudaErrorInvalidValue;
   const int lanes = (1 << kl) + (1 << kh);
-  const bool shared = lanes <= kMaxSharedEq;
-  const size_t smem = kStageBytes + (shared ? (size_t)lanes * kLimbs * sizeof(uint32_t) : 0);
-  const void* fn = shared ? (gather ? (const void*)weight_reduce_kernel<true, true>
-                                    : (const void*)weight_reduce_kernel<true, false>)
-                          : (gather ? (const void*)weight_reduce_kernel<false, true>
-                                    : (const void*)weight_reduce_kernel<false, false>);
-  // as many blocks as fit at once, each staging the tables once
+  if (lanes > kMaxSharedEq || kl + kh > kMaxRows || !r) return (int)cudaErrorInvalidValue;
+  const int slot_items = slot_src ? (int)((half + kTile - 1) / kTile) : 0;
+  if (slot_src && (half < 1 || !slot_lo || !slot_hi || (flo && (!fhi || !fr))))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = kStageBytes + (size_t)lanes * kLimbs * sizeof(uint32_t);
+  const void* fn = gather ? (const void*)weight_reduce_kernel<true>
+                          : (const void*)weight_reduce_kernel<false>;
+  // as many blocks as fit at once, each building the tables once
   int most = 0;
-  const cudaError_t e = resident_blocks(device, gather, kl + kh, fn, smem, shared, &most);
+  const cudaError_t e = resident_blocks(device, gather, kl + kh, fn, smem, &most);
   if (e != cudaSuccess) return (int)e;
   const unsigned grid = (unsigned)(items < most ? items : most);
   WeightReduce a;
@@ -547,7 +623,8 @@ int sc_gkr_weight_reduce(const void* plan, int items, const void* vals, const vo
   a.items = items;
   a.vals = static_cast<const uint32_t*>(vals);
   a.idx = static_cast<const int32_t*>(idx);
-  a.eq = static_cast<const uint32_t*>(eq);
+  a.r = static_cast<const int32_t*>(r);
+  a.r_stride = r_stride;
   a.kl = kl;
   a.kh = kh;
   a.last = static_cast<const int32_t*>(last);
@@ -561,16 +638,16 @@ int sc_gkr_weight_reduce(const void* plan, int items, const void* vals, const vo
   a.arrived = static_cast<unsigned int*>(arrived);
   a.sums_out = static_cast<unsigned long long*>(sums_out);
   a.dst = {static_cast<uint32_t*>(dst_lo), static_cast<uint32_t*>(dst_hi), dst_ld, dst_split};
+  a.slot = {static_cast<const uint32_t*>(slot_src), static_cast<uint32_t*>(slot_lo),
+            static_cast<uint32_t*>(slot_hi), half, slot_items,
+            static_cast<const uint32_t*>(flo), static_cast<const uint32_t*>(fhi), fstride,
+            static_cast<const int32_t*>(fr)};
   const Consts c = make_consts(consts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (shared && gather) {
-    weight_reduce_kernel<true, true><<<grid, kTile, smem, s>>>(a, c);
-  } else if (shared) {
-    weight_reduce_kernel<true, false><<<grid, kTile, smem, s>>>(a, c);
-  } else if (gather) {
-    weight_reduce_kernel<false, true><<<grid, kTile, smem, s>>>(a, c);
+  if (gather) {
+    weight_reduce_kernel<true><<<grid, kTile, smem, s>>>(a, c);
   } else {
-    weight_reduce_kernel<false, false><<<grid, kTile, smem, s>>>(a, c);
+    weight_reduce_kernel<false><<<grid, kTile, smem, s>>>(a, c);
   }
   return (int)cudaGetLastError();
 }

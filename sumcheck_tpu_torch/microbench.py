@@ -26,12 +26,12 @@ as `bench.py:187-194` draws it; nv 18 by default):
   segreduce    `gkr_init._segment_reduce_sorted` at nnz = 2^nv (the plain
                segment sums, `gkr_init_cuda.segment_reduce_ref`, on 16-bit
                digits)
-  eq_halves    the kernel `gkr_init_cuda.eq_halves` at k = nv: eq's two
-               half tables
   weight_reduce  the kernel `gkr_init_cuda.weight_reduce` in phase 1's
-               form: the weight fold of 2^nv entries with the f3 gather at
-               random lanes (three multiplies an entry), the carry written
-               through a permutation, and the exact sums of 2^nv segments
+               form: eq's half tables built in its blocks, the weight fold
+               of 2^nv entries with the f3 gather at random lanes (three
+               multiplies an entry), the carry written through a
+               permutation, the exact sums of 2^nv segments into slot 0 of
+               a pair and a table copied into its slot 1
   pair_slots   the kernel `gkr_init_cuda.pair_slots`: a pair's two slots,
                a copy and a table times a scalar (`prep2`'s form)
 
@@ -82,7 +82,7 @@ from .fields import limbs_np as L
 from .fields.fr import NUM_DIGITS, P
 
 PROBES = ("rtt", "compress", "challenge", "gather16", "cumsum32", "mont_nnz", "mont_nnz_eo",
-          "eq_build", "segreduce", "eq_halves", "weight_reduce", "pair_slots")
+          "eq_build", "segreduce", "weight_reduce", "pair_slots")
 STAGES = ("upto_phase1", "upto_rounds_p1", "upto_phase2", "upto_rounds_p2", "full_prove")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak
@@ -186,7 +186,7 @@ PROFILE_SETTLE_S = (0.05, 0.2, 0.5)  # the waits of the profiles `profile_events
 PROFILE_PAD = 64
 # the host-side CUDA runtime calls that each put one record on the device
 RUNTIME_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
-                 "cudaMemcpyAsync", "cudaMemsetAsync")
+                 "cudaLaunchCooperativeKernel", "cudaMemcpyAsync", "cudaMemsetAsync")
 
 
 def profile_events(fn, warm=None) -> dict:
@@ -558,27 +558,29 @@ def kernel_probes(x: dict, device) -> dict:
     plan = GK.upload_plan(x["last"], n, device)
     kl, kh = GK.halves(nv)
     lanes = (1 << kl) + (1 << kh)
-    eq = GK.eq_halves(rows, nv)
-    table = torch.empty((8, n), dtype=torch.int32, device=device)
     lo = torch.empty((2, 8, n // 2), dtype=torch.int32, device=device)
     hi = torch.empty_like(lo)
+    r_lo, r_hi = torch.empty_like(lo), torch.empty_like(lo)
     cpu = {k: t.cpu() for k, t in (("a", a_l), ("b", b_l), ("a_rows", a_rows), ("idx", idx),
-                                   ("last", last), ("to_y", to_y), ("rows", rows), ("eq", eq))}
+                                   ("last", last), ("to_y", to_y), ("rows", rows))}
 
     def same(got, want, what):
         _check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
                f"{what} differs from its plain version")
 
     def reduce():
-        return GK.weight_reduce(idx, a_rows, eq, nv, last, plan, table, b_l, idx, to_y)
+        return GK.weight_reduce(idx, a_rows, rows, nv, last, plan, (r_lo, r_hi), b_l, idx, to_y,
+                                slot=(a_l, None))
 
     def check_reduce():
         carry = reduce()
-        want = torch.empty((8, n), dtype=torch.int32)
+        want = (torch.empty((2, 8, n // 2), dtype=torch.int32),
+                torch.empty((2, 8, n // 2), dtype=torch.int32))
         cplan = GK.Plan(plan.items.cpu(), plan.long)
-        want_carry = GK.weight_reduce_ref(cpu["idx"], cpu["a_rows"], cpu["eq"], nv, cpu["last"],
-                                          cplan, want, cpu["b"], cpu["idx"], cpu["to_y"])
-        same((table, carry), (want, want_carry), "weight_reduce")
+        want_carry = GK.weight_reduce_ref(cpu["idx"], cpu["a_rows"], cpu["rows"], nv,
+                                          cpu["last"], cplan, want, cpu["b"], cpu["idx"],
+                                          cpu["to_y"], slot=(cpu["a"], None))
+        same((r_lo, r_hi, carry), want + (want_carry,), "weight_reduce")
 
     def check_slots():
         GK.pair_slots(lo, hi, ((0, a_l, None), (1, b_l, rows[0])))
@@ -589,15 +591,12 @@ def kernel_probes(x: dict, device) -> dict:
 
     mont = MULS_PER_MONT
     return {
-        "eq_halves": (lambda: GK.eq_halves(rows, nv),
-                      lambda: same((GK.eq_halves(rows, nv),),
-                                   (GK.eq_halves_ref(cpu["rows"], nv),), "eq_halves"),
-                      {"bytes": 32 * lanes + 64 * nv, "imads": 2 * lanes * mont}),
         # idx, vals, y, to_y, the f3 gather and the carry an entry; last and
-        # the sum a segment; the half tables
+        # the sum a segment; the challenge rows; the slot's table read and
+        # written; the half tables' multiplies once (not each block's)
         "weight_reduce": (reduce, check_reduce,
-                          {"bytes": (4 + 32 + 4 + 4 + 32 + 32) * n + (4 + 32) * n + 32 * lanes,
-                           "imads": 4 * n * mont}),
+                          {"bytes": (4 + 32 + 4 + 4 + 32 + 32) * n + (4 + 32) * n + 64 * nv
+                           + 64 * n, "imads": (4 * n + lanes - 2) * mont}),
         "pair_slots": (lambda: GK.pair_slots(lo, hi, ((0, a_l, None), (1, b_l, rows[0]))),
                        check_slots, {"bytes": 2 * 64 * n + 64, "imads": n * mont}),
     }
@@ -701,7 +700,7 @@ def stage_work(dim: int, nnz: int) -> dict:
     and each output written once (int32 indices, f1's values and weights,
     the cached f2, f3 and the table pairs in 32 B limbs an element), and
     the 32-bit multiplies of its Montgomery multiplies (the inits' eq half
-    tables 2 a lane, weight folds two an entry, phase 1's gathered f3 one
+    tables one a lane pair of each doubling, weight folds two an entry, phase 1's gathered f3 one
     an entry, each segment sum's finish one, f2(u)'s scaling one a lane;
     the rounds `sol.count_prove_ops`
     for U=2 slots, one product of two, degree 2). The transcript steps'
@@ -714,10 +713,10 @@ def stage_work(dim: int, nnz: int) -> dict:
     rounds = count_prove_ops(dim, 2, 1, 2, 2)
     # phase 1: gbits, y_rev, to_y, values, last_x, f3, f2 in; the pair and the carry out
     p1 = {"bytes": 3 * 4 * nnz + 32 * nnz + 4 * n + 32 * n + 32 * n + 64 * n + 32 * nnz,
-          "mont": 2 * eq_lanes + 3 * nnz + n}
+          "mont": eq_lanes - 2 + 3 * nnz + n}
     # phase 2: x_y, last_y, the carry, f3 in; the pair out
     p2 = {"bytes": 4 * nnz + 4 * n + 32 * nnz + 32 * n + 64 * n,
-          "mont": 2 * eq_lanes + 2 * nnz + 2 * n}
+          "mont": eq_lanes - 2 + 2 * nnz + 2 * n}
     r = {"bytes": rounds["hbm_bytes"], "mont": rounds["mont_muls"]}
     out, total = {}, {"bytes": 0, "mont": 0}
     for name, part in zip(STAGES, (p1, r, p2, r, None)):

@@ -16,7 +16,6 @@ def launch_counters() -> dict:
             "round_fold_batched": round_cuda.round_fold_batched,
             "round_step_fold_batched": round_cuda.round_step_fold_batched,
             "transcript_step_batched": transcript_cuda.transcript_step_batched,
-            "eq_halves": gkr_init_cuda.eq_halves,
             "weight_reduce": gkr_init_cuda.weight_reduce,
             "finish_sums": gkr_init_cuda.finish_sums,
             "pair_slots": gkr_init_cuda.pair_slots}

@@ -1,24 +1,27 @@
 """GKR phase initialization on the prover's device — the port of
-`sumcheck_tpu/ops/gkr_init.py`. On a card each phase runs three hand-written
-kernels (`ops/gkr_init_cuda.py`, `csrc/gkr_init.cu`); on the CPU their plain
-versions. The JAX package jits each phase init into one XLA program.
+`sumcheck_tpu/ops/gkr_init.py`. On a card each phase init of the generic
+chain is one launch of a hand-written kernel (`ops/gkr_init_cuda.py`,
+`csrc/gkr_init.cu`); on the CPU its plain version. The JAX package jits
+each phase init into one XLA program.
 
 The reference's phase-1 init is a scalar scatter loop over `f1`'s nonzeros
 (`gkr_round_sumcheck/mod.rs:22-42`): fix `f1` at `g` (sparse), then
 `a_hg[x] += v * f3[y]`. Here, as in the JAX package:
 
 1. **weight fold**: each entry's fixing weight `prod_i (bit_i ? r_i : 1-r_i)`
-   from the eq table and one multiply: the kernels build eq's two half
-   tables (`eq_halves`) and multiply each entry by one lane of each;
+   from the eq table and one multiply: the kernel's blocks build eq's two
+   half tables in their shared memory and multiply each entry by one lane
+   of each (up to 21 variables, as far as f1's int64 indices reach);
 2. **gather** f3 at the y-part of each index and multiply;
 3. **segment sum** over the x-part without a scatter: entries pre-sorted by
    segment on the host (`_split_f1_device`), each segment's limbs summed
    exactly in 64-bit accumulators and reduced mod p, written straight into
-   slot 0 of the phase's pair. Steps 1-3 are one launch, `weight_reduce`,
-   over a tile plan built with the sort; the weights of step 1 go to
-   phase 2 as the carry `w`, in y order;
+   slot 0 of the phase's pair;
 4. **the pair's other slot**: f2 (phase 1), or f3 times f2(u), the final
-   fold of phase 1's one-lane pair (phase 2), by `pair_slots`.
+   fold of phase 1's one-lane pair (phase 2).
+
+Steps 1-4 are one launch, `weight_reduce`, over a tile plan built with the
+sort; the weights of step 1 go to phase 2 as the carry `w`, in y order.
 
 Phase 2 (`mod.rs:57-63`) reuses the weight fold and the segment sum with
 the remaining index bits and the phase-1 challenges, which stay on the
@@ -26,10 +29,10 @@ device: `phase2_pair` (the generic chain) and `final_fold`,
 `phase2_digits`, `prep2` (the per-size chain) read them from the chain's
 challenge rows, and nothing between the prove's uploads and its one fetch
 waits for the host (no `.item()`, no boolean masks, no upload). A phase is
-3 launches on the generic chain (`phase1_pair`, `phase2_pair`); the
-per-size pieces take 2 (`phase1`, `phase2_digits`) and 1 each (`prep1`,
-`final_fold`, `prep2`); a sharded rank's `phase1` and `phase2_digits`
-take a third, the finish of the all-reduced raw sums.
+1 launch on the generic chain (`phase1_pair`, `phase2_pair`); the
+per-size pieces take 1 each (`phase1`, `phase2_digits`, and `pair_slots`
+for `prep1`, `final_fold`, `prep2`); a sharded rank's `phase1` and
+`phase2_digits` take a second, the finish of the all-reduced raw sums.
 
 Layout: f1's split (`F1Split`, `_split_f1_device`, cached per f1 and
 device): int32 index components, the values an (nnz, 8) entry-major limb
@@ -337,31 +340,31 @@ def phase2_pair_ref(pair_lo, pair_hi, r_last, split: F1Split, w, u_digits, f3_bi
 # ---------------------------------------------------------------------------
 
 
-def _reduce(idx, vals, r, dim: int, last, plan, dst, reduce_fn=None, **phase1):
-    """eq's half tables by r and the fused weight fold and segment sum into
-    `dst`: 2 launches. With `reduce_fn` the raw segment sums go to it (it
-    sums them over the ranks in place) and a third launch finishes them.
-    `phase1` (f3, y, to_y) gathers f3 and returns the carry."""
-    eq = K.eq_halves(r, dim)
+def _reduce(idx, vals, r, dim: int, last, plan, dst, reduce_fn=None, **kw):
+    """The fused weight fold and segment sum by eq(r, .) into `dst`: 1
+    launch (`weight_reduce`; `kw` takes phase 1's f3, y and to_y, which
+    gather f3 and return the carry, and the pair's other slot). With
+    `reduce_fn` the raw segment sums go to it (it sums them over the ranks
+    in place) and a second launch finishes them."""
     if reduce_fn is None:
-        return K.weight_reduce(idx, vals, eq, dim, last, plan, dst, **phase1)
+        return K.weight_reduce(idx, vals, r, dim, last, plan, dst, **kw)
     sums = torch.empty((NUM_LIMBS, last.shape[0]), dtype=torch.int64, device=vals.device)
-    carry = K.weight_reduce(idx, vals, eq, dim, last, plan, sums, **phase1)
+    carry = K.weight_reduce(idx, vals, r, dim, last, plan, sums, **kw)
     reduce_fn(sums)
     K.finish_sums(sums, dst)
     return carry
 
 
-def _reduce1(split: F1Split, g_r, f3_bitrev, dim: int, dst, reduce_fn=None):
+def _reduce1(split: F1Split, g_r, f3_bitrev, dim: int, dst, reduce_fn=None, slot=None):
     """Phase 1's `_reduce`: h_g into `dst`; returns the carry."""
     return _reduce(split.gbits, split.vals, g_r, dim, split.last_x, split.plan_x, dst, reduce_fn,
-                   f3=f3_bitrev, y=split.y_rev, to_y=split.to_y)
+                   f3=f3_bitrev, y=split.y_rev, to_y=split.to_y, slot=slot)
 
 
 def phase1(split: F1Split, g_r, f3_bitrev, dim: int, reduce_fn=None):
     """h_g as an (8, 2^dim) limb table in bit-reversed lane order, and the
     entries' weights `w` as the carry, (nnz, 8) in y order, kept for phase 2
-    (`_compiled_phase1`, `:284-301`): 2 launches (3 with `reduce_fn`).
+    (`_compiled_phase1`, `:284-301`): 1 launch (2 with `reduce_fn`).
     `g_r` is g's (dim, 16) digit rows, `f3_bitrev` the cached (8, 2^dim)
     limb table. `reduce_fn` sums the raw segment sums over the ranks
     (`_reduce`)."""
@@ -379,11 +382,10 @@ def prep1(hg_brev, f2_bitrev, out=None):
 
 def phase1_pair(split: F1Split, g_r, f3_bitrev, f2_bitrev, dim: int, out=None):
     """`_phase1_pair_body` (`:472-491`): the phase-1 pair (written into
-    `out` = (lo, hi) if given) and the carry `w`: 3 launches, h_g summed
-    straight into slot 0."""
+    `out` = (lo, hi) if given) and the carry `w`: 1 launch, h_g summed
+    straight into slot 0 and f2 copied into slot 1."""
     lo, hi = _new_pair(1 << dim, f3_bitrev.device, out)
-    w = _reduce1(split, g_r, f3_bitrev, dim, (lo, hi))
-    K.pair_slots(lo, hi, ((1, f2_bitrev, None),))
+    w = _reduce1(split, g_r, f3_bitrev, dim, (lo, hi), slot=(f2_bitrev, None))
     return lo, hi, w
 
 
@@ -398,8 +400,8 @@ def final_fold(lo, hi, r, slot: int) -> torch.Tensor:
 def phase2_digits(split: F1Split, w, u_digits, dim: int, reduce_fn=None):
     """f1(g, u, .) densified, an (8, 2^dim) limb table in bit-reversed lane
     order, from phase 1's carry `w` and the challenges u as (dim, 16)
-    Montgomery digit rows on the device: 2 launches (3 with `reduce_fn`,
-    as in `phase1`)."""
+    Montgomery digit rows on the device: 1 launch (2 with `reduce_fn`, as
+    in `phase1`)."""
     f1gu = torch.empty((NUM_LIMBS, 1 << dim), dtype=torch.int32, device=w.device)
     _reduce(split.x_y, w, u_digits, dim, split.last_y, split.plan_y, f1gu, reduce_fn)
     return f1gu
@@ -418,11 +420,12 @@ def phase2_pair(pair_lo, pair_hi, r_last, split: F1Split, w, u_digits, f3_bitrev
                 out=None):
     """`_phase2_pair_body` (`:494-522`): f2(u) from the phase-1 final pair,
     the phase-2 init, and the phase-2 pair (written into `out` = (lo, hi)
-    if given): 3 launches, f1(g, u, .) summed straight into slot 0 and the
-    final fold inside the launch that scales f3."""
+    if given, which must not overlap the final pair): 1 launch, f1(g, u, .)
+    summed straight into slot 0, and f3 times the final fold, computed in
+    each block, into slot 1."""
     lo, hi = _new_pair(1 << dim, w.device, out)
-    _reduce(split.x_y, w, u_digits, dim, split.last_y, split.plan_y, (lo, hi))
-    K.pair_slots(lo, hi, ((1, f3_bitrev, "fold"),), fold=(pair_lo, pair_hi, r_last, 1))
+    _reduce(split.x_y, w, u_digits, dim, split.last_y, split.plan_y, (lo, hi),
+            slot=(f3_bitrev, (pair_lo, pair_hi, r_last, 1)))
     return lo, hi
 
 

@@ -6,29 +6,30 @@ Replaces the JAX package's jitted jnp phase-init programs
 `:472-523`, and the per-size `_compiled_phase1`, `_compiled_prep1`,
 `_compiled_final_fold`, `_compiled_phase2_digits`, `_compiled_prep2`,
 `:284-312, 595-654`), as `ops/gkr_init.py` composes them. The kernels are in
-`csrc/gkr_init.cu`; a phase is three launches (four on a sharded rank):
+`csrc/gkr_init.cu`; a phase is one launch on the generic chain:
 
-- `eq_halves(r, k)`: the two half tables of eq(r, .) over k variables,
-  (8, 2^kl + 2^kh) int32 limbs with kl = k - k // 2 and kh = k // 2:
-  lane t < 2^kl holds prod_{i<kl} (bit_i(t) ? r_i : 1 - r_i), lane 2^kl + t
-  the product over variables kl..k-1. `r` is (>= k, 16) int32 Montgomery
-  digit rows (the chain's challenge rows; row stride free, digits
-  contiguous).
-- `weight_reduce(idx, vals, eq, k, last, plan, out, f3=None, y=None,
-  to_y=None)`: the weight fold (`_weight_fold`, `:98-135`) and the exact
-  segment sum (`_segment_reduce_sorted`, `:237-274`) in one launch. Each
-  entry's weight w = vals * eq_lo[idx & (2^kl - 1)] * eq_hi[idx >> kl]
-  ((nnz, 8) entry-major limbs, (nnz,) int32 indices), in phase 1 (`f3`,
-  `y`, `to_y`) written to row to_y[j] of the returned carry (the weights
-  in y order, (nnz, 8)) and multiplied by f3[:, y]; then summed mod p
-  over each segment of the sorted entries, positions (last[s-1] + 1) ..
-  last[s] (`last` int32, -1 before the first entry), strict into `out`, a
-  (8, nseg) int32 table or a pair `(lo, hi)` of (U, 8, nseg/2) halves
-  (slot 0), or as the raw (8, nseg) int64 limb sums (a rank's partial)
-  where `out` is int64. `plan` is `tile_plan`'s schedule of the segments
-  (built once per f1 on the host, `upload_plan`): tiles of consecutive
-  segments, and chunks of the long ones, which the kernel sums into a
-  per-device scratch that the last chunk to arrive finishes and zeroes.
+- `weight_reduce(idx, vals, r, k, last, plan, out, f3=None, y=None,
+  to_y=None, slot=None)`: eq's half tables by the challenge rows `r`, the
+  weight fold (`_weight_fold`, `:98-135`), the exact segment sum
+  (`_segment_reduce_sorted`, `:237-274`) and the pair's other slot in one
+  launch. Each entry's weight w = vals * eq_lo[idx & (2^kl - 1)] *
+  eq_hi[idx >> kl] ((nnz, 8) entry-major limbs, (nnz,) int32 indices), in
+  phase 1 (`f3`, `y`, `to_y`) written to row to_y[j] of the returned carry
+  (the weights in y order, (nnz, 8)) and multiplied by f3[:, y]; then
+  summed mod p over each segment of the sorted entries, positions
+  (last[s-1] + 1) .. last[s] (`last` int32, -1 before the first entry),
+  strict into `out`, a (8, nseg) int32 table or a pair `(lo, hi)` of (U,
+  8, nseg/2) halves (slot 0), or as the raw (8, nseg) int64 limb sums (a
+  rank's partial) where `out` is int64. `plan` is `tile_plan`'s schedule
+  of the segments (built once per f1 on the host, `upload_plan`): tiles of
+  consecutive segments, and chunks of the long ones, which the kernel sums
+  into a per-device scratch that the last chunk to arrive finishes and
+  zeroes. `slot` = (table, fold) writes slot 1 of the pair `out` from the
+  same launch: lo[1] = table[:, :H], hi[1] = table[:, H:], times the final
+  fold of `fold` = (flo, fhi, r, fslot) where it is given (as
+  `pair_slots`). `r` is (>= k, 16) int32 Montgomery digit rows (the
+  chain's challenge rows; row stride free, digits contiguous); the half
+  tables are those of `eq_halves_ref`, and k is at most 21 (`in_block`).
 - `finish_sums(sums, dst)`: all-reduced raw limb sums -> their strict
   values in `dst` (the sharded inits: `reduce_fn` in `ops/gkr_init.py`).
 - `pair_slots(lo, hi, slots, fold=None, fold_out=None)`: slot u of the
@@ -38,17 +39,21 @@ Replaces the JAX package's jitted jnp phase-init programs
   `fold` = (flo, fhi, r, fslot): lane 0 of slot fslot of a one-lane pair
   ((U, 8, >= 1) views) and a challenge row. A table may be a strided view
   (`parallel/mesh.deal`). With `fold_out`, a (16,) int32 tensor, and no
-  slots: only the final fold, as digits.
+  slots: only the final fold, as digits. The pieces that stay separate
+  take it: the per-size chain's `prep1`, `final_fold`, `prep2` and the
+  sharded ranks' (whose tables are `mesh.deal`'s strided views).
 
 Each wrapper launches its kernel for CUDA tensors, on the current stream,
 uploading nothing and waiting for nothing, and adds one to its `.launches`
 a launch; it runs its plain version (`*_ref`, the same name) for CPU
 tensors and raises for any other device. The plain versions unpack to
 16-bit digits (`limbs_torch.unpack_limbs`), compute as `limbs_torch` does,
-and pack; `weight_reduce_ref` composes `weight_fold_ref` and the segment
-sum's plain versions (`limb_sums_ref`, `finish_ref`; `segment_reduce_ref`
-is the plain segment sum of the whole-phase plain versions). A failed
-build or launch raises; there is no fallback.
+and pack; `weight_reduce_ref` composes `eq_halves_ref` (eq's two half
+tables, which no kernel writes to device memory), `weight_fold_ref`,
+the segment sum's plain versions (`limb_sums_ref`, `finish_ref`;
+`segment_reduce_ref` is the plain segment sum of the whole-phase plain
+versions) and `pair_slots_ref`. A failed build or launch raises; there is
+no fallback.
 """
 
 from __future__ import annotations
@@ -88,6 +93,15 @@ def halves(k: int) -> tuple[int, int]:
     return k - k // 2, k // 2
 
 
+def in_block(k: int) -> bool:
+    """Whether `weight_reduce`'s blocks can build eq's half tables over k
+    variables in their shared memory (2^kl + 2^kh <= MAX_SHARED_EQ lanes:
+    k <= 21). Every f1 meets it (its 3 k index bits are int64), and
+    `weight_reduce` refuses a k past it."""
+    kl, kh = halves(k)
+    return (1 << kl) + (1 << kh) <= MAX_SHARED_EQ
+
+
 def build():
     """Compile `csrc/gkr_init.cu` unless built already; returns the
     library's path."""
@@ -104,11 +118,12 @@ def _library() -> ctypes.CDLL:
             raise RuntimeError(f"GKR init kernels and wrapper disagree on {name}")
     ptr, ll, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     words = ctypes.POINTER(ctypes.c_uint32)
-    lib.sc_gkr_eq_halves.argtypes = [ptr, i32, i32, ptr, ll, words, ptr]
     lib.sc_gkr_weight_reduce.argtypes = [
-        ptr, i32, ptr, ptr, ptr, i32, i32, ptr, ll,  # plan, items, vals, idx, eq, kl, kh, last
-        ptr, ptr, ll, ptr, ptr, ptr, ptr, ptr,  # y, f3, n3, to_y, carry, scratch, arrived, sums
-        ptr, ptr, ll, ll, i32, words, ptr,  # the destination, device, consts, stream
+        ptr, i32, ptr, ptr, ptr, ll, i32, i32,  # plan, items, vals, idx, r, kl, kh
+        ptr, ll, ptr, ptr, ll, ptr, ptr,  # last, nseg, y, f3, n3, to_y, carry
+        ptr, ptr, ptr, ptr, ptr, ll, ll,  # scratch, arrived, sums, the destination
+        ptr, ptr, ptr, ll, ptr, ptr, ll, ptr,  # the slot: src, lo, hi, half, its final fold
+        i32, words, ptr,  # device, consts, stream
     ]
     lib.sc_gkr_finish_sums.argtypes = [ptr, ll, ptr, ptr, ll, ll, words, ptr]
     lib.sc_gkr_pair_slots.argtypes = [
@@ -116,8 +131,7 @@ def _library() -> ctypes.CDLL:
         ctypes.POINTER(ptr), ctypes.POINTER(ll), ctypes.POINTER(ll), ctypes.POINTER(ptr),
         ptr, ptr, ll, ll, i32, ptr, ptr, words, ptr,  # the fold, fold_out, consts, stream
     ]
-    for fn in (lib.sc_gkr_eq_halves, lib.sc_gkr_weight_reduce, lib.sc_gkr_finish_sums,
-               lib.sc_gkr_pair_slots):
+    for fn in (lib.sc_gkr_weight_reduce, lib.sc_gkr_finish_sums, lib.sc_gkr_pair_slots):
         fn.restype = ctypes.c_int
     lib.sc_gkr_error_string.argtypes = [ctypes.c_int]
     lib.sc_gkr_error_string.restype = ctypes.c_char_p
@@ -175,8 +189,11 @@ def _same_device(*ts) -> None:
 
 
 def eq_halves_ref(r: torch.Tensor, k: int) -> torch.Tensor:
-    """Plain version of `eq_halves`: each half by the plain inits'
-    doublings (`gkr_init._eq_table`)."""
+    """The two half tables of eq(r, .) over k variables that the weight
+    reduce's blocks build, (8, 2^kl + 2^kh) int32 limbs with kl = k - k // 2
+    and kh = k // 2: lane t < 2^kl holds prod_{i<kl} (bit_i(t) ? r_i : 1 -
+    r_i), lane 2^kl + t the product over variables kl..k-1; each half by
+    the plain inits' doublings (`gkr_init._eq_table`)."""
     from .gkr_init import _columns, _eq_table
 
     _rows(r, k)
@@ -185,18 +202,6 @@ def eq_halves_ref(r: torch.Tensor, k: int) -> torch.Tensor:
     return LT.pack_limbs(torch.cat([_eq_table(r_pts[:kl], omr_pts[:kl], kl),
                                     _eq_table(r_pts[kl:], omr_pts[kl:], kh)], dim=1))
 
-
-def eq_halves(r: torch.Tensor, k: int) -> torch.Tensor:
-    """The (8, 2^kl + 2^kh) half tables of eq(r, .) in one launch."""
-    if not _on_card(r):
-        return eq_halves_ref(r, k)
-    _rows(r, k)
-    kl, kh = halves(k)
-    eq = torch.empty((NUM_LIMBS, (1 << kl) + (1 << kh)), dtype=torch.int32, device=r.device)
-    _run("eq_halves", lambda lib, s: lib.sc_gkr_eq_halves(
-        eq.data_ptr(), kl, kh, r.data_ptr(), r.stride(0), _CONSTS, s), r.device)
-    eq_halves.launches += 1
-    return eq
 
 
 # ---------------------------------------------------------------------------
@@ -362,13 +367,46 @@ def _rows_table(t: torch.Tensor, name: str, n: int) -> None:
                          f"entry-major table, got {tuple(t.shape)} {t.dtype}")
 
 
-def _check_reduce(idx, vals, eq, k, last, plan, out, f3, y, to_y):
+def _span(t: torch.Tensor) -> tuple[int, int]:
+    """The bytes [start, end) that a view of `t` can touch."""
+    start = t.data_ptr()
+    reach = sum((n - 1) * st for n, st in zip(t.shape, t.stride()))
+    return start, start + (reach + 1) * t.element_size()
+
+
+def _overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
+    (a0, a1), (b0, b1) = _span(a), _span(b)
+    return a0 < b1 and b0 < a1
+
+
+def _check_slot(slot, out, nseg: int):
+    """`slot` = (table, fold) checked against the destination `out`: a
+    pair of at least two slots, a contiguous (8, nseg) table for slot 1,
+    and a final fold whose one-lane pair lies outside the pair (the
+    launch's blocks read it while others write the pair)."""
+    if isinstance(out, torch.Tensor):
+        raise ValueError("the pair's other slot needs a pair (lo, hi) as the destination")
+    lo, hi = out
+    if lo.shape[0] < 2:
+        raise ValueError(f"slot 1 of a {lo.shape[0]}-slot pair")
+    table, fold = slot
+    _limbs(table, "the slot's table", nseg)
+    if fold is not None:
+        _check_fold_pair(fold)
+        if any(_overlaps(d, f) for d in (lo, hi) for f in fold[:2]):
+            raise ValueError("the destination pair overlaps the pair the final fold reads")
+    return table, fold
+
+
+def _check_reduce(idx, vals, r, k, last, plan, out, f3, y, to_y, slot):
     """(nnz, nseg, destination or None, raw sums or None)."""
+    if not in_block(k):
+        raise ValueError(f"the weight reduce builds eq's half tables in shared memory up to "
+                         f"k = 21 variables, not {k}")
     nnz = vals.shape[0] if vals.dim() == 2 else -1
     _rows_table(vals, "vals", nnz)
     _ints(idx, "idx", nnz)
-    kl, kh = halves(k)
-    _limbs(eq, "eq", (1 << kl) + (1 << kh))
+    _rows(r, k)
     nseg = last.shape[0] if last.dim() == 1 else -1
     _ints(last, "last", nseg)
     items = plan.items
@@ -388,23 +426,30 @@ def _check_reduce(idx, vals, eq, k, last, plan, out, f3, y, to_y):
         dst = None
     else:
         dst = _dest(out, nseg)
-    _same_device(idx, vals, eq, last, items, f3, y, to_y, raw,
-                 *(() if dst is None else dst[:2]))
+    slot_ts = []
+    if slot is not None:
+        table, fold = _check_slot(slot, out, nseg)
+        slot_ts = [table] + ([] if fold is None else list(fold[:3]))
+    _same_device(idx, vals, r, last, items, f3, y, to_y, raw,
+                 *(() if dst is None else dst[:2]), *slot_ts)
     return nnz, nseg, dst, raw
 
 
-def weight_reduce_ref(idx, vals, eq, k: int, last, plan: Plan, out, f3=None, y=None,
-                      to_y=None):
-    """Plain version of `weight_reduce`: the weight fold and the segment
-    sum's plain versions composed on the entry-major layout (the plan
-    unused: it only schedules the kernel)."""
-    nnz, _nseg, _dst, raw = _check_reduce(idx, vals, eq, k, last, plan, out, f3, y, to_y)
-    w, wv = weight_fold_ref(idx, vals.T.contiguous(), eq, k, y, f3)
+def weight_reduce_ref(idx, vals, r, k: int, last, plan: Plan, out, f3=None, y=None,
+                      to_y=None, slot=None):
+    """Plain version of `weight_reduce`: the half tables, the weight fold,
+    the segment sum and the pair slot's plain versions composed on the
+    entry-major layout (the plan unused: it only schedules the kernel)."""
+    nnz, _nseg, _dst, raw = _check_reduce(idx, vals, r, k, last, plan, out, f3, y, to_y, slot)
+    w, wv = weight_fold_ref(idx, vals.T.contiguous(), eq_halves_ref(r, k), k, y, f3)
     sums = limb_sums_ref(w if wv is None else wv, None, last)
     if raw is not None:
         raw.copy_(sums)
     else:
         _write(out, finish_ref(sums))
+    if slot is not None:
+        table, fold = slot
+        pair_slots_ref(*out, ((1, table, None if fold is None else "fold"),), fold=fold)
     if to_y is None:
         return None
     carry = torch.empty((nnz, NUM_LIMBS), dtype=torch.int32, device=vals.device)
@@ -428,31 +473,52 @@ def _scratch(device: torch.device, rows: int):
     return have
 
 
-def weight_reduce(idx, vals, eq, k: int, last, plan: Plan, out, f3=None, y=None, to_y=None):
-    """The weight fold by eq's half tables and the exact segment sum of the
-    sorted entries, one launch: (nnz, 8) `vals` times eq_lo[idx & m] *
-    eq_hi[idx >> kl], summed over each segment (`last`) mod p into `out`, a
-    (8, nseg) int32 table or a pair (slot 0), or as the raw (8, nseg) int64
-    limb sums where `out` is int64 (a rank's partial; `finish_sums` finishes
-    them). Phase 1 passes `f3`, `y` and `to_y`: each weight is multiplied by
-    f3[:, y] before the sum, and the weights are returned as the carry,
-    (nnz, 8) int32 with entry j at row to_y[j]; else returns None. `plan`
-    is `tile_plan`'s over the same `last` (its bounds are not checked on
-    the card: that would cost a sync)."""
+def weight_reduce(idx, vals, r, k: int, last, plan: Plan, out, f3=None, y=None, to_y=None,
+                  slot=None):
+    """eq's half tables by the challenge rows `r`, the weight fold by them
+    and the exact segment sum of the sorted entries, one launch: (nnz, 8)
+    `vals` times eq_lo[idx & m] * eq_hi[idx >> kl], summed over each
+    segment (`last`) mod p into `out`, a (8, nseg) int32 table or a pair
+    (slot 0), or as the raw (8, nseg) int64 limb sums where `out` is int64
+    (a rank's partial; `finish_sums` finishes them). Phase 1 passes `f3`,
+    `y` and `to_y`: each weight is multiplied by f3[:, y] before the sum,
+    and the weights are returned as the carry, (nnz, 8) int32 with entry j
+    at row to_y[j]; else returns None. `slot` = (table, fold) also writes
+    slot 1 of the pair `out` from the same launch: table's two halves,
+    times the final fold of `fold` = (flo, fhi, r, fslot) unless it is
+    None (`pair_slots`' "fold" scale; the fold's pair must not overlap
+    `out`). `plan` is `tile_plan`'s over the same `last` (its bounds are not
+    checked on the card: that would cost a sync). Every block builds the
+    half tables in its shared memory, so k is at most 21 (`in_block`); a
+    larger k raises."""
     if not _on_card(vals):
-        return weight_reduce_ref(idx, vals, eq, k, last, plan, out, f3, y, to_y)
-    nnz, nseg, dst, raw = _check_reduce(idx, vals, eq, k, last, plan, out, f3, y, to_y)
+        return weight_reduce_ref(idx, vals, r, k, last, plan, out, f3, y, to_y, slot)
+    _nnz, _nseg, dst, raw = _check_reduce(idx, vals, r, k, last, plan, out, f3, y, to_y, slot)
+    carry = _launch_reduce(idx, vals, r, k, last, plan, out, dst, raw, f3, y, to_y, slot)
+    weight_reduce.launches += 1
+    return carry
+
+
+def _launch_reduce(idx, vals, r, k, last, plan, out, dst, raw, f3, y, to_y, slot):
+    """The weight reduce's launch over checked operands; returns the carry
+    or None."""
     kl, kh = halves(k)
     carry = None if to_y is None else torch.empty_like(vals)
     scratch, arrived = _scratch(vals.device, plan.long) if plan.long else (None, None)
     lo, hi, ld, split = dst if dst is not None else (None, None, 0, 0)
+    table, fold = slot if slot is not None else (None, None)
+    flo, fhi, fr, fslot = fold if fold is not None else (None, None, None, 0)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     _run("weight_reduce", lambda lib, s: lib.sc_gkr_weight_reduce(
-        plan.items.data_ptr(), len(plan.items), vals.data_ptr(), idx.data_ptr(), eq.data_ptr(),
-        kl, kh, last.data_ptr(), nseg, ptr(y), ptr(f3), 0 if f3 is None else f3.shape[1],
-        ptr(to_y), ptr(carry), ptr(scratch), ptr(arrived), ptr(raw), ptr(lo), ptr(hi), ld,
-        split, vals.device.index, _CONSTS, s), vals.device)
-    weight_reduce.launches += 1
+        plan.items.data_ptr(), len(plan.items), vals.data_ptr(), idx.data_ptr(), r.data_ptr(),
+        r.stride(0), kl, kh, last.data_ptr(), last.shape[0], ptr(y), ptr(f3),
+        0 if f3 is None else f3.shape[1], ptr(to_y), ptr(carry), ptr(scratch), ptr(arrived),
+        ptr(raw), ptr(lo), ptr(hi), ld, split, ptr(table),
+        None if slot is None else out[0][1].data_ptr(),
+        None if slot is None else out[1][1].data_ptr(), 0 if slot is None else ld,
+        None if flo is None else flo[fslot].data_ptr(),
+        None if fhi is None else fhi[fslot].data_ptr(), 0 if flo is None else flo.stride(1),
+        ptr(fr), vals.device.index, _CONSTS, s), vals.device)
     return carry
 
 
@@ -484,6 +550,16 @@ def finish_sums(sums, dst) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _check_fold_pair(fold) -> None:
+    flo, fhi, r, fslot = fold
+    if flo.dtype != torch.int32 or flo.dim() != 3 or flo.shape[1] != NUM_LIMBS \
+            or flo.shape[2] < 1 or flo.shape != fhi.shape or flo.stride() != fhi.stride() \
+            or not 0 <= fslot < flo.shape[0]:
+        raise ValueError("the final fold takes a (U, 8, >= 1) int32 pair and a slot of it")
+    if r.dtype != torch.int32 or r.shape != (NUM_DIGITS,) or r.stride(0) != 1:
+        raise ValueError("the final fold's challenge must be a (16,) int32 digit row")
+
+
 def _check_pair(lo, hi, slots, fold, fold_out) -> int:
     if fold_out is not None:
         if slots or fold is None:
@@ -513,13 +589,7 @@ def _check_pair(lo, hi, slots, fold, fold_out) -> int:
                                     or not scale.is_contiguous()):
             raise ValueError("a slot's scale must be a contiguous (16,) int32 digit row")
     if fold is not None:
-        flo, fhi, r, fslot = fold
-        if flo.dtype != torch.int32 or flo.dim() != 3 or flo.shape[1] != NUM_LIMBS \
-                or flo.shape != fhi.shape or flo.stride() != fhi.stride() \
-                or not 0 <= fslot < flo.shape[0]:
-            raise ValueError("the final fold takes a (U, 8, >= 1) int32 pair and a slot of it")
-        if r.dtype != torch.int32 or r.shape != (NUM_DIGITS,) or r.stride(0) != 1:
-            raise ValueError("the final fold's challenge must be a (16,) int32 digit row")
+        _check_fold_pair(fold)
     ts = [lo, hi, fold_out] + [t for _u, t, _s in slots] \
         + [s for _u, _t, s in slots if isinstance(s, torch.Tensor)] \
         + (list(fold[:3]) if fold is not None else [])
@@ -577,7 +647,6 @@ def pair_slots(lo, hi, slots, fold=None, fold_out=None) -> None:
     pair_slots.launches += 1
 
 
-eq_halves.launches = 0
 weight_reduce.launches = 0
 finish_sums.launches = 0
 pair_slots.launches = 0

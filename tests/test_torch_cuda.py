@@ -578,16 +578,17 @@ def test_prove_in_mxu_mode_on_cuda(cuda, monkeypatch):
     assert serialize_proof(proof) == want
 
 
-# the phase-init kernels a GKR prove launches on each path: (eq_halves,
-# weight_reduce, finish_sums, pair_slots); the MXU fold mode runs the same
-# kernels as the generic chain
-GKR_INIT_LAUNCHES = {"generic": (2, 2, 0, 2), "persize": (2, 2, 0, 3), "mxu": (2, 2, 0, 2)}
+# the phase-init kernels a GKR prove launches on each path: (weight_reduce,
+# finish_sums, pair_slots); the MXU fold mode runs the same
+# kernels as the generic chain, one fused launch a phase; the per-size
+# chain's pieces add the pair slots (prep1, final_fold, prep2)
+GKR_INIT_LAUNCHES = {"generic": (2, 0, 0), "persize": (2, 0, 3), "mxu": (2, 0, 0)}
 
 
 def _init_counters():
     from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
 
-    return (GK.eq_halves, GK.weight_reduce, GK.finish_sums, GK.pair_slots)
+    return (GK.weight_reduce, GK.finish_sums, GK.pair_slots)
 
 
 def _gkr_mode(mode, monkeypatch):
@@ -649,8 +650,8 @@ def test_gkr_golden_on_cuda(cuda, mode, monkeypatch):
 def test_gkr_prove_on_cuda_equals_cpu(cuda, mode, monkeypatch):
     """A dim-9 GKR prove with colliding f1 entries: 2 round-0 launches,
     2 (dim - 1) folds and 2 dim transcript steps per prove, the phase-init
-    kernels' launches of the path (`GKR_INIT_LAUNCHES`: 6 on the generic
-    chain in either fold mode, 7 on the per-size chain), and proof bytes and the final
+    kernels' launches of the path (`GKR_INIT_LAUNCHES`: 2 on the generic
+    chain in either fold mode, 5 on the per-size chain), and proof bytes and the final
     transcript state equal to the CPU's."""
     import random
 
@@ -695,7 +696,10 @@ def _gkr_split(dim, nnz, seed, device, skew=0):
     idx = np.unique(idx)
     rnd = random.Random(seed)
     f1 = T.SparseMLE(3 * dim, idx, L.from_ints([rnd.randrange(P) for _ in idx]))
-    f2, f3 = T.DenseMLE.rand(dim, rnd), T.DenseMLE.rand(dim, rnd)
+    if dim <= 18:
+        f2, f3 = T.DenseMLE.rand(dim, rnd), T.DenseMLE.rand(dim, rnd)
+    else:  # numpy's draws: millions of Python ones would take minutes
+        f2, f3 = (T.DenseMLE(dim, t) for t in L.random_tables(gen, dim, 2))
     g, u = ([T.Fr(rnd.randrange(P)) for _ in range(dim)] for _ in range(2))
     split = GI._split_f1_device(f1, dim, device)
     return split, f2.to_device(device), f3.to_device(device), \
@@ -716,11 +720,14 @@ def test_gkr_init_kernels_match_plain(cuda, dim, skew):
     """Each GKR phase-init kernel against its plain version on the same
     inputs, with colliding entries (3 a segment on average; one a segment
     at dim 18, the main shape) or one segment of 2^16 + 1 entries (cut into
-    chunks across blocks): the eq half tables from challenge rows with a
-    row stride; the fused weight reduce in phase 1's form (the f3 gather
+    chunks across blocks): the fused weight reduce (its blocks building
+    eq's half tables from challenge rows with a row stride) in phase 1's
+    form (the f3 gather
     and the carry) and phase 2's (over the carry), each into a table, into
-    slot 0 of one instance's slice of a batched pair, and as a rank's raw
-    sums, then `finish_sums` of them; the pair slots (copies, a scale by a
+    one instance's slice of a batched pair with the pair's other slot from
+    the same launch (f2 copied; f3 times the final fold of phase 1's pair)
+    and without it, and as a rank's raw sums, then `finish_sums` of them;
+    the pair slots (copies, a scale by a
     digit row, by the final fold of a strided one-lane pair, from a dealt
     view, into one instance's slice of a batched pair) and the final fold
     alone; each wrapper counted once a launch, and the long segments'
@@ -735,22 +742,22 @@ def test_gkr_init_kernels_match_plain(cuda, dim, skew):
     assert (split.plan_x.long > 0) == bool(skew)
     counts = [f.launches for f in _init_counters()]
     wide = torch.stack([torch.zeros_like(g_r), g_r], dim=1)[:, 1]  # row stride 32 words
-    eq = GK.eq_halves(wide, dim)
-    assert torch.equal(eq.cpu(), GK.eq_halves_ref(cg, dim))
-    eq_u = GK.eq_halves(u_r, dim)
     n, half = 1 << dim, 1 << (dim - 1)
     carry = None
     for phase in (1, 2):
         if phase == 1:
             s, c = split, csplit
-            args = (s.gbits, s.vals, eq, dim, s.last_x, s.plan_x)
-            cargs = (c.gbits, c.vals, eq.cpu(), dim, c.last_x, c.plan_x)
+            args = (s.gbits, s.vals, wide, dim, s.last_x, s.plan_x)
+            cargs = (c.gbits, c.vals, cg, dim, c.last_x, c.plan_x)
             kw = {"f3": f3, "y": s.y_rev, "to_y": s.to_y}
             ckw = {"f3": cf3, "y": c.y_rev, "to_y": c.to_y}
+            slot, cslot = (f2, None), (cf2, None)
         else:
-            args = (split.x_y, carry, eq_u, dim, split.last_y, split.plan_y)
-            cargs = (csplit.x_y, carry.cpu(), eq_u.cpu(), dim, csplit.last_y, csplit.plan_y)
+            args = (split.x_y, carry, u_r, dim, split.last_y, split.plan_y)
+            cargs = (csplit.x_y, carry.cpu(), cu, dim, csplit.last_y, csplit.plan_y)
             kw = ckw = {}
+            slot = (f3, (lo[1, :, :, :1], hi[1, :, :, :1], u_r[dim - 1], 1))
+            cslot = (cf3, (clo[:, :, :1], chi[:, :, :1], cu[dim - 1], 1))
         table = torch.empty((8, n), dtype=torch.int32, device=cuda)
         got = GK.weight_reduce(*args, table, **kw)
         want = torch.empty((8, n), dtype=torch.int32)
@@ -760,11 +767,23 @@ def test_gkr_init_kernels_match_plain(cuda, dim, skew):
         if phase == 1:
             assert got.shape == (len(split.gbits), 8) and torch.equal(got.cpu(), cgot)
             carry = got
+        bare = torch.zeros((2, 8, half), dtype=torch.int32, device=cuda), \
+            torch.zeros((2, 8, half), dtype=torch.int32, device=cuda)
+        GK.weight_reduce(*args, bare, **kw)
+        assert torch.equal(torch.cat([bare[0][0], bare[1][0]], dim=1).cpu(), want)
+        assert not bare[0][1].any() and not bare[1][1].any()
         lo = torch.zeros((3, 2, 8, half), dtype=torch.int32, device=cuda)
         hi = torch.zeros_like(lo)
-        GK.weight_reduce(*args, (lo[1], hi[1]), **kw)
+        GK.weight_reduce(*args, (lo[1], hi[1]), slot=slot, **kw)
+        clo, chi = (torch.empty((2, 8, half), dtype=torch.int32) for _ in range(2))
+        GK.weight_reduce_ref(*cargs, (clo, chi), slot=cslot, **ckw)
         assert torch.equal(torch.cat([lo[1, 0], hi[1, 0]], dim=1).cpu(), want)
-        assert not lo[[0, 2]].any() and not lo[1, 1].any() and not hi[[0, 2]].any()
+        assert torch.equal(lo[1].cpu(), clo) and torch.equal(hi[1].cpu(), chi)
+        assert not lo[[0, 2]].any() and not hi[[0, 2]].any()
+        with pytest.raises(ValueError, match="overlaps"):
+            GK.weight_reduce(*args, (lo[1], hi[1]),
+                             slot=(f3, (lo[1, :, :, :1], hi[1, :, :, :1], u_r[dim - 1], 1)),
+                             **kw)
         sums = torch.empty((8, n), dtype=torch.int64, device=cuda)
         GK.weight_reduce(*args, sums, **kw)
         csums = torch.empty((8, n), dtype=torch.int64)
@@ -808,90 +827,49 @@ def test_gkr_init_kernels_match_plain(cuda, dim, skew):
     GK.pair_slots_ref(cdlo, cdhi, ((0, deal(want, 1, 2), None), (1, deal(cf3, 1, 2), cf2u)))
     assert torch.equal(dlo.cpu(), cdlo) and torch.equal(dhi.cpu(), cdhi)
     torch.cuda.synchronize()
-    assert [f.launches - c for f, c in zip(_init_counters(), counts)] == [2, 6, 2, 4]
+    assert [f.launches - c for f, c in zip(_init_counters(), counts)] == [8, 2, 4]
 
 
-@pytest.mark.parametrize("gather", [True, False], ids=["gather", "no_gather"])
-@pytest.mark.parametrize("k", [22, 24])
-def test_gkr_weight_fold_global_tables_match_plain(cuda, k, gather):
-    """The fused weight reduce past what shared memory stages (2^11 + 2^11
-    half-table lanes and more, dim 22-24): the variants that read the half
-    tables from global memory, on 4,096 entries at random indices below
-    2^k in 1,024 segments (one of 600 entries, cut into chunks), with the
-    f3 gather and the carry (phase 1) and without (phase 2), strict and as
-    raw sums, against the plain version."""
-    import random
-
+@pytest.mark.parametrize("dim,skew", [(9, 0), (14, 0), (9, (1 << 16) + 1), (21, 0)],
+                         ids=["dim9", "dim14", "skewed", "dim21"])
+def test_gkr_phase_inits_on_cuda_equal_plain(cuda, dim, skew):
+    """Both phases on the kernels (`phase1_pair`, `phase2_pair`: one launch
+    each; the per-size `phase1`, `prep1`, `final_fold`, `phase2_digits`,
+    `prep2`) equal the torch-op plain versions on the card and, up to dim
+    14, the kernels' plain versions on the CPU, with `out=` into a batched
+    slice. Dim 21, on 2^16 entries, is the largest build in the blocks'
+    shared memory (2^11 + 2^10 lanes) and the largest dim whose 3 dim
+    index bits fit f1's int64 indices."""
     from sumcheck_tpu_torch.ops import gkr_init as GI
     from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
 
-    kl, kh = GK.halves(k)
-    assert (1 << kl) + (1 << kh) > GK.MAX_SHARED_EQ
-    gen = np.random.default_rng(k)
-    m, n3, nseg = 1 << 12, 1 << 10, 1 << 10
-    rnd = random.Random(k)
-    vals = torch.from_numpy(L.pack_limbs(L.from_ints([rnd.randrange(P) for _ in range(m)]).T,
-                                         axis=1))
-    idx = torch.from_numpy(gen.integers(0, 1 << k, m).astype(np.int32))
-    seg = np.sort(np.concatenate([gen.integers(0, nseg, m - 600), np.full(600, 7)]))
-    last_np = np.searchsorted(seg, np.arange(nseg), side="right") - 1
-    last = torch.from_numpy(last_np.astype(np.int32))
-    plan = GK.upload_plan(last_np, m, "cpu")
-    assert plan.long == 1
-    r = torch.from_numpy(GI._point_rows([T.Fr(rnd.randrange(P)) for _ in range(k)]))
-    kw = {}
-    if gather:
-        f3 = torch.from_numpy(L.pack_limbs(L.from_ints([rnd.randrange(P) for _ in range(n3)])))
-        kw = {"f3": f3, "y": torch.from_numpy(gen.integers(0, n3, m).astype(np.int32)),
-              "to_y": torch.from_numpy(gen.permutation(m).astype(np.int32))}
-    eq = GK.eq_halves(r.to(cuda), k)
-    assert torch.equal(eq.cpu(), GK.eq_halves_ref(r, k))
-    cplan = GK.Plan(plan.items.to(cuda), plan.long)
-    args = (idx.to(cuda), vals.to(cuda), eq, k, last.to(cuda), cplan)
-    ckw = {key: t.to(cuda) for key, t in kw.items()}
-    before = GK.weight_reduce.launches
-    table = torch.empty((8, nseg), dtype=torch.int32, device=cuda)
-    carry = GK.weight_reduce(*args, table, **ckw)
-    sums = torch.empty((8, nseg), dtype=torch.int64, device=cuda)
-    GK.weight_reduce(*args, sums, **ckw)
-    assert GK.weight_reduce.launches == before + 2
-    want, wsums = torch.empty((8, nseg), dtype=torch.int32), torch.empty((8, nseg),
-                                                                         dtype=torch.int64)
-    cargs = (idx, vals, eq.cpu(), k, last, plan)
-    want_carry = GK.weight_reduce_ref(*cargs, want, **kw)
-    GK.weight_reduce_ref(*cargs, wsums, **kw)
-    assert torch.equal(table.cpu(), want) and torch.equal(sums.cpu(), wsums)
-    assert (carry is None) == (not gather)
-    assert carry is None or torch.equal(carry.cpu(), want_carry)
-
-
-@pytest.mark.parametrize("dim,skew", [(9, 0), (14, 0), (9, (1 << 16) + 1)],
-                         ids=["dim9", "dim14", "skewed"])
-def test_gkr_phase_inits_on_cuda_equal_plain(cuda, dim, skew):
-    """Both phases on the kernels (`phase1_pair`, `phase2_pair`; the
-    per-size `phase1`, `prep1`, `final_fold`, `phase2_digits`, `prep2`)
-    equal the torch-op plain versions on the card and the kernels' plain
-    versions on the CPU, with `out=` into a batched slice."""
-    from sumcheck_tpu_torch.ops import gkr_init as GI
-
-    split, f2, f3, g_r, u_r = _gkr_split(dim, 3 << dim, dim + 1, cuda, skew)
-    csplit, cf2, cf3, cg, cu = _to_cpu((split, f2, f3, g_r, u_r))
+    nnz = 3 << dim if dim <= 14 else 1 << 16
+    split, f2, f3, g_r, u_r = _gkr_split(dim, nnz, dim + 1, cuda, skew)
+    on_cpu = dim <= 14
+    if on_cpu:
+        csplit, cf2, cf3, cg, cu = _to_cpu((split, f2, f3, g_r, u_r))
     half = 1 << (dim - 1)
     blo = torch.zeros((2, 2, 8, half), dtype=torch.int32, device=cuda)
     bhi = torch.zeros_like(blo)
+    counts = [f.launches for f in _init_counters()]
     lo, hi, w = GI.phase1_pair(split, g_r, f3, f2, dim, out=(blo[1], bhi[1]))
-    rlo, rhi, rw = GI.phase1_pair_ref(split, g_r, f3, f2, dim)
-    clo, chi, cw = GI.phase1_pair(csplit, cg, cf3, cf2, dim)
-    for a, b, c in ((lo, rlo, clo), (hi, rhi, chi), (w, rw, cw)):
-        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
-    assert not blo[0].any() and not bhi[0].any()
     args = (split, w, u_r, f3, dim)
     lo2, hi2 = GI.phase2_pair(lo[:, :, :1], hi[:, :, :1], u_r[dim - 1], *args)
+    assert GK.in_block(dim)
+    assert [f.launches - c for f, c in zip(_init_counters(), counts)] == [2, 0, 0]
+    rlo, rhi, rw = GI.phase1_pair_ref(split, g_r, f3, f2, dim)
+    for a, b in ((lo, rlo), (hi, rhi), (w, rw)):
+        assert torch.equal(a, b)
+    assert not blo[0].any() and not bhi[0].any()
     rlo2, rhi2 = GI.phase2_pair_ref(lo[:, :, :1], hi[:, :, :1], u_r[dim - 1], *args)
-    clo2, chi2 = GI.phase2_pair(clo[:, :, :1], chi[:, :, :1], cu[dim - 1], csplit, cw, cu, cf3,
-                                dim)
     assert torch.equal(lo2, rlo2) and torch.equal(hi2, rhi2)
-    assert torch.equal(lo2.cpu(), clo2) and torch.equal(hi2.cpu(), chi2)
+    if on_cpu:
+        clo, chi, cw = GI.phase1_pair(csplit, cg, cf3, cf2, dim)
+        for a, c in ((lo, clo), (hi, chi), (w, cw)):
+            assert torch.equal(a.cpu(), c)
+        clo2, chi2 = GI.phase2_pair(clo[:, :, :1], chi[:, :, :1], cu[dim - 1], csplit, cw, cu,
+                                    cf3, dim)
+        assert torch.equal(lo2.cpu(), clo2) and torch.equal(hi2.cpu(), chi2)
     hg, w1 = GI.phase1(split, g_r, f3, dim)
     assert all(torch.equal(a, b) for a, b in zip((hg, w1), GI.phase1_ref(split, g_r, f3, dim)))
     assert all(torch.equal(a, b) for a, b in zip(GI.prep1(hg, f2), GI.prep1_ref(hg, f2)))
@@ -927,13 +905,12 @@ def test_segment_reduce_long_segment_on_cuda(cuda):
     idx = torch.from_numpy(gen.integers(0, 1 << 10, nnz).astype(np.int32))
     rnd = random.Random(20)
     r = torch.from_numpy(GI._point_rows([T.Fr(rnd.randrange(P)) for _ in range(10)]))
-    eq = GK.eq_halves_ref(r, 10)
-    args = (idx.to(cuda), vals.to(cuda), eq.to(cuda), 10, last.to(cuda),
+    args = (idx.to(cuda), vals.to(cuda), r.to(cuda), 10, last.to(cuda),
             GK.Plan(plan.items.to(cuda), plan.long))
     want = torch.empty((8, nseg), dtype=torch.int32)
-    GK.weight_reduce_ref(idx, vals, eq, 10, last, plan, want)
+    GK.weight_reduce_ref(idx, vals, r, 10, last, plan, want)
     wsums = torch.empty((8, nseg), dtype=torch.int64)
-    GK.weight_reduce_ref(idx, vals, eq, 10, last, plan, wsums)
+    GK.weight_reduce_ref(idx, vals, r, 10, last, plan, wsums)
     for _ in range(3):
         out = torch.empty((8, nseg), dtype=torch.int32, device=cuda)
         GK.weight_reduce(*args, out)
@@ -1298,9 +1275,9 @@ def test_batched_gkr_on_cuda_equals_per_instance(cuda):
     rngs = [T.Blake2b512Rng.setup() for _ in insts]
     proofs = BatchedGKRRoundSumcheck.prove(rngs, *(list(t) for t in zip(*insts)), device=cuda)
     assert TC.transcript_step_batched.launches - before == 2 * dim
-    # each instance's phase inits into its slice of the batched pair
-    assert [f.launches - b for f, b in zip(_init_counters(), inits)] == \
-        [2 * batch, 2 * batch, 0, 2 * batch]
+    # each instance's phase inits into its slice of the batched pair: one
+    # fused launch a phase
+    assert [f.launches - b for f, b in zip(_init_counters(), inits)] == [2 * batch, 0, 0]
     assert [p.serialize_uncompressed() for p in proofs] == alone
     assert [T.Fr.rand(r) for r in rngs] == [T.Fr.rand(r) for r in alone_rngs]
 

@@ -99,8 +99,9 @@ def _entry_rows(digits) -> torch.Tensor:
 
 @pytest.mark.parametrize("k", [4, 9])
 def test_weight_fold_matches_jax(k):
-    """eq_halves + the weight fold = the JAX package's `_weight_fold` (one
-    eq table of 2^k lanes, one gather); `weight_reduce` in phase 1's form
+    """eq's half tables + the weight fold = the JAX package's `_weight_fold` (one
+    eq table of 2^k lanes, one gather); `weight_reduce` (which builds the
+    half tables from the same challenge rows) in phase 1's form
     (the f3 gather, the carry through a permutation) gives the carry equal
     to it and segment sums equal to `_segment_reduce_sorted` of its product
     with f3, strict, as raw limb sums too, and in phase 2's form (no
@@ -119,23 +120,27 @@ def test_weight_fold_matches_jax(k):
     want = _eager(JGI._weight_fold, jnp.asarray(idx.astype(np.int32)), jnp.asarray(vals),
                   jnp.asarray(r_pts), jnp.asarray(omr_pts), k)
     wv_want = _eager(LJ.mont_mul, want, jnp.asarray(f3[:, y]))
-    eq = GK.eq_halves(_rows(pts), k)
+    rows = _rows(pts)
+    eq = GK.eq_halves_ref(rows, k)
     assert eq.shape == (8, (1 << (k - k // 2)) + (1 << (k // 2))) and eq.dtype == torch.int32
+    w_ref, _ = GK.weight_fold_ref(torch.from_numpy(idx.astype(np.int32)),
+                                  torch.from_numpy(L.pack_limbs(vals)), eq, k)
+    np.testing.assert_array_equal(L.unpack_limbs(w_ref.numpy()), np.asarray(want))
     t_idx, t_last = (torch.from_numpy(a.astype(np.int32)) for a in (idx, last))
     plan = GK.upload_plan(last, nnz, CPU)
     gather = {"f3": torch.from_numpy(L.pack_limbs(f3)), "y": torch.from_numpy(y.astype(np.int32)),
               "to_y": torch.from_numpy(to_y.astype(np.int32))}
     hg = torch.empty((8, 1 << k), dtype=torch.int32)
-    carry = GK.weight_reduce(t_idx, _entry_rows(vals), eq, k, t_last, plan, hg, **gather)
+    carry = GK.weight_reduce(t_idx, _entry_rows(vals), rows, k, t_last, plan, hg, **gather)
     np.testing.assert_array_equal(_carry_columns(carry, gather["to_y"]), np.asarray(want))
     last_j = jnp.asarray(last.astype(np.int32))
     _same(hg, _eager(JGI._segment_reduce_sorted, wv_want, None, last_j))
     sums = torch.empty((8, 1 << k), dtype=torch.int64)
-    assert GK.weight_reduce(t_idx, _entry_rows(vals), eq, k, t_last, plan, sums, **gather) \
+    assert GK.weight_reduce(t_idx, _entry_rows(vals), rows, k, t_last, plan, sums, **gather) \
         is not None
     assert torch.equal(GK.finish_ref(sums), hg)
     h2 = torch.empty((8, 1 << k), dtype=torch.int32)
-    assert GK.weight_reduce(t_idx, _entry_rows(vals), eq, k, t_last, plan, h2) is None
+    assert GK.weight_reduce(t_idx, _entry_rows(vals), rows, k, t_last, plan, h2) is None
     _same(h2, _eager(JGI._segment_reduce_sorted, want, None, last_j))
 
 
@@ -149,7 +154,7 @@ def test_eq_halves_factor_the_eq_table():
         rows = torch.stack([torch.zeros_like(_rows(pts)), _rows(pts)], dim=1)[:, 1]
         assert rows.stride(0) == 2 * 16
         kl = k - k // 2
-        halves = [x * R_INV % P for x in _limb_ints(GK.eq_halves(rows, k))]
+        halves = [x * R_INV % P for x in _limb_ints(GK.eq_halves_ref(rows, k))]
 
         def eq(vars_, j):
             out = 1
@@ -169,10 +174,10 @@ def test_eq_halves_factor_the_eq_table():
 # ---------------------------------------------------------------------------
 
 
-def _case(dim: int, seed: int):
+def _case(dim: int, seed: int, bodies_only: bool = False):
     """One dim-`dim` instance with colliding entries in both packages, phase
     1's challenges g and phase 2's u, and every JAX phase function's output
-    on them (eagerly)."""
+    on them (eagerly), or only the two pair bodies'."""
     rnd = random.Random(seed)
     f1 = J.SparseMLE.rand_with_config(3 * dim, 3 << dim, rnd)
     f2, f3 = J.DenseMLE.rand(dim, rnd), J.DenseMLE.rand(dim, rnd)
@@ -186,20 +191,21 @@ def _case(dim: int, seed: int):
     u_dig = np.stack([L.mont_scalar(v)[:, 0] for v in u])
     f3b, f2b = f3.device_bitrev(), f2.device_bitrev()
     with jax.disable_jit():
-        hg, w = JGI._compiled_phase1(len(f1.indices), dim, "off", not nx)(
-            jsp[0], jsp[4], jsp[5], jsp[2], jsp[3], gr, gomr, f3b)
         jlo, jhi, jw = JGI._phase1_pair_body(dim, not nx)(
             jsp[0], jsp[4], jsp[5], jsp[2], jsp[3], gr, gomr, f3b, f2b)
-        p1 = JGI._compiled_prep1(dim)(hg, f2b)
-        f2u = JGI._compiled_final_fold(1)(jlo[:, :, :1], jhi[:, :, :1], jnp.asarray(u_dig[-1]))
-        f1gu = JGI._compiled_phase2_digits(len(f1.indices), dim, "off", not ny)(
-            jsp[1], jsp[6], jsp[7], w, jnp.asarray(u_dig))
-        p2 = JGI._compiled_prep2(dim)(f1gu, f3b, f2u)
         jlo2, jhi2 = JGI._phase2_pair_body(dim, not ny)(
             jlo[:, :, :1], jhi[:, :, :1], jnp.asarray(u_dig[-1]), jsp[1], jsp[6], jsp[7], jw,
             jnp.asarray(u_dig), f3b)
-    jax_out = {"hg": hg, "w": w, "pair1": (jlo, jhi, jw), "prep1": p1, "f2u": f2u, "f1gu": f1gu,
-               "prep2": p2, "pair2": (jlo2, jhi2)}
+        jax_out = {"pair1": (jlo, jhi, jw), "pair2": (jlo2, jhi2)}
+        if not bodies_only:
+            hg, w = JGI._compiled_phase1(len(f1.indices), dim, "off", not nx)(
+                jsp[0], jsp[4], jsp[5], jsp[2], jsp[3], gr, gomr, f3b)
+            f2u = JGI._compiled_final_fold(1)(jlo[:, :, :1], jhi[:, :, :1],
+                                              jnp.asarray(u_dig[-1]))
+            f1gu = JGI._compiled_phase2_digits(len(f1.indices), dim, "off", not ny)(
+                jsp[1], jsp[6], jsp[7], w, jnp.asarray(u_dig))
+            jax_out.update(hg=hg, w=w, prep1=JGI._compiled_prep1(dim)(hg, f2b), f2u=f2u,
+                           f1gu=f1gu, prep2=JGI._compiled_prep2(dim)(f1gu, f3b, f2u))
     split = GI._split_f1_device(t1, dim, CPU)
     port = {"dim": dim, "split": split, "g": GI.upload(GI._point_rows(tg), CPU),
             "u": torch.from_numpy(u_dig.astype(np.int32)), "f2": t2.to_device(CPU),
@@ -387,6 +393,112 @@ def test_whole_phase_refs_equal_the_kernels_plain_versions(case, fold, monkeypat
                                                   GI.phase2_pair_ref(*pair_args)))
 
 
+@pytest.fixture(scope="module")
+def case5():
+    return _case(5, 43, bodies_only=True)
+
+
+@pytest.mark.parametrize("which", ["dim5", "dim9"])
+def test_fused_phase_inits_match_jax_bodies(which, case5, case9):
+    """The fused weight reduce's plain version (`weight_reduce_ref`: the
+    half tables, the weight fold, the segment sum and the pair's other slot
+    in one call, as the kernel's one launch a phase) against the JAX
+    package's `_phase1_pair_body` and `_phase2_pair_body`, at dim 5 and at
+    dim 9 with colliding entries (three a segment on average): phase 1 the
+    pair with f2 copied into slot 1 and the carry, phase 2 the pair with f3
+    times the final fold of phase 1's one-lane pair; and `weight_reduce`
+    on the CPU is that plain version."""
+    j, p = case5 if which == "dim5" else case9
+    dim, split, g, u, f2, f3 = (p[k] for k in ("dim", "split", "g", "u", "f2", "f3"))
+    half = 1 << (dim - 1)
+
+    def pair():
+        return tuple(torch.full((2, 8, half), 7, dtype=torch.int32) for _ in range(2))
+
+    lo, hi = pair()
+    w = GK.weight_reduce_ref(split.gbits, split.vals, g, dim, split.last_x, split.plan_x,
+                             (lo, hi), f3, split.y_rev, split.to_y, slot=(f2, None))
+    jlo, jhi, jw = j["pair1"]
+    got, want = _pair_digits(lo, hi), _jax_pair(jlo, jhi)
+    assert _ints(got[0]) == _ints(want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(_carry_columns(w, split.to_y), np.asarray(jw))
+    lo2, hi2 = pair()
+    fold = (lo[:, :, :1], hi[:, :, :1], u[-1], 1)
+    assert GK.weight_reduce_ref(split.x_y, w, u, dim, split.last_y, split.plan_y, (lo2, hi2),
+                                slot=(f3, fold)) is None
+    got, want = _pair_digits(lo2, hi2), _jax_pair(*j["pair2"])
+    assert _ints(got[0]) == _ints(want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    again = pair()
+    GK.weight_reduce(split.x_y, w, u, dim, split.last_y, split.plan_y, again, slot=(f3, fold))
+    assert torch.equal(again[0], lo2) and torch.equal(again[1], hi2)
+
+
+def test_fused_slot_refuses_an_overlapping_pair(case):
+    """The fused launch's other slot: a destination pair that overlaps the
+    one-lane pair its final fold reads (the same pair, or a view sharing
+    its lanes) is refused before any work, as are a slot without a pair to
+    write (a table or raw sums) and a one-slot pair; a fold read from a
+    disjoint strided view is taken."""
+    _j, p = case
+    dim, split, u, f3 = p["dim"], p["split"], p["u"], p["f3"]
+    half = 1 << (dim - 1)
+    lo1, hi1, w = GI.phase1_pair(*_pair1_args(p))
+    args = (split.x_y, w, u, dim, split.last_y, split.plan_y)
+    big = torch.zeros((3, 2, 8, half), dtype=torch.int32)
+    bhi = torch.zeros_like(big)
+    for fold_pair in ((big[1, :, :, :1], bhi[1, :, :, :1]), (big[1], bhi[1]),
+                      (big[1, :, :, half - 1:], bhi[1, :, :, half - 1:])):
+        with pytest.raises(ValueError, match="overlaps"):
+            GK.weight_reduce(*args, (big[1], bhi[1]), slot=(f3, (*fold_pair, u[-1], 1)))
+    assert not big.any() and not bhi.any()
+    fold = (lo1[:, :, :1], hi1[:, :, :1], u[-1], 1)
+    for out in (torch.empty((8, 1 << dim), dtype=torch.int32),
+                torch.empty((8, 1 << dim), dtype=torch.int64)):
+        with pytest.raises(ValueError, match="pair"):
+            GK.weight_reduce(*args, out, slot=(f3, fold))
+    one = torch.empty((1, 8, half), dtype=torch.int32), torch.empty((1, 8, half), dtype=torch.int32)
+    with pytest.raises(ValueError, match="slot 1"):
+        GK.weight_reduce(*args, one, slot=(f3, fold))
+    GK.weight_reduce(*args, (big[2], bhi[2]), slot=(f3, (big[0, :, :, :1], bhi[0, :, :, :1],
+                                                         u[-1], 1)))
+    want = GI.phase2_pair(big[0, :, :, :1], bhi[0, :, :, :1], u[-1], split, w, u, f3, dim)
+    assert torch.equal(big[2], want[0]) and torch.equal(bhi[2], want[1])
+
+
+@pytest.mark.parametrize("k", [20, 21, 22, 24])
+def test_weight_reduce_refuses_k_past_the_blocks_shared_memory(k, monkeypatch):
+    """Up to k = 21 (2^11 + 2^10 half-table lanes, `in_block`, as far as
+    f1's int64 indices reach) the wrapper launches once on a card (its
+    launch stubbed here) and counts it; from k = 22 it raises, on a card
+    and on the CPU alike, and launches nothing."""
+    rows = _rows([random.Random(k).randrange(P) for _ in range(k)])
+    nnz, nseg = 64, 16
+    last = np.arange(nseg) * (nnz // nseg) + nnz // nseg - 1
+    args = (torch.zeros(nnz, dtype=torch.int32), torch.zeros((nnz, 8), dtype=torch.int32), rows,
+            k, torch.from_numpy(last.astype(np.int32)), GK.upload_plan(last, nnz, CPU),
+            torch.empty((8, nseg), dtype=torch.int32))
+    assert GK.in_block(k) == (k <= 21)
+    if k > 21:
+        with pytest.raises(ValueError, match="up to k = 21"):
+            GK.weight_reduce(*args)
+    seen = []
+    monkeypatch.setattr(GK, "_on_card", lambda t: True)
+    monkeypatch.setattr(GK, "_launch_reduce", lambda *a: seen.append(a[3]))
+    before = GK.weight_reduce.launches
+    try:
+        if k <= 21:
+            GK.weight_reduce(*args)
+        else:
+            with pytest.raises(ValueError, match="up to k = 21"):
+                GK.weight_reduce(*args)
+        assert GK.weight_reduce.launches == before + (k <= 21)
+    finally:
+        GK.weight_reduce.launches = before
+    assert seen == ([k] if k <= 21 else [])
+
+
 # ---------------------------------------------------------------------------
 # the segment sums: a rank's raw sums, the tile plans, and a skewed f1
 # ---------------------------------------------------------------------------
@@ -410,12 +522,13 @@ def test_segment_reduce_partials_add_to_the_whole():
     seg[seg == 3] = 4  # an empty segment
     vals = _entry_rows(_digits(gen, nnz))
     idx = torch.from_numpy(gen.integers(0, 1 << k, nnz).astype(np.int32))
-    eq = GK.eq_halves(_rows([random.Random(5).randrange(P) for _ in range(k)]), k)
+    rows = _rows([random.Random(5).randrange(P) for _ in range(k)])
+    eq = GK.eq_halves_ref(rows, k)
 
     def raw(lo, hi):
         last = np.searchsorted(seg[lo:hi], np.arange(nseg), side="right") - 1
         sums = torch.empty((8, nseg), dtype=torch.int64)
-        GK.weight_reduce(idx[lo:hi], vals[lo:hi].contiguous(), eq, k,
+        GK.weight_reduce(idx[lo:hi], vals[lo:hi].contiguous(), rows, k,
                          torch.from_numpy(last.astype(np.int32)),
                          GK.upload_plan(last, hi - lo, CPU), sums)
         return sums
@@ -423,7 +536,7 @@ def test_segment_reduce_partials_add_to_the_whole():
     whole_sums = raw(0, nnz)
     whole = torch.empty((8, nseg), dtype=torch.int32)
     last = np.searchsorted(seg, np.arange(nseg), side="right") - 1
-    GK.weight_reduce(idx, vals, eq, k, torch.from_numpy(last.astype(np.int32)),
+    GK.weight_reduce(idx, vals, rows, k, torch.from_numpy(last.astype(np.int32)),
                      GK.upload_plan(last, nnz, CPU), whole)
     for size in (2, 4):
         cuts = [nnz * r // size for r in range(size + 1)]
@@ -500,10 +613,11 @@ def test_tile_plan_long_segments_match_naive():
     k = 5
     vals = _entry_rows(_digits(gen, nnz))
     idx = torch.from_numpy(gen.integers(0, 1 << k, nnz).astype(np.int32))
-    eq = GK.eq_halves(_rows([random.Random(6).randrange(P) for _ in range(k)]), k)
+    rows = _rows([random.Random(6).randrange(P) for _ in range(k)])
+    eq = GK.eq_halves_ref(rows, k)
     plan = GK.Plan(torch.from_numpy(items), long)
     got = torch.empty((8, len(lengths)), dtype=torch.int64)
-    GK.weight_reduce(idx, vals, eq, k, torch.from_numpy(last.astype(np.int32)), plan, got)
+    GK.weight_reduce(idx, vals, rows, k, torch.from_numpy(last.astype(np.int32)), plan, got)
     w, _ = GK.weight_fold_ref(idx, vals.T.contiguous(), eq, k)
     walked, _ = walk_plan(items, last, w.T.long().numpy() & 0xFFFFFFFF, tile)
     np.testing.assert_array_equal(got.numpy(), walked)

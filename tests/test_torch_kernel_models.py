@@ -589,8 +589,9 @@ def _sub_mod(a: list[int], b: list[int]) -> list[int]:
 
 
 def eq_half_lane(points: list[int], t: int) -> list[int]:
-    """eq_halves_kernel's lane over its variables: the first factor copied,
-    each next one multiplied in (1 - r by sub_mod from the one)."""
+    """One lane of a half table as a product over its variables, the
+    factors by the kernels' word operations: the first factor copied, each
+    next one multiplied in (1 - r by sub_mod from the one)."""
     acc = _limbs(ONE_M)
     for i, r in enumerate(points):
         ri = _limbs(r * (1 << 256) % P)
@@ -768,7 +769,8 @@ def test_segment_schedule_model_matches_limb_sums(lengths):
 
 
 def test_eq_half_tables_model_matches_eq_table():
-    """eq_halves_kernel's lanes, then weight_reduce_kernel's product
+    """The half tables' lanes as products (`eq_half_lane`), then
+    weight_reduce_kernel's product
     eq_lo[idx & m] * eq_hi[idx >> kl] by the even/odd multiply, equal the
     plain eq table by doublings (`ops/gkr_init._eq_table`) at every index,
     for k = 1 to 6; and a weight's two multiplies and the f3 gather's third
@@ -810,6 +812,188 @@ def test_eq_half_tables_model_matches_eq_table():
         a = mont_mul_eo(a, halves[(1 << kl) + (idx[j] >> kl)])
         assert a == [int(x) & M32 for x in w[:, j]]
         assert mont_mul_eo(a, f3[y[j]]) == [int(x) & M32 for x in wv[:, j]]
+
+
+def build_eq_halves_model(points: list[int], kl: int, kh: int, threads: int = GKR_TILE):
+    """weight_reduce_kernel's `build_eq_halves` as a block of `threads` runs
+    it: threads 0 and 1 put the Montgomery one into lane 0 of each half;
+    then level i < kl hands work item w < 2^i + (2^i if i < kh) to thread w
+    mod threads (w < 2^i: the low half's lane w; else the high half's lane
+    w - 2^i), which reads its lane x, writes x * r_i to the lane 2^i up and
+    x - x * r_i back (r_i the low half's challenge i or the high half's kl +
+    i); a __syncthreads ends each level. Asserts that within a level no
+    lane is written twice and no thread reads a lane another writes.
+    Returns the 2^kl + 2^kh lanes and, per level, the lanes each thread
+    wrote."""
+    nlo = 1 << kl
+    lanes = [None] * (nlo + (1 << kh))
+    lanes[0] = lanes[nlo] = _limbs(ONE_M)
+    wrote = []
+    for i in range(kl):
+        n = 1 << i
+        work = 2 * n if i < kh else n
+        by_thread, new, read = {}, {}, {}
+        for w in range(work):
+            t = w % threads
+            low = w < n
+            at = w if low else nlo + w - n
+            x = lanes[at]
+            assert x is not None
+            ri = _limbs(points[i if low else kl + i] * (1 << 256) % P)
+            hi = mont_mul_eo(x, ri)
+            for lane, v in ((at, _sub_mod(x, hi)), (at + n, hi)):
+                assert lane not in new  # one writer a lane
+                new[lane] = v
+                by_thread.setdefault(t, []).append(lane)
+            read[at] = t
+        assert all(read.get(lane, t) == t for t, ls in by_thread.items() for lane in ls)
+        for lane, v in new.items():
+            lanes[lane] = v
+        wrote.append(by_thread)
+    assert all(v is not None for v in lanes)
+    return lanes, wrote
+
+
+@pytest.mark.parametrize("k", range(9))
+def test_eq_halves_in_block_model_matches_eq_table(k):
+    """The blocks' doubling build of both half tables (`build_eq_halves_model`:
+    the level order, the lanes each thread writes, both halves side by side)
+    equals the lanes as products (`eq_half_lane`) and, through eq_lo[j &
+    m] * eq_hi[j >> kl], the plain eq table by doublings (`_eq_table`), for
+    k = 0 to 8 (k = 0 and 1: an empty high half, the Montgomery one), also
+    with 3 threads and with half a block (the table threads beside the slot's
+    movers), each thread then several items a level; the
+    multiplies are 2^kl + 2^kh - 2, one a new lane pair; and the wrapper's
+    threshold: the blocks build for k <= 21, and `weight_reduce` refuses k
+    >= 22."""
+    from sumcheck_tpu_torch.fields.fr import Fr
+    from sumcheck_tpu_torch.ops import gkr_init as GI
+
+    rnd = random.Random(300 + k)
+    pts = [rnd.randrange(P) for _ in range(k)]
+    kl, kh = GK.halves(k)
+    lanes, wrote = build_eq_halves_model(pts, kl, kh)
+    assert len(wrote) == kl
+    assert sum(len(ls) for by in wrote for ls in by.values()) == 2 * ((1 << kl) + (1 << kh) - 2)
+    assert lanes == [eq_half_lane(pts[:kl], t) for t in range(1 << kl)] + \
+        [eq_half_lane(pts[kl:], t) for t in range(1 << kh)]
+    assert build_eq_halves_model(pts, kl, kh, threads=3)[0] == lanes
+    assert build_eq_halves_model(pts, kl, kh, threads=GKR_TILE // 2)[0] == lanes
+    if k:
+        r_np, omr_np = GI._points_arrays([Fr(v) for v in pts])
+        full = GI._eq_table(torch.from_numpy(r_np.astype(np.int64)),
+                            torch.from_numpy(omr_np.astype(np.int64)), k).numpy()
+        table = [sum(int(full[i, j]) << (16 * i) for i in range(16)) for j in range(1 << k)]
+    else:  # the empty product
+        table = [ONE_M]
+    for j in range(1 << k):
+        got = mont_mul_eo(lanes[j & ((1 << kl) - 1)], lanes[(1 << kl) + (j >> kl)])
+        assert _int(got) == table[j]
+    assert [GK.in_block(m) for m in range(48)] == [m <= 21 for m in range(48)]
+
+
+SLOT_ORDERS = ("beside", "after", "before", "spread")
+
+
+def plan_item(it: int, items: int, slots: int, order: str) -> tuple[bool, int]:
+    """Work item `it` of a weight_reduce_kernel launch: (True, its plan
+    item) or (False, its slot item). Beside the build (the committed
+    kernel) the work list holds the plan's items alone; the work-list
+    variants of `tools/gkr_init_variants.py` (its `plan_item`) put the slot
+    items after the plan's, before them, or spread (slot item s at
+    floor((2 s + 1) T / (2 S)), T = items + S), in C's integer
+    arithmetic."""
+    if order == "beside":
+        return True, it
+    if order == "after":
+        return (True, it) if it < items else (False, it - items)
+    if order == "before":
+        return (False, it) if it < slots else (True, it - slots)
+    total, q = items + slots, 2 * slots * it
+    before = (int((q - 1) / total) + 1) // 2 if slots else 0  # C's / truncates
+    slot = before < slots and (2 * before + 1) * total // (2 * slots) == it
+    return (False, before) if slot else (True, it - before)
+
+
+def launch_walk(last: list[int], entries: list[int], half: int, grid: int, order: str):
+    """One launch's work over `tile_plan`'s items and the slot's
+    ceil(half / kTile) items on at most `grid` persistent blocks (no more
+    than the work list's items, as the launch sizes it), block b taking
+    it = b, b + grid, ... and the blocks advancing a step each in turn:
+    each tile's segments summed, each long segment's chunks into the
+    scratch (`Scratch`, the last arrival emits), and thread t of slot item
+    s moving lane s * kTile + t below `half`; beside the build, block b's
+    last kTile / 2 threads move its slot items b, b + grid, ... first,
+    thread t lanes s * kTile + t, + kTile / 2. Returns the segments' sums
+    (each emitted once) and each lane's move count."""
+    items, long = GK.tile_plan(np.array(last), len(entries))
+    slots = -(-half // GKR_TILE)
+    work = len(items) + (0 if order == "beside" else slots)
+    grid = min(grid, work)
+    walks = [list(range(b, work, grid)) for b in range(grid)]
+    scratch, sums, moved = Scratch(long), [None] * len(last), [0] * half
+    if order == "beside":
+        movers = GKR_TILE // 2
+        for b in range(grid):
+            for s in range(b, slots, grid):
+                for t in range(movers):
+                    for k in range(s * GKR_TILE + t, min((s + 1) * GKR_TILE, half), movers):
+                        moved[k] += 1
+    for step in range(max(len(w) for w in walks)):
+        for walk in walks:
+            if step >= len(walk):
+                continue
+            is_plan, which = plan_item(walk[step], len(items), slots, order)
+            if not is_plan:
+                assert 0 <= which < slots
+                for t in range(GKR_TILE):
+                    if which * GKR_TILE + t < half:
+                        moved[which * GKR_TILE + t] += 1
+                continue
+            s0, count, e0, e1 = (int(v) for v in items[which])
+            if count > 0:
+                for s in range(s0, s0 + count):
+                    assert sums[s] is None
+                    sums[s] = sum(entries[(last[s - 1] + 1 if s else 0):last[s] + 1])
+                continue
+            begin = last[s0 - 1] + 1 if s0 else 0
+            chunks = -(-(last[s0] + 1 - begin) // GKR_TILE)
+            done = scratch.arrive(-1 - count, [sum(entries[e0:e1])] + [0] * 7, chunks)
+            if done is not None:
+                assert sums[s0] is None
+                sums[s0] = done[0]
+    assert not any(scratch.arrived)
+    return sums, moved
+
+
+@pytest.mark.parametrize("order", SLOT_ORDERS)
+@pytest.mark.parametrize("shape", ["dim5", "dim11", "skewed"])
+def test_work_list_model_covers_segments_and_slot_lanes(shape, order):
+    """The fused launch's work (the slot beside the build, the committed
+    kernel's, or the slot's items in the work list, `plan_item`, as the
+    variants tool builds it) over grids of 1, 3 and 264 blocks: every
+    segment
+    summed once, to its naive sum, and every lane of slot 1 moved once,
+    where the half H is below a tile (dim 5: 16 lanes, 32 segments), a
+    multiple of it (dim 11: 1,024 lanes) and with a skewed plan whose long
+    segments are cut into chunks (2,048 segments, two of them longer than a
+    tile); each order is a bijection of the work items."""
+    rnd = random.Random(shape)
+    dim = {"dim5": 5, "dim11": 11, "skewed": 11}[shape]
+    nseg = 1 << dim
+    lengths = [rnd.choice([0, 1, 2, 3, 5]) for _ in range(nseg)]
+    if shape == "skewed":
+        lengths[7], lengths[900] = 3 * GKR_TILE + 17, GKR_TILE + 1
+    last = list(np.cumsum(lengths) - 1)
+    entries = [rnd.randrange(1 << 30) for _ in range(sum(lengths))]
+    items, _long = GK.tile_plan(np.array(last), len(entries))
+    slots = 0 if order == "beside" else -(-(nseg // 2) // GKR_TILE)
+    assert sorted(plan_item(it, len(items), slots, order) for it in range(len(items) + slots)) \
+        == sorted([(True, i) for i in range(len(items))] + [(False, s) for s in range(slots)])
+    want = [sum(entries[(last[s - 1] + 1 if s else 0):last[s] + 1]) for s in range(nseg)]
+    for grid in (1, 3, 264):
+        sums, moved = launch_walk(last, entries, nseg // 2, grid, order)
+        assert sums == want and moved == [1] * (nseg // 2)
 
 
 # ---------------------------------------------------------------------------

@@ -76,7 +76,7 @@ def test_kernel_probes_and_stage_launches_on_the_cpu(report):
     """The GKR init kernels' probes ran and passed their checks (against
     their plain versions); the stages' kernel launches are null on the CPU,
     where no kernel launches."""
-    for name in ("eq_halves", "weight_reduce", "pair_slots"):
+    for name in ("weight_reduce", "pair_slots"):
         assert report["probes"][name]["ok"] and report["probes"][name]["host_ms"] > 0, name
     assert all(report["stages"][s]["kernels"] is None for s in MB.STAGES)
     assert MB.kernel_launches(lambda: None) == {}
@@ -174,7 +174,7 @@ def test_kernel_probes_match_jax():
     got = torch.empty((8, 1 << JAX_NV), dtype=torch.int32)
     GK.weight_reduce(torch.from_numpy(x["idx"].astype(np.int32)),
                      torch.from_numpy(MB._limbs(x["a"])),
-                     GK.eq_halves(torch.from_numpy(x["r_pts"][:, :, 0].astype(np.int32)), JAX_NV),
+                     torch.from_numpy(x["r_pts"][:, :, 0].astype(np.int32)),
                      JAX_NV, torch.from_numpy(x["last"].astype(np.int32)),
                      GK.upload_plan(x["last"], 1 << JAX_NV, "cpu"), got,
                      torch.from_numpy(L.pack_limbs(x["b"])),

@@ -25,7 +25,7 @@ from sumcheck_tpu_torch.utils.config import get_config
 COUNTERS = (RC.round_nofold, RC.round_fold, RC.round_step_nofold, RC.round_step_fold,
             RC.round_fold_mxu, TC.transcript_step, IC.pair_init, RC.round_nofold_batched,
             RC.round_fold_batched, RC.round_step_fold_batched, TC.transcript_step_batched,
-            GK.eq_halves, GK.weight_reduce, GK.finish_sums, GK.pair_slots)
+            GK.weight_reduce, GK.finish_sums, GK.pair_slots)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -156,12 +156,10 @@ def test_wrappers_refuse_other_devices():
         IC.pair_init(lo, hi, [tab], ((0, None), (None, 1)))
     idx = torch.zeros(16, dtype=torch.int32, device="meta")
     rows = torch.zeros((4, 16), dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError):
-        GK.eq_halves(rows, 4)
-    rows = torch.zeros((16, 8), dtype=torch.int32, device="meta")
+    vals = torch.zeros((16, 8), dtype=torch.int32, device="meta")
     plan = GK.Plan(torch.zeros((1, 4), dtype=torch.int32, device="meta"), 0)
     with pytest.raises(ValueError):
-        GK.weight_reduce(idx, rows, tab[:, :8], 4, idx, plan, tab)
+        GK.weight_reduce(idx, vals, rows, 4, idx, plan, tab)
     with pytest.raises(ValueError):
         GK.finish_sums(tab.long(), tab)
     with pytest.raises(ValueError):

@@ -11,11 +11,13 @@ warm `GKRRoundSumcheck.prove` walls on the generic chain, and from
 `--profiles` profiled warm proves (`microbench.profile_events`, in the
 measured checkout) the median device time of the phase-init kernels, in
 all and by launch in prove order (phase 1's, then phase 2's; each name cut
-to its kernel), the prove's kernel launches and its idle share. The
-init kernels are matched by name, the earlier four-kernel inits'
-(`weight_fold_kernel`, `segment_reduce_kernel`) and the fused ones'
-(`weight_reduce_kernel`, `finish_sums_kernel`) alike. Times inside a
-prove, as the prove leaves the L2. Compare two commits in one call,
+to its kernel), the prove's kernel launches and its idle share, beside the
+card's name and power limit. The init kernels are matched by name, so
+commits with different inits compare alike: the four-kernel inits
+(`weight_fold_kernel`, `segment_reduce_kernel`), the three launches a
+phase (`eq_halves_kernel`, `weight_reduce_kernel`, `pair_slots_kernel`)
+and the one fused launch a phase (`weight_reduce_kernel`). Times inside
+a prove, as the prove leaves the L2. Compare two commits in one call,
 alternating them: parent, change, change, parent."""
 
 import argparse
