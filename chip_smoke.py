@@ -11,10 +11,12 @@ failure raises and exits non-zero without the final line:
 2. build the six kernel sources, `sumcheck_tpu_torch/csrc/round.cu`,
    `csrc/transcript.cu`, `csrc/round_mxu.cu`, `csrc/pair_init.cu`,
    `csrc/fold_staged.cu` (the fold body's yardstick, phase 6e) and
-   `csrc/gkr_init.cu` (the GKR phase inits' four kernels), one
+   `csrc/gkr_init.cu` (the GKR phase inits' kernels), one
    `nvcc` each, started together; print each kernel's registers, shared memory, stack frame and
    spills from the ptxas logs, and the SASS instruction mix of the
    transcript and round kernels (`cuobjdump`, where the toolkit has it);
+   the main path's instantiations held to their ptxas numbers before the
+   wide route (`MAIN_PATH_PTXAS`);
 3. the generic chain's round kernels against their plain PyTorch versions
    on the card, array-equal, at the round shapes of the nv=20 2x3 prove and
    at ragged extents, with kernel and plain times; the fold at A2=2^18
@@ -49,6 +51,14 @@ failure raises and exits non-zero without the final line:
    for Hopper, `round_fold` and `pair_init`, each against the variant it
    did not take (the stripes staged by cp.async; one lane a thread), in
    turns, with ptxas registers, stack and blocks per multiprocessor;
+6f. fault F4, each kernel's wide route (past the by-value plan's 16
+   slots, 16 products, 8 factors or degree 8) against its plain version:
+   round 0, the in-place fold, the per-size round 0 and fold, the MXU fold
+   and the pair init at F4 (a) nv=20 (17 slots) and (b), (c) at nv=18
+   (degree 9; 17 products), the transcript step at degrees 9 and 20, with
+   device ms and bounds, and the transcript step's measured ceiling;
+6g. the batched wide route: round 0, both folds and the transcript step at
+   4 x F4 (b) nv=16 against their plain versions, beside 4 single launches;
 7. the golden fixtures `tests/fixtures/ml_nv6_rich.json`,
    `ml_nv14_config1.json` and `gkr_dim5.json` through `device="cuda"` on
    both chains and in the MXU fold mode;
@@ -78,6 +88,9 @@ failure raises and exits non-zero without the final line:
    `phase2_pair_ref`) on the card, strict and as raw sums, on both
    instances and at dim 21 (the largest build in the blocks, and the
    largest dim whose f1 indices fit int64), with their walls;
+9b. the batched weight reduce (one launch a phase for the 8 x dim 14 GKR
+   batch, grid y = instance) against 8 single launches and the plain
+   version, flushed, also with a skewed instance whose tile plan differs;
 9. the GKR headlines: `GKRRoundSumcheck.prove` at dim 18 on the bench's
    instance (`bench.py:187-194`) on the same three paths: first prove and
    warm median, launch counts per prove (2 + 34 round kernels, 36
@@ -95,7 +108,15 @@ failure raises and exits non-zero without the final line:
    and per proof, launches per batch (the pair inits, then two a round for
    all 8), the batched chains under the sync debug mode "error", proofs
    byte-equal to per-instance card proves (timed beside them), all
-   verified, two subclaims, the ML batches' idle share;
+   verified, two subclaims, the ML batches' idle share; the GKR batch's 2
+   init launches a batch and its wall in turns against the parent's
+   per-instance loop (`parent_enqueue_gkr`, 16 init launches);
+10f. fault F4's structures (a), (b), (c) proved at nv=20 on the generic,
+   per-size and MXU chains, each run's launches counted from 0 (no host
+   fallback) under the sync debug mode "error", bytes equal across the
+   chains, each verified, and at nv=12 equal to the CPU's plain prove;
+   10g. 4 x F4 (b) at nv=16 on both batched chains, equal to per-instance
+   card proves;
 10b. the interactive tier on the phase-8 instance: `IPForMLSumcheck.
    prover_init(device="cuda")` and 20 `prove_round` / `sample_round` over a
    live `Blake2b512Rng`: launches, syncs per prove (its `finish_sums`
@@ -236,6 +257,31 @@ PREVIOUS_MS = {"round_nofold": 0.3551, "round_fold": 0.3630, "round_step_nofold"
 
 
 RATES: dict = {}  # the card's SM count, clock and IMAD rate (`microbench.card_rates`)
+# the main path's instantiations, by a piece of their mangled names, and
+# their ptxas (registers, stack frame, spill stores, static shared memory)
+# on the tree before the wide route (`python tools/ptxas_compare.py
+# <parent> <change>` on an H100, sm_90a, CUDA 12.8; equal for every kernel
+# both trees have): the wide route leaves them as they were
+MAIN_PATH_PTXAS = {"round_nofold: nofold_kernel<3, no coefficients>": "13nofold_kernelILi3ELb0E",
+                   "round_fold: fold_kernel<3, in place, single>": "11fold_kernelILi3ELb0ELb0ELb0E",
+                   "round_step_fold: fold_kernel<3, out of place, single>":
+                       "11fold_kernelILi3ELb1ELb0ELb0E",
+                   "round_fold_batched: fold_kernel<3, in place, batched>":
+                       "11fold_kernelILi3ELb0ELb0ELb1E",
+                   "transcript_step: transcript_kernel<static stream>": "17transcript_kernelILb0E",
+                   "round_fold_mxu: fold_mxu_kernel<plan>": "15fold_mxu_kernelILb0E",
+                   "pair_init: pair_init_kernel<4 lanes>": "16pair_init_kernelILi4E",
+                   "weight_reduce: weight_reduce_kernel<phase 1>": "20weight_reduce_kernelILb1E",
+                   "weight_reduce: weight_reduce_kernel<phase 2>": "20weight_reduce_kernelILb0E"}
+PREVIOUS_PTXAS = {"round_nofold: nofold_kernel<3, no coefficients>": (128, 0, 0, 2304),
+                  "round_fold: fold_kernel<3, in place, single>": (126, 0, 0, 2304),
+                  "round_step_fold: fold_kernel<3, out of place, single>": (126, 0, 0, 2304),
+                  "round_fold_batched: fold_kernel<3, in place, batched>": (126, 0, 0, 2304),
+                  "transcript_step: transcript_kernel<static stream>": (56, 0, 0, 1216),
+                  "round_fold_mxu: fold_mxu_kernel<plan>": (92, 0, 0, 7936),
+                  "pair_init: pair_init_kernel<4 lanes>": (84, 0, 0, 0),
+                  "weight_reduce: weight_reduce_kernel<phase 1>": (64, 0, 0, 2592),
+                  "weight_reduce: weight_reduce_kernel<phase 2>": (64, 0, 0, 2592)}
 
 
 def eval_multiplies(products, degree: int, coeffs: bool, registers: bool) -> int:
@@ -743,7 +789,14 @@ def host_replay(host, msgs, rs, blen: int, degree: int, what: str):
     return rejected, per_round, blen, tries
 
 
-STREAM_WORDS = 128  # `csrc/transcript.cu` kStreamWords
+STREAM_WORDS = 128  # `csrc/transcript.cu` kStreamWords, up to kMaxDegree = 8
+
+
+def stream_words(d1: int) -> int:
+    """The transcript kernel's stream, in 64-bit words, for d+1 = `d1`
+    elements (`csrc/transcript.cu`: the static stream up to degree 8, the
+    wide one's `stream_words` above it)."""
+    return STREAM_WORDS if d1 <= 9 else 4 * d1 + 64
 
 
 def stream_compactions(blen: int, d1: int, attempts: int) -> tuple[int, int]:
@@ -752,8 +805,9 @@ def stream_compactions(blen: int, d1: int, attempts: int) -> tuple[int, int]:
     `transcript_kernel`): the round's stream of 64-bit words starts with the
     pending block and the feed, a compression of a full block moves `pos` 16
     words on, each next_u64 appends its 8 re-absorbed words, and when they
-    would pass `STREAM_WORDS - 16` the words from `pos` move to the front (a
-    compaction: the branch that runs of rejected draws reach)."""
+    would pass `stream_words(d1) - 16` the words from `pos` move to the
+    front (a compaction: the branch that runs of rejected draws reach)."""
+    words = stream_words(d1)
     pos, length = 0, blen // 8 + 1 + 4 * d1
     drawn, tried, count = 0, 0, 0
     while True:
@@ -767,7 +821,7 @@ def stream_compactions(blen: int, d1: int, attempts: int) -> tuple[int, int]:
             pos += 16
         else:
             drawn += 1
-            if length + 8 > STREAM_WORDS - 16:
+            if length + 8 > words - 16:
                 count += 1
                 length -= pos
                 pos = 0
@@ -989,6 +1043,37 @@ def gkr_golden_phase(device, fx=None, name: str = "gkr_dim5.json") -> None:
               and sub.verify_subclaim(f1, f2, f3, g), f"{name} {path}: verifier")
         print(f"golden {name}, {path}: proof bytes, challenges, expected evaluation "
               f"and subclaim equal")
+
+
+def evaluate_on_card(poly, point, device):
+    """`poly.evaluate(point)` with each table's folds on the card by plain
+    torch ops (`limbs_torch`, what `DenseMLE.fix_variables` does on the
+    host with NumPy: new[b] = old[2b] + r (old[2b+1] - old[2b]), low bit
+    first, from the natural-order digits) and the products in Python
+    integers: the same field element, independent of the kernels, a
+    second a polynomial at nv=20 where the host's NumPy takes about 6 s a
+    table."""
+    from sumcheck_tpu_torch import Fr
+    from sumcheck_tpu_torch.fields import limbs_np as L
+    from sumcheck_tpu_torch.fields import limbs_torch as LT
+    from sumcheck_tpu_torch.fields.fr import P, R_INV
+    from sumcheck_tpu_torch.protocol.device_prover import col_int
+
+    values = []
+    for m in poly.flattened_ml_extensions:
+        arr = torch.from_numpy(m.evals.astype(np.int64)).to(device)
+        for x in point:
+            r = LT.from_numpy(L.mont_scalar(x.v), device)
+            even, odd = arr[:, 0::2], arr[:, 1::2]
+            arr = LT.add(even, LT.mont_mul(LT.sub(odd, even), r))
+        values.append(col_int(arr[:, 0].cpu().numpy()) * R_INV % P)
+    total = 0
+    for coeff, ix in poly.products:
+        term = coeff.v
+        for i in ix:
+            term = term * values[i] % P
+        total = (total + term) % P
+    return Fr(total)
 
 
 def headline_poly(seed: int, nv: int = NV):
@@ -1243,13 +1328,14 @@ def _headline(device, seed: int, reps: int, path: str, chain: str, mxu: bool, nv
         MLSumcheck.verify(info, s, proof)
         vwalls.append(time.perf_counter() - t0)
     verify_s = statistics.median(vwalls)
-    check(poly.evaluate(sub.point) == sub.expected_evaluation,
+    check(evaluate_on_card(poly, sub.point, device) == sub.expected_evaluation,
           f"ML {path}: subclaim does not match the polynomial")
     fs_rng = Blake2b512Rng.setup()
     _, state = MLSumcheck.prove_as_subprotocol(fs_rng, poly, device=device)
     transcript = repr(fs_rng.state_tuple())
     check(state.randomness == sub.point, f"ML {path}: prover randomness is not the subclaim point")
-    print(f"ML {path}: verify accepts; subclaim equals poly.evaluate(point) and the prover's "
+    print(f"ML {path}: verify accepts; subclaim equals the polynomial at the point "
+          f"(`evaluate_on_card`) and the prover's "
           f"randomness; verify median {verify_s:.6f} s")
 
     # the plain path on the same card: plain round versions and plain transcript
@@ -1689,16 +1775,17 @@ BATCH_NV = 16  # `bench.py:564`
 GKR_BATCH_DIM = 14  # `bench.py:569`
 
 
-def pair_init_phase(device, seed: int, nv: int = NV) -> dict:
+def pair_init_phase(device, seed: int, nv: int = NV, poly=None, label: str = "ML") -> dict:
     """Phase 6b: the pair-init kernel at the ML nv=20 2x3 shape (6 slots,
-    the two coefficients scaled in place) against its plain version on the
-    card, array-equal, the cached tables untouched; kernel and plain times
-    and the bound (each source lane read once, each slot lane written
-    once)."""
+    the two coefficients scaled in place; or `poly`'s) against its plain
+    version on the card, array-equal, the cached tables untouched; kernel
+    and plain times and the bound (each source lane read once, each slot
+    lane written once)."""
     from sumcheck_tpu_torch.ops import init_cuda as ic
     from sumcheck_tpu_torch.protocol.device_prover import _fold_plan
 
-    poly = headline_poly(seed, nv)
+    if poly is None:
+        poly = headline_poly(seed, nv)
     _products, scale_plan, num_slots, need_ones = _fold_plan(poly)
     tabs = [m.to_device(device) for m in poly.flattened_ml_extensions]
     before = [t.clone() for t in tabs]
@@ -1718,7 +1805,7 @@ def pair_init_phase(device, seed: int, nv: int = NV) -> dict:
     reads = sum(1 for src, _c in specs if src is not None)
     work = {"bytes": (reads + num_slots) * ELEMENT_BYTES * (1 << nv),
             "imads": scaled * (1 << nv) * IMADS_PER_MONT_MUL, "int8_ops": 0}
-    shape = f"ML nv={nv} 2x3: {num_slots} slots, {scaled} scaled"
+    shape = f"{label} nv={nv}{' 2x3' if label == 'ML' else ''}: {num_slots} slots, {scaled} scaled"
     bound = ""
     if RATES:
         bound_ms, bound_by, _ = bound_of(work)
@@ -2169,13 +2256,42 @@ def _gkr_batch(device, seed, reps, batch, dim) -> dict:
     want = {k: 0 for k in launches}
     want.update({"round_nofold_batched": 2 * proves, "round_fold_batched": 2 * (dim - 1) * proves,
                  "transcript_step_batched": 2 * dim * proves})
-    # each instance's phase inits into its slice of the batched pair
-    want.update({k: v * batch * proves for k, v in init_launches("generic").items()})
+    # each phase's inits of all B instances in one launch (the weight reduce's instance axis)
+    want.update({"weight_reduce_batched": 2 * proves})
     check(launches == want, f"{path}: launch counts {launches} over {proves} batches, "
                            f"expected {want}")
     blobs = [p.serialize_uncompressed() for p in proofs]
     check([p.serialize_uncompressed() for p in again] == blobs, f"{path}: warm batches differ")
     prove_s = statistics.median(walls)
+    # the batch wall against the parent's enqueue (one init launch per
+    # instance and phase), in turns parent, change, change, parent
+    from sumcheck_tpu_torch import batch as batch_mod
+
+    turns = {"parent": [], "change": []}
+    for kind in ("parent", "change", "change", "parent") * reps:
+        saved = batch_mod._enqueue_gkr
+        if kind == "parent":
+            batch_mod._enqueue_gkr = parent_enqueue_gkr
+        try:
+            for f in counters().values():
+                f.launches = 0
+            t0 = time.perf_counter()
+            got = prove()
+            turns[kind].append(time.perf_counter() - t0)
+            inits = counters()["weight_reduce"].launches + \
+                counters()["weight_reduce_batched"].launches
+        finally:
+            batch_mod._enqueue_gkr = saved
+        check([p.serialize_uncompressed() for p in got] == blobs,
+              f"{path}: the {kind} enqueue proves other bytes")
+        check(inits == (2 * batch if kind == "parent" else 2),
+              f"{path}: the {kind} enqueue made {inits} init launches")
+    parent_s, change_s = (statistics.median(turns[k]) for k in ("parent", "change"))
+    print(f"{path}: batch wall, median of {2 * reps} each in turns: {change_s:.4f} s with 2 init "
+          f"launches a batch, {parent_s:.4f} s with the parent's {2 * batch} "
+          f"({change_s / parent_s:.1%} of it); walls change "
+          f"{[round(w, 4) for w in turns['change']]}, parent "
+          f"{[round(w, 4) for w in turns['parent']]}")
     t0 = time.perf_counter()
     alone = [GKRRoundSumcheck.prove(Blake2b512Rng.setup(), *inst, device=device)
              .serialize_uncompressed() for inst in insts]
@@ -2197,7 +2313,448 @@ def _gkr_batch(device, seed, reps, batch, dim) -> dict:
           f"proves, all {batch} verified, subclaims of instances 0 and {batch - 1} hold "
           f"({subclaim_s:.2f} s on the host)")
     return {"launches": launches, "prove_s": prove_s, "per_proof_s": prove_s / batch,
-            "first_s": first_s, "alone_s": alone_s, "proofs": blobs}
+            "first_s": first_s, "alone_s": alone_s, "proofs": blobs,
+            "parent_loop_s": parent_s, "turns_s": change_s}
+
+
+# --- fault F4: product structures past the kernels' by-value plan, on their
+# wide route (`round_cuda.route`; the pair init's and the transcript step's
+# wide bodies)
+
+F4_NV = 20
+F4_CHECK_NV = 12  # the size at which the card's proofs meet the CPU's plain prove
+F4_BATCH, F4_BATCH_NV = 4, 16
+F4_TRANSCRIPT_DEGREES = (9, 20)
+F4_CHAINS = {"generic": ("generic", False), "per-size": ("persize", False),
+             "mxu": ("generic", True)}
+# the wide rows of the kernels line: (row, wrapper, F4 run whose launches it reports)
+F4_ROWS = (("round_nofold[wide]", "round_nofold", "f4 generic a"),
+           ("round_fold[wide]", "round_fold", "f4 generic a"),
+           ("round_step_nofold[wide]", "round_step_nofold", "f4 per-size a"),
+           ("round_step_fold[wide]", "round_step_fold", "f4 per-size a"),
+           ("round_fold_mxu[wide]", "round_fold_mxu", "f4 mxu a"),
+           ("transcript_step[wide]", "transcript_step", "f4 generic b"),
+           ("pair_init[wide]", "pair_init", "f4 generic a"),
+           ("round_nofold_batched[wide]", "round_nofold_batched", "f4 batch generic"),
+           ("round_fold_batched[wide]", "round_fold_batched", "f4 batch generic"),
+           ("round_step_fold_batched[wide]", "round_step_fold_batched", "f4 batch per-size"),
+           ("transcript_step_batched[wide]", "transcript_step_batched", "f4 batch generic"))
+
+
+def f4_structure(name: str):
+    """Fault F4's structures (`tests/f4_cases.py`): (a) 17 products of one
+    table (17 slots), (b) one product of 9 tables (degree 9), (c) 17 pairs
+    of 7 tables with coefficients 2..18 (17 products). (products, table
+    count)."""
+    if name == "a":
+        return [(1, [i]) for i in range(17)], 17
+    if name == "b":
+        return [(1, list(range(9)))], 9
+    import itertools
+
+    pairs = list(itertools.combinations(range(7), 2))[:17]
+    return [(2 + i, list(ix)) for i, ix in enumerate(pairs)], 7
+
+
+def f4_poly(name: str, seed: int, nv: int):
+    from sumcheck_tpu_torch.convert import polynomial_from_numpy
+    from sumcheck_tpu_torch.fields.limbs_np import random_tables
+
+    products, count = f4_structure(name)
+    rng = np.random.default_rng(seed + 1000 * count + nv)
+    return polynomial_from_numpy(nv, random_tables(rng, nv, count), products)
+
+
+def f4_kernel_phase(device, seed: int, nv: int = F4_NV) -> dict:
+    """Phase 6f: each kernel's wide route against its plain version on the
+    card, array-equal, at F4's shapes ((a) at nv=20: 17 slots at degree 1;
+    (b) and (c) at nv=18: 9 slots at degree 9, and 23 slots, 17 products at
+    degree 2; the pair built by `init_pair`, one pair-init launch): round 0 and the in-place
+    fold of the generic chain, the per-size round 0 and fold, the MXU fold,
+    the pair init; the transcript step at degrees 9 and 20 against the
+    plain step and the host rng. Device ms, plain ms and each bound
+    (`round_work`: the function's bytes and the Montgomery multiplies of
+    its evaluation schedule, not the wide body's re-reads). Returns the
+    stats of the kernels line's wide rows, (a)'s shapes first."""
+    from sumcheck_tpu_torch.fields import limbs_np as L
+    from sumcheck_tpu_torch.fields.fr import P
+    from sumcheck_tpu_torch.ops import round_cuda as rc
+    from sumcheck_tpu_torch.protocol.device_prover import init_pair
+
+    rng = np.random.default_rng(seed + 16)
+    r = torch.from_numpy(
+        L.mont_scalar(int(rng.integers(1, 1 << 62)) % P)[:, 0].astype(np.int32)).to(device)
+    stats = {row: [0, []] for row, _w, _p in F4_ROWS if "batched" not in row}
+
+    def record(row, res, shape, work):
+        err, ms, plain_ms = res[:3]
+        stats[row][0] = max(stats[row][0], err)
+        entry = {"shape": shape, "ms": ms, "plain_ms": plain_ms, "work": work}
+        stats[row][1].append(entry)
+        if RATES:
+            bound_ms, bound_by, _ = bound_of(work)
+            print(f"F4 {row} at {shape}: bound {bound_ms:.4f} ms by {bound_by}, "
+                  f"{bound_ms / ms:.1%} of it")
+
+    for name in ("a", "b", "c"):
+        # (a) at nv=20, the rows' main shape; (b) and (c) at nv=18 (their
+        # plain versions take seconds at nv=20)
+        n = nv if name == "a" else nv - 2
+        poly = f4_poly(name, seed, n)
+        lo, hi, products, degree = init_pair(poly, device)
+        slots, half = lo.shape[0], lo.shape[2]
+        check(rc.route(slots, products, degree) == "wide",
+              f"F4 ({name}) does not take the wide route")
+        tag = f"F4 ({name}) nv={n} U={slots} P={len(products)} d={degree}"
+        record("round_nofold[wide]",
+               compare_round(rc, f"{tag} round 0", lo, hi, None, products, degree, half,
+                             device, True),
+               f"{tag} round 0 H=2^{n - 1}", round_work(half, slots, products, degree, False))
+        record("round_fold[wide]",
+               compare_round(rc, f"{tag} fold", lo, hi, r, products, degree, half // 2,
+                             device, True),
+               f"{tag} fold A2=2^{n - 2}", round_work(half // 2, slots, products, degree, True))
+        record("round_step_nofold[wide]",
+               compare_step(rc, f"{tag} per-size round 0", lo, hi, None, products, degree, None,
+                            device),
+               f"{tag} per-size round 0", round_work(half, slots, products, degree, False))
+        record("round_step_fold[wide]",
+               compare_step(rc, f"{tag} per-size fold", lo, hi, r, products, degree, None,
+                            device),
+               f"{tag} per-size fold 2^{n - 1} -> 2^{n - 2}",
+               round_work(half // 2, slots, products, degree, True))
+        record("round_fold_mxu[wide]",
+               compare_mxu(rc, f"{tag} MXU fold", lo, hi, r, products, degree, half // 2, device),
+               f"{tag} MXU fold A2=2^{n - 2}",
+               round_work(half // 2, slots, products, degree, True, mma=True))
+        del lo, hi
+        err, (entry,) = pair_init_phase(device, seed, n, poly, f"F4 ({name})")["pair_init"]
+        record("pair_init[wide]", (err, entry["ms"], entry["plain_ms"]), entry["shape"],
+               entry["work"])
+        torch.cuda.empty_cache()
+    for degree in F4_TRANSCRIPT_DEGREES:
+        err, (entry,) = transcript_phase(device, seed + degree, rounds=24,
+                                         degree=degree)["transcript_step"]
+        stats["transcript_step[wide]"][0] = max(stats["transcript_step[wide]"][0], err)
+        stats["transcript_step[wide]"][1].append(entry)
+    if device.type == "cuda":
+        from sumcheck_tpu_torch.ops import transcript_cuda as tc
+
+        top = tc.max_degree(device.index)
+        print(f"F4 transcript step ceiling on this card: degree {top} (its stream of 4 (d+1) + "
+              f"64 words in a block's opt-in shared memory); the other kernels have none")
+        stats["transcript_ceiling"] = top
+    return stats
+
+
+def f4_batch_kernel_phase(device, seed: int, batch: int = F4_BATCH,
+                          nv: int = F4_BATCH_NV) -> dict:
+    """Phase 6g: the batched round kernels and the batched transcript step
+    on the wide route, at F4 (b)'s shape (9 slots, degree 9), 4 x nv=16,
+    each instance with its own challenge, against their plain versions,
+    array-equal, each beside the time of 4 single launches."""
+    from sumcheck_tpu_torch.fields import limbs_np as L
+    from sumcheck_tpu_torch.fields.fr import P
+    from sumcheck_tpu_torch.ops import round_cuda as rc
+    from sumcheck_tpu_torch.protocol.device_prover import init_pairs
+
+    polys = [f4_poly("b", seed + b, nv) for b in range(batch)]
+    lo, hi, products, degree = init_pairs(polys, device)
+    slots, half = lo.shape[1], lo.shape[3]
+    check(rc.route(slots, products, degree) == "wide", "F4 (b) does not take the wide route")
+    rng = np.random.default_rng(seed + 17)
+    r = torch.from_numpy(np.stack([L.mont_scalar(int(rng.integers(1, 1 << 62)) % P)[:, 0]
+                                   for _ in range(batch)]).astype(np.int32)).to(device)
+    rows = torch.zeros((batch, degree + 1, 16), dtype=torch.int64, device=device)
+    tag = f"{batch} x F4 (b) nv={nv} U={slots} d={degree}"
+    stats = {}
+
+    def record(row, res):
+        stats.setdefault(row, [0, []])
+        stats[row][0] = max(stats[row][0], res[0])
+        stats[row][1].append(res[1])
+
+    record("round_nofold_batched[wide]", _batch_case(
+        f"round_nofold_batched {tag} round 0",
+        lambda: [(rc.round_nofold_batched(lo, hi, products, degree, half, rows.zero_()),
+                  rc.round_nofold_batched_ref(lo, hi, products, degree, half))],
+        lambda: rc.round_nofold_batched(lo, hi, products, degree, half, rows.zero_()),
+        lambda: [rc.round_nofold(lo[b], hi[b], products, degree, half, rows[b])
+                 for b in range(batch)],
+        lambda: rc.round_nofold_batched_ref(lo, hi, products, degree, half), batch, device,
+        round_work(batch * half, slots, products, degree, False)))
+    lo_k, hi_k = lo.clone(), hi.clone()
+
+    def fold_compare():
+        pair_k, pair_p = (lo.clone(), hi.clone()), (lo.clone(), hi.clone())
+        got = rc.round_fold_batched(*pair_k, r, products, degree, half // 2)
+        want = rc.round_fold_batched_ref(*pair_p, r, products, degree, half // 2)
+        return [(got, want), (pair_k[0], pair_p[0]), (pair_k[1], pair_p[1])]
+
+    record("round_fold_batched[wide]", _batch_case(
+        f"round_fold_batched {tag} fold", fold_compare,
+        lambda: rc.round_fold_batched(lo_k, hi_k, r, products, degree, half // 2, rows.zero_()),
+        lambda: [rc.round_fold(lo_k[b], hi_k[b], r[b], products, degree, half // 2, rows[b])
+                 for b in range(batch)],
+        lambda: rc.round_fold_batched_ref(lo_k, hi_k, r, products, degree, half // 2),
+        batch, device, round_work(batch * half // 2, slots, products, degree, True)))
+    record("round_step_fold_batched[wide]", _batch_case(
+        f"round_step_fold_batched {tag} fold",
+        lambda: list(zip(_flat(rc.round_step_fold_batched(lo, hi, r, products, degree, None,
+                                                          rows.zero_())),
+                         _flat(rc.round_step_fold_batched_ref(lo, hi, r, products, degree)))),
+        lambda: rc.round_step_fold_batched(lo, hi, r, products, degree, None, rows.zero_()),
+        lambda: [rc.round_step_fold(lo[b], hi[b], r[b], products, degree, None, rows[b])
+                 for b in range(batch)],
+        lambda: rc.round_step_fold_batched_ref(lo, hi, r, products, degree), batch, device,
+        round_work(batch * half // 2, slots, products, degree, True)))
+    err, (entry,) = batch_transcript_phase(device, seed, batch, rounds=8,
+                                           degree=degree)["transcript_step_batched"]
+    stats["transcript_step_batched[wide]"] = [err, [entry]]
+    return stats
+
+
+def f4_prove_phase(device, seed: int, nv: int = F4_NV, check_nv: int = F4_CHECK_NV) -> dict:
+    """Phase 10f: F4's structures (a), (b) and (c) proved at nv=20 on the
+    generic, the per-size and the MXU chain, each run with every launch
+    count set to 0 just before it and read just after (one pair init, one
+    round 0, nv - 1 folds and nv transcript steps of the chain: no host
+    fallback), the enqueue under the sync debug mode "error": proof bytes
+    equal across the chains, each proof verified (the subclaim against
+    `evaluate_on_card`); and at nv=12 every chain's proof equal to the
+    CPU's plain prove. Returns {"f4 <chain> <name>": {"launches", "prove_s"}}."""
+    from sumcheck_tpu_torch import Blake2b512Rng, MLSumcheck
+    from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
+
+    out = {}
+    for name in ("a", "b", "c"):
+        blobs, small = {}, {}
+        poly = f4_poly(name, seed, nv)
+        check_poly = f4_poly(name, seed, check_nv)
+        for path, (chain, mxu) in F4_CHAINS.items():
+            kernels = path_kernels(chain, mxu)
+            with fold_mode(chain, mxu), syncs_forbidden_in_chains():
+                MLSumcheck.prove(poly, device=device)  # warm: the wide index matrix uploaded
+                sync(device)
+                for f in counters().values():
+                    f.launches = 0
+                t0 = time.perf_counter()
+                proof = MLSumcheck.prove(poly, device=device)
+                prove_s = time.perf_counter() - t0
+                launches = {k: f.launches for k, f in counters().items()}
+                small[path] = serialize_proof(MLSumcheck.prove(check_poly, device=device))
+            want = {k: 0 for k in launches}
+            want.update({kernels[0]: 1, kernels[1]: nv - 1, "transcript_step": nv,
+                         "pair_init": 1})
+            check(launches == want, f"F4 ({name}) {path}: launches {launches}, expected {want}")
+            blobs[path] = serialize_proof(proof)
+            out[f"f4 {path} {name}"] = {"launches": launches, "prove_s": prove_s}
+            print(f"F4 ({name}) nv={nv} {path}: prove {prove_s:.4f} s, launches "
+                  f"{ {k: v for k, v in launches.items() if v} }, no sync inside the chain")
+        check(len(set(blobs.values())) == 1, f"F4 ({name}): the chains prove different bytes")
+        s = MLSumcheck.extract_sum(proof)
+        sub = MLSumcheck.verify(poly.info(), s, proof)
+        check(evaluate_on_card(poly, sub.point, device) == sub.expected_evaluation,
+              f"F4 ({name}): the subclaim does not match the polynomial")
+        rng = Blake2b512Rng.setup()
+        plain, _ = MLSumcheck.prove_as_subprotocol(rng, check_poly, device="cpu")
+        check(len(set(small.values()) | {serialize_proof(plain)}) == 1,
+              f"F4 ({name}) nv={check_nv}: the card's proofs differ from the CPU's plain prove")
+        print(f"F4 ({name}): nv={nv} proof bytes equal on the generic, per-size and MXU chains, "
+              f"verified (subclaim = the polynomial at the point); nv={check_nv} proofs on the three "
+              f"chains equal the CPU's plain prove")
+        torch.cuda.empty_cache()
+    return out
+
+
+def f4_batch_prove_phase(device, seed: int, batch: int = F4_BATCH,
+                         nv: int = F4_BATCH_NV) -> dict:
+    """Phase 10g: `BatchedMLSumcheck.prove` of 4 x F4 (b) at nv=16 on both
+    batched chains, each run with every launch count set to 0 just before
+    it and read just after (a pair init each, then two launches a round for
+    all four), proofs equal to per-instance card proves. Returns {"f4 batch
+    <chain>": {"launches", "prove_s"}}."""
+    from sumcheck_tpu_torch import MLSumcheck
+    from sumcheck_tpu_torch.batch import BatchedMLSumcheck
+    from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
+
+    polys = [f4_poly("b", seed + b, nv) for b in range(batch)]
+    alone = [serialize_proof(MLSumcheck.prove(p, device=device)) for p in polys]
+    out = {}
+    for path, chain in (("generic", "generic"), ("per-size", "persize")):
+        fold = "round_fold_batched" if chain == "generic" else "round_step_fold_batched"
+        with fold_mode(chain), syncs_forbidden_in_chains():
+            BatchedMLSumcheck.prove(polys, device=device)
+            sync(device)
+            for f in counters().values():
+                f.launches = 0
+            t0 = time.perf_counter()
+            proofs = BatchedMLSumcheck.prove(polys, device=device)
+            prove_s = time.perf_counter() - t0
+            launches = {k: f.launches for k, f in counters().items()}
+        want = {k: 0 for k in launches}
+        want.update({"round_nofold_batched": 1, fold: nv - 1, "transcript_step_batched": nv,
+                     "pair_init": batch})
+        check(launches == want, f"F4 batch {path}: launches {launches}, expected {want}")
+        check([serialize_proof(p) for p in proofs] == alone,
+              f"F4 batch {path}: proofs differ from per-instance card proves")
+        out[f"f4 batch {path}"] = {"launches": launches, "prove_s": prove_s}
+        print(f"F4 batch {path}, {batch} x (b) nv={nv}: {prove_s:.4f} s, launches "
+              f"{ {k: v for k, v in launches.items() if v} }; proofs equal per-instance card "
+              f"proves")
+    return out
+
+
+# --- the batched GKR inits: one weight-reduce launch a phase for B instances
+
+
+def parent_enqueue_gkr(inputs: list, state, dim: int, round_fns=None, transcript_fn=None):
+    """The batched GKR enqueue as it was before the weight reduce's
+    instance axis (one `phase1_pair` and one `phase2_pair` launch per
+    instance), kept here as the yardstick of the batch wall."""
+    from sumcheck_tpu_torch.fields.fr import NUM_LIMBS
+    from sumcheck_tpu_torch.ops import gkr_init as GI
+    from sumcheck_tpu_torch.protocol import generic_prover
+
+    products = ((0, 1),)
+    shape = (len(inputs), 2, NUM_LIMBS, 1 << (dim - 1))
+    lo = torch.empty(shape, dtype=torch.int32, device=state.device)
+    hi = torch.empty_like(lo)
+    ws = [GI.phase1_pair(split, g_r, f3_d, f2_d, dim, out=(lo[b], hi[b]))[2]
+          for b, (split, f2_d, f3_d, g_r) in enumerate(inputs)]
+    msgs1, rs1, state = generic_prover.chain_rounds_generic_batched(
+        lo, hi, state, products, 2, dim, round_fns, transcript_fn)
+    lo2, hi2 = torch.empty_like(lo), torch.empty_like(hi)
+    for b, (split, _f2, f3_d, _gr) in enumerate(inputs):
+        GI.phase2_pair(lo[b, :, :, :1], hi[b, :, :, :1], rs1[dim - 1, b], split, ws[b],
+                       rs1[:, b], f3_d, dim, out=(lo2[b], hi2[b]))
+    msgs2, rs2, state = generic_prover.chain_rounds_generic_batched(
+        lo2, hi2, state, products, 2, dim, round_fns, transcript_fn)
+    return torch.cat([msgs1, msgs2]), torch.cat([rs1, rs2]), state
+
+
+def held_flushed_ms(fn, device, reps: int = KERNEL_REPS) -> float:
+    """`microbench.flushed_ms` of `fn` with a hold long enough for the
+    enqueue of a call that checks 8 instances on the host (about a
+    millisecond; `time_ms`'s hold assumes a single launch's): the hold is
+    doubled until it outlasts the enqueue, so the events time the device
+    and not the host's gaps."""
+    from sumcheck_tpu_torch.microbench import flushed_ms
+
+    if device.type != "cuda":
+        return time_ms(fn, reps, device)
+    fn()
+    hold = 0.005 + 0.002 * reps
+    for _ in range(4):
+        ms, held = flushed_ms(fn, reps, hold)
+        if held:
+            return ms
+        hold *= 2
+    raise RuntimeError("the stream hold never outlasted the enqueue")
+
+
+def gkr_batch_init_phase(device, seed: int, batch: int = BATCH,
+                         dim: int = GKR_BATCH_DIM) -> dict:
+    """Phase 9b: the batched weight reduce (`gkr_init_cuda.
+    weight_reduce_batched`, grid y = instance) of the 8 x dim 14 GKR batch,
+    each phase in one launch, against 8 single launches (`weight_reduce`)
+    and the plain version, array-equal: phase 1 (pairs and carries) and
+    phase 2 (over the carries, each instance's column of (dim, 8, 16)
+    challenge rows, f3 times the final fold of its phase-1 pair's lane 0);
+    then a batch of the skewed instance (one segment of SKEW entries cut
+    across blocks, its own scratch rows) beside the others, whose tile plans
+    differ. Device ms after an L2 flush for the batched launch and for the 8
+    single launches, the plain version's ms and the bound (8 x
+    `reduce_work`). Returns the kernels line's stats."""
+    from sumcheck_tpu_torch import Fr
+    from sumcheck_tpu_torch import gkr_round_sumcheck as G
+    from sumcheck_tpu_torch.fields.fr import P
+    from sumcheck_tpu_torch.ops import gkr_init as GI
+    from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
+
+    insts = gkr_batch_instances(seed, dim, batch)
+    rnd = random.Random(seed + 14)
+    stats = {"weight_reduce_batched": [0, []]}
+    for label, chosen in ((f"{batch} x dim {dim}", insts),
+                          ("with a skewed instance", [skewed_instance(insts[0], seed)]
+                           + insts[1:])):
+        inputs = [G._upload(f1, f2, f3, g, dim, device) for f1, f2, f3, g in chosen]
+        splits, f2s, f3s, g_rs = zip(*inputs)
+        u = torch.from_numpy(np.stack([GI._point_rows([Fr(rnd.randrange(P)) for _ in range(dim)])
+                                       for _ in range(batch)], axis=1)).to(device)
+        nnz = [s.vals.shape[0] for s in splits]
+        print(f"9b {label}: tile plans of {[len(s.plan_x.items) for s in splits]} (x) items, "
+              f"long segments {[s.plan_x.long for s in splits]}, entries {nnz}")
+        shape = (batch, 2, 8, 1 << (dim - 1))
+        pairs = {k: (torch.empty(shape, dtype=torch.int32, device=device),
+                     torch.empty(shape, dtype=torch.int32, device=device))
+                 for k in ("batched", "singles", "plain", "batched2", "singles2", "plain2")}
+
+        def phase1(kind):
+            lo, hi = pairs[kind]
+            if kind == "batched":
+                return GI.phase1_pairs(splits, g_rs, f3s, f2s, dim, lo, hi)
+            if kind == "singles":
+                return [GI.phase1_pair(s, g, f3, f2, dim, out=(lo[b], hi[b]))[2]
+                        for b, (s, f2, f3, g) in enumerate(inputs)]
+            return GK.weight_reduce_batched_ref([
+                GK.Instance(s.gbits, s.vals, g, s.last_x, s.plan_x, (lo[b], hi[b]), f3=f3,
+                            y=s.y_rev, to_y=s.to_y, slot=(f2, None))
+                for b, (s, f2, f3, g) in enumerate(inputs)], dim)
+
+        carries = {k: phase1(k) for k in ("batched", "singles", "plain")}
+        lo1, hi1 = pairs["batched"]
+
+        def phase2(kind):
+            lo, hi = pairs[kind + "2"]
+            if kind == "batched":
+                return GI.phase2_pairs(lo1[:, :, :, :1], hi1[:, :, :, :1], u[dim - 1], splits,
+                                       carries["batched"], u, f3s, dim, lo, hi)
+            if kind == "singles":
+                return [GI.phase2_pair(lo1[b, :, :, :1], hi1[b, :, :, :1], u[dim - 1, b], s,
+                                       carries["batched"][b], u[:, b], f3, dim,
+                                       out=(lo[b], hi[b])) for b, (s, f3) in
+                        enumerate(zip(splits, f3s))]
+            return GK.weight_reduce_batched_ref([
+                GK.Instance(s.x_y, carries["batched"][b], u[:, b], s.last_y, s.plan_y,
+                            (lo[b], hi[b]), slot=(f3, (lo1[b, :, :, :1], hi1[b, :, :, :1],
+                                                       u[dim - 1, b], 1)))
+                for b, (s, f3) in enumerate(zip(splits, f3s))], dim)
+
+        for kind in ("batched", "singles", "plain"):
+            phase2(kind)
+        sync(device)
+        err = 0
+        for other in ("singles", "plain"):
+            for a, b in zip(pairs["batched"] + pairs["batched2"],
+                            pairs[other] + pairs[other + "2"]):
+                err = max(err, max_diff(a, b))
+            for a, b in zip(carries["batched"], carries[other]):
+                err = max(err, max_diff(a, b))
+        check(err == 0, f"9b {label}: the batched weight reduce differs from the single "
+                        f"launches or the plain version by {err}")
+        scratch, arrived = GK._scratch(device, 1)
+        check(not scratch.any() and not arrived.any(), f"9b {label}: the scratch is not zero")
+        stats["weight_reduce_batched"][0] = max(stats["weight_reduce_batched"][0], err)
+        n = 1 << dim
+        for phase, fn in ((1, phase1), (2, phase2)):
+            work = {k: sum(reduce_work(z, n, dim, phase, slot=True)[k] for z in nnz)
+                    for k in ("bytes", "imads", "int8_ops")}
+            ms = held_flushed_ms(lambda fn=fn: fn("batched"), device)
+            singles_ms = held_flushed_ms(lambda fn=fn: fn("singles"), device)
+            plain_ms = time_ms(lambda fn=fn: fn("plain"), PLAIN_REPS, device)
+            entry = {"shape": f"{label}: phase {phase} init", "ms": ms, "singles_ms": singles_ms,
+                     "plain_ms": plain_ms, "work": work}
+            stats["weight_reduce_batched"][1].append(entry)
+            line = (f"kernel-vs-plain weight_reduce_batched ({label}, phase {phase}): equal to "
+                    f"{batch} single launches and the plain version; batched {ms:.4f} ms, "
+                    f"{batch} single launches {singles_ms:.4f} ms (device time, each after an "
+                    f"L2 flush), plain {plain_ms:.4f} ms")
+            if RATES:
+                bound_ms, bound_by, _ = bound_of(work)
+                line += f"; bound {bound_ms:.4f} ms by {bound_by}, {bound_ms / ms:.1%} of it"
+            print(line)
+    return stats
 
 
 # --- the round-by-round prover: the interactive tier, the GKR host-transcript
@@ -3094,11 +3651,12 @@ def field_ml_proves(device, seed: int, reps: int, nv: int = NV) -> dict:
     fs_rng = Blake2b512Rng.setup()
     proof, state = MLSumcheck.prove_as_subprotocol(fs_rng, poly, device=device)
     sub = MLSumcheck.verify(poly.info(), MLSumcheck.extract_sum(proof), proof)
-    check(state.randomness == sub.point and poly.evaluate(sub.point) == sub.expected_evaluation,
+    check(state.randomness == sub.point
+          and evaluate_on_card(poly, sub.point, device) == sub.expected_evaluation,
           f"{FIELD} ML: subclaim")
     out["ml generic"]["transcript"] = repr(fs_rng.state_tuple())
     print(f"{FIELD} ML: proof bytes equal on {', '.join(proofs)} ({host_s:.4f} s); verify "
-          f"accepts, subclaim equals poly.evaluate(point) and the prover's randomness")
+          f"accepts, subclaim equals the polynomial at the point and the prover's randomness")
     return out
 
 
@@ -3426,6 +3984,13 @@ def main() -> int:
             c = sass_classes(ops)
             print(f"  SASS {short_name(fn)}: {c['total']} instructions ({c['total'] * 16} B); "
                   + ", ".join(f"{k} {v}" for k, v in c.items() if k != "total" and v))
+    for label, key in MAIN_PATH_PTXAS.items():
+        res = next(v for k, v in ptxas.items() if key in k)
+        got = (res.get("registers"), res.get("stack"), res.get("spill_stores"), res.get("smem"))
+        print(f"ptxas main path {label}: {got[0]} registers, {got[1]} B stack, {got[2]} B "
+              f"spills, {got[3]} B static smem; before the wide route "
+              f"(tools/ptxas_compare.py) {PREVIOUS_PTXAS[label]}")
+        check(got == PREVIOUS_PTXAS[label], f"ptxas of {label} changed")
     tk = next(v for k, v in ptxas.items() if "transcript_kernel" in k)
     print(f"transcript_kernel: {tk.get('stack')} B stack frame, spills "
           f"{tk.get('spill_stores')}/{tk.get('spill_loads')} B (208 B before the redesign)")
@@ -3449,6 +4014,9 @@ def main() -> int:
     stats.update(batch_transcript_phase(device, args.seed))
     redesign = redesign_phase(device, args.seed, ptxas)
     mark("pair init, batched kernels and redesigns")
+    stats.update(f4_kernel_phase(device, args.seed))
+    stats.update(f4_batch_kernel_phase(device, args.seed))
+    mark("F4 wide-route kernels")
     golden_phase(device)
     gkr_golden_phase(device)
     mark("golden fixtures")
@@ -3466,6 +4034,7 @@ def main() -> int:
     mark("ML headlines")
     inst = MB.gkr_instance(GKR_DIM, args.seed)
     stats.update(gkr_init_phase(device, inst, args.seed))
+    stats.update(gkr_batch_init_phase(device, args.seed))
     mark("GKR init kernels")
     gkr = {f"gkr {path}": gkr_headline_phase(device, inst, args.reps, path) for path in PATHS}
     check(len({h["proof"] for h in gkr.values()}) == 1, "the GKR paths prove different bytes")
@@ -3485,6 +4054,9 @@ def main() -> int:
           + ", ".join(f"{k} {h['prove_s']:.4f} / {h['per_proof_s']:.5f} s"
                       for k, h in batches.items()))
     heads.update(batches)
+    heads.update(f4_prove_phase(device, args.seed))
+    heads.update(f4_batch_prove_phase(device, args.seed))
+    mark("F4 proves")
     heads["interactive ml"] = interactive_phase(device, args.seed, args.reps,
                                                 heads["ml generic"])
     heads["gkr host-transcript"] = gkr_host_phase(device, args.seed, inst, args.reps)
@@ -3583,6 +4155,50 @@ def main() -> int:
               f"{FIELD} {bn['ms']:.4f} ms, bound {bn['bound_ms']:.4f} ms, "
               f"{bn['bound_ms'] / bn['ms']:.1%} of it; "
               + (f"previous version (PERF.md): {prev} ms" if prev else "new in this version"))
+    wide_sources = {"round_fold_mxu[wide]": "round_mxu.cu", "transcript_step[wide]": "transcript.cu",
+                    "transcript_step_batched[wide]": "transcript.cu",
+                    "pair_init[wide]": "pair_init.cu", "weight_reduce_batched": "gkr_init.cu"}
+    wide_replaces = {
+        "round_nofold[wide]": "sumcheck_tpu/ops/round_pallas.py:315",
+        "round_fold[wide]": "sumcheck_tpu/ops/round_pallas.py:306",
+        "round_step_nofold[wide]": "sumcheck_tpu/ops/round_pallas.py:163",
+        "round_step_fold[wide]": "sumcheck_tpu/ops/round_pallas.py:131",
+        "round_fold_mxu[wide]": "sumcheck_tpu/ops/round_pallas.py:289",
+        "transcript_step[wide]": "sumcheck_tpu/protocol/device_prover.py:118",
+        "pair_init[wide]": "sumcheck_tpu/protocol/device_prover.py:181",
+        "round_nofold_batched[wide]": "sumcheck_tpu/batch.py:61",
+        "round_fold_batched[wide]": "sumcheck_tpu/batch.py:75",
+        "round_step_fold_batched[wide]": "sumcheck_tpu/batch.py:261",
+        "transcript_step_batched[wide]": "sumcheck_tpu/batch.py:304",
+        "weight_reduce_batched": "sumcheck_tpu/batch.py:565-580"}
+    for row, wrapper, path in F4_ROWS + (("weight_reduce_batched", "weight_reduce_batched",
+                                          "batch gkr generic"),):
+        err, timings = stats[row]
+        main_shape = timings[0]
+        bound_ms, bound_by, detail = main_shape_bound(row, main_shape)
+        kernels.append({
+            "name": row,
+            "route": "cuda",
+            "source": f"sumcheck_tpu_torch/csrc/{wide_sources.get(row, 'round.cu')}",
+            "replaces": wide_replaces[row],
+            "launches": heads[path]["launches"][wrapper],
+            "launches_by_path": {p: h["launches"][wrapper] for p, h in heads.items()
+                                 if p.startswith("f4") or p == path},
+            "max_abs_err": err,
+            "ms": main_shape["ms"],
+            "plain_ms": main_shape["plain_ms"],
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "bound_detail": detail,
+            "library_ms": None,
+            "shape": main_shape["shape"],
+            "timings": [{k: v for k, v in t.items() if k not in ("work", "bound")}
+                        for t in timings],
+        })
+        print(f"kernel {row}: {main_shape['ms']:.4f} ms at {main_shape['shape']}, bound "
+              f"{bound_ms:.4f} ms ({detail}), {bound_ms / main_shape['ms']:.1%} of it; "
+              f"{heads[path]['launches'][wrapper]} launches in {path}")
+    print(f"transcript step ceiling: degree {stats['transcript_ceiling']} on this card")
     print("Montgomery multiplies per second: "
           + ", ".join(f"{k} {v:.4e}" for k, v in mul_rates.items()))
     print(f"card: {card}; prove medians "

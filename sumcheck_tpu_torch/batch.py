@@ -29,12 +29,13 @@ table contents vary freely. `BatchedMLSumcheck.prove_as_subprotocol` picks:
   them against the first instance's plan), and unequal pending bytes need
   no assert.
 
-`BatchedGKRRoundSumcheck.prove` runs each instance's phase inits (three
-kernel launches a phase, `ops/gkr_init.py`) into its slice of one batched
-pair and both phases'
-rounds on the batched generic chain, with one sync for all B proofs; unequal
-nnz, the per-size chain or another transcript fall back to per-instance
-proves, as in the JAX package.
+`BatchedGKRRoundSumcheck.prove` builds every instance's phase init into
+its slice of one batched pair in one launch a phase (the JAX package's
+vmapped `_bgkr_phase1` / `_bgkr_phase2`, `batch.py:565-580`;
+`ops/gkr_init.phase1_pairs` / `phase2_pairs` over the weight reduce's
+instance axis) and runs both phases' rounds on the batched generic chain,
+with one sync for all B proofs; unequal nnz, the per-size chain or another
+transcript fall back to per-instance proves, as in the JAX package.
 
 The sharded batch (`BatchedMLSumcheck.prove(..., group=)`, the JAX
 package's `mesh=`, `batch.py:87-133, 157-257, 431-471`) splits the
@@ -293,11 +294,11 @@ class BatchedMLSumcheck:
 
 
 def _enqueue_gkr(inputs: list, state, dim: int, round_fns=None, transcript_fn=None):
-    """Both phases of B GKR instances enqueued with no host sync: each
-    instance's phase-1 init into its slice of one (B, 2, 8, 2^dim/2) pair,
-    phase 1's rounds on the batched generic chain, each instance's phase-2
-    init from its lane-0 final pair and its own column of the challenges,
-    and phase 2's rounds. `inputs` are the instances' `_upload`s. Returns
+    """Both phases of B GKR instances enqueued with no host sync: one
+    launch builds every instance's phase-1 init into its slice of one (B,
+    2, 8, 2^dim/2) pair, phase 1's rounds run on the batched generic chain,
+    one launch builds every instance's phase-2 init from its lane-0 final
+    pair and its own column of the challenges, and phase 2's rounds run. `inputs` are the instances' `_upload`s. Returns
     both phases' (msgs (2 dim, B, 16, 3), rs (2 dim, B, 16)) and the
     transcripts. `round_fns` and `transcript_fn` are test hooks."""
     from .ops import gkr_init as GI
@@ -305,19 +306,16 @@ def _enqueue_gkr(inputs: list, state, dim: int, round_fns=None, transcript_fn=No
     products = ((0, 1),)
     shape = (len(inputs), 2, NUM_LIMBS, 1 << (dim - 1))
     device = state.device
+    splits, f2s, f3s, g_rs = zip(*inputs)
     lo = torch.empty(shape, dtype=torch.int32, device=device)
     hi = torch.empty_like(lo)
-    ws = []
-    for b, (split, f2_d, f3_d, g_r) in enumerate(inputs):
-        _lo, _hi, w = GI.phase1_pair(split, g_r, f3_d, f2_d, dim, out=(lo[b], hi[b]))
-        ws.append(w)
+    ws = GI.phase1_pairs(splits, g_rs, f3s, f2s, dim, lo, hi)
     msgs1, rs1, state = generic_prover.chain_rounds_generic_batched(
         lo, hi, state, products, 2, dim, round_fns, transcript_fn)
     lo2 = torch.empty(shape, dtype=torch.int32, device=device)
     hi2 = torch.empty_like(lo2)
-    for b, (split, _f2, f3_d, _gr) in enumerate(inputs):
-        GI.phase2_pair(lo[b, :, :, :1], hi[b, :, :, :1], rs1[dim - 1, b], split, ws[b],
-                       rs1[:, b], f3_d, dim, out=(lo2[b], hi2[b]))
+    GI.phase2_pairs(lo[:, :, :, :1], hi[:, :, :, :1], rs1[dim - 1], splits, ws, rs1, f3s, dim,
+                    lo2, hi2)
     msgs2, rs2, state = generic_prover.chain_rounds_generic_batched(
         lo2, hi2, state, products, 2, dim, round_fns, transcript_fn)
     return torch.cat([msgs1, msgs2]), torch.cat([rs1, rs2]), state
@@ -325,8 +323,8 @@ def _enqueue_gkr(inputs: list, state, dim: int, round_fns=None, transcript_fn=No
 
 class BatchedGKRRoundSumcheck:
     """Prove B independent GKR round-sumcheck instances at once (the same
-    pattern as `BatchedMLSumcheck`): the phase inits per instance into one
-    batched pair, all 2 dim rounds of all B instances on the batched
+    pattern as `BatchedMLSumcheck`): each phase's inits of all B instances
+    in one launch into one batched pair, all 2 dim rounds of all B instances on the batched
     generic chain, one host sync. Instances share (dim, nnz); proofs are
     byte-identical to per-instance `GKRRoundSumcheck.prove`."""
 

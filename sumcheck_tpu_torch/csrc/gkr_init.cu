@@ -29,6 +29,11 @@
 //                        and the pair's slot 1 from the same blocks: a copy
 //                        of f2 (phase 1) or f3 times the final fold l + r (h
 //                        - l) of a one-lane pair (f2(u), phase 2);
+//   weight_reduce_batched_kernel  the same for B instances of one shape in
+//                        one launch, grid y = instance, each block reading
+//                        its instance's operands from a table in device
+//                        memory (the batched GKR prover: one launch a
+//                        phase for the whole batch);
 //   finish_sums_kernel   the finish of all-reduced raw sums;
 //   pair_slots_kernel    a pair's slots for the pieces that stay separate
 //                        (the per-size chain, the sharded ranks): a copy, a
@@ -72,6 +77,8 @@
 // blocks); it beat a cooperative build, the half tables in a launch of
 // their own, the slot's items in the work list, a split of each half as a
 // tensor product of two smaller tables and tiles of 1,024.
+
+#include <vector>
 
 #include "field.cuh"
 
@@ -329,9 +336,7 @@ __device__ __forceinline__ void slot_item(const Slot& sl, int s, const uint32_t*
 // in the work list instead, after the plan's items, before them and
 // spread between them).
 template <bool kGather>
-__global__ void __launch_bounds__(kTile, 1024 / kTile)  // 64 registers a thread
-    weight_reduce_kernel(const __grid_constant__ WeightReduce a,
-                         const __grid_constant__ Consts c) {
+__device__ __forceinline__ void weight_reduce_body(const WeightReduce& a, const Consts& c) {
   extern __shared__ uint4 smem[];
   __shared__ uint64_t s_part[kWarps][kLimbs];
   __shared__ uint32_t s_scale[kLimbs];
@@ -430,6 +435,28 @@ __global__ void __launch_bounds__(kTile, 1024 / kTile)  // 64 registers a thread
     }
     __syncthreads();  // s_part is read before the next chunk writes it
   }
+}
+
+template <bool kGather>
+__global__ void __launch_bounds__(kTile, 1024 / kTile)  // 64 registers a thread
+    weight_reduce_kernel(const __grid_constant__ WeightReduce a,
+                         const __grid_constant__ Consts c) {
+  weight_reduce_body<kGather>(a, c);
+}
+
+// The instance axis (the batched GKR prover): B instances of one shape
+// (dim, so k, kl, kh and the shared memory) in one launch, grid y =
+// instance. Block (x, b) reads instance b's operands from entry b of
+// `insts` in device memory (its plan, entries, challenge rows, f3, carry,
+// scratch rows, destination and slot; sc_gkr_weight_reduce_batched stages
+// the table with one asynchronous copy ahead of the launch) and runs the
+// single launch's body over them with gridDim.x blocks: each builds
+// instance b's half tables and walks instance b's items and slot items.
+template <bool kGather>
+__global__ void __launch_bounds__(kTile, 1024 / kTile)
+    weight_reduce_batched_kernel(const WeightReduce* __restrict__ insts,
+                                 const __grid_constant__ Consts c) {
+  weight_reduce_body<kGather>(insts[blockIdx.y], c);
 }
 
 // The finish of all-reduced raw sums: segment s's (8, nseg) limb sums ->
@@ -539,13 +566,13 @@ unsigned grid_of(long long n) { return (unsigned)((n + kThreads - 1) / kThreads)
 // make no runtime call before the launch.
 constexpr int kMaxDevices = 64;
 constexpr int kMaxK = 48;
-int g_blocks[kMaxDevices][2][kMaxK + 1];
+int g_blocks[kMaxDevices][2][2][kMaxK + 1];  // [device][batched][gather][k]
 
 // Set the kernel's shared-memory limit (to what the largest half tables
 // need) and work out the resident blocks.
-cudaError_t resident_blocks(int device, bool gather, int k, const void* fn, size_t smem,
-                            int* blocks) {
-  int& cached = g_blocks[device][gather][k];
+cudaError_t resident_blocks(int device, bool batched, bool gather, int k, const void* fn,
+                            size_t smem, int* blocks) {
+  int& cached = g_blocks[device][batched][gather][k];
   if (cached > 0) {
     *blocks = cached;
     return cudaSuccess;
@@ -563,6 +590,70 @@ cudaError_t resident_blocks(int device, bool gather, int k, const void* fn, size
     return e;
   cached = sms * (per_sm > 0 ? per_sm : 1);
   *blocks = cached;
+  return cudaSuccess;
+}
+
+// The scalars every instance of a launch shares.
+struct Shape {
+  long long r_stride;
+  int kl, kh;
+  long long nseg, n3, dst_ld, dst_split, half, fstride;
+};
+
+// An instance's pointers, in the order the entries take them.
+constexpr int kFields = 20;
+
+size_t reduce_smem(int kl, int kh) {
+  return kStageBytes + (size_t)((1 << kl) + (1 << kh)) * kLimbs * sizeof(uint32_t);
+}
+
+// One instance's WeightReduce from its pointers f (kFields, the order of
+// sc_gkr_weight_reduce's arguments) and the shared scalars, or
+// cudaErrorInvalidValue where they do not make a launch.
+cudaError_t fill_reduce(WeightReduce* a, const void* const* f, int items, const Shape& sh,
+                        int device) {
+  const void *plan = f[0], *vals = f[1], *idx = f[2], *r = f[3], *last = f[4], *y = f[5],
+             *f3 = f[6], *to_y = f[7], *flo = f[17], *fhi = f[18], *fr = f[19];
+  void *carry = const_cast<void*>(f[8]), *scratch = const_cast<void*>(f[9]),
+       *arrived = const_cast<void*>(f[10]), *sums_out = const_cast<void*>(f[11]),
+       *dst_lo = const_cast<void*>(f[12]), *dst_hi = const_cast<void*>(f[13]),
+       *slot_lo = const_cast<void*>(f[15]), *slot_hi = const_cast<void*>(f[16]);
+  const void* slot_src = f[14];
+  const int kl = sh.kl, kh = sh.kh;
+  const bool gather = y != nullptr;
+  if (items < 1 || sh.nseg < 1 || kl < 0 || kh < 0 || kl > 24 || kh > 24 || kh > kl ||
+      device < 0 || device >= kMaxDevices || (gather && (!f3 || !to_y || !carry)) ||
+      (!sums_out && !dst_lo) || !plan)
+    return cudaErrorInvalidValue;
+  const int lanes = (1 << kl) + (1 << kh);
+  if (lanes > kMaxSharedEq || kl + kh > kMaxRows || !r) return cudaErrorInvalidValue;
+  const int slot_items = slot_src ? (int)((sh.half + kTile - 1) / kTile) : 0;
+  if (slot_src && (sh.half < 1 || !slot_lo || !slot_hi || (flo && (!fhi || !fr))))
+    return cudaErrorInvalidValue;
+  a->plan = static_cast<const int4*>(plan);
+  a->items = items;
+  a->vals = static_cast<const uint32_t*>(vals);
+  a->idx = static_cast<const int32_t*>(idx);
+  a->r = static_cast<const int32_t*>(r);
+  a->r_stride = sh.r_stride;
+  a->kl = kl;
+  a->kh = kh;
+  a->last = static_cast<const int32_t*>(last);
+  a->nseg = sh.nseg;
+  a->y = static_cast<const int32_t*>(y);
+  a->f3 = static_cast<const uint32_t*>(f3);
+  a->n3 = sh.n3;
+  a->to_y = static_cast<const int32_t*>(to_y);
+  a->carry = static_cast<uint32_t*>(carry);
+  a->scratch = static_cast<unsigned long long*>(scratch);
+  a->arrived = static_cast<unsigned int*>(arrived);
+  a->sums_out = static_cast<unsigned long long*>(sums_out);
+  a->dst = {static_cast<uint32_t*>(dst_lo), static_cast<uint32_t*>(dst_hi), sh.dst_ld,
+            sh.dst_split};
+  a->slot = {static_cast<const uint32_t*>(slot_src), static_cast<uint32_t*>(slot_lo),
+             static_cast<uint32_t*>(slot_hi), sh.half, slot_items,
+             static_cast<const uint32_t*>(flo), static_cast<const uint32_t*>(fhi), sh.fstride,
+             static_cast<const int32_t*>(fr)};
   return cudaSuccess;
 }
 
@@ -600,54 +691,83 @@ int sc_gkr_weight_reduce(const void* plan, int items, const void* vals, const vo
                          void* slot_lo, void* slot_hi, long long half, const void* flo,
                          const void* fhi, long long fstride, const void* fr, int device,
                          const uint32_t* consts, void* stream) {
+  const void* fields[kFields] = {plan, vals, idx, r, last, y, f3, to_y, carry, scratch,
+                                 arrived, sums_out, dst_lo, dst_hi, slot_src, slot_lo, slot_hi,
+                                 flo, fhi, fr};
+  const Shape sh{r_stride, kl, kh, nseg, n3, dst_ld, dst_split, half, fstride};
+  WeightReduce a;
+  cudaError_t e = fill_reduce(&a, fields, items, sh, device);
+  if (e != cudaSuccess) return (int)e;
   const bool gather = y != nullptr;
-  if (items < 1 || nseg < 1 || kl < 0 || kh < 0 || kl > 24 || kh > 24 || kh > kl ||
-      device < 0 || device >= kMaxDevices || (gather && (!f3 || !to_y || !carry)) ||
-      (!sums_out && !dst_lo))
-    return (int)cudaErrorInvalidValue;
-  const int lanes = (1 << kl) + (1 << kh);
-  if (lanes > kMaxSharedEq || kl + kh > kMaxRows || !r) return (int)cudaErrorInvalidValue;
-  const int slot_items = slot_src ? (int)((half + kTile - 1) / kTile) : 0;
-  if (slot_src && (half < 1 || !slot_lo || !slot_hi || (flo && (!fhi || !fr))))
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = kStageBytes + (size_t)lanes * kLimbs * sizeof(uint32_t);
+  const size_t smem = reduce_smem(kl, kh);
   const void* fn = gather ? (const void*)weight_reduce_kernel<true>
                           : (const void*)weight_reduce_kernel<false>;
   // as many blocks as fit at once, each building the tables once
   int most = 0;
-  const cudaError_t e = resident_blocks(device, gather, kl + kh, fn, smem, &most);
-  if (e != cudaSuccess) return (int)e;
+  if ((e = resident_blocks(device, false, gather, kl + kh, fn, smem, &most)) != cudaSuccess)
+    return (int)e;
   const unsigned grid = (unsigned)(items < most ? items : most);
-  WeightReduce a;
-  a.plan = static_cast<const int4*>(plan);
-  a.items = items;
-  a.vals = static_cast<const uint32_t*>(vals);
-  a.idx = static_cast<const int32_t*>(idx);
-  a.r = static_cast<const int32_t*>(r);
-  a.r_stride = r_stride;
-  a.kl = kl;
-  a.kh = kh;
-  a.last = static_cast<const int32_t*>(last);
-  a.nseg = nseg;
-  a.y = static_cast<const int32_t*>(y);
-  a.f3 = static_cast<const uint32_t*>(f3);
-  a.n3 = n3;
-  a.to_y = static_cast<const int32_t*>(to_y);
-  a.carry = static_cast<uint32_t*>(carry);
-  a.scratch = static_cast<unsigned long long*>(scratch);
-  a.arrived = static_cast<unsigned int*>(arrived);
-  a.sums_out = static_cast<unsigned long long*>(sums_out);
-  a.dst = {static_cast<uint32_t*>(dst_lo), static_cast<uint32_t*>(dst_hi), dst_ld, dst_split};
-  a.slot = {static_cast<const uint32_t*>(slot_src), static_cast<uint32_t*>(slot_lo),
-            static_cast<uint32_t*>(slot_hi), half, slot_items,
-            static_cast<const uint32_t*>(flo), static_cast<const uint32_t*>(fhi), fstride,
-            static_cast<const int32_t*>(fr)};
   const Consts c = make_consts(consts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (gather) {
     weight_reduce_kernel<true><<<grid, kTile, smem, s>>>(a, c);
   } else {
     weight_reduce_kernel<false><<<grid, kTile, smem, s>>>(a, c);
+  }
+  return (int)cudaGetLastError();
+}
+
+int sc_gkr_reduce_fields() { return kFields; }
+int sc_gkr_reduce_entry_bytes() { return (int)sizeof(WeightReduce); }
+
+// The weight reduce of `batch` instances in one launch (weight_reduce_batched_kernel,
+// grid y = instance): fields (batch x sc_gkr_reduce_fields() pointers, instance b's
+// in the order of sc_gkr_weight_reduce's: plan, vals, idx, r, last, y, f3, to_y,
+// carry, scratch, arrived, sums_out (null: the batched launch writes strict values),
+// dst_lo, dst_hi, slot_src, slot_lo, slot_hi, flo, fhi, fr) and items (batch); the
+// scalars every instance shares as in sc_gkr_weight_reduce. Every instance gathers
+// (phase 1) or none does. table: batch x sc_gkr_reduce_entry_bytes() bytes of device
+// memory, 16-byte aligned, which the launch fills by one cudaMemcpyAsync on the
+// stream (it copies the host array before it returns and waits for nothing). Each
+// instance takes ceil(resident / batch) blocks.
+int sc_gkr_weight_reduce_batched(int batch, void* table, const unsigned long long* fields,
+                                 const int* items, long long r_stride, int kl, int kh,
+                                 long long nseg, long long n3, long long dst_ld,
+                                 long long dst_split, long long half, long long fstride,
+                                 int device, const uint32_t* consts, void* stream) {
+  if (batch < 1 || batch > 65535 || !table || (reinterpret_cast<uintptr_t>(table) & 15))
+    return (int)cudaErrorInvalidValue;
+  const Shape sh{r_stride, kl, kh, nseg, n3, dst_ld, dst_split, half, fstride};
+  const bool gather = fields[5] != 0;  // instance 0's y: every instance's mode
+  std::vector<WeightReduce> insts(batch);
+  int top = 0;
+  for (int b = 0; b < batch; ++b) {
+    const void* f[kFields];
+    for (int q = 0; q < kFields; ++q) f[q] = reinterpret_cast<const void*>(fields[b * kFields + q]);
+    if (f[11] != nullptr || (f[5] != nullptr) != gather) return (int)cudaErrorInvalidValue;
+    const cudaError_t e = fill_reduce(&insts[b], f, items[b], sh, device);
+    if (e != cudaSuccess) return (int)e;
+    top = items[b] > top ? items[b] : top;
+  }
+  const size_t smem = reduce_smem(kl, kh);
+  const void* fn = gather ? (const void*)weight_reduce_batched_kernel<true>
+                          : (const void*)weight_reduce_batched_kernel<false>;
+  int most = 0;
+  cudaError_t e = resident_blocks(device, true, gather, kl + kh, fn, smem, &most);
+  if (e != cudaSuccess) return (int)e;
+  int per = (most + batch - 1) / batch;
+  per = per < top ? per : top;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((e = cudaMemcpyAsync(table, insts.data(), insts.size() * sizeof(WeightReduce),
+                           cudaMemcpyHostToDevice, s)) != cudaSuccess)
+    return (int)e;
+  const dim3 grid((unsigned)per, (unsigned)batch);
+  const Consts c = make_consts(consts);
+  const WeightReduce* t = static_cast<const WeightReduce*>(table);
+  if (gather) {
+    weight_reduce_batched_kernel<true><<<grid, kTile, smem, s>>>(t, c);
+  } else {
+    weight_reduce_batched_kernel<false><<<grid, kTile, smem, s>>>(t, c);
   }
   return (int)cudaGetLastError();
 }

@@ -41,7 +41,13 @@
 // body's yardstick).
 //
 // Grid: x over the n/2 lanes of a half, 128 x kVec per block; y over the
-// slots.
+// slots. Past kMaxSlots the wide route (pair_init_wide_kernel) reads slot
+// u's source, mode and value from entry u of a table in device memory,
+// which its launch fills by one asynchronous copy ahead of the kernel, so
+// any slot count up to grid y's 65,535 takes one launch; the same bodies
+// move the lanes.
+
+#include <vector>
 
 #include "field.cuh"
 
@@ -141,6 +147,34 @@ __global__ void __launch_bounds__(kThreads)
   init_half<kVec>(hi + at, src + half, half, 2 * half, mode, c, f);
 }
 
+// The wide route, past kMaxSlots: slot u's plan is entry u of a table in
+// device memory, which the launch fills with one asynchronous copy from the
+// host (sc_pair_init_launch_wide) ahead of the kernel on its stream.
+struct WideSlot {
+  const uint32_t* src;
+  uint32_t c[kLimbs];
+  int mode;
+  int pad;
+};
+
+template <int kVec>
+__global__ void __launch_bounds__(kThreads)
+    pair_init_wide_kernel(uint32_t* __restrict__ lo, uint32_t* __restrict__ hi, long long half,
+                          const WideSlot* __restrict__ plan, const __grid_constant__ Field f) {
+  const int u = blockIdx.y;
+  const long long k = ((long long)blockIdx.x * kThreads + threadIdx.x) * kVec;
+  if (k >= half) return;  // kVec divides half
+  const long long at = (long long)u * kLimbs * half + k;
+  const int mode = __ldg(&plan[u].mode);
+  const uint32_t* src = reinterpret_cast<const uint32_t*>(
+      __ldg(reinterpret_cast<const unsigned long long*>(&plan[u].src))) + k;
+  uint32_t c[kLimbs];
+#pragma unroll
+  for (int j = 0; j < kLimbs; ++j) c[j] = __ldg(&plan[u].c[j]);
+  init_half<kVec>(lo + at, src, half, 2 * half, mode, c, f);
+  init_half<kVec>(hi + at, src + half, half, 2 * half, mode, c, f);
+}
+
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
@@ -192,6 +226,50 @@ int sc_pair_init_launch(void* lo, void* hi, long long half, int slots,
     pair_init_kernel<4><<<grid, kThreads, 0, s>>>(l, h, half, plan, f);
   } else {
     pair_init_kernel<1><<<grid, kThreads, 0, s>>>(l, h, half, plan, f);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Bytes of one slot's entry in the wide route's device table.
+int sc_pair_init_wide_slot_bytes() { return (int)sizeof(WideSlot); }
+
+// The wide route: as sc_pair_init_launch for any slot count (grid y, at
+// most 65,535), with the plan staged into `table` (slots x
+// sc_pair_init_wide_slot_bytes() bytes of device memory, 8-byte aligned) by
+// one cudaMemcpyAsync on the stream, which copies the host array before it
+// returns and waits for nothing.
+int sc_pair_init_launch_wide(void* lo, void* hi, long long half, int slots,
+                             const void* const* src, const uint32_t* c, const int* mode,
+                             const uint32_t* field, void* table, void* stream) {
+  if (slots < 1 || slots > 65535 || half < 1 || table == nullptr)
+    return (int)cudaErrorInvalidValue;
+  std::vector<WideSlot> plan(slots);
+  bool wide = half % 4 == 0 && aligned16(lo) && aligned16(hi);
+  for (int u = 0; u < slots; ++u) {
+    if (mode[u] < kCopy || mode[u] > kFill) return (int)cudaErrorInvalidValue;
+    if (mode[u] != kFill && src[u] == nullptr) return (int)cudaErrorInvalidValue;
+    if (mode[u] != kFill) wide = wide && aligned16(src[u]);
+    plan[u].src = static_cast<const uint32_t*>(src[u]);
+    plan[u].mode = mode[u];
+    plan[u].pad = 0;
+    for (int j = 0; j < kLimbs; ++j) plan[u].c[j] = c[u * kLimbs + j];
+  }
+  Field f;
+  for (int j = 0; j < kLimbs; ++j) f.p[j] = field[j];
+  f.ninv = field[kLimbs];
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemcpyAsync(table, plan.data(), plan.size() * sizeof(WideSlot),
+                                  cudaMemcpyHostToDevice, s);
+  if (e != cudaSuccess) return (int)e;
+  const long long per_block = kThreads * (wide ? 4 : 1);
+  const dim3 grid((unsigned)((half + per_block - 1) / per_block), (unsigned)slots);
+  uint32_t* l = static_cast<uint32_t*>(lo);
+  uint32_t* h = static_cast<uint32_t*>(hi);
+  const WideSlot* t = static_cast<const WideSlot*>(table);
+  if (wide) {
+    pair_init_wide_kernel<4><<<grid, kThreads, 0, s>>>(l, h, half, t, f);
+  } else {
+    pair_init_wide_kernel<1><<<grid, kThreads, 0, s>>>(l, h, half, t, f);
   }
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,10 @@
 //     which fold out of place into fresh half-width tables, C = with
 //     per-product coefficients;
 //   - above degree kMaxRegisterDegree, round_kernel<kFold, kOutOfPlace, C>,
-//     the same rounds with the evaluation ladder in shared memory.
+//     the same rounds with the evaluation ladder in shared memory;
+//   - past the plan's maxima (more than 16 slots or products, 8 factors or
+//     degree 8), wide_kernel<kFold, kOutOfPlace, C>, every mode of the
+//     same rounds, single and batched (sc_round_launch_wide).
 // Built by ops/cuda_build.py with nvcc into a shared library with a plain C
 // interface, loaded with ctypes by ops/round_cuda.py, which holds the plain
 // PyTorch versions these kernels are checked against.
@@ -76,9 +79,17 @@
 //
 // Structure: product shape (slots, products, factors, degree) and the
 // product index matrix arrive at run time (struct Plan) with compile-time
-// maxima; the wrapper raises above them. The ladder and the block-sum tail
-// are shared with the MXU fold kernel (round_common.cuh). Coefficients, when
-// given, sit in static shared memory.
+// maxima. The ladder and the block-sum tail are shared with the MXU fold
+// kernel (round_common.cuh). Coefficients, when given, sit in static shared
+// memory. A structure past the maxima takes the wide route, chosen by the
+// wrapper from its shape (ops/round_cuda.route): the index matrix in device
+// memory (WidePlan, uploaded once per structure and device), each slot
+// folded and written out, then for each t every factor's E and O re-read
+// from this lane of the tables and t (O - E) one multiply by t's Montgomery
+// form; each t's block sums go out before the next t (wide_block_sums). So
+// shared memory, registers and parameter space set no maximum: 17 to
+// thousands of slots, any degree. The bodies for today's maxima are as
+// they were (their registers and spills unchanged).
 
 #include "round_common.cuh"
 
@@ -316,6 +327,66 @@ __global__ void __launch_bounds__(kThreads)
   register_block_sums<D>(total, warp_sums, sums);
 }
 
+// The wide route, for a structure past the maxima of Plan
+// (round_common.cuh): fold every slot (optionally) and write it out, then
+// wide_block_sums over the written values. No ladder and no per-degree
+// arrays, so neither shared memory nor registers bound the slots, products,
+// factors or degree. Grid y = instance, as for the other bodies (offsets
+// 0 for a single launch).
+template <bool kFold, bool kOutOfPlace, bool kCoeffs>
+__global__ void __launch_bounds__(kThreads)
+    wide_kernel(uint32_t* __restrict__ lo, uint32_t* __restrict__ hi,
+                uint32_t* __restrict__ lo_out, uint32_t* __restrict__ hi_out,
+                const uint32_t* __restrict__ r_digits,
+                const uint32_t* __restrict__ coeff_digits, long long H, long long H_out,
+                long long extent, long long inst_stride, long long out_inst_stride, Field f,
+                const __grid_constant__ WidePlan pl, long long* __restrict__ sums) {
+  static_assert(kFold || !kOutOfPlace, "only a fold writes tables");
+  {  // instance blockIdx.y of a batched launch
+    const long long b = blockIdx.y;
+    lo += b * inst_stride;
+    hi += b * inst_stride;
+    if constexpr (kOutOfPlace) {
+      lo_out += b * out_inst_stride;
+      hi_out += b * out_inst_stride;
+    }
+    if constexpr (kFold) r_digits += b * kDigits;
+    if constexpr (kCoeffs) coeff_digits += b * pl.products * kDigits;
+    sums += b * (pl.degree + 1) * kDigits;
+  }
+  __shared__ uint32_t warp_sums[kThreads / 32][kDigits];
+  const int tid = threadIdx.x;
+  const long long k = (long long)blockIdx.x * kThreads + tid;
+  const bool active = k < extent;
+  if constexpr (kFold) {
+    if (active) {
+      const long long slot_stride = (long long)kLimbs * H;
+      const long long out_stride = (long long)kLimbs * H_out;
+      uint32_t rr[kLimbs];
+      load_digits(rr, r_digits);
+      for (int u = 0; u < pl.slots; ++u) {
+        uint32_t x[4][kLimbs], e[kLimbs], o[kLimbs];
+        load_stripes(x, lo, hi, u * slot_stride + k, extent, H);
+        fold(e, x[0], x[1], rr, f);
+        fold(o, x[2], x[3], rr, f);
+        if constexpr (kOutOfPlace) {
+          store_lane(lo_out + u * out_stride + k, H_out, e);
+          store_lane(hi_out + u * out_stride + k, H_out, o);
+        } else {
+          store_lane(lo + u * slot_stride + k, H, e);
+          store_lane(hi + u * slot_stride + k, H, o);
+        }
+      }
+    }
+  }
+  if constexpr (kOutOfPlace) {
+    wide_block_sums<kCoeffs>(lo_out, hi_out, H_out, k, active, pl, coeff_digits, f, warp_sums,
+                             sums);
+  } else {
+    wide_block_sums<kCoeffs>(lo, hi, H, k, active, pl, coeff_digits, f, warp_sums, sums);
+  }
+}
+
 template <int D, bool kCoeffs>
 cudaError_t launch_nofold(const void* lo, const void* hi, const void* coeff, long long H,
                           long long extent, const Batch& bt, const Field& f, const Plan& pl,
@@ -385,6 +456,26 @@ FoldKernel pick_fold(int mode, bool coeffs, bool batched, int degree) {
     default:
       return nullptr;
   }
+}
+
+// The operands of a wide_kernel launch.
+struct WideLaunch {
+  void *lo, *hi, *lo_out, *hi_out;
+  const void *r, *coeff;
+  long long H, H_out, extent, inst_stride, out_inst_stride;
+  void* sums;
+  dim3 grid;
+  cudaStream_t stream;
+};
+
+template <bool kFold, bool kOutOfPlace, bool kCoeffs>
+cudaError_t launch_wide(const WideLaunch& w, const Field& f, const WidePlan& pl) {
+  wide_kernel<kFold, kOutOfPlace, kCoeffs><<<w.grid, kThreads, 0, w.stream>>>(
+      static_cast<uint32_t*>(w.lo), static_cast<uint32_t*>(w.hi),
+      static_cast<uint32_t*>(w.lo_out), static_cast<uint32_t*>(w.hi_out),
+      static_cast<const uint32_t*>(w.r), static_cast<const uint32_t*>(w.coeff), w.H, w.H_out,
+      w.extent, w.inst_stride, w.out_inst_stride, f, pl, static_cast<long long*>(w.sums));
+  return cudaGetLastError();
 }
 
 // field.cuh's two multiplies: 0 = CIOS (mont_mul_cios), 1 = even/odd (mont_mul)
@@ -511,6 +602,34 @@ int sc_round_launch_batched(int mode, void* lo, void* hi, void* lo_out, void* hi
                                            extent, bt, f, pl, sums, nblk, s);
     default:
       return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The wide route (wide_kernel): the launch of sc_round_launch_batched for a
+// structure past Plan's maxima, the product index matrix `idx` (products x
+// factors int32) in device memory. one: the Montgomery one, 8 limbs.
+int sc_round_launch_wide(int mode, void* lo, void* hi, void* lo_out, void* hi_out,
+                         const void* r, const void* coeff, long long H, long long H_out,
+                         long long extent, long long batch, long long inst_stride,
+                         long long out_inst_stride, int slots, int products, int factors,
+                         int degree, const int* idx, const uint32_t* field, const uint32_t* one,
+                         void* sums, long long nblk, void* stream) {
+  WidePlan pl;
+  const cudaError_t bad = read_wide_plan(slots, products, factors, degree, idx, one, &pl);
+  if (bad != cudaSuccess) return (int)bad;
+  if (mode == kModeFoldOut && H_out != extent) return (int)cudaErrorInvalidValue;
+  if (batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
+  const Field f = read_field(field);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const WideLaunch w{lo, hi, lo_out, hi_out, r, coeff, H, H_out, extent, inst_stride,
+                     out_inst_stride, sums, dim3((unsigned)nblk, (unsigned)batch), s};
+  switch (mode * 2 + (coeff != nullptr ? 1 : 0)) {
+    case 0: return (int)launch_wide<false, false, false>(w, f, pl);
+    case 1: return (int)launch_wide<false, false, true>(w, f, pl);
+    case 2: return (int)launch_wide<true, false, false>(w, f, pl);
+    case 4: return (int)launch_wide<true, true, false>(w, f, pl);
+    case 5: return (int)launch_wide<true, true, true>(w, f, pl);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

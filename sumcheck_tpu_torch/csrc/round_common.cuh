@@ -2,7 +2,9 @@
 // the run-time product plan with its compile-time maxima, the ladder, the
 // tail the ladder kernels end with, the evaluation at t = 0..d and the
 // round's sums, and the evaluation in registers (register_sums) with its
-// block sums.
+// block sums; and for a structure past those maxima the wide route's plan
+// (WidePlan, its index matrix in device memory) and evaluation
+// (wide_block_sums), which no shared-memory or register array bounds.
 //
 // Ladder: each slot's start E and step O - E live in dynamic shared memory,
 // [slot][cur|step][limb][thread], so run-time slot indices cost no local
@@ -49,6 +51,34 @@ inline cudaError_t read_plan(const int* plan, Plan* pl) {
       pl->factors > kMaxFactors || pl->degree < 1 || pl->degree > kMaxDegree)
     return cudaErrorInvalidValue;
   for (int q = 0; q < kMaxProducts * kMaxFactors; ++q) pl->idx[q] = plan[4 + q];
+  return cudaSuccess;
+}
+
+// The wide route's plan, for a structure past any of the maxima above: the
+// same shape, with the product index matrix in device memory (built once
+// for each structure and device by the wrapper, ops/round_cuda.py), so it
+// has no size limit. `one` is the Montgomery one, R mod p: the evaluation
+// point t enters as t * one (wide_block_sums).
+struct WidePlan {
+  int slots;
+  int products;
+  int factors;
+  int degree;
+  const int* idx;  // idx[p * factors + l], device memory
+  uint32_t one[kLimbs];
+};
+
+// The wide plan from its host scalars, or cudaErrorInvalidValue.
+inline cudaError_t read_wide_plan(int slots, int products, int factors, int degree,
+                                  const int* idx, const uint32_t* one, WidePlan* pl) {
+  if (slots < 1 || products < 1 || factors < 1 || degree < 1 || idx == nullptr)
+    return cudaErrorInvalidValue;
+  pl->slots = slots;
+  pl->products = products;
+  pl->factors = factors;
+  pl->degree = degree;
+  pl->idx = idx;
+  for (int j = 0; j < kLimbs; ++j) pl->one[j] = one[j];
   return cudaSuccess;
 }
 
@@ -266,6 +296,74 @@ __device__ __forceinline__ void register_block_sums(
 #pragma unroll
   for (int t = 0; t <= D; ++t) warp_digit_sums(total[t], warp_sums[threadIdx.x >> 5][t]);
   add_block_sums(warp_sums, D, sums);
+}
+
+// The wide route's evaluation (round.cu's wide_kernel, round_mxu.cu's wide
+// fold): for t = 0..degree, total(t) = sum_p [c_p *] prod_l x_{s}(t) with
+// x_s(t) = E_s + t (O_s - E_s), E_s and O_s re-read at every t from this
+// lane of slot s of the tables (lo, hi; the round's folded values, which
+// this thread wrote), t (O - E) a multiply by t * one. Neither the slots,
+// the products nor the degree are bounded by shared memory or registers:
+// each t's per-digit block sums go into the round's row before the next t
+// (two barriers a point), through one row a warp. Every thread of the block
+// calls it.
+template <bool kCoeffs>
+__device__ __forceinline__ void wide_block_sums(const uint32_t* lo, const uint32_t* hi,
+                                                long long H, long long k, bool active,
+                                                const WidePlan& pl,
+                                                const uint32_t* __restrict__ coeff_digits,
+                                                const Field& f,
+                                                uint32_t (*warp_sums)[kDigits],
+                                                long long* __restrict__ sums) {
+  const int tid = threadIdx.x;
+  const long long slot_stride = (long long)kLimbs * H;
+  uint32_t tm[kLimbs];  // t * one: t's Montgomery form
+#pragma unroll
+  for (int j = 0; j < kLimbs; ++j) tm[j] = 0;
+  for (int t = 0; t <= pl.degree; ++t) {
+    uint32_t total[kLimbs];
+#pragma unroll
+    for (int j = 0; j < kLimbs; ++j) total[j] = 0;
+    if (active) {
+      for (int p = 0; p < pl.products; ++p) {
+        uint32_t term[kLimbs];
+        for (int l = 0; l < pl.factors; ++l) {
+          const long long at = __ldg(pl.idx + p * pl.factors + l) * slot_stride + k;
+          uint32_t x[kLimbs];
+          load_lane(x, lo + at, H);
+          if (t > 0) {
+            uint32_t d[kLimbs];
+            load_lane(d, hi + at, H);
+            sub_mod(d, d, x, f);
+            mont_mul(d, d, tm, f);
+            add_mod(x, x, d, f);
+          }
+          if (l == 0) {
+#pragma unroll
+            for (int j = 0; j < kLimbs; ++j) term[j] = x[j];
+            if constexpr (kCoeffs) {
+              uint32_t c[kLimbs];
+              load_digits(c, coeff_digits + p * kDigits);
+              mont_mul(term, c, term, f);
+            }
+          } else {
+            mont_mul(term, term, x, f);
+          }
+        }
+        add_mod(total, total, term, f);
+      }
+    }
+    warp_digit_sums(total, warp_sums[tid >> 5]);
+    __syncthreads();
+    if (tid < kDigits) {
+      unsigned long long s = 0;
+#pragma unroll
+      for (int w = 0; w < kThreads / 32; ++w) s += warp_sums[w][tid];
+      atomicAdd(reinterpret_cast<unsigned long long*>(sums) + t * kDigits + tid, s);
+    }
+    __syncthreads();  // the rows are read before the next point writes them
+    add_mod(tm, tm, pl.one, f);
+  }
 }
 
 }  // namespace sc

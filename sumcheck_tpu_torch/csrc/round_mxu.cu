@@ -7,6 +7,11 @@
 // with ctypes by ops/round_cuda.py (`round_fold_mxu`), whose plain version
 // `round_fold_mxu_ref` runs ops/mxu_mul.py.
 //
+// Past the plan's maxima the same fold runs as fold_mxu_kernel<true>
+// (sc_fold_mxu_launch_wide): the folded slots written out only, then the
+// wide route's evaluation (wide_block_sums, round_common.cuh) in place of
+// the ladder.
+//
 // What it computes is `round_kernel<true, false, false>` of round.cu: fold
 // the first `extent` lanes of every slot in place by the challenge r,
 //   lo[k] <- x + r (y - x) for (x, y) = (lo[k], hi[k]),
@@ -63,6 +68,8 @@
 // lanes, two column sums, two quad normalizations and two exchanges, fewer
 // issue slots than one even/odd multiply and none on its IMAD pipe. While a
 // fold multiplies, the next fold's operands load.
+
+#include <type_traits>
 
 #include "round_common.cuh"
 
@@ -230,15 +237,20 @@ __device__ __forceinline__ void mont_mul_mxu(uint32_t r[kLimbs], const uint32_t 
   cond_sub_p(r, f);
 }
 
+// kWide: the wide route (WidePlan, round_common.cuh) for a structure past
+// Plan's maxima: the same fold, written out only, then wide_block_sums in
+// place of the ladder.
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads, 4)
     fold_mxu_kernel(uint32_t* __restrict__ lo, uint32_t* __restrict__ hi,
                     const uint32_t* __restrict__ r_digits, long long H,
-                    long long extent, Field f, Pow2 pw, Plan pl,
+                    long long extent, Field f, Pow2 pw,
+                    std::conditional_t<kWide, WidePlan, Plan> pl,
                     long long* __restrict__ sums) {
   extern __shared__ uint32_t ladder[];  // [slot][cur|step][limb][thread]
   __shared__ uint32_t xch[kWarps][32][kXStride];
   __shared__ uint8_t mat[kBytes][kBytes];  // mat[j][n] = byte n of M_j
-  __shared__ uint32_t warp_sums[kWarps][kMaxDegree + 1][kDigits];
+  __shared__ uint32_t warp_sums[kWarps][kWide ? 1 : kMaxDegree + 1][kDigits];
 
   const int tid = threadIdx.x;
   const long long k = (long long)blockIdx.x * kThreads + tid;
@@ -292,10 +304,15 @@ __global__ void __launch_bounds__(kThreads, 4)
     if (active) {
       store_lane(lo + u * slot_stride + k, H, folded[0]);
       store_lane(hi + u * slot_stride + k, H, folded[1]);
-      ladder_put(ladder, u, folded[0], folded[1], f, tid);
+      if constexpr (!kWide) ladder_put(ladder, u, folded[0], folded[1], f, tid);
     }
   }
-  ladder_block_sums<false>(ladder, warp_sums, nullptr, active, f, pl, sums);
+  if constexpr (kWide) {
+    wide_block_sums<false>(lo, hi, H, k, active, pl, nullptr, f,
+                           reinterpret_cast<uint32_t (*)[kDigits]>(&warp_sums[0][0][0]), sums);
+  } else {
+    ladder_block_sums<false>(ladder, warp_sums, nullptr, active, f, pl, sums);
+  }
 }
 
 // Test hook: one tile, D = A B + C, A (16 x 32) u8 row-major, B given as its
@@ -345,9 +362,27 @@ int sc_fold_mxu_launch(void* lo, void* hi, const void* r, long long H,
   if (bad != cudaSuccess) return (int)bad;
   const size_t smem = ladder_bytes(pl.slots);
   cudaError_t e = cudaFuncSetAttribute(
-      fold_mxu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fold_mxu_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  fold_mxu_kernel<<<(unsigned)nblk, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  fold_mxu_kernel<false><<<(unsigned)nblk, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(lo), static_cast<uint32_t*>(hi),
+      static_cast<const uint32_t*>(r), H, extent, read_field(field), read_pow2(field), pl,
+      static_cast<long long*>(sums));
+  return (int)cudaGetLastError();
+}
+
+// The wide route of the same fold (fold_mxu_kernel<true>) for a structure
+// past Plan's maxima: slots, products, factors, degree and the product
+// index matrix idx (products x factors int32) in device memory; one: the
+// Montgomery one, 8 limbs. No dynamic shared memory.
+int sc_fold_mxu_launch_wide(void* lo, void* hi, const void* r, long long H, long long extent,
+                            int slots, int products, int factors, int degree, const int* idx,
+                            const uint32_t* field, const uint32_t* one, void* sums,
+                            long long nblk, void* stream) {
+  WidePlan pl;
+  const cudaError_t bad = read_wide_plan(slots, products, factors, degree, idx, one, &pl);
+  if (bad != cudaSuccess) return (int)bad;
+  fold_mxu_kernel<true><<<(unsigned)nblk, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint32_t*>(lo), static_cast<uint32_t*>(hi),
       static_cast<const uint32_t*>(r), H, extent, read_field(field), read_pow2(field), pl,
       static_cast<long long*>(sums));

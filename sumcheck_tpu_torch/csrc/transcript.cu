@@ -44,6 +44,13 @@
 //     into one (d+1, 16) row with atomics, so a chained round is two
 //     launches, the round kernel and this step.
 //
+// Degree: up to kMaxDegree (8) the stream is a static 128-word array;
+// above it transcript_kernel<true> takes it in dynamic shared memory,
+// stream_words(d+1) = 4 (d+1) + 64 words, and forms the elements in turns
+// of 32 threads. The card's opt-in shared memory per block is then the
+// step's one ceiling (sc_transcript_max_degree; ops/transcript_cuda.py
+// raises SumcheckError past it, before any launch).
+//
 // Transcript state, (26) 64-bit words in device memory, updated in place:
 //   [0, 8)   h, the chaining value
 //   8        t, bytes compressed so far
@@ -68,7 +75,7 @@ using namespace sc;
 
 constexpr int kBlockBytes = 128;
 constexpr int kStateWords = 26;
-constexpr int kMaxDegree = 8;
+constexpr int kMaxDegree = 8;  // the static stream's; above it the wide one
 constexpr int kWideDigits = kDigits + 4;  // exact sums of < 2^64 elements
 
 struct Params {
@@ -80,6 +87,13 @@ struct Params {
 // pending, the feed (1 + 4 (d+1) <= 37) and 8 per draw, moved to the front
 // when it fills, with 16 zero words of slack past its end
 constexpr int kStreamWords = 128;
+
+// Above kMaxDegree the stream is dynamic shared memory of stream_words(d+1)
+// words: the 16 pending, the feed, one draw and the slack fit before the
+// first move to the front, as in the static stream. The card's opt-in
+// shared memory a block sets the largest degree (sc_transcript_max_degree).
+__host__ __device__ constexpr int stream_words(int d1) { return 4 * d1 + 64; }
+constexpr int kSigBytes = 12 * 16;
 
 constexpr unsigned kHashLanes = 0xFu;  // lanes 0..3 run the hash
 
@@ -192,6 +206,9 @@ __device__ __forceinline__ void element(const long long* __restrict__ sums, int 
 // One block per transcript: block b of a batched launch advances transcript
 // b (state b, sums row b) and writes row j * gridDim.x + b of msgs and rs,
 // so round j's outputs of all instances are one contiguous (B, ...) block.
+// kWide: above kMaxDegree, the stream in dynamic shared memory and the
+// elements in turns of 32.
+template <bool kWide>
 __global__ void __launch_bounds__(32, 1)
     transcript_kernel(unsigned long long* __restrict__ state,
                       const long long* __restrict__ sums, int degree,
@@ -200,10 +217,13 @@ __global__ void __launch_bounds__(32, 1)
   // the byte stream in 64-bit words: the pending block's words, then every
   // word absorbed this round; words at and past `len` are zero, so the
   // block at `pos` is always the zero-padded block Blake2b compresses
-  __shared__ uint64_t stream[kStreamWords];
-  __shared__ unsigned char sig[12 * 16];
+  __shared__ uint64_t static_stream[kWide ? 1 : kStreamWords];
+  extern __shared__ uint64_t wide_stream[];
+  __shared__ unsigned char sig[kSigBytes];
   const int tid = threadIdx.x;
   const int d1 = degree + 1;
+  uint64_t* stream = kWide ? wide_stream : static_stream;
+  const int words = kWide ? stream_words(d1) : kStreamWords;
   state += (long long)blockIdx.x * kStateWords;
   sums += (long long)blockIdx.x * d1 * kDigits;
   j = j * gridDim.x + blockIdx.x;
@@ -218,12 +238,16 @@ __global__ void __launch_bounds__(32, 1)
   uint64_t t = state[8];
   const uint64_t buf = tid < 16 ? state[9 + tid] : 0;
   const int pending = (int)(state[25] >> 3);
-  for (int q = tid; q < kStreamWords; q += 32) stream[q] = q < pending ? buf : 0;
+  for (int q = tid; q < words; q += 32) stream[q] = q < pending ? buf : 0;
   for (int q = tid; q < 12 * 16; q += 32) sig[q] = (&kSigma[0][0])[q];
   __syncwarp();
   // the feed of a Vec<Fr>: u64 LE length, then 4 LE words per element
-  if (tid < d1)
+  if constexpr (kWide) {
+    for (int e = tid; e < d1; e += 32)
+      element(sums, e, d1, prm, msgs + j * kDigits * d1, stream + pending + 1 + 4 * e);
+  } else if (tid < d1) {
     element(sums, tid, d1, prm, msgs + j * kDigits * d1, stream + pending + 1 + 4 * tid);
+  }
   if (tid == 0) stream[pending] = (uint64_t)d1;
   __syncwarp();
   if (tid >= 4) return;
@@ -271,7 +295,7 @@ __global__ void __launch_bounds__(32, 1)
       d2 = d3;
       d3 = __shfl_sync(kHashLanes, o0, 0, 4);
       ++drawn;
-      if (len + 8 > kStreamWords - 16) {
+      if (len + 8 > words - 16) {
         // rare (a run of rejected draws): move the pending words to the
         // front (the two ranges do not overlap); the block read at pos
         // stays inside the zeroed stream
@@ -354,18 +378,42 @@ int sc_transcript_state_words() { return kStateWords; }
 int sc_transcript_launch_batched(void* state, const void* sums, int degree, void* msgs,
                                  void* rs, long long j, int batch, const uint32_t* field,
                                  void* stream) {
-  if (degree < 1 || degree > kMaxDegree) return (int)cudaErrorInvalidValue;
-  if (batch < 1) return (int)cudaErrorInvalidValue;
+  if (degree < 1 || batch < 1) return (int)cudaErrorInvalidValue;
   Params prm;
   for (int i = 0; i < kLimbs; ++i) prm.f.p[i] = field[i];
   prm.f.ninv = field[kLimbs];
   const uint32_t shave = field[kLimbs + 1];
   if (shave >= 32) return (int)cudaErrorInvalidValue;
   prm.top_mask = (shave == 0) ? ~0ull : ((1ull << (64 - shave)) - 1);
-  transcript_kernel<<<batch, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (degree <= kMaxDegree) {
+    transcript_kernel<false><<<batch, 32, 0, s>>>(
+        static_cast<unsigned long long*>(state), static_cast<const long long*>(sums),
+        degree, static_cast<uint32_t*>(msgs), static_cast<uint32_t*>(rs), j, prm);
+    return (int)cudaGetLastError();
+  }
+  const size_t smem = (size_t)stream_words(degree + 1) * sizeof(uint64_t);
+  const cudaError_t e = cudaFuncSetAttribute(
+      transcript_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  transcript_kernel<true><<<batch, 32, smem, s>>>(
       static_cast<unsigned long long*>(state), static_cast<const long long*>(sums),
       degree, static_cast<uint32_t*>(msgs), static_cast<uint32_t*>(rs), j, prm);
   return (int)cudaGetLastError();
+}
+
+// The largest degree the step takes on `device`: its stream in the
+// opt-in shared memory of a block beside the static arrays, or -1 on an
+// error.
+int sc_transcript_max_degree(int device) {
+  int optin = 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
+      cudaSuccess)
+    return -1;
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, transcript_kernel<true>) != cudaSuccess) return -1;
+  const long long words = (optin - (long long)attr.sharedSizeBytes) / (long long)sizeof(uint64_t);
+  return (int)((words - stream_words(0)) / 4) - 1;
 }
 
 // Test hooks of the bound: the empty kernel, `iters` x 16 dependent

@@ -17,5 +17,6 @@ def launch_counters() -> dict:
             "round_step_fold_batched": round_cuda.round_step_fold_batched,
             "transcript_step_batched": transcript_cuda.transcript_step_batched,
             "weight_reduce": gkr_init_cuda.weight_reduce,
+            "weight_reduce_batched": gkr_init_cuda.weight_reduce_batched,
             "finish_sums": gkr_init_cuda.finish_sums,
             "pair_slots": gkr_init_cuda.pair_slots}

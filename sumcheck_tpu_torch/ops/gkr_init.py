@@ -32,7 +32,9 @@ waits for the host (no `.item()`, no boolean masks, no upload). A phase is
 1 launch on the generic chain (`phase1_pair`, `phase2_pair`); the
 per-size pieces take 1 each (`phase1`, `phase2_digits`, and `pair_slots`
 for `prep1`, `final_fold`, `prep2`); a sharded rank's `phase1` and
-`phase2_digits` take a second, the finish of the all-reduced raw sums.
+`phase2_digits` take a second, the finish of the all-reduced raw sums. The
+batched prover's `phase1_pairs` and `phase2_pairs` build a phase of all B
+instances in one launch (`weight_reduce_batched`, grid y = instance).
 
 Layout: f1's split (`F1Split`, `_split_f1_device`, cached per f1 and
 device): int32 index components, the values an (nnz, 8) entry-major limb
@@ -427,6 +429,30 @@ def phase2_pair(pair_lo, pair_hi, r_last, split: F1Split, w, u_digits, f3_bitrev
     _reduce(split.x_y, w, u_digits, dim, split.last_y, split.plan_y, (lo, hi),
             slot=(f3_bitrev, (pair_lo, pair_hi, r_last, 1)))
     return lo, hi
+
+
+def phase1_pairs(splits, g_rs, f3s, f2s, dim: int, lo, hi) -> list:
+    """`phase1_pair` of B instances in one launch (the batched prover's
+    phase 1, the JAX package's vmapped `_bgkr_phase1`,
+    `sumcheck_tpu/batch.py:565-572`): instance b's pair written into
+    lo[b], hi[b] of the (B, 2, 8, 2^dim/2) batched pair, from its own f1
+    split, g rows, f3 and f2. Returns the B carries."""
+    return K.weight_reduce_batched([
+        K.Instance(s.gbits, s.vals, g_r, s.last_x, s.plan_x, (lo[b], hi[b]), f3=f3, y=s.y_rev,
+                   to_y=s.to_y, slot=(f2, None))
+        for b, (s, g_r, f3, f2) in enumerate(zip(splits, g_rs, f3s, f2s))], dim)
+
+
+def phase2_pairs(pair_lo, pair_hi, r_last, splits, ws, u_rows, f3s, dim: int, lo, hi) -> None:
+    """`phase2_pair` of B instances in one launch (`_bgkr_phase2`,
+    `sumcheck_tpu/batch.py:574-580`): instance b's phase-2 pair into lo[b],
+    hi[b] from its carry ws[b], its column u_rows[:, b] of the (dim, B, 16)
+    challenge rows, its f3, and f2(u) folded from its lane-0 final pair
+    (pair_lo[b], pair_hi[b], (B, 2, 8, >= 1)) by r_last[b]."""
+    K.weight_reduce_batched([
+        K.Instance(s.x_y, w, u_rows[:, b], s.last_y, s.plan_y, (lo[b], hi[b]),
+                   slot=(f3, (pair_lo[b], pair_hi[b], r_last[b], 1)))
+        for b, (s, w, f3) in enumerate(zip(splits, ws, f3s))], dim)
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,15 @@ Replaces the JAX package's jitted jnp phase-init programs
   `pair_slots`). `r` is (>= k, 16) int32 Montgomery digit rows (the
   chain's challenge rows; row stride free, digits contiguous); the half
   tables are those of `eq_halves_ref`, and k is at most 21 (`in_block`).
+- `weight_reduce_batched(insts, k)`: the same for B instances of one shape
+  in one launch, grid y = instance (the batched GKR prover's phase init,
+  the JAX package's vmapped `_bgkr_phase1` / `_bgkr_phase2`,
+  `sumcheck_tpu/batch.py:565-580`): each `Instance` with its own plan,
+  entries, challenge rows (any row stride, one for all), f3, carry, pair
+  slice and slot, its long segments on scratch rows of its own; the
+  instances' operands go to a table in device memory by one asynchronous
+  copy the launch makes. Plain version `weight_reduce_batched_ref`, the
+  single plain version per instance.
 - `finish_sums(sums, dst)`: all-reduced raw limb sums -> their strict
   values in `dst` (the sharded inits: `reduce_fn` in `ops/gkr_init.py`).
 - `pair_slots(lo, hi, slots, fold=None, fold_out=None)`: slot u of the
@@ -131,7 +140,17 @@ def _library() -> ctypes.CDLL:
         ctypes.POINTER(ptr), ctypes.POINTER(ll), ctypes.POINTER(ll), ctypes.POINTER(ptr),
         ptr, ptr, ll, ll, i32, ptr, ptr, words, ptr,  # the fold, fold_out, consts, stream
     ]
-    for fn in (lib.sc_gkr_weight_reduce, lib.sc_gkr_finish_sums, lib.sc_gkr_pair_slots):
+    lib.sc_gkr_weight_reduce_batched.argtypes = [
+        i32, ptr, ctypes.POINTER(ctypes.c_ulonglong), ctypes.POINTER(i32),  # batch, table, ...
+        ll, i32, i32, ll, ll, ll, ll, ll, ll,  # r_stride, kl, kh, nseg, n3, ld, split, half, fstride
+        i32, words, ptr,  # device, consts, stream
+    ]
+    for name in ("sc_gkr_reduce_fields", "sc_gkr_reduce_entry_bytes"):
+        getattr(lib, name).restype = ctypes.c_int
+    if lib.sc_gkr_reduce_fields() != _FIELDS:
+        raise RuntimeError("GKR init kernels and wrapper disagree on an instance's fields")
+    for fn in (lib.sc_gkr_weight_reduce, lib.sc_gkr_weight_reduce_batched,
+               lib.sc_gkr_finish_sums, lib.sc_gkr_pair_slots):
         fn.restype = ctypes.c_int
     lib.sc_gkr_error_string.argtypes = [ctypes.c_int]
     lib.sc_gkr_error_string.restype = ctypes.c_char_p
@@ -508,18 +527,102 @@ def _launch_reduce(idx, vals, r, k, last, plan, out, dst, raw, f3, y, to_y, slot
     lo, hi, ld, split = dst if dst is not None else (None, None, 0, 0)
     table, fold = slot if slot is not None else (None, None)
     flo, fhi, fr, fslot = fold if fold is not None else (None, None, None, 0)
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     _run("weight_reduce", lambda lib, s: lib.sc_gkr_weight_reduce(
         plan.items.data_ptr(), len(plan.items), vals.data_ptr(), idx.data_ptr(), r.data_ptr(),
-        r.stride(0), kl, kh, last.data_ptr(), last.shape[0], ptr(y), ptr(f3),
-        0 if f3 is None else f3.shape[1], ptr(to_y), ptr(carry), ptr(scratch), ptr(arrived),
-        ptr(raw), ptr(lo), ptr(hi), ld, split, ptr(table),
+        r.stride(0), kl, kh, last.data_ptr(), last.shape[0], _ptr(y), _ptr(f3),
+        0 if f3 is None else f3.shape[1], _ptr(to_y), _ptr(carry), _ptr(scratch), _ptr(arrived),
+        _ptr(raw), _ptr(lo), _ptr(hi), ld, split, _ptr(table),
         None if slot is None else out[0][1].data_ptr(),
         None if slot is None else out[1][1].data_ptr(), 0 if slot is None else ld,
         None if flo is None else flo[fslot].data_ptr(),
         None if fhi is None else fhi[fslot].data_ptr(), 0 if flo is None else flo.stride(1),
-        ptr(fr), vals.device.index, _CONSTS, s), vals.device)
+        _ptr(fr), vals.device.index, _CONSTS, s), vals.device)
     return carry
+
+
+class Instance(NamedTuple):
+    """One instance's operands of `weight_reduce_batched`: the arguments of
+    `weight_reduce` but k, which the instances share."""
+
+    idx: torch.Tensor
+    vals: torch.Tensor
+    r: torch.Tensor
+    last: torch.Tensor
+    plan: Plan
+    out: tuple
+    f3: torch.Tensor | None = None
+    y: torch.Tensor | None = None
+    to_y: torch.Tensor | None = None
+    slot: tuple | None = None
+
+
+_FIELDS = 20  # `csrc/gkr_init.cu`: kFields, an instance's pointers
+
+
+def weight_reduce_batched_ref(insts, k: int) -> list:
+    """Plain version of `weight_reduce_batched`: `weight_reduce_ref` per
+    instance."""
+    return [weight_reduce_ref(i.idx, i.vals, i.r, k, i.last, i.plan, i.out, i.f3, i.y, i.to_y,
+                              i.slot) for i in insts]
+
+
+def weight_reduce_batched(insts, k: int) -> list:
+    """`weight_reduce` of B instances in one launch, grid y = instance (the
+    batched GKR prover's phase init): each `Instance` with its own tile
+    plan, entries, challenge rows, f3, carry, destination pair `out` and
+    slot, its long segments on its own scratch rows. The instances share k
+    and the shapes the launch takes once: the segment count, f3's width,
+    the challenge rows' stride, the destination pair's half width and the
+    final fold's stride; all gather (phase 1) or none; every `out` is a
+    pair (slot 0; no raw sums). Returns each instance's carry (phase 1) or
+    None."""
+    if not _on_card(insts[0].vals):
+        return weight_reduce_batched_ref(insts, k)
+    shared, items, carries, long = None, [], [], 0
+    for i in insts:
+        _nnz, nseg, dst, raw = _check_reduce(i.idx, i.vals, i.r, k, i.last, i.plan, i.out,
+                                             i.f3, i.y, i.to_y, i.slot)
+        if raw is not None or isinstance(i.out, torch.Tensor):
+            raise ValueError("a batched weight reduce writes each instance's pair")
+        fold = i.slot[1] if i.slot is not None else None
+        key = (nseg, i.r.stride(0), None if i.f3 is None else i.f3.shape[1], dst[2],
+               i.slot is None, None if fold is None else fold[0].stride(1), i.vals.device)
+        if shared not in (None, key):
+            raise ValueError("the instances of a batched weight reduce differ in shape, "
+                             "phase or device")
+        shared = key
+        carries.append(None if i.to_y is None else torch.empty_like(i.vals))
+        items.append(len(i.plan.items))
+        long += i.plan.long
+    device = insts[0].vals.device
+    scratch, arrived = _scratch(device, long) if long else (None, None)
+    ptrs, row = [], 0
+    for i, carry in zip(insts, carries):
+        lo, hi = i.out
+        src, fold = i.slot if i.slot is not None else (None, None)
+        flo, fhi, fr, fslot = fold if fold is not None else (None, None, None, 0)
+        rows = (scratch[row], arrived[row]) if i.plan.long else (None, None)
+        row += i.plan.long
+        ptrs += [_ptr(t) for t in (i.plan.items, i.vals, i.idx, i.r, i.last, i.y, i.f3, i.to_y,
+                                   carry, *rows, None, lo[0], hi[0], src)]
+        ptrs += [_ptr(lo[1]) if src is not None else 0, _ptr(hi[1]) if src is not None else 0,
+                 _ptr(flo[fslot]) if flo is not None else 0,
+                 _ptr(fhi[fslot]) if fhi is not None else 0, _ptr(fr)]
+    nseg, r_stride, n3, half, _no_slot, fstride, _device = shared
+    lib = _library()
+    table = torch.empty(len(insts) * lib.sc_gkr_reduce_entry_bytes(), dtype=torch.uint8,
+                        device=device)
+    kl, kh = halves(k)
+    _run("weight_reduce_batched", lambda lib, s: lib.sc_gkr_weight_reduce_batched(
+        len(insts), table.data_ptr(), (ctypes.c_ulonglong * len(ptrs))(*ptrs),
+        (ctypes.c_int * len(items))(*items), r_stride, kl, kh, nseg, n3 or 0, half, half,
+        0 if _no_slot else half, fstride or 0, device.index, _CONSTS, s), device)
+    weight_reduce_batched.launches += 1
+    return carries
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def finish_sums_ref(sums, dst) -> None:
@@ -648,5 +751,6 @@ def pair_slots(lo, hi, slots, fold=None, fold_out=None) -> None:
 
 
 weight_reduce.launches = 0
+weight_reduce_batched.launches = 0
 finish_sums.launches = 0
 pair_slots.launches = 0

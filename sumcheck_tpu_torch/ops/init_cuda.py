@@ -24,7 +24,11 @@ instance's slice of a batched (B, U, 8, n/2) pair. It launches the kernel
 for CUDA tensors and runs `pair_init_ref` for CPU tensors; it raises for
 anything else. The launch takes the four-lane body where the half width
 is a multiple of 4 and every pointer 16-byte aligned, else the one-lane
-body; `blocks_per_sm` gives either's occupancy.
+body; `blocks_per_sm` gives either's occupancy. Past `MAX_SLOTS` slots
+the launch takes the wide route (`pair_init_wide_kernel`): the plan staged
+into a table in device memory by one asynchronous copy that the launch
+makes ahead of the kernel (no host wait), any slot count up to grid y's
+`MAX_GRID_SLOTS`.
 """
 
 from __future__ import annotations
@@ -40,7 +44,8 @@ from ..fields.fr import NINV32, NUM_LIMBS, P, R
 from . import cuda_build
 
 SOURCE = cuda_build.source("pair_init")
-MAX_SLOTS = 16  # `csrc/pair_init.cu`: kMaxSlots
+MAX_SLOTS = 16  # `csrc/pair_init.cu`: kMaxSlots, the by-value plan's; past it the wide route
+MAX_GRID_SLOTS = 65535  # the wide route's grid y: one slot a row of blocks
 
 _FIELD = (ctypes.c_uint32 * 9)(*[(P >> (32 * j)) & 0xFFFFFFFF for j in range(8)], NINV32)
 _COPY, _SCALE, _FILL = 0, 1, 2
@@ -65,6 +70,11 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p,  # stream
     ]
     lib.sc_pair_init_launch.restype = ctypes.c_int
+    lib.sc_pair_init_launch_wide.argtypes = lib.sc_pair_init_launch.argtypes[:8] + [
+        ctypes.c_void_p, ctypes.c_void_p,  # table (device), stream
+    ]
+    lib.sc_pair_init_launch_wide.restype = ctypes.c_int
+    lib.sc_pair_init_wide_slot_bytes.restype = ctypes.c_int
     lib.sc_pair_init_blocks_per_sm.argtypes = [ctypes.c_int]
     lib.sc_pair_init_blocks_per_sm.restype = ctypes.c_int
     lib.sc_pair_init_error_string.argtypes = [ctypes.c_int]
@@ -93,8 +103,9 @@ def _check(lo, hi, tables, slots) -> int:
     if not (lo.is_contiguous() and hi.is_contiguous()) or lo.device != hi.device:
         raise ValueError("pair halves must be contiguous, on one device")
     half = lo.shape[2]
-    if len(slots) != lo.shape[0] or not 1 <= len(slots) <= MAX_SLOTS:
-        raise ValueError(f"{len(slots)} slot specs for {lo.shape[0]} slots (at most {MAX_SLOTS})")
+    if len(slots) != lo.shape[0] or not 1 <= len(slots) <= MAX_GRID_SLOTS:
+        raise ValueError(f"{len(slots)} slot specs for {lo.shape[0]} slots "
+                         f"(at most {MAX_GRID_SLOTS})")
     for src, c in slots:
         if src is None:
             if c is None:
@@ -141,10 +152,15 @@ def _launch(lo, hi, tables, slots) -> None:
     lib = _library()
     with torch.cuda.device(lo.device):
         stream = torch.cuda.current_stream(lo.device).cuda_stream
-        rc = lib.sc_pair_init_launch(
-            lo.data_ptr(), hi.data_ptr(), half, u_count, src,
-            (ctypes.c_uint32 * (8 * u_count))(*limbs), (ctypes.c_int * u_count)(*modes),
-            _FIELD, stream)
+        args = (lo.data_ptr(), hi.data_ptr(), half, u_count, src,
+                (ctypes.c_uint32 * (8 * u_count))(*limbs), (ctypes.c_int * u_count)(*modes),
+                _FIELD)
+        if u_count <= MAX_SLOTS:
+            rc = lib.sc_pair_init_launch(*args, stream)
+        else:  # the wide route: the plan staged into a device table by the launch
+            table = torch.empty(u_count * lib.sc_pair_init_wide_slot_bytes(), dtype=torch.uint8,
+                                device=lo.device)
+            rc = lib.sc_pair_init_launch_wide(*args, table.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"pair init kernel launch failed: "
                            f"{lib.sc_pair_init_error_string(rc).decode()} ({rc})")

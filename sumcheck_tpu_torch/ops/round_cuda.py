@@ -91,6 +91,18 @@ in memory as in registers, the multiply on the multiply-add's carry chain
 device memory once per round, the next slot's stripes loading while a slot
 folds, and the evaluation in registers up to degree 4 (above it, the ladder
 in shared memory; `csrc/round.cu`).
+
+Routes, chosen by the structure's shape (`route`): within the by-value
+plan's maxima (`MAX_SLOTS`, `MAX_PRODUCTS`, `MAX_FACTORS`, `MAX_DEGREE`:
+16, 16, 8, 8) the kernels above; past any of them every wrapper takes the
+wide route (`csrc/round.cu` `wide_kernel`, `csrc/round_mxu.cu`
+`fold_mxu_kernel<true>`), whose product index matrix sits in device memory,
+uploaded once per structure and device from pinned memory (`_wide_idx`: no
+host wait, so a chained prove stays free of syncs), and whose evaluation
+re-reads each factor's lanes at every t, so no shared-memory or register
+array limits the slots, products, factors or degree. The plain versions
+take any structure. A failed build or launch raises on either route; there
+is no fallback to the plain versions on a card.
 """
 
 from __future__ import annotations
@@ -102,15 +114,18 @@ import numpy as np
 import torch
 
 from ..fields import limbs_torch as LT
-from ..fields.fr import DIGIT_BITS, DIGIT_MASK, NINV32, NUM_DIGITS, NUM_LIMBS, P, WIDE_DIGITS
+from ..fields.fr import DIGIT_BITS, DIGIT_MASK, NINV32, NUM_DIGITS, NUM_LIMBS, P, R, WIDE_DIGITS
 from ..protocol import engine
 from . import cuda_build, mxu_mul
 
 SOURCE = cuda_build.source("round")
 SOURCE_MXU = cuda_build.source("round_mxu")
 
-# Compile-time maxima of the kernels' run-time product structure
-# (`csrc/round.cu`: kMaxSlots, kMaxProducts, kMaxFactors, kMaxDegree).
+# The by-value plan's compile-time maxima (`csrc/round_common.cuh`:
+# kMaxSlots, kMaxProducts, kMaxFactors, kMaxDegree). A structure within all
+# four takes the bodies that carry the plan in their parameters (the main
+# path); a structure past any of them takes the wide route (`route`), whose
+# product index matrix sits in device memory and which has no maximum.
 MAX_SLOTS = 16
 MAX_PRODUCTS = 16
 MAX_FACTORS = 8
@@ -124,7 +139,10 @@ _FIELD_MXU = (ctypes.c_uint32 * (9 + 32 * 8))(
     *_FIELD, *[((1 << (8 * j + 16)) % P >> (32 * i)) & 0xFFFFFFFF
                for j in range(32) for i in range(8)])
 
-# launch modes of `sc_round_launch_batched`
+# the Montgomery one, R mod p, as 8 limbs: the wide route's evaluation points
+_ONE = (ctypes.c_uint32 * 8)(*[(R % P >> (32 * j)) & 0xFFFFFFFF for j in range(8)])
+
+# launch modes of `sc_round_launch_batched` and `sc_round_launch_wide`
 _NOFOLD, _FOLD_IN_PLACE, _FOLD_OUT = 0, 1, 2
 
 
@@ -156,6 +174,14 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p,  # stream
     ]
     lib.sc_round_launch_batched.restype = ctypes.c_int
+    lib.sc_round_launch_wide.argtypes = lib.sc_round_launch_batched.argtypes[:13] + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # slots, products, factors, degree
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint32),  # idx (device), field
+        ctypes.POINTER(ctypes.c_uint32),  # one
+        ctypes.c_void_p, ctypes.c_longlong,  # sums, nblk
+        ctypes.c_void_p,  # stream
+    ]
+    lib.sc_round_launch_wide.restype = ctypes.c_int
     lib.sc_round_blocks_per_sm.argtypes = [ctypes.c_int] * 2
     lib.sc_round_blocks_per_sm.restype = ctypes.c_int
     lib.sc_mont_mul_probe.argtypes = [
@@ -182,8 +208,17 @@ def _mxu_library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_longlong,  # sums, nblk
         ctypes.c_void_p,  # stream
     ]
+    lib.sc_fold_mxu_launch_wide.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # lo, hi, r
+        ctypes.c_longlong, ctypes.c_longlong,  # H, extent
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # slots, products, factors, degree
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_uint32),  # idx (device), field
+        ctypes.POINTER(ctypes.c_uint32),  # one
+        ctypes.c_void_p, ctypes.c_longlong,  # sums, nblk
+        ctypes.c_void_p,  # stream
+    ]
     lib.sc_mma_tile_launch.argtypes = [ctypes.c_void_p] * 5
-    for fn in (lib.sc_fold_mxu_launch, lib.sc_mma_tile_launch):
+    for fn in (lib.sc_fold_mxu_launch, lib.sc_fold_mxu_launch_wide, lib.sc_mma_tile_launch):
         fn.restype = ctypes.c_int
     lib.sc_mxu_error_string.argtypes = [ctypes.c_int]
     lib.sc_mxu_error_string.restype = ctypes.c_char_p
@@ -437,16 +472,36 @@ def round_step_fold_batched_ref(lo, hi, r, products, degree: int, coeffs=None, o
 # ---------------------------------------------------------------------------
 
 
+def route(slots: int, products, degree: int) -> str:
+    """The round kernels' route for a product structure, chosen by its
+    shape: "plan" (the by-value `Plan` of `csrc/round_common.cuh`) within
+    its four maxima, else "wide" (`WidePlan`: the index matrix in device
+    memory, `wide_kernel` and the MXU fold's wide body)."""
+    within = (slots <= MAX_SLOTS and len(products) <= MAX_PRODUCTS
+              and len(products[0]) <= MAX_FACTORS and degree <= MAX_DEGREE)
+    return "plan" if within else "wide"
+
+
+_WIDE_IDX: dict = {}  # (products, device) -> the (products x factors) int32 index matrix
+
+
+def _wide_idx(products, device) -> torch.Tensor:
+    """The wide route's product index matrix on `device`, uploaded once for
+    each structure and device from pinned memory without a host wait, so a
+    chained prove stays free of syncs."""
+    key = (tuple(tuple(ix) for ix in products), device)
+    idx = _WIDE_IDX.get(key)
+    if idx is None:
+        flat = torch.tensor([s for ix in products for s in ix], dtype=torch.int32)
+        idx = flat.pin_memory().to(device, non_blocking=True)
+        _WIDE_IDX[key] = idx
+    return idx
+
+
 def _plan(slots: int, products, degree: int):
-    """The kernels' run-time product plan (`Plan` in `csrc/round_common.cuh`);
-    raises above its compile-time maxima, before any build."""
+    """The by-value run-time product plan (`Plan` in
+    `csrc/round_common.cuh`) of a structure on the "plan" route."""
     factors = len(products[0])
-    if (slots > MAX_SLOTS or len(products) > MAX_PRODUCTS
-            or factors > MAX_FACTORS or degree > MAX_DEGREE):
-        raise ValueError(
-            f"product structure (slots={slots}, products={len(products)}, "
-            f"factors={factors}, degree={degree}) exceeds the kernel's maxima"
-        )
     idx = [0] * (MAX_PRODUCTS * MAX_FACTORS)
     for p, ix in enumerate(products):
         idx[p * MAX_FACTORS : p * MAX_FACTORS + factors] = ix
@@ -467,14 +522,14 @@ def _launch(mode: int, lo, hi, r, products, degree: int, extent: int,
     """One launch of `sc_round_launch_batched` for a (U, 8, H) pair (one
     instance) or a (B, U, 8, H) pair (B instances, grid y)."""
     batched = lo.dim() == 4
-    plan = _plan(lo.shape[-3], products, degree)
+    slots = lo.shape[-3]
     lib = _library()
     sums = _batched_rows(out, lo, degree) if batched else _sums_row(out, lo, degree)
     nblk = -(-extent // lib.sc_round_threads())
     lo_out, hi_out = tables if tables is not None else (None, None)
     with torch.cuda.device(lo.device):
         stream = torch.cuda.current_stream(lo.device).cuda_stream
-        rc = lib.sc_round_launch_batched(
+        args = (
             int(mode), lo.data_ptr(), hi.data_ptr(),
             lo_out.data_ptr() if lo_out is not None else None,
             hi_out.data_ptr() if hi_out is not None else None,
@@ -483,8 +538,15 @@ def _launch(mode: int, lo, hi, r, products, degree: int, extent: int,
             lo.shape[-1], lo_out.shape[-1] if lo_out is not None else lo.shape[-1], extent,
             lo.shape[0] if batched else 1, lo[0].numel() if batched else 0,
             lo_out[0].numel() if batched and lo_out is not None else 0,
-            plan, _FIELD, sums.data_ptr(), nblk, stream,
         )
+        if route(slots, products, degree) == "plan":
+            rc = lib.sc_round_launch_batched(*args, _plan(slots, products, degree), _FIELD,
+                                             sums.data_ptr(), nblk, stream)
+        else:
+            rc = lib.sc_round_launch_wide(
+                *args, slots, len(products), len(products[0]), degree,
+                _wide_idx(products, lo.device).data_ptr(), _FIELD, _ONE, sums.data_ptr(),
+                nblk, stream)
     if rc != 0:
         raise RuntimeError(
             f"round kernel launch failed: {lib.sc_error_string(rc).decode()} ({rc})"
@@ -612,14 +674,22 @@ def round_fold_mxu(lo, hi, r, products, degree: int, extent: int, out=None) -> t
         return round_fold_mxu_ref(lo, hi, r, products, degree, extent, out)
     _kernel_device(lo)
     _check(lo, hi, products, degree, extent, fold=True, r=r)
-    plan = _plan(lo.shape[0], products, degree)
+    slots = lo.shape[0]
     lib = _mxu_library()
     sums = _sums_row(out, lo, degree)
     nblk = -(-extent // lib.sc_mxu_threads())
     with torch.cuda.device(lo.device):
         stream = torch.cuda.current_stream(lo.device).cuda_stream
-        rc = lib.sc_fold_mxu_launch(lo.data_ptr(), hi.data_ptr(), r.data_ptr(), lo.shape[2],
-                                    extent, plan, _FIELD_MXU, sums.data_ptr(), nblk, stream)
+        if route(slots, products, degree) == "plan":
+            rc = lib.sc_fold_mxu_launch(lo.data_ptr(), hi.data_ptr(), r.data_ptr(), lo.shape[2],
+                                        extent, _plan(slots, products, degree), _FIELD_MXU,
+                                        sums.data_ptr(), nblk, stream)
+        else:
+            rc = lib.sc_fold_mxu_launch_wide(
+                lo.data_ptr(), hi.data_ptr(), r.data_ptr(), lo.shape[2], extent, slots,
+                len(products), len(products[0]), degree,
+                _wide_idx(products, lo.device).data_ptr(), _FIELD_MXU, _ONE, sums.data_ptr(),
+                nblk, stream)
     _raise_mxu(rc, "MXU fold kernel")
     round_fold_mxu.launches += 1
     return sums

@@ -45,10 +45,11 @@ import torch
 from ..fields import limbs_torch as LT
 from ..fields.fr import NINV32, NUM_DIGITS, P, SHAVE_BITS, WIDE_DIGITS
 from ..transcript.device import STATE_WORDS, DevTranscript, feed_fr_vec, fr_rand
+from ..utils.errors import SumcheckError
 from . import cuda_build
 
 SOURCE = cuda_build.source("transcript")
-MAX_DEGREE = 8  # `csrc/transcript.cu`: kMaxDegree
+MAX_DEGREE = 8  # `csrc/transcript.cu`: kMaxDegree, the static stream's; past it the wide one
 
 _ONE_DIGITS = (1,) + (0,) * (NUM_DIGITS - 1)
 # p as 8 x 32-bit limbs (least significant first), -p^-1 mod 2^32, then
@@ -77,6 +78,8 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.POINTER(ctypes.c_uint32), ctypes.c_void_p,  # batch, field, stream
     ]
     lib.sc_transcript_launch_batched.restype = ctypes.c_int
+    lib.sc_transcript_max_degree.argtypes = [ctypes.c_int]
+    lib.sc_transcript_max_degree.restype = ctypes.c_int
     lib.sc_empty_launch.argtypes = [ctypes.c_void_p]
     lib.sc_latency_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.sc_compress_probe.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
@@ -103,8 +106,8 @@ def _check_shapes(state, sums, msgs, rs, j: int, batch: tuple) -> None:
         raise ValueError(f"sums must be a {batch + ('d+1', 16)} int64 tensor, got "
                          f"{tuple(sums.shape)}")
     d1 = sums.shape[-2]
-    if not 2 <= d1 <= MAX_DEGREE + 1:
-        raise ValueError(f"degree {d1 - 1} is outside [1, {MAX_DEGREE}]")
+    if d1 < 2:
+        raise ValueError(f"degree {d1 - 1} is below 1")
     if (msgs.dim() != len(batch) + 3 or msgs.shape[1:] != batch + (NUM_DIGITS, d1)
             or msgs.dtype != torch.int32):
         raise ValueError(f"msgs must be an {('nv',) + batch + (NUM_DIGITS, d1)} int32 tensor")
@@ -159,6 +162,27 @@ def transcript_step_batched_ref(state, sums, msgs, rs, j: int) -> None:
         msgs[j, b], rs[j, b] = _step(state[b], sums[b])
 
 
+@functools.cache
+def max_degree(index: int) -> int:
+    """The largest degree the step takes on card `index`: above `MAX_DEGREE`
+    the round's byte stream (4 (d+1) + 64 words) sits in dynamic shared
+    memory, so the card's opt-in shared memory a block sets it
+    (`sc_transcript_max_degree`; `chip_smoke.py` prints it)."""
+    d = _library().sc_transcript_max_degree(index)
+    if d < 0:
+        raise RuntimeError(f"shared-memory query of card {index} failed")
+    return d
+
+
+def _check_ceiling(degree: int, device) -> None:
+    """Raise `SumcheckError` past `max_degree`, the step's one ceiling."""
+    if degree > MAX_DEGREE and degree > max_degree(device.index):
+        raise SumcheckError(
+            f"degree {degree} is past the transcript step's ceiling on this card, "
+            f"{max_degree(device.index)}: the round's byte stream must fit the shared "
+            f"memory of one block")
+
+
 def transcript_step(state, sums, msgs, rs, j: int) -> None:
     """One round's transcript step in place. Launches the CUDA kernel for
     CUDA tensors, runs `transcript_step_ref` for CPU tensors."""
@@ -169,6 +193,7 @@ def transcript_step(state, sums, msgs, rs, j: int) -> None:
     _check(state, sums, msgs, rs, j)
     if state.data_ptr() % 8:
         raise ValueError("the kernel reads the state as 64-bit words: it must be 8-byte aligned")
+    _check_ceiling(sums.shape[0] - 1, state.device)
     lib = _library()
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
@@ -199,6 +224,7 @@ def transcript_step_batched(state, sums, msgs, rs, j: int) -> None:
     if state.data_ptr() % 8:
         raise ValueError("the kernel reads the states as 64-bit words: they must be 8-byte "
                          "aligned")
+    _check_ceiling(sums.shape[1] - 1, state.device)
     lib = _library()
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream

@@ -42,26 +42,24 @@ from ..transcript.device import DevTranscript
 from ..utils.errors import SumcheckError
 
 
-def _fold_plan(polynomial, zero_copies: bool = True):
+def _fold_plan(polynomial):
     """Decide how to fold each product's coefficient into a table slot.
 
     Returns (products, scale_plan, num_slots, need_ones):
     - products: padded index tuples with coefficients absorbed;
     - scale_plan: list of (dst_slot, src_slot, coeff_int) — dst == src means
       scale in place (slot referenced nowhere else); dst >= num_tables
-      appends a scaled copy (slot shared between products, or, with
-      `zero_copies`, a coefficient of 0 mod p, which in place would wipe the
-      table the state reads back);
+      appends a scaled copy (slot shared between products, or a coefficient
+      of 0 mod p, which in place would wipe the table the state reads
+      back);
     - coefficient 1 folds for free (no scale op).
 
     Unlike the JAX package's plan (`:141-177`), a zero coefficient takes a
-    copy slot while the plan fits the kernels' `init_cuda.MAX_SLOTS`: every
-    table then survives unscaled or invertibly scaled, so
-    `ProverState.flattened_ml_extensions` can return it. A plan that the
-    copies would take past the limit scales in place instead, as the JAX
-    plan does: the proof is the same, and only `flattened_ml_extensions`
-    refuses the wiped table. A plan past the limit either way raises
-    `SumcheckError` before anything is launched.
+    copy slot: every table then survives unscaled or invertibly scaled, so
+    `ProverState.flattened_ml_extensions` can return it. For every other
+    structure the plan is the JAX package's. No slot count is too many: the
+    kernels take a structure past their by-value plan's maxima on their wide
+    route (`round_cuda.route`, `init_cuda.pair_init`).
     """
     num_tables = len(polynomial.flattened_ml_extensions)
     usage = [0] * num_tables
@@ -75,7 +73,7 @@ def _fold_plan(polynomial, zero_copies: bool = True):
         if coeff.v == 1:
             continue
         t0 = ix[0]
-        if usage[t0] == 1 and (coeff.v % P != 0 or not zero_copies):
+        if usage[t0] == 1 and coeff.v % P != 0:
             scale_plan.append((t0, t0, coeff.v))
         else:
             scale_plan.append((next_slot, t0, coeff.v))
@@ -89,11 +87,6 @@ def _fold_plan(polynomial, zero_copies: bool = True):
         tuple(ix + [ones_slot] * (max_len - len(ix))) for ix in prods
     )
     num_slots = next_slot + (1 if need_ones else 0)
-    if num_slots > init_cuda.MAX_SLOTS:
-        if zero_copies:
-            return _fold_plan(polynomial, zero_copies=False)
-        raise SumcheckError(f"the product structure needs {num_slots} table slots, more than "
-                            f"the {init_cuda.MAX_SLOTS} the kernels hold")
     return products, tuple(scale_plan), num_slots, need_ones
 
 

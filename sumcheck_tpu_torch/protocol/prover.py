@@ -87,10 +87,9 @@ class ProverState:
         """The polynomial's tables as the rounds so far left them, each a
         (16, 2 * extent) NumPy digit array in bit-reversed order (the JAX
         package's host-engine state), with the coefficients folded into
-        them divided back out; one copy from the device, unpacked from the
-        pair's limbs (`limbs_np.unpack_limbs`). Raises for a table
-        that took the coefficient 0 in place, which the fold plan does only
-        where a copy slot would pass the kernels' slot limit."""
+        them divided back out (the fold plan scales a table in place only
+        by an invertible coefficient); one copy from the device, unpacked
+        from the pair's limbs (`limbs_np.unpack_limbs`)."""
         lo, hi = self.stacked
         k, a = self.num_tables, self.extent
         both = L.unpack_limbs(torch.cat([lo[:k, :, :a], hi[:k, :, :a]], dim=2).cpu().numpy(),
@@ -100,9 +99,6 @@ class ProverState:
             c = self.scales.get(i)
             if c is None:
                 out.append(both[i])
-            elif c % P == 0:
-                raise SumcheckError(f"table {i} took the coefficient 0 in place (a copy slot "
-                                    f"would pass the kernels' slot limit): its values are gone")
             else:
                 out.append(L.mont_mul_scalar(both[i], L.mont_scalar(pow(c, -1, P))))
         return out

@@ -1270,16 +1270,76 @@ def test_batched_gkr_on_cuda_equals_per_instance(cuda):
     alone_rngs = [T.Blake2b512Rng.setup() for _ in insts]
     alone = [T.GKRRoundSumcheck.prove(r, *i, device=cuda).serialize_uncompressed()
              for r, i in zip(alone_rngs, insts)]
+    from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
+
     before = TC.transcript_step_batched.launches
-    inits = [f.launches for f in _init_counters()]
+    batched = (GK.weight_reduce_batched, GK.finish_sums, GK.pair_slots, GK.weight_reduce)
+    inits = [f.launches for f in batched]
     rngs = [T.Blake2b512Rng.setup() for _ in insts]
     proofs = BatchedGKRRoundSumcheck.prove(rngs, *(list(t) for t in zip(*insts)), device=cuda)
     assert TC.transcript_step_batched.launches - before == 2 * dim
-    # each instance's phase inits into its slice of the batched pair: one
-    # fused launch a phase
-    assert [f.launches - b for f, b in zip(_init_counters(), inits)] == [2 * batch, 0, 0]
+    # every instance's phase inits into its slice of the batched pair: one
+    # launch a phase for all of them (the weight reduce's instance axis), no
+    # single launch
+    assert [f.launches - b for f, b in zip(batched, inits)] == [2, 0, 0, 0]
     assert [p.serialize_uncompressed() for p in proofs] == alone
     assert [T.Fr.rand(r) for r in rngs] == [T.Fr.rand(r) for r in alone_rngs]
+
+
+@pytest.mark.parametrize("skew", [0, (1 << 16) + 1], ids=["plans", "skewed"])
+def test_batched_weight_reduce_matches_singles_and_plain(cuda, skew):
+    """The weight reduce's instance axis: one launch a phase for 3
+    instances at dim 9 whose tile plans differ (their entries' counts and
+    segments differ; with `skew`, instance 1 also holds one segment of 2^16
+    + 1 entries cut across blocks, on its own scratch rows), equal to 3
+    single launches and to the plain version: phase 1's pairs and carries,
+    phase 2's pairs over each instance's column of (dim, 3, 16) challenge
+    rows and the final fold of its own phase-1 pair; the scratch left
+    zero."""
+    from sumcheck_tpu_torch.ops import gkr_init as GI
+    from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
+
+    dim, batch = 9, 3
+    inputs = [_gkr_split(dim, (2 + b) << dim, 50 + b, cuda, skew if b == 1 else 0)
+              for b in range(batch)]
+    splits, f2s, f3s, g_rs, _u = zip(*inputs)
+    assert len({len(s.plan_x.items) for s in splits}) == batch
+    u = torch.stack([x[4] for x in inputs], dim=1)  # (dim, B, 16)
+    shape = (batch, 2, 8, 1 << (dim - 1))
+    pairs = {k: [torch.zeros(shape, dtype=torch.int32, device=cuda) for _ in range(4)]
+             for k in ("batched", "singles", "plain")}
+    counts = [GK.weight_reduce_batched.launches, GK.weight_reduce.launches]
+    carries = {"batched": GI.phase1_pairs(splits, g_rs, f3s, f2s, dim, *pairs["batched"][:2])}
+    lo, hi = pairs["singles"][:2]
+    carries["singles"] = [GI.phase1_pair(s, g, f3, f2, dim, out=(lo[b], hi[b]))[2]
+                          for b, (s, f2, f3, g) in enumerate(zip(splits, f2s, f3s, g_rs))]
+    lo, hi = pairs["plain"][:2]
+    carries["plain"] = GK.weight_reduce_batched_ref([
+        GK.Instance(s.gbits, s.vals, g, s.last_x, s.plan_x, (lo[b], hi[b]), f3=f3, y=s.y_rev,
+                    to_y=s.to_y, slot=(f2, None))
+        for b, (s, f2, f3, g) in enumerate(zip(splits, f2s, f3s, g_rs))], dim)
+    lo1, hi1 = pairs["batched"][:2]
+    fold = (lo1[:, :, :, :1], hi1[:, :, :, :1])
+    GI.phase2_pairs(*fold, u[dim - 1], splits, carries["batched"], u, f3s, dim,
+                    *pairs["batched"][2:])
+    lo, hi = pairs["singles"][2:]
+    for b, (s, f3) in enumerate(zip(splits, f3s)):
+        GI.phase2_pair(fold[0][b], fold[1][b], u[dim - 1, b], s, carries["batched"][b], u[:, b],
+                       f3, dim, out=(lo[b], hi[b]))
+    lo, hi = pairs["plain"][2:]
+    GK.weight_reduce_batched_ref([
+        GK.Instance(s.x_y, carries["batched"][b], u[:, b], s.last_y, s.plan_y, (lo[b], hi[b]),
+                    slot=(f3, (fold[0][b], fold[1][b], u[dim - 1, b], 1)))
+        for b, (s, f3) in enumerate(zip(splits, f3s))], dim)
+    torch.cuda.synchronize()
+    assert [GK.weight_reduce_batched.launches - counts[0],
+            GK.weight_reduce.launches - counts[1]] == [2, 2 * batch]
+    for kind in ("singles", "plain"):
+        assert all(torch.equal(a, b) for a, b in zip(pairs["batched"], pairs[kind])), kind
+        assert all(torch.equal(a, b) for a, b in zip(carries["batched"], carries[kind])), kind
+    assert all(p.any() for p in pairs["batched"])
+    scratch, arrived = GK._scratch(cuda, 1)
+    assert not scratch.any() and not arrived.any()
 
 
 # --- the multi-device provers on the card: S = 2 ranks
@@ -1625,6 +1685,243 @@ def test_microbench_on_cuda(cuda, tmp_path):
     assert res["probes"]["compress"]["clocks"] > 0
     stages = [res["stages"][name]["launches"] for name in MB.STAGES]
     assert stages[0] > 0 and stages == sorted(stages)  # cumulative prefixes
+
+
+# ---------------------------------------------------------------------------
+# fault F4 on the card: the wide route of every kernel
+# ---------------------------------------------------------------------------
+
+
+def _f4_poly(name: str, nv: int, seed: int = 0):
+    """F4's structure `name` (`tests/f4_cases.py`) over random tables at
+    `nv`."""
+    from f4_cases import f4_structure
+
+    _nv, products, count = f4_structure(name)
+    return polynomial_from_numpy(nv, _tables(seed, nv, count), products)
+
+
+def _wide_plan(name: str):
+    """The fold plan's (slots, products, degree) of an F4 structure: each
+    past the by-value plan's maxima."""
+    from sumcheck_tpu_torch.protocol.device_prover import _fold_plan
+
+    poly = _f4_poly(name, 1)
+    products, _scale, slots, _ones = _fold_plan(poly)
+    assert RC.route(slots, products, poly.max_multiplicands) == "wide"
+    return slots, products, poly.max_multiplicands
+
+
+@pytest.mark.parametrize("name", ["a", "b", "c", "wide"])
+@pytest.mark.parametrize("mode", ["nofold", "nofold_coeffs", "fold", "step_fold",
+                                  "step_fold_coeffs", "fold_mxu", "batched_nofold",
+                                  "batched_fold", "batched_step_fold"])
+def test_wide_round_kernels_match_plain(cuda, mode, name):
+    """Every round kernel on the wide route (F4's structures: 17 and 61
+    slots, 17 and 41 products, degrees 9 and 20) against its plain version
+    at ragged extents: sums and tables array-equal."""
+    slots, products, degree = _wide_plan(name)
+    batch = 3 if mode.startswith("batched") else None
+    for extent in (1, 100, 128):
+        seed = 7 * extent + len(mode)
+        if batch:
+            lo, hi = _batched_pair(seed, batch, slots, 9, cuda)
+            r = _challenges(batch, seed, cuda)
+        else:
+            lo, hi = _edge_pair(seed, slots, 9, cuda)
+            r = torch.from_numpy(L.mont_scalar(seed)[:, 0].astype(np.int32)).to(cuda)
+        coeffs = _coeffs(products, cuda) if mode.endswith("coeffs") else None
+        l1, h1, l2, h2 = lo.clone(), hi.clone(), lo.cpu(), hi.cpu()
+        if mode in ("step_fold", "step_fold_coeffs", "batched_step_fold"):
+            w = 2 * extent
+            l1, h1 = l1[..., :w].contiguous(), h1[..., :w].contiguous()
+            l2, h2 = l2[..., :w].contiguous(), h2[..., :w].contiguous()
+            if batch:
+                (l1, h1), got = RC.round_step_fold_batched(l1, h1, r, products, degree)
+                (l2, h2), want = RC.round_step_fold_batched_ref(l2, h2, r.cpu(), products,
+                                                                degree)
+            else:
+                c2 = None if coeffs is None else coeffs.cpu()
+                (l1, h1), got = RC.round_step_fold(l1, h1, r, products, degree, coeffs)
+                (l2, h2), want = RC.round_step_fold_ref(l2, h2, r.cpu(), products, degree, c2)
+        elif mode == "nofold_coeffs":
+            l1, h1 = l1[..., :extent].contiguous(), h1[..., :extent].contiguous()
+            l2, h2 = l2[..., :extent].contiguous(), h2[..., :extent].contiguous()
+            got = RC.round_step_nofold(l1, h1, products, degree, coeffs)
+            want = RC.round_step_nofold_ref(l2, h2, products, degree, coeffs.cpu())
+        elif mode == "nofold":
+            got = RC.round_nofold(l1, h1, products, degree, extent)
+            want = RC.round_nofold_ref(l2, h2, products, degree, extent)
+        elif mode == "batched_nofold":
+            got = RC.round_nofold_batched(l1, h1, products, degree, extent)
+            want = RC.round_nofold_batched_ref(l2, h2, products, degree, extent)
+        elif mode == "batched_fold":
+            got = RC.round_fold_batched(l1, h1, r, products, degree, extent)
+            want = RC.round_fold_batched_ref(l2, h2, r.cpu(), products, degree, extent)
+        else:
+            fn = RC.round_fold_mxu if mode == "fold_mxu" else RC.round_fold
+            got = fn(l1, h1, r, products, degree, extent)
+            want = RC.round_fold_ref(l2, h2, r.cpu(), products, degree, extent)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), extent
+        assert torch.equal(l1.cpu(), l2) and torch.equal(h1.cpu(), h2), extent
+
+
+def test_wide_route_is_chosen_by_shape(cuda):
+    """Today's maxima take the by-value plan, one past any of them the wide
+    route; the main path's 2 x 3 at degree 3 is on the plan route."""
+    assert RC.route(6, ((0, 1, 2), (3, 4, 5)), 3) == "plan"
+    assert RC.route(RC.MAX_SLOTS, ((0,),) * RC.MAX_PRODUCTS, RC.MAX_DEGREE) == "plan"
+    assert RC.route(RC.MAX_SLOTS + 1, ((0,),), 1) == "wide"
+    assert RC.route(2, ((0,),) * (RC.MAX_PRODUCTS + 1), 1) == "wide"
+    assert RC.route(9, (tuple(range(9)),), 9) == "wide"
+
+
+@pytest.mark.parametrize("degree", [9, 20, 33])
+def test_wide_transcript_matches_host(cuda, degree):
+    """The transcript step past degree 8 (its byte stream in dynamic shared
+    memory, the elements in turns of 32 threads) from pending fills of 0,
+    64 and 128 bytes, over rounds up to the first that rejects a draw:
+    messages, challenges and final state equal to the host rng's, the
+    first round equal to the plain version's; and the batched step equal to
+    the plain one."""
+    from sumcheck_tpu_torch.protocol.device_prover import lift_transcripts, restore_transcript
+
+    for blen in (0, 64, 128):
+        prefix = bytes(range(128 + blen)) if blen else b""
+        gen = np.random.default_rng(1000 * degree + blen)
+        sums = gen.integers(0, 1 << 40, size=(200, degree + 1, 16), dtype=np.int64)
+        values, draws, host = _host_rounds(prefix, sums, degree)
+        rounds = len(values)
+        rng = T.Blake2b512Rng.setup()
+        rng.feed_bytes(prefix)
+        state = lift_transcript(rng, cuda)
+        msgs = torch.empty((rounds, 16, degree + 1), dtype=torch.int32, device=cuda)
+        rs = torch.empty((rounds, 16), dtype=torch.int32, device=cuda)
+        state_p = state.cpu()
+        msgs_p, rs_p = torch.empty_like(msgs[:1]).cpu(), torch.empty_like(rs[:1]).cpu()
+        sums_d = torch.from_numpy(sums[:rounds]).to(cuda)
+        for j in range(rounds):
+            TC.transcript_step(state, sums_d[j], msgs, rs, j)
+        TC.transcript_step_ref(state_p, torch.from_numpy(sums[0]), msgs_p, rs_p, 0)
+        torch.cuda.synchronize()
+        assert torch.equal(msgs[0].cpu(), msgs_p[0]) and torch.equal(rs[0].cpu(), rs_p[0])
+        m = msgs.cpu().numpy().astype(np.int64)
+        r = rs.cpu().numpy().astype(np.int64)
+        for j in range(rounds):
+            assert [sum(int(m[j, i, t]) << (16 * i) for i in range(16))
+                    for t in range(degree + 1)] == values[j], (blen, j)
+            assert sum(int(r[j, i]) << (16 * i) for i in range(16)) == draws[j], (blen, j)
+        probe = T.Blake2b512Rng.setup()
+        restore_transcript(probe, state.cpu())
+        assert probe.state_tuple() == host.state_tuple(), blen
+    rngs = []
+    for b in range(3):
+        rngs.append(T.Blake2b512Rng.setup())
+        rngs[-1].feed_bytes(bytes(range(8 * (5 * b))))
+    state = lift_transcripts(rngs, cuda)
+    state_p = state.cpu()
+    gen = np.random.default_rng(degree)
+    sums = torch.from_numpy(gen.integers(0, 1 << 40, size=(6, 3, degree + 1, 16),
+                                         dtype=np.int64)).to(cuda)
+    msgs = torch.empty((6, 3, 16, degree + 1), dtype=torch.int32, device=cuda)
+    rs = torch.empty((6, 3, 16), dtype=torch.int32, device=cuda)
+    msgs_p, rs_p = torch.empty_like(msgs).cpu(), torch.empty_like(rs).cpu()
+    for j in range(6):
+        TC.transcript_step_batched(state, sums[j], msgs, rs, j)
+        TC.transcript_step_batched_ref(state_p, sums[j].cpu(), msgs_p, rs_p, j)
+    torch.cuda.synchronize()
+    assert torch.equal(state.cpu(), state_p)
+    assert torch.equal(msgs.cpu(), msgs_p) and torch.equal(rs.cpu(), rs_p)
+
+
+def test_transcript_ceiling_is_measured_and_raised(cuda):
+    """The step's one ceiling, the degree whose byte stream fills a block's
+    opt-in shared memory, lies far past degree 32; one past it raises
+    `SumcheckError` naming it, before any launch."""
+    top = TC.max_degree(cuda.index)
+    assert top > 1000
+    before = TC.transcript_step.launches
+    state = lift_transcript(T.Blake2b512Rng.setup(), cuda)
+    sums = torch.zeros((top + 2, 16), dtype=torch.int64, device=cuda)
+    msgs = torch.empty((1, 16, top + 2), dtype=torch.int32, device=cuda)
+    rs = torch.empty((1, 16), dtype=torch.int32, device=cuda)
+    with pytest.raises(T.SumcheckError, match="ceiling"):
+        TC.transcript_step(state, sums, msgs, rs, 0)
+    assert TC.transcript_step.launches == before
+
+
+@pytest.mark.parametrize("slots", [17, 40, 300])
+def test_wide_pair_init_matches_plain(cuda, slots):
+    """The pair init past 16 slots (its plan staged in device memory):
+    copies, scalings, a scaled copy by 0 and a ones slot, at a four-lane
+    width and at a one-lane one, against its plain version; the source
+    tables stay as they were."""
+    from sumcheck_tpu_torch.ops import init_cuda as IC
+
+    for nv in (9, 2):
+        tables = [_packed(t).to(cuda) for t in _tables(slots + nv, nv, 5)]
+        before = [t.clone() for t in tables]
+        specs = tuple((u % 5, None if u % 3 else u + 1) for u in range(slots - 2)) \
+            + ((1, 0), (None, 1))
+        half = 1 << (nv - 1)
+        lo = torch.empty((slots, 8, half), dtype=torch.int32, device=cuda)
+        hi = torch.empty_like(lo)
+        IC.pair_init(lo, hi, tables, specs)
+        lo_p = torch.empty((slots, 8, half), dtype=torch.int32)
+        hi_p = torch.empty_like(lo_p)
+        IC.pair_init_ref(lo_p, hi_p, [t.cpu() for t in tables], specs)
+        torch.cuda.synchronize()
+        assert torch.equal(lo.cpu(), lo_p) and torch.equal(hi.cpu(), hi_p), nv
+        assert all(torch.equal(a, b) for a, b in zip(tables, before))
+
+
+@pytest.mark.parametrize("name", ["a", "b", "c", "wide"])
+@pytest.mark.parametrize("chain", ["generic", "persize", "mxu"])
+def test_f4_prove_on_cuda_equals_cpu(cuda, chain, name, monkeypatch):
+    """F4's structures proved on the card on every chain: proof bytes and
+    final transcript equal to the CPU's, the proof verifies, and the
+    launches are the chain's (no host fallback)."""
+    monkeypatch.setattr(get_config(), "chain_impl", "persize" if chain == "persize" else "generic")
+    if chain == "mxu":
+        monkeypatch.setattr(get_config(), "mxu_fold", "kernel")
+        monkeypatch.setattr(get_config(), "ab", True)
+    nv = 8
+    poly = _f4_poly(name, nv, seed=3)
+    counters = {"generic": (RC.round_nofold, RC.round_fold),
+                "persize": (RC.round_step_nofold, RC.round_step_fold),
+                "mxu": (RC.round_nofold, RC.round_fold_mxu)}[chain] + (TC.transcript_step,)
+    before = [f.launches for f in counters]
+    rng = T.Blake2b512Rng.setup()
+    proof, _state = T.MLSumcheck.prove_as_subprotocol(rng, poly, device=cuda)
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, nv - 1, nv]
+    rng_cpu = T.Blake2b512Rng.setup()
+    proof_cpu, _ = T.MLSumcheck.prove_as_subprotocol(rng_cpu, poly, device="cpu")
+    assert serialize_proof(proof) == serialize_proof(proof_cpu)
+    assert rng.state_tuple() == rng_cpu.state_tuple()
+    sub = T.MLSumcheck.verify(poly.info(), T.MLSumcheck.extract_sum(proof), proof)
+    assert poly.evaluate(sub.point) == sub.expected_evaluation
+
+
+def test_f4_batch_and_interactive_on_cuda_equal_cpu(cuda):
+    """F4 (a) as a batch of 3 on the card (two launches a round, one pair
+    init each) and on the interactive tier (each round's message and the
+    final tables), equal to the CPU's."""
+    from sumcheck_tpu_torch.batch import BatchedMLSumcheck
+    from sumcheck_tpu_torch.ops import init_cuda as IC
+
+    nv = 8
+    polys = [_f4_poly("a", nv, seed=s) for s in range(3)]
+    counters = (RC.round_nofold_batched, RC.round_fold_batched, IC.pair_init)
+    before = [f.launches for f in counters]
+    got = BatchedMLSumcheck.prove(polys, device=cuda)
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, nv - 1, 3]
+    want = BatchedMLSumcheck.prove(polys, device="cpu")
+    assert [serialize_proof(p) for p in got] == [serialize_proof(p) for p in want]
+    msgs, tables = _interactive(polys[0], cuda)
+    want_msgs, want_tables = _interactive(polys[0], "cpu")
+    assert msgs == want_msgs
+    assert all(np.array_equal(a, b) for a, b in zip(tables, want_tables))
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,9 @@ tolerance 0 (proof bytes, challenges and final transcript states):
 
 - ML nv=6 and 8, two products of three multiplicands, on the generic chain,
   the per-size chain, the generic chain in the MXU fold mode and the
-  host-transcript loop (a transcript pre-fed 3 bytes);
+  host-transcript loop (a transcript pre-fed 3 bytes); the same paths for
+  fault F4's structures (a) and (b) (`tests/f4_cases.py`: 17 slots at nv=4,
+  degree 9 at nv=3), which take the kernels' wide route;
 - the batched ML prover, 4 x nv=6 on both chains, and the batched GKR
   prover, 2 x dim 4, against per-instance JAX proves;
 - GKR dim 4 and 5 on every path, and dim 9 with colliding f1 entries on
@@ -66,6 +68,7 @@ FIXTURE_GKR_DIM = 5
 FR_RAND_SEED = b"bn254 fr_rand fixture seed"
 FR_RAND_DRAWS = 32
 SHARDS = (2, 4)  # world sizes of the sharded cases
+F4_BN254 = ("a", "b")  # fault F4's structures (`tests/f4_cases.py`) proved under BN254
 
 
 # --- inputs as plain arrays (both packages build theirs from them)
@@ -385,6 +388,20 @@ def child(out_path: str) -> None:
                      tp.evaluate(sub.point) == sub.expected_evaluation, rejected],
             "jax": [[x.v for x in jsub.point], jsub.expected_evaluation.v, True, True]}
 
+    # fault F4's structures (a) and (b), past the kernels' by-value plan
+    from f4_cases import f4_structure
+
+    for name in F4_BN254:
+        nv, products, count = f4_structure(name)
+        a = {"nv": nv, "tables": _tables(np.random.default_rng(60 + count), nv, count),
+             "products": products}
+        jp = jpoly(a)
+        ref = {"": j_ml(jp), "abc": j_ml(jp, b"abc")}
+        for path in ML_PATHS:
+            _proof, got = t_ml(_port_poly(a), path)
+            out[f"f4_{name}_{path}"] = {"port": got, "jax": ref["abc" if path == "host" else ""]}
+    set_path("generic")
+
     for dim, nnz, seed in ((4, 11, 4), (5, 32, 5)):
         a = _gkr_arrays(dim, nnz, seed)
         ref = {"": j_gkr(jgkr(a)), "abc": j_gkr(jgkr(a), b"abc")}
@@ -582,6 +599,7 @@ class _Recorder:
 CASES = (
     ["constants"]
     + [f"ml_nv{nv}_{p}" for nv in (6, 8) for p in ML_PATHS + ("verify",)]
+    + [f"f4_{name}_{p}" for name in F4_BN254 for p in ML_PATHS]
     + [f"gkr_dim{d}_{p}" for d in (4, 5) for p in GKR_PATHS + ("verify",)]
     + [f"gkr_dim9_colliding_{p}" for p in GKR_PATHS] + ["reduce_wide"]
     + ["batch_ml_generic", "batch_ml_persize", "batch_gkr_generic", "batch_ml_zero_coefficient"]

@@ -435,6 +435,36 @@ def test_fused_phase_inits_match_jax_bodies(which, case5, case9):
     assert torch.equal(again[0], lo2) and torch.equal(again[1], hi2)
 
 
+def test_batched_phase_pairs_match_jax_bodies(case5):
+    """The batched prover's phase inits (`phase1_pairs`, `phase2_pairs`:
+    one weight-reduce launch a phase for B instances on the card, its plain
+    version `weight_reduce_batched_ref` here) over two dim-5 instances of
+    different f1s, each instance into its slice of one (2, 2, 8, 16) pair,
+    phase 2 over each instance's column of (dim, 2, 16) challenge rows and
+    the final fold of its own phase-1 pair: each instance's pairs and
+    carry equal the JAX package's `_phase1_pair_body` and
+    `_phase2_pair_body` on it (the vmapped `_bgkr_phase1` / `_bgkr_phase2`
+    of `sumcheck_tpu/batch.py:565-580`)."""
+    cases = [case5, _case(5, 44, bodies_only=True)]
+    dim = 5
+    ports = [p for _j, p in cases]
+    shape = (2, 2, 8, 1 << (dim - 1))
+    lo, hi, lo2, hi2 = (torch.full(shape, 7, dtype=torch.int32) for _ in range(4))
+    ws = GI.phase1_pairs([p["split"] for p in ports], [p["g"] for p in ports],
+                         [p["f3"] for p in ports], [p["f2"] for p in ports], dim, lo, hi)
+    u = torch.stack([p["u"] for p in ports], dim=1)  # (dim, B, 16)
+    GI.phase2_pairs(lo[:, :, :, :1], hi[:, :, :, :1], u[dim - 1], [p["split"] for p in ports],
+                    ws, u, [p["f3"] for p in ports], dim, lo2, hi2)
+    for b, (j, p) in enumerate(cases):
+        jlo, jhi, jw = j["pair1"]
+        for (glo, ghi), (wlo, whi) in (((lo[b], hi[b]), (jlo, jhi)),
+                                       ((lo2[b], hi2[b]), j["pair2"])):
+            got, want = _pair_digits(glo, ghi), _jax_pair(wlo, whi)
+            assert _ints(got[0]) == _ints(want[0]), b
+            np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_array_equal(_carry_columns(ws[b], p["split"].to_y), np.asarray(jw))
+
+
 def test_fused_slot_refuses_an_overlapping_pair(case):
     """The fused launch's other slot: a destination pair that overlaps the
     one-lane pair its final fold reads (the same pair, or a view sharing

@@ -213,46 +213,57 @@ def _slot_limit_polys(tables: int, nv: int = 3):
 
 @pytest.mark.parametrize("tables", [15, 16])
 def test_zero_coefficient_at_the_slot_limit(tables):
-    """F3 at the kernels' 16 slots (`init_cuda.MAX_SLOTS`). 15 tables: the
-    zero product's copy slot makes 16, and every round's message and tables
-    equal the JAX package's. 16 tables: a copy would make 17, so the plan
-    scales the table by 0 in place, as the JAX plan does; every message
-    still equals the JAX package's, and only `flattened_ml_extensions`
-    refuses the wiped table."""
-    from sumcheck_tpu_torch.ops import init_cuda
+    """F3 at and past the by-value plan's 16 slots (`init_cuda.MAX_SLOTS`).
+    The zero product always takes a copy slot: 16 slots for 15 tables, 17
+    (the wide route) for 16. Every round's message and the tables
+    (`flattened_ml_extensions`, the zero product's table included) equal
+    the JAX package's."""
+    from sumcheck_tpu_torch.ops import init_cuda, round_cuda
     from sumcheck_tpu_torch.protocol import device_prover as TD
 
     jp, tp = _slot_limit_polys(tables)
-    _products, scale_plan, slots, ones = TD._fold_plan(tp)
-    assert slots == init_cuda.MAX_SLOTS == 16 and not ones
-    assert scale_plan[0] == ((15, 0, 0) if tables == 15 else (0, 0, 0))
+    products, scale_plan, slots, ones = TD._fold_plan(tp)
+    assert slots == tables + 1 and not ones
+    assert scale_plan[0] == (tables, 0, 0)
+    assert (slots > init_cuda.MAX_SLOTS) == (tables == 16)
+    assert round_cuda.route(slots, products, tp.max_multiplicands) == \
+        ("wide" if tables == 16 else "plan")
     rounds = 0
     for jst, st, jm, m in _rounds(jp, tp, seed=tables):
         assert m.serialize_uncompressed() == jm.serialize_uncompressed()
         want = [np.asarray(t).tolist() for t in jst.flattened_ml_extensions]
-        if tables == 15:
-            assert [t.tolist() for t in st.flattened_ml_extensions] == want
-        else:
-            with pytest.raises(T.SumcheckError, match="coefficient 0 in place"):
-                st.flattened_ml_extensions
+        assert [t.tolist() for t in st.flattened_ml_extensions] == want
         rounds += 1
     assert rounds == tp.num_variables
 
 
 def test_plan_past_the_slot_limit_raises_before_any_launch(monkeypatch):
-    """18 tables need 18 slots even in place: `prover_init` and the prove
-    raise `SumcheckError` from the plan, before the pair-init wrapper is
-    called."""
+    """18 tables need 19 slots with the zero product's copy: past the
+    by-value plan's 16, so the kernels' wide route. Nothing raises any
+    more: `prover_init` makes one pair init with every slot, its messages
+    and tables equal the JAX package's round by round, and the prove's
+    bytes equal the JAX host engine's."""
+    from sumcheck_tpu.ml_sumcheck import serialize_proof as j_serialize
+    from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
     from sumcheck_tpu_torch.ops import init_cuda
 
+    from test_torch_prover import jax_host_prove
+
     calls = []
-    monkeypatch.setattr(init_cuda, "pair_init", lambda *a, **k: calls.append(1))
-    _jp, tp = _slot_limit_polys(18)
-    with pytest.raises(T.SumcheckError, match="18 table slots"):
-        T.IPForMLSumcheck.prover_init(tp, device="cpu")
-    with pytest.raises(T.SumcheckError, match="18 table slots"):
-        T.MLSumcheck.prove(tp, device="cpu")
-    assert calls == []
+    real = init_cuda.pair_init
+    monkeypatch.setattr(init_cuda, "pair_init",
+                        lambda lo, hi, tabs, slots: calls.append(len(slots))
+                        or real(lo, hi, tabs, slots))
+    jp, tp = _slot_limit_polys(18)
+    st = T.IPForMLSumcheck.prover_init(tp, device="cpu")
+    assert calls == [19] and st.stacked[0].shape[0] == 19
+    for jst, st, jm, m in _rounds(jp, tp, seed=18):
+        assert m.serialize_uncompressed() == jm.serialize_uncompressed()
+        assert [t.tolist() for t in st.flattened_ml_extensions] == \
+            [np.asarray(t).tolist() for t in jst.flattened_ml_extensions]
+    proof = T.MLSumcheck.prove(tp, device="cpu")
+    assert serialize_proof(proof) == j_serialize(jax_host_prove(jp)[0])
+
 
 def _gkr_case(dim: int, seed: int):
     rnd = random.Random(seed)

@@ -25,7 +25,7 @@ from sumcheck_tpu_torch.utils.config import get_config
 COUNTERS = (RC.round_nofold, RC.round_fold, RC.round_step_nofold, RC.round_step_fold,
             RC.round_fold_mxu, TC.transcript_step, IC.pair_init, RC.round_nofold_batched,
             RC.round_fold_batched, RC.round_step_fold_batched, TC.transcript_step_batched,
-            GK.weight_reduce, GK.finish_sums, GK.pair_slots)
+            GK.weight_reduce, GK.weight_reduce_batched, GK.finish_sums, GK.pair_slots)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -179,11 +179,16 @@ def test_launch_counters_name_every_wrapper():
     assert all(f.__name__ == name for name, f in counters.items())
 
 
-def test_kernel_maxima_are_checked_before_a_build():
-    """A structure beyond the kernel's compile-time maxima raises before
-    any build is attempted (the maxima mirror `csrc/round_common.cuh`,
-    which both round kernel sources include, and `csrc/transcript.cu`)."""
+def test_kernel_maxima_are_checked_before_a_build(monkeypatch):
+    """The by-value plan's maxima mirror `csrc/round_common.cuh` (which
+    both round kernel sources include) and `csrc/transcript.cu`, and the
+    route is chosen by shape from them before any build: within them the
+    by-value plan, past any of them the wide route, whose entries the
+    sources hold. The transcript step's one ceiling, measured on the card
+    (`max_degree`), raises `SumcheckError` naming it before any launch or
+    build (the measurement stubbed here)."""
     from sumcheck_tpu_torch.ops import cuda_build
+    from sumcheck_tpu_torch.ops import init_cuda as IC
 
     src = (cuda_build.CSRC / "round_common.cuh").read_text()
     for source in (RC.SOURCE, RC.SOURCE_MXU):
@@ -191,12 +196,25 @@ def test_kernel_maxima_are_checked_before_a_build():
     for name, value in (("kMaxSlots", RC.MAX_SLOTS), ("kMaxProducts", RC.MAX_PRODUCTS),
                         ("kMaxFactors", RC.MAX_FACTORS), ("kMaxDegree", RC.MAX_DEGREE)):
         assert f"constexpr int {name} = {value};" in src
+    assert "struct WidePlan" in src and "wide_block_sums" in src
+    assert "int sc_round_launch_wide(" in RC.SOURCE.read_text()
+    assert "int sc_fold_mxu_launch_wide(" in RC.SOURCE_MXU.read_text()
+    assert "int sc_pair_init_launch_wide(" in IC.SOURCE.read_text()
+    assert f"constexpr int kMaxSlots = {IC.MAX_SLOTS};" in IC.SOURCE.read_text()
     tsrc = TC.SOURCE.read_text()
-    assert f"constexpr int kMaxDegree = {TC.MAX_DEGREE};" in tsrc
+    assert "constexpr int kMaxDegree = 8;" in tsrc and TC.MAX_DEGREE == 8
+    assert "int sc_transcript_max_degree(" in tsrc
     assert f"constexpr int kStateWords = {TC.STATE_WORDS};" in tsrc
-    lo = torch.zeros((RC.MAX_SLOTS + 1, 8, 4), dtype=torch.int32)
-    with pytest.raises(ValueError):
-        RC._launch(False, lo, lo, None, ((0, 1),), 2, 4)
+    assert RC.route(RC.MAX_SLOTS, ((0, 1),) * RC.MAX_PRODUCTS, RC.MAX_DEGREE) == "plan"
+    for slots, products, degree in ((RC.MAX_SLOTS + 1, ((0, 1),), 2),
+                                    (2, ((0, 1),) * (RC.MAX_PRODUCTS + 1), 2),
+                                    (9, (tuple(range(9)),), RC.MAX_DEGREE + 1)):
+        assert RC.route(slots, products, degree) == "wide"
+    monkeypatch.setattr(TC, "max_degree", lambda index: 40)
+    monkeypatch.setattr(TC, "_library", lambda: pytest.fail("built"))
+    TC._check_ceiling(40, torch.device("cuda", 0))
+    with pytest.raises(T.SumcheckError, match="ceiling on this card, 40"):
+        TC._check_ceiling(41, torch.device("cuda", 0))
 
 
 def test_cpu_prove_launches_no_kernel(monkeypatch):

@@ -25,6 +25,11 @@ provers give those bytes), tolerance 0:
   every transcript untouched;
 - `ChainedShardedProver.auto(S)` and `ShardedGKRProver.auto(S)`: the same
   proofs, and `auto` with a size other than the group's raises;
+- fault F4's structures at S = 2 (`tests/f4_cases.py`: 17 tables at
+  nv=4; a product of 9 tables, 17 pairs of 7 tables, 18 tables with a zero
+  coefficient and a product of 20 tables beside 40 at nv=3), on the
+  chained and the host-transcript sharded provers, against the JAX
+  package's single-device prove;
 - `ShardedProver` (`parallel/prover.py`, the transcript on the host) over a
   `Blake2b512Rng`, an unaligned one and a transcript of another class,
   against the JAX package's `ShardedProver(default_mesh(S))` on the
@@ -244,6 +249,9 @@ def _rank_cases(size: int, cases: dict) -> dict:
                      "tables": [t.tolist() for t in state.flattened_ml_extensions],
                      "collectives": comm.all_reduce_sum_.calls}
 
+    for name, a in cases.get("f4", {}).items():
+        ml_prove(f"f4_{name}", a)
+        sp_prove(f"sp_f4_{name}", a, "aligned")
     for transcript in SP_TRANSCRIPTS:
         sp_prove(f"sp_{transcript}", cases["ml"], transcript)
     sp_prove("sp_boundary", cases["boundary"], "aligned")
@@ -304,9 +312,25 @@ def _cases(size: int) -> dict:
 
     poly, _total = random_list_of_products(6, (2, 4), 2, random.Random(0x5A5A))
     dim = _log2(size)  # 2^(dim-1) < size: too small to shard
-    return {"ml": _ml_arrays(poly), "boundary": _boundary_arrays(size),
-            "gkr": _gkr_arrays(*_gkr_shape(size), seed=size),
-            "gkr_small": _gkr_arrays(dim, 1, seed=99), "batch": _batch_arrays(BATCH[size])}
+    out = {"ml": _ml_arrays(poly), "boundary": _boundary_arrays(size),
+           "gkr": _gkr_arrays(*_gkr_shape(size), seed=size),
+           "gkr_small": _gkr_arrays(dim, 1, seed=99), "batch": _batch_arrays(BATCH[size])}
+    if size == F4_SIZE:
+        out["f4"] = {name: _f4_arrays(name) for name in F4_CASES}
+    return out
+
+
+F4_SIZE = 2
+F4_CASES = ("a", "b", "c", "tables18", "wide")
+
+
+def _f4_arrays(name: str) -> dict:
+    """Fault F4's structure `name` (`tests/f4_cases.py`) as arrays."""
+    from f4_cases import f4_structure
+
+    nv, products, count = f4_structure(name)
+    return {"nv": nv, "tables": _tables(np.random.default_rng(40 + count), nv, count),
+            "products": products}
 
 
 def _jax_reference(cases: dict, size: int) -> dict:
@@ -365,6 +389,8 @@ def _jax_reference(cases: dict, size: int) -> dict:
         n = len(cases["batch"])
         sps = {f"sp_{t}": sp(cases["ml"], t) for t in SP_TRANSCRIPTS}
         sps["sp_boundary"] = sp(cases["boundary"], "aligned")
+        for name, a in cases.get("f4", {}).items():
+            sps[f"f4_{name}"] = sps[f"sp_f4_{name}"] = ml(a)
         return {"ml": ml(cases["ml"]), "boundary": ml(cases["boundary"]),
                 "ml_unaligned": ml(cases["ml"], b"abc"), "gkr": gkr(cases["gkr"]),
                 "gkr_unaligned": gkr(cases["gkr"], b"abc"),
@@ -450,6 +476,18 @@ def test_gkr_matches_jax(run):
     for got, want in _each_rank(run, "gkr"):
         assert {k: got[k] for k in want} == want
         assert got["collectives"] == 2 * (1 + dim - _log2(size) + (size > 1))
+
+
+def test_f4_structures_match_jax(runs):
+    """F4's five structures at S = 2: every rank's chained sharded prove and
+    `ShardedProver` prove give the JAX package's single-device proof,
+    randomness, final transcript and final tables."""
+    size, ranks, ref = runs[F4_SIZE]
+    for got in ranks:
+        for name in F4_CASES:
+            for key in (f"f4_{name}", f"sp_f4_{name}"):
+                want = ref[key]
+                assert {k: got[key][k] for k in want} == want, key
 
 
 def test_batch_matches_each_instance(run):

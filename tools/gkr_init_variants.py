@@ -115,7 +115,7 @@ def in_list(order: str) -> list:
     const int4 item = __ldg(a.plan + which);
 """),
         ("  const unsigned grid = (unsigned)(items < most ? items : most);\n",
-         "  const int work = items + slot_items;\n"
+         "  const int work = items + a.slot.items;\n"
          "  const unsigned grid = (unsigned)(work < most ? work : most);\n"),
     ]
 
@@ -185,8 +185,8 @@ GLOBAL_EQ = [
     ('#include "field.cuh"\n',
      '#include "field.cuh"\n\nstatic const void* g_variant_eq = nullptr;  // the next launch\'s\n'),
     (R_FIELD, R_FIELD + "  const uint32_t* eq;            // the half tables in global memory\n"),
-    ("  a.r_stride = r_stride;\n",
-     "  a.r_stride = r_stride;\n  a.eq = static_cast<const uint32_t*>(g_variant_eq);\n"),
+    ("  a->r_stride = sh.r_stride;\n",
+     "  a->r_stride = sh.r_stride;\n  a->eq = static_cast<const uint32_t*>(g_variant_eq);\n"),
     ("// ---------------------------------------------------------------------------\n"
      "// the fused weight fold and segment sum\n",
      EQ_HALVES_KERNEL + "// ---------------------------------------------------------------------------\n"
