@@ -54,9 +54,12 @@ failure raises and exits non-zero without the final line:
 6f. fault F4, each kernel's wide route (past the by-value plan's 16
    slots, 16 products, 8 factors or degree 8) against its plain version:
    round 0, the in-place fold, the per-size round 0 and fold, the MXU fold
-   and the pair init at F4 (a) nv=20 (17 slots) and (b), (c) at nv=18
-   (degree 9; 17 products), the transcript step at degrees 9 and 20, with
-   device ms and bounds, and the transcript step's measured ceiling;
+   and the pair init at F4 (a) nv=20 (17 slots), (b), (c) at nv=18
+   (degree 9; 17 products) and `wide` at nv=14 (degree 20 in two chunks of
+   the evaluation's 12 points, 40 products padded with the ones slot), the
+   transcript step at degrees 9 and 20, with device ms and bounds (the
+   register schedule's multiplies on each product's real factors), and the
+   transcript step's measured ceiling;
 6g. the batched wide route: round 0, both folds and the transcript step at
    4 x F4 (b) nv=16 against their plain versions, beside 4 single launches;
 7. the golden fixtures `tests/fixtures/ml_nv6_rich.json`,
@@ -111,10 +114,11 @@ failure raises and exits non-zero without the final line:
    verified, two subclaims, the ML batches' idle share; the GKR batch's 2
    init launches a batch and its wall in turns against the parent's
    per-instance loop (`parent_enqueue_gkr`, 16 init launches);
-10f. fault F4's structures (a), (b), (c) proved at nv=20 on the generic,
-   per-size and MXU chains, each run's launches counted from 0 (no host
-   fallback) under the sync debug mode "error", bytes equal across the
-   chains, each verified, and at nv=12 equal to the CPU's plain prove;
+10f. fault F4's structures (a), (b), (c) proved at nv=20 and `wide` at
+   nv=18 on the generic, per-size and MXU chains, each run's launches
+   counted from 0 (no host fallback) under the sync debug mode "error",
+   bytes equal across the chains, each verified, and at nv=12 (`wide`: 8)
+   equal to the CPU's plain prove;
    10g. 4 x F4 (b) at nv=16 on both batched chains, equal to per-instance
    card proves;
 10b. the interactive tier on the phase-8 instance: `IPForMLSumcheck.
@@ -244,9 +248,6 @@ IMADS_PER_MONT_MUL = 2 * 2 * 64 + 8
 # xor of the rotate by 32, one; three xor-and-rotates of two each)
 G_LEVELS = 24
 G_DEPTH = 15
-# the round bodies evaluate in registers up to this degree
-# (`csrc/round_common.cuh`, kMaxRegisterDegree), with the ladder above it
-REGISTER_MAX_DEGREE = 4
 # each kernel's time at its main shape before its current version (PERF.md,
 # section 6, in parentheses; an H100 80GB HBM3 at 700 W), quoted in the
 # printed lines beside this run's; not part of the kernels line
@@ -261,7 +262,9 @@ RATES: dict = {}  # the card's SM count, clock and IMAD rate (`microbench.card_r
 # their ptxas (registers, stack frame, spill stores, static shared memory)
 # on the tree before the wide route (`python tools/ptxas_compare.py
 # <parent> <change>` on an H100, sm_90a, CUDA 12.8; equal for every kernel
-# both trees have): the wide route leaves them as they were
+# both trees have): the wide route leaves them as they were (the by-value
+# MXU fold is `fold_mxu_kernel` since its wide body became a kernel of its
+# own, `fold_mxu_wide_kernel`)
 MAIN_PATH_PTXAS = {"round_nofold: nofold_kernel<3, no coefficients>": "13nofold_kernelILi3ELb0E",
                    "round_fold: fold_kernel<3, in place, single>": "11fold_kernelILi3ELb0ELb0ELb0E",
                    "round_step_fold: fold_kernel<3, out of place, single>":
@@ -269,7 +272,7 @@ MAIN_PATH_PTXAS = {"round_nofold: nofold_kernel<3, no coefficients>": "13nofold_
                    "round_fold_batched: fold_kernel<3, in place, batched>":
                        "11fold_kernelILi3ELb0ELb0ELb1E",
                    "transcript_step: transcript_kernel<static stream>": "17transcript_kernelILb0E",
-                   "round_fold_mxu: fold_mxu_kernel<plan>": "15fold_mxu_kernelILb0E",
+                   "round_fold_mxu: fold_mxu_kernel<plan>": "15fold_mxu_kernelEP",
                    "pair_init: pair_init_kernel<4 lanes>": "16pair_init_kernelILi4E",
                    "weight_reduce: weight_reduce_kernel<phase 1>": "20weight_reduce_kernelILb1E",
                    "weight_reduce: weight_reduce_kernel<phase 2>": "20weight_reduce_kernelILb0E"}
@@ -284,35 +287,33 @@ PREVIOUS_PTXAS = {"round_nofold: nofold_kernel<3, no coefficients>": (128, 0, 0,
                   "weight_reduce: weight_reduce_kernel<phase 2>": (64, 0, 0, 2592)}
 
 
-def eval_multiplies(products, degree: int, coeffs: bool, registers: bool) -> int:
-    """Montgomery multiplies of one lane's evaluation at t = 0..d. The
-    ladder (above degree `REGISTER_MAX_DEGREE`): (factors - 1) x (d+1) a
-    product, (d+1) more with coefficients. In registers (`register_sums`,
-    `csrc/round_common.cuh`: every round body up to that degree, round 0
-    and the folds alike): factor l of a product multiplies at t =
-    0..min(l+1, d), the last at all d+1 points (the rest by differences),
-    and a coefficient 2."""
-    f = len(products[0])
-    if registers:
-        per = sum((degree if l == f - 1 else min(l + 1, degree)) + 1 for l in range(1, f))
-        per += 2 if coeffs else 0
-    else:
-        per = (f - 1) * (degree + 1) + ((degree + 1) if coeffs else 0)
-    return len(products) * per
+def eval_multiplies(products, degree: int, coeffs: bool) -> int:
+    """Montgomery multiplies of one lane's evaluation at t = 0..d, the least
+    any of the port's bodies needs for the same sums, at every degree: the
+    register schedule (`register_sums`, and the wide route's
+    `wide_block_sums` where one chunk holds the d + 1 points) on each
+    product's real factors (`round_cuda.product_lengths`: a `Products`'
+    padding slot, the constant one, takes no multiply). A product of L
+    factors multiplies factor l at t = 0..min(l+1, d), l = 1..L-1, the rest
+    by differences, and a coefficient 2."""
+    from sumcheck_tpu_torch.ops.round_cuda import product_lengths
+
+    return sum(sum(min(l + 1, degree) + 1 for l in range(1, f)) + (2 if coeffs else 0)
+               for f in product_lengths(products))
 
 
 def round_work(lanes, slots, products, degree, fold, coeffs=False, mma=False) -> dict:
     """What a round kernel must do at one shape: bytes (each input stripe
     read once, each output stripe written once: 8 limbs x 4 bytes per lane
     and slot), 32-bit multiplies of its Montgomery multiplies (2 per
-    slot for a fold, and the evaluation's `eval_multiplies`: the register
-    count up to `REGISTER_MAX_DEGREE`, the ladder's above it, for every
-    kernel of the function, the MXU fold too), and, for the MXU fold, the
+    slot for a fold, and the evaluation's `eval_multiplies`: the least any
+    body of the function needs, for every kernel of the function, the MXU
+    fold too), and, for the MXU fold, the
     int8 tensor-core operations of its fold multiplies (4 mma.m16n8k32 per
     16 lanes each) in place of their IMADs, plus the 32 Montgomery
     multiplies of each 128-lane block's byte matrix."""
     stripe = ELEMENT_BYTES * lanes * slots
-    evals = eval_multiplies(products, degree, coeffs, degree <= REGISTER_MAX_DEGREE)
+    evals = eval_multiplies(products, degree, coeffs)
     folds = 2 * slots if fold else 0
     matrix = 32 * -(-lanes // 128) if mma else 0
     return {"bytes": stripe * (6 if fold else 2),
@@ -2323,6 +2324,11 @@ def _gkr_batch(device, seed, reps, batch, dim) -> dict:
 
 F4_NV = 20
 F4_CHECK_NV = 12  # the size at which the card's proofs meet the CPU's plain prove
+# F4's `wide` structure (61 slots, 41 products, degree 20: two chunks of the
+# wide route's 12 points), this many variables below the others: its
+# kernels at nv=14, where their plain versions take seconds; its proves at
+# nv=18, their bytes against the CPU's plain prove at nv=8
+F4_WIDE_KERNEL_CUT, F4_WIDE_CUT, F4_WIDE_CHECK_CUT = 6, 2, 4
 F4_BATCH, F4_BATCH_NV = 4, 16
 F4_TRANSCRIPT_DEGREES = (9, 20)
 F4_CHAINS = {"generic": ("generic", False), "per-size": ("persize", False),
@@ -2344,12 +2350,18 @@ F4_ROWS = (("round_nofold[wide]", "round_nofold", "f4 generic a"),
 def f4_structure(name: str):
     """Fault F4's structures (`tests/f4_cases.py`): (a) 17 products of one
     table (17 slots), (b) one product of 9 tables (degree 9), (c) 17 pairs
-    of 7 tables with coefficients 2..18 (17 products). (products, table
+    of 7 tables with coefficients 2..18 (17 products), `wide`: a product of
+    20 tables beside 40 single-table products, random coefficients (61
+    slots with the ones slot, 41 products, degree 20). (products, table
     count)."""
     if name == "a":
         return [(1, [i]) for i in range(17)], 17
     if name == "b":
         return [(1, list(range(9)))], 9
+    if name == "wide":
+        rnd = random.Random(name)
+        return [(rnd.randrange(2, 1 << 62), list(range(20)))] + [
+            (rnd.randrange(2, 1 << 62), [20 + i]) for i in range(40)], 60
     import itertools
 
     pairs = list(itertools.combinations(range(7), 2))[:17]
@@ -2396,16 +2408,17 @@ def f4_kernel_phase(device, seed: int, nv: int = F4_NV) -> dict:
             print(f"F4 {row} at {shape}: bound {bound_ms:.4f} ms by {bound_by}, "
                   f"{bound_ms / ms:.1%} of it")
 
-    for name in ("a", "b", "c"):
+    for name in ("a", "b", "c", "wide"):
         # (a) at nv=20, the rows' main shape; (b) and (c) at nv=18 (their
-        # plain versions take seconds at nv=20)
-        n = nv if name == "a" else nv - 2
+        # plain versions take seconds at nv=20), `wide` at nv=14
+        n = {"a": nv, "wide": nv - F4_WIDE_KERNEL_CUT}.get(name, nv - 2)
         poly = f4_poly(name, seed, n)
         lo, hi, products, degree = init_pair(poly, device)
         slots, half = lo.shape[0], lo.shape[2]
         check(rc.route(slots, products, degree) == "wide",
               f"F4 ({name}) does not take the wide route")
-        tag = f"F4 ({name}) nv={n} U={slots} P={len(products)} d={degree}"
+        tag = (f"F4 ({name}) nv={n} U={slots} P={len(products)} d={degree} "
+               f"T={rc.wide_points(degree)}")
         record("round_nofold[wide]",
                compare_round(rc, f"{tag} round 0", lo, hi, None, products, degree, half,
                              device, True),
@@ -2515,19 +2528,21 @@ def f4_batch_kernel_phase(device, seed: int, batch: int = F4_BATCH,
 
 
 def f4_prove_phase(device, seed: int, nv: int = F4_NV, check_nv: int = F4_CHECK_NV) -> dict:
-    """Phase 10f: F4's structures (a), (b) and (c) proved at nv=20 on the
-    generic, the per-size and the MXU chain, each run with every launch
-    count set to 0 just before it and read just after (one pair init, one
-    round 0, nv - 1 folds and nv transcript steps of the chain: no host
-    fallback), the enqueue under the sync debug mode "error": proof bytes
-    equal across the chains, each proof verified (the subclaim against
-    `evaluate_on_card`); and at nv=12 every chain's proof equal to the
-    CPU's plain prove. Returns {"f4 <chain> <name>": {"launches", "prove_s"}}."""
+    """Phase 10f: F4's structures (a), (b) and (c) proved at nv=20 and
+    `wide` at nv=18 on the generic, the per-size and the MXU chain, each run
+    with every launch count set to 0 just before it and read just after
+    (one pair init, one round 0, nv - 1 folds and nv transcript steps of the
+    chain: no host fallback), the enqueue under the sync debug mode "error":
+    proof bytes equal across the chains, each proof verified (the subclaim
+    against `evaluate_on_card`); and at nv=12 (`wide`: 8) every chain's
+    proof equal to the CPU's plain prove. Returns {"f4 <chain> <name>":
+    {"launches", "prove_s"}}."""
     from sumcheck_tpu_torch import Blake2b512Rng, MLSumcheck
     from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
 
     out = {}
-    for name in ("a", "b", "c"):
+    for name, nv, check_nv in (("a", nv, check_nv), ("b", nv, check_nv), ("c", nv, check_nv),
+                               ("wide", nv - F4_WIDE_CUT, check_nv - F4_WIDE_CHECK_CUT)):
         blobs, small = {}, {}
         poly = f4_poly(name, seed, nv)
         check_poly = f4_poly(name, seed, check_nv)

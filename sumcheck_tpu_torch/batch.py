@@ -212,7 +212,8 @@ def _prove_batched_host(fs_rngs, polynomials, degree: int, nv: int, device):
     lo, hi, ones = _host_pair(polynomials, device)
     structure = [ix for _, ix in polynomials[0].products]
     max_len = max(len(ix) for ix in structure)
-    products = tuple(tuple(ix) + (ones,) * (max_len - len(ix)) for ix in structure)
+    products = round_cuda.Products((tuple(ix) + (ones,) * (max_len - len(ix)) for ix in structure),
+                                   ones)
     coeffs = np.stack([np.stack([L.mont_scalar(c.v)[:, 0] for c, _ in p.products])
                        for p in polynomials]).astype(np.int32)  # (B, P, 16)
     coeffs = device_prover.upload(torch.from_numpy(coeffs), device)

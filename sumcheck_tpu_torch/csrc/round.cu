@@ -12,8 +12,8 @@
 //   - above degree kMaxRegisterDegree, round_kernel<kFold, kOutOfPlace, C>,
 //     the same rounds with the evaluation ladder in shared memory;
 //   - past the plan's maxima (more than 16 slots or products, 8 factors or
-//     degree 8), wide_kernel<kFold, kOutOfPlace, C>, every mode of the
-//     same rounds, single and batched (sc_round_launch_wide).
+//     degree 8), wide_kernel<kFold, kT>, every mode of the same rounds,
+//     single and batched (sc_round_launch_wide).
 // Built by ops/cuda_build.py with nvcc into a shared library with a plain C
 // interface, loaded with ctypes by ops/round_cuda.py, which holds the plain
 // PyTorch versions these kernels are checked against.
@@ -82,14 +82,17 @@
 // maxima. The ladder and the block-sum tail are shared with the MXU fold
 // kernel (round_common.cuh). Coefficients, when given, sit in static shared
 // memory. A structure past the maxima takes the wide route, chosen by the
-// wrapper from its shape (ops/round_cuda.route): the index matrix in device
-// memory (WidePlan, uploaded once per structure and device), each slot
-// folded and written out, then for each t every factor's E and O re-read
-// from this lane of the tables and t (O - E) one multiply by t's Montgomery
-// form; each t's block sums go out before the next t (wide_block_sums). So
-// shared memory, registers and parameter space set no maximum: 17 to
-// thousands of slots, any degree. The bodies for today's maxima are as
-// they were (their registers and spills unchanged).
+// wrapper from its shape (ops/round_cuda.route): the index matrix and each
+// product's count of real factors in device memory (WidePlan, uploaded once
+// per structure and device), each slot folded and written out, then the
+// points in chunks of kT (4, 8, 10 or 12 by the degree, wide_points): in a chunk
+// each real factor's E and O read once from this lane of the tables, its
+// values at the chunk's points by additions, each product multiplied only at
+// its own degree's points and extended by differences, no work on the
+// ragged products' constant-one padding, and the chunk's block sums in one
+// pass (wide_block_sums). So shared memory, registers and parameter space
+// set no maximum: 17 to thousands of slots, any degree. The bodies for
+// today's maxima are as they were (their registers and spills unchanged).
 
 #include "round_common.cuh"
 
@@ -328,12 +331,14 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // The wide route, for a structure past the maxima of Plan
-// (round_common.cuh): fold every slot (optionally) and write it out, then
-// wide_block_sums over the written values. No ladder and no per-degree
-// arrays, so neither shared memory nor registers bound the slots, products,
-// factors or degree. Grid y = instance, as for the other bodies (offsets
-// 0 for a single launch).
-template <bool kFold, bool kOutOfPlace, bool kCoeffs>
+// (round_common.cuh): fold every slot (optionally) and write it out, in
+// place or, with lo_out, out of place; then wide_block_sums over the
+// written values in chunks of kT points, with coefficients where
+// coeff_digits is given. No ladder and no per-degree arrays, so neither
+// shared memory nor registers bound the slots, products, factors or
+// degree. Grid y = instance, as for the other bodies (offsets 0 for a
+// single launch). Dynamic shared memory: wide_total_bytes(kT).
+template <bool kFold, int kT>
 __global__ void __launch_bounds__(kThreads)
     wide_kernel(uint32_t* __restrict__ lo, uint32_t* __restrict__ hi,
                 uint32_t* __restrict__ lo_out, uint32_t* __restrict__ hi_out,
@@ -341,50 +346,56 @@ __global__ void __launch_bounds__(kThreads)
                 const uint32_t* __restrict__ coeff_digits, long long H, long long H_out,
                 long long extent, long long inst_stride, long long out_inst_stride, Field f,
                 const __grid_constant__ WidePlan pl, long long* __restrict__ sums) {
-  static_assert(kFold || !kOutOfPlace, "only a fold writes tables");
   {  // instance blockIdx.y of a batched launch
     const long long b = blockIdx.y;
     lo += b * inst_stride;
     hi += b * inst_stride;
-    if constexpr (kOutOfPlace) {
+    if (lo_out != nullptr) {
       lo_out += b * out_inst_stride;
       hi_out += b * out_inst_stride;
     }
     if constexpr (kFold) r_digits += b * kDigits;
-    if constexpr (kCoeffs) coeff_digits += b * pl.products * kDigits;
+    if (coeff_digits != nullptr) coeff_digits += b * pl.products * kDigits;
     sums += b * (pl.degree + 1) * kDigits;
   }
-  __shared__ uint32_t warp_sums[kThreads / 32][kDigits];
+  extern __shared__ uint32_t totals[];  // [point][limb][thread]
+  __shared__ uint32_t warp_sums[kThreads / 32][kT][kDigits];
   const int tid = threadIdx.x;
   const long long k = (long long)blockIdx.x * kThreads + tid;
   const bool active = k < extent;
+  // the tables the evaluation reads: the folded ones
+  const bool out = kFold && lo_out != nullptr;
+  const uint32_t* e_lo = out ? lo_out : lo;
+  const uint32_t* e_hi = out ? hi_out : hi;
+  const long long e_H = out ? H_out : H;
   if constexpr (kFold) {
     if (active) {
       const long long slot_stride = (long long)kLimbs * H;
-      const long long out_stride = (long long)kLimbs * H_out;
+      const long long out_stride = (long long)kLimbs * e_H;
+      uint32_t* w_lo = out ? lo_out : lo;
+      uint32_t* w_hi = out ? hi_out : hi;
       uint32_t rr[kLimbs];
       load_digits(rr, r_digits);
+      // the next slot's four stripes load while this one folds, as in
+      // fold_kernel (the evaluation's registers are not live yet)
+      uint32_t next[4][kLimbs];
+      load_stripes(next, lo, hi, k, extent, H);
       for (int u = 0; u < pl.slots; ++u) {
         uint32_t x[4][kLimbs], e[kLimbs], o[kLimbs];
-        load_stripes(x, lo, hi, u * slot_stride + k, extent, H);
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+#pragma unroll
+          for (int j = 0; j < kLimbs; ++j) x[s][j] = next[s][j];
+        if (u + 1 < pl.slots) load_stripes(next, lo, hi, (u + 1) * slot_stride + k, extent, H);
         fold(e, x[0], x[1], rr, f);
         fold(o, x[2], x[3], rr, f);
-        if constexpr (kOutOfPlace) {
-          store_lane(lo_out + u * out_stride + k, H_out, e);
-          store_lane(hi_out + u * out_stride + k, H_out, o);
-        } else {
-          store_lane(lo + u * slot_stride + k, H, e);
-          store_lane(hi + u * slot_stride + k, H, o);
-        }
+        store_lane(w_lo + u * out_stride + k, e_H, e);
+        store_lane(w_hi + u * out_stride + k, e_H, o);
       }
     }
   }
-  if constexpr (kOutOfPlace) {
-    wide_block_sums<kCoeffs>(lo_out, hi_out, H_out, k, active, pl, coeff_digits, f, warp_sums,
-                             sums);
-  } else {
-    wide_block_sums<kCoeffs>(lo, hi, H, k, active, pl, coeff_digits, f, warp_sums, sums);
-  }
+  wide_block_sums<kT>(active, pl, coeff_digits, f, totals, warp_sums, sums,
+                      TableFactors(e_lo, e_hi, e_H, k, pl, pl.degree >= kT, active, f));
 }
 
 template <int D, bool kCoeffs>
@@ -468,9 +479,18 @@ struct WideLaunch {
   cudaStream_t stream;
 };
 
-template <bool kFold, bool kOutOfPlace, bool kCoeffs>
-cudaError_t launch_wide(const WideLaunch& w, const Field& f, const WidePlan& pl) {
-  wide_kernel<kFold, kOutOfPlace, kCoeffs><<<w.grid, kThreads, 0, w.stream>>>(
+// wide_kernel<kFold, kT> at the chunk `points`, one of kT, kRest...
+template <bool kFold, int kT, int... kRest>
+cudaError_t launch_wide(int points, const WideLaunch& w, const Field& f, const WidePlan& pl) {
+  if constexpr (sizeof...(kRest) > 0) {
+    if (points != kT) return launch_wide<kFold, kRest...>(points, w, f, pl);
+  }
+  if (points != kT) return cudaErrorInvalidValue;
+  const size_t smem = wide_total_bytes(kT);
+  const cudaError_t e = cudaFuncSetAttribute(
+      wide_kernel<kFold, kT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  wide_kernel<kFold, kT><<<w.grid, kThreads, smem, w.stream>>>(
       static_cast<uint32_t*>(w.lo), static_cast<uint32_t*>(w.hi),
       static_cast<uint32_t*>(w.lo_out), static_cast<uint32_t*>(w.hi_out),
       static_cast<const uint32_t*>(w.r), static_cast<const uint32_t*>(w.coeff), w.H, w.H_out,
@@ -606,8 +626,10 @@ int sc_round_launch_batched(int mode, void* lo, void* hi, void* lo_out, void* hi
 }
 
 // The wide route (wide_kernel): the launch of sc_round_launch_batched for a
-// structure past Plan's maxima, the product index matrix `idx` (products x
-// factors int32) in device memory. one: the Montgomery one, 8 limbs.
+// structure past Plan's maxima. idx: the product index matrix (products x
+// factors int32, a ragged product padded with the pair's constant-one slot),
+// then each product's count of real factors (products int32), in device
+// memory. one: the Montgomery one, 8 limbs.
 int sc_round_launch_wide(int mode, void* lo, void* hi, void* lo_out, void* hi_out,
                          const void* r, const void* coeff, long long H, long long H_out,
                          long long extent, long long batch, long long inst_stride,
@@ -619,16 +641,17 @@ int sc_round_launch_wide(int mode, void* lo, void* hi, void* lo_out, void* hi_ou
   if (bad != cudaSuccess) return (int)bad;
   if (mode == kModeFoldOut && H_out != extent) return (int)cudaErrorInvalidValue;
   if (batch < 1 || batch > 65535) return (int)cudaErrorInvalidValue;
+  if (mode == kModeFoldInPlace && coeff != nullptr) return (int)cudaErrorInvalidValue;
+  if ((mode == kModeFoldOut) != (lo_out != nullptr)) return (int)cudaErrorInvalidValue;
   const Field f = read_field(field);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const WideLaunch w{lo, hi, lo_out, hi_out, r, coeff, H, H_out, extent, inst_stride,
-                     out_inst_stride, sums, dim3((unsigned)nblk, (unsigned)batch), s};
-  switch (mode * 2 + (coeff != nullptr ? 1 : 0)) {
-    case 0: return (int)launch_wide<false, false, false>(w, f, pl);
-    case 1: return (int)launch_wide<false, false, true>(w, f, pl);
-    case 2: return (int)launch_wide<true, false, false>(w, f, pl);
-    case 4: return (int)launch_wide<true, true, false>(w, f, pl);
-    case 5: return (int)launch_wide<true, true, true>(w, f, pl);
+                     out_inst_stride, sums, dim3((unsigned)nblk, (unsigned)batch),
+                     static_cast<cudaStream_t>(stream)};
+  const int points = wide_points(degree);
+  switch (mode) {
+    case kModeNofold: return (int)launch_wide<false, 4, 8, 10, kMaxWidePoints>(points, w, f, pl);
+    case kModeFoldInPlace:
+    case kModeFoldOut: return (int)launch_wide<true, 4, 8, 10, kMaxWidePoints>(points, w, f, pl);
     default: return (int)cudaErrorInvalidValue;
   }
 }

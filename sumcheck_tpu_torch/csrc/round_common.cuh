@@ -3,8 +3,10 @@
 // tail the ladder kernels end with, the evaluation at t = 0..d and the
 // round's sums, and the evaluation in registers (register_sums) with its
 // block sums; and for a structure past those maxima the wide route's plan
-// (WidePlan, its index matrix in device memory) and evaluation
-// (wide_block_sums), which no shared-memory or register array bounds.
+// (WidePlan, its index matrix and product lengths in device memory) and
+// evaluation (wide_block_sums: the points in chunks of kT, each product
+// at its own degree's points), which no shared-memory or register array
+// bounds.
 //
 // Ladder: each slot's start E and step O - E live in dynamic shared memory,
 // [slot][cur|step][limb][thread], so run-time slot indices cost no local
@@ -55,20 +57,26 @@ inline cudaError_t read_plan(const int* plan, Plan* pl) {
 }
 
 // The wide route's plan, for a structure past any of the maxima above: the
-// same shape, with the product index matrix in device memory (built once
-// for each structure and device by the wrapper, ops/round_cuda.py), so it
-// has no size limit. `one` is the Montgomery one, R mod p: the evaluation
-// point t enters as t * one (wide_block_sums).
+// product index matrix in device memory (built once for each structure and
+// device by the wrapper, ops/round_cuda.py), so it has no size limit, with
+// each product's count of real factors beside it: a ragged product's row
+// is padded with the pair's constant-one slot, which the evaluation never
+// loads or multiplies (its values are the Montgomery one in every lane and
+// stay one under any fold), so a product of l real factors costs the
+// multiplies of degree l. `one` is the Montgomery one, R mod p: a chunk's
+// first point t0 enters as t0 * one (wide_block_sums).
 struct WidePlan {
   int slots;
   int products;
-  int factors;
+  int factors;     // the index matrix's row length, the longest product
   int degree;
   const int* idx;  // idx[p * factors + l], device memory
+  const int* len;  // len[p] >= 1: product p's real factors idx[p * factors + 0 .. len[p] - 1]
   uint32_t one[kLimbs];
 };
 
-// The wide plan from its host scalars, or cudaErrorInvalidValue.
+// The wide plan from its host scalars, or cudaErrorInvalidValue. `idx`
+// holds the index matrix, then the products' lengths.
 inline cudaError_t read_wide_plan(int slots, int products, int factors, int degree,
                                   const int* idx, const uint32_t* one, WidePlan* pl) {
   if (slots < 1 || products < 1 || factors < 1 || degree < 1 || idx == nullptr)
@@ -78,6 +86,7 @@ inline cudaError_t read_wide_plan(int slots, int products, int factors, int degr
   pl->factors = factors;
   pl->degree = degree;
   pl->idx = idx;
+  pl->len = idx + (long long)products * factors;
   for (int j = 0; j < kLimbs; ++j) pl->one[j] = one[j];
   return cudaSuccess;
 }
@@ -298,72 +307,235 @@ __device__ __forceinline__ void register_block_sums(
   add_block_sums(warp_sums, D, sums);
 }
 
-// The wide route's evaluation (round.cu's wide_kernel, round_mxu.cu's wide
-// fold): for t = 0..degree, total(t) = sum_p [c_p *] prod_l x_{s}(t) with
-// x_s(t) = E_s + t (O_s - E_s), E_s and O_s re-read at every t from this
-// lane of slot s of the tables (lo, hi; the round's folded values, which
-// this thread wrote), t (O - E) a multiply by t * one. Neither the slots,
-// the products nor the degree are bounded by shared memory or registers:
-// each t's per-digit block sums go into the round's row before the next t
-// (two barriers a point), through one row a warp. Every thread of the block
-// calls it.
-template <bool kCoeffs>
-__device__ __forceinline__ void wide_block_sums(const uint32_t* lo, const uint32_t* hi,
-                                                long long H, long long k, bool active,
-                                                const WidePlan& pl,
-                                                const uint32_t* __restrict__ coeff_digits,
-                                                const Field& f,
-                                                uint32_t (*warp_sums)[kDigits],
-                                                long long* __restrict__ sums) {
-  const int tid = threadIdx.x;
-  const long long slot_stride = (long long)kLimbs * H;
-  uint32_t tm[kLimbs];  // t * one: t's Montgomery form
+// The wide route's chunk of points. The evaluation holds a product's
+// values at kT points in registers, and its registers set the blocks an
+// SM holds (128 a thread at 4 points: four blocks; 164 at 10: three; 184
+// at 12: two), which set its speed more than its multiplies do
+// (tools/wide_variants.py). So a degree takes the smallest chunk of 4, 8,
+// 10 and 12 that holds its d + 1 points, and past 12 it walks them in
+// chunks of 12 (the kernels are instantiated at each, round.cu and
+// round_mxu.cu).
+constexpr int kMaxWidePoints = 12;
+__host__ __device__ inline int wide_points(int degree) {
+  return degree < 4 ? 4 : degree < 8 ? 8 : degree < 10 ? 10 : kMaxWidePoints;
+}
+
+// Dynamic shared memory of a chunk's totals, `points` values a thread.
+__host__ __device__ inline size_t wide_total_bytes(int points) {
+  return (size_t)points * kLimbs * kThreads * sizeof(uint32_t);
+}
+
+// Limb j of point i of this thread's chunk totals, [point][limb][thread]:
+// consecutive threads on consecutive banks.
+__device__ __forceinline__ uint32_t& total_at(uint32_t* totals, int i, int j, int tid) {
+  return totals[(i * kLimbs + j) * kThreads + tid];
+}
+
+// acc[0..K] hold a polynomial of degree K at points 0..K: acc[K+1..m] by
+// differences, in place (K < m < kT, both run-time and the same in every
+// lane, so the unrolled loops branch uniformly and index the registers by
+// constants): the forward differences at 0, zeros past the K-th, then back
+// to values. Exact in the field, so the values are the ones a multiply at
+// those points would give.
+template <int kT>
+__device__ __forceinline__ void extend_to(uint32_t (*acc)[kLimbs], int K, int m, const Field& f) {
 #pragma unroll
-  for (int j = 0; j < kLimbs; ++j) tm[j] = 0;
-  for (int t = 0; t <= pl.degree; ++t) {
-    uint32_t total[kLimbs];
+  for (int j = 1; j < kT; ++j) {
+    if (j <= K) {
 #pragma unroll
-    for (int j = 0; j < kLimbs; ++j) total[j] = 0;
-    if (active) {
-      for (int p = 0; p < pl.products; ++p) {
-        uint32_t term[kLimbs];
-        for (int l = 0; l < pl.factors; ++l) {
-          const long long at = __ldg(pl.idx + p * pl.factors + l) * slot_stride + k;
-          uint32_t x[kLimbs];
-          load_lane(x, lo + at, H);
-          if (t > 0) {
-            uint32_t d[kLimbs];
-            load_lane(d, hi + at, H);
-            sub_mod(d, d, x, f);
-            mont_mul(d, d, tm, f);
-            add_mod(x, x, d, f);
-          }
-          if (l == 0) {
-#pragma unroll
-            for (int j = 0; j < kLimbs; ++j) term[j] = x[j];
-            if constexpr (kCoeffs) {
-              uint32_t c[kLimbs];
-              load_digits(c, coeff_digits + p * kDigits);
-              mont_mul(term, c, term, f);
-            }
-          } else {
-            mont_mul(term, term, x, f);
-          }
-        }
-        add_mod(total, total, term, f);
-      }
+      for (int i = kT - 1; i >= j; --i)
+        if (i <= K) sub_mod(acc[i], acc[i], acc[i - 1], f);
     }
-    warp_digit_sums(total, warp_sums[tid >> 5]);
-    __syncthreads();
-    if (tid < kDigits) {
-      unsigned long long s = 0;
+  }
 #pragma unroll
-      for (int w = 0; w < kThreads / 32; ++w) s += warp_sums[w][tid];
-      atomicAdd(reinterpret_cast<unsigned long long*>(sums) + t * kDigits + tid, s);
+  for (int i = 1; i < kT; ++i) {
+    if (i > K && i <= m) {
+#pragma unroll
+      for (int j = 0; j < kLimbs; ++j) acc[i][j] = 0;
     }
-    __syncthreads();  // the rows are read before the next point writes them
-    add_mod(tm, tm, pl.one, f);
+  }
+#pragma unroll
+  for (int j = kT - 1; j >= 1; --j) {
+    if (j <= K + 1) {
+#pragma unroll
+      for (int i = j; i < kT; ++i)
+        if (i <= m) add_mod(acc[i], acc[i], acc[i - 1], f);
+    }
   }
 }
+
+// The wide route's evaluation (round.cu's wide_kernel, round_mxu.cu's wide
+// fold): total(t) = sum_p [c_p *] prod_l x_l(t), x(t) = E + t (O - E), for
+// t = 0..degree, in chunks of kT points t0..t0 + n - 1. In a chunk, for
+// each product, each real factor's E and O - E are read once (`factor(p, l,
+// e, step)`, in the order p, l) and its values at the chunk's points formed
+// by additions from x(t0) = E + t0 (O - E) (one multiply, none at t0 = 0).
+// A product of L factors has degree L: as in register_sums, factor l
+// multiplies at the chunk's points 0..min(l + 1, n - 1), the product so far
+// extended to the next point by differences, and the product is extended to
+// the chunk's other points by differences; a coefficient multiplies the
+// first factor's x(t0) and step (2 multiplies). So a chunk holding all d + 1
+// points costs a lane the register schedule's multiplies, at any degree and
+// with no padding factor. The products' values go into the chunk's totals,
+// per thread in dynamic shared memory (`totals`, wide_total_bytes(kT)), and
+// the chunk's per-digit block sums into the round's row, all n points in one
+// pass: two barriers a chunk. Every thread of the block calls it.
+template <int kT, class Factor>
+__device__ __forceinline__ void wide_block_sums(bool active, const WidePlan& pl,
+                                                const uint32_t* __restrict__ coeff_digits,
+                                                const Field& f, uint32_t* totals,
+                                                uint32_t (*warp_sums)[kT][kDigits],
+                                                long long* __restrict__ sums, Factor&& factor) {
+  const int tid = threadIdx.x;
+  // t0 * one, the chunk's first point in Montgomery form: the same in every
+  // lane, so one copy a block, read only past the first chunk
+  __shared__ uint32_t first_point[kLimbs];
+  if (tid < kLimbs) first_point[tid] = 0;
+  for (int t0 = 0; t0 <= pl.degree; t0 += kT) {
+    const int n = min(kT, pl.degree + 1 - t0);  // the chunk's points
+#pragma unroll
+    for (int i = 0; i < kT; ++i)
+#pragma unroll
+      for (int j = 0; j < kLimbs; ++j) total_at(totals, i, j, tid) = 0;
+    if (active) {
+      for (int p = 0; p < pl.products; ++p) {
+        const int L = __ldg(pl.len + p);
+        uint32_t acc[kT][kLimbs];
+        int known = 0;  // acc holds the product so far at points 0..known
+        for (int l = 0;; ++l) {
+          // the points the product so far is needed at: as many as factor
+          // l's degree takes, and after the last factor all of them
+          const int need = l < L ? min(l + 1, n - 1) : n - 1;
+          if (l > 0 && need > known) extend_to<kT>(acc, known, need, f);
+          if (l == L) break;
+          uint32_t v[kLimbs], step[kLimbs];
+          factor(p, l, v, step);
+          if (t0 > 0) {
+            uint32_t tm[kLimbs], d[kLimbs];
+#pragma unroll
+            for (int j = 0; j < kLimbs; ++j) tm[j] = first_point[j];
+            mont_mul(d, step, tm, f);
+            add_mod(v, v, d, f);
+          }
+          if (l == 0) {
+            if (coeff_digits != nullptr) {
+              uint32_t c[kLimbs];
+              load_digits(c, coeff_digits + p * kDigits);
+              mont_mul(v, c, v, f);
+              mont_mul(step, c, step, f);
+            }
+#pragma unroll
+            for (int i = 0; i < kT; ++i) {
+              if (i < n) {
+                if (i > 0) add_mod(v, v, step, f);
+#pragma unroll
+                for (int j = 0; j < kLimbs; ++j) acc[i][j] = v[j];
+              }
+            }
+            known = n - 1;
+          } else {
+#pragma unroll
+            for (int i = 0; i < kT; ++i) {
+              if (i <= need) {
+                if (i > 0) add_mod(v, v, step, f);
+                mont_mul(acc[i], acc[i], v, f);
+              }
+            }
+            known = need;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kT; ++i) {
+          if (i < n) {
+            uint32_t t[kLimbs];
+#pragma unroll
+            for (int j = 0; j < kLimbs; ++j) t[j] = total_at(totals, i, j, tid);
+            add_mod(t, t, acc[i], f);
+#pragma unroll
+            for (int j = 0; j < kLimbs; ++j) total_at(totals, i, j, tid) = t[j];
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kT; ++i) {
+      if (i < n) {
+        uint32_t t[kLimbs];
+#pragma unroll
+        for (int j = 0; j < kLimbs; ++j) t[j] = total_at(totals, i, j, tid);
+        warp_digit_sums(t, warp_sums[tid >> 5][i]);
+      }
+    }
+    __syncthreads();
+    for (int q = tid; q < n * kDigits; q += kThreads) {
+      const int i = q / kDigits;
+      const int d = q % kDigits;
+      unsigned long long s = 0;
+#pragma unroll
+      for (int w = 0; w < kThreads / 32; ++w) s += warp_sums[w][i][d];
+      atomicAdd(reinterpret_cast<unsigned long long*>(sums) + t0 * kDigits + q, s);
+    }
+    if (t0 + kT <= pl.degree) {
+      __syncthreads();  // the rows are read before the next chunk writes them
+      if (tid == 0) {
+        uint32_t tm[kLimbs];
+#pragma unroll
+        for (int j = 0; j < kLimbs; ++j) tm[j] = first_point[j];
+        for (int i = 0; i < kT; ++i) add_mod(tm, tm, pl.one, f);
+#pragma unroll
+        for (int j = 0; j < kLimbs; ++j) first_point[j] = tm[j];
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// The wide evaluation's factors from this lane k of the tables lo, hi
+// (width H): E and O - E of the plan's factor (p, l), while the next factor
+// in the evaluation's order loads: (p, l + 1), or (p + 1, 0), or with
+// `again` (more chunks to come) the first one again. The plan's fields are
+// copied, so no kernel parameter's address is taken.
+struct TableFactors {
+  const uint32_t* lo;
+  const uint32_t* hi;
+  long long H, k;
+  const int* idx;
+  const int* len;
+  int factors, products;
+  bool again;
+  const Field& f;
+  uint32_t ne[kLimbs], no[kLimbs];
+
+  __device__ __forceinline__ TableFactors(const uint32_t* lo_, const uint32_t* hi_, long long H_,
+                                          long long k_, const WidePlan& pl, bool again_,
+                                          bool active, const Field& f_)
+      : lo(lo_), hi(hi_), H(H_), k(k_), idx(pl.idx), len(pl.len), factors(pl.factors),
+        products(pl.products), again(again_), f(f_) {
+    if (active) fetch(0, 0);
+  }
+
+  __device__ __forceinline__ void fetch(int p, int l) {
+    const long long at = (long long)__ldg(idx + p * factors + l) * kLimbs * H + k;
+    load_lane(ne, lo + at, H);
+    load_lane(no, hi + at, H);
+  }
+
+  __device__ __forceinline__ void operator()(int p, int l, uint32_t (&v)[kLimbs],
+                                             uint32_t (&step)[kLimbs]) {
+#pragma unroll
+    for (int j = 0; j < kLimbs; ++j) {
+      v[j] = ne[j];
+      step[j] = no[j];
+    }
+    if (l + 1 < __ldg(len + p)) {
+      fetch(p, l + 1);
+    } else if (p + 1 < products) {
+      fetch(p + 1, 0);
+    } else if (again) {
+      fetch(0, 0);
+    }
+    sub_mod(step, step, v, f);
+  }
+};
 
 }  // namespace sc

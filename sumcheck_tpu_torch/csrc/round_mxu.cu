@@ -7,10 +7,11 @@
 // with ctypes by ops/round_cuda.py (`round_fold_mxu`), whose plain version
 // `round_fold_mxu_ref` runs ops/mxu_mul.py.
 //
-// Past the plan's maxima the same fold runs as fold_mxu_kernel<true>
+// Past the plan's maxima the same fold runs as fold_mxu_wide_kernel<kT>
 // (sc_fold_mxu_launch_wide): the folded slots written out only, then the
-// wide route's evaluation (wide_block_sums, round_common.cuh) in place of
-// the ladder.
+// wide route's evaluation (wide_block_sums, round_common.cuh: the points in
+// chunks of 4, 8, 10 or 12 by the degree, each product at its own degree's
+// points, no padding factor) in place of the ladder.
 //
 // What it computes is `round_kernel<true, false, false>` of round.cu: fold
 // the first `extent` lanes of every slot in place by the challenge r,
@@ -68,8 +69,6 @@
 // lanes, two column sums, two quad normalizations and two exchanges, fewer
 // issue slots than one even/odd multiply and none on its IMAD pipe. While a
 // fold multiplies, the next fold's operands load.
-
-#include <type_traits>
 
 #include "round_common.cuh"
 
@@ -237,21 +236,20 @@ __device__ __forceinline__ void mont_mul_mxu(uint32_t r[kLimbs], const uint32_t 
   cond_sub_p(r, f);
 }
 
-// kWide: the wide route (WidePlan, round_common.cuh) for a structure past
-// Plan's maxima: the same fold, written out only, then wide_block_sums in
-// place of the ladder.
-template <bool kWide>
-__global__ void __launch_bounds__(kThreads, 4)
-    fold_mxu_kernel(uint32_t* __restrict__ lo, uint32_t* __restrict__ hi,
-                    const uint32_t* __restrict__ r_digits, long long H,
-                    long long extent, Field f, Pow2 pw,
-                    std::conditional_t<kWide, WidePlan, Plan> pl,
-                    long long* __restrict__ sums) {
-  extern __shared__ uint32_t ladder[];  // [slot][cur|step][limb][thread]
-  __shared__ uint32_t xch[kWarps][32][kXStride];
-  __shared__ uint8_t mat[kBytes][kBytes];  // mat[j][n] = byte n of M_j
-  __shared__ uint32_t warp_sums[kWarps][kWide ? 1 : kMaxDegree + 1][kDigits];
-
+// The fold in place by r of every slot's first `extent` lanes: the block
+// builds r's byte matrix in `mat`, then each slot's two fold values are
+// multiplied on the tensor cores, the next one's operands loading
+// meanwhile (zeros for an inactive lane), and written out; `put(u, e, o)`
+// gets slot u's folded values (the by-value kernel's ladder). Every thread
+// of the block calls it.
+template <class Put>
+__device__ __forceinline__ void mxu_fold_slots(uint32_t* __restrict__ lo,
+                                               uint32_t* __restrict__ hi,
+                                               const uint32_t* __restrict__ r_digits,
+                                               long long H, long long extent, const Field& f,
+                                               const Pow2& pw, int slots,
+                                               uint32_t (*xch)[32][kXStride],
+                                               uint8_t (*mat)[kBytes], Put&& put) {
   const int tid = threadIdx.x;
   const long long k = (long long)blockIdx.x * kThreads + tid;
   const bool active = k < extent;
@@ -281,7 +279,7 @@ __global__ void __launch_bounds__(kThreads, 4)
   load_matrix(b, mat);
   const uint32_t p64[2] = {f.p[2 * (tid & 3)], f.p[2 * (tid & 3) + 1]};
 
-  for (int u = 0; u < pl.slots; ++u) {
+  for (int u = 0; u < slots; ++u) {
     uint32_t folded[2][kLimbs];
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
@@ -292,7 +290,7 @@ __global__ void __launch_bounds__(kThreads, 4)
         d[j] = ny[j];
       }
       const int un = half ? u + 1 : u;
-      if (active && un < pl.slots) {
+      if (active && un < slots) {
         const long long at = un * slot_stride + k + (half ? 0 : extent);
         load_lane(nx, lo + at, H);
         load_lane(ny, hi + at, H);
@@ -304,15 +302,53 @@ __global__ void __launch_bounds__(kThreads, 4)
     if (active) {
       store_lane(lo + u * slot_stride + k, H, folded[0]);
       store_lane(hi + u * slot_stride + k, H, folded[1]);
-      if constexpr (!kWide) ladder_put(ladder, u, folded[0], folded[1], f, tid);
+      put(u, folded[0], folded[1]);
     }
   }
-  if constexpr (kWide) {
-    wide_block_sums<false>(lo, hi, H, k, active, pl, nullptr, f,
-                           reinterpret_cast<uint32_t (*)[kDigits]>(&warp_sums[0][0][0]), sums);
-  } else {
-    ladder_block_sums<false>(ladder, warp_sums, nullptr, active, f, pl, sums);
-  }
+}
+
+// The by-value plan's MXU fold: the fold, each slot's folded values into
+// the ladder, then the ladder's evaluation (round_common.cuh).
+__global__ void __launch_bounds__(kThreads, 4)
+    fold_mxu_kernel(uint32_t* __restrict__ lo, uint32_t* __restrict__ hi,
+                    const uint32_t* __restrict__ r_digits, long long H,
+                    long long extent, Field f, Pow2 pw, Plan pl,
+                    long long* __restrict__ sums) {
+  extern __shared__ uint32_t ladder[];  // [slot][cur|step][limb][thread]
+  __shared__ uint32_t xch[kWarps][32][kXStride];
+  __shared__ uint8_t mat[kBytes][kBytes];  // mat[j][n] = byte n of M_j
+  __shared__ uint32_t warp_sums[kWarps][kMaxDegree + 1][kDigits];
+
+  const int tid = threadIdx.x;
+  const bool active = (long long)blockIdx.x * kThreads + tid < extent;
+  mxu_fold_slots(lo, hi, r_digits, H, extent, f, pw, pl.slots, xch, mat,
+                 [&](int u, const uint32_t* e, const uint32_t* o) {
+                   ladder_put(ladder, u, e, o, f, tid);
+                 });
+  ladder_block_sums<false>(ladder, warp_sums, nullptr, active, f, pl, sums);
+}
+
+// The wide route (WidePlan, round_common.cuh) for a structure past Plan's
+// maxima: the same fold, written out only, then wide_block_sums over the
+// written values in chunks of kT points (wide_points by the degree), its
+// totals in the dynamic shared memory (wide_total_bytes(kT)).
+template <int kT>
+__global__ void __launch_bounds__(kThreads)
+    fold_mxu_wide_kernel(uint32_t* __restrict__ lo, uint32_t* __restrict__ hi,
+                         const uint32_t* __restrict__ r_digits, long long H, long long extent,
+                         Field f, Pow2 pw, const __grid_constant__ WidePlan pl,
+                         long long* __restrict__ sums) {
+  extern __shared__ uint32_t totals[];  // [point][limb][thread]
+  __shared__ uint32_t xch[kWarps][32][kXStride];
+  __shared__ uint8_t mat[kBytes][kBytes];
+  __shared__ uint32_t warp_sums[kWarps][kT][kDigits];
+
+  const long long k = (long long)blockIdx.x * kThreads + threadIdx.x;
+  const bool active = k < extent;
+  mxu_fold_slots(lo, hi, r_digits, H, extent, f, pw, pl.slots, xch, mat,
+                 [](int, const uint32_t*, const uint32_t*) {});
+  wide_block_sums<kT>(active, pl, nullptr, f, totals, warp_sums, sums,
+                      TableFactors(lo, hi, H, k, pl, pl.degree >= kT, active, f));
 }
 
 // Test hook: one tile, D = A B + C, A (16 x 32) u8 row-major, B given as its
@@ -343,6 +379,27 @@ Pow2 read_pow2(const uint32_t* field) {
   return pw;
 }
 
+// fold_mxu_wide_kernel<kT> at the chunk `points`, one of kT, kRest...
+template <int kT, int... kRest>
+cudaError_t launch_mxu_wide(int points, uint32_t* lo, uint32_t* hi, const uint32_t* r,
+                            long long H, long long extent, const Field& f, const Pow2& pw,
+                            const WidePlan& pl, long long* sums, long long nblk,
+                            cudaStream_t stream) {
+  if constexpr (sizeof...(kRest) > 0) {
+    if (points != kT)
+      return launch_mxu_wide<kRest...>(points, lo, hi, r, H, extent, f, pw, pl, sums, nblk,
+                                       stream);
+  }
+  if (points != kT) return cudaErrorInvalidValue;
+  const size_t smem = wide_total_bytes(kT);
+  const cudaError_t e = cudaFuncSetAttribute(
+      fold_mxu_wide_kernel<kT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  fold_mxu_wide_kernel<kT><<<(unsigned)nblk, kThreads, smem, stream>>>(lo, hi, r, H, extent,
+                                                                       f, pw, pl, sums);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -362,19 +419,21 @@ int sc_fold_mxu_launch(void* lo, void* hi, const void* r, long long H,
   if (bad != cudaSuccess) return (int)bad;
   const size_t smem = ladder_bytes(pl.slots);
   cudaError_t e = cudaFuncSetAttribute(
-      fold_mxu_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fold_mxu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  fold_mxu_kernel<false><<<(unsigned)nblk, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  fold_mxu_kernel<<<(unsigned)nblk, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<uint32_t*>(lo), static_cast<uint32_t*>(hi),
       static_cast<const uint32_t*>(r), H, extent, read_field(field), read_pow2(field), pl,
       static_cast<long long*>(sums));
   return (int)cudaGetLastError();
 }
 
-// The wide route of the same fold (fold_mxu_kernel<true>) for a structure
-// past Plan's maxima: slots, products, factors, degree and the product
-// index matrix idx (products x factors int32) in device memory; one: the
-// Montgomery one, 8 limbs. No dynamic shared memory.
+// The wide route of the same fold (fold_mxu_wide_kernel) for a structure
+// past Plan's maxima: slots, products, factors, degree, and in device
+// memory the product index matrix idx (products x factors int32, a ragged
+// product padded with the pair's constant-one slot) followed by each
+// product's count of real factors (products int32); one: the Montgomery
+// one, 8 limbs. Dynamic shared memory: the evaluation's chunk totals.
 int sc_fold_mxu_launch_wide(void* lo, void* hi, const void* r, long long H, long long extent,
                             int slots, int products, int factors, int degree, const int* idx,
                             const uint32_t* field, const uint32_t* one, void* sums,
@@ -382,11 +441,10 @@ int sc_fold_mxu_launch_wide(void* lo, void* hi, const void* r, long long H, long
   WidePlan pl;
   const cudaError_t bad = read_wide_plan(slots, products, factors, degree, idx, one, &pl);
   if (bad != cudaSuccess) return (int)bad;
-  fold_mxu_kernel<true><<<(unsigned)nblk, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(lo), static_cast<uint32_t*>(hi),
+  return (int)launch_mxu_wide<4, 8, 10, kMaxWidePoints>(
+      wide_points(degree), static_cast<uint32_t*>(lo), static_cast<uint32_t*>(hi),
       static_cast<const uint32_t*>(r), H, extent, read_field(field), read_pow2(field), pl,
-      static_cast<long long*>(sums));
-  return (int)cudaGetLastError();
+      static_cast<long long*>(sums), nblk, static_cast<cudaStream_t>(stream));
 }
 
 int sc_mma_tile_launch(const void* A, const void* B, const void* C, void* D, void* stream) {

@@ -96,13 +96,16 @@ Routes, chosen by the structure's shape (`route`): within the by-value
 plan's maxima (`MAX_SLOTS`, `MAX_PRODUCTS`, `MAX_FACTORS`, `MAX_DEGREE`:
 16, 16, 8, 8) the kernels above; past any of them every wrapper takes the
 wide route (`csrc/round.cu` `wide_kernel`, `csrc/round_mxu.cu`
-`fold_mxu_kernel<true>`), whose product index matrix sits in device memory,
-uploaded once per structure and device from pinned memory (`_wide_idx`: no
-host wait, so a chained prove stays free of syncs), and whose evaluation
-re-reads each factor's lanes at every t, so no shared-memory or register
-array limits the slots, products, factors or degree. The plain versions
-take any structure. A failed build or launch raises on either route; there
-is no fallback to the plain versions on a card.
+`fold_mxu_wide_kernel`), whose product index matrix and product lengths
+sit in device memory, uploaded once per structure and device from pinned
+memory (`_wide_idx`: no host wait, so a chained prove stays free of syncs),
+and whose evaluation walks the points in chunks of 4, 8, 10 or 12 held
+in registers, each factor read once a chunk, so no shared-memory or register
+array limits the slots, products, factors or degree. A `Products` names
+the slot its ragged products are padded with, which holds the Montgomery
+one in every lane: the wide route skips it (`product_lengths`). The plain
+versions take any structure. A failed build or launch raises on either
+route; there is no fallback to the plain versions on a card.
 """
 
 from __future__ import annotations
@@ -472,6 +475,35 @@ def round_step_fold_batched_ref(lo, hi, r, products, degree: int, coeffs=None, o
 # ---------------------------------------------------------------------------
 
 
+class Products(tuple):
+    """A structure's product index tuples, padded to one length with the
+    slot `ones`, or None where no product is padded. The caller vouches that
+    slot `ones` of the pair holds the Montgomery one in every lane (the pair
+    init's ones slot, `device_prover._fold_plan`), which a fold leaves as it
+    is: the wide route then neither loads nor multiplies it. A plain tuple
+    of index tuples claims no such slot; both give the same sums."""
+
+    def __new__(cls, products, ones=None):
+        self = super().__new__(cls, (tuple(ix) for ix in products))
+        self.ones = ones
+        return self
+
+
+def product_lengths(products) -> list[int]:
+    """Each product's count of real factors: its index tuple without the
+    entries of the `Products` padding slot (at least one, for a product of
+    ones alone)."""
+    ones = getattr(products, "ones", None)
+    return [max(1, sum(1 for s in ix if s != ones)) for ix in products]
+
+
+def wide_points(degree: int) -> int:
+    """The wide route's chunk of points at a degree: the smallest of 4, 8,
+    10 and 12 that holds the d + 1 points, else 12 (`csrc/round_common.cuh`
+    `wide_points`, which the launch reads)."""
+    return 4 if degree < 4 else 8 if degree < 8 else 10 if degree < 10 else 12
+
+
 def route(slots: int, products, degree: int) -> str:
     """The round kernels' route for a product structure, chosen by its
     shape: "plan" (the by-value `Plan` of `csrc/round_common.cuh`) within
@@ -482,17 +514,22 @@ def route(slots: int, products, degree: int) -> str:
     return "plan" if within else "wide"
 
 
-_WIDE_IDX: dict = {}  # (products, device) -> the (products x factors) int32 index matrix
+_WIDE_IDX: dict = {}  # (products, ones, device) -> the wide route's int32 plan table
 
 
 def _wide_idx(products, device) -> torch.Tensor:
-    """The wide route's product index matrix on `device`, uploaded once for
-    each structure and device from pinned memory without a host wait, so a
-    chained prove stays free of syncs."""
-    key = (tuple(tuple(ix) for ix in products), device)
+    """The wide route's plan table on `device`: the (products x factors)
+    index matrix, each row's real factors first and the padding slot after
+    them, then each product's count of real factors (`product_lengths`).
+    Uploaded once for each structure and device from pinned memory without
+    a host wait, so a chained prove stays free of syncs."""
+    ones = getattr(products, "ones", None)
+    key = (tuple(tuple(ix) for ix in products), ones, device)
     idx = _WIDE_IDX.get(key)
     if idx is None:
-        flat = torch.tensor([s for ix in products for s in ix], dtype=torch.int32)
+        rows = [[s for s in ix if s != ones] + [s for s in ix if s == ones] for ix in products]
+        flat = torch.tensor([s for row in rows for s in row] + product_lengths(products),
+                            dtype=torch.int32)
         idx = flat.pin_memory().to(device, non_blocking=True)
         _WIDE_IDX[key] = idx
     return idx

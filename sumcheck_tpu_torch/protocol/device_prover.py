@@ -46,7 +46,8 @@ def _fold_plan(polynomial):
     """Decide how to fold each product's coefficient into a table slot.
 
     Returns (products, scale_plan, num_slots, need_ones):
-    - products: padded index tuples with coefficients absorbed;
+    - products: padded index tuples with coefficients absorbed, a
+      `round_cuda.Products` that names the ones slot they are padded with;
     - scale_plan: list of (dst_slot, src_slot, coeff_int) — dst == src means
       scale in place (slot referenced nowhere else); dst >= num_tables
       appends a scaled copy (slot shared between products, or a coefficient
@@ -83,9 +84,9 @@ def _fold_plan(polynomial):
     max_len = max(len(ix) for ix in prods)
     need_ones = any(len(ix) < max_len for ix in prods)
     ones_slot = next_slot
-    products = tuple(
-        tuple(ix + [ones_slot] * (max_len - len(ix))) for ix in prods
-    )
+    products = round_cuda.Products(
+        (ix + [ones_slot] * (max_len - len(ix)) for ix in prods),
+        ones_slot if need_ones else None)
     num_slots = next_slot + (1 if need_ones else 0)
     return products, tuple(scale_plan), num_slots, need_ones
 

@@ -12,6 +12,11 @@ kernels' wide route:
   its copy), nv=3;
 - "wide": a product of 20 tables (degree 20) beside 40 single-table
   products, random coefficients (61 slots, 41 products), nv=3.
+
+`chunk_structure` is one more, past the wide route's first chunk of 12
+points: a product of 17 tables (degree 17, two chunks) and one of 9 beside
+single-table products, random coefficients, so the products straddle the
+chunk boundary at t = 12.
 """
 
 from __future__ import annotations
@@ -39,3 +44,12 @@ def f4_structure(name: str):
         return 3, [(rnd.randrange(2, 1 << 62), list(range(20)))] + [
             (rnd.randrange(2, 1 << 62), [20 + i]) for i in range(40)], 60
     raise ValueError(name)
+
+
+def chunk_structure():
+    """(nv, products [(coeff, [table indices])], table count): a product of
+    17 tables and one of 9 beside four single-table products (two of them
+    on tables the long products use), random coefficients; nv=4."""
+    rnd = random.Random("chunk")
+    rows = [list(range(17)), list(range(17, 26)), [26], [27], [0], [20]]
+    return 4, [(rnd.randrange(2, 1 << 62), ix) for ix in rows], 28

@@ -1693,12 +1693,24 @@ def test_microbench_on_cuda(cuda, tmp_path):
 
 
 def _f4_poly(name: str, nv: int, seed: int = 0):
-    """F4's structure `name` (`tests/f4_cases.py`) over random tables at
-    `nv`."""
-    from f4_cases import f4_structure
+    """F4's structure `name` (`tests/f4_cases.py`; "chunk" its
+    `chunk_structure`, past the wide route's first chunk) over random tables
+    at `nv`."""
+    from f4_cases import chunk_structure, f4_structure
 
-    _nv, products, count = f4_structure(name)
+    _nv, products, count = chunk_structure() if name == "chunk" else f4_structure(name)
     return polynomial_from_numpy(nv, _tables(seed, nv, count), products)
+
+
+def _ones_slot(lo, hi, products) -> None:
+    """Slot `products.ones` of a (U, 8, H) or (B, U, 8, H) pair set to the
+    Montgomery one in every lane, as the pair init leaves it: what a
+    `Products` that names it claims."""
+    if getattr(products, "ones", None) is None:
+        return
+    one = _packed(L.from_ints([(1 << 256) % P], mont=False)).to(lo.device)  # (8, 1)
+    lo[..., products.ones, :, :] = one
+    hi[..., products.ones, :, :] = one
 
 
 def _wide_plan(name: str):
@@ -1712,17 +1724,21 @@ def _wide_plan(name: str):
     return slots, products, poly.max_multiplicands
 
 
-@pytest.mark.parametrize("name", ["a", "b", "c", "wide"])
+@pytest.mark.parametrize("name", ["a", "b", "c", "wide", "chunk"])
 @pytest.mark.parametrize("mode", ["nofold", "nofold_coeffs", "fold", "step_fold",
                                   "step_fold_coeffs", "fold_mxu", "batched_nofold",
                                   "batched_fold", "batched_step_fold"])
 def test_wide_round_kernels_match_plain(cuda, mode, name):
     """Every round kernel on the wide route (F4's structures: 17 and 61
-    slots, 17 and 41 products, degrees 9 and 20) against its plain version
-    at ragged extents: sums and tables array-equal."""
-    slots, products, degree = _wide_plan(name)
+    slots, 17 and 41 products, degrees 9 and 20; and degree 17 in two
+    chunks) against its plain version at ragged extents: sums and tables
+    array-equal. A ragged structure runs twice: with its `Products` over a
+    pair whose ones slot holds the one (the padding skipped), and as plain
+    tuples over random values there (every factor multiplied)."""
+    slots, products_, degree = _wide_plan(name)
+    claims = [products_, tuple(products_)] if products_.ones is not None else [products_]
     batch = 3 if mode.startswith("batched") else None
-    for extent in (1, 100, 128):
+    for extent, products in ((e, c) for e in (1, 100, 128) for c in claims):
         seed = 7 * extent + len(mode)
         if batch:
             lo, hi = _batched_pair(seed, batch, slots, 9, cuda)
@@ -1730,6 +1746,7 @@ def test_wide_round_kernels_match_plain(cuda, mode, name):
         else:
             lo, hi = _edge_pair(seed, slots, 9, cuda)
             r = torch.from_numpy(L.mont_scalar(seed)[:, 0].astype(np.int32)).to(cuda)
+        _ones_slot(lo, hi, products)
         coeffs = _coeffs(products, cuda) if mode.endswith("coeffs") else None
         l1, h1, l2, h2 = lo.clone(), hi.clone(), lo.cpu(), hi.cpu()
         if mode in ("step_fold", "step_fold_coeffs", "batched_step_fold"):
@@ -1765,6 +1782,56 @@ def test_wide_round_kernels_match_plain(cuda, mode, name):
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want), extent
         assert torch.equal(l1.cpu(), l2) and torch.equal(h1.cpu(), h2), extent
+
+
+@pytest.mark.parametrize("degree", [2, 3, 4, 6, 7, 8, 10, 11, 12, 16, 24])
+def test_wide_chunk_boundary_degrees_match_plain(cuda, degree):
+    """The wide route at d + 1 = T - 1, T, T + 1 and 2T + 1 for its chunks
+    T = 4, 8, 12: a product of d tables and one of d // 2 beside 17 single
+    tables (so past the plan's 16 products) with coefficients, the pair
+    built by `init_pair` (scaled copies, the ones slot); round 0 with and
+    without coefficients, the three folds, the MXU fold and the batched
+    fold, each against its plain version, array-equal."""
+    from sumcheck_tpu_torch.protocol.device_prover import init_pair
+
+    rows = [list(range(degree)), list(range(max(1, degree // 2)))] + \
+        [[degree + i] for i in range(17)]
+    nv = 8
+    poly = polynomial_from_numpy(nv, _tables(degree, nv, degree + 17),
+                                 [(3 + 7 * i, ix) for i, ix in enumerate(rows)])
+    lo, hi, products, d = init_pair(poly, cuda)
+    assert d == degree and RC.route(lo.shape[0], products, d) == "wide"
+    extent = lo.shape[2] // 2 - 3
+    r = torch.from_numpy(L.mont_scalar(degree + 5)[:, 0].astype(np.int32)).to(cuda)
+    c = _coeffs(products, cuda)
+    cases = {
+        "nofold": (lambda a, b: RC.round_nofold(a, b, products, d, extent),
+                   lambda a, b: RC.round_nofold_ref(a, b, products, d, extent)),
+        "nofold_coeffs": (lambda a, b: RC.round_step_nofold(a, b, products, d, c),
+                          lambda a, b: RC.round_step_nofold_ref(a, b, products, d, c.cpu())),
+        "fold": (lambda a, b: RC.round_fold(a, b, r, products, d, extent),
+                 lambda a, b: RC.round_fold_ref(a, b, r.cpu(), products, d, extent)),
+        "fold_mxu": (lambda a, b: RC.round_fold_mxu(a, b, r, products, d, extent),
+                     lambda a, b: RC.round_fold_ref(a, b, r.cpu(), products, d, extent)),
+        "step_fold": (lambda a, b: RC.round_step_fold(a, b, r, products, d, c),
+                      lambda a, b: RC.round_step_fold_ref(a, b, r.cpu(), products, d, c.cpu())),
+        "batched_fold": (
+            lambda a, b: RC.round_fold_batched(a, b, r.expand(2, -1).contiguous(), products,
+                                               d, extent),
+            lambda a, b: RC.round_fold_batched_ref(a, b, r.cpu().expand(2, -1).contiguous(),
+                                                   products, d, extent)),
+    }
+    for mode, (kernel, plain) in cases.items():
+        a, b = (lo, hi) if mode != "batched_fold" else (torch.stack([lo, lo.flip(2)]),
+                                                        torch.stack([hi, hi.flip(2)]))
+        a1, b1, a2, b2 = a.clone(), b.clone(), a.cpu(), b.cpu()
+        got, want = kernel(a1, b1), plain(a2, b2)
+        torch.cuda.synchronize()
+        if mode == "step_fold":
+            (a1, b1), got = got
+            (a2, b2), want = want
+        assert torch.equal(got.cpu(), want), mode
+        assert torch.equal(a1.cpu(), a2) and torch.equal(b1.cpu(), b2), mode
 
 
 def test_wide_route_is_chosen_by_shape(cuda):

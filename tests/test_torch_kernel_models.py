@@ -17,14 +17,24 @@ checked against the port's plain versions and Python integers:
   `fold_kernel` after its fold, reading the ladder's (E, O - E)): product by
   product, a product of l factors multiplied at t = 0..l and extended by
   backward differences; against the ladder (`round_cuda.round_nofold_ref`)
-  at degrees 1-8.
+  at degrees 1-8;
+- the wide route's chunked evaluation (`csrc/round_common.cuh`
+  `wide_block_sums`, `extend_to`): the points in chunks of T, each factor's
+  first point of a chunk by one multiply and the rest by additions, each
+  product at its own degree's points and extended by differences in place,
+  the padding slot skipped; against the plain versions and Python integers
+  at T = 1, 2, 4, 8, 10, 12 and the kernels' choice, degrees 1-24, ragged
+  products with and without coefficients, F4's five structures (round 0 and
+  the fold), and its multiplies against `chip_smoke.eval_multiplies`.
 
 Tolerance 0 everywhere: exact integer arithmetic.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import random
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -555,6 +565,249 @@ def test_register_eval_multiplies_fewer(factors):
             v = v * ((e[s] + t * (o[s] - e[s])) % P) * R_INV % P
         want.append(v)
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# round_common.cuh: the wide route's chunked evaluation
+# ---------------------------------------------------------------------------
+
+ONE = (1 << 256) % P  # the Montgomery one: every lane of the pair's ones slot
+
+
+def extend_to(acc: list[int], k: int, m: int) -> None:
+    """`extend_to<kT>`: acc[0..k] of a degree-k polynomial -> acc[k+1..m],
+    in place: the forward differences at 0, zeros past the k-th, then back
+    to values, mod p."""
+    for j in range(1, k + 1):
+        for i in range(k, j - 1, -1):
+            acc[i] = (acc[i] - acc[i - 1]) % P
+    for i in range(k + 1, m + 1):
+        acc[i] = 0
+    for j in range(k + 1, 0, -1):
+        for i in range(j, m + 1):
+            acc[i] = (acc[i] + acc[i - 1]) % P
+
+
+def chunk_eval(e, o, products, degree: int, T: int, coeffs=None, count=None) -> list[int]:
+    """`wide_block_sums<T>` for one lane, in the kernel's order: e[s], o[s]
+    the slots' values (Montgomery form, as ints), `products` the plan's
+    rows (a `round_cuda.Products` names its padding slot, which is never
+    read: each row's real factors as `round_cuda._wide_idx` orders them);
+    returns total(t), t = 0..degree. `count`, a list, gets one entry per
+    multiply."""
+    def mul(x, y):
+        if count is not None:
+            count.append(1)
+        return x * y * R_INV % P
+
+    ones = getattr(products, "ones", None)
+    rows = [[s for s in ix if s != ones] for ix in products]
+    lengths = RC.product_lengths(products)
+    total, tm = [], 0  # tm: t0 * one, the chunk's first point
+    for t0 in range(0, degree + 1, T):
+        n = min(T, degree + 1 - t0)
+        tot = [0] * n
+        for p, (row, length) in enumerate(zip(rows, lengths)):
+            acc, known, l = [0] * T, 0, 0
+            while True:
+                need = min(l + 1, n - 1) if l < length else n - 1
+                if l > 0 and need > known:
+                    extend_to(acc, known, need)
+                if l == length:
+                    break
+                s = row[l] if row else ones
+                v, step = e[s], (o[s] - e[s]) % P
+                if t0 > 0:
+                    v = (v + mul(step, tm)) % P
+                if l == 0:
+                    if coeffs is not None:
+                        v, step = mul(coeffs[p], v), mul(coeffs[p], step)
+                    for i in range(n):
+                        v = (v + step) % P if i else v
+                        acc[i] = v
+                    known = n - 1
+                else:
+                    for i in range(need + 1):
+                        v = (v + step) % P if i else v
+                        acc[i] = mul(acc[i], v)
+                    known = need
+                l += 1
+            tot = [(a + b) % P for a, b in zip(tot, acc)]
+        total += tot
+        if t0 + T <= degree:
+            for _ in range(T):
+                tm = (tm + ONE) % P
+    return total
+
+
+def direct_eval(e, o, products, degree: int, coeffs=None) -> list[int]:
+    """total(t) in Python integers, every factor of every product (the
+    padding slot too) at every point."""
+    out = []
+    for t in range(degree + 1):
+        tot = 0
+        for p, ix in enumerate(products):
+            v = coeffs[p] if coeffs is not None else ONE
+            for s in ix:
+                v = v * ((e[s] + t * (o[s] - e[s])) % P) * R_INV % P
+            tot += v
+        out.append(tot % P)
+    return out
+
+
+def ragged_case(rnd, degree: int, products: int = 4, tables: int = 6):
+    """A ragged structure of `degree`: products of 1..degree real factors
+    (one of `degree`), padded with a ones slot after the tables
+    (`Products`); the slots' values for `lanes` lanes, the ones slot's the
+    Montgomery one."""
+    lengths = [degree] + [rnd.randint(1, degree) for _ in range(products - 1)]
+    rnd.shuffle(lengths)
+    ones = tables
+    rows = [[rnd.randrange(tables) for _ in range(n)] + [ones] * (degree - n) for n in lengths]
+    return RC.Products(rows, ones if min(lengths) < degree else None), tables + 1
+
+
+def _ones_pair(rnd, slots: int, ones, lanes: int, width: int):
+    """Random slot values, 2 x lanes each, slot `ones` the Montgomery one;
+    and the limb pair holding them."""
+    vals = [[rnd.randrange(P) for _ in range(2 * lanes)] for _ in range(slots)]
+    vals[0][:3] = [0, 1, P - 1]
+    if ones is not None:
+        vals[ones] = [ONE] * (2 * lanes)
+    return vals, _limb_pair(vals, lanes, width)
+
+
+def _coeff_digits(cs) -> torch.Tensor:
+    return torch.from_numpy(L.from_ints(cs, mont=False).T.astype(np.int32).copy())
+
+
+CHUNKS = (1, 2, 4, 8, 10, 12)
+
+
+@pytest.mark.parametrize("T", CHUNKS)
+@pytest.mark.parametrize("coeffs", [False, True], ids=["plain", "coeffs"])
+def test_chunk_model_matches_plain_at_chunk_boundaries(T, coeffs):
+    """The chunked evaluation at d + 1 = T - 1, T, T + 1 and 2T + 1 (d >=
+    1), ragged products padded with the ones slot, with and without
+    coefficients: against the plain version (`round_nofold_ref`, or
+    `round_step_nofold_ref` with coefficients) and Python integers."""
+    rnd = random.Random(31 * T + coeffs)
+    lanes = 3
+    for degree in sorted({d for d in (T - 2, T - 1, T, 2 * T) if d >= 1}):
+        products, slots = ragged_case(rnd, degree)
+        vals, (lo, hi) = _ones_pair(rnd, slots, products.ones, lanes, lanes)
+        cs = [rnd.randrange(P) for _ in products] if coeffs else None
+        totals = []
+        for k in range(lanes):
+            e, o = [v[k] for v in vals], [v[lanes + k] for v in vals]
+            totals.append(chunk_eval(e, o, products, degree, T, cs))
+            assert totals[-1] == direct_eval(e, o, products, degree, cs), (degree, k)
+        if coeffs:
+            want = RC.round_step_nofold_ref(lo, hi, products, degree, _coeff_digits(cs))
+        else:
+            want = RC.round_nofold_ref(lo, hi, products, degree, lanes)
+        assert torch.equal(_digit_sums(totals, degree), want), degree
+
+
+@pytest.mark.parametrize("degree", range(1, 22))
+def test_chunk_model_matches_plain_at_every_degree(degree):
+    """At the kernels' chunk for each degree 1-21 (`round_cuda.wide_points`:
+    4, 8, 10, then 12, two chunks past degree 11), ragged products with
+    random coefficients: against the plain version."""
+    rnd = random.Random(500 + degree)
+    lanes, T = 2, RC.wide_points(degree)
+    products, slots = ragged_case(rnd, degree, products=3)
+    vals, (lo, hi) = _ones_pair(rnd, slots, products.ones, lanes, lanes)
+    cs = [rnd.randrange(P) for _ in products]
+    totals = [chunk_eval([v[k] for v in vals], [v[lanes + k] for v in vals], products, degree,
+                         T, cs) for k in range(lanes)]
+    want = RC.round_step_nofold_ref(lo, hi, products, degree, _coeff_digits(cs))
+    assert torch.equal(_digit_sums(totals, degree), want)
+
+
+@pytest.mark.parametrize("name", ["a", "b", "c", "tables18", "wide"])
+def test_chunk_model_matches_plain_on_f4_structures(name):
+    """F4's five structures (`tests/f4_cases.py`) through the pair the
+    provers build (`init_pair`: scaled copies, the ones slot), at the
+    kernels' chunk: round 0 over the pair, and one in-place fold by r
+    (`wide_kernel<true>`: each slot folded, then the chunked evaluation
+    over the folded values); sums and folded tables against the plain
+    versions."""
+    from f4_cases import f4_structure
+    from sumcheck_tpu_torch.convert import polynomial_from_numpy
+    from sumcheck_tpu_torch.protocol.device_prover import init_pair
+
+    nv, prods, count = f4_structure(name)
+    tabs = L.random_tables(np.random.default_rng(len(name)), nv, count)
+    lo, hi, products, degree = init_pair(polynomial_from_numpy(nv, tabs, prods), "cpu")
+    assert isinstance(products, RC.Products) and RC.route(lo.shape[0], products, degree) == "wide"
+    slots, half = lo.shape[0], lo.shape[2]
+    vals = [L.to_ints(np.concatenate([L.unpack_limbs(lo[u].numpy()),
+                                      L.unpack_limbs(hi[u].numpy())], axis=1), mont=False)
+            for u in range(slots)]
+    T = RC.wide_points(degree)
+    totals = [chunk_eval([v[k] for v in vals], [v[half + k] for v in vals], products, degree, T)
+              for k in range(half)]
+    assert torch.equal(_digit_sums(totals, degree),
+                       RC.round_nofold_ref(lo, hi, products, degree, half))
+    r = random.Random(name).randrange(P)
+    extent = half // 2
+
+    def fold(x, y):
+        return (x + (y - x) * r * R_INV) % P
+
+    es = [[fold(v[k], v[half + k]) for v in vals] for k in range(extent)]
+    os_ = [[fold(v[extent + k], v[half + extent + k]) for v in vals] for k in range(extent)]
+    totals = [chunk_eval(es[k], os_[k], products, degree, T) for k in range(extent)]
+    r_digits = torch.from_numpy(L.from_ints([r], mont=False)[:, 0].astype(np.int32))
+    want = RC.round_fold_ref(lo, hi, r_digits, products, degree, extent)
+    assert torch.equal(_digit_sums(totals, degree), want)
+    got_lo = [L.to_ints(L.unpack_limbs(lo[u].numpy())[:, :extent], mont=False)
+              for u in range(slots)]
+    assert got_lo == [[es[k][u] for k in range(extent)] for u in range(slots)]
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("coeffs", [False, True], ids=["plain", "coeffs"])
+def test_chunk_model_multiplies_equal_the_bound(coeffs):
+    """Where one chunk holds the d + 1 points (every degree below 12 at the
+    kernels' chunk), a lane's multiplies are `chip_smoke.eval_multiplies`,
+    the register schedule on the real factors: none for the padding slot.
+    Past one chunk, each later chunk adds the schedule over its own points
+    and one multiply a factor for x(t0):
+    sum over chunks c of sum_p [sum_{l=1}^{L_p-1} (min(l+1, n_c-1) + 1)
+    + (2 with coefficients) + (L_p for c > 0)]."""
+    smoke = _chip_smoke()
+    rnd = random.Random(77 + coeffs)
+    for degree in range(1, 25):
+        products, slots = ragged_case(rnd, degree, products=5)
+        e = [rnd.randrange(P) for _ in range(slots)]
+        o = [rnd.randrange(P) for _ in range(slots)]
+        cs = [rnd.randrange(P) for _ in products] if coeffs else None
+        T = RC.wide_points(degree)
+        count = []
+        chunk_eval(e, o, products, degree, T, cs, count)
+        lengths = RC.product_lengths(products)
+        want = 0
+        for t0 in range(0, degree + 1, T):
+            n = min(T, degree + 1 - t0)
+            want += sum(sum(min(l + 1, n - 1) + 1 for l in range(1, f)) + 2 * coeffs
+                        + (f if t0 else 0) for f in lengths)
+        assert len(count) == want, degree
+        bound = smoke.eval_multiplies(products, degree, coeffs)
+        if degree + 1 <= T:
+            assert len(count) == bound, degree
+        else:
+            assert len(count) > bound, degree
+        padded = smoke.eval_multiplies(tuple(products), degree, coeffs)
+        assert bound < padded or products.ones is None, degree
 
 
 # ---------------------------------------------------------------------------

@@ -16,6 +16,10 @@ structure; these tests hold the whole paths to the JAX package:
 - the interactive tier, each round's message and
   `flattened_ml_extensions` against the JAX package's state;
 - a batch of (a);
+- a structure whose products straddle the wide route's chunk boundary at
+  t = 12 (`f4_cases.chunk_structure`: a product of 17 tables and one of 9
+  beside single-table products, random coefficients) on the three chains,
+  the interactive tier and a batch;
 - a `hypothesis` fuzz over structures of up to 24 tables, 1-20 products
   and degree up to 12 at nv <= 4.
 
@@ -41,7 +45,7 @@ from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
 from sumcheck_tpu_torch.ops import round_cuda as RC
 from sumcheck_tpu_torch.protocol import device_prover as TD
 from sumcheck_tpu_torch.utils.config import get_config
-from f4_cases import NAMES, f4_structure
+from f4_cases import NAMES, chunk_structure, f4_structure
 from test_torch_interactive import _rounds
 from test_torch_prover import _tables, jax_host_prove, jax_poly
 
@@ -114,6 +118,63 @@ def test_f4_batch_matches_jax():
     from sumcheck_tpu_torch.batch import BatchedMLSumcheck
 
     pairs = [f4_polys("a", seed=s) for s in range(3)]
+    rngs = [T.Blake2b512Rng.setup() for _ in pairs]
+    proofs, challenges = BatchedMLSumcheck.prove_as_subprotocol(
+        rngs, [tp for _jp, tp in pairs], device="cpu")
+    for (jp, _tp), proof, ch, rng in zip(pairs, proofs, challenges, rngs):
+        jproof, jstate, jrng = jax_host_prove(jp)
+        assert serialize_proof(proof) == j_serialize(jproof)
+        assert [r.v for r in ch] == [r.v for r in jstate.randomness]
+        assert rng.fill_bytes(16) == jrng.fill_bytes(16)
+
+
+def chunk_polys(seed: int = 0):
+    """(JAX polynomial, port polynomial) of `chunk_structure`."""
+    nv, products, count = chunk_structure()
+    tables = _tables(seed, nv, count)
+    return jax_poly(nv, tables, products), polynomial_from_numpy(nv, tables, products)
+
+
+@pytest.mark.parametrize("chain", ["generic", "persize", "mxu"])
+def test_chunk_boundary_prove_matches_jax(chain, monkeypatch):
+    """Products across the wide route's chunk boundary (degree 17: two
+    chunks of the kernels' 12 points), on each chain: proof bytes,
+    challenges and the transcript after it equal to the JAX package's host
+    engine; the structure takes the wide route with padding."""
+    cfg = get_config()
+    monkeypatch.setattr(cfg, "chain_impl", "persize" if chain == "persize" else "generic")
+    if chain == "mxu":
+        monkeypatch.setattr(cfg, "mxu_fold", "kernel")
+        monkeypatch.setattr(cfg, "ab", True)
+    jp, tp = chunk_polys(seed=11)
+    products, _scale, slots, ones = TD._fold_plan(tp)
+    assert ones and products.ones == slots - 1
+    assert RC.route(slots, products, tp.max_multiplicands) == "wide"
+    assert RC.wide_points(tp.max_multiplicands) < tp.max_multiplicands + 1
+    jproof, jstate, jrng = jax_host_prove(jp)
+    rng = T.Blake2b512Rng.setup()
+    proof, state = T.MLSumcheck.prove_as_subprotocol(rng, tp, device="cpu")
+    assert serialize_proof(proof) == j_serialize(jproof)
+    assert [r.v for r in state.randomness] == [r.v for r in jstate.randomness]
+    assert rng.fill_bytes(40) == jrng.fill_bytes(40)
+
+
+def test_chunk_boundary_interactive_and_batch_match_jax():
+    """The same structure on the interactive tier (each round's message and
+    `flattened_ml_extensions` against the JAX package's state) and as a
+    batch of two instances (`BatchedMLSumcheck`) against each instance's
+    JAX prove."""
+    from sumcheck_tpu_torch.batch import BatchedMLSumcheck
+
+    jp, tp = chunk_polys(seed=12)
+    rounds = 0
+    for jst, st, jm, m in _rounds(jp, tp, seed=17):
+        assert m.serialize_uncompressed() == jm.serialize_uncompressed()
+        assert [t.tolist() for t in st.flattened_ml_extensions] == \
+            [np.asarray(t).tolist() for t in jst.flattened_ml_extensions]
+        rounds += 1
+    assert rounds == tp.num_variables
+    pairs = [chunk_polys(seed=s) for s in (13, 14)]
     rngs = [T.Blake2b512Rng.setup() for _ in pairs]
     proofs, challenges = BatchedMLSumcheck.prove_as_subprotocol(
         rngs, [tp for _jp, tp in pairs], device="cpu")

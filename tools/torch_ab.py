@@ -13,7 +13,12 @@ shape (device times: the stream sleeps while the launches are enqueued),
 the median of 15 warm `MLSumcheck.prove` walls on the bench's 2 products x
 3 multiplicands at nv=20 on the generic chain and in the MXU fold mode,
 and, from one profiled prove, the launches and device time of its round
-kernels, its transcript steps and its other kernels (copies and fills).
+kernels, its transcript steps and its other kernels (copies and fills);
+then the wide route (`round_cuda.route`: structures past the by-value plan)
+at fault F4's shapes (`chip_smoke.f4_poly`, the pair by `init_pair`): round
+0, the in-place fold and the MXU fold of (a) at nv=20, of (b) and (c) at
+nv=18, (b)'s round 0 at nv=20, the batched round 0 and fold of 4 x (b) at nv=16, and the
+median of 15 warm generic proves of (b) at nv=20.
 Timing and the profiler's classes are this repo's `chip_smoke.py`
 (`time_ms`, `device_busy`), whichever checkout is measured; they time and
 profile through the measured checkout's `sumcheck_tpu_torch.microbench`
@@ -43,7 +48,7 @@ from sumcheck_tpu_torch import MLSumcheck  # noqa: E402  (from ROOT)
 from sumcheck_tpu_torch.convert import polynomial_from_numpy  # noqa: E402
 from sumcheck_tpu_torch.fields import limbs_np as L  # noqa: E402
 from sumcheck_tpu_torch.ops import round_cuda as rc  # noqa: E402
-from sumcheck_tpu_torch.protocol.device_prover import init_pair  # noqa: E402
+from sumcheck_tpu_torch.protocol.device_prover import init_pair, init_pairs  # noqa: E402
 from sumcheck_tpu_torch.utils.config import get_config  # noqa: E402
 
 
@@ -99,6 +104,40 @@ def main() -> None:
     mxu_prove_s = median_wall()
     cfg.mxu_fold, cfg.ab = saved
     count, ms = busy["kernels"], busy["device_ms"]
+    del lo, hi, glo, ghi
+    torch.cuda.empty_cache()
+
+    wide = {}
+    for name, nv in (("a", 20), ("b", 20), ("b", 18), ("c", 18)):
+        wlo, whi, wprod, wdeg = init_pair(smoke.f4_poly(name, 0, nv), dev)
+        h = wlo.shape[2]
+        assert rc.route(wlo.shape[0], wprod, wdeg) == "wide"
+        wide[f"({name}) nv={nv} round 0"] = device_ms(
+            lambda: rc.round_nofold(wlo, whi, wprod, wdeg, h))
+        if (name, nv) != ("b", 20):
+            wide[f"({name}) nv={nv} fold"] = device_ms(
+                lambda: rc.round_fold(wlo, whi, r, wprod, wdeg, h // 2))
+            wide[f"({name}) nv={nv} MXU fold"] = device_ms(
+                lambda: rc.round_fold_mxu(wlo, whi, r, wprod, wdeg, h // 2))
+        del wlo, whi
+        torch.cuda.empty_cache()
+    blo, bhi, bprod, bdeg = init_pairs([smoke.f4_poly("b", b, 16) for b in range(4)], dev)
+    rb = r.expand(4, -1).contiguous()
+    bh = blo.shape[3]
+    wide["4 x (b) nv=16 round 0"] = device_ms(
+        lambda: rc.round_nofold_batched(blo, bhi, bprod, bdeg, bh))
+    wide["4 x (b) nv=16 fold"] = device_ms(
+        lambda: rc.round_fold_batched(blo, bhi, rb, bprod, bdeg, bh // 2))
+    del blo, bhi
+    poly, b20 = smoke.f4_poly("b", 0, 20), None
+    MLSumcheck.prove(poly, device=dev)
+    walls = []
+    for _ in range(15):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b20 = MLSumcheck.prove(poly, device=dev)
+        walls.append(time.perf_counter() - t0)
+    assert len(b20) == 20
     print(f"AB {LABEL}: fold 2^18 {fold[0]:.4f} ms, 2^17 {fold[1]:.4f}, 2^16 {fold[2]:.4f}, "
           f"2^15 {fold[3]:.4f}, 2^10 {fold[8]:.4f}, 2^0 {fold[18]:.4f}; sum of 19 folds "
           f"{sum(fold):.4f} ms; nofold 2^19 {nofold:.4f} ms; MXU fold ML 2^18 {mxu_ml:.4f} ms, "
@@ -106,7 +145,9 @@ def main() -> None:
           f"{prove_s:.4f} s, MXU mode {mxu_prove_s:.4f} s; profiled prove: "
           f"{count['round']} round kernels {ms['round']:.4f} ms, {count['transcript']} transcript "
           f"steps {ms['transcript']:.4f} ms, {count['other']} other kernels {ms['other']:.4f} ms "
-          f"with the copies")
+          f"with the copies; wide route "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in wide.items())
+          + f"; F4 (b) nv=20 generic prove median of 15 {statistics.median(walls):.4f} s")
 
 
 if __name__ == "__main__":
