@@ -2739,6 +2739,20 @@ def gkr_batch_init_phase(device, seed: int, batch: int = BATCH,
         for kind in ("batched", "singles", "plain"):
             phase2(kind)
         sync(device)
+        (blo, bhi), (blo2, bhi2) = pairs["batched"], pairs["batched2"]
+        routes = [GK.batch_launch_shape([
+            GK.Instance(s.gbits, s.vals, g, s.last_x, s.plan_x, (blo[b], bhi[b]), f3=f3,
+                        y=s.y_rev,
+                        to_y=s.to_y, slot=(f2, None))
+            for b, (s, f2, f3, g) in enumerate(inputs)], dim),
+            GK.batch_launch_shape([
+                GK.Instance(s.x_y, carries["batched"][b], u[:, b], s.last_y, s.plan_y,
+                            (blo2[b], bhi2[b]), slot=(f3, (lo1[b, :, :, :1], hi1[b, :, :, :1],
+                                                           u[dim - 1, b], 1)))
+                for b, (s, f3) in enumerate(zip(splits, f3s))], dim)]
+        print(f"9b {label}: the batched launch takes the {batch} instances in its parameters, "
+              f"no copy ahead of it: (parameter bytes, blocks an instance) of each launch, "
+              f"phase 1 {routes[0]}, phase 2 {routes[1]}")
         err = 0
         for other in ("singles", "plain"):
             for a, b in zip(pairs["batched"] + pairs["batched2"],
@@ -2759,7 +2773,7 @@ def gkr_batch_init_phase(device, seed: int, batch: int = BATCH,
             singles_ms = held_flushed_ms(lambda fn=fn: fn("singles"), device)
             plain_ms = time_ms(lambda fn=fn: fn("plain"), PLAIN_REPS, device)
             entry = {"shape": f"{label}: phase {phase} init", "ms": ms, "singles_ms": singles_ms,
-                     "plain_ms": plain_ms, "work": work}
+                     "plain_ms": plain_ms, "work": work, "launches": routes[phase - 1]}
             stats["weight_reduce_batched"][1].append(entry)
             line = (f"kernel-vs-plain weight_reduce_batched ({label}, phase {phase}): equal to "
                     f"{batch} single launches and the plain version; batched {ms:.4f} ms, "

@@ -30,10 +30,11 @@
 //                        of f2 (phase 1) or f3 times the final fold l + r (h
 //                        - l) of a one-lane pair (f2(u), phase 2);
 //   weight_reduce_batched_kernel  the same for B instances of one shape in
-//                        one launch, grid y = instance, each block reading
-//                        its instance's operands from a table in device
-//                        memory (the batched GKR prover: one launch a
-//                        phase for the whole batch);
+//                        one launch, grid y = instance, the instances'
+//                        operands in the launch's parameters (the batched
+//                        GKR prover: one launch a phase for the whole
+//                        batch), each block's first tile loaded under its
+//                        build of the half tables;
 //   finish_sums_kernel   the finish of all-reduced raw sums;
 //   pair_slots_kernel    a pair's slots for the pieces that stay separate
 //                        (the per-size chain, the sharded ranks): a copy, a
@@ -77,8 +78,6 @@
 // blocks); it beat a cooperative build, the half tables in a launch of
 // their own, the slot's items in the work list, a split of each half as a
 // tensor product of two smaller tables and tiles of 1,024.
-
-#include <vector>
 
 #include "field.cuh"
 
@@ -444,19 +443,383 @@ __global__ void __launch_bounds__(kTile, 1024 / kTile)  // 64 registers a thread
   weight_reduce_body<kGather>(a, c);
 }
 
-// The instance axis (the batched GKR prover): B instances of one shape
-// (dim, so k, kl, kh and the shared memory) in one launch, grid y =
-// instance. Block (x, b) reads instance b's operands from entry b of
-// `insts` in device memory (its plan, entries, challenge rows, f3, carry,
-// scratch rows, destination and slot; sc_gkr_weight_reduce_batched stages
-// the table with one asynchronous copy ahead of the launch) and runs the
-// single launch's body over them with gridDim.x blocks: each builds
-// instance b's half tables and walks instance b's items and slot items.
+// ---------------------------------------------------------------------------
+// the weight reduce's instance axis (the batched GKR prover)
+// ---------------------------------------------------------------------------
+
+// B instances of one shape (dim, so k, kl, kh and the shared memory) in one
+// launch, grid y = instance, each instance's operands passed in the launch's
+// parameters (`Batch`, under __grid_constant__, in the constant bank as the
+// single launch's are): no copy ahead of the launch and nothing in device
+// memory. What bounds it at the bench's batch (8 x dim 14: 256 blocks, one
+// tile each, two an SM): the card's memory traffic (8 instances' entries,
+// gathers, carries, pairs and slots at once) and each SM's multiplies, not
+// the reads of the instance (PERF.md, tools/gkr_batch_variants.py: the
+// launch before this design read its instance from a device table filled
+// by an async copy; the copy cost 1.3-1.5 us of its 0.030 ms, the reads
+// nothing). So:
+// kBatchPer = 2 entries a thread (256 threads a block at 128 registers, two
+// blocks an SM), so that a block can hold its first tile's entries in
+// registers; phase 1's threads issue those loads (the plan item, each
+// entry's index, value, y and to_y, then the f3 gather) before they build
+// the half tables or move the slot, so that the gather's dependent loads
+// overlap that work (phase 2, with no gather, loads after it: measured
+// faster); phase 1's f3 gathered from an entry-major copy of f3, one sector
+// an entry where the (8, n) table spreads a lane over 8; the finish's
+// multiply of the word above 2^256 skipped where that word is 0; the slot's
+// lanes cut evenly over the instance's blocks, each mover loading both
+// halves of two lanes and the final fold's operands before its own
+// entries, then computing the fold itself (no barrier for it). A block with
+// no item of its instance only moves the slot. A launch of at most 8
+// instances takes parameters for 8, a larger one for kBatchCap, since
+// parameter bytes cost launch time. Measured and not taken: a thread an
+// entry (512 threads at 64 registers spill, or one block an SM), the half
+// tables by direct products (depth 3 multiplies at k = 14 against the
+// doubling's 7, no faster), the loads after the work in phase 1, or before
+// it in phase 2.
+
+constexpr int kBatchPer = 2;                      // entries a thread of a tile
+constexpr int kBatchThreads = kTile / kBatchPer;  // the batched kernel's block
+constexpr int kBatchBlocks = 2;                   // blocks an SM: 128 registers a thread
+constexpr int kBatchWarps = kBatchThreads / 32;
+// challenge digits a thread of the build stages (k <= kMaxRows rows over half the block)
+constexpr int kStagePer = (kMaxRows * kDigits + kBatchThreads / 2 - 1) / (kBatchThreads / 2);
+constexpr int kParamBytes = 32764;  // a launch's parameters (CUDA 12.1 and later, sm_70 and up)
+
+// What every instance of a batched launch shares.
+struct BatchShape {
+  long long r_stride;            // the challenge rows' row stride
+  long long half;                // the pair's half width: nseg = 2 half, the limb stride
+  long long fstride;             // the final fold's limb stride
+  unsigned long long* scratch;   // the long segments' (rows, 8) partials, zero between launches
+  unsigned int* arrived;         // (rows,) chunks arrived, zero between launches
+  int kl, kh;
+  int slot;                      // 1: the pair's slot 1 from src
+};
+
+// One instance: WeightReduce's operands, its pair (lo, hi) (U, 8, half) each,
+// whose slot 0 takes the segment sums (segment s < half at lo + s, else at hi
+// + s - half) and slot 1, at + 8 half, the slot (src's halves, times the final
+// fold of (flo, fhi, fr) where flo is given).
+struct BatchInst {
+  const int4* plan;
+  const uint32_t* vals;
+  const int32_t* idx;
+  const int32_t* r;
+  const int32_t* last;
+  const int32_t* y;              // phase 1: y, f3 (entry-major (n3, 8) rows), to_y and the
+  const uint32_t* f3;            //   carry; else null
+  const int32_t* to_y;
+  uint32_t* carry;
+  uint32_t* lo;
+  uint32_t* hi;
+  const uint32_t* src;
+  const uint32_t* flo;
+  const uint32_t* fhi;
+  const int32_t* fr;
+  int items;
+  int row;                       // its first scratch row
+};
+
+constexpr int kBatchFields = 15;  // BatchInst's pointers
+// the most instances a launch's parameters hold; a launch of at most
+// kBatchSmall takes a capacity of kBatchSmall, since a launch's parameter
+// bytes cost launch time (on an H100, 7.6-8.1 us a launch back to back at 32 KB
+// against 2.5-3.0 at 1 KB: tools/gkr_batch_variants.py)
+constexpr int kBatchCap =
+    (kParamBytes - (int)sizeof(Consts) - (int)sizeof(BatchShape)) / (int)sizeof(BatchInst);
+constexpr int kBatchSmall = 8;  // the capacity of a launch of few instances (1,184 bytes)
+
+template <int kCap>
+struct Batch {
+  BatchShape sh;
+  BatchInst inst[kCap];
+};
+static_assert(sizeof(Batch<kBatchCap>) + sizeof(Consts) <= kParamBytes,
+              "a batched launch's parameters");
+
+// A thread's entries of one item (entries t, t + kBatchThreads, ...), loaded
+// ahead of their use: the values (the weights, once computed), phase 1's f3
+// lanes, the eq indices, the carry's rows and f3's lanes.
+struct Held {
+  uint32_t v[kBatchPer][kLimbs];
+  uint32_t q[kBatchPer][kLimbs];
+  uint32_t ix[kBatchPer];
+  int32_t to[kBatchPer];
+  int32_t yl[kBatchPer];
+};
+
 template <bool kGather>
-__global__ void __launch_bounds__(kTile, 1024 / kTile)
-    weight_reduce_batched_kernel(const WeightReduce* __restrict__ insts,
+__device__ __forceinline__ void load_entries(Held& h, const BatchInst& in, const int4 item,
+                                             int t) {
+#pragma unroll
+  for (int j = 0; j < kBatchPer; ++j) {
+    const int e = item.z + t + j * kBatchThreads;
+    if (e < item.w) {
+      h.ix[j] = (uint32_t)__ldg(in.idx + e);
+      load_row(h.v[j], in.vals, e);
+      if constexpr (kGather) {
+        h.to[j] = __ldg(in.to_y + e);
+        h.yl[j] = __ldg(in.y + e);
+      }
+    }
+  }
+}
+
+// Phase 1's f3 lanes of the thread's entries, from f3's entry-major rows:
+// one 32-byte sector an entry (a limb-major gather reads 8).
+template <bool kGather>
+__device__ __forceinline__ void gather_f3(Held& h, const BatchInst& in, const int4 item, int t) {
+  if constexpr (kGather) {
+#pragma unroll
+    for (int j = 0; j < kBatchPer; ++j)
+      if (item.z + t + j * kBatchThreads < item.w) load_row(h.q[j], in.f3, h.yl[j]);
+  }
+}
+
+// Lanes [begin, end) of the pair's slot 1 over `threads` threads (thread
+// `tid`): lo[1][:, k] = src[:, k] and hi[1][:, k] = src[:, half + k], times
+// the final fold l + r (h - l) of (flo, fhi, fr) where flo is given, which
+// each mover computes for itself. Two lanes a thread a pass, all four loads
+// before the multiplies and stores; the first pass's loads and the fold's go
+// out together, then() runs while they are in flight (the mover's own
+// entries' loads), and only then does the fold wait for its operands.
+template <class Then>
+__device__ __forceinline__ void move_slot(const BatchInst& in, const BatchShape& sh,
+                                          long long begin, long long end, const Consts& c,
+                                          int tid, int threads, Then then) {
+  const long long half = sh.half;
+  uint32_t* lo = in.lo + kLimbs * half;
+  uint32_t* hi = in.hi + kLimbs * half;
+  uint32_t a[kLimbs], b[kLimbs], d[kLimbs], e[kLimbs], scale[kLimbs];
+  long long k = begin + tid;
+  bool one = k < end, two = k + threads < end;
+  if (one) {
+    load_lane(a, in.src + k, 2 * half);
+    load_lane(b, in.src + half + k, 2 * half);
+  }
+  if (two) {
+    load_lane(d, in.src + k + threads, 2 * half);
+    load_lane(e, in.src + half + k + threads, 2 * half);
+  }
+  uint32_t fl[kLimbs], fh[kLimbs], fr[kLimbs];
+  if (one && in.flo) {
+    load_lane(fl, in.flo, sh.fstride);
+    load_lane(fh, in.fhi, sh.fstride);
+    load_digits(fr, reinterpret_cast<const uint32_t*>(in.fr));
+  }
+  then();
+  if (one && in.flo) {
+    sub_mod(fh, fh, fl, c.f);
+    mont_mul(fh, fh, fr, c.f);
+    add_mod(scale, fl, fh, c.f);
+  }
+  while (one) {
+    if (in.flo) {
+      mont_mul(a, a, scale, c.f);
+      mont_mul(b, b, scale, c.f);
+      if (two) {
+        mont_mul(d, d, scale, c.f);
+        mont_mul(e, e, scale, c.f);
+      }
+    }
+    store_lane(lo + k, half, a);
+    store_lane(hi + k, half, b);
+    if (two) {
+      store_lane(lo + k + threads, half, d);
+      store_lane(hi + k + threads, half, e);
+    }
+    k += 2 * threads;
+    one = k < end;
+    two = k + threads < end;
+    if (one) {
+      load_lane(a, in.src + k, 2 * half);
+      load_lane(b, in.src + half + k, 2 * half);
+    }
+    if (two) {
+      load_lane(d, in.src + k + threads, 2 * half);
+      load_lane(e, in.src + half + k + threads, 2 * half);
+    }
+  }
+}
+
+// Segment s's strict value into the instance's pair: `finish`, its multiply
+// of the word above 2^256 only where that word is not 0 (a segment of at
+// most two entries never carries out of 2^256).
+__device__ __forceinline__ void emit_pair(long long s, const uint64_t acc[kLimbs],
+                                          const BatchInst& in, long long half, const Consts& c) {
+  uint32_t v[kLimbs];
+  uint64_t carry = 0;
+#pragma unroll
+  for (int l = 0; l < kLimbs; ++l) {
+    const uint64_t x = acc[l] + carry;
+    v[l] = (uint32_t)x;
+    carry = x >> 32;
+  }
+  for (int i = 0; i < c.reduce_subs; ++i) cond_sub_p(v, c.f);
+  if (carry) {
+    uint32_t hi[kLimbs] = {(uint32_t)carry, 0, 0, 0, 0, 0, 0, 0};
+    mont_mul(hi, hi, c.r2, c.f);
+    add_mod(v, v, hi, c.f);
+  }
+  store_lane(s < half ? in.lo + s : in.hi + (s - half), half, v);
+}
+
+// One item of the plan over the held entries: the weights (phase 1: to the
+// carry, then times f3[y]); a tile's segments one thread each out of the
+// products staged in shared memory, entry-major; a chunk's block sum into
+// its scratch row, the last chunk to arrive emitting the segment.
+template <bool kGather>
+__device__ __forceinline__ void reduce_item(Held& h, const int4 item, const BatchInst& in,
+                                            const BatchShape& sh, const uint4* s_eq,
+                                            uint4* s_stage, uint64_t (*s_part)[kLimbs],
+                                            const Consts& c, int t) {
+  const int nlo = 1 << sh.kl;
+  const uint32_t mask = (uint32_t)nlo - 1;
+#pragma unroll
+  for (int j = 0; j < kBatchPer; ++j) {
+    if (item.z + t + j * kBatchThreads < item.w) {
+      uint32_t q[kLimbs];
+      eq_lane(q, s_eq, h.ix[j] & mask);
+      mont_mul(h.v[j], h.v[j], q, c.f);
+      eq_lane(q, s_eq, nlo + (h.ix[j] >> sh.kl));
+      mont_mul(h.v[j], h.v[j], q, c.f);
+      if constexpr (kGather) {
+        store_row(in.carry, h.to[j], h.v[j]);
+        mont_mul(h.v[j], h.v[j], h.q[j], c.f);
+      }
+    } else {
+#pragma unroll
+      for (int l = 0; l < kLimbs; ++l) h.v[j][l] = 0;
+    }
+  }
+  if (item.y > 0) {  // a tile: one thread a segment, out of shared memory
+#pragma unroll
+    for (int j = 0; j < kBatchPer; ++j) {
+      const uint32_t* v = h.v[j];
+      s_stage[t + j * kBatchThreads] = make_uint4(v[0], v[1], v[2], v[3]);
+      s_stage[kTile + t + j * kBatchThreads] = make_uint4(v[4], v[5], v[6], v[7]);
+    }
+    __syncthreads();
+    for (int g = t; g < item.y; g += kBatchThreads) {
+      const long long s = (long long)item.x + g;
+      const int begin = (s == 0 ? 0 : __ldg(in.last + s - 1) + 1) - item.z;
+      const int end = __ldg(in.last + s) + 1 - item.z;
+      uint64_t acc[kLimbs] = {0, 0, 0, 0, 0, 0, 0, 0};
+      for (int q = begin; q < end; ++q) {
+        const uint4 l = s_stage[q], u = s_stage[kTile + q];
+        acc[0] += l.x, acc[1] += l.y, acc[2] += l.z, acc[3] += l.w;
+        acc[4] += u.x, acc[5] += u.y, acc[6] += u.z, acc[7] += u.w;
+      }
+      emit_pair(s, acc, in, sh.half, c);
+    }
+    __syncthreads();  // the stage is read before the next item writes it
+    return;
+  }
+  // a chunk of a long segment: the block's sum, then the scratch row
+  const int lane = t & 31, warp = t >> 5;
+#pragma unroll
+  for (int l = 0; l < kLimbs; ++l) {
+    uint64_t part = 0;
+#pragma unroll
+    for (int j = 0; j < kBatchPer; ++j) part += h.v[j][l];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) part += __shfl_down_sync(0xFFFFFFFFu, part, off);
+    if (lane == 0) s_part[warp][l] = part;
+  }
+  __syncthreads();
+  if (t == 0) {
+    uint64_t total[kLimbs] = {0, 0, 0, 0, 0, 0, 0, 0};
+    for (int wi = 0; wi < kBatchWarps; ++wi)
+#pragma unroll
+      for (int l = 0; l < kLimbs; ++l) total[l] += s_part[wi][l];
+    const int row = in.row - 1 - item.y;
+    unsigned long long* sums = sh.scratch + (long long)row * kLimbs;
+#pragma unroll
+    for (int l = 0; l < kLimbs; ++l) atomicAdd(sums + l, (unsigned long long)total[l]);
+    __threadfence();  // the sums land before the count that announces them
+    const long long s = item.x;
+    const int begin = s == 0 ? 0 : __ldg(in.last + s - 1) + 1;
+    const unsigned chunks = (unsigned)((__ldg(in.last + s) + 1 - begin + kTile - 1) / kTile);
+    if (atomicAdd(sh.arrived + row, 1u) == chunks - 1) {  // the last chunk to arrive
+      __threadfence();
+#pragma unroll
+      for (int l = 0; l < kLimbs; ++l) total[l] = atomicExch(sums + l, 0ull);
+      atomicExch(sh.arrived + row, 0u);
+      emit_pair(s, total, in, sh.half, c);
+    }
+  }
+  __syncthreads();  // s_part is read before the next chunk writes it
+}
+
+// Block (x, b) of instance b = blockIdx.y: its first item's loads; then the
+// half tables built by the block's first half (the whole block without a
+// slot), the build's threads issuing their f3 gather after its first levels,
+// while the second half move the block's share of the slot and then issue
+// theirs; then items x, x + gridDim.x, ..., the first from the held loads.
+template <bool kGather, int kCap>
+__global__ void __launch_bounds__(kBatchThreads, kBatchBlocks)
+    weight_reduce_batched_kernel(const __grid_constant__ Batch<kCap> p,
                                  const __grid_constant__ Consts c) {
-  weight_reduce_body<kGather>(insts[blockIdx.y], c);
+  extern __shared__ uint4 smem[];
+  __shared__ uint64_t s_part[kBatchWarps][kLimbs];
+  __shared__ uint32_t s_rows[kMaxRows][kDigits];
+  uint4* s_stage = smem;           // [2][kTile]: an entry's limbs 0-3, then 4-7
+  uint4* s_eq = smem + 2 * kTile;  // the half tables, two a lane
+  const BatchShape& sh = p.sh;
+  const BatchInst& in = p.inst[blockIdx.y];
+  const int t = threadIdx.x;
+  const long long chunk = sh.slot ? (sh.half + gridDim.x - 1) / gridDim.x : 0;
+  const long long begin = min((long long)blockIdx.x * chunk, sh.half);
+  const long long end = min(begin + chunk, sh.half);
+  int it = blockIdx.x;
+  if (it >= in.items) {  // no item: the whole block moves the slot
+    move_slot(in, sh, begin, end, c, t, kBatchThreads, [] {});
+    return;
+  }
+  int4 item = __ldg(in.plan + it);
+  Held h;
+  const int table_threads = sh.slot ? kBatchThreads / 2 : kBatchThreads;
+  // whether the threads load their first entries before their work: phase
+  // 1, whose f3 gather waits on y, gains by it, phase 2 loses
+  // (tools/gkr_batch_variants.py)
+  constexpr bool kEarly = kGather;
+  if (t < table_threads) {
+    // the challenge digits this thread stages, loaded beside the plan item
+    const int digits = (sh.kl + sh.kh) * kDigits;
+    uint32_t dig[kStagePer];
+#pragma unroll
+    for (int u = 0; u < kStagePer; ++u) {
+      const int i = t + u * table_threads;
+      if (i < digits) dig[u] = (uint32_t)__ldg(in.r + (i / kDigits) * sh.r_stride + i % kDigits);
+    }
+    if (kEarly) load_entries<kGather>(h, in, item, t);
+#pragma unroll
+    for (int u = 0; u < kStagePer; ++u) {
+      const int i = t + u * table_threads;
+      if (i < digits) s_rows[i / kDigits][i % kDigits] = dig[u];
+    }
+    build_eq_halves(s_eq, s_rows, sh.kl, sh.kh, c, t, table_threads);
+    if (kEarly) gather_f3<kGather>(h, in, item, t);
+  } else {
+    move_slot(in, sh, begin, end, c, t - table_threads, kBatchThreads - table_threads, [&] {
+      if (kEarly) load_entries<kGather>(h, in, item, t);
+    });
+    if (kEarly) gather_f3<kGather>(h, in, item, t);
+  }
+  __syncthreads();
+  if (!kEarly) {
+    load_entries<kGather>(h, in, item, t);
+    gather_f3<kGather>(h, in, item, t);
+  }
+  for (;;) {
+    reduce_item<kGather>(h, item, in, sh, s_eq, s_stage, s_part, c, t);
+    it += gridDim.x;
+    if (it >= in.items) break;
+    item = __ldg(in.plan + it);
+    load_entries<kGather>(h, in, item, t);
+    gather_f3<kGather>(h, in, item, t);
+  }
 }
 
 // The finish of all-reduced raw sums: segment s's (8, nseg) limb sums ->
@@ -566,13 +929,14 @@ unsigned grid_of(long long n) { return (unsigned)((n + kThreads - 1) / kThreads)
 // make no runtime call before the launch.
 constexpr int kMaxDevices = 64;
 constexpr int kMaxK = 48;
-int g_blocks[kMaxDevices][2][2][kMaxK + 1];  // [device][batched][gather][k]
+// [device][route: the single launch, or the batched one's capacity][gather][k]
+int g_blocks[kMaxDevices][3][2][kMaxK + 1];
 
 // Set the kernel's shared-memory limit (to what the largest half tables
 // need) and work out the resident blocks.
-cudaError_t resident_blocks(int device, bool batched, bool gather, int k, const void* fn,
-                            size_t smem, int* blocks) {
-  int& cached = g_blocks[device][batched][gather][k];
+cudaError_t resident_blocks(int device, int route, bool gather, int k, const void* fn,
+                            int threads, size_t smem, int* blocks) {
+  int& cached = g_blocks[device][route][gather][k];
   if (cached > 0) {
     *blocks = cached;
     return cudaSuccess;
@@ -585,7 +949,7 @@ cudaError_t resident_blocks(int device, bool batched, bool gather, int k, const 
   int sms = 0, per_sm = 0;
   if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
     return e;
-  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, kTile, smem)) !=
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, smem)) !=
       cudaSuccess)
     return e;
   cached = sms * (per_sm > 0 ? per_sm : 1);
@@ -657,6 +1021,78 @@ cudaError_t fill_reduce(WeightReduce* a, const void* const* f, int items, const 
   return cudaSuccess;
 }
 
+bool fill_inst(BatchInst* in, const unsigned long long* f, int items, int row, bool gather,
+               bool slot, bool fold) {
+  const bool g = f[5] && f[6] && f[7] && f[8];
+  if (items < 1 || row < 0 || !f[0] || !f[1] || !f[2] || !f[3] || !f[4] || !f[9] || !f[10] ||
+      g != gather || g != (f[5] || f[6] || f[7] || f[8]) || (f[11] != 0) != slot ||
+      (f[12] != 0) != fold || (fold && (!slot || !f[13] || !f[14])))
+    return false;
+  in->plan = reinterpret_cast<const int4*>(f[0]);
+  in->vals = reinterpret_cast<const uint32_t*>(f[1]);
+  in->idx = reinterpret_cast<const int32_t*>(f[2]);
+  in->r = reinterpret_cast<const int32_t*>(f[3]);
+  in->last = reinterpret_cast<const int32_t*>(f[4]);
+  in->y = reinterpret_cast<const int32_t*>(f[5]);
+  in->f3 = reinterpret_cast<const uint32_t*>(f[6]);
+  in->to_y = reinterpret_cast<const int32_t*>(f[7]);
+  in->carry = reinterpret_cast<uint32_t*>(f[8]);
+  in->lo = reinterpret_cast<uint32_t*>(f[9]);
+  in->hi = reinterpret_cast<uint32_t*>(f[10]);
+  in->src = reinterpret_cast<const uint32_t*>(f[11]);
+  in->flo = reinterpret_cast<const uint32_t*>(f[12]);
+  in->fhi = reinterpret_cast<const uint32_t*>(f[13]);
+  in->fr = reinterpret_cast<const int32_t*>(f[14]);
+  in->items = items;
+  in->row = row;
+  return true;
+}
+
+// The batched kernel of capacity kCap, and its grid for `batch` instances
+// whose most items is `top`: as many blocks as fit at once, shared evenly,
+// at most `top` an instance.
+template <int kCap, int kRoute>
+cudaError_t batched_grid(bool gather, int kl, int kh, int batch, int top, int device,
+                         const void** fn, int* per) {
+  *fn = gather ? (const void*)weight_reduce_batched_kernel<true, kCap>
+               : (const void*)weight_reduce_batched_kernel<false, kCap>;
+  int most = 0;
+  const cudaError_t e = resident_blocks(device, kRoute, gather, kl + kh, *fn, kBatchThreads,
+                                        reduce_smem(kl, kh), &most);
+  *per = (most + batch - 1) / batch < top ? (most + batch - 1) / batch : top;
+  return e;
+}
+
+template <int kCap, int kRoute>
+int launch_batched(const BatchShape& sh, int batch, const unsigned long long* fields,
+                   const int* items, const int* rows, int device, const uint32_t* consts,
+                   cudaStream_t s) {
+  Batch<kCap> p;
+  p.sh = sh;
+  const bool gather = fields[5] != 0, fold = fields[12] != 0;
+  int top = 0;
+  for (int b = 0; b < batch; ++b) {
+    if (!fill_inst(&p.inst[b], fields + (long long)b * kBatchFields, items[b], rows[b], gather,
+                   sh.slot != 0, fold))
+      return (int)cudaErrorInvalidValue;
+    top = items[b] > top ? items[b] : top;
+  }
+  const void* fn;
+  int per = 0;
+  const cudaError_t e =
+      batched_grid<kCap, kRoute>(gather, sh.kl, sh.kh, batch, top, device, &fn, &per);
+  if (e != cudaSuccess) return (int)e;
+  const size_t smem = reduce_smem(sh.kl, sh.kh);
+  const dim3 grid((unsigned)per, (unsigned)batch);
+  const Consts c = make_consts(consts);
+  if (gather) {
+    weight_reduce_batched_kernel<true, kCap><<<grid, kBatchThreads, smem, s>>>(p, c);
+  } else {
+    weight_reduce_batched_kernel<false, kCap><<<grid, kBatchThreads, smem, s>>>(p, c);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -704,7 +1140,8 @@ int sc_gkr_weight_reduce(const void* plan, int items, const void* vals, const vo
                           : (const void*)weight_reduce_kernel<false>;
   // as many blocks as fit at once, each building the tables once
   int most = 0;
-  if ((e = resident_blocks(device, false, gather, kl + kh, fn, smem, &most)) != cudaSuccess)
+  if ((e = resident_blocks(device, 0, gather, kl + kh, fn, kTile, smem, &most)) !=
+      cudaSuccess)
     return (int)e;
   const unsigned grid = (unsigned)(items < most ? items : most);
   const Consts c = make_consts(consts);
@@ -717,59 +1154,60 @@ int sc_gkr_weight_reduce(const void* plan, int items, const void* vals, const vo
   return (int)cudaGetLastError();
 }
 
-int sc_gkr_reduce_fields() { return kFields; }
-int sc_gkr_reduce_entry_bytes() { return (int)sizeof(WeightReduce); }
+int sc_gkr_batch_capacity() { return kBatchCap; }
+int sc_gkr_batch_fields() { return kBatchFields; }
 
-// The weight reduce of `batch` instances in one launch (weight_reduce_batched_kernel,
-// grid y = instance): fields (batch x sc_gkr_reduce_fields() pointers, instance b's
-// in the order of sc_gkr_weight_reduce's: plan, vals, idx, r, last, y, f3, to_y,
-// carry, scratch, arrived, sums_out (null: the batched launch writes strict values),
-// dst_lo, dst_hi, slot_src, slot_lo, slot_hi, flo, fhi, fr) and items (batch); the
-// scalars every instance shares as in sc_gkr_weight_reduce. Every instance gathers
-// (phase 1) or none does. table: batch x sc_gkr_reduce_entry_bytes() bytes of device
-// memory, 16-byte aligned, which the launch fills by one cudaMemcpyAsync on the
-// stream (it copies the host array before it returns and waits for nothing). Each
-// instance takes ceil(resident / batch) blocks.
-int sc_gkr_weight_reduce_batched(int batch, void* table, const unsigned long long* fields,
-                                 const int* items, long long r_stride, int kl, int kh,
-                                 long long nseg, long long n3, long long dst_ld,
-                                 long long dst_split, long long half, long long fstride,
+// The parameter bytes of a batched launch of `batch` instances (the
+// capacity it takes).
+int sc_gkr_batch_param_bytes(int batch) {
+  return (int)(sizeof(BatchShape) + sizeof(Consts) +
+               (batch <= kBatchSmall ? kBatchSmall : kBatchCap) * sizeof(BatchInst));
+}
+
+// The blocks an instance that a batched launch of `batch` instances whose
+// most items is `top` takes on `device`, or minus a CUDA error.
+int sc_gkr_batch_blocks(int batch, int gather, int kl, int kh, int top, int device) {
+  if (batch < 1 || batch > kBatchCap || top < 1 || kl < 0 || kh < 0 || kl + kh > kMaxK ||
+      device < 0 || device >= kMaxDevices)
+    return -(int)cudaErrorInvalidValue;
+  const void* fn;
+  int per = 0;
+  const cudaError_t e =
+      batch <= kBatchSmall
+          ? batched_grid<kBatchSmall, 1>(gather, kl, kh, batch, top, device, &fn, &per)
+          : batched_grid<kBatchCap, 2>(gather, kl, kh, batch, top, device, &fn, &per);
+  return e == cudaSuccess ? per : -(int)e;
+}
+
+// The weight reduce of `batch` (1 to sc_gkr_batch_capacity()) instances in one
+// launch of weight_reduce_batched_kernel, grid y = instance, the instances in
+// the launch's parameters (a capacity of kBatchSmall for at most that many):
+// fields, batch x kBatchFields pointers, instance b's plan, vals, idx, r,
+// last, y, f3, to_y, carry (the last four phase 1's, else null), lo, hi (its
+// pair's halves, (U >= 2, 8, half) each where there is a slot, contiguous),
+// src, flo, fhi, fr (the slot, null without one; the final fold, null without
+// one); f3 as (n3, 8) entry-major rows, 16-byte aligned; items (batch) and
+// rows (batch: each instance's first scratch row); the scalars every instance
+// shares: the rows' stride, kl, kh, the pair's half width (nseg = 2 half), the
+// final fold's limb stride; scratch and
+// arrived, the long segments' rows (null where no instance has long
+// segments). Every instance gathers (phase 1) or none does, has a slot or
+// none does, and a final fold or none does. Each instance takes ceil(resident
+// / batch) blocks, at most the most items of any instance.
+int sc_gkr_weight_reduce_batched(int batch, const unsigned long long* fields, const int* items,
+                                 const int* rows, long long r_stride, int kl, int kh,
+                                 long long half, long long fstride, void* scratch, void* arrived,
                                  int device, const uint32_t* consts, void* stream) {
-  if (batch < 1 || batch > 65535 || !table || (reinterpret_cast<uintptr_t>(table) & 15))
+  if (batch < 1 || batch > kBatchCap || half < 1 || kl < 0 || kh < 0 || kh > kl ||
+      kl + kh > kMaxRows || (1 << kl) + (1 << kh) > kMaxSharedEq || device < 0 ||
+      device >= kMaxDevices)
     return (int)cudaErrorInvalidValue;
-  const Shape sh{r_stride, kl, kh, nseg, n3, dst_ld, dst_split, half, fstride};
-  const bool gather = fields[5] != 0;  // instance 0's y: every instance's mode
-  std::vector<WeightReduce> insts(batch);
-  int top = 0;
-  for (int b = 0; b < batch; ++b) {
-    const void* f[kFields];
-    for (int q = 0; q < kFields; ++q) f[q] = reinterpret_cast<const void*>(fields[b * kFields + q]);
-    if (f[11] != nullptr || (f[5] != nullptr) != gather) return (int)cudaErrorInvalidValue;
-    const cudaError_t e = fill_reduce(&insts[b], f, items[b], sh, device);
-    if (e != cudaSuccess) return (int)e;
-    top = items[b] > top ? items[b] : top;
-  }
-  const size_t smem = reduce_smem(kl, kh);
-  const void* fn = gather ? (const void*)weight_reduce_batched_kernel<true>
-                          : (const void*)weight_reduce_batched_kernel<false>;
-  int most = 0;
-  cudaError_t e = resident_blocks(device, true, gather, kl + kh, fn, smem, &most);
-  if (e != cudaSuccess) return (int)e;
-  int per = (most + batch - 1) / batch;
-  per = per < top ? per : top;
+  const BatchShape sh{r_stride, half, fstride, static_cast<unsigned long long*>(scratch),
+                      static_cast<unsigned int*>(arrived), kl, kh, fields[11] != 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if ((e = cudaMemcpyAsync(table, insts.data(), insts.size() * sizeof(WeightReduce),
-                           cudaMemcpyHostToDevice, s)) != cudaSuccess)
-    return (int)e;
-  const dim3 grid((unsigned)per, (unsigned)batch);
-  const Consts c = make_consts(consts);
-  const WeightReduce* t = static_cast<const WeightReduce*>(table);
-  if (gather) {
-    weight_reduce_batched_kernel<true><<<grid, kTile, smem, s>>>(t, c);
-  } else {
-    weight_reduce_batched_kernel<false><<<grid, kTile, smem, s>>>(t, c);
-  }
-  return (int)cudaGetLastError();
+  if (batch <= kBatchSmall)
+    return launch_batched<kBatchSmall, 1>(sh, batch, fields, items, rows, device, consts, s);
+  return launch_batched<kBatchCap, 2>(sh, batch, fields, items, rows, device, consts, s);
 }
 
 // sums (8, nseg) int64, all-reduced raw limb sums -> their strict values in

@@ -36,9 +36,10 @@ Replaces the JAX package's jitted jnp phase-init programs
   `sumcheck_tpu/batch.py:565-580`): each `Instance` with its own plan,
   entries, challenge rows (any row stride, one for all), f3, carry, pair
   slice and slot, its long segments on scratch rows of its own; the
-  instances' operands go to a table in device memory by one asynchronous
-  copy the launch makes. Plain version `weight_reduce_batched_ref`, the
-  single plain version per instance.
+  instances' operands go in the launch's parameters (`BATCH_CAP` a launch,
+  more in `batch_launches`' few launches), with no copy ahead of the
+  launch. Plain version `weight_reduce_batched_ref`, the single plain
+  version per instance.
 - `finish_sums(sums, dst)`: all-reduced raw limb sums -> their strict
   values in `dst` (the sharded inits: `reduce_fn` in `ops/gkr_init.py`).
 - `pair_slots(lo, hi, slots, fold=None, fold_out=None)`: slot u of the
@@ -141,14 +142,17 @@ def _library() -> ctypes.CDLL:
         ptr, ptr, ll, ll, i32, ptr, ptr, words, ptr,  # the fold, fold_out, consts, stream
     ]
     lib.sc_gkr_weight_reduce_batched.argtypes = [
-        i32, ptr, ctypes.POINTER(ctypes.c_ulonglong), ctypes.POINTER(i32),  # batch, table, ...
-        ll, i32, i32, ll, ll, ll, ll, ll, ll,  # r_stride, kl, kh, nseg, n3, ld, split, half, fstride
-        i32, words, ptr,  # device, consts, stream
+        i32, ctypes.POINTER(ctypes.c_ulonglong), ctypes.POINTER(i32), ctypes.POINTER(i32),
+        ll, i32, i32, ll, ll,  # r_stride, kl, kh, half, fstride
+        ptr, ptr, i32, words, ptr,  # scratch, arrived, device, consts, stream
     ]
-    for name in ("sc_gkr_reduce_fields", "sc_gkr_reduce_entry_bytes"):
+    lib.sc_gkr_batch_blocks.argtypes = [i32, i32, i32, i32, i32, i32]
+    for name in ("sc_gkr_batch_blocks", "sc_gkr_batch_param_bytes"):
         getattr(lib, name).restype = ctypes.c_int
-    if lib.sc_gkr_reduce_fields() != _FIELDS:
-        raise RuntimeError("GKR init kernels and wrapper disagree on an instance's fields")
+    for name, value in (("sc_gkr_batch_capacity", BATCH_CAP), ("sc_gkr_batch_fields", _FIELDS)):
+        getattr(lib, name).restype = ctypes.c_int
+        if getattr(lib, name)() != value:
+            raise RuntimeError(f"GKR init kernels and wrapper disagree on {name}")
     for fn in (lib.sc_gkr_weight_reduce, lib.sc_gkr_weight_reduce_batched,
                lib.sc_gkr_finish_sums, lib.sc_gkr_pair_slots):
         fn.restype = ctypes.c_int
@@ -556,7 +560,63 @@ class Instance(NamedTuple):
     slot: tuple | None = None
 
 
-_FIELDS = 20  # `csrc/gkr_init.cu`: kFields, an instance's pointers
+_FIELDS = 15  # `csrc/gkr_init.cu`: kBatchFields, an instance's pointers in a batched launch
+BATCH_CAP = 254  # kBatchCap: the instances one batched launch's parameters hold
+
+
+def batch_launches(n: int, cap: int = BATCH_CAP) -> list[range]:
+    """The batched weight reduce's launches over n instances: the fewest
+    that hold them, ceil(n / cap), each a run of consecutive instances,
+    their sizes differing by at most one."""
+    count = -(-n // cap)
+    return [range(i * n // count, (i + 1) * n // count) for i in range(count)]
+
+
+def batch_blocks(resident: int, batch: int, top: int) -> int:
+    """Blocks an instance of a batched launch of `batch` instances whose
+    most items is `top` (`sc_gkr_weight_reduce_batched`): the `resident`
+    blocks that fit on the card at once, shared evenly, and no more than
+    the most items. Block x of an instance walks its items x, x + blocks,
+    ... and `slot_span(half, blocks, x)` of its slot's lanes."""
+    return min(-(-resident // batch), top)
+
+
+def slot_span(half: int, blocks: int, x: int) -> tuple[int, int]:
+    """The slot lanes [begin, end) that block x of an instance's `blocks`
+    moves (`weight_reduce_batched_kernel`): ceil(half / blocks) a block."""
+    chunk = -(-half // blocks)
+    begin = min(x * chunk, half)
+    return begin, min(begin + chunk, half)
+
+
+def f3_rows(f3: torch.Tensor) -> torch.Tensor:
+    """f3's (n3, 8) entry-major copy, the batched kernel's gather layout
+    (one 32-byte row an entry where the (8, n3) table spreads a lane over
+    8 sectors): made once a table, by a transpose on its device, and kept
+    on the table's tensor; made again if the table was written since."""
+    have = getattr(f3, "_entry_rows", None)
+    if have is None or have[0] != f3._version:
+        have = (f3._version, f3.T.contiguous())
+        f3._entry_rows = have
+    return have[1]
+
+
+def batch_launch_shape(insts, k: int) -> list[tuple[int, int]]:
+    """(parameter bytes, blocks an instance) of each launch that
+    `weight_reduce_batched` makes for `insts` on their card."""
+    lib, device = _library(), insts[0].vals.device
+    kl, kh = halves(k)
+    out = []
+    for run in batch_launches(len(insts)):
+        top = max(len(insts[b].plan.items) for b in run)
+        with torch.cuda.device(device):
+            blocks = lib.sc_gkr_batch_blocks(len(run), insts[0].y is not None, kl, kh, top,
+                                             device.index)
+        if blocks < 0:
+            raise RuntimeError(f"GKR init kernel weight_reduce_batched: "
+                               f"{lib.sc_gkr_error_string(-blocks).decode()}")
+        out.append((lib.sc_gkr_batch_param_bytes(len(run)), blocks))
+    return out
 
 
 def weight_reduce_batched_ref(insts, k: int) -> list:
@@ -567,18 +627,20 @@ def weight_reduce_batched_ref(insts, k: int) -> list:
 
 
 def weight_reduce_batched(insts, k: int) -> list:
-    """`weight_reduce` of B instances in one launch, grid y = instance (the
-    batched GKR prover's phase init): each `Instance` with its own tile
-    plan, entries, challenge rows, f3, carry, destination pair `out` and
-    slot, its long segments on its own scratch rows. The instances share k
-    and the shapes the launch takes once: the segment count, f3's width,
-    the challenge rows' stride, the destination pair's half width and the
-    final fold's stride; all gather (phase 1) or none; every `out` is a
-    pair (slot 0; no raw sums). Returns each instance's carry (phase 1) or
-    None."""
+    """`weight_reduce` of B instances, grid y = instance (the batched GKR
+    prover's phase init): each `Instance` with its own tile plan, entries,
+    challenge rows, f3, carry, destination pair `out` and slot, its long
+    segments on its own scratch rows. The instances share k and the shapes
+    a launch takes once: the segment count, f3's width, the challenge
+    rows' stride, the destination pair's half width and the final fold's
+    stride; all gather (phase 1) or none, all have a slot or none, and a
+    final fold or none; every `out` is a pair (slot 0; no raw sums). The
+    instances go in the launch's parameters, BATCH_CAP a launch: one launch
+    for up to BATCH_CAP instances, else `batch_launches`' (each counted).
+    Returns each instance's carry (phase 1) or None."""
     if not _on_card(insts[0].vals):
         return weight_reduce_batched_ref(insts, k)
-    shared, items, carries, long = None, [], [], 0
+    shared, carries, long = None, [], 0
     for i in insts:
         _nnz, nseg, dst, raw = _check_reduce(i.idx, i.vals, i.r, k, i.last, i.plan, i.out,
                                              i.f3, i.y, i.to_y, i.slot)
@@ -589,35 +651,32 @@ def weight_reduce_batched(insts, k: int) -> list:
                i.slot is None, None if fold is None else fold[0].stride(1), i.vals.device)
         if shared not in (None, key):
             raise ValueError("the instances of a batched weight reduce differ in shape, "
-                             "phase or device")
+                             "phase, slot or device")
         shared = key
         carries.append(None if i.to_y is None else torch.empty_like(i.vals))
-        items.append(len(i.plan.items))
-        long += i.plan.long
-    device = insts[0].vals.device
-    scratch, arrived = _scratch(device, long) if long else (None, None)
-    ptrs, row = [], 0
+    _nseg, r_stride, _n3, half, _no_slot, fstride, device = shared
+    ptrs, items, rows = [], [], []
     for i, carry in zip(insts, carries):
-        lo, hi = i.out
         src, fold = i.slot if i.slot is not None else (None, None)
         flo, fhi, fr, fslot = fold if fold is not None else (None, None, None, 0)
-        rows = (scratch[row], arrived[row]) if i.plan.long else (None, None)
-        row += i.plan.long
-        ptrs += [_ptr(t) for t in (i.plan.items, i.vals, i.idx, i.r, i.last, i.y, i.f3, i.to_y,
-                                   carry, *rows, None, lo[0], hi[0], src)]
-        ptrs += [_ptr(lo[1]) if src is not None else 0, _ptr(hi[1]) if src is not None else 0,
-                 _ptr(flo[fslot]) if flo is not None else 0,
+        rows3 = None if i.f3 is None else f3_rows(i.f3)
+        ptrs += [_ptr(t) for t in (i.plan.items, i.vals, i.idx, i.r, i.last, i.y, rows3, i.to_y,
+                                   carry, i.out[0], i.out[1], src)]
+        ptrs += [_ptr(flo[fslot]) if flo is not None else 0,
                  _ptr(fhi[fslot]) if fhi is not None else 0, _ptr(fr)]
-    nseg, r_stride, n3, half, _no_slot, fstride, _device = shared
-    lib = _library()
-    table = torch.empty(len(insts) * lib.sc_gkr_reduce_entry_bytes(), dtype=torch.uint8,
-                        device=device)
+        items.append(len(i.plan.items))
+        rows.append(long)
+        long += i.plan.long
+    scratch, arrived = _scratch(device, long) if long else (None, None)
     kl, kh = halves(k)
-    _run("weight_reduce_batched", lambda lib, s: lib.sc_gkr_weight_reduce_batched(
-        len(insts), table.data_ptr(), (ctypes.c_ulonglong * len(ptrs))(*ptrs),
-        (ctypes.c_int * len(items))(*items), r_stride, kl, kh, nseg, n3 or 0, half, half,
-        0 if _no_slot else half, fstride or 0, device.index, _CONSTS, s), device)
-    weight_reduce_batched.launches += 1
+    for run in batch_launches(len(insts)):
+        b0, n = run.start, len(run)
+        fields = (ctypes.c_ulonglong * (n * _FIELDS))(*ptrs[b0 * _FIELDS:run.stop * _FIELDS])
+        _run("weight_reduce_batched", lambda lib, s: lib.sc_gkr_weight_reduce_batched(
+            n, fields, (ctypes.c_int * n)(*items[b0:run.stop]),
+            (ctypes.c_int * n)(*rows[b0:run.stop]), r_stride, kl, kh, half, fstride or 0,
+            _ptr(scratch), _ptr(arrived), device.index, _CONSTS, s), device)
+        weight_reduce_batched.launches += 1
     return carries
 
 

@@ -1342,6 +1342,69 @@ def test_batched_weight_reduce_matches_singles_and_plain(cuda, skew):
     assert not scratch.any() and not arrived.any()
 
 
+@pytest.mark.parametrize("batch", [1, 8, 9, 254, 255, 300])
+def test_batched_weight_reduce_every_route(cuda, batch):
+    """The batched weight reduce at every launch route that B picks: the
+    parameter capacities 8 and BATCH_CAP (254) at and past each edge, and
+    past BATCH_CAP the few launches of `batch_launches` (255, 300). The
+    B instances at dim 6 cycle over five f1s whose tile plans differ, one
+    with a segment of 1,100 entries cut across blocks (each repeat on its
+    own scratch rows). Both phases equal the plain version and B single
+    launches, pairs and carries; one launch a phase where one launch's
+    parameters hold the batch, else one a `batch_launches` run; the
+    scratch left zero."""
+    from sumcheck_tpu_torch.ops import gkr_init as GI
+    from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
+
+    dim, kinds = 6, 5
+    bases = [_gkr_split(dim, (2 + b) << dim, 60 + b, cuda, 1100 if b == 1 else 0)
+             for b in range(kinds)]
+    assert bases[1][0].plan_x.long == 1 and len({len(x[0].plan_x.items) for x in bases}) > 1
+    inputs = [bases[b % kinds] for b in range(batch)]
+    splits, f2s, f3s, g_rs, _u = zip(*inputs)
+    u = torch.stack([x[4] for x in inputs], dim=1)  # (dim, B, 16)
+    shape = (batch, 2, 8, 1 << (dim - 1))
+    pairs = {k: [torch.zeros(shape, dtype=torch.int32, device=cuda) for _ in range(4)]
+             for k in ("batched", "singles")}
+    before = GK.weight_reduce_batched.launches
+    carries = {"batched": GI.phase1_pairs(splits, g_rs, f3s, f2s, dim, *pairs["batched"][:2])}
+    lo, hi = pairs["singles"][:2]
+    carries["singles"] = [GI.phase1_pair(s, g, f3, f2, dim, out=(lo[b], hi[b]))[2]
+                          for b, (s, f2, f3, g) in enumerate(zip(splits, f2s, f3s, g_rs))]
+    lo1, hi1 = pairs["batched"][:2]
+    fold = (lo1[:, :, :, :1], hi1[:, :, :, :1])
+    GI.phase2_pairs(*fold, u[dim - 1], splits, carries["batched"], u, f3s, dim,
+                    *pairs["batched"][2:])
+    lo, hi = pairs["singles"][2:]
+    for b, (s, f3) in enumerate(zip(splits, f3s)):
+        GI.phase2_pair(fold[0][b], fold[1][b], u[dim - 1, b], s, carries["batched"][b], u[:, b],
+                       f3, dim, out=(lo[b], hi[b]))
+    torch.cuda.synchronize()
+    runs = len(GK.batch_launches(batch))
+    assert GK.weight_reduce_batched.launches - before == 2 * runs
+    assert (runs == 1) == (batch <= GK.BATCH_CAP)
+    assert all(torch.equal(a, b) for a, b in zip(pairs["batched"], pairs["singles"]))
+    assert all(torch.equal(a, b) for a, b in zip(carries["batched"], carries["singles"]))
+    # the plain version, once a kind of instance
+    for b in range(min(batch, kinds)):
+        s, f2, f3, g, _ur = bases[b]
+        plo, phi = (torch.zeros((2, 8, 1 << (dim - 1)), dtype=torch.int32, device=cuda)
+                    for _ in range(2))
+        [w] = GK.weight_reduce_batched_ref([GK.Instance(
+            s.gbits, s.vals, g, s.last_x, s.plan_x, (plo, phi), f3=f3, y=s.y_rev, to_y=s.to_y,
+            slot=(f2, None))], dim)
+        qlo, qhi = (torch.zeros_like(plo) for _ in range(2))
+        GK.weight_reduce_batched_ref([GK.Instance(
+            s.x_y, w, u[:, b], s.last_y, s.plan_y, (qlo, qhi),
+            slot=(f3, (plo[:, :, :1], phi[:, :, :1], u[dim - 1, b], 1)))], dim)
+        for c in range(b, batch, kinds):
+            assert torch.equal(carries["batched"][c], w), c
+            got = [t[c] for t in pairs["batched"]]
+            assert all(torch.equal(x, y) for x, y in zip(got, (plo, phi, qlo, qhi))), c
+    scratch, arrived = GK._scratch(cuda, 1)
+    assert not scratch.any() and not arrived.any()
+
+
 # --- the multi-device provers on the card: S = 2 ranks
 
 

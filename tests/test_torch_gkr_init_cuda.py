@@ -174,12 +174,21 @@ def test_eq_halves_factor_the_eq_table():
 # ---------------------------------------------------------------------------
 
 
-def _case(dim: int, seed: int, bodies_only: bool = False):
+def _case(dim: int, seed: int, bodies_only: bool = False, skew: int = 0):
     """One dim-`dim` instance with colliding entries in both packages, phase
     1's challenges g and phase 2's u, and every JAX phase function's output
-    on them (eagerly), or only the two pair bodies'."""
+    on them (eagerly), or only the two pair bodies'. With `skew`, f1 has
+    that many more entries in x segment 5 (distinct (g, y) parts): past a
+    tile, the segment is cut into chunks across the kernel's blocks."""
     rnd = random.Random(seed)
     f1 = J.SparseMLE.rand_with_config(3 * dim, 3 << dim, rnd)
+    if skew:
+        gen = np.random.default_rng(seed)
+        mask = (1 << dim) - 1
+        gy = gen.choice(1 << (2 * dim), skew, replace=False)
+        idx = np.unique(np.concatenate([f1.indices,
+                                        (gy & mask) | (5 << dim) | ((gy >> dim) << (2 * dim))]))
+        f1 = J.SparseMLE(3 * dim, idx, _digits(gen, len(idx)))
     f2, f3 = J.DenseMLE.rand(dim, rnd), J.DenseMLE.rand(dim, rnd)
     g = [J.Fr(rnd.randrange(P)) for _ in range(dim)]
     u = [rnd.randrange(P) for _ in range(dim)]
@@ -439,16 +448,25 @@ def test_batched_phase_pairs_match_jax_bodies(case5):
     """The batched prover's phase inits (`phase1_pairs`, `phase2_pairs`:
     one weight-reduce launch a phase for B instances on the card, its plain
     version `weight_reduce_batched_ref` here) over two dim-5 instances of
-    different f1s, each instance into its slice of one (2, 2, 8, 16) pair,
-    phase 2 over each instance's column of (dim, 2, 16) challenge rows and
-    the final fold of its own phase-1 pair: each instance's pairs and
-    carry equal the JAX package's `_phase1_pair_body` and
-    `_phase2_pair_body` on it (the vmapped `_bgkr_phase1` / `_bgkr_phase2`
-    of `sumcheck_tpu/batch.py:565-580`)."""
-    cases = [case5, _case(5, 44, bodies_only=True)]
-    dim = 5
+    different f1s, then over three, one of them with an x segment of 600
+    more entries (past a tile: chunks across blocks, scratch rows of its
+    own), each instance into its slice of one (B, 2, 8, 16) pair, phase 2
+    over each instance's column of (dim, B, 16) challenge rows and the
+    final fold of its own phase-1 pair: each instance's pairs and carry
+    equal the JAX package's `_phase1_pair_body` and `_phase2_pair_body` on
+    it (the vmapped `_bgkr_phase1` / `_bgkr_phase2` of
+    `sumcheck_tpu/batch.py:565-580`)."""
+    two = [case5, _case(5, 44, bodies_only=True)]
+    skewed = _case(5, 45, bodies_only=True, skew=600)
+    assert skewed[1]["split"].plan_x.long == 1
+    for cases in (two, two + [skewed]):
+        _batched_phase_pairs_match(cases)
+
+
+def _batched_phase_pairs_match(cases) -> None:
+    dim, batch = 5, len(cases)
     ports = [p for _j, p in cases]
-    shape = (2, 2, 8, 1 << (dim - 1))
+    shape = (batch, 2, 8, 1 << (dim - 1))
     lo, hi, lo2, hi2 = (torch.full(shape, 7, dtype=torch.int32) for _ in range(4))
     ws = GI.phase1_pairs([p["split"] for p in ports], [p["g"] for p in ports],
                          [p["f3"] for p in ports], [p["f2"] for p in ports], dim, lo, hi)

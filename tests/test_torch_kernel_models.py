@@ -1021,6 +1021,101 @@ def test_segment_schedule_model_matches_limb_sums(lengths):
             _int([int(x) & M32 for x in strict[:, s]])
 
 
+def batched_schedule(plans: list, lasts: list, entries: list, half: int, resident: int,
+                     order_seed: int) -> tuple[list, list, list]:
+    """weight_reduce_batched_kernel's walk over B instances as
+    `gkr_init_cuda.weight_reduce_batched` cuts them into launches
+    (`batch_launches`, their instances' rows of the scratch in order) and
+    each launch into blocks (`batch_blocks`, `slot_span`): block (x, b)
+    with no item of instance b moves only its slot lanes, else its slot
+    lanes and items x, x + blocks, ...; a tile's segments summed over the
+    staged entries, a chunk's sum added into scratch row `row_b - 1 -
+    item.y` with the last arrival emitting the segment. The launches run in
+    order, the blocks of one in a shuffled order. `entries` are one integer
+    each (limb 0 of a sum). Returns, per instance, how often each item was
+    walked, how often each slot lane was moved, and each segment's sum as
+    emitted (None if never)."""
+    rows, long = [], 0
+    for _items, n_long in plans:
+        rows.append(long)
+        long += n_long
+    scratch = Scratch(long)
+    walked = [[0] * len(items) for items, _n in plans]
+    moved = [[0] * half for _ in plans]
+    sums = [[None] * len(last) for last in lasts]
+    rnd = random.Random(order_seed)
+    for run in GK.batch_launches(len(plans)):
+        top = max(len(plans[b][0]) for b in run)
+        blocks = GK.batch_blocks(resident, len(run), top)
+        order = [(x, b) for b in run for x in range(blocks)]
+        rnd.shuffle(order)
+        for x, b in order:
+            begin, end = GK.slot_span(half, blocks, x)
+            for k in range(begin, end):
+                moved[b][k] += 1
+            items, last = plans[b][0], lasts[b]
+            for it in range(x, len(items), blocks):
+                walked[b][it] += 1
+                s0, count, e0, e1 = (int(v) for v in items[it])
+                if count > 0:
+                    for s in range(s0, s0 + count):
+                        first = 0 if s == 0 else last[s - 1] + 1
+                        assert e0 <= first and last[s] < e1 and sums[b][s] is None
+                        sums[b][s] = sum(entries[b][first:last[s] + 1])
+                    continue
+                first = 0 if s0 == 0 else last[s0 - 1] + 1
+                chunks = -(-(last[s0] + 1 - first) // GKR_TILE)
+                part = [sum(entries[b][e0:e1])] + [0] * 7
+                done = scratch.arrive(rows[b] - 1 - count, part, chunks)
+                if done is not None:
+                    assert sums[b][s0] is None
+                    sums[b][s0] = done[0]
+    assert all(a == 0 for row in scratch.sums for a in row) and not any(scratch.arrived)
+    return walked, moved, sums
+
+
+@pytest.mark.parametrize("resident", [264, 7], ids=["h100", "few_blocks"])
+@pytest.mark.parametrize("batch", [1, 3, 8, GK.BATCH_CAP, GK.BATCH_CAP + 1, 300])
+def test_batched_schedule_model_walks_everything_once(batch, resident):
+    """The batched weight reduce's launches and blocks over B instances of
+    different tile plans, every fifth with long segments (cut across
+    blocks, on its own scratch rows): the instances go into the fewest
+    launches that hold them (one up to BATCH_CAP, the instances a launch's
+    parameters hold: 32,764 bytes less the constants and the shared shape,
+    128 bytes an instance), in order, of sizes within one of each other;
+    every item and every slot lane of every instance is walked exactly
+    once, every segment is emitted once with its entries' sum, and the
+    scratch ends zero. `resident` 264 is an H100's 132 SMs at 2 blocks
+    each; 7 gives blocks several items each."""
+    assert GK.BATCH_CAP == (32764 - 104 - 64) // 128
+    runs = GK.batch_launches(batch)
+    assert [b for run in runs for b in run] == list(range(batch))
+    assert len(runs) == -(-batch // GK.BATCH_CAP) and (len(runs) == 1) == (batch <= GK.BATCH_CAP)
+    assert max(map(len, runs)) <= GK.BATCH_CAP and max(map(len, runs)) - min(map(len, runs)) <= 1
+    rnd = random.Random(batch * 1000 + resident)
+    plans, lasts, entries = [], [], []
+    for b in range(batch):
+        lengths = [rnd.randrange(0, 40) for _ in range(rnd.randrange(1, 40))]
+        if b % 5 == 1:
+            lengths[rnd.randrange(len(lengths))] = rnd.randrange(GKR_TILE + 1, 3 * GKR_TILE)
+            lengths.append(GKR_TILE + 1)
+        last = (np.cumsum(lengths) - 1).tolist()
+        nnz = sum(lengths)
+        plans.append(GK.tile_plan(np.array(last), nnz))
+        lasts.append(last)
+        entries.append([rnd.randrange(1 << 32) for _ in range(nnz)])
+    half = 1000
+    walked, moved, sums = batched_schedule(plans, lasts, entries, half, resident, batch)
+    assert all(w == [1] * len(p[0]) for w, p in zip(walked, plans))
+    assert all(m == [1] * half for m in moved)
+    for b in range(batch):
+        last = lasts[b]
+        want = [sum(entries[b][(0 if s == 0 else last[s - 1] + 1):last[s] + 1])
+                for s in range(len(last))]
+        assert sums[b] == want, b
+    assert sum(p[1] for p in plans) == sum(1 for b in range(batch) if b % 5 == 1) * 2
+
+
 def test_eq_half_tables_model_matches_eq_table():
     """The half tables' lanes as products (`eq_half_lane`), then
     weight_reduce_kernel's product
