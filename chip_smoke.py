@@ -81,14 +81,19 @@ failure raises and exits non-zero without the final line:
 9a. the GKR phase-init kernels (`ops/gkr_init_cuda.py`: `weight_reduce`,
    one launch a phase: eq's half tables built in its blocks, the weight
    fold, the segment sums into slot 0 and the pair's slot 1;
-   `finish_sums`, `pair_slots`) against their plain versions on the card,
+   `finish_sums`, the whole table and a sharded rank's run of the
+   rank-major raw sums into its dealt pair with its slot 1, in both
+   phases' forms at S = 2 and 4; `pair_slots` in the forms
+   of `prep1`, `final_fold` and `prep2`, which no prover path launches)
+   against their plain versions on the card,
    array-equal, at the dim-18 shapes of phase 9's instance (phase 1's and
    phase 2's inits, strict and as a rank's raw sums) and on the same
    instance with one x segment of 2^16 + 1 entries (cut into chunks across
    blocks), with device ms (each launch after an L2 flush), bound, share
    and plain ms; both phase inits on the kernels against the torch-op
    plain versions of the phases (`gkr_init.phase1_pair_ref`,
-   `phase2_pair_ref`) on the card, strict and as raw sums, on both
+   `phase2_pair_ref`) on the card, strict and, as a sharded rank's pair at
+   S = 2, against their deal, on both
    instances and at dim 21 (the largest build in the blocks, and the
    largest dim whose f1 indices fit int64), with their walls;
 9b. the batched weight reduce (one launch a phase for the 8 x dim 14 GKR
@@ -97,8 +102,8 @@ failure raises and exits non-zero without the final line:
 9. the GKR headlines: `GKRRoundSumcheck.prove` at dim 18 on the bench's
    instance (`bench.py:187-194`) on the same three paths: first prove and
    warm median, launch counts per prove (2 + 34 round kernels, 36
-   transcript steps and the phase inits' kernels: 2 on the generic chain,
-   5 on the per-size chain, 2 in the MXU fold mode; the profiler's count
+   transcript steps and the phase inits' kernels: 2 on every path, one
+   fused launch a phase; the profiler's count
    of round, transcript and init kernels in one prove and its idle share),
    everything between the uploads and the one fetch under the sync debug
    mode "error", the phase inits and the round kernels timed alone, one verify and the subclaim in Python integers
@@ -1398,16 +1403,14 @@ def host_transcript_phase(device, seed: int, reps: int, nv: int = NV) -> dict:
 
 # the GKR phase-init kernels (`ops/gkr_init_cuda.py`, `csrc/gkr_init.cu`)
 GKR_INIT_KERNELS = ("weight_reduce", "finish_sums", "pair_slots")
-GKR_INIT_MAX = 5  # launches of both phase inits a dim-18 prove may take (the per-size chain's)
+GKR_INIT_MAX = 2  # launches of both phase inits a dim-18 prove may take, on any chain
 SKEW = (1 << 16) + 1  # entries of phase 9a's skewed segment
 
 
-def init_launches(chain: str) -> dict:
-    """The phase-init kernels' launches a GKR prove on a chain, in either
-    fold mode: 1 a phase on the generic chain (the fused weight reduce),
-    1 + 1 and 1 + 1 + 1 (prep1; the final fold and prep2) on the per-size
-    chain; no finish of raw sums (only a sharded rank's inits take it)."""
-    return dict(zip(GKR_INIT_KERNELS, (2, 0, 3) if chain != "generic" else (2, 0, 0)))
+# the phase-init kernels' launches a single-card GKR prove takes, on every
+# chain and in either fold mode: the fused weight reduce, 1 a phase; no finish
+# of raw sums (only a sharded rank's inits take it) and no pair slots
+INIT_LAUNCHES = dict(zip(GKR_INIT_KERNELS, (2, 0, 0)))
 
 
 def skewed_instance(inst, seed: int):
@@ -1453,6 +1456,17 @@ def reduce_work(nnz: int, nseg: int, k: int, phase: int, raw: bool = False,
     return {"bytes": nbytes, "imads": mults * IMADS_PER_MONT_MUL, "int8_ops": 0}
 
 
+def finish_work(lanes: int, phase: int) -> dict:
+    """What a sharded rank's finish must do over its `lanes` dealt lanes:
+    each lane's 8 int64 limb sums read and its strict value written, the
+    slot's table lane read and written (32 B each way), and in phase 2 the
+    final fold's one-lane pair and row; 1 Montgomery multiply a lane (the
+    word above 2^256) and, in phase 2, 1 more a lane and 1 for the fold."""
+    nbytes = (64 + 3 * ELEMENT_BYTES) * lanes + (2 * ELEMENT_BYTES + 64 if phase == 2 else 0)
+    mults = lanes + (lanes + 1 if phase == 2 else 0)
+    return {"bytes": nbytes, "imads": mults * IMADS_PER_MONT_MUL, "int8_ops": 0}
+
+
 def gkr_k21_instance(seed: int, dim: int = 21, nnz: int = 1 << 16):
     """A GKR instance at dim 21, the largest whose eq half tables (2^11 +
     2^10 lanes) the weight reduce builds in its blocks' shared memory (and
@@ -1481,13 +1495,17 @@ def gkr_init_phase(device, inst, seed: int) -> dict:
     shapes of phase 9's instance and on the skewed instance
     (`skewed_instance`: one segment of SKEW entries, cut into chunks across
     blocks), strict and as a rank's raw sums (no slot); the finish of raw
-    sums; the pair slots in the forms of the pieces that keep them (the
-    per-size chain's prep2, a copy and a scale by a digit row, and the
-    final fold's scale); the whole phase inits (`gkr_init.phase1_pair`,
+    sums, into a table and, as a sharded rank's, into its dealt pair at S =
+    2 and 4 with slot 1 in both phases' forms (`finish_work`); the pair
+    slots in the forms of the per-size pieces, which no prover path takes
+    (`prep2`: a copy and a scale by a digit row; `prep1`: two copies;
+    `final_fold`: the fold alone, one thread; and the final fold's
+    scale); the whole phase inits (`gkr_init.phase1_pair`,
     `phase2_pair`) against the torch-op plain versions of the phases
     (`phase1_pair_ref`, `phase2_pair_ref`) on both instances and at dim 21
-    (`gkr_k21_instance`: the largest build in the blocks), with a rank's
-    raw sums there too. Device ms (CUDA events behind
+    (`gkr_k21_instance`: the largest build in the blocks), and as a sharded
+    rank's (rank 1 of 2: its raw sums, and its dealt pairs against the deal
+    of the plain versions') there too. Device ms (CUDA events behind
     `torch.cuda._sleep`, each launch alone after an L2 flush, since every
     working set here fits in the H100's 50 MB L2), the bound (each input
     read once and each output written once, 32 B an element and 4 B an
@@ -1495,13 +1513,14 @@ def gkr_init_phase(device, inst, seed: int) -> dict:
     `reduce_work`) and the share of it, and the plain version's ms (host
     clock between syncs). Returns the stats of the kernels line, {name:
     [max_abs_err, [timing of each shape, the main one first]]} (the weight
-    reduce's main shape the fused phase 1 at dim 18, pair_slots'
-    prep2)."""
+    reduce's main shape the fused phase 1 at dim 18, the finish's a rank's
+    dealt phase-2 pair at S = 2, pair_slots' prep2)."""
     from sumcheck_tpu_torch import Fr
     from sumcheck_tpu_torch import gkr_round_sumcheck as G
     from sumcheck_tpu_torch.fields.fr import P
     from sumcheck_tpu_torch.ops import gkr_init as GI
     from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
+    from sumcheck_tpu_torch.parallel.mesh import deal
 
     dim = inst[1].num_vars
     n, half = 1 << dim, 1 << (dim - 1)
@@ -1509,9 +1528,16 @@ def gkr_init_phase(device, inst, seed: int) -> dict:
     u_r = GI.upload(GI._point_rows([Fr(rnd.randrange(P)) for _ in range(dim)]), device)
     stats = {name: [0, []] for name in GKR_INIT_KERNELS}
 
-    def pair():
-        lo = torch.empty((2, 8, half), dtype=torch.int32, device=device)
+    def pair(size=1):
+        lo = torch.empty((2, 8, half // size), dtype=torch.int32, device=device)
         return lo, torch.empty_like(lo)
+
+    def dealt(lo, hi, s, size):
+        """Rank s's deal (`mesh.deal`) of each slot of a (2, 8, H) pair."""
+        tables = [deal(torch.cat([lo[u], hi[u]], dim=1), s, size) for u in range(2)]
+        h = lo.shape[2] // size
+        return tuple(torch.stack([t[:, side * h:(side + 1) * h] for t in tables])
+                     for side in range(2))
 
     def case(name, shape, kernel, plain, work, timed=True, main=False):
         got, want = kernel(), plain()
@@ -1540,15 +1566,20 @@ def gkr_init_phase(device, inst, seed: int) -> dict:
         r1 = GI.phase1_pair_ref(split, g_r, f3_d, f2_d, d)
         args2 = (k1[0][:, :, :1], k1[1][:, :, :1], u[d - 1], split, k1[2], u, f3_d, d)
         k2, r2 = GI.phase2_pair(*args2), GI.phase2_pair_ref(*args2)
+        # rank 1 of 2's: the raw sums, rank-major, kept (the whole f1 is its
+        # own all-reduce), and the finish of its run into its dealt pair
         sums = [torch.empty((8, 1 << d), dtype=torch.int64, device=device) for _ in range(2)]
-        GI.phase1(split, g_r, f3_d, d, reduce_fn=sums[0].copy_)
-        GI.phase2_digits(split, k1[2], u, d, reduce_fn=sums[1].copy_)
+        mine = [deal(t, 1, 2).contiguous() for t in (f2_d, f3_d)]
+        d1 = GI.phase1_pair(split, g_r, f3_d, mine[0], d, reduce_fn=sums[0].copy_, shard=(1, 2))
+        d2 = GI.phase2_pair(*args2[:6], mine[1], d, reduce_fn=sums[1].copy_, shard=(1, 2))
         want = [torch.empty_like(t) for t in sums]
         GK.weight_reduce_ref(split.gbits, split.vals, g_r, d, split.last_x, split.plan_x,
-                             want[0], f3_d, split.y_rev, split.to_y)
-        GK.weight_reduce_ref(split.x_y, k1[2], u, d, split.last_y, split.plan_y, want[1])
+                             want[0], f3_d, split.y_rev, split.to_y, ranks=2)
+        GK.weight_reduce_ref(split.x_y, k1[2], u, d, split.last_y, split.plan_y, want[1], ranks=2)
         sync(device)
-        err = max(max_diff(a, b) for a, b in zip(k1 + k2 + tuple(sums), r1 + r2 + tuple(want)))
+        err = max(max_diff(a, b) for a, b in zip(
+            k1 + k2 + tuple(sums) + d1 + d2,
+            r1 + r2 + tuple(want) + dealt(*r1[:2], 1, 2) + (r1[2],) + dealt(*r2, 1, 2)))
         check(err == 0, f"9a {label}: the phase inits differ from their plain versions by {err}")
         return args2
 
@@ -1594,6 +1625,29 @@ def gkr_init_phase(device, inst, seed: int) -> dict:
              lambda: (GK.finish_sums(k_sums, table), table)[1:],
              lambda: (GK.finish_sums_ref(k_sums, want), want)[1:],
              {"bytes": (64 + 32) * n, "imads": n * IMADS_PER_MONT_MUL, "int8_ops": 0}, main)
+        # a sharded rank's finish: the raw sums rank-major, then rank 1's run
+        # of them straight into its dealt pair, slot 1 from the same launch
+        # (phase 1: its dealt f2; phase 2: its dealt f3 times the final fold)
+        for size in (2, 4):
+            run = slice(n // size, 2 * n // size)
+            rm = [torch.empty_like(k_sums) for _ in range(2)]
+            for phase, args, kw, sums in ((1, p1, kw1, rm[0]), (2, p2, {}, rm[1])):
+                want_rm = torch.empty_like(sums)
+                case("weight_reduce", f"{tag}: phase {phase}, a rank's raw sums rank-major over "
+                     f"S = {size}",
+                     lambda: (GK.weight_reduce(*args, sums, ranks=size, **kw), sums)[1:],
+                     lambda: (GK.weight_reduce_ref(*args, want_rm, ranks=size, **kw),
+                              want_rm)[1:],
+                     reduce_work(nnz, n, dim, phase, raw=True), False)
+            mine = [deal(t, 1, size).contiguous() for t in (f2_d, f3_d)]
+            for phase, sums, slot in ((1, rm[0], (mine[0], None)), (2, rm[1], (mine[1], fold))):
+                d_k, d_p = pair(size), pair(size)
+                case("finish_sums", f"{tag}: a rank's dealt pair at S = {size}, phase {phase}'s "
+                     f"form (its run of rank-major sums; slot 1 = "
+                     f"{'f2' if phase == 1 else 'f3 times the final fold'})",
+                     lambda: (GK.finish_sums(sums[:, run], d_k, slot=slot), *d_k)[1:],
+                     lambda: (GK.finish_sums_ref(sums[:, run], d_p, slot=slot), *d_p)[1:],
+                     finish_work(n // size, phase), main, main and size == 2 and phase == 2)
         scratch, arrived = GK._scratch(device, 1)
         check(not scratch.any() and not arrived.any(), f"9a {label}: the scratch is not zero")
         f2u = GI.final_fold(*fold)
@@ -1603,6 +1657,16 @@ def gkr_init_phase(device, inst, seed: int) -> dict:
              lambda: (GK.pair_slots_ref(*s_p, ((0, table, None), (1, f3_d, f2u))), *s_p)[1:],
              {"bytes": 2 * 64 * n + 64, "imads": n * IMADS_PER_MONT_MUL, "int8_ops": 0}, main,
              main=True)
+        case("pair_slots", f"{tag}: prep1's form, two copies",
+             lambda: (GK.pair_slots(*s_k, ((0, table, None), (1, f2_d, None))), *s_k)[1:],
+             lambda: (GK.pair_slots_ref(*s_p, ((0, table, None), (1, f2_d, None))), *s_p)[1:],
+             {"bytes": 2 * 64 * n, "imads": 0, "int8_ops": 0}, main)
+        o_k, o_p = (torch.empty(16, dtype=torch.int32, device=device) for _ in range(2))
+        case("pair_slots", f"{tag}: final_fold's form, the fold alone (one thread)",
+             lambda: (GK.pair_slots(None, None, (), fold=fold, fold_out=o_k), o_k)[1:],
+             lambda: (GK.pair_slots_ref(None, None, (), fold=fold, fold_out=o_p), o_p)[1:],
+             {"bytes": 2 * ELEMENT_BYTES + 2 * 64, "imads": IMADS_PER_MONT_MUL, "int8_ops": 0},
+             main)
         case("pair_slots", f"{tag}: slot 1 = f3 times the final fold",
              lambda: (GK.pair_slots(*s_k, ((1, f3_d, "fold"),), fold=fold), *s_k)[1:],
              lambda: (GK.pair_slots_ref(*s_p, ((1, f3_d, "fold"),), fold=fold), *s_p)[1:],
@@ -1614,7 +1678,8 @@ def gkr_init_phase(device, inst, seed: int) -> dict:
         plain_s = wall(lambda: (GI.phase1_pair_ref(split, g_r, f3_d, f2_d, dim),
                                 GI.phase2_pair_ref(*args2)), device)
         print(f"9a {label}: phase1_pair and phase2_pair on the kernels (a launch each) equal "
-              f"the torch-op plain versions on the card, strict and as raw sums; both inits "
+              f"the torch-op plain versions on the card, strict, as raw sums and as a sharded "
+              f"rank's dealt pairs (2 launches each); both inits "
               f"{kern_s * 1e3:.4f} ms against {plain_s * 1e3:.4f} ms (host clock between syncs)")
 
     # the largest build in the blocks: dim 21, 2^11 + 2^10 half-table lanes
@@ -1626,8 +1691,8 @@ def gkr_init_phase(device, inst, seed: int) -> dict:
     u21 = GI.upload(GI._point_rows([Fr(rnd.randrange(P)) for _ in range(k21)]), device)
     phases_equal(f"dim {k21}", split, g_r, f3_d, f2_d, k21, u21)
     print(f"9a dim {k21}, {split.vals.shape[0]} entries: phase1_pair and phase2_pair equal the "
-          f"torch-op plain versions on the card, strict and as raw sums (the half tables "
-          f"built in the blocks)")
+          f"torch-op plain versions on the card, strict, as raw sums and as a sharded rank's "
+          f"dealt pairs (the half tables built in the blocks)")
     return stats
 
 
@@ -1672,7 +1737,7 @@ def _gkr_headline(device, inst, reps: int, path: str, chain: str, mxu: bool) -> 
     want = {k: 0 for k in launches}
     want.update({kernels[0]: 2 * proves, kernels[1]: 2 * (dim - 1) * proves,
                  "transcript_step": 2 * dim * proves})
-    init_counts = init_launches(chain)
+    init_counts = INIT_LAUNCHES
     want.update({k: v * proves for k, v in init_counts.items()})
     check(launches == want, f"GKR {path}: launch counts {launches} over {proves} proves, "
                            f"expected {want}")
@@ -2919,7 +2984,7 @@ def gkr_host_phase(device, seed: int, inst, reps: int, check_plain: bool = True)
           "GKR host transcript: proves differ")
     want = {k: 0 for k in launches}
     want.update({"round_nofold": 2 * proves, "round_fold": 2 * (dim - 1) * proves})
-    want.update({k: v * proves for k, v in init_launches("generic").items()})
+    want.update({k: v * proves for k, v in INIT_LAUNCHES.items()})
     check(launches == want, f"GKR host transcript: launches {launches}, expected {want}")
     check(syncs == 2 * dim * proves, f"GKR host transcript: {syncs} syncs in "
                                      f"{proves} proves, expected {2 * dim} a prove")
@@ -3350,15 +3415,17 @@ def sharded_gkr(prover, seed: int, refs: dict, guard) -> dict:
           "sharded GKR: proof differs from the single card's")
     want = {k: 0 for k in launches}
     want.update({"round_nofold": 4, "round_fold": 4 * (dim - 1), "transcript_step": 4 * dim})
-    # a rank's inits (2 proves): the per-size pieces, the weight reduce into
-    # the raw limb sums (its blocks building the half tables) and the finish
-    # of the all-reduced sums once a phase
-    want.update({"weight_reduce": 4, "finish_sums": 4, "pair_slots": 6})
+    # a rank's inits (2 proves): the weight reduce into the raw limb sums
+    # (its blocks building the half tables) and the finish of the rank's
+    # dealt lanes of the all-reduced sums straight into its pair, slot 1
+    # from the same launch, once a phase; no pair slots
+    want.update({"weight_reduce": 4, "finish_sums": 4, "pair_slots": 0})
     check(launches == want, f"sharded GKR: launches {launches}, expected {want}")
 
     # the inits alone at fixed challenges: the all-reduces timed between syncs
-    split, _f2_d, f3_d, g_r = G._upload(f1, f2, f3, g, dim, prover.device,
-                                        (prover.rank, prover.num_shards))
+    shard = (prover.rank, prover.num_shards)
+    split, _f2_d, f3_d, g_r = G._upload(f1, f2, f3, g, dim, prover.device, shard)
+    f2_mine, f3_mine = (t.to_device(prover.device, shard) for t in (f2, f3))
     gen = np.random.default_rng(dim)
     us = torch.from_numpy(np.stack([L.mont_scalar(int(gen.integers(1, 1 << 62)) % P)[:, 0]
                                     for _ in range(dim)]).astype(np.int32)).to(prover.device)
@@ -3375,8 +3442,9 @@ def sharded_gkr(prover, seed: int, refs: dict, guard) -> dict:
         reduced.clear()
         sync(prover.device)
         t0 = time.perf_counter()
-        _hg, w = GI.phase1(split, g_r, f3_d, dim, timed)
-        GI.phase2_digits(split, w, us, dim, timed)
+        lo, hi, w = GI.phase1_pair(split, g_r, f3_d, f2_mine, dim, reduce_fn=timed, shard=shard)
+        GI.phase2_pair(lo[:, :, :1], hi[:, :, :1], us[dim - 1], split, w, us, f3_mine, dim,
+                       reduce_fn=timed, shard=shard)
         sync(prover.device)
         total_s = time.perf_counter() - t0
     return {"what": f"GKR dim {dim} (nnz 2^{dim}), proof", "walls": walls,
@@ -3459,11 +3527,12 @@ def dryrun_phase(device) -> dict:
           "dry run: the card's proofs differ from the CPU's")
     # the kernels each sharded prove must launch on every rank
     want = {"sp": ("round_fold",), "chained": ("round_fold", "transcript_step"),
-            "gkr": ("round_fold", "transcript_step", "weight_reduce", "finish_sums", "pair_slots"),
+            "gkr": ("round_fold", "transcript_step", "weight_reduce", "finish_sums"),
             "batch": ("round_fold_batched", "transcript_step_batched")}
     for r in res["ranks"]:
         check(all(r["launches"][case][name] > 0 for case, names in want.items()
-                  for name in names), f"dry run: rank on {r['device']} launched {r['launches']}")
+                  for name in names) and r["launches"]["gkr"]["pair_slots"] == 0,
+              f"dry run: rank on {r['device']} launched {r['launches']}")
     rank0 = res["ranks"][0]
     print(f"dry run S=2 {res['backend']}: ranks on {', '.join(r['device'] for r in res['ranks'])}; "
           f"ShardedProver = ChainedShardedProver = the single card's host-transcript prove, the "
@@ -3520,7 +3589,7 @@ def microbench_phase(seed: int) -> dict:
                   + ("" if m["held"] is not False else "; no device ms: the call's launches "
                      "overflow the launch queue, so the sleep cannot hold them"))
     inits = {k: res["stages"]["full_prove"]["kernels"].get(k, 0) for k in GKR_INIT_KERNELS}
-    check(inits == init_launches("generic") and sum(inits.values()) <= GKR_INIT_MAX,
+    check(inits == INIT_LAUNCHES and sum(inits.values()) <= GKR_INIT_MAX,
           f"microbench: the full prove's init kernels {inits}")
     print(f"microbench: the full prove's phase inits launch {sum(inits.values())} kernels "
           f"({inits})")
@@ -3744,7 +3813,7 @@ def field_gkr_proves(device, seed: int, reps: int) -> dict:
         want = {k: 0 for k in launches}
         want.update({kernels[0]: 2 * proves, kernels[1]: 2 * (dim - 1) * proves,
                      "transcript_step": 2 * dim * proves})
-        inits = init_launches(chain)
+        inits = INIT_LAUNCHES
         want.update({k: v * proves for k, v in inits.items()})
         check(launches == want, f"{FIELD} GKR {path}: launches {launches}, expected {want}")
         with fold_mode(chain, mxu):
@@ -4147,7 +4216,7 @@ def main() -> int:
         ("weight_reduce", "sumcheck_tpu/ops/gkr_init.py:98, :138, :237 and :472-523",
          "gkr generic"),
         ("finish_sums", "sumcheck_tpu/parallel/gkr.py:50", "sharded gkr S=2 gloo"),
-        ("pair_slots", "sumcheck_tpu/ops/gkr_init.py:494", "gkr per-size"),
+        ("pair_slots", "sumcheck_tpu/ops/gkr_init.py:595-654", "gkr per-size"),
     ):
         err, timings = stats[name]
         main_shape = timings[0]

@@ -35,11 +35,18 @@
 //                        GKR prover: one launch a phase for the whole
 //                        batch), each block's first tile loaded under its
 //                        build of the half tables;
-//   finish_sums_kernel   the finish of all-reduced raw sums;
-//   pair_slots_kernel    a pair's slots for the pieces that stay separate
-//                        (the per-size chain, the sharded ranks): a copy, a
-//                        table times a scalar on the device, or times the
-//                        final fold of a one-lane pair, or that fold alone.
+//   finish_sums_kernel   the finish of all-reduced raw sums (a sharded
+//                        rank's phase init): only the rank's dealt lanes,
+//                        one contiguous run of the rank-major sums that its
+//                        weight reduce wrote, straight into its pair's slot
+//                        0, and its slot 1 from the same threads, as the
+//                        weight reduce's;
+//   pair_slots_kernel    a pair's slots for the per-size pieces that no
+//                        prover path takes any more (the counterparts of
+//                        `_compiled_prep1`, `_compiled_final_fold` and
+//                        `_compiled_prep2`): a copy, a table times a scalar
+//                        on the device, or times the final fold of a
+//                        one-lane pair, or that fold alone.
 //
 // Layout: values are 8 x 32-bit limbs (field.cuh). Tables are limb-major
 // (limb j of lane k at [j * stride + k]); f1's values and the carry w are
@@ -187,6 +194,7 @@ struct WeightReduce {
   unsigned long long* scratch;   // (long, 8) limb partials, zero between launches
   unsigned int* arrived;         // (long,) chunks arrived, zero between launches
   unsigned long long* sums_out;  // the raw (8, nseg) limb sums, or null: strict to dst
+  int ranks;                     // the raw sums rank-major over this many ranks (emit)
   SegDest dst;
   Slot slot;                     // slot.items = 0: no slot
 };
@@ -231,13 +239,38 @@ __device__ __forceinline__ void finish(uint32_t out[kLimbs], const uint64_t acc[
   add_mod(out, lo, hi, c.f);
 }
 
-// Segment s's sums: raw to sums_out where it is given, else strict to dst.
-__device__ __forceinline__ void emit(long long s, const uint64_t acc[kLimbs], long long nseg,
-                                     unsigned long long* sums_out, const SegDest& dst,
-                                     const Consts& c) {
-  if (sums_out) {
+// `finish` in place, its multiply of the word above 2^256 only where that
+// word is not 0 (a sum of at most two strict values never carries out of
+// 2^256), so that a warp whose segments all fit skips it.
+__device__ __forceinline__ void finish_lazy(uint32_t v[kLimbs], const uint64_t acc[kLimbs],
+                                            const Consts& c) {
+  uint64_t carry = 0;
 #pragma unroll
-    for (int j = 0; j < kLimbs; ++j) sums_out[j * nseg + s] = acc[j];
+  for (int l = 0; l < kLimbs; ++l) {
+    const uint64_t x = acc[l] + carry;
+    v[l] = (uint32_t)x;
+    carry = x >> 32;
+  }
+  for (int i = 0; i < c.reduce_subs; ++i) cond_sub_p(v, c.f);
+  if (carry) {
+    uint32_t hi[kLimbs] = {(uint32_t)carry, 0, 0, 0, 0, 0, 0, 0};
+    mont_mul(hi, hi, c.r2, c.f);
+    add_mod(v, v, hi, c.f);
+  }
+}
+
+// Segment s's sums: raw to sums_out where it is given, else strict to dst.
+// The raw sums are rank-major over `ranks` ranks: segment i * ranks + r, rank
+// r's dealt lane i (parallel/mesh.deal), at column r * nseg / ranks + i, so
+// that each rank's segments are one contiguous run of columns, the run a
+// rank finishes (and a reduce-scatter would hand it); ranks = 1, column s.
+__device__ __forceinline__ void emit(long long s, const uint64_t acc[kLimbs], long long nseg,
+                                     int ranks, unsigned long long* sums_out,
+                                     const SegDest& dst, const Consts& c) {
+  if (sums_out) {
+    const long long col = (s % ranks) * (nseg / ranks) + s / ranks;
+#pragma unroll
+    for (int j = 0; j < kLimbs; ++j) sums_out[j * nseg + col] = acc[j];
     return;
   }
   uint32_t v[kLimbs];
@@ -395,7 +428,7 @@ __device__ __forceinline__ void weight_reduce_body(const WeightReduce& a, const 
           acc[0] += l.x, acc[1] += l.y, acc[2] += l.z, acc[3] += l.w;
           acc[4] += h.x, acc[5] += h.y, acc[6] += h.z, acc[7] += h.w;
         }
-        emit(s, acc, a.nseg, a.sums_out, a.dst, c);
+        emit(s, acc, a.nseg, a.ranks, a.sums_out, a.dst, c);
       }
       __syncthreads();  // the stage is read before the next item writes it
       continue;
@@ -429,7 +462,7 @@ __device__ __forceinline__ void weight_reduce_body(const WeightReduce& a, const 
 #pragma unroll
         for (int j = 0; j < kLimbs; ++j) total[j] = atomicExch(sums + j, 0ull);
         atomicExch(a.arrived + row, 0u);
-        emit(s, total, a.nseg, a.sums_out, a.dst, c);
+        emit(s, total, a.nseg, a.ranks, a.sums_out, a.dst, c);
       }
     }
     __syncthreads();  // s_part is read before the next chunk writes it
@@ -643,25 +676,11 @@ __device__ __forceinline__ void move_slot(const BatchInst& in, const BatchShape&
   }
 }
 
-// Segment s's strict value into the instance's pair: `finish`, its multiply
-// of the word above 2^256 only where that word is not 0 (a segment of at
-// most two entries never carries out of 2^256).
+// Segment s's strict value into the instance's pair (`finish_lazy`).
 __device__ __forceinline__ void emit_pair(long long s, const uint64_t acc[kLimbs],
                                           const BatchInst& in, long long half, const Consts& c) {
   uint32_t v[kLimbs];
-  uint64_t carry = 0;
-#pragma unroll
-  for (int l = 0; l < kLimbs; ++l) {
-    const uint64_t x = acc[l] + carry;
-    v[l] = (uint32_t)x;
-    carry = x >> 32;
-  }
-  for (int i = 0; i < c.reduce_subs; ++i) cond_sub_p(v, c.f);
-  if (carry) {
-    uint32_t hi[kLimbs] = {(uint32_t)carry, 0, 0, 0, 0, 0, 0, 0};
-    mont_mul(hi, hi, c.r2, c.f);
-    add_mod(v, v, hi, c.f);
-  }
+  finish_lazy(v, acc, c);
   store_lane(s < half ? in.lo + s : in.hi + (s - half), half, v);
 }
 
@@ -822,17 +841,63 @@ __global__ void __launch_bounds__(kBatchThreads, kBatchBlocks)
   }
 }
 
-// The finish of all-reduced raw sums: segment s's (8, nseg) limb sums ->
-// its strict value in dst, one thread a segment.
+// A finish's lanes and the pair's slot 1: `lanes` lanes of sums, row j of
+// them at sums + j * sums_ld (a rank's run of rank-major raw sums, or all of
+// them); with src, slot 1 of the pair (lo, hi, limb stride and split those of
+// the destination) takes src's lane i ((8, lanes) limb-major), times the
+// final fold l + r (h - l) of the one-lane pair (flo, fhi; limb stride
+// fstride) by the row fr where flo is given.
+struct Finish {
+  const unsigned long long* sums;
+  long long sums_ld;
+  long long lanes;
+  const uint32_t* src;  // or null: no slot
+  uint32_t* lo;
+  uint32_t* hi;
+  const uint32_t* flo;
+  const uint32_t* fhi;
+  long long fstride;
+  const int32_t* fr;
+};
+
+// The finish of all-reduced raw sums, one thread a lane: its 8 limb sums ->
+// their strict value in dst at the same lane (`finish_lazy`), and the slot's
+// lane from the same thread. A sharded rank finishes only its own run of the
+// rank-major sums, straight into its dealt pair, every load a contiguous one.
+// Each thread loads the final fold's operands beside its lane's and computes
+// the fold itself: no shared memory and no barrier, 64 registers, so that
+// the 2^17 lanes of a rank at S = 2, dim 18, fit the card in one wave (a
+// fold by the block's thread 0 behind a barrier took 74 registers, three
+// blocks an SM, and was no faster in phase 2: tools/finish_variants.py).
 __global__ void __launch_bounds__(kThreads)
-    finish_sums_kernel(const unsigned long long* __restrict__ sums, long long nseg, SegDest dst,
+    finish_sums_kernel(SegDest dst, const __grid_constant__ Finish p,
                        const __grid_constant__ Consts c) {
-  const long long s = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (s >= nseg) return;
+  const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= p.lanes) return;
+  uint32_t fl[kLimbs], fh[kLimbs], fr[kLimbs];
+  if (p.flo) {
+    load_lane(fl, p.flo, p.fstride);
+    load_lane(fh, p.fhi, p.fstride);
+    load_digits(fr, reinterpret_cast<const uint32_t*>(p.fr));
+  }
   uint64_t acc[kLimbs];
+  uint32_t v[kLimbs];
 #pragma unroll
-  for (int j = 0; j < kLimbs; ++j) acc[j] = sums[j * nseg + s];
-  emit(s, acc, nseg, nullptr, dst, c);
+  for (int j = 0; j < kLimbs; ++j) acc[j] = p.sums[j * p.sums_ld + i];
+  if (p.src) load_lane(v, p.src + i, p.lanes);
+  uint32_t x[kLimbs];
+  finish_lazy(x, acc, c);
+  const bool low = i < dst.split;
+  store_lane(low ? dst.lo + i : dst.hi + (i - dst.split), dst.ld, x);
+  if (p.src) {
+    if (p.flo) {
+      sub_mod(fh, fh, fl, c.f);
+      mont_mul(fh, fh, fr, c.f);
+      add_mod(fl, fl, fh, c.f);
+      mont_mul(v, v, fl, c.f);
+    }
+    store_lane(low ? p.lo + i : p.hi + (i - dst.split), dst.ld, v);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -962,6 +1027,7 @@ struct Shape {
   long long r_stride;
   int kl, kh;
   long long nseg, n3, dst_ld, dst_split, half, fstride;
+  int ranks;
 };
 
 // An instance's pointers, in the order the entries take them.
@@ -990,7 +1056,9 @@ cudaError_t fill_reduce(WeightReduce* a, const void* const* f, int items, const 
       (!sums_out && !dst_lo) || !plan)
     return cudaErrorInvalidValue;
   const int lanes = (1 << kl) + (1 << kh);
-  if (lanes > kMaxSharedEq || kl + kh > kMaxRows || !r) return cudaErrorInvalidValue;
+  if (lanes > kMaxSharedEq || kl + kh > kMaxRows || !r || sh.ranks < 1 || sh.nseg % sh.ranks ||
+      (sh.ranks > 1 && !sums_out))
+    return cudaErrorInvalidValue;
   const int slot_items = slot_src ? (int)((sh.half + kTile - 1) / kTile) : 0;
   if (slot_src && (sh.half < 1 || !slot_lo || !slot_hi || (flo && (!fhi || !fr))))
     return cudaErrorInvalidValue;
@@ -1012,6 +1080,7 @@ cudaError_t fill_reduce(WeightReduce* a, const void* const* f, int items, const 
   a->scratch = static_cast<unsigned long long*>(scratch);
   a->arrived = static_cast<unsigned int*>(arrived);
   a->sums_out = static_cast<unsigned long long*>(sums_out);
+  a->ranks = sh.ranks;
   a->dst = {static_cast<uint32_t*>(dst_lo), static_cast<uint32_t*>(dst_hi), sh.dst_ld,
             sh.dst_split};
   a->slot = {static_cast<const uint32_t*>(slot_src), static_cast<uint32_t*>(slot_lo),
@@ -1113,16 +1182,17 @@ int sc_gkr_max_shared_eq() { return kMaxSharedEq; }
 // phase 1 also y (nnz,), f3 (8, n3), to_y (nnz,) and the carry (nnz, 8) out,
 // else all four null. scratch (long, 8) uint64 and arrived (long,) uint32 for
 // a plan with long segments (zero, and left zero), else null. The raw (8,
-// nseg) int64 limb sums to sums_out if given, else the strict values to the
-// destination. With slot_src: the pair's slot 1 too, slot_lo and slot_hi (8,
-// half) each, from the (8, 2 half) table slot_src, times the final fold of
-// (flo, fhi, fstride, fr) where flo is given. device: the current device's
-// index. vals and the carry 16-byte aligned.
+// nseg) int64 limb sums to sums_out if given (rank-major over `ranks` ranks,
+// as emit lays them out; ranks = 1: segment s at column s), else the strict
+// values to the destination. With slot_src: the pair's slot 1 too, slot_lo
+// and slot_hi (8, half) each, from the (8, 2 half) table slot_src, times the
+// final fold of (flo, fhi, fstride, fr) where flo is given. device: the
+// current device's index. vals and the carry 16-byte aligned.
 int sc_gkr_weight_reduce(const void* plan, int items, const void* vals, const void* idx,
                          const void* r, long long r_stride, int kl, int kh,
                          const void* last, long long nseg, const void* y, const void* f3,
                          long long n3, const void* to_y, void* carry, void* scratch,
-                         void* arrived, void* sums_out, void* dst_lo, void* dst_hi,
+                         void* arrived, void* sums_out, int ranks, void* dst_lo, void* dst_hi,
                          long long dst_ld, long long dst_split, const void* slot_src,
                          void* slot_lo, void* slot_hi, long long half, const void* flo,
                          const void* fhi, long long fstride, const void* fr, int device,
@@ -1130,7 +1200,7 @@ int sc_gkr_weight_reduce(const void* plan, int items, const void* vals, const vo
   const void* fields[kFields] = {plan, vals, idx, r, last, y, f3, to_y, carry, scratch,
                                  arrived, sums_out, dst_lo, dst_hi, slot_src, slot_lo, slot_hi,
                                  flo, fhi, fr};
-  const Shape sh{r_stride, kl, kh, nseg, n3, dst_ld, dst_split, half, fstride};
+  const Shape sh{r_stride, kl, kh, nseg, n3, dst_ld, dst_split, half, fstride, ranks};
   WeightReduce a;
   cudaError_t e = fill_reduce(&a, fields, items, sh, device);
   if (e != cudaSuccess) return (int)e;
@@ -1210,16 +1280,27 @@ int sc_gkr_weight_reduce_batched(int batch, const unsigned long long* fields, co
   return launch_batched<kBatchCap, 2>(sh, batch, fields, items, rows, device, consts, s);
 }
 
-// sums (8, nseg) int64, all-reduced raw limb sums -> their strict values in
-// the destination.
-int sc_gkr_finish_sums(const void* sums, long long nseg, void* dst_lo, void* dst_hi,
-                       long long dst_ld, long long dst_split, const uint32_t* consts,
-                       void* stream) {
-  if (nseg < 1 || !sums || !dst_lo) return (int)cudaErrorInvalidValue;
+// sums: `lanes` lanes of all-reduced raw int64 limb sums, row j at sums + j
+// * sums_ld -> their strict values at the same lanes of the destination
+// (dst_ld, dst_split as sc_gkr_weight_reduce's). With src, the pair's slot 1
+// too: slot_lo and slot_hi (the destination's strides) from the (8, lanes)
+// table src, times the final fold of (flo, fhi, fstride, fr) where flo is
+// given.
+int sc_gkr_finish_sums(const void* sums, long long sums_ld, long long lanes, void* dst_lo,
+                       void* dst_hi, long long dst_ld, long long dst_split, const void* src,
+                       void* slot_lo, void* slot_hi, const void* flo, const void* fhi,
+                       long long fstride, const void* fr, const uint32_t* consts, void* stream) {
+  if (lanes < 1 || sums_ld < lanes || !sums || !dst_lo || (src && (!slot_lo || !slot_hi)) ||
+      (flo && (!src || !fhi || !fr)))
+    return (int)cudaErrorInvalidValue;
   const SegDest dst = {static_cast<uint32_t*>(dst_lo), static_cast<uint32_t*>(dst_hi), dst_ld,
                        dst_split};
-  finish_sums_kernel<<<grid_of(nseg), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned long long*>(sums), nseg, dst, make_consts(consts));
+  const Finish p = {static_cast<const unsigned long long*>(sums), sums_ld, lanes,
+                    static_cast<const uint32_t*>(src), static_cast<uint32_t*>(slot_lo),
+                    static_cast<uint32_t*>(slot_hi), static_cast<const uint32_t*>(flo),
+                    static_cast<const uint32_t*>(fhi), fstride, static_cast<const int32_t*>(fr)};
+  finish_sums_kernel<<<grid_of(lanes), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      dst, p, make_consts(consts));
   return (int)cudaGetLastError();
 }
 

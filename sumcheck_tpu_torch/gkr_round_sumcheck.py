@@ -126,27 +126,28 @@ def _enqueue(inputs: tuple, state, dim: int, round_fns=None, step_fns=None,
     split, f2_d, f3_d, g_r = inputs
     products = ((0, 1),)  # unit coefficient: nothing to fold into the tables
 
+    # each phase init is one launch on either chain; phase 2's folds f2 at u
+    # (the phase-1 final pair's slot 1 by rs1[dim-1], u's last) in its blocks
     if get_config().chain_impl == "generic":
         # both phases fold one pair each in place over run-time extents
         lo1, hi1, w = GI.phase1_pair(split, g_r, f3_d, f2_d, dim)
         msgs1, rs1, state = generic_prover.chain_rounds_generic(
             lo1, hi1, state, products, 2, dim, round_fns, transcript_fn)
-        # the chain left the 1-lane final pair in lane 0; rs1[dim-1] is u's last
+        # the chain left the 1-lane final pair in lane 0
         lo2, hi2 = GI.phase2_pair(lo1[:, :, :1], hi1[:, :, :1], rs1[dim - 1], split, w, rs1,
                                   f3_d, dim)
         msgs2, rs2, state = generic_prover.chain_rounds_generic(
             lo2, hi2, state, products, 2, dim, round_fns, transcript_fn)
     else:
-        hg, w = GI.phase1(split, g_r, f3_d, dim)
-        msgs1, rs1, state, pair1 = device_prover.chain_rounds(
-            list(GI.prep1(hg, f2_d)), state, products, 2, dim, step_fns, transcript_fn)
-        # f2(u): the chain left every table folded dim-1 times (1 lane); one
-        # more fold by the final challenge evaluates slot 1 = f2 at u
-        f2_u = GI.final_fold(*pair1, rs1[dim - 1], 1)
-        f1_gu = GI.phase2_digits(split, w, rs1, dim)
+        # each fold writes fresh half-width tables; `chain_rounds` empties the
+        # list it is given, so no name here keeps a folded-away pair alive
+        *pair1, w = GI.phase1_pair(split, g_r, f3_d, f2_d, dim)
+        msgs1, rs1, state, final1 = device_prover.chain_rounds(
+            pair1, state, products, 2, dim, step_fns, transcript_fn)
+        # the chain left every table folded dim-1 times: the 1-lane final pair
+        pair2 = list(GI.phase2_pair(*final1, rs1[dim - 1], split, w, rs1, f3_d, dim))
         msgs2, rs2, state, _ = device_prover.chain_rounds(
-            list(GI.prep2(f1_gu, f3_d, f2_u)), state, products, 2, dim, step_fns,
-            transcript_fn)
+            pair2, state, products, 2, dim, step_fns, transcript_fn)
     return torch.cat([msgs1, msgs2]), torch.cat([rs1, rs2]), state
 
 

@@ -25,14 +25,15 @@ sort; the weights of step 1 go to phase 2 as the carry `w`, in y order.
 
 Phase 2 (`mod.rs:57-63`) reuses the weight fold and the segment sum with
 the remaining index bits and the phase-1 challenges, which stay on the
-device: `phase2_pair` (the generic chain) and `final_fold`,
-`phase2_digits`, `prep2` (the per-size chain) read them from the chain's
-challenge rows, and nothing between the prove's uploads and its one fetch
-waits for the host (no `.item()`, no boolean masks, no upload). A phase is
-1 launch on the generic chain (`phase1_pair`, `phase2_pair`); the
-per-size pieces take 1 each (`phase1`, `phase2_digits`, and `pair_slots`
-for `prep1`, `final_fold`, `prep2`); a sharded rank's `phase1` and
-`phase2_digits` take a second, the finish of the all-reduced raw sums. The
+device: `phase2_pair` reads them from the chain's challenge rows, and
+nothing between the prove's uploads and its one fetch waits for the host
+(no `.item()`, no boolean masks, no upload). A phase is 1 launch on both
+chains (`phase1_pair`, `phase2_pair`); a sharded rank's takes 2, the
+weight reduce into raw sums and, after their all-reduce, the finish of only
+the rank's dealt lanes straight into its pair, slot 1 from the same launch
+(`reduce_fn`, `shard`). The per-size pieces of the JAX package keep their
+counterparts (`phase1`, `phase2_digits`: 1 launch each; `prep1`,
+`final_fold`, `prep2` on `pair_slots`), which no prover path takes. The
 batched prover's `phase1_pairs` and `phase2_pairs` build a phase of all B
 instances in one launch (`weight_reduce_batched`, grid y = instance).
 
@@ -342,36 +343,41 @@ def phase2_pair_ref(pair_lo, pair_hi, r_last, split: F1Split, w, u_digits, f3_bi
 # ---------------------------------------------------------------------------
 
 
-def _reduce(idx, vals, r, dim: int, last, plan, dst, reduce_fn=None, **kw):
-    """The fused weight fold and segment sum by eq(r, .) into `dst`: 1
-    launch (`weight_reduce`; `kw` takes phase 1's f3, y and to_y, which
-    gather f3 and return the carry, and the pair's other slot). With
-    `reduce_fn` the raw segment sums go to it (it sums them over the ranks
-    in place) and a second launch finishes them."""
+def _reduce(idx, vals, r, dim: int, last, plan, dst, reduce_fn=None, shard=None, slot=None,
+            **kw):
+    """The fused weight fold and segment sum by eq(r, .) into `dst`, and
+    the pair's other slot (`slot`): 1 launch (`weight_reduce`; `kw` takes
+    phase 1's f3, y and to_y, which gather f3 and return the carry). With
+    `reduce_fn` (rank s of S, `shard`) the raw segment sums, rank-major,
+    go to it (it sums them over the ranks in place), and a second launch
+    finishes the rank's run of them into `dst` and writes the slot
+    (`finish_sums`)."""
     if reduce_fn is None:
-        return K.weight_reduce(idx, vals, r, dim, last, plan, dst, **kw)
-    sums = torch.empty((NUM_LIMBS, last.shape[0]), dtype=torch.int64, device=vals.device)
-    carry = K.weight_reduce(idx, vals, r, dim, last, plan, sums, **kw)
+        return K.weight_reduce(idx, vals, r, dim, last, plan, dst, slot=slot, **kw)
+    s, size = shard or (0, 1)
+    nseg = last.shape[0]
+    sums = torch.empty((NUM_LIMBS, nseg), dtype=torch.int64, device=vals.device)
+    carry = K.weight_reduce(idx, vals, r, dim, last, plan, sums, ranks=size, **kw)
     reduce_fn(sums)
-    K.finish_sums(sums, dst)
+    run = nseg // size
+    K.finish_sums(sums[:, s * run:(s + 1) * run], dst, slot)
     return carry
 
 
-def _reduce1(split: F1Split, g_r, f3_bitrev, dim: int, dst, reduce_fn=None, slot=None):
+def _reduce1(split: F1Split, g_r, f3_bitrev, dim: int, dst, reduce_fn=None, shard=None,
+             slot=None):
     """Phase 1's `_reduce`: h_g into `dst`; returns the carry."""
     return _reduce(split.gbits, split.vals, g_r, dim, split.last_x, split.plan_x, dst, reduce_fn,
-                   f3=f3_bitrev, y=split.y_rev, to_y=split.to_y, slot=slot)
+                   shard, slot, f3=f3_bitrev, y=split.y_rev, to_y=split.to_y)
 
 
-def phase1(split: F1Split, g_r, f3_bitrev, dim: int, reduce_fn=None):
+def phase1(split: F1Split, g_r, f3_bitrev, dim: int):
     """h_g as an (8, 2^dim) limb table in bit-reversed lane order, and the
     entries' weights `w` as the carry, (nnz, 8) in y order, kept for phase 2
-    (`_compiled_phase1`, `:284-301`): 1 launch (2 with `reduce_fn`).
-    `g_r` is g's (dim, 16) digit rows, `f3_bitrev` the cached (8, 2^dim)
-    limb table. `reduce_fn` sums the raw segment sums over the ranks
-    (`_reduce`)."""
+    (`_compiled_phase1`, `:284-301`): 1 launch. `g_r` is g's (dim, 16)
+    digit rows, `f3_bitrev` the cached (8, 2^dim) limb table."""
     hg = torch.empty((NUM_LIMBS, 1 << dim), dtype=torch.int32, device=f3_bitrev.device)
-    return hg, _reduce1(split, g_r, f3_bitrev, dim, hg, reduce_fn)
+    return hg, _reduce1(split, g_r, f3_bitrev, dim, hg)
 
 
 def prep1(hg_brev, f2_bitrev, out=None):
@@ -382,12 +388,22 @@ def prep1(hg_brev, f2_bitrev, out=None):
     return lo, hi
 
 
-def phase1_pair(split: F1Split, g_r, f3_bitrev, f2_bitrev, dim: int, out=None):
+def phase1_pair(split: F1Split, g_r, f3_bitrev, f2_bitrev, dim: int, out=None,
+                reduce_fn=None, shard=None):
     """`_phase1_pair_body` (`:472-491`): the phase-1 pair (written into
     `out` = (lo, hi) if given) and the carry `w`: 1 launch, h_g summed
-    straight into slot 0 and f2 copied into slot 1."""
-    lo, hi = _new_pair(1 << dim, f3_bitrev.device, out)
-    w = _reduce1(split, g_r, f3_bitrev, dim, (lo, hi), slot=(f2_bitrev, None))
+    straight into slot 0 and f2 copied into slot 1. A sharded rank passes
+    `reduce_fn` (the all-reduce of the raw segment sums of its chunk
+    `split`), `shard` = (s, S) and, as `f2_bitrev`, its dealt f2
+    (`DenseMLE.to_device(device, shard)`): its pair is rank s's deal, (2,
+    8, 2^dim / 2S), local lane l of each half the global pair lane l·S + s
+    (`parallel/mesh.deal`), h_g's dealt lanes finished straight into slot 0
+    and f2's copied into slot 1 by `finish_sums`: 2 launches, the finish
+    over 2^dim / S lanes (the JAX package's shard-local finish,
+    `sumcheck_tpu/parallel/gkr.py:50-74`, with no all-gather)."""
+    size = 1 if shard is None else shard[1]
+    lo, hi = _new_pair((1 << dim) // size, f3_bitrev.device, out)
+    w = _reduce1(split, g_r, f3_bitrev, dim, (lo, hi), reduce_fn, shard, (f2_bitrev, None))
     return lo, hi, w
 
 
@@ -399,13 +415,12 @@ def final_fold(lo, hi, r, slot: int) -> torch.Tensor:
     return out
 
 
-def phase2_digits(split: F1Split, w, u_digits, dim: int, reduce_fn=None):
+def phase2_digits(split: F1Split, w, u_digits, dim: int):
     """f1(g, u, .) densified, an (8, 2^dim) limb table in bit-reversed lane
     order, from phase 1's carry `w` and the challenges u as (dim, 16)
-    Montgomery digit rows on the device: 1 launch (2 with `reduce_fn`, as
-    in `phase1`)."""
+    Montgomery digit rows on the device: 1 launch."""
     f1gu = torch.empty((NUM_LIMBS, 1 << dim), dtype=torch.int32, device=w.device)
-    _reduce(split.x_y, w, u_digits, dim, split.last_y, split.plan_y, f1gu, reduce_fn)
+    _reduce(split.x_y, w, u_digits, dim, split.last_y, split.plan_y, f1gu)
     return f1gu
 
 
@@ -419,15 +434,21 @@ def prep2(f1gu_brev, f3_bitrev, f2u, out=None):
 
 
 def phase2_pair(pair_lo, pair_hi, r_last, split: F1Split, w, u_digits, f3_bitrev, dim: int,
-                out=None):
-    """`_phase2_pair_body` (`:494-522`): f2(u) from the phase-1 final pair,
-    the phase-2 init, and the phase-2 pair (written into `out` = (lo, hi)
-    if given, which must not overlap the final pair): 1 launch, f1(g, u, .)
-    summed straight into slot 0, and f3 times the final fold, computed in
-    each block, into slot 1."""
-    lo, hi = _new_pair(1 << dim, w.device, out)
-    _reduce(split.x_y, w, u_digits, dim, split.last_y, split.plan_y, (lo, hi),
-            slot=(f3_bitrev, (pair_lo, pair_hi, r_last, 1)))
+                out=None, reduce_fn=None, shard=None):
+    """`_phase2_pair_body` (`:494-522`): f2(u) from the phase-1 final pair
+    (lane 0 of `pair_lo`, `pair_hi`), the phase-2 init, and the phase-2
+    pair (written into `out` = (lo, hi) if given, which must not overlap
+    the final pair): 1 launch, f1(g, u, .) summed straight into slot 0, and
+    f3 times the final fold, computed in each block, into slot 1. A sharded
+    rank passes `reduce_fn` and `shard`, as in `phase1_pair`, and as
+    `f3_bitrev` its dealt f3: its dealt pair, f1(g, u, .)'s dealt lanes
+    finished into slot 0 and f3's times the final fold (of the replicated
+    one-lane pair of `sharded_rounds`' tail) into slot 1 by `finish_sums`:
+    2 launches."""
+    size = 1 if shard is None else shard[1]
+    lo, hi = _new_pair((1 << dim) // size, w.device, out)
+    _reduce(split.x_y, w, u_digits, dim, split.last_y, split.plan_y, (lo, hi), reduce_fn, shard,
+            (f3_bitrev, (pair_lo, pair_hi, r_last, 1)))
     return lo, hi
 
 

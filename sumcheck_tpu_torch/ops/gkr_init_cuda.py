@@ -9,7 +9,7 @@ Replaces the JAX package's jitted jnp phase-init programs
 `csrc/gkr_init.cu`; a phase is one launch on the generic chain:
 
 - `weight_reduce(idx, vals, r, k, last, plan, out, f3=None, y=None,
-  to_y=None, slot=None)`: eq's half tables by the challenge rows `r`, the
+  to_y=None, slot=None, ranks=1)`: eq's half tables by the challenge rows `r`, the
   weight fold (`_weight_fold`, `:98-135`), the exact segment sum
   (`_segment_reduce_sorted`, `:237-274`) and the pair's other slot in one
   launch. Each entry's weight w = vals * eq_lo[idx & (2^kl - 1)] *
@@ -20,7 +20,8 @@ Replaces the JAX package's jitted jnp phase-init programs
   (last[s-1] + 1) .. last[s] (`last` int32, -1 before the first entry),
   strict into `out`, a (8, nseg) int32 table or a pair `(lo, hi)` of (U,
   8, nseg/2) halves (slot 0), or as the raw (8, nseg) int64 limb sums (a
-  rank's partial) where `out` is int64. `plan` is `tile_plan`'s schedule
+  rank's partial) where `out` is int64, rank-major over `ranks` ranks
+  (`rank_major`). `plan` is `tile_plan`'s schedule
   of the segments (built once per f1 on the host, `upload_plan`): tiles of
   consecutive segments, and chunks of the long ones, which the kernel sums
   into a per-device scratch that the last chunk to arrive finishes and
@@ -40,8 +41,17 @@ Replaces the JAX package's jitted jnp phase-init programs
   more in `batch_launches`' few launches), with no copy ahead of the
   launch. Plain version `weight_reduce_batched_ref`, the single plain
   version per instance.
-- `finish_sums(sums, dst)`: all-reduced raw limb sums -> their strict
-  values in `dst` (the sharded inits: `reduce_fn` in `ops/gkr_init.py`).
+- `finish_sums(sums, dst, slot=None)`: all-reduced raw limb sums -> their
+  strict values in `dst`, and with `slot` the pair's slot 1 from the same
+  launch, as `weight_reduce`'s (a sharded rank's phase init: `reduce_fn`
+  in `ops/gkr_init.py`). A rank's weight reduce writes its raw sums
+  rank-major (`ranks` = S), so that after their all-reduce rank s's dealt
+  segments (`parallel/mesh.deal`: local lane l of each half is global
+  pair lane l·S + s) are one contiguous run of columns: the rank finishes
+  that run alone, straight into its dealt pair, its slot 1 from its dealt
+  table (the JAX package's shard-local finish in `_psum_reduce_mod_p`,
+  `sumcheck_tpu/parallel/gkr.py:50-74`, without its all-gather; the run
+  is the chunk a reduce-scatter would hand the rank).
 - `pair_slots(lo, hi, slots, fold=None, fold_out=None)`: slot u of the
   (U, 8, H) halves for each `(u, table, scale)` of `slots` (at most 2):
   lo[u] = table[:, :H], hi[u] = table[:, H:], times `scale` where it is a
@@ -49,9 +59,10 @@ Replaces the JAX package's jitted jnp phase-init programs
   `fold` = (flo, fhi, r, fslot): lane 0 of slot fslot of a one-lane pair
   ((U, 8, >= 1) views) and a challenge row. A table may be a strided view
   (`parallel/mesh.deal`). With `fold_out`, a (16,) int32 tensor, and no
-  slots: only the final fold, as digits. The pieces that stay separate
-  take it: the per-size chain's `prep1`, `final_fold`, `prep2` and the
-  sharded ranks' (whose tables are `mesh.deal`'s strided views).
+  slots: only the final fold, as digits. It serves `ops/gkr_init.py`'s
+  `prep1`, `final_fold` and `prep2`, the counterparts of the JAX
+  package's per-size pieces; no prover path launches it (the per-size
+  chain takes the fused phase inits, a sharded rank the dealt finish).
 
 Each wrapper launches its kernel for CUDA tensors, on the current stream,
 uploading nothing and waiting for nothing, and adds one to its `.launches`
@@ -131,11 +142,14 @@ def _library() -> ctypes.CDLL:
     lib.sc_gkr_weight_reduce.argtypes = [
         ptr, i32, ptr, ptr, ptr, ll, i32, i32,  # plan, items, vals, idx, r, kl, kh
         ptr, ll, ptr, ptr, ll, ptr, ptr,  # last, nseg, y, f3, n3, to_y, carry
-        ptr, ptr, ptr, ptr, ptr, ll, ll,  # scratch, arrived, sums, the destination
+        ptr, ptr, ptr, i32, ptr, ptr, ll, ll,  # scratch, arrived, sums, ranks, the destination
         ptr, ptr, ptr, ll, ptr, ptr, ll, ptr,  # the slot: src, lo, hi, half, its final fold
         i32, words, ptr,  # device, consts, stream
     ]
-    lib.sc_gkr_finish_sums.argtypes = [ptr, ll, ptr, ptr, ll, ll, words, ptr]
+    lib.sc_gkr_finish_sums.argtypes = [
+        ptr, ll, ll, ptr, ptr, ll, ll,  # sums, their row stride, lanes, the destination
+        ptr, ptr, ptr, ptr, ptr, ll, ptr, words, ptr,  # the slot, its final fold, consts, stream
+    ]
     lib.sc_gkr_pair_slots.argtypes = [
         ptr, ptr, ll, i32, ctypes.POINTER(i32), ctypes.POINTER(i32),  # lo, hi, half, slots
         ctypes.POINTER(ptr), ctypes.POINTER(ll), ctypes.POINTER(ll), ctypes.POINTER(ptr),
@@ -421,7 +435,7 @@ def _check_slot(slot, out, nseg: int):
     return table, fold
 
 
-def _check_reduce(idx, vals, r, k, last, plan, out, f3, y, to_y, slot):
+def _check_reduce(idx, vals, r, k, last, plan, out, f3, y, to_y, slot, ranks=1):
     """(nnz, nseg, destination or None, raw sums or None)."""
     if not in_block(k):
         raise ValueError(f"the weight reduce builds eq's half tables in shared memory up to "
@@ -443,6 +457,9 @@ def _check_reduce(idx, vals, r, k, last, plan, out, f3, y, to_y, slot):
         _ints(to_y, "to_y", nnz)
         _limbs(f3, "f3")
     raw = out if isinstance(out, torch.Tensor) and out.dtype == torch.int64 else None
+    if ranks != 1 and (raw is None or ranks < 1 or nseg % ranks):
+        raise ValueError(f"rank-major raw sums over {ranks} ranks need raw sums of a "
+                         f"multiple of {ranks} segments")
     if raw is not None:
         if raw.shape != (NUM_LIMBS, nseg) or not raw.is_contiguous():
             raise ValueError(f"the raw sums must be a contiguous (8, {nseg}) int64 tensor")
@@ -458,16 +475,26 @@ def _check_reduce(idx, vals, r, k, last, plan, out, f3, y, to_y, slot):
     return nnz, nseg, dst, raw
 
 
+def rank_major(sums: torch.Tensor, ranks: int) -> torch.Tensor:
+    """(8, nseg) sums by segment -> rank-major over `ranks` ranks: segment
+    i·S + s (rank s's dealt lane i, `parallel/mesh.deal`) at column
+    s·nseg/S + i, so that rank s's segments are the run [s·nseg/S,
+    (s+1)·nseg/S), in its lanes' order."""
+    rows, nseg = sums.shape
+    return sums.reshape(rows, nseg // ranks, ranks).transpose(1, 2).reshape(rows, nseg)
+
+
 def weight_reduce_ref(idx, vals, r, k: int, last, plan: Plan, out, f3=None, y=None,
-                      to_y=None, slot=None):
+                      to_y=None, slot=None, ranks=1):
     """Plain version of `weight_reduce`: the half tables, the weight fold,
     the segment sum and the pair slot's plain versions composed on the
     entry-major layout (the plan unused: it only schedules the kernel)."""
-    nnz, _nseg, _dst, raw = _check_reduce(idx, vals, r, k, last, plan, out, f3, y, to_y, slot)
+    nnz, _nseg, _dst, raw = _check_reduce(idx, vals, r, k, last, plan, out, f3, y, to_y, slot,
+                                          ranks)
     w, wv = weight_fold_ref(idx, vals.T.contiguous(), eq_halves_ref(r, k), k, y, f3)
     sums = limb_sums_ref(w if wv is None else wv, None, last)
     if raw is not None:
-        raw.copy_(sums)
+        raw.copy_(rank_major(sums, ranks))
     else:
         _write(out, finish_ref(sums))
     if slot is not None:
@@ -497,13 +524,15 @@ def _scratch(device: torch.device, rows: int):
 
 
 def weight_reduce(idx, vals, r, k: int, last, plan: Plan, out, f3=None, y=None, to_y=None,
-                  slot=None):
+                  slot=None, ranks=1):
     """eq's half tables by the challenge rows `r`, the weight fold by them
     and the exact segment sum of the sorted entries, one launch: (nnz, 8)
     `vals` times eq_lo[idx & m] * eq_hi[idx >> kl], summed over each
     segment (`last`) mod p into `out`, a (8, nseg) int32 table or a pair
     (slot 0), or as the raw (8, nseg) int64 limb sums where `out` is int64
-    (a rank's partial; `finish_sums` finishes them). Phase 1 passes `f3`,
+    (a rank's partial; `finish_sums` finishes them), rank-major over `ranks`
+    ranks (`rank_major`: each rank's dealt segments one contiguous run, the
+    run it finishes). Phase 1 passes `f3`,
     `y` and `to_y`: each weight is multiplied by f3[:, y] before the sum,
     and the weights are returned as the carry, (nnz, 8) int32 with entry j
     at row to_y[j]; else returns None. `slot` = (table, fold) also writes
@@ -515,14 +544,15 @@ def weight_reduce(idx, vals, r, k: int, last, plan: Plan, out, f3=None, y=None, 
     half tables in its shared memory, so k is at most 21 (`in_block`); a
     larger k raises."""
     if not _on_card(vals):
-        return weight_reduce_ref(idx, vals, r, k, last, plan, out, f3, y, to_y, slot)
-    _nnz, _nseg, dst, raw = _check_reduce(idx, vals, r, k, last, plan, out, f3, y, to_y, slot)
-    carry = _launch_reduce(idx, vals, r, k, last, plan, out, dst, raw, f3, y, to_y, slot)
+        return weight_reduce_ref(idx, vals, r, k, last, plan, out, f3, y, to_y, slot, ranks)
+    _nnz, _nseg, dst, raw = _check_reduce(idx, vals, r, k, last, plan, out, f3, y, to_y, slot,
+                                          ranks)
+    carry = _launch_reduce(idx, vals, r, k, last, plan, out, dst, raw, f3, y, to_y, slot, ranks)
     weight_reduce.launches += 1
     return carry
 
 
-def _launch_reduce(idx, vals, r, k, last, plan, out, dst, raw, f3, y, to_y, slot):
+def _launch_reduce(idx, vals, r, k, last, plan, out, dst, raw, f3, y, to_y, slot, ranks):
     """The weight reduce's launch over checked operands; returns the carry
     or None."""
     kl, kh = halves(k)
@@ -535,7 +565,7 @@ def _launch_reduce(idx, vals, r, k, last, plan, out, dst, raw, f3, y, to_y, slot
         plan.items.data_ptr(), len(plan.items), vals.data_ptr(), idx.data_ptr(), r.data_ptr(),
         r.stride(0), kl, kh, last.data_ptr(), last.shape[0], _ptr(y), _ptr(f3),
         0 if f3 is None else f3.shape[1], _ptr(to_y), _ptr(carry), _ptr(scratch), _ptr(arrived),
-        _ptr(raw), _ptr(lo), _ptr(hi), ld, split, _ptr(table),
+        _ptr(raw), ranks, _ptr(lo), _ptr(hi), ld, split, _ptr(table),
         None if slot is None else out[0][1].data_ptr(),
         None if slot is None else out[1][1].data_ptr(), 0 if slot is None else ld,
         None if flo is None else flo[fslot].data_ptr(),
@@ -684,26 +714,54 @@ def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def finish_sums_ref(sums, dst) -> None:
-    """Plain version of `finish_sums`."""
-    _write(dst, finish_ref(sums))
-
-
-def finish_sums(sums, dst) -> None:
-    """All-reduced raw (8, nseg) int64 limb sums -> their strict values in
-    `dst` (a table or slot 0 of a pair), one launch."""
+def _check_finish(sums, dst, slot):
+    """The destination's (lo, hi, ld, split) of checked operands."""
     if sums.dtype != torch.int64 or sums.dim() != 2 or sums.shape[0] != NUM_LIMBS \
-            or not sums.is_contiguous():
-        raise ValueError(f"the sums must be a contiguous (8, nseg) int64 tensor, got "
+            or sums.stride(1) != 1:
+        raise ValueError(f"the sums must be (8, n) int64 with contiguous rows, got "
                          f"{tuple(sums.shape)} {sums.dtype}")
-    nseg = sums.shape[1]
-    lo, hi, ld, split = _dest(dst, nseg)
-    _same_device(sums, lo, hi)
+    n = sums.shape[1]
+    dest = _dest(dst, n)
+    slot_ts = []
+    if slot is not None:
+        table, fold = _check_slot(slot, dst, n)
+        slot_ts = [table] + ([] if fold is None else list(fold[:3]))
+    _same_device(sums, *dest[:2], *slot_ts)
+    return dest
+
+
+def finish_sums_ref(sums, dst, slot=None) -> None:
+    """Plain version of `finish_sums`."""
+    _check_finish(sums, dst, slot)
+    _write(dst, finish_ref(sums))
+    if slot is not None:
+        table, fold = slot
+        pair_slots_ref(*dst, ((1, table, None if fold is None else "fold"),), fold=fold)
+
+
+def finish_sums(sums, dst, slot=None) -> None:
+    """All-reduced raw (8, n) int64 limb sums (rows contiguous, any row
+    stride: a rank's run of rank-major sums, `weight_reduce(..., ranks=)`)
+    -> their strict values in `dst` (a table or slot 0 of a pair), one
+    launch. `slot` = (table, fold) also writes slot 1 of the pair `dst` from
+    the same launch: the contiguous (8, n) table's two halves, times the
+    final fold of `fold` = (flo, fhi, r, fslot) unless it is None (as
+    `weight_reduce`'s slot; the fold's pair must not overlap `dst`). A
+    sharded rank passes its run of the sums and its dealt table
+    (`DenseMLE.to_device(device, shard)`), so that it finishes only its
+    own lanes straight into its dealt pair."""
+    lo, hi, ld, split = _check_finish(sums, dst, slot)
     if not _on_card(sums):
-        return finish_sums_ref(sums, dst)
-    _run("finish_sums", lambda lib, s: lib.sc_gkr_finish_sums(
-        sums.data_ptr(), nseg, lo.data_ptr(), hi.data_ptr(), ld, split, _CONSTS, s),
-        sums.device)
+        return finish_sums_ref(sums, dst, slot)
+    table, fold = slot if slot is not None else (None, None)
+    flo, fhi, fr, fslot = fold if fold is not None else (None, None, None, 0)
+    _run("finish_sums", lambda lib, st: lib.sc_gkr_finish_sums(
+        sums.data_ptr(), sums.stride(0), sums.shape[1], lo.data_ptr(), hi.data_ptr(), ld, split,
+        _ptr(table), None if slot is None else dst[0][1].data_ptr(),
+        None if slot is None else dst[1][1].data_ptr(),
+        None if flo is None else flo[fslot].data_ptr(),
+        None if fhi is None else fhi[fslot].data_ptr(), 0 if flo is None else flo.stride(1),
+        _ptr(fr), _CONSTS, st), sums.device)
     finish_sums.launches += 1
 
 

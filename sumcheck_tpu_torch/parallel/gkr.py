@@ -7,24 +7,27 @@
   last padded with zero entries; rank s uploads only chunk s, with its own
   segment metadata for x (phase 1) and y (phase 2), cached on the
   `SparseMLE` (`ops/gkr_init._split_f1_device(..., shard=)`).
-- **Phase inits** (`:77-143`): each rank runs the single-device init
-  (`ops/gkr_init.phase1`, `phase2_digits`) over its chunk up to the raw
-  segment sums, (8, 2^dim) int64 sums of the 32-bit limbs (16 MiB at dim
-  18, in every fold mode and in the plain versions alike); one
-  `comm.all_reduce_sum_` adds them over the ranks, exactly, and every rank
-  finishes the sum (carries, reduction mod p) on its device into the
-  replicated h_g or f1(g, u, .), whose bytes equal the single device's
-  (`ops/gkr_init_cuda.weight_reduce` into raw sums, then `finish_sums`).
-  The weights `w` of phase 1 (the carry) stay on the rank for phase 2. The JAX package
-  sums strict partials instead and splits the mod-p work with a
-  reduce-scatter and an all-gather (`_psum_reduce_mod_p`, `:50-74`); that
-  split is later performance work.
-- **Deal and rounds** (`:146-203`, `:351-389`): each rank takes its lanes
-  of the bit-reversed pairs on its device ([h_g, f2] for phase 1,
-  [f1(g,u,.), f2(u)·f3] for phase 2; `mesh.deal`, `ops/gkr_init.prep1`,
-  `prep2`) and runs each phase through `chained.sharded_rounds`; f2(u) is
-  the final fold of phase 1's replicated one-lane final pair. One fetch at
-  the end.
+- **Phase inits** (`:77-143`): each rank runs the single-device weight
+  reduce (`ops/gkr_init.phase1_pair`, `phase2_pair` with `reduce_fn` and
+  `shard`) over its chunk up to the raw segment sums, (8, 2^dim) int64
+  sums of the 32-bit limbs (16 MiB at dim 18, in every fold mode and in
+  the plain versions alike); one `comm.all_reduce_sum_` adds them over the
+  ranks, exactly, and every rank finishes only its own 2^dim / S dealt
+  lanes (carries, reduction mod p) straight into its pair, whose bytes
+  equal the deal of the single device's (`ops/gkr_init_cuda.finish_sums`
+  with `shard`). The weights `w` of phase 1 (the carry) stay on the rank
+  for phase 2. This is the JAX package's shard-local finish
+  (`_psum_reduce_mod_p`, `:50-74`) without its all-gather; the JAX package
+  sums strict partials with a reduce-scatter, which needs a collective
+  that gloo lacks for CUDA tensors (`comm.py`), so the port keeps one
+  all-reduce a phase.
+- **Deal and rounds** (`:146-203`, `:351-389`): each rank holds its lanes
+  of the bit-reversed pairs ([h_g, f2] for phase 1, [f1(g,u,.), f2(u)·f3]
+  for phase 2; `mesh.deal`: local lane l is global pair lane l·S + s),
+  written by the finish's launch, slot 1 beside slot 0, and runs each
+  phase through `chained.sharded_rounds`; f2(u) is the final fold of phase
+  1's replicated one-lane final pair, computed in the finish's blocks. A
+  rank's inits are 4 launches a prove. One fetch at the end.
 
 A `Blake2b512Rng` holding a pending byte count that is not a multiple of 8
 is proved by every rank alone on the single-device host loop.
@@ -41,7 +44,7 @@ from ..protocol import device_prover
 from ..utils.errors import SumcheckError
 from . import comm
 from .chained import check_transcript, sharded_rounds
-from .mesh import auto_group, deal, default_group, group_shape, shard_device
+from .mesh import auto_group, default_group, group_shape, shard_device
 
 _PRODUCTS = ((0, 1),)  # h_g * f2 and f1_gu * (f2(u) * f3): one 2-slot unit product
 _DEGREE = 2
@@ -80,7 +83,9 @@ class ShardedGKRProver:
         if not device_prover.liftable(rng):
             return GKRRoundSumcheck.prove(rng, f1, f2, f3, g, device=self.device)
 
-        inputs = _upload(f1, f2, f3, list(g), dim, self.device, (self.rank, self.num_shards))
+        shard = (self.rank, self.num_shards)
+        inputs = _upload(f1, f2, f3, list(g), dim, self.device, shard)
+        inputs += (f2.to_device(self.device, shard), f3.to_device(self.device, shard))
         state = device_prover.lift_transcript(rng, self.device)
         msgs, rs, state = self._enqueue(inputs, state, dim)
         msgs_h, _rs_h, state_h = device_prover.fetch_chain_outputs(msgs, rs, state)
@@ -91,17 +96,17 @@ class ShardedGKRProver:
     def _enqueue(self, inputs: tuple, state, dim: int):
         """Both phases on the rank (the single device's `_enqueue`,
         sharded) from `gkr_round_sumcheck._upload(..., shard=)`: returns
-        (msgs (2 dim, 16, 3), rs (2 dim, 16), state)."""
-        split, f2_d, f3_d, g_r = inputs
-        s, size = self.rank, self.num_shards
+        (msgs (2 dim, 16, 3), rs (2 dim, 16), state). `inputs` ends with
+        the rank's dealt f2 and f3, the sources of its pairs' slot 1."""
+        split, _f2_d, f3_d, g_r, f2_mine, f3_mine = inputs
         reduce = functools.partial(comm.all_reduce_sum_, group=self.group)
-        hg, w = GI.phase1(split, g_r, f3_d, dim, reduce)
-        lo, hi = GI.prep1(deal(hg, s, size), deal(f2_d, s, size))
-        msgs1, rs1, state, pair = sharded_rounds(lo, hi, state, _PRODUCTS, _DEGREE, dim,
-                                                 self.group)
-        f2_u = GI.final_fold(*pair, rs1[dim - 1], 1)
-        f1_gu = GI.phase2_digits(split, w, rs1, dim, reduce)
-        lo, hi = GI.prep2(deal(f1_gu, s, size), deal(f3_d, s, size), f2_u)
+        shard = (self.rank, self.num_shards)
+        lo, hi, w = GI.phase1_pair(split, g_r, f3_d, f2_mine, dim, reduce_fn=reduce, shard=shard)
+        msgs1, rs1, state, (flo, fhi) = sharded_rounds(lo, hi, state, _PRODUCTS, _DEGREE, dim,
+                                                       self.group)
+        # the replicated final pair, folded in place: lane 0; a fresh dealt pair
+        lo, hi = GI.phase2_pair(flo[:, :, :1], fhi[:, :, :1], rs1[dim - 1], split, w, rs1,
+                                f3_mine, dim, reduce_fn=reduce, shard=shard)
         msgs2, rs2, state, _pair = sharded_rounds(lo, hi, state, _PRODUCTS, _DEGREE, dim,
                                                   self.group)
         return torch.cat([msgs1, msgs2]), torch.cat([rs1, rs2]), state

@@ -61,11 +61,12 @@ def count_prove_ops(nv: int, num_slots: int, num_products: int,
 def count_gkr_prove_ops(nv: int, nnz: int) -> dict:
     """Analytic totals for one chained GKR prove (dim = nv).
 
-    Multiplies of the device path (`gkr_round_sumcheck._prove_chained`):
-    - phase-1 init (`ops/gkr_init.phase1`): eq table by doublings ~2*2^nv,
-      weight fold 1*nnz, f3-gather multiply 1*nnz;
-    - phase-2 init (`phase2_digits`): eq table ~2*2^nv + 1*nnz;
-    - prep2's f2(u) scaling: 1*2^nv;
+    Multiplies of the device path (`gkr_round_sumcheck._prove_chained`),
+    counted as the JAX package's model counts them:
+    - phase-1 init (`ops/gkr_init.phase1_pair`): eq table by doublings
+      ~2*2^nv, weight fold 1*nnz, f3-gather multiply 1*nnz;
+    - phase-2 init (`phase2_pair`): eq table ~2*2^nv + 1*nnz, and slot 1's
+      f3 times f2(u), the final fold computed in the same launch: 1*2^nv;
     - two dim-round chains, U=2 slots, 1 product x 2 multiplicands, degree 2:
       per round `fold 2*2*A2 + eval 3*A2` with `sum A2 ~ 2^nv` per chain
       (round 0 folds nothing) => ~2 * (7 - 2) * 2^nv.

@@ -579,10 +579,9 @@ def test_prove_in_mxu_mode_on_cuda(cuda, monkeypatch):
 
 
 # the phase-init kernels a GKR prove launches on each path: (weight_reduce,
-# finish_sums, pair_slots); the MXU fold mode runs the same
-# kernels as the generic chain, one fused launch a phase; the per-size
-# chain's pieces add the pair slots (prep1, final_fold, prep2)
-GKR_INIT_LAUNCHES = {"generic": (2, 0, 0), "persize": (2, 0, 3), "mxu": (2, 0, 0)}
+# finish_sums, pair_slots); every chain and fold mode runs one fused launch
+# a phase, the per-size chain too
+GKR_INIT_LAUNCHES = {"generic": (2, 0, 0), "persize": (2, 0, 0), "mxu": (2, 0, 0)}
 
 
 def _init_counters():
@@ -650,8 +649,8 @@ def test_gkr_golden_on_cuda(cuda, mode, monkeypatch):
 def test_gkr_prove_on_cuda_equals_cpu(cuda, mode, monkeypatch):
     """A dim-9 GKR prove with colliding f1 entries: 2 round-0 launches,
     2 (dim - 1) folds and 2 dim transcript steps per prove, the phase-init
-    kernels' launches of the path (`GKR_INIT_LAUNCHES`: 2 on the generic
-    chain in either fold mode, 5 on the per-size chain), and proof bytes and the final
+    kernels' launches of the path (`GKR_INIT_LAUNCHES`: 2 on every chain
+    and fold mode), and proof bytes and the final
     transcript state equal to the CPU's."""
     import random
 
@@ -879,6 +878,69 @@ def test_gkr_phase_inits_on_cuda_equal_plain(cuda, dim, skew):
     assert torch.equal(f1gu, GI.phase2_digits_ref(split, w, u_r, dim))
     assert all(torch.equal(a, b) for a, b in zip(GI.prep2(f1gu, f3, f2u),
                                                   GI.prep2_ref(f1gu, f3, f2u)))
+
+
+@pytest.mark.parametrize("size", [2, 4], ids=lambda s: f"S{s}")
+def test_dealt_finish_on_cuda_equals_plain(cuda, size):
+    """A sharded rank's finish on a dim-14 instance: the weight reduce's
+    raw sums rank-major (`ranks` = S) equal to its plain version's, then
+    for every rank s `finish_sums` over its run of them, in both slot forms
+    (phase 1: its dealt f2 copied into slot 1; phase 2: its dealt f3 times
+    the final fold of a one-lane pair), equal to its plain version on the
+    CPU, lanes outside the pair untouched; and the rank's pair from the
+    phase functions a sharded prover calls (`phase1_pair`, `phase2_pair`
+    with `reduce_fn` and `shard`) equal to `mesh.deal` of the single
+    device's pairs; one finish launch a call, no `pair_slots`."""
+    from sumcheck_tpu_torch.ops import gkr_init as GI
+    from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
+    from sumcheck_tpu_torch.parallel.mesh import deal
+
+    dim = 14
+    split, f2, f3, g_r, u_r = _gkr_split(dim, 3 << dim, dim + 2, cuda)
+    csplit, _cf2, cf3, cg, cu = _to_cpu((split, f2, f3, g_r, u_r))
+    n, half, run = 1 << dim, 1 << (dim - 1), (1 << dim) // size
+    sums1, sums2 = (torch.empty((8, n), dtype=torch.int64, device=cuda) for _ in range(2))
+    carry = GK.weight_reduce(split.gbits, split.vals, g_r, dim, split.last_x, split.plan_x, sums1,
+                             f3, split.y_rev, split.to_y, ranks=size)
+    GK.weight_reduce(split.x_y, carry, u_r, dim, split.last_y, split.plan_y, sums2, ranks=size)
+    want1, want2 = (torch.empty((8, n), dtype=torch.int64) for _ in range(2))
+    GK.weight_reduce_ref(csplit.gbits, csplit.vals, cg, dim, csplit.last_x, csplit.plan_x, want1,
+                         cf3, csplit.y_rev, csplit.to_y, ranks=size)
+    GK.weight_reduce_ref(csplit.x_y, carry.cpu(), cu, dim, csplit.last_y, csplit.plan_y, want2,
+                         ranks=size)
+    assert torch.equal(sums1.cpu(), want1) and torch.equal(sums2.cpu(), want2)
+    lo1, hi1, w = GI.phase1_pair(split, g_r, f3, f2, dim)
+    lo2, hi2 = GI.phase2_pair(lo1[:, :, :1], hi1[:, :, :1], u_r[dim - 1], split, w, u_r, f3, dim)
+    fold = (lo1[:, :, :1], hi1[:, :, :1], u_r[dim - 1], 1)
+    cfold = _to_cpu(fold[:3]) + (1,)
+    counts = [f.launches for f in _init_counters()]
+    for s in range(size):
+        mine = slice(s * run, (s + 1) * run)
+        f2_s, f3_s = deal(f2, s, size).contiguous(), deal(f3, s, size).contiguous()
+        for sums, slot in ((sums1, (f2_s, None)), (sums2, (f3_s, fold))):
+            lo = torch.full((3, 2, 8, half // size), 7, dtype=torch.int32, device=cuda)
+            hi = torch.full_like(lo, 7)
+            GK.finish_sums(sums[:, mine], (lo[1], hi[1]), slot=slot)
+            clo, chi = (torch.empty((2, 8, half // size), dtype=torch.int32) for _ in range(2))
+            GK.finish_sums_ref(sums.cpu()[:, mine], (clo, chi),
+                               slot=(slot[0].cpu(), None if slot[1] is None else cfold))
+            assert torch.equal(lo[1].cpu(), clo) and torch.equal(hi[1].cpu(), chi)
+            assert (lo[[0, 2]] == 7).all() and (hi[[0, 2]] == 7).all()
+
+        def all_reduced(total):
+            return lambda part: part.copy_(total)
+
+        for got, whole in ((GI.phase1_pair(split, g_r, f3, f2_s, dim, reduce_fn=all_reduced(sums1),
+                                           shard=(s, size))[:2], (lo1, hi1)),
+                           (GI.phase2_pair(*fold[:3], split, w, u_r, f3_s, dim,
+                                           reduce_fn=all_reduced(sums2), shard=(s, size)),
+                            (lo2, hi2))):
+            for u in range(2):
+                want = deal(torch.cat([whole[0][u], whole[1][u]], dim=1), s, size)
+                assert torch.equal(torch.cat([got[0][u], got[1][u]], dim=1), want)
+    torch.cuda.synchronize()
+    assert [f.launches - c for f, c in zip(_init_counters(), counts)] == \
+        [2 * size, 4 * size, 0]
 
 
 def test_segment_reduce_long_segment_on_cuda(cuda):

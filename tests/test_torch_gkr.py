@@ -147,6 +147,59 @@ def test_prove_matches_jax(mode, dim, nnz):
     assert rng.state_tuple() == jrng.state_tuple()
 
 
+def _refuse(name):
+    def call(*_a, **_k):
+        raise AssertionError(f"a per-size GKR prove reached {name}")
+    return call
+
+
+@pytest.mark.parametrize("dim,nnz", [(3, None), (6, 3 << 6)])
+def test_persize_prove_takes_the_fused_inits(dim, nnz, monkeypatch):
+    """The per-size chain builds each phase's pair in one fused init
+    (`phase1_pair`, `phase2_pair`, f2(u) folded inside phase 2's), as the
+    generic chain does: with `prep1`, `final_fold`, `prep2` and `pair_slots`
+    made to raise, its proof bytes and the caller's transcript after the
+    prove equal the JAX package's host-engine prove, which its own tests
+    hold equal to its per-size path (the slow test below compares the port
+    with that path directly)."""
+    from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
+
+    monkeypatch.setattr(get_config(), "chain_impl", "persize")
+    for name in ("prep1", "final_fold", "prep2"):
+        monkeypatch.setattr(GI, name, _refuse(name))
+    monkeypatch.setattr(GK, "pair_slots", _refuse("pair_slots"))
+    ref, port = instances(dim, seed=dim, nnz=nnz)
+    jproof, jrng = jax_prove(*ref)
+    rng = T.Blake2b512Rng.setup()
+    proof = T.GKRRoundSumcheck.prove(rng, *port, device="cpu")
+    assert proof.serialize_uncompressed() == jproof.serialize_uncompressed()
+    assert rng.state_tuple() == jrng.state_tuple()
+
+
+@pytest.mark.slow
+def test_persize_prove_matches_jax_persize_chain(monkeypatch):
+    """Against the JAX package's own per-size GKR chain (`_compiled_prep1`,
+    `_compiled_final_fold`, `_compiled_prep2` between its chained rounds;
+    jit per size, minutes on the CPU), the port's per-size pieces made to
+    raise."""
+    from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
+
+    monkeypatch.setattr(get_config(), "chain_impl", "persize")
+    for name in ("prep1", "final_fold", "prep2"):
+        monkeypatch.setattr(GI, name, _refuse(name))
+    monkeypatch.setattr(GK, "pair_slots", _refuse("pair_slots"))
+    (f1, f2, f3, g), port = instances(3, seed=3, nnz=3 << 3)
+    cfg = j_get_config()
+    for attr, value in (("chained", "on"), ("device_threshold", 1), ("chain_impl", "persize")):
+        monkeypatch.setattr(cfg, attr, value)
+    jrng = J.Blake2b512Rng.setup()
+    jproof = J.GKRRoundSumcheck.prove(jrng, f1, f2, f3, g)
+    rng = T.Blake2b512Rng.setup()
+    proof = T.GKRRoundSumcheck.prove(rng, *port, device="cpu")
+    assert proof.serialize_uncompressed() == jproof.serialize_uncompressed()
+    assert rng.state_tuple() == jrng.state_tuple()
+
+
 def test_prove_fetches_once(monkeypatch):
     """A chained GKR prove brings its results to the host once: both
     phases' messages, challenges and the transcript in one fetch."""

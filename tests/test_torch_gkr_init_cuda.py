@@ -37,6 +37,7 @@ from sumcheck_tpu_torch.fields import limbs_np as L
 from sumcheck_tpu_torch.fields.fr import P, R, R_INV
 from sumcheck_tpu_torch.ops import gkr_init as GI
 from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
+from sumcheck_tpu_torch.parallel.mesh import deal
 from sumcheck_tpu_torch.utils.config import get_config
 
 CPU = torch.device("cpu")
@@ -216,7 +217,7 @@ def _case(dim: int, seed: int, bodies_only: bool = False, skew: int = 0):
             jax_out.update(hg=hg, w=w, prep1=JGI._compiled_prep1(dim)(hg, f2b), f2u=f2u,
                            f1gu=f1gu, prep2=JGI._compiled_prep2(dim)(f1gu, f3b, f2u))
     split = GI._split_f1_device(t1, dim, CPU)
-    port = {"dim": dim, "split": split, "g": GI.upload(GI._point_rows(tg), CPU),
+    port = {"dim": dim, "f1": t1, "split": split, "g": GI.upload(GI._point_rows(tg), CPU),
             "u": torch.from_numpy(u_dig.astype(np.int32)), "f2": t2.to_device(CPU),
             "f3": t3.to_device(CPU)}
     return jax_out, port
@@ -400,6 +401,117 @@ def test_whole_phase_refs_equal_the_kernels_plain_versions(case, fold, monkeypat
     pair_args = (lo[:, :, :1], hi[:, :, :1], p["u"][-1], split, w, p["u"], p["f3"], DIM)
     assert all(torch.equal(a, b) for a, b in zip(GI.phase2_pair(*pair_args),
                                                   GI.phase2_pair_ref(*pair_args)))
+
+
+# ---------------------------------------------------------------------------
+# a sharded rank's dealt finish
+# ---------------------------------------------------------------------------
+
+
+def _dealt_jax(pair, s: int, size: int) -> list[np.ndarray]:
+    """Rank s's deal (`mesh.deal`) of each slot of a JAX (2, 16, H) pair:
+    (16, 2H / S) digits, its local lo lanes then its hi lanes."""
+    return [deal(table, s, size) for table in _jax_pair(*pair)]
+
+
+def _rank_raw_sums(p, size: int, ranks: int):
+    """The S ranks' chunks of f1 (`_split_f1_device(..., shard=)`), each
+    rank's carry, and both phases' raw limb sums (rank-major over `ranks`)
+    added over the ranks as the all-reduce adds them: (splits, carries,
+    phase 1 sums, phase 2 sums)."""
+    dim = p["dim"]
+    splits = [GI._split_f1_device(p["f1"], dim, CPU, (s, size)) for s in range(size)]
+    sums1, sums2, carries = 0, 0, []
+    for sp in splits:
+        raw = torch.empty((8, 1 << dim), dtype=torch.int64)
+        carries.append(GK.weight_reduce(sp.gbits, sp.vals, p["g"], dim, sp.last_x, sp.plan_x, raw,
+                                        p["f3"], sp.y_rev, sp.to_y, ranks=ranks))
+        sums1 = sums1 + raw
+        GK.weight_reduce(sp.x_y, carries[-1], p["u"], dim, sp.last_y, sp.plan_y, raw, ranks=ranks)
+        sums2 = sums2 + raw
+    return splits, carries, sums1, sums2
+
+
+def _same_dealt(lo, hi, want) -> None:
+    """A rank's (2, 8, H / S) pair against the dealt JAX slots: slot 0 mod p
+    and strict, slot 1 digit for digit."""
+    got = _pair_digits(lo, hi)
+    assert _ints(got[0]) == _ints(want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("size", [1, 2, 4], ids=lambda s: f"S{s}")
+@pytest.mark.parametrize("which", ["dim4", "dim9"])
+def test_dealt_finish_matches_deal_of_jax_prep(which, size, case, case9):
+    """A sharded rank's finish over the raw sums of S ranks' chunks of f1,
+    added as the all-reduce adds them: the weight reduce writes them
+    rank-major (`ranks` = S; the natural sums with the columns of rank s's
+    dealt segments moved into one run, `rank_major`), and `finish_sums`
+    (its plain version `finish_sums_ref` on the CPU) over rank s's run,
+    with its dealt f2 (phase 1) or f3 and the final fold of phase 1's
+    one-lane pair (phase 2) for the pair's slot 1, gives a pair equal to
+    `mesh.deal` of the JAX package's `_compiled_prep1` output (h_g, f2) and
+    `_compiled_prep2`'s (f1(g, u, .), f3 times f2(u)); and so does the
+    rank's pair from the phase functions a sharded prover calls
+    (`phase1_pair`, `phase2_pair` with `reduce_fn` and `shard`), whose
+    carry is the rank's own."""
+    j, p = case if which == "dim4" else case9
+    dim, f2, f3, u = p["dim"], p["f2"], p["f3"], p["u"]
+    half, run = 1 << (dim - 1), (1 << dim) // size
+    splits, carries, sums1, sums2 = _rank_raw_sums(p, size, size)
+    natural = _rank_raw_sums(p, size, 1)
+    assert torch.equal(sums1, GK.rank_major(natural[2], size))
+    assert torch.equal(sums2, GK.rank_major(natural[3], size))
+    lo1, hi1, _w = GI.phase1_pair(*_pair1_args(p))
+    fold = (lo1[:, :, :1], hi1[:, :, :1], u[-1], 1)
+    for s in range(size):
+        want1, want2 = _dealt_jax(j["prep1"], s, size), _dealt_jax(j["prep2"], s, size)
+        mine = slice(s * run, (s + 1) * run)
+        f2_s, f3_s = deal(f2, s, size).contiguous(), deal(f3, s, size).contiguous()
+        lo, hi = (torch.full((2, 8, half // size), 7, dtype=torch.int32) for _ in range(2))
+        GK.finish_sums_ref(sums1[:, mine], (lo, hi), slot=(f2_s, None))
+        _same_dealt(lo, hi, want1)
+        GK.finish_sums(sums1[:, mine], (lo, hi), slot=(f2_s, None))
+        _same_dealt(lo, hi, want1)
+        GK.finish_sums_ref(sums2[:, mine], (lo, hi), slot=(f3_s, fold))
+        _same_dealt(lo, hi, want2)
+
+        def all_reduced(total):
+            return lambda part: part.copy_(total)
+
+        rlo, rhi, rw = GI.phase1_pair(splits[s], p["g"], f3, f2_s, dim,
+                                      reduce_fn=all_reduced(sums1), shard=(s, size))
+        assert rlo.shape == (2, 8, half // size) and torch.equal(rw, carries[s])
+        _same_dealt(rlo, rhi, want1)
+        rlo2, rhi2 = GI.phase2_pair(*fold[:3], splits[s], rw, u, f3_s, dim,
+                                    reduce_fn=all_reduced(sums2), shard=(s, size))
+        _same_dealt(rlo2, rhi2, want2)
+
+
+def test_dealt_finish_refuses_a_bad_run_or_an_overlapping_pair(case):
+    """Refused before any work: rank-major raw sums over a rank count that
+    does not divide the segments, or into a strict destination; a finish
+    whose run of sums is not the pair's width, or whose rows are not
+    contiguous; and a final fold read from the pair the finish writes."""
+    _j, p = case
+    dim, split = p["dim"], p["split"]
+    n = 1 << dim
+    args = (split.gbits, split.vals, p["g"], dim, split.last_x, split.plan_x)
+    gather = {"f3": p["f3"], "y": split.y_rev, "to_y": split.to_y}
+    for out, ranks in ((torch.zeros((8, n), dtype=torch.int64), 3),
+                       (torch.zeros((8, n), dtype=torch.int32), 2)):
+        with pytest.raises(ValueError, match="rank-major"):
+            GK.weight_reduce(*args, out, ranks=ranks, **gather)
+    sums = torch.zeros((8, n), dtype=torch.int64)
+    lo, hi = (torch.zeros((2, 8, n // 4), dtype=torch.int32) for _ in range(2))
+    with pytest.raises(ValueError, match="pair halves"):
+        GK.finish_sums(sums[:, : n // 4], (lo, hi))
+    with pytest.raises(ValueError, match="contiguous rows"):
+        GK.finish_sums(sums[:, ::2], (lo, hi))
+    with pytest.raises(ValueError, match="overlaps"):
+        GK.finish_sums(sums[:, n // 2:], (lo, hi), slot=(
+            deal(p["f3"], 1, 2).contiguous(), (lo[:, :, :1], hi[:, :, :1], p["u"][-1], 1)))
+    assert not lo.any() and not hi.any()
 
 
 @pytest.fixture(scope="module")

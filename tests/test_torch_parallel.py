@@ -14,7 +14,9 @@ provers give those bytes), tolerance 0:
   chained instance), and the boundary nv with 2^(nv-1) == S: proof bytes,
   the prover state's randomness and the final transcript state;
 - GKR dim 4 with 11 nonzeros (the padding of an odd count) at S = 1, 2,
-  and dim 5 with 32 nonzeros at S = 4;
+  and dim 5 with 32 nonzeros at S = 4, with each rank's calls of the init
+  functions counted (the weight reduce and the dealt finish, 2 each; none
+  of the per-size pieces or `pair_slots`);
 - the sharded batch, nv=5, B=8 (B=2 at S = 1): each proof, challenges and
   transcript equal to the instance's own prove;
 - transcripts holding a pending byte count that is not a multiple of 8:
@@ -181,13 +183,38 @@ def _rejected(fn, rngs) -> list:
     return [raised, [_state(getattr(r, "inner", r)) for r in rngs] == before]
 
 
+# the GKR init functions a rank's calls are counted of: the kernels' wrappers
+# its phase inits take, and the per-size pieces and their kernel, which no
+# sharded prove may take
+INIT_CALLS = {"gkr_init": ("prep1", "final_fold", "prep2"),
+              "gkr_init_cuda": ("weight_reduce", "finish_sums", "pair_slots")}
+
+
+def _count_init_calls() -> dict:
+    """Wrap each of `INIT_CALLS` in this process to count its calls; returns
+    the dict of counts, by name, that the wrappers add to."""
+    import functools
+    import importlib
+
+    calls: dict = {}
+    for module, names in INIT_CALLS.items():
+        mod = importlib.import_module(f"sumcheck_tpu_torch.ops.{module}")
+        for name in names:
+            def counted(*a, _real=getattr(mod, name), _name=name, **k):
+                calls[_name] = calls.get(_name, 0) + 1
+                return _real(*a, **k)
+
+            setattr(mod, name, functools.wraps(getattr(mod, name))(counted))
+    return calls
+
+
 def _rank(rank: int, size: int, init_file: str, out_dir: str, cases: dict) -> None:
     import torch.distributed as dist
 
     dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
                             world_size=size)
     try:
-        out = _rank_cases(size, cases)
+        out = _rank_cases(size, cases, _count_init_calls())
         out["jax_imported"] = sorted(m for m in sys.modules if m == "jax" or m == "sumcheck_tpu"
                                      or m.startswith(("jax.", "sumcheck_tpu.")))
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -196,7 +223,7 @@ def _rank(rank: int, size: int, init_file: str, out_dir: str, cases: dict) -> No
         dist.destroy_process_group()
 
 
-def _rank_cases(size: int, cases: dict) -> dict:
+def _rank_cases(size: int, cases: dict, init_calls: dict) -> dict:
     from sumcheck_tpu_torch import Blake2b512Rng
     from sumcheck_tpu_torch.batch import BatchedMLSumcheck
     from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
@@ -221,9 +248,10 @@ def _rank_cases(size: int, cases: dict) -> dict:
         rng = Blake2b512Rng.setup()
         rng.feed_bytes(prefix)
         comm.all_reduce_sum_.calls = comm.all_reduce_sum_.bytes = 0
+        init_calls.clear()
         proof = prover.prove(rng, *_port_gkr(a))
         out[name] = {"proof": proof.serialize_uncompressed().hex(), "state": _state(rng),
-                     "collectives": comm.all_reduce_sum_.calls}
+                     "collectives": comm.all_reduce_sum_.calls, "init_calls": dict(init_calls)}
 
     def batch_prove(name, arrays, prefixes):
         rngs = [Blake2b512Rng.setup() for _ in arrays]
@@ -476,6 +504,20 @@ def test_gkr_matches_jax(run):
     for got, want in _each_rank(run, "gkr"):
         assert {k: got[k] for k in want} == want
         assert got["collectives"] == 2 * (1 + dim - _log2(size) + (size > 1))
+
+
+def test_gkr_rank_finishes_its_dealt_pair(run):
+    """A rank's GKR inits are the weight reduce into raw sums and, after
+    their all-reduce, the finish of only its dealt lanes straight into its
+    pair, slot 1 from the same call (`finish_sums` with `shard`): 2 calls a
+    phase, 4 a prove, in every case of the chained sharded prover; no prove
+    reaches `prep1`, `final_fold`, `prep2` or `pair_slots`. A transcript
+    the chain cannot lift takes the single device's host loop (1 call a
+    phase, no finish)."""
+    for got in run[1]:
+        for name in ("gkr", "gkr_auto"):
+            assert got[name]["init_calls"] == {"weight_reduce": 2, "finish_sums": 2}
+        assert got["gkr_unaligned"]["init_calls"] == {"weight_reduce": 2}
 
 
 def test_f4_structures_match_jax(runs):

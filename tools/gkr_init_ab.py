@@ -3,12 +3,14 @@ for comparing two commits of the PyTorch/CUDA port (`sumcheck_tpu_torch`)
 on one H100.
 
     python tools/gkr_init_ab.py <checkout root> <label> [--reps N] [--profiles N]
+                                [--chain generic|persize]
     python tools/gkr_init_ab.py <checkout root> <label> --batch [--reps N]
 
 Imports the port from <checkout root>, builds its kernels there, and prints
 one JSON line: on the bench's GKR dim-18 instance
 (`microbench.gkr_instance(18)`, in both checkouts), the median of `--reps`
-warm `GKRRoundSumcheck.prove` walls on the generic chain, and from
+warm `GKRRoundSumcheck.prove` walls on the generic chain (`--chain
+persize`: the per-size chain), and from
 `--profiles` profiled warm proves (`microbench.profile_events`, in the
 measured checkout) the median device time of the phase-init kernels, in
 all and by launch in prove order (phase 1's, then phase 2's; each name cut
@@ -16,8 +18,9 @@ to its kernel), the prove's kernel launches and its idle share, beside the
 card's name and power limit. The init kernels are matched by name, so
 commits with different inits compare alike: the four-kernel inits
 (`weight_fold_kernel`, `segment_reduce_kernel`), the three launches a
-phase (`eq_halves_kernel`, `weight_reduce_kernel`, `pair_slots_kernel`)
-and the one fused launch a phase (`weight_reduce_kernel`). Times inside
+phase (`eq_halves_kernel`, `weight_reduce_kernel`, `pair_slots_kernel`),
+the one fused launch a phase (`weight_reduce_kernel`) and the per-size
+chain's pieces beside it (`pair_slots_kernel`). Times inside
 a prove, as the prove leaves the L2. Compare two commits in one call,
 alternating them: parent, change, change, parent.
 
@@ -55,6 +58,7 @@ def main() -> None:
     ap.add_argument("--reps", type=int, default=15)
     ap.add_argument("--profiles", type=int, default=5)
     ap.add_argument("--batch", action="store_true")
+    ap.add_argument("--chain", choices=("generic", "persize"), default="generic")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -64,8 +68,10 @@ def main() -> None:
     from sumcheck_tpu_torch import Blake2b512Rng, GKRRoundSumcheck
     from sumcheck_tpu_torch import microbench as MB
     from sumcheck_tpu_torch.ops import cuda_build
+    from sumcheck_tpu_torch.utils.config import get_config
 
     assert Path(MB.__file__).resolve().is_relative_to(root), MB.__file__
+    get_config().chain_impl = args.chain
     dev = torch.device("cuda", 0)
     cuda_build.build("round", "transcript", "gkr_init")
     inst = MB.gkr_instance(18, 0)
@@ -95,7 +101,8 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     print(json.dumps({
-        "label": args.label, "card": card, "prove_s": statistics.median(walls),
+        "label": args.label, "chain": args.chain, "card": card,
+        "prove_s": statistics.median(walls),
         "walls": [round(w, 5) for w in walls],
         "init_ms": statistics.median(sum(us for _n, us in run) for run in inits) / 1e3,
         "init_launches": [[n, round(us / 1e3, 5)] for n, us in zip(names, by_launch)],
