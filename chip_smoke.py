@@ -81,9 +81,9 @@ failure raises and exits non-zero without the final line:
 9a. the GKR phase-init kernels (`ops/gkr_init_cuda.py`: `weight_reduce`,
    one launch a phase: eq's half tables built in its blocks, the weight
    fold, the segment sums into slot 0 and the pair's slot 1;
-   `finish_sums`, the whole table and a sharded rank's run of the
-   rank-major raw sums into its dealt pair with its slot 1, in both
-   phases' forms at S = 2 and 4; `pair_slots` in the forms
+   `finish_sums`, the whole table and a sharded rank's block of the
+   (S, 8, n / S) rank-major raw sums into its dealt pair with its slot 1,
+   in both phases' forms at S = 2 and 4; `pair_slots` in the forms
    of `prep1`, `final_fold` and `prep2`, which no prover path launches)
    against their plain versions on the card,
    array-equal, at the dim-18 shapes of phase 9's instance (phase 1's and
@@ -152,15 +152,18 @@ failure raises and exits non-zero without the final line:
    and 4, one `torch.multiprocessing.spawn` of S ranks in a gloo group, all
    on the one card (`shard_device`), each running the sharded ML nv=20 2x3
    prove (`ChainedShardedProver.auto(S)`, the phase-8 instance; proof and
-   final transcript), the sharded GKR dim-18 prove at S = 2
+   final transcript), the sharded GKR dim-18 prove
    (`ShardedGKRProver.auto(S)`, phase 9's; `.auto(2 S)` of both raises),
    the sharded batch 8 x nv=16 (`BatchedMLSumcheck.prove(..., group=)`,
    phase 10's) and `ShardedProver` (the transcript on the host)
    on the ML instance over a fresh and over the `b"abc"` transcript, through
    the public entry points, each byte-equal to the single-card proofs of
    phases 8-10b on every rank, with the median of
-   warm walls, launches a rank, all-reduces and bytes per prove, and the
-   GKR inits split into compute and all-reduce; where the machine has S
+   warm walls, launches a rank, all-reduces and bytes per prove, the GKR
+   inits' reduce-scatters with the bytes each rank sends and receives, the
+   inits split into compute and reduce-scatter seconds, beside the
+   all-reduce of the same sums (off the prover path) (gloo takes the
+   card's tensors itself, through the host); where the machine has S
    cards, again in an NCCL group, one rank a card, the chains under the
    sync debug mode "error" (otherwise one line says why not). The kernels
    are built before the spawn, so no rank compiles; a rank's failure exits
@@ -1566,12 +1569,18 @@ def gkr_init_phase(device, inst, seed: int) -> dict:
         r1 = GI.phase1_pair_ref(split, g_r, f3_d, f2_d, d)
         args2 = (k1[0][:, :, :1], k1[1][:, :, :1], u[d - 1], split, k1[2], u, f3_d, d)
         k2, r2 = GI.phase2_pair(*args2), GI.phase2_pair_ref(*args2)
-        # rank 1 of 2's: the raw sums, rank-major, kept (the whole f1 is its
-        # own all-reduce), and the finish of its run into its dealt pair
-        sums = [torch.empty((8, 1 << d), dtype=torch.int64, device=device) for _ in range(2)]
+        # rank 1 of 2's: the raw sums, (2, 8, 2^d / 2) rank-major, kept
+        # (the whole f1 is its own reduce-scatter: block [1] is its sum), and
+        # the finish of that block into its dealt pair
+        sums = [torch.empty((2, 8, 1 << (d - 1)), dtype=torch.int64, device=device)
+                for _ in range(2)]
         mine = [deal(t, 1, 2).contiguous() for t in (f2_d, f3_d)]
-        d1 = GI.phase1_pair(split, g_r, f3_d, mine[0], d, reduce_fn=sums[0].copy_, shard=(1, 2))
-        d2 = GI.phase2_pair(*args2[:6], mine[1], d, reduce_fn=sums[1].copy_, shard=(1, 2))
+
+        def kept(i):
+            return lambda t: sums[i].copy_(t)[1].clone()
+
+        d1 = GI.phase1_pair(split, g_r, f3_d, mine[0], d, reduce_fn=kept(0), shard=(1, 2))
+        d2 = GI.phase2_pair(*args2[:6], mine[1], d, reduce_fn=kept(1), shard=(1, 2))
         want = [torch.empty_like(t) for t in sums]
         GK.weight_reduce_ref(split.gbits, split.vals, g_r, d, split.last_x, split.plan_x,
                              want[0], f3_d, split.y_rev, split.to_y, ranks=2)
@@ -1625,12 +1634,13 @@ def gkr_init_phase(device, inst, seed: int) -> dict:
              lambda: (GK.finish_sums(k_sums, table), table)[1:],
              lambda: (GK.finish_sums_ref(k_sums, want), want)[1:],
              {"bytes": (64 + 32) * n, "imads": n * IMADS_PER_MONT_MUL, "int8_ops": 0}, main)
-        # a sharded rank's finish: the raw sums rank-major, then rank 1's run
-        # of them straight into its dealt pair, slot 1 from the same launch
+        # a sharded rank's finish: the raw sums rank-major, (S, 8, n / S),
+        # then rank 1's block of them (what its reduce-scatter hands it)
+        # straight into its dealt pair, slot 1 from the same launch
         # (phase 1: its dealt f2; phase 2: its dealt f3 times the final fold)
         for size in (2, 4):
-            run = slice(n // size, 2 * n // size)
-            rm = [torch.empty_like(k_sums) for _ in range(2)]
+            rm = [torch.empty((size, 8, n // size), dtype=torch.int64, device=device)
+                  for _ in range(2)]
             for phase, args, kw, sums in ((1, p1, kw1, rm[0]), (2, p2, {}, rm[1])):
                 want_rm = torch.empty_like(sums)
                 case("weight_reduce", f"{tag}: phase {phase}, a rank's raw sums rank-major over "
@@ -1643,10 +1653,10 @@ def gkr_init_phase(device, inst, seed: int) -> dict:
             for phase, sums, slot in ((1, rm[0], (mine[0], None)), (2, rm[1], (mine[1], fold))):
                 d_k, d_p = pair(size), pair(size)
                 case("finish_sums", f"{tag}: a rank's dealt pair at S = {size}, phase {phase}'s "
-                     f"form (its run of rank-major sums; slot 1 = "
+                     f"form (its block of rank-major sums; slot 1 = "
                      f"{'f2' if phase == 1 else 'f3 times the final fold'})",
-                     lambda: (GK.finish_sums(sums[:, run], d_k, slot=slot), *d_k)[1:],
-                     lambda: (GK.finish_sums_ref(sums[:, run], d_p, slot=slot), *d_p)[1:],
+                     lambda: (GK.finish_sums(sums[1], d_k, slot=slot), *d_k)[1:],
+                     lambda: (GK.finish_sums_ref(sums[1], d_p, slot=slot), *d_p)[1:],
                      finish_work(n // size, phase), main, main and size == 2 and phase == 2)
         scratch, arrived = GK._scratch(device, 1)
         check(not scratch.any() and not arrived.any(), f"9a {label}: the scratch is not zero")
@@ -3186,8 +3196,8 @@ def sharded_sp(device: str, group, seed: int, reps: int, refs: dict) -> dict:
 
         proves = reps + 1
         with counted_syncs(guard=False) as syncs:
-            results, walls, launches, calls, nbytes = _counted(prove, proves,
-                                                               contextlib.nullcontext)
+            results, walls, launches, calls, nbytes, _rs = _counted(prove, proves,
+                                                                    contextlib.nullcontext)
         check(all(r == ref for r in results),
               f"ShardedProver {case}: proof or final transcript differs from the single card's")
         want = {k: 0 for k in launches}
@@ -3234,7 +3244,9 @@ def roofline_phase(device, ml_prove_s: float, gkr_prove_s: float, dim: int = GKR
 # --- the multi-device provers (`sumcheck_tpu_torch/parallel/`, the sharded batch)
 
 SHARD_SIZES = (2, 4)
-GKR_SHARD_SIZES = (2,)  # the GKR dim-18 prove is host-bound: one sharded size
+GKR_SHARD_SIZES = (2, 4)  # the inits' reduce-scatter against the all-reduce at both sizes
+INIT_PASSES = 5  # timed passes of a rank's two phase inits (medians)
+EXCHANGE_PAIRS = 7  # reduce-scatter / all-reduce pairs of the same raw sums (medians)
 ONE_CARD_NOTE = ("S ranks on one card share its SMs and pass every collective through the "
                  "host (gloo): these walls say nothing about speed across cards")
 
@@ -3292,11 +3304,21 @@ def run_ranks(size: int, backend: str, seed: int, reps: int, refs: dict,
               f"card's on every rank")
         if "inits" in res:
             i = res["inits"]
-            print(f"{path}: both phase inits {i['total_s']:.4f} s, of it compute "
-                  f"{i['total_s'] - i['all_reduce_s']:.4f} s and the two all-reduces of the raw "
-                  f"segment sums {i['all_reduce_s']:.4f} s ({i['bytes']} bytes each rank: "
-                  f"the (8, 2^{GKR_DIM}) int64 limb sums, against the {16 * 8 << GKR_DIM} "
-                  f"bytes a phase of 16-bit digit sums that the torch-op inits all-reduced)")
+            calls, sent, received = res["reduce_scatters"]
+            print(f"{path}: per prove {calls} reduce-scatters, {sent} bytes sent and {received} "
+                  f"received a rank; both phase inits {i['total_s']:.4f} s, of it compute "
+                  f"{i['compute_s']:.4f} s and the two reduce-scatters of the raw segment sums "
+                  f"{i['reduce_scatter_s']:.4f} s (medians of {INIT_PASSES} passes; route "
+                  f"direct: one {i['backend']} reduce-scatter of the card's tensor itself, torch "
+                  f"{torch.__version__}; {i['sent']} bytes sent and {i['received']} received "
+                  f"each rank: the (S, 8, 2^{GKR_DIM} / S) int64 limb sums and the rank's block); "
+                  f"card {card_line()}")
+            print(f"{path}: the same raw sums again, off the prover path, in {len(i['pairs'])} "
+                  f"pairs, the first of each alternating, each exchange behind a barrier: two "
+                  f"reduce-scatters {i['pair_reduce_scatter_s']:.4f} s against two all-reduces "
+                  f"{i['pair_all_reduce_s']:.4f} s (medians), the pairs' ratio median "
+                  f"{i['pair_ratio']:.3f}; pairs (reduce-scatters, all-reduces) "
+                  f"{[[round(r, 4), round(a, 4)] for r, a in i['pairs']]}; card {card_line()}")
         out[path] = dict(res, walls=walls)
     return out
 
@@ -3353,14 +3375,18 @@ def sharded_rank(rank: int, size: int, backend: str, device: str, init_file: str
 
 def _counted(fn, proves: int, guard):
     """Run `fn` `proves` times under `guard` with every launch count and the
-    all-reduce count at 0 before; returns (results, warm walls, launches,
-    all-reduces per prove, bytes per prove)."""
+    collectives' counts at 0 before; returns (results, warm walls,
+    launches, all-reduces per prove, their bytes a rank per prove,
+    [reduce-scatters, their bytes sent, their bytes received] a rank per
+    prove)."""
     from sumcheck_tpu_torch.parallel import comm
 
+    rs = comm.reduce_scatter_sum_
     with guard():
         for f in counters().values():
             f.launches = 0
         comm.all_reduce_sum_.calls = comm.all_reduce_sum_.bytes = 0
+        rs.calls = rs.bytes = rs.received = 0
         results, walls = [], []
         for _ in range(proves):
             t0 = time.perf_counter()
@@ -3368,7 +3394,8 @@ def _counted(fn, proves: int, guard):
             walls.append(time.perf_counter() - t0)
         launches = {k: f.launches for k, f in counters().items()}
     return (results, walls[1:], launches, comm.all_reduce_sum_.calls // proves,
-            comm.all_reduce_sum_.bytes // proves)
+            comm.all_reduce_sum_.bytes // proves,
+            [rs.calls // proves, rs.bytes // proves, rs.received // proves])
 
 
 def sharded_ml(prover, seed: int, reps: int, refs: dict, guard) -> dict:
@@ -3383,7 +3410,7 @@ def sharded_ml(prover, seed: int, reps: int, refs: dict, guard) -> dict:
         return serialize_proof(proof), repr(rng.state_tuple())
 
     proves = reps + 1
-    results, walls, launches, calls, nbytes = _counted(prove, proves, guard)
+    results, walls, launches, calls, nbytes, _rs = _counted(prove, proves, guard)
     check(all(r == (refs["ml"], refs["ml_state"]) for r in results),
           "sharded ML: proof or final transcript differs from the single card's")
     want = {k: 0 for k in launches}
@@ -3396,6 +3423,8 @@ def sharded_ml(prover, seed: int, reps: int, refs: dict, guard) -> dict:
 
 
 def sharded_gkr(prover, seed: int, refs: dict, guard) -> dict:
+    import torch.distributed as dist
+
     from sumcheck_tpu_torch import Blake2b512Rng
     from sumcheck_tpu_torch import gkr_round_sumcheck as G
     from sumcheck_tpu_torch import microbench as MB
@@ -3410,9 +3439,20 @@ def sharded_gkr(prover, seed: int, refs: dict, guard) -> dict:
     def prove():
         return prover.prove(Blake2b512Rng.setup(), *inst).serialize_uncompressed()
 
-    results, walls, launches, calls, nbytes = _counted(prove, 2, guard)
+    results, walls, launches, calls, nbytes, rs = _counted(prove, 2, guard)
+    rs_calls, rs_sent, rs_received = rs
     check(all(r == refs["gkr"] for r in results),
           "sharded GKR: proof differs from the single card's")
+    # the inits' exchange: one reduce-scatter a phase of the whole (8, 2^dim)
+    # raw sums, each rank receiving its block; no init all-reduce
+    size = prover.num_shards
+    sums_bytes = 64 << dim
+    check([rs_calls, rs_sent, rs_received] == [2, 2 * sums_bytes, 2 * sums_bytes // size],
+          f"sharded GKR: reduce-scatters a prove {[rs_calls, rs_sent, rs_received]}, expected "
+          f"2 of {sums_bytes} bytes each, receiving {sums_bytes // size}")
+    check(calls == 2 * (dim - (size.bit_length() - 1) + 1),
+          f"sharded GKR: {calls} all-reduces a prove, expected one a sharded round and a "
+          f"gather a phase, none for the inits")
     want = {k: 0 for k in launches}
     want.update({"round_nofold": 4, "round_fold": 4 * (dim - 1), "transcript_step": 4 * dim})
     # a rank's inits (2 proves): the weight reduce into the raw limb sums
@@ -3422,36 +3462,89 @@ def sharded_gkr(prover, seed: int, refs: dict, guard) -> dict:
     want.update({"weight_reduce": 4, "finish_sums": 4, "pair_slots": 0})
     check(launches == want, f"sharded GKR: launches {launches}, expected {want}")
 
-    # the inits alone at fixed challenges: the all-reduces timed between syncs
+    # the inits alone at fixed challenges, a warm pass and INIT_PASSES timed,
+    # each of the pass's two reduce-scatters timed between syncs; then, off
+    # the prover path, the raw sums of one pass exchanged again in
+    # EXCHANGE_PAIRS pairs, the reduce-scatter and the all-reduce of the same
+    # sums (the exchange the inits made before; its result is dropped), the
+    # first of each pair alternating, each behind a barrier
     shard = (prover.rank, prover.num_shards)
     split, _f2_d, f3_d, g_r = G._upload(f1, f2, f3, g, dim, prover.device, shard)
     f2_mine, f3_mine = (t.to_device(prover.device, shard) for t in (f2, f3))
     gen = np.random.default_rng(dim)
     us = torch.from_numpy(np.stack([L.mont_scalar(int(gen.integers(1, 1 << 62)) % P)[:, 0]
                                     for _ in range(dim)]).astype(np.int32)).to(prover.device)
-    reduced = []
+    reduced, raws = [], []
 
     def timed(t):
         sync(prover.device)
         t0 = time.perf_counter()
-        comm.all_reduce_sum_(t, prover.group)
+        mine = comm.reduce_scatter_sum_(t, prover.group)
         sync(prover.device)
-        reduced.append((time.perf_counter() - t0, t.numel() * 8))
+        reduced.append((time.perf_counter() - t0, t.numel() * 8, mine.numel() * 8))
+        return mine
 
-    for _ in range(2):  # the first warms
+    def kept(t):
+        raws.append(t.clone())
+        return comm.reduce_scatter_sum_(t, prover.group)
+
+    def inits(reduce_fn):
+        lo, hi, w = GI.phase1_pair(split, g_r, f3_d, f2_mine, dim, reduce_fn=reduce_fn,
+                                   shard=shard)
+        GI.phase2_pair(lo[:, :, :1], hi[:, :, :1], us[dim - 1], split, w, us, f3_mine, dim,
+                       reduce_fn=reduce_fn, shard=shard)
+
+    passes = []
+    for _ in range(INIT_PASSES + 1):  # the first warms
         reduced.clear()
         sync(prover.device)
         t0 = time.perf_counter()
-        lo, hi, w = GI.phase1_pair(split, g_r, f3_d, f2_mine, dim, reduce_fn=timed, shard=shard)
-        GI.phase2_pair(lo[:, :, :1], hi[:, :, :1], us[dim - 1], split, w, us, f3_mine, dim,
-                       reduce_fn=timed, shard=shard)
+        inits(timed)
         sync(prover.device)
-        total_s = time.perf_counter() - t0
+        passes.append((time.perf_counter() - t0, sum(t for t, _, _ in reduced)))
+    passes = passes[1:]
+    inits(kept)
+
+    def exchange(fn, t) -> float:
+        dist.barrier(group=prover.group)
+        sync(prover.device)
+        t0 = time.perf_counter()
+        fn(t)
+        sync(prover.device)
+        return time.perf_counter() - t0
+
+    def scatter(t):
+        comm.reduce_scatter_sum_(t, prover.group)
+
+    def whole(t):
+        comm.all_reduce_sum_(t, prover.group)
+
+    pairs = []
+    for k in range(EXCHANGE_PAIRS + 1):  # the first warms
+        rs_s = ar_s = 0.0
+        for t in raws:
+            copy = t.clone()
+            if k % 2 == 0:
+                rs_s += exchange(scatter, t)
+                ar_s += exchange(whole, copy)
+            else:
+                ar_s += exchange(whole, copy)
+                rs_s += exchange(scatter, t)
+        pairs.append((rs_s, ar_s))
+    pairs = pairs[1:]
     return {"what": f"GKR dim {dim} (nnz 2^{dim}), proof", "walls": walls,
             "prove_s": statistics.median(walls), "launches": launches, "collectives": calls,
-            "bytes": nbytes, "inits": {"total_s": total_s,
-                                       "all_reduce_s": sum(t for t, _ in reduced),
-                                       "bytes": [b for _, b in reduced]}}
+            "bytes": nbytes, "reduce_scatters": [rs_calls, rs_sent, rs_received],
+            "inits": {"total_s": statistics.median(t for t, _ in passes),
+                      "compute_s": statistics.median(t - r for t, r in passes),
+                      "reduce_scatter_s": statistics.median(r for _, r in passes),
+                      "sent": [b for _, b, _ in reduced],
+                      "received": [b for _, _, b in reduced],
+                      "backend": comm.backend(prover.group),
+                      "pairs": pairs,
+                      "pair_reduce_scatter_s": statistics.median(r for r, _ in pairs),
+                      "pair_all_reduce_s": statistics.median(a for _, a in pairs),
+                      "pair_ratio": statistics.median(r / a for r, a in pairs)}}
 
 
 def sharded_batch(ml, seed: int, reps: int, refs: dict, guard) -> dict:
@@ -3465,7 +3558,7 @@ def sharded_batch(ml, seed: int, reps: int, refs: dict, guard) -> dict:
                                                                      group=ml.group)]
 
     proves = reps + 1
-    results, walls, launches, calls, nbytes = _counted(prove, proves, guard)
+    results, walls, launches, calls, nbytes, _rs = _counted(prove, proves, guard)
     check(all(r == refs["batch"] for r in results),
           "sharded batch: proofs differ from the single card's")
     want = {k: 0 for k in launches}
@@ -3538,7 +3631,8 @@ def dryrun_phase(device) -> dict:
           f"ShardedProver = ChainedShardedProver = the single card's host-transcript prove, the "
           f"sharded GKR (odd nnz) = the single card's, the sharded batch = each instance's, on "
           f"every rank, and all equal to the CPU's; {card_s:.1f} s for the spawn; "
-          f"{rank0['collectives']} all-reduces; launches of each sharded prove, rank 0: "
+          f"{rank0['collectives']} all-reduces and {rank0['reduce_scatters']} reduce-scatters; "
+          f"launches of each sharded prove, rank 0: "
           + "; ".join(f"{case} { {k: v for k, v in n.items() if v} }"
                       for case, n in rank0["launches"].items()))
     return {f"dryrun {case} S=2": {"launches": n} for case, n in rank0["launches"].items()}

@@ -35,10 +35,11 @@
 //                        GKR prover: one launch a phase for the whole
 //                        batch), each block's first tile loaded under its
 //                        build of the half tables;
-//   finish_sums_kernel   the finish of all-reduced raw sums (a sharded
-//                        rank's phase init): only the rank's dealt lanes,
-//                        one contiguous run of the rank-major sums that its
-//                        weight reduce wrote, straight into its pair's slot
+//   finish_sums_kernel   the finish of summed raw sums (a sharded rank's
+//                        phase init): only the rank's dealt lanes, its
+//                        block of the rank-major sums that its weight
+//                        reduce wrote, reduce-scattered over the ranks,
+//                        straight into its pair's slot
 //                        0, and its slot 1 from the same threads, as the
 //                        weight reduce's;
 //   pair_slots_kernel    a pair's slots for the per-size pieces that no
@@ -193,7 +194,7 @@ struct WeightReduce {
   uint32_t* carry;               // phase 1: (nnz, 8) entry-major out
   unsigned long long* scratch;   // (long, 8) limb partials, zero between launches
   unsigned int* arrived;         // (long,) chunks arrived, zero between launches
-  unsigned long long* sums_out;  // the raw (8, nseg) limb sums, or null: strict to dst
+  unsigned long long* sums_out;  // the raw limb sums (emit), or null: strict to dst
   int ranks;                     // the raw sums rank-major over this many ranks (emit)
   SegDest dst;
   Slot slot;                     // slot.items = 0: no slot
@@ -260,17 +261,18 @@ __device__ __forceinline__ void finish_lazy(uint32_t v[kLimbs], const uint64_t a
 }
 
 // Segment s's sums: raw to sums_out where it is given, else strict to dst.
-// The raw sums are rank-major over `ranks` ranks: segment i * ranks + r, rank
-// r's dealt lane i (parallel/mesh.deal), at column r * nseg / ranks + i, so
-// that each rank's segments are one contiguous run of columns, the run a
-// rank finishes (and a reduce-scatter would hand it); ranks = 1, column s.
+// The raw sums are (ranks, 8, run) rank-major, run = nseg / ranks: segment
+// i * ranks + r, rank r's dealt lane i (parallel/mesh.deal), at [r][j][i],
+// so that each rank's sums are one contiguous (8, run) block, the block a
+// reduce-scatter hands it and the run it finishes; ranks = 1: [j][s].
 __device__ __forceinline__ void emit(long long s, const uint64_t acc[kLimbs], long long nseg,
                                      int ranks, unsigned long long* sums_out,
                                      const SegDest& dst, const Consts& c) {
   if (sums_out) {
-    const long long col = (s % ranks) * (nseg / ranks) + s / ranks;
+    const long long run = nseg / ranks;
+    unsigned long long* col = sums_out + (s % ranks) * kLimbs * run + s / ranks;
 #pragma unroll
-    for (int j = 0; j < kLimbs; ++j) sums_out[j * nseg + col] = acc[j];
+    for (int j = 0; j < kLimbs; ++j) col[j * run] = acc[j];
     return;
   }
   uint32_t v[kLimbs];
@@ -860,9 +862,9 @@ struct Finish {
   const int32_t* fr;
 };
 
-// The finish of all-reduced raw sums, one thread a lane: its 8 limb sums ->
-// their strict value in dst at the same lane (`finish_lazy`), and the slot's
-// lane from the same thread. A sharded rank finishes only its own run of the
+// The finish of summed raw sums, one thread a lane: its 8 limb sums -> their
+// strict value in dst at the same lane (`finish_lazy`), and the slot's lane
+// from the same thread. A sharded rank finishes only its own block of the
 // rank-major sums, straight into its dealt pair, every load a contiguous one.
 // Each thread loads the final fold's operands beside its lane's and computes
 // the fold itself: no shared memory and no barrier, 64 registers, so that
@@ -1181,11 +1183,11 @@ int sc_gkr_max_shared_eq() { return kMaxSharedEq; }
 // kMaxSharedEq lanes, else the launch is refused); last (nseg,);
 // phase 1 also y (nnz,), f3 (8, n3), to_y (nnz,) and the carry (nnz, 8) out,
 // else all four null. scratch (long, 8) uint64 and arrived (long,) uint32 for
-// a plan with long segments (zero, and left zero), else null. The raw (8,
-// nseg) int64 limb sums to sums_out if given (rank-major over `ranks` ranks,
-// as emit lays them out; ranks = 1: segment s at column s), else the strict
-// values to the destination. With slot_src: the pair's slot 1 too, slot_lo
-// and slot_hi (8, half) each, from the (8, 2 half) table slot_src, times the
+// a plan with long segments (zero, and left zero), else null. The raw int64
+// limb sums to sums_out if given, (ranks, 8, nseg / ranks) rank-major as
+// emit lays them out (ranks = 1: (8, nseg), segment s at column s), else the
+// strict values to the destination. With slot_src: the pair's slot 1 too,
+// slot_lo and slot_hi (8, half) each, from the (8, 2 half) table slot_src, times the
 // final fold of (flo, fhi, fstride, fr) where flo is given. device: the
 // current device's index. vals and the carry 16-byte aligned.
 int sc_gkr_weight_reduce(const void* plan, int items, const void* vals, const void* idx,
@@ -1280,7 +1282,7 @@ int sc_gkr_weight_reduce_batched(int batch, const unsigned long long* fields, co
   return launch_batched<kBatchCap, 2>(sh, batch, fields, items, rows, device, consts, s);
 }
 
-// sums: `lanes` lanes of all-reduced raw int64 limb sums, row j at sums + j
+// sums: `lanes` lanes of summed raw int64 limb sums, row j at sums + j
 // * sums_ld -> their strict values at the same lanes of the destination
 // (dst_ld, dst_split as sc_gkr_weight_reduce's). With src, the pair's slot 1
 // too: slot_lo and slot_hi (the destination's strides) from the (8, lanes)

@@ -119,8 +119,8 @@ def dryrun_multichip(n_devices: int, *, device="cuda") -> dict:
     backend `dryrun_backend`'s choice. Returns {"backend", "ml", "gkr", "batch"
     (proof bytes, equal on every rank), "ranks" (each rank's device, its
     kernel launches in each sharded prove, counted from zero just before it:
-    "sp", "chained", "gkr" and "batch", without the reference proves', and
-    its all-reduces)}."""
+    "sp", "chained", "gkr" and "batch", without the reference proves', its
+    all-reduces and its reduce-scatters)}."""
     import torch.multiprocessing as mp
 
     from .protocol.device_prover import resolve_device
@@ -141,7 +141,8 @@ def dryrun_multichip(n_devices: int, *, device="cuda") -> dict:
     return {"backend": backend, "ml": bytes.fromhex(proofs["ml"]),
             "gkr": bytes.fromhex(proofs["gkr"]),
             "batch": [bytes.fromhex(p) for p in proofs["batch"]],
-            "ranks": [{k: got[k] for k in ("device", "launches", "collectives")}
+            "ranks": [{k: got[k] for k in ("device", "launches", "collectives",
+                                           "reduce_scatters")}
                       for got in ranks]}
 
 
@@ -244,7 +245,8 @@ def _dryrun_cases(device: str, backend: str) -> dict:
     _check(batch == [serialize_proof(MLSumcheck.prove(p, device=dev)) for p in polys],
            "sharded batch differs from the instances' own proves")
     return {"device": str(dev), "ml": ml.hex(), "gkr": gkr.hex(), "batch": [b.hex() for b in batch],
-            "launches": launches, "collectives": comm.all_reduce_sum_.calls}
+            "launches": launches, "collectives": comm.all_reduce_sum_.calls,
+            "reduce_scatters": comm.reduce_scatter_sum_.calls}
 
 
 def main() -> int:

@@ -29,10 +29,10 @@ device: `phase2_pair` reads them from the chain's challenge rows, and
 nothing between the prove's uploads and its one fetch waits for the host
 (no `.item()`, no boolean masks, no upload). A phase is 1 launch on both
 chains (`phase1_pair`, `phase2_pair`); a sharded rank's takes 2, the
-weight reduce into raw sums and, after their all-reduce, the finish of only
-the rank's dealt lanes straight into its pair, slot 1 from the same launch
-(`reduce_fn`, `shard`). The per-size pieces of the JAX package keep their
-counterparts (`phase1`, `phase2_digits`: 1 launch each; `prep1`,
+weight reduce into rank-major raw sums and, after their reduce-scatter, the
+finish of only the rank's dealt lanes straight into its pair, slot 1 from
+the same launch (`reduce_fn`, `shard`). The per-size pieces of the JAX
+package keep their counterparts (`phase1`, `phase2_digits`: 1 launch each; `prep1`,
 `final_fold`, `prep2` on `pair_slots`), which no prover path takes. The
 batched prover's `phase1_pairs` and `phase2_pairs` build a phase of all B
 instances in one launch (`weight_reduce_batched`, grid y = instance).
@@ -348,19 +348,17 @@ def _reduce(idx, vals, r, dim: int, last, plan, dst, reduce_fn=None, shard=None,
     """The fused weight fold and segment sum by eq(r, .) into `dst`, and
     the pair's other slot (`slot`): 1 launch (`weight_reduce`; `kw` takes
     phase 1's f3, y and to_y, which gather f3 and return the carry). With
-    `reduce_fn` (rank s of S, `shard`) the raw segment sums, rank-major,
-    go to it (it sums them over the ranks in place), and a second launch
-    finishes the rank's run of them into `dst` and writes the slot
-    (`finish_sums`)."""
+    `reduce_fn` (rank s of S, `shard`) the raw segment sums, rank-major
+    (S, 8, nseg/S), go to it; it returns the rank's block summed over the
+    ranks, (8, nseg/S), and a second launch finishes that block into `dst`
+    and writes the slot (`finish_sums`)."""
     if reduce_fn is None:
         return K.weight_reduce(idx, vals, r, dim, last, plan, dst, slot=slot, **kw)
-    s, size = shard or (0, 1)
+    size = (shard or (0, 1))[1]
     nseg = last.shape[0]
-    sums = torch.empty((NUM_LIMBS, nseg), dtype=torch.int64, device=vals.device)
+    sums = torch.empty((size, NUM_LIMBS, nseg // size), dtype=torch.int64, device=vals.device)
     carry = K.weight_reduce(idx, vals, r, dim, last, plan, sums, ranks=size, **kw)
-    reduce_fn(sums)
-    run = nseg // size
-    K.finish_sums(sums[:, s * run:(s + 1) * run], dst, slot)
+    K.finish_sums(reduce_fn(sums), dst, slot)
     return carry
 
 
@@ -393,14 +391,18 @@ def phase1_pair(split: F1Split, g_r, f3_bitrev, f2_bitrev, dim: int, out=None,
     """`_phase1_pair_body` (`:472-491`): the phase-1 pair (written into
     `out` = (lo, hi) if given) and the carry `w`: 1 launch, h_g summed
     straight into slot 0 and f2 copied into slot 1. A sharded rank passes
-    `reduce_fn` (the all-reduce of the raw segment sums of its chunk
-    `split`), `shard` = (s, S) and, as `f2_bitrev`, its dealt f2
-    (`DenseMLE.to_device(device, shard)`): its pair is rank s's deal, (2,
-    8, 2^dim / 2S), local lane l of each half the global pair lane l·S + s
-    (`parallel/mesh.deal`), h_g's dealt lanes finished straight into slot 0
-    and f2's copied into slot 1 by `finish_sums`: 2 launches, the finish
-    over 2^dim / S lanes (the JAX package's shard-local finish,
-    `sumcheck_tpu/parallel/gkr.py:50-74`, with no all-gather)."""
+    `reduce_fn`, `shard` = (s, S) and, as `f2_bitrev`, its dealt f2
+    (`DenseMLE.to_device(device, shard)`). `reduce_fn` takes the raw
+    segment sums of the rank's chunk `split`, a (S, 8, 2^dim / S) int64
+    tensor whose block [s] holds rank s's dealt segments, and returns rank
+    s's block summed over the ranks, (8, 2^dim / S) int64 (the sharded
+    prover passes `comm.reduce_scatter_sum_`). The pair is rank s's deal,
+    (2, 8, 2^dim / 2S), local lane l of each half the global pair lane
+    l·S + s (`parallel/mesh.deal`), h_g's dealt lanes finished straight
+    into slot 0 and f2's copied into slot 1 by `finish_sums`: 2 launches,
+    the finish over 2^dim / S lanes (the JAX package's `psum_scatter` and
+    shard-local finish, `sumcheck_tpu/parallel/gkr.py:50-74`, with no
+    all-gather)."""
     size = 1 if shard is None else shard[1]
     lo, hi = _new_pair((1 << dim) // size, f3_bitrev.device, out)
     w = _reduce1(split, g_r, f3_bitrev, dim, (lo, hi), reduce_fn, shard, (f2_bitrev, None))
@@ -440,8 +442,9 @@ def phase2_pair(pair_lo, pair_hi, r_last, split: F1Split, w, u_digits, f3_bitrev
     pair (written into `out` = (lo, hi) if given, which must not overlap
     the final pair): 1 launch, f1(g, u, .) summed straight into slot 0, and
     f3 times the final fold, computed in each block, into slot 1. A sharded
-    rank passes `reduce_fn` and `shard`, as in `phase1_pair`, and as
-    `f3_bitrev` its dealt f3: its dealt pair, f1(g, u, .)'s dealt lanes
+    rank passes `reduce_fn` (which returns the rank's summed block of the
+    raw sums) and `shard`, as in `phase1_pair`, and as `f3_bitrev` its
+    dealt f3: its dealt pair, f1(g, u, .)'s dealt lanes
     finished into slot 0 and f3's times the final fold (of the replicated
     one-lane pair of `sharded_rounds`' tail) into slot 1 by `finish_sums`:
     2 launches."""

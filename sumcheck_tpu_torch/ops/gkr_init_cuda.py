@@ -19,9 +19,9 @@ Replaces the JAX package's jitted jnp phase-init programs
   summed mod p over each segment of the sorted entries, positions
   (last[s-1] + 1) .. last[s] (`last` int32, -1 before the first entry),
   strict into `out`, a (8, nseg) int32 table or a pair `(lo, hi)` of (U,
-  8, nseg/2) halves (slot 0), or as the raw (8, nseg) int64 limb sums (a
-  rank's partial) where `out` is int64, rank-major over `ranks` ranks
-  (`rank_major`). `plan` is `tile_plan`'s schedule
+  8, nseg/2) halves (slot 0), or as the raw int64 limb sums (a rank's
+  partial) where `out` is int64: (8, nseg), or (S, 8, nseg/S) rank-major
+  over `ranks` = S ranks (`rank_major`). `plan` is `tile_plan`'s schedule
   of the segments (built once per f1 on the host, `upload_plan`): tiles of
   consecutive segments, and chunks of the long ones, which the kernel sums
   into a per-device scratch that the last chunk to arrive finishes and
@@ -41,17 +41,18 @@ Replaces the JAX package's jitted jnp phase-init programs
   more in `batch_launches`' few launches), with no copy ahead of the
   launch. Plain version `weight_reduce_batched_ref`, the single plain
   version per instance.
-- `finish_sums(sums, dst, slot=None)`: all-reduced raw limb sums -> their
+- `finish_sums(sums, dst, slot=None)`: summed raw limb sums -> their
   strict values in `dst`, and with `slot` the pair's slot 1 from the same
   launch, as `weight_reduce`'s (a sharded rank's phase init: `reduce_fn`
   in `ops/gkr_init.py`). A rank's weight reduce writes its raw sums
-  rank-major (`ranks` = S), so that after their all-reduce rank s's dealt
+  rank-major, (S, 8, nseg/S) (`ranks` = S), so that rank s's dealt
   segments (`parallel/mesh.deal`: local lane l of each half is global
-  pair lane l·S + s) are one contiguous run of columns: the rank finishes
-  that run alone, straight into its dealt pair, its slot 1 from its dealt
-  table (the JAX package's shard-local finish in `_psum_reduce_mod_p`,
-  `sumcheck_tpu/parallel/gkr.py:50-74`, without its all-gather; the run
-  is the chunk a reduce-scatter would hand the rank).
+  pair lane l·S + s) are the contiguous block [s], the block a
+  reduce-scatter over the ranks hands rank s, summed: the rank finishes
+  that block alone, straight into its dealt pair, its slot 1 from its
+  dealt table (the JAX package's `psum_scatter` and shard-local finish in
+  `_psum_reduce_mod_p`, `sumcheck_tpu/parallel/gkr.py:50-74`, without its
+  all-gather).
 - `pair_slots(lo, hi, slots, fold=None, fold_out=None)`: slot u of the
   (U, 8, H) halves for each `(u, table, scale)` of `slots` (at most 2):
   lo[u] = table[:, :H], hi[u] = table[:, H:], times `scale` where it is a
@@ -461,8 +462,11 @@ def _check_reduce(idx, vals, r, k, last, plan, out, f3, y, to_y, slot, ranks=1):
         raise ValueError(f"rank-major raw sums over {ranks} ranks need raw sums of a "
                          f"multiple of {ranks} segments")
     if raw is not None:
-        if raw.shape != (NUM_LIMBS, nseg) or not raw.is_contiguous():
-            raise ValueError(f"the raw sums must be a contiguous (8, {nseg}) int64 tensor")
+        shapes = {(ranks, NUM_LIMBS, nseg // ranks)} | ({(NUM_LIMBS, nseg)} if ranks == 1
+                                                          else set())
+        if tuple(raw.shape) not in shapes or not raw.is_contiguous():
+            raise ValueError(f"the raw sums must be a contiguous int64 tensor of shape "
+                             f"{' or '.join(map(str, sorted(shapes)))}, got {tuple(raw.shape)}")
         dst = None
     else:
         dst = _dest(out, nseg)
@@ -476,12 +480,12 @@ def _check_reduce(idx, vals, r, k, last, plan, out, f3, y, to_y, slot, ranks=1):
 
 
 def rank_major(sums: torch.Tensor, ranks: int) -> torch.Tensor:
-    """(8, nseg) sums by segment -> rank-major over `ranks` ranks: segment
-    i·S + s (rank s's dealt lane i, `parallel/mesh.deal`) at column
-    s·nseg/S + i, so that rank s's segments are the run [s·nseg/S,
-    (s+1)·nseg/S), in its lanes' order."""
+    """(8, nseg) sums by segment -> (S, 8, nseg/S) rank-major over `ranks`
+    = S ranks: segment i·S + s (rank s's dealt lane i, `parallel/mesh.deal`)
+    at [s, :, i], so that rank s's segments are the contiguous block [s],
+    in its lanes' order."""
     rows, nseg = sums.shape
-    return sums.reshape(rows, nseg // ranks, ranks).transpose(1, 2).reshape(rows, nseg)
+    return sums.reshape(rows, nseg // ranks, ranks).permute(2, 0, 1).contiguous()
 
 
 def weight_reduce_ref(idx, vals, r, k: int, last, plan: Plan, out, f3=None, y=None,
@@ -494,7 +498,7 @@ def weight_reduce_ref(idx, vals, r, k: int, last, plan: Plan, out, f3=None, y=No
     w, wv = weight_fold_ref(idx, vals.T.contiguous(), eq_halves_ref(r, k), k, y, f3)
     sums = limb_sums_ref(w if wv is None else wv, None, last)
     if raw is not None:
-        raw.copy_(rank_major(sums, ranks))
+        raw.copy_(rank_major(sums, ranks).reshape(raw.shape))
     else:
         _write(out, finish_ref(sums))
     if slot is not None:
@@ -529,10 +533,11 @@ def weight_reduce(idx, vals, r, k: int, last, plan: Plan, out, f3=None, y=None, 
     and the exact segment sum of the sorted entries, one launch: (nnz, 8)
     `vals` times eq_lo[idx & m] * eq_hi[idx >> kl], summed over each
     segment (`last`) mod p into `out`, a (8, nseg) int32 table or a pair
-    (slot 0), or as the raw (8, nseg) int64 limb sums where `out` is int64
-    (a rank's partial; `finish_sums` finishes them), rank-major over `ranks`
-    ranks (`rank_major`: each rank's dealt segments one contiguous run, the
-    run it finishes). Phase 1 passes `f3`,
+    (slot 0), or as the raw int64 limb sums where `out` is int64 (a rank's
+    partial; `finish_sums` finishes them): (8, nseg), or (S, 8, nseg/S)
+    rank-major over `ranks` = S ranks (`rank_major`: each rank's dealt
+    segments one contiguous block, the block a reduce-scatter hands it and
+    the run it finishes). Phase 1 passes `f3`,
     `y` and `to_y`: each weight is multiplied by f3[:, y] before the sum,
     and the weights are returned as the carry, (nnz, 8) int32 with entry j
     at row to_y[j]; else returns None. `slot` = (table, fold) also writes
@@ -740,14 +745,14 @@ def finish_sums_ref(sums, dst, slot=None) -> None:
 
 
 def finish_sums(sums, dst, slot=None) -> None:
-    """All-reduced raw (8, n) int64 limb sums (rows contiguous, any row
-    stride: a rank's run of rank-major sums, `weight_reduce(..., ranks=)`)
-    -> their strict values in `dst` (a table or slot 0 of a pair), one
-    launch. `slot` = (table, fold) also writes slot 1 of the pair `dst` from
-    the same launch: the contiguous (8, n) table's two halves, times the
-    final fold of `fold` = (flo, fhi, r, fslot) unless it is None (as
+    """Summed raw (8, n) int64 limb sums (rows contiguous, any row
+    stride) -> their strict values in `dst` (a table or slot 0 of a pair),
+    one launch. `slot` = (table, fold) also writes slot 1 of the pair `dst`
+    from the same launch: the contiguous (8, n) table's two halves, times
+    the final fold of `fold` = (flo, fhi, r, fslot) unless it is None (as
     `weight_reduce`'s slot; the fold's pair must not overlap `dst`). A
-    sharded rank passes its run of the sums and its dealt table
+    sharded rank passes its reduce-scattered block of the rank-major sums
+    (`weight_reduce(..., ranks=)`) and its dealt table
     (`DenseMLE.to_device(device, shard)`), so that it finishes only its
     own lanes straight into its dealt pair."""
     lo, hi, ld, split = _check_finish(sums, dst, slot)

@@ -5,7 +5,8 @@ prover with the same inputs, a process group in place of the JAX mesh.
 - `mesh.py`: the sharded layouts, the deal of a table's pair lanes over the
   ranks, the default group and each rank's device;
 - `comm.py`: the one module that calls `torch.distributed`; every exchange
-  is one exact int64 all-reduce;
+  is an exact int64 sum, an all-reduce or (the GKR inits' raw sums) a
+  reduce-scatter;
 - `chained.py`: `ChainedShardedProver`, the sharded MLSumcheck prove;
 - `prover.py`: `ShardedProver`, the sharded MLSumcheck prove with the
   transcript on the host, for any transcript;

@@ -1,16 +1,26 @@
 """The only module of the port that calls `torch.distributed`.
 
 Every exchange of the multi-device provers is an exact sum of integer
-digits: a round's per-digit sums (`parallel/chained.py`), the GKR inits'
-raw segment sums (`parallel/gkr.py`), and gathers built as sums in which
-one rank writes each slot. So one collective serves them all: an int64
-all-reduce, in place. It runs the same on gloo over CPU tensors, gloo over
-CUDA tensors (which goes through the host) and NCCL, and needs no
-collective that gloo lacks for CUDA tensors. The order of the sum is
-irrelevant: the values are integers far below 2^63.
+digits, so the collectives are two int64 sums; the order of a sum is
+irrelevant, since the values are integers far below 2^63:
 
-`all_reduce_sum_.calls` and `.bytes` count the all-reduces and the bytes
-each rank contributes to them (set them to 0 to count one prove).
+- `all_reduce_sum_`, in place: a round's per-digit sums
+  (`parallel/chained.py`, `parallel/prover.py`, the sharded batch) and
+  gathers built as sums in which one rank writes each slot
+  (`gather_lanes`);
+- `reduce_scatter_sum_`: the GKR inits' raw segment sums (`parallel/
+  gkr.py`), of which each rank keeps only its own block, as the JAX
+  package's `psum_scatter` hands each shard its chunk.
+
+Both are one `torch.distributed` call on the tensor itself
+(`all_reduce`, `reduce_scatter_tensor`), on NCCL, on
+gloo over CPU tensors and on gloo over CUDA tensors (which gloo takes
+through the host, for the reduce-scatter as for the all-reduce); a failed
+collective raises.
+
+Each counts its calls (`.calls`) and the bytes this rank contributes to
+them (`.bytes`); `reduce_scatter_sum_.received` also the bytes the rank
+gets back. Set them to 0 to count one prove.
 """
 
 from __future__ import annotations
@@ -47,6 +57,29 @@ def all_reduce_sum_(t: torch.Tensor, group) -> torch.Tensor:
 
 all_reduce_sum_.calls = 0
 all_reduce_sum_.bytes = 0
+
+
+def reduce_scatter_sum_(t: torch.Tensor, group) -> torch.Tensor:
+    """The exact sum over the ranks of `group` of `t[rank]`: `t` is a
+    contiguous int64 tensor (S, ...) with one block a rank, and the result
+    is this rank's summed block, shaped `t.shape[1:]`, a fresh tensor on
+    `t`'s device. `t` is left as it was."""
+    size = rank_and_size(group)[1]
+    if t.dtype != torch.int64 or not t.is_contiguous() or t.dim() < 1 or t.shape[0] != size:
+        raise ValueError(f"the reduce-scatter sums a contiguous int64 tensor of {size} blocks "
+                         f"(one a rank), got {tuple(t.shape)} {t.dtype}")
+    out = torch.empty(t.shape[1:], dtype=torch.int64, device=t.device)
+    # flat views: gloo wants the output's first axis times S to be the input's
+    dist.reduce_scatter_tensor(out.reshape(-1), t.reshape(-1), op=dist.ReduceOp.SUM, group=group)
+    reduce_scatter_sum_.calls += 1
+    reduce_scatter_sum_.bytes += t.numel() * t.element_size()
+    reduce_scatter_sum_.received += out.numel() * out.element_size()
+    return out
+
+
+reduce_scatter_sum_.calls = 0
+reduce_scatter_sum_.bytes = 0
+reduce_scatter_sum_.received = 0
 
 
 def gather_lanes(x: torch.Tensor, group) -> torch.Tensor:

@@ -9,18 +9,18 @@
   `SparseMLE` (`ops/gkr_init._split_f1_device(..., shard=)`).
 - **Phase inits** (`:77-143`): each rank runs the single-device weight
   reduce (`ops/gkr_init.phase1_pair`, `phase2_pair` with `reduce_fn` and
-  `shard`) over its chunk up to the raw segment sums, (8, 2^dim) int64
-  sums of the 32-bit limbs (16 MiB at dim 18, in every fold mode and in
-  the plain versions alike); one `comm.all_reduce_sum_` adds them over the
-  ranks, exactly, and every rank finishes only its own 2^dim / S dealt
-  lanes (carries, reduction mod p) straight into its pair, whose bytes
-  equal the deal of the single device's (`ops/gkr_init_cuda.finish_sums`
-  with `shard`). The weights `w` of phase 1 (the carry) stay on the rank
-  for phase 2. This is the JAX package's shard-local finish
-  (`_psum_reduce_mod_p`, `:50-74`) without its all-gather; the JAX package
-  sums strict partials with a reduce-scatter, which needs a collective
-  that gloo lacks for CUDA tensors (`comm.py`), so the port keeps one
-  all-reduce a phase.
+  `shard`) over its chunk up to the raw segment sums of the 32-bit limbs,
+  written rank-major, (S, 8, 2^dim / S) int64 (16 MiB at dim 18, in every
+  fold mode and in the plain versions alike), so that block [s] holds rank
+  s's dealt segments; one `comm.reduce_scatter_sum_` a phase adds them
+  over the ranks, exactly, and hands each rank only its own block, the
+  JAX package's `psum_scatter` (`_psum_reduce_mod_p`, `:50-74`). The rank
+  then finishes its 2^dim / S dealt lanes (carries, reduction mod p)
+  straight into its pair, whose bytes equal the deal of the single
+  device's (`ops/gkr_init_cuda.finish_sums`). The JAX package's
+  all-gather after the finish is left out: the rounds need only the
+  rank's lanes. The weights `w` of phase 1 (the carry) stay on the rank
+  for phase 2.
 - **Deal and rounds** (`:146-203`, `:351-389`): each rank holds its lanes
   of the bit-reversed pairs ([h_g, f2] for phase 1, [f1(g,u,.), f2(u)·f3]
   for phase 2; `mesh.deal`: local lane l is global pair lane l·S + s),
@@ -99,7 +99,7 @@ class ShardedGKRProver:
         (msgs (2 dim, 16, 3), rs (2 dim, 16), state). `inputs` ends with
         the rank's dealt f2 and f3, the sources of its pairs' slot 1."""
         split, _f2_d, f3_d, g_r, f2_mine, f3_mine = inputs
-        reduce = functools.partial(comm.all_reduce_sum_, group=self.group)
+        reduce = functools.partial(comm.reduce_scatter_sum_, group=self.group)
         shard = (self.rank, self.num_shards)
         lo, hi, w = GI.phase1_pair(split, g_r, f3_d, f2_mine, dim, reduce_fn=reduce, shard=shard)
         msgs1, rs1, state, (flo, fhi) = sharded_rounds(lo, hi, state, _PRODUCTS, _DEGREE, dim,

@@ -883,13 +883,15 @@ def test_gkr_phase_inits_on_cuda_equal_plain(cuda, dim, skew):
 @pytest.mark.parametrize("size", [2, 4], ids=lambda s: f"S{s}")
 def test_dealt_finish_on_cuda_equals_plain(cuda, size):
     """A sharded rank's finish on a dim-14 instance: the weight reduce's
-    raw sums rank-major (`ranks` = S) equal to its plain version's, then
-    for every rank s `finish_sums` over its run of them, in both slot forms
+    raw sums rank-major, (S, 8, 2^14 / S) (`ranks` = S), equal to its
+    plain version's, then for every rank s `finish_sums` over its block
+    [s] of them (what its reduce-scatter hands it), in both slot forms
     (phase 1: its dealt f2 copied into slot 1; phase 2: its dealt f3 times
     the final fold of a one-lane pair), equal to its plain version on the
     CPU, lanes outside the pair untouched; and the rank's pair from the
     phase functions a sharded prover calls (`phase1_pair`, `phase2_pair`
-    with `reduce_fn` and `shard`) equal to `mesh.deal` of the single
+    with `reduce_fn`, given the rank's (S, 8, run) raw sums and returning
+    its summed block, and `shard`) equal to `mesh.deal` of the single
     device's pairs; one finish launch a call, no `pair_slots`."""
     from sumcheck_tpu_torch.ops import gkr_init as GI
     from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
@@ -899,11 +901,12 @@ def test_dealt_finish_on_cuda_equals_plain(cuda, size):
     split, f2, f3, g_r, u_r = _gkr_split(dim, 3 << dim, dim + 2, cuda)
     csplit, _cf2, cf3, cg, cu = _to_cpu((split, f2, f3, g_r, u_r))
     n, half, run = 1 << dim, 1 << (dim - 1), (1 << dim) // size
-    sums1, sums2 = (torch.empty((8, n), dtype=torch.int64, device=cuda) for _ in range(2))
+    sums1, sums2 = (torch.empty((size, 8, run), dtype=torch.int64, device=cuda)
+                    for _ in range(2))
     carry = GK.weight_reduce(split.gbits, split.vals, g_r, dim, split.last_x, split.plan_x, sums1,
                              f3, split.y_rev, split.to_y, ranks=size)
     GK.weight_reduce(split.x_y, carry, u_r, dim, split.last_y, split.plan_y, sums2, ranks=size)
-    want1, want2 = (torch.empty((8, n), dtype=torch.int64) for _ in range(2))
+    want1, want2 = (torch.empty((size, 8, run), dtype=torch.int64) for _ in range(2))
     GK.weight_reduce_ref(csplit.gbits, csplit.vals, cg, dim, csplit.last_x, csplit.plan_x, want1,
                          cf3, csplit.y_rev, csplit.to_y, ranks=size)
     GK.weight_reduce_ref(csplit.x_y, carry.cpu(), cu, dim, csplit.last_y, csplit.plan_y, want2,
@@ -915,25 +918,30 @@ def test_dealt_finish_on_cuda_equals_plain(cuda, size):
     cfold = _to_cpu(fold[:3]) + (1,)
     counts = [f.launches for f in _init_counters()]
     for s in range(size):
-        mine = slice(s * run, (s + 1) * run)
         f2_s, f3_s = deal(f2, s, size).contiguous(), deal(f3, s, size).contiguous()
         for sums, slot in ((sums1, (f2_s, None)), (sums2, (f3_s, fold))):
             lo = torch.full((3, 2, 8, half // size), 7, dtype=torch.int32, device=cuda)
             hi = torch.full_like(lo, 7)
-            GK.finish_sums(sums[:, mine], (lo[1], hi[1]), slot=slot)
+            GK.finish_sums(sums[s], (lo[1], hi[1]), slot=slot)
             clo, chi = (torch.empty((2, 8, half // size), dtype=torch.int32) for _ in range(2))
-            GK.finish_sums_ref(sums.cpu()[:, mine], (clo, chi),
+            GK.finish_sums_ref(sums.cpu()[s], (clo, chi),
                                slot=(slot[0].cpu(), None if slot[1] is None else cfold))
             assert torch.equal(lo[1].cpu(), clo) and torch.equal(hi[1].cpu(), chi)
             assert (lo[[0, 2]] == 7).all() and (hi[[0, 2]] == 7).all()
 
-        def all_reduced(total):
-            return lambda part: part.copy_(total)
+        def reduce_scattered(total, s=s):
+            """Rank s's reduce-scatter of the whole f1's raw sums (one rank's
+            partial is the whole sum here): its block, a fresh tensor."""
+            def fn(part):
+                assert part.shape == (size, 8, run) and part.device == total.device
+                return total[s].clone()
+            return fn
 
-        for got, whole in ((GI.phase1_pair(split, g_r, f3, f2_s, dim, reduce_fn=all_reduced(sums1),
+        for got, whole in ((GI.phase1_pair(split, g_r, f3, f2_s, dim,
+                                           reduce_fn=reduce_scattered(sums1),
                                            shard=(s, size))[:2], (lo1, hi1)),
                            (GI.phase2_pair(*fold[:3], split, w, u_r, f3_s, dim,
-                                           reduce_fn=all_reduced(sums2), shard=(s, size)),
+                                           reduce_fn=reduce_scattered(sums2), shard=(s, size)),
                             (lo2, hi2))):
             for u in range(2):
                 want = deal(torch.cat([whole[0][u], whole[1][u]], dim=1), s, size)
@@ -1515,6 +1523,7 @@ def _sharded_rank(rank, size, init_file, backend, out_file):
         with open(out_file.format(rank), "w") as f:
             json.dump({"device": str(ml.device), "launches": launches,
                        "collectives": comm.all_reduce_sum_.calls,
+                       "reduce_scatters": comm.reduce_scatter_sum_.calls,
                        "ml": [serialize_proof(proof).hex(), repr(rng.state_tuple())],
                        "gkr": [gproof.serialize_uncompressed().hex(), repr(grng.state_tuple())],
                        "batch": [serialize_proof(p).hex() for p in proofs]}, f)
@@ -1529,7 +1538,8 @@ def test_sharded_on_cuda_equals_single_card(cuda, backend, tmp_path):
     batch 4 x nv=10 on the card, the provers made by `.auto(2)` (`.auto(4)`
     raises): proof bytes and final transcripts equal
     to the single-card proves, on both ranks; each rank ran round 0 once
-    and nv - 1 folds (the sharded ones and the tail)."""
+    and nv - 1 folds (the sharded ones and the tail), and the GKR inits
+    exchanged their raw sums by one reduce-scatter a phase."""
     import json
 
     import torch.multiprocessing as mp
@@ -1553,10 +1563,75 @@ def test_sharded_on_cuda_equals_single_card(cuda, backend, tmp_path):
             got = json.load(f)
         assert got["device"] == ("cuda:0" if backend == "gloo" else f"cuda:{rank}")
         assert got["launches"] == [1, poly.num_variables - 1]
-        # ML: 9 sharded rounds and the gather; GKR: per phase its init, 5
-        # sharded rounds and the gather; the batch: one gather
-        assert got["collectives"] == 10 + 2 * 7 + 1
+        # all-reduces, ML: 9 sharded rounds and the gather; GKR: per phase
+        # 5 sharded rounds and the gather; the batch: one gather. GKR's
+        # inits: one reduce-scatter a phase
+        assert got["collectives"] == 10 + 2 * 6 + 1
+        assert got["reduce_scatters"] == 2
         assert {k: got[k] for k in want} == want
+
+
+def _reduce_scatter_rank(rank, size, init_file, backend, out_file):
+    """One rank of `test_reduce_scatter_on_cuda`: `comm.reduce_scatter_sum_`
+    of its (S, 8, 3000) int64 blocks on its card, written out."""
+    import json
+
+    import torch.distributed as dist
+
+    from sumcheck_tpu_torch.parallel import comm
+
+    dist.init_process_group(backend, init_method=f"file://{init_file}", rank=rank,
+                            world_size=size)
+    try:
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+        blocks = _rs_blocks(rank, size)
+        t = torch.from_numpy(blocks).to(device)
+        out = comm.reduce_scatter_sum_(t, dist.group.WORLD)
+        again = comm.reduce_scatter_sum_(t, dist.group.WORLD)
+        torch.cuda.synchronize()
+        with open(out_file.format(rank), "w") as f:
+            json.dump({"device": str(out.device), "input_device": str(t.device),
+                       "input_kept": bool(np.array_equal(t.cpu().numpy(), blocks)),
+                       "again": bool(torch.equal(out, again)),
+                       "sums": out.cpu().numpy().tolist(),
+                       "counts": [comm.reduce_scatter_sum_.calls, comm.reduce_scatter_sum_.bytes,
+                                  comm.reduce_scatter_sum_.received]}, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _rs_blocks(rank: int, size: int) -> np.ndarray:
+    return np.random.default_rng(70 + rank).integers(-(1 << 40), 1 << 40, size=(size, 8, 3000),
+                                                     dtype=np.int64)
+
+
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_reduce_scatter_on_cuda(cuda, backend, tmp_path):
+    """`comm.reduce_scatter_sum_` over CUDA tensors at S = 2, one call on
+    the card's tensor itself: gloo (both ranks on card 0; gloo takes the
+    tensor through the host) and NCCL (one card a rank, so it skips with
+    fewer than two cards). Each rank gets the exact sum of every rank's
+    block [rank] on its own card, twice alike, its input unchanged, the
+    calls and bytes counted."""
+    import json
+
+    import torch.multiprocessing as mp
+
+    if backend == "nccl" and torch.cuda.device_count() < 2:
+        pytest.skip(f"NCCL takes one card a rank: {torch.cuda.device_count()} card(s) here")
+    out_file = str(tmp_path / "rank{}.json")
+    mp.spawn(_reduce_scatter_rank, args=(2, str(tmp_path / "init"), backend, out_file),
+             nprocs=2)
+    for rank in range(2):
+        with open(out_file.format(rank)) as f:
+            got = json.load(f)
+        assert got["device"] == got["input_device"] == ("cuda:0" if backend == "gloo"
+                                                        else f"cuda:{rank}")
+        assert got["input_kept"] and got["again"]
+        want = sum(_rs_blocks(r, 2)[rank] for r in range(2))
+        np.testing.assert_array_equal(np.array(got["sums"], dtype=np.int64), want)
+        assert got["counts"] == [2, 2 * 8 * 2 * 8 * 3000, 2 * 8 * 8 * 3000]
 
 
 # ---------------------------------------------------------------------------

@@ -130,13 +130,13 @@ def test_dryrun_matches_jax(dryrun, case):
 def test_dryrun_ranks(dryrun):
     """Every rank ran on the CPU in a gloo group, launched no kernel in any
     of the four sharded proves, and made the dry run's all-reduces: per sharded prove one a sharded round
-    and one gather (ML twice: `ShardedProver` and the chained prover; GKR
-    per phase also its init's), the batch one gather."""
+    and one gather (ML twice: `ShardedProver` and the chained prover), the
+    batch one gather; and the GKR inits' 2 reduce-scatters, one a phase."""
     size, got, _want = dryrun
     k = max(1, (size - 1).bit_length())
     sigma = size.bit_length() - 1
     ml = 2 * ((k + 3) - sigma + 1)
-    gkr = 2 * (1 + (k + 1) - sigma + 1)
+    gkr = 2 * ((k + 1) - sigma + 1)
     assert got["backend"] == "gloo"
     assert len(got["ranks"]) == size
     for rank in got["ranks"]:
@@ -144,6 +144,7 @@ def test_dryrun_ranks(dryrun):
         assert set(rank["launches"]) == {"sp", "chained", "gkr", "batch"}
         assert not any(n for case in rank["launches"].values() for n in case.values())
         assert rank["collectives"] == ml + gkr + 1
+        assert rank["reduce_scatters"] == 2
 
 
 def test_entry_points_default_to_the_card():

@@ -416,14 +416,15 @@ def _dealt_jax(pair, s: int, size: int) -> list[np.ndarray]:
 
 def _rank_raw_sums(p, size: int, ranks: int):
     """The S ranks' chunks of f1 (`_split_f1_device(..., shard=)`), each
-    rank's carry, and both phases' raw limb sums (rank-major over `ranks`)
-    added over the ranks as the all-reduce adds them: (splits, carries,
-    phase 1 sums, phase 2 sums)."""
+    rank's carry, and both phases' raw limb sums ((ranks, 8, 2^dim /
+    ranks) rank-major) added over the ranks, as the reduce-scatter adds
+    them before it hands each rank its block: (splits, carries, phase 1
+    sums, phase 2 sums)."""
     dim = p["dim"]
     splits = [GI._split_f1_device(p["f1"], dim, CPU, (s, size)) for s in range(size)]
     sums1, sums2, carries = 0, 0, []
     for sp in splits:
-        raw = torch.empty((8, 1 << dim), dtype=torch.int64)
+        raw = torch.empty((ranks, 8, (1 << dim) // ranks), dtype=torch.int64)
         carries.append(GK.weight_reduce(sp.gbits, sp.vals, p["g"], dim, sp.last_x, sp.plan_x, raw,
                                         p["f3"], sp.y_rev, sp.to_y, ranks=ranks))
         sums1 = sums1 + raw
@@ -444,53 +445,62 @@ def _same_dealt(lo, hi, want) -> None:
 @pytest.mark.parametrize("which", ["dim4", "dim9"])
 def test_dealt_finish_matches_deal_of_jax_prep(which, size, case, case9):
     """A sharded rank's finish over the raw sums of S ranks' chunks of f1,
-    added as the all-reduce adds them: the weight reduce writes them
-    rank-major (`ranks` = S; the natural sums with the columns of rank s's
-    dealt segments moved into one run, `rank_major`), and `finish_sums`
-    (its plain version `finish_sums_ref` on the CPU) over rank s's run,
+    added as the reduce-scatter adds them: the weight reduce writes them
+    rank-major, (S, 8, 2^dim / S) (`ranks` = S; the natural sums with rank
+    s's dealt segments moved into block [s], `rank_major`), and
+    `finish_sums` (its plain version `finish_sums_ref` on the CPU) over
+    rank s's summed block, the one its reduce-scatter hands it,
     with its dealt f2 (phase 1) or f3 and the final fold of phase 1's
     one-lane pair (phase 2) for the pair's slot 1, gives a pair equal to
     `mesh.deal` of the JAX package's `_compiled_prep1` output (h_g, f2) and
     `_compiled_prep2`'s (f1(g, u, .), f3 times f2(u)); and so does the
     rank's pair from the phase functions a sharded prover calls
-    (`phase1_pair`, `phase2_pair` with `reduce_fn` and `shard`), whose
-    carry is the rank's own."""
+    (`phase1_pair`, `phase2_pair` with `reduce_fn` and `shard`: `reduce_fn`
+    gets the rank's (S, 8, 2^dim / S) raw sums and returns its summed
+    block), whose carry is the rank's own."""
     j, p = case if which == "dim4" else case9
     dim, f2, f3, u = p["dim"], p["f2"], p["f3"], p["u"]
     half, run = 1 << (dim - 1), (1 << dim) // size
     splits, carries, sums1, sums2 = _rank_raw_sums(p, size, size)
     natural = _rank_raw_sums(p, size, 1)
-    assert torch.equal(sums1, GK.rank_major(natural[2], size))
-    assert torch.equal(sums2, GK.rank_major(natural[3], size))
+    assert sums1.shape == sums2.shape == (size, 8, run)
+    assert torch.equal(sums1, GK.rank_major(natural[2][0], size))
+    assert torch.equal(sums2, GK.rank_major(natural[3][0], size))
     lo1, hi1, _w = GI.phase1_pair(*_pair1_args(p))
     fold = (lo1[:, :, :1], hi1[:, :, :1], u[-1], 1)
     for s in range(size):
         want1, want2 = _dealt_jax(j["prep1"], s, size), _dealt_jax(j["prep2"], s, size)
-        mine = slice(s * run, (s + 1) * run)
         f2_s, f3_s = deal(f2, s, size).contiguous(), deal(f3, s, size).contiguous()
         lo, hi = (torch.full((2, 8, half // size), 7, dtype=torch.int32) for _ in range(2))
-        GK.finish_sums_ref(sums1[:, mine], (lo, hi), slot=(f2_s, None))
+        GK.finish_sums_ref(sums1[s], (lo, hi), slot=(f2_s, None))
         _same_dealt(lo, hi, want1)
-        GK.finish_sums(sums1[:, mine], (lo, hi), slot=(f2_s, None))
+        GK.finish_sums(sums1[s], (lo, hi), slot=(f2_s, None))
         _same_dealt(lo, hi, want1)
-        GK.finish_sums_ref(sums2[:, mine], (lo, hi), slot=(f3_s, fold))
+        GK.finish_sums_ref(sums2[s], (lo, hi), slot=(f3_s, fold))
         _same_dealt(lo, hi, want2)
+        given = []
 
-        def all_reduced(total):
-            return lambda part: part.copy_(total)
+        def reduce_scattered(total, s=s):
+            """Rank s's reduce-scatter, the ranks' sum `total` known."""
+            def fn(part):
+                given.append(part.shape)
+                return total[s].clone()
+            return fn
 
         rlo, rhi, rw = GI.phase1_pair(splits[s], p["g"], f3, f2_s, dim,
-                                      reduce_fn=all_reduced(sums1), shard=(s, size))
+                                      reduce_fn=reduce_scattered(sums1), shard=(s, size))
         assert rlo.shape == (2, 8, half // size) and torch.equal(rw, carries[s])
         _same_dealt(rlo, rhi, want1)
         rlo2, rhi2 = GI.phase2_pair(*fold[:3], splits[s], rw, u, f3_s, dim,
-                                    reduce_fn=all_reduced(sums2), shard=(s, size))
+                                    reduce_fn=reduce_scattered(sums2), shard=(s, size))
         _same_dealt(rlo2, rhi2, want2)
+        assert given == [(size, 8, run)] * 2
 
 
 def test_dealt_finish_refuses_a_bad_run_or_an_overlapping_pair(case):
     """Refused before any work: rank-major raw sums over a rank count that
-    does not divide the segments, or into a strict destination; a finish
+    does not divide the segments, or into a strict destination, or in
+    any shape but (S, 8, nseg / S) (at S = 1 also (8, nseg)); a finish
     whose run of sums is not the pair's width, or whose rows are not
     contiguous; and a final fold read from the pair the finish writes."""
     _j, p = case
@@ -502,6 +512,10 @@ def test_dealt_finish_refuses_a_bad_run_or_an_overlapping_pair(case):
                        (torch.zeros((8, n), dtype=torch.int32), 2)):
         with pytest.raises(ValueError, match="rank-major"):
             GK.weight_reduce(*args, out, ranks=ranks, **gather)
+    for shape, ranks in (((8, n), 2), ((4, 8, n // 2), 2), ((2, 8, n // 2), 1)):
+        with pytest.raises(ValueError, match="raw sums must be"):
+            GK.weight_reduce(*args, torch.zeros(shape, dtype=torch.int64), ranks=ranks,
+                             **gather)
     sums = torch.zeros((8, n), dtype=torch.int64)
     lo, hi = (torch.zeros((2, 8, n // 4), dtype=torch.int32) for _ in range(2))
     with pytest.raises(ValueError, match="pair halves"):

@@ -16,7 +16,10 @@ provers give those bytes), tolerance 0:
 - GKR dim 4 with 11 nonzeros (the padding of an odd count) at S = 1, 2,
   and dim 5 with 32 nonzeros at S = 4, with each rank's calls of the init
   functions counted (the weight reduce and the dealt finish, 2 each; none
-  of the per-size pieces or `pair_slots`);
+  of the per-size pieces or `pair_slots`) and its collectives (one
+  reduce-scatter of the raw sums a phase, no init all-reduce);
+- `comm.reduce_scatter_sum_` against the NumPy sum of every rank's blocks,
+  with its counts of calls, bytes sent and bytes received;
 - the sharded batch, nv=5, B=8 (B=2 at S = 1): each proof, challenges and
   transcript equal to the instance's own prove;
 - transcripts holding a pending byte count that is not a multiple of 8:
@@ -247,11 +250,14 @@ def _rank_cases(size: int, cases: dict, init_calls: dict) -> dict:
     def gkr_prove(name, a, prefix=b"", prover=gkr):
         rng = Blake2b512Rng.setup()
         rng.feed_bytes(prefix)
+        rs = comm.reduce_scatter_sum_
         comm.all_reduce_sum_.calls = comm.all_reduce_sum_.bytes = 0
+        rs.calls = rs.bytes = rs.received = 0
         init_calls.clear()
         proof = prover.prove(rng, *_port_gkr(a))
         out[name] = {"proof": proof.serialize_uncompressed().hex(), "state": _state(rng),
-                     "collectives": comm.all_reduce_sum_.calls, "init_calls": dict(init_calls)}
+                     "collectives": comm.all_reduce_sum_.calls, "init_calls": dict(init_calls),
+                     "reduce_scatter": [rs.calls, rs.bytes, rs.received]}
 
     def batch_prove(name, arrays, prefixes):
         rngs = [Blake2b512Rng.setup() for _ in arrays]
@@ -277,6 +283,7 @@ def _rank_cases(size: int, cases: dict, init_calls: dict) -> dict:
                      "tables": [t.tolist() for t in state.flattened_ml_extensions],
                      "collectives": comm.all_reduce_sum_.calls}
 
+    out["reduce_scatter"] = _reduce_scatters(ml.group)
     for name, a in cases.get("f4", {}).items():
         ml_prove(f"f4_{name}", a)
         sp_prove(f"sp_f4_{name}", a, "aligned")
@@ -330,6 +337,33 @@ def _rank_cases(size: int, cases: dict, init_calls: dict) -> dict:
         except RuntimeError as e:
             out["cuda_without_a_card"] = str(e)
     return out
+
+
+RS_SHAPES = ((8, 6), (3,), (2, 8, 5))  # a block's shapes in the reduce-scatter case
+
+
+def _rs_blocks(rank: int, size: int, shape: tuple) -> np.ndarray:
+    """Rank `rank`'s (S, *shape) int64 input of the reduce-scatter case."""
+    gen = np.random.default_rng(1000 * size + 10 * rank + len(shape))
+    return gen.integers(-(1 << 40), 1 << 40, size=(size,) + shape, dtype=np.int64)
+
+
+def _reduce_scatters(group) -> dict:
+    """`comm.reduce_scatter_sum_` of `_rs_blocks` at each of `RS_SHAPES`:
+    the rank's results, its input unchanged and its counts."""
+    from sumcheck_tpu_torch.parallel import comm
+
+    rank, size = comm.rank_and_size(group)
+    rs = comm.reduce_scatter_sum_
+    rs.calls = rs.bytes = rs.received = 0
+    got, kept = [], True
+    for shape in RS_SHAPES:
+        blocks = _rs_blocks(rank, size, shape)
+        t = torch.from_numpy(blocks.copy())
+        res = rs(t, group)
+        kept = kept and np.array_equal(t.numpy(), blocks)
+        got.append([list(res.shape), res.dtype == torch.int64, res.numpy().tolist()])
+    return {"got": got, "input_kept": kept, "counts": [rs.calls, rs.bytes, rs.received]}
 
 
 # --- the parent: instances, JAX references, one spawn per world size
@@ -497,27 +531,55 @@ def test_boundary_nv_matches_jax(run):
 
 def test_gkr_matches_jax(run):
     """`GKRProof.serialize_uncompressed()` and the final transcript; odd
-    nnz pads the last chunk. Two inits, two sharded rounds' worth of
-    all-reduces, two gathers."""
+    nnz pads the last chunk. Two inits, each one reduce-scatter of the raw
+    sums; two sharded rounds' worth of all-reduces and two gathers."""
     size = run[0]
     dim = _gkr_shape(size)[0]
     for got, want in _each_rank(run, "gkr"):
         assert {k: got[k] for k in want} == want
-        assert got["collectives"] == 2 * (1 + dim - _log2(size) + (size > 1))
+        assert got["collectives"] == 2 * (dim - _log2(size) + (size > 1))
+        assert got["reduce_scatter"][0] == 2
 
 
 def test_gkr_rank_finishes_its_dealt_pair(run):
-    """A rank's GKR inits are the weight reduce into raw sums and, after
-    their all-reduce, the finish of only its dealt lanes straight into its
-    pair, slot 1 from the same call (`finish_sums` with `shard`): 2 calls a
-    phase, 4 a prove, in every case of the chained sharded prover; no prove
-    reaches `prep1`, `final_fold`, `prep2` or `pair_slots`. A transcript
-    the chain cannot lift takes the single device's host loop (1 call a
-    phase, no finish)."""
+    """A rank's GKR inits are the weight reduce into rank-major raw sums
+    and, after their reduce-scatter, the finish of only its dealt lanes
+    straight into its pair, slot 1 from the same call (`finish_sums`): 2
+    calls a phase, 4 a prove, in every case of the chained sharded prover;
+    no prove reaches `prep1`, `final_fold`, `prep2` or `pair_slots`. A
+    prove makes 2 reduce-scatters, each sending the whole (8, 2^dim) int64
+    sums and receiving only the rank's 2^dim·64/S bytes, and no init
+    all-reduce (`test_gkr_matches_jax` counts the rest). A transcript the
+    chain cannot lift takes the single device's host loop (1 call a phase,
+    no finish, no collective)."""
+    size = run[0]
+    dim = _gkr_shape(size)[0]
     for got in run[1]:
         for name in ("gkr", "gkr_auto"):
             assert got[name]["init_calls"] == {"weight_reduce": 2, "finish_sums": 2}
+            assert got[name]["reduce_scatter"] == [2, 2 * 64 << dim, 2 * (64 << dim) // size]
         assert got["gkr_unaligned"]["init_calls"] == {"weight_reduce": 2}
+        assert got["gkr_unaligned"]["reduce_scatter"] == [0, 0, 0]
+        assert got["gkr_unaligned"]["collectives"] == 0
+
+
+def test_reduce_scatter_matches_numpy(run):
+    """`comm.reduce_scatter_sum_` on gloo over CPU tensors: rank s gets the
+    sum over the ranks of their block [s], shaped as a block, int64, exact
+    (values of either sign up to 2^40), its input left as it was; each
+    call counts the whole tensor as sent and the block as received."""
+    size, ranks, _ref = run
+    for rank, got in enumerate(ranks):
+        res = got["reduce_scatter"]
+        assert res["input_kept"]
+        sent = received = 0
+        for shape, (got_shape, is_int64, values) in zip(RS_SHAPES, res["got"]):
+            want = sum(_rs_blocks(r, size, shape)[rank] for r in range(size))
+            assert got_shape == list(shape) and is_int64
+            np.testing.assert_array_equal(np.array(values, dtype=np.int64), want)
+            sent += 8 * size * int(np.prod(shape))
+            received += 8 * int(np.prod(shape))
+        assert res["counts"] == [len(RS_SHAPES), sent, received]
 
 
 def test_f4_structures_match_jax(runs):
@@ -686,3 +748,78 @@ def test_shard_device(monkeypatch):
     monkeypatch.setattr(comm, "backend", lambda group: "nccl")
     with pytest.raises(SumcheckError, match="NCCL"):
         mesh.shard_device(object(), "cpu")
+
+
+def test_reduce_scatter_is_one_call_that_raises_its_failure(monkeypatch):
+    """`comm.reduce_scatter_sum_` makes one SUM `reduce_scatter_tensor` of
+    the tensor itself, flat, into a fresh flat block; a failure of it
+    raises, with nothing counted and no all-reduce in its place."""
+    import torch.distributed as dist
+
+    from sumcheck_tpu_torch.parallel import comm
+
+    seen = []
+
+    def collective(out, t, op, group):
+        seen.append((tuple(out.shape), t.data_ptr(), op))
+        out.copy_(t[2:4])
+
+    monkeypatch.setattr(comm, "rank_and_size", lambda group: (1, 2))
+    monkeypatch.setattr(dist, "reduce_scatter_tensor", collective)
+    t = torch.arange(4, dtype=torch.int64).reshape(2, 2)
+    before = [comm.reduce_scatter_sum_.calls, comm.all_reduce_sum_.calls]
+    got = comm.reduce_scatter_sum_(t, object())
+    assert seen == [((2,), t.data_ptr(), dist.ReduceOp.SUM)] and got.tolist() == [2, 3]
+
+    def failing(out, t, op, group):
+        raise RuntimeError("the backend refused")
+
+    monkeypatch.setattr(dist, "reduce_scatter_tensor", failing)
+    with pytest.raises(RuntimeError, match="refused"):
+        comm.reduce_scatter_sum_(t, object())
+    assert [comm.reduce_scatter_sum_.calls, comm.all_reduce_sum_.calls] == \
+        [before[0] + 1, before[1]]
+
+
+def test_reduce_scatter_hands_a_fresh_block_of_the_raw_sums_layout(monkeypatch):
+    """On the GKR inits' (S, 8, run) raw sums, `comm.reduce_scatter_sum_`
+    passes the collective the whole tensor and an 8·run output, flat, and
+    returns an (8, run) block in storage of its own: writing it leaves the
+    raw sums as they were."""
+    import torch.distributed as dist
+
+    from sumcheck_tpu_torch.parallel import comm
+
+    seen = []
+
+    def collective(out, t, op, group):
+        seen.append((out.numel(), t.numel()))
+        out.copy_(t.reshape(4, -1)[3])
+
+    monkeypatch.setattr(comm, "rank_and_size", lambda group: (3, 4))
+    monkeypatch.setattr(dist, "reduce_scatter_tensor", collective)
+    t = torch.arange(4 * 8 * 5, dtype=torch.int64).reshape(4, 8, 5)
+    got = comm.reduce_scatter_sum_(t, object())
+    assert seen == [(8 * 5, 4 * 8 * 5)] and tuple(got.shape) == (8, 5)
+    assert torch.equal(got, t[3])
+    got.zero_()
+    assert t.untyped_storage().data_ptr() != got.untyped_storage().data_ptr()
+    assert torch.equal(t, torch.arange(4 * 8 * 5, dtype=torch.int64).reshape(4, 8, 5))
+
+
+def test_reduce_scatter_refuses_a_bad_tensor(monkeypatch):
+    """Refused before any collective: a dtype other than int64, a leading
+    axis other than the group's size, no axis, or a tensor that is not
+    contiguous; nothing is counted."""
+    import torch.distributed as dist
+
+    from sumcheck_tpu_torch.parallel import comm
+
+    monkeypatch.setattr(comm, "rank_and_size", lambda group: (1, 2))
+    monkeypatch.setattr(dist, "reduce_scatter_tensor", None)
+    before = comm.reduce_scatter_sum_.calls
+    for t in (torch.zeros((2, 8), dtype=torch.int32), torch.zeros((4, 8), dtype=torch.int64),
+              torch.zeros((), dtype=torch.int64), torch.zeros((8, 2), dtype=torch.int64).T):
+        with pytest.raises(ValueError, match="reduce-scatter sums"):
+            comm.reduce_scatter_sum_(t, object())
+    assert comm.reduce_scatter_sum_.calls == before

@@ -245,22 +245,22 @@ def main() -> None:
     p2 = (split.x_y, w, u_r, dim, split.last_y, split.plan_y)
     sums = {}
     for ranks in (1, 2, 4):
-        raw = [torch.empty((8, n), dtype=torch.int64, device=dev) for _ in range(2)]
+        raw = [torch.empty((ranks, 8, n // ranks), dtype=torch.int64, device=dev)
+               for _ in range(2)]
         GK.weight_reduce(*p1, raw[0], ranks=ranks, **kw1)
         GK.weight_reduce(*p2, raw[1], ranks=ranks)
         sums[ranks] = raw
     cases = {}
     for size in (2, 4):
-        run = slice(n // size, 2 * n // size)
         mine = [deal(t, 1, size).contiguous() for t in (f2_d, f3_d)]
         for phase in (1, 2):
             slot = (mine[phase - 1], None if phase == 1 else fold)
             want = tuple(torch.empty((2, 8, half // size), dtype=torch.int32, device=dev)
                          for _ in range(2))
-            GK.finish_sums_ref(sums[size][phase - 1][:, run], want, slot=slot)
+            GK.finish_sums_ref(sums[size][phase - 1][1], want, slot=slot)
             whole = (f2_d, f3_d)[phase - 1], None if phase == 1 else fold
-            cases[f"S{size} phase {phase}"] = (size, sums[size][phase - 1][:, run],
-                                               sums[1][phase - 1], slot, whole, want)
+            cases[f"S{size} phase {phase}"] = (size, sums[size][phase - 1][1],
+                                               sums[1][phase - 1][0], slot, whole, want)
     results = {name: {case: [] for case in cases} for name in names}
     errors = {}
     for turn in (names, names[::-1]):
