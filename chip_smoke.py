@@ -58,8 +58,13 @@ failure raises and exits non-zero without the final line:
    (degree 9; 17 products) and `wide` at nv=14 (degree 20 in two chunks of
    the evaluation's 12 points, 40 products padded with the ones slot), the
    transcript step at degrees 9 and 20, with device ms and bounds (the
-   register schedule's multiplies on each product's real factors), and the
-   transcript step's measured ceiling;
+   register schedule's multiplies on each product's real factors); and
+   fault F6, the transcript step past degree 8 in its fixed window of
+   the stream: single and batched (two transcripts of 40 and 128 pending
+   bytes) at degree 8,000, one launch each, array-equal to the plain
+   versions (run on the host's CPU by a process of this script,
+   `--plain-f6`, started with the build) and to the host rngs, with device
+   ms and latency bound;
 6g. the batched wide route: round 0, both folds and the transcript step at
    4 x F4 (b) nv=16 against their plain versions, beside 4 single launches;
 7. the golden fixtures `tests/fixtures/ml_nv6_rich.json`,
@@ -118,14 +123,21 @@ failure raises and exits non-zero without the final line:
    byte-equal to per-instance card proves (timed beside them), all
    verified, two subclaims, the ML batches' idle share; the GKR batch's 2
    init launches a batch and its wall in turns against the parent's
-   per-instance loop (`parent_enqueue_gkr`, 16 init launches);
+   per-instance loop (`parent_enqueue_gkr`, 16 init launches); fault F5,
+   `GKRRoundSumcheck.prove` with an f1 of no entries at dim 1 and 14 on
+   the three paths (launches counted from 0, the enqueue under the sync
+   debug mode "error"), bytes equal to the same prove's plain path on the
+   card and to the CPU's, sum 0, verified, the subclaim holding, and a
+   batch of two such instances at dim 14 against their single proves;
 10f. fault F4's structures (a), (b), (c) proved at nv=20 and `wide` at
    nv=18 on the generic, per-size and MXU chains, each run's launches
    counted from 0 (no host fallback) under the sync debug mode "error",
    bytes equal across the chains, each verified, and at nv=12 (`wide`: 8)
    equal to the CPU's plain prove;
    10g. 4 x F4 (b) at nv=16 on both batched chains, equal to per-instance
-   card proves;
+   card proves; fault F6, one product of 7,300 repeats of one table at
+   nv=2 (degree 7,300) on the generic chain, launches counted from 0,
+   bytes equal to the host-transcript loop's on the card, verified;
 10b. the interactive tier on the phase-8 instance: `IPForMLSumcheck.
    prover_init(device="cuda")` and 20 `prove_round` / `sample_round` over a
    live `Blake2b512Rng`: launches, syncs per prove (its `finish_sums`
@@ -799,25 +811,28 @@ def host_replay(host, msgs, rs, blen: int, degree: int, what: str):
 
 
 STREAM_WORDS = 128  # `csrc/transcript.cu` kStreamWords, up to kMaxDegree = 8
-
-
-def stream_words(d1: int) -> int:
-    """The transcript kernel's stream, in 64-bit words, for d+1 = `d1`
-    elements (`csrc/transcript.cu`: the static stream up to degree 8, the
-    wide one's `stream_words` above it)."""
-    return STREAM_WORDS if d1 <= 9 else 4 * d1 + 64
+WIDE_STREAM_WORDS, TURN = 256, 32  # kWideStreamWords and kTurn, past it
 
 
 def stream_compactions(blen: int, d1: int, attempts: int) -> tuple[int, int]:
     """(compactions, pending bytes after) of one transcript step, by the
     transcript kernel's own bookkeeping (`csrc/transcript.cu`, the loop of
-    `transcript_kernel`): the round's stream of 64-bit words starts with the
-    pending block and the feed, a compression of a full block moves `pos` 16
-    words on, each next_u64 appends its 8 re-absorbed words, and when they
-    would pass `stream_words(d1) - 16` the words from `pos` move to the
-    front (a compaction: the branch that runs of rejected draws reach)."""
-    words = stream_words(d1)
-    pos, length = 0, blen // 8 + 1 + 4 * d1
+    `transcript_kernel`): the round's stream of 64-bit words (`STREAM_WORDS`
+    up to degree 8, else a window of `WIDE_STREAM_WORDS`) starts with the
+    pending block and the length; past degree 8 the elements go in turns of
+    `TURN`, each turn but the last followed by the compression of its full
+    blocks that more bytes follow and the move of the rest to the front.
+    Then a compression of a full block moves `pos` 16 words on, each
+    next_u64 appends its 8 re-absorbed words, and when they would pass
+    `words - 16` the words from `pos` move to the front (a compaction: the
+    branch that runs of rejected draws reach)."""
+    words = STREAM_WORDS if d1 <= 9 else WIDE_STREAM_WORDS
+    pos, length, e0 = 0, blen // 8 + 1, 0
+    while d1 > 9 and d1 - e0 > TURN:
+        length += 4 * TURN
+        length -= 16 * ((length - 1) >> 4)
+        e0 += TURN
+    length += 4 * (d1 - e0)
     drawn, tried, count = 0, 0, 0
     while True:
         absorb = length - pos > 16
@@ -2393,6 +2408,99 @@ def _gkr_batch(device, seed, reps, batch, dim) -> dict:
             "parent_loop_s": parent_s, "turns_s": change_s}
 
 
+# --- fault F5: a GKR f1 with no entries (a layer with no gate of one kind)
+
+F5_DIMS = (1, 14)
+
+
+def f5_empty_f1_phase(device, seed: int) -> dict:
+    """Phase 10's fault F5: `GKRRoundSumcheck.prove` with an f1 of no
+    entries (split as one zero entry, so no kernel reads an empty table) at
+    dim 1 and 14 on the three paths (`PATHS`), each run with every launch
+    count set to 0 just before it and read just after (2 round 0s, 2 (dim -
+    1) folds, 2 dim transcript steps and the 2 fused init launches), the
+    enqueue under the sync debug mode "error": bytes equal across the
+    paths, to the same prove's plain path on the card (plain round versions
+    and transcript) and to the CPU's prove (every plain version); the sum 0,
+    verified, the subclaim holding. Then `BatchedGKRRoundSumcheck` of two
+    empty f1s at dim 14 (one batched weight reduce a phase) against their
+    single card proves. Returns {"f5 gkr <path> dim <dim>" and "f5 gkr
+    batch": {"launches", "prove_s"}}."""
+    from sumcheck_tpu_torch import (Blake2b512Rng, DenseMLE, Fr, GKRRoundSumcheck,
+                                    SparseMLE)
+    from sumcheck_tpu_torch import gkr_round_sumcheck as G
+    from sumcheck_tpu_torch.batch import BatchedGKRRoundSumcheck
+    from sumcheck_tpu_torch.fields import limbs_np as L
+    from sumcheck_tpu_torch.ops import round_cuda as rc
+    from sumcheck_tpu_torch.ops import transcript_cuda as tc
+
+    gen = np.random.default_rng(seed + 5)
+
+    def instance(dim):
+        f2, f3 = (DenseMLE(dim, t) for t in L.random_tables(gen, dim, 2))
+        return (SparseMLE.from_pairs(3 * dim, []), f2, f3,
+                [Fr(int(gen.integers(1, 1 << 62))) for _ in range(dim)])
+
+    out = {}
+    for dim in F5_DIMS:
+        inst = instance(dim)
+        blobs = {}
+        for path, (chain, mxu) in PATHS.items():
+            kernels = path_kernels(chain, mxu)
+            with fold_mode(chain, mxu), syncs_forbidden_in_chains():
+                for f in counters().values():
+                    f.launches = 0
+                t0 = time.perf_counter()
+                proof = GKRRoundSumcheck.prove(Blake2b512Rng.setup(), *inst, device=device)
+                prove_s = time.perf_counter() - t0
+                launches = {k: f.launches for k, f in counters().items()}
+            want = {k: 0 for k in launches}
+            want.update({kernels[0]: 2, kernels[1]: 2 * (dim - 1), "transcript_step": 2 * dim,
+                         **INIT_LAUNCHES})
+            check(launches == want, f"F5 dim {dim} {path}: launches {launches}, expected {want}")
+            blobs[path] = proof.serialize_uncompressed()
+            out[f"f5 gkr {path} dim {dim}"] = {"launches": launches, "prove_s": prove_s}
+        t0 = time.perf_counter()
+        plain = G._prove_chained(Blake2b512Rng.setup(), *inst, dim, device,
+                                 round_fns=(rc.round_nofold_ref, rc.round_fold_ref),
+                                 transcript_fn=tc.transcript_step_ref)
+        plain_s = time.perf_counter() - t0
+        cpu = GKRRoundSumcheck.prove(Blake2b512Rng.setup(), *inst, device="cpu")
+        check(len(set(blobs.values()) | {plain.serialize_uncompressed(),
+                                         cpu.serialize_uncompressed()}) == 1,
+              f"F5 dim {dim}: the paths, the plain path and the CPU prove different bytes")
+        check(proof.extract_sum().v == 0, f"F5 dim {dim}: the sum is not 0")
+        sub = GKRRoundSumcheck.verify(Blake2b512Rng.setup(), dim, proof, proof.extract_sum())
+        check(sub.verify_subclaim(*inst), f"F5 dim {dim}: the subclaim does not hold")
+        print(f"F5 empty f1 dim {dim}: proof bytes equal on the generic, per-size and MXU paths "
+              f"(" + ", ".join(f"{p} {out[f'f5 gkr {p} dim {dim}']['prove_s']:.4f} s"
+                               for p in PATHS)
+              + f"), the plain path on the card ({plain_s:.4f} s) and the CPU; sum 0, verified, "
+              f"subclaim holds; launches { {k: v for k, v in want.items() if v} }")
+    dim = F5_DIMS[-1]
+    insts = [instance(dim) for _ in range(2)]
+    alone = [GKRRoundSumcheck.prove(Blake2b512Rng.setup(), *i, device=device)
+             .serialize_uncompressed() for i in insts]
+    with syncs_forbidden_in_chains():
+        for f in counters().values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        proofs = BatchedGKRRoundSumcheck.prove([Blake2b512Rng.setup() for _ in insts],
+                                               *(list(t) for t in zip(*insts)), device=device)
+        prove_s = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters().items()}
+    want = {k: 0 for k in launches}
+    want.update({"round_nofold_batched": 2, "round_fold_batched": 2 * (dim - 1),
+                 "transcript_step_batched": 2 * dim, "weight_reduce_batched": 2})
+    check(launches == want, f"F5 batch: launches {launches}, expected {want}")
+    check([p.serialize_uncompressed() for p in proofs] == alone,
+          "F5 batch: proofs differ from per-instance card proves")
+    out["f5 gkr batch"] = {"launches": launches, "prove_s": prove_s}
+    print(f"F5 batch of 2 empty f1s at dim {dim}: {prove_s:.4f} s, launches "
+          f"{ {k: v for k, v in launches.items() if v} }; proofs equal per-instance card proves")
+    return out
+
+
 # --- fault F4: product structures past the kernels' by-value plan, on their
 # wide route (`round_cuda.route`; the pair init's and the transcript step's
 # wide bodies)
@@ -2525,13 +2633,6 @@ def f4_kernel_phase(device, seed: int, nv: int = F4_NV) -> dict:
                                          degree=degree)["transcript_step"]
         stats["transcript_step[wide]"][0] = max(stats["transcript_step[wide]"][0], err)
         stats["transcript_step[wide]"][1].append(entry)
-    if device.type == "cuda":
-        from sumcheck_tpu_torch.ops import transcript_cuda as tc
-
-        top = tc.max_degree(device.index)
-        print(f"F4 transcript step ceiling on this card: degree {top} (its stream of 4 (d+1) + "
-              f"64 words in a block's opt-in shared memory); the other kernels have none")
-        stats["transcript_ceiling"] = top
     return stats
 
 
@@ -2600,6 +2701,154 @@ def f4_batch_kernel_phase(device, seed: int, batch: int = F4_BATCH,
                                            degree=degree)["transcript_step_batched"]
     stats["transcript_step_batched[wide]"] = [err, [entry]]
     return stats
+
+
+# --- fault F6: the transcript step past the degree that a block's shared
+# memory once set (7,241 on the H100), in its fixed window
+
+F6_TRANSCRIPT_DEGREE = 8000
+F6_DEGREE, F6_NV = 7300, 2  # the ML prove: one product of 7,300 repeats of one table
+F6_PREFIXES = (40, 128)  # pending bytes of the two transcripts (the single step's first)
+
+
+def f6_operands(seed: int, batched: bool, device):
+    """Phase 6f's F6 step: (state, sums, msgs, rs, host rngs) of one round at
+    degree 8,000, a single transcript fed 40 bytes or, `batched`, two fed
+    40 and 128 bytes, each with its own sums, from `default_rng(seed + 8000)`."""
+    from sumcheck_tpu_torch import Blake2b512Rng
+    from sumcheck_tpu_torch.protocol.device_prover import lift_transcript, lift_transcripts
+
+    gen = np.random.default_rng(seed + 8000)
+    d1 = F6_TRANSCRIPT_DEGREE + 1
+    sums = gen.integers(0, 1 << 40, size=(len(F6_PREFIXES), d1, 16), dtype=np.int64)
+    hosts = []
+    for blen in F6_PREFIXES:
+        hosts.append(Blake2b512Rng.setup())
+        hosts[-1].feed_bytes(gen.bytes(blen))
+    n = len(F6_PREFIXES) if batched else 1
+    state = lift_transcripts(hosts, device) if batched else lift_transcript(hosts[0], device)
+    lead = (1, n) if batched else (1,)
+    msgs = torch.zeros(lead + (16, d1), dtype=torch.int32, device=device)
+    rs = torch.zeros(lead + (16,), dtype=torch.int32, device=device)
+    sums = torch.from_numpy(sums if batched else sums[0]).to(device)
+    return state, sums, msgs, rs, hosts[:n]
+
+
+def f6_plain(seed: int) -> dict:
+    """The plain step (single) and the plain batched step over `f6_operands`
+    on the CPU: {False: (state, msgs, rs), True: (...), "seconds": ...}
+    (`--plain-f6`, a process of its own started with the build: a plain
+    step at degree 8,000 takes about 15 s on the host)."""
+    from sumcheck_tpu_torch.ops import transcript_cuda as tc
+
+    out, t0 = {}, time.perf_counter()
+    for batched in (False, True):
+        state, sums, msgs, rs, _hosts = f6_operands(seed, batched, torch.device("cpu"))
+        (tc.transcript_step_batched_ref if batched else tc.transcript_step_ref)(
+            state, sums, msgs, rs, 0)
+        out[batched] = (state, msgs, rs)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def f6_transcript_phase(device, seed: int, plain) -> dict:
+    """Phase 6f's fault F6: the transcript step at degree 8,000, single and
+    batched (two transcripts of 40 and 128 pending bytes), one launch each,
+    array-equal to the plain versions' (`plain()` waits for the `--plain-f6`
+    process) and to the host rngs (message, challenge, state), the pending
+    bytes equal to `stream_compactions`' model of the window; its device ms
+    and latency bound. Returns {row: timing entry} for the wide rows."""
+    from sumcheck_tpu_torch import Blake2b512Rng
+    from sumcheck_tpu_torch.ops import transcript_cuda as tc
+    from sumcheck_tpu_torch.protocol.device_prover import restore_transcript
+
+    degree, want, out = F6_TRANSCRIPT_DEGREE, plain(), {}
+    for batched in (False, True):
+        step = tc.transcript_step_batched if batched else tc.transcript_step
+        row = "transcript_step_batched[wide]" if batched else "transcript_step[wide]"
+        state, sums, msgs, rs, hosts = f6_operands(seed, batched, device)
+        state0 = state.clone()
+        before = step.launches
+        step(state, sums, msgs, rs, 0)
+        sync(device)
+        check(step.launches - before == 1, f"F6 {row}: not one launch")
+        err = max(max_diff(a.cpu(), b) for a, b in zip((state, msgs, rs), want[batched]))
+        check(err == 0, f"F6 {row} at d={degree}: kernel differs from plain by {err}")
+        states = state.cpu() if batched else state.cpu()[None]
+        blens = (state0.cpu() if batched else state0.cpu()[None])[:, 25, 0].tolist()
+        worst = 0
+        for b, (host, blen0) in enumerate(zip(hosts, blens)):
+            m = msgs[:, b] if batched else msgs
+            r = rs[:, b] if batched else rs
+            _rej, per_round, blen, tries = host_replay(host, m.cpu(), r.cpu(), blen0, degree,
+                                                       f"F6 {row} instance {b}")
+            worst = max(worst, per_round[0])
+            probe = Blake2b512Rng.setup()
+            restore_transcript(probe, states[b])
+            check(probe.state_tuple() == host.state_tuple(),
+                  f"F6 {row} instance {b}: state differs from the host rng's")
+            _n, pending = stream_compactions(blen0, degree + 1, tries[0])
+            check(pending == blen == int(states[b, 25, 0]),
+                  f"F6 {row} instance {b}: the window model's pending bytes differ from the card's")
+        ms = time_ms(lambda: step(state0, sums, msgs, rs, 0), 5, device, device_only=True)
+        bound = transcript_bound(device, worst)
+        print(f"F6 {row}, one round d={degree} ({len(hosts)} transcript(s), pending bytes "
+              f"{list(F6_PREFIXES[:len(hosts)])}): one launch, equal to the plain version (on the "
+              f"host's CPU, {want['seconds']:.1f} s for both) and to the host rng; kernel "
+              f"{ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({worst} compressions), {bound['bound_ms'] / ms:.1%} of it")
+        out[row] = {"shape": f"one round{' of 2 transcripts' if batched else ''}, d={degree}",
+                    "ms": ms, "plain_ms": None, "bound_ms": bound["bound_ms"],
+                    "compressions": worst, "max_abs_err": err}
+    return out
+
+
+def f6_prove_phase(device, seed: int) -> dict:
+    """Phase 10f's fault F6: `MLSumcheck.prove` of one product of 7,300
+    repeats of one table at nv=2 (degree 7,300) on the generic chain (the
+    wide route's round 0 and fold, the pair init and the transcript step
+    in its window), with every launch count set to 0 just before it and
+    read just after, the enqueue under the sync debug mode "error"; its
+    bytes equal to the host-transcript loop's on the card
+    (`HostTranscriptRng`: the same kernels, the transcript on the host);
+    verified, the subclaim the polynomial at the point. A prove takes
+    about a minute on the card (its one or two lanes evaluate 7,301 points
+    on one warp), so the per-size and MXU chains at this degree are
+    `tests/test_torch_cuda.py`'s (`-k degree_7300`). Returns {"f6
+    generic": {"launches", "prove_s"}}."""
+    from sumcheck_tpu_torch import MLSumcheck
+    from sumcheck_tpu_torch.convert import polynomial_from_numpy
+    from sumcheck_tpu_torch.fields.limbs_np import random_tables
+    from sumcheck_tpu_torch.ml_sumcheck import serialize_proof
+
+    nv = F6_NV
+    poly = polynomial_from_numpy(nv, random_tables(np.random.default_rng(seed + F6_DEGREE), nv, 1),
+                                 [(1, [0] * F6_DEGREE)])
+    with fold_mode("generic"), syncs_forbidden_in_chains():
+        for f in counters().values():
+            f.launches = 0
+        t0 = time.perf_counter()
+        proof = MLSumcheck.prove(poly, device=device)
+        prove_s = time.perf_counter() - t0
+        launches = {k: f.launches for k, f in counters().items()}
+    want = {k: 0 for k in launches}
+    want.update({"round_nofold": 1, "round_fold": nv - 1, "transcript_step": nv,
+                 "pair_init": 1})
+    check(launches == want, f"F6: launches {launches}, expected {want}")
+    print(f"F6 degree {F6_DEGREE} nv={nv} generic: prove {prove_s:.4f} s, launches "
+          f"{ {k: v for k, v in launches.items() if v} }, no sync inside the chain")
+    t0 = time.perf_counter()
+    host, _ = MLSumcheck.prove_as_subprotocol(HostTranscriptRng(), poly, device=device)
+    host_s = time.perf_counter() - t0
+    check(serialize_proof(host) == serialize_proof(proof),
+          "F6: the chain and the host-transcript loop prove different bytes")
+    sub = MLSumcheck.verify(poly.info(), MLSumcheck.extract_sum(proof), proof)
+    check(poly.evaluate(sub.point) == sub.expected_evaluation,
+          "F6: the subclaim does not match the polynomial")
+    print(f"F6 degree {F6_DEGREE}: proof bytes equal on the generic chain and the "
+          f"host-transcript loop on the card ({host_s:.4f} s), verified (subclaim = the "
+          f"polynomial at the point)")
+    return {"f6 generic": {"launches": launches, "prove_s": prove_s}}
 
 
 def f4_prove_phase(device, seed: int, nv: int = F4_NV, check_nv: int = F4_CHECK_NV) -> dict:
@@ -4133,6 +4382,9 @@ def main() -> int:
     ap.add_argument("--plain-transcript", metavar="PATH",
                     help="save the plain transcript over the transcript phase's inputs, on "
                          "the CPU, to PATH (the field phase starts it)")
+    ap.add_argument("--plain-f6", metavar="PATH",
+                    help="save the plain transcript step at degree 8,000 over phase 6f's "
+                         "inputs, on the CPU, to PATH (the main run starts it)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -4142,8 +4394,36 @@ def main() -> int:
         torch.save(plain_transcript(args.seed, FIELD_TRANSCRIPT_ROUNDS, 3, torch.device("cpu")),
                    args.plain_transcript)
         return 0
+    if args.plain_f6:
+        torch.save(f6_plain(args.seed), args.plain_f6)
+        return 0
     if args.field_phase:
         return field_phase_main(args)
+    import tempfile
+
+    # the plain transcript step at degree 8,000 (phase 6f), on the host's CPU
+    # in a process of its own while the kernels build and the card runs
+    with tempfile.TemporaryDirectory() as tmp:
+        plain_file = os.path.join(tmp, "plain_f6.pt")
+        plain_proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--plain-f6", plain_file,
+             "--seed", str(args.seed)])
+
+        def plain_f6():
+            check(plain_proc.wait() == 0, "the plain F6 transcript process failed")
+            return torch.load(plain_file)
+
+        try:
+            return main_phases(args, plain_f6)
+        finally:
+            if plain_proc.poll() is None:  # a phase failed before it was waited for
+                plain_proc.kill()
+            plain_proc.wait()
+
+
+def main_phases(args, plain_f6) -> int:
+    """Every phase of the main run; `plain_f6()` waits for the plain F6
+    transcript step's process and returns its results."""
     from sumcheck_tpu_torch import microbench as MB
     from sumcheck_tpu_torch.ops import cuda_build
 
@@ -4208,7 +4488,10 @@ def main() -> int:
     mark("pair init, batched kernels and redesigns")
     stats.update(f4_kernel_phase(device, args.seed))
     stats.update(f4_batch_kernel_phase(device, args.seed))
-    mark("F4 wide-route kernels")
+    for row, entry in f6_transcript_phase(device, args.seed, plain_f6).items():
+        stats[row][0] = max(stats[row][0], entry["max_abs_err"])
+        stats[row][1].append(entry)
+    mark("F4 wide-route kernels and F6 transcript steps")
     golden_phase(device)
     gkr_golden_phase(device)
     mark("golden fixtures")
@@ -4241,6 +4524,8 @@ def main() -> int:
     mark("ML batch")
     batches["batch gkr generic"] = gkr_batch_phase(device, args.seed, args.reps)
     mark("GKR batch")
+    heads.update(f5_empty_f1_phase(device, args.seed))
+    mark("F5 empty f1")
     print("batch proof bytes equal: generic and per-size batched chains, per-instance card "
           "proves; per batch / per proof "
           + ", ".join(f"{k} {h['prove_s']:.4f} / {h['per_proof_s']:.5f} s"
@@ -4249,6 +4534,8 @@ def main() -> int:
     heads.update(f4_prove_phase(device, args.seed))
     heads.update(f4_batch_prove_phase(device, args.seed))
     mark("F4 proves")
+    heads.update(f6_prove_phase(device, args.seed))
+    mark("F6 prove")
     heads["interactive ml"] = interactive_phase(device, args.seed, args.reps,
                                                 heads["ml generic"])
     heads["gkr host-transcript"] = gkr_host_phase(device, args.seed, inst, args.reps)
@@ -4375,7 +4662,7 @@ def main() -> int:
             "replaces": wide_replaces[row],
             "launches": heads[path]["launches"][wrapper],
             "launches_by_path": {p: h["launches"][wrapper] for p, h in heads.items()
-                                 if p.startswith("f4") or p == path},
+                                 if p.startswith(("f4", "f6")) or p == path},
             "max_abs_err": err,
             "ms": main_shape["ms"],
             "plain_ms": main_shape["plain_ms"],
@@ -4390,7 +4677,6 @@ def main() -> int:
         print(f"kernel {row}: {main_shape['ms']:.4f} ms at {main_shape['shape']}, bound "
               f"{bound_ms:.4f} ms ({detail}), {bound_ms / main_shape['ms']:.1%} of it; "
               f"{heads[path]['launches'][wrapper]} launches in {path}")
-    print(f"transcript step ceiling: degree {stats['transcript_ceiling']} on this card")
     print("Montgomery multiplies per second: "
           + ", ".join(f"{k} {v:.4e}" for k, v in mul_rates.items()))
     print(f"card: {card}; prove medians "

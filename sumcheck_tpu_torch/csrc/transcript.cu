@@ -44,12 +44,16 @@
 //     into one (d+1, 16) row with atomics, so a chained round is two
 //     launches, the round kernel and this step.
 //
-// Degree: up to kMaxDegree (8) the stream is a static 128-word array;
-// above it transcript_kernel<true> takes it in dynamic shared memory,
-// stream_words(d+1) = 4 (d+1) + 64 words, and forms the elements in turns
-// of 32 threads. The card's opt-in shared memory per block is then the
-// step's one ceiling (sc_transcript_max_degree; ops/transcript_cuda.py
-// raises SumcheckError past it, before any launch).
+// Degree: up to kMaxDegree (8) the stream is a static 128-word array and
+// the d+1 elements one turn of the warp. Above it transcript_kernel<true>
+// takes any degree in one launch and a fixed window of kWideStreamWords
+// words: it forms the elements in turns of 32, one a thread, each turn's
+// 128 words behind the at most 17 words carried (the pending words, then
+// the length); after every turn but the last the hash lanes compress the
+// window's full blocks that more bytes follow, and the rest (1 to 16
+// words) moves to the front. So its shared memory does not grow with the
+// degree, and the bytes it compresses are the ones the static stream
+// would hold.
 //
 // Transcript state, (26) 64-bit words in device memory, updated in place:
 //   [0, 8)   h, the chaining value
@@ -88,11 +92,13 @@ struct Params {
 // when it fills, with 16 zero words of slack past its end
 constexpr int kStreamWords = 128;
 
-// Above kMaxDegree the stream is dynamic shared memory of stream_words(d+1)
-// words: the 16 pending, the feed, one draw and the slack fit before the
-// first move to the front, as in the static stream. The card's opt-in
-// shared memory a block sets the largest degree (sc_transcript_max_degree).
-__host__ __device__ constexpr int stream_words(int d1) { return 4 * d1 + 64; }
+// Above kMaxDegree: the elements a turn (one a thread of the warp), and
+// the window they go into: the 17 carried words and a turn's 128 (145),
+// one draw's 8 and the 16 words of slack fit before the first move to the
+// front
+constexpr int kTurn = 32;
+constexpr int kWideStreamWords = 256;
+static_assert(16 + 1 + 4 * kTurn + 8 + 16 <= kWideStreamWords, "a turn must fit the window");
 constexpr int kSigBytes = 12 * 16;
 
 constexpr unsigned kHashLanes = 0xFu;  // lanes 0..3 run the hash
@@ -206,8 +212,8 @@ __device__ __forceinline__ void element(const long long* __restrict__ sums, int 
 // One block per transcript: block b of a batched launch advances transcript
 // b (state b, sums row b) and writes row j * gridDim.x + b of msgs and rs,
 // so round j's outputs of all instances are one contiguous (B, ...) block.
-// kWide: above kMaxDegree, the stream in dynamic shared memory and the
-// elements in turns of 32.
+// kWide: above kMaxDegree, the elements in turns of 32 through the
+// kWideStreamWords window.
 template <bool kWide>
 __global__ void __launch_bounds__(32, 1)
     transcript_kernel(unsigned long long* __restrict__ state,
@@ -217,13 +223,11 @@ __global__ void __launch_bounds__(32, 1)
   // the byte stream in 64-bit words: the pending block's words, then every
   // word absorbed this round; words at and past `len` are zero, so the
   // block at `pos` is always the zero-padded block Blake2b compresses
-  __shared__ uint64_t static_stream[kWide ? 1 : kStreamWords];
-  extern __shared__ uint64_t wide_stream[];
+  constexpr int words = kWide ? kWideStreamWords : kStreamWords;
+  __shared__ uint64_t stream[words];
   __shared__ unsigned char sig[kSigBytes];
   const int tid = threadIdx.x;
   const int d1 = degree + 1;
-  uint64_t* stream = kWide ? wide_stream : static_stream;
-  const int words = kWide ? stream_words(d1) : kStreamWords;
   state += (long long)blockIdx.x * kStateWords;
   sums += (long long)blockIdx.x * d1 * kDigits;
   j = j * gridDim.x + blockIdx.x;
@@ -242,18 +246,47 @@ __global__ void __launch_bounds__(32, 1)
   for (int q = tid; q < 12 * 16; q += 32) sig[q] = (&kSigma[0][0])[q];
   __syncwarp();
   // the feed of a Vec<Fr>: u64 LE length, then 4 LE words per element
+  int len;
   if constexpr (kWide) {
-    for (int e = tid; e < d1; e += 32)
-      element(sums, e, d1, prm, msgs + j * kDigits * d1, stream + pending + 1 + 4 * e);
-  } else if (tid < d1) {
-    element(sums, tid, d1, prm, msgs + j * kDigits * d1, stream + pending + 1 + 4 * tid);
+    uint32_t* const msg = msgs + j * kDigits * d1;
+    if (tid == 0) stream[pending] = (uint64_t)d1;
+    len = pending + 1;
+    int e0 = 0;
+    for (; d1 - e0 > kTurn; e0 += kTurn) {
+      // a turn that more elements follow: its words behind the carried
+      // ones, then the hash lanes absorb every full block but the last
+      // word's (len - 1 >> 4 of them: bytes follow each), all lanes
+      // keeping the same count
+      element(sums, e0 + tid, d1, prm, msg, stream + len + 4 * tid);
+      __syncwarp();
+      len += 4 * kTurn;
+      const int blocks = (len - 1) >> 4;
+      if (tid < 4)
+        for (int b = 0; b < blocks; ++b)
+          compress(h0, h1, stream + 16 * b, sig, t + (uint64_t)kBlockBytes * (b + 1), false,
+                   tid);
+      t += (uint64_t)kBlockBytes * blocks;
+      // the rest, 1 to 16 words, to the front, and zeros behind it
+      const int rest = len - 16 * blocks;
+      const uint64_t w = tid < rest ? stream[16 * blocks + tid] : 0;
+      __syncwarp();
+      for (int q = tid; q < len; q += 32) stream[q] = q < rest ? w : 0;
+      __syncwarp();
+      len = rest;
+    }
+    if (tid < d1 - e0) element(sums, e0 + tid, d1, prm, msg, stream + len + 4 * tid);
+    len += 4 * (d1 - e0);
+  } else {
+    if (tid < d1)
+      element(sums, tid, d1, prm, msgs + j * kDigits * d1, stream + pending + 1 + 4 * tid);
+    if (tid == 0) stream[pending] = (uint64_t)d1;
+    len = pending + 1 + 4 * d1;
   }
-  if (tid == 0) stream[pending] = (uint64_t)d1;
   __syncwarp();
   if (tid >= 4) return;
 
   // the four hash lanes; everything below but the compression is uniform
-  int pos = 0, len = pending + 1 + 4 * d1;
+  int pos = 0;
   uint64_t p64[4];
 #pragma unroll
   for (int w = 0; w < 4; ++w)
@@ -386,34 +419,15 @@ int sc_transcript_launch_batched(void* state, const void* sums, int degree, void
   if (shave >= 32) return (int)cudaErrorInvalidValue;
   prm.top_mask = (shave == 0) ? ~0ull : ((1ull << (64 - shave)) - 1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (degree <= kMaxDegree) {
-    transcript_kernel<false><<<batch, 32, 0, s>>>(
-        static_cast<unsigned long long*>(state), static_cast<const long long*>(sums),
-        degree, static_cast<uint32_t*>(msgs), static_cast<uint32_t*>(rs), j, prm);
-    return (int)cudaGetLastError();
-  }
-  const size_t smem = (size_t)stream_words(degree + 1) * sizeof(uint64_t);
-  const cudaError_t e = cudaFuncSetAttribute(
-      transcript_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  transcript_kernel<true><<<batch, 32, smem, s>>>(
-      static_cast<unsigned long long*>(state), static_cast<const long long*>(sums),
-      degree, static_cast<uint32_t*>(msgs), static_cast<uint32_t*>(rs), j, prm);
+  unsigned long long* st = static_cast<unsigned long long*>(state);
+  const long long* sm = static_cast<const long long*>(sums);
+  uint32_t* m = static_cast<uint32_t*>(msgs);
+  uint32_t* r = static_cast<uint32_t*>(rs);
+  if (degree <= kMaxDegree)
+    transcript_kernel<false><<<batch, 32, 0, s>>>(st, sm, degree, m, r, j, prm);
+  else
+    transcript_kernel<true><<<batch, 32, 0, s>>>(st, sm, degree, m, r, j, prm);
   return (int)cudaGetLastError();
-}
-
-// The largest degree the step takes on `device`: its stream in the
-// opt-in shared memory of a block beside the static arrays, or -1 on an
-// error.
-int sc_transcript_max_degree(int device) {
-  int optin = 0;
-  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device) !=
-      cudaSuccess)
-    return -1;
-  cudaFuncAttributes attr;
-  if (cudaFuncGetAttributes(&attr, transcript_kernel<true>) != cudaSuccess) return -1;
-  const long long words = (optin - (long long)attr.sharedSizeBytes) / (long long)sizeof(uint64_t);
-  return (int)((words - stream_words(0)) / 4) - 1;
 }
 
 // Test hooks of the bound: the empty kernel, `iters` x 16 dependent

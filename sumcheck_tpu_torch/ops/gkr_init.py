@@ -193,12 +193,14 @@ def _split_f1_device(f1, dim: int, device: torch.device, shard=None) -> F1Split:
     the segment-sum widths; the port drops them, and keeps `perm_y` as its
     inverse `to_y`.)
 
-    With `shard` = (s, S), only rank s's chunk of the multi-device inits
-    (`parallel/gkr.py`, cached per (dim, device, s, S)): the sorted
-    entries cut into S contiguous chunks, the last padded with zero
-    entries at x = all ones (the last bit-reversed x segment, so every
-    chunk stays sorted and the padding adds nothing), each chunk with its
-    own metadata."""
+    Every split holds at least one entry, so no kernel runs over an empty
+    `vals`: an f1 with no entries splits as one zero entry at x = all ones
+    (the last bit-reversed x segment, so the entries stay sorted and the
+    padding adds nothing). With `shard` = (s, S), only rank s's chunk of
+    the multi-device inits (`parallel/gkr.py`, cached per (dim, device, s,
+    S)): the sorted entries cut into S contiguous chunks of at least one
+    entry, the last padded with such zero entries, each chunk with its own
+    metadata."""
     from ..protocol.prover import bitrev_perm
 
     key = (dim, device) if shard is None else (dim, device, *shard)
@@ -211,13 +213,15 @@ def _split_f1_device(f1, dim: int, device: torch.device, shard=None) -> F1Split:
     x_rev = revp[(idx >> dim) & mask]
     order = np.argsort(x_rev, kind="stable")
     idx, vals = idx[order], np.asarray(f1.values)[:, order]
+    s, size = shard or (0, 1)
+    chunk = max(1, -(-len(idx) // size))
+    pad = size * chunk - len(idx)
+    if pad:
+        idx = np.concatenate([idx, np.full(pad, mask << dim, np.int64)])
+        vals = np.concatenate([vals, np.zeros((NUM_DIGITS, pad), vals.dtype)], axis=1)
     if shard is not None:
-        s, size = shard
-        chunk = max(1, -(-len(idx) // size))
-        pad = size * chunk - len(idx)
         mine = slice(s * chunk, (s + 1) * chunk)
-        idx = np.concatenate([idx, np.full(pad, mask << dim, np.int64)])[mine]
-        vals = np.concatenate([vals, np.zeros((NUM_DIGITS, pad), vals.dtype)], axis=1)[:, mine]
+        idx, vals = idx[mine], vals[:, mine]
     nnz = len(idx)
     assert nnz <= 1 << 24, "segment sums are exact up to 2^24 entries"
     x = (idx >> dim) & mask  # natural values, sorted by their bit reversal

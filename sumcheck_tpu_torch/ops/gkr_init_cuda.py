@@ -74,8 +74,11 @@ and pack; `weight_reduce_ref` composes `eq_halves_ref` (eq's two half
 tables, which no kernel writes to device memory), `weight_fold_ref`,
 the segment sum's plain versions (`limb_sums_ref`, `finish_ref`;
 `segment_reduce_ref` is the plain segment sum of the whole-phase plain
-versions) and `pair_slots_ref`. A failed build or launch raises; there is
-no fallback.
+versions) and `pair_slots_ref`. The weight reduce, its batched form and
+the plain segment sums refuse a table of no entries (`ValueError`, before
+any build or launch): f1's split never has none (`ops/gkr_init.
+_split_f1_device` splits an f1 with no entries as one zero entry). A
+failed build or launch raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -216,6 +219,15 @@ def _rows(r: torch.Tensor, k: int) -> None:
                          f"{tuple(r.shape)} {r.dtype}")
 
 
+def _entries(nnz: int) -> None:
+    """Refuse a segment sum over no entries, before any build or launch:
+    the kernels take at least one (`ops/gkr_init._split_f1_device` splits
+    an f1 with no entries as one zero entry)."""
+    if nnz == 0:
+        raise ValueError("the segment sum takes at least one entry, got none: an f1 with no "
+                         "entries splits as one zero entry")
+
+
 def _same_device(*ts) -> None:
     if len({t.device for t in ts if t is not None}) != 1:
         raise ValueError("the GKR init operands must be on one device")
@@ -347,7 +359,8 @@ def limb_sums_ref(vals, perm, last) -> torch.Tensor:
     """The raw (8, nseg) int64 limb sums of each segment of (8, nnz) limbs
     (plain): a cumulative sum along the sorted entries, differenced at each
     segment's last position. Exact: each limb is below 2^32 and a segment
-    holds at most 2^24 entries."""
+    holds at most 2^24 entries. Refuses nnz = 0 (`_entries`)."""
+    _entries(vals.shape[1])
     v = vals.long() & _M32
     if perm is not None:
         v = v.index_select(1, perm)
@@ -443,6 +456,7 @@ def _check_reduce(idx, vals, r, k, last, plan, out, f3, y, to_y, slot, ranks=1):
                          f"k = 21 variables, not {k}")
     nnz = vals.shape[0] if vals.dim() == 2 else -1
     _rows_table(vals, "vals", nnz)
+    _entries(nnz)
     _ints(idx, "idx", nnz)
     _rows(r, k)
     nseg = last.shape[0] if last.dim() == 1 else -1

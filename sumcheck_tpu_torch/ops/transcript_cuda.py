@@ -45,11 +45,10 @@ import torch
 from ..fields import limbs_torch as LT
 from ..fields.fr import NINV32, NUM_DIGITS, P, SHAVE_BITS, WIDE_DIGITS
 from ..transcript.device import STATE_WORDS, DevTranscript, feed_fr_vec, fr_rand
-from ..utils.errors import SumcheckError
 from . import cuda_build
 
 SOURCE = cuda_build.source("transcript")
-MAX_DEGREE = 8  # `csrc/transcript.cu`: kMaxDegree, the static stream's; past it the wide one
+MAX_DEGREE = 8  # `csrc/transcript.cu`: kMaxDegree, the static stream's; past it the window's
 
 _ONE_DIGITS = (1,) + (0,) * (NUM_DIGITS - 1)
 # p as 8 x 32-bit limbs (least significant first), -p^-1 mod 2^32, then
@@ -78,8 +77,6 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.POINTER(ctypes.c_uint32), ctypes.c_void_p,  # batch, field, stream
     ]
     lib.sc_transcript_launch_batched.restype = ctypes.c_int
-    lib.sc_transcript_max_degree.argtypes = [ctypes.c_int]
-    lib.sc_transcript_max_degree.restype = ctypes.c_int
     lib.sc_empty_launch.argtypes = [ctypes.c_void_p]
     lib.sc_latency_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.sc_compress_probe.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
@@ -162,27 +159,6 @@ def transcript_step_batched_ref(state, sums, msgs, rs, j: int) -> None:
         msgs[j, b], rs[j, b] = _step(state[b], sums[b])
 
 
-@functools.cache
-def max_degree(index: int) -> int:
-    """The largest degree the step takes on card `index`: above `MAX_DEGREE`
-    the round's byte stream (4 (d+1) + 64 words) sits in dynamic shared
-    memory, so the card's opt-in shared memory a block sets it
-    (`sc_transcript_max_degree`; `chip_smoke.py` prints it)."""
-    d = _library().sc_transcript_max_degree(index)
-    if d < 0:
-        raise RuntimeError(f"shared-memory query of card {index} failed")
-    return d
-
-
-def _check_ceiling(degree: int, device) -> None:
-    """Raise `SumcheckError` past `max_degree`, the step's one ceiling."""
-    if degree > MAX_DEGREE and degree > max_degree(device.index):
-        raise SumcheckError(
-            f"degree {degree} is past the transcript step's ceiling on this card, "
-            f"{max_degree(device.index)}: the round's byte stream must fit the shared "
-            f"memory of one block")
-
-
 def transcript_step(state, sums, msgs, rs, j: int) -> None:
     """One round's transcript step in place. Launches the CUDA kernel for
     CUDA tensors, runs `transcript_step_ref` for CPU tensors."""
@@ -193,7 +169,6 @@ def transcript_step(state, sums, msgs, rs, j: int) -> None:
     _check(state, sums, msgs, rs, j)
     if state.data_ptr() % 8:
         raise ValueError("the kernel reads the state as 64-bit words: it must be 8-byte aligned")
-    _check_ceiling(sums.shape[0] - 1, state.device)
     lib = _library()
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream
@@ -224,7 +199,6 @@ def transcript_step_batched(state, sums, msgs, rs, j: int) -> None:
     if state.data_ptr() % 8:
         raise ValueError("the kernel reads the states as 64-bit words: they must be 8-byte "
                          "aligned")
-    _check_ceiling(sums.shape[1] - 1, state.device)
     lib = _library()
     with torch.cuda.device(state.device):
         stream = torch.cuda.current_stream(state.device).cuda_stream

@@ -429,6 +429,36 @@ def test_batched_gkr_matches_jax(case, monkeypatch):
         assert sub.verify_subclaim(f1, f2, f3, g)
 
 
+@pytest.mark.parametrize("nnzs", [[0, 2], [0, 0]], ids=["empty_and_two", "both_empty"])
+@pytest.mark.parametrize("path", ["generic", "persize"], indirect=True)
+def test_batched_gkr_empty_f1_matches_jax(path, nnzs, monkeypatch):
+    """Fault F5 in the batch: an f1 with no entries beside one with 2
+    (unequal counts: per-instance proves) and two empty f1s (equal counts:
+    the batched chain on the generic chain), on both chains, against
+    per-instance JAX host-engine proves: bytes and the next draw of every
+    transcript; each proof verifies, its subclaim holds, and an empty f1's
+    sum is 0. The choice between the two reads f1's own count, as the
+    JAX package's does, not the one-entry split of an empty f1."""
+    from sumcheck_tpu_torch import gkr_round_sumcheck as G
+
+    dim = 2
+    js, ts = gkr_instances(dim, 42, 2, nnzs)
+    alone = jax_gkr_alone(js)
+    singles = []
+    real = G.GKRRoundSumcheck.prove
+    monkeypatch.setattr(G.GKRRoundSumcheck, "prove",
+                        staticmethod(lambda *a, **k: singles.append(1) or real(*a, **k)))
+    rngs = [T.Blake2b512Rng.setup() for _ in ts]
+    proofs = BatchedGKRRoundSumcheck.prove(rngs, *(list(t) for t in zip(*ts)), device="cpu")
+    assert len(singles) == (0 if path == "generic" and nnzs == [0, 0] else 2)
+    assert [p.serialize_uncompressed() for p in proofs] == [a[0] for a in alone]
+    assert [T.Fr.rand(r).v for r in rngs] == [J.Fr.rand(a[1]).v for a in alone]
+    for p, nnz, (f1, f2, f3, g) in zip(proofs, nnzs, ts):
+        assert nnz or p.extract_sum().v == 0
+        sub = T.GKRRoundSumcheck.verify(T.Blake2b512Rng.setup(), dim, p, p.extract_sum())
+        assert sub.verify_subclaim(f1, f2, f3, g)
+
+
 def test_batched_gkr_rejects_mismatched_lists():
     _js, ts = gkr_instances(3, 41, 2)
     f1s, f2s, f3s, gs = (list(t) for t in zip(*ts))

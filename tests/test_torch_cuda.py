@@ -364,10 +364,12 @@ def test_transcript_kernel_matches_plain(cuda):
     assert rejected >= 1
 
 
-def _host_rounds(prefix: bytes, sums: np.ndarray, degree: int, max_rounds: int = 200):
+def _host_rounds(prefix: bytes, sums: np.ndarray, degree: int, max_rounds: int = 200,
+                 stop: bool = True):
     """The host schedule of transcript steps from a transcript fed `prefix`:
-    rounds up to and including the first that rejects a draw. Returns (the
-    rounds' canonical values, their challenges, the final host rng)."""
+    rounds up to and including the first that rejects a draw (`stop`), or
+    `max_rounds` rounds. Returns (the rounds' canonical values, their
+    challenges, the final host rng)."""
     rng = T.Blake2b512Rng.setup()
     rng.feed_bytes(prefix)
     values, draws = [], []
@@ -384,9 +386,11 @@ def _host_rounds(prefix: bytes, sums: np.ndarray, degree: int, max_rounds: int =
             rejected = True
         values.append(vals)
         draws.append(draw)
-        if rejected:
+        if rejected and stop:
             return values, draws, rng
-    raise AssertionError("no draw rejected")
+    if stop:
+        raise AssertionError("no draw rejected")
+    return values, draws, rng
 
 
 @pytest.mark.parametrize("degree", range(1, 9))
@@ -671,6 +675,82 @@ def test_gkr_prove_on_cuda_equals_cpu(cuda, mode, monkeypatch):
     assert rng.state_tuple() == rng_cpu.state_tuple()
     sub = T.GKRRoundSumcheck.verify(T.Blake2b512Rng.setup(), dim, proof, proof.extract_sum())
     assert sub.verify_subclaim(f1, f2, f3, g)
+
+
+@pytest.mark.parametrize("dim", [1, 3, 9])
+@pytest.mark.parametrize("mode", ["generic", "persize", "mxu"])
+def test_gkr_empty_f1_on_cuda_equals_cpu(cuda, mode, dim, monkeypatch):
+    """Fault F5 on the card: an f1 with no entries (split as one zero
+    entry, so no kernel reads an empty table) proves on every chain with
+    the path's init launches, bytes and final transcript equal to the
+    CPU's; the sum is 0 and the proof verifies."""
+    import random
+
+    counters = _gkr_mode(mode, monkeypatch) + (TC.transcript_step,) + _init_counters()
+    rnd = random.Random(dim)
+    f1 = T.SparseMLE.from_pairs(3 * dim, [])
+    f2, f3 = T.DenseMLE.rand(dim, rnd), T.DenseMLE.rand(dim, rnd)
+    g = [T.Fr(3 + i) for i in range(dim)]
+    before = [f.launches for f in counters]
+    rng = T.Blake2b512Rng.setup()
+    proof = T.GKRRoundSumcheck.prove(rng, f1, f2, f3, g, device=cuda)
+    assert [f.launches - b for f, b in zip(counters, before)] == \
+        [2, 2 * (dim - 1), 2 * dim, *GKR_INIT_LAUNCHES[mode]]
+    rng_cpu = T.Blake2b512Rng.setup()
+    want = T.GKRRoundSumcheck.prove(rng_cpu, f1, f2, f3, g, device="cpu")
+    assert proof.serialize_uncompressed() == want.serialize_uncompressed()
+    assert rng.state_tuple() == rng_cpu.state_tuple()
+    assert proof.extract_sum().v == 0
+    sub = T.GKRRoundSumcheck.verify(T.Blake2b512Rng.setup(), dim, proof, proof.extract_sum())
+    assert sub.verify_subclaim(f1, f2, f3, g)
+
+
+@pytest.mark.parametrize("nnzs", [[0, 2], [0, 0]], ids=["empty_and_two", "both_empty"])
+def test_batched_gkr_empty_f1_on_cuda_equals_cpu(cuda, nnzs):
+    """Fault F5 in the batch on the card: [empty, 2 entries] (per-instance
+    proves) and [empty, empty] (one batched weight reduce a phase), at dim
+    4, bytes and the next draw equal to the CPU's batch."""
+    import random
+
+    from sumcheck_tpu_torch.batch import BatchedGKRRoundSumcheck
+    from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
+
+    dim = 4
+    rnd = random.Random(sum(nnzs))
+    insts = [(T.SparseMLE.rand_with_config(3 * dim, n, rnd), T.DenseMLE.rand(dim, rnd),
+              T.DenseMLE.rand(dim, rnd), [T.Fr(rnd.randrange(P)) for _ in range(dim)])
+             for n in nnzs]
+    lists = [list(t) for t in zip(*insts)]
+    before = GK.weight_reduce_batched.launches
+    rngs = [T.Blake2b512Rng.setup() for _ in insts]
+    proofs = BatchedGKRRoundSumcheck.prove(rngs, *lists, device=cuda)
+    assert GK.weight_reduce_batched.launches - before == (2 if nnzs == [0, 0] else 0)
+    cpu_rngs = [T.Blake2b512Rng.setup() for _ in insts]
+    want = BatchedGKRRoundSumcheck.prove(cpu_rngs, *lists, device="cpu")
+    assert [p.serialize_uncompressed() for p in proofs] == \
+        [p.serialize_uncompressed() for p in want]
+    assert [T.Fr.rand(r) for r in rngs] == [T.Fr.rand(r) for r in cpu_rngs]
+
+
+def test_weight_reduce_refuses_no_entries_before_a_launch(cuda):
+    """The weight reduce and its batched form refuse a split with no
+    entries by `ValueError`, with no launch."""
+    from sumcheck_tpu_torch.ops import gkr_init as GI
+    from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
+
+    dim = 3
+    split = GI._split_f1_device(T.SparseMLE.from_pairs(3 * dim, []), dim, cuda)
+    g_r = GI.upload(GI._point_rows([T.Fr(5 + i) for i in range(dim)]), cuda)
+    empty = torch.empty((0, 8), dtype=torch.int32, device=cuda)
+    idx = torch.empty(0, dtype=torch.int32, device=cuda)
+    dst = torch.empty((8, 1 << dim), dtype=torch.int32, device=cuda)
+    before = (GK.weight_reduce.launches, GK.weight_reduce_batched.launches)
+    with pytest.raises(ValueError, match="at least one entry"):
+        GK.weight_reduce(idx, empty, g_r, dim, split.last_x, split.plan_x, dst)
+    with pytest.raises(ValueError, match="at least one entry"):
+        GK.weight_reduce_batched([GK.Instance(idx, empty, g_r, split.last_x, split.plan_x,
+                                              dst)], dim)
+    assert (GK.weight_reduce.launches, GK.weight_reduce_batched.launches) == before
 
 
 # ---------------------------------------------------------------------------
@@ -2044,10 +2124,12 @@ def test_wide_route_is_chosen_by_shape(cuda):
     assert RC.route(9, (tuple(range(9)),), 9) == "wide"
 
 
-@pytest.mark.parametrize("degree", [9, 20, 33])
+@pytest.mark.parametrize("degree", [9, 20, 31, 32, 33, 64, 65, 100])
 def test_wide_transcript_matches_host(cuda, degree):
-    """The transcript step past degree 8 (its byte stream in dynamic shared
-    memory, the elements in turns of 32 threads) from pending fills of 0,
+    """The transcript step past degree 8 (the elements in turns of 32
+    threads through a fixed window of the stream, the full blocks of each
+    turn but the last compressed and the rest moved to the front: one turn
+    up to degree 31, two from 32, three from 64) from pending fills of 0,
     64 and 128 bytes, over rounds up to the first that rejects a draw:
     messages, challenges and final state equal to the host rng's, the
     first round equal to the plain version's; and the batched step equal to
@@ -2102,20 +2184,55 @@ def test_wide_transcript_matches_host(cuda, degree):
     assert torch.equal(msgs.cpu(), msgs_p) and torch.equal(rs.cpu(), rs_p)
 
 
-def test_transcript_ceiling_is_measured_and_raised(cuda):
-    """The step's one ceiling, the degree whose byte stream fills a block's
-    opt-in shared memory, lies far past degree 32; one past it raises
-    `SumcheckError` naming it, before any launch."""
-    top = TC.max_degree(cuda.index)
-    assert top > 1000
-    before = TC.transcript_step.launches
-    state = lift_transcript(T.Blake2b512Rng.setup(), cuda)
-    sums = torch.zeros((top + 2, 16), dtype=torch.int64, device=cuda)
-    msgs = torch.empty((1, 16, top + 2), dtype=torch.int32, device=cuda)
-    rs = torch.empty((1, 16), dtype=torch.int32, device=cuda)
-    with pytest.raises(T.SumcheckError, match="ceiling"):
-        TC.transcript_step(state, sums, msgs, rs, 0)
-    assert TC.transcript_step.launches == before
+def test_transcript_step_at_degree_8000_matches_plain_and_host(cuda):
+    """Fault F6: the step takes any degree in one launch and a fixed window
+    of shared memory. At degree 8,000 (its stream once past a block's
+    shared memory), one round from a pending fill of 40 bytes, single and
+    batched (two transcripts, pending fills of 40 and 128 bytes): messages,
+    challenges and states array-equal to the plain version's and to the
+    host rng's."""
+    from sumcheck_tpu_torch.protocol.device_prover import lift_transcripts, restore_transcript
+
+    degree = 8000
+    gen = np.random.default_rng(degree)
+    sums_h = gen.integers(0, 1 << 40, size=(2, degree + 1, 16), dtype=np.int64)
+    prefixes = (bytes(range(40)), bytes(range(128, 256)))
+    rngs = []
+    for prefix in prefixes:
+        rngs.append(T.Blake2b512Rng.setup())
+        rngs[-1].feed_bytes(prefix)
+    for batched in (False, True):
+        n = 2 if batched else 1
+        state = lift_transcripts(rngs[:n], cuda) if batched else lift_transcript(rngs[0], cuda)
+        sums = torch.from_numpy(sums_h[:n] if batched else sums_h[0]).to(cuda)
+        shape = (1, n) if batched else (1,)
+        msgs = torch.empty(shape + (16, degree + 1), dtype=torch.int32, device=cuda)
+        rs = torch.empty(shape + (16,), dtype=torch.int32, device=cuda)
+        state_p, msgs_p, rs_p = state.cpu(), msgs.cpu(), rs.cpu()
+        before = (TC.transcript_step.launches, TC.transcript_step_batched.launches)
+        if batched:
+            TC.transcript_step_batched(state, sums, msgs, rs, 0)
+            TC.transcript_step_batched_ref(state_p, sums.cpu(), msgs_p, rs_p, 0)
+        else:
+            TC.transcript_step(state, sums, msgs, rs, 0)
+            TC.transcript_step_ref(state_p, sums.cpu(), msgs_p, rs_p, 0)
+        torch.cuda.synchronize()
+        after = (TC.transcript_step.launches, TC.transcript_step_batched.launches)
+        assert [a - b for a, b in zip(after, before)] == ([0, 1] if batched else [1, 0])
+        assert torch.equal(state.cpu(), state_p)
+        assert torch.equal(msgs.cpu(), msgs_p) and torch.equal(rs.cpu(), rs_p)
+        states = state.cpu() if batched else state.cpu()[None]
+        for b in range(n):
+            values, draws, host = _host_rounds(prefixes[b], sums_h[b:b + 1], degree,
+                                               max_rounds=1, stop=False)
+            m = (msgs[0, b] if batched else msgs[0]).cpu().numpy().astype(np.int64)
+            r = (rs[0, b] if batched else rs[0]).cpu().numpy().astype(np.int64)
+            assert [sum(int(m[i, t]) << (16 * i) for i in range(16))
+                    for t in range(degree + 1)] == values[0]
+            assert sum(int(r[i]) << (16 * i) for i in range(16)) == draws[0]
+            probe = T.Blake2b512Rng.setup()
+            restore_transcript(probe, states[b])
+            assert probe.state_tuple() == host.state_tuple()
 
 
 @pytest.mark.parametrize("slots", [17, 40, 300])
@@ -2166,6 +2283,38 @@ def test_f4_prove_on_cuda_equals_cpu(cuda, chain, name, monkeypatch):
     proof_cpu, _ = T.MLSumcheck.prove_as_subprotocol(rng_cpu, poly, device="cpu")
     assert serialize_proof(proof) == serialize_proof(proof_cpu)
     assert rng.state_tuple() == rng_cpu.state_tuple()
+    sub = T.MLSumcheck.verify(poly.info(), T.MLSumcheck.extract_sum(proof), proof)
+    assert poly.evaluate(sub.point) == sub.expected_evaluation
+
+
+def test_degree_7300_prove_on_cuda_every_chain(cuda, monkeypatch):
+    """Fault F6 on every chain: one product of 7,300 repeats of one table at
+    nv=2 (degree 7,300, past the 7,241 the step's shared memory once set)
+    proves on the generic chain, the per-size chain and in the MXU fold
+    mode (the wide route's round 0 and folds, the MXU wide fold, the pair
+    init and the transcript step in its window) with each chain's
+    launches, bytes equal across them and to the host-transcript loop on
+    the card; verified. About a minute a prove: one warp evaluates 7,301
+    points."""
+    nv, degree = 2, 7300
+    poly = polynomial_from_numpy(nv, _tables(degree, nv, 1), [(1, [0] * degree)])
+    cfg = get_config()
+    blobs = set()
+    for chain, mxu, kernels in (("generic", False, (RC.round_nofold, RC.round_fold)),
+                                ("persize", False, (RC.round_step_nofold, RC.round_step_fold)),
+                                ("generic", True, (RC.round_nofold, RC.round_fold_mxu))):
+        monkeypatch.setattr(cfg, "chain_impl", chain)
+        monkeypatch.setattr(cfg, "mxu_fold", "kernel" if mxu else "off")
+        monkeypatch.setattr(cfg, "ab", mxu)
+        counters = kernels + (TC.transcript_step,)
+        before = [f.launches for f in counters]
+        proof = T.MLSumcheck.prove(poly, device=cuda)
+        assert [f.launches - b for f, b in zip(counters, before)] == [1, nv - 1, nv]
+        blobs.add(serialize_proof(proof))
+    monkeypatch.setattr(cfg, "chain_impl", "generic")
+    monkeypatch.setattr(cfg, "mxu_fold", "off")
+    host, _ = T.MLSumcheck.prove_as_subprotocol(_OtherRng(), poly, device=cuda)
+    assert blobs == {serialize_proof(host)}
     sub = T.MLSumcheck.verify(poly.info(), T.MLSumcheck.extract_sum(proof), proof)
     assert poly.evaluate(sub.point) == sub.expected_evaluation
 

@@ -193,6 +193,31 @@ def test_transcript_step_matches_host(degree):
     assert TC.transcript_step.launches == launches
 
 
+def test_transcript_step_past_the_old_ceiling_matches_host():
+    """Fault F6: the step takes any degree. At degree 7,300, past the 7,241
+    that a block's shared memory on the H100 once set, one round of the
+    plain step (what the wrapper runs on CPU tensors) from a pending fill of
+    56 bytes equals the host schedule: the canonical message, the challenge
+    and the state after."""
+    degree = 7300
+    host = Blake2b512Rng.setup()
+    host.feed_bytes(b"\x02" * 56)
+    state = D.DevTranscript.lift(host.state_tuple()).to_state()
+    msgs, rs = _buffers(1, degree)
+    sums = _sums(degree, degree)
+    TC.transcript_step(state, sums, msgs, rs, 0)
+    wide = RC.finish_sums(sums)
+    vals = [sum(int(wide[i, t]) << (16 * i) for i in range(wide.shape[0])) % P * R_INV % P
+            for t in range(degree + 1)]
+    host.feed(ProverMsg([Fr(v) for v in vals]))
+    r = Fr.rand(host)
+    m = msgs[0].numpy().astype(np.int64)
+    assert [sum(int(m[i, t]) << (16 * i) for i in range(NUM_DIGITS))
+            for t in range(degree + 1)] == vals
+    assert _int(rs[0]) * R_INV % P == r.v
+    assert D.DevTranscript.from_state(state).lower() == host.state_tuple()
+
+
 def test_transcript_step_matches_jax_transcript_step():
     """One step against `device_prover._transcript_step` (jit) from the same
     lifted state, with a schedule that rejects the step's first draw."""

@@ -147,6 +147,61 @@ def test_prove_matches_jax(mode, dim, nnz):
     assert rng.state_tuple() == jrng.state_tuple()
 
 
+@pytest.mark.parametrize("dim", [1, 2, 3])
+@pytest.mark.parametrize("mode", MODES + ["host"], indirect=True)
+def test_empty_f1_matches_jax(mode, dim):
+    """Fault F5: an f1 with no entries (a GKR layer with no gate of one
+    kind) proves on every path: the generic chain, the per-size chain, the
+    MXU fold mode and the host-transcript branch (a transcript other than
+    `Blake2b512Rng`). Proof bytes and the transcript's next draw equal the
+    JAX package's host-engine prove; the claimed sum is 0, `verify`
+    accepts and the subclaim holds."""
+    rnd = random.Random(dim)
+    f1 = J.SparseMLE.from_pairs(3 * dim, [])
+    f2, f3 = J.DenseMLE.rand(dim, rnd), J.DenseMLE.rand(dim, rnd)
+    g = [J.Fr(3 + i) for i in range(dim)]
+    jproof, jrng = jax_prove(f1, f2, f3, g)
+    port = gkr_instance_from_numpy(dim, f1.indices, f1.values, f2.evals, f3.evals,
+                                   [x.v for x in g])
+    rng = _OtherRng() if mode == "host" else T.Blake2b512Rng.setup()
+    proof = T.GKRRoundSumcheck.prove(rng, *port, device="cpu")
+    assert proof.serialize_uncompressed() == jproof.serialize_uncompressed()
+    assert rng.next_u64() == jrng.next_u64()
+    assert proof.extract_sum().v == 0
+    sub = T.GKRRoundSumcheck.verify(T.Blake2b512Rng.setup(), dim, proof, proof.extract_sum())
+    assert sub.verify_subclaim(*port)
+
+
+def test_empty_split_is_one_zero_entry_and_the_reduce_refuses_none():
+    """An f1 with no entries splits as one zero entry at x = all ones (the
+    last bit-reversed x segment), so every kernel reads at least one entry;
+    the weight reduce and the plain segment sums refuse a split with none
+    by `ValueError`, before any build or launch."""
+    from sumcheck_tpu_torch.ops import gkr_init_cuda as GK
+
+    dim = 3
+    split = GI._split_f1_device(T.SparseMLE.from_pairs(3 * dim, []), dim, CPU)
+    assert split.vals.shape == (1, 8) and not split.vals.any()
+    assert split.gbits.tolist() == [0] and split.y_rev.tolist() == [0]
+    assert split.x_y.tolist() == [(1 << dim) - 1] and split.to_y.tolist() == [0]
+    assert split.last_x.tolist() == [-1] * ((1 << dim) - 1) + [0]
+    assert split.last_y.tolist() == [0] * (1 << dim)
+    g_r = GI.upload(GI._point_rows([T.Fr(5 + i) for i in range(dim)]), CPU)
+    empty = torch.empty((0, 8), dtype=torch.int32)
+    idx = torch.empty(0, dtype=torch.int32)
+    dst = torch.empty((8, 1 << dim), dtype=torch.int32)
+    for reduce in (GK.weight_reduce, GK.weight_reduce_ref):
+        with pytest.raises(ValueError, match="at least one entry"):
+            reduce(idx, empty, g_r, dim, split.last_x, split.plan_x, dst)
+    with pytest.raises(ValueError, match="at least one entry"):
+        GK.weight_reduce_batched([GK.Instance(idx, empty, g_r, split.last_x, split.plan_x,
+                                              dst)], dim)
+    with pytest.raises(ValueError, match="at least one entry"):
+        GK.limb_sums_ref(empty.T, None, split.last_x)
+    with pytest.raises(ValueError, match="at least one entry"):
+        GK.segment_reduce_ref(empty.T.contiguous(), None, split.last_x, dst)
+
+
 def _refuse(name):
     def call(*_a, **_k):
         raise AssertionError(f"a per-size GKR prove reached {name}")

@@ -179,14 +179,15 @@ def test_launch_counters_name_every_wrapper():
     assert all(f.__name__ == name for name, f in counters.items())
 
 
-def test_kernel_maxima_are_checked_before_a_build(monkeypatch):
+def test_kernel_maxima_are_checked_before_a_build():
     """The by-value plan's maxima mirror `csrc/round_common.cuh` (which
     both round kernel sources include) and `csrc/transcript.cu`, and the
     route is chosen by shape from them before any build: within them the
     by-value plan, past any of them the wide route, whose entries the
-    sources hold. The transcript step's one ceiling, measured on the card
-    (`max_degree`), raises `SumcheckError` naming it before any launch or
-    build (the measurement stubbed here)."""
+    sources hold. The transcript step has no degree ceiling: its shared
+    memory does not depend on the degree (past degree 8 a fixed window of
+    the stream, no buffer of the round's 4 (d+1) + 64 words in dynamic
+    shared memory), and nothing measures or checks one."""
     from sumcheck_tpu_torch.ops import cuda_build
     from sumcheck_tpu_torch.ops import init_cuda as IC
 
@@ -203,18 +204,17 @@ def test_kernel_maxima_are_checked_before_a_build(monkeypatch):
     assert f"constexpr int kMaxSlots = {IC.MAX_SLOTS};" in IC.SOURCE.read_text()
     tsrc = TC.SOURCE.read_text()
     assert "constexpr int kMaxDegree = 8;" in tsrc and TC.MAX_DEGREE == 8
-    assert "int sc_transcript_max_degree(" in tsrc
+    assert "extern __shared__" not in tsrc and "stream_words" not in tsrc
+    assert "cudaFuncSetAttribute" not in tsrc and "max_degree" not in tsrc
+    assert "constexpr int kWideStreamWords = 256;" in tsrc
+    assert "__shared__ uint64_t stream[words];" in tsrc
+    assert not hasattr(TC, "max_degree") and not hasattr(TC, "_check_ceiling")
     assert f"constexpr int kStateWords = {TC.STATE_WORDS};" in tsrc
     assert RC.route(RC.MAX_SLOTS, ((0, 1),) * RC.MAX_PRODUCTS, RC.MAX_DEGREE) == "plan"
     for slots, products, degree in ((RC.MAX_SLOTS + 1, ((0, 1),), 2),
                                     (2, ((0, 1),) * (RC.MAX_PRODUCTS + 1), 2),
                                     (9, (tuple(range(9)),), RC.MAX_DEGREE + 1)):
         assert RC.route(slots, products, degree) == "wide"
-    monkeypatch.setattr(TC, "max_degree", lambda index: 40)
-    monkeypatch.setattr(TC, "_library", lambda: pytest.fail("built"))
-    TC._check_ceiling(40, torch.device("cuda", 0))
-    with pytest.raises(T.SumcheckError, match="ceiling on this card, 40"):
-        TC._check_ceiling(41, torch.device("cuda", 0))
 
 
 def test_cpu_prove_launches_no_kernel(monkeypatch):

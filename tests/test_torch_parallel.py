@@ -30,6 +30,7 @@ provers give those bytes), tolerance 0:
   every transcript untouched;
 - `ChainedShardedProver.auto(S)` and `ShardedGKRProver.auto(S)`: the same
   proofs, and `auto` with a size other than the group's raises;
+- fault F5 at S = 2: GKR dim 4 with an f1 of no entries;
 - fault F4's structures at S = 2 (`tests/f4_cases.py`: 17 tables at
   nv=4; a product of 9 tables, 17 pairs of 7 tables, 18 tables with a zero
   coefficient and a product of 20 tables beside 40 at nv=3), on the
@@ -119,6 +120,11 @@ def _gkr_arrays(dim: int, nnz: int, seed: int) -> dict:
     f2, f3 = J.DenseMLE.rand(dim, rnd), J.DenseMLE.rand(dim, rnd)
     return {"dim": dim, "indices": f1.indices, "values": f1.values, "f2": f2.evals,
             "f3": f3.evals, "g": [rnd.randrange(P) for _ in range(dim)]}
+
+
+def _gkr_empty_arrays(size: int) -> dict:
+    """Fault F5's case: the GKR case's dim with an f1 of no entries."""
+    return _gkr_arrays(_gkr_shape(size)[0], 0, seed=77)
 
 
 def _port_poly(a: dict):
@@ -297,6 +303,8 @@ def _rank_cases(size: int, cases: dict, init_calls: dict) -> dict:
     gkr_prove("gkr_unaligned", cases["gkr"], b"abc")
     ml_prove("ml_auto", cases["ml"], prover=ChainedShardedProver.auto(size, device="cpu"))
     gkr_prove("gkr_auto", cases["gkr"], prover=ShardedGKRProver.auto(size, device="cpu"))
+    if "gkr_empty" in cases:
+        gkr_prove("gkr_empty", cases["gkr_empty"])
     out["auto_reject"] = [
         _rejected(lambda: cls.auto(2 * size, device="cpu"), [])[0]
         for cls in (ChainedShardedProver, ShardedGKRProver, ShardedProver)]
@@ -379,6 +387,7 @@ def _cases(size: int) -> dict:
            "gkr_small": _gkr_arrays(dim, 1, seed=99), "batch": _batch_arrays(BATCH[size])}
     if size == F4_SIZE:
         out["f4"] = {name: _f4_arrays(name) for name in F4_CASES}
+        out["gkr_empty"] = _gkr_empty_arrays(size)
     return out
 
 
@@ -453,6 +462,8 @@ def _jax_reference(cases: dict, size: int) -> dict:
         sps["sp_boundary"] = sp(cases["boundary"], "aligned")
         for name, a in cases.get("f4", {}).items():
             sps[f"f4_{name}"] = sps[f"sp_f4_{name}"] = ml(a)
+        if "gkr_empty" in cases:
+            sps["gkr_empty"] = gkr(cases["gkr_empty"])
         return {"ml": ml(cases["ml"]), "boundary": ml(cases["boundary"]),
                 "ml_unaligned": ml(cases["ml"], b"abc"), "gkr": gkr(cases["gkr"]),
                 "gkr_unaligned": gkr(cases["gkr"], b"abc"),
@@ -592,6 +603,26 @@ def test_f4_structures_match_jax(runs):
             for key in (f"f4_{name}", f"sp_f4_{name}"):
                 want = ref[key]
                 assert {k: got[key][k] for k in want} == want, key
+
+
+def test_gkr_empty_f1_matches_jax(runs):
+    """Fault F5 at S = 2: an f1 with no entries, which each rank's chunk
+    pads to one zero entry, proves on every rank the JAX package's
+    single-device bytes and final transcript, with the sharded inits'
+    calls (the weight reduce and the dealt finish, 2 each); the proof
+    verifies, its subclaim holds, and the sum is 0."""
+    from sumcheck_tpu_torch import Blake2b512Rng, GKRProof, GKRRoundSumcheck
+
+    _size, ranks, ref = runs[F4_SIZE]
+    want = ref["gkr_empty"]
+    for got in ranks:
+        assert {k: got["gkr_empty"][k] for k in want} == want
+        assert got["gkr_empty"]["init_calls"] == {"weight_reduce": 2, "finish_sums": 2}
+    proof = GKRProof.deserialize_uncompressed(bytes.fromhex(want["proof"]))
+    assert proof.extract_sum().v == 0
+    a = _gkr_empty_arrays(F4_SIZE)
+    sub = GKRRoundSumcheck.verify(Blake2b512Rng.setup(), a["dim"], proof, proof.extract_sum())
+    assert sub.verify_subclaim(*_port_gkr(a))
 
 
 def test_batch_matches_each_instance(run):

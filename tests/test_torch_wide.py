@@ -221,3 +221,26 @@ def test_structure_fuzz_matches_jax(case):
     proof, _state = T.MLSumcheck.prove_as_subprotocol(rng, tp, device="cpu")
     assert serialize_proof(proof) == j_serialize(jproof)
     assert rng.fill_bytes(16) == jrng.fill_bytes(16)
+
+
+F6_DEGREE = 7300  # past the 7,241 that a block's shared memory on the H100 once set
+
+
+@pytest.mark.slow
+def test_degree_past_the_old_transcript_ceiling_matches_jax():
+    """Fault F6: a product of 7,300 repeats of one table at nv=1 (degree
+    7,300, which the card's transcript step once refused) proves on the
+    generic chain with the JAX package's host-engine bytes, challenges and
+    transcript, and verifies (minutes on the CPU: both packages evaluate
+    the product at 7,301 points)."""
+    tables = _tables(73, 1, 1)
+    products = [(1, [0] * F6_DEGREE)]
+    jp, tp = jax_poly(1, tables, products), polynomial_from_numpy(1, tables, products)
+    jproof, jstate, jrng = jax_host_prove(jp)
+    rng = T.Blake2b512Rng.setup()
+    proof, state = T.MLSumcheck.prove_as_subprotocol(rng, tp, device="cpu")
+    assert serialize_proof(proof) == j_serialize(jproof)
+    assert [r.v for r in state.randomness] == [r.v for r in jstate.randomness]
+    assert rng.fill_bytes(16) == jrng.fill_bytes(16)
+    sub = T.MLSumcheck.verify(tp.info(), T.MLSumcheck.extract_sum(proof), proof)
+    assert tp.evaluate(sub.point) == sub.expected_evaluation
