@@ -62,6 +62,7 @@ from .protocol.prover import ProverMsg
 from .transcript.blake2b_rng import Blake2b512Rng
 from .utils.config import get_config
 from .utils.errors import SumcheckError
+from .utils.tracing import span
 
 
 def _validate(fs_rngs, polynomials) -> None:
@@ -98,13 +99,17 @@ def _validate_group(fs_rngs, polynomials, group):
 
 def _prove_local(fs_rngs, polynomials, degree: int, nv: int, device):
     """The batch on one device: the batched chain where it can take the
-    instances, else the batched host loop."""
+    instances, else the batched host loop. Counts the instances in
+    `.instances`."""
+    _prove_local.instances += len(polynomials)
     if all(isinstance(r, Blake2b512Rng) for r in fs_rngs):
         res = _prove_batched_chained(fs_rngs, polynomials, degree, nv, device)
         if res is not None:
             return res
     return _prove_batched_host(fs_rngs, polynomials, degree, nv, device)
 
+
+_prove_local.instances = 0
 
 _MODULUS_BYTES = 32
 
@@ -208,7 +213,8 @@ def _prove_batched_host(fs_rngs, polynomials, degree: int, nv: int, device):
     with per-instance coefficients (round 0 over all lanes, then folds out
     of place into fresh tables), one fetch of the B sums rows, each
     transcript fed its message and sampled on the host (`Fr.rand`), and one
-    upload of the B challenges."""
+    upload of the B challenges. Counts the instances in `.instances`."""
+    _prove_batched_host.instances += len(polynomials)
     lo, hi, ones = _host_pair(polynomials, device)
     structure = [ix for _, ix in polynomials[0].products]
     max_len = max(len(ix) for ix in structure)
@@ -244,6 +250,9 @@ def _prove_batched_host(fs_rngs, polynomials, degree: int, nv: int, device):
     return proofs, challenges
 
 
+_prove_batched_host.instances = 0
+
+
 class BatchedMLSumcheck:
     """Prove B same-shaped instances at once (independent Fiat-Shamir
     transcripts; one proof per instance)."""
@@ -271,16 +280,17 @@ class BatchedMLSumcheck:
         transcript is fed, unless S divides B, the chain is the generic one
         and every transcript is a `Blake2b512Rng`."""
         fs_rngs, polynomials = list(fs_rngs), list(polynomials)
-        _validate(fs_rngs, polynomials)
-        if group is None:
-            device = device_prover.resolve_device(device)
-        else:
-            from .parallel.mesh import shard_device
+        with span("feed"):
+            _validate(fs_rngs, polynomials)
+            if group is None:
+                device = device_prover.resolve_device(device)
+            else:
+                from .parallel.mesh import shard_device
 
-            shard = _validate_group(fs_rngs, polynomials, group)
-            device = shard_device(group, device)
-        for rng, poly in zip(fs_rngs, polynomials):
-            rng.feed(poly.info())
+                shard = _validate_group(fs_rngs, polynomials, group)
+                device = shard_device(group, device)
+            for rng, poly in zip(fs_rngs, polynomials):
+                rng.feed(poly.info())
         nv = polynomials[0].num_variables
         degree = polynomials[0].max_multiplicands
         if group is None:
@@ -308,15 +318,17 @@ def _enqueue_gkr(inputs: list, state, dim: int, round_fns=None, transcript_fn=No
     shape = (len(inputs), 2, NUM_LIMBS, 1 << (dim - 1))
     device = state.device
     splits, f2s, f3s, g_rs = zip(*inputs)
-    lo = torch.empty(shape, dtype=torch.int32, device=device)
-    hi = torch.empty_like(lo)
-    ws = GI.phase1_pairs(splits, g_rs, f3s, f2s, dim, lo, hi)
+    with span("init"):
+        lo = torch.empty(shape, dtype=torch.int32, device=device)
+        hi = torch.empty_like(lo)
+        ws = GI.phase1_pairs(splits, g_rs, f3s, f2s, dim, lo, hi)
     msgs1, rs1, state = generic_prover.chain_rounds_generic_batched(
         lo, hi, state, products, 2, dim, round_fns, transcript_fn)
-    lo2 = torch.empty(shape, dtype=torch.int32, device=device)
-    hi2 = torch.empty_like(lo2)
-    GI.phase2_pairs(lo[:, :, :, :1], hi[:, :, :, :1], rs1[dim - 1], splits, ws, rs1, f3s, dim,
-                    lo2, hi2)
+    with span("init"):
+        lo2 = torch.empty(shape, dtype=torch.int32, device=device)
+        hi2 = torch.empty_like(lo2)
+        GI.phase2_pairs(lo[:, :, :, :1], hi[:, :, :, :1], rs1[dim - 1], splits, ws, rs1, f3s,
+                        dim, lo2, hi2)
     msgs2, rs2, state = generic_prover.chain_rounds_generic_batched(
         lo2, hi2, state, products, 2, dim, round_fns, transcript_fn)
     return torch.cat([msgs1, msgs2]), torch.cat([rs1, rs2]), state
@@ -331,34 +343,51 @@ class BatchedGKRRoundSumcheck:
 
     @staticmethod
     def prove(fs_rngs, f1s, f2s, f3s, gs, *, device="cuda"):
+        """One `GKRProof` an instance. Counts the instances asked for in
+        `.instances` and those proved one by one (`alone()`) in `.alone`."""
         from .gkr_round_sumcheck import GKRProof, GKRRoundSumcheck, _upload
 
-        device = device_prover.resolve_device(device)
-        batch = len(f1s)
-        if not (batch and len(fs_rngs) == batch == len(f2s) == len(f3s) == len(gs)):
-            raise SumcheckError("batched GKR needs equal-length non-empty lists")
-        dim = f2s[0].num_vars
-        for f1, f2, f3 in zip(f1s, f2s, f3s):
-            if not (f1.num_vars == 3 * dim and f2.num_vars == dim and f3.num_vars == dim):
-                raise SumcheckError("batched GKR instances must share dim")
+        with span("feed"):
+            device = device_prover.resolve_device(device)
+            batch = len(f1s)
+            if not (batch and len(fs_rngs) == batch == len(f2s) == len(f3s) == len(gs)):
+                raise SumcheckError("batched GKR needs equal-length non-empty lists")
+            dim = f2s[0].num_vars
+            for f1, f2, f3 in zip(f1s, f2s, f3s):
+                if not (f1.num_vars == 3 * dim and f2.num_vars == dim and f3.num_vars == dim):
+                    raise SumcheckError("batched GKR instances must share dim")
+            # the reference's graceful fallback (`batch.py:611-617`)
+            fallback = (len({f1.num_nonzero for f1 in f1s}) != 1
+                        or get_config().chain_impl != "generic"
+                        or not all(isinstance(r, Blake2b512Rng) for r in fs_rngs) or dim < 1)
+        _gkr_prove.instances += batch
 
         def alone():
+            _gkr_prove.alone += batch
             return [GKRRoundSumcheck.prove(r, f1, f2, f3, g, device=device)
                     for r, f1, f2, f3, g in zip(fs_rngs, f1s, f2s, f3s, gs)]
 
-        if (len({f1.num_nonzero for f1 in f1s}) != 1 or get_config().chain_impl != "generic"
-                or not all(isinstance(r, Blake2b512Rng) for r in fs_rngs) or dim < 1):
-            return alone()  # the reference's graceful fallback (`batch.py:611-617`)
+        if fallback:
+            return alone()
         state = device_prover.lift_transcripts(fs_rngs, device)
         if state is None:
             return alone()
-        inputs = [_upload(f1, f2, f3, list(g), dim, device)
-                  for f1, f2, f3, g in zip(f1s, f2s, f3s, gs)]
+        with span("inputs"):
+            inputs = [_upload(f1, f2, f3, list(g), dim, device)
+                      for f1, f2, f3, g in zip(f1s, f2s, f3s, gs)]
         msgs, rs, state = _enqueue_gkr(inputs, state, dim)
         msgs_h, _rs_h, state_h = device_prover.fetch_chain_outputs(msgs, rs, state)
-        proofs = []
-        for b, rng in enumerate(fs_rngs):
-            proofs.append(GKRProof(device_prover.msgs_from_host(msgs_h[:dim, b], 2),
-                                   device_prover.msgs_from_host(msgs_h[dim:, b], 2)))
-            device_prover.restore_transcript(rng, state_h[b])
+        with span("assemble"):
+            proofs = []
+            for b, rng in enumerate(fs_rngs):
+                proofs.append(GKRProof(device_prover.msgs_from_host(msgs_h[:dim, b], 2),
+                                       device_prover.msgs_from_host(msgs_h[dim:, b], 2)))
+                device_prover.restore_transcript(rng, state_h[b])
         return proofs
+
+
+# `prove` holds its counters; its body reaches them by this name, which stays on
+# the function when a caller puts another one in its place on the class
+_gkr_prove = BatchedGKRRoundSumcheck.prove
+_gkr_prove.instances = 0
+_gkr_prove.alone = 0

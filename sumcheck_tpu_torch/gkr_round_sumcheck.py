@@ -45,6 +45,7 @@ from .mle import DenseMLE, SparseMLE, _segment_sum_mod_p
 from .protocol import IPForMLSumcheck
 from .protocol.prover import ProverMsg, ProverState
 from .utils.errors import SumcheckError
+from .utils.tracing import span
 
 
 def initialize_phase_one(
@@ -130,22 +131,26 @@ def _enqueue(inputs: tuple, state, dim: int, round_fns=None, step_fns=None,
     # (the phase-1 final pair's slot 1 by rs1[dim-1], u's last) in its blocks
     if get_config().chain_impl == "generic":
         # both phases fold one pair each in place over run-time extents
-        lo1, hi1, w = GI.phase1_pair(split, g_r, f3_d, f2_d, dim)
+        with span("init"):
+            lo1, hi1, w = GI.phase1_pair(split, g_r, f3_d, f2_d, dim)
         msgs1, rs1, state = generic_prover.chain_rounds_generic(
             lo1, hi1, state, products, 2, dim, round_fns, transcript_fn)
         # the chain left the 1-lane final pair in lane 0
-        lo2, hi2 = GI.phase2_pair(lo1[:, :, :1], hi1[:, :, :1], rs1[dim - 1], split, w, rs1,
-                                  f3_d, dim)
+        with span("init"):
+            lo2, hi2 = GI.phase2_pair(lo1[:, :, :1], hi1[:, :, :1], rs1[dim - 1], split, w,
+                                      rs1, f3_d, dim)
         msgs2, rs2, state = generic_prover.chain_rounds_generic(
             lo2, hi2, state, products, 2, dim, round_fns, transcript_fn)
     else:
         # each fold writes fresh half-width tables; `chain_rounds` empties the
         # list it is given, so no name here keeps a folded-away pair alive
-        *pair1, w = GI.phase1_pair(split, g_r, f3_d, f2_d, dim)
+        with span("init"):
+            *pair1, w = GI.phase1_pair(split, g_r, f3_d, f2_d, dim)
         msgs1, rs1, state, final1 = device_prover.chain_rounds(
             pair1, state, products, 2, dim, step_fns, transcript_fn)
         # the chain left every table folded dim-1 times: the 1-lane final pair
-        pair2 = list(GI.phase2_pair(*final1, rs1[dim - 1], split, w, rs1, f3_d, dim))
+        with span("init"):
+            pair2 = list(GI.phase2_pair(*final1, rs1[dim - 1], split, w, rs1, f3_d, dim))
         msgs2, rs2, state, _ = device_prover.chain_rounds(
             pair2, state, products, 2, dim, step_fns, transcript_fn)
     return torch.cat([msgs1, msgs2]), torch.cat([rs1, rs2]), state
@@ -160,14 +165,16 @@ def _prove_chained(rng, f1: SparseMLE, f2: DenseMLE, f3: DenseMLE,
     of both phases' messages, challenges and the transcript state."""
     from .protocol import device_prover
 
-    inputs = _upload(f1, f2, f3, g, dim, device)
+    with span("inputs"):
+        inputs = _upload(f1, f2, f3, g, dim, device)
     state = device_prover.lift_transcript(rng, device)
     msgs, rs, state = _enqueue(inputs, state, dim, round_fns, step_fns, transcript_fn)
     # ONE synchronization for both phases and the final transcript state
     msgs_h, _rs_h, state_h = device_prover.fetch_chain_outputs(msgs, rs, state)
-    device_prover.restore_transcript(rng, state_h)
-    return GKRProof(device_prover.msgs_from_host(msgs_h[:dim], 2),
-                    device_prover.msgs_from_host(msgs_h[dim:], 2))
+    with span("assemble"):
+        device_prover.restore_transcript(rng, state_h)
+        return GKRProof(device_prover.msgs_from_host(msgs_h[:dim], 2),
+                        device_prover.msgs_from_host(msgs_h[dim:], 2))
 
 
 def _prove_host_transcript(rng, f1: SparseMLE, f2: DenseMLE, f3: DenseMLE,

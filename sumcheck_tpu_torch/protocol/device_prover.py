@@ -40,6 +40,7 @@ from ..fields.fr import NUM_DIGITS, NUM_LIMBS, Fr, P, R_INV
 from ..ops import init_cuda, round_cuda, transcript_cuda
 from ..transcript.device import DevTranscript
 from ..utils.errors import SumcheckError
+from ..utils.tracing import span
 
 
 def _fold_plan(polynomial):
@@ -116,11 +117,12 @@ def init_pair(polynomial, device, shard=None):
     l·S + s as local lanes l (`parallel/mesh.deal`), built from rank s's
     lanes of each table alone: a valid pair of 2^nv/2S lanes."""
     device = resolve_device(device)
-    lanes = (1 << polynomial.num_variables) // 2 // (shard[1] if shard else 1)
-    plan = _fold_plan(polynomial)
-    lo = torch.empty((plan[2], NUM_LIMBS, lanes), dtype=torch.int32, device=device)
-    hi = torch.empty_like(lo)
-    _fill_pair(lo, hi, polynomial, plan, device, shard)
+    with span("init"):
+        lanes = (1 << polynomial.num_variables) // 2 // (shard[1] if shard else 1)
+        plan = _fold_plan(polynomial)
+        lo = torch.empty((plan[2], NUM_LIMBS, lanes), dtype=torch.int32, device=device)
+        hi = torch.empty_like(lo)
+        _fill_pair(lo, hi, polynomial, plan, device, shard)
     return lo, hi, plan[0], polynomial.max_multiplicands
 
 
@@ -133,16 +135,17 @@ def init_pairs(polynomials, device):
     plans differ (their coefficients put different slots in the products):
     one product index structure cannot then serve them all."""
     device = resolve_device(device)
-    plans = [_fold_plan(p) for p in polynomials]
-    products, _scale, num_slots, _ones = plans[0]
-    if any(p[0] != products for p in plans):  # equal products: equal slot counts
-        return None
-    n = 1 << polynomials[0].num_variables
-    shape = (len(polynomials), num_slots, NUM_LIMBS, n // 2)
-    lo = torch.empty(shape, dtype=torch.int32, device=device)
-    hi = torch.empty_like(lo)
-    for b, (poly, plan) in enumerate(zip(polynomials, plans)):
-        _fill_pair(lo[b], hi[b], poly, plan, device)
+    with span("init"):
+        plans = [_fold_plan(p) for p in polynomials]
+        products, _scale, num_slots, _ones = plans[0]
+        if any(p[0] != products for p in plans):  # equal products: equal slot counts
+            return None
+        n = 1 << polynomials[0].num_variables
+        shape = (len(polynomials), num_slots, NUM_LIMBS, n // 2)
+        lo = torch.empty(shape, dtype=torch.int32, device=device)
+        hi = torch.empty_like(lo)
+        for b, (poly, plan) in enumerate(zip(polynomials, plans)):
+            _fill_pair(lo[b], hi[b], poly, plan, device)
     return lo, hi, products, polynomials[0].max_multiplicands
 
 
@@ -192,16 +195,18 @@ def chain_rounds(pair: list, state, products, degree: int, num_rounds: int,
     lo, hi = pair
     pair.clear()
     device = lo.device
-    msgs = torch.empty((num_rounds, NUM_DIGITS, degree + 1), dtype=torch.int32, device=device)
-    rs = torch.empty((num_rounds, NUM_DIGITS), dtype=torch.int32, device=device)
-    rows = sum_rows(num_rounds, degree, device)
-    r = None
-    for i in range(num_rounds):
-        new_pair, sums = _kernel_step(lo, hi, r, products, degree, i > 0, step_fns, rows[i])
-        if new_pair is not None:
-            lo, hi = new_pair
-        transcript(state, sums, msgs, rs, i)
-        r = rs[i]
+    with span("chain"):
+        msgs = torch.empty((num_rounds, NUM_DIGITS, degree + 1), dtype=torch.int32,
+                           device=device)
+        rs = torch.empty((num_rounds, NUM_DIGITS), dtype=torch.int32, device=device)
+        rows = sum_rows(num_rounds, degree, device)
+        r = None
+        for i in range(num_rounds):
+            new_pair, sums = _kernel_step(lo, hi, r, products, degree, i > 0, step_fns, rows[i])
+            if new_pair is not None:
+                lo, hi = new_pair
+            transcript(state, sums, msgs, rs, i)
+            r = rs[i]
     return msgs, rs, state, (lo, hi)
 
 
@@ -223,13 +228,14 @@ def chain_rounds_batched(pair: list, state, products, degree: int, num_rounds: i
     transcript = transcript_fn or transcript_cuda.transcript_step_batched
     lo, hi = pair
     pair.clear()
-    msgs, rs, rows = _batched_buffers(num_rounds, lo.shape[0], degree, lo.device)
-    for j in range(num_rounds):
-        if j == 0:
-            sums = nofold(lo, hi, products, degree, lo.shape[3], rows[0])
-        else:
-            (lo, hi), sums = fold(lo, hi, rs[j - 1], products, degree, None, rows[j])
-        transcript(state, sums, msgs, rs, j)
+    with span("chain"):
+        msgs, rs, rows = _batched_buffers(num_rounds, lo.shape[0], degree, lo.device)
+        for j in range(num_rounds):
+            if j == 0:
+                sums = nofold(lo, hi, products, degree, lo.shape[3], rows[0])
+            else:
+                (lo, hi), sums = fold(lo, hi, rs[j - 1], products, degree, None, rows[j])
+            transcript(state, sums, msgs, rs, j)
     return msgs, rs, state, (lo, hi)
 
 
@@ -248,11 +254,12 @@ def fetch_chain_outputs(msgs, rs, state):
     """One device-to-host copy of everything a chain produced; returns
     (msgs (k, [B,] 16, d+1), rs (k, [B,] 16), state ([B,] 26, 2)) as CPU
     int32 tensors."""
-    flat = torch.cat([msgs.reshape(-1), rs.reshape(-1), state.reshape(-1)]).cpu()
-    o1 = msgs.numel()
-    o2 = o1 + rs.numel()
-    return (flat[:o1].reshape(msgs.shape), flat[o1:o2].reshape(rs.shape),
-            flat[o2:].reshape(state.shape))
+    with span("fetch"):
+        flat = torch.cat([msgs.reshape(-1), rs.reshape(-1), state.reshape(-1)]).cpu()
+        o1 = msgs.numel()
+        o2 = o1 + rs.numel()
+        return (flat[:o1].reshape(msgs.shape), flat[o1:o2].reshape(rs.shape),
+                flat[o2:].reshape(state.shape))
 
 
 def upload(t: torch.Tensor, device) -> torch.Tensor:
@@ -274,7 +281,8 @@ def liftable(fs_rng) -> bool:
 
 def lift_transcript(fs_rng, device) -> torch.Tensor:
     """The packed device transcript of a host `Blake2b512Rng`, one upload."""
-    return upload(DevTranscript.lift(fs_rng.state_tuple()).to_state(), device)
+    with span("lift"):
+        return upload(DevTranscript.lift(fs_rng.state_tuple()).to_state(), device)
 
 
 def lift_transcripts(fs_rngs, device):
@@ -282,10 +290,11 @@ def lift_transcripts(fs_rngs, device):
     one upload; each keeps its own pending-byte count. None if a transcript
     holds a pending byte count that is not a multiple of 8, which the
     device transcript cannot hold."""
-    states = [r.state_tuple() for r in fs_rngs]
-    if any(len(buf) % 8 for _h, _t, buf in states):
-        return None
-    return upload(torch.stack([DevTranscript.lift(s).to_state() for s in states]), device)
+    with span("lift"):
+        states = [r.state_tuple() for r in fs_rngs]
+        if any(len(buf) % 8 for _h, _t, buf in states):
+            return None
+        return upload(torch.stack([DevTranscript.lift(s).to_state() for s in states]), device)
 
 
 def col_int(d) -> int:
@@ -316,9 +325,10 @@ def finish_chain(fs_rng, msgs, rs, state, degree: int):
     """After a chain: the one fetch, then the proof messages, the challenges
     as `Fr`, and the host transcript set to the device's final state."""
     msgs_h, rs_h, state_h = fetch_chain_outputs(msgs, rs, state)
-    prover_msgs = msgs_from_host(msgs_h, degree)
-    randomness = [Fr(col_int(rd) * R_INV % P) for rd in rs_h.numpy()]
-    restore_transcript(fs_rng, state_h)
+    with span("assemble"):
+        prover_msgs = msgs_from_host(msgs_h, degree)
+        randomness = [Fr(col_int(rd) * R_INV % P) for rd in rs_h.numpy()]
+        restore_transcript(fs_rng, state_h)
     return prover_msgs, randomness
 
 
@@ -327,11 +337,12 @@ def finish_chain_batched(fs_rngs, msgs, rs, state, degree: int):
     instance's proof messages and challenges, and each host transcript set
     to its device state. Returns (proofs, challenges), lists of B."""
     msgs_h, rs_h, state_h = fetch_chain_outputs(msgs, rs, state)
-    proofs, challenges = [], []
-    for b, rng in enumerate(fs_rngs):
-        proofs.append(msgs_from_host(msgs_h[:, b], degree))
-        challenges.append([Fr(col_int(rd) * R_INV % P) for rd in rs_h[:, b].numpy()])
-        restore_transcript(rng, state_h[b])
+    with span("assemble"):
+        proofs, challenges = [], []
+        for b, rng in enumerate(fs_rngs):
+            proofs.append(msgs_from_host(msgs_h[:, b], degree))
+            challenges.append([Fr(col_int(rd) * R_INV % P) for rd in rs_h[:, b].numpy()])
+            restore_transcript(rng, state_h[b])
     return proofs, challenges
 
 

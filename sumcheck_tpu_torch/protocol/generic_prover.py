@@ -46,6 +46,7 @@ from ..fields.fr import NUM_DIGITS
 from ..ops import round_cuda, transcript_cuda
 from ..utils.config import get_config
 from ..utils.errors import SumcheckError
+from ..utils.tracing import span
 from .device_prover import (
     _batched_buffers,
     finish_chain,
@@ -79,18 +80,20 @@ def chain_rounds_generic(lo, hi, state, products, degree: int, num_rounds: int,
     transcript = transcript_fn or transcript_cuda.transcript_step
     device = lo.device
     half = lo.shape[2] if r0 is None else lo.shape[2] // 2
-    msgs = torch.empty((num_rounds, NUM_DIGITS, degree + 1), dtype=torch.int32, device=device)
-    rs = torch.empty((num_rounds, NUM_DIGITS), dtype=torch.int32, device=device)
-    rows = sum_rows(num_rounds, degree, device)
-    for j in range(num_rounds):
-        extent = half >> j
-        if j == 0 and r0 is None:
-            sums = nofold(lo, hi, products, degree, extent, rows[j])
-        else:
-            sums = fold(lo, hi, rs[j - 1] if j else r0, products, degree, extent, rows[j])
-        if reduce_fn is not None:
-            reduce_fn(sums)
-        transcript(state, sums, msgs, rs, j)
+    with span("chain"):
+        msgs = torch.empty((num_rounds, NUM_DIGITS, degree + 1), dtype=torch.int32,
+                           device=device)
+        rs = torch.empty((num_rounds, NUM_DIGITS), dtype=torch.int32, device=device)
+        rows = sum_rows(num_rounds, degree, device)
+        for j in range(num_rounds):
+            extent = half >> j
+            if j == 0 and r0 is None:
+                sums = nofold(lo, hi, products, degree, extent, rows[j])
+            else:
+                sums = fold(lo, hi, rs[j - 1] if j else r0, products, degree, extent, rows[j])
+            if reduce_fn is not None:
+                reduce_fn(sums)
+            transcript(state, sums, msgs, rs, j)
     return msgs, rs, state
 
 
@@ -111,14 +114,15 @@ def chain_rounds_generic_batched(lo, hi, state, products, degree: int, num_round
     nofold, fold = round_fns or (round_cuda.round_nofold_batched, round_cuda.round_fold_batched)
     transcript = transcript_fn or transcript_cuda.transcript_step_batched
     half = lo.shape[3]
-    msgs, rs, rows = _batched_buffers(num_rounds, lo.shape[0], degree, lo.device)
-    for j in range(num_rounds):
-        extent = half >> j
-        if j == 0:
-            sums = nofold(lo, hi, products, degree, extent, rows[j])
-        else:
-            sums = fold(lo, hi, rs[j - 1], products, degree, extent, rows[j])
-        transcript(state, sums, msgs, rs, j)
+    with span("chain"):
+        msgs, rs, rows = _batched_buffers(num_rounds, lo.shape[0], degree, lo.device)
+        for j in range(num_rounds):
+            extent = half >> j
+            if j == 0:
+                sums = nofold(lo, hi, products, degree, extent, rows[j])
+            else:
+                sums = fold(lo, hi, rs[j - 1], products, degree, extent, rows[j])
+            transcript(state, sums, msgs, rs, j)
     return msgs, rs, state
 
 
